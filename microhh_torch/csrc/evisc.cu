@@ -1,0 +1,295 @@
+// K1: strain rate squared and the stability-corrected Smagorinsky eddy
+// viscosity on the interior levels (diff_smag2.cxx calc_strain2 +
+// calc_evisc).
+//
+// Replaces the TPU kernel FusedLES2.evisc / _evisc_body
+// (microhh_tpu/ops/pallas_fused.py:1417, pallas_call :1441), full-plane
+// variant with fold_ghosts: the fields are read raw and the k index of each
+// neighbour plane is clamped (u, v, th to [ks, ke-1], w to [ks, ke]), which
+// equals the ghost value for the zero-gradient top BCs; the MOST wall row
+// is patched afterwards in torch (ops/fused.py surface_evisc_row).
+//
+// K7: the adaptive-dt limits pass, the per-level maxima of the CFL rate
+// (advec_2.cxx:50-78 pointwise expression) and of the same eddy viscosity,
+// in one read of u, v, w, th and with no field-sized write.  Replaces
+// FusedLES2.limits_pass / _limits_body (pallas_fused.py:1502, pallas_call
+// :1524); the per-level dt factors and the MOST row are applied by the
+// caller on the (ktot,) maxima, as the JAX package does.
+//
+// Bound: device-memory bytes.  Per output point K1 does ~100 flops on 4
+// field reads and 1 write (~20 B in f32), far below the H100's ~20 flop/B
+// balance.  Design: the k-marching tile with a shared-memory ring
+// (common.cuh) reads each field once (plus a 1/3 halo) and writes the
+// output once; the per-level coefficients come from a small table that
+// every thread of a block reads at the same address.  K7 reduces each
+// level's tile to one maximum per block (warp shuffles, then one slot per
+// warp) and writes it to a (2, ktot, blocks) partial array; a second small
+// kernel takes the maximum over the blocks, so the result does not depend
+// on the order in which blocks finish.
+#include "common.cuh"
+
+namespace mhh {
+
+// per-level table columns (ops/fused.py E_*)
+enum { E_DZI, E_DZHI, E_DZHI1, E_MLEN2, E_THREF, E_TOPS, NE };
+
+// the four fields' ring: u, v, w, th
+template <typename T>
+using Ring = T[4][3][HJ][HI];
+
+template <typename T>
+__device__ __forceinline__ void load_ring(Ring<T>& sh, const T* __restrict__ u,
+                                          const T* __restrict__ v,
+                                          const T* __restrict__ w,
+                                          const T* __restrict__ th, int p,
+                                          int ks, int ke, int j0, int i0,
+                                          int jtot, int itot) {
+    const int s = slot(p);
+    load_tile(sh[0][s], u, clampi(ks + p, ks, ke - 1), j0, i0, jtot, itot);
+    load_tile(sh[1][s], v, clampi(ks + p, ks, ke - 1), j0, i0, jtot, itot);
+    load_tile(sh[2][s], w, clampi(ks + p, ks, ke), j0, i0, jtot, itot);
+    load_tile(sh[3][s], th, clampi(ks + p, ks, ke - 1), j0, i0, jtot, itot);
+}
+
+#define U(s, dj, di) sh[0][s][r + (dj)][c + (di)]
+#define V(s, dj, di) sh[1][s][r + (dj)][c + (di)]
+#define W(s, dj, di) sh[2][s][r + (dj)][c + (di)]
+#define TH(s) sh[3][s][r][c]
+
+// eddy viscosity at interior level k of the thread's tile point
+template <typename T>
+__device__ __forceinline__ T evisc_point(const Ring<T>& sh, int k,
+                                         const T* __restrict__ ce, T dxi,
+                                         T dyi, T tPr, int stratified) {
+    const T dsmall = T(1.e-9), grav = T(9.81);
+    const int km = slot(k - 1), kc = slot(k), kp = slot(k + 1);
+    const int r = threadIdx.y + 1, c = threadIdx.x + 1;
+    const T* cc = ce + (long long)k * NE;
+    const T dzi = cc[E_DZI], dzhi = cc[E_DZHI], dzhi1 = cc[E_DZHI1];
+    const T mlen2 = cc[E_MLEN2];
+
+    const T dudx = (U(kc, 0, 1) - U(kc, 0, 0)) * dxi;
+    const T dvdy = (V(kc, 1, 0) - V(kc, 0, 0)) * dyi;
+    const T dwdz = (W(kp, 0, 0) - W(kc, 0, 0)) * dzi;
+
+    // (du/dy + dv/dx) at the four corners of the cell
+    auto cor = [&](int dj, int di) {
+        return (U(kc, dj, di) - U(kc, dj - 1, di)) * dyi
+               + (V(kc, dj, di) - V(kc, dj, di - 1)) * dxi;
+    };
+    const T c00 = cor(0, 0), c01 = cor(0, 1), c10 = cor(1, 0), c11 = cor(1, 1);
+    const T horiz = T(0.125) * (c00 * c00 + c01 * c01 + c10 * c10 + c11 * c11);
+
+    auto duz_lo = [&](int di) {
+        return (U(kc, 0, di) - U(km, 0, di)) * dzhi
+               + (W(kc, 0, di) - W(kc, 0, di - 1)) * dxi;
+    };
+    auto duz_hi = [&](int di) {
+        return (U(kp, 0, di) - U(kc, 0, di)) * dzhi1
+               + (W(kp, 0, di) - W(kp, 0, di - 1)) * dxi;
+    };
+    const T xl0 = duz_lo(0), xl1 = duz_lo(1), xh0 = duz_hi(0), xh1 = duz_hi(1);
+    const T vert_x = T(0.125) * (xl0 * xl0 + xl1 * xl1 + xh0 * xh0 + xh1 * xh1);
+
+    auto dvz_lo = [&](int dj) {
+        return (V(kc, dj, 0) - V(km, dj, 0)) * dzhi
+               + (W(kc, dj, 0) - W(kc, dj - 1, 0)) * dyi;
+    };
+    auto dvz_hi = [&](int dj) {
+        return (V(kp, dj, 0) - V(kc, dj, 0)) * dzhi1
+               + (W(kp, dj, 0) - W(kp, dj - 1, 0)) * dyi;
+    };
+    const T yl0 = dvz_lo(0), yl1 = dvz_lo(1), yh0 = dvz_hi(0), yh1 = dvz_hi(1);
+    const T vert_y = T(0.125) * (yl0 * yl0 + yl1 * yl1 + yh0 * yh0 + yh1 * yh1);
+
+    const T strain2 = T(2) * (dudx * dudx + dvdy * dvdy + dwdz * dwdz + horiz
+                              + vert_x + vert_y) + dsmall;
+    if (!stratified) return mlen2 * sqrt(strain2);
+    // E_TOPS patches the clamped top plane with the scalar's top-gradient
+    // ghost offset (zero elsewhere)
+    const T n2 = grav / cc[E_THREF] * T(0.5) * (TH(kp) + cc[E_TOPS] - TH(km))
+                 * dzi;
+    const T a = n2 * (T(-1) / tPr) + strain2;
+    const T b = strain2 * dsmall;
+    return mlen2 * sqrt(a > b ? a : b);
+}
+
+// CFL rate at interior level k (advec_2 cfl_max pointwise expression)
+template <typename T>
+__device__ __forceinline__ T cfl_point(const Ring<T>& sh, int k,
+                                       const T* __restrict__ ce, T dxi,
+                                       T dyi) {
+    const int kc = slot(k), kp = slot(k + 1);
+    const int r = threadIdx.y + 1, c = threadIdx.x + 1;
+    const T half = T(0.5);
+    return fabs(half * (U(kc, 0, 0) + U(kc, 0, 1))) * dxi
+           + fabs(half * (V(kc, 0, 0) + V(kc, 1, 0))) * dyi
+           + fabs(half * (W(kc, 0, 0) + W(kp, 0, 0))) * ce[(long long)k * NE + E_DZI];
+}
+
+#undef U
+#undef V
+#undef W
+#undef TH
+
+template <typename T>
+__global__ void __launch_bounds__(TI * TJ)
+evisc_kernel(const T* __restrict__ u, const T* __restrict__ v,
+             const T* __restrict__ w, const T* __restrict__ th,
+             T* __restrict__ out, const T* __restrict__ ce,
+             int itot, int jtot, int ktot, int ks,
+             T dxi, T dyi, T tPr, int stratified) {
+    __shared__ Ring<T> sh;
+    const int i0 = blockIdx.x * TI, j0 = blockIdx.y * TJ;
+    const int i = i0 + threadIdx.x, j = j0 + threadIdx.y;
+    const bool inside = i < itot && j < jtot;
+    const int ke = ks + ktot;
+    const long long plane = (long long)itot * jtot;
+
+    load_ring(sh, u, v, w, th, -1, ks, ke, j0, i0, jtot, itot);
+    load_ring(sh, u, v, w, th, 0, ks, ke, j0, i0, jtot, itot);
+    for (int k = 0; k < ktot; ++k) {
+        load_ring(sh, u, v, w, th, k + 1, ks, ke, j0, i0, jtot, itot);
+        __syncthreads();
+        if (inside)
+            out[(long long)k * plane + (long long)j * itot + i] =
+                evisc_point(sh, k, ce, dxi, dyi, tPr, stratified);
+        __syncthreads();
+    }
+}
+
+// max that keeps a NaN, as jnp.max does
+template <typename T>
+__device__ __forceinline__ T nanmax(T a, T b) {
+    return (a != a || a > b) ? a : b;
+}
+
+template <typename T>
+__device__ __forceinline__ T warp_max(T x) {
+    for (int off = 16; off > 0; off >>= 1)
+        x = nanmax(x, __shfl_xor_sync(0xffffffffu, x, off));
+    return x;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(TI * TJ)
+limits_kernel(const T* __restrict__ u, const T* __restrict__ v,
+              const T* __restrict__ w, const T* __restrict__ th,
+              T* __restrict__ part, const T* __restrict__ ce,
+              int itot, int jtot, int ktot, int ks,
+              T dxi, T dyi, T tPr, int stratified) {
+    constexpr int NW = TI * TJ / 32;
+    __shared__ Ring<T> sh;
+    __shared__ T red[2][NW];
+    const int i0 = blockIdx.x * TI, j0 = blockIdx.y * TJ;
+    const bool inside = i0 + (int)threadIdx.x < itot
+                        && j0 + (int)threadIdx.y < jtot;
+    const int ke = ks + ktot;
+    const int tid = threadIdx.y * TI + threadIdx.x;
+    const long long nblk = (long long)gridDim.x * gridDim.y;
+    const long long blk = (long long)blockIdx.y * gridDim.x + blockIdx.x;
+
+    load_ring(sh, u, v, w, th, -1, ks, ke, j0, i0, jtot, itot);
+    load_ring(sh, u, v, w, th, 0, ks, ke, j0, i0, jtot, itot);
+    for (int k = 0; k < ktot; ++k) {
+        load_ring(sh, u, v, w, th, k + 1, ks, ke, j0, i0, jtot, itot);
+        __syncthreads();
+        // both rates are >= 0: a point outside the grid contributes 0
+        T cfl = T(0), ev = T(0);
+        if (inside) {
+            cfl = cfl_point(sh, k, ce, dxi, dyi);
+            ev = evisc_point(sh, k, ce, dxi, dyi, tPr, stratified);
+        }
+        cfl = warp_max(cfl);
+        ev = warp_max(ev);
+        if ((tid & 31) == 0) {
+            red[0][tid >> 5] = cfl;
+            red[1][tid >> 5] = ev;
+        }
+        __syncthreads();
+        if (tid == 0) {
+            for (int q = 1; q < NW; ++q) {
+                cfl = nanmax(cfl, red[0][q]);
+                ev = nanmax(ev, red[1][q]);
+            }
+            part[(long long)k * nblk + blk] = cfl;
+            part[((long long)ktot + k) * nblk + blk] = ev;
+        }
+        __syncthreads();
+    }
+}
+
+// out[row] = max over the nblk partial maxima of row (2*ktot rows)
+template <typename T>
+__global__ void __launch_bounds__(256)
+limits_reduce(const T* __restrict__ part, T* __restrict__ out, long long nblk) {
+    __shared__ T red[256 / 32];
+    const T* row = part + (long long)blockIdx.x * nblk;
+    T m = T(0);
+    for (long long q = threadIdx.x; q < nblk; q += blockDim.x)
+        m = nanmax(m, row[q]);
+    m = warp_max(m);
+    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = m;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        for (int q = 1; q < 256 / 32; ++q) m = nanmax(m, red[q]);
+        out[blockIdx.x] = m;
+    }
+}
+
+template <typename T>
+int launch_evisc(const T* u, const T* v, const T* w, const T* th, T* out,
+                 const T* ce, int itot, int jtot, int ktot, int ks, double dxi,
+                 double dyi, double tPr, int stratified, cudaStream_t stream) {
+    const dim3 block(TI, TJ);
+    const dim3 grid((itot + TI - 1) / TI, (jtot + TJ - 1) / TJ);
+    evisc_kernel<T><<<grid, block, 0, stream>>>(
+        u, v, w, th, out, ce, itot, jtot, ktot, ks, T(dxi), T(dyi), T(tPr),
+        stratified);
+    return (int)cudaGetLastError();
+}
+
+// part: (2, ktot, tiles) scratch, tiles = ceil(itot/TI) * ceil(jtot/TJ);
+// out: (2, ktot) per-level maxima of the CFL rate and the eddy viscosity
+template <typename T>
+int launch_limits(const T* u, const T* v, const T* w, const T* th, T* part,
+                  T* out, const T* ce, int itot, int jtot, int ktot, int ks,
+                  double dxi, double dyi, double tPr, int stratified,
+                  cudaStream_t stream) {
+    const dim3 block(TI, TJ);
+    const dim3 grid((itot + TI - 1) / TI, (jtot + TJ - 1) / TJ);
+    limits_kernel<T><<<grid, block, 0, stream>>>(
+        u, v, w, th, part, ce, itot, jtot, ktot, ks, T(dxi), T(dyi), T(tPr),
+        stratified);
+    if (int rc = (int)cudaGetLastError()) return rc;
+    limits_reduce<T><<<2 * ktot, 256, 0, stream>>>(
+        part, out, (long long)grid.x * grid.y);
+    return (int)cudaGetLastError();
+}
+
+}  // namespace mhh
+
+#define MHH_EVISC(SUF, T)                                                     \
+    extern "C" int mhh_evisc_##SUF(                                           \
+        const void* u, const void* v, const void* w, const void* th,          \
+        void* out, const void* ce, int itot, int jtot, int ktot, int ks,      \
+        double dxi, double dyi, double tPr, int stratified, void* stream) {   \
+        return mhh::launch_evisc<T>((const T*)u, (const T*)v, (const T*)w,    \
+                                    (const T*)th, (T*)out, (const T*)ce,      \
+                                    itot, jtot, ktot, ks, dxi, dyi, tPr,      \
+                                    stratified, (cudaStream_t)stream);        \
+    }                                                                         \
+    extern "C" int mhh_limits_##SUF(                                          \
+        const void* u, const void* v, const void* w, const void* th,          \
+        void* part, void* out, const void* ce, int itot, int jtot, int ktot,  \
+        int ks, double dxi, double dyi, double tPr, int stratified,           \
+        void* stream) {                                                       \
+        return mhh::launch_limits<T>((const T*)u, (const T*)v, (const T*)w,   \
+                                     (const T*)th, (T*)part, (T*)out,         \
+                                     (const T*)ce, itot, jtot, ktot, ks, dxi, \
+                                     dyi, tPr, stratified,                    \
+                                     (cudaStream_t)stream);                   \
+    }
+
+MHH_EVISC(f32, float)
+MHH_EVISC(f64, double)

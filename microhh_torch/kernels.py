@@ -1,0 +1,164 @@
+"""Build and bind the port's hand-written CUDA kernels (``csrc/*.cu``).
+
+The sources are compiled at first use with ``nvcc`` for ``sm_90a`` into one
+shared library with a plain C interface, under ``build/microhh_torch/`` at
+the root of the checkout, and loaded with ctypes.  The library's name holds a
+hash of the sources and flags, so an edited source is rebuilt and an
+unchanged one is reused.
+
+Every C entry ``mhh_<kernel>_<f32|f64>`` launches on the stream it is given,
+allocates nothing and returns ``cudaGetLastError()``.  A ``Kernel`` object is
+the Python side of one such kernel: it passes the pointers, raises on a
+failed launch and counts its launches, so a run can show that its main path
+went through the kernel.
+"""
+
+import ctypes
+import functools
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+import torch
+
+PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+CSRC_DIR = os.path.join(PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "microhh_torch")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+
+# C signatures without the trailing stream argument (csrc/*.cu).
+SIGNATURES = {
+    # u, v, w, th, out, ce; itot, jtot, ktot, ks; dxi, dyi, tPr; stratified
+    "evisc": [_P] * 6 + [_I] * 4 + [_D] * 3 + [_I],
+    # u, v, w, th, e, us, vs, ws, ths, tu, tv, tw, tth, ct; itot, jtot, ktot,
+    # ks; dxi, dyi, visc, svisc, tPr, cbdt, can; first, carry
+    "tend_rk": [_P] * 14 + [_I] * 4 + [_D] * 7 + [_I] * 2,
+    # spectrum (complex, in place), winv, tab; kmax, nmodes
+    "tdma": [_P] * 3 + [_I, ctypes.c_longlong],
+    # u, v, w, out, pc; itot, jtot, ktot, ks; dxi, dyi, dti
+    "pres_rhs": [_P] * 5 + [_I] * 4 + [_D] * 3,
+    # p, su, sv, sw, tu, tv, tw, pc; itot, jtot, ktot, ks; dxi, dyi, dt, can;
+    # carry
+    "pres_apply": [_P] * 8 + [_I] * 4 + [_D] * 4 + [_I],
+    # real x, complex y; kt, jtot, itot
+    "dft_fwd": [_P] * 2 + [_I] * 3,
+    # complex y (overwritten), real x; kt, jtot, itot
+    "dft_inv": [_P] * 2 + [_I] * 3,
+    # u, v, w, th, part, out, ce; itot, jtot, ktot, ks; dxi, dyi, tPr;
+    # stratified
+    "limits": [_P] * 7 + [_I] * 4 + [_D] * 3 + [_I],
+}
+
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+
+
+def _nvcc():
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    return os.path.join(home, "bin", "nvcc")
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu"))
+                  + glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+
+
+def library_path():
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in _sources():
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + f.read())
+    return os.path.join(BUILD_DIR, "libmicrohh_torch_%s.so" % h.hexdigest()[:16])
+
+
+def build():
+    """Compile csrc/*.cu unless the library for these sources exists.
+    Returns (library path, seconds spent compiling, compiler log)."""
+    path = library_path()
+    log_path = path[:-3] + ".log"
+    if os.path.exists(path):
+        log = open(log_path).read() if os.path.exists(log_path) else ""
+        return path, 0., log
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = "%s.%d.tmp" % (path, os.getpid())
+    cus = [p for p in _sources() if p.endswith(".cu")]
+    t0 = time.perf_counter()
+    proc = subprocess.run([_nvcc()] + NVCC_FLAGS + ["-I", CSRC_DIR, "-o", tmp]
+                          + cus, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError("nvcc failed (exit %d):\n%s" % (proc.returncode, log))
+    with open(log_path, "w") as f:
+        f.write(log)
+    os.replace(tmp, path)
+    return path, seconds, log
+
+
+@functools.lru_cache(maxsize=None)
+def load():
+    """The loaded kernel library (built on first use), argtypes declared."""
+    path, _, _ = build()
+    lib = ctypes.CDLL(path)
+    for name, args in SIGNATURES.items():
+        for suffix in _SUFFIX.values():
+            fn = getattr(lib, "mhh_%s_%s" % (name, suffix))
+            fn.argtypes = args + [_P]
+            fn.restype = ctypes.c_int
+    return lib
+
+
+class Kernel:
+    """One hand-written CUDA kernel: its C entry, where its source lies,
+    which TPU kernel it replaces, and how often it was launched."""
+
+    def __init__(self, name, source, replaces):
+        if name not in SIGNATURES:
+            raise KeyError(name)
+        self.name = name
+        self.source = source
+        self.replaces = replaces
+        self.launches = 0
+
+    def __call__(self, dtype, *args):
+        fn = getattr(load(), "mhh_%s_%s" % (self.name, _SUFFIX[dtype]))
+        ptrs = [a.data_ptr() if torch.is_tensor(a) else a for a in args]
+        rc = fn(*ptrs, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError("CUDA kernel %s failed to launch (cudaError %d)"
+                               % (self.name, rc))
+        self.launches += 1
+
+
+def check(tensors, dtype, device, shapes=None):
+    """Raise unless every tensor is contiguous, of dtype on device, and of
+    the given shape (shapes: one tuple per tensor, or None)."""
+    if dtype not in _SUFFIX:
+        raise TypeError("kernels take float32 or float64, not %s" % dtype)
+    for n, a in enumerate(tensors):
+        if a.dtype != dtype or a.device != device:
+            raise TypeError("tensor %d is %s on %s, expected %s on %s"
+                            % (n, a.dtype, a.device, dtype, device))
+        if not a.is_contiguous():
+            raise ValueError("tensor %d is not contiguous" % n)
+        if shapes is not None and tuple(a.shape) != tuple(shapes[n]):
+            raise ValueError("tensor %d has shape %s, expected %s"
+                             % (n, tuple(a.shape), tuple(shapes[n])))
+
+
+def on_cpu(t):
+    """True for a CPU tensor (plain-torch path), False for a CUDA tensor
+    (kernel path); any other device raises."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type == "cuda":
+        return False
+    raise TypeError("no kernel for device %s" % t.device)

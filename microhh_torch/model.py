@@ -1,0 +1,391 @@
+"""Model orchestration of the PyTorch port (``microhh_tpu/model.py``; reference
+``src/model.cxx``).
+
+One RK step runs eagerly on the model's device: per substep the eddy
+viscosity (K1), the MOST surface, the RK tendency sweep (K2) with its wall
+patches, and the projection (K4 rhs -> DFT K5 -> Thomas K3 -> inverse DFT
+K6 -> K4 apply).  The host loop takes the adaptive-dt limits from one pass
+(K7) and does the integer-time bookkeeping, the status table and the
+restarts, as the reference's main loop (``src/model.cxx:303-557``) does.
+
+The port carries the drycblles slice of the JAX package's fused path
+(full-plane kernels with ``fold_ghosts``, slim limits).  An option outside
+it raises NotImplementedError naming its ROADMAP item.  The model runs on
+the device it is given, by default the first CUDA device; ``device="cpu"``
+runs every kernel's plain-torch version instead.
+"""
+
+import os
+import time as _time
+
+import numpy as np
+import torch
+
+from .config import Ini
+from .grid import Grid
+from .fields import Fields
+from .timeloop import Timeloop
+from . import ops
+from .ops import not_ported
+from .ops.boundary import NEUMANN, FLUX
+from .ops.buffer import make_buffer
+from .ops.fused import (Fused, PresGlue, exec_viscosity, tendencies_rk,
+                        pressure_rk, surface_evisc_row)
+from .ops.stencil import ip, jp, i2
+
+NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
+
+
+class Context:
+    """Grid and metric constants of the step, as tensors of the run's dtype
+    on its device, plus float64 numpy copies for the kernels' per-level tables."""
+
+    def __init__(self, grid, fields, dtype, device):
+        self.dtype = dtype
+        self.device = torch.device(device)
+        g = grid
+        self.ks, self.ke = g.kstart, g.kend
+        self.itot, self.jtot, self.ktot = g.itot, g.jtot, g.ktot
+        self.kcells = g.kcells
+        self.dxi, self.dyi = float(g.dxi), float(g.dyi)
+        self.zsize = g.zsize
+        for name in ("z", "dz", "dzh", "dzi", "dzhi"):
+            setattr(self, name, self.tensor(getattr(g, name)))
+        self.rhoref = self.tensor(fields.rhoref)
+        self.rhorefh = self.tensor(fields.rhorefh)
+        self.scalar_names = tuple(fields.sp.keys())
+        self.np_dzi = np.asarray(g.dzi, dtype=np.float64)
+        self.np_dzhi = np.asarray(g.dzhi, dtype=np.float64)
+        self.np_rhoref = np.asarray(fields.rhoref, dtype=np.float64)
+        self.np_rhorefh = np.asarray(fields.rhorefh, dtype=np.float64)
+
+    def tensor(self, a):
+        return torch.as_tensor(np.asarray(a), dtype=self.dtype,
+                               device=self.device)
+
+
+def check_slice(ini, grid, sim_mode):
+    """Raise NotImplementedError for an option the port does not carry."""
+    def switch(section, item):
+        return ini.get_str(section, item, default="0") not in ("0", "false")
+
+    decay = ini.items.get("decay", {}).get("swdecay", {})
+    outside = [
+        (grid.spatial_order != 2, "[grid] swspatialorder=4", 11),
+        (ini.get_list(str, "fields", "slist", default=[]),
+         "[fields] slist (passive scalars)", 9),
+        (switch("micro", "swmicro"), "[micro] swmicro", 9),
+        (switch("radiation", "swradiation"), "[radiation] swradiation", 13),
+        (any(switch("force", n) for n in ("swlspres", "swls", "swwls",
+                                          "swnudge")),
+         "[force] (large-scale forcing and the Coriolis fold)", 9),
+        (ini.get_list(str, "limiter", "limitlist", default=[]),
+         "[limiter] limitlist", 9),
+        (any(v not in ("0", "false") for v in decay.values()),
+         "[decay] swdecay", 9),
+        (switch("source", "swsource"), "[source] swsource", 9),
+        (ini.get_bool("boundary", "swtimedep", default=False),
+         "[boundary] swtimedep", 14),
+        (ini.get_list(str, "boundary", "sbot_2d_list", default=[]),
+         "[boundary] sbot_2d_list", 14),
+        (ini.get_list(str, "boundary", "scalar_outflow", default=[]),
+         "[boundary] scalar_outflow", 14),
+        (ini.get_str("IB", "sw_immersed_boundary",
+                     default=ini.get_str("IB", "swib", default="0"))
+         not in ("0", "false", "disabled"), "[IB] immersed boundary", 14),
+        (ini.get_bool("grid", "swtimedep", default=False),
+         "[grid] swtimedep", 14),
+        (ini.get_bool("buffer", "swupdate", default=False),
+         "[buffer] swupdate", 9),
+    ]
+    if sim_mode != "init":
+        outside += [
+            (ini.get_int("stats", "swstats", default=0) != 0,
+             "[stats] swstats=1", 8),
+            (switch("cross", "swcross"), "[cross] swcross", 15),
+            (switch("dump", "swdump"), "[dump] swdump", 15),
+            (switch("column", "swcolumn"), "[column] swcolumn", 15),
+        ]
+    for active, what, item in outside:
+        if active:
+            raise not_ported(what, item)
+
+
+class Model:
+    def __init__(self, ini, sim_mode, casename="", workdir=".",
+                 dtype=torch.float32, device="cuda"):
+        if isinstance(ini, str):
+            ini = Ini(ini)
+        self.ini = ini
+        self.sim_mode = sim_mode
+        self.casename = casename
+        self.workdir = workdir
+        self.dtype = dtype
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device; device='cpu' runs the "
+                               "plain-torch versions of the kernels")
+
+        self.input_nc = None
+        nc_path = os.path.join(workdir, "%s_input.nc" % casename)
+        if os.path.exists(nc_path):
+            from .utils import nc
+            self.input_nc = nc.Dataset(nc_path, "r")
+
+        # [master] npx/npy: the process-grid decomposition, read in every
+        # mode like the reference; the port runs on one device.
+        ini.get_int("master", "npx", default=1)
+        ini.get_int("master", "npy", default=1)
+        self.grid = Grid(ini)
+        if self.input_nc is not None and "z" in self.input_nc.variables:
+            self.grid.set_z(np.asarray(self.input_nc.variables["z"][:self.grid.ktot]))
+        else:
+            dz = self.grid.zsize / self.grid.ktot
+            self.grid.set_z(np.linspace(0.5 * dz, self.grid.zsize - 0.5 * dz,
+                                        self.grid.ktot))
+        check_slice(ini, self.grid, sim_mode)
+
+        self.fields = Fields(ini, self.grid)
+        self.thermo = ops.make_thermo(ini, self.grid, self.fields)
+        self.boundary = ops.make_boundary(ini, self.fields, self.grid)
+        self.advec = ops.make_advec(ini, self.grid, self.fields)
+        self.diff = ops.make_diff(ini, self.grid, self.fields, self.boundary)
+        self.diff.thermo = self.thermo
+        self.boundary.thermo = self.thermo
+        self.pres = ops.make_pres(ini, self.grid, self.fields)
+        self.buffer = make_buffer(ini, self.grid, self.fields, self.input_nc)
+        self.timeloop = Timeloop(ini, sim_mode)
+        # [master] wallclocklimit in hours (reference master.cxx:80-89)
+        self.wallclocklimit = ini.get_float("master", "wallclocklimit",
+                                            default=1.e8)
+        self._wall_start = _time.time()
+        self._last_wallclock = _time.time()
+        self._last_sfc = None
+        self.fused = None
+
+    def at_wall_clock_limit(self):
+        return (_time.time() - self._wall_start) > self.wallclocklimit * 3600. - 600.
+
+    # ------------------------------------------------------------------
+    def finish_setup(self):
+        """Base state + solver precomputation; call before init/run."""
+        self.thermo.create_basestate(self.input_nc)
+        self.ctx = Context(self.grid, self.fields, self.dtype, self.device)
+        self.pres.set_values(self.ctx)
+
+    # ------------------------------------------------------------------
+    #  init mode
+    # ------------------------------------------------------------------
+    def save_initial_state(self, state=None):
+        """Write the restart files of time 0.  ``state``: initial fields to
+        save instead of Fields.create's (a case without an input NetCDF that
+        sets its mean profiles itself)."""
+        np_dtype = NP_DTYPE[self.dtype]
+        if state is None:
+            state = self.fields.create(self.input_nc, dtype=np_dtype)
+        # the MOST warm-start planes belong to every restart chain
+        # (boundary_surface.cxx save)
+        sfc0 = self.boundary.init_surface_state(dtype=np_dtype)
+        self.boundary.save(sfc0, 0, self.workdir)
+        self.grid.save(os.path.join(self.workdir, "grid.%07d" % 0))
+        self.fields.save(state, 0, self.workdir)
+        self.timeloop.save(0, self.workdir)
+        self.thermo.save_basestate(0, self.workdir)
+        return state
+
+    # ------------------------------------------------------------------
+    #  the step
+    # ------------------------------------------------------------------
+    def build_step(self):
+        """Build the kernel wrappers and the RK carry for this case.  The
+        kernels read clamped k neighbours instead of ghost cells, which is
+        exact for a free-slip top and a Neumann or flux top for th."""
+        ctx = self.ctx
+        bcs = self.boundary.bcs
+        if not all(bcs[n].bctop == NEUMANN and bcs[n].top == 0.
+                   for n in ("u", "v")):
+            raise not_ported("a momentum top BC other than free slip "
+                             "(the ghost-filled kernel variant)", 7)
+        bc = bcs["th"]
+        if bc.bctop not in (NEUMANN, FLUX):
+            raise not_ported("a Dirichlet top BC for th "
+                             "(the ghost-filled kernel variant)", 7)
+        top_grad = bc.top if bc.bctop == NEUMANN else -bc.top / self.boundary.viscs["th"]
+        self.fused = Fused(ctx, self.diff, self.thermo, self.buffer, top_grad)
+        self.glue = PresGlue(ctx)
+        shape = (ctx.kcells, ctx.jtot, ctx.itot)
+        self.t = {n: torch.zeros(shape, dtype=self.dtype, device=self.device)
+                  for n in self.fields.prognostic_names}
+
+    def kernels(self):
+        """The hand-written kernels of the step, in step order."""
+        return [self.fused.k_evisc, self.fused.k_tend, self.glue.k_rhs,
+                self.pres.k_dft_fwd, self.pres.k_tdma, self.pres.k_dft_inv,
+                self.glue.k_apply, self.fused.k_limits]
+
+    def substep(self, s, sfc, aux, dt, sub):
+        """One low-storage RK substep on the RK-folded path (model.py:488-515
+        of the JAX package): the carry self.t is updated in place."""
+        ctx, tl = self.ctx, self.timeloop
+        aux = exec_viscosity(self.fused, ctx, s, sfc, aux)
+        sfc = self.boundary.exec(ctx, s, sfc, aux)
+        subdt = tl.rk_cb[sub] * dt
+        can = tl.rk_ca[(sub + 1) % tl.n_substeps]
+        # sub == 0: cA[0] == 0, so the carry is zero and K2 does not read it
+        s_star = tendencies_rk(self.fused, ctx, s, self.t, aux, sfc, subdt,
+                               can, first=(sub == 0))
+        aux["subdt"] = subdt
+        s_new, aux = pressure_rk(self.glue, ctx, self.pres, s_star, self.t,
+                                 aux, subdt, can)
+        return s_new, sfc, aux
+
+    def step(self, s, sfc, dt):
+        """One RK step of size dt: returns (s, sfc, aux)."""
+        aux = {}
+        for sub in range(self.timeloop.n_substeps):
+            s, sfc, aux = self.substep(s, sfc, aux, dt, sub)
+        return s, sfc, aux
+
+    def limits(self, s, sfc):
+        """Adaptive-dt rates per unit dt, the CFL rate and the diffusion
+        number, from K7's per-level maxima (the JAX package's slim limits,
+        model.py:596-630): max commutes with the positive per-level dt
+        factors and the MOST bottom-row override applied here."""
+        ctx, fz = self.ctx, self.fused
+        cflk, evk = fz.limits(s["u"], s["v"], s["w"], s["th"])
+        if fz.smag.surface:
+            row = surface_evisc_row(fz.smag, ctx, s, sfc, True)
+            evk = torch.cat([torch.max(row)[None], evk[1:]])
+        tprfac_i = 1. / min(1., self.diff.tPr)
+        dzi2 = ctx.dzi[ctx.ks:ctx.ke] ** 2
+        dn = torch.max(torch.abs(evk * tprfac_i
+                                 * (ctx.dxi ** 2 + ctx.dyi ** 2 + dzi2)))
+        return {"cfl_rate": torch.max(cflk), "dn_rate": dn}
+
+    def diagnostics(self, s, sfc):
+        """Status-line quantities after a ghost fill (model.py:664-688)."""
+        ctx = self.ctx
+        s = self.boundary.set_ghost_cells(ctx, s, sfc)
+        ks, ke = ctx.ks, ctx.ke
+        u, v, w = s["u"], s["v"], s["w"]
+        dzc = ctx.dz[ks:ke][:, None, None]
+        norm = ctx.itot * ctx.jtot * ctx.zsize
+        mom = torch.sum((i2(u, ip(u))[ks:ke] + i2(v, jp(v))[ks:ke]
+                         + i2(w[ks:ke], w[ks + 1:ke + 1])) * dzc) / norm
+        tke = 0.5 * torch.sum((i2(u * u, ip(u) ** 2)[ks:ke]
+                               + i2(v * v, jp(v) ** 2)[ks:ke]
+                               + i2(w[ks:ke] ** 2, w[ks + 1:ke + 1] ** 2)) * dzc) / norm
+        first = ctx.scalar_names[0]
+        return {"div": self.pres.divergence_max(ctx, s), "mom": mom,
+                "tke": tke, "mass": torch.sum(s[first][ks:ke] * dzc) / norm}
+
+    # ------------------------------------------------------------------
+    #  run mode
+    # ------------------------------------------------------------------
+    def load_state(self):
+        tl = self.timeloop
+        iotime = int(tl.istarttime // tl.iiotimeprec)
+        tl.load(iotime, self.workdir)
+        return self.fields.load(iotime, self.workdir, dtype=NP_DTYPE[self.dtype])
+
+    def as_device_state(self, state_np):
+        """(s, sfc) tensors on the model's device from numpy planes."""
+        ctx = self.ctx
+        s = {n: ctx.tensor(state_np[n]) for n in self.fields.prognostic_names}
+        sfc_np = self.boundary.init_surface_state(dtype=NP_DTYPE[self.dtype])
+        if self.sim_mode != "init":
+            tl = self.timeloop
+            sfc_np = self.boundary.load(sfc_np, int(tl.itime // tl.iiotimeprec),
+                                        self.workdir, dtype=NP_DTYPE[self.dtype])
+        return s, {k: ctx.tensor(v) for k, v in sfc_np.items()}
+
+    def save_restart(self, s):
+        tl = self.timeloop
+        iotime = int(tl.iotime)
+        self.fields.save({n: s[n].cpu().numpy() for n in s}, iotime, self.workdir)
+        if self._last_sfc is not None:
+            self.boundary.save({k: v.cpu().numpy() for k, v in self._last_sfc.items()},
+                               iotime, self.workdir)
+        tl.save(iotime, self.workdir)
+
+    def _status_path(self):
+        return os.path.join(self.workdir, "%s.out" % (self.casename or "run"))
+
+    def print_status(self, s, sfc, cfl, dn, status_file):
+        tl = self.timeloop
+        d = {k: float(v) for k, v in self.diagnostics(s, sfc).items()}
+        now = _time.time()
+        cpudt = now - self._last_wallclock
+        self._last_wallclock = now
+        status_file.write(
+            "%8d %11.3E %10.4f %11.3E %8.4f %8.4f %11.3E %16.8E %16.8E %16.8E\n"
+            % (tl.iteration, tl.time, cpudt, tl.dt, cfl, dn,
+               d["div"], d["mom"], d["tke"], d["mass"]))
+        status_file.flush()
+        if not np.isfinite(cfl):
+            raise RuntimeError("Simulation has non-finite numbers")
+        return d
+
+    def run(self, max_iters=None):
+        """The host time loop (model.py:1219-1343 of the JAX package):
+        adaptive dt, status table, restarts.  Returns the final state."""
+        tl = self.timeloop
+        s, sfc = self.as_device_state(self.load_state())
+        if self.fused is None:
+            self.build_step()
+        cflmax, cflmin = self.advec.cflmax, self.advec.cflmin
+        dnmax = self.diff.dnmax
+        niter = 0
+        with open(self._status_path(), "a") as status_file:
+            status_file.write("%8s %11s %10s %11s %8s %8s %11s %16s %16s %16s\n"
+                              % ("ITER", "TIME", "CPUDT", "DT", "CFL", "DNUM",
+                                 "DIV", "MOM", "TKE", "MASS"))
+            while True:
+                # adaptive time step (model.cxx:730-751)
+                tl.reset_time_step_limit(self.at_wall_clock_limit())
+                lim = {k: float(v) for k, v in self.limits(s, sfc).items()}
+                cfl = lim["cfl_rate"] * tl.dt
+                dn = lim["dn_rate"] * tl.dt
+                tl.set_time_step_limit(tl.idt * cflmax / max(cfl, cflmin))
+                if dn > 0.:
+                    tl.set_time_step_limit(tl.idt * dnmax / dn)
+                tl.set_time_step()
+                if tl.do_check():
+                    self.print_status(s, sfc, cfl, dn, status_file)
+                if tl.is_finished():
+                    break
+                s, sfc, _ = self.step(s, sfc, tl.dt)
+                self._last_sfc = sfc
+                tl.step_time()
+                if tl.do_save(self.at_wall_clock_limit()):
+                    self.save_restart(s)
+                niter += 1
+                if max_iters is not None and niter >= max_iters:
+                    break
+        self.final_sfc = sfc
+        return s
+
+
+def run_case(case_dir, casename, mode, dtype=torch.float32, device="cuda"):
+    """CLI entry: microhh {init,run} casename (reference main/microhh.cxx)."""
+    ini = Ini(os.path.join(case_dir, "%s.ini" % casename))
+    model = Model(ini, mode, casename, workdir=case_dir, dtype=dtype,
+                  device=device)
+    model.finish_setup()
+    if mode == "init":
+        # the run-time output options are consumed in init mode too, like
+        # the reference, so init does not flag them as unused
+        for section in ("stats", "cross", "dump", "column"):
+            for item, subs in ini.items.get(section, {}).items():
+                for sub in subs:
+                    ini.flag_as_used(section, item, sub)
+        model.save_initial_state()
+    elif mode == "run":
+        model.run()
+    else:
+        raise ValueError("unknown mode %s" % mode)
+    unused = model.ini.unused_items()
+    if unused:
+        print("WARNING unused ini options:", ", ".join(
+            "[%s] %s%s" % (s, i, "[%s]" % su if su else "") for s, i, su in unused))
+    return model

@@ -1,0 +1,69 @@
+"""Physics-operator factories (``microhh_tpu/ops/__init__.py``).
+
+The port carries the drycblles slice: ``advec 2``, ``diff smag2``,
+``thermo dry``, the MOST surface and ``pres 2``.  Every other scheme raises
+NotImplementedError naming the ROADMAP item that ports it.
+"""
+
+
+def not_ported(what, item):
+    return NotImplementedError("%s is not ported to microhh_torch yet "
+                               "(ROADMAP Queue 1 item %s)" % (what, item))
+
+
+_ROADMAP_ADVEC = {"2i4": 10, "2i5": 10, "2i62": 10, "2i53": 10, "4": 11,
+                  "4m": 11, "0": 12}
+_ROADMAP_DIFF = {"2": 12, "4": 11, "dnn_local": 12, "dnn_global": 12,
+                 "dnn_stats": 12, "0": 12}
+_ROADMAP_THERMO = {"0": 9, "buoy": 9, "moist": 9, "vapor": 9}
+_ROADMAP_BOUNDARY = {"default": 14, "surface_bulk": 14, "surface_lsm": 14}
+
+
+def make_advec(ini, grid, fields):
+    sw = ini.get_str("advec", "swadvec", default=str(grid.spatial_order))
+    if sw == "2":
+        from .advec_2 import Advec2
+        return Advec2(ini, grid)
+    if sw in _ROADMAP_ADVEC:
+        raise not_ported("[advec] swadvec=%s" % sw, _ROADMAP_ADVEC[sw])
+    raise ValueError("%s is an illegal value for swadvec" % sw)
+
+
+def make_diff(ini, grid, fields, boundary):
+    sw = ini.get_str("diff", "swdiff", default=str(grid.spatial_order))
+    if sw == "smag2":
+        from .diff_smag2 import DiffSmag2
+        return DiffSmag2(ini, grid, fields, boundary)
+    if sw in _ROADMAP_DIFF:
+        raise not_ported("[diff] swdiff=%s" % sw, _ROADMAP_DIFF[sw])
+    raise ValueError("%s is an illegal value for swdiff" % sw)
+
+
+def make_pres(ini, grid, fields):
+    sw = ini.get_str("pres", "swpres", default=str(grid.spatial_order))
+    if sw == "2":
+        from .pres_2 import Pres2
+        return Pres2(ini, grid, fields)
+    if sw in ("0", "4"):
+        raise not_ported("[pres] swpres=%s" % sw, 11 if sw == "4" else 12)
+    raise ValueError("%s is an illegal value for swpres" % sw)
+
+
+def make_thermo(ini, grid, fields):
+    sw = ini.get_str("thermo", "swthermo", default="0")
+    if sw == "dry":
+        from .thermo_dry import ThermoDry
+        return ThermoDry(ini, grid, fields)
+    if sw in _ROADMAP_THERMO:
+        raise not_ported("[thermo] swthermo=%s" % sw, _ROADMAP_THERMO[sw])
+    raise ValueError("%s is an illegal value for swthermo" % sw)
+
+
+def make_boundary(ini, fields, grid):
+    sw = ini.get_str("boundary", "swboundary", default="default")
+    if sw == "surface":
+        from .boundary_surface import BoundarySurface
+        return BoundarySurface(ini, fields, grid)
+    if sw in _ROADMAP_BOUNDARY:
+        raise not_ported("[boundary] swboundary=%s" % sw, _ROADMAP_BOUNDARY[sw])
+    raise ValueError("%s is an illegal value for swboundary" % sw)

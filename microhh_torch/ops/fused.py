@@ -1,0 +1,535 @@
+"""Hand-kernel wrappers of the dry LES step (counterpart of
+``microhh_tpu/ops/pallas_fused.py`` for the drycblles slice).
+
+Each wrapper takes the ghost-padded (kcells, jtot, itot) fields.  On a CUDA
+tensor it launches its hand-written kernel (``csrc/*.cu``, bound in
+kernels.py); on a CPU tensor it runs the plain-torch version beside it in
+this module, which is also what the card's kernel is held against.  There is
+no fallback from the card to the plain version.
+
+* K1 ``Fused.evisc``      - strain^2 + stability-corrected Smagorinsky eddy
+                            viscosity (``csrc/evisc.cu``);
+* K2 ``Fused.tend_rk``    - advec_2 + smag2 diffusion + dry buoyancy +
+                            folded sponge + RK fold (``csrc/tend_rk.cu``);
+* K4 ``PresGlue.rhs`` / ``PresGlue.apply`` - the projection glue
+                            (``csrc/pres_glue.cu``);
+* K7 ``Fused.limits``     - per-level maxima of the CFL rate and of K1's
+                            eddy viscosity, the adaptive-dt limits
+                            (``csrc/evisc.cu``).
+
+The kernels read the raw fields with CLAMPED k neighbours (the JAX
+package's ``fold_ghosts`` variant: no ghost fill inside the substep); the
+MOST wall rows are patched afterwards in plain torch (``tendencies_rk``,
+``surface_evisc_row``), as the JAX package patches them in XLA.
+"""
+
+import numpy as np
+import torch
+
+from .. import constants as cst
+from ..kernels import Kernel, check, on_cpu
+from .stencil import im, ip, jm, jp, i2
+
+# per-level table columns, shared with csrc/evisc.cu, tend_rk.cu, pres_glue.cu
+(E_DZI, E_DZHI, E_DZHI1, E_MLEN2, E_THREF, E_TOPS, NE) = range(7)
+(T_DZI, T_DZHI, T_DZHI1, T_DZI_M1, T_RHO, T_RHOH, T_RHOH1, T_RHO_M1,
+ T_THREFH, T_FACZ, T_FACZH, T_UREF, T_VREF, T_SREF, NT) = range(15)
+(P_RHO, P_RHOH, P_RHOH1, P_DZI, P_DZHI, NP) = range(6)
+
+PROGNOSTIC = ("u", "v", "w", "th")
+
+# (j, i) tile of a thread block of the stencil kernels (csrc/common.cuh TJ, TI)
+TILE_J, TILE_I = 8, 32
+
+
+def _planes(a, first, n, off, lo, hi):
+    """Planes first+off .. first+off+n-1 of a, each index clamped to [lo, hi]."""
+    idx = torch.clamp(torch.arange(n, device=a.device) + first + off, lo, hi)
+    return a.index_select(0, idx)
+
+
+def _columns(tab):
+    """slot -> (nk, 1, 1) column of a per-level table."""
+    return lambda slot: tab[:, slot][:, None, None]
+
+
+# ==========================================================================
+#  plain-torch versions of the kernels
+# ==========================================================================
+
+def evisc_plain(u, v, w, th, ce, ks, dxi, dyi, tPr, stratified):
+    """K1 in plain torch: eddy viscosity on the interior (ktot, jtot, itot)."""
+    kt = ce.shape[0]
+    ke = ks + kt
+    c = _columns(ce)
+    u_dn, uc, u_up = (_planes(u, ks, kt, o, ks, ke - 1) for o in (-1, 0, 1))
+    v_dn, vc, v_up = (_planes(v, ks, kt, o, ks, ke - 1) for o in (-1, 0, 1))
+    wc, w1 = (_planes(w, ks, kt, o, ks, ke) for o in (0, 1))
+    dzi, dzhi, dzhi1 = c(E_DZI), c(E_DZHI), c(E_DZHI1)
+
+    dudx = (ip(uc) - uc) * dxi
+    dvdy = (jp(vc) - vc) * dyi
+    dwdz = (w1 - wc) * dzi
+    cor = (uc - jm(uc)) * dyi + (vc - im(vc)) * dxi
+    horiz = 0.125 * (cor * cor + ip(cor) ** 2 + jp(cor) ** 2 + ip(jp(cor)) ** 2)
+    duz_lo = (uc - u_dn) * dzhi + (wc - im(wc)) * dxi
+    duz_hi = (u_up - uc) * dzhi1 + (w1 - im(w1)) * dxi
+    vert_x = 0.125 * (duz_lo ** 2 + ip(duz_lo) ** 2 + duz_hi ** 2 + ip(duz_hi) ** 2)
+    dvz_lo = (vc - v_dn) * dzhi + (wc - jm(wc)) * dyi
+    dvz_hi = (v_up - vc) * dzhi1 + (w1 - jm(w1)) * dyi
+    vert_y = 0.125 * (dvz_lo ** 2 + jp(dvz_lo) ** 2 + dvz_hi ** 2 + jp(dvz_hi) ** 2)
+    strain2 = 2. * (dudx ** 2 + dvdy ** 2 + dwdz ** 2 + horiz + vert_x + vert_y) + cst.dsmall
+    if not stratified:
+        return c(E_MLEN2) * torch.sqrt(strain2)
+    th_dn, th_up = (_planes(th, ks, kt, o, ks, ke - 1) for o in (-1, 1))
+    n2 = cst.grav / c(E_THREF) * 0.5 * (th_up + c(E_TOPS) - th_dn) * dzi
+    return c(E_MLEN2) * torch.sqrt(torch.maximum(
+        n2 * (-1. / tPr) + strain2, strain2 * cst.dsmall))
+
+
+def limits_plain(u, v, w, th, ce, ks, dxi, dyi, tPr, stratified):
+    """K7 in plain torch: per-level maxima (ktot,) of the CFL rate and of
+    the eddy viscosity of evisc_plain."""
+    kt = ce.shape[0]
+    ke = ks + kt
+    ev = evisc_plain(u, v, w, th, ce, ks, dxi, dyi, tPr, stratified)
+    uc, vc = u[ks:ke], v[ks:ke]
+    wc, w1 = (_planes(w, ks, kt, o, ks, ke) for o in (0, 1))
+    cfl = (torch.abs(i2(uc, ip(uc))) * dxi + torch.abs(i2(vc, jp(vc))) * dyi
+           + torch.abs(i2(wc, w1)) * ce[:, E_DZI][:, None, None])
+    return cfl.amax(dim=(1, 2)), ev.amax(dim=(1, 2))
+
+
+def _uv_tend(c, dxi, dyi, visc, u_dn, u, u_up, v_dn, v, v_up, w, w_up,
+             e_dn, e, e_up):
+    dzi, dzhi, dzhi1 = c(T_DZI), c(T_DZHI), c(T_DZHI1)
+    rhoh, rhoh1 = c(T_RHOH), c(T_RHOH1)
+    rdzi = dzi / c(T_RHO)
+
+    adv_u = -((i2(u, ip(u)) ** 2 - i2(im(u), u) ** 2) * dxi
+              + (i2(im(jp(v)), jp(v)) * i2(u, jp(u))
+                 - i2(im(v), v) * i2(jm(u), u)) * dyi
+              + (rhoh1 * i2(im(w_up), w_up) * i2(u, u_up)
+                 - rhoh * i2(im(w), w) * i2(u_dn, u)) * rdzi)
+    ev_e = e + visc
+    ev_w = im(e) + visc
+    ev_n = 0.25 * (im(e) + e + im(jp(e)) + jp(e)) + visc
+    ev_s = jm(ev_n)
+    ev_t = 0.25 * (im(e) + e + im(e_up) + e_up) + visc
+    ev_b = 0.25 * (im(e_dn) + e_dn + im(e) + e) + visc
+    dif_u = ((ev_e * (ip(u) - u) - ev_w * (u - im(u))) * 2. * dxi * dxi
+             + (ev_n * ((jp(u) - u) * dyi + (jp(v) - im(jp(v))) * dxi)
+                - ev_s * ((u - jm(u)) * dyi + (v - im(v)) * dxi)) * dyi
+             + (rhoh1 * ev_t * ((u_up - u) * dzhi1 + (w_up - im(w_up)) * dxi)
+                - rhoh * ev_b * ((u - u_dn) * dzhi + (w - im(w)) * dxi)) * rdzi)
+
+    adv_v = -((i2(jm(ip(u)), ip(u)) * i2(v, ip(v))
+               - i2(jm(u), u) * i2(im(v), v)) * dxi
+              + (i2(v, jp(v)) ** 2 - i2(jm(v), v) ** 2) * dyi
+              + (rhoh1 * i2(jm(w_up), w_up) * i2(v, v_up)
+                 - rhoh * i2(jm(w), w) * i2(v_dn, v)) * rdzi)
+    ev_e2 = 0.25 * (jm(e) + e + ip(jm(e)) + ip(e)) + visc
+    ev_w2 = im(ev_e2)
+    ev_n2 = e + visc
+    ev_s2 = jm(e) + visc
+    ev_t2 = 0.25 * (jm(e) + e + jm(e_up) + e_up) + visc
+    ev_b2 = 0.25 * (jm(e_dn) + e_dn + jm(e) + e) + visc
+    dif_v = ((ev_e2 * ((ip(v) - v) * dxi + (ip(u) - jm(ip(u))) * dyi)
+              - ev_w2 * ((v - im(v)) * dxi + (u - jm(u)) * dyi)) * dxi
+             + (ev_n2 * (jp(v) - v) - ev_s2 * (v - jm(v))) * 2. * dyi * dyi
+             + (rhoh1 * ev_t2 * ((v_up - v) * dzhi1 + (w_up - jm(w_up)) * dyi)
+                - rhoh * ev_b2 * ((v - v_dn) * dzhi + (w - jm(w)) * dyi)) * rdzi)
+    return adv_u + dif_u, adv_v + dif_v
+
+
+def _wth_tend(c, dxi, dyi, visc, svisc, tPr, u_dn, u, v_dn, v, w_dn, w, w_up,
+              a_dn, a, a_up, e_dn, e, e_up):
+    dzi, dzhi, dzhi1 = c(T_DZI), c(T_DZHI), c(T_DZHI1)
+    rho, rhoh, rhoh1 = c(T_RHO), c(T_RHOH), c(T_RHOH1)
+    rho_m1, threfh = c(T_RHO_M1), c(T_THREFH)
+    rdzi = dzi / rho
+    rdzhi = dzhi / rhoh
+    tPri = 1. / tPr
+
+    adv_w = -((i2(ip(u_dn), ip(u)) * i2(w, ip(w))
+               - i2(u_dn, u) * i2(im(w), w)) * dxi
+              + (i2(jp(v_dn), jp(v)) * i2(w, jp(w))
+                 - i2(v_dn, v) * i2(jm(w), w)) * dyi
+              + (rho * i2(w, w_up) ** 2 - rho_m1 * i2(w_dn, w) ** 2) * rdzhi)
+    ev_xw = 0.25 * (im(e_dn) + im(e) + e_dn + e) + visc
+    ev_yw = 0.25 * (jm(e_dn) + jm(e) + e_dn + e) + visc
+    dif_w = ((ip(ev_xw) * ((ip(w) - w) * dxi + (ip(u) - ip(u_dn)) * dzhi)
+              - ev_xw * ((w - im(w)) * dxi + (u - u_dn) * dzhi)) * dxi
+             + (jp(ev_yw) * ((jp(w) - w) * dyi + (jp(v) - jp(v_dn)) * dzhi)
+                - ev_yw * ((w - jm(w)) * dyi + (v - v_dn) * dzhi)) * dyi
+             + (rho * (e + visc) * (w_up - w) * dzi
+                - rho_m1 * (e_dn + visc) * (w - w_dn) * c(T_DZI_M1)) * (2. * rdzhi))
+    wt = adv_w + dif_w + cst.grav / threfh * (i2(a_dn, a) - threfh)
+
+    adv_s = -((ip(u) * i2(a, ip(a)) - u * i2(im(a), a)) * dxi
+              + (jp(v) * i2(a, jp(a)) - v * i2(jm(a), a)) * dyi
+              + (rhoh1 * w_up * i2(a, a_up) - rhoh * w * i2(a_dn, a)) * rdzi)
+    se = 0.5 * (e + ip(e)) * tPri + svisc
+    sw_ = 0.5 * (im(e) + e) * tPri + svisc
+    sn = 0.5 * (e + jp(e)) * tPri + svisc
+    ss = 0.5 * (jm(e) + e) * tPri + svisc
+    st_ = 0.5 * (e + e_up) * tPri + svisc
+    sb = 0.5 * (e_dn + e) * tPri + svisc
+    dif_s = ((se * (ip(a) - a) - sw_ * (a - im(a))) * dxi * dxi
+             + (sn * (jp(a) - a) - ss * (a - jm(a))) * dyi * dyi
+             + (rhoh1 * st_ * (a_up - a) * dzhi1
+                - rhoh * sb * (a - a_dn) * dzhi) * rdzi)
+    return wt, adv_s + dif_s
+
+
+def tend_rk_plain(s, e, t, ct, ks, dxi, dyi, visc, svisc, tPr, cbdt, can,
+                  first, carry):
+    """K2 in plain torch.  s, t: dicts of (kcells, jtot, itot) u, v, w, th;
+    e: interior evisc (ktot, jtot, itot).  Returns s* (zero ghost planes);
+    updates the carry t in place unless carry is False, and reads it only
+    when first is False."""
+    kt = ct.shape[0]
+    ke = ks + kt
+    c = _columns(ct)
+    u, v, w, th = (s[n] for n in PROGNOSTIC)
+    u_dn, uc, u_up = (_planes(u, ks, kt, o, ks, ke - 1) for o in (-1, 0, 1))
+    v_dn, vc, v_up = (_planes(v, ks, kt, o, ks, ke - 1) for o in (-1, 0, 1))
+    w_dn, wc, w_up = (_planes(w, ks, kt, o, ks, ke) for o in (-1, 0, 1))
+    a_dn, ac, a_up = (_planes(th, ks, kt, o, ks, ke - 1) for o in (-1, 0, 1))
+    e_dn, ec, e_up = (_planes(e, 0, kt, o, 0, kt - 1) for o in (-1, 0, 1))
+
+    ut, vt = _uv_tend(c, dxi, dyi, visc, u_dn, uc, u_up, v_dn, vc, v_up,
+                      wc, w_up, e_dn, ec, e_up)
+    wt, tht = _wth_tend(c, dxi, dyi, visc, svisc, tPr, u_dn, uc, v_dn, vc,
+                        w_dn, wc, w_up, a_dn, ac, a_up, e_dn, ec, e_up)
+    facz = c(T_FACZ)
+    ut = ut - facz * (uc - c(T_UREF))
+    vt = vt - facz * (vc - c(T_VREF))
+    wt = wt - c(T_FACZH) * wc
+    tht = tht - facz * (ac - c(T_SREF))
+    wt[0] = 0.          # half level ks is the wall
+
+    s_star = {}
+    for n, tend, cur in zip(PROGNOSTIC, (ut, vt, wt, tht), (uc, vc, wc, ac)):
+        tt = tend if first else t[n][ks:ke] + tend
+        out = torch.zeros_like(s[n])
+        out[ks:ke] = cur + cbdt * tt
+        s_star[n] = out
+        if carry:
+            t[n][ks:ke] = can * tt
+    return s_star
+
+
+def pres_rhs_plain(u, v, w, pc, ks, dxi, dyi, dti):
+    """K4 rhs in plain torch: dti * div(rho s*) on the interior."""
+    kt = pc.shape[0]
+    ke = ks + kt
+    c = _columns(pc)
+    uc, vc, wc, w1 = u[ks:ke], v[ks:ke], w[ks:ke], w[ks + 1:ke + 1]
+    return dti * (c(P_RHO) * ((ip(uc) - uc) * dxi + (jp(vc) - vc) * dyi)
+                  + (c(P_RHOH1) * w1 - c(P_RHOH) * wc) * c(P_DZI))
+
+
+def pres_apply_plain(p, s, t, pc, ks, dxi, dyi, dt, can, carry):
+    """K4 apply in plain torch: s -= dt grad p (and t -= can grad p when
+    carry) for u, v, w in place; p is the interior pressure."""
+    kt = pc.shape[0]
+    ke = ks + kt
+    gu = (p - im(p)) * dxi
+    gv = (p - jm(p)) * dyi
+    gw = torch.zeros_like(p)
+    gw[1:] = (p[1:] - p[:-1]) * pc[1:, P_DZHI][:, None, None]
+    for n, g in (("u", gu), ("v", gv), ("w", gw)):
+        s[n][ks:ke] = s[n][ks:ke] - dt * g
+        if carry:
+            t[n][ks:ke] = t[n][ks:ke] - can * g
+
+
+# ==========================================================================
+#  kernel wrappers
+# ==========================================================================
+
+class Fused:
+    """K1 and K2 with their per-level tables, for one grid, base state and
+    sponge.  ``buffer`` is the static-profile sponge folded into K2 (None:
+    no sponge); ``top_grad_th`` is th's top ghost gradient (Neumann value,
+    or -flux/visc) that K1's clamped top plane needs."""
+
+    def __init__(self, ctx, smag, thermo, buffer, top_grad_th):
+        self.ctx = ctx
+        self.smag = smag
+        self.tPr = smag.tPr
+        self.visc = smag.visc
+        self.svisc = smag.viscs.get("th", smag.visc)
+        ks, ke, kt = ctx.ks, ctx.ke, ctx.ktot
+        ka = np.arange(ks, ke)
+        ce = np.zeros((kt, NE))
+        ce[:, E_DZI] = ctx.np_dzi[ka]
+        ce[:, E_DZHI] = ctx.np_dzhi[ka]
+        ce[:, E_DZHI1] = ctx.np_dzhi[ka + 1]
+        ce[:, E_MLEN2] = smag.mlen2
+        ce[:, E_THREF] = thermo.thref[ka]
+        ce[kt - 1, E_TOPS] = top_grad_th / ctx.np_dzhi[ke]
+        ct = np.zeros((kt, NT))
+        ct[:, T_DZI] = ctx.np_dzi[ka]
+        ct[:, T_DZHI] = ctx.np_dzhi[ka]
+        ct[:, T_DZHI1] = ctx.np_dzhi[ka + 1]
+        ct[:, T_DZI_M1] = ctx.np_dzi[ka - 1]
+        ct[:, T_RHO] = ctx.np_rhoref[ka]
+        ct[:, T_RHOH] = ctx.np_rhorefh[ka]
+        ct[:, T_RHOH1] = ctx.np_rhorefh[ka + 1]
+        ct[:, T_RHO_M1] = ctx.np_rhoref[ka - 1]
+        ct[:, T_THREFH] = thermo.threfh[ka]
+        if buffer is not None:
+            ct[:, T_FACZ] = buffer.fac_z[:, 0, 0]
+            ct[:, T_FACZH] = buffer.fac_zh[:, 0, 0]
+            ct[:, T_UREF] = buffer.profs["u"][:, 0, 0]
+            ct[:, T_VREF] = buffer.profs["v"][:, 0, 0]
+            ct[:, T_SREF] = buffer.profs["th"][:, 0, 0]
+        self.ce = ctx.tensor(ce)
+        self.ct = ctx.tensor(ct)
+        self.k_evisc = Kernel("evisc", "microhh_torch/csrc/evisc.cu",
+                              "microhh_tpu/ops/pallas_fused.py:1441")
+        self.k_tend = Kernel("tend_rk", "microhh_torch/csrc/tend_rk.cu",
+                             "microhh_tpu/ops/pallas_fused.py:1930")
+        self.k_limits = Kernel("limits", "microhh_torch/csrc/evisc.cu",
+                               "microhh_tpu/ops/pallas_fused.py:1524")
+
+    def evisc(self, u, v, w, th):
+        """K1: interior eddy viscosity (ktot, jtot, itot)."""
+        ctx = self.ctx
+        args = (ctx.ks, ctx.dxi, ctx.dyi, self.tPr)
+        if on_cpu(u):
+            return evisc_plain(u, v, w, th, self.ce, *args, True)
+        shape = (ctx.kcells, ctx.jtot, ctx.itot)
+        check((u, v, w, th, self.ce), u.dtype, u.device,
+              [shape] * 4 + [(ctx.ktot, NE)])
+        out = torch.empty((ctx.ktot, ctx.jtot, ctx.itot), dtype=u.dtype,
+                          device=u.device)
+        self.k_evisc(u.dtype, u, v, w, th, out, self.ce, ctx.itot, ctx.jtot,
+                     ctx.ktot, *args, 1)
+        return out
+
+    def limits(self, u, v, w, th):
+        """K7: per-level maxima (ktot,) of the CFL rate and the eddy
+        viscosity (before the MOST row patch)."""
+        ctx = self.ctx
+        args = (ctx.ks, ctx.dxi, ctx.dyi, self.tPr)
+        if on_cpu(u):
+            return limits_plain(u, v, w, th, self.ce, *args, True)
+        shape = (ctx.kcells, ctx.jtot, ctx.itot)
+        check((u, v, w, th, self.ce), u.dtype, u.device,
+              [shape] * 4 + [(ctx.ktot, NE)])
+        tiles = (-(-ctx.itot // TILE_I)) * (-(-ctx.jtot // TILE_J))
+        part = torch.empty((2, ctx.ktot, tiles), dtype=u.dtype, device=u.device)
+        out = torch.empty((2, ctx.ktot), dtype=u.dtype, device=u.device)
+        self.k_limits(u.dtype, u, v, w, th, part, out, self.ce, ctx.itot,
+                      ctx.jtot, ctx.ktot, *args, 1)
+        return out[0], out[1]
+
+    def tend_rk(self, s, t, e, cbdt, can, first, carry):
+        """K2: returns s* = s + cbdt*t_total (zero ghost planes) and, when
+        carry, overwrites the interior of t with can*t_total in place."""
+        ctx = self.ctx
+        args = (ctx.ks, ctx.dxi, ctx.dyi, self.visc, self.svisc, self.tPr,
+                cbdt, can, first, carry)
+        u = s["u"]
+        if on_cpu(u):
+            return tend_rk_plain(s, e, t, self.ct, *args)
+        shape = (ctx.kcells, ctx.jtot, ctx.itot)
+        fields = [s[n] for n in PROGNOSTIC]
+        carry_t = [t[n] for n in PROGNOSTIC]
+        check(fields + carry_t + [e, self.ct], u.dtype, u.device,
+              [shape] * 8 + [(ctx.ktot, ctx.jtot, ctx.itot), (ctx.ktot, NT)])
+        s_star = {n: torch.empty_like(s[n]) for n in PROGNOSTIC}
+        for a in s_star.values():     # ghost planes: not written by K2
+            a[:ctx.ks].zero_()
+            a[ctx.ke:].zero_()
+        self.k_tend(u.dtype, *fields, e, *(s_star[n] for n in PROGNOSTIC),
+                    *carry_t, self.ct, ctx.itot, ctx.jtot, ctx.ktot,
+                    *args[:-2], int(first), int(carry))
+        return s_star
+
+
+class PresGlue:
+    """K4: the projection glue kernels with their per-level table."""
+
+    def __init__(self, ctx):
+        self.ctx = ctx
+        ks, ke, kt = ctx.ks, ctx.ke, ctx.ktot
+        ka = np.arange(ks, ke)
+        pc = np.zeros((kt, NP))
+        pc[:, P_RHO] = ctx.np_rhoref[ka]
+        pc[:, P_RHOH] = ctx.np_rhorefh[ka]
+        pc[:, P_RHOH1] = ctx.np_rhorefh[ka + 1]
+        pc[:, P_DZI] = ctx.np_dzi[ka]
+        pc[:, P_DZHI] = ctx.np_dzhi[ka]
+        self.pc = ctx.tensor(pc)
+        self.k_rhs = Kernel("pres_rhs", "microhh_torch/csrc/pres_glue.cu",
+                            "microhh_tpu/ops/pallas_fused.py:2604")
+        self.k_apply = Kernel("pres_apply", "microhh_torch/csrc/pres_glue.cu",
+                              "microhh_tpu/ops/pallas_fused.py:2634")
+
+    def rhs(self, su, sv, sw, dti):
+        """dti * div(rho s*) on the interior (ktot, jtot, itot)."""
+        ctx = self.ctx
+        args = (ctx.ks, ctx.dxi, ctx.dyi, dti)
+        if on_cpu(su):
+            return pres_rhs_plain(su, sv, sw, self.pc, *args)
+        shape = (ctx.kcells, ctx.jtot, ctx.itot)
+        check((su, sv, sw, self.pc), su.dtype, su.device,
+              [shape] * 3 + [(ctx.ktot, NP)])
+        out = torch.empty((ctx.ktot, ctx.jtot, ctx.itot), dtype=su.dtype,
+                          device=su.device)
+        self.k_rhs(su.dtype, su, sv, sw, out, self.pc, ctx.itot, ctx.jtot,
+                   ctx.ktot, *args)
+        return out
+
+    def apply(self, p, s, t, dt, can, carry):
+        """s -= dt grad p and, when carry, t -= can grad p for u, v, w, in
+        place on the interior planes."""
+        ctx = self.ctx
+        args = (ctx.ks, ctx.dxi, ctx.dyi, dt, can, carry)
+        if on_cpu(p):
+            return pres_apply_plain(p, s, t, self.pc, *args)
+        shape = (ctx.kcells, ctx.jtot, ctx.itot)
+        fields = [s[n] for n in ("u", "v", "w")]
+        carry_t = [t[n] for n in ("u", "v", "w")] if carry else []
+        check([p, self.pc] + fields + carry_t, p.dtype, p.device,
+              [(ctx.ktot, ctx.jtot, ctx.itot), (ctx.ktot, NP)]
+              + [shape] * (3 + len(carry_t)))
+        tptr = carry_t if carry else [None] * 3
+        self.k_apply(p.dtype, p, *fields, *tptr, self.pc, ctx.itot, ctx.jtot,
+                     ctx.ktot, *args[:-1], int(carry))
+
+
+# ==========================================================================
+#  the step's use of the kernels, with the MOST wall-row patches
+# ==========================================================================
+
+def surface_evisc_row(smag, ctx, s, sfc, stratified):
+    """MO surface-layer evisc bottom row (diff_smag2.cxx calc_strain2
+    surface rows + calc_evisc bottom), replacing K1's interior-formula row."""
+    u, v, w = s["u"], s["v"], s["w"]
+    ks = ctx.ks
+    dxi, dyi = ctx.dxi, ctx.dyi
+    u0, v0 = u[ks], v[ks]
+    dudx = (ip(u0) - u0) * dxi
+    dvdy = (jp(v0) - v0) * dyi
+    dwdz = (w[ks + 1] - w[ks]) * ctx.dzi[ks]
+    c = (u0 - jm(u0)) * dyi + (v0 - im(v0)) * dxi
+    horiz = 0.125 * (c ** 2 + ip(c) ** 2 + jp(c) ** 2 + ip(jp(c)) ** 2)
+    wsl = w[ks:ks + 2]
+    dwdx = (wsl - im(wsl)) * dxi
+    dwdy = (wsl - jm(wsl)) * dyi
+    s2b = 2. * (dudx ** 2 + dvdy ** 2 + dwdz ** 2 + horiz
+                + 0.5 * sfc["dudz_mo"] ** 2
+                + 0.125 * (dwdx[0] ** 2 + ip(dwdx)[0] ** 2 + dwdx[1] ** 2 + ip(dwdx)[1] ** 2)
+                + 0.5 * sfc["dvdz_mo"] ** 2
+                + 0.125 * (dwdy[0] ** 2 + jp(dwdy)[0] ** 2 + dwdy[1] ** 2 + jp(dwdy)[1] ** 2)
+                ) + cst.dsmall
+    if stratified:
+        rit = torch.clamp(sfc["dbdz_mo"] / s2b / smag.tPr, max=1. - cst.dsmall)
+        return smag.mlen2[0] * torch.sqrt(s2b) * torch.sqrt(1. - rit)
+    return smag.mlen2[0] * torch.sqrt(s2b)
+
+
+def exec_viscosity(fused, ctx, s, sfc, aux):
+    """K1 + the MOST bottom-row patch -> aux['evisc_int'] (interior)."""
+    ev = fused.evisc(s["u"], s["v"], s["w"], s["th"])
+    if fused.smag.surface:
+        ev[0] = surface_evisc_row(fused.smag, ctx, s, sfc, True)
+    aux = dict(aux)
+    aux["evisc_int"] = ev
+    return aux
+
+
+def tendencies_rk(fused, ctx, s, t, aux, sfc, cbdt, can, first):
+    """K2, then the MOST wall rows of the diffusion (diff_smag2.cxx wall
+    forms) patched into s* and the carry.  K2 computed those rows with the
+    clamped vertical term; the patch recomputes that term with the same
+    clamped neighbours and replaces it with the wall-flux form."""
+    smag = fused.smag
+    u, v, w, th = (s[n] for n in PROGNOSTIC)
+    ks, ke = ctx.ks, ctx.ke
+    dxi, dyi = ctx.dxi, ctx.dyi
+    visc = smag.visc
+    carry = can != 0.
+    evisc = aux["evisc_int"]
+    s_star = fused.tend_rk(s, t, evisc, cbdt, can, first, carry)
+    if not smag.surface:
+        return s_star
+    rho, rhoh, dzi, dzhi = ctx.rhoref, ctx.rhorefh, ctx.dzi, ctx.dzhi
+
+    def F(arr, kabs):
+        return arr[min(max(kabs, ks), ke - 1)]
+
+    def E(kabs):
+        return evisc[min(max(kabs - ks, 0), ctx.ktot - 1)]
+
+    def patch(name, ka, delta):
+        s_star[name][ka] += cbdt * delta
+        if carry:
+            t[name][ka] += can * delta
+
+    # ---- u rows ----
+    for row, ka in (("bot", ks), ("top", ke - 1)):
+        ev_t = 0.25 * (im(E(ka)) + E(ka) + im(E(ka + 1)) + E(ka + 1)) + visc
+        ev_b = 0.25 * (im(E(ka - 1)) + E(ka - 1) + im(E(ka)) + E(ka)) + visc
+        if row == "bot":
+            fz_top = ev_t * ((u[ka + 1] - u[ka]) * dzhi[ka + 1] + (w[ka + 1] - im(w[ka + 1])) * dxi)
+            corr = (rhoh[ka + 1] * fz_top + rhoh[ka] * sfc["u_fluxbot"]) / rho[ka] * dzi[ka]
+        else:
+            fz_bot = ev_b * ((u[ka] - u[ka - 1]) * dzhi[ka] + (w[ka] - im(w[ka])) * dxi)
+            corr = (-rhoh[ka] * fz_bot) / rho[ka] * dzi[ka]
+        old_vert = ((rhoh[ka + 1] * ev_t * ((F(u, ka + 1) - u[ka]) * dzhi[ka + 1] + (w[ka + 1] - im(w[ka + 1])) * dxi)
+                     - rhoh[ka] * ev_b * ((u[ka] - F(u, ka - 1)) * dzhi[ka] + (w[ka] - im(w[ka])) * dxi))
+                    / rho[ka] * dzi[ka])
+        patch("u", ka, corr - old_vert)
+
+    # ---- v rows ----
+    for row, ka in (("bot", ks), ("top", ke - 1)):
+        ev_t = 0.25 * (jm(E(ka)) + E(ka) + jm(E(ka + 1)) + E(ka + 1)) + visc
+        ev_b = 0.25 * (jm(E(ka - 1)) + E(ka - 1) + jm(E(ka)) + E(ka)) + visc
+        if row == "bot":
+            fz_top = ev_t * ((v[ka + 1] - v[ka]) * dzhi[ka + 1] + (w[ka + 1] - jm(w[ka + 1])) * dyi)
+            corr = (rhoh[ka + 1] * fz_top + rhoh[ka] * sfc["v_fluxbot"]) / rho[ka] * dzi[ka]
+        else:
+            fz_bot = ev_b * ((v[ka] - v[ka - 1]) * dzhi[ka] + (w[ka] - jm(w[ka])) * dyi)
+            corr = (-rhoh[ka] * fz_bot) / rho[ka] * dzi[ka]
+        old_vert = ((rhoh[ka + 1] * ev_t * ((F(v, ka + 1) - v[ka]) * dzhi[ka + 1] + (w[ka + 1] - jm(w[ka + 1])) * dyi)
+                     - rhoh[ka] * ev_b * ((v[ka] - F(v, ka - 1)) * dzhi[ka] + (w[ka] - jm(w[ka])) * dyi))
+                    / rho[ka] * dzi[ka])
+        patch("v", ka, corr - old_vert)
+
+    # ---- th rows ----
+    svisc = fused.svisc
+    a = th
+    for row, ka in (("bot", ks), ("top", ke - 1)):
+        st_ = 0.5 * (E(ka) + E(ka + 1)) / smag.tPr + svisc
+        sb = 0.5 * (E(ka - 1) + E(ka)) / smag.tPr + svisc
+        if row == "bot":
+            fz_top = st_ * (a[ka + 1] - a[ka]) * dzhi[ka + 1]
+            corr = (rhoh[ka + 1] * fz_top + rhoh[ka] * sfc["th_fluxbot"]) / rho[ka] * dzi[ka]
+        else:
+            fz_bot = sb * (a[ka] - a[ka - 1]) * dzhi[ka]
+            fz_top = -smag.fluxtop("th")
+            corr = ((rhoh[ka + 1] * fz_top - rhoh[ka] * fz_bot)
+                    / rho[ka] * dzi[ka])
+        old_vert = ((rhoh[ka + 1] * st_ * (F(a, ka + 1) - a[ka]) * dzhi[ka + 1]
+                     - rhoh[ka] * sb * (a[ka] - F(a, ka - 1)) * dzhi[ka])
+                    / rho[ka] * dzi[ka])
+        patch("th", ka, corr - old_vert)
+    return s_star
+
+
+def pressure_rk(glue, ctx, pres, s_star, t, aux, subdt, can):
+    """The projection of the RK-folded step: K4 rhs -> spectral solve (K3)
+    -> K4 apply, in place on s* and the carry.  aux['p'] is the interior
+    pressure (ktot, jtot, itot)."""
+    rhs = glue.rhs(s_star["u"], s_star["v"], s_star["w"], 1. / subdt)
+    p = pres.solve(rhs)
+    glue.apply(p, s_star, t, subdt, can, can != 0.)
+    aux = dict(aux)
+    aux["p"] = p
+    return s_star, aux

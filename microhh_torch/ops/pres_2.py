@@ -1,0 +1,156 @@
+"""2nd-order spectral Poisson pressure solver (``microhh_tpu/ops/pres_2.py``;
+reference ``src/pres_2.cxx``).
+
+The horizontal transform pair is K5/K6 (``csrc/dft.cu``), the counterparts
+of the JAX package's Pallas DFT kernels ``dft2_fwd`` / ``dft2_inv``; they
+keep ``torch.fft.rfft2``'s natural mode order, which is also their plain
+version.  The vertical tridiagonal system of every mode is solved by K3,
+the Thomas kernel (``csrc/tdma.cu``): the forward-elimination pivots are
+precomputed once per case (``set_values``, pres_2.cxx:124-153,306-324),
+including the mean-mode top BC p = 0, so the per-step solve is two
+first-order recurrences over k per mode.  On a CPU tensor each of the three
+runs its plain-torch version.
+"""
+
+import numpy as np
+import torch
+
+from ..kernels import Kernel, check, on_cpu
+from .stencil import ip, jp
+
+
+COMPLEX = {torch.float32: torch.complex64, torch.float64: torch.complex128}
+
+
+def tdma_plain(x, winv, tab):
+    """K3 in plain torch, in place on the complex spectrum x (kmax, jtot,
+    nf); tab columns [-a, -c, dz^2] (the JAX package's _tdma_dz2_body)."""
+    kmax = x.shape[0]
+    y = torch.zeros_like(x[0])
+    for k in range(kmax):
+        w = winv[k]
+        y = (tab[k, 0] * w) * y + (x[k] * tab[k, 2]) * w
+        x[k] = y
+    y = torch.zeros_like(x[0])
+    for k in range(kmax - 1, -1, -1):
+        y = x[k] + (tab[k, 1] * winv[k]) * y
+        x[k] = y
+    return x
+
+
+class Pres2:
+    def __init__(self, ini, grid, fields):
+        self.grid = grid
+        self.fields = fields
+        # [pres] sw_fft_per_slice batches the reference's cuFFT plans per
+        # z-slice; K5/K6 transform the whole batch, so the knob is accepted
+        # and has no effect.
+        ini.get_bool("pres", "sw_fft_per_slice", default=False)
+        self.k_tdma = Kernel("tdma", "microhh_torch/csrc/tdma.cu",
+                             "microhh_tpu/ops/pres_2.py:448")
+        self.k_dft_fwd = Kernel("dft_fwd", "microhh_torch/csrc/dft.cu",
+                                "microhh_tpu/ops/pallas_dft.py:322")
+        self.k_dft_inv = Kernel("dft_inv", "microhh_torch/csrc/dft.cu",
+                                "microhh_tpu/ops/pallas_dft.py:344")
+
+    def set_values(self, ctx):
+        """Thomas pivots for the natural rfft2 mode order (reference
+        set_values), as tensors of ctx's dtype on ctx's device."""
+        g, f = self.grid, self.fields
+        itot, jtot, kmax, kgc = g.itot, g.jtot, g.ktot, g.kgc
+        ihalf = itot // 2 + 1
+        dxidxi = 1. / (g.dx * g.dx)
+        dyidyi = 1. / (g.dy * g.dy)
+
+        # modified wavenumbers (pres_2.cxx:124-153)
+        ii = np.arange(ihalf)
+        bmati = 2. * (np.cos(2. * np.pi * ii / itot) - 1.) * dxidxi
+        jj = np.arange(jtot)
+        bmatj = 2. * (np.cos(2. * np.pi * jj / jtot) - 1.) * dyidyi
+        bmatj[jtot // 2 + 1:] = bmatj[jtot - jj[jtot // 2 + 1:]]
+
+        dz = g.dz[kgc:kgc + kmax]
+        rhoref = f.rhoref[kgc:kgc + kmax]
+        rhorefh = f.rhorefh[kgc:kgc + kmax + 1]
+        dzhi = g.dzhi[kgc:kgc + kmax + 1]
+        a = dz * rhorefh[:kmax] * dzhi[:kmax]
+        c = dz * rhorefh[1:kmax + 1] * dzhi[1:kmax + 1]
+
+        bm = bmatj[:, None] + bmati[None, :]
+        b = (dz[:, None, None] ** 2 * rhoref[:, None, None] * bm[None]
+             - (a + c)[:, None, None])
+        b[0] += a[0]
+        # top BC: dp/dz = 0 (b += c) except the mean mode, where p_top = 0
+        b[kmax - 1] += c[kmax - 1]
+        b[kmax - 1, 0, 0] -= 2. * c[kmax - 1]
+        w = np.empty_like(b)
+        w[0] = b[0]
+        for k in range(1, kmax):
+            w[k] = b[k] - a[k] * (c[k - 1] / w[k - 1])
+
+        tab = np.zeros((kmax, 3))
+        tab[1:, 0] = -a[1:]
+        tab[:-1, 1] = -c[:-1]
+        tab[:, 2] = dz ** 2
+        self.winv = ctx.tensor(1. / w)
+        self.tab = ctx.tensor(tab)
+
+    def tdma(self, x):
+        """K3: solve every mode of the spectrum x in place."""
+        if on_cpu(x):
+            return tdma_plain(x, self.winv, self.tab)
+        real = self.winv.dtype
+        if x.dtype != COMPLEX[real]:
+            raise TypeError("spectrum %s does not match pivots %s"
+                            % (x.dtype, real))
+        if (x.device != self.winv.device or not x.is_contiguous()
+                or x.shape != self.winv.shape):
+            raise ValueError("spectrum %s on %s does not match pivots %s"
+                             % (tuple(x.shape), x.device,
+                                tuple(self.winv.shape)))
+        self.k_tdma(real, x, self.winv, self.tab, x.shape[0],
+                    x.shape[1] * x.shape[2])
+        return x
+
+    def rfft2(self, x):
+        """K5: the spectrum (kmax, jtot, itot//2+1) of the real x (kmax,
+        jtot, itot), as torch.fft.rfft2 over the last two axes."""
+        if on_cpu(x):
+            return torch.fft.rfft2(x, dim=(-2, -1))
+        check([x], x.dtype, x.device)
+        kt, jtot, itot = x.shape
+        y = torch.empty((kt, jtot, itot // 2 + 1), dtype=COMPLEX[x.dtype],
+                        device=x.device)
+        self.k_dft_fwd(x.dtype, x, y, kt, jtot, itot)
+        return y
+
+    def irfft2(self, y, itot):
+        """K6: the real (kmax, jtot, itot) field of the spectrum y, as
+        torch.fft.irfft2; y is overwritten on the card."""
+        kt, jtot, nf = y.shape
+        if on_cpu(y):
+            return torch.fft.irfft2(y, s=(jtot, itot), dim=(-2, -1))
+        if nf != itot // 2 + 1:
+            raise ValueError("spectrum of %d modes for %d points" % (nf, itot))
+        real = {c: r for r, c in COMPLEX.items()}.get(y.dtype)
+        if real is None:
+            raise TypeError("spectrum of dtype %s" % y.dtype)
+        check([torch.view_as_real(y)], real, y.device)
+        x = torch.empty((kt, jtot, itot), dtype=real, device=y.device)
+        self.k_dft_inv(real, y, x, kt, jtot, itot)
+        return x
+
+    def solve(self, rhs):
+        """Pressure on the interior (kmax, jtot, itot) from the rhs."""
+        return self.irfft2(self.tdma(self.rfft2(rhs)), rhs.shape[-1])
+
+    def divergence_max(self, ctx, s):
+        """max |div(rho u)| (reference calc_divergence)."""
+        ks, ke = ctx.ks, ctx.ke
+        u, v, w = s["u"][ks:ke], s["v"][ks:ke], s["w"]
+        rho = ctx.rhoref[ks:ke][:, None, None]
+        rhoh = ctx.rhorefh[ks:ke + 1][:, None, None]
+        dzi = ctx.dzi[ks:ke][:, None, None]
+        div = (rho * ((ip(u) - u) * ctx.dxi + (jp(v) - v) * ctx.dyi)
+               + (rhoh[1:] * w[ks + 1:ke + 1] - rhoh[:-1] * w[ks:ke]) * dzi)
+        return torch.max(torch.abs(div))
