@@ -6,24 +6,36 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases (any failure exits non-zero and prints no result line):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build the hand-written CUDA kernels from microhh_torch/csrc;
-  3. each kernel against its plain-torch version on the card, at 45^2x8 (odd:
-     the unpacked DFT path, radices 3 and 5) and 48^2x8 (radices 8, 2, 3),
-     both with partial tiles, 64^2x32 and 512^2x32, in
-     float64 (max error <= 1e-12 of each output's maximum) and float32
-     (<= 1e-5); the Thomas solve's error is taken relative to each mode's
-     own maximum over k (<= 1e-12 and 1e-4: its k-march accumulates);
-  4. two whole RK3 steps of a 32^3 float64 case on the card against the same
-     two steps on the CPU (plain versions), <= 1e-10;
-  5. the drycblles LES at 512^3 float32 through Model.run(max_iters=12): every
-     kernel launched, finite fields, status DIV <= 1e-4; then the step time
+  3. each kernel against its plain-torch version on the card, in float64
+     (max error <= 1e-12 of each output's maximum) and float32 (<= 1e-5,
+     K11's running column sums and pow/exp/log chain included): the dry
+     path's kernels at 45^2x8 (odd: the unpacked DFT path, radices 3 and 5)
+     and 48^2x8 (radices 8, 2, 3), both with partial tiles, 64^2x32 and
+     512^2x32; the Thomas solve's error is taken relative to each mode's
+     own maximum over k (<= 1e-12 and 1e-4: its k-march accumulates); the
+     generic path's kernels (K1 and K7 on ghost-filled fields, K8/K9, K10
+     with and without the carry, K11 rainy, with strong sedimentation and
+     cloud-free) at 45^2x24 and 48^2x32 of the rico case;
+  4. two whole RK3 steps on the card against the same two steps on the CPU
+     (plain versions), <= 1e-10: a 32^3 drycblles and a 16^2x24 rico case,
+     float64;
+  5. the drycblles LES at 512^3 float32 through Model.run(max_iters=12): its
+     kernels launched, finite fields, status DIV <= 1e-4; then the step time
      (median of 10 steps after 2 warm-up steps) and the peak memory;
-  6. at the 512^3 float32 shapes of that run, each kernel against its plain
-     version (the float32 tolerances of phase 3), then both timed.
-With --profile FILE, a 7th phase traces two steps with torch.profiler and
-prints the device time per kernel, the step's device idle share (one minus
-the device time over the wall time of the same profiled steps, with the
-unprofiled wall time beside it) and the limits and status-line times, and
-writes them with the profiler's table to FILE.
+  6. at the 512^3 float32 shapes of that run, each of its kernels against
+     its plain version (the float32 tolerances of phase 3), then both timed;
+  7. the rico LES at 384^3 float32 (cases/rico/rico.ini with bench.py's
+     swadvec=2 override) through Model(..., input_nc=), save_initial_state
+     and Model.run(max_iters=12): its kernels launched, finite fields,
+     status DIV <= 1e-4, qt, qr, nr >= 0; then the step time and the peak
+     memory as in phase 5;
+  8. at the 384^3 float32 shapes of that run, each of its kernels against
+     its plain version, then both timed.
+With --profile FILE, a 9th phase traces two steps of each LES with
+torch.profiler and prints the device time per kernel, the step's device
+idle share (one minus the device time over the wall time of the same
+profiled steps, with the unprofiled wall time beside it) and the limits and
+status-line times, and writes them with the profiler's tables to FILE.
 The last line is {"ok": true, "device": {...}}; the line before it holds the
 per-kernel results.  Without a CUDA device, or without the microhh_torch
 package beside this file, it exits non-zero.
@@ -31,6 +43,7 @@ package beside this file, it exits non-zero.
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -135,6 +148,55 @@ def initial_state(m, seed=None):
     return st
 
 
+RICO_ZSIZE = 4000.
+
+
+def rico_ini(n, k):
+    """cases/rico/rico.ini at n^2 x k with swadvec 2 instead of 2i5: the
+    override bench.py's _run_moist_size (bench.py:124-137) times."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cases",
+                        "rico", "rico.ini")
+    with open(path) as f:
+        text = f.read()
+    for key, val in (("itot", n), ("jtot", n), ("ktot", k), ("swadvec", 2)):
+        text = re.sub(r"(?m)^%s=.*$" % key, "%s=%s" % (key, val), text)
+    return text
+
+
+def build_rico(torch, n, k, dtype, device, mode="run", workdir="."):
+    """A rico Model on the profiles of cases/rico/rico_input.py, computed in
+    memory (microhh_torch/cases.py)."""
+    from microhh_torch.cases import rico_input
+    from microhh_torch.config import Ini
+    from microhh_torch.model import Model
+    m = Model(Ini(rico_ini(n, k)), mode, "rico", workdir=workdir, dtype=dtype,
+              device=device, input_nc=rico_input(k, RICO_ZSIZE))
+    m.finish_setup()
+    return m
+
+
+def rico_state(m, seed):
+    """Fields.create's rico state with seeded velocities, thl noise, a moist
+    layer that saturates and rain shafts below it, so that every term of
+    the generic step, the microphysics included, is active."""
+    from microhh_torch.model import NP_DTYPE
+    st = m.fields.create(m.input_nc, dtype=NP_DTYPE[m.dtype])
+    g = m.grid
+    ks, ke = g.kstart, g.kend
+    rng = np.random.RandomState(seed)
+    sh = (g.ktot, g.jtot, g.itot)
+    zc = g.z[ks:ke][:, None, None]
+    for n in ("u", "v"):
+        st[n][ks:ke] += 0.5 * rng.randn(*sh)
+    st["w"][ks + 1:ke] += 0.2 * rng.randn(g.ktot - 1, g.jtot, g.itot)
+    st["thl"][ks:ke] += 0.2 * rng.randn(*sh)
+    st["qt"][ks:ke] += np.where((zc > 500.) & (zc < 1300.), 0.004, 0.) * rng.rand(*sh)
+    rain = (rng.rand(*sh) > 0.4) & (zc < 1500.)
+    st["qr"][ks:ke] = np.where(rain, 10. ** rng.uniform(-6, -3, sh), 0.)
+    st["nr"][ks:ke] = np.where(rain, st["qr"][ks:ke] * 10. ** rng.uniform(6.5, 7.5, sh), 0.)
+    return st
+
+
 def rel_err(a, b):
     """max |a - b| over the maximum of |b|."""
     a, b = a.double(), b.double()
@@ -165,7 +227,6 @@ def kernel_cases(torch, m, seed):
     model's wrappers with seeded random inputs; each call returns a list of
     tensors to compare."""
     from microhh_torch.ops import fused as F
-    from microhh_torch.ops.pres_2 import tdma_plain
     ctx = m.ctx
     s, sfc = m.as_device_state(initial_state(m, seed))
     gen = torch.Generator(device="cpu").manual_seed(seed)
@@ -178,7 +239,7 @@ def kernel_cases(torch, m, seed):
     interior = (ctx.ktot, ctx.jtot, ctx.itot)
     e = rnd(*interior).abs() * 10.
     t0 = {n: rnd(*shape, scale=0.1) for n in F.PROGNOSTIC}
-    fz, gl, pr = m.fused, m.glue, m.pres
+    fz = m.fused
     cases = []
 
     cases.append(("evisc",
@@ -206,6 +267,16 @@ def kernel_cases(torch, m, seed):
                     + [t[n][ctx.ks:ctx.ke] for n in F.PROGNOSTIC])
         cases.append(("tend_rk", lambda run=run: run(True),
                       lambda run=run: run(False), "field"))
+    return cases + pres_cases(torch, m, s, t0, rnd)
+
+
+def pres_cases(torch, m, s, t0, rnd):
+    """The projection's kernels (K3-K6) on a model's wrappers."""
+    from microhh_torch.ops import fused as F
+    from microhh_torch.ops.pres_2 import tdma_plain
+    ctx, gl, pr = m.ctx, m.glue, m.pres
+    interior = (ctx.ktot, ctx.jtot, ctx.itot)
+    cases = []
     cases.append(("pres_rhs",
                   lambda: [gl.rhs(s["u"], s["v"], s["w"], 2.5)],
                   lambda: [F.pres_rhs_plain(s["u"], s["v"], s["w"], gl.pc,
@@ -243,6 +314,84 @@ def kernel_cases(torch, m, seed):
     return cases
 
 
+def generic_kernel_cases(torch, m, seed):
+    """(name, kernel call, plain call, error kind) for the generic path's
+    kernels on a rico model with a seeded rainy state; the tables get
+    seeded noise in every column so that each term is exercised."""
+    from microhh_torch.ops import fused as F
+    from microhh_torch.ops.microphys import MICRO_FIELDS
+    ctx, fz, mic = m.ctx, m.fused, m.micro
+    s, sfc = m.as_device_state(rico_state(m, seed))
+    s = m.boundary.set_ghost_cells(ctx, s, sfc)
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+
+    def rnd(*shape, scale=1.):
+        return (scale * torch.randn(*shape, generator=gen,
+                                    dtype=torch.float64)).to(ctx.dtype).to(ctx.device)
+
+    shape = (ctx.kcells, ctx.jtot, ctx.itot)
+    names = ("u", "v", "w") + fz.names
+    e = F.generic_viscosity(fz, ctx, s, sfc, {})["evisc"]
+    t0 = {n: rnd(*shape, scale=1e-3) for n in names}
+    ct, cts = F.generic_col_tables(fz, ctx, s, m.force, m.buffer)
+    ct = ct + rnd(*ct.shape, scale=1e-3)
+    cts = cts + rnd(*cts.shape, scale=1e-3)
+    uvwa = [s[n] for n in ("u", "v", "w", fz.n2_scalar)]
+    args = (ctx.ks, ctx.dxi, ctx.dyi, fz.tPr)
+    cases = [
+        ("evisc", lambda: [fz.evisc(*uvwa)],
+         lambda: [F.evisc_plain(*uvwa, fz.ce, *args, True, True)], "field"),
+        ("limits", lambda: list(fz.limits(*uvwa)),
+         lambda: list(F.limits_plain(*uvwa, fz.ce, *args, True, True)),
+         "field")]
+    for can in (-153. / 128., 0.):
+        carry = can != 0.
+
+        def uvw(kernel, can=can, carry=carry):
+            t = {n: t0[n].clone() for n in ("u", "v", "w")}
+            if kernel:
+                out = fz.tend_uvw(s, t, e, ct, 0.7, can, carry)
+            else:
+                out = F.tend_uvw_plain(s, e, t, ct, ctx.ks, ctx.dxi, ctx.dyi,
+                                       fz.visc, fz.fc, ctx.utrans, ctx.vtrans,
+                                       0.7, can, fz.coriolis, carry)
+            return [out[n] for n in out] + [t[n] for n in t]
+
+        def scalars(kernel, can=can, carry=carry):
+            t = {n: t0[n].clone() for n in fz.names}
+            if kernel:
+                out = fz.tend_scalars(s, t, e, cts, 0.7, can, carry)
+            else:
+                out = F.tend_scalars_plain(s, fz.names, e, t, cts, fz.sviscs,
+                                           ctx.ks, ctx.dxi, ctx.dyi, fz.tPr,
+                                           0.7, can, carry)
+            return [out[n] for n in out] + [t[n] for n in t]
+
+        cases.append(("tend_uvw", lambda f=uvw: f(True),
+                      lambda f=uvw: f(False), "field"))
+        cases.append(("tend_scalars", lambda f=scalars: f(True),
+                      lambda f=scalars: f(False), "field"))
+    pref, exnref, _, _ = m.thermo._p_profiles(ctx, {})
+    dry = dict(s)
+    dry["qt"] = 0.5 * s["qt"]
+    heavy = dict(s)
+    heavy["qr"] = 50. * s["qr"]
+    # heavy rain: fall speeds near W_MAX cross ~2.5 cells in one dt
+    strong_dt = 2.5 * float(m.grid.dz.min()) / 9.65
+    for state, dt in ((s, 2.), (heavy, strong_dt), (dry, 2.)):
+        ql = m.thermo.get_ql(ctx, state)
+
+        def micro(kernel, state=state, dt=dt, ql=ql):
+            t = {n: torch.zeros_like(state[n]) for n in MICRO_FIELDS}
+            call = mic.micro2 if kernel else mic.apply_plain
+            rr = call(ctx, state, t, ql, pref, exnref, dt)
+            return [t[n][ctx.ks:ctx.ke] for n in MICRO_FIELDS] + [rr]
+
+        cases.append(("micro2", lambda f=micro: f(True),
+                      lambda f=micro: f(False), "field"))
+    return cases + pres_cases(torch, m, s, t0, rnd)
+
+
 def compare(torch, name, kern, plain, kind, dtype, where):
     """Run a kernel and its plain version, fail unless every output agrees
     to the tolerance; returns the largest absolute difference."""
@@ -270,6 +419,14 @@ def check_kernels(torch):
             for name, kern, plain, kind in kernel_cases(torch, m, seed=n + k):
                 compare(torch, name, kern, plain, kind, dtype,
                         "%d^2x%d" % (n, k))
+    for n, k in ((45, 24), (48, 32)):
+        for dtype in (torch.float64, torch.float32):
+            m = build_rico(torch, n, k, dtype, "cuda")
+            m.build_step()
+            for name, kern, plain, kind in generic_kernel_cases(torch, m,
+                                                                seed=n + k):
+                compare(torch, name, kern, plain, kind, dtype,
+                        "rico %d^2x%d" % (n, k))
 
 
 # --------------------------------------------------------------------------
@@ -277,28 +434,37 @@ def check_kernels(torch):
 # --------------------------------------------------------------------------
 
 def check_step(torch):
-    out = {}
-    for device in ("cuda", "cpu"):
-        m = build_model(torch, 32, 32, torch.float64, device)
-        m.build_step()
-        s, sfc = m.as_device_state(initial_state(m, seed=7))
-        for _ in range(2):
-            s, sfc, aux = m.step(s, sfc, 2.0)
-        out[device] = (m, s, aux)
-    m, s_gpu, aux_gpu = out["cuda"]
-    _, s_cpu, aux_cpu = out["cpu"]
-    ks, ke = m.ctx.ks, m.ctx.ke
-    worst = 0.
-    for n in ("u", "v", "w", "th"):
-        worst = max(worst, rel_err(s_gpu[n][ks:ke].cpu(), s_cpu[n][ks:ke]))
-    worst = max(worst, rel_err(aux_gpu["p"].cpu(), aux_cpu["p"]))
-    log("  2 RK3 steps 32^3 float64, card vs CPU: max rel err %.3e" % worst)
-    if not worst <= 1e-10:
-        raise AssertionError("whole step on the card disagrees with the CPU")
+    cases = (("drycblles 32^3", lambda d: build_model(torch, 32, 32,
+                                                      torch.float64, d),
+              lambda m: initial_state(m, seed=7)),
+             ("rico 16^2x24", lambda d: build_rico(torch, 16, 24,
+                                                   torch.float64, d),
+              lambda m: rico_state(m, seed=7)))
+    for label, make, state in cases:
+        out = {}
+        for device in ("cuda", "cpu"):
+            m = make(device)
+            m.build_step()
+            s, sfc = m.as_device_state(state(m))
+            for _ in range(2):
+                s, sfc, aux = m.step(s, sfc, 2.0)
+            out[device] = (m, s, aux)
+        m, s_gpu, aux_gpu = out["cuda"]
+        _, s_cpu, aux_cpu = out["cpu"]
+        ks, ke = m.ctx.ks, m.ctx.ke
+        worst = 0.
+        for n in m.fields.prognostic_names:
+            worst = max(worst, rel_err(s_gpu[n][ks:ke].cpu(), s_cpu[n][ks:ke]))
+        worst = max(worst, rel_err(aux_gpu["p"].cpu(), aux_cpu["p"]))
+        log("  2 RK3 steps %s float64, card vs CPU: max rel err %.3e"
+            % (label, worst))
+        if not worst <= 1e-10:
+            raise AssertionError("whole %s step on the card disagrees with "
+                                 "the CPU" % label)
 
 
 # --------------------------------------------------------------------------
-#  phase 5: the main path at 512^3
+#  phase 5: the drycblles LES at 512^3
 # --------------------------------------------------------------------------
 
 def run_main_path(torch, workdir, n=512, device="cuda"):
@@ -316,8 +482,8 @@ def run_main_path(torch, workdir, n=512, device="cuda"):
     run_s = time.perf_counter() - t0
     launches = {kern.name: kern.launches for kern in m.kernels()}
     peak = torch.cuda.max_memory_allocated()
-    log("  Model.run(max_iters=12) at 512^3 float32: %.3f s wall, launches %s"
-        % (run_s, launches))
+    log("  Model.run(max_iters=12) at %d^3 float32: %.3f s wall, launches %s"
+        % (n, run_s, launches))
     missing = [name for name, c in launches.items() if c == 0]
     if missing:
         raise AssertionError("main path did not launch %s" % missing)
@@ -336,19 +502,11 @@ def run_main_path(torch, workdir, n=512, device="cuda"):
         raise AssertionError("divergence or status check failed")
 
     # step time: median of 10 steps after 2 warm-up steps
-    sfc = m.final_sfc
-    dt = m.timeloop.dt
-    times = []
-    for it in range(12):
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        s, sfc, _ = m.step(s, sfc, dt)
-        torch.cuda.synchronize()
-        if it >= 2:
-            times.append(time.perf_counter() - t1)
+    times, s, sfc = step_times(torch, m, s, m.final_sfc)
     step_s = statistics.median(times)
-    log("  s/step 512^3 float32: median %.6f (min %.6f, max %.6f) of 10; "
-        "peak memory %.3f GB" % (step_s, min(times), max(times), peak / 1e9))
+    log("  s/step %d^3 float32: median %.6f (min %.6f, max %.6f) of 10; "
+        "peak memory %.3f GB" % (n, step_s, min(times), max(times), peak / 1e9))
+    m.final_sfc = sfc
     return m, s, launches, step_s, peak, run_s
 
 
@@ -369,35 +527,27 @@ def time_call(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def check_kernels_full(torch, m):
+def check_kernels_full(torch, m, cases):
     """Each kernel against its plain version on seeded inputs at the main
     path's shapes; returns the largest absolute difference per kernel."""
     errs = {}
-    for name, kern, plain, kind in kernel_cases(torch, m, seed=512):
+    for name, kern, plain, kind in cases(torch, m, seed=m.ctx.itot):
         err = compare(torch, name, kern, plain, kind, m.dtype, "%d^3" % m.ctx.itot)
         errs[name] = max(errs.get(name, 0.), err)
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
     return errs
 
 
-def time_kernels(torch, m, s):
+def pres_pairs(torch, m, s):
+    """(kernel, plain) calls of the projection's kernels (K3-K6) at the
+    model's shapes."""
     from microhh_torch.ops import fused as F
     from microhh_torch.ops.pres_2 import tdma_plain
-    ctx, fz, gl, pr = m.ctx, m.fused, m.glue, m.pres
-    e = fz.evisc(s["u"], s["v"], s["w"], s["th"])
-    t = m.t
+    ctx, gl, pr, t = m.ctx, m.glue, m.pres, m.t
     rhs = gl.rhs(s["u"], s["v"], s["w"], 1.)
     p = pr.solve(rhs)
     spec = torch.fft.rfft2(p, dim=(-2, -1))
-    tend_args = (ctx.ks, ctx.dxi, ctx.dyi, fz.visc, fz.svisc, fz.tPr, 0.5,
-                 -5. / 9., False, True)
-    uvwth = [s[n] for n in ("u", "v", "w", "th")]
-    pairs = {
-        "evisc": (lambda: fz.evisc(*uvwth),
-                  lambda: F.evisc_plain(*uvwth, fz.ce, ctx.ks, ctx.dxi,
-                                        ctx.dyi, fz.tPr, True)),
-        "tend_rk": (lambda: fz.tend_rk(s, t, e, *tend_args[6:]),
-                    lambda: F.tend_rk_plain(s, e, t, fz.ct, *tend_args)),
+    return {
         "pres_rhs": (lambda: gl.rhs(s["u"], s["v"], s["w"], 1.),
                      lambda: F.pres_rhs_plain(s["u"], s["v"], s["w"], gl.pc,
                                               ctx.ks, ctx.dxi, ctx.dyi, 1.)),
@@ -413,10 +563,100 @@ def time_kernels(torch, m, s):
                        lambda: F.pres_apply_plain(p, s, t, gl.pc, ctx.ks,
                                                   ctx.dxi, ctx.dyi, 0.0, 0.0,
                                                   True)),
+    }
+
+
+def time_kernels(torch, m, s):
+    from microhh_torch.ops import fused as F
+    ctx, fz = m.ctx, m.fused
+    e = fz.evisc(s["u"], s["v"], s["w"], s["th"])
+    t = m.t
+    tend_args = (ctx.ks, ctx.dxi, ctx.dyi, fz.visc, fz.svisc, fz.tPr, 0.5,
+                 -5. / 9., False, True)
+    uvwth = [s[n] for n in ("u", "v", "w", "th")]
+    pairs = {
+        "evisc": (lambda: fz.evisc(*uvwth),
+                  lambda: F.evisc_plain(*uvwth, fz.ce, ctx.ks, ctx.dxi,
+                                        ctx.dyi, fz.tPr, True)),
+        "tend_rk": (lambda: fz.tend_rk(s, t, e, *tend_args[6:]),
+                    lambda: F.tend_rk_plain(s, e, t, fz.ct, *tend_args)),
         "limits": (lambda: fz.limits(*uvwth),
                    lambda: F.limits_plain(*uvwth, fz.ce, ctx.ks, ctx.dxi,
                                           ctx.dyi, fz.tPr, True)),
     }
+    pairs.update(pres_pairs(torch, m, s))
+    return time_pairs(torch, pairs)
+
+
+# --------------------------------------------------------------------------
+#  phases 7 and 8: the rico LES at 384^3
+# --------------------------------------------------------------------------
+
+def step_times(torch, m, s, sfc, n=12, warm=2):
+    """Host wall times of n - warm steps after warm warm-up steps, each
+    between two synchronisations; returns (times, s, sfc)."""
+    dt = m.timeloop.dt
+    times = []
+    for it in range(n):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        s, sfc, _ = m.step(s, sfc, dt)
+        torch.cuda.synchronize()
+        if it >= warm:
+            times.append(time.perf_counter() - t1)
+    return times, s, sfc
+
+
+def run_rico(torch, workdir, n=384):
+    init = build_rico(torch, n, n, torch.float32, "cuda", "init", workdir)
+    init.save_initial_state()
+    del init
+    m = build_rico(torch, n, n, torch.float32, "cuda", "run", workdir)
+    m.build_step()
+    for kern in m.kernels():
+        kern.launches = 0
+    m.thermo.reads.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    s = m.run(max_iters=12)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {kern.name: kern.launches for kern in m.kernels()}
+    syncs = dict(m.thermo.reads)
+    peak = torch.cuda.max_memory_allocated()
+    log("  Model.run(max_iters=12) at rico %d^3 float32: %.3f s wall, "
+        "launches %s, host reads %s" % (n, run_s, launches, syncs))
+    missing = [name for name, c in launches.items() if c == 0]
+    if missing:
+        raise AssertionError("rico did not launch %s" % missing)
+    ks, ke = m.ctx.ks, m.ctx.ke
+    for name in m.fields.prognostic_names:
+        if not bool(torch.isfinite(s[name][ks:ke]).all()):
+            raise AssertionError("non-finite %s after the rico run" % name)
+    mins = {name: float(s[name][ks:ke].min()) for name in ("qt", "qr", "nr")}
+    with open(os.path.join(workdir, "rico.out")) as f:
+        rows = [line.split() for line in f if line.split()[0].isdigit()]
+    divs = [float(r[6]) for r in rows]
+    final = {kk: float(v) for kk, v in m.diagnostics(s, m.final_sfc).items()}
+    log("  status rows %d, max DIV %.3e, final DIV %.3e, TKE %.6e, dt %.4f s, "
+        "minima %s" % (len(rows), max(divs), final["div"], final["tke"],
+                       m.timeloop.dt, mins))
+    if not (len(rows) >= 1 and max(divs) <= 1e-4 and final["div"] <= 1e-4
+            and np.isfinite(final["tke"])):
+        raise AssertionError("rico divergence or status check failed")
+    if min(mins.values()) < 0.:
+        raise AssertionError("negative qt, qr or nr after the limiter: %s"
+                             % mins)
+    times, s, sfc = step_times(torch, m, s, m.final_sfc)
+    step_s = statistics.median(times)
+    log("  s/step rico %d^3 float32: median %.6f (min %.6f, max %.6f) of 10; "
+        "peak memory %.3f GB" % (n, step_s, min(times), max(times), peak / 1e9))
+    m.final_sfc = sfc
+    return m, s, launches, syncs, step_s, peak, run_s
+
+
+def time_pairs(torch, pairs):
     out = {}
     for name, (kern, plain) in pairs.items():
         # plain, kernel, kernel, plain: both measured twice, in turns
@@ -425,17 +665,56 @@ def time_kernels(torch, m, s):
         k2 = time_call(torch, kern, 10)
         p2 = time_call(torch, plain, 3)
         out[name] = (min(k1, k2), min(p1, p2))
-        log("  %-10s kernel %.3f ms  plain %.3f ms  (runs %.3f/%.3f, %.3f/%.3f)"
+        log("  %-12s kernel %.3f ms  plain %.3f ms  (runs %.3f/%.3f, %.3f/%.3f)"
             % (name, out[name][0], out[name][1], k1, k2, p1, p2))
+        torch.cuda.empty_cache()
     return out
 
 
+def time_rico_kernels(torch, m, s):
+    """The rico path's kernels and their plain versions at its shapes."""
+    from microhh_torch.ops import fused as F
+    from microhh_torch.ops.microphys import MICRO_FIELDS
+    ctx, fz, mic = m.ctx, m.fused, m.micro
+    sfc = m.final_sfc
+    s = m.boundary.set_ghost_cells(ctx, s, sfc)
+    e = F.generic_viscosity(fz, ctx, s, sfc, {})["evisc"]
+    ct, cts = F.generic_col_tables(fz, ctx, s, m.force, m.buffer)
+    t = m.t
+    uvwa = [s[n] for n in ("u", "v", "w", fz.n2_scalar)]
+    args = (ctx.ks, ctx.dxi, ctx.dyi, fz.tPr)
+    pref, exnref, _, _ = m.thermo._p_profiles(ctx, {})
+    ql = m.thermo.get_ql(ctx, s)
+    tm = {n: torch.zeros_like(s[n]) for n in MICRO_FIELDS}
+    pairs = {
+        "evisc": (lambda: fz.evisc(*uvwa),
+                  lambda: F.evisc_plain(*uvwa, fz.ce, *args, True, True)),
+        "micro2": (lambda: mic.micro2(ctx, s, tm, ql, pref, exnref, 2.),
+                   lambda: mic.apply_plain(ctx, s, tm, ql, pref, exnref, 2.)),
+        "tend_uvw": (lambda: fz.tend_uvw(s, t, e, ct, 0.5, -5. / 9., True),
+                     lambda: F.tend_uvw_plain(
+                         s, e, t, ct, ctx.ks, ctx.dxi, ctx.dyi, fz.visc,
+                         fz.fc, ctx.utrans, ctx.vtrans, 0.5, -5. / 9.,
+                         fz.coriolis, True)),
+        "tend_scalars": (lambda: fz.tend_scalars(s, t, e, cts, 0.5, -5. / 9., True),
+                         lambda: F.tend_scalars_plain(
+                             s, fz.names, e, t, cts, fz.sviscs, ctx.ks,
+                             ctx.dxi, ctx.dyi, fz.tPr, 0.5, -5. / 9., True)),
+        "limits": (lambda: fz.limits(*uvwa),
+                   lambda: F.limits_plain(*uvwa, fz.ce, *args, True, True)),
+    }
+    pairs.update(pres_pairs(torch, m, s))
+    return time_pairs(torch, pairs)
+
+
 # --------------------------------------------------------------------------
-#  phase 7 (--profile): where the step's device time goes
+#  phase 9 (--profile): where the step's device time goes
 # --------------------------------------------------------------------------
 
 # kernel-name fragment -> part of the step
 PARTS = [("evisc_kernel", "K1 evisc"), ("tend_rk_kernel", "K2 tend_rk"),
+         ("micro2_kernel", "K11 micro2"), ("tend_uvw_kernel", "K8/K9 tend_uvw"),
+         ("tend_scalars_kernel", "K10 tend_scalars"),
          ("pres_rhs_kernel", "K4 pres_rhs"), ("dft_r2c_x", "K5 dft_fwd (i pass)"),
          ("dft_c2c_y", "K5/K6 dft (j passes)"), ("tdma_kernel", "K3 tdma"),
          ("dft_c2r_x", "K6 dft_inv (i pass)"),
@@ -472,9 +751,12 @@ def wall_and_device(torch, fn, reps):
     return statistics.median(walls), start.elapsed_time(end) / reps
 
 
-def profile_steps(torch, m, s, path, nsteps=2):
+def profile_steps(torch, m, s, label, nsteps=2):
+    """Device time by part over nsteps profiled steps; returns the report
+    lines and the profiler's table."""
     from torch.profiler import profile, ProfilerActivity
     sfc, dt = m.final_sfc, m.timeloop.dt
+    reads = getattr(m.thermo, "reads", {})
     state = {"s": s, "sfc": sfc}
 
     def steps():
@@ -482,6 +764,7 @@ def profile_steps(torch, m, s, path, nsteps=2):
             state["s"], state["sfc"], _ = m.step(state["s"], state["sfc"], dt)
 
     plain_wall, _ = wall_and_device(torch, steps, 2)
+    reads0 = sum(reads.values())
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
@@ -490,32 +773,36 @@ def profile_steps(torch, m, s, path, nsteps=2):
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     avgs = prof.key_averages()
-    parts = {label: 0. for _, label in PARTS}
+    parts = {lb: 0. for _, lb in PARTS}
     other, other_n = 0., 0
     for evt in avgs:
         us = device_us(evt)
         if us <= 0.:
             continue
-        label = next((lb for frag, lb in PARTS if frag in evt.key), None)
-        if label is None:
+        lb = next((lb for frag, lb in PARTS if frag in evt.key), None)
+        if lb is None:
             other += us
             other_n += evt.count
         else:
-            parts[label] += us
+            parts[lb] += us
     busy_ms = (sum(parts.values()) + other) / 1e3
     if busy_ms <= 0.:
         raise RuntimeError("the profiler recorded no device time")
-    lines = ["%d steps of drycblles %d^3 %s, card: %s"
-             % (nsteps, m.ctx.itot, str(m.dtype)[6:], card_line()),
+    lines = ["%d steps of %s %d^3 %s, card: %s"
+             % (nsteps, label, m.ctx.itot, str(m.dtype)[6:], card_line()),
              "profiled wall %.3f ms/step, device busy %.3f ms/step, device "
              "idle share %.3f (same profiled steps); unprofiled wall %.3f "
-             "ms/step" % (wall_ms / nsteps, busy_ms / nsteps,
-                          1. - busy_ms / wall_ms, plain_wall / nsteps),
+             "ms/step; host reads of device values in the moist glue %.1f "
+             "per step (%s since the run began)"
+             % (wall_ms / nsteps, busy_ms / nsteps, 1. - busy_ms / wall_ms,
+                plain_wall / nsteps,
+                (sum(reads.values()) - reads0) / nsteps, dict(reads)),
              "%-28s %10s %7s" % ("part", "ms/step", "share")]
-    for label, us in list(parts.items()) + [
+    for lb, us in list(parts.items()) + [
             ("other (%d device ops)" % (other_n // nsteps), other)]:
-        lines.append("%-28s %10.3f %7.3f" % (label, us / 1e3 / nsteps,
-                                             us / 1e3 / busy_ms))
+        if us > 0.:
+            lines.append("%-28s %10.3f %7.3f" % (lb, us / 1e3 / nsteps,
+                                                 us / 1e3 / busy_ms))
     for name, fn in (("limits", lambda: {k: float(v) for k, v in
                                          m.limits(state["s"], state["sfc"]).items()}),
                      ("diagnostics", lambda: {k: float(v) for k, v in
@@ -525,12 +812,16 @@ def profile_steps(torch, m, s, path, nsteps=2):
                      "%.3f ms" % (name, w, d))
     sort = ("self_device_time_total" if hasattr(avgs[0], "self_device_time_total")
             else "self_cuda_time_total")
-    with open(path, "w") as f:
-        f.write("\n".join(lines) + "\n\n")
-        f.write(avgs.table(sort_by=sort, row_limit=40))
     for line in lines:
         log("  " + line)
-    log("  full table: %s" % path)
+    return lines, avgs.table(sort_by=sort, row_limit=40)
+
+
+def kernel_entry(k, launches, errs, times, where):
+    return {"name": k.name, "route": "cuda", "source": k.source,
+            "replaces": k.replaces, "launches": launches[k.name],
+            "max_abs_err": errs[k.name], "ms": times[k.name][0],
+            "plain_ms": times[k.name][1], "shape": where}
 
 
 def main():
@@ -548,6 +839,7 @@ def main():
         if len(args) != 2 or args[0] != "--profile":
             sys.exit("usage: chip_smoke.py [--profile FILE]")
         profile_path = args[1]
+    reports = []
 
     log("[1] card: %s" % card_line())
     log("    torch %s, CUDA %s, device %s, python %s"
@@ -560,7 +852,8 @@ def main():
     log("[2] kernels built in %.1f s (%.1f s wall): %s"
         % (build_s, time.perf_counter() - t0, os.path.basename(path)))
     for line in build_log.splitlines():
-        if "Compiling entry" in line or "registers" in line or "spill" in line:
+        if ("Compiling entry" in line or "registers" in line or "spill" in line
+                or line.startswith("== ")):
             log("    " + line.strip())
 
     log("[3] kernels against their plain versions")
@@ -572,27 +865,62 @@ def main():
     log("[5] drycblles 512^3 float32 through Model.run")
     with tempfile.TemporaryDirectory() as workdir:
         m, s, launches, step_s, peak, run_s = run_main_path(torch, workdir)
-
         log("[6] kernels at 512^3 float32: against their plain versions, "
             "then timed")
-        errs = check_kernels_full(torch, m)
+        errs = check_kernels_full(torch, m, kernel_cases)
         times = time_kernels(torch, m, s)
-
+        entries = {k.name: kernel_entry(k, launches, errs, times,
+                                        "drycblles 512^3 float32")
+                   for k in m.kernels()}
         if profile_path:
-            log("[7] profile of two steps at 512^3 float32")
-            os.makedirs(os.path.dirname(os.path.abspath(profile_path)),
-                        exist_ok=True)
-            profile_steps(torch, m, s, profile_path)
+            log("[9a] profile of two drycblles steps at 512^3 float32")
+            reports.append(profile_steps(torch, m, s, "drycblles"))
+        del m, s
+    torch.cuda.empty_cache()
 
+    log("[7] rico 384^3 float32 through Model.run")
+    with tempfile.TemporaryDirectory() as workdir:
+        m, s, rlaunches, syncs, rstep_s, rpeak, rrun_s = run_rico(torch, workdir)
+        log("[8] kernels at rico 384^3 float32: against their plain versions, "
+            "then timed")
+        rerrs = check_kernels_full(torch, m, generic_kernel_cases)
+        rtimes = time_rico_kernels(torch, m, s)
+        for k in m.kernels():
+            if k.name not in entries:
+                entries[k.name] = kernel_entry(k, rlaunches, rerrs, rtimes,
+                                               "rico 384^3 float32")
+        rico_kernels = {k.name: {"launches": rlaunches[k.name],
+                                 "max_abs_err": rerrs[k.name],
+                                 "ms": rtimes[k.name][0],
+                                 "plain_ms": rtimes[k.name][1]}
+                        for k in m.kernels()}
+        if profile_path:
+            log("[9b] profile of two rico steps at 384^3 float32")
+            reports.append(profile_steps(torch, m, s, "rico"))
+        del m, s
+
+    if profile_path:
+        os.makedirs(os.path.dirname(os.path.abspath(profile_path)),
+                    exist_ok=True)
+        with open(profile_path, "w") as f:
+            for lines, table in reports:
+                f.write("\n".join(lines) + "\n\n" + table + "\n\n")
+        log("  full tables: %s" % profile_path)
+
+    for name, e in entries.items():
+        by_path = {"drycblles_512": launches.get(name, 0),
+                   "rico_384": rlaunches.get(name, 0)}
+        e["launches"] = sum(by_path.values())
+        e["launches_by_path"] = by_path
     log(json.dumps({"drycblles_512_f32": {
         "step_s_median": step_s, "run12_wall_s": run_s,
-        "peak_mem_gb": peak / 1e9, "kernel_build_s": build_s}}))
+        "peak_mem_gb": peak / 1e9, "kernel_build_s": build_s},
+        "rico_384_f32": {
+        "step_s_median": rstep_s, "run12_wall_s": rrun_s,
+        "peak_mem_gb": rpeak / 1e9, "host_reads_run12": syncs,
+        "kernels": rico_kernels}}))
     log("card: %s" % card_line())
-    log(json.dumps({"kernels": [
-        {"name": k.name, "route": "cuda", "source": k.source,
-         "replaces": k.replaces, "launches": launches[k.name],
-         "max_abs_err": errs[k.name], "ms": times[k.name][0],
-         "plain_ms": times[k.name][1]} for k in m.kernels()]}))
+    log(json.dumps({"kernels": list(entries.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

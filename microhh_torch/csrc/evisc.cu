@@ -4,10 +4,14 @@
 //
 // Replaces the TPU kernel FusedLES2.evisc / _evisc_body
 // (microhh_tpu/ops/pallas_fused.py:1417, pallas_call :1441), full-plane
-// variant with fold_ghosts: the fields are read raw and the k index of each
-// neighbour plane is clamped (u, v, th to [ks, ke-1], w to [ks, ke]), which
-// equals the ghost value for the zero-gradient top BCs; the MOST wall row
-// is patched afterwards in torch (ops/fused.py surface_evisc_row).
+// variant, in its two modes.  ghosts = 0 (the dry path, fold_ghosts): the
+// fields are read raw and the k index of each neighbour plane is clamped
+// (u, v, th to [ks, ke-1], w to [ks, ke]), which equals the ghost value for
+// the zero-gradient top BCs.  ghosts = 1 (the generic path): the fields
+// are ghost-filled and read at k-1 and k+1 as they are; the stratified
+// term is then the moist N2 of thl against thvref (model.py:964-970).  The
+// MOST wall row is patched afterwards in torch (ops/fused.py
+// surface_evisc_row).
 //
 // K7: the adaptive-dt limits pass, the per-level maxima of the CFL rate
 // (advec_2.cxx:50-78 pointwise expression) and of the same eddy viscosity,
@@ -37,18 +41,21 @@ enum { E_DZI, E_DZHI, E_DZHI1, E_MLEN2, E_THREF, E_TOPS, NE };
 template <typename T>
 using Ring = T[4][3][HJ][HI];
 
+// plane ks+p of each field; cell-centred planes clamped to [lo, hic] and
+// w to [lo, ke] (lo = ks, hic = ke-1 clamp; lo = ks-1, hic = ke read the
+// ghost planes)
 template <typename T>
 __device__ __forceinline__ void load_ring(Ring<T>& sh, const T* __restrict__ u,
                                           const T* __restrict__ v,
                                           const T* __restrict__ w,
                                           const T* __restrict__ th, int p,
-                                          int ks, int ke, int j0, int i0,
-                                          int jtot, int itot) {
+                                          int ks, int ke, int lo, int hic,
+                                          int j0, int i0, int jtot, int itot) {
     const int s = slot(p);
-    load_tile(sh[0][s], u, clampi(ks + p, ks, ke - 1), j0, i0, jtot, itot);
-    load_tile(sh[1][s], v, clampi(ks + p, ks, ke - 1), j0, i0, jtot, itot);
-    load_tile(sh[2][s], w, clampi(ks + p, ks, ke), j0, i0, jtot, itot);
-    load_tile(sh[3][s], th, clampi(ks + p, ks, ke - 1), j0, i0, jtot, itot);
+    load_tile(sh[0][s], u, clampi(ks + p, lo, hic), j0, i0, jtot, itot);
+    load_tile(sh[1][s], v, clampi(ks + p, lo, hic), j0, i0, jtot, itot);
+    load_tile(sh[2][s], w, clampi(ks + p, lo, ke), j0, i0, jtot, itot);
+    load_tile(sh[3][s], th, clampi(ks + p, lo, hic), j0, i0, jtot, itot);
 }
 
 #define U(s, dj, di) sh[0][s][r + (dj)][c + (di)]
@@ -138,18 +145,19 @@ evisc_kernel(const T* __restrict__ u, const T* __restrict__ v,
              const T* __restrict__ w, const T* __restrict__ th,
              T* __restrict__ out, const T* __restrict__ ce,
              int itot, int jtot, int ktot, int ks,
-             T dxi, T dyi, T tPr, int stratified) {
+             T dxi, T dyi, T tPr, int stratified, int ghosts) {
     __shared__ Ring<T> sh;
     const int i0 = blockIdx.x * TI, j0 = blockIdx.y * TJ;
     const int i = i0 + threadIdx.x, j = j0 + threadIdx.y;
     const bool inside = i < itot && j < jtot;
     const int ke = ks + ktot;
+    const int lo = ghosts ? ks - 1 : ks, hic = ghosts ? ke : ke - 1;
     const long long plane = (long long)itot * jtot;
 
-    load_ring(sh, u, v, w, th, -1, ks, ke, j0, i0, jtot, itot);
-    load_ring(sh, u, v, w, th, 0, ks, ke, j0, i0, jtot, itot);
+    load_ring(sh, u, v, w, th, -1, ks, ke, lo, hic, j0, i0, jtot, itot);
+    load_ring(sh, u, v, w, th, 0, ks, ke, lo, hic, j0, i0, jtot, itot);
     for (int k = 0; k < ktot; ++k) {
-        load_ring(sh, u, v, w, th, k + 1, ks, ke, j0, i0, jtot, itot);
+        load_ring(sh, u, v, w, th, k + 1, ks, ke, lo, hic, j0, i0, jtot, itot);
         __syncthreads();
         if (inside)
             out[(long long)k * plane + (long long)j * itot + i] =
@@ -177,7 +185,7 @@ limits_kernel(const T* __restrict__ u, const T* __restrict__ v,
               const T* __restrict__ w, const T* __restrict__ th,
               T* __restrict__ part, const T* __restrict__ ce,
               int itot, int jtot, int ktot, int ks,
-              T dxi, T dyi, T tPr, int stratified) {
+              T dxi, T dyi, T tPr, int stratified, int ghosts) {
     constexpr int NW = TI * TJ / 32;
     __shared__ Ring<T> sh;
     __shared__ T red[2][NW];
@@ -185,14 +193,15 @@ limits_kernel(const T* __restrict__ u, const T* __restrict__ v,
     const bool inside = i0 + (int)threadIdx.x < itot
                         && j0 + (int)threadIdx.y < jtot;
     const int ke = ks + ktot;
+    const int lo = ghosts ? ks - 1 : ks, hic = ghosts ? ke : ke - 1;
     const int tid = threadIdx.y * TI + threadIdx.x;
     const long long nblk = (long long)gridDim.x * gridDim.y;
     const long long blk = (long long)blockIdx.y * gridDim.x + blockIdx.x;
 
-    load_ring(sh, u, v, w, th, -1, ks, ke, j0, i0, jtot, itot);
-    load_ring(sh, u, v, w, th, 0, ks, ke, j0, i0, jtot, itot);
+    load_ring(sh, u, v, w, th, -1, ks, ke, lo, hic, j0, i0, jtot, itot);
+    load_ring(sh, u, v, w, th, 0, ks, ke, lo, hic, j0, i0, jtot, itot);
     for (int k = 0; k < ktot; ++k) {
-        load_ring(sh, u, v, w, th, k + 1, ks, ke, j0, i0, jtot, itot);
+        load_ring(sh, u, v, w, th, k + 1, ks, ke, lo, hic, j0, i0, jtot, itot);
         __syncthreads();
         // both rates are >= 0: a point outside the grid contributes 0
         T cfl = T(0), ev = T(0);
@@ -240,12 +249,13 @@ limits_reduce(const T* __restrict__ part, T* __restrict__ out, long long nblk) {
 template <typename T>
 int launch_evisc(const T* u, const T* v, const T* w, const T* th, T* out,
                  const T* ce, int itot, int jtot, int ktot, int ks, double dxi,
-                 double dyi, double tPr, int stratified, cudaStream_t stream) {
+                 double dyi, double tPr, int stratified, int ghosts,
+                 cudaStream_t stream) {
     const dim3 block(TI, TJ);
     const dim3 grid((itot + TI - 1) / TI, (jtot + TJ - 1) / TJ);
     evisc_kernel<T><<<grid, block, 0, stream>>>(
         u, v, w, th, out, ce, itot, jtot, ktot, ks, T(dxi), T(dyi), T(tPr),
-        stratified);
+        stratified, ghosts);
     return (int)cudaGetLastError();
 }
 
@@ -255,12 +265,12 @@ template <typename T>
 int launch_limits(const T* u, const T* v, const T* w, const T* th, T* part,
                   T* out, const T* ce, int itot, int jtot, int ktot, int ks,
                   double dxi, double dyi, double tPr, int stratified,
-                  cudaStream_t stream) {
+                  int ghosts, cudaStream_t stream) {
     const dim3 block(TI, TJ);
     const dim3 grid((itot + TI - 1) / TI, (jtot + TJ - 1) / TJ);
     limits_kernel<T><<<grid, block, 0, stream>>>(
         u, v, w, th, part, ce, itot, jtot, ktot, ks, T(dxi), T(dyi), T(tPr),
-        stratified);
+        stratified, ghosts);
     if (int rc = (int)cudaGetLastError()) return rc;
     limits_reduce<T><<<2 * ktot, 256, 0, stream>>>(
         part, out, (long long)grid.x * grid.y);
@@ -273,21 +283,22 @@ int launch_limits(const T* u, const T* v, const T* w, const T* th, T* part,
     extern "C" int mhh_evisc_##SUF(                                           \
         const void* u, const void* v, const void* w, const void* th,          \
         void* out, const void* ce, int itot, int jtot, int ktot, int ks,      \
-        double dxi, double dyi, double tPr, int stratified, void* stream) {   \
+        double dxi, double dyi, double tPr, int stratified, int ghosts,       \
+        void* stream) {                                                       \
         return mhh::launch_evisc<T>((const T*)u, (const T*)v, (const T*)w,    \
                                     (const T*)th, (T*)out, (const T*)ce,      \
                                     itot, jtot, ktot, ks, dxi, dyi, tPr,      \
-                                    stratified, (cudaStream_t)stream);        \
+                                    stratified, ghosts, (cudaStream_t)stream);\
     }                                                                         \
     extern "C" int mhh_limits_##SUF(                                          \
         const void* u, const void* v, const void* w, const void* th,          \
         void* part, void* out, const void* ce, int itot, int jtot, int ktot,  \
         int ks, double dxi, double dyi, double tPr, int stratified,           \
-        void* stream) {                                                       \
+        int ghosts, void* stream) {                                           \
         return mhh::launch_limits<T>((const T*)u, (const T*)v, (const T*)w,   \
                                      (const T*)th, (T*)part, (T*)out,         \
                                      (const T*)ce, itot, jtot, ktot, ks, dxi, \
-                                     dyi, tPr, stratified,                    \
+                                     dyi, tPr, stratified, ghosts,            \
                                      (cudaStream_t)stream);                   \
     }
 

@@ -1,6 +1,7 @@
 """Build and bind the port's hand-written CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled at first use with ``nvcc`` for ``sm_90a`` into one
+The sources are compiled at first use with ``nvcc`` for ``sm_90a``, one
+``nvcc`` process per source, all started together, and linked into one
 shared library with a plain C interface, under ``build/microhh_torch/`` at
 the root of the checkout, and loaded with ctypes.  The library's name holds a
 hash of the sources and flags, so an edited source is rebuilt and an
@@ -28,14 +29,16 @@ PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "microhh_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+_PP, _PD = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_double)
 
 # C signatures without the trailing stream argument (csrc/*.cu).
 SIGNATURES = {
-    # u, v, w, th, out, ce; itot, jtot, ktot, ks; dxi, dyi, tPr; stratified
-    "evisc": [_P] * 6 + [_I] * 4 + [_D] * 3 + [_I],
+    # u, v, w, th, out, ce; itot, jtot, ktot, ks; dxi, dyi, tPr; stratified,
+    # ghosts
+    "evisc": [_P] * 6 + [_I] * 4 + [_D] * 3 + [_I] * 2,
     # u, v, w, th, e, us, vs, ws, ths, tu, tv, tw, tth, ct; itot, jtot, ktot,
     # ks; dxi, dyi, visc, svisc, tPr, cbdt, can; first, carry
     "tend_rk": [_P] * 14 + [_I] * 4 + [_D] * 7 + [_I] * 2,
@@ -51,8 +54,19 @@ SIGNATURES = {
     # complex y (overwritten), real x; kt, jtot, itot
     "dft_inv": [_P] * 2 + [_I] * 3,
     # u, v, w, th, part, out, ce; itot, jtot, ktot, ks; dxi, dyi, tPr;
-    # stratified
-    "limits": [_P] * 7 + [_I] * 4 + [_D] * 3 + [_I],
+    # stratified, ghosts
+    "limits": [_P] * 7 + [_I] * 4 + [_D] * 3 + [_I] * 2,
+    # u, v, w, e, us, vs, ws, tu, tv, tw, ct; itot, jtot, ktot, ks; dxi, dyi,
+    # visc, fc, utrans, vtrans, cbdt, can; coriolis, carry
+    "tend_uvw": [_P] * 11 + [_I] * 4 + [_D] * 8 + [_I] * 2,
+    # u, v, w, e; host arrays of the S scalars' a, a*, carry pointers and
+    # viscosities; S; tables (S, ktot, NTG); itot, jtot, ktot, ks; dxi, dyi,
+    # tPr, cbdt, can; carry
+    "tend_scalars": [_P] * 4 + [_PP] * 3 + [_PD, _I, _P] + [_I] * 4
+                    + [_D] * 5 + [_I],
+    # qr, nr, qt, thl, tqr, tnr, tqt, tthl, ql, rr_bot, cc; itot, jtot, ktot,
+    # ks, nsed; Nc0, dt
+    "micro2": [_P] * 11 + [_I] * 5 + [_D] * 2,
 }
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
@@ -80,26 +94,45 @@ def library_path():
 
 
 def build():
-    """Compile csrc/*.cu unless the library for these sources exists.
-    Returns (library path, seconds spent compiling, compiler log)."""
+    """Compile csrc/*.cu unless the library for these sources exists: one
+    nvcc process per source, all running at once, then one link.  Returns
+    (library path, seconds spent compiling, compiler log)."""
     path = library_path()
     log_path = path[:-3] + ".log"
     if os.path.exists(path):
         log = open(log_path).read() if os.path.exists(log_path) else ""
         return path, 0., log
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = "%s.%d.tmp" % (path, os.getpid())
+    tag = "%s.%d" % (path[:-3], os.getpid())
     cus = [p for p in _sources() if p.endswith(".cu")]
+    objs = ["%s.%s.o" % (tag, os.path.basename(cu)[:-3]) for cu in cus]
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc()] + NVCC_FLAGS + ["-I", CSRC_DIR, "-o", tmp]
-                          + cus, capture_output=True, text=True)
+    procs = [subprocess.Popen([_nvcc()] + NVCC_FLAGS + ["-I", CSRC_DIR, "-c",
+                                                        "-o", obj, cu],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for cu, obj in zip(cus, objs)]
+    logs, failed = [], []
+    for cu, proc in zip(cus, procs):
+        out, _ = proc.communicate()
+        logs.append("== %s\n%s" % (os.path.basename(cu), out))
+        if proc.returncode != 0:
+            failed.append(os.path.basename(cu))
+    if not failed:
+        link = subprocess.run([_nvcc(), "-shared", "-o", tag + ".tmp"] + objs,
+                              capture_output=True, text=True)
+        logs.append("== link\n%s%s" % (link.stdout, link.stderr))
+        if link.returncode != 0:
+            failed.append("link")
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError("nvcc failed (exit %d):\n%s" % (proc.returncode, log))
+    log = "".join(logs)
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed:
+        raise RuntimeError("nvcc failed (%s):\n%s" % (", ".join(failed), log))
     with open(log_path, "w") as f:
         f.write(log)
-    os.replace(tmp, path)
+    os.replace(tag + ".tmp", path)
     return path, seconds, log
 
 

@@ -1,18 +1,28 @@
 """Model orchestration of the PyTorch port (``microhh_tpu/model.py``; reference
 ``src/model.cxx``).
 
-One RK step runs eagerly on the model's device: per substep the eddy
-viscosity (K1), the MOST surface, the RK tendency sweep (K2) with its wall
-patches, and the projection (K4 rhs -> DFT K5 -> Thomas K3 -> inverse DFT
-K6 -> K4 apply).  The host loop takes the adaptive-dt limits from one pass
-(K7) and does the integer-time bookkeeping, the status table and the
-restarts, as the reference's main loop (``src/model.cxx:303-557``) does.
+One RK step runs eagerly on the model's device, on one of two paths of the
+JAX package's fused step.
 
-The port carries the drycblles slice of the JAX package's fused path
-(full-plane kernels with ``fold_ghosts``, slim limits).  An option outside
-it raises NotImplementedError naming its ROADMAP item.  The model runs on
-the device it is given, by default the first CUDA device; ``device="cpu"``
-runs every kernel's plain-torch version instead.
+* The dry path (thermo dry, the drycblles slice; full-plane kernels with
+  ``fold_ghosts``): per substep the eddy viscosity (K1), the MOST surface,
+  the RK tendency sweep (K2) with its wall patches, and the projection (K4
+  rhs -> DFT K5 -> Thomas K3 -> inverse DFT K6 -> K4 apply).
+* The generic path (thermo moist with 2mom_warm, large-scale forcing and
+  the limiter, the bomex/rico slice; ``microhh_tpu/model.py:370-487``): per
+  substep the ghost fill, the base-state update, K1 in its ghost-filled
+  moist mode, the buoyancy and the warm-rain scheme (K11) into the carry,
+  the MOST surface and the refill of the flux-dependent ghosts, the column
+  tables, the tendency sweeps K8/K9 and K10, the projection, and the
+  limiter as a clamp of s.
+
+The host loop takes the adaptive-dt limits from one pass (K7) and the
+sedimentation limit, and does the integer-time bookkeeping, the status
+table and the restarts, as the reference's main loop
+(``src/model.cxx:303-557``) does.  An option outside the two slices raises
+NotImplementedError naming its ROADMAP item.  The model runs on the device
+it is given, by default the first CUDA device; ``device="cpu"`` runs every
+kernel's plain-torch version instead.
 """
 
 import os
@@ -29,9 +39,15 @@ from . import ops
 from .ops import not_ported
 from .ops.boundary import NEUMANN, FLUX
 from .ops.buffer import make_buffer
-from .ops.fused import (Fused, PresGlue, exec_viscosity, tendencies_rk,
-                        pressure_rk, surface_evisc_row)
+from .ops.force import make_force
+from .ops.fused import (Fused, FusedGeneric, PresGlue, exec_viscosity,
+                        generic_col_tables, generic_tendencies_rk,
+                        generic_viscosity, tendencies_rk, pressure_rk,
+                        surface_evisc_row)
+from .ops.limiter import Limiter
+from .ops.microphys import Microphys2momWarm, make_microphys
 from .ops.stencil import ip, jp, i2
+from .ops.thermo_moist import ThermoMoist
 
 NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
 
@@ -49,6 +65,7 @@ class Context:
         self.kcells = g.kcells
         self.dxi, self.dyi = float(g.dxi), float(g.dyi)
         self.zsize = g.zsize
+        self.utrans, self.vtrans = float(g.utrans), float(g.vtrans)
         for name in ("z", "dz", "dzh", "dzi", "dzhi"):
             setattr(self, name, self.tensor(getattr(g, name)))
         self.rhoref = self.tensor(fields.rhoref)
@@ -70,17 +87,19 @@ def check_slice(ini, grid, sim_mode):
         return ini.get_str(section, item, default="0") not in ("0", "false")
 
     decay = ini.items.get("decay", {}).get("swdecay", {})
+    moist = ini.get_str("thermo", "swthermo", default="0") == "moist"
+    forced = (any(switch("force", n) for n in ("swlspres", "swls", "swwls"))
+              or ini.get_list(str, "limiter", "limitlist", default=[]))
     outside = [
         (grid.spatial_order != 2, "[grid] swspatialorder=4", 11),
         (ini.get_list(str, "fields", "slist", default=[]),
          "[fields] slist (passive scalars)", 9),
-        (switch("micro", "swmicro"), "[micro] swmicro", 9),
+        (switch("micro", "swmicro") and not moist,
+         "[micro] swmicro without [thermo] swthermo=moist", 9),
         (switch("radiation", "swradiation"), "[radiation] swradiation", 13),
-        (any(switch("force", n) for n in ("swlspres", "swls", "swwls",
-                                          "swnudge")),
-         "[force] (large-scale forcing and the Coriolis fold)", 9),
-        (ini.get_list(str, "limiter", "limitlist", default=[]),
-         "[limiter] limitlist", 9),
+        (forced and not moist,
+         "[force] or [limiter] with [thermo] swthermo=dry (the dry step "
+         "without the RK fold)", 9),
         (any(v not in ("0", "false") for v in decay.values()),
          "[decay] swdecay", 9),
         (switch("source", "swsource"), "[source] swsource", 9),
@@ -112,8 +131,12 @@ def check_slice(ini, grid, sim_mode):
 
 
 class Model:
+    """``input_nc``: the case's input profiles (a ``utils/nc`` Dataset or
+    MemoryDataset); by default ``<workdir>/<casename>_input.nc`` when it
+    exists."""
+
     def __init__(self, ini, sim_mode, casename="", workdir=".",
-                 dtype=torch.float32, device="cuda"):
+                 dtype=torch.float32, device="cuda", input_nc=None):
         if isinstance(ini, str):
             ini = Ini(ini)
         self.ini = ini
@@ -126,9 +149,9 @@ class Model:
             raise RuntimeError("no CUDA device; device='cpu' runs the "
                                "plain-torch versions of the kernels")
 
-        self.input_nc = None
+        self.input_nc = input_nc
         nc_path = os.path.join(workdir, "%s_input.nc" % casename)
-        if os.path.exists(nc_path):
+        if input_nc is None and os.path.exists(nc_path):
             from .utils import nc
             self.input_nc = nc.Dataset(nc_path, "r")
 
@@ -146,14 +169,19 @@ class Model:
         check_slice(ini, self.grid, sim_mode)
 
         self.fields = Fields(ini, self.grid)
+        # thermo and microphysics register their scalars before the BCs
         self.thermo = ops.make_thermo(ini, self.grid, self.fields)
+        self.micro = make_microphys(ini, self.grid, self.fields)
+        self.micro.thermo = self.thermo
         self.boundary = ops.make_boundary(ini, self.fields, self.grid)
         self.advec = ops.make_advec(ini, self.grid, self.fields)
         self.diff = ops.make_diff(ini, self.grid, self.fields, self.boundary)
         self.diff.thermo = self.thermo
         self.boundary.thermo = self.thermo
         self.pres = ops.make_pres(ini, self.grid, self.fields)
+        self.force = make_force(ini, self.grid, self.fields, self.input_nc)
         self.buffer = make_buffer(ini, self.grid, self.fields, self.input_nc)
+        self.limiter = Limiter(ini, self.fields)
         self.timeloop = Timeloop(ini, sim_mode)
         # [master] wallclocklimit in hours (reference master.cxx:80-89)
         self.wallclocklimit = ini.get_float("master", "wallclocklimit",
@@ -197,10 +225,19 @@ class Model:
     #  the step
     # ------------------------------------------------------------------
     def build_step(self):
-        """Build the kernel wrappers and the RK carry for this case.  The
-        kernels read clamped k neighbours instead of ghost cells, which is
-        exact for a free-slip top and a Neumann or flux top for th."""
+        """Build the kernel wrappers and the RK carry for this case: the
+        generic path for the moist thermo, else the dry path, whose kernels
+        read clamped k neighbours instead of ghost cells (exact for a
+        free-slip top and a Neumann or flux top for th)."""
         ctx = self.ctx
+        self.glue = PresGlue(ctx)
+        shape = (ctx.kcells, ctx.jtot, ctx.itot)
+        self.t = {n: torch.zeros(shape, dtype=self.dtype, device=self.device)
+                  for n in self.fields.prognostic_names}
+        self.generic = isinstance(self.thermo, ThermoMoist)
+        if self.generic:
+            self.fused = FusedGeneric(ctx, self.diff, self.thermo, self.force)
+            return
         bcs = self.boundary.bcs
         if not all(bcs[n].bctop == NEUMANN and bcs[n].top == 0.
                    for n in ("u", "v")):
@@ -212,20 +249,24 @@ class Model:
                              "(the ghost-filled kernel variant)", 7)
         top_grad = bc.top if bc.bctop == NEUMANN else -bc.top / self.boundary.viscs["th"]
         self.fused = Fused(ctx, self.diff, self.thermo, self.buffer, top_grad)
-        self.glue = PresGlue(ctx)
-        shape = (ctx.kcells, ctx.jtot, ctx.itot)
-        self.t = {n: torch.zeros(shape, dtype=self.dtype, device=self.device)
-                  for n in self.fields.prognostic_names}
 
     def kernels(self):
         """The hand-written kernels of the step, in step order."""
-        return [self.fused.k_evisc, self.fused.k_tend, self.glue.k_rhs,
-                self.pres.k_dft_fwd, self.pres.k_tdma, self.pres.k_dft_inv,
-                self.glue.k_apply, self.fused.k_limits]
+        fz = self.fused
+        pres = [self.glue.k_rhs, self.pres.k_dft_fwd, self.pres.k_tdma,
+                self.pres.k_dft_inv, self.glue.k_apply]
+        if not self.generic:
+            return [fz.k_evisc, fz.k_tend] + pres + [fz.k_limits]
+        micro = ([self.micro.k_micro]
+                 if isinstance(self.micro, Microphys2momWarm) else [])
+        return ([fz.k_evisc] + micro + [fz.k_uvw, fz.k_scalars] + pres
+                + [fz.k_limits])
 
     def substep(self, s, sfc, aux, dt, sub):
-        """One low-storage RK substep on the RK-folded path (model.py:488-515
+        """One low-storage RK substep on the RK-folded path (model.py:370-515
         of the JAX package): the carry self.t is updated in place."""
+        if self.generic:
+            return self._substep_generic(s, sfc, aux, dt, sub)
         ctx, tl = self.ctx, self.timeloop
         aux = exec_viscosity(self.fused, ctx, s, sfc, aux)
         sfc = self.boundary.exec(ctx, s, sfc, aux)
@@ -239,20 +280,55 @@ class Model:
                                  aux, subdt, can)
         return s_new, sfc, aux
 
+    def _substep_generic(self, s, sfc, aux, dt, sub):
+        """The generic substep (microhh_tpu/model.py:370-487): every
+        additive producer adds into the carry before the tendency kernels,
+        which fold the RK update in; the limiter clamps s after the
+        projection."""
+        ctx, tl, fz, bnd = self.ctx, self.timeloop, self.fused, self.boundary
+        s = bnd.set_ghost_cells(ctx, s, sfc)
+        aux = self.thermo.update_basestate(ctx, s, aux, sfc)
+        aux = generic_viscosity(fz, ctx, s, sfc, aux)
+        self.thermo.exec(ctx, s, self.t, aux)
+        _, aux = self.micro.exec(ctx, s, self.t, aux, dt)
+        sfc = bnd.exec(ctx, s, sfc, aux)
+        s = bnd.set_ghost_cells(ctx, s, sfc, names=bnd.flux_ghost_names())
+        cols = generic_col_tables(fz, ctx, s, self.force, self.buffer)
+        subdt = tl.rk_cb[sub] * dt
+        can = tl.rk_ca[(sub + 1) % tl.n_substeps]
+        s_star = generic_tendencies_rk(fz, ctx, s, self.t, aux, sfc, subdt,
+                                       can, cols)
+        aux["subdt"] = subdt
+        s_new, aux = pressure_rk(self.glue, ctx, self.pres, s_star, self.t,
+                                 aux, subdt, can)
+        self.limiter.clamp(ctx, s_new, self.t, subdt, can)
+        return s_new, sfc, aux
+
     def step(self, s, sfc, dt):
         """One RK step of size dt: returns (s, sfc, aux)."""
+        if self.generic:
+            # the producers add into the carry from the first substep on
+            for a in self.t.values():
+                a.zero_()
         aux = {}
         for sub in range(self.timeloop.n_substeps):
             s, sfc, aux = self.substep(s, sfc, aux, dt, sub)
         return s, sfc, aux
 
     def limits(self, s, sfc):
-        """Adaptive-dt rates per unit dt, the CFL rate and the diffusion
-        number, from K7's per-level maxima (the JAX package's slim limits,
-        model.py:596-630): max commutes with the positive per-level dt
-        factors and the MOST bottom-row override applied here."""
+        """Adaptive-dt rates per unit dt: the CFL rate and the diffusion
+        number from K7's per-level maxima (the JAX package's slim limits,
+        model.py:596-630: max commutes with the positive per-level dt
+        factors and the MOST bottom-row override applied here; on the
+        generic path they equal its cfl_max + evisc + get_dn, :631-657), and
+        the sedimentation rate of the microphysics."""
         ctx, fz = self.ctx, self.fused
-        cflk, evk = fz.limits(s["u"], s["v"], s["w"], s["th"])
+        if self.generic:
+            s = self.boundary.set_ghost_cells(ctx, s, sfc)
+            th = s[fz.n2_scalar]
+        else:
+            th = s["th"]
+        cflk, evk = fz.limits(s["u"], s["v"], s["w"], th)
         if fz.smag.surface:
             row = surface_evisc_row(fz.smag, ctx, s, sfc, True)
             evk = torch.cat([torch.max(row)[None], evk[1:]])
@@ -260,7 +336,11 @@ class Model:
         dzi2 = ctx.dzi[ctx.ks:ctx.ke] ** 2
         dn = torch.max(torch.abs(evk * tprfac_i
                                  * (ctx.dxi ** 2 + ctx.dyi ** 2 + dzi2)))
-        return {"cfl_rate": torch.max(cflk), "dn_rate": dn}
+        out = {"cfl_rate": torch.max(cflk), "dn_rate": dn}
+        mrate = self.micro.get_time_limit_rate(ctx, s)
+        if mrate is not None:
+            out["micro_rate"] = mrate
+        return out
 
     def diagnostics(self, s, sfc):
         """Status-line quantities after a ghost fill (model.py:664-688)."""
@@ -343,12 +423,17 @@ class Model:
             while True:
                 # adaptive time step (model.cxx:730-751)
                 tl.reset_time_step_limit(self.at_wall_clock_limit())
-                lim = {k: float(v) for k, v in self.limits(s, sfc).items()}
+                lim = self.limits(s, sfc)
+                # one read of the rates to the host
+                lim = dict(zip(lim, torch.stack(list(lim.values())).tolist()))
                 cfl = lim["cfl_rate"] * tl.dt
                 dn = lim["dn_rate"] * tl.dt
                 tl.set_time_step_limit(tl.idt * cflmax / max(cfl, cflmin))
                 if dn > 0.:
                     tl.set_time_step_limit(tl.idt * dnmax / dn)
+                if "micro_rate" in lim:
+                    micro_cfl = max(lim["micro_rate"] * tl.dt, 1e-5)
+                    tl.set_time_step_limit(tl.idt * self.micro.cflmax / micro_cfl)
                 tl.set_time_step()
                 if tl.do_check():
                     self.print_status(s, sfc, cfl, dn, status_file)

@@ -1,7 +1,9 @@
 """Physics-operator factories (``microhh_tpu/ops/__init__.py``).
 
-The port carries the drycblles slice: ``advec 2``, ``diff smag2``,
-``thermo dry``, the MOST surface and ``pres 2``.  Every other scheme raises
+The port carries the drycblles and the moist (bomex/rico) slices:
+``advec 2``, ``diff smag2``, ``thermo dry`` and ``moist``, the MOST surface
+and ``pres 2``, with ``2mom_warm`` microphysics, ``force`` and ``limiter``
+(ops/microphys.py, ops/force.py, ops/limiter.py).  Every other scheme raises
 NotImplementedError naming the ROADMAP item that ports it.
 """
 
@@ -15,7 +17,7 @@ _ROADMAP_ADVEC = {"2i4": 10, "2i5": 10, "2i62": 10, "2i53": 10, "4": 11,
                   "4m": 11, "0": 12}
 _ROADMAP_DIFF = {"2": 12, "4": 11, "dnn_local": 12, "dnn_global": 12,
                  "dnn_stats": 12, "0": 12}
-_ROADMAP_THERMO = {"0": 9, "buoy": 9, "moist": 9, "vapor": 9}
+_ROADMAP_THERMO = {"0": 9, "buoy": 9, "vapor": 9}
 _ROADMAP_BOUNDARY = {"default": 14, "surface_bulk": 14, "surface_lsm": 14}
 
 
@@ -54,6 +56,9 @@ def make_thermo(ini, grid, fields):
     if sw == "dry":
         from .thermo_dry import ThermoDry
         return ThermoDry(ini, grid, fields)
+    if sw == "moist":
+        from .thermo_moist import ThermoMoist
+        return ThermoMoist(ini, grid, fields)
     if sw in _ROADMAP_THERMO:
         raise not_ported("[thermo] swthermo=%s" % sw, _ROADMAP_THERMO[sw])
     raise ValueError("%s is an illegal value for swthermo" % sw)

@@ -247,12 +247,24 @@ class BoundarySurface:
                 sfc[name] = np.fromfile(fn, dtype=dtype).reshape(g.jtot, g.itot)
         return sfc
 
-    def set_ghost_cells(self, ctx, s, sfc):
+    def flux_ghost_names(self):
+        """Fields whose ghost planes depend on the surface model's output
+        (what the refill after ``exec`` must update): the scalars always,
+        u and v only under the ustar BC."""
+        names = list(self.fields.sp.keys())
+        if self.mbcbot == USTAR:
+            names = ["u", "v"] + names
+        return tuple(names)
+
+    def set_ghost_cells(self, ctx, s, sfc, names=None):
         """Ghost fill from the surface model's 2-D bot/grad planes (bottom)
-        and the static ini BCs (top), 2nd order."""
+        and the static ini BCs (top), 2nd order; ``names`` restricts it to
+        those fields."""
         out = dict(s)
         ks = ctx.ks
-        for name in ["u", "v"] + list(self.fields.sp.keys()):
+        if names is None:
+            names = ["u", "v"] + list(self.fields.sp.keys())
+        for name in names:
             a = s[name]
             bc = self.bcs[name]
             if self.mbcbot == USTAR and name in ("u", "v"):

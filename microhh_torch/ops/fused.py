@@ -1,5 +1,6 @@
-"""Hand-kernel wrappers of the dry LES step (counterpart of
-``microhh_tpu/ops/pallas_fused.py`` for the drycblles slice).
+"""Hand-kernel wrappers of the LES step (counterpart of
+``microhh_tpu/ops/pallas_fused.py``): the dry path of the drycblles slice and
+the generic path of the moist (bomex/rico) slice.
 
 Each wrapper takes the ghost-padded (kcells, jtot, itot) fields.  On a CUDA
 tensor it launches its hand-written kernel (``csrc/*.cu``, bound in
@@ -15,13 +16,24 @@ no fallback from the card to the plain version.
                             (``csrc/pres_glue.cu``);
 * K7 ``Fused.limits``     - per-level maxima of the CFL rate and of K1's
                             eddy viscosity, the adaptive-dt limits
-                            (``csrc/evisc.cu``).
+                            (``csrc/evisc.cu``);
+* K8/K9 ``FusedGeneric.tend_uvw`` - the generic path's u, v, w advec_2 +
+                            smag2 + column fold + Coriolis + RK fold
+                            (``csrc/tend_generic.cu``);
+* K10 ``FusedGeneric.tend_scalars`` - every scalar's advec_2 + smag2 +
+                            column fold + RK fold in one pass
+                            (``csrc/tend_generic.cu``).
 
-The kernels read the raw fields with CLAMPED k neighbours (the JAX
-package's ``fold_ghosts`` variant: no ghost fill inside the substep); the
+On the dry path the kernels read the raw fields with CLAMPED k neighbours
+(the JAX package's ``fold_ghosts`` variant: no ghost fill inside the
+substep).  The generic path fills the ghost planes first, as the JAX
+package's does, and K1, K7 and K8-K10 read k-1 and k+1 as they are.  The
 MOST wall rows are patched afterwards in plain torch (``tendencies_rk``,
-``surface_evisc_row``), as the JAX package patches them in XLA.
+``generic_tendencies_rk``, ``surface_evisc_row``), as the JAX package
+patches them in XLA.
 """
+
+import ctypes
 
 import numpy as np
 import torch
@@ -32,14 +44,20 @@ from .stencil import im, ip, jm, jp, i2
 
 # per-level table columns, shared with csrc/evisc.cu, tend_rk.cu, pres_glue.cu
 (E_DZI, E_DZHI, E_DZHI1, E_MLEN2, E_THREF, E_TOPS, NE) = range(7)
+# the dry K2 table holds the first NT columns, the generic K8-K10 tables
+# (built every substep by generic_col_tables) all NTG
 (T_DZI, T_DZHI, T_DZHI1, T_DZI_M1, T_RHO, T_RHOH, T_RHOH1, T_RHO_M1,
  T_THREFH, T_FACZ, T_FACZH, T_UREF, T_VREF, T_SREF, NT) = range(15)
+(T_UG, T_VG, T_ADDU, T_ADDV, T_ADDS, T_WLSDN, T_WLSUP, NTG) = range(NT, NT + 8)
 (P_RHO, P_RHOH, P_RHOH1, P_DZI, P_DZHI, NP) = range(6)
 
 PROGNOSTIC = ("u", "v", "w", "th")
 
 # (j, i) tile of a thread block of the stencil kernels (csrc/common.cuh TJ, TI)
 TILE_J, TILE_I = 8, 32
+
+# the most scalars K10 takes (csrc/tend_generic.cu MAXS)
+MAX_SCALARS = 8
 
 
 def _planes(a, first, n, off, lo, hi):
@@ -57,14 +75,17 @@ def _columns(tab):
 #  plain-torch versions of the kernels
 # ==========================================================================
 
-def evisc_plain(u, v, w, th, ce, ks, dxi, dyi, tPr, stratified):
-    """K1 in plain torch: eddy viscosity on the interior (ktot, jtot, itot)."""
+def evisc_plain(u, v, w, th, ce, ks, dxi, dyi, tPr, stratified,
+                ghosts=False):
+    """K1 in plain torch: eddy viscosity on the interior (ktot, jtot, itot).
+    ghosts: read the ghost planes of filled fields instead of clamping."""
     kt = ce.shape[0]
     ke = ks + kt
+    lo, hic = (ks - 1, ke) if ghosts else (ks, ke - 1)
     c = _columns(ce)
-    u_dn, uc, u_up = (_planes(u, ks, kt, o, ks, ke - 1) for o in (-1, 0, 1))
-    v_dn, vc, v_up = (_planes(v, ks, kt, o, ks, ke - 1) for o in (-1, 0, 1))
-    wc, w1 = (_planes(w, ks, kt, o, ks, ke) for o in (0, 1))
+    u_dn, uc, u_up = (_planes(u, ks, kt, o, lo, hic) for o in (-1, 0, 1))
+    v_dn, vc, v_up = (_planes(v, ks, kt, o, lo, hic) for o in (-1, 0, 1))
+    wc, w1 = (_planes(w, ks, kt, o, lo, ke) for o in (0, 1))
     dzi, dzhi, dzhi1 = c(E_DZI), c(E_DZHI), c(E_DZHI1)
 
     dudx = (ip(uc) - uc) * dxi
@@ -81,18 +102,19 @@ def evisc_plain(u, v, w, th, ce, ks, dxi, dyi, tPr, stratified):
     strain2 = 2. * (dudx ** 2 + dvdy ** 2 + dwdz ** 2 + horiz + vert_x + vert_y) + cst.dsmall
     if not stratified:
         return c(E_MLEN2) * torch.sqrt(strain2)
-    th_dn, th_up = (_planes(th, ks, kt, o, ks, ke - 1) for o in (-1, 1))
+    th_dn, th_up = (_planes(th, ks, kt, o, lo, hic) for o in (-1, 1))
     n2 = cst.grav / c(E_THREF) * 0.5 * (th_up + c(E_TOPS) - th_dn) * dzi
     return c(E_MLEN2) * torch.sqrt(torch.maximum(
         n2 * (-1. / tPr) + strain2, strain2 * cst.dsmall))
 
 
-def limits_plain(u, v, w, th, ce, ks, dxi, dyi, tPr, stratified):
+def limits_plain(u, v, w, th, ce, ks, dxi, dyi, tPr, stratified,
+                 ghosts=False):
     """K7 in plain torch: per-level maxima (ktot,) of the CFL rate and of
     the eddy viscosity of evisc_plain."""
     kt = ce.shape[0]
     ke = ks + kt
-    ev = evisc_plain(u, v, w, th, ce, ks, dxi, dyi, tPr, stratified)
+    ev = evisc_plain(u, v, w, th, ce, ks, dxi, dyi, tPr, stratified, ghosts)
     uc, vc = u[ks:ke], v[ks:ke]
     wc, w1 = (_planes(w, ks, kt, o, ks, ke) for o in (0, 1))
     cfl = (torch.abs(i2(uc, ip(uc))) * dxi + torch.abs(i2(vc, jp(vc))) * dyi
@@ -142,14 +164,11 @@ def _uv_tend(c, dxi, dyi, visc, u_dn, u, u_up, v_dn, v, v_up, w, w_up,
     return adv_u + dif_u, adv_v + dif_v
 
 
-def _wth_tend(c, dxi, dyi, visc, svisc, tPr, u_dn, u, v_dn, v, w_dn, w, w_up,
-              a_dn, a, a_up, e_dn, e, e_up):
-    dzi, dzhi, dzhi1 = c(T_DZI), c(T_DZHI), c(T_DZHI1)
-    rho, rhoh, rhoh1 = c(T_RHO), c(T_RHOH), c(T_RHOH1)
-    rho_m1, threfh = c(T_RHO_M1), c(T_THREFH)
-    rdzi = dzi / rho
+def _w_tend(c, dxi, dyi, visc, u_dn, u, v_dn, v, w_dn, w, w_up, e_dn, e):
+    """advec_2 + smag2 of w at the half levels (without buoyancy)."""
+    dzi, dzhi = c(T_DZI), c(T_DZHI)
+    rho, rhoh, rho_m1 = c(T_RHO), c(T_RHOH), c(T_RHO_M1)
     rdzhi = dzhi / rhoh
-    tPri = 1. / tPr
 
     adv_w = -((i2(ip(u_dn), ip(u)) * i2(w, ip(w))
                - i2(u_dn, u) * i2(im(w), w)) * dxi
@@ -164,7 +183,16 @@ def _wth_tend(c, dxi, dyi, visc, svisc, tPr, u_dn, u, v_dn, v, w_dn, w, w_up,
                 - ev_yw * ((w - jm(w)) * dyi + (v - v_dn) * dzhi)) * dyi
              + (rho * (e + visc) * (w_up - w) * dzi
                 - rho_m1 * (e_dn + visc) * (w - w_dn) * c(T_DZI_M1)) * (2. * rdzhi))
-    wt = adv_w + dif_w + cst.grav / threfh * (i2(a_dn, a) - threfh)
+    return adv_w + dif_w
+
+
+def _s_tend(c, dxi, dyi, svisc, tPr, u, v, w, w_up, a_dn, a, a_up,
+            e_dn, e, e_up):
+    """advec_2 + smag2 (diff_c) of one scalar at the full levels."""
+    dzi, dzhi, dzhi1 = c(T_DZI), c(T_DZHI), c(T_DZHI1)
+    rhoh, rhoh1 = c(T_RHOH), c(T_RHOH1)
+    rdzi = dzi / c(T_RHO)
+    tPri = 1. / tPr
 
     adv_s = -((ip(u) * i2(a, ip(a)) - u * i2(im(a), a)) * dxi
               + (jp(v) * i2(a, jp(a)) - v * i2(jm(a), a)) * dyi
@@ -179,7 +207,7 @@ def _wth_tend(c, dxi, dyi, visc, svisc, tPr, u_dn, u, v_dn, v, w_dn, w, w_up,
              + (sn * (jp(a) - a) - ss * (a - jm(a))) * dyi * dyi
              + (rhoh1 * st_ * (a_up - a) * dzhi1
                 - rhoh * sb * (a - a_dn) * dzhi) * rdzi)
-    return wt, adv_s + dif_s
+    return adv_s + dif_s
 
 
 def tend_rk_plain(s, e, t, ct, ks, dxi, dyi, visc, svisc, tPr, cbdt, can,
@@ -200,8 +228,12 @@ def tend_rk_plain(s, e, t, ct, ks, dxi, dyi, visc, svisc, tPr, cbdt, can,
 
     ut, vt = _uv_tend(c, dxi, dyi, visc, u_dn, uc, u_up, v_dn, vc, v_up,
                       wc, w_up, e_dn, ec, e_up)
-    wt, tht = _wth_tend(c, dxi, dyi, visc, svisc, tPr, u_dn, uc, v_dn, vc,
-                        w_dn, wc, w_up, a_dn, ac, a_up, e_dn, ec, e_up)
+    threfh = c(T_THREFH)
+    wt = (_w_tend(c, dxi, dyi, visc, u_dn, uc, v_dn, vc, w_dn, wc, w_up,
+                  e_dn, ec)
+          + cst.grav / threfh * (i2(a_dn, ac) - threfh))
+    tht = _s_tend(c, dxi, dyi, svisc, tPr, uc, vc, wc, w_up, a_dn, ac, a_up,
+                  e_dn, ec, e_up)
     facz = c(T_FACZ)
     ut = ut - facz * (uc - c(T_UREF))
     vt = vt - facz * (vc - c(T_VREF))
@@ -245,6 +277,94 @@ def pres_apply_plain(p, s, t, pc, ks, dxi, dyi, dt, can, carry):
             t[n][ks:ke] = t[n][ks:ke] - can * g
 
 
+def _ghost_planes(a, ks, ke):
+    """Planes k-1, k, k+1 of a ghost-filled array for the interior k."""
+    return a[ks - 1:ke - 1], a[ks:ke], a[ks + 1:ke + 1]
+
+
+def _fresh(s, ks, ke, values):
+    """A new array like s holding values on the interior, zero ghosts."""
+    out = torch.zeros_like(s)
+    out[ks:ke] = values
+    return out
+
+
+def tend_uvw_plain(s, e, t, ct, ks, dxi, dyi, visc, fc, utrans, vtrans,
+                   cbdt, can, coriolis, carry):
+    """K8/K9 in plain torch.  s, t: dicts of ghost-filled (kcells, jtot,
+    itot) u, v, w; e: the eddy viscosity with edge ghost planes (kcells);
+    ct: this substep's (ktot, NTG) table.  Returns s* for u, v, w (zero
+    ghost planes); the carry t always enters and is overwritten in place
+    when carry."""
+    kt = ct.shape[0]
+    ke = ks + kt
+    c = _columns(ct)
+    u_dn, uc, u_up = _ghost_planes(s["u"], ks, ke)
+    v_dn, vc, v_up = _ghost_planes(s["v"], ks, ke)
+    w_dn, wc, w_up = _ghost_planes(s["w"], ks, ke)
+    e_dn, ec, e_up = _ghost_planes(e, ks, ke)
+
+    ut, vt = _uv_tend(c, dxi, dyi, visc, u_dn, uc, u_up, v_dn, vc, v_up,
+                      wc, w_up, e_dn, ec, e_up)
+    # the column fold and the geostrophic Coriolis term
+    # (pallas_fused.py _extra_uv with fold_add)
+    facz = c(T_FACZ)
+    ut = ut + c(T_ADDU) - facz * uc
+    vt = vt + c(T_ADDV) - facz * vc
+    wdn, wup = c(T_WLSDN), c(T_WLSUP)
+    ut = ut + wdn * (uc - u_dn) + wup * (u_up - uc)
+    vt = vt + wdn * (vc - v_dn) + wup * (v_up - vc)
+    if coriolis:
+        v_at_u = 0.25 * (vc + ip(vc) + jm(vc) + jm(ip(vc)))
+        u_at_v = 0.25 * (uc + im(uc) + jp(uc) + im(jp(uc)))
+        ut = ut + fc * (v_at_u + vtrans - c(T_VG))
+        vt = vt - fc * (u_at_v + utrans - c(T_UG))
+    wt = (_w_tend(c, dxi, dyi, visc, u_dn, uc, v_dn, vc, w_dn, wc, w_up,
+                  e_dn, ec) - c(T_FACZH) * wc)
+    wt[0] = 0.          # half level ks is the wall
+
+    s_star = {}
+    for n, tend, cur in (("u", ut, uc), ("v", vt, vc), ("w", wt, wc)):
+        tt = t[n][ks:ke] + tend
+        s_star[n] = _fresh(s[n], ks, ke, cur + cbdt * tt)
+        if carry:
+            t[n][ks:ke] = can * tt
+    return s_star
+
+
+def tend_scalars_plain(s, names, e, t, cts, sviscs, ks, dxi, dyi, tPr,
+                       cbdt, can, carry):
+    """K10 in plain torch: the scalars ``names`` with their tables cts
+    (S, ktot, NTG) and viscosities; returns their s*, updates the carry in
+    place when carry."""
+    kt = cts.shape[1]
+    ke = ks + kt
+    uc, vc, wc = s["u"][ks:ke], s["v"][ks:ke], s["w"][ks:ke]
+    w_up = s["w"][ks + 1:ke + 1]
+    e_dn, ec, e_up = _ghost_planes(e, ks, ke)
+    s_star = {}
+    for n, ct, svisc in zip(names, cts, sviscs):
+        c = _columns(ct)
+        a_dn, ac, a_up = _ghost_planes(s[n], ks, ke)
+        tt = t[n][ks:ke] + _s_tend(c, dxi, dyi, svisc, tPr, uc, vc, wc, w_up,
+                                   a_dn, ac, a_up, e_dn, ec, e_up)
+        tt = tt + (c(T_ADDS) - c(T_FACZ) * ac + c(T_WLSDN) * (ac - a_dn)
+                   + c(T_WLSUP) * (a_up - ac))
+        s_star[n] = _fresh(s[n], ks, ke, ac + cbdt * tt)
+        if carry:
+            t[n][ks:ke] = can * tt
+    return s_star
+
+
+def _empty_ghosts_zero(like, ctx):
+    """An uninitialised array like ``like`` whose ghost planes are zero
+    (the kernels write the interior planes only)."""
+    out = torch.empty_like(like)
+    out[:ctx.ks].zero_()
+    out[ctx.ke:].zero_()
+    return out
+
+
 # ==========================================================================
 #  kernel wrappers
 # ==========================================================================
@@ -254,6 +374,8 @@ class Fused:
     sponge.  ``buffer`` is the static-profile sponge folded into K2 (None:
     no sponge); ``top_grad_th`` is th's top ghost gradient (Neumann value,
     or -flux/visc) that K1's clamped top plane needs."""
+
+    ghosts = False    # K1/K7 read ghost planes (generic path) or clamp
 
     def __init__(self, ctx, smag, thermo, buffer, top_grad_th):
         self.ctx = ctx
@@ -295,19 +417,22 @@ class Fused:
         self.k_limits = Kernel("limits", "microhh_torch/csrc/evisc.cu",
                                "microhh_tpu/ops/pallas_fused.py:1524")
 
-    def evisc(self, u, v, w, th):
-        """K1: interior eddy viscosity (ktot, jtot, itot)."""
+    def evisc(self, u, v, w, th, out=None):
+        """K1: interior eddy viscosity (ktot, jtot, itot), into ``out`` when
+        given (a contiguous interior view)."""
         ctx = self.ctx
         args = (ctx.ks, ctx.dxi, ctx.dyi, self.tPr)
         if on_cpu(u):
-            return evisc_plain(u, v, w, th, self.ce, *args, True)
+            ev = evisc_plain(u, v, w, th, self.ce, *args, True, self.ghosts)
+            return ev if out is None else out.copy_(ev)
         shape = (ctx.kcells, ctx.jtot, ctx.itot)
-        check((u, v, w, th, self.ce), u.dtype, u.device,
-              [shape] * 4 + [(ctx.ktot, NE)])
-        out = torch.empty((ctx.ktot, ctx.jtot, ctx.itot), dtype=u.dtype,
-                          device=u.device)
+        interior = (ctx.ktot, ctx.jtot, ctx.itot)
+        if out is None:
+            out = torch.empty(interior, dtype=u.dtype, device=u.device)
+        check((u, v, w, th, self.ce, out), u.dtype, u.device,
+              [shape] * 4 + [(ctx.ktot, NE), interior])
         self.k_evisc(u.dtype, u, v, w, th, out, self.ce, ctx.itot, ctx.jtot,
-                     ctx.ktot, *args, 1)
+                     ctx.ktot, *args, 1, int(self.ghosts))
         return out
 
     def limits(self, u, v, w, th):
@@ -316,7 +441,7 @@ class Fused:
         ctx = self.ctx
         args = (ctx.ks, ctx.dxi, ctx.dyi, self.tPr)
         if on_cpu(u):
-            return limits_plain(u, v, w, th, self.ce, *args, True)
+            return limits_plain(u, v, w, th, self.ce, *args, True, self.ghosts)
         shape = (ctx.kcells, ctx.jtot, ctx.itot)
         check((u, v, w, th, self.ce), u.dtype, u.device,
               [shape] * 4 + [(ctx.ktot, NE)])
@@ -324,7 +449,7 @@ class Fused:
         part = torch.empty((2, ctx.ktot, tiles), dtype=u.dtype, device=u.device)
         out = torch.empty((2, ctx.ktot), dtype=u.dtype, device=u.device)
         self.k_limits(u.dtype, u, v, w, th, part, out, self.ce, ctx.itot,
-                      ctx.jtot, ctx.ktot, *args, 1)
+                      ctx.jtot, ctx.ktot, *args, 1, int(self.ghosts))
         return out[0], out[1]
 
     def tend_rk(self, s, t, e, cbdt, can, first, carry):
@@ -341,13 +466,106 @@ class Fused:
         carry_t = [t[n] for n in PROGNOSTIC]
         check(fields + carry_t + [e, self.ct], u.dtype, u.device,
               [shape] * 8 + [(ctx.ktot, ctx.jtot, ctx.itot), (ctx.ktot, NT)])
-        s_star = {n: torch.empty_like(s[n]) for n in PROGNOSTIC}
-        for a in s_star.values():     # ghost planes: not written by K2
-            a[:ctx.ks].zero_()
-            a[ctx.ke:].zero_()
+        s_star = {n: _empty_ghosts_zero(s[n], ctx) for n in PROGNOSTIC}
         self.k_tend(u.dtype, *fields, e, *(s_star[n] for n in PROGNOSTIC),
                     *carry_t, self.ct, ctx.itot, ctx.jtot, ctx.ktot,
                     *args[:-2], int(first), int(carry))
+        return s_star
+
+
+class FusedGeneric(Fused):
+    """The generic path's kernels for one grid, base state and scalar list:
+    K1 and K7 on ghost-filled fields with the moist N2 of thl against
+    thvref (microhh_tpu/model.py:964-970), K8/K9 and K10 with the
+    per-substep tables of generic_col_tables."""
+
+    ghosts = True
+    n2_scalar = "thl"
+
+    def __init__(self, ctx, smag, thermo, force):
+        from .force import Force
+        self.ctx = ctx
+        self.smag = smag
+        self.tPr = smag.tPr
+        self.visc = smag.visc
+        self.names = tuple(ctx.scalar_names)
+        self.sviscs = [smag.viscs.get(n, smag.visc) for n in self.names]
+        self.coriolis = isinstance(force, Force) and force.swlspres == "geo"
+        self.fc = float(force.fc) if self.coriolis else 0.
+        ks, ke, kt = ctx.ks, ctx.ke, ctx.ktot
+        ka = np.arange(ks, ke)
+        ce = np.zeros((kt, NE))
+        ce[:, E_DZI] = ctx.np_dzi[ka]
+        ce[:, E_DZHI] = ctx.np_dzhi[ka]
+        ce[:, E_DZHI1] = ctx.np_dzhi[ka + 1]
+        ce[:, E_MLEN2] = smag.mlen2
+        ce[:, E_THREF] = thermo.thvref[ka]
+        ct = np.zeros((kt, NTG))
+        ct[:, T_DZI] = ctx.np_dzi[ka]
+        ct[:, T_DZHI] = ctx.np_dzhi[ka]
+        ct[:, T_DZHI1] = ctx.np_dzhi[ka + 1]
+        ct[:, T_DZI_M1] = ctx.np_dzi[ka - 1]
+        ct[:, T_RHO] = ctx.np_rhoref[ka]
+        ct[:, T_RHOH] = ctx.np_rhorefh[ka]
+        ct[:, T_RHOH1] = ctx.np_rhorefh[ka + 1]
+        ct[:, T_RHO_M1] = ctx.np_rhoref[ka - 1]
+        self.ce = ctx.tensor(ce)
+        self.base = ctx.tensor(ct)
+        self.k_evisc = Kernel("evisc", "microhh_torch/csrc/evisc.cu",
+                              "microhh_tpu/ops/pallas_fused.py:1441")
+        self.k_limits = Kernel("limits", "microhh_torch/csrc/evisc.cu",
+                               "microhh_tpu/ops/pallas_fused.py:1524")
+        self.k_uvw = Kernel("tend_uvw", "microhh_torch/csrc/tend_generic.cu",
+                            "microhh_tpu/ops/pallas_fused.py:1641, "
+                            "microhh_tpu/ops/pallas_fused.py:1667")
+        self.k_scalars = Kernel("tend_scalars",
+                                "microhh_torch/csrc/tend_generic.cu",
+                                "microhh_tpu/ops/pallas_fused.py:1733")
+
+    def tend_uvw(self, s, t, e, ct, cbdt, can, carry):
+        """K8/K9: s* of u, v, w (zero ghost planes); the carry t["u"],
+        t["v"], t["w"] is read and, when carry, overwritten in place."""
+        ctx = self.ctx
+        args = (ctx.ks, ctx.dxi, ctx.dyi, self.visc, self.fc, ctx.utrans,
+                ctx.vtrans, cbdt, can, self.coriolis, carry)
+        if on_cpu(e):
+            return tend_uvw_plain(s, e, t, ct, *args)
+        shape = (ctx.kcells, ctx.jtot, ctx.itot)
+        fields = [s[n] for n in ("u", "v", "w")]
+        carry_t = [t[n] for n in ("u", "v", "w")]
+        check(fields + [e] + carry_t + [ct], e.dtype, e.device,
+              [shape] * 7 + [(ctx.ktot, NTG)])
+        s_star = {n: _empty_ghosts_zero(s[n], ctx) for n in ("u", "v", "w")}
+        self.k_uvw(e.dtype, *fields, e, *s_star.values(), *carry_t, ct,
+                   ctx.itot, ctx.jtot, ctx.ktot, *args[:-2],
+                   int(self.coriolis), int(carry))
+        return s_star
+
+    def tend_scalars(self, s, t, e, cts, cbdt, can, carry):
+        """K10: s* of every scalar in one pass; the carry as in tend_uvw."""
+        ctx = self.ctx
+        names = self.names
+        args = (ctx.ks, ctx.dxi, ctx.dyi, self.tPr, cbdt, can, carry)
+        if on_cpu(e):
+            return tend_scalars_plain(s, names, e, t, cts, self.sviscs, *args)
+        S = len(names)
+        if not 1 <= S <= MAX_SCALARS:
+            raise ValueError("K10 takes 1 to %d scalars, not %d (csrc/"
+                             "tend_generic.cu MAXS)" % (MAX_SCALARS, S))
+        shape = (ctx.kcells, ctx.jtot, ctx.itot)
+        fields = [s[n] for n in ("u", "v", "w")] + [e]
+        check(fields + [s[n] for n in names] + [t[n] for n in names] + [cts],
+              e.dtype, e.device, [shape] * (4 + 2 * S) + [(S, ctx.ktot, NTG)])
+        s_star = {n: _empty_ghosts_zero(s[n], ctx) for n in names}
+
+        def ptrs(arrays):
+            return (ctypes.c_void_p * S)(*[a.data_ptr() for a in arrays])
+
+        self.k_scalars(e.dtype, *fields, ptrs([s[n] for n in names]),
+                       ptrs([s_star[n] for n in names]),
+                       ptrs([t[n] for n in names]),
+                       (ctypes.c_double * S)(*self.sviscs), S, cts, ctx.itot,
+                       ctx.jtot, ctx.ktot, *args[:-1], int(carry))
         return s_star
 
 
@@ -533,3 +751,186 @@ def pressure_rk(glue, ctx, pres, s_star, t, aux, subdt, can):
     aux = dict(aux)
     aux["p"] = p
     return s_star, aux
+
+
+# ==========================================================================
+#  the generic path's use of the kernels (pallas_fused.py :2712-3109)
+# ==========================================================================
+
+def generic_viscosity(fz, ctx, s, sfc, aux):
+    """K1 on the ghost-filled fields, with the moist N2 of thl against
+    thvref, and the MOST bottom row -> aux['evisc'] (kcells, its ghost
+    planes repeating the edge levels), as fused_generic_viscosity."""
+    ks, ke = ctx.ks, ctx.ke
+    evisc = torch.empty_like(s["u"])
+    ev = fz.evisc(s["u"], s["v"], s["w"], s[fz.n2_scalar], out=evisc[ks:ke])
+    if fz.smag.surface:
+        ev[0] = surface_evisc_row(fz.smag, ctx, s, sfc, True)
+    evisc[ks - 1] = ev[0]
+    evisc[ke] = ev[-1]
+    aux = dict(aux)
+    aux["evisc"] = evisc
+    return aux
+
+
+def generic_wall_deltas(fz, ctx, s, aux, sfc):
+    """The MOST wall rows of the diffusion (diff_smag2.cxx flux forms) as
+    tendency corrections {field: [(k, plane), ...]} for the generic
+    kernels' interior formula (_generic_wall_deltas)."""
+    smag = fz.smag
+    u, v, w = s["u"], s["v"], s["w"]
+    e = aux["evisc"]
+    ks, ke = ctx.ks, ctx.ke
+    dxi, dyi = ctx.dxi, ctx.dyi
+    visc = smag.visc
+    rho, rhoh, dzi, dzhi = ctx.rhoref, ctx.rhorefh, ctx.dzi, ctx.dzhi
+    out = {}
+    for name, a, sh, d in (("u", u, im, dxi), ("v", v, jm, dyi)):
+        rows = []
+        for ka in (ks, ke - 1):
+            ev_t = 0.25 * (sh(e[ka]) + e[ka] + sh(e[ka + 1]) + e[ka + 1]) + visc
+            ev_b = 0.25 * (sh(e[ka - 1]) + e[ka - 1] + sh(e[ka]) + e[ka]) + visc
+            g_top = (a[ka + 1] - a[ka]) * dzhi[ka + 1] + (w[ka + 1] - sh(w[ka + 1])) * d
+            g_bot = (a[ka] - a[ka - 1]) * dzhi[ka] + (w[ka] - sh(w[ka])) * d
+            if ka == ks:
+                corr = (rhoh[ka + 1] * (ev_t * g_top) + rhoh[ka] * sfc[name + "_fluxbot"]) / rho[ka] * dzi[ka]
+            else:
+                corr = (-rhoh[ka] * (ev_b * g_bot)) / rho[ka] * dzi[ka]
+            old_vert = ((rhoh[ka + 1] * ev_t * g_top - rhoh[ka] * ev_b * g_bot)
+                        / rho[ka] * dzi[ka])
+            rows.append((ka, corr - old_vert))
+        out[name] = rows
+    for name in ctx.scalar_names:
+        a = s[name]
+        svisc = smag.viscs.get(name, visc)
+        rows = []
+        for ka in (ks, ke - 1):
+            st_ = 0.5 * (e[ka] + e[ka + 1]) / smag.tPr + svisc
+            sb = 0.5 * (e[ka - 1] + e[ka]) / smag.tPr + svisc
+            if ka == ks:
+                fz_top = st_ * (a[ka + 1] - a[ka]) * dzhi[ka + 1]
+                corr = (rhoh[ka + 1] * fz_top + rhoh[ka] * sfc[name + "_fluxbot"]) / rho[ka] * dzi[ka]
+            else:
+                fz_bot = sb * (a[ka] - a[ka - 1]) * dzhi[ka]
+                fz_top = -smag.fluxtop(name)
+                corr = ((rhoh[ka + 1] * fz_top - rhoh[ka] * fz_bot)
+                        / rho[ka] * dzi[ka])
+            old_vert = ((rhoh[ka + 1] * st_ * (a[ka + 1] - a[ka]) * dzhi[ka + 1]
+                         - rhoh[ka] * sb * (a[ka] - a[ka - 1]) * dzhi[ka])
+                        / rho[ka] * dzi[ka])
+            rows.append((ka, corr - old_vert))
+        out[name] = rows
+    return out
+
+
+def generic_col_tables(fz, ctx, s, force, buffer):
+    """This substep's tables of K8/K9 (ktot, NTG) and K10 (S, ktot, NTG):
+    the sponge, the dpdx and geostrophic forcing, the large-scale sources
+    and the mean or local subsidence as per-level coefficients,
+
+        t_a += ADDS - FACZ * a + WLSDN * (a - a_dn) + WLSUP * (a_up - a)
+
+    (generic_col_tables of the JAX package).  Mean subsidence reads this
+    substep's plane means, so the tables are built on the device every
+    substep and passed to every launch."""
+    from .force import Force
+    ks, ke, kt = ctx.ks, ctx.ke, ctx.ktot
+    names = list(fz.names)
+    zero = torch.zeros(kt, dtype=ctx.dtype, device=ctx.device)
+    facz = faczh = add_u = add_v = zero
+    faczs = {n: zero for n in names}
+    adds = {n: zero for n in names}
+    wls_dn = wls_up = None
+    wls_mom = False
+    ug = vg = None
+    means = {}
+
+    def mean_prof(n):
+        # plane means over kcells: the ghost planes are filled here
+        if n not in means:
+            means[n] = torch.mean(s[n], dim=(1, 2))
+        return means[n]
+
+    def col(a):
+        return ctx.tensor(np.asarray(a).reshape(-1)[:kt])
+
+    if buffer is not None:
+        fzc = col(buffer.fac_z)
+        facz = facz + fzc
+        faczh = faczh + col(buffer.fac_zh)
+        add_u = add_u + fzc * col(buffer.profs["u"])
+        add_v = add_v + fzc * col(buffer.profs["v"])
+        for n in names:
+            faczs[n] = faczs[n] + fzc
+            adds[n] = adds[n] + fzc * col(buffer.profs[n])
+
+    if isinstance(force, Force):
+        if force.swlspres == "geo":
+            ug, vg = col(force.ug), col(force.vg)
+        elif force.swlspres == "dpdx":
+            add_u = add_u - force.dpdx
+        for n in force.lslist:
+            prof = col(force.ls_profs[n])
+            if n == "u":
+                add_u = add_u + prof
+            elif n == "v":
+                add_v = add_v + prof
+            else:
+                adds[n] = adds[n] + prof
+        if force.swwls in ("mean", "local"):
+            wls = col(force.wls)
+            wls_mom = force.swwls_mom
+            dzhi = ctx.dzhi
+            if force.swwls == "mean":
+                for n in names + (["u", "v"] if wls_mom else []):
+                    am = mean_prof(n)
+                    ddn = (am[ks:ke] - am[ks - 1:ke - 1]) * dzhi[ks:ke]
+                    dup = (am[ks + 1:ke + 1] - am[ks:ke]) * dzhi[ks + 1:ke + 1]
+                    tp = torch.where(wls > 0., -wls * ddn, -wls * dup)
+                    if n == "u":
+                        add_u = add_u + tp
+                    elif n == "v":
+                        add_v = add_v + tp
+                    else:
+                        adds[n] = adds[n] + tp
+            else:
+                wls_dn = torch.where(wls > 0., -wls * dzhi[ks:ke], 0.)
+                wls_up = torch.where(wls > 0., 0., -wls * dzhi[ks + 1:ke + 1])
+
+    ct = fz.base.clone()
+    ct[:, T_FACZ] = facz
+    ct[:, T_FACZH] = faczh
+    ct[:, T_ADDU] = add_u
+    ct[:, T_ADDV] = add_v
+    if ug is not None:
+        ct[:, T_UG] = ug
+        ct[:, T_VG] = vg
+    if wls_dn is not None and wls_mom:
+        ct[:, T_WLSDN] = wls_dn
+        ct[:, T_WLSUP] = wls_up
+    cts = fz.base.repeat(len(names), 1, 1)
+    for i, n in enumerate(names):
+        cts[i, :, T_FACZ] = faczs[n]
+        cts[i, :, T_ADDS] = adds[n]
+        if wls_dn is not None:
+            cts[i, :, T_WLSDN] = wls_dn
+            cts[i, :, T_WLSUP] = wls_up
+    return ct, cts
+
+
+def generic_tendencies_rk(fz, ctx, s, t, aux, sfc, cbdt, can, cols):
+    """K8/K9 and K10 with the RK update folded in, then the MOST wall rows
+    patched into s* and the carry (fused_generic_tendencies_rk).  Every
+    additive producer (thermo, microphysics) has already added into the
+    carry t; returns s* and updates t in place."""
+    carry = can != 0.
+    ct, cts = cols
+    s_star = fz.tend_uvw(s, t, aux["evisc"], ct, cbdt, can, carry)
+    s_star.update(fz.tend_scalars(s, t, aux["evisc"], cts, cbdt, can, carry))
+    if fz.smag.surface:
+        for name, rows in generic_wall_deltas(fz, ctx, s, aux, sfc).items():
+            for ka, delta in rows:
+                s_star[name][ka] += cbdt * delta
+                if carry:
+                    t[name][ka] += can * delta
+    return s_star

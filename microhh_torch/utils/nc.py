@@ -272,3 +272,13 @@ class Dataset(Group):
 
     def __exit__(self, *exc):
         self.close()
+
+
+class MemoryDataset:
+    """The read side of a Dataset as the model uses it (``variables[name][:n]``
+    and ``groups[name]``), from dicts: ``variables`` maps a name to an
+    array, ``groups`` maps a group name to such a dict."""
+
+    def __init__(self, variables=None, groups=None):
+        self.variables = {n: np.asarray(a) for n, a in (variables or {}).items()}
+        self.groups = {n: MemoryDataset(g) for n, g in (groups or {}).items()}

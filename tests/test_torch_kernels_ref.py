@@ -288,5 +288,6 @@ def test_wrapper_contract():
         kernels.Kernel("no_such_kernel", "", "")
     assert set(kernels.SIGNATURES) == {"evisc", "tend_rk", "tdma",
                                        "pres_rhs", "pres_apply", "dft_fwd",
-                                       "dft_inv", "limits"}
+                                       "dft_inv", "limits", "tend_uvw",
+                                       "tend_scalars", "micro2"}
     assert kernels.library_path().startswith(kernels.BUILD_DIR)

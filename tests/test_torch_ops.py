@@ -377,7 +377,7 @@ def test_buffer(models):
 @pytest.mark.parametrize("change", [
     ("swadvec=2", "swadvec=2i5"),
     ("swdiff=smag2", "swdiff=2"),
-    ("swthermo=dry", "swthermo=moist"),
+    ("swthermo=dry", "swthermo=vapor"),
     ("swboundary=surface", "swboundary=default"),
     ("[fields]", "[fields]\nslist=s1"),
     ("[time]", "[micro]\nswmicro=2mom_warm\n\n[time]"),
