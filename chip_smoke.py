@@ -15,10 +15,15 @@ Phases (any failure exits non-zero and prints no result line):
      own maximum over k (<= 1e-12 and 1e-4: its k-march accumulates); the
      generic path's kernels (K1 and K7 on ghost-filled fields, K8/K9, K10
      with and without the carry, K11 rainy, with strong sedimentation and
-     cloud-free) at 45^2x24 and 48^2x32 of the rico case;
+     cloud-free) at 45^2x24 and 48^2x32 of the rico case with swadvec=2;
+     K12 and K13 and the no-advection modes of K8/K9 and K10 on the rico
+     case with each of swadvec=2i4, 2i5, 2i53, 2i62 at 45^2x24; K14, K15
+     (advection on and off, carry and column fold on and off) and K7 in
+     its external-N2 mode on the SBL_Smag case at 45^2x24 and 48^2x32;
   4. two whole RK3 steps on the card against the same two steps on the CPU
-     (plain versions), <= 1e-10: a 32^3 drycblles and a 16^2x24 rico case,
-     float64;
+     (plain versions), <= 1e-10: a 32^3 drycblles, a 16^2x24 rico
+     (swadvec=2), a 16^2x24 rico as its ini is written (swadvec=2i5) and a
+     16^2x24 SBL_Smag case, float64;
   5. the drycblles LES at 512^3 float32 through Model.run(max_iters=12): its
      kernels launched, finite fields, status DIV <= 1e-4; then the step time
      (median of 10 steps after 2 warm-up steps) and the peak memory;
@@ -30,8 +35,16 @@ Phases (any failure exits non-zero and prints no result line):
      status DIV <= 1e-4, qt, qr, nr >= 0; then the step time and the peak
      memory as in phase 5;
   8. at the 384^3 float32 shapes of that run, each of its kernels against
-     its plain version, then both timed.
-With --profile FILE, a 9th phase traces two steps of each LES with
+     its plain version, then both timed;
+  9. and 10. the same two phases for rico as its ini is written
+     (swadvec=2i5) at 384^3 float32: K12, K13 and K8-K10 without advection;
+ 11. and 12. the same for SBL_Smag (cases/SBL_Smag/SBL.ini, thermo buoy) at
+     256^3 float32 with dt scaled with the grid: K14 and K15.
+Beside each kernel's time stands its bound: the bytes its inputs and outputs
+hold, each once, over 3.35 TB/s, or its operations over 67 TFLOP/s (float32
+outside the tensor cores) where that is larger; and, where one PyTorch call
+computes the same function (the two DFTs), that call's time.
+With --profile FILE, a last phase traces two steps of each LES with
 torch.profiler and prints the device time per kernel, the step's device
 idle share (one minus the device time over the wall time of the same
 profiled steps, with the unprofiled wall time beside it) and the limits and
@@ -151,28 +164,73 @@ def initial_state(m, seed=None):
 RICO_ZSIZE = 4000.
 
 
-def rico_ini(n, k):
-    """cases/rico/rico.ini at n^2 x k with swadvec 2 instead of 2i5: the
-    override bench.py's _run_moist_size (bench.py:124-137) times."""
+def rico_ini(n, k, swadvec="2"):
+    """cases/rico/rico.ini at n^2 x k; by default with swadvec 2 instead of
+    2i5, the override bench.py's _run_moist_size (bench.py:124-137) times."""
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cases",
                         "rico", "rico.ini")
     with open(path) as f:
         text = f.read()
-    for key, val in (("itot", n), ("jtot", n), ("ktot", k), ("swadvec", 2)):
+    for key, val in (("itot", n), ("jtot", n), ("ktot", k),
+                     ("swadvec", swadvec)):
         text = re.sub(r"(?m)^%s=.*$" % key, "%s=%s" % (key, val), text)
     return text
 
 
-def build_rico(torch, n, k, dtype, device, mode="run", workdir="."):
+def build_rico(torch, n, k, dtype, device, mode="run", workdir=".",
+               swadvec="2"):
     """A rico Model on the profiles of cases/rico/rico_input.py, computed in
     memory (microhh_torch/cases.py)."""
     from microhh_torch.cases import rico_input
     from microhh_torch.config import Ini
     from microhh_torch.model import Model
-    m = Model(Ini(rico_ini(n, k)), mode, "rico", workdir=workdir, dtype=dtype,
-              device=device, input_nc=rico_input(k, RICO_ZSIZE))
+    m = Model(Ini(rico_ini(n, k, swadvec)), mode, "rico", workdir=workdir,
+              dtype=dtype, device=device, input_nc=rico_input(k, RICO_ZSIZE))
     m.finish_setup()
     return m
+
+
+SBL_ZSIZE = 18.074844397670482
+
+
+def sbl_ini(n, k):
+    """cases/SBL_Smag/SBL.ini at n^2 x k with stats and dumps off and its
+    fixed dt (1 s at 32 points) scaled with the horizontal grid spacing."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cases",
+                        "SBL_Smag", "SBL.ini")
+    with open(path) as f:
+        text = f.read()
+    for key, val in (("itot", n), ("jtot", n), ("ktot", k), ("swstats", 0),
+                     ("swdump", 0), ("dt", 32. / max(n, 32))):
+        text = re.sub(r"(?m)^%s=.*$" % key, "%s=%s" % (key, val), text)
+    return text
+
+
+def build_sbl(torch, n, k, dtype, device, mode="run", workdir="."):
+    """An SBL_Smag Model on the profiles of cases/SBL_Smag/SBL_input.py,
+    computed in memory."""
+    from microhh_torch.cases import sbl_input
+    from microhh_torch.config import Ini
+    from microhh_torch.model import Model
+    m = Model(Ini(sbl_ini(n, k)), mode, "SBL", workdir=workdir, dtype=dtype,
+              device=device, input_nc=sbl_input(k, SBL_ZSIZE))
+    m.finish_setup()
+    return m
+
+
+def sbl_state(m, seed):
+    """Fields.create's SBL state with seeded velocity and buoyancy noise."""
+    from microhh_torch.model import NP_DTYPE
+    st = m.fields.create(m.input_nc, dtype=NP_DTYPE[m.dtype])
+    g = m.grid
+    ks, ke = g.kstart, g.kend
+    rng = np.random.RandomState(seed)
+    sh = (g.ktot, g.jtot, g.itot)
+    for n in ("u", "v"):
+        st[n][ks:ke] += 0.01 * rng.randn(*sh)
+    st["w"][ks + 1:ke] += 0.003 * rng.randn(g.ktot - 1, g.jtot, g.itot)
+    st["b"][ks:ke] += 2e-4 * rng.randn(*sh)
+    return st
 
 
 def rico_state(m, seed):
@@ -314,14 +372,24 @@ def pres_cases(torch, m, s, t0, rnd):
     return cases
 
 
-def generic_kernel_cases(torch, m, seed):
+def generic_state(m, seed):
+    """The seeded test state of a generic-path model's case."""
+    return (sbl_state if "b" in m.fields.sp else rico_state)(m, seed)
+
+
+def generic_kernel_cases(torch, m, seed, only=None):
     """(name, kernel call, plain call, error kind) for the generic path's
-    kernels on a rico model with a seeded rainy state; the tables get
-    seeded noise in every column so that each term is exercised."""
+    kernels on a rico or SBL model with a seeded state; the tables get
+    seeded noise in every column so that each term is exercised.  Which
+    kernels a model has follows its case: K1 or K14, K10 or K15, K11 with
+    the warm-rain scheme, K12/K13 with an interpolated advection scheme (the
+    sweeps K8-K10/K15 then run without advection).  only: a name prefix
+    that restricts the cases."""
+    from microhh_torch.ops import advec_interp_fused as A
     from microhh_torch.ops import fused as F
-    from microhh_torch.ops.microphys import MICRO_FIELDS
-    ctx, fz, mic = m.ctx, m.fused, m.micro
-    s, sfc = m.as_device_state(rico_state(m, seed))
+    from microhh_torch.ops.microphys import MICRO_FIELDS, Microphys2momWarm
+    ctx, fz, mic, adv = m.ctx, m.fused, m.micro, m.advec_fused
+    s, sfc = m.as_device_state(generic_state(m, seed))
     s = m.boundary.set_ghost_cells(ctx, s, sfc)
     gen = torch.Generator(device="cpu").manual_seed(seed)
 
@@ -336,25 +404,60 @@ def generic_kernel_cases(torch, m, seed):
     ct, cts = F.generic_col_tables(fz, ctx, s, m.force, m.buffer)
     ct = ct + rnd(*ct.shape, scale=1e-3)
     cts = cts + rnd(*cts.shape, scale=1e-3)
-    uvwa = [s[n] for n in ("u", "v", "w", fz.n2_scalar)]
+    uvw = [s[n] for n in ("u", "v", "w")]
     args = (ctx.ks, ctx.dxi, ctx.dyi, fz.tPr)
-    cases = [
-        ("evisc", lambda: [fz.evisc(*uvwa)],
-         lambda: [F.evisc_plain(*uvwa, fz.ce, *args, True, True)], "field"),
-        ("limits", lambda: list(fz.limits(*uvwa)),
-         lambda: list(F.limits_plain(*uvwa, fz.ce, *args, True, True)),
-         "field")]
+    if fz.stratified == 2:
+        n2 = m.thermo.get_n2(ctx, s).contiguous()
+        cases = [
+            ("evisc_n2", lambda: [fz.evisc_n2(*uvw, n2)],
+             lambda: [F.evisc_plain(*uvw, None, fz.ce, *args, True, True, n2)],
+             "field"),
+            ("limits", lambda: list(fz.limits(*uvw, n2)),
+             lambda: list(F.limits_plain(*uvw, None, fz.ce, *args, True, True,
+                                         n2)), "field")]
+    else:
+        uvwa = uvw + [s[fz.n2_scalar]]
+        cases = [
+            ("evisc", lambda: [fz.evisc(*uvwa)],
+             lambda: [F.evisc_plain(*uvwa, fz.ce, *args, True, True)], "field"),
+            ("limits", lambda: list(fz.limits(*uvwa)),
+             lambda: list(F.limits_plain(*uvwa, fz.ce, *args, True, True)),
+             "field")]
+    if adv is not None:
+        def mom(kernel):
+            t = [t0[n].clone() for n in ("u", "v", "w")]
+            if kernel:
+                adv.momentum(*uvw, *t)
+            else:
+                A.momentum_plain(adv.scheme, *uvw, *t, adv.table(), ctx.ks,
+                                 ctx.dxi, ctx.dyi)
+            return t
+
+        def scal(kernel):
+            t = [t0[n].clone() for n in fz.names]
+            a = [s[n] for n in fz.names]
+            if kernel:
+                adv.scalars(*uvw, a, t)
+            else:
+                A.scalars_plain(adv.scheme, *uvw, a, t, adv.table(), ctx.ks,
+                                ctx.dxi, ctx.dyi)
+            return t
+
+        cases.append(("advec_mom", lambda: mom(True), lambda: mom(False),
+                      "field"))
+        cases.append(("advec_scalars", lambda: scal(True), lambda: scal(False),
+                      "field"))
     for can in (-153. / 128., 0.):
         carry = can != 0.
 
-        def uvw(kernel, can=can, carry=carry):
+        def uvw_sweep(kernel, can=can, carry=carry):
             t = {n: t0[n].clone() for n in ("u", "v", "w")}
             if kernel:
                 out = fz.tend_uvw(s, t, e, ct, 0.7, can, carry)
             else:
                 out = F.tend_uvw_plain(s, e, t, ct, ctx.ks, ctx.dxi, ctx.dyi,
                                        fz.visc, fz.fc, ctx.utrans, ctx.vtrans,
-                                       0.7, can, fz.coriolis, carry)
+                                       0.7, can, fz.coriolis, carry, fz.advec)
             return [out[n] for n in out] + [t[n] for n in t]
 
         def scalars(kernel, can=can, carry=carry):
@@ -364,31 +467,60 @@ def generic_kernel_cases(torch, m, seed):
             else:
                 out = F.tend_scalars_plain(s, fz.names, e, t, cts, fz.sviscs,
                                            ctx.ks, ctx.dxi, ctx.dyi, fz.tPr,
-                                           0.7, can, carry)
+                                           0.7, can, carry, fz.advec)
             return [out[n] for n in out] + [t[n] for n in t]
 
-        cases.append(("tend_uvw", lambda f=uvw: f(True),
-                      lambda f=uvw: f(False), "field"))
-        cases.append(("tend_scalars", lambda f=scalars: f(True),
-                      lambda f=scalars: f(False), "field"))
-    pref, exnref, _, _ = m.thermo._p_profiles(ctx, {})
-    dry = dict(s)
-    dry["qt"] = 0.5 * s["qt"]
-    heavy = dict(s)
-    heavy["qr"] = 50. * s["qr"]
-    # heavy rain: fall speeds near W_MAX cross ~2.5 cells in one dt
-    strong_dt = 2.5 * float(m.grid.dz.min()) / 9.65
-    for state, dt in ((s, 2.), (heavy, strong_dt), (dry, 2.)):
-        ql = m.thermo.get_ql(ctx, state)
+        def scalar(kernel, fold, advec, can=can, carry=carry):
+            # K15 with the column fold and the advection each on or off
+            t = {n: t0[n].clone() for n in fz.names}
+            saved = fz.advec
+            fz.advec = advec
+            try:
+                if kernel:
+                    out = fz.tend_scalar_rk(s, t, e, cts[0], 0.7, can, carry,
+                                            fold)
+                else:
+                    name = fz.names[0]
+                    out = {name: F.tend_scalar_rk_plain(
+                        s, name, e, t, cts[0], fz.sviscs[0], ctx.ks, ctx.dxi,
+                        ctx.dyi, fz.tPr, 0.7, can, carry, fold, advec)}
+            finally:
+                fz.advec = saved
+            return [out[n] for n in out] + [t[n] for n in t]
 
-        def micro(kernel, state=state, dt=dt, ql=ql):
-            t = {n: torch.zeros_like(state[n]) for n in MICRO_FIELDS}
-            call = mic.micro2 if kernel else mic.apply_plain
-            rr = call(ctx, state, t, ql, pref, exnref, dt)
-            return [t[n][ctx.ks:ctx.ke] for n in MICRO_FIELDS] + [rr]
+        cases.append(("tend_uvw", lambda f=uvw_sweep: f(True),
+                      lambda f=uvw_sweep: f(False), "field"))
+        if len(fz.names) == 1:
+            for fold, advec in ((True, fz.advec), (True, not fz.advec),
+                                (False, fz.advec)):
+                cases.append(("tend_scalar_rk",
+                              lambda f=scalar, a=(fold, advec): f(True, *a),
+                              lambda f=scalar, a=(fold, advec): f(False, *a),
+                              "field"))
+        else:
+            cases.append(("tend_scalars", lambda f=scalars: f(True),
+                          lambda f=scalars: f(False), "field"))
+    if isinstance(mic, Microphys2momWarm) and only is None:
+        pref, exnref, _, _ = m.thermo._p_profiles(ctx, {})
+        dry = dict(s)
+        dry["qt"] = 0.5 * s["qt"]
+        heavy = dict(s)
+        heavy["qr"] = 50. * s["qr"]
+        # heavy rain: fall speeds near W_MAX cross ~2.5 cells in one dt
+        strong_dt = 2.5 * float(m.grid.dz.min()) / 9.65
+        for state, dt in ((s, 2.), (heavy, strong_dt), (dry, 2.)):
+            ql = m.thermo.get_ql(ctx, state)
 
-        cases.append(("micro2", lambda f=micro: f(True),
-                      lambda f=micro: f(False), "field"))
+            def micro(kernel, state=state, dt=dt, ql=ql):
+                t = {n: torch.zeros_like(state[n]) for n in MICRO_FIELDS}
+                call = mic.micro2 if kernel else mic.apply_plain
+                rr = call(ctx, state, t, ql, pref, exnref, dt)
+                return [t[n][ctx.ks:ctx.ke] for n in MICRO_FIELDS] + [rr]
+
+            cases.append(("micro2", lambda f=micro: f(True),
+                          lambda f=micro: f(False), "field"))
+    if only is not None:
+        return [c for c in cases if c[0].startswith(only)]
     return cases + pres_cases(torch, m, s, t0, rnd)
 
 
@@ -427,6 +559,24 @@ def check_kernels(torch):
                                                                 seed=n + k):
                 compare(torch, name, kern, plain, kind, dtype,
                         "rico %d^2x%d" % (n, k))
+    # the interpolated schemes: K12, K13 and the sweeps without advection
+    for scheme in ("2i4", "2i5", "2i53", "2i62"):
+        for dtype in (torch.float64, torch.float32):
+            m = build_rico(torch, 45, 24, dtype, "cuda", swadvec=scheme)
+            m.build_step()
+            for prefix in ("advec", "tend"):
+                for name, kern, plain, kind in generic_kernel_cases(
+                        torch, m, seed=69, only=prefix):
+                    compare(torch, name, kern, plain, kind, dtype,
+                            "rico %s" % scheme)
+    for n, k in ((45, 24), (48, 32)):
+        for dtype in (torch.float64, torch.float32):
+            m = build_sbl(torch, n, k, dtype, "cuda")
+            m.build_step()
+            for name, kern, plain, kind in generic_kernel_cases(torch, m,
+                                                                seed=n + k):
+                compare(torch, name, kern, plain, kind, dtype,
+                        "SBL %d^2x%d" % (n, k))
 
 
 # --------------------------------------------------------------------------
@@ -439,7 +589,13 @@ def check_step(torch):
               lambda m: initial_state(m, seed=7)),
              ("rico 16^2x24", lambda d: build_rico(torch, 16, 24,
                                                    torch.float64, d),
-              lambda m: rico_state(m, seed=7)))
+              lambda m: rico_state(m, seed=7)),
+             ("rico 2i5 16^2x24", lambda d: build_rico(
+                 torch, 16, 24, torch.float64, d, swadvec="2i5"),
+              lambda m: rico_state(m, seed=7)),
+             ("SBL_Smag 16^2x24", lambda d: build_sbl(torch, 16, 24,
+                                                      torch.float64, d),
+              lambda m: sbl_state(m, seed=7)))
     for label, make, state in cases:
         out = {}
         for device in ("cuda", "cpu"):
@@ -447,7 +603,7 @@ def check_step(torch):
             m.build_step()
             s, sfc = m.as_device_state(state(m))
             for _ in range(2):
-                s, sfc, aux = m.step(s, sfc, 2.0)
+                s, sfc, aux = m.step(s, sfc, min(2.0, m.timeloop.dt))
             out[device] = (m, s, aux)
         m, s_gpu, aux_gpu = out["cuda"]
         _, s_cpu, aux_cpu = out["cpu"]
@@ -538,31 +694,74 @@ def check_kernels_full(torch, m, cases):
     return errs
 
 
+# the card's published peaks (H100 SXM): device memory rate and float32
+# rate outside the tensor cores
+PEAK_BYTES_S = 3.35e12
+PEAK_FLOPS = 67e12
+
+# operations per output point of each stencil kernel, counted from its
+# source (adds, multiplies and special functions each as one)
+FLOPS_PER_POINT = {"evisc": 100, "evisc_n2": 100, "limits": 110,
+                   "tend_rk": 700, "tend_uvw": 450, "tend_scalars": 110,
+                   "tend_scalar_rk": 110, "micro2": 300, "advec_mom": 400,
+                   "advec_scalars": 130, "pres_rhs": 10, "pres_apply": 15,
+                   "tdma": 16}
+
+
+def pair(kern, plain, nbytes, flops, lib=None):
+    """A kernel call, its plain version, the bytes its inputs and outputs
+    hold (each once), its operations, and the one library call that
+    computes the same function (or None)."""
+    return {"kern": kern, "plain": plain, "bytes": nbytes, "flops": flops,
+            "lib": lib}
+
+
+def field_bytes(m):
+    """Bytes of one interior field of the model."""
+    return points(m) * m.ctx.dzi.element_size()
+
+
+def points(m):
+    return m.ctx.ktot * m.ctx.jtot * m.ctx.itot
+
+
 def pres_pairs(torch, m, s):
-    """(kernel, plain) calls of the projection's kernels (K3-K6) at the
-    model's shapes."""
+    """The projection's kernels (K3-K6) at the model's shapes."""
     from microhh_torch.ops import fused as F
     from microhh_torch.ops.pres_2 import tdma_plain
     ctx, gl, pr, t = m.ctx, m.glue, m.pres, m.t
     rhs = gl.rhs(s["u"], s["v"], s["w"], 1.)
     p = pr.solve(rhs)
     spec = torch.fft.rfft2(p, dim=(-2, -1))
+    fb, n = field_bytes(m), points(m)
+    sb = spec.numel() * spec.element_size()
+    # a real 2-D transform of N points: 2.5 N log2 N operations
+    dft_flops = 2.5 * n * np.log2(ctx.jtot * ctx.itot)
+
+    def lib_fwd():
+        return torch.fft.rfft2(rhs, dim=(-2, -1))
+
+    def lib_inv():
+        return torch.fft.irfft2(spec.clone(), s=p.shape[-2:], dim=(-2, -1))
+
     return {
-        "pres_rhs": (lambda: gl.rhs(s["u"], s["v"], s["w"], 1.),
-                     lambda: F.pres_rhs_plain(s["u"], s["v"], s["w"], gl.pc,
-                                              ctx.ks, ctx.dxi, ctx.dyi, 1.)),
-        "dft_fwd": (lambda: pr.rfft2(rhs),
-                    lambda: torch.fft.rfft2(rhs, dim=(-2, -1))),
-        "tdma": (lambda: pr.tdma(spec),
-                 lambda: tdma_plain(spec, pr.winv, pr.tab)),
+        "pres_rhs": pair(lambda: gl.rhs(s["u"], s["v"], s["w"], 1.),
+                         lambda: F.pres_rhs_plain(s["u"], s["v"], s["w"], gl.pc,
+                                                  ctx.ks, ctx.dxi, ctx.dyi, 1.),
+                         4 * fb, FLOPS_PER_POINT["pres_rhs"] * n),
+        "dft_fwd": pair(lambda: pr.rfft2(rhs), lib_fwd, fb + sb, dft_flops,
+                        lib_fwd),
+        "tdma": pair(lambda: pr.tdma(spec),
+                     lambda: tdma_plain(spec, pr.winv, pr.tab), 2 * sb,
+                     FLOPS_PER_POINT["tdma"] * n),
         # the kernel overwrites its input: both sides time one copy of it
-        "dft_inv": (lambda: pr.irfft2(spec.clone(), ctx.itot),
-                    lambda: torch.fft.irfft2(spec.clone(), s=p.shape[-2:],
-                                             dim=(-2, -1))),
-        "pres_apply": (lambda: gl.apply(p, s, t, 0.0, 0.0, True),
-                       lambda: F.pres_apply_plain(p, s, t, gl.pc, ctx.ks,
-                                                  ctx.dxi, ctx.dyi, 0.0, 0.0,
-                                                  True)),
+        "dft_inv": pair(lambda: pr.irfft2(spec.clone(), ctx.itot), lib_inv,
+                        fb + sb, dft_flops, lib_inv),
+        "pres_apply": pair(lambda: gl.apply(p, s, t, 0.0, 0.0, True),
+                           lambda: F.pres_apply_plain(p, s, t, gl.pc, ctx.ks,
+                                                      ctx.dxi, ctx.dyi, 0.0,
+                                                      0.0, True),
+                           13 * fb, FLOPS_PER_POINT["pres_apply"] * n),
     }
 
 
@@ -574,22 +773,26 @@ def time_kernels(torch, m, s):
     tend_args = (ctx.ks, ctx.dxi, ctx.dyi, fz.visc, fz.svisc, fz.tPr, 0.5,
                  -5. / 9., False, True)
     uvwth = [s[n] for n in ("u", "v", "w", "th")]
+    fb, n = field_bytes(m), points(m)
     pairs = {
-        "evisc": (lambda: fz.evisc(*uvwth),
-                  lambda: F.evisc_plain(*uvwth, fz.ce, ctx.ks, ctx.dxi,
-                                        ctx.dyi, fz.tPr, True)),
-        "tend_rk": (lambda: fz.tend_rk(s, t, e, *tend_args[6:]),
-                    lambda: F.tend_rk_plain(s, e, t, fz.ct, *tend_args)),
-        "limits": (lambda: fz.limits(*uvwth),
-                   lambda: F.limits_plain(*uvwth, fz.ce, ctx.ks, ctx.dxi,
-                                          ctx.dyi, fz.tPr, True)),
+        "evisc": pair(lambda: fz.evisc(*uvwth),
+                      lambda: F.evisc_plain(*uvwth, fz.ce, ctx.ks, ctx.dxi,
+                                            ctx.dyi, fz.tPr, True),
+                      5 * fb, FLOPS_PER_POINT["evisc"] * n),
+        "tend_rk": pair(lambda: fz.tend_rk(s, t, e, *tend_args[6:]),
+                        lambda: F.tend_rk_plain(s, e, t, fz.ct, *tend_args),
+                        17 * fb, FLOPS_PER_POINT["tend_rk"] * n),
+        "limits": pair(lambda: fz.limits(*uvwth),
+                       lambda: F.limits_plain(*uvwth, fz.ce, ctx.ks, ctx.dxi,
+                                              ctx.dyi, fz.tPr, True),
+                       4 * fb, FLOPS_PER_POINT["limits"] * n),
     }
     pairs.update(pres_pairs(torch, m, s))
     return time_pairs(torch, pairs)
 
 
 # --------------------------------------------------------------------------
-#  phases 7 and 8: the rico LES at 384^3
+#  phases 7 to 12: the generic path's LES runs (rico, rico 2i5, SBL_Smag)
 # --------------------------------------------------------------------------
 
 def step_times(torch, m, s, sfc, n=12, warm=2):
@@ -607,15 +810,21 @@ def step_times(torch, m, s, sfc, n=12, warm=2):
     return times, s, sfc
 
 
-def run_rico(torch, workdir, n=384):
-    init = build_rico(torch, n, n, torch.float32, "cuda", "init", workdir)
+def run_les(torch, workdir, label, build, n, nonneg=()):
+    """init + Model.run(max_iters=12) of a generic-path case at n^3 float32
+    through the entry points a user calls; fails unless every kernel of the
+    path was launched, the fields are finite, DIV <= 1e-4 and the nonneg
+    fields are >= 0.  Then the step time and the peak memory."""
+    init = build(torch, n, n, torch.float32, "cuda", "init", workdir)
     init.save_initial_state()
     del init
-    m = build_rico(torch, n, n, torch.float32, "cuda", "run", workdir)
+    m = build(torch, n, n, torch.float32, "cuda", "run", workdir)
     m.build_step()
     for kern in m.kernels():
         kern.launches = 0
-    m.thermo.reads.clear()
+    reads = getattr(m.thermo, "reads", None)
+    if reads is not None:
+        reads.clear()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -623,98 +832,166 @@ def run_rico(torch, workdir, n=384):
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = {kern.name: kern.launches for kern in m.kernels()}
-    syncs = dict(m.thermo.reads)
+    syncs = dict(reads or {})
     peak = torch.cuda.max_memory_allocated()
-    log("  Model.run(max_iters=12) at rico %d^3 float32: %.3f s wall, "
-        "launches %s, host reads %s" % (n, run_s, launches, syncs))
+    log("  Model.run(max_iters=12) at %s %d^3 float32: %.3f s wall, "
+        "launches %s, host reads %s" % (label, n, run_s, launches, syncs))
     missing = [name for name, c in launches.items() if c == 0]
     if missing:
-        raise AssertionError("rico did not launch %s" % missing)
+        raise AssertionError("%s did not launch %s" % (label, missing))
     ks, ke = m.ctx.ks, m.ctx.ke
     for name in m.fields.prognostic_names:
         if not bool(torch.isfinite(s[name][ks:ke]).all()):
-            raise AssertionError("non-finite %s after the rico run" % name)
-    mins = {name: float(s[name][ks:ke].min()) for name in ("qt", "qr", "nr")}
-    with open(os.path.join(workdir, "rico.out")) as f:
+            raise AssertionError("non-finite %s after the %s run" % (name, label))
+    mins = {name: float(s[name][ks:ke].min()) for name in nonneg}
+    with open(os.path.join(workdir, "%s.out" % m.casename)) as f:
         rows = [line.split() for line in f if line.split()[0].isdigit()]
-    divs = [float(r[6]) for r in rows]
     final = {kk: float(v) for kk, v in m.diagnostics(s, m.final_sfc).items()}
-    log("  status rows %d, max DIV %.3e, final DIV %.3e, TKE %.6e, dt %.4f s, "
-        "minima %s" % (len(rows), max(divs), final["div"], final["tke"],
-                       m.timeloop.dt, mins))
-    if not (len(rows) >= 1 and max(divs) <= 1e-4 and final["div"] <= 1e-4
+    # the row of iteration 0 holds the divergence of the case's random
+    # initial velocities, which no projection has seen yet
+    divs = [float(r[6]) for r in rows if int(r[0]) > 0] + [final["div"]]
+    log("  status rows %d, max DIV after the first step %.3e, final DIV %.3e, "
+        "TKE %.6e, dt %.4f s, minima %s"
+        % (len(rows), max(divs), final["div"], final["tke"], m.timeloop.dt,
+           mins))
+    if not (len(rows) >= 1 and max(divs) <= 1e-4
             and np.isfinite(final["tke"])):
-        raise AssertionError("rico divergence or status check failed")
-    if min(mins.values()) < 0.:
-        raise AssertionError("negative qt, qr or nr after the limiter: %s"
-                             % mins)
+        raise AssertionError("%s divergence or status check failed" % label)
+    if mins and min(mins.values()) < 0.:
+        raise AssertionError("negative %s after the limiter" % mins)
     times, s, sfc = step_times(torch, m, s, m.final_sfc)
     step_s = statistics.median(times)
-    log("  s/step rico %d^3 float32: median %.6f (min %.6f, max %.6f) of 10; "
-        "peak memory %.3f GB" % (n, step_s, min(times), max(times), peak / 1e9))
+    log("  s/step %s %d^3 float32: median %.6f (min %.6f, max %.6f) of 10; "
+        "peak memory %.3f GB" % (label, n, step_s, min(times), max(times),
+                                 peak / 1e9))
     m.final_sfc = sfc
-    return m, s, launches, syncs, step_s, peak, run_s
+    return m, s, {"launches": launches, "host_reads_run12": syncs,
+                  "step_s_median": step_s, "peak_mem_gb": peak / 1e9,
+                  "run12_wall_s": run_s}
 
 
 def time_pairs(torch, pairs):
+    """name -> {ms, plain_ms, bound_ms, bound_by, library_ms}: kernel and
+    plain version timed in turns, the bound from this run's shapes."""
     out = {}
-    for name, (kern, plain) in pairs.items():
+    for name, pr in pairs.items():
+        kern, plain = pr["kern"], pr["plain"]
         # plain, kernel, kernel, plain: both measured twice, in turns
         p1 = time_call(torch, plain, 3)
         k1 = time_call(torch, kern, 10)
         k2 = time_call(torch, kern, 10)
         p2 = time_call(torch, plain, 3)
-        out[name] = (min(k1, k2), min(p1, p2))
-        log("  %-12s kernel %.3f ms  plain %.3f ms  (runs %.3f/%.3f, %.3f/%.3f)"
-            % (name, out[name][0], out[name][1], k1, k2, p1, p2))
+        lib = time_call(torch, pr["lib"], 5) if pr["lib"] else None
+        by_bytes = 1e3 * pr["bytes"] / PEAK_BYTES_S
+        by_ops = 1e3 * pr["flops"] / PEAK_FLOPS
+        out[name] = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
+                     "bound_ms": max(by_bytes, by_ops),
+                     "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+                     "library_ms": lib, "gbytes": pr["bytes"] / 1e9}
+        log("  %-14s kernel %.3f ms  plain %.3f ms  bound %.3f ms (%s, %.2f GB)"
+            "  library %s  (runs %.3f/%.3f, %.3f/%.3f)"
+            % (name, out[name]["ms"], out[name]["plain_ms"],
+               out[name]["bound_ms"], out[name]["bound_by"],
+               pr["bytes"] / 1e9, "none" if lib is None else "%.3f ms" % lib,
+               k1, k2, p1, p2))
         torch.cuda.empty_cache()
     return out
 
 
-def time_rico_kernels(torch, m, s):
-    """The rico path's kernels and their plain versions at its shapes."""
+def time_generic_kernels(torch, m, s):
+    """A generic path's kernels and their plain versions at its shapes."""
+    from microhh_torch.ops import advec_interp_fused as A
     from microhh_torch.ops import fused as F
-    from microhh_torch.ops.microphys import MICRO_FIELDS
-    ctx, fz, mic = m.ctx, m.fused, m.micro
+    from microhh_torch.ops.microphys import MICRO_FIELDS, Microphys2momWarm
+    ctx, fz, mic, adv = m.ctx, m.fused, m.micro, m.advec_fused
     sfc = m.final_sfc
     s = m.boundary.set_ghost_cells(ctx, s, sfc)
     e = F.generic_viscosity(fz, ctx, s, sfc, {})["evisc"]
     ct, cts = F.generic_col_tables(fz, ctx, s, m.force, m.buffer)
     t = m.t
-    uvwa = [s[n] for n in ("u", "v", "w", fz.n2_scalar)]
+    uvw = [s[n] for n in ("u", "v", "w")]
     args = (ctx.ks, ctx.dxi, ctx.dyi, fz.tPr)
-    pref, exnref, _, _ = m.thermo._p_profiles(ctx, {})
-    ql = m.thermo.get_ql(ctx, s)
-    tm = {n: torch.zeros_like(s[n]) for n in MICRO_FIELDS}
-    pairs = {
-        "evisc": (lambda: fz.evisc(*uvwa),
-                  lambda: F.evisc_plain(*uvwa, fz.ce, *args, True, True)),
-        "micro2": (lambda: mic.micro2(ctx, s, tm, ql, pref, exnref, 2.),
-                   lambda: mic.apply_plain(ctx, s, tm, ql, pref, exnref, 2.)),
-        "tend_uvw": (lambda: fz.tend_uvw(s, t, e, ct, 0.5, -5. / 9., True),
-                     lambda: F.tend_uvw_plain(
-                         s, e, t, ct, ctx.ks, ctx.dxi, ctx.dyi, fz.visc,
-                         fz.fc, ctx.utrans, ctx.vtrans, 0.5, -5. / 9.,
-                         fz.coriolis, True)),
-        "tend_scalars": (lambda: fz.tend_scalars(s, t, e, cts, 0.5, -5. / 9., True),
-                         lambda: F.tend_scalars_plain(
-                             s, fz.names, e, t, cts, fz.sviscs, ctx.ks,
-                             ctx.dxi, ctx.dyi, fz.tPr, 0.5, -5. / 9., True)),
-        "limits": (lambda: fz.limits(*uvwa),
-                   lambda: F.limits_plain(*uvwa, fz.ce, *args, True, True)),
-    }
+    fb, n = field_bytes(m), points(m)
+    S = len(fz.names)
+    can = -5. / 9.
+    pairs = {}
+    if fz.stratified == 2:
+        n2 = m.thermo.get_n2(ctx, s).contiguous()
+        pairs["evisc_n2"] = pair(
+            lambda: fz.evisc_n2(*uvw, n2),
+            lambda: F.evisc_plain(*uvw, None, fz.ce, *args, True, True, n2),
+            5 * fb, FLOPS_PER_POINT["evisc_n2"] * n)
+        lim = uvw + [n2]
+        lim_plain = uvw + [None, fz.ce, *args, True, True, n2]
+    else:
+        uvwa = uvw + [s[fz.n2_scalar]]
+        pairs["evisc"] = pair(
+            lambda: fz.evisc(*uvwa),
+            lambda: F.evisc_plain(*uvwa, fz.ce, *args, True, True),
+            5 * fb, FLOPS_PER_POINT["evisc"] * n)
+        lim = uvwa
+        lim_plain = uvwa + [fz.ce, *args, True, True]
+    if isinstance(mic, Microphys2momWarm):
+        pref, exnref, _, _ = m.thermo._p_profiles(ctx, {})
+        ql = m.thermo.get_ql(ctx, s)
+        tm = {nm: torch.zeros_like(s[nm]) for nm in MICRO_FIELDS}
+        pairs["micro2"] = pair(
+            lambda: mic.micro2(ctx, s, tm, ql, pref, exnref, 2.),
+            lambda: mic.apply_plain(ctx, s, tm, ql, pref, exnref, 2.),
+            13 * fb, FLOPS_PER_POINT["micro2"] * n)
+    if adv is not None:
+        tuvw = [t[nm] for nm in ("u", "v", "w")]
+        a, ta = [s[nm] for nm in fz.names], [t[nm] for nm in fz.names]
+        pairs["advec_mom"] = pair(
+            lambda: adv.momentum(*uvw, *tuvw),
+            lambda: A.momentum_plain(adv.scheme, *uvw, *tuvw, adv.table(),
+                                     ctx.ks, ctx.dxi, ctx.dyi),
+            9 * fb, FLOPS_PER_POINT["advec_mom"] * n)
+        pairs["advec_scalars"] = pair(
+            lambda: adv.scalars(*uvw, a, ta),
+            lambda: A.scalars_plain(adv.scheme, *uvw, a, ta, adv.table(),
+                                    ctx.ks, ctx.dxi, ctx.dyi),
+            (3 + 3 * S) * fb, FLOPS_PER_POINT["advec_scalars"] * S * n)
+    pairs["tend_uvw"] = pair(
+        lambda: fz.tend_uvw(s, t, e, ct, 0.5, can, True),
+        lambda: F.tend_uvw_plain(s, e, t, ct, ctx.ks, ctx.dxi, ctx.dyi,
+                                 fz.visc, fz.fc, ctx.utrans, ctx.vtrans, 0.5,
+                                 can, fz.coriolis, True, fz.advec),
+        13 * fb, FLOPS_PER_POINT["tend_uvw"] * n)
+    if S == 1:
+        pairs["tend_scalar_rk"] = pair(
+            lambda: fz.tend_scalar_rk(s, t, e, cts[0], 0.5, can, True),
+            lambda: F.tend_scalar_rk_plain(
+                s, fz.names[0], e, t, cts[0], fz.sviscs[0], ctx.ks, ctx.dxi,
+                ctx.dyi, fz.tPr, 0.5, can, True, True, fz.advec),
+            8 * fb, FLOPS_PER_POINT["tend_scalar_rk"] * n)
+    else:
+        pairs["tend_scalars"] = pair(
+            lambda: fz.tend_scalars(s, t, e, cts, 0.5, can, True),
+            lambda: F.tend_scalars_plain(
+                s, fz.names, e, t, cts, fz.sviscs, ctx.ks, ctx.dxi, ctx.dyi,
+                fz.tPr, 0.5, can, True, fz.advec),
+            (4 + 4 * S) * fb, FLOPS_PER_POINT["tend_scalars"] * S * n)
+    pairs["limits"] = pair(lambda: fz.limits(*lim),
+                           lambda: F.limits_plain(*lim_plain), 4 * fb,
+                           FLOPS_PER_POINT["limits"] * n)
     pairs.update(pres_pairs(torch, m, s))
     return time_pairs(torch, pairs)
 
 
 # --------------------------------------------------------------------------
-#  phase 9 (--profile): where the step's device time goes
+#  last phase (--profile): where the step's device time goes
 # --------------------------------------------------------------------------
 
 # kernel-name fragment -> part of the step
-PARTS = [("evisc_kernel", "K1 evisc"), ("tend_rk_kernel", "K2 tend_rk"),
-         ("micro2_kernel", "K11 micro2"), ("tend_uvw_kernel", "K8/K9 tend_uvw"),
+PARTS = [("evisc_kernel", "K1/K14 evisc"), ("tend_rk_kernel", "K2 tend_rk"),
+         ("micro2_kernel", "K11 micro2"),
+         ("advec_mom_kernel", "K12 advec_mom"),
+         ("advec_scalars_kernel", "K13 advec_scalars"),
+         ("tend_uvw_kernel", "K8/K9 tend_uvw"),
          ("tend_scalars_kernel", "K10 tend_scalars"),
+         ("tend_scalar_kernel", "K15 tend_scalar_rk"),
+         ("limits_", "K7 limits"),
          ("pres_rhs_kernel", "K4 pres_rhs"), ("dft_r2c_x", "K5 dft_fwd (i pass)"),
          ("dft_c2c_y", "K5/K6 dft (j passes)"), ("tdma_kernel", "K3 tdma"),
          ("dft_c2r_x", "K6 dft_inv (i pass)"),
@@ -818,10 +1095,12 @@ def profile_steps(torch, m, s, label, nsteps=2):
 
 
 def kernel_entry(k, launches, errs, times, where):
-    return {"name": k.name, "route": "cuda", "source": k.source,
-            "replaces": k.replaces, "launches": launches[k.name],
-            "max_abs_err": errs[k.name], "ms": times[k.name][0],
-            "plain_ms": times[k.name][1], "shape": where}
+    e = {"name": k.name, "route": "cuda", "source": k.source,
+         "replaces": k.replaces, "launches": launches[k.name],
+         "max_abs_err": errs[k.name], "shape": where}
+    e.update({key: times[k.name][key] for key in
+              ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+    return e
 
 
 def main():
@@ -862,6 +1141,10 @@ def main():
     log("[4] whole step, card against CPU")
     check_step(torch)
 
+    results = {}
+    entries = {}
+    by_path = {}
+
     log("[5] drycblles 512^3 float32 through Model.run")
     with tempfile.TemporaryDirectory() as workdir:
         m, s, launches, step_s, peak, run_s = run_main_path(torch, workdir)
@@ -869,35 +1152,51 @@ def main():
             "then timed")
         errs = check_kernels_full(torch, m, kernel_cases)
         times = time_kernels(torch, m, s)
-        entries = {k.name: kernel_entry(k, launches, errs, times,
-                                        "drycblles 512^3 float32")
-                   for k in m.kernels()}
+        for k in m.kernels():
+            entries[k.name] = kernel_entry(k, launches, errs, times,
+                                           "drycblles 512^3 float32")
+        by_path["drycblles_512"] = launches
+        results["drycblles_512_f32"] = {
+            "step_s_median": step_s, "run12_wall_s": run_s,
+            "peak_mem_gb": peak / 1e9, "kernel_build_s": build_s}
         if profile_path:
-            log("[9a] profile of two drycblles steps at 512^3 float32")
+            log("[p] profile of two drycblles steps at 512^3 float32")
             reports.append(profile_steps(torch, m, s, "drycblles"))
         del m, s
     torch.cuda.empty_cache()
 
-    log("[7] rico 384^3 float32 through Model.run")
-    with tempfile.TemporaryDirectory() as workdir:
-        m, s, rlaunches, syncs, rstep_s, rpeak, rrun_s = run_rico(torch, workdir)
-        log("[8] kernels at rico 384^3 float32: against their plain versions, "
-            "then timed")
-        rerrs = check_kernels_full(torch, m, generic_kernel_cases)
-        rtimes = time_rico_kernels(torch, m, s)
-        for k in m.kernels():
-            if k.name not in entries:
-                entries[k.name] = kernel_entry(k, rlaunches, rerrs, rtimes,
-                                               "rico 384^3 float32")
-        rico_kernels = {k.name: {"launches": rlaunches[k.name],
-                                 "max_abs_err": rerrs[k.name],
-                                 "ms": rtimes[k.name][0],
-                                 "plain_ms": rtimes[k.name][1]}
-                        for k in m.kernels()}
-        if profile_path:
-            log("[9b] profile of two rico steps at 384^3 float32")
-            reports.append(profile_steps(torch, m, s, "rico"))
-        del m, s
+    def build_rico_2i5(*a):
+        return build_rico(*a, swadvec="2i5")
+
+    phase = 7
+    for key, label, build, n, nonneg in (
+            ("rico_384", "rico", build_rico, 384, ("qt", "qr", "nr")),
+            ("rico2i5_384", "rico 2i5", build_rico_2i5, 384,
+             ("qt", "qr", "nr")),
+            ("sbl_256", "SBL_Smag", build_sbl, 256, ())):
+        log("[%d] %s %d^3 float32 through Model.run" % (phase, label, n))
+        with tempfile.TemporaryDirectory() as workdir:
+            m, s, res = run_les(torch, workdir, label, build, n, nonneg)
+            log("[%d] kernels at %s %d^3 float32: against their plain "
+                "versions, then timed" % (phase + 1, label, n))
+            errs = check_kernels_full(torch, m, generic_kernel_cases)
+            times = time_generic_kernels(torch, m, s)
+            where = "%s %d^3 float32" % (label, n)
+            for k in m.kernels():
+                if k.name not in entries:
+                    entries[k.name] = kernel_entry(k, res["launches"], errs,
+                                                   times, where)
+            res["kernels"] = {
+                k.name: dict(times[k.name], launches=res["launches"][k.name],
+                             max_abs_err=errs[k.name]) for k in m.kernels()}
+            by_path[key] = res.pop("launches")
+            results[key + "_f32"] = res
+            if profile_path:
+                log("[p] profile of two %s steps at %d^3 float32" % (label, n))
+                reports.append(profile_steps(torch, m, s, label))
+            del m, s
+        torch.cuda.empty_cache()
+        phase += 2
 
     if profile_path:
         os.makedirs(os.path.dirname(os.path.abspath(profile_path)),
@@ -908,17 +1207,10 @@ def main():
         log("  full tables: %s" % profile_path)
 
     for name, e in entries.items():
-        by_path = {"drycblles_512": launches.get(name, 0),
-                   "rico_384": rlaunches.get(name, 0)}
-        e["launches"] = sum(by_path.values())
-        e["launches_by_path"] = by_path
-    log(json.dumps({"drycblles_512_f32": {
-        "step_s_median": step_s, "run12_wall_s": run_s,
-        "peak_mem_gb": peak / 1e9, "kernel_build_s": build_s},
-        "rico_384_f32": {
-        "step_s_median": rstep_s, "run12_wall_s": rrun_s,
-        "peak_mem_gb": rpeak / 1e9, "host_reads_run12": syncs,
-        "kernels": rico_kernels}}))
+        e["launches_by_path"] = {key: lc.get(name, 0)
+                                 for key, lc in by_path.items()}
+        e["launches"] = sum(e["launches_by_path"].values())
+    log(json.dumps(results))
     log("card: %s" % card_line())
     log(json.dumps({"kernels": list(entries.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -5,6 +5,8 @@
 hold it equal, bit for bit, to the file that script writes.
 ``rico_input(ktot, zsize)`` wraps the profiles in the read side of a netCDF
 dataset (``utils/nc.MemoryDataset``), which ``Model(..., input_nc=)`` takes.
+``sbl_profiles`` and ``sbl_input`` do the same for ``cases/SBL_Smag/
+SBL_input.py``.
 """
 
 import numpy as np
@@ -37,3 +39,20 @@ def rico_input(ktot, zsize):
     dz = zsize / ktot
     z = np.linspace(0.5 * dz, zsize - 0.5 * dz, ktot)
     return MemoryDataset({"z": z}, {"init": rico_profiles(z)})
+
+
+def sbl_profiles(z, zsize):
+    """The init-group profiles of SBL_input.nc at full levels z: the
+    geostrophic wind and a linear stable stratification."""
+    ktot = len(z)
+    ug = np.full(ktot, 0.05)
+    zero = np.zeros(ktot)
+    return {"u": ug, "v": zero, "b": -0.0044 * (1. - z / zsize),
+            "u_geo": ug, "v_geo": zero}
+
+
+def sbl_input(ktot, zsize):
+    """The SBL_Smag input dataset on the uniform grid of SBL_input.py."""
+    dz = zsize / ktot
+    z = np.linspace(0.5 * dz, zsize - 0.5 * dz, ktot)
+    return MemoryDataset({"z": z}, {"init": sbl_profiles(z, zsize)})

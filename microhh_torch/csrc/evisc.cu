@@ -13,6 +13,14 @@
 // MOST wall row is patched afterwards in torch (ops/fused.py
 // surface_evisc_row).
 //
+// K14: the same eddy viscosity with the buoyancy frequency N2 read from an
+// interior (ktot, jtot, itot) field that the thermodynamics computed
+// (thermo buoy's background N2, thermo dry on the generic path) instead of
+// taken from a scalar's gradient: stratified = 2, the th argument is then
+// that field, read at the point with no ring.  Replaces FusedLES2.evisc_n2 /
+// _evisc_n2_body (pallas_fused.py:1480, pallas_call :1496); it runs on
+// ghost-filled fields.  Its entry is mhh_evisc_n2.
+//
 // K7: the adaptive-dt limits pass, the per-level maxima of the CFL rate
 // (advec_2.cxx:50-78 pointwise expression) and of the same eddy viscosity,
 // in one read of u, v, w, th and with no field-sized write.  Replaces
@@ -55,7 +63,8 @@ __device__ __forceinline__ void load_ring(Ring<T>& sh, const T* __restrict__ u,
     load_tile(sh[0][s], u, clampi(ks + p, lo, hic), j0, i0, jtot, itot);
     load_tile(sh[1][s], v, clampi(ks + p, lo, hic), j0, i0, jtot, itot);
     load_tile(sh[2][s], w, clampi(ks + p, lo, ke), j0, i0, jtot, itot);
-    load_tile(sh[3][s], th, clampi(ks + p, lo, hic), j0, i0, jtot, itot);
+    if (th)
+        load_tile(sh[3][s], th, clampi(ks + p, lo, hic), j0, i0, jtot, itot);
 }
 
 #define U(s, dj, di) sh[0][s][r + (dj)][c + (di)]
@@ -67,7 +76,8 @@ __device__ __forceinline__ void load_ring(Ring<T>& sh, const T* __restrict__ u,
 template <typename T>
 __device__ __forceinline__ T evisc_point(const Ring<T>& sh, int k,
                                          const T* __restrict__ ce, T dxi,
-                                         T dyi, T tPr, int stratified) {
+                                         T dyi, T tPr, int stratified,
+                                         T n2ext) {
     const T dsmall = T(1.e-9), grav = T(9.81);
     const int km = slot(k - 1), kc = slot(k), kp = slot(k + 1);
     const int r = threadIdx.y + 1, c = threadIdx.x + 1;
@@ -114,8 +124,9 @@ __device__ __forceinline__ T evisc_point(const Ring<T>& sh, int k,
     if (!stratified) return mlen2 * sqrt(strain2);
     // E_TOPS patches the clamped top plane with the scalar's top-gradient
     // ghost offset (zero elsewhere)
-    const T n2 = grav / cc[E_THREF] * T(0.5) * (TH(kp) + cc[E_TOPS] - TH(km))
-                 * dzi;
+    const T n2 = stratified == 2 ? n2ext
+                 : grav / cc[E_THREF] * T(0.5)
+                       * (TH(kp) + cc[E_TOPS] - TH(km)) * dzi;
     const T a = n2 * (T(-1) / tPr) + strain2;
     const T b = strain2 * dsmall;
     return mlen2 * sqrt(a > b ? a : b);
@@ -154,14 +165,20 @@ evisc_kernel(const T* __restrict__ u, const T* __restrict__ v,
     const int lo = ghosts ? ks - 1 : ks, hic = ghosts ? ke : ke - 1;
     const long long plane = (long long)itot * jtot;
 
-    load_ring(sh, u, v, w, th, -1, ks, ke, lo, hic, j0, i0, jtot, itot);
-    load_ring(sh, u, v, w, th, 0, ks, ke, lo, hic, j0, i0, jtot, itot);
+    // stratified = 2: th is the interior N2 field, read at the point
+    const T* ring_th = stratified == 2 ? nullptr : th;
+
+    load_ring(sh, u, v, w, ring_th, -1, ks, ke, lo, hic, j0, i0, jtot, itot);
+    load_ring(sh, u, v, w, ring_th, 0, ks, ke, lo, hic, j0, i0, jtot, itot);
     for (int k = 0; k < ktot; ++k) {
-        load_ring(sh, u, v, w, th, k + 1, ks, ke, lo, hic, j0, i0, jtot, itot);
+        load_ring(sh, u, v, w, ring_th, k + 1, ks, ke, lo, hic, j0, i0, jtot,
+                  itot);
         __syncthreads();
-        if (inside)
-            out[(long long)k * plane + (long long)j * itot + i] =
-                evisc_point(sh, k, ce, dxi, dyi, tPr, stratified);
+        if (inside) {
+            const long long o = (long long)k * plane + (long long)j * itot + i;
+            const T n2 = stratified == 2 ? __ldg(th + o) : T(0);
+            out[o] = evisc_point(sh, k, ce, dxi, dyi, tPr, stratified, n2);
+        }
         __syncthreads();
     }
 }
@@ -190,24 +207,30 @@ limits_kernel(const T* __restrict__ u, const T* __restrict__ v,
     __shared__ Ring<T> sh;
     __shared__ T red[2][NW];
     const int i0 = blockIdx.x * TI, j0 = blockIdx.y * TJ;
-    const bool inside = i0 + (int)threadIdx.x < itot
-                        && j0 + (int)threadIdx.y < jtot;
+    const int i = i0 + threadIdx.x, j = j0 + threadIdx.y;
+    const bool inside = i < itot && j < jtot;
     const int ke = ks + ktot;
     const int lo = ghosts ? ks - 1 : ks, hic = ghosts ? ke : ke - 1;
     const int tid = threadIdx.y * TI + threadIdx.x;
+    const long long plane = (long long)itot * jtot;
+    const T* ring_th = stratified == 2 ? nullptr : th;
     const long long nblk = (long long)gridDim.x * gridDim.y;
     const long long blk = (long long)blockIdx.y * gridDim.x + blockIdx.x;
 
-    load_ring(sh, u, v, w, th, -1, ks, ke, lo, hic, j0, i0, jtot, itot);
-    load_ring(sh, u, v, w, th, 0, ks, ke, lo, hic, j0, i0, jtot, itot);
+    load_ring(sh, u, v, w, ring_th, -1, ks, ke, lo, hic, j0, i0, jtot, itot);
+    load_ring(sh, u, v, w, ring_th, 0, ks, ke, lo, hic, j0, i0, jtot, itot);
     for (int k = 0; k < ktot; ++k) {
-        load_ring(sh, u, v, w, th, k + 1, ks, ke, lo, hic, j0, i0, jtot, itot);
+        load_ring(sh, u, v, w, ring_th, k + 1, ks, ke, lo, hic, j0, i0, jtot,
+                  itot);
         __syncthreads();
         // both rates are >= 0: a point outside the grid contributes 0
         T cfl = T(0), ev = T(0);
         if (inside) {
             cfl = cfl_point(sh, k, ce, dxi, dyi);
-            ev = evisc_point(sh, k, ce, dxi, dyi, tPr, stratified);
+            const T n2 = stratified == 2
+                ? __ldg(th + (long long)k * plane + (long long)j * itot + i)
+                : T(0);
+            ev = evisc_point(sh, k, ce, dxi, dyi, tPr, stratified, n2);
         }
         cfl = warp_max(cfl);
         ev = warp_max(ev);
@@ -289,6 +312,15 @@ int launch_limits(const T* u, const T* v, const T* w, const T* th, T* part,
                                     (const T*)th, (T*)out, (const T*)ce,      \
                                     itot, jtot, ktot, ks, dxi, dyi, tPr,      \
                                     stratified, ghosts, (cudaStream_t)stream);\
+    }                                                                         \
+    extern "C" int mhh_evisc_n2_##SUF(                                        \
+        const void* u, const void* v, const void* w, const void* n2,          \
+        void* out, const void* ce, int itot, int jtot, int ktot, int ks,      \
+        double dxi, double dyi, double tPr, void* stream) {                   \
+        return mhh::launch_evisc<T>((const T*)u, (const T*)v, (const T*)w,    \
+                                    (const T*)n2, (T*)out, (const T*)ce,      \
+                                    itot, jtot, ktot, ks, dxi, dyi, tPr, 2,   \
+                                    1, (cudaStream_t)stream);                 \
     }                                                                         \
     extern "C" int mhh_limits_##SUF(                                          \
         const void* u, const void* v, const void* w, const void* th,          \

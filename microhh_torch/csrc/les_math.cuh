@@ -52,7 +52,8 @@ template <typename T>
 __device__ __forceinline__ void uv_tend(const View<T>& U, const View<T>& V,
                                         const View<T>& W, const View<T>& E,
                                         Slots q, const T* __restrict__ cc,
-                                        T dxi, T dyi, T visc, T& ut, T& vt) {
+                                        T dxi, T dyi, T visc, T& ut, T& vt,
+                                        int advec = 1) {
     const int km = q.km, kc = q.kc, kp = q.kp;
     const T dzi = cc[T_DZI], dzhi = cc[T_DZHI], dzhi1 = cc[T_DZHI1];
     const T rho = cc[T_RHO], rhoh = cc[T_RHOH], rhoh1 = cc[T_RHOH1];
@@ -60,7 +61,9 @@ __device__ __forceinline__ void uv_tend(const View<T>& U, const View<T>& V,
 
     // ---- u (advec_2.cxx advec_u + diff_smag2.cxx diff_u) ----
     const T u_ = U(kc, 0, 0), v_ = V(kc, 0, 0), w_ = W(kc, 0, 0);
-    const T adv_u = -((i2(u_, U(kc, 0, 1)) * i2(u_, U(kc, 0, 1))
+    // advec = 0: an interpolated scheme (K12/K13) has already added the
+    // advection into the carry; the sweep does diffusion and the folds only
+    const T adv_u = !advec ? T(0) : -((i2(u_, U(kc, 0, 1)) * i2(u_, U(kc, 0, 1))
                        - i2(U(kc, 0, -1), u_) * i2(U(kc, 0, -1), u_)) * dxi
                       + (i2(V(kc, 1, -1), V(kc, 1, 0)) * i2(u_, U(kc, 1, 0))
                          - i2(V(kc, 0, -1), v_) * i2(U(kc, -1, 0), u_)) * dyi
@@ -81,7 +84,7 @@ __device__ __forceinline__ void uv_tend(const View<T>& U, const View<T>& V,
            - rhoh * ev_b * ((u_ - U(km, 0, 0)) * dzhi + (w_ - W(kc, 0, -1)) * dxi)) * rdzi;
 
     // ---- v ----
-    const T adv_v = -((i2(U(kc, -1, 1), U(kc, 0, 1)) * i2(v_, V(kc, 0, 1))
+    const T adv_v = !advec ? T(0) : -((i2(U(kc, -1, 1), U(kc, 0, 1)) * i2(v_, V(kc, 0, 1))
                        - i2(U(kc, -1, 0), u_) * i2(V(kc, 0, -1), v_)) * dxi
                       + (i2(v_, V(kc, 1, 0)) * i2(v_, V(kc, 1, 0))
                          - i2(V(kc, -1, 0), v_) * i2(V(kc, -1, 0), v_)) * dyi
@@ -108,14 +111,14 @@ template <typename T>
 __device__ __forceinline__ T w_tend(const View<T>& U, const View<T>& V,
                                     const View<T>& W, const View<T>& E,
                                     Slots q, const T* __restrict__ cc,
-                                    T dxi, T dyi, T visc) {
+                                    T dxi, T dyi, T visc, int advec = 1) {
     const int km = q.km, kc = q.kc, kp = q.kp;
     const T dzi = cc[T_DZI], dzhi = cc[T_DZHI], dzi_m1 = cc[T_DZI_M1];
     const T rho = cc[T_RHO], rhoh = cc[T_RHOH], rho_m1 = cc[T_RHO_M1];
     const T rdzhi = dzhi / rhoh;
     const T u_ = U(kc, 0, 0), v_ = V(kc, 0, 0), w_ = W(kc, 0, 0);
     const T w_dn = W(km, 0, 0), w_up = W(kp, 0, 0);
-    const T adv_w = -((i2(U(km, 0, 1), U(kc, 0, 1)) * i2(w_, W(kc, 0, 1))
+    const T adv_w = !advec ? T(0) : -((i2(U(km, 0, 1), U(kc, 0, 1)) * i2(w_, W(kc, 0, 1))
                        - i2(U(km, 0, 0), u_) * i2(W(kc, 0, -1), w_)) * dxi
                       + (i2(V(km, 1, 0), V(kc, 1, 0)) * i2(w_, W(kc, 1, 0))
                          - i2(V(km, 0, 0), v_) * i2(W(kc, -1, 0), w_)) * dyi
@@ -143,7 +146,7 @@ __device__ __forceinline__ T s_tend(const View<T>& U, const View<T>& V,
                                     const View<T>& W, const View<T>& A,
                                     const View<T>& E, Slots q,
                                     const T* __restrict__ cc, T dxi, T dyi,
-                                    T svisc, T tPri) {
+                                    T svisc, T tPri, int advec = 1) {
     const int km = q.km, kc = q.kc, kp = q.kp;
     const T dzi = cc[T_DZI], dzhi = cc[T_DZHI], dzhi1 = cc[T_DZHI1];
     const T rho = cc[T_RHO], rhoh = cc[T_RHOH], rhoh1 = cc[T_RHOH1];
@@ -152,7 +155,7 @@ __device__ __forceinline__ T s_tend(const View<T>& U, const View<T>& V,
     const T w_up = W(kp, 0, 0);
     const T a_ = A(kc, 0, 0), a_dn = A(km, 0, 0), a_up = A(kp, 0, 0);
     const T e_ = E(kc, 0, 0), e_dn = E(km, 0, 0);
-    const T adv_s = -((U(kc, 0, 1) * i2(a_, A(kc, 0, 1)) - u_ * i2(A(kc, 0, -1), a_)) * dxi
+    const T adv_s = !advec ? T(0) : -((U(kc, 0, 1) * i2(a_, A(kc, 0, 1)) - u_ * i2(A(kc, 0, -1), a_)) * dxi
                       + (V(kc, 1, 0) * i2(a_, A(kc, 1, 0)) - v_ * i2(A(kc, -1, 0), a_)) * dyi
                       + (rhoh1 * w_up * i2(a_, a_up) - rhoh * w_ * i2(a_dn, a_)) * rdzi);
     const T se = T(0.5) * (e_ + E(kc, 0, 1)) * tPri + svisc;

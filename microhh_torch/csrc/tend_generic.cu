@@ -16,6 +16,16 @@
 // reads u, v, w and evisc once for all S scalars.  Replaces
 // FusedLES2.tend_scalars_rk (:1702 / :1733; _scalars_rk_body :474).
 //
+// K15 tend_scalar: the same sweep for one scalar, the form a case with a
+// single scalar (SBL_Smag's b) takes.  Replaces FusedLES2.tend_scalar_rk
+// (:1674 / :1694; _scalar_rk_body :417), with its carry, fold (column terms
+// on or off) and advec flags.
+//
+// advec = 0 on any of them leaves the advec_2 terms out: an interpolated
+// scheme (K12/K13, advec_interp.cu) has then added the advection into the
+// carry before the sweep (pallas_fused.py advec=not self.no_advec); the
+// diffusion, the column fold and the Coriolis term stay.
+//
 // The fields are ghost-filled and read at k-1 and k+1 as they are (no
 // clamping, fold_ghosts off as on the TPU's generic path); evisc is the
 // kcells array whose ghost planes repeat the edge levels.  The per-level
@@ -47,7 +57,8 @@ tend_uvw_kernel(const T* __restrict__ u, const T* __restrict__ v,
                 T* __restrict__ us, T* __restrict__ vs, T* __restrict__ ws,
                 T* tu, T* tv, T* tw, const T* __restrict__ ct, int itot,
                 int jtot, int ktot, int ks, T dxi, T dyi, T visc, T fc,
-                T utrans, T vtrans, T cbdt, T can, int coriolis, int carry) {
+                T utrans, T vtrans, T cbdt, T can, int coriolis, int carry,
+                int advec) {
     __shared__ T sh[4][3][HJ][HI];
     const int i0 = blockIdx.x * TI, j0 = blockIdx.y * TJ;
     const int i = i0 + threadIdx.x, j = j0 + threadIdx.y;
@@ -73,8 +84,8 @@ tend_uvw_kernel(const T* __restrict__ u, const T* __restrict__ v,
             const Slots q = slots(k);
             const T* cc = ct + (long long)k * NTG;
             T ut, vt;
-            uv_tend(U, V, W, E, q, cc, dxi, dyi, visc, ut, vt);
-            T wt = w_tend(U, V, W, E, q, cc, dxi, dyi, visc);
+            uv_tend(U, V, W, E, q, cc, dxi, dyi, visc, ut, vt, advec);
+            T wt = w_tend(U, V, W, E, q, cc, dxi, dyi, visc, advec);
             const T u_ = U(q.kc, 0, 0), v_ = V(q.kc, 0, 0), w_ = W(q.kc, 0, 0);
 
             // ---- column fold and Coriolis (pallas_fused.py _extra_uv) ----
@@ -131,7 +142,7 @@ tend_scalars_kernel(const T* __restrict__ u, const T* __restrict__ v,
                     const T* __restrict__ w, const T* __restrict__ e,
                     const Scalars<T> sc, int S, const T* __restrict__ ccs,
                     int itot, int jtot, int ktot, int ks, T dxi, T dyi, T tPr,
-                    T cbdt, T can, int carry) {
+                    T cbdt, T can, int carry, int advec) {
     // rings: u, v, w, evisc, then the S scalars
     T (*sh)[3][HJ][HI] = reinterpret_cast<T (*)[3][HJ][HI]>(dyn_smem);
     const int i0 = blockIdx.x * TI, j0 = blockIdx.y * TJ;
@@ -165,7 +176,8 @@ tend_scalars_kernel(const T* __restrict__ u, const T* __restrict__ v,
                 const T* cc = ccs + ((long long)n * ktot + k) * NTG;
                 const T a_ = A(q.kc, 0, 0);
                 T tt = sc.ta[n][o]
-                       + s_tend(U, V, W, A, E, q, cc, dxi, dyi, sc.svisc[n], tPri);
+                       + s_tend(U, V, W, A, E, q, cc, dxi, dyi, sc.svisc[n], tPri,
+                                advec);
                 tt = tt + (cc[T_ADDS] - cc[T_FACZ] * a_
                            + cc[T_WLSDN] * (a_ - A(q.km, 0, 0))
                            + cc[T_WLSUP] * (A(q.kp, 0, 0) - a_));
@@ -177,19 +189,85 @@ tend_scalars_kernel(const T* __restrict__ u, const T* __restrict__ v,
     }
 }
 
+// K15: one scalar's sweep (tend_scalar_rk), the form a case with a single
+// scalar takes: the same point math as K10 with static shared memory for its
+// five rings.  fold = 0 leaves the column terms of the table out.
+template <typename T>
+__global__ void __launch_bounds__(TI * TJ)
+tend_scalar_kernel(const T* __restrict__ u, const T* __restrict__ v,
+                   const T* __restrict__ w, const T* __restrict__ e,
+                   const T* __restrict__ a, T* __restrict__ as, T* ta,
+                   const T* __restrict__ ct, int itot, int jtot, int ktot,
+                   int ks, T dxi, T dyi, T svisc, T tPr, T cbdt, T can,
+                   int carry, int fold, int advec) {
+    __shared__ T sh[5][3][HJ][HI];
+    const int i0 = blockIdx.x * TI, j0 = blockIdx.y * TJ;
+    const int i = i0 + threadIdx.x, j = j0 + threadIdx.y;
+    const bool inside = i < itot && j < jtot;
+    const long long plane = (long long)itot * jtot;
+    const T tPri = T(1) / tPr;
+    const View<T> U = view<T>(sh[0]), V = view<T>(sh[1]), W = view<T>(sh[2]);
+    const View<T> E = view<T>(sh[3]), A = view<T>(sh[4]);
+
+    auto load = [&](int p) {
+        const int s = slot(p);
+        load_tile(sh[0][s], u, ks + p, j0, i0, jtot, itot);
+        load_tile(sh[1][s], v, ks + p, j0, i0, jtot, itot);
+        load_tile(sh[2][s], w, ks + p, j0, i0, jtot, itot);
+        load_tile(sh[3][s], e, ks + p, j0, i0, jtot, itot);
+        load_tile(sh[4][s], a, ks + p, j0, i0, jtot, itot);
+    };
+
+    load(-1);
+    load(0);
+    for (int k = 0; k < ktot; ++k) {
+        load(k + 1);
+        __syncthreads();
+        if (inside) {
+            const Slots q = slots(k);
+            const long long o = (long long)(ks + k) * plane + (long long)j * itot + i;
+            const T* cc = ct + (long long)k * NTG;
+            const T a_ = A(q.kc, 0, 0);
+            T tt = ta[o] + s_tend(U, V, W, A, E, q, cc, dxi, dyi, svisc, tPri,
+                                  advec);
+            if (fold)
+                tt = tt + (cc[T_ADDS] - cc[T_FACZ] * a_
+                           + cc[T_WLSDN] * (a_ - A(q.km, 0, 0))
+                           + cc[T_WLSUP] * (A(q.kp, 0, 0) - a_));
+            as[o] = a_ + cbdt * tt;
+            if (carry) ta[o] = can * tt;
+        }
+        __syncthreads();
+    }
+}
+
+template <typename T>
+int launch_tend_scalar(const T* u, const T* v, const T* w, const T* e,
+                       const T* a, T* as, T* ta, const T* ct, int itot,
+                       int jtot, int ktot, int ks, double dxi, double dyi,
+                       double svisc, double tPr, double cbdt, double can,
+                       int carry, int fold, int advec, cudaStream_t stream) {
+    const dim3 block(TI, TJ);
+    const dim3 grid((itot + TI - 1) / TI, (jtot + TJ - 1) / TJ);
+    tend_scalar_kernel<T><<<grid, block, 0, stream>>>(
+        u, v, w, e, a, as, ta, ct, itot, jtot, ktot, ks, T(dxi), T(dyi),
+        T(svisc), T(tPr), T(cbdt), T(can), carry, fold, advec);
+    return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_tend_uvw(const T* u, const T* v, const T* w, const T* e, T* us,
                     T* vs, T* ws, T* tu, T* tv, T* tw, const T* ct, int itot,
                     int jtot, int ktot, int ks, double dxi, double dyi,
                     double visc, double fc, double utrans, double vtrans,
                     double cbdt, double can, int coriolis, int carry,
-                    cudaStream_t stream) {
+                    int advec, cudaStream_t stream) {
     const dim3 block(TI, TJ);
     const dim3 grid((itot + TI - 1) / TI, (jtot + TJ - 1) / TJ);
     tend_uvw_kernel<T><<<grid, block, 0, stream>>>(
         u, v, w, e, us, vs, ws, tu, tv, tw, ct, itot, jtot, ktot, ks, T(dxi),
         T(dyi), T(visc), T(fc), T(utrans), T(vtrans), T(cbdt), T(can),
-        coriolis, carry);
+        coriolis, carry, advec);
     return (int)cudaGetLastError();
 }
 
@@ -199,7 +277,8 @@ int launch_tend_scalars(const T* u, const T* v, const T* w, const T* e,
                         void* const* ta, const double* svisc, int S,
                         const T* ccs, int itot, int jtot, int ktot, int ks,
                         double dxi, double dyi, double tPr, double cbdt,
-                        double can, int carry, cudaStream_t stream) {
+                        double can, int carry, int advec,
+                        cudaStream_t stream) {
     if (S < 1 || S > MAXS) return (int)cudaErrorInvalidValue;
     Scalars<T> sc;
     for (int n = 0; n < MAXS; ++n) {
@@ -218,7 +297,7 @@ int launch_tend_scalars(const T* u, const T* v, const T* w, const T* e,
     const dim3 grid((itot + TI - 1) / TI, (jtot + TJ - 1) / TJ);
     tend_scalars_kernel<T><<<grid, block, smem, stream>>>(
         u, v, w, e, sc, S, ccs, itot, jtot, ktot, ks, T(dxi), T(dyi), T(tPr),
-        T(cbdt), T(can), carry);
+        T(cbdt), T(can), carry, advec);
     return (int)cudaGetLastError();
 }
 
@@ -230,23 +309,35 @@ int launch_tend_scalars(const T* u, const T* v, const T* w, const T* e,
         void* us, void* vs, void* ws, void* tu, void* tv, void* tw,           \
         const void* ct, int itot, int jtot, int ktot, int ks, double dxi,     \
         double dyi, double visc, double fc, double utrans, double vtrans,      \
-        double cbdt, double can, int coriolis, int carry, void* stream) {     \
+        double cbdt, double can, int coriolis, int carry, int advec,          \
+        void* stream) {                                                       \
         return mhh::launch_tend_uvw<T>(                                       \
             (const T*)u, (const T*)v, (const T*)w, (const T*)e, (T*)us,       \
             (T*)vs, (T*)ws, (T*)tu, (T*)tv, (T*)tw, (const T*)ct, itot, jtot, \
             ktot, ks, dxi, dyi, visc, fc, utrans, vtrans, cbdt, can,          \
-            coriolis, carry, (cudaStream_t)stream);                           \
+            coriolis, carry, advec, (cudaStream_t)stream);                    \
     }                                                                         \
     extern "C" int mhh_tend_scalars_##SUF(                                    \
         const void* u, const void* v, const void* w, const void* e,           \
         const void* const* a, void* const* as, void* const* ta,               \
         const double* svisc, int S, const void* ccs, int itot, int jtot,      \
         int ktot, int ks, double dxi, double dyi, double tPr, double cbdt,    \
-        double can, int carry, void* stream) {                                \
+        double can, int carry, int advec, void* stream) {                     \
         return mhh::launch_tend_scalars<T>(                                   \
             (const T*)u, (const T*)v, (const T*)w, (const T*)e, a, as, ta,    \
             svisc, S, (const T*)ccs, itot, jtot, ktot, ks, dxi, dyi, tPr,     \
-            cbdt, can, carry, (cudaStream_t)stream);                          \
+            cbdt, can, carry, advec, (cudaStream_t)stream);                   \
+    }                                                                         \
+    extern "C" int mhh_tend_scalar_rk_##SUF(                                  \
+        const void* u, const void* v, const void* w, const void* e,           \
+        const void* a, void* as, void* ta, const void* cc, int itot,          \
+        int jtot, int ktot, int ks, double dxi, double dyi, double svisc,     \
+        double tPr, double cbdt, double can, int carry, int fold, int advec,  \
+        void* stream) {                                                       \
+        return mhh::launch_tend_scalar<T>(                                    \
+            (const T*)u, (const T*)v, (const T*)w, (const T*)e, (const T*)a,  \
+            (T*)as, (T*)ta, (const T*)cc, itot, jtot, ktot, ks, dxi, dyi,     \
+            svisc, tPr, cbdt, can, carry, fold, advec, (cudaStream_t)stream); \
     }
 
 MHH_TEND_GENERIC(f32, float)

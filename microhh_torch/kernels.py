@@ -57,13 +57,23 @@ SIGNATURES = {
     # stratified, ghosts
     "limits": [_P] * 7 + [_I] * 4 + [_D] * 3 + [_I] * 2,
     # u, v, w, e, us, vs, ws, tu, tv, tw, ct; itot, jtot, ktot, ks; dxi, dyi,
-    # visc, fc, utrans, vtrans, cbdt, can; coriolis, carry
-    "tend_uvw": [_P] * 11 + [_I] * 4 + [_D] * 8 + [_I] * 2,
+    # visc, fc, utrans, vtrans, cbdt, can; coriolis, carry, advec
+    "tend_uvw": [_P] * 11 + [_I] * 4 + [_D] * 8 + [_I] * 3,
     # u, v, w, e; host arrays of the S scalars' a, a*, carry pointers and
     # viscosities; S; tables (S, ktot, NTG); itot, jtot, ktot, ks; dxi, dyi,
-    # tPr, cbdt, can; carry
+    # tPr, cbdt, can; carry, advec
     "tend_scalars": [_P] * 4 + [_PP] * 3 + [_PD, _I, _P] + [_I] * 4
-                    + [_D] * 5 + [_I],
+                    + [_D] * 5 + [_I] * 2,
+    # u, v, w, e, a, a*, carry, ct; itot, jtot, ktot, ks; dxi, dyi, svisc,
+    # tPr, cbdt, can; carry, fold, advec
+    "tend_scalar_rk": [_P] * 8 + [_I] * 4 + [_D] * 6 + [_I] * 3,
+    # u, v, w, n2 (interior), out, ce; itot, jtot, ktot, ks; dxi, dyi, tPr
+    "evisc_n2": [_P] * 6 + [_I] * 4 + [_D] * 3,
+    # u, v, w, tu, tv, tw, cc; itot, jtot, ktot, ks, scheme; dxi, dyi
+    "advec_mom": [_P] * 7 + [_I] * 5 + [_D] * 2,
+    # u, v, w; host arrays of the S scalars' and carries' pointers; S; cc;
+    # itot, jtot, ktot, ks, scheme; dxi, dyi
+    "advec_scalars": [_P] * 3 + [_PP] * 2 + [_I, _P] + [_I] * 5 + [_D] * 2,
     # qr, nr, qt, thl, tqr, tnr, tqt, tthl, ql, rr_bot, cc; itot, jtot, ktot,
     # ks, nsed; Nc0, dt
     "micro2": [_P] * 11 + [_I] * 5 + [_D] * 2,

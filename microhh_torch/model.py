@@ -8,16 +8,21 @@ JAX package's fused step.
   ``fold_ghosts``): per substep the eddy viscosity (K1), the MOST surface,
   the RK tendency sweep (K2) with its wall patches, and the projection (K4
   rhs -> DFT K5 -> Thomas K3 -> inverse DFT K6 -> K4 apply).
-* The generic path (thermo moist with 2mom_warm, large-scale forcing and
-  the limiter, the bomex/rico slice; ``microhh_tpu/model.py:370-487``): per
-  substep the ghost fill, the base-state update, K1 in its ghost-filled
-  moist mode, the buoyancy and the warm-rain scheme (K11) into the carry,
-  the MOST surface and the refill of the flux-dependent ghosts, the column
-  tables, the tendency sweeps K8/K9 and K10, the projection, and the
-  limiter as a clamp of s.
+* The generic path (any other thermo or advection scheme: thermo moist
+  with 2mom_warm, large-scale forcing and the limiter, the bomex/rico
+  slice; thermo buoy, the SBL_Smag slice; the interpolated schemes 2i4,
+  2i5, 2i53, 2i62; ``microhh_tpu/model.py:370-487``): per substep the ghost
+  fill, the base-state update, the eddy viscosity (K1 in its ghost-filled
+  moist mode, or K14 with the thermo's N2 field), the buoyancy and the
+  warm-rain scheme (K11) into the carry, the MOST surface and the refill of
+  the flux-dependent ghosts, an interpolated scheme's advection into the
+  carry (K12/K13), the column tables, the tendency sweeps K8/K9 and K10
+  (K15 for a single scalar; without their advec_2 terms after K12/K13), the
+  projection, and the limiter as a clamp of s.
 
-The host loop takes the adaptive-dt limits from one pass (K7) and the
-sedimentation limit, and does the integer-time bookkeeping, the status
+The host loop takes the adaptive-dt limits from one pass (K7; the CFL rate
+of an interpolated scheme from its own ``cfl_max``) and the sedimentation
+limit, and does the integer-time bookkeeping, the status
 table and the restarts, as the reference's main loop
 (``src/model.cxx:303-557``) does.  An option outside the two slices raises
 NotImplementedError naming its ROADMAP item.  The model runs on the device
@@ -37,6 +42,8 @@ from .fields import Fields
 from .timeloop import Timeloop
 from . import ops
 from .ops import not_ported
+from .ops.advec_interp import AdvecInterp
+from .ops.advec_interp_fused import AdvecInterpFused
 from .ops.boundary import NEUMANN, FLUX
 from .ops.buffer import make_buffer
 from .ops.force import make_force
@@ -47,7 +54,7 @@ from .ops.fused import (Fused, FusedGeneric, PresGlue, exec_viscosity,
 from .ops.limiter import Limiter
 from .ops.microphys import Microphys2momWarm, make_microphys
 from .ops.stencil import ip, jp, i2
-from .ops.thermo_moist import ThermoMoist
+from .ops.thermo_dry import ThermoDry
 
 NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
 
@@ -68,13 +75,21 @@ class Context:
         self.utrans, self.vtrans = float(g.utrans), float(g.vtrans)
         for name in ("z", "dz", "dzh", "dzi", "dzhi"):
             setattr(self, name, self.tensor(getattr(g, name)))
-        self.rhoref = self.tensor(fields.rhoref)
-        self.rhorefh = self.tensor(fields.rhorefh)
         self.scalar_names = tuple(fields.sp.keys())
         self.np_dzi = np.asarray(g.dzi, dtype=np.float64)
         self.np_dzhi = np.asarray(g.dzhi, dtype=np.float64)
+        self.basestate_version = 0
+        self.refresh_basestate(fields)
+
+    def refresh_basestate(self, fields):
+        """Take the base state's density from fields again.  A table that
+        bakes the density in (the interpolated schemes' ladder weights)
+        compares ``basestate_version`` with the one it was built at."""
+        self.rhoref = self.tensor(fields.rhoref)
+        self.rhorefh = self.tensor(fields.rhorefh)
         self.np_rhoref = np.asarray(fields.rhoref, dtype=np.float64)
         self.np_rhorefh = np.asarray(fields.rhorefh, dtype=np.float64)
+        self.basestate_version += 1
 
     def tensor(self, a):
         return torch.as_tensor(np.asarray(a), dtype=self.dtype,
@@ -88,6 +103,10 @@ def check_slice(ini, grid, sim_mode):
 
     decay = ini.items.get("decay", {}).get("swdecay", {})
     moist = ini.get_str("thermo", "swthermo", default="0") == "moist"
+    # thermo dry with advec 2 takes the dry path, whose kernel folds no
+    # forcing; every other combination takes the generic path
+    dry_path = (ini.get_str("thermo", "swthermo", default="0") == "dry"
+                and ini.get_str("advec", "swadvec", default="2") == "2")
     forced = (any(switch("force", n) for n in ("swlspres", "swls", "swwls"))
               or ini.get_list(str, "limiter", "limitlist", default=[]))
     outside = [
@@ -97,9 +116,9 @@ def check_slice(ini, grid, sim_mode):
         (switch("micro", "swmicro") and not moist,
          "[micro] swmicro without [thermo] swthermo=moist", 9),
         (switch("radiation", "swradiation"), "[radiation] swradiation", 13),
-        (forced and not moist,
-         "[force] or [limiter] with [thermo] swthermo=dry (the dry step "
-         "without the RK fold)", 9),
+        (forced and dry_path,
+         "[force] or [limiter] with [thermo] swthermo=dry and [advec] "
+         "swadvec=2 (the dry step without the RK fold)", 9),
         (any(v not in ("0", "false") for v in decay.values()),
          "[decay] swdecay", 9),
         (switch("source", "swsource"), "[source] swsource", 9),
@@ -190,6 +209,7 @@ class Model:
         self._last_wallclock = _time.time()
         self._last_sfc = None
         self.fused = None
+        self.advec_fused = None
 
     def at_wall_clock_limit(self):
         return (_time.time() - self._wall_start) > self.wallclocklimit * 3600. - 600.
@@ -218,7 +238,8 @@ class Model:
         self.grid.save(os.path.join(self.workdir, "grid.%07d" % 0))
         self.fields.save(state, 0, self.workdir)
         self.timeloop.save(0, self.workdir)
-        self.thermo.save_basestate(0, self.workdir)
+        if hasattr(self.thermo, "save_basestate"):
+            self.thermo.save_basestate(0, self.workdir)
         return state
 
     # ------------------------------------------------------------------
@@ -226,17 +247,23 @@ class Model:
     # ------------------------------------------------------------------
     def build_step(self):
         """Build the kernel wrappers and the RK carry for this case: the
-        generic path for the moist thermo, else the dry path, whose kernels
-        read clamped k neighbours instead of ghost cells (exact for a
-        free-slip top and a Neumann or flux top for th)."""
+        dry path for thermo dry with advec 2, whose kernels read clamped k
+        neighbours instead of ghost cells (exact for a free-slip top and a
+        Neumann or flux top for th); else the generic path, on which an
+        interpolated scheme runs as a producer (K12/K13) before tendency
+        kernels that leave their advection out
+        (microhh_tpu/model.py:712-737)."""
         ctx = self.ctx
         self.glue = PresGlue(ctx)
         shape = (ctx.kcells, ctx.jtot, ctx.itot)
         self.t = {n: torch.zeros(shape, dtype=self.dtype, device=self.device)
                   for n in self.fields.prognostic_names}
-        self.generic = isinstance(self.thermo, ThermoMoist)
+        interp = isinstance(self.advec, AdvecInterp)
+        self.generic = interp or not isinstance(self.thermo, ThermoDry)
+        self.advec_fused = AdvecInterpFused(self.advec, ctx) if interp else None
         if self.generic:
-            self.fused = FusedGeneric(ctx, self.diff, self.thermo, self.force)
+            self.fused = FusedGeneric(ctx, self.diff, self.thermo, self.force,
+                                      advec=not interp)
             return
         bcs = self.boundary.bcs
         if not all(bcs[n].bctop == NEUMANN and bcs[n].top == 0.
@@ -259,7 +286,11 @@ class Model:
             return [fz.k_evisc, fz.k_tend] + pres + [fz.k_limits]
         micro = ([self.micro.k_micro]
                  if isinstance(self.micro, Microphys2momWarm) else [])
-        return ([fz.k_evisc] + micro + [fz.k_uvw, fz.k_scalars] + pres
+        evisc = [fz.k_evisc_n2] if fz.stratified == 2 else [fz.k_evisc]
+        advec = ([self.advec_fused.k_mom, self.advec_fused.k_scal]
+                 if self.advec_fused else [])
+        scalars = [fz.k_scalar] if len(fz.names) == 1 else [fz.k_scalars]
+        return (evisc + micro + advec + [fz.k_uvw] + scalars + pres
                 + [fz.k_limits])
 
     def substep(self, s, sfc, aux, dt, sub):
@@ -287,12 +318,17 @@ class Model:
         projection."""
         ctx, tl, fz, bnd = self.ctx, self.timeloop, self.fused, self.boundary
         s = bnd.set_ghost_cells(ctx, s, sfc)
-        aux = self.thermo.update_basestate(ctx, s, aux, sfc)
+        if getattr(self.thermo, "swupdatebasestate", False):
+            aux = self.thermo.update_basestate(ctx, s, aux, sfc)
         aux = generic_viscosity(fz, ctx, s, sfc, aux)
-        self.thermo.exec(ctx, s, self.t, aux)
+        # thermo dry returns new tensors, the others add in place
+        self.t.update(self.thermo.exec(ctx, s, self.t, aux))
         _, aux = self.micro.exec(ctx, s, self.t, aux, dt)
         sfc = bnd.exec(ctx, s, sfc, aux)
         s = bnd.set_ghost_cells(ctx, s, sfc, names=bnd.flux_ghost_names())
+        if self.advec_fused is not None:
+            # additive and independent of the carry, so the fold stays exact
+            self.advec_fused.exec(ctx, s, self.t, aux)
         cols = generic_col_tables(fz, ctx, s, self.force, self.buffer)
         subdt = tl.rk_cb[sub] * dt
         can = tl.rk_ca[(sub + 1) % tl.n_substeps]
@@ -321,22 +357,29 @@ class Model:
         model.py:596-630: max commutes with the positive per-level dt
         factors and the MOST bottom-row override applied here; on the
         generic path they equal its cfl_max + evisc + get_dn, :631-657), and
-        the sedimentation rate of the microphysics."""
+        the sedimentation rate of the microphysics.  K7's CFL is the advec_2
+        expression; an interpolated scheme gives its own (cfl_max, in plain
+        torch: 2 passes over u, v and w) and K7 serves the evisc maxima."""
         ctx, fz = self.ctx, self.fused
         if self.generic:
             s = self.boundary.set_ghost_cells(ctx, s, sfc)
-            th = s[fz.n2_scalar]
+            if fz.stratified == 2:
+                th = self.thermo.get_n2(ctx, s).contiguous()
+            else:
+                th = s[fz.n2_scalar] if fz.stratified else s["u"]
         else:
             th = s["th"]
         cflk, evk = fz.limits(s["u"], s["v"], s["w"], th)
         if fz.smag.surface:
-            row = surface_evisc_row(fz.smag, ctx, s, sfc, True)
+            row = surface_evisc_row(fz.smag, ctx, s, sfc, bool(fz.stratified))
             evk = torch.cat([torch.max(row)[None], evk[1:]])
         tprfac_i = 1. / min(1., self.diff.tPr)
         dzi2 = ctx.dzi[ctx.ks:ctx.ke] ** 2
         dn = torch.max(torch.abs(evk * tprfac_i
                                  * (ctx.dxi ** 2 + ctx.dyi ** 2 + dzi2)))
-        out = {"cfl_rate": torch.max(cflk), "dn_rate": dn}
+        cfl = (self.advec.cfl_max(ctx, s) if self.advec_fused
+               else torch.max(cflk))
+        out = {"cfl_rate": cfl, "dn_rate": dn}
         mrate = self.micro.get_time_limit_rate(ctx, s)
         if mrate is not None:
             out["micro_rate"] = mrate

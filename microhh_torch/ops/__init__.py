@@ -1,10 +1,12 @@
 """Physics-operator factories (``microhh_tpu/ops/__init__.py``).
 
-The port carries the drycblles and the moist (bomex/rico) slices:
-``advec 2``, ``diff smag2``, ``thermo dry`` and ``moist``, the MOST surface
-and ``pres 2``, with ``2mom_warm`` microphysics, ``force`` and ``limiter``
-(ops/microphys.py, ops/force.py, ops/limiter.py).  Every other scheme raises
-NotImplementedError naming the ROADMAP item that ports it.
+The port carries the drycblles, the moist (bomex/rico) and the buoyancy
+(SBL_Smag) slices: ``advec 2`` and the interpolated ``2i4``, ``2i5``,
+``2i53``, ``2i62``, ``diff smag2``, ``thermo dry``, ``moist`` and ``buoy``,
+the MOST surface and ``pres 2``, with ``2mom_warm`` microphysics, ``force``
+and ``limiter`` (ops/microphys.py, ops/force.py, ops/limiter.py).  Every
+other scheme raises NotImplementedError naming the ROADMAP item that ports
+it.
 """
 
 
@@ -13,11 +15,10 @@ def not_ported(what, item):
                                "(ROADMAP Queue 1 item %s)" % (what, item))
 
 
-_ROADMAP_ADVEC = {"2i4": 10, "2i5": 10, "2i62": 10, "2i53": 10, "4": 11,
-                  "4m": 11, "0": 12}
+_ROADMAP_ADVEC = {"4": 11, "4m": 11, "0": 12}
 _ROADMAP_DIFF = {"2": 12, "4": 11, "dnn_local": 12, "dnn_global": 12,
                  "dnn_stats": 12, "0": 12}
-_ROADMAP_THERMO = {"0": 9, "buoy": 9, "vapor": 9}
+_ROADMAP_THERMO = {"0": 9, "vapor": 9}
 _ROADMAP_BOUNDARY = {"default": 14, "surface_bulk": 14, "surface_lsm": 14}
 
 
@@ -26,6 +27,9 @@ def make_advec(ini, grid, fields):
     if sw == "2":
         from .advec_2 import Advec2
         return Advec2(ini, grid)
+    from .advec_interp import CLASSES
+    if sw in CLASSES:
+        return CLASSES[sw](ini, grid)
     if sw in _ROADMAP_ADVEC:
         raise not_ported("[advec] swadvec=%s" % sw, _ROADMAP_ADVEC[sw])
     raise ValueError("%s is an illegal value for swadvec" % sw)
@@ -59,6 +63,9 @@ def make_thermo(ini, grid, fields):
     if sw == "moist":
         from .thermo_moist import ThermoMoist
         return ThermoMoist(ini, grid, fields)
+    if sw == "buoy":
+        from .thermo_buoy import ThermoBuoy
+        return ThermoBuoy(ini, grid, fields)
     if sw in _ROADMAP_THERMO:
         raise not_ported("[thermo] swthermo=%s" % sw, _ROADMAP_THERMO[sw])
     raise ValueError("%s is an illegal value for swthermo" % sw)

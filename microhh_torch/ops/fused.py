@@ -22,7 +22,14 @@ no fallback from the card to the plain version.
                             (``csrc/tend_generic.cu``);
 * K10 ``FusedGeneric.tend_scalars`` - every scalar's advec_2 + smag2 +
                             column fold + RK fold in one pass
-                            (``csrc/tend_generic.cu``).
+                            (``csrc/tend_generic.cu``);
+* K14 ``FusedGeneric.evisc_n2`` - K1's eddy viscosity with N2 read from a
+                            field the thermo computed (``csrc/evisc.cu``);
+* K15 ``FusedGeneric.tend_scalar_rk`` - K10's sweep for a case with one
+                            scalar (``csrc/tend_generic.cu``).
+
+K8-K10 and K15 leave the advec_2 terms out when an interpolated scheme
+(K12/K13, ops/advec_interp_fused.py) has added the advection into the carry.
 
 On the dry path the kernels read the raw fields with CLAMPED k neighbours
 (the JAX package's ``fold_ghosts`` variant: no ghost fill inside the
@@ -76,9 +83,10 @@ def _columns(tab):
 # ==========================================================================
 
 def evisc_plain(u, v, w, th, ce, ks, dxi, dyi, tPr, stratified,
-                ghosts=False):
+                ghosts=False, n2=None):
     """K1 in plain torch: eddy viscosity on the interior (ktot, jtot, itot).
-    ghosts: read the ghost planes of filled fields instead of clamping."""
+    ghosts: read the ghost planes of filled fields instead of clamping.
+    n2: an interior N2 field that replaces the one from th (K14)."""
     kt = ce.shape[0]
     ke = ks + kt
     lo, hic = (ks - 1, ke) if ghosts else (ks, ke - 1)
@@ -102,19 +110,21 @@ def evisc_plain(u, v, w, th, ce, ks, dxi, dyi, tPr, stratified,
     strain2 = 2. * (dudx ** 2 + dvdy ** 2 + dwdz ** 2 + horiz + vert_x + vert_y) + cst.dsmall
     if not stratified:
         return c(E_MLEN2) * torch.sqrt(strain2)
-    th_dn, th_up = (_planes(th, ks, kt, o, lo, hic) for o in (-1, 1))
-    n2 = cst.grav / c(E_THREF) * 0.5 * (th_up + c(E_TOPS) - th_dn) * dzi
+    if n2 is None:
+        th_dn, th_up = (_planes(th, ks, kt, o, lo, hic) for o in (-1, 1))
+        n2 = cst.grav / c(E_THREF) * 0.5 * (th_up + c(E_TOPS) - th_dn) * dzi
     return c(E_MLEN2) * torch.sqrt(torch.maximum(
         n2 * (-1. / tPr) + strain2, strain2 * cst.dsmall))
 
 
 def limits_plain(u, v, w, th, ce, ks, dxi, dyi, tPr, stratified,
-                 ghosts=False):
+                 ghosts=False, n2=None):
     """K7 in plain torch: per-level maxima (ktot,) of the CFL rate and of
     the eddy viscosity of evisc_plain."""
     kt = ce.shape[0]
     ke = ks + kt
-    ev = evisc_plain(u, v, w, th, ce, ks, dxi, dyi, tPr, stratified, ghosts)
+    ev = evisc_plain(u, v, w, th, ce, ks, dxi, dyi, tPr, stratified, ghosts,
+                     n2)
     uc, vc = u[ks:ke], v[ks:ke]
     wc, w1 = (_planes(w, ks, kt, o, ks, ke) for o in (0, 1))
     cfl = (torch.abs(i2(uc, ip(uc))) * dxi + torch.abs(i2(vc, jp(vc))) * dyi
@@ -123,12 +133,14 @@ def limits_plain(u, v, w, th, ce, ks, dxi, dyi, tPr, stratified,
 
 
 def _uv_tend(c, dxi, dyi, visc, u_dn, u, u_up, v_dn, v, v_up, w, w_up,
-             e_dn, e, e_up):
+             e_dn, e, e_up, advec=True):
+    """advec False: an interpolated scheme has added the advection into the
+    carry already; diffusion only."""
     dzi, dzhi, dzhi1 = c(T_DZI), c(T_DZHI), c(T_DZHI1)
     rhoh, rhoh1 = c(T_RHOH), c(T_RHOH1)
     rdzi = dzi / c(T_RHO)
 
-    adv_u = -((i2(u, ip(u)) ** 2 - i2(im(u), u) ** 2) * dxi
+    adv_u = 0. if not advec else -((i2(u, ip(u)) ** 2 - i2(im(u), u) ** 2) * dxi
               + (i2(im(jp(v)), jp(v)) * i2(u, jp(u))
                  - i2(im(v), v) * i2(jm(u), u)) * dyi
               + (rhoh1 * i2(im(w_up), w_up) * i2(u, u_up)
@@ -145,7 +157,7 @@ def _uv_tend(c, dxi, dyi, visc, u_dn, u, u_up, v_dn, v, v_up, w, w_up,
              + (rhoh1 * ev_t * ((u_up - u) * dzhi1 + (w_up - im(w_up)) * dxi)
                 - rhoh * ev_b * ((u - u_dn) * dzhi + (w - im(w)) * dxi)) * rdzi)
 
-    adv_v = -((i2(jm(ip(u)), ip(u)) * i2(v, ip(v))
+    adv_v = 0. if not advec else -((i2(jm(ip(u)), ip(u)) * i2(v, ip(v))
                - i2(jm(u), u) * i2(im(v), v)) * dxi
               + (i2(v, jp(v)) ** 2 - i2(jm(v), v) ** 2) * dyi
               + (rhoh1 * i2(jm(w_up), w_up) * i2(v, v_up)
@@ -164,13 +176,14 @@ def _uv_tend(c, dxi, dyi, visc, u_dn, u, u_up, v_dn, v, v_up, w, w_up,
     return adv_u + dif_u, adv_v + dif_v
 
 
-def _w_tend(c, dxi, dyi, visc, u_dn, u, v_dn, v, w_dn, w, w_up, e_dn, e):
+def _w_tend(c, dxi, dyi, visc, u_dn, u, v_dn, v, w_dn, w, w_up, e_dn, e,
+            advec=True):
     """advec_2 + smag2 of w at the half levels (without buoyancy)."""
     dzi, dzhi = c(T_DZI), c(T_DZHI)
     rho, rhoh, rho_m1 = c(T_RHO), c(T_RHOH), c(T_RHO_M1)
     rdzhi = dzhi / rhoh
 
-    adv_w = -((i2(ip(u_dn), ip(u)) * i2(w, ip(w))
+    adv_w = 0. if not advec else -((i2(ip(u_dn), ip(u)) * i2(w, ip(w))
                - i2(u_dn, u) * i2(im(w), w)) * dxi
               + (i2(jp(v_dn), jp(v)) * i2(w, jp(w))
                  - i2(v_dn, v) * i2(jm(w), w)) * dyi
@@ -187,14 +200,14 @@ def _w_tend(c, dxi, dyi, visc, u_dn, u, v_dn, v, w_dn, w, w_up, e_dn, e):
 
 
 def _s_tend(c, dxi, dyi, svisc, tPr, u, v, w, w_up, a_dn, a, a_up,
-            e_dn, e, e_up):
+            e_dn, e, e_up, advec=True):
     """advec_2 + smag2 (diff_c) of one scalar at the full levels."""
     dzi, dzhi, dzhi1 = c(T_DZI), c(T_DZHI), c(T_DZHI1)
     rhoh, rhoh1 = c(T_RHOH), c(T_RHOH1)
     rdzi = dzi / c(T_RHO)
     tPri = 1. / tPr
 
-    adv_s = -((ip(u) * i2(a, ip(a)) - u * i2(im(a), a)) * dxi
+    adv_s = 0. if not advec else -((ip(u) * i2(a, ip(a)) - u * i2(im(a), a)) * dxi
               + (jp(v) * i2(a, jp(a)) - v * i2(jm(a), a)) * dyi
               + (rhoh1 * w_up * i2(a, a_up) - rhoh * w * i2(a_dn, a)) * rdzi)
     se = 0.5 * (e + ip(e)) * tPri + svisc
@@ -290,12 +303,12 @@ def _fresh(s, ks, ke, values):
 
 
 def tend_uvw_plain(s, e, t, ct, ks, dxi, dyi, visc, fc, utrans, vtrans,
-                   cbdt, can, coriolis, carry):
+                   cbdt, can, coriolis, carry, advec=True):
     """K8/K9 in plain torch.  s, t: dicts of ghost-filled (kcells, jtot,
     itot) u, v, w; e: the eddy viscosity with edge ghost planes (kcells);
     ct: this substep's (ktot, NTG) table.  Returns s* for u, v, w (zero
     ghost planes); the carry t always enters and is overwritten in place
-    when carry."""
+    when carry.  advec False leaves the advec_2 terms out."""
     kt = ct.shape[0]
     ke = ks + kt
     c = _columns(ct)
@@ -305,7 +318,7 @@ def tend_uvw_plain(s, e, t, ct, ks, dxi, dyi, visc, fc, utrans, vtrans,
     e_dn, ec, e_up = _ghost_planes(e, ks, ke)
 
     ut, vt = _uv_tend(c, dxi, dyi, visc, u_dn, uc, u_up, v_dn, vc, v_up,
-                      wc, w_up, e_dn, ec, e_up)
+                      wc, w_up, e_dn, ec, e_up, advec)
     # the column fold and the geostrophic Coriolis term
     # (pallas_fused.py _extra_uv with fold_add)
     facz = c(T_FACZ)
@@ -320,7 +333,7 @@ def tend_uvw_plain(s, e, t, ct, ks, dxi, dyi, visc, fc, utrans, vtrans,
         ut = ut + fc * (v_at_u + vtrans - c(T_VG))
         vt = vt - fc * (u_at_v + utrans - c(T_UG))
     wt = (_w_tend(c, dxi, dyi, visc, u_dn, uc, v_dn, vc, w_dn, wc, w_up,
-                  e_dn, ec) - c(T_FACZH) * wc)
+                  e_dn, ec, advec) - c(T_FACZH) * wc)
     wt[0] = 0.          # half level ks is the wall
 
     s_star = {}
@@ -333,10 +346,11 @@ def tend_uvw_plain(s, e, t, ct, ks, dxi, dyi, visc, fc, utrans, vtrans,
 
 
 def tend_scalars_plain(s, names, e, t, cts, sviscs, ks, dxi, dyi, tPr,
-                       cbdt, can, carry):
-    """K10 in plain torch: the scalars ``names`` with their tables cts
-    (S, ktot, NTG) and viscosities; returns their s*, updates the carry in
-    place when carry."""
+                       cbdt, can, carry, advec=True, fold=True):
+    """K10 (and, for one scalar, K15) in plain torch: the scalars ``names``
+    with their tables cts (S, ktot, NTG) and viscosities; returns their s*,
+    updates the carry in place when carry.  advec False leaves the advec_2
+    terms out, fold False the column terms of the tables."""
     kt = cts.shape[1]
     ke = ks + kt
     uc, vc, wc = s["u"][ks:ke], s["v"][ks:ke], s["w"][ks:ke]
@@ -347,13 +361,22 @@ def tend_scalars_plain(s, names, e, t, cts, sviscs, ks, dxi, dyi, tPr,
         c = _columns(ct)
         a_dn, ac, a_up = _ghost_planes(s[n], ks, ke)
         tt = t[n][ks:ke] + _s_tend(c, dxi, dyi, svisc, tPr, uc, vc, wc, w_up,
-                                   a_dn, ac, a_up, e_dn, ec, e_up)
-        tt = tt + (c(T_ADDS) - c(T_FACZ) * ac + c(T_WLSDN) * (ac - a_dn)
-                   + c(T_WLSUP) * (a_up - ac))
+                                   a_dn, ac, a_up, e_dn, ec, e_up, advec)
+        if fold:
+            tt = tt + (c(T_ADDS) - c(T_FACZ) * ac + c(T_WLSDN) * (ac - a_dn)
+                       + c(T_WLSUP) * (a_up - ac))
         s_star[n] = _fresh(s[n], ks, ke, ac + cbdt * tt)
         if carry:
             t[n][ks:ke] = can * tt
     return s_star
+
+
+def tend_scalar_rk_plain(s, name, e, t, ct, svisc, ks, dxi, dyi, tPr, cbdt,
+                         can, carry, fold=True, advec=True):
+    """K15 in plain torch: one scalar's sweep with its (ktot, NTG) table;
+    returns its s*, updates its carry in place when carry."""
+    return tend_scalars_plain(s, (name,), e, t, ct[None], (svisc,), ks, dxi,
+                              dyi, tPr, cbdt, can, carry, advec, fold)[name]
 
 
 def _empty_ghosts_zero(like, ctx):
@@ -376,6 +399,9 @@ class Fused:
     or -flux/visc) that K1's clamped top plane needs."""
 
     ghosts = False    # K1/K7 read ghost planes (generic path) or clamp
+    # K1/K7's stability term: 0 none, 1 N2 from the th argument's gradient,
+    # 2 the th argument is an interior N2 field (K14's mode)
+    stratified = 1
 
     def __init__(self, ctx, smag, thermo, buffer, top_grad_th):
         self.ctx = ctx
@@ -422,8 +448,10 @@ class Fused:
         given (a contiguous interior view)."""
         ctx = self.ctx
         args = (ctx.ks, ctx.dxi, ctx.dyi, self.tPr)
+        stratified = min(self.stratified, 1)
         if on_cpu(u):
-            ev = evisc_plain(u, v, w, th, self.ce, *args, True, self.ghosts)
+            ev = evisc_plain(u, v, w, th, self.ce, *args, bool(stratified),
+                             self.ghosts)
             return ev if out is None else out.copy_(ev)
         shape = (ctx.kcells, ctx.jtot, ctx.itot)
         interior = (ctx.ktot, ctx.jtot, ctx.itot)
@@ -432,24 +460,31 @@ class Fused:
         check((u, v, w, th, self.ce, out), u.dtype, u.device,
               [shape] * 4 + [(ctx.ktot, NE), interior])
         self.k_evisc(u.dtype, u, v, w, th, out, self.ce, ctx.itot, ctx.jtot,
-                     ctx.ktot, *args, 1, int(self.ghosts))
+                     ctx.ktot, *args, stratified, int(self.ghosts))
         return out
 
     def limits(self, u, v, w, th):
         """K7: per-level maxima (ktot,) of the CFL rate and the eddy
-        viscosity (before the MOST row patch)."""
+        viscosity (before the MOST row patch).  th is the scalar whose
+        gradient gives N2 or, when ``stratified`` is 2, the interior N2
+        field itself (K14's mode; K7 takes it as a mode of its one kernel)."""
         ctx = self.ctx
         args = (ctx.ks, ctx.dxi, ctx.dyi, self.tPr)
+        external = self.stratified == 2
         if on_cpu(u):
-            return limits_plain(u, v, w, th, self.ce, *args, True, self.ghosts)
+            return limits_plain(u, v, w, th, self.ce, *args,
+                                bool(self.stratified), self.ghosts,
+                                th if external else None)
         shape = (ctx.kcells, ctx.jtot, ctx.itot)
+        th_shape = (ctx.ktot, ctx.jtot, ctx.itot) if external else shape
         check((u, v, w, th, self.ce), u.dtype, u.device,
-              [shape] * 4 + [(ctx.ktot, NE)])
+              [shape] * 3 + [th_shape, (ctx.ktot, NE)])
         tiles = (-(-ctx.itot // TILE_I)) * (-(-ctx.jtot // TILE_J))
         part = torch.empty((2, ctx.ktot, tiles), dtype=u.dtype, device=u.device)
         out = torch.empty((2, ctx.ktot), dtype=u.dtype, device=u.device)
         self.k_limits(u.dtype, u, v, w, th, part, out, self.ce, ctx.itot,
-                      ctx.jtot, ctx.ktot, *args, 1, int(self.ghosts))
+                      ctx.jtot, ctx.ktot, *args, self.stratified,
+                      int(self.ghosts))
         return out[0], out[1]
 
     def tend_rk(self, s, t, e, cbdt, can, first, carry):
@@ -475,17 +510,29 @@ class Fused:
 
 class FusedGeneric(Fused):
     """The generic path's kernels for one grid, base state and scalar list:
-    K1 and K7 on ghost-filled fields with the moist N2 of thl against
-    thvref (microhh_tpu/model.py:964-970), K8/K9 and K10 with the
-    per-substep tables of generic_col_tables."""
+    K1 and K7 on ghost-filled fields, K8/K9 and K10 (K15 for a single
+    scalar) with the per-substep tables of generic_col_tables.
+
+    The stability term of the eddy viscosity takes one of three forms
+    (fused_generic_viscosity): the moist N2 of thl against thvref inside K1
+    (microhh_tpu/model.py:964-970; ``n2_scalar``), the thermo's own
+    ``get_n2`` field through K14 (buoy's background N2, dry), or none when
+    the thermo carries no scalar.  ``advec`` False leaves the advec_2 terms
+    out of K8-K10/K15: an interpolated scheme then adds the advection into
+    the carry before them."""
 
     ghosts = True
-    n2_scalar = "thl"
 
-    def __init__(self, ctx, smag, thermo, force):
+    def __init__(self, ctx, smag, thermo, force, advec=True):
         from .force import Force
+        from .thermo_moist import ThermoMoist
         self.ctx = ctx
         self.smag = smag
+        self.thermo = thermo
+        self.advec = bool(advec)
+        moist = isinstance(thermo, ThermoMoist)
+        self.n2_scalar = "thl" if moist else None
+        self.stratified = 1 if moist else (2 if thermo.scalars else 0)
         self.tPr = smag.tPr
         self.visc = smag.visc
         self.names = tuple(ctx.scalar_names)
@@ -499,7 +546,7 @@ class FusedGeneric(Fused):
         ce[:, E_DZHI] = ctx.np_dzhi[ka]
         ce[:, E_DZHI1] = ctx.np_dzhi[ka + 1]
         ce[:, E_MLEN2] = smag.mlen2
-        ce[:, E_THREF] = thermo.thvref[ka]
+        ce[:, E_THREF] = thermo.thvref[ka] if moist else 1.
         ct = np.zeros((kt, NTG))
         ct[:, T_DZI] = ctx.np_dzi[ka]
         ct[:, T_DZHI] = ctx.np_dzhi[ka]
@@ -521,6 +568,29 @@ class FusedGeneric(Fused):
         self.k_scalars = Kernel("tend_scalars",
                                 "microhh_torch/csrc/tend_generic.cu",
                                 "microhh_tpu/ops/pallas_fused.py:1733")
+        self.k_evisc_n2 = Kernel("evisc_n2", "microhh_torch/csrc/evisc.cu",
+                                 "microhh_tpu/ops/pallas_fused.py:1496")
+        self.k_scalar = Kernel("tend_scalar_rk",
+                               "microhh_torch/csrc/tend_generic.cu",
+                               "microhh_tpu/ops/pallas_fused.py:1694")
+
+    def evisc_n2(self, u, v, w, n2, out=None):
+        """K14: interior eddy viscosity from ghost-filled u, v, w and an
+        interior N2 field (ktot, jtot, itot), into ``out`` when given."""
+        ctx = self.ctx
+        args = (ctx.ks, ctx.dxi, ctx.dyi, self.tPr)
+        if on_cpu(u):
+            ev = evisc_plain(u, v, w, None, self.ce, *args, True, True, n2)
+            return ev if out is None else out.copy_(ev)
+        shape = (ctx.kcells, ctx.jtot, ctx.itot)
+        interior = (ctx.ktot, ctx.jtot, ctx.itot)
+        if out is None:
+            out = torch.empty(interior, dtype=u.dtype, device=u.device)
+        check((u, v, w, n2, self.ce, out), u.dtype, u.device,
+              [shape] * 3 + [interior, (ctx.ktot, NE), interior])
+        self.k_evisc_n2(u.dtype, u, v, w, n2, out, self.ce, ctx.itot,
+                        ctx.jtot, ctx.ktot, *args)
+        return out
 
     def tend_uvw(self, s, t, e, ct, cbdt, can, carry):
         """K8/K9: s* of u, v, w (zero ghost planes); the carry t["u"],
@@ -529,7 +599,7 @@ class FusedGeneric(Fused):
         args = (ctx.ks, ctx.dxi, ctx.dyi, self.visc, self.fc, ctx.utrans,
                 ctx.vtrans, cbdt, can, self.coriolis, carry)
         if on_cpu(e):
-            return tend_uvw_plain(s, e, t, ct, *args)
+            return tend_uvw_plain(s, e, t, ct, *args, self.advec)
         shape = (ctx.kcells, ctx.jtot, ctx.itot)
         fields = [s[n] for n in ("u", "v", "w")]
         carry_t = [t[n] for n in ("u", "v", "w")]
@@ -538,7 +608,7 @@ class FusedGeneric(Fused):
         s_star = {n: _empty_ghosts_zero(s[n], ctx) for n in ("u", "v", "w")}
         self.k_uvw(e.dtype, *fields, e, *s_star.values(), *carry_t, ct,
                    ctx.itot, ctx.jtot, ctx.ktot, *args[:-2],
-                   int(self.coriolis), int(carry))
+                   int(self.coriolis), int(carry), int(self.advec))
         return s_star
 
     def tend_scalars(self, s, t, e, cts, cbdt, can, carry):
@@ -547,7 +617,8 @@ class FusedGeneric(Fused):
         names = self.names
         args = (ctx.ks, ctx.dxi, ctx.dyi, self.tPr, cbdt, can, carry)
         if on_cpu(e):
-            return tend_scalars_plain(s, names, e, t, cts, self.sviscs, *args)
+            return tend_scalars_plain(s, names, e, t, cts, self.sviscs, *args,
+                                      self.advec)
         S = len(names)
         if not 1 <= S <= MAX_SCALARS:
             raise ValueError("K10 takes 1 to %d scalars, not %d (csrc/"
@@ -565,8 +636,31 @@ class FusedGeneric(Fused):
                        ptrs([s_star[n] for n in names]),
                        ptrs([t[n] for n in names]),
                        (ctypes.c_double * S)(*self.sviscs), S, cts, ctx.itot,
-                       ctx.jtot, ctx.ktot, *args[:-1], int(carry))
+                       ctx.jtot, ctx.ktot, *args[:-1], int(carry),
+                       int(self.advec))
         return s_star
+
+    def tend_scalar_rk(self, s, t, e, ct, cbdt, can, carry, fold=True):
+        """K15: s* of the case's single scalar with its (ktot, NTG) table;
+        the carry as in tend_uvw.  fold False leaves the table's column
+        terms out."""
+        ctx = self.ctx
+        (name,), (svisc,) = self.names, self.sviscs
+        args = (ctx.ks, ctx.dxi, ctx.dyi, self.tPr, cbdt, can, carry, fold,
+                self.advec)
+        if on_cpu(e):
+            return {name: tend_scalar_rk_plain(s, name, e, t, ct, svisc,
+                                               *args)}
+        shape = (ctx.kcells, ctx.jtot, ctx.itot)
+        fields = [s[n] for n in ("u", "v", "w")] + [e, s[name], t[name]]
+        check(fields + [ct], e.dtype, e.device,
+              [shape] * 6 + [(ctx.ktot, NTG)])
+        a_star = _empty_ghosts_zero(s[name], ctx)
+        self.k_scalar(e.dtype, *fields[:5], a_star, t[name], ct, ctx.itot,
+                      ctx.jtot, ctx.ktot, ctx.ks, ctx.dxi, ctx.dyi, svisc,
+                      self.tPr, cbdt, can, int(carry), int(fold),
+                      int(self.advec))
+        return {name: a_star}
 
 
 class PresGlue:
@@ -758,14 +852,22 @@ def pressure_rk(glue, ctx, pres, s_star, t, aux, subdt, can):
 # ==========================================================================
 
 def generic_viscosity(fz, ctx, s, sfc, aux):
-    """K1 on the ghost-filled fields, with the moist N2 of thl against
-    thvref, and the MOST bottom row -> aux['evisc'] (kcells, its ghost
-    planes repeating the edge levels), as fused_generic_viscosity."""
+    """The eddy viscosity on the ghost-filled fields and the MOST bottom
+    row -> aux['evisc'] (kcells, its ghost planes repeating the edge
+    levels), as fused_generic_viscosity: K1 with the moist N2 of thl
+    against thvref, or K14 with the thermo's get_n2 field, or K1
+    unstratified when the thermo carries no scalar."""
     ks, ke = ctx.ks, ctx.ke
-    evisc = torch.empty_like(s["u"])
-    ev = fz.evisc(s["u"], s["v"], s["w"], s[fz.n2_scalar], out=evisc[ks:ke])
+    u, v, w = s["u"], s["v"], s["w"]
+    evisc = torch.empty_like(u)
+    if fz.stratified == 2:
+        ev = fz.evisc_n2(u, v, w, fz.thermo.get_n2(ctx, s).contiguous(),
+                         out=evisc[ks:ke])
+    else:
+        th = s[fz.n2_scalar] if fz.stratified else u
+        ev = fz.evisc(u, v, w, th, out=evisc[ks:ke])
     if fz.smag.surface:
-        ev[0] = surface_evisc_row(fz.smag, ctx, s, sfc, True)
+        ev[0] = surface_evisc_row(fz.smag, ctx, s, sfc, bool(fz.stratified))
     evisc[ks - 1] = ev[0]
     evisc[ke] = ev[-1]
     aux = dict(aux)
@@ -919,14 +1021,21 @@ def generic_col_tables(fz, ctx, s, force, buffer):
 
 
 def generic_tendencies_rk(fz, ctx, s, t, aux, sfc, cbdt, can, cols):
-    """K8/K9 and K10 with the RK update folded in, then the MOST wall rows
-    patched into s* and the carry (fused_generic_tendencies_rk).  Every
-    additive producer (thermo, microphysics) has already added into the
-    carry t; returns s* and updates t in place."""
+    """K8/K9 and K10 (K15 when the case has one scalar, as
+    pallas_fused.py:3075-3092) with the RK update folded in, then the MOST
+    wall rows patched into s* and the carry (fused_generic_tendencies_rk).
+    Every additive producer (thermo, microphysics, an interpolated
+    advection scheme) has already added into the carry t; returns s* and
+    updates t in place."""
     carry = can != 0.
     ct, cts = cols
     s_star = fz.tend_uvw(s, t, aux["evisc"], ct, cbdt, can, carry)
-    s_star.update(fz.tend_scalars(s, t, aux["evisc"], cts, cbdt, can, carry))
+    if len(fz.names) == 1:
+        s_star.update(fz.tend_scalar_rk(s, t, aux["evisc"], cts[0], cbdt, can,
+                                        carry))
+    elif fz.names:
+        s_star.update(fz.tend_scalars(s, t, aux["evisc"], cts, cbdt, can,
+                                      carry))
     if fz.smag.surface:
         for name, rows in generic_wall_deltas(fz, ctx, s, aux, sfc).items():
             for ka, delta in rows:

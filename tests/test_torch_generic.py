@@ -12,8 +12,8 @@ package's generic fused path, in float64 on the CPU:
 * two RK3 steps of a 16^2x24 rico case (swadvec 2) vs the JAX generic
   fused path with force_fused=True, limits and diagnostics included, and
   one bomex step (<= 1e-10);
-* the verbatim rico ini (swadvec 2i5) and the options outside the slice
-  raise NotImplementedError naming their ROADMAP item; the kernels' C
+* the verbatim rico ini (swadvec 2i5) builds, and the options outside the
+  slice raise NotImplementedError naming their ROADMAP item; the kernels' C
   signatures match their ctypes declarations; the CLI runs rico."""
 
 import os
@@ -321,9 +321,19 @@ def test_bomex_step_matches_jax(tmp_path, monkeypatch):
 
 
 def test_rico_verbatim_ini_raises_item_10():
+    """The rico ini as written (swadvec=2i5, ROADMAP Queue 1 item 10) builds
+    with the interpolated scheme as a producer before tendency kernels
+    without advection; a 4th-order scheme in its place still raises."""
     text = open(os.path.join(ROOT, "cases", "rico", "rico.ini")).read()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        Model(Ini(text), "run", "rico", dtype=torch.float64, device="cpu",
+    m = Model(Ini(text), "run", "rico", dtype=torch.float64, device="cpu",
+              input_nc=rico_input(100, ZSIZE))
+    m.finish_setup()
+    m.build_step()
+    assert m.advec.scheme == "2i5" and not m.fused.advec
+    assert [k.name for k in m.kernels()][2:4] == ["advec_mom", "advec_scalars"]
+    with pytest.raises(NotImplementedError, match="item 11"):
+        Model(Ini(text.replace("swadvec=2i5", "swadvec=4")), "run", "rico",
+              dtype=torch.float64, device="cpu",
               input_nc=rico_input(100, ZSIZE))
 
 

@@ -53,6 +53,26 @@ def test_ini_matches():
     assert a.unused_items() == b.unused_items()
 
 
+def test_fd_matches():
+    """The finite-difference coefficients and interpolators the advection
+    schemes read: every public name of the JAX package's fd module has an
+    equal counterpart in the port's."""
+    import inspect
+    import microhh_tpu.fd as jfd
+    import microhh_torch.fd as tfd
+    rng = np.random.RandomState(0)
+    names = [n for n in dir(jfd) if not n.startswith("_")]
+    assert {"interp4_ws", "interp3_ws", "interp4c", "interp6_ws",
+            "interp5_ws", "ci0"} <= set(names)
+    for name in names:
+        a, b = getattr(jfd, name), getattr(tfd, name)
+        if callable(a):
+            args = rng.randn(len(inspect.signature(a).parameters), 7)
+            assert np.array_equal(a(*args), b(*args)), name
+        elif isinstance(a, float):
+            assert a == b, name
+
+
 def test_grid_matches():
     a, b = _grid(jconfig, jgrid), _grid(tconfig, tgrid)
     for name in ("x", "xh", "y", "yh", "z", "zh", "dz", "dzh", "dzi", "dzhi"):

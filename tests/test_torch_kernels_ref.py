@@ -289,5 +289,7 @@ def test_wrapper_contract():
     assert set(kernels.SIGNATURES) == {"evisc", "tend_rk", "tdma",
                                        "pres_rhs", "pres_apply", "dft_fwd",
                                        "dft_inv", "limits", "tend_uvw",
-                                       "tend_scalars", "micro2"}
+                                       "tend_scalars", "micro2",
+                                       "advec_mom", "advec_scalars",
+                                       "evisc_n2", "tend_scalar_rk"}
     assert kernels.library_path().startswith(kernels.BUILD_DIR)

@@ -375,7 +375,7 @@ def test_buffer(models):
 
 
 @pytest.mark.parametrize("change", [
-    ("swadvec=2", "swadvec=2i5"),
+    ("swadvec=2", "swadvec=4"),
     ("swdiff=smag2", "swdiff=2"),
     ("swthermo=dry", "swthermo=vapor"),
     ("swboundary=surface", "swboundary=default"),
