@@ -19,11 +19,16 @@ Phases (any failure exits non-zero and prints no result line):
      K12 and K13 and the no-advection modes of K8/K9 and K10 on the rico
      case with each of swadvec=2i4, 2i5, 2i53, 2i62 at 45^2x24; K14, K15
      (advection on and off, carry and column fold on and off) and K7 in
-     its external-N2 mode on the SBL_Smag case at 45^2x24 and 48^2x32;
+     its external-N2 mode on the SBL_Smag case at 45^2x24 and 48^2x32; K16
+     and K17 on random fields with random ghost levels, in the 4m scheme on
+     the moser180 case at 45x40 and in the 4 scheme on the weakscaling case
+     at 48x20, both on their stretched levels, at ktot 16 and 6 (the short
+     column makes every ladder row a wall row);
   4. two whole RK3 steps on the card against the same two steps on the CPU
      (plain versions), <= 1e-10: a 32^3 drycblles, a 16^2x24 rico
-     (swadvec=2), a 16^2x24 rico as its ini is written (swadvec=2i5) and a
-     16^2x24 SBL_Smag case, float64;
+     (swadvec=2), a 16^2x24 rico as its ini is written (swadvec=2i5), a
+     16^2x24 SBL_Smag, a 16^3 moser180 and a 16x8x32 weakscaling case,
+     float64;
   5. the drycblles LES at 512^3 float32 through Model.run(max_iters=12): its
      kernels launched, finite fields, status DIV <= 1e-4; then the step time
      (median of 10 steps after 2 warm-up steps) and the peak memory;
@@ -39,10 +44,22 @@ Phases (any failure exits non-zero and prints no result line):
   9. and 10. the same two phases for rico as its ini is written
      (swadvec=2i5) at 384^3 float32: K12, K13 and K8-K10 without advection;
  11. and 12. the same for SBL_Smag (cases/SBL_Smag/SBL.ini, thermo buoy) at
-     256^3 float32 with dt scaled with the grid: K14 and K15.
+     256^3 float32 with dt scaled with the grid: K14 and K15;
+ 13. and 14. the same for the weak-scaling unit (cases/weakscaling/
+     weakscaling.ini, advec 4, thermo buoy) assembled for npx = npy = 8 as
+     python/scaling.py does, 512x256x1024 float32: K16 and K17; its DIV is
+     held to 16 times the floor that one rounding of the hydrostatic
+     pressure to float32 leaves on this grid (eps |p| dzhi4 dzi4 dt, about
+     3e-3: the 1024 stretched levels reach dz = 5e-4) instead of to 1e-4;
+     and the
+     pres_4 solve timed by its parts (rfft2, the two k-axis matrix products,
+     irfft2: library calls, as in the JAX package);
+ 15. and 16. the same for moser180 as its ini is written (advec 4m, uflux,
+     the scalar s) with stats and budget off, 256x192x128 float64, DIV <=
+     1e-10: K16 and K17 in their 4m scheme and float64 build.
 Beside each kernel's time stands its bound: the bytes its inputs and outputs
 hold, each once, over 3.35 TB/s, or its operations over 67 TFLOP/s (float32
-outside the tensor cores) where that is larger; and, where one PyTorch call
+outside the tensor cores; half that for float64) where that is larger; and, where one PyTorch call
 computes the same function (the two DFTs), that call's time.
 With --profile FILE, a last phase traces two steps of each LES with
 torch.profiler and prints the device time per kernel, the step's device
@@ -164,17 +181,21 @@ def initial_state(m, seed=None):
 RICO_ZSIZE = 4000.
 
 
+def case_ini(case, name=None, **over):
+    """cases/<case>/<name or case>.ini with the given options replaced."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cases",
+                        case, "%s.ini" % (name or case))
+    with open(path) as f:
+        text = f.read()
+    for key, val in over.items():
+        text = re.sub(r"(?m)^%s=.*$" % key, "%s=%s" % (key, val), text)
+    return text
+
+
 def rico_ini(n, k, swadvec="2"):
     """cases/rico/rico.ini at n^2 x k; by default with swadvec 2 instead of
     2i5, the override bench.py's _run_moist_size (bench.py:124-137) times."""
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cases",
-                        "rico", "rico.ini")
-    with open(path) as f:
-        text = f.read()
-    for key, val in (("itot", n), ("jtot", n), ("ktot", k),
-                     ("swadvec", swadvec)):
-        text = re.sub(r"(?m)^%s=.*$" % key, "%s=%s" % (key, val), text)
-    return text
+    return case_ini("rico", itot=n, jtot=n, ktot=k, swadvec=swadvec)
 
 
 def build_rico(torch, n, k, dtype, device, mode="run", workdir=".",
@@ -196,14 +217,8 @@ SBL_ZSIZE = 18.074844397670482
 def sbl_ini(n, k):
     """cases/SBL_Smag/SBL.ini at n^2 x k with stats and dumps off and its
     fixed dt (1 s at 32 points) scaled with the horizontal grid spacing."""
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cases",
-                        "SBL_Smag", "SBL.ini")
-    with open(path) as f:
-        text = f.read()
-    for key, val in (("itot", n), ("jtot", n), ("ktot", k), ("swstats", 0),
-                     ("swdump", 0), ("dt", 32. / max(n, 32))):
-        text = re.sub(r"(?m)^%s=.*$" % key, "%s=%s" % (key, val), text)
-    return text
+    return case_ini("SBL_Smag", "SBL", itot=n, jtot=n, ktot=k, swstats=0,
+                    swdump=0, dt=32. / max(n, 32))
 
 
 def build_sbl(torch, n, k, dtype, device, mode="run", workdir="."):
@@ -216,6 +231,60 @@ def build_sbl(torch, n, k, dtype, device, mode="run", workdir="."):
               device=device, input_nc=sbl_input(k, SBL_ZSIZE))
     m.finish_setup()
     return m
+
+
+def build_moser(torch, n, k, dtype, device, mode="run", workdir="."):
+    """cases/moser180/moser180.ini (advec 4m, diff 4, uflux, the scalar s,
+    vortex pairs) with stats and budget off, at n = (itot, jtot) and k
+    levels, on the tanh levels of moser180_input.py computed in memory."""
+    from microhh_torch.cases import moser180_input
+    from microhh_torch.config import Ini
+    from microhh_torch.model import Model
+    text = case_ini("moser180", itot=n[0], jtot=n[1], ktot=k, swstats=0,
+                    swbudget=0)
+    m = Model(Ini(text), mode, "moser180", workdir=workdir, dtype=dtype,
+              device=device, input_nc=moser180_input(k, 2.))
+    m.finish_setup()
+    return m
+
+
+def build_weakscaling(torch, n, k, dtype, device, mode="run", workdir="."):
+    """cases/weakscaling/weakscaling.ini (advec 4, diff 4, thermo buoy,
+    sponge) at n = (itot, jtot) with xsize and ysize kept, as
+    python/scaling.py assembles the 64 x 32 unit for a process grid; the
+    stretched levels of weakscaling_input.py (scaled to k levels when k is
+    not its 1024) and the zsize they give."""
+    from microhh_torch.cases import weakscaling_input
+    from microhh_torch.config import Ini
+    from microhh_torch.model import Model
+    mem, zsize = weakscaling_input(k)
+    text = case_ini("weakscaling", itot=n[0], jtot=n[1], ktot=k,
+                    zsize="%.17g" % zsize)
+    m = Model(Ini(text), mode, "weakscaling", workdir=workdir, dtype=dtype,
+              device=device, input_nc=mem)
+    m.finish_setup()
+    return m
+
+
+def o4_state(m, seed):
+    """Fields.create's state of a 4th-order case with seeded velocity
+    noise."""
+    from microhh_torch.model import NP_DTYPE
+    st = m.fields.create(m.input_nc, dtype=NP_DTYPE[m.dtype])
+    g = m.grid
+    ks, ke = g.kstart, g.kend
+    rng = np.random.RandomState(seed)
+    for n in ("u", "v"):
+        st[n][ks:ke] += 0.01 * rng.randn(g.ktot, g.jtot, g.itot)
+    st["w"][ks + 1:ke] += 0.003 * rng.randn(g.ktot - 1, g.jtot, g.itot)
+    return st
+
+
+def shape_str(m):
+    c = m.ctx
+    if c.itot == c.jtot == c.ktot:
+        return "%d^3" % c.itot
+    return "%dx%dx%d" % (c.itot, c.jtot, c.ktot)
 
 
 def sbl_state(m, seed):
@@ -524,6 +593,40 @@ def generic_kernel_cases(torch, m, seed, only=None):
     return cases + pres_cases(torch, m, s, t0, rnd)
 
 
+def o4_kernel_cases(torch, m, seed):
+    """(name, kernel call, plain call, error kind) for K16 and K17 on a
+    4th-order model: random fields, ghost levels included, with distinct w
+    arrays under the two ghost types, and random carries."""
+    ctx, o4 = m.ctx, m.o4
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    shape = (ctx.kcells, ctx.jtot, ctx.itot)
+
+    def rnd(scale=1.):
+        return (scale * torch.randn(*shape, generator=gen,
+                                    dtype=torch.float32)).to(ctx.dtype).to(ctx.device)
+
+    names = list(ctx.scalar_names)
+    u, v, wc, wd = rnd(), rnd(), rnd(), rnd()
+    a = [rnd() for _ in names]
+    t0 = [rnd(0.1) for _ in range(3 + len(names))]
+
+    def mom(kernel):
+        t = [x.clone() for x in t0[:3]]
+        (o4.momentum if kernel else o4.momentum_plain)(u, v, wc, wd, *t)
+        return t
+
+    def scal(kernel):
+        t = [x.clone() for x in t0[3:]]
+        (o4.scalars if kernel else o4.scalars_plain)(u, v, wc, names, a, t)
+        return t
+
+    cases = [("o4_mom", lambda: mom(True), lambda: mom(False), "field")]
+    if names:
+        cases.append(("o4_scalars", lambda: scal(True), lambda: scal(False),
+                      "field"))
+    return cases
+
+
 def compare(torch, name, kern, plain, kind, dtype, where):
     """Run a kernel and its plain version, fail unless every output agrees
     to the tolerance; returns the largest absolute difference."""
@@ -577,6 +680,17 @@ def check_kernels(torch):
                                                                 seed=n + k):
                 compare(torch, name, kern, plain, kind, dtype,
                         "SBL %d^2x%d" % (n, k))
+    # the 4th-order stack: K16 and K17 in both schemes, partial tiles
+    for label, build, n in (("moser 4m", build_moser, (45, 40)),
+                            ("weakscaling 4", build_weakscaling, (48, 20))):
+        for k in (16, 6):
+            for dtype in (torch.float64, torch.float32):
+                m = build(torch, n, k, dtype, "cuda")
+                m.build_step()
+                for name, kern, plain, kind in o4_kernel_cases(torch, m,
+                                                               seed=n[0] + k):
+                    compare(torch, name, kern, plain, kind, dtype,
+                            "%s %dx%dx%d" % (label, n[0], n[1], k))
 
 
 # --------------------------------------------------------------------------
@@ -595,7 +709,13 @@ def check_step(torch):
               lambda m: rico_state(m, seed=7)),
              ("SBL_Smag 16^2x24", lambda d: build_sbl(torch, 16, 24,
                                                       torch.float64, d),
-              lambda m: sbl_state(m, seed=7)))
+              lambda m: sbl_state(m, seed=7)),
+             ("moser180 16^3", lambda d: build_moser(torch, (16, 16), 16,
+                                                     torch.float64, d),
+              lambda m: o4_state(m, seed=7)),
+             ("weakscaling 16x8x32", lambda d: build_weakscaling(
+                 torch, (16, 8), 32, torch.float64, d),
+              lambda m: o4_state(m, seed=7)))
     for label, make, state in cases:
         out = {}
         for device in ("cuda", "cpu"):
@@ -688,16 +808,17 @@ def check_kernels_full(torch, m, cases):
     path's shapes; returns the largest absolute difference per kernel."""
     errs = {}
     for name, kern, plain, kind in cases(torch, m, seed=m.ctx.itot):
-        err = compare(torch, name, kern, plain, kind, m.dtype, "%d^3" % m.ctx.itot)
+        err = compare(torch, name, kern, plain, kind, m.dtype, shape_str(m))
         errs[name] = max(errs.get(name, 0.), err)
         torch.cuda.empty_cache()
     return errs
 
 
 # the card's published peaks (H100 SXM): device memory rate and float32
-# rate outside the tensor cores
+# rate outside the tensor cores; float64 outside them runs at half that
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = 67e12
+PEAK_FLOPS_F64 = 33.5e12
 
 # operations per output point of each stencil kernel, counted from its
 # source (adds, multiplies and special functions each as one)
@@ -705,15 +826,19 @@ FLOPS_PER_POINT = {"evisc": 100, "evisc_n2": 100, "limits": 110,
                    "tend_rk": 700, "tend_uvw": 450, "tend_scalars": 110,
                    "tend_scalar_rk": 110, "micro2": 300, "advec_mom": 400,
                    "advec_scalars": 130, "pres_rhs": 10, "pres_apply": 15,
-                   "tdma": 16}
+                   "tdma": 16,
+                   # K16 and K17 by scheme (K17 per scalar)
+                   "o4_mom": {"4": 840, "4m": 640},
+                   "o4_scalars": {"4": 215, "4m": 130}}
 
 
-def pair(kern, plain, nbytes, flops, lib=None):
+def pair(kern, plain, nbytes, flops, lib=None, peak_flops=PEAK_FLOPS):
     """A kernel call, its plain version, the bytes its inputs and outputs
-    hold (each once), its operations, and the one library call that
-    computes the same function (or None)."""
+    hold (each once), its operations and the card's peak rate for their
+    type, and the one library call that computes the same function (or
+    None)."""
     return {"kern": kern, "plain": plain, "bytes": nbytes, "flops": flops,
-            "lib": lib}
+            "lib": lib, "peak_flops": peak_flops}
 
 
 def field_bytes(m):
@@ -810,16 +935,24 @@ def step_times(torch, m, s, sfc, n=12, warm=2):
     return times, s, sfc
 
 
-def run_les(torch, workdir, label, build, n, nonneg=()):
-    """init + Model.run(max_iters=12) of a generic-path case at n^3 float32
-    through the entry points a user calls; fails unless every kernel of the
-    path was launched, the fields are finite, DIV <= 1e-4 and the nonneg
-    fields are >= 0.  Then the step time and the peak memory."""
-    init = build(torch, n, n, torch.float32, "cuda", "init", workdir)
+def run_les(torch, workdir, label, build, n, nonneg=(), k=None,
+            dtype=None, div_tol=1e-4, p_floor=False):
+    """init + Model.run(max_iters=12) of a case at n^3 (or n = (itot, jtot)
+    and k levels) through the entry points a user calls; fails unless every
+    kernel of the path was launched, the fields are finite, DIV <= div_tol
+    after the first step and the nonneg fields are >= 0.  Then the step
+    time and the peak memory.  p_floor: hold DIV to 16 times what one
+    rounding of p to the run's type leaves, eps |p| dzhi4 dzi4 dt, where
+    that is above div_tol (a 4th-order case on finely stretched levels;
+    three substeps a step each leave such a residue)."""
+    dtype = dtype or torch.float32
+    k = k or n
+    init = build(torch, n, k, dtype, "cuda", "init", workdir)
     init.save_initial_state()
     del init
-    m = build(torch, n, n, torch.float32, "cuda", "run", workdir)
+    m = build(torch, n, k, dtype, "cuda", "run", workdir)
     m.build_step()
+    where = "%s %s %s" % (label, shape_str(m), str(dtype)[6:])
     for kern in m.kernels():
         kern.launches = 0
     reads = getattr(m.thermo, "reads", None)
@@ -834,8 +967,8 @@ def run_les(torch, workdir, label, build, n, nonneg=()):
     launches = {kern.name: kern.launches for kern in m.kernels()}
     syncs = dict(reads or {})
     peak = torch.cuda.max_memory_allocated()
-    log("  Model.run(max_iters=12) at %s %d^3 float32: %.3f s wall, "
-        "launches %s, host reads %s" % (label, n, run_s, launches, syncs))
+    log("  Model.run(max_iters=12) at %s: %.3f s wall, launches %s, host "
+        "reads %s" % (where, run_s, launches, syncs))
     missing = [name for name, c in launches.items() if c == 0]
     if missing:
         raise AssertionError("%s did not launch %s" % (label, missing))
@@ -850,40 +983,50 @@ def run_les(torch, workdir, label, build, n, nonneg=()):
     # the row of iteration 0 holds the divergence of the case's random
     # initial velocities, which no projection has seen yet
     divs = [float(r[6]) for r in rows if int(r[0]) > 0] + [final["div"]]
-    log("  status rows %d, max DIV after the first step %.3e, final DIV %.3e, "
-        "TKE %.6e, dt %.4f s, minima %s"
-        % (len(rows), max(divs), final["div"], final["tke"], m.timeloop.dt,
-           mins))
-    if not (len(rows) >= 1 and max(divs) <= 1e-4
+    if p_floor:
+        _, _, aux = m.step(s, m.final_sfc, m.timeloop.dt)
+        floor = (torch.finfo(dtype).eps * float(aux["p"].abs().max())
+                 * float(m.ctx.dzhi4[ks:ke + 1].max())
+                 * float(m.ctx.dzi4[ks:ke].max()) * m.timeloop.dt)
+        log("  DIV floor of one rounding of p to %s: %.3e (max |p| %.3e)"
+            % (str(dtype)[6:], floor, float(aux["p"].abs().max())))
+        div_tol = max(div_tol, 16. * floor)
+    log("  status rows %d, max DIV after the first step %.3e (limit %.3e), "
+        "final DIV %.3e, TKE %.6e, dt %.4e s, minima %s"
+        % (len(rows), max(divs), div_tol, final["div"], final["tke"],
+           m.timeloop.dt, mins))
+    if not (len(rows) >= 1 and max(divs) <= div_tol
             and np.isfinite(final["tke"])):
         raise AssertionError("%s divergence or status check failed" % label)
     if mins and min(mins.values()) < 0.:
         raise AssertionError("negative %s after the limiter" % mins)
     times, s, sfc = step_times(torch, m, s, m.final_sfc)
     step_s = statistics.median(times)
-    log("  s/step %s %d^3 float32: median %.6f (min %.6f, max %.6f) of 10; "
-        "peak memory %.3f GB" % (label, n, step_s, min(times), max(times),
+    log("  s/step %s: median %.6f (min %.6f, max %.6f) of 10; "
+        "peak memory %.3f GB" % (where, step_s, min(times), max(times),
                                  peak / 1e9))
     m.final_sfc = sfc
     return m, s, {"launches": launches, "host_reads_run12": syncs,
                   "step_s_median": step_s, "peak_mem_gb": peak / 1e9,
-                  "run12_wall_s": run_s}
+                  "run12_wall_s": run_s, "div_max": max(divs),
+                  "div_limit": div_tol,
+                  "cell_updates_per_s": points(m) / step_s}
 
 
-def time_pairs(torch, pairs):
+def time_pairs(torch, pairs, plain_reps=3):
     """name -> {ms, plain_ms, bound_ms, bound_by, library_ms}: kernel and
     plain version timed in turns, the bound from this run's shapes."""
     out = {}
     for name, pr in pairs.items():
         kern, plain = pr["kern"], pr["plain"]
         # plain, kernel, kernel, plain: both measured twice, in turns
-        p1 = time_call(torch, plain, 3)
+        p1 = time_call(torch, plain, plain_reps)
         k1 = time_call(torch, kern, 10)
         k2 = time_call(torch, kern, 10)
-        p2 = time_call(torch, plain, 3)
+        p2 = time_call(torch, plain, plain_reps)
         lib = time_call(torch, pr["lib"], 5) if pr["lib"] else None
         by_bytes = 1e3 * pr["bytes"] / PEAK_BYTES_S
-        by_ops = 1e3 * pr["flops"] / PEAK_FLOPS
+        by_ops = 1e3 * pr["flops"] / pr["peak_flops"]
         out[name] = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
                      "bound_ms": max(by_bytes, by_ops),
                      "bound_by": "bytes" if by_bytes >= by_ops else "operations",
@@ -979,6 +1122,67 @@ def time_generic_kernels(torch, m, s):
     return time_pairs(torch, pairs)
 
 
+def time_o4_kernels(torch, m, s, plain_reps):
+    """K16 and K17 and their plain versions at a 4th-order path's shapes,
+    on the run's own state under its two ghost types."""
+    from microhh_torch.ops.boundary import w_cons
+    ctx, o4, t = m.ctx, m.o4, m.t
+    s = m.boundary.set_ghost_cells(ctx, s, m.final_sfc)
+    u, v, wd = s["u"], s["v"], s["w"]
+    wc = w_cons(ctx, wd)
+    names = list(ctx.scalar_names)
+    a, ta = [s[nm] for nm in names], [t[nm] for nm in names]
+    tuvw = [t[nm] for nm in ("u", "v", "w")]
+    fb, n, S = field_bytes(m), points(m), len(names)
+    peak = PEAK_FLOPS if m.dtype == torch.float32 else PEAK_FLOPS_F64
+    pairs = {"o4_mom": pair(
+        lambda: o4.momentum(u, v, wc, wd, *tuvw),
+        lambda: o4.momentum_plain(u, v, wc, wd, *tuvw), 10 * fb,
+        FLOPS_PER_POINT["o4_mom"][o4.scheme] * n, peak_flops=peak)}
+    if names:
+        pairs["o4_scalars"] = pair(
+            lambda: o4.scalars(u, v, wc, names, a, ta),
+            lambda: o4.scalars_plain(u, v, wc, names, a, ta),
+            (3 + 3 * S) * fb, FLOPS_PER_POINT["o4_scalars"][o4.scheme] * S * n,
+            peak_flops=peak)
+    out = time_pairs(torch, pairs, plain_reps)
+    for a_t in t.values():
+        a_t.zero_()
+    return out
+
+
+def time_pres4_parts(torch, m, s):
+    """The pres_4 solve by its parts, ms: library calls (cuFFT, cuBLAS), not
+    kernels of the port; timed on the run's own right-hand side."""
+    from microhh_torch.ops.boundary import w_cons
+    ctx, pr = m.ctx, m.pres
+    s = m.boundary.set_ghost_cells(ctx, s, m.final_sfc)
+    sc = dict(s, w=w_cons(ctx, s["w"]))
+    rhs = pr.input(ctx, sc, m.t, 1. / m.timeloop.dt)
+    p_hat = torch.fft.rfft2(rhs, dim=(-2, -1))
+    x = pr.solve_eigen(p_hat)
+    kmax, jtot, nf = p_hat.shape
+    parts = {
+        "input": time_call(torch, lambda: pr.input(ctx, sc, m.t, 1. / m.timeloop.dt), 5),
+        "rfft2": time_call(torch, lambda: torch.fft.rfft2(rhs, dim=(-2, -1)), 5),
+        "products": time_call(torch, lambda: pr.solve_eigen(p_hat), 5),
+        "irfft2": time_call(torch, lambda: torch.fft.irfft2(
+            x, s=rhs.shape[-2:], dim=(-2, -1)), 5),
+        "solve": time_call(torch, lambda: pr.solve(rhs), 5),
+        "exec": time_call(torch, lambda: pr.exec(ctx, sc, m.t, {}, m.timeloop.dt), 5),
+    }
+    flops = 2 * 2. * kmax * kmax * jtot * nf * 2
+    log("  pres_4 at %s by parts, ms: %s; the two products %.3e operations, "
+        "%.1f TFLOP/s; allow_tf32 %s"
+        % (shape_str(m), ", ".join("%s %.3f" % kv for kv in parts.items()),
+           flops, flops / parts["products"] / 1e9,
+           torch.backends.cuda.matmul.allow_tf32))
+    for a_t in m.t.values():
+        a_t.zero_()
+    parts["products_flops"] = flops
+    return parts
+
+
 # --------------------------------------------------------------------------
 #  last phase (--profile): where the step's device time goes
 # --------------------------------------------------------------------------
@@ -988,6 +1192,10 @@ PARTS = [("evisc_kernel", "K1/K14 evisc"), ("tend_rk_kernel", "K2 tend_rk"),
          ("micro2_kernel", "K11 micro2"),
          ("advec_mom_kernel", "K12 advec_mom"),
          ("advec_scalars_kernel", "K13 advec_scalars"),
+         ("o4_mom_kernel", "K16 o4_mom"),
+         ("o4_scalars_kernel", "K17 o4_scalars"),
+         ("gemm", "pres_4 k-axis products (library)"),
+         ("fft", "pres_4 transforms (library)"),
          ("tend_uvw_kernel", "K8/K9 tend_uvw"),
          ("tend_scalars_kernel", "K10 tend_scalars"),
          ("tend_scalar_kernel", "K15 tend_scalar_rk"),
@@ -1065,8 +1273,8 @@ def profile_steps(torch, m, s, label, nsteps=2):
     busy_ms = (sum(parts.values()) + other) / 1e3
     if busy_ms <= 0.:
         raise RuntimeError("the profiler recorded no device time")
-    lines = ["%d steps of %s %d^3 %s, card: %s"
-             % (nsteps, label, m.ctx.itot, str(m.dtype)[6:], card_line()),
+    lines = ["%d steps of %s %s %s, card: %s"
+             % (nsteps, label, shape_str(m), str(m.dtype)[6:], card_line()),
              "profiled wall %.3f ms/step, device busy %.3f ms/step, device "
              "idle share %.3f (same profiled steps); unprofiled wall %.3f "
              "ms/step; host reads of device values in the moist glue %.1f "
@@ -1193,6 +1401,40 @@ def main():
             results[key + "_f32"] = res
             if profile_path:
                 log("[p] profile of two %s steps at %d^3 float32" % (label, n))
+                reports.append(profile_steps(torch, m, s, label))
+            del m, s
+        torch.cuda.empty_cache()
+        phase += 2
+
+    for key, label, build, n, k, dtype, kw, plain_reps in (
+            ("weakscaling_512x256x1024_f32", "weakscaling", build_weakscaling,
+             (512, 256), 1024, torch.float32, {"p_floor": True}, 1),
+            ("moser180_256x192x128_f64", "moser180", build_moser,
+             (256, 192), 128, torch.float64, {"div_tol": 1e-10}, 3)):
+        log("[%d] %s %dx%dx%d %s through Model.run"
+            % (phase, label, n[0], n[1], k, str(dtype)[6:]))
+        with tempfile.TemporaryDirectory() as workdir:
+            m, s, res = run_les(torch, workdir, label, build, n, k=k,
+                                dtype=dtype, **kw)
+            where = "%s %s %s" % (label, shape_str(m), str(dtype)[6:])
+            log("[%d] kernels at %s: against their plain versions, then "
+                "timed" % (phase + 1, where))
+            errs = check_kernels_full(torch, m, o4_kernel_cases)
+            times = time_o4_kernels(torch, m, s, plain_reps)
+            res["pres_4_ms"] = time_pres4_parts(torch, m, s)
+            for kern in m.kernels():
+                if kern.name not in entries:
+                    entries[kern.name] = kernel_entry(kern, res["launches"],
+                                                      errs, times, where)
+            res["kernels"] = {
+                kern.name: dict(times[kern.name],
+                                launches=res["launches"][kern.name],
+                                max_abs_err=errs[kern.name])
+                for kern in m.kernels()}
+            by_path[key] = res.pop("launches")
+            results[key] = res
+            if profile_path:
+                log("[p] profile of two %s steps" % where)
                 reports.append(profile_steps(torch, m, s, label))
             del m, s
         torch.cuda.empty_cache()

@@ -6,7 +6,8 @@ hold it equal, bit for bit, to the file that script writes.
 ``rico_input(ktot, zsize)`` wraps the profiles in the read side of a netCDF
 dataset (``utils/nc.MemoryDataset``), which ``Model(..., input_nc=)`` takes.
 ``sbl_profiles`` and ``sbl_input`` do the same for ``cases/SBL_Smag/
-SBL_input.py``.
+SBL_input.py``, ``moser180_input`` for ``cases/moser180/moser180_input.py``
+and ``weakscaling_input`` for ``cases/weakscaling/weakscaling_input.py``.
 """
 
 import numpy as np
@@ -56,3 +57,47 @@ def sbl_input(ktot, zsize):
     dz = zsize / ktot
     z = np.linspace(0.5 * dz, zsize - 0.5 * dz, ktot)
     return MemoryDataset({"z": z}, {"init": sbl_profiles(z, zsize)})
+
+
+def moser180_input(ktot, zsize):
+    """The input dataset of cases/moser180/moser180_input.py: the tanh-
+    stretched wall-normal grid of the Re_tau = 180 channel, the laminar
+    parabola for u and a scalar equal to z."""
+    alpha = 0.967
+    k = np.arange(ktot)
+    eta = -1. + 2. * ((k + 1) - 0.5) / ktot
+    z = (zsize / (2. * alpha)
+         * np.tanh(eta * 0.5 * (np.log(1. + alpha) - np.log(1. - alpha)))
+         + 0.5 * zsize)
+    dpdxls = -1.5e-6
+    visc = 1.0e-5
+    u = 1. / (2. * visc) * dpdxls * (z ** 2 - zsize * z)
+    return MemoryDataset({"z": z}, {"init": {"u": u, "v": np.zeros(ktot),
+                                             "s": z.copy()}})
+
+
+def tanh_stretched_z(kmax, nloc1, nbuf1, nloc2, nbuf2, dz1, dz2, dz3):
+    """The doubly tanh-stretched levels of cases/weakscaling/
+    weakscaling_input.py and the domain height they give."""
+    dn = 1. / kmax
+    n = np.linspace(dn, 1. - dn, kmax)
+    dzdn = (dz1 / dn
+            + 0.5 * (dz2 - dz1) / dn * (1. + np.tanh((n - nloc1 * dn) / (nbuf1 * dn)))
+            + 0.5 * (dz3 - dz2) / dn * (1. + np.tanh((n - nloc2 * dn) / (nbuf2 * dn))))
+    dz = dzdn * dn
+    z = np.empty(kmax)
+    z[0] = 0.5 * dz[0]
+    for k in range(1, kmax):
+        z[k] = z[k - 1] + 0.5 * (dz[k - 1] + dz[k])
+    return z, z[-1] + 0.5 * dz[-1]
+
+
+def weakscaling_input(ktot=1024):
+    """The input dataset of cases/weakscaling/weakscaling_input.py (1024
+    stretched levels, b = N2 z) and the zsize its stretching gives.  Another
+    ktot scales the stretching to that many levels over the same height."""
+    f = ktot / 1024.
+    z, zsize = tanh_stretched_z(ktot, nloc1=160. * f, nbuf1=32. * f,
+                                nloc2=1024. * f, nbuf2=144. * f,
+                                dz1=0.0005 / f, dz2=0.001 / f, dz3=0.01 / f)
+    return MemoryDataset({"z": z}, {"init": {"b": 3. * z}}), zsize

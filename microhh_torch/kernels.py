@@ -74,6 +74,13 @@ SIGNATURES = {
     # u, v, w; host arrays of the S scalars' and carries' pointers; S; cc;
     # itot, jtot, ktot, ks, scheme; dxi, dyi
     "advec_scalars": [_P] * 3 + [_PP] * 2 + [_I, _P] + [_I] * 5 + [_D] * 2,
+    # u, v, w (conservation ghosts), w (plain ghosts), tu, tv, tw, cc; itot,
+    # jtot, ktot, ks, scheme; dxi, dyi, visc
+    "o4_mom": [_P] * 8 + [_I] * 5 + [_D] * 3,
+    # u, v, w (conservation ghosts); host arrays of the S scalars' and
+    # carries' pointers and of their viscosities; S; cc; itot, jtot, ktot,
+    # ks, scheme; dxi, dyi
+    "o4_scalars": [_P] * 3 + [_PP] * 2 + [_PD, _I, _P] + [_I] * 5 + [_D] * 2,
     # qr, nr, qt, thl, tqr, tnr, tqt, tthl, ql, rr_bot, cc; itot, jtot, ktot,
     # ks, nsed; Nc0, dt
     "micro2": [_P] * 11 + [_I] * 5 + [_D] * 2,

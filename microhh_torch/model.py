@@ -1,8 +1,9 @@
 """Model orchestration of the PyTorch port (``microhh_tpu/model.py``; reference
 ``src/model.cxx``).
 
-One RK step runs eagerly on the model's device, on one of two paths of the
-JAX package's fused step.
+One RK step runs eagerly on the model's device, on one of three paths of
+the JAX package's step: two of its RK-folded fused step at 2nd order, and
+its plain substep with the fused advection + diffusion producer at 4th.
 
 * The dry path (thermo dry, the drycblles slice; full-plane kernels with
   ``fold_ghosts``): per substep the eddy viscosity (K1), the MOST surface,
@@ -19,12 +20,22 @@ JAX package's fused step.
   carry (K12/K13), the column tables, the tendency sweeps K8/K9 and K10
   (K15 for a single scalar; without their advec_2 terms after K12/K13), the
   projection, and the limiter as a clamp of s.
+* The 4th-order path (advec 4 or 4m, diff 4, pres 4, the default boundary,
+  thermo buoy or none: the moser180 and weakscaling slice;
+  ``microhh_tpu/model.py:535-587``): per substep the in-place ghost fill,
+  the buoyancy into the carry, a copy of w under conservation-type ghosts,
+  advection + diffusion into the carry (K16, and K17 for the scalars), the
+  sponge and the forcing (``uflux`` needs the substep's dt), the projection
+  (``rfft2``, two k-axis matrix products, ``irfft2``: library calls, as in
+  the JAX package, which has no kernel there), and the low-storage RK
+  update of s and the carry, in place.  There is no RK fold at 4th order.
 
 The host loop takes the adaptive-dt limits from one pass (K7; the CFL rate
-of an interpolated scheme from its own ``cfl_max``) and the sedimentation
+of an interpolated or a 4th-order scheme from its own ``cfl_max``, the
+4th-order diffusion number a constant of the grid) and the sedimentation
 limit, and does the integer-time bookkeeping, the status
 table and the restarts, as the reference's main loop
-(``src/model.cxx:303-557``) does.  An option outside the two slices raises
+(``src/model.cxx:303-557``) does.  An option outside these slices raises
 NotImplementedError naming its ROADMAP item.  The model runs on the device
 it is given, by default the first CUDA device; ``device="cpu"`` runs every
 kernel's plain-torch version instead.
@@ -44,7 +55,7 @@ from . import ops
 from .ops import not_ported
 from .ops.advec_interp import AdvecInterp
 from .ops.advec_interp_fused import AdvecInterpFused
-from .ops.boundary import NEUMANN, FLUX
+from .ops.boundary import NEUMANN, FLUX, w_cons
 from .ops.buffer import make_buffer
 from .ops.force import make_force
 from .ops.fused import (Fused, FusedGeneric, PresGlue, exec_viscosity,
@@ -53,6 +64,7 @@ from .ops.fused import (Fused, FusedGeneric, PresGlue, exec_viscosity,
                         surface_evisc_row)
 from .ops.limiter import Limiter
 from .ops.microphys import Microphys2momWarm, make_microphys
+from .ops.o4_fused import O4Fused
 from .ops.stencil import ip, jp, i2
 from .ops.thermo_dry import ThermoDry
 
@@ -70,14 +82,21 @@ class Context:
         self.ks, self.ke = g.kstart, g.kend
         self.itot, self.jtot, self.ktot = g.itot, g.jtot, g.ktot
         self.kcells = g.kcells
+        self.spatial_order = g.spatial_order
         self.dxi, self.dyi = float(g.dxi), float(g.dyi)
         self.zsize = g.zsize
         self.utrans, self.vtrans = float(g.utrans), float(g.vtrans)
         for name in ("z", "dz", "dzh", "dzi", "dzhi"):
             setattr(self, name, self.tensor(getattr(g, name)))
         self.scalar_names = tuple(fields.sp.keys())
+        self.np_z = np.asarray(g.z, dtype=np.float64)
         self.np_dzi = np.asarray(g.dzi, dtype=np.float64)
         self.np_dzhi = np.asarray(g.dzhi, dtype=np.float64)
+        if g.spatial_order == 4:
+            # the 4th-order metrics (grid.py), as tensors and for the tables
+            self.dzi4, self.dzhi4 = self.tensor(g.dzi4), self.tensor(g.dzhi4)
+            self.np_dzi4 = np.asarray(g.dzi4, dtype=np.float64)
+            self.np_dzhi4 = np.asarray(g.dzhi4, dtype=np.float64)
         self.basestate_version = 0
         self.refresh_basestate(fields)
 
@@ -102,17 +121,38 @@ def check_slice(ini, grid, sim_mode):
         return ini.get_str(section, item, default="0") not in ("0", "false")
 
     decay = ini.items.get("decay", {}).get("swdecay", {})
-    moist = ini.get_str("thermo", "swthermo", default="0") == "moist"
+    thermo = ini.get_str("thermo", "swthermo", default="0")
+    moist = thermo == "moist"
+    order = str(grid.spatial_order)
+    # the schemes that belong to the 4th-order stack, by section
+    fourth = {"advec": ("4", "4m"), "diff": ("4",), "pres": ("4",)}
+    mixed = [sec for sec, sws in fourth.items()
+             if (ini.get_str(sec, "sw" + sec, default=order) in sws)
+             != (order == "4")]
+    boundary = ini.get_str("boundary", "swboundary", default="default")
     # thermo dry with advec 2 takes the dry path, whose kernel folds no
-    # forcing; every other combination takes the generic path
-    dry_path = (ini.get_str("thermo", "swthermo", default="0") == "dry"
+    # forcing; every other 2nd-order combination takes the generic path
+    dry_path = (thermo == "dry"
                 and ini.get_str("advec", "swadvec", default="2") == "2")
     forced = (any(switch("force", n) for n in ("swlspres", "swls", "swwls"))
               or ini.get_list(str, "limiter", "limitlist", default=[]))
     outside = [
-        (grid.spatial_order != 2, "[grid] swspatialorder=4", 11),
-        (ini.get_list(str, "fields", "slist", default=[]),
-         "[fields] slist (passive scalars)", 9),
+        (mixed, "[%s] a scheme of another order than [grid] swspatialorder=%s"
+         % ("], [".join(mixed), order), 11),
+        (order == "4" and thermo not in ("0", "buoy"),
+         "[thermo] swthermo=%s at swspatialorder=4" % thermo, 11),
+        (order == "4" and boundary != "default",
+         "[boundary] swboundary=%s at swspatialorder=4" % boundary, 11),
+        (order == "4" and grid.jtot == 1,
+         "a 2-D run (jtot=1) at swspatialorder=4", 11),
+        (order == "2" and boundary == "default",
+         "[boundary] swboundary=default at swspatialorder=2", 14),
+        (order == "2" and thermo == "0",
+         "[thermo] swthermo=0 at swspatialorder=2", 9),
+        (order == "2" and ini.get_list(str, "fields", "slist", default=[]),
+         "[fields] slist (passive scalars) at swspatialorder=2", 9),
+        (order == "2" and ini.get_str("force", "swlspres", default="0") == "uflux",
+         "[force] swlspres=uflux at swspatialorder=2", 9),
         (switch("micro", "swmicro") and not moist,
          "[micro] swmicro without [thermo] swthermo=moist", 9),
         (switch("radiation", "swradiation"), "[radiation] swradiation", 13),
@@ -143,6 +183,7 @@ def check_slice(ini, grid, sim_mode):
             (switch("cross", "swcross"), "[cross] swcross", 15),
             (switch("dump", "swdump"), "[dump] swdump", 15),
             (switch("column", "swcolumn"), "[column] swcolumn", 15),
+            (switch("budget", "swbudget"), "[budget] swbudget", 15),
         ]
     for active, what, item in outside:
         if active:
@@ -210,6 +251,7 @@ class Model:
         self._last_sfc = None
         self.fused = None
         self.advec_fused = None
+        self.o4 = None
 
     def at_wall_clock_limit(self):
         return (_time.time() - self._wall_start) > self.wallclocklimit * 3600. - 600.
@@ -252,12 +294,18 @@ class Model:
         Neumann or flux top for th); else the generic path, on which an
         interpolated scheme runs as a producer (K12/K13) before tendency
         kernels that leave their advection out
-        (microhh_tpu/model.py:712-737)."""
+        (microhh_tpu/model.py:712-737).  At 4th order the plain substep with
+        K16/K17 as its advection + diffusion producer (the gates of
+        microhh_tpu/model.py:862-906, less the TPU's own)."""
         ctx = self.ctx
-        self.glue = PresGlue(ctx)
         shape = (ctx.kcells, ctx.jtot, ctx.itot)
         self.t = {n: torch.zeros(shape, dtype=self.dtype, device=self.device)
                   for n in self.fields.prognostic_names}
+        if ctx.spatial_order == 4:
+            self.generic = False
+            self.o4 = O4Fused(self.advec, self.diff, ctx)
+            return
+        self.glue = PresGlue(ctx)
         interp = isinstance(self.advec, AdvecInterp)
         self.generic = interp or not isinstance(self.thermo, ThermoDry)
         self.advec_fused = AdvecInterpFused(self.advec, ctx) if interp else None
@@ -279,6 +327,9 @@ class Model:
 
     def kernels(self):
         """The hand-written kernels of the step, in step order."""
+        if self.o4 is not None:
+            return ([self.o4.k_mom, self.o4.k_scal] if self.ctx.scalar_names
+                    else [self.o4.k_mom])
         fz = self.fused
         pres = [self.glue.k_rhs, self.pres.k_dft_fwd, self.pres.k_tdma,
                 self.pres.k_dft_inv, self.glue.k_apply]
@@ -296,6 +347,8 @@ class Model:
     def substep(self, s, sfc, aux, dt, sub):
         """One low-storage RK substep on the RK-folded path (model.py:370-515
         of the JAX package): the carry self.t is updated in place."""
+        if self.o4 is not None:
+            return self._substep_o4(s, sfc, aux, dt, sub)
         if self.generic:
             return self._substep_generic(s, sfc, aux, dt, sub)
         ctx, tl = self.ctx, self.timeloop
@@ -340,8 +393,41 @@ class Model:
         self.limiter.clamp(ctx, s_new, self.t, subdt, can)
         return s_new, sfc, aux
 
+    def _substep_o4(self, s, sfc, aux, dt, sub):
+        """The 4th-order substep (the JAX package's plain substep,
+        microhh_tpu/model.py:535-587, with the fused producer of :550-552).
+        Everything is in place: the ghost levels of s, the carry self.t and
+        the RK update of s, so the caller's tensors are the new state."""
+        ctx, tl, t = self.ctx, self.timeloop, self.t
+        s = self.boundary.set_ghost_cells(ctx, s, sfc)
+        self.thermo.exec(ctx, s, t, aux)
+        sfc = self.boundary.exec(ctx, s, sfc, aux)
+        # conservation-type w ghosts around advection and the projection,
+        # plain ones for the diffusion (model.cxx:387-412)
+        s_cons = dict(s, w=w_cons(ctx, s["w"]))
+        self.o4.exec(ctx, s_cons, s, t, aux)
+        subdt = tl.rk_cb[sub] * dt
+        aux["subdt"] = subdt
+        if self.buffer is not None:
+            self.buffer(ctx, s, t, aux)
+        t.update(self.force(ctx, s, t, aux, sfc))
+        self.pres.exec(ctx, s_cons, t, aux, subdt)
+        if self.limiter.limitlist:
+            t.update(self.limiter(ctx, s, t, aux, subdt))
+        # low-storage RK update (timeloop.cxx:250-334); the carry's ghost
+        # levels are zero, so whole tensors are updated
+        can = tl.rk_ca[(sub + 1) % tl.n_substeps]
+        for n in self.fields.prognostic_names:
+            s[n].add_(t[n], alpha=subdt)
+            if can != 0.:
+                t[n].mul_(can)
+            else:
+                t[n].zero_()
+        return s, sfc, aux
+
     def step(self, s, sfc, dt):
-        """One RK step of size dt: returns (s, sfc, aux)."""
+        """One RK step of size dt: returns (s, sfc, aux).  The 4th-order
+        path updates the tensors of s in place."""
         if self.generic:
             # the producers add into the carry from the first substep on
             for a in self.t.values():
@@ -361,6 +447,12 @@ class Model:
         expression; an interpolated scheme gives its own (cfl_max, in plain
         torch: 2 passes over u, v and w) and K7 serves the evisc maxima."""
         ctx, fz = self.ctx, self.fused
+        if self.o4 is not None:
+            # no eddy viscosity, so no K7: the scheme's own CFL in plain
+            # torch and the grid's constant diffusion number
+            # (microhh_tpu/model.py:631-653)
+            return {"cfl_rate": self.advec.cfl_max(ctx, s),
+                    "dn_rate": self.diff.get_dn(ctx, s, {})}
         if self.generic:
             s = self.boundary.set_ghost_cells(ctx, s, sfc)
             if fz.stratified == 2:
@@ -386,9 +478,13 @@ class Model:
         return out
 
     def diagnostics(self, s, sfc):
-        """Status-line quantities after a ghost fill (model.py:664-688)."""
+        """Status-line quantities after a ghost fill (model.py:664-688);
+        at 4th order the divergence is taken under conservation-type w
+        ghosts, the type under which the projection is exact."""
         ctx = self.ctx
         s = self.boundary.set_ghost_cells(ctx, s, sfc)
+        if ctx.spatial_order == 4:
+            s = dict(s, w=w_cons(ctx, s["w"]))
         ks, ke = ctx.ks, ctx.ke
         u, v, w = s["u"], s["v"], s["w"]
         dzc = ctx.dz[ks:ke][:, None, None]
@@ -398,9 +494,12 @@ class Model:
         tke = 0.5 * torch.sum((i2(u * u, ip(u) ** 2)[ks:ke]
                                + i2(v * v, jp(v) ** 2)[ks:ke]
                                + i2(w[ks:ke] ** 2, w[ks + 1:ke + 1] ** 2)) * dzc) / norm
-        first = ctx.scalar_names[0]
+        if ctx.scalar_names:
+            mass = torch.sum(s[ctx.scalar_names[0]][ks:ke] * dzc) / norm
+        else:
+            mass = torch.zeros((), dtype=ctx.dtype, device=ctx.device)
         return {"div": self.pres.divergence_max(ctx, s), "mom": mom,
-                "tke": tke, "mass": torch.sum(s[first][ks:ke] * dzc) / norm}
+                "tke": tke, "mass": mass}
 
     # ------------------------------------------------------------------
     #  run mode
@@ -454,7 +553,7 @@ class Model:
         adaptive dt, status table, restarts.  Returns the final state."""
         tl = self.timeloop
         s, sfc = self.as_device_state(self.load_state())
-        if self.fused is None:
+        if self.fused is None and self.o4 is None:
             self.build_step()
         cflmax, cflmin = self.advec.cflmax, self.advec.cflmin
         dnmax = self.diff.dnmax
@@ -503,7 +602,7 @@ def run_case(case_dir, casename, mode, dtype=torch.float32, device="cuda"):
     if mode == "init":
         # the run-time output options are consumed in init mode too, like
         # the reference, so init does not flag them as unused
-        for section in ("stats", "cross", "dump", "column"):
+        for section in ("stats", "cross", "dump", "column", "budget"):
             for item, subs in ini.items.get(section, {}).items():
                 for sub in subs:
                     ini.flag_as_used(section, item, sub)

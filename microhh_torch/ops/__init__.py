@@ -1,12 +1,15 @@
 """Physics-operator factories (``microhh_tpu/ops/__init__.py``).
 
 The port carries the drycblles, the moist (bomex/rico) and the buoyancy
-(SBL_Smag) slices: ``advec 2`` and the interpolated ``2i4``, ``2i5``,
-``2i53``, ``2i62``, ``diff smag2``, ``thermo dry``, ``moist`` and ``buoy``,
-the MOST surface and ``pres 2``, with ``2mom_warm`` microphysics, ``force``
-and ``limiter`` (ops/microphys.py, ops/force.py, ops/limiter.py).  Every
-other scheme raises NotImplementedError naming the ROADMAP item that ports
-it.
+(SBL_Smag) slices at 2nd order: ``advec 2`` and the interpolated ``2i4``,
+``2i5``, ``2i53``, ``2i62``, ``diff smag2``, ``thermo dry``, ``moist`` and
+``buoy``, the MOST surface and ``pres 2``, with ``2mom_warm`` microphysics,
+``force`` and ``limiter`` (ops/microphys.py, ops/force.py, ops/limiter.py);
+and the 4th-order DNS stack (moser180, weakscaling): ``advec 4`` and ``4m``,
+``diff 4``, ``pres 4``, the ``default`` boundary, ``thermo buoy`` or none.
+Every other scheme raises NotImplementedError naming the ROADMAP item that
+ports it; model.check_slice refuses a 4th-order scheme on a 2nd-order grid
+and the reverse.
 """
 
 
@@ -15,11 +18,11 @@ def not_ported(what, item):
                                "(ROADMAP Queue 1 item %s)" % (what, item))
 
 
-_ROADMAP_ADVEC = {"4": 11, "4m": 11, "0": 12}
-_ROADMAP_DIFF = {"2": 12, "4": 11, "dnn_local": 12, "dnn_global": 12,
+_ROADMAP_ADVEC = {"0": 12}
+_ROADMAP_DIFF = {"2": 12, "dnn_local": 12, "dnn_global": 12,
                  "dnn_stats": 12, "0": 12}
-_ROADMAP_THERMO = {"0": 9, "vapor": 9}
-_ROADMAP_BOUNDARY = {"default": 14, "surface_bulk": 14, "surface_lsm": 14}
+_ROADMAP_THERMO = {"vapor": 9}
+_ROADMAP_BOUNDARY = {"surface_bulk": 14, "surface_lsm": 14}
 
 
 def make_advec(ini, grid, fields):
@@ -27,6 +30,12 @@ def make_advec(ini, grid, fields):
     if sw == "2":
         from .advec_2 import Advec2
         return Advec2(ini, grid)
+    if sw == "4":
+        from .advec_4 import Advec4
+        return Advec4(ini, grid)
+    if sw == "4m":
+        from .advec_4m import Advec4m
+        return Advec4m(ini, grid)
     from .advec_interp import CLASSES
     if sw in CLASSES:
         return CLASSES[sw](ini, grid)
@@ -40,6 +49,9 @@ def make_diff(ini, grid, fields, boundary):
     if sw == "smag2":
         from .diff_smag2 import DiffSmag2
         return DiffSmag2(ini, grid, fields, boundary)
+    if sw == "4":
+        from .diff_4 import Diff4
+        return Diff4(ini, grid, fields)
     if sw in _ROADMAP_DIFF:
         raise not_ported("[diff] swdiff=%s" % sw, _ROADMAP_DIFF[sw])
     raise ValueError("%s is an illegal value for swdiff" % sw)
@@ -50,13 +62,19 @@ def make_pres(ini, grid, fields):
     if sw == "2":
         from .pres_2 import Pres2
         return Pres2(ini, grid, fields)
-    if sw in ("0", "4"):
-        raise not_ported("[pres] swpres=%s" % sw, 11 if sw == "4" else 12)
+    if sw == "4":
+        from .pres_4 import Pres4
+        return Pres4(ini, grid, fields)
+    if sw == "0":
+        raise not_ported("[pres] swpres=0", 12)
     raise ValueError("%s is an illegal value for swpres" % sw)
 
 
 def make_thermo(ini, grid, fields):
     sw = ini.get_str("thermo", "swthermo", default="0")
+    if sw == "0":
+        from .thermo import ThermoDisabled
+        return ThermoDisabled()
     if sw == "dry":
         from .thermo_dry import ThermoDry
         return ThermoDry(ini, grid, fields)
@@ -76,6 +94,9 @@ def make_boundary(ini, fields, grid):
     if sw == "surface":
         from .boundary_surface import BoundarySurface
         return BoundarySurface(ini, fields, grid)
+    if sw == "default":
+        from .boundary import DefaultBoundary
+        return DefaultBoundary(ini, fields, grid)
     if sw in _ROADMAP_BOUNDARY:
         raise not_ported("[boundary] swboundary=%s" % sw, _ROADMAP_BOUNDARY[sw])
     raise ValueError("%s is an illegal value for swboundary" % sw)

@@ -1,14 +1,20 @@
-"""Boundary-condition table and the 2nd-order top ghost fill
+"""Boundary-condition table and the vertical ghost fills
 (``microhh_tpu/ops/boundary.py``; reference ``src/boundary.cxx`` ``set_bc``,
-``calc_ghost_cells_top_2nd``).
+``calc_ghost_cells_top_2nd``, ``calc_ghost_cells_{bot,top}_4th``,
+``calc_ghost_cells_{bot,top}w[_cons]_4th``).
 
 Only the vertical ghost levels exist (horizontal periodicity is a roll, see
-stencil.py).  The bottom ghosts come from the surface model
-(boundary_surface.py).  The default boundary and the 4th-order fills are
-not ported yet (ROADMAP Queue 1 items 14 and 11).
+stencil.py).  At 2nd order the bottom ghosts come from the surface model
+(boundary_surface.py) and this module fills the top.  At 4th order
+``DefaultBoundary`` (``swboundary=default``) fills two ghost levels on each
+side of every cell-centred field and w's under one of its two ghost types,
+in place.  The default boundary at 2nd order is not ported yet (ROADMAP
+Queue 1 item 14).
 """
 
 import torch
+
+from .. import fd
 
 DIRICHLET = "dirichlet"
 NEUMANN = "neumann"
@@ -90,3 +96,84 @@ def assemble_ghosts(ctx, a, bot, top):
     plane = a.shape[1:]
     return torch.cat([bot.expand(plane)[None], a[ks:ke],
                       top.expand(plane)[None]], dim=0)
+
+
+def set_ghost_cells_field_4th(ctx, a, bc, visc, offset=0.):
+    """Fill two vertical ghost levels on each side of a cell-centred field,
+    in place (reference calc_ghost_cells_bot_4th / _top_4th); a BC type
+    other than Dirichlet, Neumann or flux leaves its side untouched."""
+    ks, ke = ctx.ks, ctx.ke
+    z = ctx.np_z
+    if bc.bcbot == DIRICHLET:
+        bot = bc.bot - offset
+        a[ks - 1] = (8. / 3.) * bot - 2. * a[ks] + (1. / 3.) * a[ks + 1]
+        a[ks - 2] = 8. * bot - 9. * a[ks] + 2. * a[ks + 1]
+    elif bc.bcbot in (NEUMANN, FLUX):
+        grad = grad_from(bc.bcbot, bc.bot, visc)
+        g4 = float(fd.grad4(z[ks - 2], z[ks - 1], z[ks], z[ks + 1]))
+        a[ks - 1] = -1. * g4 * grad + a[ks]
+        a[ks - 2] = -3. * g4 * grad + a[ks + 1]
+    if bc.bctop == DIRICHLET:
+        top = bc.top - offset
+        a[ke] = (8. / 3.) * top - 2. * a[ke - 1] + (1. / 3.) * a[ke - 2]
+        a[ke + 1] = 8. * top - 9. * a[ke - 1] + 2. * a[ke - 2]
+    elif bc.bctop in (NEUMANN, FLUX):
+        grad = grad_from(bc.bctop, bc.top, visc)
+        g4 = float(fd.grad4(z[ke - 2], z[ke - 1], z[ke], z[ke + 1]))
+        a[ke] = 1. * g4 * grad + a[ke - 1]
+        a[ke + 1] = 3. * g4 * grad + a[ke - 2]
+    return a
+
+
+def set_ghost_cells_w_4th(ctx, w, conservation=False):
+    """Fill w's 4th-order ghost levels in place (boundary.cxx:843-915): the
+    conservation type (two antisymmetric levels) goes around the advection
+    and the pressure solver, the plain type (one extrapolated level) around
+    the diffusion."""
+    ks, ke = ctx.ks, ctx.ke
+    if conservation:
+        w[ks - 1] = -w[ks + 1]
+        w[ks - 2] = -w[ks + 2]
+        w[ke + 1] = -w[ke - 1]
+        w[ke + 2] = -w[ke - 2]
+    else:
+        w[ks - 1] = -6. * w[ks + 1] + 4. * w[ks + 2] - w[ks + 3]
+        w[ke + 1] = -6. * w[ke - 1] + 4. * w[ke - 2] - w[ke - 3]
+    return w
+
+
+def w_cons(ctx, w):
+    """A copy of w under conservation-type ghosts."""
+    return set_ghost_cells_w_4th(ctx, w.clone(), conservation=True)
+
+
+class DefaultBoundary:
+    """swboundary=default at 4th order: static BCs from the ini file."""
+
+    def __init__(self, ini, fields, grid):
+        self.bcs = make_bcs(ini, fields)
+        self.viscs = {"u": fields.visc, "v": fields.visc}
+        for name, f in fields.sp.items():
+            self.viscs[name] = f.visc
+        self.offsets = {"u": grid.utrans, "v": grid.vtrans}
+
+    def set_ghost_cells(self, ctx, s, sfc=None):
+        """Fill every field's vertical ghost levels, in place; returns s."""
+        for name, bc in self.bcs.items():
+            set_ghost_cells_field_4th(ctx, s[name], bc, self.viscs[name],
+                                      self.offsets.get(name, 0.))
+        set_ghost_cells_w_4th(ctx, s["w"], conservation=False)
+        return s
+
+    def exec(self, ctx, s, sfc, aux):
+        """The surface model's hook; the default scheme has none."""
+        return sfc
+
+    def init_surface_state(self, dtype=None):
+        return {}
+
+    def save(self, sfc, iotime, path="."):
+        pass
+
+    def load(self, sfc, iotime, path=".", dtype=None):
+        return sfc

@@ -3,15 +3,13 @@
 
 Relaxes fields above zstart towards their reference profiles with strength
 sigma * ((z - zstart)/(ztop - zstart))**beta (reference ``include/buffer.h:52-60``).
-On the model's main path the static-profile sponge is folded into the RK
-tendency kernel through per-level tables (ops/fused.py); this op is its
-reference.
+On the 2nd-order paths the static-profile sponge is folded into the RK
+tendency kernels through per-level tables (ops/fused.py) and this op is its
+reference; the 4th-order step, which has no such fold, runs it.
 """
 
 import numpy as np
 import torch
-
-from .advec_2 import add_rows
 
 
 class Buffer:
@@ -45,9 +43,9 @@ class Buffer:
             self.profs[n] = (p - off)[:, None, None]
 
     def __call__(self, ctx, s, t, aux):
+        """Add the sponge tendencies into t, in place on the interior."""
         ks, ke = ctx.ks, ctx.ke
         dev = s["u"].device
-        t = dict(t)
         facz = torch.as_tensor(self.fac_z, dtype=ctx.dtype, device=dev)
         faczh = torch.as_tensor(self.fac_zh, dtype=ctx.dtype, device=dev)
         for n in ["u", "v"] + list(ctx.scalar_names):
@@ -55,8 +53,8 @@ class Buffer:
                 ref = torch.mean(s[n][ks:ke], dim=(1, 2), keepdim=True)
             else:
                 ref = torch.as_tensor(self.profs[n], dtype=ctx.dtype, device=dev)
-            t[n] = add_rows(t[n], ks, ke, -facz * (s[n][ks:ke] - ref))
-        t["w"] = add_rows(t["w"], ks, ke, -faczh * s["w"][ks:ke])
+            t[n][ks:ke] -= facz * (s[n][ks:ke] - ref)
+        t["w"][ks:ke] -= faczh * s["w"][ks:ke]
         return t
 
 

@@ -1,13 +1,14 @@
 """Large-scale forcings (``microhh_tpu/ops/force.py``; reference
 ``src/force.cxx``).
 
-Ported: ``swlspres`` in {0, geo (with Coriolis), dpdx}, large-scale source
-terms (``swls`` + ``lslist``) and subsidence (``swwls`` = mean | local),
+Ported: ``swlspres`` in {0, geo (with Coriolis, 2nd order), dpdx, uflux},
+large-scale source terms (``swls`` + ``lslist``) and subsidence (``swwls`` = mean | local),
 with static profiles from the input ``init`` group.  On the model's generic
 path these collapse into the per-level tables of the tendency kernels
-(ops/fused.py generic_col_tables); ``Force.__call__`` is their op path.
-The uflux pressure forcing, nudging and the time-dependent profiles are
-not ported yet (ROADMAP Queue 1 item 9).
+(ops/fused.py generic_col_tables), which do not carry uflux;
+``Force.__call__`` is their op path and what the 4th-order step runs.
+Nudging and the time-dependent profiles are not ported yet (ROADMAP Queue 1
+item 9), nor is the 4th-order Coriolis stencil (item 11).
 """
 
 import numpy as np
@@ -40,10 +41,12 @@ class Force:
         kt = grid.ktot
 
         if self.swlspres == "uflux":
-            raise not_ported("[force] swlspres=uflux", 9)
+            self.uflux = ini.get_float("force", "uflux")
         elif self.swlspres == "dpdx":
             self.dpdx = ini.get_float("force", "dpdx")
         elif self.swlspres == "geo":
+            if grid.spatial_order != 2:
+                raise not_ported("[force] swlspres=geo at swspatialorder=4", 11)
             self.fc = ini.get_float("force", "fc")
             self.ug = _prof(input_nc, "u_geo", kt)[:, None, None]
             self.vg = _prof(input_nc, "v_geo", kt)[:, None, None]
@@ -67,7 +70,17 @@ class Force:
         """t plus the forcing tendencies (a new dict of new tensors)."""
         ks, ke = ctx.ks, ctx.ke
         t = dict(t)
-        if self.swlspres == "dpdx":
+        if self.swlspres == "uflux":
+            # a uniform body force that fixes the domain-mean u at uflux
+            # after this substep (force.cxx flux kernels): the two
+            # dz-weighted means stay on the device
+            dzc = ctx.dz[ks:ke][:, None, None]
+            norm = ctx.itot * ctx.jtot * ctx.zsize
+            um = torch.sum(s["u"][ks:ke] * dzc) / norm
+            utm = torch.sum(t["u"][ks:ke] * dzc) / norm
+            fbody = (self.uflux - um - ctx.utrans) / aux["subdt"] - utm
+            t["u"] = add_rows(t["u"], ks, ke, fbody)
+        elif self.swlspres == "dpdx":
             t["u"] = add_rows(t["u"], ks, ke, -self.dpdx)
         elif self.swlspres == "geo":
             fc = self.fc

@@ -4,20 +4,17 @@
 Used by the stable-boundary-layer (SBL) cases.  Carries the tilted-slope
 variant (alpha, background N2), where buoyancy feeds the u and w tendencies
 and the flow tilts the stratification into bt (thermo_buoy.cxx:110-165), and
-the ``swbaroclinic`` term, at 2nd order; the 4th-order branches wait for
-ROADMAP Queue 1 item 11.
+the ``swbaroclinic`` term, at 2nd and at 4th order.
 """
 
 import math
 
-from . import not_ported
+from .. import fd
 from .stencil import i2, im, ip, jp
 
 
 class ThermoBuoy:
     def __init__(self, ini, grid, fields):
-        if grid.spatial_order != 2:
-            raise not_ported("[thermo] swthermo=buoy at swspatialorder=4", 11)
         self.grid = grid
         fields.init_prognostic_field("b", "Buoyancy", "m s-2", "thermo")
         self.alpha = ini.get_float("thermo", "alpha", default=0.)
@@ -36,15 +33,31 @@ class ThermoBuoy:
     def create_basestate(self, input_nc):
         pass
 
+    def _interp_z(self, ctx, b):
+        """b interpolated to the half levels ks+1..ke-1."""
+        ks, ke = ctx.ks, ctx.ke
+        if ctx.spatial_order == 2:
+            return i2(b[ks:ke - 1], b[ks + 1:ke])
+        return (fd.ci0 * b[ks - 1:ke - 2] + fd.ci1 * b[ks:ke - 1]
+                + fd.ci2 * b[ks + 1:ke] + fd.ci3 * b[ks + 2:ke + 1])
+
     def exec(self, ctx, s, t, aux):
         """Add the buoyancy terms into t, in place on the interior."""
         ks, ke = ctx.ks, ctx.ke
         b = s["b"]
-        b_h = i2(b[ks:ke - 1], b[ks + 1:ke])     # half levels ks+1..ke-1
+        b_h = self._interp_z(ctx, b)
         if self.has_slope or self.has_n2:
             sina, cosa = math.sin(self.alpha), math.cos(self.alpha)
-            b_at_u = i2(im(b), b)[ks:ke]
-            u_at_c = i2(s["u"], ip(s["u"]))[ks:ke]
+            u = s["u"][ks:ke]
+            bc = b[ks:ke]
+            if ctx.spatial_order == 2:
+                b_at_u = i2(im(bc), bc)
+                u_at_c = i2(u, ip(u))
+            else:
+                b_at_u = (fd.ci0 * im(bc, 2) + fd.ci1 * im(bc) + fd.ci2 * bc
+                          + fd.ci3 * ip(bc))
+                u_at_c = (fd.ci0 * im(u) + fd.ci1 * u + fd.ci2 * ip(u)
+                          + fd.ci3 * ip(u, 2))
             w_at_c = i2(s["w"][ks:ke], s["w"][ks + 1:ke + 1])
             t["u"][ks:ke] += sina * b_at_u
             t["w"][ks + 1:ke] += cosa * b_h

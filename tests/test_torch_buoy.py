@@ -302,7 +302,19 @@ def test_cli_init_run_sbl(tmp_path):
 
 
 def test_buoy_at_fourth_order_raises_item_11():
+    """SBL_Smag's own schemes (smag2, the MOST surface) do not go with a
+    4th-order grid, so its ini with swspatialorder=4 raises; thermo buoy
+    itself builds at 4th order with the 4th-order stack."""
     text = sbl_ini().replace("swspatialorder=2", "swspatialorder=4")
     with pytest.raises(NotImplementedError, match="item 11"):
         Model(Ini(text), "run", "SBL", dtype=torch.float64, device="cpu",
               input_nc=sbl_input(KT, ZSIZE))
+    text = text.replace("swdiff=smag2", "swdiff=4").replace(
+        "swboundary=surface", "swboundary=default").replace(
+        "swlspres=geo", "swlspres=0")
+    m = Model(Ini(text), "run", "SBL", dtype=torch.float64, device="cpu",
+              input_nc=sbl_input(KT, ZSIZE))
+    m.finish_setup()
+    m.build_step()
+    assert m.ctx.spatial_order == 4 and m.ctx.scalar_names == ("b",)
+    assert [k.name for k in m.kernels()] == ["o4_mom", "o4_scalars"]

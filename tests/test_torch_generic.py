@@ -323,7 +323,7 @@ def test_bomex_step_matches_jax(tmp_path, monkeypatch):
 def test_rico_verbatim_ini_raises_item_10():
     """The rico ini as written (swadvec=2i5, ROADMAP Queue 1 item 10) builds
     with the interpolated scheme as a producer before tendency kernels
-    without advection; a 4th-order scheme in its place still raises."""
+    without advection; a 4th-order scheme on this 2nd-order grid raises."""
     text = open(os.path.join(ROOT, "cases", "rico", "rico.ini")).read()
     m = Model(Ini(text), "run", "rico", dtype=torch.float64, device="cpu",
               input_nc=rico_input(100, ZSIZE))

@@ -291,5 +291,6 @@ def test_wrapper_contract():
                                        "dft_inv", "limits", "tend_uvw",
                                        "tend_scalars", "micro2",
                                        "advec_mom", "advec_scalars",
-                                       "evisc_n2", "tend_scalar_rk"}
+                                       "evisc_n2", "tend_scalar_rk",
+                                       "o4_mom", "o4_scalars"}
     assert kernels.library_path().startswith(kernels.BUILD_DIR)
