@@ -23,12 +23,17 @@ Phases (any failure exits non-zero and prints no result line):
      and K17 on random fields with random ghost levels, in the 4m scheme on
      the moser180 case at 45x40 and in the 4 scheme on the weakscaling case
      at 48x20, both on their stretched levels, at ktot 16 and 6 (the short
-     column makes every ladder row a wall row);
+     column makes every ladder row a wall row); K18 (advection and the
+     Coriolis fold each on and off), K19 (advection on and off) and K21 on
+     the jaenschwalde case at 45x40x24 and 48x16x32, K20 (sponge and
+     Coriolis folds each on and off), K1 and K7 on ghost-filled dry fields
+     and K21 on the sullivan2011 case at 45^2x24 and 48^2x32, the carries
+     random;
   4. two whole RK3 steps on the card against the same two steps on the CPU
      (plain versions), <= 1e-10: a 32^3 drycblles, a 16^2x24 rico
      (swadvec=2), a 16^2x24 rico as its ini is written (swadvec=2i5), a
-     16^2x24 SBL_Smag, a 16^3 moser180 and a 16x8x32 weakscaling case,
-     float64;
+     16^2x24 SBL_Smag, a 16^3 moser180, a 16x8x32 weakscaling, a 32x16x24
+     jaenschwalde and a 32^3 sullivan2011 case, float64;
   5. the drycblles LES at 512^3 float32 through Model.run(max_iters=12): its
      kernels launched, finite fields, status DIV <= 1e-4; then the step time
      (median of 10 steps after 2 warm-up steps) and the peak memory;
@@ -56,7 +61,14 @@ Phases (any failure exits non-zero and prints no result line):
      irfft2: library calls, as in the JAX package);
  15. and 16. the same for moser180 as its ini is written (advec 4m, uflux,
      the scalar s) with stats and budget off, 256x192x128 float64, DIV <=
-     1e-10: K16 and K17 in their 4m scheme and float64 build.
+     1e-10: K16 and K17 in their 4m scheme and float64 build;
+ 17. and 18. the same for jaenschwalde as its ini is written (thermo moist,
+     swadvec=2i5 with the flux limiter on co2, nine sources, open edges)
+     at 1024x256x256 float32, on the substep without the RK fold: K18, K19
+     and K21; also qt >= 0, co2 >= -1e-6 of its maximum, and the co2
+     inventory grown at the nine sources' rate;
+ 19. and 20. the same for sullivan2011 as its ini is written (thermo dry,
+     geostrophic forcing) with stats off at 512^3 float32: K20 and K21.
 Beside each kernel's time stands its bound: the bytes its inputs and outputs
 hold, each once, over 3.35 TB/s, or its operations over 67 TFLOP/s (float32
 outside the tensor cores; half that for float64) where that is larger; and, where one PyTorch call
@@ -266,6 +278,56 @@ def build_weakscaling(torch, n, k, dtype, device, mode="run", workdir="."):
     return m
 
 
+def build_jaenschwalde(torch, n, k, dtype, device, mode="run", workdir="."):
+    """cases/jaenschwalde/jaenschwalde.ini (thermo moist, swadvec=2i5 with
+    the flux limiter on co2, nine swvmr sources, open north, east and south
+    edges and a west inflow for co2, sponge, limiter on qt) at n = (itot,
+    jtot) and k levels with xsize, ysize and zsize kept, on the profiles of
+    jaenschwalde_input.py computed in memory."""
+    from microhh_torch.cases import jaenschwalde_input
+    from microhh_torch.config import Ini
+    from microhh_torch.model import Model
+    text = case_ini("jaenschwalde", itot=n[0], jtot=n[1], ktot=k)
+    m = Model(Ini(text), mode, "jaenschwalde", workdir=workdir, dtype=dtype,
+              device=device, input_nc=jaenschwalde_input(k))
+    m.finish_setup()
+    return m
+
+
+def build_sullivan(torch, n, k, dtype, device, mode="run", workdir="."):
+    """cases/sullivan2011/sullivan2011.ini (thermo dry, swlspres=geo, surface
+    flux 0.24, sponge) with stats off, at n = (itot, jtot) and k levels, on
+    the profiles of sullivan2011_input.py computed in memory."""
+    from microhh_torch.cases import sullivan2011_input
+    from microhh_torch.config import Ini
+    from microhh_torch.model import Model
+    text = case_ini("sullivan2011", itot=n[0], jtot=n[1], ktot=k, swstats=0)
+    m = Model(Ini(text), mode, "sullivan2011", workdir=workdir, dtype=dtype,
+              device=device, input_nc=sullivan2011_input(k))
+    m.finish_setup()
+    return m
+
+
+def unfolded_state(m, seed):
+    """Fields.create's state of a jaenschwalde or sullivan2011 model with
+    seeded velocities and, for the plume, a patchy co2 field and moisture
+    noise that dips below zero, so that the open edges and the limiter
+    act."""
+    from microhh_torch.model import NP_DTYPE
+    st = m.fields.create(m.input_nc, dtype=NP_DTYPE[m.dtype])
+    g = m.grid
+    ks, ke = g.kstart, g.kend
+    rng = np.random.RandomState(seed)
+    sh = (g.ktot, g.jtot, g.itot)
+    for n in ("u", "v"):
+        st[n][ks:ke] += 0.5 * rng.randn(*sh)
+    st["w"][ks + 1:ke] += 0.2 * rng.randn(g.ktot - 1, g.jtot, g.itot)
+    if "co2" in st:
+        st["co2"][ks:ke] += rng.rand(*sh)
+        st["qt"][ks:ke] *= np.clip(1. + 0.5 * rng.randn(*sh), -0.2, None)
+    return st
+
+
 def o4_state(m, seed):
     """Fields.create's state of a 4th-order case with seeded velocity
     noise."""
@@ -404,6 +466,8 @@ def pres_cases(torch, m, s, t0, rnd):
     ctx, gl, pr = m.ctx, m.glue, m.pres
     interior = (ctx.ktot, ctx.jtot, ctx.itot)
     cases = []
+    if m.unfolded:
+        return dft_cases(torch, m, rnd) + tdma_ri_cases(torch, m, rnd)
     cases.append(("pres_rhs",
                   lambda: [gl.rhs(s["u"], s["v"], s["w"], 2.5)],
                   lambda: [F.pres_rhs_plain(s["u"], s["v"], s["w"], gl.pc,
@@ -423,26 +487,126 @@ def pres_cases(torch, m, s, t0, rnd):
             return [st[n] for n in st] + [t[n] for n in t]
         cases.append(("pres_apply", lambda apply=apply: apply(True),
                       lambda apply=apply: apply(False), "field"))
-    x = rnd(*interior)
-    cases.append(("dft_fwd",
-                  lambda: [torch.view_as_real(pr.rfft2(x))],
-                  lambda: [torch.view_as_real(torch.fft.rfft2(x, dim=(-2, -1)))],
-                  "field"))
-    spec = torch.fft.rfft2(x, dim=(-2, -1))
-    cases.append(("dft_inv",
-                  lambda: [pr.irfft2(spec.clone(), ctx.itot)],
-                  lambda: [torch.fft.irfft2(spec, s=x.shape[-2:],
-                                            dim=(-2, -1))], "field"))
+    spec = torch.fft.rfft2(rnd(*interior), dim=(-2, -1))
     cases.append(("tdma",
                   lambda: [torch.view_as_real(pr.tdma(spec.clone()))],
                   lambda: [torch.view_as_real(tdma_plain(spec.clone(), pr.winv,
                                                          pr.tab))],
                   "mode"))
+    return cases + dft_cases(torch, m, rnd)
+
+
+def dft_cases(torch, m, rnd):
+    """K5 and K6 against torch.fft on a model's wrappers."""
+    ctx, pr = m.ctx, m.pres
+    x = rnd(ctx.ktot, ctx.jtot, ctx.itot)
+    spec = torch.fft.rfft2(x, dim=(-2, -1))
+    return [("dft_fwd",
+             lambda: [torch.view_as_real(pr.rfft2(x))],
+             lambda: [torch.view_as_real(torch.fft.rfft2(x, dim=(-2, -1)))],
+             "field"),
+            ("dft_inv",
+             lambda: [pr.irfft2(spec.clone(), ctx.itot)],
+             lambda: [torch.fft.irfft2(spec, s=x.shape[-2:], dim=(-2, -1))],
+             "field")]
+
+
+def tdma_ri_cases(torch, m, rnd):
+    """K21 against its plain version on a random split spectrum; the error
+    is taken per mode, as K3's."""
+    from microhh_torch.ops.pres_2 import tdma_ri_plain
+    pr = m.pres
+    dr, di = rnd(*pr.winv.shape), rnd(*pr.winv.shape)
+    return [("tdma_ri",
+             lambda: [torch.stack(pr.tdma_ri(dr, di), dim=-1)],
+             lambda: [torch.stack(tdma_ri_plain(dr, di, pr.winv, pr.afcf),
+                                  dim=-1)], "mode")]
+
+
+class attrs:
+    """Set attributes of an object for the length of a with block."""
+
+    def __init__(self, obj, **values):
+        self.obj, self.values = obj, values
+
+    def __enter__(self):
+        self.saved = {k: getattr(self.obj, k) for k in self.values}
+        for k, v in self.values.items():
+            setattr(self.obj, k, v)
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            setattr(self.obj, k, v)
+
+
+def unfolded_sweep_cases(torch, m, s, e, t0, rnd):
+    """K18 and K19 (a generic model) or K20 (a dry one) against their plain
+    versions: the carries random, advection and the folds each on and
+    off."""
+    from microhh_torch.ops import fused as F
+    ctx, fz = m.ctx, m.fused
+    grid_args = (ctx.ks, ctx.dxi, ctx.dyi)
+    cases = []
+    if not m.generic:
+        # K20: a table without the sponge columns, and ug, vg with noise
+        ct = fz.ct.clone()
+        ct[:, F.T_UG] += rnd(ctx.ktot)
+        ct[:, F.T_VG] += rnd(ctx.ktot)
+        bare = ct.clone()
+        for col in (F.T_FACZ, F.T_FACZH):
+            bare[:, col] = 0.
+        for table, coriolis in ((ct, True), (ct, False), (bare, True),
+                                (bare, False)):
+            def dry(kernel, table=table, coriolis=coriolis):
+                t = {n: t0[n].clone() for n in F.PROGNOSTIC}
+                with attrs(fz, ct=table, coriolis=coriolis, fc=1e-2):
+                    if kernel:
+                        fz.tendencies(s, t, e)
+                    else:
+                        F.tendencies_plain(s, e, t, table, *grid_args,
+                                           fz.visc, fz.svisc, fz.tPr, fz.fc,
+                                           ctx.utrans, ctx.vtrans, coriolis)
+                return [t[n] for n in F.PROGNOSTIC]
+            cases.append(("tendencies", lambda f=dry: f(True),
+                          lambda f=dry: f(False), "field"))
+        return cases
+    ct = fz.ct_static.clone()
+    ct[:, F.T_UG] += rnd(ctx.ktot)
+    ct[:, F.T_VG] += rnd(ctx.ktot)
+    for advec in (fz.advec, not fz.advec):
+        for coriolis in (False, True):
+            def uvw(kernel, advec=advec, coriolis=coriolis):
+                t = {n: t0[n].clone() for n in ("u", "v", "w")}
+                with attrs(fz, ct_static=ct, fold_force=coriolis, fc=1e-2,
+                           advec=advec):
+                    if kernel:
+                        fz.tend_uvw_acc(s, t, e)
+                    else:
+                        F.tend_uvw_acc_plain(s, e, t, ct, *grid_args, fz.visc,
+                                             fz.fc, ctx.utrans, ctx.vtrans,
+                                             coriolis, advec)
+                return [t[n] for n in t]
+            cases.append(("tend_uvw_acc", lambda f=uvw: f(True),
+                          lambda f=uvw: f(False), "field"))
+        for name, svisc in list(zip(fz.names, fz.sviscs))[::2]:
+            def scalar(kernel, advec=advec, name=name, svisc=svisc):
+                t = {name: t0[name].clone()}
+                with attrs(fz, advec=advec):
+                    if kernel:
+                        fz.tend_scalar_acc(s, t, e, name)
+                    else:
+                        F.tend_scalar_acc_plain(s, name, e, t, ct, svisc,
+                                                *grid_args, fz.tPr, advec)
+                return [t[name]]
+            cases.append(("tend_scalar_acc", lambda f=scalar: f(True),
+                          lambda f=scalar: f(False), "field"))
     return cases
 
 
 def generic_state(m, seed):
     """The seeded test state of a generic-path model's case."""
+    if m.unfolded:
+        return unfolded_state(m, seed)
     return (sbl_state if "b" in m.fields.sp else rico_state)(m, seed)
 
 
@@ -467,12 +631,13 @@ def generic_kernel_cases(torch, m, seed, only=None):
                                     dtype=torch.float64)).to(ctx.dtype).to(ctx.device)
 
     shape = (ctx.kcells, ctx.jtot, ctx.itot)
-    names = ("u", "v", "w") + fz.names
+    names = ("u", "v", "w") + tuple(fz.names)
     e = F.generic_viscosity(fz, ctx, s, sfc, {})["evisc"]
     t0 = {n: rnd(*shape, scale=1e-3) for n in names}
-    ct, cts = F.generic_col_tables(fz, ctx, s, m.force, m.buffer)
-    ct = ct + rnd(*ct.shape, scale=1e-3)
-    cts = cts + rnd(*cts.shape, scale=1e-3)
+    if not m.unfolded:
+        ct, cts = F.generic_col_tables(fz, ctx, s, m.force, m.buffer)
+        ct = ct + rnd(*ct.shape, scale=1e-3)
+        cts = cts + rnd(*cts.shape, scale=1e-3)
     uvw = [s[n] for n in ("u", "v", "w")]
     args = (ctx.ks, ctx.dxi, ctx.dyi, fz.tPr)
     if fz.stratified == 2:
@@ -516,7 +681,9 @@ def generic_kernel_cases(torch, m, seed, only=None):
                       "field"))
         cases.append(("advec_scalars", lambda: scal(True), lambda: scal(False),
                       "field"))
-    for can in (-153. / 128., 0.):
+    if m.unfolded:
+        cases += unfolded_sweep_cases(torch, m, s, e, t0, rnd)
+    for can in (() if m.unfolded else (-153. / 128., 0.)):
         carry = can != 0.
 
         def uvw_sweep(kernel, can=can, carry=carry):
@@ -680,6 +847,19 @@ def check_kernels(torch):
                                                                 seed=n + k):
                 compare(torch, name, kern, plain, kind, dtype,
                         "SBL %d^2x%d" % (n, k))
+    # the substep without the RK fold: K18, K19 and K21 on the plume case,
+    # K20 and K21 on the dry one, with K1 and K7 in their ghost mode
+    for label, build, sizes in (
+            ("jaenschwalde", build_jaenschwalde, (((45, 40), 24), ((48, 16), 32))),
+            ("sullivan2011", build_sullivan, (((45, 45), 24), ((48, 48), 32)))):
+        for n, k in sizes:
+            for dtype in (torch.float64, torch.float32):
+                m = build(torch, n, k, dtype, "cuda")
+                m.build_step()
+                for name, kern, plain, kind in generic_kernel_cases(
+                        torch, m, seed=n[0] + k):
+                    compare(torch, name, kern, plain, kind, dtype,
+                            "%s %dx%dx%d" % (label, n[0], n[1], k))
     # the 4th-order stack: K16 and K17 in both schemes, partial tiles
     for label, build, n in (("moser 4m", build_moser, (45, 40)),
                             ("weakscaling 4", build_weakscaling, (48, 20))):
@@ -715,7 +895,13 @@ def check_step(torch):
               lambda m: o4_state(m, seed=7)),
              ("weakscaling 16x8x32", lambda d: build_weakscaling(
                  torch, (16, 8), 32, torch.float64, d),
-              lambda m: o4_state(m, seed=7)))
+              lambda m: o4_state(m, seed=7)),
+             ("jaenschwalde 32x16x24", lambda d: build_jaenschwalde(
+                 torch, (32, 16), 24, torch.float64, d),
+              lambda m: unfolded_state(m, seed=7)),
+             ("sullivan2011 32^3", lambda d: build_sullivan(
+                 torch, (32, 32), 32, torch.float64, d),
+              lambda m: unfolded_state(m, seed=7)))
     for label, make, state in cases:
         out = {}
         for device in ("cuda", "cpu"):
@@ -826,7 +1012,8 @@ FLOPS_PER_POINT = {"evisc": 100, "evisc_n2": 100, "limits": 110,
                    "tend_rk": 700, "tend_uvw": 450, "tend_scalars": 110,
                    "tend_scalar_rk": 110, "micro2": 300, "advec_mom": 400,
                    "advec_scalars": 130, "pres_rhs": 10, "pres_apply": 15,
-                   "tdma": 16,
+                   "tdma": 16, "tdma_ri": 12, "tend_uvw_acc": 430,
+                   "tend_scalar_acc": 100, "tendencies": 700,
                    # K16 and K17 by scheme (K17 per scalar)
                    "o4_mom": {"4": 840, "4m": 640},
                    "o4_scalars": {"4": 215, "4m": 130}}
@@ -854,6 +1041,7 @@ def pres_pairs(torch, m, s):
     """The projection's kernels (K3-K6) at the model's shapes."""
     from microhh_torch.ops import fused as F
     from microhh_torch.ops.pres_2 import tdma_plain
+    from microhh_torch.ops.pres_2 import tdma_ri_plain
     ctx, gl, pr, t = m.ctx, m.glue, m.pres, m.t
     rhs = gl.rhs(s["u"], s["v"], s["w"], 1.)
     p = pr.solve(rhs)
@@ -869,25 +1057,36 @@ def pres_pairs(torch, m, s):
     def lib_inv():
         return torch.fft.irfft2(spec.clone(), s=p.shape[-2:], dim=(-2, -1))
 
-    return {
+    dft = {
+        "dft_fwd": pair(lambda: pr.rfft2(rhs), lib_fwd, fb + sb, dft_flops,
+                        lib_fwd),
+        # the kernel overwrites its input: both sides time one copy of it
+        "dft_inv": pair(lambda: pr.irfft2(spec.clone(), ctx.itot), lib_inv,
+                        fb + sb, dft_flops, lib_inv)}
+    if m.unfolded:
+        # K21 reads dr, di and the pivots and writes xr, xi: five arrays of
+        # half a spectrum each
+        d = spec * pr.dz2
+        dr, di = d.real.contiguous(), d.imag.contiguous()
+        dft["tdma_ri"] = pair(
+            lambda: pr.tdma_ri(dr, di),
+            lambda: tdma_ri_plain(dr, di, pr.winv, pr.afcf), 5 * sb // 2,
+            FLOPS_PER_POINT["tdma_ri"] * spec.numel())
+        return dft
+    return dict(dft, **{
         "pres_rhs": pair(lambda: gl.rhs(s["u"], s["v"], s["w"], 1.),
                          lambda: F.pres_rhs_plain(s["u"], s["v"], s["w"], gl.pc,
                                                   ctx.ks, ctx.dxi, ctx.dyi, 1.),
                          4 * fb, FLOPS_PER_POINT["pres_rhs"] * n),
-        "dft_fwd": pair(lambda: pr.rfft2(rhs), lib_fwd, fb + sb, dft_flops,
-                        lib_fwd),
         "tdma": pair(lambda: pr.tdma(spec),
                      lambda: tdma_plain(spec, pr.winv, pr.tab), 2 * sb,
                      FLOPS_PER_POINT["tdma"] * n),
-        # the kernel overwrites its input: both sides time one copy of it
-        "dft_inv": pair(lambda: pr.irfft2(spec.clone(), ctx.itot), lib_inv,
-                        fb + sb, dft_flops, lib_inv),
         "pres_apply": pair(lambda: gl.apply(p, s, t, 0.0, 0.0, True),
                            lambda: F.pres_apply_plain(p, s, t, gl.pc, ctx.ks,
                                                       ctx.dxi, ctx.dyi, 0.0,
                                                       0.0, True),
                            13 * fb, FLOPS_PER_POINT["pres_apply"] * n),
-    }
+    })
 
 
 def time_kernels(torch, m, s):
@@ -936,7 +1135,7 @@ def step_times(torch, m, s, sfc, n=12, warm=2):
 
 
 def run_les(torch, workdir, label, build, n, nonneg=(), k=None,
-            dtype=None, div_tol=1e-4, p_floor=False):
+            dtype=None, div_tol=1e-4, p_floor=False, after_run=None):
     """init + Model.run(max_iters=12) of a case at n^3 (or n = (itot, jtot)
     and k levels) through the entry points a user calls; fails unless every
     kernel of the path was launched, the fields are finite, DIV <= div_tol
@@ -944,7 +1143,8 @@ def run_les(torch, workdir, label, build, n, nonneg=(), k=None,
     time and the peak memory.  p_floor: hold DIV to 16 times what one
     rounding of p to the run's type leaves, eps |p| dzhi4 dzi4 dt, where
     that is above div_tol (a 4th-order case on finely stretched levels;
-    three substeps a step each leave such a residue)."""
+    three substeps a step each leave such a residue).  after_run(m, s): a
+    further check of the state the run returned."""
     dtype = dtype or torch.float32
     k = k or n
     init = build(torch, n, k, dtype, "cuda", "init", workdir)
@@ -1000,6 +1200,8 @@ def run_les(torch, workdir, label, build, n, nonneg=(), k=None,
         raise AssertionError("%s divergence or status check failed" % label)
     if mins and min(mins.values()) < 0.:
         raise AssertionError("negative %s after the limiter" % mins)
+    if after_run is not None:
+        after_run(m, s)
     times, s, sfc = step_times(torch, m, s, m.final_sfc)
     step_s = statistics.median(times)
     log("  s/step %s: median %.6f (min %.6f, max %.6f) of 10; "
@@ -1011,6 +1213,31 @@ def run_les(torch, workdir, label, build, n, nonneg=(), k=None,
                   "run12_wall_s": run_s, "div_max": max(divs),
                   "div_limit": div_tol,
                   "cell_updates_per_s": points(m) / step_s}
+
+
+def check_plume(m, s):
+    """The co2 of the jaenschwalde run: not below -1e-6 of its maximum (the
+    flux limiter holds it), and its inventory, the integral of co2 rho /
+    xmair over the domain, grown from zero at the nine sources' rate: the
+    sum of their strengths in kmol/s times the run's time (in 12 steps
+    nothing has reached an open edge)."""
+    import torch
+    from microhh_torch import constants as cst
+    g, ctx = m.grid, m.ctx
+    ks, ke = ctx.ks, ctx.ke
+    co2 = s["co2"][ks:ke].double()
+    w = torch.as_tensor(m.fields.rhoref[ks:ke] / cst.xmair * g.dz[ks:ke]
+                        * g.dx * g.dy, device=co2.device)[:, None, None]
+    inventory = float((co2 * w).sum())
+    want = sum(m.source.strength) * m.timeloop.time
+    lo, hi = float(co2.min()), float(co2.max())
+    log("  co2 inventory %.6e kmol after %.3f s, the sources gave %.6e "
+        "(ratio %.6f); co2 min %.3e, max %.3e"
+        % (inventory, m.timeloop.time, want, inventory / want, lo, hi))
+    if not abs(inventory / want - 1.) <= 1e-3:
+        raise AssertionError("the co2 inventory does not follow the sources")
+    if not lo >= -1e-6 * hi:
+        raise AssertionError("co2 undershoots: min %.3e, max %.3e" % (lo, hi))
 
 
 def time_pairs(torch, pairs, plain_reps=3):
@@ -1050,7 +1277,8 @@ def time_generic_kernels(torch, m, s):
     sfc = m.final_sfc
     s = m.boundary.set_ghost_cells(ctx, s, sfc)
     e = F.generic_viscosity(fz, ctx, s, sfc, {})["evisc"]
-    ct, cts = F.generic_col_tables(fz, ctx, s, m.force, m.buffer)
+    if not m.unfolded:
+        ct, cts = F.generic_col_tables(fz, ctx, s, m.force, m.buffer)
     t = m.t
     uvw = [s[n] for n in ("u", "v", "w")]
     args = (ctx.ks, ctx.dxi, ctx.dyi, fz.tPr)
@@ -1095,6 +1323,59 @@ def time_generic_kernels(torch, m, s):
             lambda: A.scalars_plain(adv.scheme, *uvw, a, ta, adv.table(),
                                     ctx.ks, ctx.dxi, ctx.dyi),
             (3 + 3 * S) * fb, FLOPS_PER_POINT["advec_scalars"] * S * n)
+    if m.unfolded:
+        pairs.update(unfolded_sweep_pairs(m, s, e))
+    else:
+        pairs.update(rk_sweep_pairs(m, s, e, ct, cts, can))
+    pairs["limits"] = pair(lambda: fz.limits(*lim),
+                           lambda: F.limits_plain(*lim_plain), 4 * fb,
+                           FLOPS_PER_POINT["limits"] * n)
+    pairs.update(pres_pairs(torch, m, s))
+    out = time_pairs(torch, pairs)
+    if m.unfolded:
+        # K18-K20 have added onto the carry, which a step expects at zero
+        for a_t in t.values():
+            a_t.zero_()
+    return out
+
+
+def unfolded_sweep_pairs(m, s, e):
+    """K18 and K19 (one launch: one scalar) or K20 at a model's shapes: ten,
+    seven and thirteen fields, the carries read and written."""
+    from microhh_torch.ops import fused as F
+    ctx, fz, t = m.ctx, m.fused, m.t
+    fb, n = field_bytes(m), points(m)
+    grid_args = (ctx.ks, ctx.dxi, ctx.dyi)
+    if not m.generic:
+        return {"tendencies": pair(
+            lambda: fz.tendencies(s, t, e),
+            lambda: F.tendencies_plain(s, e, t, fz.ct, *grid_args, fz.visc,
+                                       fz.svisc, fz.tPr, fz.fc, ctx.utrans,
+                                       ctx.vtrans, fz.coriolis),
+            13 * fb, FLOPS_PER_POINT["tendencies"] * n)}
+    name, svisc = fz.names[0], fz.sviscs[0]
+    return {
+        "tend_uvw_acc": pair(
+            lambda: fz.tend_uvw_acc(s, t, e),
+            lambda: F.tend_uvw_acc_plain(s, e, t, fz.ct_static, *grid_args,
+                                         fz.visc, fz.fc, ctx.utrans,
+                                         ctx.vtrans, fz.fold_force, fz.advec),
+            10 * fb, FLOPS_PER_POINT["tend_uvw_acc"] * n),
+        "tend_scalar_acc": pair(
+            lambda: fz.tend_scalar_acc(s, t, e, name),
+            lambda: F.tend_scalar_acc_plain(s, name, e, t, fz.ct_static,
+                                            svisc, *grid_args, fz.tPr,
+                                            fz.advec),
+            7 * fb, FLOPS_PER_POINT["tend_scalar_acc"] * n)}
+
+
+def rk_sweep_pairs(m, s, e, ct, cts, can):
+    """K8/K9 and K10 or K15 at a generic model's shapes."""
+    from microhh_torch.ops import fused as F
+    ctx, fz, t = m.ctx, m.fused, m.t
+    fb, n = field_bytes(m), points(m)
+    S = len(fz.names)
+    pairs = {}
     pairs["tend_uvw"] = pair(
         lambda: fz.tend_uvw(s, t, e, ct, 0.5, can, True),
         lambda: F.tend_uvw_plain(s, e, t, ct, ctx.ks, ctx.dxi, ctx.dyi,
@@ -1115,11 +1396,7 @@ def time_generic_kernels(torch, m, s):
                 s, fz.names, e, t, cts, fz.sviscs, ctx.ks, ctx.dxi, ctx.dyi,
                 fz.tPr, 0.5, can, True, fz.advec),
             (4 + 4 * S) * fb, FLOPS_PER_POINT["tend_scalars"] * S * n)
-    pairs["limits"] = pair(lambda: fz.limits(*lim),
-                           lambda: F.limits_plain(*lim_plain), 4 * fb,
-                           FLOPS_PER_POINT["limits"] * n)
-    pairs.update(pres_pairs(torch, m, s))
-    return time_pairs(torch, pairs)
+    return pairs
 
 
 def time_o4_kernels(torch, m, s, plain_reps):
@@ -1187,8 +1464,13 @@ def time_pres4_parts(torch, m, s):
 #  last phase (--profile): where the step's device time goes
 # --------------------------------------------------------------------------
 
-# kernel-name fragment -> part of the step
+# kernel-name pattern -> part of the step; the first match counts (K18 and
+# K19 are the instances of K8/K9's and K15's kernels without the RK fold)
 PARTS = [("evisc_kernel", "K1/K14 evisc"), ("tend_rk_kernel", "K2 tend_rk"),
+         (r"tend_uvw_kernel<\w+, *(false|\(bool\)0)", "K18 tend_uvw_acc"),
+         (r"tend_scalar_kernel<\w+, *(false|\(bool\)0)", "K19 tend_scalar_acc"),
+         ("tendencies_kernel", "K20 tendencies"),
+         ("tdma_ri_kernel", "K21 tdma_ri"),
          ("micro2_kernel", "K11 micro2"),
          ("advec_mom_kernel", "K12 advec_mom"),
          ("advec_scalars_kernel", "K13 advec_scalars"),
@@ -1264,7 +1546,8 @@ def profile_steps(torch, m, s, label, nsteps=2):
         us = device_us(evt)
         if us <= 0.:
             continue
-        lb = next((lb for frag, lb in PARTS if frag in evt.key), None)
+        lb = next((lb for frag, lb in PARTS if re.search(frag, evt.key)),
+                  None)
         if lb is None:
             other += us
             other_n += evt.count
@@ -1353,6 +1636,24 @@ def main():
     entries = {}
     by_path = {}
 
+    def record(m, s, key, result_key, label, res, errs, times, where):
+        """Keep a path's results: the kernels' entries (first path wins),
+        their times at this path's shapes, its launches, and its profile."""
+        for kern in m.kernels():
+            if kern.name not in entries:
+                entries[kern.name] = kernel_entry(kern, res["launches"], errs,
+                                                  times, where)
+        res["kernels"] = {
+            kern.name: dict(times[kern.name],
+                            launches=res["launches"][kern.name],
+                            max_abs_err=errs[kern.name])
+            for kern in m.kernels()}
+        by_path[key] = res.pop("launches")
+        results[result_key] = res
+        if profile_path:
+            log("[p] profile of two %s steps" % where)
+            reports.append(profile_steps(torch, m, s, label))
+
     log("[5] drycblles 512^3 float32 through Model.run")
     with tempfile.TemporaryDirectory() as workdir:
         m, s, launches, step_s, peak, run_s = run_main_path(torch, workdir)
@@ -1389,19 +1690,8 @@ def main():
                 "versions, then timed" % (phase + 1, label, n))
             errs = check_kernels_full(torch, m, generic_kernel_cases)
             times = time_generic_kernels(torch, m, s)
-            where = "%s %d^3 float32" % (label, n)
-            for k in m.kernels():
-                if k.name not in entries:
-                    entries[k.name] = kernel_entry(k, res["launches"], errs,
-                                                   times, where)
-            res["kernels"] = {
-                k.name: dict(times[k.name], launches=res["launches"][k.name],
-                             max_abs_err=errs[k.name]) for k in m.kernels()}
-            by_path[key] = res.pop("launches")
-            results[key + "_f32"] = res
-            if profile_path:
-                log("[p] profile of two %s steps at %d^3 float32" % (label, n))
-                reports.append(profile_steps(torch, m, s, label))
+            record(m, s, key, key + "_f32", label, res, errs, times,
+                   "%s %d^3 float32" % (label, n))
             del m, s
         torch.cuda.empty_cache()
         phase += 2
@@ -1422,20 +1712,27 @@ def main():
             errs = check_kernels_full(torch, m, o4_kernel_cases)
             times = time_o4_kernels(torch, m, s, plain_reps)
             res["pres_4_ms"] = time_pres4_parts(torch, m, s)
-            for kern in m.kernels():
-                if kern.name not in entries:
-                    entries[kern.name] = kernel_entry(kern, res["launches"],
-                                                      errs, times, where)
-            res["kernels"] = {
-                kern.name: dict(times[kern.name],
-                                launches=res["launches"][kern.name],
-                                max_abs_err=errs[kern.name])
-                for kern in m.kernels()}
-            by_path[key] = res.pop("launches")
-            results[key] = res
-            if profile_path:
-                log("[p] profile of two %s steps" % where)
-                reports.append(profile_steps(torch, m, s, label))
+            record(m, s, key, key, label, res, errs, times, where)
+            del m, s
+        torch.cuda.empty_cache()
+        phase += 2
+
+    for key, label, build, n, k, kw in (
+            ("jaenschwalde_1024x256x256_f32", "jaenschwalde",
+             build_jaenschwalde, (1024, 256), 256,
+             {"nonneg": ("qt",), "after_run": check_plume}),
+            ("sullivan2011_512_f32", "sullivan2011", build_sullivan,
+             (512, 512), 512, {})):
+        log("[%d] %s %dx%dx%d float32 through Model.run"
+            % (phase, label, n[0], n[1], k))
+        with tempfile.TemporaryDirectory() as workdir:
+            m, s, res = run_les(torch, workdir, label, build, n, k=k, **kw)
+            where = "%s %s float32" % (label, shape_str(m))
+            log("[%d] kernels at %s: against their plain versions, then "
+                "timed" % (phase + 1, where))
+            errs = check_kernels_full(torch, m, generic_kernel_cases)
+            times = time_generic_kernels(torch, m, s)
+            record(m, s, key, key, label, res, errs, times, where)
             del m, s
         torch.cuda.empty_cache()
         phase += 2

@@ -7,12 +7,20 @@ hold it equal, bit for bit, to the file that script writes.
 dataset (``utils/nc.MemoryDataset``), which ``Model(..., input_nc=)`` takes.
 ``sbl_profiles`` and ``sbl_input`` do the same for ``cases/SBL_Smag/
 SBL_input.py``, ``moser180_input`` for ``cases/moser180/moser180_input.py``
-and ``weakscaling_input`` for ``cases/weakscaling/weakscaling_input.py``.
+and ``weakscaling_input`` for ``cases/weakscaling/weakscaling_input.py``,
+``jaenschwalde_input`` for ``cases/jaenschwalde/jaenschwalde_input.py`` and
+``sullivan2011_input`` for ``cases/sullivan2011/sullivan2011_input.py``.
 """
 
 import numpy as np
 
 from .utils.nc import MemoryDataset
+
+
+def uniform_z(ktot, zsize):
+    """Full levels of a uniform grid, as the cases' input scripts set them."""
+    dz = zsize / ktot
+    return np.linspace(0.5 * dz, zsize - 0.5 * dz, ktot)
 
 
 def rico_profiles(z):
@@ -37,8 +45,7 @@ def rico_profiles(z):
 
 def rico_input(ktot, zsize):
     """The rico input dataset on the uniform grid of rico_input.py."""
-    dz = zsize / ktot
-    z = np.linspace(0.5 * dz, zsize - 0.5 * dz, ktot)
+    z = uniform_z(ktot, zsize)
     return MemoryDataset({"z": z}, {"init": rico_profiles(z)})
 
 
@@ -54,8 +61,7 @@ def sbl_profiles(z, zsize):
 
 def sbl_input(ktot, zsize):
     """The SBL_Smag input dataset on the uniform grid of SBL_input.py."""
-    dz = zsize / ktot
-    z = np.linspace(0.5 * dz, zsize - 0.5 * dz, ktot)
+    z = uniform_z(ktot, zsize)
     return MemoryDataset({"z": z}, {"init": sbl_profiles(z, zsize)})
 
 
@@ -101,3 +107,42 @@ def weakscaling_input(ktot=1024):
                                 nloc2=1024. * f, nbuf2=144. * f,
                                 dz1=0.0005 / f, dz2=0.001 / f, dz3=0.01 / f)
     return MemoryDataset({"z": z}, {"init": {"b": 3. * z}}), zsize
+
+
+def jaenschwalde_profiles(z):
+    """The init-group profiles of jaenschwalde_input.nc at full levels z:
+    piecewise-linear soundings, no CO2 at the start and none flowing in."""
+    ktot = len(z)
+    thl = np.interp(z, [0., 400., 2000., 2500., 5000.],
+                    [285.7, 291.9, 293.0, 297.4, 307.0])
+    qt = np.interp(z, [0., 400., 2000., 2500., 5000.],
+                   np.array([6.2, 4.93, 3.61, 1.0, 0.3]) / 1000.)
+    u = np.interp(z, [0., 5000.], [3., 7.])
+    return {"thl": thl, "qt": qt, "u": u, "v": np.zeros(ktot),
+            "co2": np.zeros(ktot), "co2_inflow": np.zeros(ktot)}
+
+
+def jaenschwalde_input(ktot, zsize=5000.):
+    """The jaenschwalde input dataset on the uniform grid of
+    jaenschwalde_input.py."""
+    z = uniform_z(ktot, zsize)
+    return MemoryDataset({"z": z}, {"init": jaenschwalde_profiles(z)})
+
+
+def sullivan2011_profiles(z):
+    """The init-group profiles of sullivan2011_input.nc at full levels z:
+    a mixed layer under a capping inversion near 1 km, a weak geostrophic
+    wind."""
+    kmax = len(z)
+    th = np.where(z <= 974., 300.,
+                  np.where(z <= 1074., 300. + (z - 974.) * 0.08,
+                           308. + (z - 1074.) * 0.003))
+    return {"th": th, "u": np.ones(kmax), "u_geo": np.ones(kmax),
+            "v_geo": np.zeros(kmax)}
+
+
+def sullivan2011_input(ktot, zsize=2048.):
+    """The sullivan2011 input dataset on the uniform grid of
+    sullivan2011_input.py."""
+    z = uniform_z(ktot, zsize)
+    return MemoryDataset({"z": z}, {"init": sullivan2011_profiles(z)})

@@ -14,6 +14,15 @@
 // running value in registers; neighbouring threads own neighbouring modes,
 // so every k-step of a warp reads one contiguous run of interleaved
 // (re, im) pairs as 8- or 16-byte vectors.
+//
+// K21 tdma_ri: the same march on a spectrum that is split into its real and
+// imaginary parts and ALREADY multiplied by dz^2, with the table's columns
+// [af, cf] = [-a, -c] as the TPU kernel Pres2._tdma_ri builds them
+// (microhh_tpu/ops/pres_2.py:875, pallas_call :898, body _tdma_body :64;
+// columns :886-891), writing the solution into two new arrays.  Every mode
+// goes through the one launch, the Nyquist column too: the TPU's lane gate
+// and its scan for that column fit its vector unit, they are not math.
+// Used by Pres2.exec, the projection of the substep without the RK fold.
 #include <cuda_runtime.h>
 
 namespace mhh {
@@ -68,6 +77,47 @@ int launch_tdma(void* x, const T* winv, const T* tab, int kmax,
     return (int)cudaGetLastError();
 }
 
+template <typename T>
+__global__ void tdma_ri_kernel(const T* __restrict__ dr,
+                               const T* __restrict__ di,
+                               const T* __restrict__ winv,
+                               const T* __restrict__ afcf, T* __restrict__ xr,
+                               T* __restrict__ xi, int kmax,
+                               long long nmodes) {
+    const long long m = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (m >= nmodes) return;
+    T yr = T(0), yi = T(0);
+    for (int k = 0; k < kmax; ++k) {
+        const long long o = (long long)k * nmodes + m;
+        const T wv = __ldg(winv + o);
+        const T af = afcf[2 * k] * wv;
+        yr = af * yr + __ldg(dr + o) * wv;
+        yi = af * yi + __ldg(di + o) * wv;
+        xr[o] = yr;
+        xi[o] = yi;
+    }
+    T r = T(0), s = T(0);
+    for (int k = kmax - 1; k >= 0; --k) {
+        const long long o = (long long)k * nmodes + m;
+        const T cf = afcf[2 * k + 1] * __ldg(winv + o);
+        r = xr[o] + cf * r;
+        s = xi[o] + cf * s;
+        xr[o] = r;
+        xi[o] = s;
+    }
+}
+
+template <typename T>
+int launch_tdma_ri(const T* dr, const T* di, const T* winv, const T* afcf,
+                   T* xr, T* xi, int kmax, long long nmodes,
+                   cudaStream_t stream) {
+    const int threads = 256;
+    const long long blocks = (nmodes + threads - 1) / threads;
+    tdma_ri_kernel<T><<<(unsigned int)blocks, threads, 0, stream>>>(
+        dr, di, winv, afcf, xr, xi, kmax, nmodes);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace mhh
 
 #define MHH_TDMA(SUF, T)                                                      \
@@ -75,6 +125,13 @@ int launch_tdma(void* x, const T* winv, const T* tab, int kmax,
                                   int kmax, long long nmodes, void* stream) { \
         return mhh::launch_tdma<T>(x, (const T*)winv, (const T*)tab, kmax,    \
                                    nmodes, (cudaStream_t)stream);             \
+    }                                                                         \
+    extern "C" int mhh_tdma_ri_##SUF(                                         \
+        const void* dr, const void* di, const void* winv, const void* afcf,   \
+        void* xr, void* xi, int kmax, long long nmodes, void* stream) {       \
+        return mhh::launch_tdma_ri<T>(                                        \
+            (const T*)dr, (const T*)di, (const T*)winv, (const T*)afcf,       \
+            (T*)xr, (T*)xi, kmax, nmodes, (cudaStream_t)stream);              \
     }
 
 MHH_TDMA(f32, float)

@@ -26,6 +26,17 @@
 // carry before the sweep (pallas_fused.py advec=not self.no_advec); the
 // diffusion, the column fold and the Coriolis term stay.
 //
+// K18 tend_uvw_acc and K19 tend_scalar_acc: the same sweeps WITHOUT the RK
+// fold (the RK template flag off), for the substep in which another producer
+// changes the tendency after them (open boundaries, sources, the limiter in
+// its tendency form): the carry is read, the tendency added, the carry
+// written back in place; no s* is written, no ghost level of the carry is
+// touched, the column terms of the table are left out (buffer, sources and
+// forcing run as ops afterwards) and the Coriolis term stays a flag.  K18
+// replaces FusedLES2.tend_uv (:1540 / :1560; _tend_uv_body :505) and tend_w
+// (:1568 / :1582; _w_body :373), K19 FusedLES2.tend_scalar (:1589 / :1607;
+// _scalar_body :389), launched once per scalar.
+//
 // The fields are ghost-filled and read at k-1 and k+1 as they are (no
 // clamping, fold_ghosts off as on the TPU's generic path); evisc is the
 // kcells array whose ghost planes repeat the edge levels.  The per-level
@@ -50,7 +61,7 @@ namespace mhh {
 
 constexpr int MAXS = 8;
 
-template <typename T>
+template <typename T, bool RK>
 __global__ void __launch_bounds__(TI * TJ)
 tend_uvw_kernel(const T* __restrict__ u, const T* __restrict__ v,
                 const T* __restrict__ w, const T* __restrict__ e,
@@ -89,12 +100,15 @@ tend_uvw_kernel(const T* __restrict__ u, const T* __restrict__ v,
             const T u_ = U(q.kc, 0, 0), v_ = V(q.kc, 0, 0), w_ = W(q.kc, 0, 0);
 
             // ---- column fold and Coriolis (pallas_fused.py _extra_uv) ----
-            const T facz = cc[T_FACZ];
-            ut = ut + cc[T_ADDU] - facz * u_;
-            vt = vt + cc[T_ADDV] - facz * v_;
-            const T wdn = cc[T_WLSDN], wup = cc[T_WLSUP];
-            ut = ut + wdn * (u_ - U(q.km, 0, 0)) + wup * (U(q.kp, 0, 0) - u_);
-            vt = vt + wdn * (v_ - V(q.km, 0, 0)) + wup * (V(q.kp, 0, 0) - v_);
+            if (RK) {
+                const T facz = cc[T_FACZ];
+                ut = ut + cc[T_ADDU] - facz * u_;
+                vt = vt + cc[T_ADDV] - facz * v_;
+                const T wdn = cc[T_WLSDN], wup = cc[T_WLSUP];
+                ut = ut + wdn * (u_ - U(q.km, 0, 0)) + wup * (U(q.kp, 0, 0) - u_);
+                vt = vt + wdn * (v_ - V(q.km, 0, 0)) + wup * (V(q.kp, 0, 0) - v_);
+                wt = wt - cc[T_FACZH] * w_;
+            }
             if (coriolis) {
                 // the JAX package's stencil (ROADMAP Queue 3 on its offset)
                 const T v_at_u = T(0.25) * (v_ + V(q.kc, 0, 1) + V(q.kc, -1, 0)
@@ -104,21 +118,26 @@ tend_uvw_kernel(const T* __restrict__ u, const T* __restrict__ v,
                 ut = ut + fc * (v_at_u + vtrans - cc[T_VG]);
                 vt = vt - fc * (u_at_v + utrans - cc[T_UG]);
             }
-            wt = wt - cc[T_FACZH] * w_;
             if (k == 0) wt = T(0);   // half level ks is the wall
 
-            // ---- RK fold ----
+            // ---- RK fold, or the plain accumulation onto the carry ----
             const long long o = (long long)(ks + k) * plane + (long long)j * itot + i;
             ut = tu[o] + ut;
             vt = tv[o] + vt;
             wt = tw[o] + wt;
-            us[o] = u_ + cbdt * ut;
-            vs[o] = v_ + cbdt * vt;
-            ws[o] = w_ + cbdt * wt;
-            if (carry) {
-                tu[o] = can * ut;
-                tv[o] = can * vt;
-                tw[o] = can * wt;
+            if (RK) {
+                us[o] = u_ + cbdt * ut;
+                vs[o] = v_ + cbdt * vt;
+                ws[o] = w_ + cbdt * wt;
+                if (carry) {
+                    tu[o] = can * ut;
+                    tv[o] = can * vt;
+                    tw[o] = can * wt;
+                }
+            } else {
+                tu[o] = ut;
+                tv[o] = vt;
+                tw[o] = wt;
             }
         }
         __syncthreads();
@@ -192,7 +211,7 @@ tend_scalars_kernel(const T* __restrict__ u, const T* __restrict__ v,
 // K15: one scalar's sweep (tend_scalar_rk), the form a case with a single
 // scalar takes: the same point math as K10 with static shared memory for its
 // five rings.  fold = 0 leaves the column terms of the table out.
-template <typename T>
+template <typename T, bool RK>
 __global__ void __launch_bounds__(TI * TJ)
 tend_scalar_kernel(const T* __restrict__ u, const T* __restrict__ v,
                    const T* __restrict__ w, const T* __restrict__ e,
@@ -234,14 +253,18 @@ tend_scalar_kernel(const T* __restrict__ u, const T* __restrict__ v,
                 tt = tt + (cc[T_ADDS] - cc[T_FACZ] * a_
                            + cc[T_WLSDN] * (a_ - A(q.km, 0, 0))
                            + cc[T_WLSUP] * (A(q.kp, 0, 0) - a_));
-            as[o] = a_ + cbdt * tt;
-            if (carry) ta[o] = can * tt;
+            if (RK) {
+                as[o] = a_ + cbdt * tt;
+                if (carry) ta[o] = can * tt;
+            } else {
+                ta[o] = tt;
+            }
         }
         __syncthreads();
     }
 }
 
-template <typename T>
+template <typename T, bool RK>
 int launch_tend_scalar(const T* u, const T* v, const T* w, const T* e,
                        const T* a, T* as, T* ta, const T* ct, int itot,
                        int jtot, int ktot, int ks, double dxi, double dyi,
@@ -249,13 +272,13 @@ int launch_tend_scalar(const T* u, const T* v, const T* w, const T* e,
                        int carry, int fold, int advec, cudaStream_t stream) {
     const dim3 block(TI, TJ);
     const dim3 grid((itot + TI - 1) / TI, (jtot + TJ - 1) / TJ);
-    tend_scalar_kernel<T><<<grid, block, 0, stream>>>(
+    tend_scalar_kernel<T, RK><<<grid, block, 0, stream>>>(
         u, v, w, e, a, as, ta, ct, itot, jtot, ktot, ks, T(dxi), T(dyi),
         T(svisc), T(tPr), T(cbdt), T(can), carry, fold, advec);
     return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool RK>
 int launch_tend_uvw(const T* u, const T* v, const T* w, const T* e, T* us,
                     T* vs, T* ws, T* tu, T* tv, T* tw, const T* ct, int itot,
                     int jtot, int ktot, int ks, double dxi, double dyi,
@@ -264,7 +287,7 @@ int launch_tend_uvw(const T* u, const T* v, const T* w, const T* e, T* us,
                     int advec, cudaStream_t stream) {
     const dim3 block(TI, TJ);
     const dim3 grid((itot + TI - 1) / TI, (jtot + TJ - 1) / TJ);
-    tend_uvw_kernel<T><<<grid, block, 0, stream>>>(
+    tend_uvw_kernel<T, RK><<<grid, block, 0, stream>>>(
         u, v, w, e, us, vs, ws, tu, tv, tw, ct, itot, jtot, ktot, ks, T(dxi),
         T(dyi), T(visc), T(fc), T(utrans), T(vtrans), T(cbdt), T(can),
         coriolis, carry, advec);
@@ -311,7 +334,7 @@ int launch_tend_scalars(const T* u, const T* v, const T* w, const T* e,
         double dyi, double visc, double fc, double utrans, double vtrans,      \
         double cbdt, double can, int coriolis, int carry, int advec,          \
         void* stream) {                                                       \
-        return mhh::launch_tend_uvw<T>(                                       \
+        return mhh::launch_tend_uvw<T, true>(                                       \
             (const T*)u, (const T*)v, (const T*)w, (const T*)e, (T*)us,       \
             (T*)vs, (T*)ws, (T*)tu, (T*)tv, (T*)tw, (const T*)ct, itot, jtot, \
             ktot, ks, dxi, dyi, visc, fc, utrans, vtrans, cbdt, can,          \
@@ -334,10 +357,32 @@ int launch_tend_scalars(const T* u, const T* v, const T* w, const T* e,
         int jtot, int ktot, int ks, double dxi, double dyi, double svisc,     \
         double tPr, double cbdt, double can, int carry, int fold, int advec,  \
         void* stream) {                                                       \
-        return mhh::launch_tend_scalar<T>(                                    \
+        return mhh::launch_tend_scalar<T, true>(                                    \
             (const T*)u, (const T*)v, (const T*)w, (const T*)e, (const T*)a,  \
             (T*)as, (T*)ta, (const T*)cc, itot, jtot, ktot, ks, dxi, dyi,     \
             svisc, tPr, cbdt, can, carry, fold, advec, (cudaStream_t)stream); \
+    }                                                                         \
+    extern "C" int mhh_tend_uvw_acc_##SUF(                                    \
+        const void* u, const void* v, const void* w, const void* e,           \
+        void* tu, void* tv, void* tw, const void* ct, int itot, int jtot,     \
+        int ktot, int ks, double dxi, double dyi, double visc, double fc,     \
+        double utrans, double vtrans, int coriolis, int advec,                \
+        void* stream) {                                                       \
+        return mhh::launch_tend_uvw<T, false>(                                \
+            (const T*)u, (const T*)v, (const T*)w, (const T*)e, nullptr,      \
+            nullptr, nullptr, (T*)tu, (T*)tv, (T*)tw, (const T*)ct, itot,     \
+            jtot, ktot, ks, dxi, dyi, visc, fc, utrans, vtrans, 0., 0.,       \
+            coriolis, 0, advec, (cudaStream_t)stream);                        \
+    }                                                                         \
+    extern "C" int mhh_tend_scalar_acc_##SUF(                                 \
+        const void* u, const void* v, const void* w, const void* e,           \
+        const void* a, void* ta, const void* cc, int itot, int jtot,          \
+        int ktot, int ks, double dxi, double dyi, double svisc, double tPr,   \
+        int advec, void* stream) {                                            \
+        return mhh::launch_tend_scalar<T, false>(                             \
+            (const T*)u, (const T*)v, (const T*)w, (const T*)e, (const T*)a,  \
+            nullptr, (T*)ta, (const T*)cc, itot, jtot, ktot, ks, dxi, dyi,    \
+            svisc, tPr, 0., 0., 0, 0, advec, (cudaStream_t)stream);           \
     }
 
 MHH_TEND_GENERIC(f32, float)

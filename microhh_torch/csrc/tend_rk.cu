@@ -20,6 +20,20 @@
 // ring per field (common.cuh), so each of u, v, w, th, evisc is read once
 // (plus a 1/3 halo) and u/v/w/th share one pass, like the TPU kernel pair;
 // the pointwise math is les_math.cuh's, shared with K8-K10.
+//
+// K20 tendencies: the same dry set WITHOUT the RK fold, on ghost-filled
+// fields: the planes k-1 and k+1 are read as they are (evisc is the kcells
+// array whose ghost planes repeat the edge levels), the tendencies are added
+// onto the carries in place, no s* is written and no ghost level of a carry
+// is touched.  It carries the static-buffer fold and, as a flag, the
+// geostrophic Coriolis term with ug and vg in its (ktot, NTG) table.
+// Replaces FusedLES2.tendencies (:1743; pallas_calls :1807, :1827, :1861;
+// bodies _tend_uv_body :505, _tend_wth_body :521, _all_tiled_body :1100) and
+// the k-streaming form of the same sweep (_stream_call :1383 / :1399 with
+// _uv_stream_math :639 and _wth_stream_math :648): a k-marching ring of
+// three planes per field in shared memory is that dataflow, each plane
+// fetched once.  Used when a forcing, a limiter or a top boundary condition
+// rules the RK fold or the clamped reads out.
 #include "les_math.cuh"
 
 namespace mhh {
@@ -118,6 +132,91 @@ int launch_tend_rk(const T* u, const T* v, const T* w, const T* th,
     return (int)cudaGetLastError();
 }
 
+template <typename T>
+__global__ void __launch_bounds__(TI * TJ)
+tendencies_kernel(const T* __restrict__ u, const T* __restrict__ v,
+                  const T* __restrict__ w, const T* __restrict__ th,
+                  const T* __restrict__ e, T* tu, T* tv, T* tw, T* tth,
+                  const T* __restrict__ ct, int itot, int jtot, int ktot,
+                  int ks, T dxi, T dyi, T visc, T svisc, T tPr, T fc, T utrans,
+                  T vtrans, int coriolis) {
+    __shared__ T sh[5][3][HJ][HI];
+    const int i0 = blockIdx.x * TI, j0 = blockIdx.y * TJ;
+    const int i = i0 + threadIdx.x, j = j0 + threadIdx.y;
+    const bool inside = i < itot && j < jtot;
+    const long long plane = (long long)itot * jtot;
+    const T grav = T(9.81);
+    const View<T> U = view<T>(sh[0]), V = view<T>(sh[1]), W = view<T>(sh[2]);
+    const View<T> A = view<T>(sh[3]), E = view<T>(sh[4]);
+
+    auto load = [&](int p) {
+        const int s = slot(p);
+        load_tile(sh[0][s], u, ks + p, j0, i0, jtot, itot);
+        load_tile(sh[1][s], v, ks + p, j0, i0, jtot, itot);
+        load_tile(sh[2][s], w, ks + p, j0, i0, jtot, itot);
+        load_tile(sh[3][s], th, ks + p, j0, i0, jtot, itot);
+        load_tile(sh[4][s], e, ks + p, j0, i0, jtot, itot);
+    };
+
+    load(-1);
+    load(0);
+    for (int k = 0; k < ktot; ++k) {
+        load(k + 1);
+        __syncthreads();
+        if (inside) {
+            const Slots q = slots(k);
+            const T* cc = ct + (long long)k * NTG;
+            const T threfh = cc[T_THREFH], facz = cc[T_FACZ];
+            T ut, vt;
+            uv_tend(U, V, W, E, q, cc, dxi, dyi, visc, ut, vt);
+            const T a_ = A(q.kc, 0, 0);
+            T wt = w_tend(U, V, W, E, q, cc, dxi, dyi, visc)
+                   + grav / threfh * (i2(A(q.km, 0, 0), a_) - threfh);
+            T tht = s_tend(U, V, W, A, E, q, cc, dxi, dyi, svisc, T(1) / tPr);
+
+            // ---- folded sponge and Coriolis (_extra_uv, _extra_wth) ----
+            const T u_ = U(q.kc, 0, 0), v_ = V(q.kc, 0, 0), w_ = W(q.kc, 0, 0);
+            ut = ut - facz * (u_ - cc[T_UREF]);
+            vt = vt - facz * (v_ - cc[T_VREF]);
+            if (coriolis) {
+                // the JAX package's stencil (ROADMAP Queue 3 on its offset)
+                const T v_at_u = T(0.25) * (v_ + V(q.kc, 0, 1) + V(q.kc, -1, 0)
+                                            + V(q.kc, -1, 1));
+                const T u_at_v = T(0.25) * (u_ + U(q.kc, 0, -1) + U(q.kc, 1, 0)
+                                            + U(q.kc, 1, -1));
+                ut = ut + fc * (v_at_u + vtrans - cc[T_VG]);
+                vt = vt - fc * (u_at_v + utrans - cc[T_UG]);
+            }
+            wt = wt - cc[T_FACZH] * w_;
+            tht = tht - facz * (a_ - cc[T_SREF]);
+            if (k == 0) wt = T(0);   // half level ks is the wall
+
+            const long long o = (long long)(ks + k) * plane + (long long)j * itot + i;
+            tu[o] = tu[o] + ut;
+            tv[o] = tv[o] + vt;
+            tw[o] = tw[o] + wt;
+            tth[o] = tth[o] + tht;
+        }
+        __syncthreads();
+    }
+}
+
+template <typename T>
+int launch_tendencies(const T* u, const T* v, const T* w, const T* th,
+                      const T* e, T* tu, T* tv, T* tw, T* tth, const T* ct,
+                      int itot, int jtot, int ktot, int ks, double dxi,
+                      double dyi, double visc, double svisc, double tPr,
+                      double fc, double utrans, double vtrans, int coriolis,
+                      cudaStream_t stream) {
+    const dim3 block(TI, TJ);
+    const dim3 grid((itot + TI - 1) / TI, (jtot + TJ - 1) / TJ);
+    tendencies_kernel<T><<<grid, block, 0, stream>>>(
+        u, v, w, th, e, tu, tv, tw, tth, ct, itot, jtot, ktot, ks, T(dxi),
+        T(dyi), T(visc), T(svisc), T(tPr), T(fc), T(utrans), T(vtrans),
+        coriolis);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace mhh
 
 #define MHH_TEND_RK(SUF, T)                                                   \
@@ -133,6 +232,18 @@ int launch_tend_rk(const T* u, const T* v, const T* w, const T* th,
             (const T*)e, (T*)us, (T*)vs, (T*)ws, (T*)ths, (T*)tu, (T*)tv,     \
             (T*)tw, (T*)tth, (const T*)ct, itot, jtot, ktot, ks, dxi, dyi,    \
             visc, svisc, tPr, cbdt, can, first, carry, (cudaStream_t)stream); \
+    }                                                                         \
+    extern "C" int mhh_tendencies_##SUF(                                      \
+        const void* u, const void* v, const void* w, const void* th,          \
+        const void* e, void* tu, void* tv, void* tw, void* tth,               \
+        const void* ct, int itot, int jtot, int ktot, int ks, double dxi,     \
+        double dyi, double visc, double svisc, double tPr, double fc,         \
+        double utrans, double vtrans, int coriolis, void* stream) {           \
+        return mhh::launch_tendencies<T>(                                     \
+            (const T*)u, (const T*)v, (const T*)w, (const T*)th,              \
+            (const T*)e, (T*)tu, (T*)tv, (T*)tw, (T*)tth, (const T*)ct, itot, \
+            jtot, ktot, ks, dxi, dyi, visc, svisc, tPr, fc, utrans, vtrans,   \
+            coriolis, (cudaStream_t)stream);                                  \
     }
 
 MHH_TEND_RK(f32, float)

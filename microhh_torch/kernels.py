@@ -81,6 +81,18 @@ SIGNATURES = {
     # carries' pointers and of their viscosities; S; cc; itot, jtot, ktot,
     # ks, scheme; dxi, dyi
     "o4_scalars": [_P] * 3 + [_PP] * 2 + [_PD, _I, _P] + [_I] * 5 + [_D] * 2,
+    # u, v, w, e, tu, tv, tw, ct; itot, jtot, ktot, ks; dxi, dyi, visc, fc,
+    # utrans, vtrans; coriolis, advec
+    "tend_uvw_acc": [_P] * 8 + [_I] * 4 + [_D] * 6 + [_I] * 2,
+    # u, v, w, e, a, carry, ct; itot, jtot, ktot, ks; dxi, dyi, svisc, tPr;
+    # advec
+    "tend_scalar_acc": [_P] * 7 + [_I] * 4 + [_D] * 4 + [_I],
+    # u, v, w, th, e (kcells), tu, tv, tw, tth, ct (ktot, NTG); itot, jtot,
+    # ktot, ks; dxi, dyi, visc, svisc, tPr, fc, utrans, vtrans; coriolis
+    "tendencies": [_P] * 10 + [_I] * 4 + [_D] * 8 + [_I],
+    # dr, di (spectrum times dz^2, split), winv, afcf (kmax, 2), xr, xi;
+    # kmax, nmodes
+    "tdma_ri": [_P] * 6 + [_I, ctypes.c_longlong],
     # qr, nr, qt, thl, tqr, tnr, tqt, tthl, ql, rr_bot, cc; itot, jtot, ktot,
     # ks, nsed; Nc0, dt
     "micro2": [_P] * 11 + [_I] * 5 + [_D] * 2,

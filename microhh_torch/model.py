@@ -1,9 +1,10 @@
 """Model orchestration of the PyTorch port (``microhh_tpu/model.py``; reference
 ``src/model.cxx``).
 
-One RK step runs eagerly on the model's device, on one of three paths of
-the JAX package's step: two of its RK-folded fused step at 2nd order, and
-its plain substep with the fused advection + diffusion producer at 4th.
+One RK step runs eagerly on the model's device, on one of four paths of
+the JAX package's step: two of its RK-folded fused step at 2nd order, its
+2nd-order substep without the RK fold, and its plain substep with the fused
+advection + diffusion producer at 4th order.
 
 * The dry path (thermo dry, the drycblles slice; full-plane kernels with
   ``fold_ghosts``): per substep the eddy viscosity (K1), the MOST surface,
@@ -20,6 +21,21 @@ its plain substep with the fused advection + diffusion producer at 4th.
   carry (K12/K13), the column tables, the tendency sweeps K8/K9 and K10
   (K15 for a single scalar; without their advec_2 terms after K12/K13), the
   projection, and the limiter as a clamp of s.
+* The 2nd-order substep without the RK fold (``microhh_tpu/model.py:371-417,
+  535-587``), for a case in which another producer changes the tendency
+  after advection and diffusion, so that the RK update cannot ride the
+  sweep: open lateral boundaries (``scalar_outflow``, the jaenschwalde
+  plume) on the generic path; on the dry path any forcing (the sullivan2011
+  LES with its geostrophic wind), limiter or source, and top boundary
+  conditions that rule the clamped kernels out.  Ghost fill, base state,
+  eddy viscosity (K1 in its ghost mode, or K14), thermo and microphysics
+  into the carry, the MOST surface and the refill of the flux-dependent
+  ghosts, an interpolated scheme's advection (K12/K13), then K18 and K19
+  per scalar (generic) or K20 (dry) onto the carry with the wall patches,
+  the outflow correction, buffer, source and force unless folded into the
+  kernel, the projection ``Pres2.exec`` (plain-torch input and output
+  around K5, K21, K6), the limiter in its tendency form and the
+  low-storage RK update in place.
 * The 4th-order path (advec 4 or 4m, diff 4, pres 4, the default boundary,
   thermo buoy or none: the moser180 and weakscaling slice;
   ``microhh_tpu/model.py:535-587``): per substep the in-place ghost fill,
@@ -56,15 +72,17 @@ from .ops import not_ported
 from .ops.advec_interp import AdvecInterp
 from .ops.advec_interp_fused import AdvecInterpFused
 from .ops.boundary import NEUMANN, FLUX, w_cons
+from .ops.boundary_outflow import BoundaryOutflow
 from .ops.buffer import make_buffer
-from .ops.force import make_force
+from .ops.force import NoForce, foldable_geo, make_force
 from .ops.fused import (Fused, FusedGeneric, PresGlue, exec_viscosity,
-                        generic_col_tables, generic_tendencies_rk,
-                        generic_viscosity, tendencies_rk, pressure_rk,
-                        surface_evisc_row)
+                        generic_col_tables, generic_tendencies,
+                        generic_tendencies_rk, generic_viscosity, tendencies,
+                        tendencies_rk, pressure_rk, surface_evisc_row)
 from .ops.limiter import Limiter
 from .ops.microphys import Microphys2momWarm, make_microphys
 from .ops.o4_fused import O4Fused
+from .ops.source import make_source
 from .ops.stencil import ip, jp, i2
 from .ops.thermo_dry import ThermoDry
 
@@ -130,12 +148,6 @@ def check_slice(ini, grid, sim_mode):
              if (ini.get_str(sec, "sw" + sec, default=order) in sws)
              != (order == "4")]
     boundary = ini.get_str("boundary", "swboundary", default="default")
-    # thermo dry with advec 2 takes the dry path, whose kernel folds no
-    # forcing; every other 2nd-order combination takes the generic path
-    dry_path = (thermo == "dry"
-                and ini.get_str("advec", "swadvec", default="2") == "2")
-    forced = (any(switch("force", n) for n in ("swlspres", "swls", "swwls"))
-              or ini.get_list(str, "limiter", "limitlist", default=[]))
     outside = [
         (mixed, "[%s] a scheme of another order than [grid] swspatialorder=%s"
          % ("], [".join(mixed), order), 11),
@@ -149,25 +161,21 @@ def check_slice(ini, grid, sim_mode):
          "[boundary] swboundary=default at swspatialorder=2", 14),
         (order == "2" and thermo == "0",
          "[thermo] swthermo=0 at swspatialorder=2", 9),
-        (order == "2" and ini.get_list(str, "fields", "slist", default=[]),
-         "[fields] slist (passive scalars) at swspatialorder=2", 9),
+        (order == "2" and ini.get_list(str, "fields", "slist", default=[])
+         and thermo in ("dry", "buoy"),
+         "[fields] slist (passive scalars) with [thermo] swthermo=%s at "
+         "swspatialorder=2" % thermo, 9),
         (order == "2" and ini.get_str("force", "swlspres", default="0") == "uflux",
          "[force] swlspres=uflux at swspatialorder=2", 9),
         (switch("micro", "swmicro") and not moist,
          "[micro] swmicro without [thermo] swthermo=moist", 9),
         (switch("radiation", "swradiation"), "[radiation] swradiation", 13),
-        (forced and dry_path,
-         "[force] or [limiter] with [thermo] swthermo=dry and [advec] "
-         "swadvec=2 (the dry step without the RK fold)", 9),
         (any(v not in ("0", "false") for v in decay.values()),
          "[decay] swdecay", 9),
-        (switch("source", "swsource"), "[source] swsource", 9),
         (ini.get_bool("boundary", "swtimedep", default=False),
          "[boundary] swtimedep", 14),
         (ini.get_list(str, "boundary", "sbot_2d_list", default=[]),
          "[boundary] sbot_2d_list", 14),
-        (ini.get_list(str, "boundary", "scalar_outflow", default=[]),
-         "[boundary] scalar_outflow", 14),
         (ini.get_str("IB", "sw_immersed_boundary",
                      default=ini.get_str("IB", "swib", default="0"))
          not in ("0", "false", "disabled"), "[IB] immersed boundary", 14),
@@ -242,6 +250,10 @@ class Model:
         self.force = make_force(ini, self.grid, self.fields, self.input_nc)
         self.buffer = make_buffer(ini, self.grid, self.fields, self.input_nc)
         self.limiter = Limiter(ini, self.fields)
+        self.source = make_source(ini, self.grid, self.fields, self.input_nc)
+        self.outflow = BoundaryOutflow(ini, self.grid, self.grid.spatial_order)
+        if self.outflow.active and self.input_nc is not None:
+            self.outflow.create(self.input_nc)
         self.timeloop = Timeloop(ini, sim_mode)
         # [master] wallclocklimit in hours (reference master.cxx:80-89)
         self.wallclocklimit = ini.get_float("master", "wallclocklimit",
@@ -252,6 +264,7 @@ class Model:
         self.fused = None
         self.advec_fused = None
         self.o4 = None
+        self.unfolded = False
 
     def at_wall_clock_limit(self):
         return (_time.time() - self._wall_start) > self.wallclocklimit * 3600. - 600.
@@ -287,7 +300,7 @@ class Model:
     # ------------------------------------------------------------------
     #  the step
     # ------------------------------------------------------------------
-    def build_step(self):
+    def build_step(self, unfolded=None):
         """Build the kernel wrappers and the RK carry for this case: the
         dry path for thermo dry with advec 2, whose kernels read clamped k
         neighbours instead of ghost cells (exact for a free-slip top and a
@@ -296,7 +309,21 @@ class Model:
         kernels that leave their advection out
         (microhh_tpu/model.py:712-737).  At 4th order the plain substep with
         K16/K17 as its advection + diffusion producer (the gates of
-        microhh_tpu/model.py:862-906, less the TPU's own)."""
+        microhh_tpu/model.py:862-906, less the TPU's own).
+
+        Both 2nd-order paths fold the RK update into their tendency kernels
+        unless something changes the tendency after them
+        (microhh_tpu/model.py:278-306, 319-333): open boundaries on the
+        generic path; on the dry path, whose RK kernel K2 folds nothing but
+        the static sponge and reads clamped neighbours, any forcing, limiter
+        or source and any top boundary condition other than free slip with
+        a Neumann or flux th.  Those cases take the substep without the RK
+        fold on ghost-filled fields (K18/K19 or K20).  The JAX package sends
+        a dry case whose only forcing is a static geostrophic wind down its
+        RK path with the Coriolis term folded into the kernel; K2 has no
+        such fold yet, so it goes down this one, with the fold in K20: the
+        two are equal to roundoff.  ``unfolded=True`` forces that substep
+        (its own check against the RK-folded paths)."""
         ctx = self.ctx
         shape = (ctx.kcells, ctx.jtot, ctx.itot)
         self.t = {n: torch.zeros(shape, dtype=self.dtype, device=self.device)
@@ -312,16 +339,27 @@ class Model:
         if self.generic:
             self.fused = FusedGeneric(ctx, self.diff, self.thermo, self.force,
                                       advec=not interp)
+            self.unfolded = bool(unfolded) or self.outflow.active
+            # K18 folds a static geostrophic wind; the sponge runs as its op
+            self.skip_force = self.fused.fold_force
+            self.skip_buffer = False
             return
         bcs = self.boundary.bcs
-        if not all(bcs[n].bctop == NEUMANN and bcs[n].top == 0.
-                   for n in ("u", "v")):
-            raise not_ported("a momentum top BC other than free slip "
-                             "(the ghost-filled kernel variant)", 7)
         bc = bcs["th"]
-        if bc.bctop not in (NEUMANN, FLUX):
-            raise not_ported("a Dirichlet top BC for th "
-                             "(the ghost-filled kernel variant)", 7)
+        clamp_ok = (all(bcs[n].bctop == NEUMANN and bcs[n].top == 0.
+                        for n in ("u", "v"))
+                    and bc.bctop in (NEUMANN, FLUX))
+        idle = (isinstance(self.force, NoForce)
+                and not self.limiter.limitlist and self.source is None)
+        self.unfolded = bool(unfolded) or not (clamp_ok and idle)
+        if self.unfolded:
+            # K20 folds the static sponge and a static geostrophic wind
+            self.skip_buffer = self.buffer is not None
+            self.skip_force = foldable_geo(self.force)
+            self.fused = Fused(ctx, self.diff, self.thermo, self.buffer, 0.,
+                               ghosts=True,
+                               force=self.force if self.skip_force else None)
+            return
         top_grad = bc.top if bc.bctop == NEUMANN else -bc.top / self.boundary.viscs["th"]
         self.fused = Fused(ctx, self.diff, self.thermo, self.buffer, top_grad)
 
@@ -331,24 +369,34 @@ class Model:
             return ([self.o4.k_mom, self.o4.k_scal] if self.ctx.scalar_names
                     else [self.o4.k_mom])
         fz = self.fused
-        pres = [self.glue.k_rhs, self.pres.k_dft_fwd, self.pres.k_tdma,
-                self.pres.k_dft_inv, self.glue.k_apply]
+        if self.unfolded:
+            pres = [self.pres.k_dft_fwd, self.pres.k_tdma_ri,
+                    self.pres.k_dft_inv]
+        else:
+            pres = [self.glue.k_rhs, self.pres.k_dft_fwd, self.pres.k_tdma,
+                    self.pres.k_dft_inv, self.glue.k_apply]
         if not self.generic:
-            return [fz.k_evisc, fz.k_tend] + pres + [fz.k_limits]
+            tend = fz.k_tendencies if self.unfolded else fz.k_tend
+            return [fz.k_evisc, tend] + pres + [fz.k_limits]
         micro = ([self.micro.k_micro]
                  if isinstance(self.micro, Microphys2momWarm) else [])
         evisc = [fz.k_evisc_n2] if fz.stratified == 2 else [fz.k_evisc]
         advec = ([self.advec_fused.k_mom, self.advec_fused.k_scal]
                  if self.advec_fused else [])
-        scalars = [fz.k_scalar] if len(fz.names) == 1 else [fz.k_scalars]
-        return (evisc + micro + advec + [fz.k_uvw] + scalars + pres
-                + [fz.k_limits])
+        if self.unfolded:
+            sweeps = [fz.k_uvw_acc] + ([fz.k_scalar_acc] if fz.names else [])
+        else:
+            sweeps = [fz.k_uvw] + ([fz.k_scalar] if len(fz.names) == 1
+                                   else [fz.k_scalars])
+        return evisc + micro + advec + sweeps + pres + [fz.k_limits]
 
     def substep(self, s, sfc, aux, dt, sub):
         """One low-storage RK substep on the RK-folded path (model.py:370-515
         of the JAX package): the carry self.t is updated in place."""
         if self.o4 is not None:
             return self._substep_o4(s, sfc, aux, dt, sub)
+        if self.unfolded:
+            return self._substep_unfolded(s, sfc, aux, dt, sub)
         if self.generic:
             return self._substep_generic(s, sfc, aux, dt, sub)
         ctx, tl = self.ctx, self.timeloop
@@ -393,6 +441,63 @@ class Model:
         self.limiter.clamp(ctx, s_new, self.t, subdt, can)
         return s_new, sfc, aux
 
+    def _substep_unfolded(self, s, sfc, aux, dt, sub):
+        """The 2nd-order substep without the RK fold
+        (microhh_tpu/model.py:371-417 and 535-587): the tendency kernels add
+        onto the carry, then the outflow correction, buffer, source, force,
+        projection and limiter work on the carry, and the low-storage RK
+        update closes the substep.  The carry and the RK update are in
+        place, the latter on the tensors the ghost fill made (and a copy of
+        w, which has no ghost level to fill), so the caller's state stays
+        as it was."""
+        ctx, tl, fz, bnd, t = self.ctx, self.timeloop, self.fused, self.boundary, self.t
+        s = bnd.set_ghost_cells(ctx, s, sfc)
+        s["w"] = s["w"].clone()
+        if getattr(self.thermo, "swupdatebasestate", False):
+            aux = self.thermo.update_basestate(ctx, s, aux, sfc)
+        aux = generic_viscosity(fz, ctx, s, sfc, aux)
+        if self.generic:
+            # thermo dry returns new tensors, the others add in place; on
+            # the dry path the buoyancy is K20's
+            t.update(self.thermo.exec(ctx, s, t, aux))
+            _, aux = self.micro.exec(ctx, s, t, aux, dt)
+        sfc = bnd.exec(ctx, s, sfc, aux)
+        s = bnd.set_ghost_cells(ctx, s, sfc, names=bnd.flux_ghost_names())
+        if self.generic:
+            if self.advec_fused is not None:
+                self.advec_fused.exec(ctx, s, t, aux)
+            generic_tendencies(fz, ctx, s, t, aux, sfc)
+        else:
+            tendencies(fz, ctx, s, t, aux, sfc)
+        if self.outflow.active:
+            self.outflow.correct(ctx, s, t, aux, tPr=self.diff.tPr,
+                                 sviscs=self.diff.viscs)
+        subdt = tl.rk_cb[sub] * dt
+        aux["subdt"] = subdt
+        if self.buffer is not None and not self.skip_buffer:
+            self.buffer(ctx, s, t, aux)
+        if self.source is not None:
+            self.source(ctx, s, t, aux, sfc)
+        if not self.skip_force:
+            t.update(self.force(ctx, s, t, aux, sfc))
+        aux = self.pres.exec(ctx, s, t, aux, subdt)
+        if self.limiter.limitlist:
+            t.update(self.limiter(ctx, s, t, aux, subdt))
+        self._rk_update(s, sub, subdt)
+        return s, sfc, aux
+
+    def _rk_update(self, s, sub, subdt):
+        """The low-storage RK update (timeloop.cxx:250-334), in place: the
+        carry's ghost levels are zero, so whole tensors are updated."""
+        tl, t = self.timeloop, self.t
+        can = tl.rk_ca[(sub + 1) % tl.n_substeps]
+        for n in self.fields.prognostic_names:
+            s[n].add_(t[n], alpha=subdt)
+            if can != 0.:
+                t[n].mul_(can)
+            else:
+                t[n].zero_()
+
     def _substep_o4(self, s, sfc, aux, dt, sub):
         """The 4th-order substep (the JAX package's plain substep,
         microhh_tpu/model.py:535-587, with the fused producer of :550-552).
@@ -414,22 +519,15 @@ class Model:
         self.pres.exec(ctx, s_cons, t, aux, subdt)
         if self.limiter.limitlist:
             t.update(self.limiter(ctx, s, t, aux, subdt))
-        # low-storage RK update (timeloop.cxx:250-334); the carry's ghost
-        # levels are zero, so whole tensors are updated
-        can = tl.rk_ca[(sub + 1) % tl.n_substeps]
-        for n in self.fields.prognostic_names:
-            s[n].add_(t[n], alpha=subdt)
-            if can != 0.:
-                t[n].mul_(can)
-            else:
-                t[n].zero_()
+        self._rk_update(s, sub, subdt)
         return s, sfc, aux
 
     def step(self, s, sfc, dt):
         """One RK step of size dt: returns (s, sfc, aux).  The 4th-order
         path updates the tensors of s in place."""
-        if self.generic:
+        if self.generic and not self.unfolded:
             # the producers add into the carry from the first substep on
+            # (the steps that update in place leave the carry zero)
             for a in self.t.values():
                 a.zero_()
         aux = {}
@@ -460,6 +558,8 @@ class Model:
             else:
                 th = s[fz.n2_scalar] if fz.stratified else s["u"]
         else:
+            if fz.ghosts:
+                s = self.boundary.set_ghost_cells(ctx, s, sfc)
             th = s["th"]
         cflk, evk = fz.limits(s["u"], s["v"], s["w"], th)
         if fz.smag.surface:

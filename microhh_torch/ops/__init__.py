@@ -4,8 +4,10 @@ The port carries the drycblles, the moist (bomex/rico) and the buoyancy
 (SBL_Smag) slices at 2nd order: ``advec 2`` and the interpolated ``2i4``,
 ``2i5``, ``2i53``, ``2i62``, ``diff smag2``, ``thermo dry``, ``moist`` and
 ``buoy``, the MOST surface and ``pres 2``, with ``2mom_warm`` microphysics,
-``force`` and ``limiter`` (ops/microphys.py, ops/force.py, ops/limiter.py);
-and the 4th-order DNS stack (moser180, weakscaling): ``advec 4`` and ``4m``,
+``force`` and ``limiter`` (ops/microphys.py, ops/force.py, ops/limiter.py),
+open lateral boundaries for scalars and emission sources
+(ops/boundary_outflow.py, ops/source.py; the jaenschwalde slice); and the
+4th-order DNS stack (moser180, weakscaling): ``advec 4`` and ``4m``,
 ``diff 4``, ``pres 4``, the ``default`` boundary, ``thermo buoy`` or none.
 Every other scheme raises NotImplementedError naming the ROADMAP item that
 ports it; model.check_slice refuses a 4th-order scheme on a 2nd-order grid

@@ -113,6 +113,14 @@ class Force:
         return t
 
 
+def foldable_geo(force):
+    """True when the forcing is a static geostrophic wind and nothing else,
+    which a tendency kernel folds in whole (microhh_tpu/model.py:763-767);
+    any other forcing runs as this op."""
+    return (isinstance(force, Force) and force.swlspres == "geo"
+            and force.swls == "0" and force.swwls == "0")
+
+
 class NoForce:
     def __call__(self, ctx, s, t, aux, sfc=None):
         return t

@@ -28,8 +28,20 @@ no fallback from the card to the plain version.
 * K15 ``FusedGeneric.tend_scalar_rk`` - K10's sweep for a case with one
                             scalar (``csrc/tend_generic.cu``).
 
-K8-K10 and K15 leave the advec_2 terms out when an interpolated scheme
-(K12/K13, ops/advec_interp_fused.py) has added the advection into the carry.
+* K18 ``FusedGeneric.tend_uvw_acc`` and K19 ``FusedGeneric.tend_scalar_acc``
+                          - K8/K9's and K15's sweeps without the RK fold: the
+                            tendency is added onto the carry in place
+                            (``csrc/tend_generic.cu``);
+* K20 ``Fused.tendencies`` - K2's dry set without the RK fold on ghost-filled
+                            fields, with the sponge and Coriolis folds
+                            (``csrc/tend_rk.cu``).
+
+K8-K10, K15, K18 and K19 leave the advec_2 terms out when an interpolated
+scheme (K12/K13, ops/advec_interp_fused.py) has added the advection into the
+carry.  K18-K20 serve the substep without the RK fold (model.py
+``_substep_unfolded``): another producer changes the tendency after them
+there (open boundaries, sources, a forcing op, the limiter in its tendency
+form), so the RK update cannot ride the sweep.
 
 On the dry path the kernels read the raw fields with CLAMPED k neighbours
 (the JAX package's ``fold_ghosts`` variant: no ghost fill inside the
@@ -328,10 +340,8 @@ def tend_uvw_plain(s, e, t, ct, ks, dxi, dyi, visc, fc, utrans, vtrans,
     ut = ut + wdn * (uc - u_dn) + wup * (u_up - uc)
     vt = vt + wdn * (vc - v_dn) + wup * (v_up - vc)
     if coriolis:
-        v_at_u = 0.25 * (vc + ip(vc) + jm(vc) + jm(ip(vc)))
-        u_at_v = 0.25 * (uc + im(uc) + jp(uc) + im(jp(uc)))
-        ut = ut + fc * (v_at_u + vtrans - c(T_VG))
-        vt = vt - fc * (u_at_v + utrans - c(T_UG))
+        cu, cv = _coriolis(uc, vc, c, fc, utrans, vtrans)
+        ut, vt = ut + cu, vt + cv
     wt = (_w_tend(c, dxi, dyi, visc, u_dn, uc, v_dn, vc, w_dn, wc, w_up,
                   e_dn, ec, advec) - c(T_FACZH) * wc)
     wt[0] = 0.          # half level ks is the wall
@@ -379,6 +389,91 @@ def tend_scalar_rk_plain(s, name, e, t, ct, svisc, ks, dxi, dyi, tPr, cbdt,
                               dyi, tPr, cbdt, can, carry, advec, fold)[name]
 
 
+def _coriolis(uc, vc, c, fc, utrans, vtrans):
+    """The geostrophic Coriolis terms of u and v (pallas_fused.py _extra_uv;
+    ROADMAP Queue 3 on the stencil's offset)."""
+    v_at_u = 0.25 * (vc + ip(vc) + jm(vc) + jm(ip(vc)))
+    u_at_v = 0.25 * (uc + im(uc) + jp(uc) + im(jp(uc)))
+    return (fc * (v_at_u + vtrans - c(T_VG)),
+            -fc * (u_at_v + utrans - c(T_UG)))
+
+
+def tend_uvw_acc_plain(s, e, t, ct, ks, dxi, dyi, visc, fc, utrans, vtrans,
+                       coriolis, advec=True):
+    """K18 in plain torch: advec_2 (unless advec is False) + smag2 of u, v
+    and w and, when coriolis, the geostrophic term with ug, vg of the (ktot,
+    NTG) table ct, added onto the interior of the carries t in place.  s:
+    ghost-filled fields, e: the kcells eddy viscosity.  The table's column
+    terms are left out; half level ks of w keeps its carry."""
+    kt = ct.shape[0]
+    ke = ks + kt
+    c = _columns(ct)
+    u_dn, uc, u_up = _ghost_planes(s["u"], ks, ke)
+    v_dn, vc, v_up = _ghost_planes(s["v"], ks, ke)
+    w_dn, wc, w_up = _ghost_planes(s["w"], ks, ke)
+    e_dn, ec, e_up = _ghost_planes(e, ks, ke)
+    ut, vt = _uv_tend(c, dxi, dyi, visc, u_dn, uc, u_up, v_dn, vc, v_up,
+                      wc, w_up, e_dn, ec, e_up, advec)
+    if coriolis:
+        cu, cv = _coriolis(uc, vc, c, fc, utrans, vtrans)
+        ut, vt = ut + cu, vt + cv
+    wt = _w_tend(c, dxi, dyi, visc, u_dn, uc, v_dn, vc, w_dn, wc, w_up,
+                 e_dn, ec, advec)
+    wt[0] = 0.          # half level ks is the wall
+    for n, tend in (("u", ut), ("v", vt), ("w", wt)):
+        t[n][ks:ke] += tend
+
+
+def tend_scalar_acc_plain(s, name, e, t, ct, svisc, ks, dxi, dyi, tPr,
+                          advec=True):
+    """K19 in plain torch: one scalar's advec_2 (unless advec is False) +
+    smag2, added onto the interior of its carry in place."""
+    kt = ct.shape[0]
+    ke = ks + kt
+    a_dn, ac, a_up = _ghost_planes(s[name], ks, ke)
+    e_dn, ec, e_up = _ghost_planes(e, ks, ke)
+    t[name][ks:ke] += _s_tend(
+        _columns(ct), dxi, dyi, svisc, tPr, s["u"][ks:ke], s["v"][ks:ke],
+        s["w"][ks:ke], s["w"][ks + 1:ke + 1], a_dn, ac, a_up, e_dn, ec, e_up,
+        advec)
+
+
+def tendencies_plain(s, e, t, ct, ks, dxi, dyi, visc, svisc, tPr, fc, utrans,
+                     vtrans, coriolis):
+    """K20 in plain torch: K2's dry set (advec_2 + smag2 of u, v, w, th,
+    the dry buoyancy, the static sponge of the (ktot, NTG) table ct and,
+    when coriolis, the geostrophic term) on ghost-filled fields s and the
+    kcells eddy viscosity e, added onto the interior of the carries t in
+    place; no RK update."""
+    kt = ct.shape[0]
+    ke = ks + kt
+    c = _columns(ct)
+    u_dn, uc, u_up = _ghost_planes(s["u"], ks, ke)
+    v_dn, vc, v_up = _ghost_planes(s["v"], ks, ke)
+    w_dn, wc, w_up = _ghost_planes(s["w"], ks, ke)
+    a_dn, ac, a_up = _ghost_planes(s["th"], ks, ke)
+    e_dn, ec, e_up = _ghost_planes(e, ks, ke)
+    ut, vt = _uv_tend(c, dxi, dyi, visc, u_dn, uc, u_up, v_dn, vc, v_up,
+                      wc, w_up, e_dn, ec, e_up)
+    threfh = c(T_THREFH)
+    wt = (_w_tend(c, dxi, dyi, visc, u_dn, uc, v_dn, vc, w_dn, wc, w_up,
+                  e_dn, ec)
+          + cst.grav / threfh * (i2(a_dn, ac) - threfh))
+    tht = _s_tend(c, dxi, dyi, svisc, tPr, uc, vc, wc, w_up, a_dn, ac, a_up,
+                  e_dn, ec, e_up)
+    facz = c(T_FACZ)
+    ut = ut - facz * (uc - c(T_UREF))
+    vt = vt - facz * (vc - c(T_VREF))
+    if coriolis:
+        cu, cv = _coriolis(uc, vc, c, fc, utrans, vtrans)
+        ut, vt = ut + cu, vt + cv
+    wt = wt - c(T_FACZH) * wc
+    tht = tht - facz * (ac - c(T_SREF))
+    wt[0] = 0.          # half level ks is the wall
+    for n, tend in zip(PROGNOSTIC, (ut, vt, wt, tht)):
+        t[n][ks:ke] += tend
+
+
 def _empty_ghosts_zero(like, ctx):
     """An uninitialised array like ``like`` whose ghost planes are zero
     (the kernels write the interior planes only)."""
@@ -393,19 +488,29 @@ def _empty_ghosts_zero(like, ctx):
 # ==========================================================================
 
 class Fused:
-    """K1 and K2 with their per-level tables, for one grid, base state and
-    sponge.  ``buffer`` is the static-profile sponge folded into K2 (None:
-    no sponge); ``top_grad_th`` is th's top ghost gradient (Neumann value,
-    or -flux/visc) that K1's clamped top plane needs."""
+    """K1, K2 (or K20) and K7 with their per-level tables, for one grid,
+    base state and sponge.  ``buffer`` is the static-profile sponge folded
+    into K2 or K20 (None: no sponge); ``top_grad_th`` is th's top ghost
+    gradient (Neumann value, or -flux/visc) that K1's clamped top plane
+    needs.  ``ghosts``: the kernels read the ghost planes of filled fields
+    (the dry substep without the RK fold: K1 and K7 in their ghost mode and
+    K20, whose table is NTG wide and holds ug, vg of ``force``, the static
+    geostrophic forcing folded into it, or None); else they clamp (K2)."""
 
     ghosts = False    # K1/K7 read ghost planes (generic path) or clamp
     # K1/K7's stability term: 0 none, 1 N2 from the th argument's gradient,
     # 2 the th argument is an interior N2 field (K14's mode)
     stratified = 1
+    n2_scalar = "th"  # the scalar whose gradient gives N2 (generic_viscosity)
+    names = ("th",)
 
-    def __init__(self, ctx, smag, thermo, buffer, top_grad_th):
+    def __init__(self, ctx, smag, thermo, buffer, top_grad_th, ghosts=False,
+                 force=None):
         self.ctx = ctx
         self.smag = smag
+        self.ghosts = bool(ghosts)
+        self.coriolis = force is not None
+        self.fc = float(force.fc) if self.coriolis else 0.
         self.tPr = smag.tPr
         self.visc = smag.visc
         self.svisc = smag.viscs.get("th", smag.visc)
@@ -417,8 +522,9 @@ class Fused:
         ce[:, E_DZHI1] = ctx.np_dzhi[ka + 1]
         ce[:, E_MLEN2] = smag.mlen2
         ce[:, E_THREF] = thermo.thref[ka]
-        ce[kt - 1, E_TOPS] = top_grad_th / ctx.np_dzhi[ke]
-        ct = np.zeros((kt, NT))
+        if not self.ghosts:
+            ce[kt - 1, E_TOPS] = top_grad_th / ctx.np_dzhi[ke]
+        ct = np.zeros((kt, NTG if self.ghosts else NT))
         ct[:, T_DZI] = ctx.np_dzi[ka]
         ct[:, T_DZHI] = ctx.np_dzhi[ka]
         ct[:, T_DZHI1] = ctx.np_dzhi[ka + 1]
@@ -434,6 +540,9 @@ class Fused:
             ct[:, T_UREF] = buffer.profs["u"][:, 0, 0]
             ct[:, T_VREF] = buffer.profs["v"][:, 0, 0]
             ct[:, T_SREF] = buffer.profs["th"][:, 0, 0]
+        if self.coriolis:
+            ct[:, T_UG] = force.ug[:, 0, 0]
+            ct[:, T_VG] = force.vg[:, 0, 0]
         self.ce = ctx.tensor(ce)
         self.ct = ctx.tensor(ct)
         self.k_evisc = Kernel("evisc", "microhh_torch/csrc/evisc.cu",
@@ -442,6 +551,11 @@ class Fused:
                              "microhh_tpu/ops/pallas_fused.py:1930")
         self.k_limits = Kernel("limits", "microhh_torch/csrc/evisc.cu",
                                "microhh_tpu/ops/pallas_fused.py:1524")
+        self.k_tendencies = Kernel(
+            "tendencies", "microhh_torch/csrc/tend_rk.cu",
+            "microhh_tpu/ops/pallas_fused.py:1807, "
+            "microhh_tpu/ops/pallas_fused.py:1827, "
+            "microhh_tpu/ops/pallas_fused.py:1399")
 
     def evisc(self, u, v, w, th, out=None):
         """K1: interior eddy viscosity (ktot, jtot, itot), into ``out`` when
@@ -507,6 +621,25 @@ class Fused:
                     *args[:-2], int(first), int(carry))
         return s_star
 
+    def tendencies(self, s, t, e):
+        """K20: the dry tendencies of ghost-filled u, v, w, th with the
+        kcells eddy viscosity e, added onto the carries t in place."""
+        ctx = self.ctx
+        if not self.ghosts:
+            raise ValueError("K20 reads ghost planes: build Fused with "
+                             "ghosts=True")
+        args = (ctx.ks, ctx.dxi, ctx.dyi, self.visc, self.svisc, self.tPr,
+                self.fc, ctx.utrans, ctx.vtrans, self.coriolis)
+        if on_cpu(e):
+            return tendencies_plain(s, e, t, self.ct, *args)
+        shape = (ctx.kcells, ctx.jtot, ctx.itot)
+        fields = [s[n] for n in PROGNOSTIC] + [e]
+        carry_t = [t[n] for n in PROGNOSTIC]
+        check(fields + carry_t + [self.ct], e.dtype, e.device,
+              [shape] * 9 + [(ctx.ktot, NTG)])
+        self.k_tendencies(e.dtype, *fields, *carry_t, self.ct, ctx.itot,
+                          ctx.jtot, ctx.ktot, *args[:-1], int(self.coriolis))
+
 
 class FusedGeneric(Fused):
     """The generic path's kernels for one grid, base state and scalar list:
@@ -524,7 +657,7 @@ class FusedGeneric(Fused):
     ghosts = True
 
     def __init__(self, ctx, smag, thermo, force, advec=True):
-        from .force import Force
+        from .force import Force, foldable_geo
         from .thermo_moist import ThermoMoist
         self.ctx = ctx
         self.smag = smag
@@ -558,6 +691,16 @@ class FusedGeneric(Fused):
         ct[:, T_RHO_M1] = ctx.np_rhoref[ka - 1]
         self.ce = ctx.tensor(ce)
         self.base = ctx.tensor(ct)
+        # the table of K18/K19, which take no column terms: the base
+        # columns and, when the forcing is nothing but a static geostrophic
+        # wind (fold_force; any other forcing runs as an op after them),
+        # its ug and vg for K18's Coriolis term
+        self.fold_force = foldable_geo(force)
+        ct = ct.copy()      # self.base may share the first array's memory
+        if self.fold_force:
+            ct[:, T_UG] = force.ug[:, 0, 0]
+            ct[:, T_VG] = force.vg[:, 0, 0]
+        self.ct_static = ctx.tensor(ct)
         self.k_evisc = Kernel("evisc", "microhh_torch/csrc/evisc.cu",
                               "microhh_tpu/ops/pallas_fused.py:1441")
         self.k_limits = Kernel("limits", "microhh_torch/csrc/evisc.cu",
@@ -573,6 +716,13 @@ class FusedGeneric(Fused):
         self.k_scalar = Kernel("tend_scalar_rk",
                                "microhh_torch/csrc/tend_generic.cu",
                                "microhh_tpu/ops/pallas_fused.py:1694")
+        self.k_uvw_acc = Kernel("tend_uvw_acc",
+                                "microhh_torch/csrc/tend_generic.cu",
+                                "microhh_tpu/ops/pallas_fused.py:1560, "
+                                "microhh_tpu/ops/pallas_fused.py:1582")
+        self.k_scalar_acc = Kernel("tend_scalar_acc",
+                                   "microhh_torch/csrc/tend_generic.cu",
+                                   "microhh_tpu/ops/pallas_fused.py:1607")
 
     def evisc_n2(self, u, v, w, n2, out=None):
         """K14: interior eddy viscosity from ghost-filled u, v, w and an
@@ -661,6 +811,43 @@ class FusedGeneric(Fused):
                       self.tPr, cbdt, can, int(carry), int(fold),
                       int(self.advec))
         return {name: a_star}
+
+    def tend_uvw_acc(self, s, t, e):
+        """K18: the tendencies of u, v, w added onto the carries t["u"],
+        t["v"], t["w"] in place (no RK update, no column terms; the
+        Coriolis term when the forcing is a foldable geostrophic wind)."""
+        ctx = self.ctx
+        ct = self.ct_static
+        args = (ctx.ks, ctx.dxi, ctx.dyi, self.visc, self.fc, ctx.utrans,
+                ctx.vtrans, self.fold_force)
+        if on_cpu(e):
+            return tend_uvw_acc_plain(s, e, t, ct, *args, self.advec)
+        shape = (ctx.kcells, ctx.jtot, ctx.itot)
+        fields = [s[n] for n in ("u", "v", "w")] + [e]
+        carry_t = [t[n] for n in ("u", "v", "w")]
+        check(fields + carry_t + [ct], e.dtype, e.device,
+              [shape] * 7 + [(ctx.ktot, NTG)])
+        self.k_uvw_acc(e.dtype, *fields, *carry_t, ct, ctx.itot, ctx.jtot,
+                       ctx.ktot, *args[:-1], int(self.fold_force),
+                       int(self.advec))
+
+    def tend_scalar_acc(self, s, t, e, name):
+        """K19: the tendency of the scalar ``name`` added onto its carry in
+        place."""
+        ctx = self.ctx
+        ct = self.ct_static
+        svisc = self.sviscs[self.names.index(name)]
+        args = (ctx.ks, ctx.dxi, ctx.dyi, self.tPr)
+        if on_cpu(e):
+            return tend_scalar_acc_plain(s, name, e, t, ct, svisc, *args,
+                                         self.advec)
+        shape = (ctx.kcells, ctx.jtot, ctx.itot)
+        fields = [s[n] for n in ("u", "v", "w")] + [e, s[name], t[name]]
+        check(fields + [ct], e.dtype, e.device,
+              [shape] * 6 + [(ctx.ktot, NTG)])
+        self.k_scalar_acc(e.dtype, *fields, ct, ctx.itot, ctx.jtot, ctx.ktot,
+                          ctx.ks, ctx.dxi, ctx.dyi, svisc, self.tPr,
+                          int(self.advec))
 
 
 class PresGlue:
@@ -1043,3 +1230,35 @@ def generic_tendencies_rk(fz, ctx, s, t, aux, sfc, cbdt, can, cols):
                 if carry:
                     t[name][ka] += can * delta
     return s_star
+
+
+# ==========================================================================
+#  the substep without the RK fold (pallas_fused.py :2201-2314, :3112-3168)
+# ==========================================================================
+
+def _add_wall_deltas(fz, ctx, s, t, aux, sfc):
+    """The MOST wall rows of the diffusion added onto the carry, in place."""
+    if fz.smag.surface:
+        for name, rows in generic_wall_deltas(fz, ctx, s, aux, sfc).items():
+            for ka, delta in rows:
+                t[name][ka] += delta
+
+
+def generic_tendencies(fz, ctx, s, t, aux, sfc):
+    """K18 and, once per scalar, K19 onto the carry t in place, then the
+    MOST wall rows (fused_generic_tendencies).  No RK update: the caller
+    runs the outflow correction, buffer, source, forcing, projection and
+    limiter on t afterwards."""
+    e = aux["evisc"]
+    fz.tend_uvw_acc(s, t, e)
+    for name in fz.names:
+        fz.tend_scalar_acc(s, t, e, name)
+    _add_wall_deltas(fz, ctx, s, t, aux, sfc)
+
+
+def tendencies(fz, ctx, s, t, aux, sfc):
+    """K20 onto the carry t in place, then the MOST wall rows of the
+    diffusion: the patches of fused_tendencies for ghost-filled fields
+    (unclamped neighbours), which are generic_wall_deltas' rows."""
+    fz.tendencies(s, t, aux["evisc"])
+    _add_wall_deltas(fz, ctx, s, t, aux, sfc)

@@ -10,13 +10,21 @@ precomputed once per case (``set_values``, pres_2.cxx:124-153,306-324),
 including the mean-mode top BC p = 0, so the per-step solve is two
 first-order recurrences over k per mode.  On a CPU tensor each of the three
 runs its plain-torch version.
+
+``solve`` serves the RK-folded paths, whose projection glue is K4
+(ops/fused.py pressure_rk).  ``exec`` is the projection of the substep
+without the RK fold (``microhh_tpu/ops/pres_2.py:995``): ``input`` and
+``output`` in plain torch, as the JAX package leaves them to XLA, and
+``solve_ri`` between them: K5, the spectrum times dz^2 split into its real
+and imaginary parts, K21 (the Thomas kernel of ``Pres2._tdma_ri``, every
+mode in one launch), K6.
 """
 
 import numpy as np
 import torch
 
 from ..kernels import Kernel, check, on_cpu
-from .stencil import ip, jp
+from .stencil import im, ip, jm, jp
 
 
 COMPLEX = {torch.float32: torch.complex64, torch.float64: torch.complex128}
@@ -38,6 +46,29 @@ def tdma_plain(x, winv, tab):
     return x
 
 
+def tdma_ri_plain(dr, di, winv, afcf):
+    """K21 in plain torch: the Thomas solve of every mode on the split
+    spectrum dr, di (kmax, jtot, nf) that is already multiplied by dz^2;
+    afcf columns [-a, -c] (the JAX package's _tdma_body).  Returns new
+    (xr, xi)."""
+    kmax = dr.shape[0]
+    xr, xi = torch.empty_like(dr), torch.empty_like(di)
+    yr, yi = torch.zeros_like(dr[0]), torch.zeros_like(di[0])
+    for k in range(kmax):
+        w = winv[k]
+        af = afcf[k, 0] * w
+        yr = af * yr + dr[k] * w
+        yi = af * yi + di[k] * w
+        xr[k], xi[k] = yr, yi
+    r, i_ = torch.zeros_like(dr[0]), torch.zeros_like(di[0])
+    for k in range(kmax - 1, -1, -1):
+        cf = afcf[k, 1] * winv[k]
+        r = xr[k] + cf * r
+        i_ = xi[k] + cf * i_
+        xr[k], xi[k] = r, i_
+    return xr, xi
+
+
 class Pres2:
     def __init__(self, ini, grid, fields):
         self.grid = grid
@@ -52,6 +83,8 @@ class Pres2:
                                 "microhh_tpu/ops/pallas_dft.py:322")
         self.k_dft_inv = Kernel("dft_inv", "microhh_torch/csrc/dft.cu",
                                 "microhh_tpu/ops/pallas_dft.py:344")
+        self.k_tdma_ri = Kernel("tdma_ri", "microhh_torch/csrc/tdma.cu",
+                                "microhh_tpu/ops/pres_2.py:898")
 
     def set_values(self, ctx):
         """Thomas pivots for the natural rfft2 mode order (reference
@@ -94,6 +127,9 @@ class Pres2:
         tab[:, 2] = dz ** 2
         self.winv = ctx.tensor(1. / w)
         self.tab = ctx.tensor(tab)
+        # K21's table and the rhs scale it does not fold in
+        self.afcf = ctx.tensor(tab[:, :2].copy())
+        self.dz2 = ctx.tensor(dz ** 2)[:, None, None]
 
     def tdma(self, x):
         """K3: solve every mode of the spectrum x in place."""
@@ -111,6 +147,19 @@ class Pres2:
         self.k_tdma(real, x, self.winv, self.tab, x.shape[0],
                     x.shape[1] * x.shape[2])
         return x
+
+    def tdma_ri(self, dr, di):
+        """K21: the Thomas solve of every mode on the split spectrum (times
+        dz^2); returns new (xr, xi)."""
+        if on_cpu(dr):
+            return tdma_ri_plain(dr, di, self.winv, self.afcf)
+        real = self.winv.dtype
+        check((dr, di, self.winv, self.afcf), real, self.winv.device,
+              [tuple(self.winv.shape)] * 3 + [(dr.shape[0], 2)])
+        xr, xi = torch.empty_like(dr), torch.empty_like(di)
+        self.k_tdma_ri(real, dr, di, self.winv, self.afcf, xr, xi,
+                       dr.shape[0], dr.shape[1] * dr.shape[2])
+        return xr, xi
 
     def rfft2(self, x):
         """K5: the spectrum (kmax, jtot, itot//2+1) of the real x (kmax,
@@ -143,6 +192,44 @@ class Pres2:
     def solve(self, rhs):
         """Pressure on the interior (kmax, jtot, itot) from the rhs."""
         return self.irfft2(self.tdma(self.rfft2(rhs)), rhs.shape[-1])
+
+    def solve_ri(self, rhs):
+        """Pressure on the interior from the rhs through K5, K21 and K6
+        (Pres2.solve with _solve_spectral_pallas in the JAX package); the
+        scaling by dz^2 and the split into real and imaginary parts are
+        plain torch, as they are XLA there."""
+        d = self.rfft2(rhs) * self.dz2
+        xr, xi = self.tdma_ri(d.real.contiguous(), d.imag.contiguous())
+        return self.irfft2(torch.complex(xr, xi), rhs.shape[-1])
+
+    def input(self, ctx, s, t, dti):
+        """rhs = div(rho (t + s/dt)) on the interior (pres_2.cxx:156-196)."""
+        ks, ke = ctx.ks, ctx.ke
+        uu = t["u"][ks:ke] + s["u"][ks:ke] * dti
+        vv = t["v"][ks:ke] + s["v"][ks:ke] * dti
+        ww = t["w"][ks:ke + 1] + s["w"][ks:ke + 1] * dti
+        rho = ctx.rhoref[ks:ke][:, None, None]
+        rhoh = ctx.rhorefh[ks:ke + 1][:, None, None]
+        dzi = ctx.dzi[ks:ke][:, None, None]
+        return (rho * ((ip(uu) - uu) * ctx.dxi + (jp(vv) - vv) * ctx.dyi)
+                + (rhoh[1:] * ww[1:] - rhoh[:-1] * ww[:-1]) * dzi)
+
+    def output(self, ctx, t, p):
+        """t -= grad p for u, v, w, in place on the interior; p is the
+        interior pressure (pres_2.cxx:364-387)."""
+        ks, ke = ctx.ks, ctx.ke
+        t["u"][ks:ke] -= (p - im(p)) * ctx.dxi
+        t["v"][ks:ke] -= (p - jm(p)) * ctx.dyi
+        t["w"][ks + 1:ke] -= (p[1:] - p[:-1]) * ctx.dzhi[ks + 1:ke][:, None, None]
+
+    def exec(self, ctx, s, t, aux, subdt):
+        """The projection of the substep without the RK fold: the carry t
+        is made divergence-free in place; aux['p'] is the interior
+        pressure."""
+        p = self.solve_ri(self.input(ctx, s, t, 1. / subdt))
+        self.output(ctx, t, p)
+        aux["p"] = p
+        return aux
 
     def divergence_max(self, ctx, s):
         """max |div(rho u)| (reference calc_divergence)."""

@@ -344,7 +344,7 @@ def test_rico_verbatim_ini_raises_item_10():
     (("[thermo]", "[thermo]\nswtimedep_pbot=true"), 9),
     (("swthermo=moist", "swthermo=vapor"), 9),
     (("swmicro=2mom_warm", "swmicro=nsw6"), 14),
-    (("[fields]", "[fields]\nslist=s1"), 9),
+    (("[buffer]", "[buffer]\nswupdate=1"), 9),
     (("[limiter]", "[decay]\nswdecay[qr]=exponential\n\n[limiter]"), 9),
 ])
 def test_generic_options_outside_the_slice_raise(change, item):

@@ -192,3 +192,94 @@ def test_port_sources_import_no_jax():
         offenders += ["chip_smoke.py:%d" % n for n, line in enumerate(f, 1)
                       if pattern.match(line)]
     assert not offenders, offenders
+
+
+# --------------------------------------------------------------------------
+#  the host parts of the open-boundary and source slice
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("case,ktot", [("jaenschwalde", 64),
+                                       ("sullivan2011", 64)])
+def test_case_inputs_match_their_generators(case, ktot, tmp_path, monkeypatch):
+    """cases.jaenschwalde_input and cases.sullivan2011_input hold, bit for
+    bit, what cases/<case>/<case>_input.py writes."""
+    from microhh_tpu.utils import nc as jnc
+    from microhh_torch import cases
+    case_dir = os.path.join(ROOT, "cases", case)
+    shutil.copy(os.path.join(case_dir, "%s.ini" % case), tmp_path)
+    monkeypatch.chdir(tmp_path)
+    runpy.run_path(os.path.join(case_dir, "%s_input.py" % case))
+    mem = getattr(cases, "%s_input" % case)(ktot)
+    with jnc.Dataset(str(tmp_path / ("%s_input.nc" % case)), "r") as f:
+        assert np.array_equal(np.asarray(f.variables["z"][:]),
+                              np.asarray(mem.variables["z"][:]))
+        written = f.groups["init"].variables
+        mine = mem.groups["init"].variables
+        assert set(written) == set(mine)
+        for name in written:
+            assert np.array_equal(np.asarray(written[name][:]),
+                                  np.asarray(mine[name][:])), name
+
+
+def _jaenschwalde_pair(extra=""):
+    """The JAX package's and the port's grid, fields and moist base state of
+    a 32x16x16 jaenschwalde, from the same in-memory input."""
+    from microhh_tpu.ops.thermo_moist import ThermoMoist as JThermoMoist
+    from microhh_torch import cases
+    from microhh_torch.ops.thermo_moist import ThermoMoist as TThermoMoist
+    with open(os.path.join(ROOT, "cases", "jaenschwalde",
+                           "jaenschwalde.ini")) as f:
+        text = f.read()
+    for key, val in (("itot", 32), ("jtot", 16), ("ktot", 16)):
+        text = re.sub(r"(?m)^%s=.*$" % key, "%s=%s" % (key, val), text)
+    text += extra
+    mem = cases.jaenschwalde_input(16)
+    out = []
+    for config, grid, fields, thermo in (
+            (jconfig, jgrid, jfields, JThermoMoist),
+            (tconfig, tgrid, tfields, TThermoMoist)):
+        ini = config.Ini(text)
+        g = grid.Grid(ini)
+        g.set_z(np.asarray(mem.variables["z"][:]))
+        fl = fields.Fields(ini, g)
+        thermo(ini, g, fl).create_basestate(mem)
+        out.append((ini, g, fl))
+    return out, mem
+
+
+@pytest.mark.parametrize("extra", ["", "line_x=300,0,0,0,0,0,0,0,0\n"
+                                       "line_z=0,0,50,0,0,0,0,0,0\n"])
+def test_source_blobs_match_bitwise(extra):
+    """Source.blobs: the normalised Gaussian and line blobs with their
+    rho/xmair-weighted norms are the JAX package's, bit for bit (pure
+    numpy on both sides), built after the anelastic base state."""
+    from microhh_tpu.ops.source import Source as JSource
+    from microhh_torch.ops.source import Source as TSource
+    text = extra and ("\n[source]\n" + extra)
+    (jset, tset), mem = _jaenschwalde_pair(text)
+    js = JSource(*jset, mem)
+    js._build()
+    src = TSource(*tset, mem)
+    mine = list(src.blobs())
+    assert len(mine) == len(js.blobs) == 9
+    assert src.line[0][0] == (300. if extra else 0.)
+    assert np.array_equal(jset[2].rhoref, tset[2].rhoref)
+    for (jn, jb), (tn, tb) in zip(js.blobs, mine):
+        assert jn == tn == "co2"
+        assert np.array_equal(jb, tb)
+
+
+def test_outflow_profiles_match_bitwise():
+    from microhh_tpu.ops.boundary_outflow import BoundaryOutflow as JOutflow
+    from microhh_torch.ops.boundary_outflow import BoundaryOutflow as TOutflow
+    (jset, tset), mem = _jaenschwalde_pair()
+    mem.groups["init"].variables["co2_inflow"][:] = np.linspace(0.1, 0.4, 16)
+    a = JOutflow(jset[0], jset[1], 2)
+    b = TOutflow(tset[0], tset[1], 2)
+    a.create(mem)
+    b.create(mem)
+    assert a.active and b.active and a.scalars == b.scalars == ["co2"]
+    assert a.direction == b.direction
+    assert set(a.inflow_profiles) == set(b.inflow_profiles) == {"co2"}
+    assert np.array_equal(a.inflow_profiles["co2"], b.inflow_profiles["co2"])
+    assert b.inflow_profiles["co2"][tset[1].kstart] == 0.1

@@ -292,5 +292,7 @@ def test_wrapper_contract():
                                        "tend_scalars", "micro2",
                                        "advec_mom", "advec_scalars",
                                        "evisc_n2", "tend_scalar_rk",
-                                       "o4_mom", "o4_scalars"}
+                                       "o4_mom", "o4_scalars",
+                                       "tend_uvw_acc", "tend_scalar_acc",
+                                       "tendencies", "tdma_ri"}
     assert kernels.library_path().startswith(kernels.BUILD_DIR)
