@@ -11,7 +11,13 @@ Phases (any failure exits non-zero and prints no result line):
      K11's running column sums and pow/exp/log chain included): the dry
      path's kernels at 45^2x8 (odd: the unpacked DFT path, radices 3 and 5)
      and 48^2x8 (radices 8, 2, 3), both with partial tiles, 64^2x32 and
-     512^2x32; the Thomas solve's error is taken relative to each mode's
+     512^2x32, K22 among them (first x carry, the surface row given or
+     not, the sponge and Coriolis folds each on and off, the evisc fold
+     off, the carries random; its rhs also against K4 rhs of its own
+     patched s*) and K2 with its Coriolis flag; the same on the
+     sullivan2011 case and, without thermo (K1 and K7 unstratified, K2 and
+     K22 with no th), on the neutral Ekman LES at 45^2x8 and 48^2x32; the
+     Thomas solve's error is taken relative to each mode's
      own maximum over k (<= 1e-12 and 1e-4: its k-march accumulates); the
      generic path's kernels (K1 and K7 on ghost-filled fields, K8/K9, K10
      with and without the carry, K11 rainy, with strong sedimentation and
@@ -27,18 +33,25 @@ Phases (any failure exits non-zero and prints no result line):
      Coriolis fold each on and off), K19 (advection on and off) and K21 on
      the jaenschwalde case at 45x40x24 and 48x16x32, K20 (sponge and
      Coriolis folds each on and off), K1 and K7 on ghost-filled dry fields
-     and K21 on the sullivan2011 case at 45^2x24 and 48^2x32, the carries
+     and K21 on the sullivan2011 case at 45^2x24 and 48^2x32 and, without
+     thermo, on the neutral Ekman LES at 45^2x8 and 48^2x32, the carries
      random;
   4. two whole RK3 steps on the card against the same two steps on the CPU
-     (plain versions), <= 1e-10: a 32^3 drycblles, a 16^2x24 rico
-     (swadvec=2), a 16^2x24 rico as its ini is written (swadvec=2i5), a
-     16^2x24 SBL_Smag, a 16^3 moser180, a 16x8x32 weakscaling, a 32x16x24
-     jaenschwalde and a 32^3 sullivan2011 case, float64;
-  5. the drycblles LES at 512^3 float32 through Model.run(max_iters=12): its
-     kernels launched, finite fields, status DIV <= 1e-4; then the step time
-     (median of 10 steps after 2 warm-up steps) and the peak memory;
+     (plain versions), <= 1e-10, float64, eleven cases: a 32^3 drycblles on
+     K22 and with build_step(fold=False), a 16^2x24 rico (swadvec=2), a
+     16^2x24 rico as its ini is written (swadvec=2i5), a 16^2x24 SBL_Smag, a
+     16^3 moser180, a 16x8x32 weakscaling, a 32x16x24 jaenschwalde, a 32^3
+     sullivan2011 on K22 and with build_step(unfolded=True), and a 48x24x24
+     neutral Ekman LES;
+  5. the drycblles LES at 512^3 float32 through Model.run(max_iters=12), on
+     the folded dry sweep K22: its kernels launched, finite fields, status
+     DIV <= 1e-4; then the step time (median of 10 steps after 2 warm-up
+     steps) and the peak memory;
   6. at the 512^3 float32 shapes of that run, each of its kernels against
-     its plain version (the float32 tolerances of phase 3), then both timed;
+     its plain version (the float32 tolerances of phase 3), then both timed,
+     and beside K22 the three kernels it stands in for (K1, K2, K4 rhs);
+  5b. and 6b. the same with build_step(fold=False) at 256^3, so that K1, K2
+     and K4 rhs stay launched on a path and held;
   7. the rico LES at 384^3 float32 (cases/rico/rico.ini with bench.py's
      swadvec=2 override) through Model(..., input_nc=), save_initial_state
      and Model.run(max_iters=12): its kernels launched, finite fields,
@@ -68,7 +81,15 @@ Phases (any failure exits non-zero and prints no result line):
      and K21; also qt >= 0, co2 >= -1e-6 of its maximum, and the co2
      inventory grown at the nine sources' rate;
  19. and 20. the same for sullivan2011 as its ini is written (thermo dry,
-     geostrophic forcing) with stats off at 512^3 float32: K20 and K21.
+     geostrophic forcing) with stats off at 512^3 float32, on the RK path:
+     K22 with the sponge and Coriolis folds;
+ 19b. and 20b. the same with build_step(unfolded=True) at 512^2x64: K20, K21
+     and K1, K7 in their ghost mode; then two steps of both forms from one
+     state, every field within 1e-3 of its maximum (float32 roundoff);
+ 21. and 22. the same for the neutral Ekman LES (cases/andren1994/
+     andren1994.ini less its passive scalar: thermo 0, no scalar) at
+     768x384x288 float32 on the ini's domain, 5.2 m isotropic: K22, K7 and
+     the projection without th.
 Beside each kernel's time stands its bound: the bytes its inputs and outputs
 hold, each once, over 3.35 TB/s, or its operations over 67 TFLOP/s (float32
 outside the tensor cores; half that for float64) where that is larger; and, where one PyTorch call
@@ -308,6 +329,27 @@ def build_sullivan(torch, n, k, dtype, device, mode="run", workdir="."):
     return m
 
 
+def andren_ini(n, k):
+    """cases/andren1994/andren1994.ini without its passive scalar (the
+    slist line and s's boundary values): the neutral Ekman LES, thermo 0,
+    on which the dry kernels run their has_thermo=False form."""
+    text = case_ini("andren1994", itot=n[0], jtot=n[1], ktot=k)
+    return re.sub(r"(?m)^(slist=s|sbot\[s\]=.*|stop\[s\]=.*)\n", "", text)
+
+
+def build_andren(torch, n, k, dtype, device, mode="run", workdir="."):
+    """The neutral Ekman LES of andren_ini at n = (itot, jtot) and k levels
+    with xsize, ysize and zsize kept, on the profiles of andren1994_input.py
+    computed in memory."""
+    from microhh_torch.cases import andren1994_input
+    from microhh_torch.config import Ini
+    from microhh_torch.model import Model
+    m = Model(Ini(andren_ini(n, k)), mode, "andren1994", workdir=workdir,
+              dtype=dtype, device=device, input_nc=andren1994_input(k))
+    m.finish_setup()
+    return m
+
+
 def unfolded_state(m, seed):
     """Fields.create's state of a jaenschwalde or sullivan2011 model with
     seeded velocities and, for the plume, a patchy co2 field and moisture
@@ -411,13 +453,22 @@ ERR = {"field": rel_err, "mode": mode_rel_err}
 #  phase 3: kernels against their plain versions
 # --------------------------------------------------------------------------
 
+def dry_state(m, seed):
+    """The seeded test state of a dry-path model's case."""
+    if m.casename == "drycblles":
+        return initial_state(m, seed)
+    return unfolded_state(m, seed)
+
+
 def kernel_cases(torch, m, seed):
-    """(name, kernel call, plain call, error kind) for every kernel on a
-    model's wrappers with seeded random inputs; each call returns a list of
-    tensors to compare."""
+    """(name, kernel call, plain call, error kind) for every kernel on a dry
+    RK-folded model's wrappers (drycblles, sullivan2011, the neutral Ekman
+    LES) with seeded random inputs; each call returns a list of tensors to
+    compare.  K1, K7, K2 (with and without the Coriolis term) and K22 run
+    in the model's own thermo mode."""
     from microhh_torch.ops import fused as F
     ctx = m.ctx
-    s, sfc = m.as_device_state(initial_state(m, seed))
+    s, sfc = m.as_device_state(dry_state(m, seed))
     gen = torch.Generator(device="cpu").manual_seed(seed)
 
     def rnd(*shape, scale=1.):
@@ -426,36 +477,95 @@ def kernel_cases(torch, m, seed):
 
     shape = (ctx.kcells, ctx.jtot, ctx.itot)
     interior = (ctx.ktot, ctx.jtot, ctx.itot)
+    fz = m.fused
+    names = fz.prognostic
     e = rnd(*interior).abs() * 10.
     t0 = {n: rnd(*shape, scale=0.1) for n in F.PROGNOSTIC}
-    fz = m.fused
+    uvwa = [s["u"], s["v"], s["w"], s["th"] if fz.has_thermo else s["u"]]
+    grid_args = (ctx.ks, ctx.dxi, ctx.dyi)
     cases = []
 
     cases.append(("evisc",
-                  lambda: [fz.evisc(s["u"], s["v"], s["w"], s["th"])],
-                  lambda: [F.evisc_plain(s["u"], s["v"], s["w"], s["th"],
-                                         fz.ce, ctx.ks, ctx.dxi, ctx.dyi,
-                                         fz.tPr, True)], "field"))
+                  lambda: [fz.evisc(*uvwa)],
+                  lambda: [F.evisc_plain(*uvwa, fz.ce, *grid_args, fz.tPr,
+                                         fz.has_thermo)], "field"))
     cases.append(("limits",
-                  lambda: list(fz.limits(s["u"], s["v"], s["w"], s["th"])),
-                  lambda: list(F.limits_plain(s["u"], s["v"], s["w"], s["th"],
-                                              fz.ce, ctx.ks, ctx.dxi, ctx.dyi,
-                                              fz.tPr, True)), "field"))
-    for first, can in ((True, -5. / 9.), (False, -153. / 128.), (False, 0.)):
+                  lambda: list(fz.limits(*uvwa)),
+                  lambda: list(F.limits_plain(*uvwa, fz.ce, *grid_args,
+                                              fz.tPr, fz.has_thermo)),
+                  "field"))
+    # a table with noise on ug, vg for the Coriolis term, and one without
+    # the sponge's columns
+    noisy = fz.ct.clone()
+    noisy[:, F.T_UG] += rnd(ctx.ktot)
+    noisy[:, F.T_VG] += rnd(ctx.ktot)
+    bare = noisy.clone()
+    for col in (F.T_FACZ, F.T_FACZH):
+        bare[:, col] = 0.
+    steps = ((True, -5. / 9.), (False, -153. / 128.), (False, 0.))
+    for first, can, table, coriolis in (
+            [(f, c, fz.ct, fz.coriolis) for f, c in steps]
+            + [(False, -153. / 128., noisy, not fz.coriolis)]):
         carry = can != 0.
 
-        def run(kernel, first=first, can=can, carry=carry):
-            t = {n: a.clone() for n, a in t0.items()}
-            args = (ctx.ks, ctx.dxi, ctx.dyi, fz.visc, fz.svisc, fz.tPr,
-                    0.7, can, first, carry)
-            if kernel:
-                out = fz.tend_rk(s, t, e, *args[6:])
-            else:
-                out = F.tend_rk_plain(s, e, t, fz.ct, *args)
-            return ([out[n][ctx.ks:ctx.ke] for n in F.PROGNOSTIC]
-                    + [t[n][ctx.ks:ctx.ke] for n in F.PROGNOSTIC])
+        def run(kernel, first=first, can=can, carry=carry, table=table,
+                coriolis=coriolis):
+            t = {n: t0[n].clone() for n in names}
+            with attrs(fz, ct=table, coriolis=coriolis, fc=1e-2):
+                if kernel:
+                    out = fz.tend_rk(s, t, e, 0.7, can, first, carry)
+                else:
+                    out = F.tend_rk_plain(s, e, t, table, *grid_args, fz.visc,
+                                          fz.svisc, fz.tPr, 0.7, can, first,
+                                          carry, *fz._sweep_args())
+            return ([out[n][ctx.ks:ctx.ke] for n in names]
+                    + [t[n][ctx.ks:ctx.ke] for n in names])
         cases.append(("tend_rk", lambda run=run: run(True),
                       lambda run=run: run(False), "field"))
+
+    # K22: first x carry, the surface row given or not, the sponge and
+    # Coriolis folds each on and off, the evisc fold off; the carries random
+    se_row = F.surface_evisc_row(fz.smag, ctx, s, sfc, fz.has_thermo)
+    se_row = se_row * (1. + 0.1 * rnd(ctx.jtot, ctx.itot)).abs()
+    mid = (False, -153. / 128.)
+    for first, can, table, coriolis, row, e_in in (
+            [(f, c, fz.ct, fz.coriolis, se_row, None) for f, c in steps]
+            + [mid + (fz.ct, fz.coriolis, None, None),
+               mid + (noisy, True, se_row, None),
+               mid + (noisy, False, se_row, None),
+               mid + (bare, True, se_row, None),
+               mid + (bare, False, None, None),
+               mid + (fz.ct, fz.coriolis, None, e)]):
+        carry = can != 0.
+
+        def fold(kernel, first=first, can=can, carry=carry, table=table,
+                 coriolis=coriolis, row=row, e_in=e_in):
+            t = {n: t0[n].clone() for n in names}
+            with attrs(fz, ct=table, coriolis=coriolis, fc=1e-2):
+                if kernel:
+                    out, ev, rhs = fz.tend_rk_fold(s, t, row, 0.7, can, 1.3,
+                                                   first, carry, e=e_in)
+                else:
+                    out, ev, rhs = F.tend_rk_fold_plain(
+                        s, t, table, fz.ce, *grid_args, fz.visc, fz.svisc,
+                        fz.tPr, 0.7, can, 1.3, first, carry, row, e_in,
+                        *fz._sweep_args())
+            return ([out[n][ctx.ks:ctx.ke] for n in names]
+                    + [t[n][ctx.ks:ctx.ke] for n in names] + [ev, rhs])
+        cases.append(("tend_rk_fold", lambda f=fold: f(True),
+                      lambda f=fold: f(False), "field"))
+
+    def rhs_of_patched(kernel):
+        """K22's rhs with the wall rows' correction against K4 rhs of the
+        patched s* that the same call returned."""
+        t = {n: t0[n].clone() for n in names}
+        s_star, _, rhs = F.tendencies_rk_fold(fz, ctx, s, t, {}, sfc, 0.7,
+                                              -5. / 9., False)
+        if kernel:
+            return [rhs]
+        return [m.glue.rhs(s_star["u"], s_star["v"], s_star["w"], 1. / 0.7)]
+    cases.append(("tend_rk_fold", lambda: rhs_of_patched(True),
+                  lambda: rhs_of_patched(False), "field"))
     return cases + pres_cases(torch, m, s, t0, rnd)
 
 
@@ -558,15 +668,16 @@ def unfolded_sweep_cases(torch, m, s, e, t0, rnd):
         for table, coriolis in ((ct, True), (ct, False), (bare, True),
                                 (bare, False)):
             def dry(kernel, table=table, coriolis=coriolis):
-                t = {n: t0[n].clone() for n in F.PROGNOSTIC}
+                t = {n: t0[n].clone() for n in fz.prognostic}
                 with attrs(fz, ct=table, coriolis=coriolis, fc=1e-2):
                     if kernel:
                         fz.tendencies(s, t, e)
                     else:
                         F.tendencies_plain(s, e, t, table, *grid_args,
                                            fz.visc, fz.svisc, fz.tPr, fz.fc,
-                                           ctx.utrans, ctx.vtrans, coriolis)
-                return [t[n] for n in F.PROGNOSTIC]
+                                           ctx.utrans, ctx.vtrans, coriolis,
+                                           fz.has_thermo)
+                return [t[n] for n in fz.prognostic]
             cases.append(("tendencies", lambda f=dry: f(True),
                           lambda f=dry: f(False), "field"))
         return cases
@@ -604,9 +715,9 @@ def unfolded_sweep_cases(torch, m, s, e, t0, rnd):
 
 
 def generic_state(m, seed):
-    """The seeded test state of a generic-path model's case."""
+    """The seeded test state of a generic-path or unfolded model's case."""
     if m.unfolded:
-        return unfolded_state(m, seed)
+        return dry_state(m, seed) if not m.generic else unfolded_state(m, seed)
     return (sbl_state if "b" in m.fields.sp else rico_state)(m, seed)
 
 
@@ -650,12 +761,15 @@ def generic_kernel_cases(torch, m, seed, only=None):
              lambda: list(F.limits_plain(*uvw, None, fz.ce, *args, True, True,
                                          n2)), "field")]
     else:
-        uvwa = uvw + [s[fz.n2_scalar]]
+        # unstratified (the neutral set), the th argument is not read
+        strat = bool(fz.stratified)
+        uvwa = uvw + [s[fz.n2_scalar] if strat else s["u"]]
         cases = [
             ("evisc", lambda: [fz.evisc(*uvwa)],
-             lambda: [F.evisc_plain(*uvwa, fz.ce, *args, True, True)], "field"),
+             lambda: [F.evisc_plain(*uvwa, fz.ce, *args, strat, True)],
+             "field"),
             ("limits", lambda: list(fz.limits(*uvwa)),
-             lambda: list(F.limits_plain(*uvwa, fz.ce, *args, True, True)),
+             lambda: list(F.limits_plain(*uvwa, fz.ce, *args, strat, True)),
              "field")]
     if adv is not None:
         def mom(kernel):
@@ -847,15 +961,30 @@ def check_kernels(torch):
                                                                 seed=n + k):
                 compare(torch, name, kern, plain, kind, dtype,
                         "SBL %d^2x%d" % (n, k))
-    # the substep without the RK fold: K18, K19 and K21 on the plume case,
-    # K20 and K21 on the dry one, with K1 and K7 in their ghost mode
-    for label, build, sizes in (
-            ("jaenschwalde", build_jaenschwalde, (((45, 40), 24), ((48, 16), 32))),
-            ("sullivan2011", build_sullivan, (((45, 45), 24), ((48, 48), 32)))):
-        for n, k in sizes:
+    # the folded dry sweep on its two other cases: K22, K2 with the Coriolis
+    # flag, K1 and K7, with thermo (sullivan2011: sponge and Coriolis folds)
+    # and without (the neutral Ekman LES), partial tiles
+    for label, build in (("sullivan2011", build_sullivan),
+                         ("andren1994", build_andren)):
+        for n, k in (((45, 45), 8), ((48, 48), 32)):
             for dtype in (torch.float64, torch.float32):
                 m = build(torch, n, k, dtype, "cuda")
                 m.build_step()
+                for name, kern, plain, kind in kernel_cases(torch, m,
+                                                            seed=n[0] + k):
+                    compare(torch, name, kern, plain, kind, dtype,
+                            "%s %dx%dx%d" % (label, n[0], n[1], k))
+    # the substep without the RK fold: K18, K19 and K21 on the plume case,
+    # K20 and K21 on the dry ones (with and without thermo), with K1 and K7
+    # in their ghost mode
+    for label, build, sizes in (
+            ("jaenschwalde", build_jaenschwalde, (((45, 40), 24), ((48, 16), 32))),
+            ("sullivan2011", build_sullivan, (((45, 45), 24), ((48, 48), 32))),
+            ("andren1994", build_andren, (((45, 45), 8), ((48, 48), 32)))):
+        for n, k in sizes:
+            for dtype in (torch.float64, torch.float32):
+                m = build(torch, n, k, dtype, "cuda")
+                m.build_step(unfolded=True)
                 for name, kern, plain, kind in generic_kernel_cases(
                         torch, m, seed=n[0] + k):
                     compare(torch, name, kern, plain, kind, dtype,
@@ -878,35 +1007,42 @@ def check_kernels(torch):
 # --------------------------------------------------------------------------
 
 def check_step(torch):
-    cases = (("drycblles 32^3", lambda d: build_model(torch, 32, 32,
-                                                      torch.float64, d),
-              lambda m: initial_state(m, seed=7)),
-             ("rico 16^2x24", lambda d: build_rico(torch, 16, 24,
-                                                   torch.float64, d),
-              lambda m: rico_state(m, seed=7)),
+    f64 = torch.float64
+    cases = (("drycblles 32^3", lambda d: build_model(torch, 32, 32, f64, d),
+              lambda m: initial_state(m, seed=7), {}),
+             ("drycblles 32^3 fold=False",
+              lambda d: build_model(torch, 32, 32, f64, d),
+              lambda m: initial_state(m, seed=7), {"fold": False}),
+             ("rico 16^2x24", lambda d: build_rico(torch, 16, 24, f64, d),
+              lambda m: rico_state(m, seed=7), {}),
              ("rico 2i5 16^2x24", lambda d: build_rico(
-                 torch, 16, 24, torch.float64, d, swadvec="2i5"),
-              lambda m: rico_state(m, seed=7)),
-             ("SBL_Smag 16^2x24", lambda d: build_sbl(torch, 16, 24,
-                                                      torch.float64, d),
-              lambda m: sbl_state(m, seed=7)),
+                 torch, 16, 24, f64, d, swadvec="2i5"),
+              lambda m: rico_state(m, seed=7), {}),
+             ("SBL_Smag 16^2x24", lambda d: build_sbl(torch, 16, 24, f64, d),
+              lambda m: sbl_state(m, seed=7), {}),
              ("moser180 16^3", lambda d: build_moser(torch, (16, 16), 16,
-                                                     torch.float64, d),
-              lambda m: o4_state(m, seed=7)),
+                                                     f64, d),
+              lambda m: o4_state(m, seed=7), {}),
              ("weakscaling 16x8x32", lambda d: build_weakscaling(
-                 torch, (16, 8), 32, torch.float64, d),
-              lambda m: o4_state(m, seed=7)),
+                 torch, (16, 8), 32, f64, d),
+              lambda m: o4_state(m, seed=7), {}),
              ("jaenschwalde 32x16x24", lambda d: build_jaenschwalde(
-                 torch, (32, 16), 24, torch.float64, d),
-              lambda m: unfolded_state(m, seed=7)),
+                 torch, (32, 16), 24, f64, d),
+              lambda m: unfolded_state(m, seed=7), {}),
              ("sullivan2011 32^3", lambda d: build_sullivan(
-                 torch, (32, 32), 32, torch.float64, d),
-              lambda m: unfolded_state(m, seed=7)))
-    for label, make, state in cases:
+                 torch, (32, 32), 32, f64, d),
+              lambda m: unfolded_state(m, seed=7), {}),
+             ("sullivan2011 32^3 unfolded", lambda d: build_sullivan(
+                 torch, (32, 32), 32, f64, d),
+              lambda m: unfolded_state(m, seed=7), {"unfolded": True}),
+             ("andren1994 48x24x24", lambda d: build_andren(
+                 torch, (48, 24), 24, f64, d),
+              lambda m: unfolded_state(m, seed=7), {}))
+    for label, make, state, step_kw in cases:
         out = {}
         for device in ("cuda", "cpu"):
             m = make(device)
-            m.build_step()
+            m.build_step(**step_kw)
             s, sfc = m.as_device_state(state(m))
             for _ in range(2):
                 s, sfc, aux = m.step(s, sfc, min(2.0, m.timeloop.dt))
@@ -918,8 +1054,8 @@ def check_step(torch):
         for n in m.fields.prognostic_names:
             worst = max(worst, rel_err(s_gpu[n][ks:ke].cpu(), s_cpu[n][ks:ke]))
         worst = max(worst, rel_err(aux_gpu["p"].cpu(), aux_cpu["p"]))
-        log("  2 RK3 steps %s float64, card vs CPU: max rel err %.3e"
-            % (label, worst))
+        log("  2 RK3 steps %s float64 (%s), card vs CPU: max rel err %.3e"
+            % (label, ", ".join(k.name for k in m.kernels()[:2]), worst))
         if not worst <= 1e-10:
             raise AssertionError("whole %s step on the card disagrees with "
                                  "the CPU" % label)
@@ -929,47 +1065,10 @@ def check_step(torch):
 #  phase 5: the drycblles LES at 512^3
 # --------------------------------------------------------------------------
 
-def run_main_path(torch, workdir, n=512, device="cuda"):
-    init = build_model(torch, n, n, torch.float32, device, "init", workdir)
-    init.save_initial_state(initial_state(init))
-    m = build_model(torch, n, n, torch.float32, device, "run", workdir)
-    m.build_step()
-    for kern in m.kernels():
-        kern.launches = 0
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    s = m.run(max_iters=12)
-    torch.cuda.synchronize()
-    run_s = time.perf_counter() - t0
-    launches = {kern.name: kern.launches for kern in m.kernels()}
-    peak = torch.cuda.max_memory_allocated()
-    log("  Model.run(max_iters=12) at %d^3 float32: %.3f s wall, launches %s"
-        % (n, run_s, launches))
-    missing = [name for name, c in launches.items() if c == 0]
-    if missing:
-        raise AssertionError("main path did not launch %s" % missing)
-    ks, ke = m.ctx.ks, m.ctx.ke
-    for name in ("u", "v", "w", "th"):
-        if not bool(torch.isfinite(s[name][ks:ke]).all()):
-            raise AssertionError("non-finite %s after the run" % name)
-    with open(os.path.join(workdir, "drycblles.out")) as f:
-        rows = [line.split() for line in f if line.split()[0].isdigit()]
-    divs = [float(r[6]) for r in rows]
-    final = {kk: float(v) for kk, v in m.diagnostics(s, m.final_sfc).items()}
-    log("  status rows %d, max DIV %.3e, final DIV %.3e, TKE %.6e"
-        % (len(rows), max(divs), final["div"], final["tke"]))
-    if not (len(rows) >= 12 and max(divs) <= 1e-4 and final["div"] <= 1e-4
-            and np.isfinite(final["tke"])):
-        raise AssertionError("divergence or status check failed")
-
-    # step time: median of 10 steps after 2 warm-up steps
-    times, s, sfc = step_times(torch, m, s, m.final_sfc)
-    step_s = statistics.median(times)
-    log("  s/step %d^3 float32: median %.6f (min %.6f, max %.6f) of 10; "
-        "peak memory %.3f GB" % (n, step_s, min(times), max(times), peak / 1e9))
-    m.final_sfc = sfc
-    return m, s, launches, step_s, peak, run_s
+def build_drycblles(torch, n, k, dtype, device, mode="run", workdir="."):
+    """build_model with the signature of the other build_* functions, n =
+    (itot, jtot) square."""
+    return build_model(torch, n[0], k, dtype, device, mode, workdir)
 
 
 # --------------------------------------------------------------------------
@@ -1009,7 +1108,7 @@ PEAK_FLOPS_F64 = 33.5e12
 # operations per output point of each stencil kernel, counted from its
 # source (adds, multiplies and special functions each as one)
 FLOPS_PER_POINT = {"evisc": 100, "evisc_n2": 100, "limits": 110,
-                   "tend_rk": 700, "tend_uvw": 450, "tend_scalars": 110,
+                   "tend_rk": 700, "tend_rk_fold": 900, "tend_uvw": 450, "tend_scalars": 110,
                    "tend_scalar_rk": 110, "micro2": 300, "advec_mom": 400,
                    "advec_scalars": 130, "pres_rhs": 10, "pres_apply": 15,
                    "tdma": 16, "tdma_ri": 12, "tend_uvw_acc": 430,
@@ -1090,29 +1189,79 @@ def pres_pairs(torch, m, s):
 
 
 def time_kernels(torch, m, s):
+    """The kernels of a dry RK-folded model and their plain versions at its
+    shapes: K22 and, timed in the same call so that the two forms can be
+    compared, the three kernels it stands in for (K1, K2, K4 rhs)."""
     from microhh_torch.ops import fused as F
     ctx, fz = m.ctx, m.fused
-    e = fz.evisc(s["u"], s["v"], s["w"], s["th"])
+    nf = len(fz.prognostic)
+    uvwa = [s["u"], s["v"], s["w"], s["th"] if fz.has_thermo else s["u"]]
+    e = fz.evisc(*uvwa)
+    se_row = (F.surface_evisc_row(fz.smag, ctx, s, m.final_sfc, fz.has_thermo)
+              if fz.smag.surface else None)
     t = m.t
-    tend_args = (ctx.ks, ctx.dxi, ctx.dyi, fz.visc, fz.svisc, fz.tPr, 0.5,
-                 -5. / 9., False, True)
-    uvwth = [s[n] for n in ("u", "v", "w", "th")]
+    grid_args = (ctx.ks, ctx.dxi, ctx.dyi)
+    rk = (fz.visc, fz.svisc, fz.tPr, 0.5, -5. / 9.)
     fb, n = field_bytes(m), points(m)
     pairs = {
-        "evisc": pair(lambda: fz.evisc(*uvwth),
-                      lambda: F.evisc_plain(*uvwth, fz.ce, ctx.ks, ctx.dxi,
-                                            ctx.dyi, fz.tPr, True),
-                      5 * fb, FLOPS_PER_POINT["evisc"] * n),
-        "tend_rk": pair(lambda: fz.tend_rk(s, t, e, *tend_args[6:]),
-                        lambda: F.tend_rk_plain(s, e, t, fz.ct, *tend_args),
-                        17 * fb, FLOPS_PER_POINT["tend_rk"] * n),
-        "limits": pair(lambda: fz.limits(*uvwth),
-                       lambda: F.limits_plain(*uvwth, fz.ce, ctx.ks, ctx.dxi,
-                                              ctx.dyi, fz.tPr, True),
-                       4 * fb, FLOPS_PER_POINT["limits"] * n),
+        "evisc": pair(lambda: fz.evisc(*uvwa),
+                      lambda: F.evisc_plain(*uvwa, fz.ce, *grid_args, fz.tPr,
+                                            fz.has_thermo),
+                      (nf + 1) * fb, FLOPS_PER_POINT["evisc"] * n),
+        "tend_rk": pair(lambda: fz.tend_rk(s, t, e, 0.5, -5. / 9., False, True),
+                        lambda: F.tend_rk_plain(s, e, t, fz.ct, *grid_args,
+                                                *rk, False, True,
+                                                *fz._sweep_args()),
+                        (4 * nf + 1) * fb, FLOPS_PER_POINT["tend_rk"] * n),
+        # fields and carries in, s*, carries, e and rhs out
+        "tend_rk_fold": pair(
+            lambda: fz.tend_rk_fold(s, t, se_row, 0.5, -5. / 9., 2., False,
+                                    True),
+            lambda: F.tend_rk_fold_plain(s, t, fz.ct, fz.ce, *grid_args, *rk,
+                                         2., False, True, se_row, None,
+                                         *fz._sweep_args()),
+            (4 * nf + 2) * fb, FLOPS_PER_POINT["tend_rk_fold"] * n),
+        # the same sweep without the evisc fold: e read instead of written
+        "tend_rk_fold_e": pair(
+            lambda: fz.tend_rk_fold(s, t, None, 0.5, -5. / 9., 2., False,
+                                    True, e=e),
+            lambda: F.tend_rk_fold_plain(s, t, fz.ct, fz.ce, *grid_args, *rk,
+                                         2., False, True, None, e,
+                                         *fz._sweep_args()),
+            (4 * nf + 2) * fb, FLOPS_PER_POINT["tend_rk"] * n),
+        "limits": pair(lambda: fz.limits(*uvwa),
+                       lambda: F.limits_plain(*uvwa, fz.ce, *grid_args, fz.tPr,
+                                              fz.has_thermo),
+                       nf * fb, FLOPS_PER_POINT["limits"] * n),
     }
     pairs.update(pres_pairs(torch, m, s))
-    return time_pairs(torch, pairs)
+    out = time_pairs(torch, pairs)
+    for a_t in t.values():      # a step expects the carry at zero
+        a_t.zero_()
+    return out
+
+
+def forms_agree(torch, label, build, n, k, step_kws, state_of, tol):
+    """Two steps of one case in two forms of the step from the same state,
+    float32 on the card: every field within tol of its maximum (float32
+    roundoff through two steps; w, which starts at rest, is the loosest)."""
+    ends = []
+    for kw in step_kws:
+        m = build(torch, n, k, torch.float32, "cuda")
+        m.build_step(**kw)
+        s, sfc = m.as_device_state(state_of(m))
+        for _ in range(2):
+            s, sfc, _ = m.step(s, sfc, m.timeloop.dt)
+        ends.append((m, s))
+    (m, a), (_, b) = ends
+    ks, ke = m.ctx.ks, m.ctx.ke
+    errs = {nm: rel_err(a[nm][ks:ke], b[nm][ks:ke]) for nm in a}
+    log("  %s %s float32, 2 steps, %s against %s: rel err %s"
+        % (label, shape_str(m), step_kws[0] or "default", step_kws[1],
+           {nm: "%.2e" % v for nm, v in errs.items()}))
+    if not max(errs.values()) <= tol:
+        raise AssertionError("the two forms of the %s step disagree" % label)
+    return errs
 
 
 # --------------------------------------------------------------------------
@@ -1135,7 +1284,8 @@ def step_times(torch, m, s, sfc, n=12, warm=2):
 
 
 def run_les(torch, workdir, label, build, n, nonneg=(), k=None,
-            dtype=None, div_tol=1e-4, p_floor=False, after_run=None):
+            dtype=None, div_tol=1e-4, p_floor=False, after_run=None,
+            state_of=None, step_kw=None):
     """init + Model.run(max_iters=12) of a case at n^3 (or n = (itot, jtot)
     and k levels) through the entry points a user calls; fails unless every
     kernel of the path was launched, the fields are finite, DIV <= div_tol
@@ -1144,14 +1294,16 @@ def run_les(torch, workdir, label, build, n, nonneg=(), k=None,
     rounding of p to the run's type leaves, eps |p| dzhi4 dzi4 dt, where
     that is above div_tol (a 4th-order case on finely stretched levels;
     three substeps a step each leave such a residue).  after_run(m, s): a
-    further check of the state the run returned."""
+    further check of the state the run returned.  state_of(m): the initial
+    state to save instead of Fields.create's (a case that sets its profiles
+    itself); step_kw: arguments of build_step (another form of the step)."""
     dtype = dtype or torch.float32
     k = k or n
     init = build(torch, n, k, dtype, "cuda", "init", workdir)
-    init.save_initial_state()
+    init.save_initial_state(state_of(init) if state_of else None)
     del init
     m = build(torch, n, k, dtype, "cuda", "run", workdir)
-    m.build_step()
+    m.build_step(**(step_kw or {}))
     where = "%s %s %s" % (label, shape_str(m), str(dtype)[6:])
     for kern in m.kernels():
         kern.launches = 0
@@ -1467,6 +1619,7 @@ def time_pres4_parts(torch, m, s):
 # kernel-name pattern -> part of the step; the first match counts (K18 and
 # K19 are the instances of K8/K9's and K15's kernels without the RK fold)
 PARTS = [("evisc_kernel", "K1/K14 evisc"), ("tend_rk_kernel", "K2 tend_rk"),
+         ("tend_rk_fold_kernel", "K22 tend_rk_fold"),
          (r"tend_uvw_kernel<\w+, *(false|\(bool\)0)", "K18 tend_uvw_acc"),
          (r"tend_scalar_kernel<\w+, *(false|\(bool\)0)", "K19 tend_scalar_acc"),
          ("tendencies_kernel", "K20 tendencies"),
@@ -1648,31 +1801,49 @@ def main():
                             launches=res["launches"][kern.name],
                             max_abs_err=errs[kern.name])
             for kern in m.kernels()}
+        # kernels timed at these shapes that this path did not launch (the
+        # three that K22 stands in for, for a comparison within one call)
+        mine = {kern.name for kern in m.kernels()}
+        res["also_timed"] = {name: tm for name, tm in times.items()
+                             if name not in mine}
         by_path[key] = res.pop("launches")
         results[result_key] = res
         if profile_path:
             log("[p] profile of two %s steps" % where)
             reports.append(profile_steps(torch, m, s, label))
 
-    log("[5] drycblles 512^3 float32 through Model.run")
-    with tempfile.TemporaryDirectory() as workdir:
-        m, s, launches, step_s, peak, run_s = run_main_path(torch, workdir)
-        log("[6] kernels at 512^3 float32: against their plain versions, "
-            "then timed")
-        errs = check_kernels_full(torch, m, kernel_cases)
-        times = time_kernels(torch, m, s)
-        for k in m.kernels():
-            entries[k.name] = kernel_entry(k, launches, errs, times,
-                                           "drycblles 512^3 float32")
-        by_path["drycblles_512"] = launches
-        results["drycblles_512_f32"] = {
-            "step_s_median": step_s, "run12_wall_s": run_s,
-            "peak_mem_gb": peak / 1e9, "kernel_build_s": build_s}
-        if profile_path:
-            log("[p] profile of two drycblles steps at 512^3 float32")
-            reports.append(profile_steps(torch, m, s, "drycblles"))
-        del m, s
-    torch.cuda.empty_cache()
+    def dry_path(phase, key, label, build, n, k, state_of=None, step_kw=None,
+                 first=False):
+        """A dry-path case through Model.run, then its kernels against
+        their plain versions at its shapes and timed: the RK-folded forms
+        through kernel_cases and time_kernels, the substep without the RK
+        fold through generic_kernel_cases and time_generic_kernels."""
+        log("[%s] %s %dx%dx%d float32 through Model.run%s"
+            % (phase[0], label, n[0], n[1], k,
+               " (build_step(%s))" % step_kw if step_kw else ""))
+        with tempfile.TemporaryDirectory() as workdir:
+            m, s, res = run_les(torch, workdir, label, build, n, k=k,
+                                state_of=state_of, step_kw=step_kw)
+            where = "%s %s float32" % (label, shape_str(m))
+            log("[%s] kernels at %s: against their plain versions, then "
+                "timed" % (phase[1], where))
+            if m.unfolded:
+                errs = check_kernels_full(torch, m, generic_kernel_cases)
+                times = time_generic_kernels(torch, m, s)
+            else:
+                errs = check_kernels_full(torch, m, kernel_cases)
+                times = time_kernels(torch, m, s)
+            if first:
+                res["kernel_build_s"] = build_s
+            record(m, s, key, key, label, res, errs, times, where)
+        torch.cuda.empty_cache()
+
+    # A: the main path on K22, then its K1 -> K2 -> K4 rhs form at 256^3
+    dry_path((5, 6), "drycblles_512_f32", "drycblles", build_drycblles,
+             (512, 512), 512, state_of=initial_state, first=True)
+    dry_path(("5b", "6b"), "drycblles_256_unfused_f32", "drycblles",
+             build_drycblles, (256, 256), 256, state_of=initial_state,
+             step_kw={"fold": False})
 
     def build_rico_2i5(*a):
         return build_rico(*a, swadvec="2i5")
@@ -1717,25 +1888,36 @@ def main():
         torch.cuda.empty_cache()
         phase += 2
 
-    for key, label, build, n, k, kw in (
-            ("jaenschwalde_1024x256x256_f32", "jaenschwalde",
-             build_jaenschwalde, (1024, 256), 256,
-             {"nonneg": ("qt",), "after_run": check_plume}),
-            ("sullivan2011_512_f32", "sullivan2011", build_sullivan,
-             (512, 512), 512, {})):
-        log("[%d] %s %dx%dx%d float32 through Model.run"
-            % (phase, label, n[0], n[1], k))
-        with tempfile.TemporaryDirectory() as workdir:
-            m, s, res = run_les(torch, workdir, label, build, n, k=k, **kw)
-            where = "%s %s float32" % (label, shape_str(m))
-            log("[%d] kernels at %s: against their plain versions, then "
-                "timed" % (phase + 1, where))
-            errs = check_kernels_full(torch, m, generic_kernel_cases)
-            times = time_generic_kernels(torch, m, s)
-            record(m, s, key, key, label, res, errs, times, where)
-            del m, s
-        torch.cuda.empty_cache()
-        phase += 2
+    log("[%d] jaenschwalde 1024x256x256 float32 through Model.run" % phase)
+    with tempfile.TemporaryDirectory() as workdir:
+        key, label = "jaenschwalde_1024x256x256_f32", "jaenschwalde"
+        m, s, res = run_les(torch, workdir, label, build_jaenschwalde,
+                            (1024, 256), k=256, nonneg=("qt",),
+                            after_run=check_plume)
+        where = "%s %s float32" % (label, shape_str(m))
+        log("[%d] kernels at %s: against their plain versions, then timed"
+            % (phase + 1, where))
+        errs = check_kernels_full(torch, m, generic_kernel_cases)
+        times = time_generic_kernels(torch, m, s)
+        record(m, s, key, key, label, res, errs, times, where)
+        del m, s
+    torch.cuda.empty_cache()
+
+    # B: sullivan2011 on the RK path (K22 with the sponge and Coriolis
+    # folds), then its substep without the RK fold on a thinner grid (K20,
+    # K21 and K1, K7 in their ghost mode), and the two forms held together
+    dry_path((19, 20), "sullivan2011_512_f32", "sullivan2011", build_sullivan,
+             (512, 512), 512)
+    dry_path(("19b", "20b"), "sullivan2011_512x512x64_unfolded_f32",
+             "sullivan2011", build_sullivan, (512, 512), 64,
+             step_kw={"unfolded": True})
+    results["sullivan2011_forms_rel_err"] = forms_agree(
+        torch, "sullivan2011", build_sullivan, (512, 512), 64,
+        ({}, {"unfolded": True}), lambda m: unfolded_state(m, 7), 1e-3)
+
+    # C: the neutral Ekman LES (thermo 0, no scalar) at 5.2 m isotropic
+    dry_path((21, 22), "andren1994_768x384x288_f32", "andren1994 less s",
+             build_andren, (768, 384), 288)
 
     if profile_path:
         os.makedirs(os.path.dirname(os.path.abspath(profile_path)),

@@ -8,8 +8,9 @@ dataset (``utils/nc.MemoryDataset``), which ``Model(..., input_nc=)`` takes.
 ``sbl_profiles`` and ``sbl_input`` do the same for ``cases/SBL_Smag/
 SBL_input.py``, ``moser180_input`` for ``cases/moser180/moser180_input.py``
 and ``weakscaling_input`` for ``cases/weakscaling/weakscaling_input.py``,
-``jaenschwalde_input`` for ``cases/jaenschwalde/jaenschwalde_input.py`` and
-``sullivan2011_input`` for ``cases/sullivan2011/sullivan2011_input.py``.
+``jaenschwalde_input`` for ``cases/jaenschwalde/jaenschwalde_input.py``,
+``sullivan2011_input`` for ``cases/sullivan2011/sullivan2011_input.py`` and
+``andren1994_input`` for ``cases/andren1994/andren1994_input.py``.
 """
 
 import numpy as np
@@ -146,3 +147,20 @@ def sullivan2011_input(ktot, zsize=2048.):
     sullivan2011_input.py."""
     z = uniform_z(ktot, zsize)
     return MemoryDataset({"z": z}, {"init": sullivan2011_profiles(z)})
+
+
+def andren1994_profiles(z):
+    """The init-group profiles of andren1994_input.nc at full levels z: the
+    neutral Ekman layer of Andren et al. (1994), a geostrophic wind of 10
+    m/s along x and a passive scalar that starts at zero."""
+    kmax = len(z)
+    return {"u": np.full(kmax, 10.), "v": np.zeros(kmax),
+            "u_geo": np.full(kmax, 10.), "v_geo": np.zeros(kmax),
+            "s": np.zeros(kmax)}
+
+
+def andren1994_input(ktot, zsize=1500.):
+    """The andren1994 input dataset on the uniform grid of
+    andren1994_input.py."""
+    z = uniform_z(ktot, zsize)
+    return MemoryDataset({"z": z}, {"init": andren1994_profiles(z)})

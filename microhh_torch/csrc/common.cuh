@@ -1,4 +1,5 @@
-// Shared helpers of the port's stencil kernels (evisc.cu, tend_rk.cu).
+// Shared helpers of the port's stencil kernels (evisc.cu, tend_rk.cu,
+// tend_rk_fold.cu, tend_generic.cu).
 //
 // Fields are (kcells, jtot, itot) row-major, i fastest, periodic in i and j.
 // A block of TI x TJ threads owns a (TJ, TI) tile of the horizontal plane and

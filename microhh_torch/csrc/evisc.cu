@@ -38,12 +38,9 @@
 // warp) and writes it to a (2, ktot, blocks) partial array; a second small
 // kernel takes the maximum over the blocks, so the result does not depend
 // on the order in which blocks finish.
-#include "common.cuh"
+#include "les_math.cuh"
 
 namespace mhh {
-
-// per-level table columns (ops/fused.py E_*)
-enum { E_DZI, E_DZHI, E_DZHI1, E_MLEN2, E_THREF, E_TOPS, NE };
 
 // the four fields' ring: u, v, w, th
 template <typename T>
@@ -67,70 +64,21 @@ __device__ __forceinline__ void load_ring(Ring<T>& sh, const T* __restrict__ u,
         load_tile(sh[3][s], th, clampi(ks + p, lo, hic), j0, i0, jtot, itot);
 }
 
-#define U(s, dj, di) sh[0][s][r + (dj)][c + (di)]
-#define V(s, dj, di) sh[1][s][r + (dj)][c + (di)]
-#define W(s, dj, di) sh[2][s][r + (dj)][c + (di)]
-#define TH(s) sh[3][s][r][c]
-
 // eddy viscosity at interior level k of the thread's tile point
+// (les_math.cuh evisc_math on the ring's views)
 template <typename T>
 __device__ __forceinline__ T evisc_point(const Ring<T>& sh, int k,
                                          const T* __restrict__ ce, T dxi,
                                          T dyi, T tPr, int stratified,
                                          T n2ext) {
-    const T dsmall = T(1.e-9), grav = T(9.81);
-    const int km = slot(k - 1), kc = slot(k), kp = slot(k + 1);
-    const int r = threadIdx.y + 1, c = threadIdx.x + 1;
-    const T* cc = ce + (long long)k * NE;
-    const T dzi = cc[E_DZI], dzhi = cc[E_DZHI], dzhi1 = cc[E_DZHI1];
-    const T mlen2 = cc[E_MLEN2];
-
-    const T dudx = (U(kc, 0, 1) - U(kc, 0, 0)) * dxi;
-    const T dvdy = (V(kc, 1, 0) - V(kc, 0, 0)) * dyi;
-    const T dwdz = (W(kp, 0, 0) - W(kc, 0, 0)) * dzi;
-
-    // (du/dy + dv/dx) at the four corners of the cell
-    auto cor = [&](int dj, int di) {
-        return (U(kc, dj, di) - U(kc, dj - 1, di)) * dyi
-               + (V(kc, dj, di) - V(kc, dj, di - 1)) * dxi;
-    };
-    const T c00 = cor(0, 0), c01 = cor(0, 1), c10 = cor(1, 0), c11 = cor(1, 1);
-    const T horiz = T(0.125) * (c00 * c00 + c01 * c01 + c10 * c10 + c11 * c11);
-
-    auto duz_lo = [&](int di) {
-        return (U(kc, 0, di) - U(km, 0, di)) * dzhi
-               + (W(kc, 0, di) - W(kc, 0, di - 1)) * dxi;
-    };
-    auto duz_hi = [&](int di) {
-        return (U(kp, 0, di) - U(kc, 0, di)) * dzhi1
-               + (W(kp, 0, di) - W(kp, 0, di - 1)) * dxi;
-    };
-    const T xl0 = duz_lo(0), xl1 = duz_lo(1), xh0 = duz_hi(0), xh1 = duz_hi(1);
-    const T vert_x = T(0.125) * (xl0 * xl0 + xl1 * xl1 + xh0 * xh0 + xh1 * xh1);
-
-    auto dvz_lo = [&](int dj) {
-        return (V(kc, dj, 0) - V(km, dj, 0)) * dzhi
-               + (W(kc, dj, 0) - W(kc, dj - 1, 0)) * dyi;
-    };
-    auto dvz_hi = [&](int dj) {
-        return (V(kp, dj, 0) - V(kc, dj, 0)) * dzhi1
-               + (W(kp, dj, 0) - W(kp, dj - 1, 0)) * dyi;
-    };
-    const T yl0 = dvz_lo(0), yl1 = dvz_lo(1), yh0 = dvz_hi(0), yh1 = dvz_hi(1);
-    const T vert_y = T(0.125) * (yl0 * yl0 + yl1 * yl1 + yh0 * yh0 + yh1 * yh1);
-
-    const T strain2 = T(2) * (dudx * dudx + dvdy * dvdy + dwdz * dwdz + horiz
-                              + vert_x + vert_y) + dsmall;
-    if (!stratified) return mlen2 * sqrt(strain2);
-    // E_TOPS patches the clamped top plane with the scalar's top-gradient
-    // ghost offset (zero elsewhere)
-    const T n2 = stratified == 2 ? n2ext
-                 : grav / cc[E_THREF] * T(0.5)
-                       * (TH(kp) + cc[E_TOPS] - TH(km)) * dzi;
-    const T a = n2 * (T(-1) / tPr) + strain2;
-    const T b = strain2 * dsmall;
-    return mlen2 * sqrt(a > b ? a : b);
+    return evisc_math(view<T>(sh[0]), view<T>(sh[1]), view<T>(sh[2]),
+                      view<T>(sh[3]), slots(k), ce + (long long)k * NE, dxi,
+                      dyi, tPr, stratified, n2ext);
 }
+
+#define U(s, dj, di) sh[0][s][r + (dj)][c + (di)]
+#define V(s, dj, di) sh[1][s][r + (dj)][c + (di)]
+#define W(s, dj, di) sh[2][s][r + (dj)][c + (di)]
 
 // CFL rate at interior level k (advec_2 cfl_max pointwise expression)
 template <typename T>
@@ -148,7 +96,6 @@ __device__ __forceinline__ T cfl_point(const Ring<T>& sh, int k,
 #undef U
 #undef V
 #undef W
-#undef TH
 
 template <typename T>
 __global__ void __launch_bounds__(TI * TJ)

@@ -40,8 +40,13 @@ SIGNATURES = {
     # ghosts
     "evisc": [_P] * 6 + [_I] * 4 + [_D] * 3 + [_I] * 2,
     # u, v, w, th, e, us, vs, ws, ths, tu, tv, tw, tth, ct; itot, jtot, ktot,
-    # ks; dxi, dyi, visc, svisc, tPr, cbdt, can; first, carry
-    "tend_rk": [_P] * 14 + [_I] * 4 + [_D] * 7 + [_I] * 2,
+    # ks; dxi, dyi, visc, svisc, tPr, cbdt, can, fc, utrans, vtrans; first,
+    # carry, coriolis.  th, ths, tth null: no thermo
+    "tend_rk": [_P] * 14 + [_I] * 4 + [_D] * 10 + [_I] * 3,
+    # u, v, w, th, e_in, se, us, vs, ws, ths, tu_in, tv_in, tu_out, tv_out,
+    # tw, tth, e_out, rhs, ct, ce; itot, jtot, ktot, ks; dxi, dyi, visc,
+    # svisc, tPr, cbdt, can, dti, fc, utrans, vtrans; first, carry, coriolis
+    "tend_rk_fold": [_P] * 20 + [_I] * 4 + [_D] * 11 + [_I] * 3,
     # spectrum (complex, in place), winv, tab; kmax, nmodes
     "tdma": [_P] * 3 + [_I, ctypes.c_longlong],
     # u, v, w, out, pc; itot, jtot, ktot, ks; dxi, dyi, dti
@@ -88,7 +93,8 @@ SIGNATURES = {
     # advec
     "tend_scalar_acc": [_P] * 7 + [_I] * 4 + [_D] * 4 + [_I],
     # u, v, w, th, e (kcells), tu, tv, tw, tth, ct (ktot, NTG); itot, jtot,
-    # ktot, ks; dxi, dyi, visc, svisc, tPr, fc, utrans, vtrans; coriolis
+    # ktot, ks; dxi, dyi, visc, svisc, tPr, fc, utrans, vtrans; coriolis.
+    # th, tth null: no thermo
     "tendencies": [_P] * 10 + [_I] * 4 + [_D] * 8 + [_I],
     # dr, di (spectrum times dz^2, split), winv, afcf (kmax, 2), xr, xi;
     # kmax, nmodes
@@ -192,6 +198,7 @@ class Kernel:
 
     def __call__(self, dtype, *args):
         fn = getattr(load(), "mhh_%s_%s" % (self.name, _SUFFIX[dtype]))
+        # a tensor goes as its pointer, None as a null pointer
         ptrs = [a.data_ptr() if torch.is_tensor(a) else a for a in args]
         rc = fn(*ptrs, torch.cuda.current_stream().cuda_stream)
         if rc != 0:

@@ -6,10 +6,15 @@ the JAX package's step: two of its RK-folded fused step at 2nd order, its
 2nd-order substep without the RK fold, and its plain substep with the fused
 advection + diffusion producer at 4th order.
 
-* The dry path (thermo dry, the drycblles slice; full-plane kernels with
-  ``fold_ghosts``): per substep the eddy viscosity (K1), the MOST surface,
-  the RK tendency sweep (K2) with its wall patches, and the projection (K4
-  rhs -> DFT K5 -> Thomas K3 -> inverse DFT K6 -> K4 apply).
+* The dry path (thermo dry, or no thermo and no scalar: the drycblles,
+  sullivan2011 and neutral Ekman slices; the JAX package's tiled kernels
+  with ``fold_ghosts``): per substep the MOST row of the eddy viscosity, the
+  MOST surface, the folded RK sweep K22 (eddy viscosity, tendencies with
+  the static sponge and a static geostrophic wind folded in, RK update and
+  Poisson right-hand side in one k-march) with its wall patches, and the
+  projection (DFT K5 -> Thomas K3 -> inverse DFT K6 -> K4 apply).
+  ``build_step(fold=False)`` keeps the three kernels K1 -> K2 -> K4 rhs in
+  K22's place.
 * The generic path (any other thermo or advection scheme: thermo moist
   with 2mom_warm, large-scale forcing and the limiter, the bomex/rico
   slice; thermo buoy, the SBL_Smag slice; the interpolated schemes 2i4,
@@ -25,9 +30,9 @@ advection + diffusion producer at 4th order.
   535-587``), for a case in which another producer changes the tendency
   after advection and diffusion, so that the RK update cannot ride the
   sweep: open lateral boundaries (``scalar_outflow``, the jaenschwalde
-  plume) on the generic path; on the dry path any forcing (the sullivan2011
-  LES with its geostrophic wind), limiter or source, and top boundary
-  conditions that rule the clamped kernels out.  Ghost fill, base state,
+  plume) on the generic path; on the dry path any forcing but a static
+  geostrophic wind, a limiter or source, and top boundary conditions that
+  rule the clamped kernels out.  Ghost fill, base state,
   eddy viscosity (K1 in its ghost mode, or K14), thermo and microphysics
   into the carry, the MOST surface and the refill of the flux-dependent
   ghosts, an interpolated scheme's advection (K12/K13), then K18 and K19
@@ -78,12 +83,14 @@ from .ops.force import NoForce, foldable_geo, make_force
 from .ops.fused import (Fused, FusedGeneric, PresGlue, exec_viscosity,
                         generic_col_tables, generic_tendencies,
                         generic_tendencies_rk, generic_viscosity, tendencies,
-                        tendencies_rk, pressure_rk, surface_evisc_row)
+                        tendencies_rk, tendencies_rk_fold, pressure_rk,
+                        surface_evisc_row)
 from .ops.limiter import Limiter
 from .ops.microphys import Microphys2momWarm, make_microphys
 from .ops.o4_fused import O4Fused
 from .ops.source import make_source
 from .ops.stencil import ip, jp, i2
+from .ops.thermo import ThermoDisabled
 from .ops.thermo_dry import ThermoDry
 
 NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
@@ -159,12 +166,18 @@ def check_slice(ini, grid, sim_mode):
          "a 2-D run (jtot=1) at swspatialorder=4", 11),
         (order == "2" and boundary == "default",
          "[boundary] swboundary=default at swspatialorder=2", 14),
-        (order == "2" and thermo == "0",
-         "[thermo] swthermo=0 at swspatialorder=2", 9),
+        # thermo 0 runs on the dry kernels' neutral set (has_thermo=False),
+        # which takes no scalar, advec 2, smag2 and the MOST surface; with
+        # scalars the JAX package runs its op path (item 12a)
         (order == "2" and ini.get_list(str, "fields", "slist", default=[])
-         and thermo in ("dry", "buoy"),
+         and thermo in ("0", "dry", "buoy"),
          "[fields] slist (passive scalars) with [thermo] swthermo=%s at "
          "swspatialorder=2" % thermo, 9),
+        (order == "2" and thermo == "0"
+         and (ini.get_str("diff", "swdiff", default=order) != "smag2"
+              or ini.get_str("advec", "swadvec", default=order) != "2"),
+         "[thermo] swthermo=0 at swspatialorder=2 with another scheme than "
+         "[advec] swadvec=2 and [diff] swdiff=smag2", 12),
         (order == "2" and ini.get_str("force", "swlspres", default="0") == "uflux",
          "[force] swlspres=uflux at swspatialorder=2", 9),
         (switch("micro", "swmicro") and not moist,
@@ -300,41 +313,50 @@ class Model:
     # ------------------------------------------------------------------
     #  the step
     # ------------------------------------------------------------------
-    def build_step(self, unfolded=None):
+    def build_step(self, unfolded=None, fold=True):
         """Build the kernel wrappers and the RK carry for this case: the
-        dry path for thermo dry with advec 2, whose kernels read clamped k
-        neighbours instead of ghost cells (exact for a free-slip top and a
-        Neumann or flux top for th); else the generic path, on which an
-        interpolated scheme runs as a producer (K12/K13) before tendency
-        kernels that leave their advection out
-        (microhh_tpu/model.py:712-737).  At 4th order the plain substep with
-        K16/K17 as its advection + diffusion producer (the gates of
-        microhh_tpu/model.py:862-906, less the TPU's own).
+        dry path for thermo dry (or no thermo and no scalar: the neutral
+        set) with advec 2, whose kernels read clamped k neighbours instead
+        of ghost cells (exact for a free-slip top and a Neumann or flux top
+        for th); else the generic path, on which an interpolated scheme runs
+        as a producer (K12/K13) before tendency kernels that leave their
+        advection out (microhh_tpu/model.py:712-737).  At 4th order the
+        plain substep with K16/K17 as its advection + diffusion producer
+        (the gates of microhh_tpu/model.py:862-906, less the TPU's own).
 
         Both 2nd-order paths fold the RK update into their tendency kernels
         unless something changes the tendency after them
         (microhh_tpu/model.py:278-306, 319-333): open boundaries on the
-        generic path; on the dry path, whose RK kernel K2 folds nothing but
-        the static sponge and reads clamped neighbours, any forcing, limiter
-        or source and any top boundary condition other than free slip with
-        a Neumann or flux th.  Those cases take the substep without the RK
-        fold on ghost-filled fields (K18/K19 or K20).  The JAX package sends
-        a dry case whose only forcing is a static geostrophic wind down its
-        RK path with the Coriolis term folded into the kernel; K2 has no
-        such fold yet, so it goes down this one, with the fold in K20: the
-        two are equal to roundoff.  ``unfolded=True`` forces that substep
-        (its own check against the RK-folded paths)."""
+        generic path; on the dry path, whose RK kernels fold the static
+        sponge and a static geostrophic wind (as a Coriolis term,
+        microhh_tpu/model.py:762-769) and read clamped neighbours, any
+        other forcing, a limiter or source, and any top boundary condition
+        other than free slip with a Neumann or flux th.  Those cases take
+        the substep without the RK fold on ghost-filled fields (K18/K19 or
+        K20).  ``unfolded=True`` forces that substep (its own check against
+        the RK-folded paths).
+
+        The dry RK sweep is K22 by default: the eddy viscosity and the
+        Poisson right-hand side come out of the same k-march, the form the
+        JAX package runs at 512^2 planes (its size gate below that was a
+        VMEM budget and is not copied).  ``fold=False`` keeps the three
+        kernels K1 -> K2 -> K4 rhs, so that the two forms can be held
+        against each other."""
         ctx = self.ctx
         shape = (ctx.kcells, ctx.jtot, ctx.itot)
         self.t = {n: torch.zeros(shape, dtype=self.dtype, device=self.device)
                   for n in self.fields.prognostic_names}
+        self.fold = False
         if ctx.spatial_order == 4:
             self.generic = False
             self.o4 = O4Fused(self.advec, self.diff, ctx)
             return
         self.glue = PresGlue(ctx)
         interp = isinstance(self.advec, AdvecInterp)
-        self.generic = interp or not isinstance(self.thermo, ThermoDry)
+        neutral = (isinstance(self.thermo, ThermoDisabled)
+                   and not ctx.scalar_names)
+        self.generic = interp or not (isinstance(self.thermo, ThermoDry)
+                                      or neutral)
         self.advec_fused = AdvecInterpFused(self.advec, ctx) if interp else None
         if self.generic:
             self.fused = FusedGeneric(ctx, self.diff, self.thermo, self.force,
@@ -345,23 +367,25 @@ class Model:
             self.skip_buffer = False
             return
         bcs = self.boundary.bcs
-        bc = bcs["th"]
         clamp_ok = (all(bcs[n].bctop == NEUMANN and bcs[n].top == 0.
                         for n in ("u", "v"))
-                    and bc.bctop in (NEUMANN, FLUX))
-        idle = (isinstance(self.force, NoForce)
+                    and (neutral or bcs["th"].bctop in (NEUMANN, FLUX)))
+        # the dry kernels fold the static sponge and a static geostrophic wind
+        self.skip_buffer = self.buffer is not None
+        self.skip_force = foldable_geo(self.force)
+        idle = ((isinstance(self.force, NoForce) or self.skip_force)
                 and not self.limiter.limitlist and self.source is None)
         self.unfolded = bool(unfolded) or not (clamp_ok and idle)
-        if self.unfolded:
-            # K20 folds the static sponge and a static geostrophic wind
-            self.skip_buffer = self.buffer is not None
-            self.skip_force = foldable_geo(self.force)
-            self.fused = Fused(ctx, self.diff, self.thermo, self.buffer, 0.,
-                               ghosts=True,
-                               force=self.force if self.skip_force else None)
-            return
-        top_grad = bc.top if bc.bctop == NEUMANN else -bc.top / self.boundary.viscs["th"]
-        self.fused = Fused(ctx, self.diff, self.thermo, self.buffer, top_grad)
+        top_grad = 0.
+        if not (self.unfolded or neutral):
+            bc = bcs["th"]
+            top_grad = (bc.top if bc.bctop == NEUMANN
+                        else -bc.top / self.boundary.viscs["th"])
+        self.fold = bool(fold) and not self.unfolded
+        self.fused = Fused(ctx, self.diff, self.thermo, self.buffer, top_grad,
+                           ghosts=self.unfolded,
+                           force=self.force if self.skip_force else None,
+                           has_thermo=not neutral)
 
     def kernels(self):
         """The hand-written kernels of the step, in step order."""
@@ -369,12 +393,15 @@ class Model:
             return ([self.o4.k_mom, self.o4.k_scal] if self.ctx.scalar_names
                     else [self.o4.k_mom])
         fz = self.fused
+        solve = [self.pres.k_dft_fwd, self.pres.k_tdma, self.pres.k_dft_inv,
+                 self.glue.k_apply]
+        if self.fold:
+            return [fz.k_tend_fold] + solve + [fz.k_limits]
         if self.unfolded:
             pres = [self.pres.k_dft_fwd, self.pres.k_tdma_ri,
                     self.pres.k_dft_inv]
         else:
-            pres = [self.glue.k_rhs, self.pres.k_dft_fwd, self.pres.k_tdma,
-                    self.pres.k_dft_inv, self.glue.k_apply]
+            pres = [self.glue.k_rhs] + solve
         if not self.generic:
             tend = fz.k_tendencies if self.unfolded else fz.k_tend
             return [fz.k_evisc, tend] + pres + [fz.k_limits]
@@ -392,24 +419,38 @@ class Model:
 
     def substep(self, s, sfc, aux, dt, sub):
         """One low-storage RK substep on the RK-folded path (model.py:370-515
-        of the JAX package): the carry self.t is updated in place."""
+        of the JAX package): the carry self.t is updated in place (K22
+        replaces the tensors of u's and v's carry in the dict)."""
         if self.o4 is not None:
             return self._substep_o4(s, sfc, aux, dt, sub)
         if self.unfolded:
             return self._substep_unfolded(s, sfc, aux, dt, sub)
         if self.generic:
             return self._substep_generic(s, sfc, aux, dt, sub)
-        ctx, tl = self.ctx, self.timeloop
-        aux = exec_viscosity(self.fused, ctx, s, sfc, aux)
-        sfc = self.boundary.exec(ctx, s, sfc, aux)
+        ctx, tl, fz = self.ctx, self.timeloop, self.fused
         subdt = tl.rk_cb[sub] * dt
         can = tl.rk_ca[(sub + 1) % tl.n_substeps]
-        # sub == 0: cA[0] == 0, so the carry is zero and K2 does not read it
-        s_star = tendencies_rk(self.fused, ctx, s, self.t, aux, sfc, subdt,
-                               can, first=(sub == 0))
+        # sub == 0: cA[0] == 0, so the carry is zero and the sweep does not
+        # read it
+        first = sub == 0
+        if self.fold:
+            # the eddy viscosity rides the sweep; its MOST row is taken here,
+            # before the surface model, so that it sees the last substep's
+            # MO gradients as K1's does (microhh_tpu/model.py:383-394)
+            se_row = (surface_evisc_row(fz.smag, ctx, s, sfc, fz.has_thermo)
+                      if fz.smag.surface else None)
+            sfc = self.boundary.exec(ctx, s, sfc, aux)
+            s_star, aux, rhs = tendencies_rk_fold(
+                fz, ctx, s, self.t, aux, sfc, subdt, can, first, se_row)
+        else:
+            aux = exec_viscosity(fz, ctx, s, sfc, aux)
+            sfc = self.boundary.exec(ctx, s, sfc, aux)
+            s_star = tendencies_rk(fz, ctx, s, self.t, aux, sfc, subdt, can,
+                                   first)
+            rhs = None
         aux["subdt"] = subdt
         s_new, aux = pressure_rk(self.glue, ctx, self.pres, s_star, self.t,
-                                 aux, subdt, can)
+                                 aux, subdt, can, rhs)
         return s_new, sfc, aux
 
     def _substep_generic(self, s, sfc, aux, dt, sub):
@@ -431,6 +472,10 @@ class Model:
             # additive and independent of the carry, so the fold stays exact
             self.advec_fused.exec(ctx, s, self.t, aux)
         cols = generic_col_tables(fz, ctx, s, self.force, self.buffer)
+        if self.source is not None:
+            # additive and independent of the carry, like the producers above
+            # (microhh_tpu/model.py:438)
+            self.source(ctx, s, self.t, aux, sfc)
         subdt = tl.rk_cb[sub] * dt
         can = tl.rk_ca[(sub + 1) % tl.n_substeps]
         s_star = generic_tendencies_rk(fz, ctx, s, self.t, aux, sfc, subdt,
@@ -515,6 +560,8 @@ class Model:
         aux["subdt"] = subdt
         if self.buffer is not None:
             self.buffer(ctx, s, t, aux)
+        if self.source is not None:
+            self.source(ctx, s, t, aux, sfc)
         t.update(self.force(ctx, s, t, aux, sfc))
         self.pres.exec(ctx, s_cons, t, aux, subdt)
         if self.limiter.limitlist:
@@ -560,7 +607,7 @@ class Model:
         else:
             if fz.ghosts:
                 s = self.boundary.set_ghost_cells(ctx, s, sfc)
-            th = s["th"]
+            th = s["th"] if fz.has_thermo else s["u"]
         cflk, evk = fz.limits(s["u"], s["v"], s["w"], th)
         if fz.smag.surface:
             row = surface_evisc_row(fz.smag, ctx, s, sfc, bool(fz.stratified))
@@ -695,6 +742,8 @@ class Model:
 
 def run_case(case_dir, casename, mode, dtype=torch.float32, device="cuda"):
     """CLI entry: microhh {init,run} casename (reference main/microhh.cxx)."""
+    if mode == "post":
+        raise not_ported("post mode", 15)
     ini = Ini(os.path.join(case_dir, "%s.ini" % casename))
     model = Model(ini, mode, casename, workdir=case_dir, dtype=dtype,
                   device=device)

@@ -3,7 +3,8 @@
 The port carries the drycblles, the moist (bomex/rico) and the buoyancy
 (SBL_Smag) slices at 2nd order: ``advec 2`` and the interpolated ``2i4``,
 ``2i5``, ``2i53``, ``2i62``, ``diff smag2``, ``thermo dry``, ``moist`` and
-``buoy``, the MOST surface and ``pres 2``, with ``2mom_warm`` microphysics,
+``buoy`` (or none, without scalars: the neutral Ekman LES), the MOST surface
+and ``pres 2``, with ``2mom_warm`` microphysics,
 ``force`` and ``limiter`` (ops/microphys.py, ops/force.py, ops/limiter.py),
 open lateral boundaries for scalars and emission sources
 (ops/boundary_outflow.py, ops/source.py; the jaenschwalde slice); and the

@@ -38,6 +38,7 @@ class Force:
         for item in ("swtimedep_geo", "swtimedep_ls", "swtimedep_wls"):
             if ini.get_bool("force", item, default=False):
                 raise not_ported("[force] %s (time-dependent forcing)" % item, 9)
+        self.tdep_geo = False
         kt = grid.ktot
 
         if self.swlspres == "uflux":
@@ -115,10 +116,11 @@ class Force:
 
 def foldable_geo(force):
     """True when the forcing is a static geostrophic wind and nothing else,
-    which a tendency kernel folds in whole (microhh_tpu/model.py:763-767);
-    any other forcing runs as this op."""
+    which a tendency kernel folds in whole (the gate of
+    microhh_tpu/model.py:763-766); any other forcing runs as this op."""
     return (isinstance(force, Force) and force.swlspres == "geo"
-            and force.swls == "0" and force.swwls == "0")
+            and not force.tdep_geo and force.swls == "0"
+            and force.swwls == "0" and force.swnudge == "0")
 
 
 class NoForce:

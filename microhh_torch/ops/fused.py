@@ -11,7 +11,12 @@ no fallback from the card to the plain version.
 * K1 ``Fused.evisc``      - strain^2 + stability-corrected Smagorinsky eddy
                             viscosity (``csrc/evisc.cu``);
 * K2 ``Fused.tend_rk``    - advec_2 + smag2 diffusion + dry buoyancy +
-                            folded sponge + RK fold (``csrc/tend_rk.cu``);
+                            folded sponge and Coriolis term + RK fold
+                            (``csrc/tend_rk.cu``);
+* K22 ``Fused.tend_rk_fold`` - K2's sweep with the eddy viscosity (K1) and
+                            the Poisson right-hand side (K4 rhs) computed in
+                            the same k-march (``csrc/tend_rk_fold.cu``): the
+                            dry step's default form;
 * K4 ``PresGlue.rhs`` / ``PresGlue.apply`` - the projection glue
                             (``csrc/pres_glue.cu``);
 * K7 ``Fused.limits``     - per-level maxima of the CFL rate and of K1's
@@ -63,8 +68,9 @@ from .stencil import im, ip, jm, jp, i2
 
 # per-level table columns, shared with csrc/evisc.cu, tend_rk.cu, pres_glue.cu
 (E_DZI, E_DZHI, E_DZHI1, E_MLEN2, E_THREF, E_TOPS, NE) = range(7)
-# the dry K2 table holds the first NT columns, the generic K8-K10 tables
-# (built every substep by generic_col_tables) all NTG
+# every table is NTG wide; the dry kernels (K2, K20, K22) read the first NT
+# columns and ug, vg, the generic K8-K10 tables (built every substep by
+# generic_col_tables) all of them
 (T_DZI, T_DZHI, T_DZHI1, T_DZI_M1, T_RHO, T_RHOH, T_RHOH1, T_RHO_M1,
  T_THREFH, T_FACZ, T_FACZH, T_UREF, T_VREF, T_SREF, NT) = range(15)
 (T_UG, T_VG, T_ADDU, T_ADDV, T_ADDS, T_WLSDN, T_WLSUP, NTG) = range(NT, NT + 8)
@@ -235,46 +241,96 @@ def _s_tend(c, dxi, dyi, svisc, tPr, u, v, w, w_up, a_dn, a, a_up,
     return adv_s + dif_s
 
 
-def tend_rk_plain(s, e, t, ct, ks, dxi, dyi, visc, svisc, tPr, cbdt, can,
-                  first, carry):
-    """K2 in plain torch.  s, t: dicts of (kcells, jtot, itot) u, v, w, th;
-    e: interior evisc (ktot, jtot, itot).  Returns s* (zero ghost planes);
-    updates the carry t in place unless carry is False, and reads it only
-    when first is False."""
-    kt = ct.shape[0]
-    ke = ks + kt
+def _dry_tend(s, e, ct, ks, dxi, dyi, visc, svisc, tPr, fc, utrans, vtrans,
+              coriolis, thermo, planes):
+    """The dry set's tendencies on the interior: advec_2 + smag2 of u, v, w
+    and, when thermo, th with the dry buoyancy; the static sponge of the
+    table ct and, when coriolis, the geostrophic term.  planes(a, half)
+    gives the planes k-1, k, k+1 of a field (clamped or ghost-filled) and
+    of e.  Returns the tendencies in the order u, v, w(, th) and the planes
+    at k."""
     c = _columns(ct)
-    u, v, w, th = (s[n] for n in PROGNOSTIC)
-    u_dn, uc, u_up = (_planes(u, ks, kt, o, ks, ke - 1) for o in (-1, 0, 1))
-    v_dn, vc, v_up = (_planes(v, ks, kt, o, ks, ke - 1) for o in (-1, 0, 1))
-    w_dn, wc, w_up = (_planes(w, ks, kt, o, ks, ke) for o in (-1, 0, 1))
-    a_dn, ac, a_up = (_planes(th, ks, kt, o, ks, ke - 1) for o in (-1, 0, 1))
-    e_dn, ec, e_up = (_planes(e, 0, kt, o, 0, kt - 1) for o in (-1, 0, 1))
-
+    u_dn, uc, u_up = planes(s["u"], False)
+    v_dn, vc, v_up = planes(s["v"], False)
+    w_dn, wc, w_up = planes(s["w"], True)
+    e_dn, ec, e_up = planes(e, None)
     ut, vt = _uv_tend(c, dxi, dyi, visc, u_dn, uc, u_up, v_dn, vc, v_up,
                       wc, w_up, e_dn, ec, e_up)
-    threfh = c(T_THREFH)
-    wt = (_w_tend(c, dxi, dyi, visc, u_dn, uc, v_dn, vc, w_dn, wc, w_up,
-                  e_dn, ec)
-          + cst.grav / threfh * (i2(a_dn, ac) - threfh))
-    tht = _s_tend(c, dxi, dyi, svisc, tPr, uc, vc, wc, w_up, a_dn, ac, a_up,
-                  e_dn, ec, e_up)
+    wt = _w_tend(c, dxi, dyi, visc, u_dn, uc, v_dn, vc, w_dn, wc, w_up,
+                 e_dn, ec)
     facz = c(T_FACZ)
     ut = ut - facz * (uc - c(T_UREF))
     vt = vt - facz * (vc - c(T_VREF))
+    if coriolis:
+        cu, cv = _coriolis(uc, vc, c, fc, utrans, vtrans)
+        ut, vt = ut + cu, vt + cv
     wt = wt - c(T_FACZH) * wc
-    tht = tht - facz * (ac - c(T_SREF))
+    tends, cur = [ut, vt, wt], [uc, vc, wc]
+    if thermo:
+        a_dn, ac, a_up = planes(s["th"], False)
+        threfh = c(T_THREFH)
+        wt += cst.grav / threfh * (i2(a_dn, ac) - threfh)
+        tht = _s_tend(c, dxi, dyi, svisc, tPr, uc, vc, wc, w_up, a_dn, ac,
+                      a_up, e_dn, ec, e_up)
+        tends.append(tht - facz * (ac - c(T_SREF)))
+        cur.append(ac)
     wt[0] = 0.          # half level ks is the wall
+    return tends, cur
 
+
+def tend_rk_plain(s, e, t, ct, ks, dxi, dyi, visc, svisc, tPr, cbdt, can,
+                  first, carry, fc=0., utrans=0., vtrans=0., coriolis=False,
+                  thermo=True):
+    """K2 in plain torch.  s, t: dicts of (kcells, jtot, itot) u, v, w and,
+    when thermo, th; e: interior evisc (ktot, jtot, itot).  Returns s* (zero
+    ghost planes); updates the carry t in place unless carry is False, and
+    reads it only when first is False."""
+    kt = ct.shape[0]
+    ke = ks + kt
+
+    def planes(a, half):
+        if half is None:
+            return (_planes(a, 0, kt, o, 0, kt - 1) for o in (-1, 0, 1))
+        return (_planes(a, ks, kt, o, ks, ke if half else ke - 1)
+                for o in (-1, 0, 1))
+
+    tends, cur = _dry_tend(s, e, ct, ks, dxi, dyi, visc, svisc, tPr, fc,
+                           utrans, vtrans, coriolis, thermo, planes)
     s_star = {}
-    for n, tend, cur in zip(PROGNOSTIC, (ut, vt, wt, tht), (uc, vc, wc, ac)):
+    for n, tend, sc in zip(PROGNOSTIC, tends, cur):
         tt = tend if first else t[n][ks:ke] + tend
         out = torch.zeros_like(s[n])
-        out[ks:ke] = cur + cbdt * tt
+        out[ks:ke] = sc + cbdt * tt
         s_star[n] = out
         if carry:
             t[n][ks:ke] = can * tt
     return s_star
+
+
+def tend_rk_fold_plain(s, t, ct, ce, ks, dxi, dyi, visc, svisc, tPr, cbdt,
+                       can, dti, first, carry, se_row=None, e=None, fc=0.,
+                       utrans=0., vtrans=0., coriolis=False, thermo=True):
+    """K22 in plain torch: the eddy viscosity of evisc_plain on clamped
+    planes with its bottom row replaced by se_row when given (or the
+    interior array e as it is, when the evisc fold is off), K2's sweep with
+    it, and dti * div(rho s*) of the s* that sweep gives, w*(ke) = 0.
+    Returns (s*, e, rhs); the carry as in tend_rk_plain."""
+    kt = ct.shape[0]
+    ke = ks + kt
+    if e is None:
+        e = evisc_plain(s["u"], s["v"], s["w"], s.get("th"), ce, ks, dxi, dyi,
+                        tPr, thermo)
+        if se_row is not None:
+            e[0] = se_row
+    s_star = tend_rk_plain(s, e, t, ct, ks, dxi, dyi, visc, svisc, tPr, cbdt,
+                           can, first, carry, fc, utrans, vtrans, coriolis,
+                           thermo)
+    c = _columns(ct)
+    us, vs, ws = (s_star[n][ks:ke] for n in ("u", "v", "w"))
+    w_up = s_star["w"][ks + 1:ke + 1]
+    rhs = dti * (c(T_RHO) * ((ip(us) - us) * dxi + (jp(vs) - vs) * dyi)
+                 + (c(T_RHOH1) * w_up - c(T_RHOH) * ws) * c(T_DZI))
+    return s_star, e, rhs
 
 
 def pres_rhs_plain(u, v, w, pc, ks, dxi, dyi, dti):
@@ -439,38 +495,17 @@ def tend_scalar_acc_plain(s, name, e, t, ct, svisc, ks, dxi, dyi, tPr,
 
 
 def tendencies_plain(s, e, t, ct, ks, dxi, dyi, visc, svisc, tPr, fc, utrans,
-                     vtrans, coriolis):
-    """K20 in plain torch: K2's dry set (advec_2 + smag2 of u, v, w, th,
-    the dry buoyancy, the static sponge of the (ktot, NTG) table ct and,
-    when coriolis, the geostrophic term) on ghost-filled fields s and the
-    kcells eddy viscosity e, added onto the interior of the carries t in
-    place; no RK update."""
-    kt = ct.shape[0]
-    ke = ks + kt
-    c = _columns(ct)
-    u_dn, uc, u_up = _ghost_planes(s["u"], ks, ke)
-    v_dn, vc, v_up = _ghost_planes(s["v"], ks, ke)
-    w_dn, wc, w_up = _ghost_planes(s["w"], ks, ke)
-    a_dn, ac, a_up = _ghost_planes(s["th"], ks, ke)
-    e_dn, ec, e_up = _ghost_planes(e, ks, ke)
-    ut, vt = _uv_tend(c, dxi, dyi, visc, u_dn, uc, u_up, v_dn, vc, v_up,
-                      wc, w_up, e_dn, ec, e_up)
-    threfh = c(T_THREFH)
-    wt = (_w_tend(c, dxi, dyi, visc, u_dn, uc, v_dn, vc, w_dn, wc, w_up,
-                  e_dn, ec)
-          + cst.grav / threfh * (i2(a_dn, ac) - threfh))
-    tht = _s_tend(c, dxi, dyi, svisc, tPr, uc, vc, wc, w_up, a_dn, ac, a_up,
-                  e_dn, ec, e_up)
-    facz = c(T_FACZ)
-    ut = ut - facz * (uc - c(T_UREF))
-    vt = vt - facz * (vc - c(T_VREF))
-    if coriolis:
-        cu, cv = _coriolis(uc, vc, c, fc, utrans, vtrans)
-        ut, vt = ut + cu, vt + cv
-    wt = wt - c(T_FACZH) * wc
-    tht = tht - facz * (ac - c(T_SREF))
-    wt[0] = 0.          # half level ks is the wall
-    for n, tend in zip(PROGNOSTIC, (ut, vt, wt, tht)):
+                     vtrans, coriolis, thermo=True):
+    """K20 in plain torch: K2's dry set (advec_2 + smag2 of u, v, w and,
+    when thermo, th with the dry buoyancy, the static sponge of the (ktot,
+    NTG) table ct and, when coriolis, the geostrophic term) on ghost-filled
+    fields s and the kcells eddy viscosity e, added onto the interior of
+    the carries t in place; no RK update."""
+    ke = ks + ct.shape[0]
+    tends, _ = _dry_tend(s, e, ct, ks, dxi, dyi, visc, svisc, tPr, fc, utrans,
+                         vtrans, coriolis, thermo,
+                         lambda a, half: _ghost_planes(a, ks, ke))
+    for n, tend in zip(PROGNOSTIC, tends):
         t[n][ks:ke] += tend
 
 
@@ -488,14 +523,17 @@ def _empty_ghosts_zero(like, ctx):
 # ==========================================================================
 
 class Fused:
-    """K1, K2 (or K20) and K7 with their per-level tables, for one grid,
-    base state and sponge.  ``buffer`` is the static-profile sponge folded
-    into K2 or K20 (None: no sponge); ``top_grad_th`` is th's top ghost
-    gradient (Neumann value, or -flux/visc) that K1's clamped top plane
-    needs.  ``ghosts``: the kernels read the ghost planes of filled fields
-    (the dry substep without the RK fold: K1 and K7 in their ghost mode and
-    K20, whose table is NTG wide and holds ug, vg of ``force``, the static
-    geostrophic forcing folded into it, or None); else they clamp (K2)."""
+    """K1, K2 or K22 (or K20) and K7 with their per-level tables, for one
+    grid, base state and sponge.  ``buffer`` is the static-profile sponge
+    folded into the sweep (None: no sponge); ``force`` the static
+    geostrophic forcing folded into it as a Coriolis term with ug, vg in the
+    table (None: no such term); ``top_grad_th`` is th's top ghost gradient
+    (Neumann value, or -flux/visc) that the clamped top plane of the eddy
+    viscosity needs.  ``has_thermo`` False is the neutral set
+    (FusedLES2(has_thermo=False)): no th, no buoyancy, no N2.  ``ghosts``:
+    the kernels read the ghost planes of filled fields (the dry substep
+    without the RK fold: K1 and K7 in their ghost mode and K20); else they
+    clamp (K2, K22)."""
 
     ghosts = False    # K1/K7 read ghost planes (generic path) or clamp
     # K1/K7's stability term: 0 none, 1 N2 from the th argument's gradient,
@@ -505,15 +543,20 @@ class Fused:
     names = ("th",)
 
     def __init__(self, ctx, smag, thermo, buffer, top_grad_th, ghosts=False,
-                 force=None):
+                 force=None, has_thermo=True):
         self.ctx = ctx
         self.smag = smag
         self.ghosts = bool(ghosts)
+        self.has_thermo = bool(has_thermo)
+        self.stratified = int(self.has_thermo)
+        self.names = ("th",) if self.has_thermo else ()
+        self.prognostic = ("u", "v", "w") + self.names
         self.coriolis = force is not None
         self.fc = float(force.fc) if self.coriolis else 0.
         self.tPr = smag.tPr
         self.visc = smag.visc
-        self.svisc = smag.viscs.get("th", smag.visc)
+        self.svisc = (smag.viscs.get("th", smag.visc) if self.has_thermo
+                      else smag.visc)
         ks, ke, kt = ctx.ks, ctx.ke, ctx.ktot
         ka = np.arange(ks, ke)
         ce = np.zeros((kt, NE))
@@ -521,10 +564,7 @@ class Fused:
         ce[:, E_DZHI] = ctx.np_dzhi[ka]
         ce[:, E_DZHI1] = ctx.np_dzhi[ka + 1]
         ce[:, E_MLEN2] = smag.mlen2
-        ce[:, E_THREF] = thermo.thref[ka]
-        if not self.ghosts:
-            ce[kt - 1, E_TOPS] = top_grad_th / ctx.np_dzhi[ke]
-        ct = np.zeros((kt, NTG if self.ghosts else NT))
+        ct = np.zeros((kt, NTG))
         ct[:, T_DZI] = ctx.np_dzi[ka]
         ct[:, T_DZHI] = ctx.np_dzhi[ka]
         ct[:, T_DZHI1] = ctx.np_dzhi[ka + 1]
@@ -533,13 +573,20 @@ class Fused:
         ct[:, T_RHOH] = ctx.np_rhorefh[ka]
         ct[:, T_RHOH1] = ctx.np_rhorefh[ka + 1]
         ct[:, T_RHO_M1] = ctx.np_rhoref[ka - 1]
-        ct[:, T_THREFH] = thermo.threfh[ka]
+        # a thermo without a reference profile (the disabled one) leaves the
+        # columns zero (pallas_fused.py:1300-1317); no kernel reads them then
+        if self.has_thermo and getattr(thermo, "thref", None) is not None:
+            ce[:, E_THREF] = thermo.thref[ka]
+            ct[:, T_THREFH] = thermo.threfh[ka]
+            if not self.ghosts:
+                ce[kt - 1, E_TOPS] = top_grad_th / ctx.np_dzhi[ke]
         if buffer is not None:
             ct[:, T_FACZ] = buffer.fac_z[:, 0, 0]
             ct[:, T_FACZH] = buffer.fac_zh[:, 0, 0]
             ct[:, T_UREF] = buffer.profs["u"][:, 0, 0]
             ct[:, T_VREF] = buffer.profs["v"][:, 0, 0]
-            ct[:, T_SREF] = buffer.profs["th"][:, 0, 0]
+            if self.has_thermo:
+                ct[:, T_SREF] = buffer.profs["th"][:, 0, 0]
         if self.coriolis:
             ct[:, T_UG] = force.ug[:, 0, 0]
             ct[:, T_VG] = force.vg[:, 0, 0]
@@ -548,7 +595,12 @@ class Fused:
         self.k_evisc = Kernel("evisc", "microhh_torch/csrc/evisc.cu",
                               "microhh_tpu/ops/pallas_fused.py:1441")
         self.k_tend = Kernel("tend_rk", "microhh_torch/csrc/tend_rk.cu",
-                             "microhh_tpu/ops/pallas_fused.py:1930")
+                             "microhh_tpu/ops/pallas_fused.py:1930, "
+                             "microhh_tpu/ops/pallas_fused.py:1951")
+        self.k_tend_fold = Kernel("tend_rk_fold",
+                                  "microhh_torch/csrc/tend_rk_fold.cu",
+                                  "microhh_tpu/ops/pallas_fused.py:2073, "
+                                  "microhh_tpu/ops/pallas_fused.py:2108")
         self.k_limits = Kernel("limits", "microhh_torch/csrc/evisc.cu",
                                "microhh_tpu/ops/pallas_fused.py:1524")
         self.k_tendencies = Kernel(
@@ -557,9 +609,15 @@ class Fused:
             "microhh_tpu/ops/pallas_fused.py:1827, "
             "microhh_tpu/ops/pallas_fused.py:1399")
 
+    def _th(self, d):
+        """The th entry of a state or carry dict; None without thermo (a
+        null pointer to the kernels)."""
+        return d["th"] if self.has_thermo else None
+
     def evisc(self, u, v, w, th, out=None):
         """K1: interior eddy viscosity (ktot, jtot, itot), into ``out`` when
-        given (a contiguous interior view)."""
+        given (a contiguous interior view).  Unstratified, th is not read
+        (pass any field)."""
         ctx = self.ctx
         args = (ctx.ks, ctx.dxi, ctx.dyi, self.tPr)
         stratified = min(self.stratified, 1)
@@ -601,25 +659,81 @@ class Fused:
                       int(self.ghosts))
         return out[0], out[1]
 
+    def _sweep_args(self):
+        """What K2's, K20's and K22's plain versions take after the RK
+        numbers: the Coriolis fold and the thermo flag."""
+        ctx = self.ctx
+        return (self.fc, ctx.utrans, ctx.vtrans, self.coriolis,
+                self.has_thermo)
+
     def tend_rk(self, s, t, e, cbdt, can, first, carry):
         """K2: returns s* = s + cbdt*t_total (zero ghost planes) and, when
         carry, overwrites the interior of t with can*t_total in place."""
         ctx = self.ctx
         args = (ctx.ks, ctx.dxi, ctx.dyi, self.visc, self.svisc, self.tPr,
-                cbdt, can, first, carry)
+                cbdt, can)
         u = s["u"]
         if on_cpu(u):
-            return tend_rk_plain(s, e, t, self.ct, *args)
+            return tend_rk_plain(s, e, t, self.ct, *args, first, carry,
+                                 *self._sweep_args())
         shape = (ctx.kcells, ctx.jtot, ctx.itot)
-        fields = [s[n] for n in PROGNOSTIC]
-        carry_t = [t[n] for n in PROGNOSTIC]
-        check(fields + carry_t + [e, self.ct], u.dtype, u.device,
-              [shape] * 8 + [(ctx.ktot, ctx.jtot, ctx.itot), (ctx.ktot, NT)])
-        s_star = {n: _empty_ghosts_zero(s[n], ctx) for n in PROGNOSTIC}
-        self.k_tend(u.dtype, *fields, e, *(s_star[n] for n in PROGNOSTIC),
-                    *carry_t, self.ct, ctx.itot, ctx.jtot, ctx.ktot,
-                    *args[:-2], int(first), int(carry))
+        names = self.prognostic
+        check([s[n] for n in names] + [t[n] for n in names] + [e, self.ct],
+              u.dtype, u.device, [shape] * (2 * len(names))
+              + [(ctx.ktot, ctx.jtot, ctx.itot), (ctx.ktot, NTG)])
+        s_star = {n: _empty_ghosts_zero(s[n], ctx) for n in names}
+        self.k_tend(u.dtype, s["u"], s["v"], s["w"], self._th(s), e,
+                    s_star["u"], s_star["v"], s_star["w"], self._th(s_star),
+                    t["u"], t["v"], t["w"], self._th(t), self.ct, ctx.itot,
+                    ctx.jtot, ctx.ktot, *args, self.fc, ctx.utrans,
+                    ctx.vtrans, int(first), int(carry), int(self.coriolis))
         return s_star
+
+    def tend_rk_fold(self, s, t, se_row, cbdt, can, dti, first, carry,
+                     e=None):
+        """K22: returns (s*, e, rhs): s* as tend_rk, the interior eddy
+        viscosity it computed (its bottom row se_row, the MOST surface row,
+        when given) and the Poisson right-hand side dti * div(rho s*), both
+        (ktot, jtot, itot).  With ``e`` given the eddy viscosity is read, not
+        computed, and returned as it is.  The carry: t["w"] and t["th"] are
+        overwritten in place when carry; t["u"] and t["v"] are then REPLACED
+        in the dict by new tensors when they were also read (not first),
+        because a block reads them one cell inside its neighbours' tiles."""
+        ctx = self.ctx
+        args = (ctx.ks, ctx.dxi, ctx.dyi, self.visc, self.svisc, self.tPr,
+                cbdt, can, dti)
+        u = s["u"]
+        old = {n: t[n] for n in ("u", "v")}
+        if carry and not first:
+            for n in ("u", "v"):
+                t[n] = (t[n].clone() if on_cpu(u)
+                        else _empty_ghosts_zero(t[n], ctx))
+        if on_cpu(u):
+            return tend_rk_fold_plain(s, t, self.ct, self.ce, *args, first,
+                                      carry, se_row, e, *self._sweep_args())
+        shape = (ctx.kcells, ctx.jtot, ctx.itot)
+        interior = (ctx.ktot, ctx.jtot, ctx.itot)
+        names = self.prognostic
+        extra = [a for a in (se_row, e) if a is not None]
+        check([s[n] for n in names] + [t[n] for n in names] + list(old.values())
+              + [self.ct, self.ce] + extra, u.dtype, u.device,
+              [shape] * (2 * len(names) + 2) + [(ctx.ktot, NTG), (ctx.ktot, NE)]
+              + ([(ctx.jtot, ctx.itot)] if se_row is not None else [])
+              + ([interior] if e is not None else []))
+        s_star = {n: _empty_ghosts_zero(s[n], ctx) for n in names}
+        e_out = None
+        if e is None:
+            e_out = torch.empty(interior, dtype=u.dtype, device=u.device)
+        rhs = torch.empty(interior, dtype=u.dtype, device=u.device)
+        self.k_tend_fold(
+            u.dtype, s["u"], s["v"], s["w"], self._th(s), e, se_row,
+            s_star["u"], s_star["v"], s_star["w"], self._th(s_star),
+            None if first else old["u"], None if first else old["v"],
+            t["u"] if carry else None, t["v"] if carry else None, t["w"],
+            self._th(t), e_out, rhs, self.ct, self.ce, ctx.itot, ctx.jtot,
+            ctx.ktot, *args, self.fc, ctx.utrans, ctx.vtrans, int(first),
+            int(carry), int(self.coriolis))
+        return s_star, (e_out if e is None else e), rhs
 
     def tendencies(self, s, t, e):
         """K20: the dry tendencies of ghost-filled u, v, w, th with the
@@ -629,16 +743,19 @@ class Fused:
             raise ValueError("K20 reads ghost planes: build Fused with "
                              "ghosts=True")
         args = (ctx.ks, ctx.dxi, ctx.dyi, self.visc, self.svisc, self.tPr,
-                self.fc, ctx.utrans, ctx.vtrans, self.coriolis)
+                self.fc, ctx.utrans, ctx.vtrans)
         if on_cpu(e):
-            return tendencies_plain(s, e, t, self.ct, *args)
+            return tendencies_plain(s, e, t, self.ct, *args, self.coriolis,
+                                    self.has_thermo)
         shape = (ctx.kcells, ctx.jtot, ctx.itot)
-        fields = [s[n] for n in PROGNOSTIC] + [e]
-        carry_t = [t[n] for n in PROGNOSTIC]
-        check(fields + carry_t + [self.ct], e.dtype, e.device,
-              [shape] * 9 + [(ctx.ktot, NTG)])
-        self.k_tendencies(e.dtype, *fields, *carry_t, self.ct, ctx.itot,
-                          ctx.jtot, ctx.ktot, *args[:-1], int(self.coriolis))
+        names = self.prognostic
+        check([s[n] for n in names] + [e] + [t[n] for n in names] + [self.ct],
+              e.dtype, e.device,
+              [shape] * (2 * len(names) + 1) + [(ctx.ktot, NTG)])
+        self.k_tendencies(e.dtype, s["u"], s["v"], s["w"], self._th(s), e,
+                          t["u"], t["v"], t["w"], self._th(t), self.ct,
+                          ctx.itot, ctx.jtot, ctx.ktot, *args,
+                          int(self.coriolis))
 
 
 class FusedGeneric(Fused):
@@ -935,30 +1052,29 @@ def surface_evisc_row(smag, ctx, s, sfc, stratified):
 
 def exec_viscosity(fused, ctx, s, sfc, aux):
     """K1 + the MOST bottom-row patch -> aux['evisc_int'] (interior)."""
-    ev = fused.evisc(s["u"], s["v"], s["w"], s["th"])
+    ev = fused.evisc(s["u"], s["v"], s["w"], s.get("th", s["u"]))
     if fused.smag.surface:
-        ev[0] = surface_evisc_row(fused.smag, ctx, s, sfc, True)
+        ev[0] = surface_evisc_row(fused.smag, ctx, s, sfc, fused.has_thermo)
     aux = dict(aux)
     aux["evisc_int"] = ev
     return aux
 
 
-def tendencies_rk(fused, ctx, s, t, aux, sfc, cbdt, can, first):
-    """K2, then the MOST wall rows of the diffusion (diff_smag2.cxx wall
-    forms) patched into s* and the carry.  K2 computed those rows with the
-    clamped vertical term; the patch recomputes that term with the same
-    clamped neighbours and replaces it with the wall-flux form."""
+def _patch_wall_rows(fused, ctx, s, t, evisc, sfc, s_star, cbdt, can):
+    """The MOST wall rows of the diffusion (diff_smag2.cxx wall forms)
+    patched into s* and, when can is not 0, the carry.  The sweep computed
+    those rows with the clamped vertical term; the patch recomputes that
+    term with the same clamped neighbours and replaces it with the
+    wall-flux form.  Returns the tendency corrections of u and v at the
+    bottom and top rows, {(name, row): plane}, which the rhs fold needs."""
     smag = fused.smag
-    u, v, w, th = (s[n] for n in PROGNOSTIC)
+    u, v, w = s["u"], s["v"], s["w"]
     ks, ke = ctx.ks, ctx.ke
     dxi, dyi = ctx.dxi, ctx.dyi
     visc = smag.visc
     carry = can != 0.
-    evisc = aux["evisc_int"]
-    s_star = fused.tend_rk(s, t, evisc, cbdt, can, first, carry)
-    if not smag.surface:
-        return s_star
     rho, rhoh, dzi, dzhi = ctx.rhoref, ctx.rhorefh, ctx.dzi, ctx.dzhi
+    deltas = {}
 
     def F(arr, kabs):
         return arr[min(max(kabs, ks), ke - 1)]
@@ -984,6 +1100,7 @@ def tendencies_rk(fused, ctx, s, t, aux, sfc, cbdt, can, first):
         old_vert = ((rhoh[ka + 1] * ev_t * ((F(u, ka + 1) - u[ka]) * dzhi[ka + 1] + (w[ka + 1] - im(w[ka + 1])) * dxi)
                      - rhoh[ka] * ev_b * ((u[ka] - F(u, ka - 1)) * dzhi[ka] + (w[ka] - im(w[ka])) * dxi))
                     / rho[ka] * dzi[ka])
+        deltas["u", row] = corr - old_vert
         patch("u", ka, corr - old_vert)
 
     # ---- v rows ----
@@ -999,11 +1116,14 @@ def tendencies_rk(fused, ctx, s, t, aux, sfc, cbdt, can, first):
         old_vert = ((rhoh[ka + 1] * ev_t * ((F(v, ka + 1) - v[ka]) * dzhi[ka + 1] + (w[ka + 1] - jm(w[ka + 1])) * dyi)
                      - rhoh[ka] * ev_b * ((v[ka] - F(v, ka - 1)) * dzhi[ka] + (w[ka] - jm(w[ka])) * dyi))
                     / rho[ka] * dzi[ka])
+        deltas["v", row] = corr - old_vert
         patch("v", ka, corr - old_vert)
 
-    # ---- th rows ----
+    # ---- th rows (none without thermo, pallas_fused.py:2460) ----
+    if not fused.has_thermo:
+        return deltas
     svisc = fused.svisc
-    a = th
+    a = s["th"]
     for row, ka in (("bot", ks), ("top", ke - 1)):
         st_ = 0.5 * (E(ka) + E(ka + 1)) / smag.tPr + svisc
         sb = 0.5 * (E(ka - 1) + E(ka)) / smag.tPr + svisc
@@ -1019,14 +1139,58 @@ def tendencies_rk(fused, ctx, s, t, aux, sfc, cbdt, can, first):
                      - rhoh[ka] * sb * (a[ka] - F(a, ka - 1)) * dzhi[ka])
                     / rho[ka] * dzi[ka])
         patch("th", ka, corr - old_vert)
+    return deltas
+
+
+def tendencies_rk(fused, ctx, s, t, aux, sfc, cbdt, can, first):
+    """K2 with the eddy viscosity aux['evisc_int'], then the MOST wall rows
+    patched into s* and the carry."""
+    s_star = fused.tend_rk(s, t, aux["evisc_int"], cbdt, can, first,
+                           can != 0.)
+    if fused.smag.surface:
+        _patch_wall_rows(fused, ctx, s, t, aux["evisc_int"], sfc, s_star,
+                         cbdt, can)
     return s_star
 
 
-def pressure_rk(glue, ctx, pres, s_star, t, aux, subdt, can):
-    """The projection of the RK-folded step: K4 rhs -> spectral solve (K3)
+def tendencies_rk_fold(fused, ctx, s, t, aux, sfc, cbdt, can, first,
+                       se_row=None, evisc_fold=True):
+    """K22, then the MOST wall rows patched into s*, the carry and, as
+    rho div_h of the u* and v* corrections, into the bottom and top rows of
+    the Poisson right-hand side (fused_tendencies_rk with rhs_dti = 1/cbdt,
+    pallas_fused.py:2479-2489).  se_row: the MOST surface row of the eddy
+    viscosity, computed BEFORE the surface model ran (it must see the last
+    substep's MO gradients, microhh_tpu/model.py:383-394); by default
+    computed here from sfc, for a caller that has not run it since.
+    evisc_fold False: K22 reads aux['evisc_int'] instead of computing it.
+    Returns (s*, aux with 'evisc_int', rhs)."""
+    smag = fused.smag
+    e_in = None if evisc_fold else aux["evisc_int"]
+    if smag.surface and se_row is None and evisc_fold:
+        se_row = surface_evisc_row(smag, ctx, s, sfc, fused.has_thermo)
+    s_star, evisc, rhs = fused.tend_rk_fold(
+        s, t, se_row if evisc_fold else None, cbdt, can, 1. / cbdt, first,
+        can != 0., e=e_in)
+    aux = dict(aux)
+    aux["evisc_int"] = evisc
+    if smag.surface:
+        deltas = _patch_wall_rows(fused, ctx, s, t, evisc, sfc, s_star, cbdt,
+                                  can)
+        for row, ka, kr in (("bot", ctx.ks, 0),
+                            ("top", ctx.ke - 1, ctx.ktot - 1)):
+            du, dv = deltas["u", row], deltas["v", row]
+            rhs[kr] += ctx.rhoref[ka] * ((ip(du) - du) * ctx.dxi
+                                         + (jp(dv) - dv) * ctx.dyi)
+    return s_star, aux, rhs
+
+
+def pressure_rk(glue, ctx, pres, s_star, t, aux, subdt, can, rhs=None):
+    """The projection of the RK-folded step: K4 rhs (unless the sweep has
+    emitted ``rhs`` already, fused_pressure_rk's rhs=) -> spectral solve (K3)
     -> K4 apply, in place on s* and the carry.  aux['p'] is the interior
     pressure (ktot, jtot, itot)."""
-    rhs = glue.rhs(s_star["u"], s_star["v"], s_star["w"], 1. / subdt)
+    if rhs is None:
+        rhs = glue.rhs(s_star["u"], s_star["v"], s_star["w"], 1. / subdt)
     p = pres.solve(rhs)
     glue.apply(p, s_star, t, subdt, can, can != 0.)
     aux = dict(aux)

@@ -199,10 +199,12 @@ def test_port_sources_import_no_jax():
 # --------------------------------------------------------------------------
 
 @pytest.mark.parametrize("case,ktot", [("jaenschwalde", 64),
-                                       ("sullivan2011", 64)])
+                                       ("sullivan2011", 64),
+                                       ("andren1994", 40)])
 def test_case_inputs_match_their_generators(case, ktot, tmp_path, monkeypatch):
-    """cases.jaenschwalde_input and cases.sullivan2011_input hold, bit for
-    bit, what cases/<case>/<case>_input.py writes."""
+    """cases.jaenschwalde_input, cases.sullivan2011_input and
+    cases.andren1994_input hold, bit for bit, what
+    cases/<case>/<case>_input.py writes."""
     from microhh_tpu.utils import nc as jnc
     from microhh_torch import cases
     case_dir = os.path.join(ROOT, "cases", case)

@@ -294,5 +294,6 @@ def test_wrapper_contract():
                                        "evisc_n2", "tend_scalar_rk",
                                        "o4_mom", "o4_scalars",
                                        "tend_uvw_acc", "tend_scalar_acc",
-                                       "tendencies", "tdma_ri"}
+                                       "tendencies", "tdma_ri",
+                                       "tend_rk_fold"}
     assert kernels.library_path().startswith(kernels.BUILD_DIR)

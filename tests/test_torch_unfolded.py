@@ -13,9 +13,10 @@
 * Source and BoundaryOutflow.correct vs the JAX ops (<= 1e-12), the sources'
   exact emission rate, and the advec_2 flux the outflow correction takes out
   under any scheme (ROADMAP Queue 3);
-* two RK3 steps of a 16x8x24 jaenschwalde, a sullivan2011 and a
-  Dirichlet-top drycblles case vs the JAX Model (<= 1e-10), with co2 and its
-  inflow profile carried across as numpy arrays;
+* two RK3 steps of a 16x8x24 jaenschwalde, a sullivan2011 (forced onto the
+  unfolded substep: its default is the RK-folded one) and a Dirichlet-top
+  drycblles case vs the JAX Model (<= 1e-10), with co2 and its inflow
+  profile carried across as numpy arrays;
 * the port's own two paths: drycblles and rico on the unfolded substep vs
   their RK-folded steps (<= 1e-10), and the limiter's two forms on qt;
 * the options that stay outside the slice raise, naming their ROADMAP item.
@@ -94,9 +95,9 @@ def jax_model(tm, wd):
     return jm
 
 
-def torch_model(build, n=N, k=KT):
+def torch_model(build, n=N, k=KT, **step):
     tm = build(torch, n, k, torch.float64, "cpu")
-    tm.build_step()
+    tm.build_step(**step)
     return tm
 
 
@@ -152,7 +153,9 @@ def jaen(tmp_path_factory):
 @pytest.fixture(scope="module")
 def sull(tmp_path_factory):
     wd = str(tmp_path_factory.mktemp("sull"))
-    tm = torch_model(build_sull)
+    # its default is the RK-folded step with the Coriolis term in K22
+    # (tests/test_torch_fold.py); this is its substep without the RK fold
+    tm = torch_model(build_sull, unfolded=True)
     jm = jax_model(tm, wd)
     assert not tm.generic and tm.unfolded
     assert tm.skip_force and tm.skip_buffer and tm.fused.coriolis
@@ -511,14 +514,15 @@ def test_two_rk3_steps_match_jax(case, tmp_path):
         "jaenschwalde": (build_jaen, lambda m: unfolded_state(m, 3)),
         "sullivan2011": (build_sull, lambda m: unfolded_state(m, 3)),
         "drycblles_dirichlet_top": (build_dirichlet, drycbl_state)}[case]
-    tm = torch_model(build)
+    tm = torch_model(build, unfolded=True)
     jm = jax_model(tm, str(tmp_path))
     assert tm.unfolded
     if case == "jaenschwalde":
         assert not jm._use_rkfold_generic      # the JAX package unfolds too
     elif case == "sullivan2011":
         # the JAX package folds the RK update and the Coriolis term into
-        # its clamped kernel; the port unfolds on ghost-filled fields
+        # its clamped kernel, as the port does by default; here the port
+        # is forced onto its unfolded substep on ghost-filled fields
         assert jm._use_rkfold and jm._fused.fold_ghosts
     else:
         assert not jm._fused.fold_ghosts
