@@ -6,6 +6,14 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases (any failure exits non-zero and prints no result line):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build the hand-written CUDA kernels from microhh_torch/csrc;
+  3a. K5 and K6 in both forms against torch.fft.rfft2/irfft2 (float64 <=
+     1e-12, float32 <= 1e-5 of the output's maximum): through the wrappers
+     (the form Pres2.dft_form picks) and with every (C, F) of DFT_FORCED on
+     the cluster entries and the split entries called directly, at odd,
+     prime and rectangular planes, jtot not divisible by C, itot/2 not
+     divisible by C*F and kt = 1; a float64 512^2 x 4 stack through the
+     wrappers, which takes the split form; irfft2(rfft2(x)) against x; K6's
+     input unchanged;
   3. each kernel against its plain-torch version on the card, in float64
      (max error <= 1e-12 of each output's maximum) and float32 (<= 1e-5,
      K11's running column sums and pow/exp/log chain included): the dry
@@ -93,7 +101,9 @@ Phases (any failure exits non-zero and prints no result line):
 Beside each kernel's time stands its bound: the bytes its inputs and outputs
 hold, each once, over 3.35 TB/s, or its operations over 67 TFLOP/s (float32
 outside the tensor cores; half that for float64) where that is larger; and, where one PyTorch call
-computes the same function (the two DFTs), that call's time.
+computes the same function (the two DFTs), that call's time; beside K5
+and K6 also their form, C, F, shared memory and registers per CTA, GB/s
+and share of the bound.
 With --profile FILE, a last phase traces two steps of each LES with
 torch.profiler and prints the device time per kernel, the step's device
 idle share (one minus the device time over the wall time of the same
@@ -607,18 +617,118 @@ def pres_cases(torch, m, s, t0, rnd):
 
 
 def dft_cases(torch, m, rnd):
-    """K5 and K6 against torch.fft on a model's wrappers."""
+    """K5 and K6 against torch.fft on a model's wrappers; K6's input is
+    compared with a copy taken before the call (it must not be written)."""
     ctx, pr = m.ctx, m.pres
+    fwd, inv = pr.dft_kernels(m.dtype)
     x = rnd(ctx.ktot, ctx.jtot, ctx.itot)
     spec = torch.fft.rfft2(x, dim=(-2, -1))
-    return [("dft_fwd",
+    spec0 = spec.clone()
+
+    def inv_pair(kernel):
+        out = (pr.irfft2(spec, ctx.itot) if kernel else
+               torch.fft.irfft2(spec0, s=x.shape[-2:], dim=(-2, -1)))
+        return [out, torch.view_as_real(spec)]
+    return [(fwd.name,
              lambda: [torch.view_as_real(pr.rfft2(x))],
              lambda: [torch.view_as_real(torch.fft.rfft2(x, dim=(-2, -1)))],
              "field"),
-            ("dft_inv",
-             lambda: [pr.irfft2(spec.clone(), ctx.itot)],
-             lambda: [torch.fft.irfft2(spec, s=x.shape[-2:], dim=(-2, -1))],
+            (inv.name, lambda: inv_pair(True), lambda: inv_pair(False),
              "field")]
+
+
+# (itot, jtot, kt) of the DFT checks beyond the models' own shapes: jtot not
+# divisible by C, odd and prime sides, itot/2 not divisible by C*F, kt = 1
+DFT_SHAPES = ((48, 45, 3), (45, 48, 3), (30, 18, 2), (17, 13, 2), (13, 17, 1),
+              (100, 36, 1), (64, 7, 2), (14, 21, 2), (2, 9, 2), (96, 50, 5))
+# (C, F) forced on the cluster entries at those shapes
+DFT_FORCED = ((2, 1), (2, 16), (4, 3), (8, 4), (8, 16))
+
+
+def check_dft(torch):
+    """K5 and K6 in both forms against torch.fft.rfft2/irfft2 (float32 <=
+    1e-5, float64 <= 1e-12 of the output's maximum): through the wrappers
+    (the form dft_form picks) and with every (C, F) of DFT_FORCED on the
+    cluster entries and the split entries called directly, at DFT_SHAPES;
+    and through the wrappers on a float64 512^2 x 4 stack, which takes the
+    split form.  Also irfft2(rfft2(x)) against x, and K6's input unchanged."""
+    from microhh_torch.dft_timing import make_pres
+    from microhh_torch.ops.pres_2 import COMPLEX, dft_form
+    gen = np.random.RandomState(11)
+    worst = {}
+
+    def hold(name, got, want, dtype, where):
+        err = rel_err(got, want)
+        tol = TOLS[str(dtype)[6:]]["field"]
+        if not err <= tol:
+            log("  %s %s %s: rel err %.3e (tol %.0e) FAIL"
+                % (name, where, str(dtype)[6:], err, tol))
+            raise AssertionError("%s disagrees with torch.fft at %s"
+                                 % (name, where))
+        worst[name] = max(worst.get(name, 0.), err)
+
+    def one(itot, jtot, kt, dtype):
+        pr = make_pres(itot, jtot, kt)
+        x = torch.as_tensor(gen.randn(kt, jtot, itot), dtype=dtype,
+                            device="cuda")
+        spec = torch.as_tensor(
+            gen.randn(kt, jtot, itot // 2 + 1)
+            + 1j * gen.randn(kt, jtot, itot // 2 + 1),
+            dtype=COMPLEX[dtype], device="cuda")
+        # a Hermitian spectrum (that of a real field), as the solver gives
+        spec = torch.fft.rfft2(torch.fft.irfft2(spec, s=(jtot, itot)))
+        spec0 = spec.clone()
+        ref_f = torch.view_as_real(torch.fft.rfft2(x))
+        ref_i = torch.fft.irfft2(spec, s=(jtot, itot))
+        form = dft_form(jtot, itot, dtype)
+        where = "%dx%dx%d %s" % (itot, jtot, kt, form.form)
+        names = ("dft_fwd", "dft_inv") if form.form == "cluster" else (
+            "dft_fwd_split", "dft_inv_split")
+        hold(names[0], torch.view_as_real(pr.rfft2(x)), ref_f, dtype, where)
+        hold(names[1], pr.irfft2(spec, itot), ref_i, dtype, where)
+        hold(names[1] + " in", torch.view_as_real(spec),
+             torch.view_as_real(spec0), dtype, where)
+        hold("round trip", pr.irfft2(pr.rfft2(x), itot), x, dtype, where)
+        if form.form == "split":
+            return form
+        args = (kt, jtot, itot)
+        for C, F in DFT_FORCED:
+            y = torch.empty_like(spec)
+            out = torch.empty_like(x)
+            pr.k_dft_fwd(dtype, x, y, *args, C, F)
+            pr.k_dft_inv(dtype, spec, out, *args, C, F)
+            w = "%dx%dx%d C=%d F=%d" % (itot, jtot, kt, C, F)
+            hold("dft_fwd", torch.view_as_real(y), ref_f, dtype, w)
+            hold("dft_inv", out, ref_i, dtype, w)
+        y = torch.empty_like(spec)
+        out = torch.empty_like(x)
+        pr.k_dft_fwd_split(dtype, x, y, *args)
+        pr.k_dft_inv_split(dtype, spec, torch.empty_like(spec), out, *args)
+        w = "%dx%dx%d split" % (itot, jtot, kt)
+        hold("dft_fwd_split", torch.view_as_real(y), ref_f, dtype, w)
+        hold("dft_inv_split", out, ref_i, dtype, w)
+        hold("dft_inv_split in", torch.view_as_real(spec),
+             torch.view_as_real(spec0), dtype, w)
+        return form
+
+    def run(itot, jtot, kt, dtype):
+        worst.clear()
+        form = one(itot, jtot, kt, dtype)
+        log("  %dx%dx%d %s (%s C=%d F=%d)%s: rel err %s, tol %.0e ok"
+            % (itot, jtot, kt, str(dtype)[6:], form.form, form.C, form.F,
+               "" if form.form == "split" else ", forced (C, F) %s and split"
+               % (DFT_FORCED,), ", ".join("%s %.1e" % kv
+                                          for kv in sorted(worst.items())),
+               TOLS[str(dtype)[6:]]["field"]))
+        return form
+
+    for itot, jtot, kt in DFT_SHAPES:
+        for dtype in (torch.float64, torch.float32):
+            run(itot, jtot, kt, dtype)
+    form = run(512, 512, 4, torch.float64)
+    if form.form != "split":
+        raise AssertionError("a float64 512^2 plane took the %s form"
+                             % form.form)
 
 
 def tdma_ri_cases(torch, m, rnd):
@@ -1118,13 +1228,41 @@ FLOPS_PER_POINT = {"evisc": 100, "evisc_n2": 100, "limits": 110,
                    "o4_scalars": {"4": 215, "4m": 130}}
 
 
-def pair(kern, plain, nbytes, flops, lib=None, peak_flops=PEAK_FLOPS):
+def pair(kern, plain, nbytes, flops, lib=None, peak_flops=PEAK_FLOPS,
+         info=None):
     """A kernel call, its plain version, the bytes its inputs and outputs
     hold (each once), its operations and the card's peak rate for their
-    type, and the one library call that computes the same function (or
-    None)."""
+    type, the one library call that computes the same function (or None),
+    and what to report beside its times."""
     return {"kern": kern, "plain": plain, "bytes": nbytes, "flops": flops,
-            "lib": lib, "peak_flops": peak_flops}
+            "lib": lib, "peak_flops": peak_flops, "info": info or {}}
+
+
+# the kernel functions of each DFT entry, as the build log names them
+DFT_ENTRIES = {"dft_fwd": "dft_fwd_cluster", "dft_inv": "dft_inv_cluster",
+               "dft_fwd_split": "dft_r2c_x", "dft_inv_split": "dft_c2r_x"}
+# kernel function -> {type: registers}, from nvcc -Xptxas -v (main fills it)
+REGISTERS = {}
+
+
+def registers_of(build_log):
+    """{kernel function: {"float"|"double": registers}} of the DFT kernels
+    from the ptxas lines of the build log."""
+    out, current = {}, None
+    for line in build_log.splitlines():
+        hit = re.search(r"Compiling entry function '(\w+)'", line)
+        if hit:
+            name = hit.group(1)
+            current = next(((f, "double" if "IdE" in name else "float")
+                            for f in sorted(set(DFT_ENTRIES.values())
+                                            | {"dft_c2c_y"})
+                            if f in name), None)
+            continue
+        hit = re.search(r"Used (\d+) registers", line)
+        if hit and current:
+            out.setdefault(current[0], {})[current[1]] = int(hit.group(1))
+            current = None
+    return out
 
 
 def field_bytes(m):
@@ -1154,14 +1292,20 @@ def pres_pairs(torch, m, s):
         return torch.fft.rfft2(rhs, dim=(-2, -1))
 
     def lib_inv():
-        return torch.fft.irfft2(spec.clone(), s=p.shape[-2:], dim=(-2, -1))
+        # irfft2 copies its input itself (a c2r transform overwrites it)
+        return torch.fft.irfft2(spec, s=p.shape[-2:], dim=(-2, -1))
 
+    form = pr.dft_form(ctx.jtot, ctx.itot, m.dtype)
+    fwd, inv = pr.dft_kernels(m.dtype)
+    info = {"form": form.form, "C": form.C, "F": form.F,
+            "smem_per_cta": form.smem}
     dft = {
-        "dft_fwd": pair(lambda: pr.rfft2(rhs), lib_fwd, fb + sb, dft_flops,
-                        lib_fwd),
-        # the kernel overwrites its input: both sides time one copy of it
-        "dft_inv": pair(lambda: pr.irfft2(spec.clone(), ctx.itot), lib_inv,
-                        fb + sb, dft_flops, lib_inv)}
+        fwd.name: pair(lambda: pr.rfft2(rhs), lib_fwd, fb + sb, dft_flops,
+                       lib_fwd, info=dict(info, registers=REGISTERS.get(
+                           DFT_ENTRIES[fwd.name], {}))),
+        inv.name: pair(lambda: pr.irfft2(spec, ctx.itot), lib_inv, fb + sb,
+                       dft_flops, lib_inv, info=dict(info, registers=(
+                           REGISTERS.get(DFT_ENTRIES[inv.name], {}))))}
     if m.unfolded:
         # K21 reads dr, di and the pivots and writes xr, xi: five arrays of
         # half a spectrum each
@@ -1406,16 +1550,23 @@ def time_pairs(torch, pairs, plain_reps=3):
         lib = time_call(torch, pr["lib"], 5) if pr["lib"] else None
         by_bytes = 1e3 * pr["bytes"] / PEAK_BYTES_S
         by_ops = 1e3 * pr["flops"] / pr["peak_flops"]
-        out[name] = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
+        ms = min(k1, k2)
+        out[name] = {"ms": ms, "plain_ms": min(p1, p2),
                      "bound_ms": max(by_bytes, by_ops),
                      "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-                     "library_ms": lib, "gbytes": pr["bytes"] / 1e9}
+                     "library_ms": lib, "gbytes": pr["bytes"] / 1e9,
+                     "gb_s": pr["bytes"] / ms / 1e6,
+                     "bound_share": max(by_bytes, by_ops) / ms}
+        out[name].update(pr["info"])
         log("  %-14s kernel %.3f ms  plain %.3f ms  bound %.3f ms (%s, %.2f GB)"
-            "  library %s  (runs %.3f/%.3f, %.3f/%.3f)"
-            % (name, out[name]["ms"], out[name]["plain_ms"],
+            "  library %s  (runs %.3f/%.3f, %.3f/%.3f)%s"
+            % (name, ms, out[name]["plain_ms"],
                out[name]["bound_ms"], out[name]["bound_by"],
                pr["bytes"] / 1e9, "none" if lib is None else "%.3f ms" % lib,
-               k1, k2, p1, p2))
+               k1, k2, p1, p2,
+               "  %.0f GB/s, %.1f%% of the bound %s"
+               % (out[name]["gb_s"], 100 * out[name]["bound_share"],
+                  pr["info"]) if pr["info"] else ""))
         torch.cuda.empty_cache()
     return out
 
@@ -1635,9 +1786,12 @@ PARTS = [("evisc_kernel", "K1/K14 evisc"), ("tend_rk_kernel", "K2 tend_rk"),
          ("tend_scalars_kernel", "K10 tend_scalars"),
          ("tend_scalar_kernel", "K15 tend_scalar_rk"),
          ("limits_", "K7 limits"),
-         ("pres_rhs_kernel", "K4 pres_rhs"), ("dft_r2c_x", "K5 dft_fwd (i pass)"),
-         ("dft_c2c_y", "K5/K6 dft (j passes)"), ("tdma_kernel", "K3 tdma"),
-         ("dft_c2r_x", "K6 dft_inv (i pass)"),
+         ("pres_rhs_kernel", "K4 pres_rhs"),
+         ("dft_fwd_cluster", "K5 dft_fwd (cluster form)"),
+         ("dft_inv_cluster", "K6 dft_inv (cluster form)"),
+         ("dft_r2c_x", "K5 dft_fwd_split (i pass)"),
+         ("dft_c2c_y", "K5/K6 split (j passes)"), ("tdma_kernel", "K3 tdma"),
+         ("dft_c2r_x", "K6 dft_inv_split (i pass)"),
          ("pres_apply_kernel", "K4 pres_apply")]
 
 
@@ -1744,10 +1898,15 @@ def kernel_entry(k, launches, errs, times, where):
          "max_abs_err": errs[k.name], "shape": where}
     e.update({key: times[k.name][key] for key in
               ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+    # K5 and K6: their form and its resources
+    e.update({key: times[k.name][key] for key in
+              ("form", "C", "F", "smem_per_cta", "registers")
+              if key in times[k.name]})
     return e
 
 
 def main():
+    started = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -1779,7 +1938,12 @@ def main():
                 or line.startswith("== ")):
             log("    " + line.strip())
 
+    REGISTERS.update(registers_of(build_log))
+    log("    DFT kernels' registers: %s" % REGISTERS)
+
     log("[3] kernels against their plain versions")
+    log("[3a] K5 and K6 in both forms against torch.fft")
+    check_dft(torch)
     check_kernels(torch)
 
     log("[4] whole step, card against CPU")
@@ -1931,6 +2095,7 @@ def main():
         e["launches_by_path"] = {key: lc.get(name, 0)
                                  for key, lc in by_path.items()}
         e["launches"] = sum(e["launches_by_path"].values())
+    log("chip_smoke: %.1f s in all" % (time.perf_counter() - started))
     log(json.dumps(results))
     log("card: %s" % card_line())
     log(json.dumps({"kernels": list(entries.values())}))

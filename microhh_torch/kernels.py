@@ -54,10 +54,15 @@ SIGNATURES = {
     # p, su, sv, sw, tu, tv, tw, pc; itot, jtot, ktot, ks; dxi, dyi, dt, can;
     # carry
     "pres_apply": [_P] * 8 + [_I] * 4 + [_D] * 4 + [_I],
-    # real x, complex y; kt, jtot, itot
-    "dft_fwd": [_P] * 2 + [_I] * 3,
-    # complex y (overwritten), real x; kt, jtot, itot
-    "dft_inv": [_P] * 2 + [_I] * 3,
+    # the cluster form: real x, complex y; kt, jtot, itot, C (CTAs a
+    # cluster), F (modes a column chunk)
+    "dft_fwd": [_P] * 2 + [_I] * 5,
+    # complex y (read only), real x; kt, jtot, itot, C, F
+    "dft_inv": [_P] * 2 + [_I] * 5,
+    # the split form: real x, complex y; kt, jtot, itot
+    "dft_fwd_split": [_P] * 2 + [_I] * 3,
+    # complex y (read only), complex scratch w, real x; kt, jtot, itot
+    "dft_inv_split": [_P] * 3 + [_I] * 3,
     # u, v, w, th, part, out, ce; itot, jtot, ktot, ks; dxi, dyi, tPr;
     # stratified, ghosts
     "limits": [_P] * 7 + [_I] * 4 + [_D] * 3 + [_I] * 2,

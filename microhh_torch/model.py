@@ -393,13 +393,13 @@ class Model:
             return ([self.o4.k_mom, self.o4.k_scal] if self.ctx.scalar_names
                     else [self.o4.k_mom])
         fz = self.fused
-        solve = [self.pres.k_dft_fwd, self.pres.k_tdma, self.pres.k_dft_inv,
-                 self.glue.k_apply]
+        # K5 and K6 in the form this shape and dtype take
+        fwd, inv = self.pres.dft_kernels(self.dtype)
+        solve = [fwd, self.pres.k_tdma, inv, self.glue.k_apply]
         if self.fold:
             return [fz.k_tend_fold] + solve + [fz.k_limits]
         if self.unfolded:
-            pres = [self.pres.k_dft_fwd, self.pres.k_tdma_ri,
-                    self.pres.k_dft_inv]
+            pres = [fwd, self.pres.k_tdma_ri, inv]
         else:
             pres = [self.glue.k_rhs] + solve
         if not self.generic:

@@ -4,12 +4,18 @@ reference ``src/pres_2.cxx``).
 The horizontal transform pair is K5/K6 (``csrc/dft.cu``), the counterparts
 of the JAX package's Pallas DFT kernels ``dft2_fwd`` / ``dft2_inv``; they
 keep ``torch.fft.rfft2``'s natural mode order, which is also their plain
-version.  The vertical tridiagonal system of every mode is solved by K3,
-the Thomas kernel (``csrc/tdma.cu``): the forward-elimination pivots are
-precomputed once per case (``set_values``, pres_2.cxx:124-153,306-324),
-including the mean-mode top BC p = 0, so the per-step solve is two
-first-order recurrences over k per mode.  On a CPU tensor each of the three
-runs its plain-torch version.
+version, and neither writes its input.  Each comes in two forms, chosen by
+``dft_form`` from the plane's shape and dtype alone before any launch: the
+cluster form (entries ``dft_fwd``/``dft_inv``, one launch a transform, a
+k-plane per thread-block cluster of C CTAs that holds it in shared memory)
+wherever C = 1, 2, 4 or 8 CTAs hold the plane, and the two-pass split form
+(``dft_fwd_split``/``dft_inv_split``) for larger planes (f64 at 512^2).  A
+failed launch raises; neither form stands in for the other.  The vertical
+tridiagonal system of every mode is solved by K3, the Thomas kernel
+(``csrc/tdma.cu``): the forward-elimination pivots are precomputed once per
+case (``set_values``, pres_2.cxx:124-153,306-324), including the mean-mode
+top BC p = 0, so the per-step solve is two first-order recurrences over k
+per mode.  On a CPU tensor each of them runs its plain-torch version.
 
 ``solve`` serves the RK-folded paths, whose projection glue is K4
 (ops/fused.py pressure_rk).  ``exec`` is the projection of the substep
@@ -20,6 +26,8 @@ and imaginary parts, K21 (the Thomas kernel of ``Pres2._tdma_ri``, every
 mode in one launch), K6.
 """
 
+import collections
+
 import numpy as np
 import torch
 
@@ -28,6 +36,46 @@ from .stencil import im, ip, jm, jp
 
 
 COMPLEX = {torch.float32: torch.complex64, torch.float64: torch.complex128}
+
+# the most dynamic shared memory a block can have on sm_90 (227 KB)
+SMEM_MAX = 232448
+
+DftForm = collections.namedtuple("DftForm", "form C F smem")
+
+
+def line_stride(n, real_bytes):
+    """Entries of one padded line of n complex values in shared memory (one
+    pad entry per 128 B and one at the end; csrc/dft.cu line_stride)."""
+    return n + (n >> (4 if real_bytes == 4 else 3)) + 1
+
+
+def cluster_smem(jtot, itot, C, F, real_bytes):
+    """Dynamic shared memory of one CTA of the cluster form (csrc/dft.cu
+    cluster_geom and cluster_smem): its rows, the scratch of two column
+    chunks of F lines (at least one row), the stage twiddles of rows and
+    columns and the unpack twiddles of packed rows."""
+    packed = itot % 2 == 0
+    m = itot // 2 if packed else itot
+    ld_row, ld_col = line_stride(m, real_bytes), line_stride(jtot, real_bytes)
+    rows = -(-jtot // C)
+    scratch = max(2 * F * ld_col, ld_row)
+    entries = (rows * ld_row + scratch + m + jtot + (m + 1 if packed else 0))
+    return entries * 2 * real_bytes
+
+
+def dft_form(jtot, itot, dtype):
+    """The DFT form of a (jtot, itot) plane of dtype: the cluster form with
+    the smallest C of 1, 2, 4, 8 whose CTAs hold the plane with column
+    chunks of F = 16 or 8 modes (the larger that fits), else the smallest C
+    that holds it with F = 4, 2 or 1; the split form where no C holds it."""
+    real_bytes = torch.empty((), dtype=dtype).element_size()
+    for chunks in ((16, 8), (4, 2, 1)):
+        for C in (1, 2, 4, 8):
+            for F in chunks:
+                smem = cluster_smem(jtot, itot, C, F, real_bytes)
+                if smem <= SMEM_MAX:
+                    return DftForm("cluster", C, F, smem)
+    return DftForm("split", 0, 0, 0)
 
 
 def tdma_plain(x, winv, tab):
@@ -83,6 +131,12 @@ class Pres2:
                                 "microhh_tpu/ops/pallas_dft.py:322")
         self.k_dft_inv = Kernel("dft_inv", "microhh_torch/csrc/dft.cu",
                                 "microhh_tpu/ops/pallas_dft.py:344")
+        self.k_dft_fwd_split = Kernel("dft_fwd_split",
+                                      "microhh_torch/csrc/dft.cu",
+                                      "microhh_tpu/ops/pallas_dft.py:322")
+        self.k_dft_inv_split = Kernel("dft_inv_split",
+                                      "microhh_torch/csrc/dft.cu",
+                                      "microhh_tpu/ops/pallas_dft.py:344")
         self.k_tdma_ri = Kernel("tdma_ri", "microhh_torch/csrc/tdma.cu",
                                 "microhh_tpu/ops/pres_2.py:898")
 
@@ -161,6 +215,15 @@ class Pres2:
                        dr.shape[0], dr.shape[1] * dr.shape[2])
         return xr, xi
 
+    dft_form = staticmethod(dft_form)
+
+    def dft_kernels(self, dtype):
+        """K5 and K6 in the form the model's planes take."""
+        g = self.grid
+        if dft_form(g.jtot, g.itot, dtype).form == "cluster":
+            return [self.k_dft_fwd, self.k_dft_inv]
+        return [self.k_dft_fwd_split, self.k_dft_inv_split]
+
     def rfft2(self, x):
         """K5: the spectrum (kmax, jtot, itot//2+1) of the real x (kmax,
         jtot, itot), as torch.fft.rfft2 over the last two axes."""
@@ -170,12 +233,16 @@ class Pres2:
         kt, jtot, itot = x.shape
         y = torch.empty((kt, jtot, itot // 2 + 1), dtype=COMPLEX[x.dtype],
                         device=x.device)
-        self.k_dft_fwd(x.dtype, x, y, kt, jtot, itot)
+        form = dft_form(jtot, itot, x.dtype)
+        if form.form == "cluster":
+            self.k_dft_fwd(x.dtype, x, y, kt, jtot, itot, form.C, form.F)
+        else:
+            self.k_dft_fwd_split(x.dtype, x, y, kt, jtot, itot)
         return y
 
     def irfft2(self, y, itot):
         """K6: the real (kmax, jtot, itot) field of the spectrum y, as
-        torch.fft.irfft2; y is overwritten on the card."""
+        torch.fft.irfft2; y is not written."""
         kt, jtot, nf = y.shape
         if on_cpu(y):
             return torch.fft.irfft2(y, s=(jtot, itot), dim=(-2, -1))
@@ -186,7 +253,13 @@ class Pres2:
             raise TypeError("spectrum of dtype %s" % y.dtype)
         check([torch.view_as_real(y)], real, y.device)
         x = torch.empty((kt, jtot, itot), dtype=real, device=y.device)
-        self.k_dft_inv(real, y, x, kt, jtot, itot)
+        form = dft_form(jtot, itot, real)
+        if form.form == "cluster":
+            self.k_dft_inv(real, y, x, kt, jtot, itot, form.C, form.F)
+        else:
+            # the split form's j pass writes a scratch spectrum
+            self.k_dft_inv_split(real, y, torch.empty_like(y), x, kt, jtot,
+                                 itot)
         return x
 
     def solve(self, rhs):

@@ -162,38 +162,43 @@ def test_k7_limits_match_tpu_kernel(setup):
     assert rel(ev_t, ev_j) <= TOL
 
 
-@pytest.mark.parametrize("n", [384, 512])
+@pytest.mark.parametrize("n", [384, 512,
+                               pytest.param((768, 384), id="768x384"),
+                               pytest.param((384, 768), id="384x768"),
+                               pytest.param((1024, 512), id="1024x512")])
 def test_k5_k6_dft_match_tpu_kernels(n):
     """The port's DFT pair (natural rfft2 order) against the radix Pallas
-    DFT kernels, whose mode p of each axis is true mode perm[p]."""
+    DFT kernels, whose mode p of each axis is true mode perm[p]; square and
+    rectangular (itot, jtot) planes, radix 3 on either axis."""
     from microhh_tpu.ops import pallas_dft as D
     from microhh_torch.fields import Fields
     from microhh_torch.grid import Grid
     from microhh_torch.ops.pres_2 import Pres2
 
+    itot, jtot = n if isinstance(n, tuple) else (n, n)
     text = ("[grid]\nitot=%d\njtot=%d\nktot=2\nxsize=1.\nysize=1.\n"
-            "zsize=1.\nswspatialorder=2\n[fields]\nvisc=1e-5\n" % (n, n))
+            "zsize=1.\nswspatialorder=2\n[fields]\nvisc=1e-5\n" % (itot, jtot))
     g = Grid(Ini(text))
     pres = Pres2(Ini(text), g, Fields(Ini(text), g))
-    x = np.random.RandomState(n).randn(2, n, n)
+    x = np.random.RandomState(itot + jtot).randn(2, jtot, itot)
     pp = {k: jnp.asarray(v) for k, v in
-          D.build_pallas_dft_tables(n, n, np.float64).items()}
+          D.build_pallas_dft_tables(itot, jtot, np.float64).items()}
     prec = jax.lax.Precision.HIGHEST
     yr, yi = D.dft2_fwd(jnp.asarray(x), pp, prec, interpret=True)
     yj = np.asarray(yr) + 1j * np.asarray(yi)
-    pj, px = D.pallas_mode_perm_j(n), D.pallas_mode_perm_x(n)
+    pj, px = D.pallas_mode_perm_j(jtot), D.pallas_mode_perm_x(itot)
     yt = pres.rfft2(T(x)).numpy()
-    # the full spectrum of a real field from its half: Y[j, f] for f > n/2
-    # is conj(Y[-j, n-f])
+    # the full spectrum of a real field from its half: Y[j, f] for f >
+    # itot/2 is conj(Y[-j, itot-f])
     full = np.concatenate(
-        [yt, np.conj(yt[:, (-np.arange(n)) % n, 1:n - n // 2][..., ::-1])],
-        axis=-1)
-    assert full.shape == (2, n, n)
+        [yt, np.conj(yt[:, (-np.arange(jtot)) % jtot,
+                        1:itot - itot // 2][..., ::-1])], axis=-1)
+    assert full.shape == (2, jtot, itot)
     ref = full[:, pj][:, :, px]
     assert crel(yj, ref) <= TOL
-    back = D.dft2_inv(yr, yi, pp, prec, n, interpret=True)
+    back = D.dft2_inv(yr, yi, pp, prec, itot, interpret=True)
     yt2 = pres.rfft2(T(x))
-    assert rel(pres.irfft2(yt2, n), back) <= TOL
+    assert rel(pres.irfft2(yt2, itot), back) <= TOL
     assert rel(back, x) <= TOL
 
 
@@ -295,5 +300,6 @@ def test_wrapper_contract():
                                        "o4_mom", "o4_scalars",
                                        "tend_uvw_acc", "tend_scalar_acc",
                                        "tendencies", "tdma_ri",
-                                       "tend_rk_fold"}
+                                       "tend_rk_fold", "dft_fwd_split",
+                                       "dft_inv_split"}
     assert kernels.library_path().startswith(kernels.BUILD_DIR)
