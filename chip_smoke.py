@@ -44,6 +44,13 @@ Phases (any failure exits non-zero and prints no result line):
      and K21 on the sullivan2011 case at 45^2x24 and 48^2x32 and, without
      thermo, on the neutral Ekman LES at 45^2x8 and 48^2x32, the carries
      random;
+  3b. K16 (schemes 4 and 4m) and K13 (2i4, 2i5, 2i53, 2i62; 1, 2 and 4
+     scalars and max_scalars + 2, which the wrapper splits over two
+     launches) against their plain versions with the k-split forced to 1,
+     2, 3, 4 and 5 chunks and to one level a chunk, at ktot 16 and 6 (chunks
+     of one to three levels that touch both walls), on partial tiles: K16 on
+     the moser180 case at 45x40 and the weakscaling case at 48x20, K13 on
+     the rico case at 45x24 and 48x20, float64 and float32;
   4. two whole RK3 steps on the card against the same two steps on the CPU
      (plain versions), <= 1e-10, float64, eleven cases: a 32^3 drycblles on
      K22 and with build_step(fold=False), a 16^2x24 rico (swadvec=2), a
@@ -103,7 +110,9 @@ hold, each once, over 3.35 TB/s, or its operations over 67 TFLOP/s (float32
 outside the tensor cores; half that for float64) where that is larger; and, where one PyTorch call
 computes the same function (the two DFTs), that call's time; beside K5
 and K6 also their form, C, F, shared memory and registers per CTA, GB/s
-and share of the bound.
+and share of the bound; beside K13 and K16 their registers, local bytes a
+thread, shared memory a block, resident blocks an SM (as the card reports
+them), chunk count, blocks and waves at the path's shape.
 With --profile FILE, a last phase traces two steps of each LES with
 torch.profiler and prints the device time per kernel, the step's device
 idle share (one minus the device time over the wall time of the same
@@ -236,9 +245,11 @@ def case_ini(case, name=None, **over):
 
 
 def rico_ini(n, k, swadvec="2"):
-    """cases/rico/rico.ini at n^2 x k; by default with swadvec 2 instead of
-    2i5, the override bench.py's _run_moist_size (bench.py:124-137) times."""
-    return case_ini("rico", itot=n, jtot=n, ktot=k, swadvec=swadvec)
+    """cases/rico/rico.ini at n^2 x k (or n = (itot, jtot)); by default with
+    swadvec 2 instead of 2i5, the override bench.py's _run_moist_size
+    (bench.py:124-137) times."""
+    itot, jtot = n if isinstance(n, tuple) else (n, n)
+    return case_ini("rico", itot=itot, jtot=jtot, ktot=k, swadvec=swadvec)
 
 
 def build_rico(torch, n, k, dtype, device, mode="run", workdir=".",
@@ -984,10 +995,11 @@ def generic_kernel_cases(torch, m, seed, only=None):
     return cases + pres_cases(torch, m, s, t0, rnd)
 
 
-def o4_kernel_cases(torch, m, seed):
+def o4_kernel_cases(torch, m, seed, chunks=None):
     """(name, kernel call, plain call, error kind) for K16 and K17 on a
     4th-order model: random fields, ghost levels included, with distinct w
-    arrays under the two ghost types, and random carries."""
+    arrays under the two ghost types, and random carries; chunks: K16's
+    k-split forced (K16 alone then)."""
     ctx, o4 = m.ctx, m.o4
     gen = torch.Generator(device="cpu").manual_seed(seed)
     shape = (ctx.kcells, ctx.jtot, ctx.itot)
@@ -1003,7 +1015,10 @@ def o4_kernel_cases(torch, m, seed):
 
     def mom(kernel):
         t = [x.clone() for x in t0[:3]]
-        (o4.momentum if kernel else o4.momentum_plain)(u, v, wc, wd, *t)
+        if kernel:
+            o4.momentum(u, v, wc, wd, *t, chunks=chunks)
+        else:
+            o4.momentum_plain(u, v, wc, wd, *t)
         return t
 
     def scal(kernel):
@@ -1012,10 +1027,80 @@ def o4_kernel_cases(torch, m, seed):
         return t
 
     cases = [("o4_mom", lambda: mom(True), lambda: mom(False), "field")]
-    if names:
+    if names and chunks is None:
         cases.append(("o4_scalars", lambda: scal(True), lambda: scal(False),
                       "field"))
     return cases
+
+
+def advec_scalar_cases(torch, m, seed, chunks):
+    """(name, kernel call, plain call, error kind) for K13 on a model with
+    an interpolated scheme, its k-split forced: 1, 2 and 4 scalars and
+    max_scalars + 2 (two launches), seeded fields and random carries."""
+    from microhh_torch.ops import advec_interp_fused as A
+    ctx, adv = m.ctx, m.advec_fused
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    shape = (ctx.kcells, ctx.jtot, ctx.itot)
+
+    def rnd(scale=1.):
+        return (scale * torch.randn(*shape, generator=gen,
+                                    dtype=torch.float64)).to(ctx.dtype).to(ctx.device)
+
+    u, v, w = rnd(), rnd(), rnd(0.3)
+    most = A.max_scalars(ctx.dtype) + 2
+    a = [rnd() for _ in range(most)]
+    t0 = [rnd(1e-3) for _ in range(most)]
+    cases = []
+    for S in (1, 2, 4, most):
+        def scal(kernel, S=S):
+            t = [x.clone() for x in t0[:S]]
+            if kernel:
+                adv.scalars(u, v, w, a[:S], t, chunks=chunks)
+            else:
+                A.scalars_plain(adv.scheme, u, v, w, a[:S], t, adv.table(),
+                                ctx.ks, ctx.dxi, ctx.dyi)
+            return t
+        cases.append(("advec_scalars", lambda f=scal: f(True),
+                      lambda f=scal: f(False), "field"))
+    return cases
+
+
+def forced_chunks(ktot):
+    """The k-splits check_kmarch forces: 1, 2 and 3 chunks, 4 and 5 (which
+    do not divide 6 or 16), and one level a chunk."""
+    return sorted({c for c in (1, 2, 3, 4, 5) if c <= ktot} | {ktot})
+
+
+def check_kmarch(torch):
+    """K16 (both schemes) and K13 (every scheme) against their plain
+    versions with the k-split forced (forced_chunks) at ktot 6 and 16, so
+    that chunks of one to three levels touch both walls, on partial tiles:
+    K16 on moser180 at 45x40 and weakscaling at 48x20, K13 on rico at 45x24
+    and 48x20 with 1, 2, 4 and max_scalars + 2 scalars."""
+    for label, build, n in (("moser 4m", build_moser, (45, 40)),
+                            ("weakscaling 4", build_weakscaling, (48, 20))):
+        for k in (16, 6):
+            for dtype in (torch.float64, torch.float32):
+                m = build(torch, n, k, dtype, "cuda")
+                m.build_step()
+                for chunks in forced_chunks(k):
+                    for name, kern, plain, kind in o4_kernel_cases(
+                            torch, m, n[0] + k, chunks=chunks):
+                        compare(torch, name, kern, plain, kind, dtype,
+                                "%s %dx%dx%d chunks=%d"
+                                % (label, n[0], n[1], k, chunks))
+    for scheme in ("2i4", "2i5", "2i53", "2i62"):
+        for n in ((45, 24), (48, 20)):
+            for k in (16, 6):
+                for dtype in (torch.float64, torch.float32):
+                    m = build_rico(torch, n, k, dtype, "cuda", swadvec=scheme)
+                    m.build_step()
+                    for chunks in forced_chunks(k):
+                        for name, kern, plain, kind in advec_scalar_cases(
+                                torch, m, n[0] + k, chunks):
+                            compare(torch, name, kern, plain, kind, dtype,
+                                    "rico %s %dx%dx%d chunks=%d"
+                                    % (scheme, n[0], n[1], k, chunks))
 
 
 def compare(torch, name, kern, plain, kind, dtype, where):
@@ -1223,8 +1308,9 @@ FLOPS_PER_POINT = {"evisc": 100, "evisc_n2": 100, "limits": 110,
                    "advec_scalars": 130, "pres_rhs": 10, "pres_apply": 15,
                    "tdma": 16, "tdma_ri": 12, "tend_uvw_acc": 430,
                    "tend_scalar_acc": 100, "tendencies": 700,
-                   # K16 and K17 by scheme (K17 per scalar)
-                   "o4_mom": {"4": 840, "4m": 640},
+                   # K16 and K17 by scheme (K17 per scalar); K16 computes
+                   # each face interpolant once per point
+                   "o4_mom": {"4": 560, "4m": 510},
                    "o4_scalars": {"4": 215, "4m": 130}}
 
 
@@ -1246,23 +1332,32 @@ REGISTERS = {}
 
 
 def registers_of(build_log):
-    """{kernel function: {"float"|"double": registers}} of the DFT kernels
-    from the ptxas lines of the build log."""
-    out, current = {}, None
-    for line in build_log.splitlines():
-        hit = re.search(r"Compiling entry function '(\w+)'", line)
-        if hit:
-            name = hit.group(1)
-            current = next(((f, "double" if "IdE" in name else "float")
-                            for f in sorted(set(DFT_ENTRIES.values())
-                                            | {"dft_c2c_y"})
-                            if f in name), None)
-            continue
-        hit = re.search(r"Used (\d+) registers", line)
-        if hit and current:
-            out.setdefault(current[0], {})[current[1]] = int(hit.group(1))
-            current = None
-    return out
+    """{kernel function: {"float"|"double": registers}} of every kernel
+    from the ptxas lines of the build log (the most over a function's other
+    template arguments), and the spills and stack of every instance."""
+    from microhh_torch.ring_timing import ptxas_info
+    out = {}
+    info = ptxas_info(build_log)
+    for key, rec in info.items():
+        name, args = key[:-1].split("<", 1)
+        dt = args.split(",")[0] or "float"
+        regs = out.setdefault(name, {})
+        regs[dt] = max(regs.get(dt, 0), rec.get("registers", 0))
+    spills = {key: rec for key, rec in info.items()
+              if rec.get("spill_stores") or rec.get("stack")}
+    return out, spills
+
+
+def kmarch_info(kern, dtype, scheme, S, plan):
+    """What a k-marching kernel (K13, K16) reports at a path's shape: its
+    registers, local bytes a thread, shared memory a block and resident
+    blocks an SM from the card, its chunk count, blocks and waves."""
+    info = kern.info(dtype, scheme, S)
+    return {"registers": info["registers"], "local_bytes": info["local_bytes"],
+            "smem_per_block": info["smem"],
+            "blocks_per_sm": info["blocks_per_sm"], "chunks": plan.chunks,
+            "blocks": plan.tiles_i * plan.tiles_j * plan.chunks,
+            "waves": plan.waves}
 
 
 def field_bytes(m):
@@ -1621,11 +1716,14 @@ def time_generic_kernels(torch, m, s):
             lambda: A.momentum_plain(adv.scheme, *uvw, *tuvw, adv.table(),
                                      ctx.ks, ctx.dxi, ctx.dyi),
             9 * fb, FLOPS_PER_POINT["advec_mom"] * n)
+        S1 = min(S, A.max_scalars(m.dtype))
         pairs["advec_scalars"] = pair(
             lambda: adv.scalars(*uvw, a, ta),
             lambda: A.scalars_plain(adv.scheme, *uvw, a, ta, adv.table(),
                                     ctx.ks, ctx.dxi, ctx.dyi),
-            (3 + 3 * S) * fb, FLOPS_PER_POINT["advec_scalars"] * S * n)
+            (3 + 3 * S) * fb, FLOPS_PER_POINT["advec_scalars"] * S * n,
+            info=kmarch_info(adv.k_scal, m.dtype, A.SCHEME_ID[adv.scheme], S1,
+                             adv.plan(S1, m.dtype)))
     if m.unfolded:
         pairs.update(unfolded_sweep_pairs(m, s, e))
     else:
@@ -1715,10 +1813,13 @@ def time_o4_kernels(torch, m, s, plain_reps):
     tuvw = [t[nm] for nm in ("u", "v", "w")]
     fb, n, S = field_bytes(m), points(m), len(names)
     peak = PEAK_FLOPS if m.dtype == torch.float32 else PEAK_FLOPS_F64
+    from microhh_torch.ops.o4_fused import SCHEME_ID
     pairs = {"o4_mom": pair(
         lambda: o4.momentum(u, v, wc, wd, *tuvw),
         lambda: o4.momentum_plain(u, v, wc, wd, *tuvw), 10 * fb,
-        FLOPS_PER_POINT["o4_mom"][o4.scheme] * n, peak_flops=peak)}
+        FLOPS_PER_POINT["o4_mom"][o4.scheme] * n, peak_flops=peak,
+        info=kmarch_info(o4.k_mom, m.dtype, SCHEME_ID[o4.scheme], 0,
+                         o4.plan(m.dtype)))}
     if names:
         pairs["o4_scalars"] = pair(
             lambda: o4.scalars(u, v, wc, names, a, ta),
@@ -1898,9 +1999,10 @@ def kernel_entry(k, launches, errs, times, where):
          "max_abs_err": errs[k.name], "shape": where}
     e.update({key: times[k.name][key] for key in
               ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
-    # K5 and K6: their form and its resources
+    # K5 and K6: their form and its resources; K13 and K16: their k-march
     e.update({key: times[k.name][key] for key in
-              ("form", "C", "F", "smem_per_cta", "registers")
+              ("form", "C", "F", "smem_per_cta", "registers", "local_bytes",
+               "smem_per_block", "blocks_per_sm", "chunks", "blocks", "waves")
               if key in times[k.name]})
     return e
 
@@ -1938,13 +2040,17 @@ def main():
                 or line.startswith("== ")):
             log("    " + line.strip())
 
-    REGISTERS.update(registers_of(build_log))
-    log("    DFT kernels' registers: %s" % REGISTERS)
+    regs, spills = registers_of(build_log)
+    REGISTERS.update(regs)
+    log("    registers by kernel function: %s" % REGISTERS)
+    log("    instances with local memory (spills, stack): %s" % spills)
 
     log("[3] kernels against their plain versions")
     log("[3a] K5 and K6 in both forms against torch.fft")
     check_dft(torch)
     check_kernels(torch)
+    log("[3b] K16 and K13 with the k-split forced")
+    check_kmarch(torch)
 
     log("[4] whole step, card against CPU")
     check_step(torch)

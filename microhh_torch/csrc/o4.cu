@@ -22,19 +22,29 @@
 // mirrored fluxes at the walls.
 //
 // Bound: K16 reads u, v, both w and reads and writes three carries, 10 x
-// 4 B a point in f32, and does about 840 operations a point (640 in 4m):
-// bytes and operations bind about equally on an H100.  K17 reads 3 + 2S
-// fields and writes S, about 215 operations a scalar and point (130 in 4m).
-// Design (K12/K13's): a block of OI x OJ threads owns an (OJ, OI) tile and
-// marches in k; each field keeps a ring of seven (OJ+6) x (OI+6) planes
-// (tile + 3-cell periodic halo) in dynamic shared memory: 94 KB for K16's
-// four rings in f32, 187 KB in f64.  The thread's own vertical column of
-// seven values is copied to registers once per field and level.  K17 keeps
-// one ring per scalar and reads u, v (i-1..i+2, j-1..j+2) and w (k-1..k+2)
-// straight from global memory; the wrapper splits the scalars over
-// launches when their rings exceed a block's shared memory.  The carries
-// are updated in place.
-#include "common.cuh"
+// 4 B a point in f32.  As written here it does about 560 operations a point
+// (510 in 4m; 840 and 640 when every thread computed each face interpolant
+// it used), so the bytes bind on an H100.  K17 reads 3 + 2S fields and
+// writes S, about 215 operations a scalar and point (130 in 4m).
+// K17's design (K12's): a block of OI x OJ threads owns an (OJ, OI) tile and
+// marches through all of k; each scalar keeps a ring of seven (OJ+6) x
+// (OI+6) planes (tile + 3-cell periodic halo) in dynamic shared memory,
+// loaded synchronously, and u, v (i-1..i+2, j-1..j+2) and w (k-1..k+2) come
+// straight from global memory; the wrapper splits the scalars over launches
+// when their rings exceed a block's shared memory.
+// K16's design (kmarch.cuh): a block of 32 x K16_TJ threads marches one
+// chunk of the levels of its tile, the chunk count chosen by the wrapper so
+// that the grid fills the card in whole waves.  Shared memory holds only
+// the planes read across the plane (U and V at k-2..k+1, WC at k and k+2,
+// WD at k), copied by cp.async D levels ahead, and the eight face
+// interpolants of the tile and its flux halo, each computed once per point
+// and read by the four neighbours that use it (a second barrier a level);
+// each thread keeps its own column, planes k-3..k+3 of the four fields, and
+// w interpolated to its u and v points at half levels k-1..k+2, in
+// registers, shifted by one a level.  The table rows come into shared
+// memory with the planes.  The carries are updated in place, each point
+// and level by one block.
+#include "kmarch.cuh"
 
 namespace mhh {
 namespace o4 {
@@ -165,29 +175,6 @@ __device__ __forceinline__ T vd_cell(const T* __restrict__ cc, int k, int base,
     return grad4(x[0], x[1], x[2], x[3]);
 }
 
-// w family: sum_e cg_e * Y_e with Y_e the six-tap row at centre k-2+e (table
-// row k-1+e, clamped at the wall where the output is masked); SQ squares the
-// interpolant (w's self-advection flux).
-template <bool SQ, typename T>
-__device__ __forceinline__ T vd_w(const T* __restrict__ cc, int k, int base,
-                                  const T* w) {
-    T x[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-        const int r = k - 1 + e;
-        const T* row = cc + (long long)(r < 0 ? 0 : r) * NC + base;
-        T acc = T(0);
-#pragma unroll
-        for (int d = -2; d < 4; ++d) {
-            const int off = e - 2 + d;
-            if (off < -3 || off > 3) continue;
-            acc = acc + row[d + 2] * w[off + 3];
-        }
-        x[e] = SQ ? acc * acc : acc;
-    }
-    return grad4(x[0], x[1], x[2], x[3]);
-}
-
 // 4m, cell target at level k: -grad4 of the half-position fluxes, with the
 // mirrored negative outer flux at the walls; wv[e] at half level k-1+e
 template <typename T>
@@ -214,139 +201,345 @@ __device__ __forceinline__ T vert4m_w(const T* w) {
     return T(1. / 24.) * (d - a) + T(-27. / 24.) * (c - b);
 }
 
+// K16's k-march (kmarch.cuh): 32 x K16_TJ tiles, D(T) levels of prefetch.
+// U and V: planes k-2..k+1 read across the plane (u and v to the half
+// level at the halo points); WC: planes k (the w equation) and k+2 (its
+// newest interpolants to the u and v points); WD: plane k (the Laplacian).
+// Eight interpolant planes of the tile and its flux halo: ixh and jyh of u
+// and v at level k, ixh and jyh of w at half level k, u and v interpolated
+// to half level k.  Eight staged table rows (k-1..k+3 read).
+constexpr int K16_TJ = 8;
+constexpr int K16_NT = km::TI * K16_TJ;
+enum { IXU = 0, JYU, IXV, JYV, IXW, JYW, UZ, VZ, NI };
+
+template <typename T>
+struct K16 {
+    static constexpr int D = sizeof(T) == 4 ? 2 : 1;  // levels of prefetch
+    static constexpr int RU = 4 + D;                   // slots of U and of V
+    static constexpr int RW = 3 + D;                   // slots of WC
+    static constexpr int RD = 1 + D;                   // slots of WD
+    static constexpr int RR = 8;                       // staged rows
+    static constexpr int IR = K16_TJ + 3;              // interpolant rows -1..TJ+1
+    static constexpr int IC = km::TI + 4;              // columns -1..TI+1, padded
+    static constexpr int PLANES = 2 * RU + RW + RD;
+    static constexpr int SIZE = km::Slot<K16_TJ>::SIZE;
+    static constexpr size_t smem =
+        ((size_t)PLANES * SIZE + NI * IR * IC + RR * km::NCP) * sizeof(T);
+};
+
+// 7-point horizontal second derivative at a slot position P (q0 its value)
+template <typename T>
+__device__ __forceinline__ T lap_p(const T* P, T q0, T dxidxi, T dyidyi) {
+    const T c0 = T(-1460. / 576.), c1 = T(783. / 576.), c2 = T(-54. / 576.),
+            c3 = T(1. / 576.);
+    constexpr int R = km::RS;
+    return (c3 * (P[-3] + P[3]) + c2 * (P[-2] + P[2]) + c1 * (P[-1] + P[1])
+            + c0 * q0) * dxidxi
+           + (c3 * (P[-3 * R] + P[3 * R]) + c2 * (P[-2 * R] + P[2 * R])
+              + c1 * (P[-R] + P[R]) + c0 * q0) * dyidyi;
+}
+
+// interpolation to i-1/2 (ixh) and j-1/2 (jyh) at a slot position P
+template <typename T>
+__device__ __forceinline__ T ixh_p(const T* P) {
+    return interp4(P[-2], P[-1], P[0], P[1]);
+}
+
+template <typename T>
+__device__ __forceinline__ T jyh_p(const T* P) {
+    constexpr int R = km::RS;
+    return interp4(P[-2 * R], P[-R], P[0], P[R]);
+}
+
+// The vertical ladders on the register column q (planes k-3..k+3) with the
+// staged rows: row(e) holds the six taps for e = 0..3 (cell family: half
+// level k-1+e; w family: centre k-2+e, clamped at the wall); vel = nullptr
+// gives the gradient form, SQ squares the interpolant.  Taps outside the
+// column have zero weight by construction and are skipped.
+template <bool SQ, typename T, typename FR>
+__device__ __forceinline__ T vd_rows(FR row, const T* q, const T* vel) {
+    T x[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+        T wt[6];
+        km::load6(row(e), wt);
+        T acc = T(0);
+#pragma unroll
+        for (int j = 0; j < 6; ++j) {
+            const int qi = e - 1 + j;
+            if (qi < 0 || qi > 6) continue;
+            acc = acc + wt[j] * q[qi];
+        }
+        x[e] = vel ? vel[e] * acc : (SQ ? acc * acc : acc);
+    }
+    return grad4(x[0], x[1], x[2], x[3]);
+}
+
+// three blocks an SM in float32 (at most 85 registers: a few bytes spill,
+// and the k-split then fills 396 slots; 5.15 against 6.29 ms at
+// weakscaling with two blocks of 128 registers on an H100 at 700 W,
+// PERF.md section 6), two in float64 (three spill ~400 bytes and run at
+// half the speed)
 template <typename T, bool M>
-__global__ void __launch_bounds__(OI * OJ)
+__global__ void __launch_bounds__(K16_NT, sizeof(T) == 4 ? 3 : 2)
 o4_mom_kernel(const T* __restrict__ u, const T* __restrict__ v,
               const T* __restrict__ wc, const T* __restrict__ wd, T* tu, T* tv,
               T* tw, const T* __restrict__ cc, int itot, int jtot, int ktot,
-              int ks, T dxi, T dyi, T visc) {
-    // rings: u, v, w with conservation ghosts, w with plain ghosts
-    T (*sh)[NR][WJ][WI] = reinterpret_cast<T (*)[NR][WJ][WI]>(o4_smem);
-    const int i0 = blockIdx.x * OI, j0 = blockIdx.y * OJ;
-    const int i = i0 + threadIdx.x, j = j0 + threadIdx.y;
+              int ks, T dxi, T dyi, T visc, int chunks, int vec_ok) {
+    using G = K16<T>;
+    constexpr int D = G::D, RU = G::RU, RW = G::RW, RD = G::RD, RR = G::RR;
+    constexpr int SZ = G::SIZE, IC = G::IC, IP = G::IR * G::IC;
+    constexpr int R = km::RS;
+    T* const sU = reinterpret_cast<T*>(o4_smem);
+    T* const sV = sU + RU * SZ;
+    T* const sC = sV + RU * SZ;
+    T* const sD = sC + RW * SZ;
+    T* const sI = sD + RD * SZ;             // interpolant planes
+    T* const sR = sI + NI * IP;             // staged rows
+    const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * km::TI + tx;
+    const int i0 = blockIdx.x * km::TI, j0 = blockIdx.y * K16_TJ;
+    const int i = i0 + tx, j = j0 + ty;
     const bool inside = i < itot && j < jtot;
+    int k0, k1;
+    km::chunk_bounds(blockIdx.z, chunks, ktot, k0, k1);
     const long long plane = (long long)itot * jtot;
-    const View7<T> U = view7<T>(sh[0]), V = view7<T>(sh[1]),
-                   WC = view7<T>(sh[2]), WD = view7<T>(sh[3]);
+    const km::PlaneLoader<T, K16_TJ, K16_NT> ld(
+        tid, i0, j0, itot, jtot, vec_ok && i0 + km::TI <= itot);
+    // the point, wrapped where the tile passes the plane's edge (only its
+    // stores are guarded), in the plane, in a slot and in an interpolant plane
+    const int iw = wrap(i, itot), jw = wrap(j, jtot);
+    const long long o2 = (long long)jw * itot + iw;
+    const int me = (ty + km::H) * R + tx + km::C0;
+    const int mi = (ty + 1) * IC + tx + 1;
     const T dxidxi = dxi * dxi, dyidyi = dyi * dyi;
 
-    auto load = [&](int p) {
-        const int s = slot7(p);
-        load_tile7(sh[0][s], u, ks + p, j0, i0, jtot, itot);
-        load_tile7(sh[1][s], v, ks + p, j0, i0, jtot, itot);
-        load_tile7(sh[2][s], wc, ks + p, j0, i0, jtot, itot);
-        load_tile7(sh[3][s], wd, ks + p, j0, i0, jtot, itot);
+    auto slotU = [](int p) { return (p + 3 * RU) % RU; };
+    auto slotR = [](int r) { return (r + RR) % RR; };
+    // plane p of a field: the ghost levels p = -3..ktot+2 as they are (a
+    // copy for a level past the chunk's end is never read)
+    auto lev = [&](int p) {
+        return (long long)(ks + min(p, ktot + 2)) * plane;
+    };
+    auto row_in = [&](int r) {
+        km::issue_row(sR + slotR(r) * km::NCP, cc, clampi(r, 0, ktot + 2), NC,
+                      tid);
+    };
+    // group p: U, V plane p+1, WC plane p+2, WD plane p, table row p+3
+    auto issue = [&](int p) {
+        ld.issue(sU + slotU(p + 1) * SZ, u + lev(p + 1));
+        ld.issue(sV + slotU(p + 1) * SZ, v + lev(p + 1));
+        ld.issue(sC + ((p + 2) % RW) * SZ, wc + lev(p + 2));
+        ld.issue(sD + (p % RD) * SZ, wd + lev(p));
+        row_in(p + 3);
+        km::commit();
     };
 
-    for (int p = -3; p < 3; ++p) load(p);
-    for (int k = 0; k < ktot; ++k) {
-        load(k + 3);
-        __syncthreads();
-        if (inside) {
-            int sl[NR];
+    // the register columns, planes k-3..k+3 at the point, and w interpolated
+    // to the u and the v point at half levels k-1..k+2
+    T Uw[7], Vw[7], Cw[7], Dw[7], IXWw[4], JYWw[4];
 #pragma unroll
-            for (int n = 0; n < NR; ++n) sl[n] = slot7(k - 3 + n);
-            const int s0 = sl[3];
-            const T* row = cc + (long long)k * NC;
-            const T dzi4 = row[DZI4], dzhi4 = row[DZHI4];
-            const long long o = (long long)(ks + k) * plane + (long long)j * itot + i;
+    for (int m = 0; m < 7; ++m) {
+        const long long o = lev(k0 - 3 + m) + o2;
+        Uw[m] = __ldg(u + o);
+        Vw[m] = __ldg(v + o);
+        Cw[m] = __ldg(wc + o);
+        Dw[m] = __ldg(wd + o);
+    }
+    {
+        long long oi[4], oj[4];
+#pragma unroll
+        for (int d = 0; d < 4; ++d) {
+            oi[d] = (long long)jw * itot + wrap(i + d - 2, itot);
+            oj[d] = (long long)wrap(j + d - 2, jtot) * itot + iw;
+        }
+#pragma unroll
+        for (int e = 0; e < 3; ++e) {
+            const T* a = wc + lev(k0 - 1 + e);
+            IXWw[e] = interp4(__ldg(a + oi[0]), __ldg(a + oi[1]),
+                              __ldg(a + oi[2]), __ldg(a + oi[3]));
+            JYWw[e] = interp4(__ldg(a + oj[0]), __ldg(a + oj[1]),
+                              __ldg(a + oj[2]), __ldg(a + oj[3]));
+        }
+        IXWw[3] = JYWw[3] = T(0);
+    }
 
-            // ---- u ----
-            {
-                T q[NR], vel[4];
+    // the planes and rows level k0 reads that no group p >= k0 brings
+    for (int p = k0 - 2; p <= k0; ++p) {
+        ld.issue(sU + slotU(p) * SZ, u + lev(p));
+        ld.issue(sV + slotU(p) * SZ, v + lev(p));
+    }
+    ld.issue(sC + (k0 % RW) * SZ, wc + lev(k0));
+    ld.issue(sC + ((k0 + 1) % RW) * SZ, wc + lev(k0 + 1));
+    for (int r = k0 - 1; r <= k0 + 2; ++r) row_in(r);
 #pragma unroll
-                for (int n = 0; n < NR; ++n) q[n] = U(sl[n], 0, 0);
-                // w at the half levels k-1..k+2, interpolated to the u point
-#pragma unroll
-                for (int e = 0; e < 4; ++e) vel[e] = ixh(WC, sl[2 + e], 0, 0);
-                T t;
-                if (!M) {
-                    t = -div4<T>([&](int d) {
-                            const T g = ixh(U, s0, 0, d);
-                            return g * g;
-                        }) * dxi;
-                    t = t - div4<T>([&](int d) {
-                                return ixh(V, s0, d, 0) * jyh(U, s0, d, 0);
-                            }) * dyi;
-                    t = t - vd_cell(cc, k, TXA, q, vel) * dzi4;
-                } else {
-                    t = flux4<T>([&](int d) { return ixh(U, s0, 0, d); },
-                                 [&](int d) { return U(s0, 0, d); }) * dxi;
-                    t = t + flux4<T>([&](int d) { return ixh(V, s0, d, 0); },
-                                     [&](int d) { return U(s0, d, 0); }) * dyi;
-                    t = t + vert4m_cell(k, ktot, q, vel) * dzi4;
-                }
-                t = t + visc * (lap_h(U, s0, dxidxi, dyidyi)
-                                + vd_cell<T>(cc, k, TG, q, nullptr) * dzi4);
-                tu[o] = tu[o] + t;
+    for (int p = 0; p < D; ++p) issue(k0 + p);
+
+    for (int k = k0; k < k1; ++k) {
+        km::wait_pending<D - 1>();
+        __syncthreads();
+        issue(k + D);
+        // the column values of plane k+4, on their way during this level
+        const long long on = lev(k + 4) + o2;
+        const T nU = __ldg(u + on), nV = __ldg(v + on), nC = __ldg(wc + on),
+                nD = __ldg(wd + on);
+        const T* Uk = sU + slotU(k) * SZ;
+        const T* Vk = sV + slotU(k) * SZ;
+        const T* Ck = sC + (k % RW) * SZ;
+
+        // ---- phase 1: the interpolants of the tile and its flux halo ----
+        {
+            const T* C2 = sC + ((k + 2) % RW) * SZ + me;
+            IXWw[3] = ixh_p(C2);
+            JYWw[3] = jyh_p(C2);
+            T* I = sI + mi;
+            I[IXU * IP] = ixh_p(Uk + me);
+            I[JYU * IP] = jyh_p(Uk + me);
+            I[IXV * IP] = ixh_p(Vk + me);
+            I[JYV * IP] = jyh_p(Vk + me);
+            I[IXW * IP] = IXWw[1];
+            I[JYW * IP] = JYWw[1];
+            I[UZ * IP] = interp4(Uw[1], Uw[2], Uw[3], Uw[4]);
+            I[VZ * IP] = interp4(Vw[1], Vw[2], Vw[3], Vw[4]);
+        }
+        if (tid < 3 * km::TI + 3 * K16_TJ) {
+            const T* Um2 = sU + slotU(k - 2) * SZ;
+            const T* Um1 = sU + slotU(k - 1) * SZ;
+            const T* Up1 = sU + slotU(k + 1) * SZ;
+            int r, c;
+            bool jh = tid < 3 * km::TI;
+            if (jh) {
+                // rows -1, TJ, TJ+1 of the tile's columns
+                const int q = tid / km::TI;
+                r = q == 0 ? -1 : K16_TJ - 1 + q;
+                c = tid - q * km::TI;
+            } else {
+                // columns -1, TI, TI+1 of the tile's rows
+                const int e = tid - 3 * km::TI, q = e / 3;
+                r = q;
+                c = e - 3 * q == 0 ? -1 : km::TI - 1 + (e - 3 * q);
             }
-            // ---- v ----
-            {
-                T q[NR], vel[4];
-#pragma unroll
-                for (int n = 0; n < NR; ++n) q[n] = V(sl[n], 0, 0);
-#pragma unroll
-                for (int e = 0; e < 4; ++e) vel[e] = jyh(WC, sl[2 + e], 0, 0);
-                T t;
-                if (!M) {
-                    t = -div4<T>([&](int d) {
-                            return jyh(U, s0, 0, d) * ixh(V, s0, 0, d);
-                        }) * dxi;
-                    t = t - div4<T>([&](int d) {
-                                const T g = jyh(V, s0, d, 0);
-                                return g * g;
-                            }) * dyi;
-                    t = t - vd_cell(cc, k, TXA, q, vel) * dzi4;
-                } else {
-                    t = flux4<T>([&](int d) { return jyh(U, s0, 0, d); },
-                                 [&](int d) { return V(s0, 0, d); }) * dxi;
-                    t = t + flux4<T>([&](int d) { return jyh(V, s0, d, 0); },
-                                     [&](int d) { return V(s0, d, 0); }) * dyi;
-                    t = t + vert4m_cell(k, ktot, q, vel) * dzi4;
-                }
-                t = t + visc * (lap_h(V, s0, dxidxi, dyidyi)
-                                + vd_cell<T>(cc, k, TG, q, nullptr) * dzi4);
-                tv[o] = tv[o] + t;
-            }
-            // ---- w at half level k; k = 0 is the wall ----
-            if (k > 0) {
-                T q[NR];
-#pragma unroll
-                for (int n = 0; n < NR; ++n) q[n] = WC(sl[n], 0, 0);
-                // u and v interpolated to the half level k
-                auto uzh = [&](int dj, int di) {
-                    return interp4(U(sl[1], dj, di), U(sl[2], dj, di),
-                                   U(sl[3], dj, di), U(sl[4], dj, di));
-                };
-                auto vzh = [&](int dj, int di) {
-                    return interp4(V(sl[1], dj, di), V(sl[2], dj, di),
-                                   V(sl[3], dj, di), V(sl[4], dj, di));
-                };
-                T t;
-                if (!M) {
-                    t = -div4<T>([&](int d) {
-                            return uzh(0, d) * ixh(WC, s0, 0, d);
-                        }) * dxi;
-                    t = t - div4<T>([&](int d) {
-                                return vzh(d, 0) * jyh(WC, s0, d, 0);
-                            }) * dyi;
-                    t = t - vd_w<true>(cc, k, TWC, q) * dzhi4;
-                } else {
-                    t = flux4<T>([&](int d) { return uzh(0, d); },
-                                 [&](int d) { return WC(s0, 0, d); }) * dxi;
-                    t = t + flux4<T>([&](int d) { return vzh(d, 0); },
-                                     [&](int d) { return WC(s0, d, 0); }) * dyi;
-                    t = t + vert4m_w(q) * dzhi4;
-                }
-#pragma unroll
-                for (int n = 0; n < NR; ++n) q[n] = WD(sl[n], 0, 0);
-                t = t + visc * (lap_h(WD, s0, dxidxi, dyidyi)
-                                + vd_w<false>(cc, k, TGW, q) * dzhi4);
-                tw[o] = tw[o] + t;
+            const int at = (r + km::H) * R + c + km::C0;
+            T* I = sI + (r + 1) * IC + c + 1;
+            I[IXV * IP] = ixh_p(Vk + at);
+            I[JYU * IP] = jyh_p(Uk + at);
+            if (jh) {
+                const T* Vm2 = sV + slotU(k - 2) * SZ;
+                const T* Vm1 = sV + slotU(k - 1) * SZ;
+                const T* Vp1 = sV + slotU(k + 1) * SZ;
+                I[JYV * IP] = jyh_p(Vk + at);
+                I[JYW * IP] = jyh_p(Ck + at);
+                I[VZ * IP] = interp4(Vm2[at], Vm1[at], Vk[at], Vp1[at]);
+            } else {
+                I[IXU * IP] = ixh_p(Uk + at);
+                I[IXW * IP] = ixh_p(Ck + at);
+                I[UZ * IP] = interp4(Um2[at], Um1[at], Uk[at], Up1[at]);
             }
         }
         __syncthreads();
+
+        // ---- phase 2: the three tendencies at the point ----
+        const T* I = sI + mi;
+        auto row = [&](int r) { return sR + slotR(r) * km::NCP; };
+        const T dzi4 = row(k)[DZI4], dzhi4 = row(k)[DZHI4];
+        const long long o = lev(k) + o2;
+        // u
+        {
+            T t;
+            if (!M) {
+                t = -grad4(I[IXU * IP - 1] * I[IXU * IP - 1],
+                           I[IXU * IP] * I[IXU * IP],
+                           I[IXU * IP + 1] * I[IXU * IP + 1],
+                           I[IXU * IP + 2] * I[IXU * IP + 2]) * dxi;
+                t = t - grad4(I[IXV * IP - IC] * I[JYU * IP - IC],
+                              I[IXV * IP] * I[JYU * IP],
+                              I[IXV * IP + IC] * I[JYU * IP + IC],
+                              I[IXV * IP + 2 * IC] * I[JYU * IP + 2 * IC]) * dyi;
+                t = t - vd_rows<false, T>([&](int e) { return row(k + e) + TXA; },
+                                          Uw, IXWw) * dzi4;
+            } else {
+                const T* P = Uk + me;
+                t = flux4<T>([&](int d) { return I[IXU * IP + d]; },
+                             [&](int d) { return d ? P[d] : Uw[3]; }) * dxi;
+                t = t + flux4<T>([&](int d) { return I[IXV * IP + d * IC]; },
+                                 [&](int d) { return d ? P[d * R] : Uw[3]; }) * dyi;
+                t = t + vert4m_cell(k, ktot, Uw, IXWw) * dzi4;
+            }
+            t = t + visc * (lap_p(Uk + me, Uw[3], dxidxi, dyidyi)
+                            + vd_rows<false, T>([&](int e) { return row(k + e) + TG; },
+                                                Uw, nullptr) * dzi4);
+            if (inside) tu[o] = tu[o] + t;
+        }
+        // v
+        {
+            T t;
+            if (!M) {
+                t = -grad4(I[JYU * IP - 1] * I[IXV * IP - 1],
+                           I[JYU * IP] * I[IXV * IP],
+                           I[JYU * IP + 1] * I[IXV * IP + 1],
+                           I[JYU * IP + 2] * I[IXV * IP + 2]) * dxi;
+                t = t - grad4(I[JYV * IP - IC] * I[JYV * IP - IC],
+                              I[JYV * IP] * I[JYV * IP],
+                              I[JYV * IP + IC] * I[JYV * IP + IC],
+                              I[JYV * IP + 2 * IC] * I[JYV * IP + 2 * IC]) * dyi;
+                t = t - vd_rows<false, T>([&](int e) { return row(k + e) + TXA; },
+                                          Vw, JYWw) * dzi4;
+            } else {
+                const T* P = Vk + me;
+                t = flux4<T>([&](int d) { return I[JYU * IP + d]; },
+                             [&](int d) { return d ? P[d] : Vw[3]; }) * dxi;
+                t = t + flux4<T>([&](int d) { return I[JYV * IP + d * IC]; },
+                                 [&](int d) { return d ? P[d * R] : Vw[3]; }) * dyi;
+                t = t + vert4m_cell(k, ktot, Vw, JYWw) * dzi4;
+            }
+            t = t + visc * (lap_p(Vk + me, Vw[3], dxidxi, dyidyi)
+                            + vd_rows<false, T>([&](int e) { return row(k + e) + TG; },
+                                                Vw, nullptr) * dzi4);
+            if (inside) tv[o] = tv[o] + t;
+        }
+        // w at half level k; k = 0 is the wall
+        if (k > 0) {
+            T t;
+            if (!M) {
+                t = -grad4(I[UZ * IP - 1] * I[IXW * IP - 1],
+                           I[UZ * IP] * I[IXW * IP],
+                           I[UZ * IP + 1] * I[IXW * IP + 1],
+                           I[UZ * IP + 2] * I[IXW * IP + 2]) * dxi;
+                t = t - grad4(I[VZ * IP - IC] * I[JYW * IP - IC],
+                              I[VZ * IP] * I[JYW * IP],
+                              I[VZ * IP + IC] * I[JYW * IP + IC],
+                              I[VZ * IP + 2 * IC] * I[JYW * IP + 2 * IC]) * dyi;
+                t = t - vd_rows<true, T>([&](int e) { return row(k - 1 + e) + TWC; },
+                                         Cw, nullptr) * dzhi4;
+            } else {
+                const T* P = Ck + me;
+                t = flux4<T>([&](int d) { return I[UZ * IP + d]; },
+                             [&](int d) { return d ? P[d] : Cw[3]; }) * dxi;
+                t = t + flux4<T>([&](int d) { return I[VZ * IP + d * IC]; },
+                                 [&](int d) { return d ? P[d * R] : Cw[3]; }) * dyi;
+                t = t + vert4m_w(Cw) * dzhi4;
+            }
+            t = t + visc * (lap_p(sD + (k % RD) * SZ + me, Dw[3], dxidxi, dyidyi)
+                            + vd_rows<false, T>([&](int e) { return row(k - 1 + e) + TGW; },
+                                                Dw, nullptr) * dzhi4);
+            if (inside) tw[o] = tw[o] + t;
+        }
+
+#pragma unroll
+        for (int m = 0; m < 6; ++m) {
+            Uw[m] = Uw[m + 1];
+            Vw[m] = Vw[m + 1];
+            Cw[m] = Cw[m + 1];
+            Dw[m] = Dw[m + 1];
+        }
+        Uw[6] = nU; Vw[6] = nV; Cw[6] = nC; Dw[6] = nD;
+#pragma unroll
+        for (int e = 0; e < 3; ++e) {
+            IXWw[e] = IXWw[e + 1];
+            JYWw[e] = JYWw[e + 1];
+        }
     }
+    // no copy may land after the block has left its shared memory
+    km::wait_all();
 }
 
 // the scalars', their carries' pointers and their viscosities, by value
@@ -444,14 +637,19 @@ static int raise_smem(K kernel, size_t smem) {
 template <typename T, bool M>
 int launch_mom(const T* u, const T* v, const T* wc, const T* wd, T* tu, T* tv,
                T* tw, const T* cc, int itot, int jtot, int ktot, int ks,
-               double dxi, double dyi, double visc, cudaStream_t stream) {
-    const size_t smem = (size_t)4 * NR * WJ * WI * sizeof(T);
+               double dxi, double dyi, double visc, int chunks,
+               cudaStream_t stream) {
+    const size_t smem = K16<T>::smem;
     if (int rc = raise_smem(o4_mom_kernel<T, M>, smem)) return rc;
-    const dim3 block(OI, OJ);
-    const dim3 grid((itot + OI - 1) / OI, (jtot + OJ - 1) / OJ);
+    const bool vec = itot % (16 / (int)sizeof(T)) == 0 && km::aligned16(u)
+                     && km::aligned16(v) && km::aligned16(wc)
+                     && km::aligned16(wd);
+    const dim3 block(km::TI, K16_TJ);
+    const dim3 grid((itot + km::TI - 1) / km::TI, (jtot + K16_TJ - 1) / K16_TJ,
+                    chunks);
     o4_mom_kernel<T, M><<<grid, block, smem, stream>>>(
         u, v, wc, wd, tu, tv, tw, cc, itot, jtot, ktot, ks, T(dxi), T(dyi),
-        T(visc));
+        T(visc), chunks, (int)vec);
     return (int)cudaGetLastError();
 }
 
@@ -473,13 +671,25 @@ int launch_scalars(const T* u, const T* v, const T* wc, const Scalars<T>& sc,
 template <typename T>
 int mom(const T* u, const T* v, const T* wc, const T* wd, T* tu, T* tv, T* tw,
         const T* cc, int itot, int jtot, int ktot, int ks, int scheme,
-        double dxi, double dyi, double visc, cudaStream_t stream) {
-    if (ks < OH || scheme < 0 || scheme > 1) return (int)cudaErrorInvalidValue;
+        double dxi, double dyi, double visc, int chunks, cudaStream_t stream) {
+    if (ks < OH || scheme < 0 || scheme > 1 || chunks < 1 || chunks > ktot)
+        return (int)cudaErrorInvalidValue;
     if (scheme == 0)
         return launch_mom<T, false>(u, v, wc, wd, tu, tv, tw, cc, itot, jtot,
-                                    ktot, ks, dxi, dyi, visc, stream);
+                                    ktot, ks, dxi, dyi, visc, chunks, stream);
     return launch_mom<T, true>(u, v, wc, wd, tu, tv, tw, cc, itot, jtot, ktot,
-                               ks, dxi, dyi, visc, stream);
+                               ks, dxi, dyi, visc, chunks, stream);
+}
+
+template <typename T>
+int mom_info(int scheme, int* out) {
+    if (scheme == 0)
+        return km::kernel_info(o4_mom_kernel<T, false>, K16_NT, K16<T>::smem,
+                               out);
+    if (scheme == 1)
+        return km::kernel_info(o4_mom_kernel<T, true>, K16_NT, K16<T>::smem,
+                               out);
+    return (int)cudaErrorInvalidValue;
 }
 
 template <typename T>
@@ -510,11 +720,15 @@ int scalars(const T* u, const T* v, const T* wc, const void* const* a,
         const void* u, const void* v, const void* wc, const void* wd,         \
         void* tu, void* tv, void* tw, const void* cc, int itot, int jtot,     \
         int ktot, int ks, int scheme, double dxi, double dyi, double visc,    \
-        void* stream) {                                                       \
+        int chunks, void* stream) {                                           \
         return mhh::o4::mom<T>((const T*)u, (const T*)v, (const T*)wc,        \
                                (const T*)wd, (T*)tu, (T*)tv, (T*)tw,          \
                                (const T*)cc, itot, jtot, ktot, ks, scheme,    \
-                               dxi, dyi, visc, (cudaStream_t)stream);         \
+                               dxi, dyi, visc, chunks, (cudaStream_t)stream); \
+    }                                                                         \
+    extern "C" int mhh_o4_mom_info_##SUF(int scheme, int S, int* out) {       \
+        (void)S;                                                              \
+        return mhh::o4::mom_info<T>(scheme, out);                             \
     }                                                                         \
     extern "C" int mhh_o4_scalars_##SUF(                                      \
         const void* u, const void* v, const void* wc, const void* const* a,   \

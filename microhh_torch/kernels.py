@@ -82,11 +82,12 @@ SIGNATURES = {
     # u, v, w, tu, tv, tw, cc; itot, jtot, ktot, ks, scheme; dxi, dyi
     "advec_mom": [_P] * 7 + [_I] * 5 + [_D] * 2,
     # u, v, w; host arrays of the S scalars' and carries' pointers; S; cc;
-    # itot, jtot, ktot, ks, scheme; dxi, dyi
-    "advec_scalars": [_P] * 3 + [_PP] * 2 + [_I, _P] + [_I] * 5 + [_D] * 2,
+    # itot, jtot, ktot, ks, scheme; dxi, dyi; chunks (ops/kmarch.py)
+    "advec_scalars": [_P] * 3 + [_PP] * 2 + [_I, _P] + [_I] * 5 + [_D] * 2
+                     + [_I],
     # u, v, w (conservation ghosts), w (plain ghosts), tu, tv, tw, cc; itot,
-    # jtot, ktot, ks, scheme; dxi, dyi, visc
-    "o4_mom": [_P] * 8 + [_I] * 5 + [_D] * 3,
+    # jtot, ktot, ks, scheme; dxi, dyi, visc; chunks (ops/kmarch.py)
+    "o4_mom": [_P] * 8 + [_I] * 5 + [_D] * 3 + [_I],
     # u, v, w (conservation ghosts); host arrays of the S scalars' and
     # carries' pointers and of their viscosities; S; cc; itot, jtot, ktot,
     # ks, scheme; dxi, dyi
@@ -108,6 +109,12 @@ SIGNATURES = {
     # ks, nsed; Nc0, dt
     "micro2": [_P] * 11 + [_I] * 5 + [_D] * 2,
 }
+
+# Kernels with an entry mhh_<kernel>_info_<f32|f64>(scheme, S, int out[5]):
+# registers, local bytes a thread, dynamic shared memory a block, resident
+# blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), SMs.
+INFO = ("advec_scalars", "o4_mom")
+INFO_KEYS = ("registers", "local_bytes", "smem", "blocks_per_sm", "sms")
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -186,6 +193,11 @@ def load():
             fn = getattr(lib, "mhh_%s_%s" % (name, suffix))
             fn.argtypes = args + [_P]
             fn.restype = ctypes.c_int
+    for name in INFO:
+        for suffix in _SUFFIX.values():
+            fn = getattr(lib, "mhh_%s_info_%s" % (name, suffix))
+            fn.argtypes = [_I, _I, ctypes.POINTER(ctypes.c_int)]
+            fn.restype = ctypes.c_int
     return lib
 
 
@@ -200,6 +212,7 @@ class Kernel:
         self.source = source
         self.replaces = replaces
         self.launches = 0
+        self._info = {}
 
     def __call__(self, dtype, *args):
         fn = getattr(load(), "mhh_%s_%s" % (self.name, _SUFFIX[dtype]))
@@ -210,6 +223,20 @@ class Kernel:
             raise RuntimeError("CUDA kernel %s failed to launch (cudaError %d)"
                                % (self.name, rc))
         self.launches += 1
+
+    def info(self, dtype, scheme, S=0):
+        """What the card reports of the kernel's form for (dtype, scheme,
+        S): INFO_KEYS -> int, asked once.  Launches nothing."""
+        key = (dtype, scheme, S)
+        if key not in self._info:
+            out = (ctypes.c_int * len(INFO_KEYS))()
+            rc = getattr(load(), "mhh_%s_info_%s"
+                         % (self.name, _SUFFIX[dtype]))(scheme, S, out)
+            if rc != 0:
+                raise RuntimeError("CUDA kernel %s: no occupancy (cudaError "
+                                   "%d)" % (self.name, rc))
+            self._info[key] = dict(zip(INFO_KEYS, out))
+        return self._info[key]
 
 
 def check(tensors, dtype, device, shapes=None):

@@ -31,6 +31,7 @@ import torch
 
 from .. import fd
 from ..kernels import Kernel, check, on_cpu
+from . import kmarch
 from .advec_interp import UPWIND, advec_s_lim
 from .fused import _planes
 
@@ -41,11 +42,6 @@ WXF, WUF, WXC, WUC = 0, 6, 12, 18
 RCDZI, RHDZHI, WMASK, NC = 24, 25, 26, 27
 
 SCHEME_ID = {"2i4": 0, "2i5": 1, "2i53": 2, "2i62": 3}
-
-# (j, i) tile of a thread block and the halo of the widest horizontal tap
-# (csrc/advec_interp.cu AJ, AI, AH)
-TILE_J, TILE_I, HALO = 16, 32, 3
-SMEM_BYTES = 227 * 1024
 
 
 def build_interp_tables(scheme, ks, ke, rhoref, rhorefh, dzi, dzhi):
@@ -298,11 +294,11 @@ def scalars_plain(scheme, u, v, w, fields, carries, cc, ks, dxi, dyi):
 # ==========================================================================
 
 def max_scalars(dtype):
-    """The most scalars one K13 launch takes: their seven-plane rings must
-    fit one block's shared memory (csrc/advec_interp.cu)."""
-    ring = (7 * (TILE_J + 2 * HALO) * (TILE_I + 2 * HALO)
-            * (torch.finfo(dtype).bits // 8))
-    return min(8, SMEM_BYTES // ring)
+    """The most scalars one K13 launch takes: its scalar count is a template
+    parameter up to MAXA, and their rings must fit one block's shared
+    memory (csrc/advec_interp.cu k13_smem)."""
+    return max(S for S in range(1, kmarch.K13_MAXS + 1)
+               if kmarch.k13_smem(S, dtype) <= kmarch.SMEM_MAX)
 
 
 class AdvecInterpFused:
@@ -344,9 +340,18 @@ class AdvecInterpFused:
         self.k_mom(u.dtype, u, v, w, tu, tv, tw, cc, ctx.itot, ctx.jtot,
                    ctx.ktot, ctx.ks, SCHEME_ID[self.scheme], ctx.dxi, ctx.dyi)
 
-    def scalars(self, u, v, w, fields, carries):
-        """K13: carries[n] += advection of fields[n], in place; as many
-        launches as the scalars' rings need shared memory."""
+    def plan(self, S, dtype, chunks=None):
+        """The k-march of one K13 launch of S scalars (ops/kmarch.py), the
+        chunk count chosen from the card's resident blocks unless given."""
+        ctx = self.ctx
+        info = self.k_scal.info(dtype, SCHEME_ID[self.scheme], S)
+        return kmarch.plan("advec_scalars", ctx.itot, ctx.jtot, ctx.ktot, S,
+                           dtype, info["blocks_per_sm"] * info["sms"], chunks)
+
+    def scalars(self, u, v, w, fields, carries, chunks=None):
+        """K13: carries[n] += advection of fields[n], in place; the scalars
+        go max_scalars at a time.  chunks: force the k-split (checks and
+        timings only)."""
         ctx = self.ctx
         cc = self.table()
         if on_cpu(u):
@@ -365,7 +370,8 @@ class AdvecInterpFused:
 
             self.k_scal(u.dtype, u, v, w, ptrs(grp_a), ptrs(grp_t), S, cc,
                         ctx.itot, ctx.jtot, ctx.ktot, ctx.ks,
-                        SCHEME_ID[self.scheme], ctx.dxi, ctx.dyi)
+                        SCHEME_ID[self.scheme], ctx.dxi, ctx.dyi,
+                        self.plan(S, u.dtype, chunks).chunks)
 
     def exec(self, ctx, s, t, aux):
         """Add the scheme's tendencies into the carry t, in place:

@@ -27,7 +27,7 @@ import torch
 
 from .. import fd
 from ..kernels import Kernel, check, on_cpu
-from . import not_ported
+from . import kmarch, not_ported
 from .advec_4 import Advec4
 from .advec_4m import Advec4m
 from .diff_4 import Diff4
@@ -163,9 +163,18 @@ class O4Fused:
             ta[ctx.ks:ctx.ke] += self.advec.scalar(ctx, a, u, v, wc)
             ta[ctx.ks:ctx.ke] += self.diff.scalar(ctx, a, name)
 
-    def momentum(self, u, v, wc, wd, tu, tv, tw):
+    def plan(self, dtype, chunks=None):
+        """The k-march of K16 (ops/kmarch.py), the chunk count chosen from
+        the card's resident blocks unless given."""
+        ctx = self.ctx
+        info = self.k_mom.info(dtype, SCHEME_ID[self.scheme])
+        return kmarch.plan("o4_mom", ctx.itot, ctx.jtot, ctx.ktot, 0, dtype,
+                           info["blocks_per_sm"] * info["sms"], chunks)
+
+    def momentum(self, u, v, wc, wd, tu, tv, tw, chunks=None):
         """K16: tu, tv, tw += advection of (u, v, wc) + diffusion of
-        (u, v, wd), in place; wc and wd are w under its two ghost types."""
+        (u, v, wd), in place; wc and wd are w under its two ghost types.
+        chunks: force the k-split (checks and timings only)."""
         ctx = self.ctx
         if on_cpu(u):
             return self.momentum_plain(u, v, wc, wd, tu, tv, tw)
@@ -174,7 +183,8 @@ class O4Fused:
               [shape] * 7 + [(ctx.ktot + 3, NC)])
         self.k_mom(u.dtype, u, v, wc, wd, tu, tv, tw, self.cc, ctx.itot,
                    ctx.jtot, ctx.ktot, ctx.ks, SCHEME_ID[self.scheme],
-                   ctx.dxi, ctx.dyi, self.diff.visc)
+                   ctx.dxi, ctx.dyi, self.diff.visc,
+                   self.plan(u.dtype, chunks).chunks)
 
     def scalars(self, u, v, wc, names, fields, carries):
         """K17: carries[n] += advection + diffusion of fields[n], in place;

@@ -1,0 +1,267 @@
+"""Time the ring kernels K16 and K13 (and, as controls, K17 and K12) on one
+card.
+
+    python3 -m microhh_torch.ring_timing [--out FILE] [--label NAME]
+
+At the four shapes of their main paths: weakscaling 512x256x1024 float32
+(K16 in scheme 4, K17 with one scalar), moser180 256x192x128 float64 (both
+in scheme 4m), rico 384^3 float32 with the four scalars of its 2i5 scheme,
+and jaenschwalde's 1024x256x256 float32 with its two (thl, qt) (K13 and K12
+on the rico case at that shape: the kernels see only the shape, the scheme
+and the scalar count).  Each time is the mean of 10 launches by CUDA
+events after one warm-up launch, on seeded random fields.  Beside each
+time: the bound (each input and output once over 3.35 TB/s, or the
+operations over 67 TFLOP/s, 33.5 in float64, where larger), registers,
+spills and stack from the build log's ptxas lines and, where the tree's
+kernels report them (the k-marching K13 and K16), shared memory a block,
+resident blocks an SM, the chunk count, blocks in the grid and waves.  On
+such a tree K16 and K13 are also timed with one chunk (no k-split).  One
+JSON object per kernel and shape is printed and, with --out, all of them
+are written to FILE.  Needs a CUDA device.
+
+The script runs on an older checkout of the package too (copy it into
+that tree's ``microhh_torch/``): there it times what that tree has, so the
+same call can hold the trees in turns (parent, this, this, parent).
+"""
+
+import argparse
+import json
+import os
+import re
+import subprocess
+import sys
+import tempfile
+
+import torch
+
+from . import cases, kernels
+from .config import Ini
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+REPS = 10
+PEAK_BYTES_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 33.5e12}
+# operations a point (K13, K17: a scalar and point), counted from the sources
+FLOPS = {"o4_mom": {"4": 560, "4m": 510}, "o4_scalars": {"4": 215, "4m": 130},
+         "advec_mom": 400, "advec_scalars": 130}
+# the parent tree's K16 (every face interpolant computed by each thread
+# that used it)
+FLOPS_PARENT_O4_MOM = {"4": 840, "4m": 640}
+
+# (label, case, (itot, jtot, ktot), dtype, S)
+SHAPES = [("weakscaling", "weakscaling", (512, 256, 1024), torch.float32, 1),
+          ("moser180", "moser180", (256, 192, 128), torch.float64, 1),
+          ("rico", "rico", (384, 384, 384), torch.float32, 4),
+          ("jaenschwalde", "rico", (1024, 256, 256), torch.float32, 2)]
+
+# kernel name -> its CUDA function
+FUNCTIONS = {"o4_mom": "o4_mom_kernel", "o4_scalars": "o4_scalars_kernel",
+             "advec_mom": "advec_mom_kernel",
+             "advec_scalars": "advec_scalars_kernel"}
+
+
+def card_line():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def _demangle(s):
+    """(function, "template,arguments") of a mangled kernel name whose
+    template arguments are types (f, d) and literals (L<type><value>E)."""
+    if not s.startswith("_ZN"):
+        return s, ""
+    i, names = 3, []
+    while i < len(s) and s[i].isdigit():
+        j = i
+        while s[j].isdigit():
+            j += 1
+        n = int(s[i:j])
+        names.append(s[j:j + n])
+        i = j + n
+    args = []
+    if i < len(s) and s[i] == "I":
+        i += 1
+        while i < len(s) and s[i] != "E":
+            if s[i] == "L":
+                j = s.index("E", i)
+                val = s[i + 2:j]
+                args.append({"0": "false", "1": "true"}.get(val, val)
+                            if s[i + 1] == "b" else val)
+                i = j + 1
+            else:
+                args.append({"f": "float", "d": "double"}.get(s[i], s[i]))
+                i += 1
+    return names[-1] if names else s, ",".join(args)
+
+
+def ptxas_info(build_log):
+    """{"function<template arguments>": {registers, spill_stores,
+    spill_loads, stack}} of every kernel from the ptxas lines of a build
+    log (nvcc -Xptxas -v)."""
+    out, cur = {}, None
+    for line in build_log.splitlines():
+        hit = re.search(r"Compiling entry function '(\w+)'", line)
+        if hit:
+            name, args = _demangle(hit.group(1))
+            cur = out.setdefault("%s<%s>" % (name, args), {})
+            continue
+        if cur is None:
+            continue
+        hit = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                        r"(\d+) bytes spill loads", line)
+        if hit:
+            cur.update(stack=int(hit.group(1)), spill_stores=int(hit.group(2)),
+                       spill_loads=int(hit.group(3)))
+        hit = re.search(r"Used (\d+) registers", line)
+        if hit:
+            cur["registers"] = int(hit.group(1))
+            cur = None
+    return out
+
+
+def variant(kernel, dtype, scheme, S):
+    """The template arguments of the instance a launch takes."""
+    t = "float" if dtype == torch.float32 else "double"
+    if kernel in ("o4_mom", "o4_scalars"):
+        return "%s,%s" % (t, "true" if scheme == "4m" else "false")
+    c4, up = {"2i4": ("true", "false"), "2i5": ("false", "true"),
+              "2i53": ("false", "true"), "2i62": ("false", "false")}[scheme]
+    if kernel == "advec_scalars" and hasattr(kernels, "INFO"):
+        return "%s,%s,%s,%d" % (t, c4, up, S)
+    return "%s,%s,%s" % (t, c4, up)
+
+
+def case_text(case, itot, jtot, ktot):
+    with open(os.path.join(ROOT, "cases", case, "%s.ini" % case)) as f:
+        text = f.read()
+    over = {"itot": itot, "jtot": jtot, "ktot": ktot}
+    if case == "weakscaling":
+        mem, zsize = cases.weakscaling_input(ktot)
+        over["zsize"] = "%.17g" % zsize
+    elif case == "moser180":
+        mem = cases.moser180_input(ktot, 2.)
+        over.update(swstats=0, swbudget=0)
+    else:
+        mem = cases.rico_input(ktot, 4000.)
+        over["swadvec"] = "2i5"
+    for key, val in over.items():
+        text = re.sub(r"(?m)^%s=.*$" % key, "%s=%s" % (key, val), text)
+    return text, mem
+
+
+def build(case, itot, jtot, ktot, dtype, workdir):
+    from .model import Model
+    text, mem = case_text(case, itot, jtot, ktot)
+    m = Model(Ini(text), "run", case, workdir=workdir, dtype=dtype,
+              device="cuda", input_nc=mem)
+    m.finish_setup()
+    m.build_step()
+    return m
+
+
+def events_ms(fn, reps=REPS):
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def time_shape(label, case, shape, dtype, S, ptx, card):
+    itot, jtot, ktot = shape
+    rows = []
+    with tempfile.TemporaryDirectory() as workdir:
+        m = build(case, itot, jtot, ktot, dtype, workdir)
+        ctx = m.ctx
+        gen = torch.Generator(device="cuda").manual_seed(itot + ktot)
+        full = (ctx.kcells, jtot, itot)
+
+        def rnd(scale=1.):
+            return scale * torch.randn(full, dtype=dtype, device="cuda",
+                                       generator=gen)
+
+        n = itot * jtot * ktot
+        fb = n * torch.finfo(dtype).bits // 8
+        u, v, wc, wd = rnd(), rnd(), rnd(0.3), rnd(0.3)
+        calls = {}
+        if m.o4 is not None:
+            o4, scheme = m.o4, m.o4.scheme
+            t = [rnd(0.1) for _ in range(3 + S)]
+            a = [rnd() for _ in range(S)]
+            calls["o4_mom"] = (lambda **kw: o4.momentum(u, v, wc, wd, *t[:3], **kw),
+                               10 * fb, FLOPS["o4_mom"][scheme], o4, scheme)
+            names = list(ctx.scalar_names)[:S]
+            calls["o4_scalars"] = (lambda: o4.scalars(u, v, wc, names, a, t[3:]),
+                                   (3 + 3 * S) * fb,
+                                   FLOPS["o4_scalars"][scheme] * S, None, scheme)
+        else:
+            adv, scheme = m.advec_fused, m.advec_fused.scheme
+            t = [rnd(1e-3) for _ in range(3 + S)]
+            a = [rnd() for _ in range(S)]
+            calls["advec_scalars"] = (
+                lambda **kw: adv.scalars(u, v, wc, a, t[3:], **kw),
+                (3 + 3 * S) * fb, FLOPS["advec_scalars"] * S, adv, scheme)
+            calls["advec_mom"] = (lambda: adv.momentum(u, v, wc, *t[:3]),
+                                  9 * fb, FLOPS["advec_mom"], None, scheme)
+        for name, (fn, nbytes, flops, owner, scheme) in calls.items():
+            kmarch = owner is not None and hasattr(owner, "plan")
+            if name == "o4_mom" and not kmarch:
+                flops = FLOPS_PARENT_O4_MOM[scheme]
+            by_bytes = 1e3 * nbytes / PEAK_BYTES_S
+            by_ops = 1e3 * flops * n / PEAK_FLOPS[dtype]
+            key = "%s<%s>" % (FUNCTIONS[name], variant(name, dtype, scheme, S))
+            row = {"label": label, "kernel": name, "shape": list(shape),
+                   "dtype": str(dtype)[6:], "S": S, "scheme": scheme,
+                   "ms": events_ms(fn), "bound_ms": max(by_bytes, by_ops),
+                   "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+                   "ops_per_point": flops, "gbytes": nbytes / 1e9,
+                   "ptxas": ptx.get(key), "function": key, "card": card}
+            if kmarch:
+                pl = (owner.plan(S, dtype) if name == "advec_scalars"
+                      else owner.plan(dtype))
+                kern = owner.k_scal if name == "advec_scalars" else owner.k_mom
+                sid = {"4": 0, "4m": 1, "2i4": 0, "2i5": 1, "2i53": 2,
+                       "2i62": 3}[scheme]
+                row.update(kern.info(dtype, sid, S if name == "advec_scalars"
+                                     else 0))
+                row.update(chunks=pl.chunks, blocks=pl.tiles_i * pl.tiles_j
+                           * pl.chunks, waves=pl.waves,
+                           ms_one_chunk=events_ms(lambda: fn(chunks=1)))
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            print(json.dumps(row), flush=True)
+            rows.append(row)
+        del m, u, v, wc, wd, t, a, calls
+    torch.cuda.empty_cache()
+    return rows
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default=None)
+    ap.add_argument("--label", default="this tree")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("ring_timing: no CUDA device")
+    card = card_line()
+    print("card: %s; tree: %s" % (card, args.label), flush=True)
+    _, _, log = kernels.build()
+    ptx = ptxas_info(log)
+    rows = []
+    for label, case, shape, dtype, S in SHAPES:
+        for row in time_shape(label, case, shape, dtype, S, ptx, card):
+            row["tree"] = args.label
+            rows.append(row)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(rows, f, indent=1)
+
+
+if __name__ == "__main__":
+    main()
