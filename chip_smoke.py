@@ -38,19 +38,22 @@ Phases (any failure exits non-zero and prints no result line):
      the moser180 case at 45x40 and in the 4 scheme on the weakscaling case
      at 48x20, both on their stretched levels, at ktot 16 and 6 (the short
      column makes every ladder row a wall row); K18 (advection and the
-     Coriolis fold each on and off), K19 (advection on and off) and K21 on
+     Coriolis fold each on and off), K19 (advection on and off, one scalar
+     and every scalar in one launch) and K21 on
      the jaenschwalde case at 45x40x24 and 48x16x32, K20 (sponge and
      Coriolis folds each on and off), K1 and K7 on ghost-filled dry fields
      and K21 on the sullivan2011 case at 45^2x24 and 48^2x32 and, without
      thermo, on the neutral Ekman LES at 45^2x8 and 48^2x32, the carries
      random;
-  3b. K16 (schemes 4 and 4m) and K13 (2i4, 2i5, 2i53, 2i62; 1, 2 and 4
+  3b. K16 (schemes 4 and 4m), K13 (2i4, 2i5, 2i53, 2i62; 1, 2 and 4
      scalars and max_scalars + 2, which the wrapper splits over two
+     launches) and the scalar sweep K10/K19 (with and without the RK fold,
+     advection on and off, 1, 2, 3, 4 and 6 scalars, the last over two
      launches) against their plain versions with the k-split forced to 1,
      2, 3, 4 and 5 chunks and to one level a chunk, at ktot 16 and 6 (chunks
      of one to three levels that touch both walls), on partial tiles: K16 on
-     the moser180 case at 45x40 and the weakscaling case at 48x20, K13 on
-     the rico case at 45x24 and 48x20, float64 and float32;
+     the moser180 case at 45x40 and the weakscaling case at 48x20, K13 and
+     the sweep on the rico case at 45x24 and 48x20, float64 and float32;
   4. two whole RK3 steps on the card against the same two steps on the CPU
      (plain versions), <= 1e-10, float64, eleven cases: a 32^3 drycblles on
      K22 and with build_step(fold=False), a 16^2x24 rico (swadvec=2), a
@@ -112,7 +115,8 @@ computes the same function (the two DFTs), that call's time; beside K5
 and K6 also their form, C, F, shared memory and registers per CTA, GB/s
 and share of the bound; beside K13 and K16 their registers, local bytes a
 thread, shared memory a block, resident blocks an SM (as the card reports
-them), chunk count, blocks and waves at the path's shape.
+them), chunk count, blocks and waves at the path's shape, and the same
+beside the scalar sweep K10/K19.
 With --profile FILE, a last phase traces two steps of each LES with
 torch.profiler and prints the device time per kernel, the step's device
 idle share (one minus the device time over the wall time of the same
@@ -832,6 +836,19 @@ def unfolded_sweep_cases(torch, m, s, e, t0, rnd):
                 return [t[name]]
             cases.append(("tend_scalar_acc", lambda f=scalar: f(True),
                           lambda f=scalar: f(False), "field"))
+
+        def scalars(kernel, advec=advec):
+            # every scalar in one launch, as generic_tendencies calls it
+            t = {n: t0[n].clone() for n in fz.names}
+            with attrs(fz, advec=advec):
+                if kernel:
+                    fz.tend_scalars_acc(s, t, e)
+                else:
+                    F.tend_scalars_acc_plain(s, fz.names, e, t, ct, fz.sviscs,
+                                             *grid_args, fz.tPr, advec)
+            return [t[n] for n in fz.names]
+        cases.append(("tend_scalar_acc", lambda f=scalars: f(True),
+                      lambda f=scalars: f(False), "field"))
     return cases
 
 
@@ -1065,6 +1082,67 @@ def advec_scalar_cases(torch, m, seed, chunks):
     return cases
 
 
+def sweep_cases(torch, m, seed, chunks):
+    """(name, kernel call, plain call, error kind) for the scalar sweep, K10
+    (with the RK fold, the carry written) and K19 (without), its k-split
+    forced, on a generic model: advection on and off, 1, 2, 3, 4 and 6
+    scalars (the wrappers split six over two launches), seeded fields, a
+    positive eddy viscosity, random carries and, for K10, each scalar's
+    base table with noise in every column."""
+    from microhh_torch.ops import fused as F
+    ctx, fz = m.ctx, m.fused
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    shape = (ctx.kcells, ctx.jtot, ctx.itot)
+
+    def rnd(*sh, scale=1.):
+        return (scale * torch.randn(*(sh or shape), generator=gen,
+                                    dtype=torch.float64)).to(ctx.dtype).to(ctx.device)
+
+    most = 6
+    names = tuple("s%d" % n for n in range(most))
+    s = {"u": rnd(), "v": rnd(), "w": rnd(scale=0.3)}
+    s.update({n: rnd() for n in names})
+    e = rnd().abs()
+    t0 = {n: rnd(scale=1e-3) for n in names}
+    sviscs = [1e-5 * (n + 1) for n in range(most)]
+    cts = (fz.base.repeat(most, 1, 1)
+           + rnd(most, ctx.ktot, F.NTG, scale=1e-3))
+    grid_args = (ctx.ks, ctx.dxi, ctx.dyi, fz.tPr)
+    cases = []
+    for advec in (False, True):
+        for S in (1, 2, 3, 4, most):
+            def rk(kernel, advec=advec, S=S):
+                t = {n: t0[n].clone() for n in names[:S]}
+                with attrs(fz, names=names[:S], sviscs=sviscs[:S],
+                           advec=advec):
+                    if kernel:
+                        out = fz.tend_scalars(s, t, e, cts[:S], 0.7,
+                                              -153. / 128., True,
+                                              chunks=chunks)
+                    else:
+                        out = F.tend_scalars_plain(
+                            s, names[:S], e, t, cts[:S], sviscs[:S],
+                            *grid_args, 0.7, -153. / 128., True, advec)
+                return [out[n] for n in out] + [t[n] for n in t]
+
+            def acc(kernel, advec=advec, S=S):
+                t = {n: t0[n].clone() for n in names[:S]}
+                with attrs(fz, names=names[:S], sviscs=sviscs[:S],
+                           advec=advec):
+                    if kernel:
+                        fz.tend_scalars_acc(s, t, e, chunks=chunks)
+                    else:
+                        F.tend_scalars_acc_plain(s, names[:S], e, t,
+                                                 fz.ct_static, sviscs[:S],
+                                                 *grid_args, advec)
+                return [t[n] for n in t]
+            cases.append(("tend_scalars", lambda f=rk: f(True),
+                          lambda f=rk: f(False), "field"))
+            cases.append(("tend_scalar_acc", lambda f=acc: f(True),
+                          lambda f=acc: f(False), "field"))
+    return cases
+
+
 def forced_chunks(ktot):
     """The k-splits check_kmarch forces: 1, 2 and 3 chunks, 4 and 5 (which
     do not divide 6 or 16), and one level a chunk."""
@@ -1072,11 +1150,12 @@ def forced_chunks(ktot):
 
 
 def check_kmarch(torch):
-    """K16 (both schemes) and K13 (every scheme) against their plain
-    versions with the k-split forced (forced_chunks) at ktot 6 and 16, so
-    that chunks of one to three levels touch both walls, on partial tiles:
-    K16 on moser180 at 45x40 and weakscaling at 48x20, K13 on rico at 45x24
-    and 48x20 with 1, 2, 4 and max_scalars + 2 scalars."""
+    """K16 (both schemes), K13 (every scheme) and the scalar sweep K10/K19
+    (sweep_cases) against their plain versions with the k-split forced
+    (forced_chunks) at ktot 6 and 16, so that chunks of one to three levels
+    touch both walls, on partial tiles: K16 on moser180 at 45x40 and
+    weakscaling at 48x20, K13 on rico at 45x24 and 48x20 with 1, 2, 4 and
+    max_scalars + 2 scalars, the sweep on rico at 45x24 and 48x20."""
     for label, build, n in (("moser 4m", build_moser, (45, 40)),
                             ("weakscaling 4", build_weakscaling, (48, 20))):
         for k in (16, 6):
@@ -1101,6 +1180,17 @@ def check_kmarch(torch):
                             compare(torch, name, kern, plain, kind, dtype,
                                     "rico %s %dx%dx%d chunks=%d"
                                     % (scheme, n[0], n[1], k, chunks))
+    for n in ((45, 24), (48, 20)):
+        for k in (16, 6):
+            for dtype in (torch.float64, torch.float32):
+                m = build_rico(torch, n, k, dtype, "cuda")
+                m.build_step()
+                for chunks in forced_chunks(k):
+                    for name, kern, plain, kind in sweep_cases(
+                            torch, m, n[0] + k, chunks):
+                        compare(torch, name, kern, plain, kind, dtype,
+                                "rico %dx%dx%d chunks=%d"
+                                % (n[0], n[1], k, chunks))
 
 
 def compare(torch, name, kern, plain, kind, dtype, where):
@@ -1741,9 +1831,11 @@ def time_generic_kernels(torch, m, s):
 
 
 def unfolded_sweep_pairs(m, s, e):
-    """K18 and K19 (one launch: one scalar) or K20 at a model's shapes: ten,
-    seven and thirteen fields, the carries read and written."""
+    """K18 and K19 (every scalar in one launch of up to four) or K20 at a
+    model's shapes: ten fields, e + 3 S (+ u, v, w with advection) and
+    thirteen, the carries read and written."""
     from microhh_torch.ops import fused as F
+    from microhh_torch.ops import kmarch
     ctx, fz, t = m.ctx, m.fused, m.t
     fb, n = field_bytes(m), points(m)
     grid_args = (ctx.ks, ctx.dxi, ctx.dyi)
@@ -1754,7 +1846,8 @@ def unfolded_sweep_pairs(m, s, e):
                                        fz.svisc, fz.tPr, fz.fc, ctx.utrans,
                                        ctx.vtrans, fz.coriolis),
             13 * fb, FLOPS_PER_POINT["tendencies"] * n)}
-    name, svisc = fz.names[0], fz.sviscs[0]
+    S = len(fz.names)
+    S1 = min(S, kmarch.SW_MAXS)
     return {
         "tend_uvw_acc": pair(
             lambda: fz.tend_uvw_acc(s, t, e),
@@ -1763,19 +1856,26 @@ def unfolded_sweep_pairs(m, s, e):
                                          ctx.vtrans, fz.fold_force, fz.advec),
             10 * fb, FLOPS_PER_POINT["tend_uvw_acc"] * n),
         "tend_scalar_acc": pair(
-            lambda: fz.tend_scalar_acc(s, t, e, name),
-            lambda: F.tend_scalar_acc_plain(s, name, e, t, fz.ct_static,
-                                            svisc, *grid_args, fz.tPr,
-                                            fz.advec),
-            7 * fb, FLOPS_PER_POINT["tend_scalar_acc"] * n)}
+            lambda: fz.tend_scalars_acc(s, t, e),
+            lambda: F.tend_scalars_acc_plain(s, fz.names, e, t, fz.ct_static,
+                                             fz.sviscs, *grid_args, fz.tPr,
+                                             fz.advec),
+            (1 + 3 * S + (3 if fz.advec else 0)) * fb,
+            FLOPS_PER_POINT["tend_scalar_acc"] * S * n,
+            info=kmarch_info(fz.k_scalar_acc, m.dtype, int(fz.advec), S1,
+                             fz.plan("tend_scalar_acc", S1, m.dtype)))}
 
 
 def rk_sweep_pairs(m, s, e, ct, cts, can):
-    """K8/K9 and K10 or K15 at a generic model's shapes."""
+    """K8/K9 and K10 or K15 at a generic model's shapes; K10 reads e, the
+    scalars and their carries (and u, v, w with advection) and writes s*
+    and the carries."""
     from microhh_torch.ops import fused as F
+    from microhh_torch.ops import kmarch
     ctx, fz, t = m.ctx, m.fused, m.t
     fb, n = field_bytes(m), points(m)
     S = len(fz.names)
+    S1 = min(S, kmarch.SW_MAXS)
     pairs = {}
     pairs["tend_uvw"] = pair(
         lambda: fz.tend_uvw(s, t, e, ct, 0.5, can, True),
@@ -1796,7 +1896,10 @@ def rk_sweep_pairs(m, s, e, ct, cts, can):
             lambda: F.tend_scalars_plain(
                 s, fz.names, e, t, cts, fz.sviscs, ctx.ks, ctx.dxi, ctx.dyi,
                 fz.tPr, 0.5, can, True, fz.advec),
-            (4 + 4 * S) * fb, FLOPS_PER_POINT["tend_scalars"] * S * n)
+            (1 + 4 * S + (3 if fz.advec else 0)) * fb,
+            FLOPS_PER_POINT["tend_scalars"] * S * n,
+            info=kmarch_info(fz.k_scalars, m.dtype, int(fz.advec), S1,
+                             fz.plan("tend_scalars", S1, m.dtype)))
     return pairs
 
 
@@ -1868,12 +1971,15 @@ def time_pres4_parts(torch, m, s):
 #  last phase (--profile): where the step's device time goes
 # --------------------------------------------------------------------------
 
-# kernel-name pattern -> part of the step; the first match counts (K18 and
-# K19 are the instances of K8/K9's and K15's kernels without the RK fold)
+# kernel-name pattern -> part of the step; the first match counts (K18 is
+# the instance of K8/K9's kernel without the RK fold; K10 and K19 the scalar
+# sweep's instances with and without it)
 PARTS = [("evisc_kernel", "K1/K14 evisc"), ("tend_rk_kernel", "K2 tend_rk"),
          ("tend_rk_fold_kernel", "K22 tend_rk_fold"),
          (r"tend_uvw_kernel<\w+, *(false|\(bool\)0)", "K18 tend_uvw_acc"),
-         (r"tend_scalar_kernel<\w+, *(false|\(bool\)0)", "K19 tend_scalar_acc"),
+         (r"scalar_sweep_kernel<\w+, *(false|\(bool\)0)",
+          "K19 tend_scalar_acc"),
+         (r"scalar_sweep_kernel<\w+, *(true|\(bool\)1)", "K10 tend_scalars"),
          ("tendencies_kernel", "K20 tendencies"),
          ("tdma_ri_kernel", "K21 tdma_ri"),
          ("micro2_kernel", "K11 micro2"),
@@ -1884,7 +1990,6 @@ PARTS = [("evisc_kernel", "K1/K14 evisc"), ("tend_rk_kernel", "K2 tend_rk"),
          ("gemm", "pres_4 k-axis products (library)"),
          ("fft", "pres_4 transforms (library)"),
          ("tend_uvw_kernel", "K8/K9 tend_uvw"),
-         ("tend_scalars_kernel", "K10 tend_scalars"),
          ("tend_scalar_kernel", "K15 tend_scalar_rk"),
          ("limits_", "K7 limits"),
          ("pres_rhs_kernel", "K4 pres_rhs"),
@@ -2049,7 +2154,7 @@ def main():
     log("[3a] K5 and K6 in both forms against torch.fft")
     check_dft(torch)
     check_kernels(torch)
-    log("[3b] K16 and K13 with the k-split forced")
+    log("[3b] K16, K13 and the scalar sweep K10/K19 with the k-split forced")
     check_kmarch(torch)
 
     log("[4] whole step, card against CPU")

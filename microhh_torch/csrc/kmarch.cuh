@@ -1,5 +1,6 @@
 // The k-march machinery of the redesigned ring kernels (K13 in
-// advec_interp.cu, K16 in o4.cu): a (TJ, 32) tile of the plane per block, a
+// advec_interp.cu, K16 in o4.cu, the scalar sweep K10/K19 in
+// tend_generic.cu): a (TJ, 32) tile of the plane per block, a
 // chunk of the levels per block, planes copied asynchronously into rings in
 // shared memory, the thread's own vertical column held in registers.
 //
@@ -10,7 +11,9 @@
 //   Each chunk warms its window up on its own (at most six planes read again).
 // * Planes.  A ring slot holds one (TJ + 2H, 32 + 2H) haloed plane of a field,
 //   periodic in i and j, with rows of RS values and the tile's interior at
-//   column C0, so that it starts on a 16-byte boundary.  PlaneLoader works out
+//   column C0, so that it starts on a 16-byte boundary.  H is the halo of
+//   the widest horizontal reach (3) unless a kernel gives its own (HALO,
+//   1 for the 2nd-order sweep); C0 and RS serve any halo up to 3.  PlaneLoader works out
 //   once per block which copies each thread makes (the periodic wrap taken
 //   once); a copy is 16 bytes of a row's interior where the tile's whole
 //   interior lies inside the plane, itot is a multiple of 16 bytes and every
@@ -33,9 +36,10 @@ constexpr int RS = 40;       // values a row of a ring slot (C0 + TI + H, padded
 constexpr int NCP = 28;      // values a staged table row (27 columns, padded)
 constexpr int VEC = 1 << 16; // flag of a 16-byte copy in PlaneLoader::dst
 
-template <int TJ>
+template <int TJ, int HALO = H>
 struct Slot {
-    static constexpr int ROWS = TJ + 2 * H;
+    static_assert(HALO >= 1 && HALO <= C0 && C0 + TI + HALO <= RS, "halo");
+    static constexpr int ROWS = TJ + 2 * HALO;
     static constexpr int SIZE = ROWS * RS;
 };
 
@@ -75,13 +79,13 @@ __device__ __forceinline__ void wait_all() {
 }
 
 // Which values of a haloed plane this thread copies, and where to.
-template <typename T, int TJ, int NT>
+template <typename T, int TJ, int NT, int HALO = H>
 struct PlaneLoader {
-    static constexpr int ROWS = Slot<TJ>::ROWS;
+    static constexpr int ROWS = Slot<TJ, HALO>::ROWS;
     static constexpr int VPR = TI * (int)sizeof(T) / 16;  // pieces a row
     static constexpr int VW = 16 / (int)sizeof(T);        // values a piece
-    static constexpr int VOPS = ROWS * (VPR + 2 * H);
-    static constexpr int SOPS = ROWS * (TI + 2 * H);
+    static constexpr int VOPS = ROWS * (VPR + 2 * HALO);
+    static constexpr int SOPS = ROWS * (TI + 2 * HALO);
     static constexpr int NOP = (SOPS + NT - 1) / NT;
     int src[NOP];  // offset in the plane, or -1
     int dst[NOP];  // offset in the slot | VEC
@@ -97,19 +101,20 @@ struct PlaneLoader {
             if (op >= nops) continue;
             int r, c, flag = 0;
             if (vec) {
-                r = op / (VPR + 2 * H);
-                const int e = op - r * (VPR + 2 * H);
+                r = op / (VPR + 2 * HALO);
+                const int e = op - r * (VPR + 2 * HALO);
                 if (e < VPR) {
                     c = C0 + e * VW;
                     flag = VEC;
                 } else {
-                    c = e - VPR < H ? C0 - H + (e - VPR) : C0 + TI + (e - VPR - H);
+                    c = e - VPR < HALO ? C0 - HALO + (e - VPR)
+                                       : C0 + TI + (e - VPR - HALO);
                 }
             } else {
-                r = op / (TI + 2 * H);
-                c = C0 - H + (op - r * (TI + 2 * H));
+                r = op / (TI + 2 * HALO);
+                c = C0 - HALO + (op - r * (TI + 2 * HALO));
             }
-            src[n] = wrap(j0 + r - H, jtot) * itot + wrap(i0 + c - C0, itot);
+            src[n] = wrap(j0 + r - HALO, jtot) * itot + wrap(i0 + c - C0, itot);
             dst[n] = (r * RS + c) | flag;
         }
     }

@@ -1,6 +1,7 @@
-// K8/K9 and K10: the RK tendency sweeps of the generic path (any thermo,
-// any scalar list; the moist bomex/rico class), with the low-storage RK
-// update folded in: s* = s + cB*dt*t_total and the carry t = cA_next*t_total.
+// K8/K9, K10, K15, K18 and K19: the tendency sweeps of the generic path
+// (any thermo, any scalar list; the moist bomex/rico class), with or without
+// the low-storage RK update folded in (s* = s + cB*dt*t_total and the carry
+// t = cA_next*t_total).
 //
 // K8/K9 tend_uvw: u, v and w advec_2 + Smagorinsky diffusion, the column
 // fold of the per-substep table (ADDU/V, FACZ, FACZH and the WLSDN/UP
@@ -11,31 +12,36 @@
 // :1641; body _tend_uv_rk_body :536) and FusedLES2.tend_w_rk (:1649 /
 // :1667; _w_rk_body :401).
 //
-// K10 tend_scalars: every scalar's advec_2 + diffusion + column fold
-// (ADDS - FACZ a + WLSDN (a - a_dn) + WLSUP (a_up - a)) in one pass that
-// reads u, v, w and evisc once for all S scalars.  Replaces
-// FusedLES2.tend_scalars_rk (:1702 / :1733; _scalars_rk_body :474).
+// K10 and K19, the scalar sweep (scalar_sweep_kernel): every scalar's
+// advec_2 + diffusion in one k-march that reads evisc (and u, v, w when it
+// advects) once for all of them.  With RK, K10: the column fold (ADDS -
+// FACZ a + WLSDN (a - a_dn) + WLSUP (a_up - a)), s* and the scaled carry;
+// replaces FusedLES2.tend_scalars_rk (:1702 / :1733; _scalars_rk_body
+// :474).  Without, K19: the tendency added onto the carry, no fold, no s*;
+// replaces FusedLES2.tend_scalar (:1589 / :1607; _scalar_body :389), which
+// the TPU launches once a scalar: here one launch serves up to SW_MAXS
+// scalars (the wrappers split the rest over launches).
 //
-// K15 tend_scalar: the same sweep for one scalar, the form a case with a
-// single scalar (SBL_Smag's b) takes.  Replaces FusedLES2.tend_scalar_rk
-// (:1674 / :1694; _scalar_rk_body :417), with its carry, fold (column terms
-// on or off) and advec flags.
+// K15 tend_scalar_rk: one scalar's RK sweep, the form a case with a single
+// scalar (SBL_Smag's b) takes.  Replaces FusedLES2.tend_scalar_rk (:1674 /
+// :1694; _scalar_rk_body :417), with its carry, fold (column terms on or
+// off) and advec flags.
 //
-// advec = 0 on any of them leaves the advec_2 terms out: an interpolated
-// scheme (K12/K13, advec_interp.cu) has then added the advection into the
-// carry before the sweep (pallas_fused.py advec=not self.no_advec); the
-// diffusion, the column fold and the Coriolis term stay.
+// advec = 0 leaves the advec_2 terms out: an interpolated scheme (K12/K13,
+// advec_interp.cu) has then added the advection into the carry before the
+// sweep (pallas_fused.py advec=not self.no_advec); the diffusion, the
+// column fold and the Coriolis term stay.  The scalar sweep then reads no
+// u, v or w at all (the wrappers pass null pointers).
 //
-// K18 tend_uvw_acc and K19 tend_scalar_acc: the same sweeps WITHOUT the RK
-// fold (the RK template flag off), for the substep in which another producer
-// changes the tendency after them (open boundaries, sources, the limiter in
-// its tendency form): the carry is read, the tendency added, the carry
-// written back in place; no s* is written, no ghost level of the carry is
-// touched, the column terms of the table are left out (buffer, sources and
-// forcing run as ops afterwards) and the Coriolis term stays a flag.  K18
-// replaces FusedLES2.tend_uv (:1540 / :1560; _tend_uv_body :505) and tend_w
-// (:1568 / :1582; _w_body :373), K19 FusedLES2.tend_scalar (:1589 / :1607;
-// _scalar_body :389), launched once per scalar.
+// K18 tend_uvw_acc: K8/K9's sweep WITHOUT the RK fold (the RK template flag
+// off), for the substep in which another producer changes the tendency
+// after it (open boundaries, sources, the limiter in its tendency form):
+// the carry is read, the tendency added, the carry written back in place;
+// no s* is written, no ghost level of the carry is touched, the column
+// terms of the table are left out (buffer, sources and forcing run as ops
+// afterwards) and the Coriolis term stays a flag.  Replaces
+// FusedLES2.tend_uv (:1540 / :1560; _tend_uv_body :505) and tend_w (:1568
+// / :1582; _w_body :373).  K19 is the scalar sweep's form for that substep.
 //
 // The fields are ghost-filled and read at k-1 and k+1 as they are (no
 // clamping, fold_ghosts off as on the TPU's generic path); evisc is the
@@ -49,17 +55,29 @@
 //
 // Bound: device-memory bytes.  K8/K9 read u, v, w, evisc and the three
 // carries and write three s* and three carries: 13 x 4 B per point in f32
-// (~3.0 GB per call at 384^3), ~450 flops per point.  K10 with S scalars
-// reads 4 + 2S fields and writes 2S: 20 x 4 B per point for S = 4 (~4.6
-// GB).  Design: the k-marching tile of K2 with a three-plane shared-memory
-// ring per field, so each field is read once plus a 1/3 halo; K10 keeps
-// 4 + S rings in dynamic shared memory and passes the scalars' pointers
-// and viscosities by value, so one launch serves any S <= MAXS.
+// (~3.0 GB per call at 384^3), ~450 flops per point; their design is the
+// k-marching tile of K2 with a three-plane shared-memory ring per field.
+// The scalar sweep with S scalars reads evisc, (u, v, w,) the scalars and
+// their carries and writes the carries (and s*): K10 at S = 4 without
+// advection 17 fields x 4 B a point (3.85 GB at 384^3), K19 at S = 3
+// without advection 10 (2.68 GB at 1024x256x256), ~100 operations a scalar
+// and point.  Its design (kmarch.cuh): a block of 32 x SW_TJ threads
+// marches one chunk of the levels of its tile (the chunk count chosen by
+// the wrapper so that the grid fills the card in whole waves); only plane
+// k is read across the plane (the scalars, evisc and, with advection, u's
+// i+1 and v's j+1 neighbours), so shared memory holds that plane and the
+// two behind it with a halo of one, copied by cp.async two levels ahead
+// with one barrier a level; each thread keeps its own column (every
+// scalar's and evisc's k-1, k, k+1, w's k and k+1, the carries) in
+// registers, the next values loaded one level ahead; the table rows are
+// staged in shared memory with the planes; the eddy viscosity at the six
+// faces is formed once a point for all scalars.
+#include "kmarch.cuh"
 #include "les_math.cuh"
 
-namespace mhh {
+#include <type_traits>
 
-constexpr int MAXS = 8;
+namespace mhh {
 
 template <typename T, bool RK>
 __global__ void __launch_bounds__(TI * TJ)
@@ -144,74 +162,9 @@ tend_uvw_kernel(const T* __restrict__ u, const T* __restrict__ v,
     }
 }
 
-// the scalars' pointers and viscosities, passed by value
+// K15: one scalar's RK sweep (tend_scalar_rk) with static shared memory
+// for its five rings.  fold = 0 leaves the column terms of the table out.
 template <typename T>
-struct Scalars {
-    const T* a[MAXS];
-    T* as[MAXS];
-    T* ta[MAXS];
-    T svisc[MAXS];
-};
-
-extern __shared__ __align__(16) unsigned char dyn_smem[];
-
-template <typename T>
-__global__ void __launch_bounds__(TI * TJ)
-tend_scalars_kernel(const T* __restrict__ u, const T* __restrict__ v,
-                    const T* __restrict__ w, const T* __restrict__ e,
-                    const Scalars<T> sc, int S, const T* __restrict__ ccs,
-                    int itot, int jtot, int ktot, int ks, T dxi, T dyi, T tPr,
-                    T cbdt, T can, int carry, int advec) {
-    // rings: u, v, w, evisc, then the S scalars
-    T (*sh)[3][HJ][HI] = reinterpret_cast<T (*)[3][HJ][HI]>(dyn_smem);
-    const int i0 = blockIdx.x * TI, j0 = blockIdx.y * TJ;
-    const int i = i0 + threadIdx.x, j = j0 + threadIdx.y;
-    const bool inside = i < itot && j < jtot;
-    const long long plane = (long long)itot * jtot;
-    const T tPri = T(1) / tPr;
-    const View<T> U = view<T>(sh[0]), V = view<T>(sh[1]), W = view<T>(sh[2]);
-    const View<T> E = view<T>(sh[3]);
-
-    auto load = [&](int p) {
-        const int s = slot(p);
-        load_tile(sh[0][s], u, ks + p, j0, i0, jtot, itot);
-        load_tile(sh[1][s], v, ks + p, j0, i0, jtot, itot);
-        load_tile(sh[2][s], w, ks + p, j0, i0, jtot, itot);
-        load_tile(sh[3][s], e, ks + p, j0, i0, jtot, itot);
-        for (int n = 0; n < S; ++n)
-            load_tile(sh[4 + n][s], sc.a[n], ks + p, j0, i0, jtot, itot);
-    };
-
-    load(-1);
-    load(0);
-    for (int k = 0; k < ktot; ++k) {
-        load(k + 1);
-        __syncthreads();
-        if (inside) {
-            const Slots q = slots(k);
-            const long long o = (long long)(ks + k) * plane + (long long)j * itot + i;
-            for (int n = 0; n < S; ++n) {
-                const View<T> A = view<T>(sh[4 + n]);
-                const T* cc = ccs + ((long long)n * ktot + k) * NTG;
-                const T a_ = A(q.kc, 0, 0);
-                T tt = sc.ta[n][o]
-                       + s_tend(U, V, W, A, E, q, cc, dxi, dyi, sc.svisc[n], tPri,
-                                advec);
-                tt = tt + (cc[T_ADDS] - cc[T_FACZ] * a_
-                           + cc[T_WLSDN] * (a_ - A(q.km, 0, 0))
-                           + cc[T_WLSUP] * (A(q.kp, 0, 0) - a_));
-                sc.as[n][o] = a_ + cbdt * tt;
-                if (carry) sc.ta[n][o] = can * tt;
-            }
-        }
-        __syncthreads();
-    }
-}
-
-// K15: one scalar's sweep (tend_scalar_rk), the form a case with a single
-// scalar takes: the same point math as K10 with static shared memory for its
-// five rings.  fold = 0 leaves the column terms of the table out.
-template <typename T, bool RK>
 __global__ void __launch_bounds__(TI * TJ)
 tend_scalar_kernel(const T* __restrict__ u, const T* __restrict__ v,
                    const T* __restrict__ w, const T* __restrict__ e,
@@ -253,18 +206,274 @@ tend_scalar_kernel(const T* __restrict__ u, const T* __restrict__ v,
                 tt = tt + (cc[T_ADDS] - cc[T_FACZ] * a_
                            + cc[T_WLSDN] * (a_ - A(q.km, 0, 0))
                            + cc[T_WLSUP] * (A(q.kp, 0, 0) - a_));
-            if (RK) {
-                as[o] = a_ + cbdt * tt;
-                if (carry) ta[o] = can * tt;
-            } else {
-                ta[o] = tt;
-            }
+            as[o] = a_ + cbdt * tt;
+            if (carry) ta[o] = can * tt;
         }
         __syncthreads();
     }
 }
 
+// ---- the scalar sweep, K10 (RK) and K19 (no RK) ----
+
+constexpr int SW_TJ = 8;                 // tile rows (32 x SW_TJ threads)
+constexpr int SW_NT = km::TI * SW_TJ;
+constexpr int SW_HALO = 1;               // the 2nd-order stencil's reach
+constexpr int SW_R = 3;                  // ring slots a field: k, k+1, k+2
+constexpr int SW_MAXS = 4;               // scalars a launch
+constexpr int NTGP = 24;                 // values a staged table row
+
+// the scalars' pointers and viscosities, passed by value
+template <typename T>
+struct SweepScalars {
+    const T* a[SW_MAXS];
+    T* as[SW_MAXS];
+    T* ta[SW_MAXS];
+    T svisc[SW_MAXS];
+};
+
+// everything a launch takes but its template arguments
+template <typename T>
+struct SweepArgs {
+    const T *u, *v, *w, *e;
+    SweepScalars<T> sc;
+    const T* ct;   // K10: (S, ktot, NTG), a table a scalar; K19: (ktot, NTG)
+    int itot, jtot, ktot, ks;
+    T dxi, dyi, tPri, cbdt, can;
+    int carry, chunks, vec_ok;
+};
+
+// a field seen from the thread's point: plane k in shared memory (P at the
+// point; any offset in the plane but (0, 0)) and the column k-1, k, k+1 in
+// registers; s is 0, 1 or 2 for k-1, k, k+1
+template <typename T>
+struct ColView {
+    const T* P;
+    T dn, c, up;
+    __device__ __forceinline__ T operator()(int s, int dj, int di) const {
+        if (s == 0) return dn;
+        if (s == 2) return up;
+        return dj == 0 && di == 0 ? c : P[dj * km::RS + di];
+    }
+};
+
+extern __shared__ __align__(16) unsigned char sweep_smem_buf[];
+
+// dynamic shared memory of one launch (ops/kmarch.py repeats it)
+template <typename T, bool RK, bool ADV>
+constexpr size_t sweep_smem(int S) {
+    return ((size_t)(S + 1 + (ADV ? 2 : 0)) * SW_R
+                * km::Slot<SW_TJ, SW_HALO>::SIZE
+            + (size_t)SW_R * (RK ? S : 1) * NTGP) * sizeof(T);
+}
+
+// four blocks an SM in float32 with one or two scalars (at most 64
+// registers), three with more; two in float64
+template <typename T, bool RK, bool ADV, int S>
+__global__ void __launch_bounds__(SW_NT,
+                                  sizeof(T) == 4 ? (S <= 2 ? 4 : 3) : 2)
+scalar_sweep_kernel(const SweepArgs<T> p) {
+    using Sl = km::Slot<SW_TJ, SW_HALO>;
+    constexpr int NF = S + 1 + (ADV ? 2 : 0);   // scalars, e, (u, v)
+    constexpr int NR = RK ? S : 1;               // table rows a level
+    T* const ring = reinterpret_cast<T*>(sweep_smem_buf);
+    T* const rows = ring + NF * SW_R * Sl::SIZE;
+    const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * km::TI + tx;
+    const int i0 = blockIdx.x * km::TI, j0 = blockIdx.y * SW_TJ;
+    const int i = i0 + tx, j = j0 + ty;
+    const bool inside = i < p.itot && j < p.jtot;
+    int k0, k1;
+    km::chunk_bounds(blockIdx.z, p.chunks, p.ktot, k0, k1);
+    const long long plane = (long long)p.itot * p.jtot;
+    const km::PlaneLoader<T, SW_TJ, SW_NT, SW_HALO> ld(
+        tid, i0, j0, p.itot, p.jtot, p.vec_ok && i0 + km::TI <= p.itot);
+    // the point, wrapped where the tile passes the plane's edge (only its
+    // stores are guarded)
+    const long long o2 = (long long)wrap(j, p.jtot) * p.itot + wrap(i, p.itot);
+    const int me = (ty + SW_HALO) * km::RS + tx + km::C0;
+    auto level = [&](int k) { return (long long)(p.ks + k) * plane; };
+    const Slots q{0, 1, 2};
+    // field f's slot of plane k: the scalars 0..S-1, e S, u S+1, v S+2
+    auto slot = [&](int f, int k) {
+        return ring + (f * SW_R + k % SW_R) * Sl::SIZE;
+    };
+
+    // group k: plane k of every field and the table row(s) k; none past
+    // the chunk (an empty group keeps the count)
+    auto issue = [&](int k) {
+        if (k < k1) {
+            const long long lev = level(k);
+#pragma unroll
+            for (int n = 0; n < S; ++n) ld.issue(slot(n, k), p.sc.a[n] + lev);
+            ld.issue(slot(S, k), p.e + lev);
+            if (ADV) {
+                ld.issue(slot(S + 1, k), p.u + lev);
+                ld.issue(slot(S + 2, k), p.v + lev);
+            }
+            if (tid < NR * NTG) {
+                const int n = tid / NTG, c = tid - n * NTG;
+                km::cp_async<sizeof(T)>(
+                    rows + ((k % SW_R) * NR + n) * NTGP + c,
+                    p.ct + ((long long)n * p.ktot + k) * NTG + c);
+            }
+        }
+        km::commit();
+    };
+
+    // the register columns: a and e at k-1, k, k+1, w at k and k+1, the
+    // carries at k
+    T a0[S], a1[S], a2[S], tc[S];
+#pragma unroll
+    for (int n = 0; n < S; ++n) {
+        a0[n] = __ldg(p.sc.a[n] + level(k0 - 1) + o2);
+        a1[n] = __ldg(p.sc.a[n] + level(k0) + o2);
+        a2[n] = __ldg(p.sc.a[n] + level(k0 + 1) + o2);
+        tc[n] = p.sc.ta[n][level(k0) + o2];
+    }
+    T e0 = __ldg(p.e + level(k0 - 1) + o2), e1 = __ldg(p.e + level(k0) + o2);
+    T e2 = __ldg(p.e + level(k0 + 1) + o2);
+    T w0 = T(0), w1 = T(0);
+    if (ADV) {
+        w0 = __ldg(p.w + level(k0) + o2);
+        w1 = __ldg(p.w + level(k0 + 1) + o2);
+    }
+
+    issue(k0);
+    issue(k0 + 1);
+    for (int k = k0; k < k1; ++k) {
+        km::wait_pending<1>();
+        __syncthreads();
+        issue(k + 2);
+        // what the next level needs, on its way during this one's work
+        const long long ln = level(min(k + 2, k1)), lt = level(min(k + 1, k1 - 1));
+        T an[S], tn[S];
+#pragma unroll
+        for (int n = 0; n < S; ++n) {
+            an[n] = __ldg(p.sc.a[n] + ln + o2);
+            tn[n] = p.sc.ta[n][lt + o2];
+        }
+        const T en = __ldg(p.e + ln + o2);
+        const T wn = ADV ? __ldg(p.w + ln + o2) : T(0);
+
+        const ColView<T> E{slot(S, k) + me, e0, e1, e2};
+        T f[6];
+        s_faces(E, q, f);
+        const T* pu = ADV ? slot(S + 1, k) + me : nullptr;
+        const T* pv = ADV ? slot(S + 2, k) + me : nullptr;
+        const ColView<T> U{pu, T(0), ADV ? pu[0] : T(0), T(0)};
+        const ColView<T> V{pv, T(0), ADV ? pv[0] : T(0), T(0)};
+        const ColView<T> W{nullptr, T(0), w0, w1};
+        const T* rk = rows + (k % SW_R) * NR * NTGP;
+        const long long o = level(k) + o2;
+#pragma unroll
+        for (int n = 0; n < S; ++n) {
+            const T* cc = rk + (RK ? n * NTGP : 0);
+            const ColView<T> A{slot(n, k) + me, a0[n], a1[n], a2[n]};
+            const T adv = ADV ? s_adv(U, V, W, A, q, cc, p.dxi, p.dyi) : T(0);
+            T tt = tc[n] + (adv + s_dif(A, q, cc, p.dxi, p.dyi, f, p.tPri,
+                                        p.sc.svisc[n]));
+            if (RK) {
+                const T a_ = a1[n];
+                tt = tt + (cc[T_ADDS] - cc[T_FACZ] * a_
+                           + cc[T_WLSDN] * (a_ - a0[n])
+                           + cc[T_WLSUP] * (a2[n] - a_));
+                if (inside) {
+                    p.sc.as[n][o] = a_ + p.cbdt * tt;
+                    if (p.carry) p.sc.ta[n][o] = p.can * tt;
+                }
+            } else if (inside) {
+                p.sc.ta[n][o] = tt;
+            }
+        }
+#pragma unroll
+        for (int n = 0; n < S; ++n) {
+            a0[n] = a1[n];
+            a1[n] = a2[n];
+            a2[n] = an[n];
+            tc[n] = tn[n];
+        }
+        e0 = e1; e1 = e2; e2 = en;
+        w0 = w1; w1 = wn;
+    }
+    // no copy may land after the block has left its shared memory
+    km::wait_all();
+}
+
+// f(integral_constant ADV, integral_constant S) for the form (advec, S)
+template <typename F>
+int sweep_form(int advec, int S, F f) {
+    using std::integral_constant;
+    using Y = integral_constant<bool, true>;
+    using N = integral_constant<bool, false>;
+    switch (S * 2 + (advec ? 1 : 0)) {
+    case 2: return f(N(), integral_constant<int, 1>());
+    case 3: return f(Y(), integral_constant<int, 1>());
+    case 4: return f(N(), integral_constant<int, 2>());
+    case 5: return f(Y(), integral_constant<int, 2>());
+    case 6: return f(N(), integral_constant<int, 3>());
+    case 7: return f(Y(), integral_constant<int, 3>());
+    case 8: return f(N(), integral_constant<int, 4>());
+    case 9: return f(Y(), integral_constant<int, 4>());
+    }
+    return (int)cudaErrorInvalidValue;
+}
+
 template <typename T, bool RK>
+int scalar_sweep(const T* u, const T* v, const T* w, const T* e,
+                 const void* const* a, void* const* as, void* const* ta,
+                 const double* svisc, int S, const T* ct, int itot, int jtot,
+                 int ktot, int ks, double dxi, double dyi, double tPr,
+                 double cbdt, double can, int carry, int advec, int chunks,
+                 cudaStream_t stream) {
+    if (S < 1 || S > SW_MAXS || chunks < 1 || chunks > ktot)
+        return (int)cudaErrorInvalidValue;
+    if (advec && !(u && v && w)) return (int)cudaErrorInvalidValue;
+    SweepArgs<T> p;
+    p.u = advec ? u : nullptr;
+    p.v = advec ? v : nullptr;
+    p.w = advec ? w : nullptr;
+    p.e = e;
+    bool vec = itot % (16 / (int)sizeof(T)) == 0 && km::aligned16(e)
+               && (!advec || (km::aligned16(u) && km::aligned16(v)));
+    for (int n = 0; n < SW_MAXS; ++n) {
+        const bool used = n < S;
+        p.sc.a[n] = used ? (const T*)a[n] : nullptr;
+        p.sc.as[n] = used && RK ? (T*)as[n] : nullptr;
+        p.sc.ta[n] = used ? (T*)ta[n] : nullptr;
+        p.sc.svisc[n] = used ? T(svisc[n]) : T(0);
+        if (used) vec = vec && km::aligned16(a[n]);
+    }
+    p.ct = ct;
+    p.itot = itot; p.jtot = jtot; p.ktot = ktot; p.ks = ks;
+    p.dxi = T(dxi); p.dyi = T(dyi); p.tPri = T(1) / T(tPr);
+    p.cbdt = T(cbdt); p.can = T(can);
+    p.carry = carry; p.chunks = chunks; p.vec_ok = (int)vec;
+    return sweep_form(advec, S, [&](auto adv, auto s) {
+        constexpr bool ADV = decltype(adv)::value;
+        constexpr int SS = decltype(s)::value;
+        auto kernel = scalar_sweep_kernel<T, RK, ADV, SS>;
+        const size_t smem = sweep_smem<T, RK, ADV>(SS);
+        int rc = (int)cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (rc) return rc;
+        const dim3 block(km::TI, SW_TJ);
+        const dim3 grid((itot + km::TI - 1) / km::TI,
+                        (jtot + SW_TJ - 1) / SW_TJ, chunks);
+        kernel<<<grid, block, smem, stream>>>(p);
+        return (int)cudaGetLastError();
+    });
+}
+
+template <typename T, bool RK>
+int scalar_sweep_info(int advec, int S, int* out) {
+    return sweep_form(advec, S, [&](auto adv, auto s) {
+        constexpr bool ADV = decltype(adv)::value;
+        constexpr int SS = decltype(s)::value;
+        return km::kernel_info(scalar_sweep_kernel<T, RK, ADV, SS>, SW_NT,
+                               sweep_smem<T, RK, ADV>(SS), out);
+    });
+}
+
+template <typename T>
 int launch_tend_scalar(const T* u, const T* v, const T* w, const T* e,
                        const T* a, T* as, T* ta, const T* ct, int itot,
                        int jtot, int ktot, int ks, double dxi, double dyi,
@@ -272,7 +481,7 @@ int launch_tend_scalar(const T* u, const T* v, const T* w, const T* e,
                        int carry, int fold, int advec, cudaStream_t stream) {
     const dim3 block(TI, TJ);
     const dim3 grid((itot + TI - 1) / TI, (jtot + TJ - 1) / TJ);
-    tend_scalar_kernel<T, RK><<<grid, block, 0, stream>>>(
+    tend_scalar_kernel<T><<<grid, block, 0, stream>>>(
         u, v, w, e, a, as, ta, ct, itot, jtot, ktot, ks, T(dxi), T(dyi),
         T(svisc), T(tPr), T(cbdt), T(can), carry, fold, advec);
     return (int)cudaGetLastError();
@@ -291,36 +500,6 @@ int launch_tend_uvw(const T* u, const T* v, const T* w, const T* e, T* us,
         u, v, w, e, us, vs, ws, tu, tv, tw, ct, itot, jtot, ktot, ks, T(dxi),
         T(dyi), T(visc), T(fc), T(utrans), T(vtrans), T(cbdt), T(can),
         coriolis, carry, advec);
-    return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_tend_scalars(const T* u, const T* v, const T* w, const T* e,
-                        const void* const* a, void* const* as,
-                        void* const* ta, const double* svisc, int S,
-                        const T* ccs, int itot, int jtot, int ktot, int ks,
-                        double dxi, double dyi, double tPr, double cbdt,
-                        double can, int carry, int advec,
-                        cudaStream_t stream) {
-    if (S < 1 || S > MAXS) return (int)cudaErrorInvalidValue;
-    Scalars<T> sc;
-    for (int n = 0; n < MAXS; ++n) {
-        const bool used = n < S;
-        sc.a[n] = used ? (const T*)a[n] : nullptr;
-        sc.as[n] = used ? (T*)as[n] : nullptr;
-        sc.ta[n] = used ? (T*)ta[n] : nullptr;
-        sc.svisc[n] = used ? T(svisc[n]) : T(0);
-    }
-    const size_t smem = (size_t)(4 + S) * 3 * HJ * HI * sizeof(T);
-    cudaError_t rc = cudaFuncSetAttribute(
-        tend_scalars_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (rc != cudaSuccess) return (int)rc;
-    const dim3 block(TI, TJ);
-    const dim3 grid((itot + TI - 1) / TI, (jtot + TJ - 1) / TJ);
-    tend_scalars_kernel<T><<<grid, block, smem, stream>>>(
-        u, v, w, e, sc, S, ccs, itot, jtot, ktot, ks, T(dxi), T(dyi), T(tPr),
-        T(cbdt), T(can), carry, advec);
     return (int)cudaGetLastError();
 }
 
@@ -343,13 +522,16 @@ int launch_tend_scalars(const T* u, const T* v, const T* w, const T* e,
     extern "C" int mhh_tend_scalars_##SUF(                                    \
         const void* u, const void* v, const void* w, const void* e,           \
         const void* const* a, void* const* as, void* const* ta,               \
-        const double* svisc, int S, const void* ccs, int itot, int jtot,      \
+        const double* svisc, int S, const void* cts, int itot, int jtot,      \
         int ktot, int ks, double dxi, double dyi, double tPr, double cbdt,    \
-        double can, int carry, int advec, void* stream) {                     \
-        return mhh::launch_tend_scalars<T>(                                   \
+        double can, int carry, int advec, int chunks, void* stream) {         \
+        return mhh::scalar_sweep<T, true>(                                    \
             (const T*)u, (const T*)v, (const T*)w, (const T*)e, a, as, ta,    \
-            svisc, S, (const T*)ccs, itot, jtot, ktot, ks, dxi, dyi, tPr,     \
-            cbdt, can, carry, advec, (cudaStream_t)stream);                   \
+            svisc, S, (const T*)cts, itot, jtot, ktot, ks, dxi, dyi, tPr,     \
+            cbdt, can, carry, advec, chunks, (cudaStream_t)stream);           \
+    }                                                                         \
+    extern "C" int mhh_tend_scalars_info_##SUF(int advec, int S, int* out) {  \
+        return mhh::scalar_sweep_info<T, true>(advec, S, out);                \
     }                                                                         \
     extern "C" int mhh_tend_scalar_rk_##SUF(                                  \
         const void* u, const void* v, const void* w, const void* e,           \
@@ -357,7 +539,7 @@ int launch_tend_scalars(const T* u, const T* v, const T* w, const T* e,
         int jtot, int ktot, int ks, double dxi, double dyi, double svisc,     \
         double tPr, double cbdt, double can, int carry, int fold, int advec,  \
         void* stream) {                                                       \
-        return mhh::launch_tend_scalar<T, true>(                                    \
+        return mhh::launch_tend_scalar<T>(                                    \
             (const T*)u, (const T*)v, (const T*)w, (const T*)e, (const T*)a,  \
             (T*)as, (T*)ta, (const T*)cc, itot, jtot, ktot, ks, dxi, dyi,     \
             svisc, tPr, cbdt, can, carry, fold, advec, (cudaStream_t)stream); \
@@ -376,13 +558,17 @@ int launch_tend_scalars(const T* u, const T* v, const T* w, const T* e,
     }                                                                         \
     extern "C" int mhh_tend_scalar_acc_##SUF(                                 \
         const void* u, const void* v, const void* w, const void* e,           \
-        const void* a, void* ta, const void* cc, int itot, int jtot,          \
-        int ktot, int ks, double dxi, double dyi, double svisc, double tPr,   \
-        int advec, void* stream) {                                            \
-        return mhh::launch_tend_scalar<T, false>(                             \
-            (const T*)u, (const T*)v, (const T*)w, (const T*)e, (const T*)a,  \
-            nullptr, (T*)ta, (const T*)cc, itot, jtot, ktot, ks, dxi, dyi,    \
-            svisc, tPr, 0., 0., 0, 0, advec, (cudaStream_t)stream);           \
+        const void* const* a, void* const* ta, const double* svisc, int S,    \
+        const void* ct, int itot, int jtot, int ktot, int ks, double dxi,     \
+        double dyi, double tPr, int advec, int chunks, void* stream) {        \
+        return mhh::scalar_sweep<T, false>(                                   \
+            (const T*)u, (const T*)v, (const T*)w, (const T*)e, a, nullptr,   \
+            ta, svisc, S, (const T*)ct, itot, jtot, ktot, ks, dxi, dyi, tPr,  \
+            0., 0., 0, advec, chunks, (cudaStream_t)stream);                  \
+    }                                                                         \
+    extern "C" int mhh_tend_scalar_acc_info_##SUF(int advec, int S,           \
+                                                  int* out) {                 \
+        return mhh::scalar_sweep_info<T, false>(advec, S, out);               \
     }
 
 MHH_TEND_GENERIC(f32, float)

@@ -69,11 +69,12 @@ SIGNATURES = {
     # u, v, w, e, us, vs, ws, tu, tv, tw, ct; itot, jtot, ktot, ks; dxi, dyi,
     # visc, fc, utrans, vtrans, cbdt, can; coriolis, carry, advec
     "tend_uvw": [_P] * 11 + [_I] * 4 + [_D] * 8 + [_I] * 3,
-    # u, v, w, e; host arrays of the S scalars' a, a*, carry pointers and
-    # viscosities; S; tables (S, ktot, NTG); itot, jtot, ktot, ks; dxi, dyi,
-    # tPr, cbdt, can; carry, advec
+    # u, v, w (null without advection), e; host arrays of the S scalars' a,
+    # a*, carry pointers and viscosities; S; tables (S, ktot, NTG); itot,
+    # jtot, ktot, ks; dxi, dyi, tPr, cbdt, can; carry, advec, chunks
+    # (ops/kmarch.py)
     "tend_scalars": [_P] * 4 + [_PP] * 3 + [_PD, _I, _P] + [_I] * 4
-                    + [_D] * 5 + [_I] * 2,
+                    + [_D] * 5 + [_I] * 3,
     # u, v, w, e, a, a*, carry, ct; itot, jtot, ktot, ks; dxi, dyi, svisc,
     # tPr, cbdt, can; carry, fold, advec
     "tend_scalar_rk": [_P] * 8 + [_I] * 4 + [_D] * 6 + [_I] * 3,
@@ -95,9 +96,11 @@ SIGNATURES = {
     # u, v, w, e, tu, tv, tw, ct; itot, jtot, ktot, ks; dxi, dyi, visc, fc,
     # utrans, vtrans; coriolis, advec
     "tend_uvw_acc": [_P] * 8 + [_I] * 4 + [_D] * 6 + [_I] * 2,
-    # u, v, w, e, a, carry, ct; itot, jtot, ktot, ks; dxi, dyi, svisc, tPr;
-    # advec
-    "tend_scalar_acc": [_P] * 7 + [_I] * 4 + [_D] * 4 + [_I],
+    # u, v, w (null without advection), e; host arrays of the S scalars'
+    # a and carry pointers and viscosities; S; ct; itot, jtot, ktot, ks;
+    # dxi, dyi, tPr; advec, chunks (ops/kmarch.py)
+    "tend_scalar_acc": [_P] * 4 + [_PP] * 2 + [_PD, _I, _P] + [_I] * 4
+                       + [_D] * 3 + [_I] * 2,
     # u, v, w, th, e (kcells), tu, tv, tw, tth, ct (ktot, NTG); itot, jtot,
     # ktot, ks; dxi, dyi, visc, svisc, tPr, fc, utrans, vtrans; coriolis.
     # th, tth null: no thermo
@@ -110,10 +113,11 @@ SIGNATURES = {
     "micro2": [_P] * 11 + [_I] * 5 + [_D] * 2,
 }
 
-# Kernels with an entry mhh_<kernel>_info_<f32|f64>(scheme, S, int out[5]):
-# registers, local bytes a thread, dynamic shared memory a block, resident
-# blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), SMs.
-INFO = ("advec_scalars", "o4_mom")
+# Kernels with an entry mhh_<kernel>_info_<f32|f64>(scheme, S, int out[5])
+# (the scalar sweep's "scheme" is its advec flag): registers, local bytes a
+# thread, dynamic shared memory a block, resident blocks an SM
+# (cudaOccupancyMaxActiveBlocksPerMultiprocessor), SMs.
+INFO = ("advec_scalars", "o4_mom", "tend_scalars", "tend_scalar_acc")
 INFO_KEYS = ("registers", "local_bytes", "smem", "blocks_per_sm", "sms")
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}

@@ -36,10 +36,10 @@ advection + diffusion producer at 4th order.
   eddy viscosity (K1 in its ghost mode, or K14), thermo and microphysics
   into the carry, the MOST surface and the refill of the flux-dependent
   ghosts, an interpolated scheme's advection (K12/K13), then K18 and K19
-  per scalar (generic) or K20 (dry) onto the carry with the wall patches,
-  the outflow correction, buffer, source and force unless folded into the
-  kernel, the projection ``Pres2.exec`` (plain-torch input and output
-  around K5, K21, K6), the limiter in its tendency form and the
+  (generic; every scalar in one launch) or K20 (dry) onto the carry with
+  the wall patches, the outflow correction, buffer, source and force unless
+  folded into the kernel, the projection ``Pres2.exec`` (plain-torch input
+  and output around K5, K21, K6), the limiter in its tendency form and the
   low-storage RK update in place.
 * The 4th-order path (advec 4 or 4m, diff 4, pres 4, the default boundary,
   thermo buoy or none: the moser180 and weakscaling slice;

@@ -26,16 +26,19 @@ no fallback from the card to the plain version.
                             smag2 + column fold + Coriolis + RK fold
                             (``csrc/tend_generic.cu``);
 * K10 ``FusedGeneric.tend_scalars`` - every scalar's advec_2 + smag2 +
-                            column fold + RK fold in one pass
-                            (``csrc/tend_generic.cu``);
+                            column fold + RK fold in one k-march, four
+                            scalars a launch (the scalar sweep of
+                            ``csrc/tend_generic.cu``, ``ops/kmarch.py``);
 * K14 ``FusedGeneric.evisc_n2`` - K1's eddy viscosity with N2 read from a
                             field the thermo computed (``csrc/evisc.cu``);
 * K15 ``FusedGeneric.tend_scalar_rk`` - K10's sweep for a case with one
                             scalar (``csrc/tend_generic.cu``).
 
-* K18 ``FusedGeneric.tend_uvw_acc`` and K19 ``FusedGeneric.tend_scalar_acc``
-                          - K8/K9's and K15's sweeps without the RK fold: the
-                            tendency is added onto the carry in place
+* K18 ``FusedGeneric.tend_uvw_acc`` and K19 ``FusedGeneric.tend_scalars_acc``
+                          - K8/K9's sweep and the scalar sweep without the RK
+                            fold: the tendency is added onto the carry in
+                            place, K19 for every scalar in one launch of up
+                            to four (``tend_scalar_acc``: one scalar)
                             (``csrc/tend_generic.cu``);
 * K20 ``Fused.tendencies`` - K2's dry set without the RK fold on ghost-filled
                             fields, with the sponge and Coriolis folds
@@ -43,10 +46,11 @@ no fallback from the card to the plain version.
 
 K8-K10, K15, K18 and K19 leave the advec_2 terms out when an interpolated
 scheme (K12/K13, ops/advec_interp_fused.py) has added the advection into the
-carry.  K18-K20 serve the substep without the RK fold (model.py
-``_substep_unfolded``): another producer changes the tendency after them
-there (open boundaries, sources, a forcing op, the limiter in its tendency
-form), so the RK update cannot ride the sweep.
+carry; the scalar sweep then reads no u, v or w.  K18-K20 serve the
+substep without the RK fold (model.py ``_substep_unfolded``): another
+producer changes the tendency after them there (open boundaries, sources, a
+forcing op, the limiter in its tendency form), so the RK update cannot ride
+the sweep.
 
 On the dry path the kernels read the raw fields with CLAMPED k neighbours
 (the JAX package's ``fold_ghosts`` variant: no ghost fill inside the
@@ -64,6 +68,7 @@ import torch
 
 from .. import constants as cst
 from ..kernels import Kernel, check, on_cpu
+from . import kmarch
 from .stencil import im, ip, jm, jp, i2
 
 # per-level table columns, shared with csrc/evisc.cu, tend_rk.cu, pres_glue.cu
@@ -80,9 +85,6 @@ PROGNOSTIC = ("u", "v", "w", "th")
 
 # (j, i) tile of a thread block of the stencil kernels (csrc/common.cuh TJ, TI)
 TILE_J, TILE_I = 8, 32
-
-# the most scalars K10 takes (csrc/tend_generic.cu MAXS)
-MAX_SCALARS = 8
 
 
 def _planes(a, first, n, off, lo, hi):
@@ -494,6 +496,15 @@ def tend_scalar_acc_plain(s, name, e, t, ct, svisc, ks, dxi, dyi, tPr,
         advec)
 
 
+def tend_scalars_acc_plain(s, names, e, t, ct, sviscs, ks, dxi, dyi, tPr,
+                           advec=True):
+    """K19 for the scalars ``names`` in plain torch: tend_scalar_acc_plain
+    for each in turn, with its viscosity of sviscs."""
+    for name, svisc in zip(names, sviscs):
+        tend_scalar_acc_plain(s, name, e, t, ct, svisc, ks, dxi, dyi, tPr,
+                              advec)
+
+
 def tendencies_plain(s, e, t, ct, ks, dxi, dyi, visc, svisc, tPr, fc, utrans,
                      vtrans, coriolis, thermo=True):
     """K20 in plain torch: K2's dry set (advec_2 + smag2 of u, v, w and,
@@ -761,15 +772,16 @@ class Fused:
 class FusedGeneric(Fused):
     """The generic path's kernels for one grid, base state and scalar list:
     K1 and K7 on ghost-filled fields, K8/K9 and K10 (K15 for a single
-    scalar) with the per-substep tables of generic_col_tables.
+    scalar) with the per-substep tables of generic_col_tables, and K18/K19
+    without the RK fold.
 
     The stability term of the eddy viscosity takes one of three forms
     (fused_generic_viscosity): the moist N2 of thl against thvref inside K1
     (microhh_tpu/model.py:964-970; ``n2_scalar``), the thermo's own
     ``get_n2`` field through K14 (buoy's background N2, dry), or none when
     the thermo carries no scalar.  ``advec`` False leaves the advec_2 terms
-    out of K8-K10/K15: an interpolated scheme then adds the advection into
-    the carry before them."""
+    out of K8-K10/K15/K18/K19: an interpolated scheme then adds the
+    advection into the carry before them."""
 
     ghosts = True
 
@@ -825,6 +837,7 @@ class FusedGeneric(Fused):
         self.k_uvw = Kernel("tend_uvw", "microhh_torch/csrc/tend_generic.cu",
                             "microhh_tpu/ops/pallas_fused.py:1641, "
                             "microhh_tpu/ops/pallas_fused.py:1667")
+        # K10 and K19: two forms of the one scalar sweep, each counted
         self.k_scalars = Kernel("tend_scalars",
                                 "microhh_torch/csrc/tend_generic.cu",
                                 "microhh_tpu/ops/pallas_fused.py:1733")
@@ -878,33 +891,66 @@ class FusedGeneric(Fused):
                    int(self.coriolis), int(carry), int(self.advec))
         return s_star
 
-    def tend_scalars(self, s, t, e, cts, cbdt, can, carry):
-        """K10: s* of every scalar in one pass; the carry as in tend_uvw."""
+    def plan(self, kernel, S, dtype, chunks=None):
+        """The k-march of one launch of the scalar sweep ("tend_scalars":
+        K10, "tend_scalar_acc": K19) of S scalars in this case's advec
+        form (ops/kmarch.py), the chunk count chosen from the card's
+        resident blocks unless given."""
+        ctx = self.ctx
+        kern = (self.k_scalars if kernel == "tend_scalars"
+                else self.k_scalar_acc)
+        info = kern.info(dtype, int(self.advec), S)
+        return kmarch.plan(kernel, ctx.itot, ctx.jtot, ctx.ktot, S, dtype,
+                           info["blocks_per_sm"] * info["sms"], chunks,
+                           self.advec)
+
+    def _sweep(self, kern, s, t, e, names, table, tail, chunks, s_star=None):
+        """Launch the scalar sweep kern (K10 with s_star, K19 without) over
+        names, SW_MAXS scalars a launch; table(i0, S) is the table of the
+        launch of names[i0:i0 + S], tail the form's own arguments."""
+        ctx = self.ctx
+        uvw = ([s[n] for n in ("u", "v", "w")] if self.advec
+               else [None] * 3)
+        for i0 in range(0, len(names), kmarch.SW_MAXS):
+            grp = names[i0:i0 + kmarch.SW_MAXS]
+            S = len(grp)
+
+            def ptrs(arrays):
+                return (ctypes.c_void_p * S)(*[arrays[n].data_ptr()
+                                               for n in grp])
+
+            sviscs = [self.sviscs[self.names.index(n)] for n in grp]
+            heads = [ptrs(s)] + ([ptrs(s_star)] if s_star is not None else [])
+            kern(e.dtype, *uvw, e, *heads, ptrs(t),
+                 (ctypes.c_double * S)(*sviscs), S, table(i0, S), ctx.itot,
+                 ctx.jtot, ctx.ktot, ctx.ks, ctx.dxi, ctx.dyi, self.tPr,
+                 *tail, int(self.advec),
+                 self.plan(kern.name, S, e.dtype, chunks).chunks)
+
+    def _check_sweep(self, s, t, e, names, table, table_shape):
+        """Raise unless every array a sweep over names reads or writes has
+        the kernel's type, device, layout and shape."""
+        ctx = self.ctx
+        shape = (ctx.kcells, ctx.jtot, ctx.itot)
+        uvw = [s[n] for n in ("u", "v", "w")] if self.advec else []
+        arrays = uvw + [e] + [s[n] for n in names] + [t[n] for n in names]
+        check(arrays + [table], e.dtype, e.device,
+              [shape] * len(arrays) + [table_shape])
+
+    def tend_scalars(self, s, t, e, cts, cbdt, can, carry, chunks=None):
+        """K10: s* of every scalar, four scalars a launch; the carry as in
+        tend_uvw.  chunks: force the k-split (checks and timings only)."""
         ctx = self.ctx
         names = self.names
         args = (ctx.ks, ctx.dxi, ctx.dyi, self.tPr, cbdt, can, carry)
         if on_cpu(e):
             return tend_scalars_plain(s, names, e, t, cts, self.sviscs, *args,
                                       self.advec)
-        S = len(names)
-        if not 1 <= S <= MAX_SCALARS:
-            raise ValueError("K10 takes 1 to %d scalars, not %d (csrc/"
-                             "tend_generic.cu MAXS)" % (MAX_SCALARS, S))
-        shape = (ctx.kcells, ctx.jtot, ctx.itot)
-        fields = [s[n] for n in ("u", "v", "w")] + [e]
-        check(fields + [s[n] for n in names] + [t[n] for n in names] + [cts],
-              e.dtype, e.device, [shape] * (4 + 2 * S) + [(S, ctx.ktot, NTG)])
+        self._check_sweep(s, t, e, names, cts, (len(names), ctx.ktot, NTG))
         s_star = {n: _empty_ghosts_zero(s[n], ctx) for n in names}
-
-        def ptrs(arrays):
-            return (ctypes.c_void_p * S)(*[a.data_ptr() for a in arrays])
-
-        self.k_scalars(e.dtype, *fields, ptrs([s[n] for n in names]),
-                       ptrs([s_star[n] for n in names]),
-                       ptrs([t[n] for n in names]),
-                       (ctypes.c_double * S)(*self.sviscs), S, cts, ctx.itot,
-                       ctx.jtot, ctx.ktot, *args[:-1], int(carry),
-                       int(self.advec))
+        self._sweep(self.k_scalars, s, t, e, names,
+                    lambda i0, S: cts[i0:i0 + S], (cbdt, can, int(carry)),
+                    chunks, s_star)
         return s_star
 
     def tend_scalar_rk(self, s, t, e, ct, cbdt, can, carry, fold=True):
@@ -948,23 +994,25 @@ class FusedGeneric(Fused):
                        ctx.ktot, *args[:-1], int(self.fold_force),
                        int(self.advec))
 
-    def tend_scalar_acc(self, s, t, e, name):
-        """K19: the tendency of the scalar ``name`` added onto its carry in
-        place."""
+    def tend_scalars_acc(self, s, t, e, names=None, chunks=None):
+        """K19: the tendencies of the scalars ``names`` (every scalar of the
+        case unless given) added onto their carries in place, four scalars
+        a launch.  chunks: force the k-split (checks and timings only)."""
         ctx = self.ctx
         ct = self.ct_static
-        svisc = self.sviscs[self.names.index(name)]
-        args = (ctx.ks, ctx.dxi, ctx.dyi, self.tPr)
+        names = self.names if names is None else tuple(names)
         if on_cpu(e):
-            return tend_scalar_acc_plain(s, name, e, t, ct, svisc, *args,
-                                         self.advec)
-        shape = (ctx.kcells, ctx.jtot, ctx.itot)
-        fields = [s[n] for n in ("u", "v", "w")] + [e, s[name], t[name]]
-        check(fields + [ct], e.dtype, e.device,
-              [shape] * 6 + [(ctx.ktot, NTG)])
-        self.k_scalar_acc(e.dtype, *fields, ct, ctx.itot, ctx.jtot, ctx.ktot,
-                          ctx.ks, ctx.dxi, ctx.dyi, svisc, self.tPr,
-                          int(self.advec))
+            sviscs = [self.sviscs[self.names.index(n)] for n in names]
+            return tend_scalars_acc_plain(s, names, e, t, ct, sviscs, ctx.ks,
+                                          ctx.dxi, ctx.dyi, self.tPr,
+                                          self.advec)
+        self._check_sweep(s, t, e, names, ct, (ctx.ktot, NTG))
+        self._sweep(self.k_scalar_acc, s, t, e, names, lambda i0, S: ct, (),
+                    chunks)
+
+    def tend_scalar_acc(self, s, t, e, name):
+        """K19 for the one scalar ``name``."""
+        self.tend_scalars_acc(s, t, e, (name,))
 
 
 class PresGlue:
@@ -1409,14 +1457,14 @@ def _add_wall_deltas(fz, ctx, s, t, aux, sfc):
 
 
 def generic_tendencies(fz, ctx, s, t, aux, sfc):
-    """K18 and, once per scalar, K19 onto the carry t in place, then the
-    MOST wall rows (fused_generic_tendencies).  No RK update: the caller
-    runs the outflow correction, buffer, source, forcing, projection and
-    limiter on t afterwards."""
+    """K18 and K19 (every scalar in one launch of up to four) onto the
+    carry t in place, then the MOST wall rows (fused_generic_tendencies).
+    No RK update: the caller runs the outflow correction, buffer, source,
+    forcing, projection and limiter on t afterwards."""
     e = aux["evisc"]
     fz.tend_uvw_acc(s, t, e)
-    for name in fz.names:
-        fz.tend_scalar_acc(s, t, e, name)
+    if fz.names:
+        fz.tend_scalars_acc(s, t, e)
     _add_wall_deltas(fz, ctx, s, t, aux, sfc)
 
 

@@ -1,5 +1,6 @@
-"""The k-march plan of the redesigned ring kernels K13 (``advec_scalars``)
-and K16 (``o4_mom``): the host's copy of ``csrc/kmarch.cuh`` and of the two
+"""The k-march plan of the redesigned ring kernels K13 (``advec_scalars``),
+K16 (``o4_mom``) and the scalar sweep K10 (``tend_scalars``) / K19
+(``tend_scalar_acc``): the host's copy of ``csrc/kmarch.cuh`` and of the
 kernels' shared-memory layouts.
 
 A launch is a grid of (tiles in i) x (tiles in j) x chunks blocks; block z
@@ -7,10 +8,10 @@ marches the levels ``chunk_bounds(chunks, ktot)[z]``.  ``plan`` picks the
 chunk count from the card's resident slots (blocks an SM, which the C side
 reports through ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``, times
 the SMs) so that the blocks fill the card in whole waves: the count that
-minimises waves x (levels a chunk + the six planes a chunk reads again to
-warm its column up).  The shared-memory formulas repeat the kernels' own
-(``k13_smem``, ``K16<T>::smem``), and a CPU test holds the constants here
-to those in the sources.
+minimises waves x (levels a chunk + the planes a chunk reads again to warm
+its column up).  The shared-memory formulas repeat the kernels' own
+(``k13_smem``, ``K16<T>::smem``, ``sweep_smem``), and a CPU test holds the
+constants here to those in the sources.
 """
 
 import collections
@@ -21,12 +22,14 @@ import torch
 # csrc/kmarch.cuh
 TI, H, C0, RS, NCP = 32, 3, 4, 40, 28
 SMEM_MAX = 232448           # bytes of shared memory a block can have
-WARM = 6                    # planes a chunk reads to warm its column up
 
 # csrc/advec_interp.cu: K13_TJ, K13_R, K13_RR, MAXA
 K13_TJ, K13_R, K13_RR, K13_MAXS = 8, 3, 4, 4
 # csrc/o4.cu: K16_TJ, NI (interpolant planes)
 K16_TJ, K16_NI = 8, 8
+# csrc/tend_generic.cu: SW_TJ, SW_HALO, SW_R, SW_MAXS, NTGP; NTG of
+# csrc/les_math.cuh (ops/fused.py NTG)
+SW_TJ, SW_HALO, SW_R, SW_MAXS, NTGP, NTG = 8, 1, 3, 4, 24, 21
 
 Plan = collections.namedtuple("Plan", "tiles_i tiles_j chunks smem slots waves")
 
@@ -35,9 +38,9 @@ def _bytes(dtype):
     return torch.finfo(dtype).bits // 8
 
 
-def slot_size(tj):
+def slot_size(tj, halo=H):
     """Values of one haloed plane of a (tj, TI) tile (kmarch.cuh Slot)."""
-    return (tj + 2 * H) * RS
+    return (tj + 2 * halo) * RS
 
 
 def k13_smem(S, dtype):
@@ -60,9 +63,29 @@ def k16_smem(dtype):
              + g["RR"] * NCP) * _bytes(dtype))
 
 
-SMEM = {"advec_scalars": lambda S, dtype: k13_smem(S, dtype),
-        "o4_mom": lambda S, dtype: k16_smem(dtype)}
-TILE_J = {"advec_scalars": K13_TJ, "o4_mom": K16_TJ}
+def sweep_smem(S, dtype, rk, advec):
+    """Dynamic shared memory of a scalar-sweep launch of S scalars
+    (csrc/tend_generic.cu sweep_smem): three slots of each scalar's, e's
+    and, with advection, u's and v's plane, and three staged table rows a
+    scalar with the RK fold (one shared row without)."""
+    fields = S + 1 + (2 if advec else 0)
+    return ((fields * SW_R * slot_size(SW_TJ, SW_HALO)
+             + SW_R * (S if rk else 1) * NTGP) * _bytes(dtype))
+
+
+# kernel -> shared memory of a launch (S, dtype, advec)
+SMEM = {"advec_scalars": lambda S, dtype, advec: k13_smem(S, dtype),
+        "o4_mom": lambda S, dtype, advec: k16_smem(dtype),
+        "tend_scalars": lambda S, dtype, advec: sweep_smem(S, dtype, True,
+                                                           advec),
+        "tend_scalar_acc": lambda S, dtype, advec: sweep_smem(S, dtype, False,
+                                                              advec)}
+TILE_J = {"advec_scalars": K13_TJ, "o4_mom": K16_TJ, "tend_scalars": SW_TJ,
+          "tend_scalar_acc": SW_TJ}
+# planes a chunk reads again to warm its column up: K13's and K16's
+# seven-plane windows; the sweep's column k0-1..k0+1 and the plane past it
+WARM = {"advec_scalars": 6, "o4_mom": 6, "tend_scalars": 2,
+        "tend_scalar_acc": 2}
 
 
 def chunk_bounds(chunks, ktot):
@@ -72,28 +95,31 @@ def chunk_bounds(chunks, ktot):
 
 
 @functools.lru_cache(maxsize=256)
-def choose_chunks(tiles, ktot, slots):
-    """The chunk count that minimises waves x (levels a chunk + WARM)."""
+def choose_chunks(tiles, ktot, slots, warm):
+    """The chunk count that minimises waves x (levels a chunk + warm)."""
     best, best_cost = 1, None
     for chunks in range(1, ktot + 1):
         waves = -(-tiles * chunks // slots)
-        cost = waves * (-(-ktot // chunks) + WARM)
+        cost = waves * (-(-ktot // chunks) + warm)
         if best_cost is None or cost < best_cost:
             best, best_cost = chunks, cost
     return best
 
 
-def plan(kernel, itot, jtot, ktot, S, dtype, slots, chunks=None):
-    """The launch of K13 ("advec_scalars", S scalars) or K16 ("o4_mom"):
-    tiles, chunk count (chosen from slots, the card's resident blocks,
-    unless given), shared memory a block and the waves it makes."""
+def plan(kernel, itot, jtot, ktot, S, dtype, slots, chunks=None,
+         advec=True):
+    """The launch of K13 ("advec_scalars", S scalars), K16 ("o4_mom") or
+    the scalar sweep ("tend_scalars" K10, "tend_scalar_acc" K19; S scalars,
+    advec its flag): tiles, chunk count (chosen from slots, the card's
+    resident blocks, unless given), shared memory a block and the waves it
+    makes."""
     tiles_i = -(-itot // TI)
     tiles_j = -(-jtot // TILE_J[kernel])
     if chunks is None:
-        chunks = choose_chunks(tiles_i * tiles_j, ktot, slots)
+        chunks = choose_chunks(tiles_i * tiles_j, ktot, slots, WARM[kernel])
     if not 1 <= chunks <= ktot:
         raise ValueError("chunks must lie in [1, ktot = %d], not %d"
                          % (ktot, chunks))
     waves = -(-tiles_i * tiles_j * chunks // slots)
-    return Plan(tiles_i, tiles_j, chunks, SMEM[kernel](S, dtype), slots,
-                waves)
+    return Plan(tiles_i, tiles_j, chunks, SMEM[kernel](S, dtype, advec),
+                slots, waves)

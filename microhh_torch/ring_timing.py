@@ -1,27 +1,36 @@
-"""Time the ring kernels K16 and K13 (and, as controls, K17 and K12) on one
-card.
+"""Time the ring kernels K16, K13 and the scalar sweep K10/K19 (and, as
+controls, K17 and K12) on one card, and the kernels that share the sweep's
+scalar point function (K2, K22, K20, K15).
 
     python3 -m microhh_torch.ring_timing [--out FILE] [--label NAME]
 
 At the four shapes of their main paths: weakscaling 512x256x1024 float32
 (K16 in scheme 4, K17 with one scalar), moser180 256x192x128 float64 (both
-in scheme 4m), rico 384^3 float32 with the four scalars of its 2i5 scheme,
-and jaenschwalde's 1024x256x256 float32 with its two (thl, qt) (K13 and K12
-on the rico case at that shape: the kernels see only the shape, the scheme
-and the scalar count).  Each time is the mean of 10 launches by CUDA
-events after one warm-up launch, on seeded random fields.  Beside each
-time: the bound (each input and output once over 3.35 TB/s, or the
-operations over 67 TFLOP/s, 33.5 in float64, where larger), registers,
-spills and stack from the build log's ptxas lines and, where the tree's
-kernels report them (the k-marching K13 and K16), shared memory a block,
-resident blocks an SM, the chunk count, blocks in the grid and waves.  On
-such a tree K16 and K13 are also timed with one chunk (no k-split).  One
-JSON object per kernel and shape is printed and, with --out, all of them
-are written to FILE.  Needs a CUDA device.
+in scheme 4m), rico 384^3 float32 with the four scalars of its 2i5 scheme
+(K13, K12 and K10 with advection off, as rico runs, and on), and
+jaenschwalde's 1024x256x256 float32 with its two (thl, qt) for K13 and K12
+and its three (thl, qt, co2) for K19 without advection, as jaenschwalde
+runs it: once a scalar (three launches, an older tree's form) and every
+scalar in one launch (the kernels run on the rico case at that shape: they
+see only the shape, the scheme, the advec flag and the scalar count).  The
+kernels whose scalar tendency is the one-call s_tend of csrc/les_math.cuh
+at the shapes of their main paths: K2 and K22 at drycblles 512^3 float32,
+K20 at sullivan2011 512x512x64 (the substep without the RK fold) and K15
+at SBL_Smag 256^3.  Each time is the mean of 10 launches by CUDA events after one warm-up launch,
+on seeded random fields.  Beside each time: the bound (each input and
+output once over 3.35 TB/s, or the operations over 67 TFLOP/s, 33.5 in
+float64, where larger), registers, spills and stack from the build log's
+ptxas lines and, where the tree's kernels report them (the k-marching K13,
+K16 and scalar sweep), shared memory a block, resident blocks an SM, the
+chunk count, blocks in the grid and waves; the k-marching kernels are also
+timed with one chunk (no k-split).  One JSON object per kernel and shape
+is printed and, with --out, all of them are written to FILE.  Needs a CUDA
+device.
 
-The script runs on an older checkout of the package too (copy it into
-that tree's ``microhh_torch/``): there it times what that tree has, so the
-same call can hold the trees in turns (parent, this, this, parent).
+The script runs on the checkout before the scalar sweep's k-march too
+(copy it into that tree's ``microhh_torch/``; ``OlderLayout`` holds what
+differs there), so the same call can hold the trees in turns (parent,
+this, this, parent).
 """
 
 import argparse
@@ -43,21 +52,52 @@ PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 33.5e12}
 # operations a point (K13, K17: a scalar and point), counted from the sources
 FLOPS = {"o4_mom": {"4": 560, "4m": 510}, "o4_scalars": {"4": 215, "4m": 130},
-         "advec_mom": 400, "advec_scalars": 130}
-# the parent tree's K16 (every face interpolant computed by each thread
-# that used it)
-FLOPS_PARENT_O4_MOM = {"4": 840, "4m": 640}
+         "advec_mom": 400, "advec_scalars": 130, "tend_scalars": 110,
+         "tend_scalar_acc": 100, "tend_rk": 700, "tend_rk_fold": 900,
+         "tendencies": 700, "tend_scalar_rk": 110}
 
-# (label, case, (itot, jtot, ktot), dtype, S)
+# (label, case, (itot, jtot, ktot), dtype, S); a case built with
+# build_step's defaults
 SHAPES = [("weakscaling", "weakscaling", (512, 256, 1024), torch.float32, 1),
           ("moser180", "moser180", (256, 192, 128), torch.float64, 1),
           ("rico", "rico", (384, 384, 384), torch.float32, 4),
           ("jaenschwalde", "rico", (1024, 256, 256), torch.float32, 2)]
+# the kernels that call s_tend: (label, case, shape, build_step options)
+S_TEND_SHAPES = [("drycblles", "drycblles", (512, 512, 512), {}),
+                 ("sullivan2011 unfolded", "sullivan2011", (512, 512, 64),
+                  {"unfolded": True}),
+                 ("SBL_Smag", "SBL_Smag", (256, 256, 256), {})]
 
 # kernel name -> its CUDA function
 FUNCTIONS = {"o4_mom": "o4_mom_kernel", "o4_scalars": "o4_scalars_kernel",
              "advec_mom": "advec_mom_kernel",
              "advec_scalars": "advec_scalars_kernel"}
+# the scalar sweep's CUDA function
+SWEEP = "scalar_sweep_kernel"
+# the CUDA functions of the kernels that call s_tend
+S_TEND_FUNCTIONS = {"tend_rk": "tend_rk_kernel",
+                    "tend_rk_fold": "tend_rk_fold_kernel",
+                    "tendencies": "tendencies_kernel",
+                    "tend_scalar_rk": "tend_scalar_kernel"}
+
+
+class OlderLayout:
+    """What differs on the checkout before the scalar sweep's k-march, so
+    that this script times that tree too; the only such shims in the
+    script, to be deleted with that tree as a parent.  There K10 and K19
+    are the ring kernels tend_scalars_kernel<T> and tend_scalar_kernel<T,
+    RK> (K15 being the RK instance), the generic wrappers have no plan (no
+    chunks, no info) and no all-scalars K19 call."""
+
+    @staticmethod
+    def applies(fz):
+        return not hasattr(fz, "plan")
+
+    @staticmethod
+    def function(name, t):
+        return {"tend_scalars": "tend_scalars_kernel<%s>",
+                "tend_scalar_acc": "tend_scalar_kernel<%s,false>",
+                "tend_scalar_rk": "tend_scalar_kernel<%s,true>"}[name] % t
 
 
 def card_line():
@@ -128,13 +168,86 @@ def variant(kernel, dtype, scheme, S):
         return "%s,%s" % (t, "true" if scheme == "4m" else "false")
     c4, up = {"2i4": ("true", "false"), "2i5": ("false", "true"),
               "2i53": ("false", "true"), "2i62": ("false", "false")}[scheme]
-    if kernel == "advec_scalars" and hasattr(kernels, "INFO"):
+    if kernel == "advec_scalars":
         return "%s,%s,%s,%d" % (t, c4, up, S)
     return "%s,%s,%s" % (t, c4, up)
 
 
+def sweep_function(name, dtype, advec, S, older):
+    """The ptxas key of the scalar sweep's instance a launch takes,
+    scalar_sweep_kernel<T, RK, ADV, S>."""
+    t = "float" if dtype == torch.float32 else "double"
+    if older:
+        return OlderLayout.function(name, t)
+    rk = "true" if name == "tend_scalars" else "false"
+    return "%s<%s,%s,%s,%d>" % (SWEEP, t, rk, "true" if advec else "false", S)
+
+
+def sweep_rows(m, label, shape, dtype, S, ptx, card, rnd):
+    """K10 (rico: S scalars, advection off and on) or K19 (jaenschwalde: S
+    scalars without advection, once a scalar and in one launch) on the
+    generic model m."""
+    fz, ctx = m.fused, m.ctx
+    n = shape[0] * shape[1] * shape[2]
+    fb = n * torch.finfo(dtype).bits // 8
+    names, sviscs = tuple(fz.names[:S]), list(fz.sviscs[:S])
+    s = {nm: rnd() for nm in ("u", "v", "w") + names}
+    e = rnd().abs()
+    t = {nm: rnd(1e-3) for nm in names}
+    cts = fz.base.repeat(S, 1, 1).contiguous()
+    older = OlderLayout.applies(fz)
+    calls = []
+    if label == "rico":
+        for advec in (False, True):
+            calls.append(("tend_scalars", advec, "one launch",
+                          lambda **kw: fz.tend_scalars(s, t, e, cts, 0.5,
+                                                       -5. / 9., True, **kw),
+                          (1 + 4 * S + 3 * advec) * fb))
+    else:
+        calls.append(("tend_scalar_acc", False, "one launch a scalar",
+                      lambda: [fz.tend_scalar_acc(s, t, e, nm)
+                               for nm in names], (1 + 3 * S) * fb))
+        if not older:
+            calls.append(("tend_scalar_acc", False, "one launch",
+                          lambda **kw: fz.tend_scalars_acc(s, t, e, **kw),
+                          (1 + 3 * S) * fb))
+    rows = []
+    saved = (fz.names, fz.sviscs, fz.advec)
+    try:
+        fz.names, fz.sviscs = names, sviscs
+        for name, advec, form, fn, nbytes in calls:
+            fz.advec = advec
+            flops = FLOPS[name] * S
+            by_bytes = 1e3 * nbytes / PEAK_BYTES_S
+            by_ops = 1e3 * flops * n / PEAK_FLOPS[dtype]
+            launch_S = 1 if form == "one launch a scalar" else S
+            key = sweep_function(name, dtype, advec, launch_S, older)
+            row = {"label": label, "kernel": name, "form": form,
+                   "shape": list(shape), "dtype": str(dtype)[6:], "S": S,
+                   "advec": advec, "ms": events_ms(fn),
+                   "bound_ms": max(by_bytes, by_ops),
+                   "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+                   "ops_per_point": flops, "gbytes": nbytes / 1e9,
+                   "ptxas": ptx.get(key), "function": key, "card": card}
+            if not older:
+                kern = fz.k_scalars if name == "tend_scalars" else fz.k_scalar_acc
+                pl = fz.plan(name, launch_S, dtype)
+                row.update(kern.info(dtype, int(advec), launch_S))
+                row.update(chunks=pl.chunks, blocks=pl.tiles_i * pl.tiles_j
+                           * pl.chunks, waves=pl.waves)
+                if form == "one launch":
+                    row["ms_one_chunk"] = events_ms(lambda: fn(chunks=1))
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            print(json.dumps(row), flush=True)
+            rows.append(row)
+    finally:
+        fz.names, fz.sviscs, fz.advec = saved
+    return rows
+
+
 def case_text(case, itot, jtot, ktot):
-    with open(os.path.join(ROOT, "cases", case, "%s.ini" % case)) as f:
+    name = "SBL" if case == "SBL_Smag" else case
+    with open(os.path.join(ROOT, "cases", case, "%s.ini" % name)) as f:
         text = f.read()
     over = {"itot": itot, "jtot": jtot, "ktot": ktot}
     if case == "weakscaling":
@@ -143,6 +256,16 @@ def case_text(case, itot, jtot, ktot):
     elif case == "moser180":
         mem = cases.moser180_input(ktot, 2.)
         over.update(swstats=0, swbudget=0)
+    elif case == "drycblles":
+        mem = None
+        over["swstats"] = 0
+    elif case == "sullivan2011":
+        mem = cases.sullivan2011_input(ktot)
+        over["swstats"] = 0
+    elif case == "SBL_Smag":
+        zsize = float(re.search(r"(?m)^zsize=(.*)$", text).group(1))
+        mem = cases.sbl_input(ktot, zsize)
+        over.update(swstats=0, swdump=0)
     else:
         mem = cases.rico_input(ktot, 4000.)
         over["swadvec"] = "2i5"
@@ -151,13 +274,13 @@ def case_text(case, itot, jtot, ktot):
     return text, mem
 
 
-def build(case, itot, jtot, ktot, dtype, workdir):
+def build(case, itot, jtot, ktot, dtype, workdir, device="cuda", **step):
     from .model import Model
     text, mem = case_text(case, itot, jtot, ktot)
     m = Model(Ini(text), "run", case, workdir=workdir, dtype=dtype,
-              device="cuda", input_nc=mem)
+              device=device, input_nc=mem)
     m.finish_setup()
-    m.build_step()
+    m.build_step(**step)
     return m
 
 
@@ -211,9 +334,6 @@ def time_shape(label, case, shape, dtype, S, ptx, card):
             calls["advec_mom"] = (lambda: adv.momentum(u, v, wc, *t[:3]),
                                   9 * fb, FLOPS["advec_mom"], None, scheme)
         for name, (fn, nbytes, flops, owner, scheme) in calls.items():
-            kmarch = owner is not None and hasattr(owner, "plan")
-            if name == "o4_mom" and not kmarch:
-                flops = FLOPS_PARENT_O4_MOM[scheme]
             by_bytes = 1e3 * nbytes / PEAK_BYTES_S
             by_ops = 1e3 * flops * n / PEAK_FLOPS[dtype]
             key = "%s<%s>" % (FUNCTIONS[name], variant(name, dtype, scheme, S))
@@ -223,7 +343,7 @@ def time_shape(label, case, shape, dtype, S, ptx, card):
                    "bound_by": "bytes" if by_bytes >= by_ops else "operations",
                    "ops_per_point": flops, "gbytes": nbytes / 1e9,
                    "ptxas": ptx.get(key), "function": key, "card": card}
-            if kmarch:
+            if owner is not None:
                 pl = (owner.plan(S, dtype) if name == "advec_scalars"
                       else owner.plan(dtype))
                 kern = owner.k_scal if name == "advec_scalars" else owner.k_mom
@@ -237,8 +357,72 @@ def time_shape(label, case, shape, dtype, S, ptx, card):
             row["bound_share"] = row["bound_ms"] / row["ms"]
             print(json.dumps(row), flush=True)
             rows.append(row)
-        del m, u, v, wc, wd, t, a, calls
+        del u, v, wc, wd, t, a, calls
+        if m.o4 is None:
+            torch.cuda.empty_cache()
+            rows += sweep_rows(m, label, shape, dtype,
+                               4 if label == "rico" else 3, ptx, card, rnd)
+        del m
     torch.cuda.empty_cache()
+    return rows
+
+
+def s_tend_rows(label, case, shape, step, ptx, card, device="cuda"):
+    """K2 and K22 (the dry RK-folded model), K20 (the substep without the RK
+    fold) or K15 (the generic model with one scalar) on seeded random
+    fields: the kernels whose scalar tendency is s_tend."""
+    dtype = torch.float32
+    itot, jtot, ktot = shape
+    n = itot * jtot * ktot
+    fb = n * torch.finfo(dtype).bits // 8
+    rows = []
+    with tempfile.TemporaryDirectory() as workdir:
+        m = build(case, itot, jtot, ktot, dtype, workdir, device, **step)
+        fz, ctx = m.fused, m.ctx
+        gen = torch.Generator(device=device).manual_seed(itot + ktot)
+
+        def rnd(scale=1., k=ctx.kcells):
+            return scale * torch.randn((k, jtot, itot), dtype=dtype,
+                                       device=device, generator=gen)
+
+        names = list(m.fields.prognostic_names)
+        s = {nm: rnd() for nm in names}
+        t = {nm: rnd(1e-3) for nm in names}
+        nf = len(names)
+        if m.generic:
+            e = rnd().abs()
+            calls = [("tend_scalar_rk", lambda: fz.tend_scalar_rk(
+                s, t, e, fz.base, 0.5, -5. / 9., True), 8 * fb)]
+        elif m.unfolded:
+            e = rnd().abs()
+            calls = [("tendencies", lambda: fz.tendencies(s, t, e),
+                      13 * fb)]
+        else:
+            e = rnd(k=ktot).abs()
+            calls = [("tend_rk", lambda: fz.tend_rk(s, t, e, 0.5, -5. / 9.,
+                                                    False, True),
+                      (4 * nf + 1) * fb),
+                     ("tend_rk_fold", lambda: fz.tend_rk_fold(
+                         s, t, None, 0.5, -5. / 9., 2., False, True),
+                      (4 * nf + 2) * fb)]
+        for name, fn, nbytes in calls:
+            by_bytes = 1e3 * nbytes / PEAK_BYTES_S
+            by_ops = 1e3 * FLOPS[name] * n / PEAK_FLOPS[dtype]
+            key = "%s<float>" % S_TEND_FUNCTIONS[name]
+            if name == "tend_scalar_rk" and OlderLayout.applies(fz):
+                key = OlderLayout.function(name, "float")
+            row = {"label": label, "kernel": name, "shape": list(shape),
+                   "dtype": "float32", "ms": events_ms(fn),
+                   "bound_ms": max(by_bytes, by_ops),
+                   "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+                   "ops_per_point": FLOPS[name], "gbytes": nbytes / 1e9,
+                   "ptxas": ptx.get(key), "function": key, "card": card}
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            print(json.dumps(row), flush=True)
+            rows.append(row)
+        del m, s, t, e
+    if device == "cuda":
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -255,9 +439,11 @@ def main():
     ptx = ptxas_info(log)
     rows = []
     for label, case, shape, dtype, S in SHAPES:
-        for row in time_shape(label, case, shape, dtype, S, ptx, card):
-            row["tree"] = args.label
-            rows.append(row)
+        rows += time_shape(label, case, shape, dtype, S, ptx, card)
+    for label, case, shape, step in S_TEND_SHAPES:
+        rows += s_tend_rows(label, case, shape, step, ptx, card)
+    for row in rows:
+        row["tree"] = args.label
     if args.out:
         with open(args.out, "w") as f:
             json.dump(rows, f, indent=1)

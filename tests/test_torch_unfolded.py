@@ -1,9 +1,10 @@
 """The port's 2nd-order substep without the RK fold (model.py
 ``_substep_unfolded``) against the JAX package, in float64 on the CPU:
 
-* K18/K19 plain (``tend_uvw_acc``, ``tend_scalar_acc``) vs FusedLES2.tend_uv,
-  tend_w and tend_scalar in Pallas interpret mode, advection on and off, with
-  and without the Coriolis fold (<= 1e-12 of each output's maximum);
+* K18/K19 plain (``tend_uvw_acc``, ``tend_scalar_acc`` and the all-scalars
+  ``tend_scalars_acc``) vs FusedLES2.tend_uv, tend_w and tend_scalar in
+  Pallas interpret mode, advection on and off, with and without the
+  Coriolis fold (<= 1e-12 of each output's maximum);
 * K20 plain (``tendencies``) vs FusedLES2.tendencies(..., t_in=t) with
   fold_ghosts off, sponge and Coriolis folds on and off, and vs the same call
   under MICROHH_STREAM=1 (the k-streaming ``_stream_call``, which returns
@@ -236,6 +237,32 @@ def test_k19_tend_scalar_acc_matches_tpu_kernel(jaen, monkeypatch, advec,
     for other in tt:
         if other != name:
             assert torch.equal(tt[other], T(t[other])), other
+
+
+@pytest.mark.parametrize("advec", [False, True])
+def test_k19_all_scalars_in_one_call_match_tpu_kernel(jaen, monkeypatch,
+                                                      advec):
+    """K19 for every scalar in one call (tend_scalars_acc, plain) against
+    FusedLES2.tend_scalar once a scalar in Pallas interpret mode."""
+    jm, tm, s, sfc, t = jaen
+    jfz, tfz = jm._fused, tm.fused
+    ej, et = _viscosities(jm, tm, s, sfc)
+    monkeypatch.setattr(jfz, "no_advec", not advec)
+    monkeypatch.setattr(tfz, "advec", advec)
+    sj = jx(s)
+    tt = tx(t)
+    tfz.tend_scalars_acc(tx(s), tt, et)
+    ks, ke = tm.ctx.ks, tm.ctx.ke
+    for name in tfz.names:
+        ref = jfz.tend_scalar(sj[name], sj["u"], sj["v"], sj["w"], ej,
+                              jm.diff.viscs.get(name, jm.diff.visc),
+                              jnp.array(t[name]))
+        assert rel(tt[name], ref) <= TOL, name
+        assert rel(tt[name] - T(t[name]), np.asarray(ref) - t[name]) <= 1e-10
+        assert torch.equal(tt[name][:ks], T(t[name][:ks])), name
+        assert torch.equal(tt[name][ke:], T(t[name][ke:])), name
+    for other in ("u", "v", "w"):
+        assert torch.equal(tt[other], T(t[other])), other
 
 
 def test_generic_tendencies_match(jaen):
