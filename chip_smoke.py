@@ -54,6 +54,11 @@ Phases (any failure exits non-zero and prints no result line):
      of one to three levels that touch both walls), on partial tiles: K16 on
      the moser180 case at 45x40 and the weakscaling case at 48x20, K13 and
      the sweep on the rico case at 45x24 and 48x20, float64 and float32;
+  3c. K11 against its plain version at ring depths nsed 3, 4 and 8 (the
+     rain states of phase 3 and heavy rain mirrored into the top levels
+     with drops crossing nsed - 1.5 cells), on rico grids of 12, 32, 45 and
+     70 levels (shorter than K11's 16-level window, two windows, not a
+     multiple of it) with ragged i edges, float64 and float32;
   4. two whole RK3 steps on the card against the same two steps on the CPU
      (plain versions), <= 1e-10, float64, eleven cases: a 32^3 drycblles on
      K22 and with build_step(fold=False), a 16^2x24 rico (swadvec=2), a
@@ -869,7 +874,7 @@ def generic_kernel_cases(torch, m, seed, only=None):
     that restricts the cases."""
     from microhh_torch.ops import advec_interp_fused as A
     from microhh_torch.ops import fused as F
-    from microhh_torch.ops.microphys import MICRO_FIELDS, Microphys2momWarm
+    from microhh_torch.ops.microphys import Microphys2momWarm
     ctx, fz, mic, adv = m.ctx, m.fused, m.micro, m.advec_fused
     s, sfc = m.as_device_state(generic_state(m, seed))
     s = m.boundary.set_ghost_cells(ctx, s, sfc)
@@ -989,27 +994,67 @@ def generic_kernel_cases(torch, m, seed, only=None):
             cases.append(("tend_scalars", lambda f=scalars: f(True),
                           lambda f=scalars: f(False), "field"))
     if isinstance(mic, Microphys2momWarm) and only is None:
-        pref, exnref, _, _ = m.thermo._p_profiles(ctx, {})
-        dry = dict(s)
-        dry["qt"] = 0.5 * s["qt"]
-        heavy = dict(s)
-        heavy["qr"] = 50. * s["qr"]
-        # heavy rain: fall speeds near W_MAX cross ~2.5 cells in one dt
-        strong_dt = 2.5 * float(m.grid.dz.min()) / 9.65
-        for state, dt in ((s, 2.), (heavy, strong_dt), (dry, 2.)):
-            ql = m.thermo.get_ql(ctx, state)
-
-            def micro(kernel, state=state, dt=dt, ql=ql):
-                t = {n: torch.zeros_like(state[n]) for n in MICRO_FIELDS}
-                call = mic.micro2 if kernel else mic.apply_plain
-                rr = call(ctx, state, t, ql, pref, exnref, dt)
-                return [t[n][ctx.ks:ctx.ke] for n in MICRO_FIELDS] + [rr]
-
-            cases.append(("micro2", lambda f=micro: f(True),
-                          lambda f=micro: f(False), "field"))
+        cases += micro_cases(torch, m, s)
     if only is not None:
         return [c for c in cases if c[0].startswith(only)]
     return cases + pres_cases(torch, m, s, t0, rnd)
+
+
+def micro_cases(torch, m, s, deep=False):
+    """(name, kernel call, plain call, error kind) of K11 on a rico model's
+    ghost-filled state s: rainy as it is, with heavy rain (qr x 50, dt such
+    that fall speeds near W_MAX cross ~2.5 cells) and cloud-free (qt
+    halved); with deep, also heavy rain mirrored into the top levels and a
+    dt that takes drops across nsed - 1.5 cells, so that the gather reaches
+    its last row and above the top."""
+    from microhh_torch.ops.microphys import MICRO_FIELDS
+    ctx, mic = m.ctx, m.micro
+    pref, exnref, _, _ = m.thermo._p_profiles(ctx, {})
+    dry = dict(s)
+    dry["qt"] = 0.5 * s["qt"]
+    heavy = dict(s)
+    heavy["qr"] = 50. * s["qr"]
+    dz_min = float(m.grid.dz.min())
+    states = [(s, 2.), (heavy, 2.5 * dz_min / 9.65), (dry, 2.)]
+    if deep:
+        mirrored = dict(heavy)
+        for n in ("qr", "nr"):
+            mirrored[n] = heavy[n] + torch.flip(heavy[n], [0])
+        states.append((mirrored, (mic.nsed - 1.5) * dz_min / 9.65))
+    cases = []
+    for state, dt in states:
+        ql = m.thermo.get_ql(ctx, state)
+
+        def micro(kernel, state=state, dt=dt, ql=ql):
+            t = {n: torch.zeros_like(state[n]) for n in MICRO_FIELDS}
+            call = mic.micro2 if kernel else mic.apply_plain
+            rr = call(ctx, state, t, ql, pref, exnref, dt)
+            return [t[n][ctx.ks:ctx.ke] for n in MICRO_FIELDS] + [rr]
+
+        cases.append(("micro2", lambda f=micro: f(True),
+                      lambda f=micro: f(False), "field"))
+    return cases
+
+
+def check_micro2(torch):
+    """K11 against its plain version at ring depths nsed 3, 4 and 8 (rico's
+    cflmax gives 4, NSED_MAX is 8) in the states of micro_cases (deep
+    included), on rico grids whose columns are shorter than a window (12
+    levels), two windows (32) and not a multiple of one (45, 70), each with
+    a ragged i edge, float64 and float32."""
+    for n, k in (((45, 20), 12), ((40, 24), 32), ((45, 20), 45),
+                 ((40, 16), 70)):
+        for dtype in (torch.float64, torch.float32):
+            m = build_rico(torch, n, k, dtype, "cuda")
+            m.build_step()
+            s, sfc = m.as_device_state(rico_state(m, n[0] + k))
+            s = m.boundary.set_ghost_cells(m.ctx, s, sfc)
+            for nsed in (3, 4, 8):
+                m.micro.nsed = nsed
+                for name, kern, plain, kind in micro_cases(torch, m, s,
+                                                           deep=True):
+                    compare(torch, name, kern, plain, kind, dtype,
+                            "rico %dx%dx%d nsed=%d" % (n[0], n[1], k, nsed))
 
 
 def o4_kernel_cases(torch, m, seed, chunks=None):
@@ -2156,6 +2201,9 @@ def main():
     check_kernels(torch)
     log("[3b] K16, K13 and the scalar sweep K10/K19 with the k-split forced")
     check_kmarch(torch)
+    log("[3c] K11 at ring depths 3, 4 and 8, columns shorter than, equal to "
+        "and not a multiple of its window")
+    check_micro2(torch)
 
     log("[4] whole step, card against CPU")
     check_step(torch)

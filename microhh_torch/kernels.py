@@ -114,10 +114,11 @@ SIGNATURES = {
 }
 
 # Kernels with an entry mhh_<kernel>_info_<f32|f64>(scheme, S, int out[5])
-# (the scalar sweep's "scheme" is its advec flag): registers, local bytes a
+# (the scalar sweep's "scheme" is its advec flag; K11 reads neither): registers, local bytes a
 # thread, dynamic shared memory a block, resident blocks an SM
 # (cudaOccupancyMaxActiveBlocksPerMultiprocessor), SMs.
-INFO = ("advec_scalars", "o4_mom", "tend_scalars", "tend_scalar_acc")
+INFO = ("advec_scalars", "o4_mom", "tend_scalars", "tend_scalar_acc",
+        "micro2")
 INFO_KEYS = ("registers", "local_bytes", "smem", "blocks_per_sm", "sms")
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}

@@ -6,9 +6,11 @@ Prognostic rain mass qr and number nr.  ``micro2_plain`` is the JAX
 package's op path in torch: masked conversion rates over whole fields, the
 SS08 sedimentation as an NSED-deep unrolled sweep of shifted planes and the
 downward positivity limiter in closed form (cumsum + cummin).  It is the
-plain version of K11 (``csrc/micro2.cu``), which computes the same scheme in
-one top-down sweep per column; ``Microphys2momWarm.micro2`` launches K11 on
-a CUDA tensor and runs ``micro2_plain`` on a CPU tensor.
+plain version of K11 (``csrc/micro2.cu``), which computes the same scheme
+with a block of 32 columns marching down in windows of levels (the point
+physics spread over the block, only the limiter's running sums serial);
+``Microphys2momWarm.micro2`` launches K11 on a CUDA tensor and runs
+``micro2_plain`` on a CPU tensor.
 """
 
 import math
@@ -41,6 +43,26 @@ B_R = A_R * np.exp(C_R * 25.0e-6)
 
 # the deepest sedimentation ring K11 is built for (csrc/micro2.cu NSED_MAX)
 NSED_MAX = 8
+
+# K11's block (csrc/micro2.cu M2_*): M2_C columns of one j-row, M2_NT
+# threads, the column marched top-down in windows of M2_W levels
+M2_W, M2_C, M2_NT = 16, 32, 256
+# window levels a thread takes (M2_RPT: M2_W over the block's warps)
+M2_RPT = M2_W // (M2_NT // M2_C)
+
+
+def micro2_smem(dtype):
+    """Bytes of shared memory a K11 block takes (csrc/micro2.cu M2Smem): qr
+    and nr on NSED_MAX + M2_W rows (the NSED_MAX - 1 rows above the window,
+    the window, the row below), the fall speeds on M2_W + 2, slopes and CFL
+    numbers on NSED_MAX + M2_W - 1, ftot (then the flux) and the process
+    parts of the tendencies on M2_W and the flux above the window, for both
+    species and M2_C columns; and the table rows of two windows."""
+    h = NSED_MAX + M2_W
+    values = (M2_C * (2 * h + 2 * (M2_W + 2) + 4 * (h - 1) + 4 * M2_W + 2)
+              + 2 * N_M * h)
+    return values * (torch.finfo(dtype).bits // 8)
+
 
 # the fields whose tendencies K11 adds, in its argument order
 MICRO_FIELDS = ("qr", "nr", "qt", "thl")

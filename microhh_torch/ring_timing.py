@@ -1,6 +1,7 @@
 """Time the ring kernels K16, K13 and the scalar sweep K10/K19 (and, as
-controls, K17 and K12) on one card, and the kernels that share the sweep's
-scalar point function (K2, K22, K20, K15).
+controls, K17 and K12) on one card, the kernels that share the sweep's
+scalar point function (K2, K22, K20, K15), and K11, the warm-rain column
+sweep.
 
     python3 -m microhh_torch.ring_timing [--out FILE] [--label NAME]
 
@@ -10,33 +11,40 @@ in scheme 4m), rico 384^3 float32 with the four scalars of its 2i5 scheme
 (K13, K12 and K10 with advection off, as rico runs, and on), and
 jaenschwalde's 1024x256x256 float32 with its two (thl, qt) for K13 and K12
 and its three (thl, qt, co2) for K19 without advection, as jaenschwalde
-runs it: once a scalar (three launches, an older tree's form) and every
-scalar in one launch (the kernels run on the rico case at that shape: they
-see only the shape, the scheme, the advec flag and the scalar count).  The
-kernels whose scalar tendency is the one-call s_tend of csrc/les_math.cuh
-at the shapes of their main paths: K2 and K22 at drycblles 512^3 float32,
-K20 at sullivan2011 512x512x64 (the substep without the RK fold) and K15
-at SBL_Smag 256^3.  Each time is the mean of 10 launches by CUDA events after one warm-up launch,
-on seeded random fields.  Beside each time: the bound (each input and
-output once over 3.35 TB/s, or the operations over 67 TFLOP/s, 33.5 in
-float64, where larger), registers, spills and stack from the build log's
-ptxas lines and, where the tree's kernels report them (the k-marching K13,
-K16 and scalar sweep), shared memory a block, resident blocks an SM, the
-chunk count, blocks in the grid and waves; the k-marching kernels are also
-timed with one chunk (no k-split).  One JSON object per kernel and shape
-is printed and, with --out, all of them are written to FILE.  Needs a CUDA
-device.
+runs it: once a scalar (three launches) and every scalar in one launch
+(the kernels run on the rico case at that shape: they see only the shape,
+the scheme, the advec flag and the scalar count).  The kernels whose
+scalar tendency is the one-call s_tend of csrc/les_math.cuh at the shapes
+of their main paths: K2 and K22 at drycblles 512^3 float32, K20 at
+sullivan2011 512x512x64 (the substep without the RK fold) and K15 at
+SBL_Smag 256^3.  K11 at rico 384^3 in float32 and float64 and at 16^2x24
+in float64, in two states: the cell's own (its initial fields, cloud-free
+and without rain, as the cell's timed steps are) and heavy rain
+(chip_smoke.py's: a saturated layer, rain shafts with qr x 50, drops
+crossing 2.5 cells in one dt).  Each time is the mean of 10 launches by
+CUDA events after one warm-up launch; the stencil kernels run on seeded
+random fields.  Beside each time: the bound (each input and output once
+over 3.35 TB/s, or the operations over 67 TFLOP/s, 33.5 in float64, where
+larger), registers, spills and stack from the build log's ptxas lines and,
+where the tree's kernels report them (the k-marching K13, K16 and scalar
+sweep, and K11), shared memory a block and resident blocks an SM; for the
+k-marching kernels the chunk count, blocks in the grid and waves, and
+their time with one chunk (no k-split); for K11 blocks and waves, and its
+issue time counted from the SASS of its phases (``micro2_issue``).  One JSON
+object per kernel and shape is printed and, with --out, all of them are
+written to FILE.  Needs a CUDA device.
 
-The script runs on the checkout before the scalar sweep's k-march too
-(copy it into that tree's ``microhh_torch/``; ``OlderLayout`` holds what
-differs there), so the same call can hold the trees in turns (parent,
-this, this, parent).
+The script runs on an earlier checkout too (copy it into that tree's
+``microhh_torch/``), so the same call can hold the trees in turns (parent,
+this, this, parent); a kernel without an info entry there gets no
+occupancy columns.
 """
 
 import argparse
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -54,7 +62,15 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 33.5e12}
 FLOPS = {"o4_mom": {"4": 560, "4m": 510}, "o4_scalars": {"4": 215, "4m": 130},
          "advec_mom": 400, "advec_scalars": 130, "tend_scalars": 110,
          "tend_scalar_acc": 100, "tend_rk": 700, "tend_rk_fold": 900,
-         "tendencies": 700, "tend_scalar_rk": 110}
+         "tendencies": 700, "tend_scalar_rk": 110, "micro2": 300}
+# K11 moves 13 passes over a field: qr, nr, qt, thl and ql read, four
+# tendencies read and written
+MICRO2_PASSES = 13
+# cycles a warp instruction takes of one SM sub-partition (four an SM) of an
+# H100: an issue slot; of the FP64 pipe (16 lanes); of the MUFU pipe (4
+# special-function units)
+PIPE_CYCLES = {"total": 1, "fp64": 2, "mufu": 8}
+FP64_OPS = ("DADD", "DFMA", "DMUL", "DSETP")
 
 # (label, case, (itot, jtot, ktot), dtype, S); a case built with
 # build_step's defaults
@@ -74,6 +90,12 @@ FUNCTIONS = {"o4_mom": "o4_mom_kernel", "o4_scalars": "o4_scalars_kernel",
              "advec_scalars": "advec_scalars_kernel"}
 # the scalar sweep's CUDA function
 SWEEP = "scalar_sweep_kernel"
+# K11's CUDA function
+MICRO2 = "micro2_kernel"
+# K11's shapes: (label, (itot, jtot, ktot), dtype)
+MICRO2_SHAPES = [("rico", (384, 384, 384), torch.float32),
+                 ("rico", (384, 384, 384), torch.float64),
+                 ("rico 16^2x24", (16, 16, 24), torch.float64)]
 # the CUDA functions of the kernels that call s_tend
 S_TEND_FUNCTIONS = {"tend_rk": "tend_rk_kernel",
                     "tend_rk_fold": "tend_rk_fold_kernel",
@@ -81,23 +103,12 @@ S_TEND_FUNCTIONS = {"tend_rk": "tend_rk_kernel",
                     "tend_scalar_rk": "tend_scalar_kernel"}
 
 
-class OlderLayout:
-    """What differs on the checkout before the scalar sweep's k-march, so
-    that this script times that tree too; the only such shims in the
-    script, to be deleted with that tree as a parent.  There K10 and K19
-    are the ring kernels tend_scalars_kernel<T> and tend_scalar_kernel<T,
-    RK> (K15 being the RK instance), the generic wrappers have no plan (no
-    chunks, no info) and no all-scalars K19 call."""
-
-    @staticmethod
-    def applies(fz):
-        return not hasattr(fz, "plan")
-
-    @staticmethod
-    def function(name, t):
-        return {"tend_scalars": "tend_scalars_kernel<%s>",
-                "tend_scalar_acc": "tend_scalar_kernel<%s,false>",
-                "tend_scalar_rk": "tend_scalar_kernel<%s,true>"}[name] % t
+def max_sm_clock_ghz():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout
+    return float(out.strip().splitlines()[0]) / 1e3
 
 
 def card_line():
@@ -161,6 +172,89 @@ def ptxas_info(build_log):
     return out
 
 
+def sass_text(lib):
+    """cuobjdump -sass of a built library."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    return subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+
+
+def sass_sections(text, function):
+    """{"function<template arguments>": [section, ...]} for each instance of
+    the kernel `function` in a cuobjdump -sass listing: the instructions of
+    its body (NOPs left out; the slow-path subroutines that the compiler
+    places after the body, from the first target of a CALL on, are not
+    counted) cut at each barrier, in program order, each section counted as
+    {"total", "fp64", "mufu"} (a barrier ends its section)."""
+    bodies, cur = {}, None
+    for line in text.splitlines():
+        hit = re.search(r"Function : (\S+)", line)
+        if hit:
+            name, args = _demangle(hit.group(1))
+            cur = None
+            if name == function:
+                cur = bodies.setdefault("%s<%s>" % (name, args), [])
+            continue
+        hit = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(?:@!?U?P[T0-9]\s+)?"
+                       r"([A-Z][A-Z0-9_.]*)\s*([^;]*);", line)
+        if cur is not None and hit:
+            cur.append((int(hit.group(1), 16), hit.group(2).split(".")[0],
+                        hit.group(3).strip()))
+    out = {}
+    for key, body in bodies.items():
+        calls = [int(arg, 16) for _, op, arg in body
+                 if op == "CALL" and re.fullmatch(r"0x[0-9a-f]+", arg)]
+        end = min(calls, default=float("inf"))
+        sections = [{"total": 0, "fp64": 0, "mufu": 0}]
+        for addr, op, _ in body:
+            if addr >= end:
+                break
+            if op == "NOP":
+                continue
+            sec = sections[-1]
+            sec["total"] += 1
+            sec["fp64"] += op in FP64_OPS
+            sec["mufu"] += op == "MUFU"
+            if op == "BAR":
+                sections.append({"total": 0, "fp64": 0, "mufu": 0})
+        out[key] = sections
+    return out
+
+
+def micro2_issue(sections, shape, nsed, clock_ghz, sms):
+    """K11's issue time from the SASS of its phases, or None unless the
+    kernel has the six sections of its window march (set-up, (a), (b)
+    slopes, (b) gather, (c) scan, (d); csrc/micro2.cu).  Each warp of a
+    block runs the loop of (a), (b) and (d) M2_RPT times a window, a level
+    of 32 columns each; the gather's code holds NSED_MAX unrolled rows, of
+    which nsed run; (c), two warps' serial scan of about a dozen
+    instructions a level and species, is left out, and so is the set-up.
+    Every instruction of a section counts as issued once, the inline slow
+    paths that rarely run (IEEE division, the special cases of pow, exp
+    and log) too: an upper estimate of the issue work.  A warp instruction
+    takes PIPE_CYCLES of one of the card's four sub-partitions an SM at the
+    card's maximum SM clock; the time is the largest of the issue, FP64 and
+    MUFU times."""
+    if len(sections) != 6:
+        return None
+    from .ops.microphys import M2_C, M2_NT, M2_RPT, M2_W, NSED_MAX
+    _, a, slopes, gather, _, d = sections
+    itot, jtot, ktot = shape
+    warps = (-(-itot // M2_C) * jtot * -(-ktot // M2_W) * (M2_NT // 32)
+             * M2_RPT)
+    per = {key: a[key] + slopes[key] + gather[key] * nsed / NSED_MAX + d[key]
+           for key in PIPE_CYCLES}
+    ms = {key: 1e3 * warps * per[key] * cyc / (sms * 4 * clock_ghz * 1e9)
+          for key, cyc in PIPE_CYCLES.items()}
+    by = max(ms, key=ms.get)
+    return {"issue_ms": ms[by], "issue_bound_by": by,
+            "issue_ms_by_pipe": ms,
+            "instructions_a_point": per["total"],
+            "sass_sections": [sec["total"] for sec in sections],
+            "clock_ghz": clock_ghz}
+
+
 def variant(kernel, dtype, scheme, S):
     """The template arguments of the instance a launch takes."""
     t = "float" if dtype == torch.float32 else "double"
@@ -173,12 +267,10 @@ def variant(kernel, dtype, scheme, S):
     return "%s,%s,%s" % (t, c4, up)
 
 
-def sweep_function(name, dtype, advec, S, older):
+def sweep_function(name, dtype, advec, S):
     """The ptxas key of the scalar sweep's instance a launch takes,
     scalar_sweep_kernel<T, RK, ADV, S>."""
     t = "float" if dtype == torch.float32 else "double"
-    if older:
-        return OlderLayout.function(name, t)
     rk = "true" if name == "tend_scalars" else "false"
     return "%s<%s,%s,%s,%d>" % (SWEEP, t, rk, "true" if advec else "false", S)
 
@@ -195,7 +287,6 @@ def sweep_rows(m, label, shape, dtype, S, ptx, card, rnd):
     e = rnd().abs()
     t = {nm: rnd(1e-3) for nm in names}
     cts = fz.base.repeat(S, 1, 1).contiguous()
-    older = OlderLayout.applies(fz)
     calls = []
     if label == "rico":
         for advec in (False, True):
@@ -207,10 +298,9 @@ def sweep_rows(m, label, shape, dtype, S, ptx, card, rnd):
         calls.append(("tend_scalar_acc", False, "one launch a scalar",
                       lambda: [fz.tend_scalar_acc(s, t, e, nm)
                                for nm in names], (1 + 3 * S) * fb))
-        if not older:
-            calls.append(("tend_scalar_acc", False, "one launch",
-                          lambda **kw: fz.tend_scalars_acc(s, t, e, **kw),
-                          (1 + 3 * S) * fb))
+        calls.append(("tend_scalar_acc", False, "one launch",
+                      lambda **kw: fz.tend_scalars_acc(s, t, e, **kw),
+                      (1 + 3 * S) * fb))
     rows = []
     saved = (fz.names, fz.sviscs, fz.advec)
     try:
@@ -221,7 +311,7 @@ def sweep_rows(m, label, shape, dtype, S, ptx, card, rnd):
             by_bytes = 1e3 * nbytes / PEAK_BYTES_S
             by_ops = 1e3 * flops * n / PEAK_FLOPS[dtype]
             launch_S = 1 if form == "one launch a scalar" else S
-            key = sweep_function(name, dtype, advec, launch_S, older)
+            key = sweep_function(name, dtype, advec, launch_S)
             row = {"label": label, "kernel": name, "form": form,
                    "shape": list(shape), "dtype": str(dtype)[6:], "S": S,
                    "advec": advec, "ms": events_ms(fn),
@@ -229,19 +319,91 @@ def sweep_rows(m, label, shape, dtype, S, ptx, card, rnd):
                    "bound_by": "bytes" if by_bytes >= by_ops else "operations",
                    "ops_per_point": flops, "gbytes": nbytes / 1e9,
                    "ptxas": ptx.get(key), "function": key, "card": card}
-            if not older:
-                kern = fz.k_scalars if name == "tend_scalars" else fz.k_scalar_acc
-                pl = fz.plan(name, launch_S, dtype)
-                row.update(kern.info(dtype, int(advec), launch_S))
-                row.update(chunks=pl.chunks, blocks=pl.tiles_i * pl.tiles_j
-                           * pl.chunks, waves=pl.waves)
-                if form == "one launch":
-                    row["ms_one_chunk"] = events_ms(lambda: fn(chunks=1))
+            kern = fz.k_scalars if name == "tend_scalars" else fz.k_scalar_acc
+            pl = fz.plan(name, launch_S, dtype)
+            row.update(kern.info(dtype, int(advec), launch_S))
+            row.update(chunks=pl.chunks, blocks=pl.tiles_i * pl.tiles_j
+                       * pl.chunks, waves=pl.waves)
+            if form == "one launch":
+                row["ms_one_chunk"] = events_ms(lambda: fn(chunks=1))
             row["bound_share"] = row["bound_ms"] / row["ms"]
             print(json.dumps(row), flush=True)
             rows.append(row)
     finally:
         fz.names, fz.sviscs, fz.advec = saved
+    return rows
+
+
+def micro2_state(m, heavy, seed=5):
+    """K11's inputs on the rico model m: (state, ql, dt).  The cell's own
+    state is its initial fields (cloud-free, no rain); heavy rain adds
+    chip_smoke.py's moist layer between 500 and 1300 m and rain shafts below
+    1500 m, qr x 50, with dt such that fall speeds near W_MAX cross 2.5
+    cells."""
+    from .model import NP_DTYPE
+    ctx = m.ctx
+    s, sfc = m.as_device_state(m.fields.create(m.input_nc,
+                                               dtype=NP_DTYPE[m.dtype]))
+    dt = 2.
+    if heavy:
+        ks, ke = ctx.ks, ctx.ke
+        gen = torch.Generator(device=ctx.device).manual_seed(seed)
+
+        def rand():
+            return torch.rand((ctx.ktot, ctx.jtot, ctx.itot), generator=gen,
+                              dtype=ctx.dtype, device=ctx.device)
+
+        zc = ctx.tensor(m.grid.z[ks:ke])[:, None, None]
+        s["qt"][ks:ke] += torch.where((zc > 500.) & (zc < 1300.), 0.004,
+                                      0.) * rand()
+        rain = (rand() > 0.4) & (zc < 1500.)
+        qr = torch.where(rain, 10. ** (3. * rand() - 6.), 0.)
+        s["nr"][ks:ke] = qr * 10. ** (rand() + 6.5)
+        s["qr"][ks:ke] = 50. * qr
+        dt = 2.5 * float(m.grid.dz.min()) / 9.65
+    s = m.boundary.set_ghost_cells(ctx, s, sfc)
+    return s, m.thermo.get_ql(ctx, s), dt
+
+
+def micro2_rows(m, label, shape, dtype, ptx, card, sections=None,
+                clock_ghz=None):
+    """K11 on the rico model m in the cell's own state and in heavy rain:
+    its time, bounds, ptxas line and, where the tree reports them, shared
+    memory, blocks an SM, blocks, waves and the issue time."""
+    from .ops.microphys import MICRO_FIELDS
+    mic, ctx = m.micro, m.ctx
+    pref, exnref, _, _ = m.thermo._p_profiles(ctx, {})
+    n = shape[0] * shape[1] * shape[2]
+    nbytes = MICRO2_PASSES * n * torch.finfo(dtype).bits // 8
+    by_bytes = 1e3 * nbytes / PEAK_BYTES_S
+    by_ops = 1e3 * FLOPS["micro2"] * n / PEAK_FLOPS[dtype]
+    key = "%s<%s>" % (MICRO2, "float" if dtype == torch.float32 else "double")
+    rows = []
+    for state in ("cell", "heavy rain"):
+        s, ql, dt = micro2_state(m, state == "heavy rain")
+        t = {nm: torch.zeros_like(s[nm]) for nm in MICRO_FIELDS}
+        row = {"label": label, "kernel": "micro2", "state": state,
+               "shape": list(shape), "dtype": str(dtype)[6:],
+               "nsed": mic.nsed,
+               "ms": events_ms(lambda: mic.micro2(ctx, s, t, ql, pref,
+                                                  exnref, dt)),
+               "bound_ms": max(by_bytes, by_ops),
+               "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+               "ops_per_point": FLOPS["micro2"], "gbytes": nbytes / 1e9,
+               "ptxas": ptx.get(key), "function": key, "card": card}
+        if "micro2" in kernels.INFO:
+            from .ops.microphys import M2_C
+            info = mic.k_micro.info(dtype, 0)
+            blocks = -(-shape[0] // M2_C) * shape[1]
+            row.update(info, blocks=blocks,
+                       waves=blocks / (info["blocks_per_sm"] * info["sms"]))
+            if sections and key in sections:
+                row.update(micro2_issue(sections[key], shape, mic.nsed,
+                                        clock_ghz, info["sms"]) or {})
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+        del s, ql, t
     return rows
 
 
@@ -409,8 +571,6 @@ def s_tend_rows(label, case, shape, step, ptx, card, device="cuda"):
             by_bytes = 1e3 * nbytes / PEAK_BYTES_S
             by_ops = 1e3 * FLOPS[name] * n / PEAK_FLOPS[dtype]
             key = "%s<float>" % S_TEND_FUNCTIONS[name]
-            if name == "tend_scalar_rk" and OlderLayout.applies(fz):
-                key = OlderLayout.function(name, "float")
             row = {"label": label, "kernel": name, "shape": list(shape),
                    "dtype": "float32", "ms": events_ms(fn),
                    "bound_ms": max(by_bytes, by_ops),
@@ -435,13 +595,22 @@ def main():
         sys.exit("ring_timing: no CUDA device")
     card = card_line()
     print("card: %s; tree: %s" % (card, args.label), flush=True)
-    _, _, log = kernels.build()
+    lib, _, log = kernels.build()
     ptx = ptxas_info(log)
+    sections = sass_sections(sass_text(lib), MICRO2)
+    clock = max_sm_clock_ghz()
     rows = []
     for label, case, shape, dtype, S in SHAPES:
         rows += time_shape(label, case, shape, dtype, S, ptx, card)
     for label, case, shape, step in S_TEND_SHAPES:
         rows += s_tend_rows(label, case, shape, step, ptx, card)
+    for label, shape, dtype in MICRO2_SHAPES:
+        with tempfile.TemporaryDirectory() as workdir:
+            m = build("rico", *shape, dtype, workdir)
+            rows += micro2_rows(m, label, shape, dtype, ptx, card, sections,
+                                clock)
+            del m
+        torch.cuda.empty_cache()
     for row in rows:
         row["tree"] = args.label
     if args.out:

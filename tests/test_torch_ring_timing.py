@@ -4,13 +4,16 @@ reads from a build log and how it wires its timed calls, without a card.
 * ``ptxas_info`` reads a kernel's template arguments and registers from
   nvcc's ptxas lines;
 * every CUDA function the script looks up is a ``__global__`` function of
-  ``csrc/`` (this tree's names; the older layout's names are those of the
-  tree before the scalar sweep's k-march);
+  ``csrc/``;
+* ``sass_sections`` cuts a cuobjdump listing at its barriers and counts
+  each section's instructions, FP64 and MUFU ones apart, and
+  ``micro2_issue`` turns K11's six sections into an issue time;
 * each timed group runs end to end on the CPU at a tiny shape of its case
   (the wrappers take their plain versions there), with CUDA-event timing
   replaced by one call: the scalar sweep's rows (K10 with advection off
-  and on; K19 once a scalar and in one launch) and the rows of the kernels
-  that call ``s_tend`` (K2, K22, K20, K15).
+  and on; K19 once a scalar and in one launch), the rows of the kernels
+  that call ``s_tend`` (K2, K22, K20, K15) and K11's (the cell's state and
+  heavy rain).
 """
 
 import os
@@ -20,6 +23,7 @@ import pytest
 import torch
 
 from microhh_torch import ring_timing as R
+from microhh_torch.ops import microphys as MP
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(ROOT, "microhh_torch", "csrc")
@@ -70,23 +74,17 @@ def test_ptxas_info_reads_template_arguments_and_registers():
 
 @pytest.mark.parametrize("name", sorted(set(R.FUNCTIONS.values())
                                         | set(R.S_TEND_FUNCTIONS.values())
-                                        | {R.SWEEP}))
+                                        | {R.SWEEP, R.MICRO2}))
 def test_timed_functions_are_kernels_of_the_sources(name):
     assert name in _globals()
 
 
 def test_sweep_function_keys():
     f32 = torch.float32
-    assert (R.sweep_function("tend_scalars", f32, True, 4, False)
+    assert (R.sweep_function("tend_scalars", f32, True, 4)
             == "scalar_sweep_kernel<float,true,true,4>")
-    assert (R.sweep_function("tend_scalar_acc", torch.float64, False, 3,
-                             False)
+    assert (R.sweep_function("tend_scalar_acc", torch.float64, False, 3)
             == "scalar_sweep_kernel<double,false,false,3>")
-    # the older layout: K10 and K19 as ring kernels, whatever S and advec
-    assert (R.sweep_function("tend_scalars", f32, True, 4, True)
-            == "tend_scalars_kernel<float>")
-    assert (R.sweep_function("tend_scalar_acc", f32, False, 1, True)
-            == "tend_scalar_kernel<float,false>")
 
 
 @pytest.mark.parametrize("label,shape", [("rico", (40, 24, 16)),
@@ -132,3 +130,84 @@ def test_s_tend_rows_run_on_the_cpu(label, case, shape, step, one_call):
     for r in rows:
         assert r["function"] == "%s<float>" % R.S_TEND_FUNCTIONS[r["kernel"]]
         assert r["bound_ms"] > 0 and r["shape"] == [16, 8, 12]
+
+
+# a cuobjdump -sass listing in the form the CUDA toolkit prints it: two
+# kernels, K11's with five barriers and a slow-path subroutine after its
+# body
+SASS = """
+\t\tFunction : _ZN3mhh13micro2_kernelIfEEvPKT_S3_S3_S3_PS1_S4_S4_S4_S3_S4_S3_iiiiiS1_S1_
+\t.headerflags\t@"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                    /* 0x00000a00ff017b82 */
+                                                                             /* 0x000fe40000000800 */
+        /*0010*/                   S2R R0, SR_TID.X ;
+        /*0020*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0030*/                   MUFU.LG2 R2, R3 ;
+        /*0040*/              @!P0 FFMA R2, R3, R4, R5 ;
+        /*0050*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0060*/                   FMNMX R2, R3, R4, !PT ;
+        /*0070*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0080*/               @P1 FFMA R2, R3, R4, R5 ;
+        /*0090*/                   FFMA R2, R3, R4, R5 ;
+        /*00a0*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*00b0*/                   FADD R2, R3, R4 ;
+        /*00c0*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*00d0*/                   STG.E desc[UR4][R2.64], R5 ;
+        /*00e0*/              @!P2 CALL.REL.NOINC 0x100 ;
+        /*00f0*/                   EXIT ;
+        /*0100*/                   FCHK P0, R2, R3 ;
+        /*0110*/                   MUFU.RCP R4, R3 ;
+        /*0120*/                   RET.REL.NODEC R2 0x0 ;
+        /*0130*/                   BRA 0x130;
+        /*0140*/                   NOP;
+\t\t..........
+
+\t\tFunction : _ZN3mhh13micro2_kernelIdEEvPKT_S3_S3_S3_PS1_S4_S4_S4_S3_S4_S3_iiiiiS1_S1_
+        /*0000*/                   DFMA R2, R4, R6, R8 ;
+        /*0010*/              @!UP0 DADD R2, R4, R6 ;
+\t\tFunction : _ZN3mhh12tdma_kernelIfEEvPT_
+        /*0000*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+"""
+
+
+def test_sass_sections_cut_at_barriers():
+    got = R.sass_sections(SASS, R.MICRO2)
+    assert set(got) == {"micro2_kernel<float>", "micro2_kernel<double>"}
+    f32 = got["micro2_kernel<float>"]
+    assert [sec["total"] for sec in f32] == [3, 3, 2, 3, 2, 3]
+    assert [sec["mufu"] for sec in f32] == [0, 1, 0, 0, 0, 0]
+    assert got["micro2_kernel<double>"] == [{"total": 2, "fp64": 2,
+                                             "mufu": 0}]
+    # K11 at rico 384^3: 4608 blocks of 8 warps, 384 / M2_W windows, a
+    # warp's loops run M2_RPT levels a window
+    out = R.micro2_issue(f32, (384, 384, 384), 4, 1.98, 132)
+    warps = 12 * 384 * (384 // MP.M2_W) * 8 * MP.M2_RPT
+    per = 3 + 2 + 3 * 4 / 8 + 3
+    assert out["issue_ms"] == pytest.approx(
+        1e3 * warps * per / (132 * 4 * 1.98e9))
+    assert out["issue_bound_by"] == "total"
+    assert out["instructions_a_point"] == pytest.approx(per)
+    assert R.micro2_issue(got["micro2_kernel<double>"], (384, 384, 384),
+                          4, 1.98, 132) is None
+
+
+def test_micro2_rows_run_on_the_cpu(one_call, tmp_path):
+    torch.manual_seed(3)
+    shape = (40, 8, 40)
+    m = R.build("rico", *shape, torch.float32, str(tmp_path), device="cpu")
+    m.micro.k_micro.info = lambda *a: dict(INFO, blocks_per_sm=4)
+    sections = R.sass_sections(SASS, R.MICRO2)
+    rows = R.micro2_rows(m, "rico", shape, torch.float32, {}, "cpu",
+                         sections, 1.98)
+    assert [r["state"] for r in rows] == ["cell", "heavy rain"]
+    for r in rows:
+        assert r["function"] == "micro2_kernel<float>" and r["nsed"] == 4
+        assert r["blocks"] == 2 * 8 and r["waves"] == 16 / (4 * 132)
+        assert r["issue_ms"] > 0 and len(r["sass_sections"]) == 6
+        assert r["gbytes"] == pytest.approx(13 * 40 * 8 * 40 * 4 / 1e9)
+    # the heavy-rain state rains, the cell's own does not
+    s, ql, dt = R.micro2_state(m, False)
+    assert float(s["qr"].abs().max()) == 0.
+    s, ql, dt = R.micro2_state(m, True)
+    assert float(s["qr"].max()) > 0.
+    assert dt == 2.5 * float(m.grid.dz.min()) / 9.65
