@@ -54,6 +54,11 @@ Phases (any failure exits non-zero and prints no result line):
      of one to three levels that touch both walls), on partial tiles: K16 on
      the moser180 case at 45x40 and the weakscaling case at 48x20, K13 and
      the sweep on the rico case at 45x24 and 48x20, float64 and float32;
+     and K22 in every form of phase 3 (first x carry, the surface row given
+     or not, the sponge and Coriolis folds each on and off, the evisc fold
+     off) with its k-split forced to 1, 2 and 3 chunks, the plan's count and
+     one level a chunk, on drycblles at 512^2x32 and on the neutral Ekman
+     LES at 45^2x8 (a partial tile, no th), float64 and float32;
   3c. K11 against its plain version at ring depths nsed 3, 4 and 8 (the
      rain states of phase 3 and heavy rain mirrored into the top levels
      with drops crossing nsed - 1.5 cells), on rico grids of 12, 32, 45 and
@@ -121,7 +126,7 @@ and K6 also their form, C, F, shared memory and registers per CTA, GB/s
 and share of the bound; beside K13 and K16 their registers, local bytes a
 thread, shared memory a block, resident blocks an SM (as the card reports
 them), chunk count, blocks and waves at the path's shape, and the same
-beside the scalar sweep K10/K19.
+beside the scalar sweep K10/K19 and K22.
 With --profile FILE, a last phase traces two steps of each LES with
 torch.profiler and prints the device time per kernel, the step's device
 idle share (one minus the device time over the wall time of the same
@@ -490,12 +495,13 @@ def dry_state(m, seed):
     return unfolded_state(m, seed)
 
 
-def kernel_cases(torch, m, seed):
+def kernel_cases(torch, m, seed, chunks=None, fold_only=False):
     """(name, kernel call, plain call, error kind) for every kernel on a dry
     RK-folded model's wrappers (drycblles, sullivan2011, the neutral Ekman
     LES) with seeded random inputs; each call returns a list of tensors to
     compare.  K1, K7, K2 (with and without the Coriolis term) and K22 run
-    in the model's own thermo mode."""
+    in the model's own thermo mode.  chunks: K22's k-split forced;
+    fold_only: K22's cases alone."""
     from microhh_torch.ops import fused as F
     ctx = m.ctx
     s, sfc = m.as_device_state(dry_state(m, seed))
@@ -515,15 +521,17 @@ def kernel_cases(torch, m, seed):
     grid_args = (ctx.ks, ctx.dxi, ctx.dyi)
     cases = []
 
-    cases.append(("evisc",
-                  lambda: [fz.evisc(*uvwa)],
-                  lambda: [F.evisc_plain(*uvwa, fz.ce, *grid_args, fz.tPr,
-                                         fz.has_thermo)], "field"))
-    cases.append(("limits",
-                  lambda: list(fz.limits(*uvwa)),
-                  lambda: list(F.limits_plain(*uvwa, fz.ce, *grid_args,
-                                              fz.tPr, fz.has_thermo)),
-                  "field"))
+    if not fold_only:
+        cases.append(("evisc",
+                      lambda: [fz.evisc(*uvwa)],
+                      lambda: [F.evisc_plain(*uvwa, fz.ce, *grid_args,
+                                             fz.tPr, fz.has_thermo)],
+                      "field"))
+        cases.append(("limits",
+                      lambda: list(fz.limits(*uvwa)),
+                      lambda: list(F.limits_plain(*uvwa, fz.ce, *grid_args,
+                                                  fz.tPr, fz.has_thermo)),
+                      "field"))
     # a table with noise on ug, vg for the Coriolis term, and one without
     # the sponge's columns
     noisy = fz.ct.clone()
@@ -534,6 +542,7 @@ def kernel_cases(torch, m, seed):
         bare[:, col] = 0.
     steps = ((True, -5. / 9.), (False, -153. / 128.), (False, 0.))
     for first, can, table, coriolis in (
+            [] if fold_only else
             [(f, c, fz.ct, fz.coriolis) for f, c in steps]
             + [(False, -153. / 128., noisy, not fz.coriolis)]):
         carry = can != 0.
@@ -574,7 +583,8 @@ def kernel_cases(torch, m, seed):
             with attrs(fz, ct=table, coriolis=coriolis, fc=1e-2):
                 if kernel:
                     out, ev, rhs = fz.tend_rk_fold(s, t, row, 0.7, can, 1.3,
-                                                   first, carry, e=e_in)
+                                                   first, carry, e=e_in,
+                                                   chunks=chunks)
                 else:
                     out, ev, rhs = F.tend_rk_fold_plain(
                         s, t, table, fz.ce, *grid_args, fz.visc, fz.svisc,
@@ -584,6 +594,8 @@ def kernel_cases(torch, m, seed):
                     + [t[n][ctx.ks:ctx.ke] for n in names] + [ev, rhs])
         cases.append(("tend_rk_fold", lambda f=fold: f(True),
                       lambda f=fold: f(False), "field"))
+    if fold_only:
+        return cases
 
     def rhs_of_patched(kernel):
         """K22's rhs with the wall rows' correction against K4 rhs of the
@@ -1194,13 +1206,35 @@ def forced_chunks(ktot):
     return sorted({c for c in (1, 2, 3, 4, 5) if c <= ktot} | {ktot})
 
 
+def fold_chunks(m, dtype):
+    """The k-splits check_kmarch forces on K22: 1, 2 and 3 chunks, the
+    plan's count and one level a chunk."""
+    k = m.ctx.ktot
+    return sorted({c for c in (1, 2, 3) if c <= k}
+                  | {m.fused.fold_plan(dtype).chunks, k})
+
+
 def check_kmarch(torch):
     """K16 (both schemes), K13 (every scheme) and the scalar sweep K10/K19
     (sweep_cases) against their plain versions with the k-split forced
     (forced_chunks) at ktot 6 and 16, so that chunks of one to three levels
     touch both walls, on partial tiles: K16 on moser180 at 45x40 and
     weakscaling at 48x20, K13 on rico at 45x24 and 48x20 with 1, 2, 4 and
-    max_scalars + 2 scalars, the sweep on rico at 45x24 and 48x20."""
+    max_scalars + 2 scalars, the sweep on rico at 45x24 and 48x20; K22 in
+    every form of kernel_cases (fold_chunks) on drycblles at 512^2x32 and
+    on the neutral Ekman LES at 45^2x8 (a partial tile, null th)."""
+    for label, build, n, k in (("drycblles", build_model, 512, 32),
+                               ("andren1994", build_andren, (45, 45), 8)):
+        for dtype in (torch.float64, torch.float32):
+            m = build(torch, n, k, dtype, "cuda")
+            m.build_step()
+            for chunks in fold_chunks(m, dtype):
+                for name, kern, plain, kind in kernel_cases(
+                        torch, m, k + 3, chunks=chunks, fold_only=True):
+                    compare(torch, name, kern, plain, kind, dtype,
+                            "%s %s chunks=%d" % (label, shape_str(m), chunks))
+            del m
+            torch.cuda.empty_cache()
     for label, build, n in (("moser 4m", build_moser, (45, 40)),
                             ("weakscaling 4", build_weakscaling, (48, 20))):
         for k in (16, 6):
@@ -1484,9 +1518,10 @@ def registers_of(build_log):
 
 
 def kmarch_info(kern, dtype, scheme, S, plan):
-    """What a k-marching kernel (K13, K16) reports at a path's shape: its
-    registers, local bytes a thread, shared memory a block and resident
-    blocks an SM from the card, its chunk count, blocks and waves."""
+    """What a k-marching kernel (K13, K16, the scalar sweep, K22) reports
+    at a path's shape: its registers, local bytes a thread, shared memory a
+    block and resident blocks an SM from the card, its chunk count, blocks
+    and waves."""
     info = kern.info(dtype, scheme, S)
     return {"registers": info["registers"], "local_bytes": info["local_bytes"],
             "smem_per_block": info["smem"],
@@ -1594,7 +1629,9 @@ def time_kernels(torch, m, s):
             lambda: F.tend_rk_fold_plain(s, t, fz.ct, fz.ce, *grid_args, *rk,
                                          2., False, True, se_row, None,
                                          *fz._sweep_args()),
-            (4 * nf + 2) * fb, FLOPS_PER_POINT["tend_rk_fold"] * n),
+            (4 * nf + 2) * fb, FLOPS_PER_POINT["tend_rk_fold"] * n,
+            info=kmarch_info(fz.k_tend_fold, m.dtype, int(fz.has_thermo), 0,
+                             fz.fold_plan(m.dtype))),
         # the same sweep without the evisc fold: e read instead of written
         "tend_rk_fold_e": pair(
             lambda: fz.tend_rk_fold(s, t, None, 0.5, -5. / 9., 2., False,
@@ -2199,7 +2236,8 @@ def main():
     log("[3a] K5 and K6 in both forms against torch.fft")
     check_dft(torch)
     check_kernels(torch)
-    log("[3b] K16, K13 and the scalar sweep K10/K19 with the k-split forced")
+    log("[3b] K16, K13, the scalar sweep K10/K19 and K22 with the k-split "
+        "forced")
     check_kmarch(torch)
     log("[3c] K11 at ring depths 3, 4 and 8, columns shorter than, equal to "
         "and not a multiple of its window")

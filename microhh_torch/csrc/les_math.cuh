@@ -29,6 +29,44 @@ enum {
     T_UG = NT, T_VG, T_ADDU, T_ADDV, T_ADDS, T_WLSDN, T_WLSUP, NTG
 };
 
+// columns that a kernel's staged row may hold after NTG (and after NE in an
+// E_* row): quotients of the row's own columns, divided once a level by the
+// kernel instead of once a point (K22's QRow)
+enum { TQ_RDZI = NTG, TQ_RDZHI, TQ_GTHREFH, NTQ };
+enum { EQ_GTHREF = NE, NEQ };
+
+// a per-level row whose quotients are already divided (columns TQ_*, EQ_*)
+template <typename T>
+struct QRow {
+    const T* p;
+    __device__ __forceinline__ T operator[](int c) const { return p[c]; }
+};
+
+// The row a function below takes as cc, chosen by its first template
+// argument R: a table row through a restrict-qualified pointer (R void, the
+// default, as every kernel but K22 passes it), or a QRow<T>.
+template <typename R, typename T>
+struct RowArg {
+    typedef const QRow<T>& type;
+};
+template <typename T>
+struct RowArg<void, T> {
+    typedef const T* __restrict__ type;
+};
+
+// a / b of two columns of the row cc: divided here for a plain row, read
+// from column col of a QRow (which holds the same quotient)
+template <typename T>
+__device__ __forceinline__ T quot(const T* __restrict__ cc, T a, T b,
+                                  int col) {
+    return a / b;
+}
+
+template <typename T>
+__device__ __forceinline__ T quot(const QRow<T>& cc, T a, T b, int col) {
+    return cc.p[col];
+}
+
 template <typename T>
 __device__ __forceinline__ T i2(T a, T b) { return T(0.5) * (a + b); }
 
@@ -61,14 +99,14 @@ __device__ __forceinline__ Slots slots(int k) {
 
 // strain rate squared and the stability-corrected Smagorinsky viscosity at
 // the views' point of the plane in slot q.kc; cc is that level's row of the
-// E_* table.  stratified: 0 none, 1 N2 from A's vertical gradient (E_TOPS
+// E_* table (RowArg).  stratified: 0 none, 1 N2 from A's vertical gradient (E_TOPS
 // patches a clamped top plane with the scalar's top-gradient ghost offset,
 // zero elsewhere), 2 N2 = n2ext.  A is read only when stratified is 1.
-template <typename T, typename VF>
+template <typename R = void, typename T, typename VF>
 __device__ __forceinline__ T evisc_math(const VF& U, const VF& V, const VF& W,
                                         const VF& A, Slots q,
-                                        const T* __restrict__ cc, T dxi, T dyi,
-                                        T tPr, int stratified, T n2ext) {
+                                        typename RowArg<R, T>::type cc, T dxi,
+                                        T dyi, T tPr, int stratified, T n2ext) {
     const T dsmall = T(1.e-9), grav = T(9.81);
     const int km = q.km, kc = q.kc, kp = q.kp;
     const T dzi = cc[E_DZI], dzhi = cc[E_DZHI], dzhi1 = cc[E_DZHI1];
@@ -112,7 +150,7 @@ __device__ __forceinline__ T evisc_math(const VF& U, const VF& V, const VF& W,
                               + vert_x + vert_y) + dsmall;
     if (!stratified) return mlen2 * sqrt(strain2);
     const T n2 = stratified == 2 ? n2ext
-                 : grav / cc[E_THREF] * T(0.5)
+                 : quot(cc, grav, cc[E_THREF], EQ_GTHREF) * T(0.5)
                        * (A(kp, 0, 0) + cc[E_TOPS] - A(km, 0, 0)) * dzi;
     const T a = n2 * (T(-1) / tPr) + strain2;
     const T b = strain2 * dsmall;
@@ -122,15 +160,15 @@ __device__ __forceinline__ T evisc_math(const VF& U, const VF& V, const VF& W,
 // u tendency (advec_2.cxx advec_u + diff_smag2.cxx diff_u) at full level k.
 // advec = 0: an interpolated scheme (K12/K13) has already added the
 // advection into the carry; the sweep does diffusion and the folds only
-template <typename T, typename VF, typename VE>
+template <typename R = void, typename T, typename VF, typename VE>
 __device__ __forceinline__ T u_tend(const VF& U, const VF& V, const VF& W,
                                     const VE& E, Slots q,
-                                    const T* __restrict__ cc, T dxi, T dyi,
-                                    T visc, int advec = 1) {
+                                    typename RowArg<R, T>::type cc, T dxi,
+                                    T dyi, T visc, int advec = 1) {
     const int km = q.km, kc = q.kc, kp = q.kp;
     const T dzi = cc[T_DZI], dzhi = cc[T_DZHI], dzhi1 = cc[T_DZHI1];
     const T rho = cc[T_RHO], rhoh = cc[T_RHOH], rhoh1 = cc[T_RHOH1];
-    const T rdzi = dzi / rho;
+    const T rdzi = quot(cc, dzi, rho, TQ_RDZI);
     const T u_ = U(kc, 0, 0), v_ = V(kc, 0, 0), w_ = W(kc, 0, 0);
     const T adv_u = !advec ? T(0) : -((i2(u_, U(kc, 0, 1)) * i2(u_, U(kc, 0, 1))
                        - i2(U(kc, 0, -1), u_) * i2(U(kc, 0, -1), u_)) * dxi
@@ -155,15 +193,15 @@ __device__ __forceinline__ T u_tend(const VF& U, const VF& V, const VF& W,
 }
 
 // v tendency (advec_v + diff_v) at full level k
-template <typename T, typename VF, typename VE>
+template <typename R = void, typename T, typename VF, typename VE>
 __device__ __forceinline__ T v_tend(const VF& U, const VF& V, const VF& W,
                                     const VE& E, Slots q,
-                                    const T* __restrict__ cc, T dxi, T dyi,
-                                    T visc, int advec = 1) {
+                                    typename RowArg<R, T>::type cc, T dxi,
+                                    T dyi, T visc, int advec = 1) {
     const int km = q.km, kc = q.kc, kp = q.kp;
     const T dzi = cc[T_DZI], dzhi = cc[T_DZHI], dzhi1 = cc[T_DZHI1];
     const T rho = cc[T_RHO], rhoh = cc[T_RHOH], rhoh1 = cc[T_RHOH1];
-    const T rdzi = dzi / rho;
+    const T rdzi = quot(cc, dzi, rho, TQ_RDZI);
     const T u_ = U(kc, 0, 0), v_ = V(kc, 0, 0), w_ = W(kc, 0, 0);
     const T e_ = E(kc, 0, 0);
     const T adv_v = !advec ? T(0) : -((i2(U(kc, -1, 1), U(kc, 0, 1)) * i2(v_, V(kc, 0, 1))
@@ -230,15 +268,15 @@ __device__ __forceinline__ T v_folds(const VF& U, const VF& V, int kc,
 }
 
 // w tendency (advection + diffusion) at half level k
-template <typename T, typename VF, typename VE>
+template <typename R = void, typename T, typename VF, typename VE>
 __device__ __forceinline__ T w_tend(const VF& U, const VF& V, const VF& W,
                                     const VE& E, Slots q,
-                                    const T* __restrict__ cc,
+                                    typename RowArg<R, T>::type cc,
                                     T dxi, T dyi, T visc, int advec = 1) {
     const int km = q.km, kc = q.kc, kp = q.kp;
     const T dzi = cc[T_DZI], dzhi = cc[T_DZHI], dzi_m1 = cc[T_DZI_M1];
     const T rho = cc[T_RHO], rhoh = cc[T_RHOH], rho_m1 = cc[T_RHO_M1];
-    const T rdzhi = dzhi / rhoh;
+    const T rdzhi = quot(cc, dzhi, rhoh, TQ_RDZHI);
     const T u_ = U(kc, 0, 0), v_ = V(kc, 0, 0), w_ = W(kc, 0, 0);
     const T w_dn = W(km, 0, 0), w_up = W(kp, 0, 0);
     const T adv_w = !advec ? T(0) : -((i2(U(km, 0, 1), U(kc, 0, 1)) * i2(w_, W(kc, 0, 1))
@@ -266,12 +304,13 @@ __device__ __forceinline__ T w_tend(const VF& U, const VF& V, const VF& W,
 // full level k in three parts, so that a kernel that sweeps several
 // scalars at once (the scalar sweep K10/K19) forms the second once a point:
 // the advection of a scalar A by U, V, W
-template <typename T, typename VF>
+template <typename R = void, typename T, typename VF>
 __device__ __forceinline__ T s_adv(const VF& U, const VF& V, const VF& W,
                                    const VF& A, Slots q,
-                                   const T* __restrict__ cc, T dxi, T dyi) {
+                                   typename RowArg<R, T>::type cc, T dxi,
+                                   T dyi) {
     const int km = q.km, kc = q.kc, kp = q.kp;
-    const T rdzi = cc[T_DZI] / cc[T_RHO];
+    const T rdzi = quot(cc, cc[T_DZI], cc[T_RHO], TQ_RDZI);
     const T u_ = U(kc, 0, 0), v_ = V(kc, 0, 0), w_ = W(kc, 0, 0);
     const T w_up = W(kp, 0, 0);
     const T a_ = A(kc, 0, 0), a_dn = A(km, 0, 0), a_up = A(kp, 0, 0);
@@ -295,13 +334,13 @@ __device__ __forceinline__ void s_faces(const VE& E, Slots q, T (&f)[6]) {
 }
 
 // and the diffusion of A, its diffusivity at each face f tPri + svisc
-template <typename T, typename VF>
+template <typename R = void, typename T, typename VF>
 __device__ __forceinline__ T s_dif(const VF& A, Slots q,
-                                   const T* __restrict__ cc, T dxi, T dyi,
-                                   const T (&f)[6], T tPri, T svisc) {
+                                   typename RowArg<R, T>::type cc, T dxi,
+                                   T dyi, const T (&f)[6], T tPri, T svisc) {
     const int km = q.km, kc = q.kc, kp = q.kp;
     const T rhoh = cc[T_RHOH], rhoh1 = cc[T_RHOH1];
-    const T rdzi = cc[T_DZI] / cc[T_RHO];
+    const T rdzi = quot(cc, cc[T_DZI], cc[T_RHO], TQ_RDZI);
     const T a_ = A(kc, 0, 0), a_dn = A(km, 0, 0), a_up = A(kp, 0, 0);
     const T se = f[0] * tPri + svisc, sw = f[1] * tPri + svisc;
     const T sn = f[2] * tPri + svisc, ss = f[3] * tPri + svisc;
@@ -315,15 +354,15 @@ __device__ __forceinline__ T s_dif(const VF& A, Slots q,
 // the scalar tendency in one call (K2, K15, K20, K22), the parts in this
 // order: with e's faces read first the latency-bound ring of K15 ran 2.4%
 // slower on an H100
-template <typename T, typename VF, typename VE>
+template <typename R = void, typename T, typename VF, typename VE>
 __device__ __forceinline__ T s_tend(const VF& U, const VF& V, const VF& W,
                                     const VF& A, const VE& E, Slots q,
-                                    const T* __restrict__ cc, T dxi, T dyi,
-                                    T svisc, T tPri, int advec = 1) {
-    const T adv_s = advec ? s_adv(U, V, W, A, q, cc, dxi, dyi) : T(0);
+                                    typename RowArg<R, T>::type cc, T dxi,
+                                    T dyi, T svisc, T tPri, int advec = 1) {
+    const T adv_s = advec ? s_adv<R>(U, V, W, A, q, cc, dxi, dyi) : T(0);
     T f[6];
     s_faces(E, q, f);
-    return adv_s + s_dif(A, q, cc, dxi, dyi, f, tPri, svisc);
+    return adv_s + s_dif<R>(A, q, cc, dxi, dyi, f, tPri, svisc);
 }
 
 }  // namespace mhh

@@ -43,10 +43,11 @@ SIGNATURES = {
     # ks; dxi, dyi, visc, svisc, tPr, cbdt, can, fc, utrans, vtrans; first,
     # carry, coriolis.  th, ths, tth null: no thermo
     "tend_rk": [_P] * 14 + [_I] * 4 + [_D] * 10 + [_I] * 3,
-    # u, v, w, th, e_in, se, us, vs, ws, ths, tu_in, tv_in, tu_out, tv_out,
-    # tw, tth, e_out, rhs, ct, ce; itot, jtot, ktot, ks; dxi, dyi, visc,
-    # svisc, tPr, cbdt, can, dti, fc, utrans, vtrans; first, carry, coriolis
-    "tend_rk_fold": [_P] * 20 + [_I] * 4 + [_D] * 11 + [_I] * 3,
+    # u, v, w, th, e_in, se, us, vs, ws, ths, tu_in, tv_in, tw_in, tu_out,
+    # tv_out, tw_out, tth, e_out, rhs, ct, ce; itot, jtot, ktot, ks; dxi,
+    # dyi, visc, svisc, tPr, cbdt, can, dti, fc, utrans, vtrans; first,
+    # carry, coriolis, chunks (ops/kmarch.py)
+    "tend_rk_fold": [_P] * 21 + [_I] * 4 + [_D] * 11 + [_I] * 4,
     # spectrum (complex, in place), winv, tab; kmax, nmodes
     "tdma": [_P] * 3 + [_I, ctypes.c_longlong],
     # u, v, w, out, pc; itot, jtot, ktot, ks; dxi, dyi, dti
@@ -114,11 +115,12 @@ SIGNATURES = {
 }
 
 # Kernels with an entry mhh_<kernel>_info_<f32|f64>(scheme, S, int out[5])
-# (the scalar sweep's "scheme" is its advec flag; K11 reads neither): registers, local bytes a
-# thread, dynamic shared memory a block, resident blocks an SM
-# (cudaOccupancyMaxActiveBlocksPerMultiprocessor), SMs.
+# (the scalar sweep's "scheme" is its advec flag, K22's its thermo flag; K11
+# reads neither): registers, local bytes a thread, dynamic shared memory a
+# block, resident blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+# SMs.
 INFO = ("advec_scalars", "o4_mom", "tend_scalars", "tend_scalar_acc",
-        "micro2")
+        "micro2", "tend_rk_fold")
 INFO_KEYS = ("registers", "local_bytes", "smem", "blocks_per_sm", "sms")
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}

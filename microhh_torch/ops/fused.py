@@ -15,8 +15,9 @@ no fallback from the card to the plain version.
                             (``csrc/tend_rk.cu``);
 * K22 ``Fused.tend_rk_fold`` - K2's sweep with the eddy viscosity (K1) and
                             the Poisson right-hand side (K4 rhs) computed in
-                            the same k-march (``csrc/tend_rk_fold.cu``): the
-                            dry step's default form;
+                            the same k-march (``csrc/tend_rk_fold.cu``,
+                            chunked by ``ops/kmarch.py``): the dry step's
+                            default form;
 * K4 ``PresGlue.rhs`` / ``PresGlue.apply`` - the projection glue
                             (``csrc/pres_glue.cu``);
 * K7 ``Fused.limits``     - per-level maxima of the CFL rate and of K1's
@@ -700,23 +701,33 @@ class Fused:
                     ctx.vtrans, int(first), int(carry), int(self.coriolis))
         return s_star
 
+    def fold_plan(self, dtype, chunks=None):
+        """K22's k-march (ops/kmarch.py), the chunk count chosen from the
+        card's resident blocks unless given."""
+        ctx = self.ctx
+        info = self.k_tend_fold.info(dtype, int(self.has_thermo))
+        return kmarch.plan("tend_rk_fold", ctx.itot, ctx.jtot, ctx.ktot, 0,
+                           dtype, info["blocks_per_sm"] * info["sms"], chunks)
+
     def tend_rk_fold(self, s, t, se_row, cbdt, can, dti, first, carry,
-                     e=None):
+                     e=None, chunks=None):
         """K22: returns (s*, e, rhs): s* as tend_rk, the interior eddy
         viscosity it computed (its bottom row se_row, the MOST surface row,
         when given) and the Poisson right-hand side dti * div(rho s*), both
         (ktot, jtot, itot).  With ``e`` given the eddy viscosity is read, not
-        computed, and returned as it is.  The carry: t["w"] and t["th"] are
-        overwritten in place when carry; t["u"] and t["v"] are then REPLACED
-        in the dict by new tensors when they were also read (not first),
-        because a block reads them one cell inside its neighbours' tiles."""
+        computed, and returned as it is.  The carry: t["th"] is overwritten
+        in place when carry; t["u"], t["v"] and t["w"] are then REPLACED in
+        the dict by new tensors when they were also read (not first),
+        because a block reads u's and v's one cell inside its neighbours'
+        tiles and w's one level above its chunk.  chunks: force the k-split
+        (checks and timings only)."""
         ctx = self.ctx
         args = (ctx.ks, ctx.dxi, ctx.dyi, self.visc, self.svisc, self.tPr,
                 cbdt, can, dti)
         u = s["u"]
-        old = {n: t[n] for n in ("u", "v")}
+        old = {n: t[n] for n in ("u", "v", "w")}
         if carry and not first:
-            for n in ("u", "v"):
+            for n in ("u", "v", "w"):
                 t[n] = (t[n].clone() if on_cpu(u)
                         else _empty_ghosts_zero(t[n], ctx))
         if on_cpu(u):
@@ -728,7 +739,7 @@ class Fused:
         extra = [a for a in (se_row, e) if a is not None]
         check([s[n] for n in names] + [t[n] for n in names] + list(old.values())
               + [self.ct, self.ce] + extra, u.dtype, u.device,
-              [shape] * (2 * len(names) + 2) + [(ctx.ktot, NTG), (ctx.ktot, NE)]
+              [shape] * (2 * len(names) + 3) + [(ctx.ktot, NTG), (ctx.ktot, NE)]
               + ([(ctx.jtot, ctx.itot)] if se_row is not None else [])
               + ([interior] if e is not None else []))
         s_star = {n: _empty_ghosts_zero(s[n], ctx) for n in names}
@@ -739,11 +750,12 @@ class Fused:
         self.k_tend_fold(
             u.dtype, s["u"], s["v"], s["w"], self._th(s), e, se_row,
             s_star["u"], s_star["v"], s_star["w"], self._th(s_star),
-            None if first else old["u"], None if first else old["v"],
-            t["u"] if carry else None, t["v"] if carry else None, t["w"],
+            *[None if first else old[n] for n in ("u", "v", "w")],
+            *[t[n] if carry else None for n in ("u", "v", "w")],
             self._th(t), e_out, rhs, self.ct, self.ce, ctx.itot, ctx.jtot,
             ctx.ktot, *args, self.fc, ctx.utrans, ctx.vtrans, int(first),
-            int(carry), int(self.coriolis))
+            int(carry), int(self.coriolis),
+            self.fold_plan(u.dtype, chunks).chunks)
         return s_star, (e_out if e is None else e), rhs
 
     def tendencies(self, s, t, e):

@@ -1,7 +1,8 @@
 """The k-march plan of the redesigned ring kernels K13 (``advec_scalars``),
-K16 (``o4_mom``) and the scalar sweep K10 (``tend_scalars``) / K19
-(``tend_scalar_acc``): the host's copy of ``csrc/kmarch.cuh`` and of the
-kernels' shared-memory layouts.
+K16 (``o4_mom``), the scalar sweep K10 (``tend_scalars``) / K19
+(``tend_scalar_acc``) and the folded dry sweep K22 (``tend_rk_fold``): the
+host's copy of ``csrc/kmarch.cuh`` and of the kernels' shared-memory
+layouts.
 
 A launch is a grid of (tiles in i) x (tiles in j) x chunks blocks; block z
 marches the levels ``chunk_bounds(chunks, ktot)[z]``.  ``plan`` picks the
@@ -10,8 +11,8 @@ reports through ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``, times
 the SMs) so that the blocks fill the card in whole waves: the count that
 minimises waves x (levels a chunk + the planes a chunk reads again to warm
 its column up).  The shared-memory formulas repeat the kernels' own
-(``k13_smem``, ``K16<T>::smem``, ``sweep_smem``), and a CPU test holds the
-constants here to those in the sources.
+(``k13_smem``, ``K16<T>::smem``, ``sweep_smem``, ``fold_smem``), and a CPU
+test holds the constants here to those in the sources.
 """
 
 import collections
@@ -30,6 +31,8 @@ K16_TJ, K16_NI = 8, 8
 # csrc/tend_generic.cu: SW_TJ, SW_HALO, SW_R, SW_MAXS, NTGP; NTG of
 # csrc/les_math.cuh (ops/fused.py NTG)
 SW_TJ, SW_HALO, SW_R, SW_MAXS, NTGP, NTG = 8, 1, 3, 4, 24, 21
+# csrc/tend_rk_fold.cu: K22_TJ, K22_HALO, K22_R, K22_ER, K22_EW, K22_NTC
+K22_TJ, K22_HALO, K22_R, K22_ER, K22_EW, K22_NTC = 8, 2, 6, 4, TI + 2, 32
 
 Plan = collections.namedtuple("Plan", "tiles_i tiles_j chunks smem slots waves")
 
@@ -73,19 +76,33 @@ def sweep_smem(S, dtype, rk, advec):
              + SW_R * (S if rk else 1) * NTGP) * _bytes(dtype))
 
 
+def fold_smem(dtype):
+    """Dynamic shared memory of a K22 launch (csrc/tend_rk_fold.cu
+    fold_smem): K22_R slots of the four fields' planes, K22_ER of e's
+    (the tile plus one), u* and v* of two levels with the column and row
+    beyond the tile, and a staged table row a field slot."""
+    return ((K22_R * 4 * slot_size(K22_TJ, K22_HALO)
+             + K22_ER * (K22_TJ + 2) * K22_EW
+             + 2 * K22_TJ * (TI + 1) + 2 * (K22_TJ + 1) * TI
+             + K22_R * K22_NTC) * _bytes(dtype))
+
+
 # kernel -> shared memory of a launch (S, dtype, advec)
 SMEM = {"advec_scalars": lambda S, dtype, advec: k13_smem(S, dtype),
         "o4_mom": lambda S, dtype, advec: k16_smem(dtype),
         "tend_scalars": lambda S, dtype, advec: sweep_smem(S, dtype, True,
                                                            advec),
         "tend_scalar_acc": lambda S, dtype, advec: sweep_smem(S, dtype, False,
-                                                              advec)}
+                                                              advec),
+        "tend_rk_fold": lambda S, dtype, advec: fold_smem(dtype)}
 TILE_J = {"advec_scalars": K13_TJ, "o4_mom": K16_TJ, "tend_scalars": SW_TJ,
-          "tend_scalar_acc": SW_TJ}
+          "tend_scalar_acc": SW_TJ, "tend_rk_fold": K22_TJ}
 # planes a chunk reads again to warm its column up: K13's and K16's
-# seven-plane windows; the sweep's column k0-1..k0+1 and the plane past it
+# seven-plane windows; the sweep's column k0-1..k0+1 and the plane past it;
+# K22's planes k0-2, k0-1 below the chunk (with e(k0-1)) and w's tendency
+# at k1 above it
 WARM = {"advec_scalars": 6, "o4_mom": 6, "tend_scalars": 2,
-        "tend_scalar_acc": 2}
+        "tend_scalar_acc": 2, "tend_rk_fold": 2}
 
 
 def chunk_bounds(chunks, ktot):
@@ -108,11 +125,11 @@ def choose_chunks(tiles, ktot, slots, warm):
 
 def plan(kernel, itot, jtot, ktot, S, dtype, slots, chunks=None,
          advec=True):
-    """The launch of K13 ("advec_scalars", S scalars), K16 ("o4_mom") or
-    the scalar sweep ("tend_scalars" K10, "tend_scalar_acc" K19; S scalars,
-    advec its flag): tiles, chunk count (chosen from slots, the card's
-    resident blocks, unless given), shared memory a block and the waves it
-    makes."""
+    """The launch of K13 ("advec_scalars", S scalars), K16 ("o4_mom"), the
+    scalar sweep ("tend_scalars" K10, "tend_scalar_acc" K19; S scalars,
+    advec its flag) or K22 ("tend_rk_fold"): tiles, chunk count (chosen
+    from slots, the card's resident blocks, unless given), shared memory a
+    block and the waves it makes."""
     tiles_i = -(-itot // TI)
     tiles_j = -(-jtot // TILE_J[kernel])
     if chunks is None:

@@ -4,6 +4,7 @@ scalar point function (K2, K22, K20, K15), and K11, the warm-rain column
 sweep.
 
     python3 -m microhh_torch.ring_timing [--out FILE] [--label NAME]
+                                         [--groups rings,s_tend,fold,micro2]
 
 At the four shapes of their main paths: weakscaling 512x256x1024 float32
 (K16 in scheme 4, K17 with one scalar), moser180 256x192x128 float64 (both
@@ -17,7 +18,14 @@ the scheme, the advec flag and the scalar count).  The kernels whose
 scalar tendency is the one-call s_tend of csrc/les_math.cuh at the shapes
 of their main paths: K2 and K22 at drycblles 512^3 float32, K20 at
 sullivan2011 512x512x64 (the substep without the RK fold) and K15 at
-SBL_Smag 256^3.  K11 at rico 384^3 in float32 and float64 and at 16^2x24
+SBL_Smag 256^3.  K22 also on its paths in both its forms (the eddy
+viscosity computed, and read): drycblles 512^3, sullivan2011 512^3 with the
+sponge and Coriolis folds, the neutral Ekman LES 768x384x288 (no th) in
+float32 and drycblles 512^3 in float64; beside K22's time its registers,
+shared memory and blocks an SM from the card, the plan's chunks, blocks
+and waves, its time with one chunk and its issue time counted from the
+SASS of its per-level loop (``fold_issue``).  K11 at rico 384^3 in float32
+and float64 and at 16^2x24
 in float64, in two states: the cell's own (its initial fields, cloud-free
 and without rain, as the cell's timed steps are) and heavy rain
 (chip_smoke.py's: a saturated layer, rain shafts with qr x 50, drops
@@ -27,12 +35,13 @@ random fields.  Beside each time: the bound (each input and output once
 over 3.35 TB/s, or the operations over 67 TFLOP/s, 33.5 in float64, where
 larger), registers, spills and stack from the build log's ptxas lines and,
 where the tree's kernels report them (the k-marching K13, K16 and scalar
-sweep, and K11), shared memory a block and resident blocks an SM; for the
-k-marching kernels the chunk count, blocks in the grid and waves, and
+sweep, K11 and K22), shared memory a block and resident blocks an SM; for
+the k-marching kernels the chunk count, blocks in the grid and waves, and
 their time with one chunk (no k-split); for K11 blocks and waves, and its
 issue time counted from the SASS of its phases (``micro2_issue``).  One JSON
 object per kernel and shape is printed and, with --out, all of them are
-written to FILE.  Needs a CUDA device.
+written to FILE.  --groups names the groups to time (GROUPS; all by
+default).  Needs a CUDA device.
 
 The script runs on an earlier checkout too (copy it into that tree's
 ``microhh_torch/``), so the same call can hold the trees in turns (parent,
@@ -55,6 +64,9 @@ from . import cases, kernels
 from .config import Ini
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the timed groups: K16, K13, K10, K19 and their controls; the kernels that
+# call s_tend; K22 on its paths; K11
+GROUPS = ("rings", "s_tend", "fold", "micro2")
 REPS = 10
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 33.5e12}
@@ -83,6 +95,12 @@ S_TEND_SHAPES = [("drycblles", "drycblles", (512, 512, 512), {}),
                  ("sullivan2011 unfolded", "sullivan2011", (512, 512, 64),
                   {"unfolded": True}),
                  ("SBL_Smag", "SBL_Smag", (256, 256, 256), {})]
+# K22 on its paths: (label, case, shape, dtype)
+FOLD_SHAPES = [("drycblles", "drycblles", (512, 512, 512), torch.float32),
+               ("sullivan2011", "sullivan2011", (512, 512, 512), torch.float32),
+               ("andren1994 less s", "andren1994", (768, 384, 288),
+                torch.float32),
+               ("drycblles", "drycblles", (512, 512, 512), torch.float64)]
 
 # kernel name -> its CUDA function
 FUNCTIONS = {"o4_mom": "o4_mom_kernel", "o4_scalars": "o4_scalars_kernel",
@@ -220,6 +238,72 @@ def sass_sections(text, function):
                 sections.append({"total": 0, "fp64": 0, "mufu": 0})
         out[key] = sections
     return out
+
+
+def sass_loops(text, function):
+    """{"function<template arguments>": [loop, ...]} for each instance of
+    the kernel `function` in a cuobjdump -sass listing: every loop of its
+    body (a backward branch and its target) that holds a barrier, in program
+    order, each counted as {"total", "fp64", "mufu", "bar"} (NOPs left
+    out): the per-level bodies of a k-march.  The body ends at its
+    first unpredicated EXIT or at the first target of a CALL: what the
+    compiler places after it (slow-path subroutines, the paths a barrier
+    takes when a warp arrives diverged) is not counted."""
+    bodies, cur = {}, None
+    for line in text.splitlines():
+        hit = re.search(r"Function : (\S+)", line)
+        if hit:
+            name, args = _demangle(hit.group(1))
+            cur = None
+            if name == function:
+                cur = bodies.setdefault("%s<%s>" % (name, args), [])
+            continue
+        hit = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(@!?U?P[T0-9]\s+)?"
+                       r"([A-Z][A-Z0-9_.]*)\s*([^;]*);", line)
+        if cur is not None and hit:
+            cur.append((int(hit.group(1), 16), hit.group(3).split(".")[0],
+                        hit.group(4).strip(), bool(hit.group(2))))
+    out = {}
+    for key, body in bodies.items():
+        ends = [int(arg, 16) for _, op, arg, _ in body
+                if op == "CALL" and re.fullmatch(r"0x[0-9a-f]+", arg)]
+        ends += [addr + 1 for addr, op, _, pred in body
+                 if op == "EXIT" and not pred]
+        end = min(ends, default=float("inf"))
+        body = [(addr, op, arg) for addr, op, arg, _ in body if addr < end]
+        loops = []
+        for addr, op, arg in body:
+            tgt = re.match(r"(0x[0-9a-f]+)", arg)
+            if op != "BRA" or not tgt or int(tgt.group(1), 16) >= addr:
+                continue
+            lo = int(tgt.group(1), 16)
+            ops = [o for a_, o, _ in body if lo <= a_ <= addr and o != "NOP"]
+            rec = {"total": len(ops), "fp64": sum(o in FP64_OPS for o in ops),
+                   "mufu": ops.count("MUFU"), "bar": ops.count("BAR")}
+            if rec["bar"]:
+                loops.append(rec)
+        out[key] = loops
+    return out
+
+
+def fold_issue(loops, shape, tile_j, clock_ghz, sms):
+    """K22's issue time from the SASS of its k-march, or None unless the
+    kernel has one per-level loop (sass_loops): every warp of a (tile_j,
+    32) tile runs it once a level.  Every instruction of the loop counts as
+    issued once a level, the branches that some warps or levels skip (the
+    halo work of a few warps, the forms' flags, the first level's) too: an
+    upper estimate.  A warp instruction takes PIPE_CYCLES of one of the four
+    sub-partitions of an SM at the card's maximum SM clock."""
+    if len(loops) != 1:
+        return None
+    itot, jtot, ktot = shape
+    warps = -(-itot // 32) * -(-jtot // tile_j) * tile_j * ktot
+    per = loops[0]
+    ms = {key: 1e3 * warps * per[key] * cyc / (sms * 4 * clock_ghz * 1e9)
+          for key, cyc in PIPE_CYCLES.items()}
+    by = max(ms, key=ms.get)
+    return {"issue_ms": ms[by], "issue_bound_by": by, "issue_ms_by_pipe": ms,
+            "instructions_a_point": per["total"], "clock_ghz": clock_ghz}
 
 
 def micro2_issue(sections, shape, nsed, clock_ghz, sms):
@@ -424,6 +508,11 @@ def case_text(case, itot, jtot, ktot):
     elif case == "sullivan2011":
         mem = cases.sullivan2011_input(ktot)
         over["swstats"] = 0
+    elif case == "andren1994":
+        # less its passive scalar, as chip_smoke.py andren_ini
+        mem = cases.andren1994_input(ktot)
+        text = re.sub(r"(?m)^(slist=s|sbot\[s\]=.*|stop\[s\]=.*)\n", "",
+                      text)
     elif case == "SBL_Smag":
         zsize = float(re.search(r"(?m)^zsize=(.*)$", text).group(1))
         mem = cases.sbl_input(ktot, zsize)
@@ -529,10 +618,97 @@ def time_shape(label, case, shape, dtype, S, ptx, card):
     return rows
 
 
-def s_tend_rows(label, case, shape, step, ptx, card, device="cuda"):
+def sms_of(device):
+    """SMs of the card (132, an H100's, off the card)."""
+    if device == "cuda":
+        return torch.cuda.get_device_properties(0).multi_processor_count
+    return 132
+
+
+def fold_function(dtype, thermo, known):
+    """The ptxas and SASS key of the K22 instance a launch takes: the
+    k-march's tend_rk_fold_kernel<T, THERMO>, or the PR-6 form's
+    tend_rk_fold_kernel<T> where `known` (keys of a build) holds that."""
+    t = "float" if dtype == torch.float32 else "double"
+    name = S_TEND_FUNCTIONS["tend_rk_fold"]
+    old = "%s<%s>" % (name, t)
+    return old if old in known else "%s<%s,%s>" % (
+        name, t, "true" if thermo else "false")
+
+
+def fold_extra(row, fz, dtype, shape, fn, loops, clock_ghz, device):
+    """K22's row completed: where the tree's K22 is the k-march (it reports
+    its occupancy), its registers, shared memory and blocks an SM from the
+    card, chunks, blocks and waves of the plan, and its time with one
+    chunk; where the SASS of the tree holds K22's loops, its issue time
+    (fold_issue)."""
+    from .ops import kmarch
+    # the PR-6 form's tile has common.cuh's eight rows too
+    tile_j = getattr(kmarch, "K22_TJ", 8)
+    if "tend_rk_fold" in kernels.INFO:
+        pl = fz.fold_plan(dtype)
+        row.update(fz.k_tend_fold.info(dtype, int(fz.has_thermo)),
+                   chunks=pl.chunks,
+                   blocks=pl.tiles_i * pl.tiles_j * pl.chunks, waves=pl.waves,
+                   ms_one_chunk=events_ms(lambda: fn(chunks=1)))
+    if loops and row["function"] in loops:
+        row.update(fold_issue(loops[row["function"]], shape, tile_j,
+                              clock_ghz, sms_of(device)) or {})
+    return row
+
+
+def fold_rows(label, case, shape, dtype, ptx, card, loops=None,
+              clock_ghz=None, device="cuda"):
+    """K22 on a dry RK-folded model on seeded random fields, in its two
+    forms: the eddy viscosity computed (the main path's) and read (e_in)."""
+    itot, jtot, ktot = shape
+    n = itot * jtot * ktot
+    fb = n * torch.finfo(dtype).bits // 8
+    rows = []
+    with tempfile.TemporaryDirectory() as workdir:
+        m = build(case, itot, jtot, ktot, dtype, workdir, device)
+        fz, ctx = m.fused, m.ctx
+        gen = torch.Generator(device=device).manual_seed(itot + ktot)
+
+        def rnd(scale=1., k=ctx.kcells):
+            return scale * torch.randn((k, jtot, itot), dtype=dtype,
+                                       device=device, generator=gen)
+
+        names = list(m.fields.prognostic_names)
+        s = {nm: rnd() for nm in names}
+        t = {nm: rnd(1e-3) for nm in names}
+        e = rnd(k=ktot).abs()
+        nbytes = (4 * len(names) + 2) * fb
+        by_bytes = 1e3 * nbytes / PEAK_BYTES_S
+        by_ops = 1e3 * FLOPS["tend_rk_fold"] * n / PEAK_FLOPS[dtype]
+        key = fold_function(dtype, fz.has_thermo, set(ptx) | set(loops or ()))
+        for form, e_in in (("evisc", None), ("e_in", e)):
+            def fn(e_in=e_in, **kw):
+                return fz.tend_rk_fold(s, t, None, 0.5, -5. / 9., 2., False,
+                                       True, e=e_in, **kw)
+            row = {"label": label, "kernel": "tend_rk_fold", "form": form,
+                   "shape": list(shape), "dtype": str(dtype)[6:],
+                   "ms": events_ms(fn), "bound_ms": max(by_bytes, by_ops),
+                   "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+                   "ops_per_point": FLOPS["tend_rk_fold"],
+                   "gbytes": nbytes / 1e9, "ptxas": ptx.get(key),
+                   "function": key, "card": card}
+            fold_extra(row, fz, dtype, shape, fn, loops, clock_ghz, device)
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            print(json.dumps(row), flush=True)
+            rows.append(row)
+        del m, s, t, e
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return rows
+
+
+def s_tend_rows(label, case, shape, step, ptx, card, device="cuda",
+                loops=None, clock_ghz=None):
     """K2 and K22 (the dry RK-folded model), K20 (the substep without the RK
     fold) or K15 (the generic model with one scalar) on seeded random
-    fields: the kernels whose scalar tendency is s_tend."""
+    fields: the kernels whose scalar tendency is s_tend.  K22's row takes
+    fold_extra's columns (loops: sass_loops of the build)."""
     dtype = torch.float32
     itot, jtot, ktot = shape
     n = itot * jtot * ktot
@@ -564,19 +740,25 @@ def s_tend_rows(label, case, shape, step, ptx, card, device="cuda"):
             calls = [("tend_rk", lambda: fz.tend_rk(s, t, e, 0.5, -5. / 9.,
                                                     False, True),
                       (4 * nf + 1) * fb),
-                     ("tend_rk_fold", lambda: fz.tend_rk_fold(
-                         s, t, None, 0.5, -5. / 9., 2., False, True),
+                     ("tend_rk_fold", lambda **kw: fz.tend_rk_fold(
+                         s, t, None, 0.5, -5. / 9., 2., False, True, **kw),
                       (4 * nf + 2) * fb)]
         for name, fn, nbytes in calls:
             by_bytes = 1e3 * nbytes / PEAK_BYTES_S
             by_ops = 1e3 * FLOPS[name] * n / PEAK_FLOPS[dtype]
             key = "%s<float>" % S_TEND_FUNCTIONS[name]
+            if name == "tend_rk_fold":
+                key = fold_function(dtype, fz.has_thermo,
+                                    set(ptx) | set(loops or ()))
             row = {"label": label, "kernel": name, "shape": list(shape),
                    "dtype": "float32", "ms": events_ms(fn),
                    "bound_ms": max(by_bytes, by_ops),
                    "bound_by": "bytes" if by_bytes >= by_ops else "operations",
                    "ops_per_point": FLOPS[name], "gbytes": nbytes / 1e9,
                    "ptxas": ptx.get(key), "function": key, "card": card}
+            if name == "tend_rk_fold":
+                fold_extra(row, fz, dtype, shape, fn, loops, clock_ghz,
+                           device)
             row["bound_share"] = row["bound_ms"] / row["ms"]
             print(json.dumps(row), flush=True)
             rows.append(row)
@@ -590,6 +772,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None)
     ap.add_argument("--label", default="this tree")
+    ap.add_argument("--groups", default=",".join(GROUPS),
+                    help="comma list of the groups to time, of %s"
+                    % ", ".join(GROUPS))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("ring_timing: no CUDA device")
@@ -597,14 +782,20 @@ def main():
     print("card: %s; tree: %s" % (card, args.label), flush=True)
     lib, _, log = kernels.build()
     ptx = ptxas_info(log)
-    sections = sass_sections(sass_text(lib), MICRO2)
+    sass = sass_text(lib)
+    sections = sass_sections(sass, MICRO2)
+    loops = sass_loops(sass, S_TEND_FUNCTIONS["tend_rk_fold"])
     clock = max_sm_clock_ghz()
     rows = []
-    for label, case, shape, dtype, S in SHAPES:
+    groups = set(args.groups.split(","))
+    for label, case, shape, dtype, S in SHAPES if "rings" in groups else ():
         rows += time_shape(label, case, shape, dtype, S, ptx, card)
-    for label, case, shape, step in S_TEND_SHAPES:
-        rows += s_tend_rows(label, case, shape, step, ptx, card)
-    for label, shape, dtype in MICRO2_SHAPES:
+    for label, case, shape, step in S_TEND_SHAPES if "s_tend" in groups else ():
+        rows += s_tend_rows(label, case, shape, step, ptx, card,
+                            loops=loops, clock_ghz=clock)
+    for label, case, shape, dtype in FOLD_SHAPES if "fold" in groups else ():
+        rows += fold_rows(label, case, shape, dtype, ptx, card, loops, clock)
+    for label, shape, dtype in MICRO2_SHAPES if "micro2" in groups else ():
         with tempfile.TemporaryDirectory() as workdir:
             m = build("rico", *shape, dtype, workdir)
             rows += micro2_rows(m, label, shape, dtype, ptx, card, sections,

@@ -96,6 +96,19 @@ def test_plan_at_the_main_shapes():
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k22_blocks_fit_an_sm(dtype):
+    """As many K22 blocks as its launch bounds ask (three in float32, two in
+    float64) fit an SM's 228 KB, 1 KB of it reserved a block."""
+    blocks = 3 if dtype == torch.float32 else 2
+    assert blocks * (kmarch.fold_smem(dtype) + 1024) <= 233472
+    assert kmarch.SMEM["tend_rk_fold"](0, dtype, True) == kmarch.fold_smem(
+        dtype)
+    p = kmarch.plan("tend_rk_fold", 512, 512, 512, 0, dtype, 132 * blocks)
+    assert (p.tiles_i, p.tiles_j) == (16, 64)
+    assert p.waves == -(-p.tiles_i * p.tiles_j * p.chunks // (132 * blocks))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_shared_memory_fits(dtype):
     assert A.max_scalars(dtype) == kmarch.K13_MAXS == 4
     for S in range(1, A.max_scalars(dtype) + 1):
@@ -138,6 +151,25 @@ def test_python_constants_are_the_sources():
     _, adv_src = constants("advec_interp.cu")
     assert ("((size_t)S * K13_R * km::Slot<K13_TJ>::SIZE + K13_RR * km::NCP)"
             in adv_src)
+    # K22: its tile, halo, ring depths, e's row and the staged table row,
+    # and its shared-memory formula
+    fold, fold_src = constants("tend_rk_fold.cu")
+    assert (fold["K22_TJ"], fold["K22_HALO"], fold["K22_R"], fold["K22_ER"],
+            fold["K22_NTC"]) == (kmarch.K22_TJ, kmarch.K22_HALO, kmarch.K22_R,
+                                 kmarch.K22_ER, kmarch.K22_NTC)
+    assert "K22_EW = km::TI + 2;" in fold_src and kmarch.K22_EW == kmarch.TI + 2
+    assert "K22_NT = km::TI * K22_TJ;" in fold_src
+    assert "using FoldSlot = km::Slot<K22_TJ, K22_HALO>;" in fold_src
+    flat = re.sub(r"\s+", " ", fold_src)
+    assert ("((size_t)K22_R * 4 * FoldSlot::SIZE + K22_ER * K22_ESZ + 2 * "
+            "K22_TJ * (km::TI + 1) + 2 * (K22_TJ + 1) * km::TI + K22_R * "
+            "K22_NTC) * sizeof(T)" in flat)
+    assert "K22_ESZ = (K22_TJ + 2) * K22_EW;" in fold_src
+    # the staged row holds ct (NTG columns) and then ce (NE) at K22_CE
+    assert fold["K22_CE"] >= kmarch.NTG and fold["K22_CE"] + 6 <= fold["K22_NTC"]
+    assert kmarch.fold_smem(torch.float32) == (
+        6 * 4 * 12 * 40 + 4 * 10 * 34 + 2 * 8 * 33 + 2 * 9 * 32 + 6 * 32) * 4
+    assert "__launch_bounds__(K22_NT, sizeof(T) == 4 ? 3 : 2)" in fold_src
     # chunk_bounds: the same integer formula on both sides
     _, km_src = constants("kmarch.cuh")
     assert "k0 = (int)((long long)z * ktot / chunks);" in km_src
@@ -312,3 +344,37 @@ def test_k16_wrapper_plans(monkeypatch):
                                  396).chunks
     assert a2[-1] == 3
     assert a1[:8] == tuple(x) + (o4.cc,)
+
+
+def test_k22_wrapper_plans_and_splits_the_carries(monkeypatch):
+    """K22's wrapper: the chunk count of the plan (or the one forced), and
+    the carries of u, v and w read from the old tensors and written to new
+    ones when both happen (not first, carry), in place otherwise."""
+    import chip_smoke
+    from microhh_torch.ops import fused as F
+    monkeypatch.setattr(F, "on_cpu", lambda t: False)
+    m = chip_smoke.build_model(torch, 40, 16, torch.float32, "cpu")
+    m.build_step()
+    fz, ctx = m.fused, m.ctx
+    fz.k_tend_fold = Recorder("tend_rk_fold")
+    shape = (ctx.kcells, ctx.jtot, ctx.itot)
+    s = {n: torch.zeros(shape) for n in F.PROGNOSTIC}
+    want = kmarch.plan("tend_rk_fold", 40, 40, 16, 0, torch.float32,
+                       396).chunks
+    for first, carry, chunks in ((True, True, None), (False, True, None),
+                                 (False, False, 5), (False, True, 16)):
+        t = {n: torch.zeros(shape) for n in F.PROGNOSTIC}
+        old = dict(t)
+        fz.tend_rk_fold(s, t, None, 0.5, -0.6, 2., first, carry,
+                        chunks=chunks)
+        _, a = fz.k_tend_fold.calls[-1]
+        t_in, t_out, tth = a[10:13], a[13:16], a[16]
+        assert a[-1] == (want if chunks is None else chunks)
+        assert tth is t["th"] is old["th"]
+        for n, x_in, x_out in zip(("u", "v", "w"), t_in, t_out):
+            assert x_in is (None if first else old[n])
+            assert x_out is (t[n] if carry else None)
+            # new tensors exactly when the carry is read and written
+            assert (t[n] is old[n]) == (first or not carry)
+    with pytest.raises(ValueError):
+        fz.tend_rk_fold(s, t, None, 0.5, -0.6, 2., False, True, chunks=17)

@@ -8,12 +8,16 @@ reads from a build log and how it wires its timed calls, without a card.
 * ``sass_sections`` cuts a cuobjdump listing at its barriers and counts
   each section's instructions, FP64 and MUFU ones apart, and
   ``micro2_issue`` turns K11's six sections into an issue time;
+  ``sass_loops`` finds K22's per-level loop (a backward branch around a
+  barrier, the code after the kernel's last EXIT left out) and
+  ``fold_issue`` turns it into instructions a point and an issue time;
 * each timed group runs end to end on the CPU at a tiny shape of its case
   (the wrappers take their plain versions there), with CUDA-event timing
   replaced by one call: the scalar sweep's rows (K10 with advection off
   and on; K19 once a scalar and in one launch), the rows of the kernels
-  that call ``s_tend`` (K2, K22, K20, K15) and K11's (the cell's state and
-  heavy rain).
+  that call ``s_tend`` (K2, K22, K20, K15), K22's on its other paths
+  (``fold_rows``: both forms, with its occupancy, chunks, waves and
+  one-chunk time) and K11's (the cell's state and heavy rain).
 """
 
 import os
@@ -119,8 +123,12 @@ def test_sweep_rows_run_on_the_cpu(label, shape, one_call, tmp_path):
 
 @pytest.mark.parametrize("label,case,shape,step", R.S_TEND_SHAPES,
                          ids=[s[0] for s in R.S_TEND_SHAPES])
-def test_s_tend_rows_run_on_the_cpu(label, case, shape, step, one_call):
+def test_s_tend_rows_run_on_the_cpu(label, case, shape, step, one_call,
+                                    monkeypatch):
+    from microhh_torch import kernels
     torch.manual_seed(3)
+    # K22's row asks the card for its occupancy (fold_extra)
+    monkeypatch.setattr(kernels.Kernel, "info", lambda self, *a: INFO)
     rows = R.s_tend_rows(label, case, (16, 8, 12), step, {}, "cpu",
                          device="cpu")
     want = {"drycblles": ["tend_rk", "tend_rk_fold"],
@@ -128,8 +136,14 @@ def test_s_tend_rows_run_on_the_cpu(label, case, shape, step, one_call):
             "SBL_Smag": ["tend_scalar_rk"]}[case]
     assert [r["kernel"] for r in rows] == want
     for r in rows:
-        assert r["function"] == "%s<float>" % R.S_TEND_FUNCTIONS[r["kernel"]]
+        # K22 is templated on its thermo flag
+        want = ("<float,true>" if r["kernel"] == "tend_rk_fold"
+                else "<float>")
+        assert r["function"] == R.S_TEND_FUNCTIONS[r["kernel"]] + want
         assert r["bound_ms"] > 0 and r["shape"] == [16, 8, 12]
+        if r["kernel"] == "tend_rk_fold":
+            assert r["blocks_per_sm"] == 3 and r["chunks"] >= 1
+            assert r["ms_one_chunk"] == 1.0
 
 
 # a cuobjdump -sass listing in the form the CUDA toolkit prints it: two
@@ -211,3 +225,82 @@ def test_micro2_rows_run_on_the_cpu(one_call, tmp_path):
     s, ql, dt = R.micro2_state(m, True)
     assert float(s["qr"].max()) > 0.
     assert dt == 2.5 * float(m.grid.dz.min()) / 9.65
+
+
+# K22's k-loop around its barrier (after the warm-up's), an inner loop
+# without one, a slow-path subroutine and, after the kernel's last EXIT,
+# the path a diverged warp takes to the barrier
+FOLD_SASS = """
+\t\tFunction : _ZN3mhh19tend_rk_fold_kernelIfLb1EEEvNS_8FoldArgsIT_EE
+        /*0000*/                   S2R R0, SR_TID.X ;
+        /*0010*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0020*/                   FADD R2, R3, R4 ;
+        /*0030*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0040*/                   LDS R2, [R3] ;
+        /*0050*/                   FMUL R2, R3, R4 ;
+        /*0060*/                   IADD3 R6, R6, 0x1, RZ ;
+        /*0070*/               @P1 BRA 0x50 ;
+        /*0080*/                   STG.E desc[UR4][R2.64], R5 ;
+        /*0090*/              @!P2 CALL.REL.NOINC 0x110 ;
+        /*00a0*/               @P3 BRA 0x30 ;
+        /*00b0*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*00c0*/               @P0 EXIT ;
+        /*00d0*/                   STG.E desc[UR4][R2.64], R6 ;
+        /*00e0*/                   EXIT ;
+        /*00f0*/                   BAR.SYNC.DEFER_BLOCKING R2, R2 ;
+        /*0100*/                   BRA 0x40 ;
+        /*0110*/                   MUFU.RCP R4, R3 ;
+        /*0120*/                   BRA 0x110 ;
+"""
+
+
+def test_sass_loops_and_fold_issue():
+    loops = R.sass_loops(FOLD_SASS, R.S_TEND_FUNCTIONS["tend_rk_fold"])
+    (key, found), = loops.items()
+    assert key == "tend_rk_fold_kernel<float,true>"
+    assert R.fold_function(torch.float32, True, loops) == key
+    assert (R.fold_function(torch.float64, False, {"x<double>"})
+            == "tend_rk_fold_kernel<double,false>")
+    # the PR-6 form's instance, where a build holds it
+    assert (R.fold_function(torch.float32, True,
+                            {"tend_rk_fold_kernel<float>"})
+            == "tend_rk_fold_kernel<float>")
+    # the k-loop 0x30-0xa0; the inner loop has no barrier, and the diverged
+    # warp's branch back lies past the last EXIT
+    assert found == [{"total": 8, "fp64": 0, "mufu": 0, "bar": 1}]
+    out = R.fold_issue(found, (64, 16, 10), 8, 2.0, 132)
+    assert out["instructions_a_point"] == 8
+    warps = 2 * 2 * 8 * 10
+    assert out["issue_ms"] == pytest.approx(
+        1e3 * warps * 8 / (132 * 4 * 2.0e9))
+    assert out["issue_bound_by"] == "total"
+    assert R.fold_issue([], (64, 16, 10), 8, 2.0, 132) is None
+    assert R.fold_issue(found * 2, (64, 16, 10), 8, 2.0, 132) is None
+
+
+@pytest.mark.parametrize("label,case,shape,dtype", R.FOLD_SHAPES,
+                         ids=[s[0] + " " + str(s[3])[6:] for s in R.FOLD_SHAPES])
+def test_fold_rows_run_on_the_cpu(label, case, shape, dtype, one_call,
+                                  monkeypatch):
+    from microhh_torch import kernels
+    torch.manual_seed(3)
+    monkeypatch.setattr(kernels.Kernel, "info", lambda self, *a: INFO)
+    found = R.sass_loops(FOLD_SASS, R.S_TEND_FUNCTIONS["tend_rk_fold"])
+    loops = {"tend_rk_fold_kernel<%s,%s>" % (t, th): found[
+        "tend_rk_fold_kernel<float,true>"] for t in ("float", "double")
+        for th in ("true", "false")}
+    rows = R.fold_rows(label, case, (40, 16, 12), dtype, {}, "cpu", loops,
+                       1.98, device="cpu")
+    assert [r["form"] for r in rows] == ["evisc", "e_in"]
+    thermo = "false" if case == "andren1994" else "true"
+    for r in rows:
+        assert r["function"] == "tend_rk_fold_kernel<%s,%s>" % (
+            "float" if dtype == torch.float32 else "double", thermo)
+        assert r["kernel"] == "tend_rk_fold" and r["dtype"] == str(dtype)[6:]
+        assert r["blocks_per_sm"] == 3 and r["registers"] == 64
+        assert r["chunks"] >= 1 and r["ms_one_chunk"] == 1.0
+        assert r["blocks"] == 2 * 2 * r["chunks"]
+        assert r["instructions_a_point"] == 8
+        nf = 3 if case == "andren1994" else 4
+        assert r["gbytes"] == pytest.approx(
+            (4 * nf + 2) * 40 * 16 * 12 * torch.finfo(dtype).bits / 8 / 1e9)
