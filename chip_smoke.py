@@ -45,13 +45,15 @@ Phases (any failure exits non-zero and prints no result line):
      and K21 on the sullivan2011 case at 45^2x24 and 48^2x32 and, without
      thermo, on the neutral Ekman LES at 45^2x8 and 48^2x32, the carries
      random;
-  3b. K16 (schemes 4 and 4m), K13 (2i4, 2i5, 2i53, 2i62; 1, 2 and 4
-     scalars and max_scalars + 2, which the wrapper splits over two
+  3b. K16 and K17 (schemes 4 and 4m; K17 with 1, 2, 3 and K17_MAXS + 1
+     scalars, the last over two launches), K13 (2i4, 2i5, 2i53, 2i62; 1, 2
+     and 4 scalars and max_scalars + 2, which the wrapper splits over two
      launches) and the scalar sweep K10/K19 (with and without the RK fold,
      advection on and off, 1, 2, 3, 4 and 6 scalars, the last over two
      launches) against their plain versions with the k-split forced to 1,
-     2, 3, 4 and 5 chunks and to one level a chunk, at ktot 16 and 6 (chunks
-     of one to three levels that touch both walls), on partial tiles: K16 on
+     2, 3, 4 and 5 chunks and to one level a chunk (K16 and K17 also to
+     K17's plan), at ktot 16 and 6 (chunks of one to three levels that touch
+     both walls), on partial tiles: K16 and K17 on
      the moser180 case at 45x40 and the weakscaling case at 48x20, K13 and
      the sweep on the rico case at 45x24 and 48x20, float64 and float32;
      and K22 in every form of phase 3 (first x carry, the surface row given
@@ -123,8 +125,8 @@ hold, each once, over 3.35 TB/s, or its operations over 67 TFLOP/s (float32
 outside the tensor cores; half that for float64) where that is larger; and, where one PyTorch call
 computes the same function (the two DFTs), that call's time; beside K5
 and K6 also their form, C, F, shared memory and registers per CTA, GB/s
-and share of the bound; beside K13 and K16 their registers, local bytes a
-thread, shared memory a block, resident blocks an SM (as the card reports
+and share of the bound; beside K13, K16 and K17 their registers, local
+bytes a thread, shared memory a block, resident blocks an SM (as the card reports
 them), chunk count, blocks and waves at the path's shape, and the same
 beside the scalar sweep K10/K19 and K22.
 With --profile FILE, a last phase traces two steps of each LES with
@@ -1069,11 +1071,13 @@ def check_micro2(torch):
                             "rico %dx%dx%d nsed=%d" % (n[0], n[1], k, nsed))
 
 
-def o4_kernel_cases(torch, m, seed, chunks=None):
+def o4_kernel_cases(torch, m, seed, chunks=None, counts=None):
     """(name, kernel call, plain call, error kind) for K16 and K17 on a
     4th-order model: random fields, ghost levels included, with distinct w
-    arrays under the two ghost types, and random carries; chunks: K16's
-    k-split forced (K16 alone then)."""
+    arrays under the two ghost types, and random carries; K17 with the
+    model's scalars or, with counts, with each count of scalars of their
+    own viscosities (more than max_scalars go over two launches); chunks:
+    the k-split of both forced."""
     ctx, o4 = m.ctx, m.o4
     gen = torch.Generator(device="cpu").manual_seed(seed)
     shape = (ctx.kcells, ctx.jtot, ctx.itot)
@@ -1082,10 +1086,17 @@ def o4_kernel_cases(torch, m, seed, chunks=None):
         return (scale * torch.randn(*shape, generator=gen,
                                     dtype=torch.float32)).to(ctx.dtype).to(ctx.device)
 
-    names = list(ctx.scalar_names)
+    if counts is None:
+        groups = [list(ctx.scalar_names)] if ctx.scalar_names else []
+    else:
+        extra = ["k17_s%d" % n for n in range(max(counts))]
+        o4.diff.viscs.update({nm: 1e-4 * (n + 1)
+                              for n, nm in enumerate(extra)})
+        groups = [extra[:S] for S in counts]
+    most = max((len(g) for g in groups), default=0)
     u, v, wc, wd = rnd(), rnd(), rnd(), rnd()
-    a = [rnd() for _ in names]
-    t0 = [rnd(0.1) for _ in range(3 + len(names))]
+    a = [rnd() for _ in range(most)]
+    t0 = [rnd(0.1) for _ in range(3 + most)]
 
     def mom(kernel):
         t = [x.clone() for x in t0[:3]]
@@ -1095,15 +1106,19 @@ def o4_kernel_cases(torch, m, seed, chunks=None):
             o4.momentum_plain(u, v, wc, wd, *t)
         return t
 
-    def scal(kernel):
-        t = [x.clone() for x in t0[3:]]
-        (o4.scalars if kernel else o4.scalars_plain)(u, v, wc, names, a, t)
+    def scal(kernel, names):
+        S = len(names)
+        t = [x.clone() for x in t0[3:3 + S]]
+        if kernel:
+            o4.scalars(u, v, wc, names, a[:S], t, chunks=chunks)
+        else:
+            o4.scalars_plain(u, v, wc, names, a[:S], t)
         return t
 
     cases = [("o4_mom", lambda: mom(True), lambda: mom(False), "field")]
-    if names and chunks is None:
-        cases.append(("o4_scalars", lambda: scal(True), lambda: scal(False),
-                      "field"))
+    for names in groups:
+        cases.append(("o4_scalars", lambda g=names: scal(True, g),
+                      lambda g=names: scal(False, g), "field"))
     return cases
 
 
@@ -1215,11 +1230,13 @@ def fold_chunks(m, dtype):
 
 
 def check_kmarch(torch):
-    """K16 (both schemes), K13 (every scheme) and the scalar sweep K10/K19
-    (sweep_cases) against their plain versions with the k-split forced
-    (forced_chunks) at ktot 6 and 16, so that chunks of one to three levels
-    touch both walls, on partial tiles: K16 on moser180 at 45x40 and
-    weakscaling at 48x20, K13 on rico at 45x24 and 48x20 with 1, 2, 4 and
+    """K16 and K17 (both schemes), K13 (every scheme) and the scalar sweep
+    K10/K19 (sweep_cases) against their plain versions with the k-split
+    forced (forced_chunks; for K16 and K17 also K17's plan at one scalar)
+    at ktot 6 and 16, so that chunks of one to three levels touch both
+    walls, on partial tiles: K16 and K17 (1, 2, 3 and K17_MAXS + 1 scalars,
+    the last over two launches) on moser180 at 45x40 and weakscaling at
+    48x20, K13 on rico at 45x24 and 48x20 with 1, 2, 4 and
     max_scalars + 2 scalars, the sweep on rico at 45x24 and 48x20; K22 in
     every form of kernel_cases (fold_chunks) on drycblles at 512^2x32 and
     on the neutral Ekman LES at 45^2x8 (a partial tile, null th)."""
@@ -1235,15 +1252,18 @@ def check_kmarch(torch):
                             "%s %s chunks=%d" % (label, shape_str(m), chunks))
             del m
             torch.cuda.empty_cache()
+    from microhh_torch.ops import kmarch
     for label, build, n in (("moser 4m", build_moser, (45, 40)),
                             ("weakscaling 4", build_weakscaling, (48, 20))):
         for k in (16, 6):
             for dtype in (torch.float64, torch.float32):
                 m = build(torch, n, k, dtype, "cuda")
                 m.build_step()
-                for chunks in forced_chunks(k):
+                for chunks in sorted(set(forced_chunks(k))
+                                     | {m.o4.scalar_plan(1, dtype).chunks}):
                     for name, kern, plain, kind in o4_kernel_cases(
-                            torch, m, n[0] + k, chunks=chunks):
+                            torch, m, n[0] + k, chunks=chunks,
+                            counts=(1, 2, 3, kmarch.K17_MAXS + 1)):
                         compare(torch, name, kern, plain, kind, dtype,
                                 "%s %dx%dx%d chunks=%d"
                                 % (label, n[0], n[1], k, chunks))
@@ -1477,10 +1497,11 @@ FLOPS_PER_POINT = {"evisc": 100, "evisc_n2": 100, "limits": 110,
                    "advec_scalars": 130, "pres_rhs": 10, "pres_apply": 15,
                    "tdma": 16, "tdma_ri": 12, "tend_uvw_acc": 430,
                    "tend_scalar_acc": 100, "tendencies": 700,
-                   # K16 and K17 by scheme (K17 per scalar); K16 computes
+                   # K16 and K17 by scheme (K17 per scalar, with one
+                   # scalar's share of the vertical weights); K16 computes
                    # each face interpolant once per point
                    "o4_mom": {"4": 560, "4m": 510},
-                   "o4_scalars": {"4": 215, "4m": 130}}
+                   "o4_scalars": {"4": 185, "4m": 140}}
 
 
 def pair(kern, plain, nbytes, flops, lib=None, peak_flops=PEAK_FLOPS,
@@ -1518,7 +1539,7 @@ def registers_of(build_log):
 
 
 def kmarch_info(kern, dtype, scheme, S, plan):
-    """What a k-marching kernel (K13, K16, the scalar sweep, K22) reports
+    """What a k-marching kernel (K13, K16, K17, the scalar sweep, K22) reports
     at a path's shape: its registers, local bytes a thread, shared memory a
     block and resident blocks an SM from the card, its chunk count, blocks
     and waves."""
@@ -2006,11 +2027,15 @@ def time_o4_kernels(torch, m, s, plain_reps):
         info=kmarch_info(o4.k_mom, m.dtype, SCHEME_ID[o4.scheme], 0,
                          o4.plan(m.dtype)))}
     if names:
+        from microhh_torch.ops.o4_fused import max_scalars
+        S1 = min(S, max_scalars(m.dtype))
         pairs["o4_scalars"] = pair(
             lambda: o4.scalars(u, v, wc, names, a, ta),
             lambda: o4.scalars_plain(u, v, wc, names, a, ta),
             (3 + 3 * S) * fb, FLOPS_PER_POINT["o4_scalars"][o4.scheme] * S * n,
-            peak_flops=peak)
+            peak_flops=peak,
+            info=kmarch_info(o4.k_scal, m.dtype, SCHEME_ID[o4.scheme], S1,
+                             o4.scalar_plan(S1, m.dtype)))
     out = time_pairs(torch, pairs, plain_reps)
     for a_t in t.values():
         a_t.zero_()

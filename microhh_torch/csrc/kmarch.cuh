@@ -50,10 +50,10 @@ __device__ __forceinline__ void chunk_bounds(int z, int chunks, int ktot,
     k1 = (int)((long long)(z + 1) * ktot / chunks);
 }
 
-// asynchronous copies of N bytes, global to shared
+// asynchronous copies of N bytes, global to shared (s a shared-window
+// address)
 template <int N>
-__device__ __forceinline__ void cp_async(void* smem, const void* gmem) {
-    const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+__device__ __forceinline__ void cp_async(unsigned s, const void* gmem) {
     if (N == 16)
         asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
                      "l"(gmem)
@@ -62,6 +62,11 @@ __device__ __forceinline__ void cp_async(void* smem, const void* gmem) {
         asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
                      "l"(gmem), "n"(N)
                      : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem) {
+    cp_async<N>((unsigned)__cvta_generic_to_shared(smem), gmem);
 }
 
 __device__ __forceinline__ void commit() {

@@ -25,13 +25,8 @@
 // 4 B a point in f32.  As written here it does about 560 operations a point
 // (510 in 4m; 840 and 640 when every thread computed each face interpolant
 // it used), so the bytes bind on an H100.  K17 reads 3 + 2S fields and
-// writes S, about 215 operations a scalar and point (130 in 4m).
-// K17's design (K12's): a block of OI x OJ threads owns an (OJ, OI) tile and
-// marches through all of k; each scalar keeps a ring of seven (OJ+6) x
-// (OI+6) planes (tile + 3-cell periodic halo) in dynamic shared memory,
-// loaded synchronously, and u, v (i-1..i+2, j-1..j+2) and w (k-1..k+2) come
-// straight from global memory; the wrapper splits the scalars over launches
-// when their rings exceed a block's shared memory.
+// writes S, about 135 operations a scalar and point (90 in 4m) and 49 a
+// point for the vertical weights, so the bytes bind too.
 // K16's design (kmarch.cuh): a block of 32 x K16_TJ threads marches one
 // chunk of the levels of its tile, the chunk count chosen by the wrapper so
 // that the grid fills the card in whole waves.  Shared memory holds only
@@ -44,6 +39,27 @@
 // registers, shifted by one a level.  The table rows come into shared
 // memory with the planes.  The carries are updated in place, each point
 // and level by one block.
+// K17's design (kmarch.cuh, as K13's): a block of 32 x K17_TJ threads
+// marches one chunk of the levels of its tile.  Shared memory holds plane k
+// of each scalar, of u and of v (the tile and a 3-cell periodic halo) side
+// by side in one ring slot a level, copied by cp.async two levels ahead
+// (the fields share the loader's offsets, the level's offset is carried
+// from level to level), one barrier a level; each thread
+// keeps its own column, planes k-3..k+3 of every scalar and w at half
+// levels k-1..k+2, in registers, shifted by one a level.  The vertical
+// advection and diffusion are seven weights on that column: a per-level
+// table (ops/o4_fused.py build_k17_rows, staged with the planes) holds
+// them per unit w at each of the four half levels, with the ladder's wall
+// rows and, in 4m, the mirrored wall fluxes at the global levels 0 and
+// ktot-1 folded in, so both schemes share one vertical body and a chunk's
+// edges need no rule of their own; the weights are formed once a point and
+// level for all the scalars.  The horizontal parts take the seven values
+// of the point's x and y lines, which the 7-point Laplacian reads anyway:
+// each face interpolant is then four register FMAs, so they are not staged
+// as flux planes (which would cost a second barrier, two stores and eight
+// loads a scalar and point, and a halo of faces).  The scalar count is a
+// template parameter (at most K17_MAXS a launch; the wrapper splits the
+// rest over launches).
 #include "kmarch.cuh"
 
 namespace mhh {
@@ -53,47 +69,9 @@ namespace o4 {
 enum { TXA = 0, TG = 6, TWC = 12, TGW = 18, DZI4 = 24, DZHI4 = 25, WMASK = 26,
        NC = 27 };
 
-constexpr int OI = 32;
-constexpr int OJ = 16;
-constexpr int OH = 3;
-constexpr int WI = OI + 2 * OH;
-constexpr int WJ = OJ + 2 * OH;
-constexpr int NR = 7;
-constexpr int MAXS = 8;
+constexpr int OH = 3;   // ghost levels the fields need
 
 extern __shared__ __align__(16) unsigned char o4_smem[];
-
-__device__ __forceinline__ int slot7(int p) { return (p + NR) % NR; }
-
-template <typename T>
-__device__ __forceinline__ void load_tile7(T (*sh)[WI], const T* __restrict__ a,
-                                           long long level, int j0, int i0,
-                                           int jtot, int itot) {
-    const long long base = level * (long long)jtot * itot;
-    for (int idx = threadIdx.y * OI + threadIdx.x; idx < WJ * WI;
-         idx += OI * OJ) {
-        const int r = idx / WI;
-        const int c = idx - r * WI;
-        const int jg = wrap(j0 + r - OH, jtot);
-        const int ig = wrap(i0 + c - OH, itot);
-        sh[r][c] = __ldg(a + base + (long long)jg * itot + ig);
-    }
-}
-
-// one field's seven-plane ring seen from the thread's point
-template <typename T>
-struct View7 {
-    const T (*ring)[WJ][WI];
-    int r, c;
-    __device__ __forceinline__ T operator()(int s, int dj, int di) const {
-        return ring[s][r + dj][c + di];
-    }
-};
-
-template <typename T>
-__device__ __forceinline__ View7<T> view7(const T (*ring)[WJ][WI]) {
-    return View7<T>{ring, (int)threadIdx.y + OH, (int)threadIdx.x + OH};
-}
 
 // ci interpolation and cg gradient of four consecutive values
 template <typename T>
@@ -108,25 +86,6 @@ __device__ __forceinline__ T grad4(T a, T b, T c, T d) {
            + T(-1. / 24.) * d;
 }
 
-// plane s of Q interpolated to i-1/2 (ixh) or j-1/2 (jyh) at offset (dj, di)
-template <typename T>
-__device__ __forceinline__ T ixh(const View7<T>& Q, int s, int dj, int di) {
-    return interp4(Q(s, dj, di - 2), Q(s, dj, di - 1), Q(s, dj, di),
-                   Q(s, dj, di + 1));
-}
-
-template <typename T>
-__device__ __forceinline__ T jyh(const View7<T>& Q, int s, int dj, int di) {
-    return interp4(Q(s, dj - 2, di), Q(s, dj - 1, di), Q(s, dj, di),
-                   Q(s, dj + 1, di));
-}
-
-// flux divergence along one axis: f(d) is the flux at offset d - 1/2
-template <typename T, typename F>
-__device__ __forceinline__ T div4(F f) {
-    return grad4<T>(f(-1), f(0), f(1), f(2));
-}
-
 // the 4m form along one axis: vel(d) the advecting velocity at offset
 // d - 1/2, q(d) the transported quantity at offset d
 template <typename T, typename FV, typename FQ>
@@ -137,42 +96,6 @@ __device__ __forceinline__ T flux4(FV vel, FQ q) {
     const T c = vel(1) * h * (q0 + q(1));
     const T d = vel(2) * h * (q0 + q(3));
     return T(1. / 24.) * (d - a) + T(-27. / 24.) * (c - b);
-}
-
-// 7-point horizontal second derivative of plane s at the point
-template <typename T>
-__device__ __forceinline__ T lap_h(const View7<T>& Q, int s, T dxidxi,
-                                   T dyidyi) {
-    const T c0 = T(-1460. / 576.), c1 = T(783. / 576.), c2 = T(-54. / 576.),
-            c3 = T(1. / 576.);
-    const T q0 = Q(s, 0, 0);
-    return (c3 * (Q(s, 0, -3) + Q(s, 0, 3)) + c2 * (Q(s, 0, -2) + Q(s, 0, 2))
-            + c1 * (Q(s, 0, -1) + Q(s, 0, 1)) + c0 * q0) * dxidxi
-           + (c3 * (Q(s, -3, 0) + Q(s, 3, 0)) + c2 * (Q(s, -2, 0) + Q(s, 2, 0))
-              + c1 * (Q(s, -1, 0) + Q(s, 1, 0)) + c0 * q0) * dyidyi;
-}
-
-// Cell family: sum_e cg_e * V_e * X_e with X_e the six-tap row at half level
-// k-1+e (table row k+e) applied to the column q[0..6] = planes k-3..k+3;
-// vel = nullptr gives the gradient (diffusion) form.  Taps outside the
-// window have zero weight by construction and are skipped.
-template <typename T>
-__device__ __forceinline__ T vd_cell(const T* __restrict__ cc, int k, int base,
-                                     const T* q, const T* vel) {
-    T x[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-        const T* row = cc + (long long)(k + e) * NC + base;
-        T acc = T(0);
-#pragma unroll
-        for (int d = -3; d < 3; ++d) {
-            const int off = e - 1 + d;
-            if (off < -3 || off > 3) continue;
-            acc = acc + row[d + 3] * q[off + 3];
-        }
-        x[e] = vel ? vel[e] * acc : acc;
-    }
-    return grad4(x[0], x[1], x[2], x[3]);
 }
 
 // 4m, cell target at level k: -grad4 of the half-position fluxes, with the
@@ -542,90 +465,238 @@ o4_mom_kernel(const T* __restrict__ u, const T* __restrict__ v,
     km::wait_all();
 }
 
+// K17's k-march (kmarch.cuh): 32 x K17_TJ tiles, K17_R ring slots of each
+// scalar's, u's and v's plane (plane k read across the plane, k+1 and k+2
+// in flight), K17_RR staged rows of the per-level table (row k read, two in
+// flight), at most K17_MAXS scalars a launch.  A staged row holds at
+// K17_ZA + 8 e + m the vertical advection's weight on column value m
+// (plane k-3+m) per unit w at half level k-1+e (e = 0..3), at K17_ZD + m
+// the vertical diffusion's (dzi4 folded in, the viscosity not).
+constexpr int K17_TJ = 8;
+constexpr int K17_NT = km::TI * K17_TJ;
+constexpr int K17_D = 2;
+constexpr int K17_R = K17_D + 1;
+constexpr int K17_RR = K17_D + 1;
+static_assert(K17_D <= 3, "the copies reach plane ktot - 1 + K17_D");
+constexpr int K17_MAXS = 4;
+constexpr int K17_ZA = 0;
+constexpr int K17_ZD = 32;
+constexpr int K17_NCP = 40;
+
 // the scalars', their carries' pointers and their viscosities, by value
 template <typename T>
-struct Scalars {
-    const T* a[MAXS];
-    T* ta[MAXS];
-    T svisc[MAXS];
+struct O4Scalars {
+    const T* a[K17_MAXS];
+    T* ta[K17_MAXS];
+    T svisc[K17_MAXS];
 };
 
-template <typename T, bool M>
-__global__ void __launch_bounds__(OI * OJ)
-o4_scalars_kernel(const T* __restrict__ u, const T* __restrict__ v,
-                  const T* __restrict__ wc, const Scalars<T> sc, int S,
-                  const T* __restrict__ cc, int itot, int jtot, int ktot,
-                  int ks, T dxi, T dyi) {
-    // one ring per scalar
-    T (*sh)[NR][WJ][WI] = reinterpret_cast<T (*)[NR][WJ][WI]>(o4_smem);
-    const int i0 = blockIdx.x * OI, j0 = blockIdx.y * OJ;
-    const int i = i0 + threadIdx.x, j = j0 + threadIdx.y;
-    const bool inside = i < itot && j < jtot;
-    const long long plane = (long long)itot * jtot;
-    const T dxidxi = dxi * dxi, dyidyi = dyi * dyi;
-    const long long o2 = (long long)j * itot + i;
-    // offsets -1..2 of the point along i and j, periodic
-    long long oi[4], oj[4];
+// eight consecutive values of a staged row (p 16-byte aligned)
+__device__ __forceinline__ void load8(const float* p, float (&w)[8]) {
+    const float4 a = reinterpret_cast<const float4*>(p)[0];
+    const float4 b = reinterpret_cast<const float4*>(p)[1];
+    w[0] = a.x; w[1] = a.y; w[2] = a.z; w[3] = a.w;
+    w[4] = b.x; w[5] = b.y; w[6] = b.z; w[7] = b.w;
+}
+
+__device__ __forceinline__ void load8(const double* p, double (&w)[8]) {
 #pragma unroll
-    for (int d = 0; d < 4; ++d) {
-        oi[d] = (long long)j * itot + wrap(i + d - 1, itot);
-        oj[d] = (long long)wrap(j + d - 1, jtot) * itot + i;
+    for (int n = 0; n < 4; ++n) {
+        const double2 a = reinterpret_cast<const double2*>(p)[n];
+        w[2 * n] = a.x;
+        w[2 * n + 1] = a.y;
     }
+}
 
-    auto load = [&](int p) {
-        const int s = slot7(p);
-        for (int n = 0; n < S; ++n)
-            load_tile7(sh[n][s], sc.a[n], ks + p, j0, i0, jtot, itot);
-    };
+// 7-point horizontal second derivative from the point's x and y lines,
+// which the advection has already taken into registers (x[3] = y[3] the
+// point), where K16's lap_p reads its slot
+template <typename T>
+__device__ __forceinline__ T lap_xy(const T (&x)[7], const T (&y)[7],
+                                    T dxidxi, T dyidyi) {
+    const T c0 = T(-1460. / 576.), c1 = T(783. / 576.), c2 = T(-54. / 576.),
+            c3 = T(1. / 576.);
+    return (c3 * (x[0] + x[6]) + c2 * (x[1] + x[5]) + c1 * (x[2] + x[4])
+            + c0 * x[3]) * dxidxi
+           + (c3 * (y[0] + y[6]) + c2 * (y[1] + y[5]) + c1 * (y[2] + y[4])
+              + c0 * y[3]) * dyidyi;
+}
 
-    for (int p = -3; p < 3; ++p) load(p);
-    for (int k = 0; k < ktot; ++k) {
-        load(k + 3);
-        __syncthreads();
-        if (inside) {
-            int sl[NR];
+// the advective flux divergence along one line (before the 1/dx factor):
+// vel[d] the velocity at face d - 3/2 of the point (d = 0..3), q the line
+template <bool M, typename T>
+__device__ __forceinline__ T hadv(const T (&vel)[4], const T (&q)[7]) {
+    if (M)
+        return flux4<T>([&](int d) { return vel[d + 1]; },
+                        [&](int d) { return q[d + 3]; });
+    return -grad4(vel[0] * interp4(q[0], q[1], q[2], q[3]),
+                  vel[1] * interp4(q[1], q[2], q[3], q[4]),
+                  vel[2] * interp4(q[2], q[3], q[4], q[5]),
+                  vel[3] * interp4(q[3], q[4], q[5], q[6]));
+}
+
+// four blocks an SM in float32 with one scalar (at most 64 registers, no
+// spill: 1.61 against 1.70 ms with three at weakscaling on an H100 at
+// 700 W, PERF.md section 6), three with two, two in float64; fewer with
+// more scalars, whose columns need the registers
+template <typename T, bool M, int S>
+__global__ void __launch_bounds__(
+    K17_NT, sizeof(T) == 4 ? (S == 1 ? 4 : (S == 2 ? 3 : 2))
+                           : (S <= 2 ? 2 : 1))
+o4_scalars_kernel(const T* __restrict__ u, const T* __restrict__ v,
+                  const T* __restrict__ wc, const O4Scalars<T> sc,
+                  const T* __restrict__ cz, int itot, int jtot, int ktot,
+                  int ks, T dxi, T dyi, int chunks, int vec_ok) {
+    constexpr int SZ = km::Slot<K17_TJ>::SIZE, R = km::RS, PL = (S + 2) * SZ;
+    // ring slots [K17_R][S + 2]: the S scalars', u's and v's planes of a
+    // level side by side; then the staged rows
+    T* const ring = reinterpret_cast<T*>(o4_smem);
+    T* const rows = ring + K17_R * PL;
+    const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * km::TI + tx;
+    const int i0 = blockIdx.x * km::TI, j0 = blockIdx.y * K17_TJ;
+    const int i = i0 + tx, j = j0 + ty;
+    const bool inside = i < itot && j < jtot;
+    int k0, k1;
+    km::chunk_bounds(blockIdx.z, chunks, ktot, k0, k1);
+    const long long plane = (long long)itot * jtot;
+    const km::PlaneLoader<T, K17_TJ, K17_NT> ld(
+        tid, i0, j0, itot, jtot, vec_ok && i0 + km::TI <= itot);
+    // the point (wrapped where the tile passes the plane's edge: only its
+    // stores are guarded), in the plane and in a slot
+    const int iw = wrap(i, itot), jw = wrap(j, jtot);
+    const long long o2 = (long long)jw * itot + iw;
+    const int me = (ty + km::H) * R + tx + km::C0;
+    const T dxidxi = dxi * dxi, dyidyi = dyi * dyi;
+    const unsigned ring_s = (unsigned)__cvta_generic_to_shared(ring);
+    const unsigned rows_s = (unsigned)__cvta_generic_to_shared(rows + tid);
+
+    // group p into slot sl: plane p of the scalars, u and v (l its offset;
+    // p <= ktot - 1 + K17_D, a ghost level), the fields sharing the
+    // loader's offsets, and table row p (a copy for a level past the
+    // chunk's end is never read)
+    auto issue = [&](int p, int sl, long long l) {
 #pragma unroll
-            for (int n = 0; n < NR; ++n) sl[n] = slot7(k - 3 + n);
-            const int s0 = sl[3];
-            const T* row = cc + (long long)k * NC;
-            const T dzi4 = row[DZI4];
-            const long long lev = (long long)(ks + k) * plane;
-            // u at i-1..i+2, v at j-1..j+2, w at the half levels k-1..k+2
-            T ux[4], vy[4], wv[4];
+        for (int n = 0; n < ld.NOP; ++n) {
+            if (ld.src[n] < 0) continue;
+            const unsigned d =
+                ring_s + (unsigned)(sl * PL + (ld.dst[n] & (km::VEC - 1)))
+                             * (unsigned)sizeof(T);
+            const long long g = l + ld.src[n];
+            constexpr unsigned F = SZ * sizeof(T);
+            if (ld.dst[n] & km::VEC) {
 #pragma unroll
-            for (int d = 0; d < 4; ++d) {
-                ux[d] = __ldg(u + lev + oi[d]);
-                vy[d] = __ldg(v + lev + oj[d]);
-                wv[d] = __ldg(wc + lev + (long long)(d - 1) * plane + o2);
-            }
-            for (int n = 0; n < S; ++n) {
-                const View7<T> A = view7<T>(sh[n]);
-                T q[NR];
+                for (int f = 0; f < S; ++f)
+                    km::cp_async<16>(d + f * F, sc.a[f] + g);
+                km::cp_async<16>(d + S * F, u + g);
+                km::cp_async<16>(d + (S + 1) * F, v + g);
+            } else {
 #pragma unroll
-                for (int m = 0; m < NR; ++m) q[m] = A(sl[m], 0, 0);
-                T t;
-                if (!M) {
-                    t = -div4<T>([&](int d) {
-                            return ux[d + 1] * ixh(A, s0, 0, d);
-                        }) * dxi;
-                    t = t - div4<T>([&](int d) {
-                                return vy[d + 1] * jyh(A, s0, d, 0);
-                            }) * dyi;
-                    t = t - vd_cell(cc, k, TXA, q, wv) * dzi4;
-                } else {
-                    t = flux4<T>([&](int d) { return ux[d + 1]; },
-                                 [&](int d) { return A(s0, 0, d); }) * dxi;
-                    t = t + flux4<T>([&](int d) { return vy[d + 1]; },
-                                     [&](int d) { return A(s0, d, 0); }) * dyi;
-                    t = t + vert4m_cell(k, ktot, q, wv) * dzi4;
-                }
-                t = t + sc.svisc[n] * (lap_h(A, s0, dxidxi, dyidyi)
-                                       + vd_cell<T>(cc, k, TG, q, nullptr) * dzi4);
-                sc.ta[n][lev + o2] = sc.ta[n][lev + o2] + t;
+                for (int f = 0; f < S; ++f)
+                    km::cp_async<sizeof(T)>(d + f * F, sc.a[f] + g);
+                km::cp_async<sizeof(T)>(d + S * F, u + g);
+                km::cp_async<sizeof(T)>(d + (S + 1) * F, v + g);
             }
         }
+        if (tid < K17_NCP)
+            km::cp_async<sizeof(T)>(
+                rows_s + (unsigned)(sl * K17_NCP * sizeof(T)),
+                cz + (long long)min(p, ktot - 1) * K17_NCP + tid);
+        km::commit();
+    };
+
+    // the register columns: planes k-3..k+3 of each scalar (the ghost
+    // levels as they are), w at the half levels k-1..k+2
+    long long lk = (long long)(ks + k0) * plane;    // plane k's offset
+    const long long ltop = (long long)(ks + ktot + 2) * plane;
+    T q[S][7], wv[4];
+#pragma unroll
+    for (int n = 0; n < S; ++n)
+#pragma unroll
+        for (int m = 0; m < 7; ++m)
+            q[n][m] = __ldg(sc.a[n] + lk + (m - 3) * plane + o2);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) wv[e] = __ldg(wc + lk + (e - 1) * plane + o2);
+
+    int sl = k0 % K17_R;                            // the slot of plane k
+#pragma unroll
+    for (int d = 0; d < K17_D; ++d)
+        issue(k0 + d, (sl + d) % K17_R, lk + d * plane);
+    for (int k = k0; k < k1; ++k) {
+        km::wait_pending<K17_D - 1>();
         __syncthreads();
+        // plane k + D into the slot plane k - 1 left
+        issue(k + K17_D, sl == 0 ? K17_R - 1 : sl - 1, lk + K17_D * plane);
+        // the column values of the next level, on their way during this one
+        const long long ln = k + 4 <= ktot + 2 ? lk + 4 * plane : ltop;
+        T qn[S];
+#pragma unroll
+        for (int n = 0; n < S; ++n) qn[n] = __ldg(sc.a[n] + ln + o2);
+        const T wn = __ldg(wc + lk + 3 * plane + o2);
+
+        // the vertical weights on the column, the same for every scalar
+        const T* zr = rows + sl * K17_NCP;
+        T cv[7], cd[8];
+        {
+            T za[8];
+            load8(zr + K17_ZA, za);
+#pragma unroll
+            for (int m = 0; m < 7; ++m) cv[m] = wv[0] * za[m];
+#pragma unroll
+            for (int e = 1; e < 4; ++e) {
+                load8(zr + K17_ZA + 8 * e, za);
+#pragma unroll
+                for (int m = 0; m < 7; ++m) cv[m] = cv[m] + wv[e] * za[m];
+            }
+            load8(zr + K17_ZD, cd);
+        }
+        // u at i-1..i+2 and v at j-1..j+2: the faces of the point's fluxes
+        const T* Pk = ring + sl * PL + me;
+        const T* U = Pk + S * SZ;
+        const T* V = Pk + (S + 1) * SZ;
+        const T ux[4] = {U[-1], U[0], U[1], U[2]};
+        const T vy[4] = {V[-R], V[0], V[R], V[2 * R]};
+        const long long o = lk + o2;
+#pragma unroll
+        for (int n = 0; n < S; ++n) {
+            const T* P = Pk + n * SZ;
+            T x[7], y[7];
+#pragma unroll
+            for (int d = -3; d <= 3; ++d) {
+                x[d + 3] = d ? P[d] : q[n][3];
+                y[d + 3] = d ? P[d * R] : q[n][3];
+            }
+            T va = cv[0] * q[n][0], vd = cd[0] * q[n][0];
+#pragma unroll
+            for (int m = 1; m < 7; ++m) {
+                va = va + cv[m] * q[n][m];
+                vd = vd + cd[m] * q[n][m];
+            }
+            const T t = hadv<M>(ux, x) * dxi + hadv<M>(vy, y) * dyi + va
+                        + sc.svisc[n] * (lap_xy(x, y, dxidxi, dyidyi) + vd);
+            if (inside) sc.ta[n][o] = sc.ta[n][o] + t;
+        }
+
+#pragma unroll
+        for (int n = 0; n < S; ++n) {
+#pragma unroll
+            for (int m = 0; m < 6; ++m) q[n][m] = q[n][m + 1];
+            q[n][6] = qn[n];
+        }
+#pragma unroll
+        for (int e = 0; e < 3; ++e) wv[e] = wv[e + 1];
+        wv[3] = wn;
+        lk += plane;
+        sl = sl == K17_R - 1 ? 0 : sl + 1;
     }
+    // no copy may land after the block has left its shared memory
+    km::wait_all();
+}
+
+// dynamic shared memory of one K17 launch (ops/kmarch.py repeats it)
+template <typename T>
+constexpr size_t k17_smem(int S) {
+    return ((size_t)(S + 2) * K17_R * km::Slot<K17_TJ>::SIZE
+            + K17_RR * K17_NCP) * sizeof(T);
 }
 
 template <typename K>
@@ -653,17 +724,64 @@ int launch_mom(const T* u, const T* v, const T* wc, const T* wd, T* tu, T* tv,
     return (int)cudaGetLastError();
 }
 
-template <typename T, bool M>
-int launch_scalars(const T* u, const T* v, const T* wc, const Scalars<T>& sc,
-                   int S, const T* cc, int itot, int jtot, int ktot, int ks,
-                   double dxi, double dyi, cudaStream_t stream) {
-    const size_t smem = (size_t)S * NR * WJ * WI * sizeof(T);
-    if (int rc = raise_smem(o4_scalars_kernel<T, M>, smem)) return rc;
-    const dim3 block(OI, OJ);
-    const dim3 grid((itot + OI - 1) / OI, (jtot + OJ - 1) / OJ);
-    o4_scalars_kernel<T, M><<<grid, block, smem, stream>>>(
-        u, v, wc, sc, S, cc, itot, jtot, ktot, ks, T(dxi), T(dyi));
+template <typename T, bool M, int S>
+int launch_scalars_s(const T* u, const T* v, const T* wc,
+                     const O4Scalars<T>& sc, const T* cz, int itot, int jtot,
+                     int ktot, int ks, double dxi, double dyi, int chunks,
+                     cudaStream_t stream) {
+    const size_t smem = k17_smem<T>(S);
+    if (int rc = raise_smem(o4_scalars_kernel<T, M, S>, smem)) return rc;
+    bool vec = itot % (16 / (int)sizeof(T)) == 0 && km::aligned16(u)
+               && km::aligned16(v);
+    for (int n = 0; n < S; ++n) vec = vec && km::aligned16(sc.a[n]);
+    const dim3 block(km::TI, K17_TJ);
+    const dim3 grid((itot + km::TI - 1) / km::TI, (jtot + K17_TJ - 1) / K17_TJ,
+                    chunks);
+    o4_scalars_kernel<T, M, S><<<grid, block, smem, stream>>>(
+        u, v, wc, sc, cz, itot, jtot, ktot, ks, T(dxi), T(dyi), chunks,
+        (int)vec);
     return (int)cudaGetLastError();
+}
+
+template <typename T, bool M>
+int launch_scalars(const T* u, const T* v, const T* wc,
+                   const O4Scalars<T>& sc, int S, const T* cz, int itot,
+                   int jtot, int ktot, int ks, double dxi, double dyi,
+                   int chunks, cudaStream_t stream) {
+    switch (S) {
+    case 1:
+        return launch_scalars_s<T, M, 1>(u, v, wc, sc, cz, itot, jtot, ktot,
+                                         ks, dxi, dyi, chunks, stream);
+    case 2:
+        return launch_scalars_s<T, M, 2>(u, v, wc, sc, cz, itot, jtot, ktot,
+                                         ks, dxi, dyi, chunks, stream);
+    case 3:
+        return launch_scalars_s<T, M, 3>(u, v, wc, sc, cz, itot, jtot, ktot,
+                                         ks, dxi, dyi, chunks, stream);
+    case 4:
+        return launch_scalars_s<T, M, 4>(u, v, wc, sc, cz, itot, jtot, ktot,
+                                         ks, dxi, dyi, chunks, stream);
+    }
+    return (int)cudaErrorInvalidValue;
+}
+
+template <typename T, bool M>
+int info_scalars(int S, int* out) {
+    switch (S) {
+    case 1:
+        return km::kernel_info(o4_scalars_kernel<T, M, 1>, K17_NT,
+                               k17_smem<T>(1), out);
+    case 2:
+        return km::kernel_info(o4_scalars_kernel<T, M, 2>, K17_NT,
+                               k17_smem<T>(2), out);
+    case 3:
+        return km::kernel_info(o4_scalars_kernel<T, M, 3>, K17_NT,
+                               k17_smem<T>(3), out);
+    case 4:
+        return km::kernel_info(o4_scalars_kernel<T, M, 4>, K17_NT,
+                               k17_smem<T>(4), out);
+    }
+    return (int)cudaErrorInvalidValue;
 }
 
 // scheme: 0 = advec 4, 1 = advec 4m (ops/o4_fused.py SCHEME_ID).  The
@@ -694,22 +812,30 @@ int mom_info(int scheme, int* out) {
 
 template <typename T>
 int scalars(const T* u, const T* v, const T* wc, const void* const* a,
-            void* const* ta, const double* sviscs, int S, const T* cc,
+            void* const* ta, const double* sviscs, int S, const T* cz,
             int itot, int jtot, int ktot, int ks, int scheme, double dxi,
-            double dyi, cudaStream_t stream) {
-    if (S < 1 || S > MAXS || ks < OH || scheme < 0 || scheme > 1)
+            double dyi, int chunks, cudaStream_t stream) {
+    if (S < 1 || S > K17_MAXS || ks < OH || scheme < 0 || scheme > 1
+        || chunks < 1 || chunks > ktot)
         return (int)cudaErrorInvalidValue;
-    Scalars<T> sc;
-    for (int n = 0; n < MAXS; ++n) {
+    O4Scalars<T> sc;
+    for (int n = 0; n < K17_MAXS; ++n) {
         sc.a[n] = n < S ? (const T*)a[n] : nullptr;
         sc.ta[n] = n < S ? (T*)ta[n] : nullptr;
         sc.svisc[n] = n < S ? T(sviscs[n]) : T(0);
     }
     if (scheme == 0)
-        return launch_scalars<T, false>(u, v, wc, sc, S, cc, itot, jtot, ktot,
-                                        ks, dxi, dyi, stream);
-    return launch_scalars<T, true>(u, v, wc, sc, S, cc, itot, jtot, ktot, ks,
-                                   dxi, dyi, stream);
+        return launch_scalars<T, false>(u, v, wc, sc, S, cz, itot, jtot, ktot,
+                                        ks, dxi, dyi, chunks, stream);
+    return launch_scalars<T, true>(u, v, wc, sc, S, cz, itot, jtot, ktot, ks,
+                                   dxi, dyi, chunks, stream);
+}
+
+template <typename T>
+int scalars_info(int scheme, int S, int* out) {
+    if (scheme == 0) return info_scalars<T, false>(S, out);
+    if (scheme == 1) return info_scalars<T, true>(S, out);
+    return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace o4
@@ -732,13 +858,16 @@ int scalars(const T* u, const T* v, const T* wc, const void* const* a,
     }                                                                         \
     extern "C" int mhh_o4_scalars_##SUF(                                      \
         const void* u, const void* v, const void* wc, const void* const* a,   \
-        void* const* ta, const double* sviscs, int S, const void* cc,         \
+        void* const* ta, const double* sviscs, int S, const void* cz,         \
         int itot, int jtot, int ktot, int ks, int scheme, double dxi,         \
-        double dyi, void* stream) {                                           \
+        double dyi, int chunks, void* stream) {                               \
         return mhh::o4::scalars<T>((const T*)u, (const T*)v, (const T*)wc, a, \
-                                   ta, sviscs, S, (const T*)cc, itot, jtot,   \
-                                   ktot, ks, scheme, dxi, dyi,                \
+                                   ta, sviscs, S, (const T*)cz, itot, jtot,   \
+                                   ktot, ks, scheme, dxi, dyi, chunks,        \
                                    (cudaStream_t)stream);                     \
+    }                                                                         \
+    extern "C" int mhh_o4_scalars_info_##SUF(int scheme, int S, int* out) {   \
+        return mhh::o4::scalars_info<T>(scheme, S, out);                      \
     }
 
 MHH_O4(f32, float)

@@ -91,9 +91,11 @@ SIGNATURES = {
     # jtot, ktot, ks, scheme; dxi, dyi, visc; chunks (ops/kmarch.py)
     "o4_mom": [_P] * 8 + [_I] * 5 + [_D] * 3 + [_I],
     # u, v, w (conservation ghosts); host arrays of the S scalars' and
-    # carries' pointers and of their viscosities; S; cc; itot, jtot, ktot,
-    # ks, scheme; dxi, dyi
-    "o4_scalars": [_P] * 3 + [_PP] * 2 + [_PD, _I, _P] + [_I] * 5 + [_D] * 2,
+    # carries' pointers and of their viscosities; S; the per-level rows
+    # (ops/o4_fused.py build_k17_rows); itot, jtot, ktot, ks, scheme; dxi,
+    # dyi; chunks (ops/kmarch.py)
+    "o4_scalars": [_P] * 3 + [_PP] * 2 + [_PD, _I, _P] + [_I] * 5 + [_D] * 2
+                  + [_I],
     # u, v, w, e, tu, tv, tw, ct; itot, jtot, ktot, ks; dxi, dyi, visc, fc,
     # utrans, vtrans; coriolis, advec
     "tend_uvw_acc": [_P] * 8 + [_I] * 4 + [_D] * 6 + [_I] * 2,
@@ -119,8 +121,8 @@ SIGNATURES = {
 # reads neither): registers, local bytes a thread, dynamic shared memory a
 # block, resident blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
 # SMs.
-INFO = ("advec_scalars", "o4_mom", "tend_scalars", "tend_scalar_acc",
-        "micro2", "tend_rk_fold")
+INFO = ("advec_scalars", "o4_mom", "o4_scalars", "tend_scalars",
+        "tend_scalar_acc", "micro2", "tend_rk_fold")
 INFO_KEYS = ("registers", "local_bytes", "smem", "blocks_per_sm", "sms")
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}

@@ -1,8 +1,8 @@
 """The k-march plan of the redesigned ring kernels K13 (``advec_scalars``),
-K16 (``o4_mom``), the scalar sweep K10 (``tend_scalars``) / K19
-(``tend_scalar_acc``) and the folded dry sweep K22 (``tend_rk_fold``): the
-host's copy of ``csrc/kmarch.cuh`` and of the kernels' shared-memory
-layouts.
+K16 (``o4_mom``), K17 (``o4_scalars``), the scalar sweep K10
+(``tend_scalars``) / K19 (``tend_scalar_acc``) and the folded dry sweep K22
+(``tend_rk_fold``): the host's copy of ``csrc/kmarch.cuh`` and of the
+kernels' shared-memory layouts.
 
 A launch is a grid of (tiles in i) x (tiles in j) x chunks blocks; block z
 marches the levels ``chunk_bounds(chunks, ktot)[z]``.  ``plan`` picks the
@@ -11,8 +11,9 @@ reports through ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``, times
 the SMs) so that the blocks fill the card in whole waves: the count that
 minimises waves x (levels a chunk + the planes a chunk reads again to warm
 its column up).  The shared-memory formulas repeat the kernels' own
-(``k13_smem``, ``K16<T>::smem``, ``sweep_smem``, ``fold_smem``), and a CPU
-test holds the constants here to those in the sources.
+(``k13_smem``, ``K16<T>::smem``, ``k17_smem``, ``sweep_smem``,
+``fold_smem``), and a CPU test holds the constants here to those in the
+sources.
 """
 
 import collections
@@ -26,8 +27,10 @@ SMEM_MAX = 232448           # bytes of shared memory a block can have
 
 # csrc/advec_interp.cu: K13_TJ, K13_R, K13_RR, MAXA
 K13_TJ, K13_R, K13_RR, K13_MAXS = 8, 3, 4, 4
-# csrc/o4.cu: K16_TJ, NI (interpolant planes)
+# csrc/o4.cu: K16_TJ, NI (interpolant planes); K17_TJ, K17_R, K17_RR,
+# K17_MAXS, K17_NCP
 K16_TJ, K16_NI = 8, 8
+K17_TJ, K17_R, K17_RR, K17_MAXS, K17_NCP = 8, 3, 3, 4, 40
 # csrc/tend_generic.cu: SW_TJ, SW_HALO, SW_R, SW_MAXS, NTGP; NTG of
 # csrc/les_math.cuh (ops/fused.py NTG)
 SW_TJ, SW_HALO, SW_R, SW_MAXS, NTGP, NTG = 8, 1, 3, 4, 24, 21
@@ -66,6 +69,13 @@ def k16_smem(dtype):
              + g["RR"] * NCP) * _bytes(dtype))
 
 
+def k17_smem(S, dtype):
+    """Dynamic shared memory of a K17 launch of S scalars: K17_R slots of
+    each scalar's, u's and v's plane and K17_RR staged table rows."""
+    return (((S + 2) * K17_R * slot_size(K17_TJ) + K17_RR * K17_NCP)
+            * _bytes(dtype))
+
+
 def sweep_smem(S, dtype, rk, advec):
     """Dynamic shared memory of a scalar-sweep launch of S scalars
     (csrc/tend_generic.cu sweep_smem): three slots of each scalar's, e's
@@ -90,18 +100,20 @@ def fold_smem(dtype):
 # kernel -> shared memory of a launch (S, dtype, advec)
 SMEM = {"advec_scalars": lambda S, dtype, advec: k13_smem(S, dtype),
         "o4_mom": lambda S, dtype, advec: k16_smem(dtype),
+        "o4_scalars": lambda S, dtype, advec: k17_smem(S, dtype),
         "tend_scalars": lambda S, dtype, advec: sweep_smem(S, dtype, True,
                                                            advec),
         "tend_scalar_acc": lambda S, dtype, advec: sweep_smem(S, dtype, False,
                                                               advec),
         "tend_rk_fold": lambda S, dtype, advec: fold_smem(dtype)}
-TILE_J = {"advec_scalars": K13_TJ, "o4_mom": K16_TJ, "tend_scalars": SW_TJ,
-          "tend_scalar_acc": SW_TJ, "tend_rk_fold": K22_TJ}
-# planes a chunk reads again to warm its column up: K13's and K16's
+TILE_J = {"advec_scalars": K13_TJ, "o4_mom": K16_TJ, "o4_scalars": K17_TJ,
+          "tend_scalars": SW_TJ, "tend_scalar_acc": SW_TJ,
+          "tend_rk_fold": K22_TJ}
+# planes a chunk reads again to warm its column up: K13's, K16's and K17's
 # seven-plane windows; the sweep's column k0-1..k0+1 and the plane past it;
 # K22's planes k0-2, k0-1 below the chunk (with e(k0-1)) and w's tendency
 # at k1 above it
-WARM = {"advec_scalars": 6, "o4_mom": 6, "tend_scalars": 2,
+WARM = {"advec_scalars": 6, "o4_mom": 6, "o4_scalars": 6, "tend_scalars": 2,
         "tend_scalar_acc": 2, "tend_rk_fold": 2}
 
 
@@ -125,11 +137,12 @@ def choose_chunks(tiles, ktot, slots, warm):
 
 def plan(kernel, itot, jtot, ktot, S, dtype, slots, chunks=None,
          advec=True):
-    """The launch of K13 ("advec_scalars", S scalars), K16 ("o4_mom"), the
-    scalar sweep ("tend_scalars" K10, "tend_scalar_acc" K19; S scalars,
-    advec its flag) or K22 ("tend_rk_fold"): tiles, chunk count (chosen
-    from slots, the card's resident blocks, unless given), shared memory a
-    block and the waves it makes."""
+    """The launch of K13 ("advec_scalars", S scalars), K16 ("o4_mom"), K17
+    ("o4_scalars", S scalars), the scalar sweep ("tend_scalars" K10,
+    "tend_scalar_acc" K19; S scalars, advec its flag) or K22
+    ("tend_rk_fold"): tiles, chunk count (chosen from slots, the card's
+    resident blocks, unless given), shared memory a block and the waves it
+    makes."""
     tiles_i = -(-itot // TI)
     tiles_j = -(-jtot // TILE_J[kernel])
     if chunks is None:

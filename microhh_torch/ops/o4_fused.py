@@ -15,9 +15,13 @@ one pass per field group:
 The vertical ladders are per-level rows of six tap weights
 (``build_o4_tables``, a numpy copy of the JAX package's, bit for bit): the
 ci interior rows and the bi/ti wall rows of the interpolations, the cg/bg/tg
-gradient rows with dzhi4 or dzi4 folded in.  The fields are ghost-filled to
-three levels, so no plane index is clamped.  On a CPU tensor the wrappers
-run the plain versions: the two ops, one after the other.
+gradient rows with dzhi4 or dzi4 folded in.  K17 takes them combined into
+seven weights on the column of planes k-3..k+3 per level
+(``build_k17_rows``): per unit w at each of the four half levels k-1..k+2
+for the advection (in 4m with the mirrored wall fluxes), and for the
+diffusion.  The fields are ghost-filled to three levels, so no plane index
+is clamped.  On a CPU tensor the wrappers run the plain versions: the two
+ops, one after the other.
 """
 
 import ctypes
@@ -40,10 +44,10 @@ DZI4, DZHI4, WMASK, NC = 24, 25, 26, 27
 
 SCHEME_ID = {"4": 0, "4m": 1}
 
-# (j, i) tile of a thread block and the halo of the deepest horizontal chain
-# (csrc/o4.cu OJ, OI, OH)
-TILE_J, TILE_I, HALO = 16, 32, 3
-SMEM_BYTES = 227 * 1024
+# K17's per-level rows (csrc/o4.cu K17_ZA, K17_ZD, K17_NCP): at ZA + 8 e + m
+# the vertical advection's weight on column value m (plane k-3+m) per unit
+# w at half level k-1+e, at ZD + m the vertical diffusion's
+ZA, ZD, NZ = 0, 32, kmarch.K17_NCP
 
 
 def build_o4_tables(ks, ke, dzi4, dzhi4):
@@ -113,12 +117,55 @@ def build_o4_tables(ks, ke, dzi4, dzhi4):
     return cc
 
 
+def build_k17_rows(cc, scheme):
+    """K17's per-level rows as float64 (ktot, NZ) from the table cc of
+    ``build_o4_tables``: row k holds the seven weights of the column
+    q[0..6] = planes k-3..k+3 that give the vertical part at level k,
+
+        advection = sum_m (sum_e w_e A[k, e, m]) q[m],
+        diffusion = svisc * sum_m D[k, m] q[m],
+
+    w_e the velocity at half level k-1+e.  Scheme 4: A = -cg_e dzi4 times
+    the interpolation row of half level k-1+e, D = dzi4 sum_e cg_e times its
+    gradient row (advec_4.cxx advec_s, diff_4.cxx diff_c).  Scheme 4m: the
+    fluxes w_e (q_a + q_b) / 2 of the two-point means, with the mirrored
+    negative outer flux at the global levels 0 and ktot - 1 (advec_4m.cxx
+    advec_s)."""
+    kt = cc.shape[0] - 3
+    cg = (fd.cg0, fd.cg1, fd.cg2, fd.cg3)
+    z = np.zeros((kt, NZ), dtype=np.float64)
+    for k in range(kt):
+        dzi4 = cc[k, DZI4]
+        for e in range(4):
+            for m in range(7):
+                j = m - e + 1
+                if 0 <= j <= 5:
+                    g = cg[e] * dzi4
+                    if scheme == "4":
+                        z[k, ZA + 8 * e + m] -= g * cc[k + e, TXA + j]
+                    z[k, ZD + m] += g * cc[k + e, TG + j]
+        if scheme == "4m":
+            # -grad4 of the fluxes a, b, c, d: (half level of w, column
+            # taps of the two-point mean, sign); at the bottom level a is
+            # -w2 (q2 + q5) / 2, at the top d is -w1 (q1 + q4) / 2
+            flux = [(0, (0, 3), 1.), (1, (2, 3), 1.), (2, (3, 4), 1.),
+                    (3, (3, 6), 1.)]
+            if k == 0:
+                flux[0] = (2, (2, 5), -1.)
+            if k == kt - 1:
+                flux[3] = (1, (1, 4), -1.)
+            for g, (e, taps, sign) in zip(cg, flux):
+                for m in taps:
+                    z[k, ZA + 8 * e + m] -= 0.5 * sign * g * dzi4
+    return z
+
+
 def max_scalars(dtype):
-    """The most scalars one K17 launch takes: their seven-plane rings must
-    fit one block's shared memory (csrc/o4.cu)."""
-    ring = (7 * (TILE_J + 2 * HALO) * (TILE_I + 2 * HALO)
-            * (torch.finfo(dtype).bits // 8))
-    return min(8, SMEM_BYTES // ring)
+    """The most scalars one K17 launch takes: its scalar count is a template
+    parameter up to K17_MAXS, and their planes must fit one block's shared
+    memory (csrc/o4.cu k17_smem)."""
+    return max(S for S in range(1, kmarch.K17_MAXS + 1)
+               if kmarch.k17_smem(S, dtype) <= kmarch.SMEM_MAX)
 
 
 class O4Fused:
@@ -138,8 +185,9 @@ class O4Fused:
         self.diff = diff
         self.scheme = advec.scheme
         self.ctx = ctx
-        self.cc = ctx.tensor(build_o4_tables(ctx.ks, ctx.ke, ctx.np_dzi4,
-                                             ctx.np_dzhi4))
+        cc = build_o4_tables(ctx.ks, ctx.ke, ctx.np_dzi4, ctx.np_dzhi4)
+        self.cc = ctx.tensor(cc)
+        self.cz = ctx.tensor(build_k17_rows(cc, self.scheme))
         self.k_mom = Kernel("o4_mom", "microhh_torch/csrc/o4.cu",
                             "microhh_tpu/ops/o4_pallas.py:408")
         self.k_scal = Kernel("o4_scalars", "microhh_torch/csrc/o4.cu",
@@ -186,15 +234,24 @@ class O4Fused:
                    ctx.dxi, ctx.dyi, self.diff.visc,
                    self.plan(u.dtype, chunks).chunks)
 
-    def scalars(self, u, v, wc, names, fields, carries):
+    def scalar_plan(self, S, dtype, chunks=None):
+        """The k-march of one K17 launch of S scalars (ops/kmarch.py), the
+        chunk count chosen from the card's resident blocks unless given."""
+        ctx = self.ctx
+        info = self.k_scal.info(dtype, SCHEME_ID[self.scheme], S)
+        return kmarch.plan("o4_scalars", ctx.itot, ctx.jtot, ctx.ktot, S,
+                           dtype, info["blocks_per_sm"] * info["sms"], chunks)
+
+    def scalars(self, u, v, wc, names, fields, carries, chunks=None):
         """K17: carries[n] += advection + diffusion of fields[n], in place;
-        as many launches as the scalars' rings need shared memory."""
+        the scalars go max_scalars at a time.  chunks: force the k-split
+        (checks and timings only)."""
         ctx = self.ctx
         if on_cpu(u):
             return self.scalars_plain(u, v, wc, names, fields, carries)
         shape = (ctx.kcells, ctx.jtot, ctx.itot)
-        check([u, v, wc] + list(fields) + list(carries) + [self.cc], u.dtype,
-              u.device, [shape] * (3 + 2 * len(fields)) + [(ctx.ktot + 3, NC)])
+        check([u, v, wc] + list(fields) + list(carries) + [self.cz], u.dtype,
+              u.device, [shape] * (3 + 2 * len(fields)) + [(ctx.ktot, NZ)])
         per = max_scalars(u.dtype)
         for i0 in range(0, len(fields), per):
             grp_a, grp_t = fields[i0:i0 + per], carries[i0:i0 + per]
@@ -206,8 +263,9 @@ class O4Fused:
             sviscs = (ctypes.c_double * S)(
                 *[self.diff.viscs[n] for n in names[i0:i0 + per]])
             self.k_scal(u.dtype, u, v, wc, ptrs(grp_a), ptrs(grp_t), sviscs,
-                        S, self.cc, ctx.itot, ctx.jtot, ctx.ktot, ctx.ks,
-                        SCHEME_ID[self.scheme], ctx.dxi, ctx.dyi)
+                        S, self.cz, ctx.itot, ctx.jtot, ctx.ktot, ctx.ks,
+                        SCHEME_ID[self.scheme], ctx.dxi, ctx.dyi,
+                        self.scalar_plan(S, u.dtype, chunks).chunks)
 
     def exec(self, ctx, s_cons, s, t, aux):
         """Add advec(s_cons) + diff(s) into the carry t, in place."""

@@ -1,7 +1,6 @@
-"""Time the ring kernels K16, K13 and the scalar sweep K10/K19 (and, as
-controls, K17 and K12) on one card, the kernels that share the sweep's
-scalar point function (K2, K22, K20, K15), and K11, the warm-rain column
-sweep.
+"""Time the ring kernels K16, K17, K13 and the scalar sweep K10/K19 (and,
+as a control, K12) on one card, the kernels that share the sweep's scalar
+point function (K2, K22, K20, K15), and K11, the warm-rain column sweep.
 
     python3 -m microhh_torch.ring_timing [--out FILE] [--label NAME]
                                          [--groups rings,s_tend,fold,micro2]
@@ -24,9 +23,9 @@ sponge and Coriolis folds, the neutral Ekman LES 768x384x288 (no th) in
 float32 and drycblles 512^3 in float64; beside K22's time its registers,
 shared memory and blocks an SM from the card, the plan's chunks, blocks
 and waves, its time with one chunk and its issue time counted from the
-SASS of its per-level loop (``fold_issue``).  K11 at rico 384^3 in float32
-and float64 and at 16^2x24
-in float64, in two states: the cell's own (its initial fields, cloud-free
+SASS of its per-level loop (``fold_issue``); the same SASS count beside
+K17.  K11 at rico 384^3 in float32 and float64 and at 16^2x24 in float64,
+in two states: the cell's own (its initial fields, cloud-free
 and without rain, as the cell's timed steps are) and heavy rain
 (chip_smoke.py's: a saturated layer, rain shafts with qr x 50, drops
 crossing 2.5 cells in one dt).  Each time is the mean of 10 launches by
@@ -34,9 +33,10 @@ CUDA events after one warm-up launch; the stencil kernels run on seeded
 random fields.  Beside each time: the bound (each input and output once
 over 3.35 TB/s, or the operations over 67 TFLOP/s, 33.5 in float64, where
 larger), registers, spills and stack from the build log's ptxas lines and,
-where the tree's kernels report them (the k-marching K13, K16 and scalar
-sweep, K11 and K22), shared memory a block and resident blocks an SM; for
-the k-marching kernels the chunk count, blocks in the grid and waves, and
+where the tree's kernels report them (the k-marching K13, K16, K17 and
+scalar sweep, K11 and K22), shared memory a block and resident blocks an
+SM; for the k-marching kernels the chunk count, blocks in the grid and
+waves, and
 their time with one chunk (no k-split); for K11 blocks and waves, and its
 issue time counted from the SASS of its phases (``micro2_issue``).  One JSON
 object per kernel and shape is printed and, with --out, all of them are
@@ -64,14 +64,15 @@ from . import cases, kernels
 from .config import Ini
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# the timed groups: K16, K13, K10, K19 and their controls; the kernels that
-# call s_tend; K22 on its paths; K11
+# the timed groups: K16, K17, K13, K10, K19 and K12 (a control); the
+# kernels that call s_tend; K22 on its paths; K11
 GROUPS = ("rings", "s_tend", "fold", "micro2")
 REPS = 10
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 33.5e12}
-# operations a point (K13, K17: a scalar and point), counted from the sources
-FLOPS = {"o4_mom": {"4": 560, "4m": 510}, "o4_scalars": {"4": 215, "4m": 130},
+# operations a point (K13: a scalar and point; K17: a point with one
+# scalar, the vertical weights' 49 included), counted from the sources
+FLOPS = {"o4_mom": {"4": 560, "4m": 510}, "o4_scalars": {"4": 185, "4m": 140},
          "advec_mom": 400, "advec_scalars": 130, "tend_scalars": 110,
          "tend_scalar_acc": 100, "tend_rk": 700, "tend_rk_fold": 900,
          "tendencies": 700, "tend_scalar_rk": 110, "micro2": 300}
@@ -287,10 +288,11 @@ def sass_loops(text, function):
 
 
 def fold_issue(loops, shape, tile_j, clock_ghz, sms):
-    """K22's issue time from the SASS of its k-march, or None unless the
-    kernel has one per-level loop (sass_loops): every warp of a (tile_j,
-    32) tile runs it once a level.  Every instruction of the loop counts as
-    issued once a level, the branches that some warps or levels skip (the
+    """A k-march's (K22's, K17's) issue time from the SASS of its per-level
+    loop, or None unless the kernel has one such loop (sass_loops): every
+    warp of a (tile_j, 32) tile runs it once a level.  Every instruction of
+    the loop counts as issued once a level, the branches that some warps or
+    levels skip (the
     halo work of a few warps, the forms' flags, the first level's) too: an
     upper estimate.  A warp instruction takes PIPE_CYCLES of one of the four
     sub-partitions of an SM at the card's maximum SM clock."""
@@ -340,10 +342,15 @@ def micro2_issue(sections, shape, nsed, clock_ghz, sms):
 
 
 def variant(kernel, dtype, scheme, S):
-    """The template arguments of the instance a launch takes."""
+    """The template arguments of the instance a launch takes (K17: the
+    k-march's <T, M, S> where the tree reports its occupancy, else the
+    earlier <T, M>)."""
     t = "float" if dtype == torch.float32 else "double"
     if kernel in ("o4_mom", "o4_scalars"):
-        return "%s,%s" % (t, "true" if scheme == "4m" else "false")
+        m = "true" if scheme == "4m" else "false"
+        if kernel == "o4_scalars" and "o4_scalars" in kernels.INFO:
+            return "%s,%s,%d" % (t, m, S)
+        return "%s,%s" % (t, m)
     c4, up = {"2i4": ("true", "false"), "2i5": ("false", "true"),
               "2i53": ("false", "true"), "2i62": ("false", "false")}[scheme]
     if kernel == "advec_scalars":
@@ -548,17 +555,21 @@ def events_ms(fn, reps=REPS):
     return start.elapsed_time(end) / reps
 
 
-def time_shape(label, case, shape, dtype, S, ptx, card):
+def time_shape(label, case, shape, dtype, S, ptx, card, loops=None,
+               clock_ghz=None, device="cuda"):
+    """K16 and K17 (a 4th-order case) or K13, K12 and the scalar sweep at
+    one shape on seeded random fields; K17's row also takes the issue time
+    of its per-level loop (loops: sass_loops of the build)."""
     itot, jtot, ktot = shape
     rows = []
     with tempfile.TemporaryDirectory() as workdir:
-        m = build(case, itot, jtot, ktot, dtype, workdir)
+        m = build(case, itot, jtot, ktot, dtype, workdir, device)
         ctx = m.ctx
-        gen = torch.Generator(device="cuda").manual_seed(itot + ktot)
+        gen = torch.Generator(device=device).manual_seed(itot + ktot)
         full = (ctx.kcells, jtot, itot)
 
         def rnd(scale=1.):
-            return scale * torch.randn(full, dtype=dtype, device="cuda",
+            return scale * torch.randn(full, dtype=dtype, device=device,
                                        generator=gen)
 
         n = itot * jtot * ktot
@@ -572,9 +583,12 @@ def time_shape(label, case, shape, dtype, S, ptx, card):
             calls["o4_mom"] = (lambda **kw: o4.momentum(u, v, wc, wd, *t[:3], **kw),
                                10 * fb, FLOPS["o4_mom"][scheme], o4, scheme)
             names = list(ctx.scalar_names)[:S]
-            calls["o4_scalars"] = (lambda: o4.scalars(u, v, wc, names, a, t[3:]),
-                                   (3 + 3 * S) * fb,
-                                   FLOPS["o4_scalars"][scheme] * S, None, scheme)
+            # the k-march of K17 reports its occupancy and takes chunks=
+            k17 = o4 if "o4_scalars" in kernels.INFO else None
+            calls["o4_scalars"] = (
+                lambda **kw: o4.scalars(u, v, wc, names, a, t[3:], **kw),
+                (3 + 3 * S) * fb, FLOPS["o4_scalars"][scheme] * S, k17,
+                scheme)
         else:
             adv, scheme = m.advec_fused, m.advec_fused.scheme
             t = [rnd(1e-3) for _ in range(3 + S)]
@@ -595,16 +609,24 @@ def time_shape(label, case, shape, dtype, S, ptx, card):
                    "ops_per_point": flops, "gbytes": nbytes / 1e9,
                    "ptxas": ptx.get(key), "function": key, "card": card}
             if owner is not None:
-                pl = (owner.plan(S, dtype) if name == "advec_scalars"
-                      else owner.plan(dtype))
-                kern = owner.k_scal if name == "advec_scalars" else owner.k_mom
+                if name == "o4_mom":
+                    pl, kern, info_s = owner.plan(dtype), owner.k_mom, 0
+                elif name == "o4_scalars":
+                    pl, kern, info_s = (owner.scalar_plan(S, dtype),
+                                        owner.k_scal, S)
+                else:
+                    pl, kern, info_s = owner.plan(S, dtype), owner.k_scal, S
                 sid = {"4": 0, "4m": 1, "2i4": 0, "2i5": 1, "2i53": 2,
                        "2i62": 3}[scheme]
-                row.update(kern.info(dtype, sid, S if name == "advec_scalars"
-                                     else 0))
+                row.update(kern.info(dtype, sid, info_s))
                 row.update(chunks=pl.chunks, blocks=pl.tiles_i * pl.tiles_j
                            * pl.chunks, waves=pl.waves,
                            ms_one_chunk=events_ms(lambda: fn(chunks=1)))
+            if name == "o4_scalars" and loops and key in loops:
+                from .ops import kmarch
+                row.update(fold_issue(loops[key], shape,
+                                      getattr(kmarch, "K17_TJ", 16),
+                                      clock_ghz, sms_of(device)) or {})
             row["bound_share"] = row["bound_ms"] / row["ms"]
             print(json.dumps(row), flush=True)
             rows.append(row)
@@ -614,7 +636,8 @@ def time_shape(label, case, shape, dtype, S, ptx, card):
             rows += sweep_rows(m, label, shape, dtype,
                                4 if label == "rico" else 3, ptx, card, rnd)
         del m
-    torch.cuda.empty_cache()
+    if device == "cuda":
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -785,11 +808,13 @@ def main():
     sass = sass_text(lib)
     sections = sass_sections(sass, MICRO2)
     loops = sass_loops(sass, S_TEND_FUNCTIONS["tend_rk_fold"])
+    loops.update(sass_loops(sass, FUNCTIONS["o4_scalars"]))
     clock = max_sm_clock_ghz()
     rows = []
     groups = set(args.groups.split(","))
     for label, case, shape, dtype, S in SHAPES if "rings" in groups else ():
-        rows += time_shape(label, case, shape, dtype, S, ptx, card)
+        rows += time_shape(label, case, shape, dtype, S, ptx, card, loops,
+                           clock)
     for label, case, shape, step in S_TEND_SHAPES if "s_tend" in groups else ():
         rows += s_tend_rows(label, case, shape, step, ptx, card,
                             loops=loops, clock_ghz=clock)

@@ -1,5 +1,6 @@
-"""The k-march of the redesigned ring kernels K13 (``advec_scalars``) and
-K16 (``o4_mom``): ``ops/kmarch.py`` and the wrappers around it, on the CPU.
+"""The k-march of the redesigned ring kernels K13 (``advec_scalars``),
+K16 (``o4_mom``), K17 (``o4_scalars``) and K22 (``tend_rk_fold``):
+``ops/kmarch.py`` and the wrappers around it, on the CPU.
 
 * ``chunk_bounds`` and ``plan`` cover [0, ktot) exactly once, every chunk
   non-empty, for ktot 1-40, 128, 384 and 1024; ``plan`` fills the card in
@@ -17,7 +18,15 @@ K16 (``o4_mom``): ``ops/kmarch.py`` and the wrappers around it, on the CPU.
   rows k0..k1; K16: the ghost levels ks+k0-3..ks+k1+2 as they are);
 * the wrappers, with recorders in place of the kernels: the chunk count
   ``plan`` picks from the card's resident blocks (or the one forced), the
-  scalars max_scalars a launch.
+  scalars max_scalars a launch;
+* K17: its constants, shared memory and launch bounds read from
+  ``csrc/o4.cu``, its plan at the weakscaling and moser180 shapes, its
+  wrapper (the split, pointers, viscosities and chunks it passes), its
+  per-level rows (``build_k17_rows``) against the plain vertical parts,
+  and ``k17_march``, a torch emulation of the kernel called with the C
+  entry's arguments, against ``scalars_plain`` to 1e-12 at every chunk
+  count with 1, 2, 3 and 5 scalars in both schemes; each of its edge rules
+  broken on its own (``broken=``) fails.
 """
 
 import os
@@ -378,3 +387,315 @@ def test_k22_wrapper_plans_and_splits_the_carries(monkeypatch):
             assert (t[n] is old[n]) == (first or not carry)
     with pytest.raises(ValueError):
         fz.tend_rk_fold(s, t, None, 0.5, -0.6, 2., False, True, chunks=17)
+
+
+# --------------------------------------------------------------------------
+#  K17: its constants, plan, wrapper and chunked march
+# --------------------------------------------------------------------------
+
+def test_k17_constants_are_the_sources():
+    o4, src = constants("o4.cu")
+    assert (o4["K17_TJ"], o4["K17_R"], o4["K17_RR"], o4["K17_MAXS"],
+            o4["K17_NCP"]) == (kmarch.K17_TJ, kmarch.K17_R, kmarch.K17_RR,
+                               kmarch.K17_MAXS, kmarch.K17_NCP)
+    assert (o4["K17_ZA"], o4["K17_ZD"], o4["K17_NCP"]) == (O4.ZA, O4.ZD,
+                                                           O4.NZ)
+    assert "K17_NT = km::TI * K17_TJ;" in src
+    flat = re.sub(r"\s+", " ", src)
+    assert ("((size_t)(S + 2) * K17_R * km::Slot<K17_TJ>::SIZE + K17_RR * "
+            "K17_NCP) * sizeof(T)" in flat)
+    # four weight groups of eight (seven and a pad) before the diffusion's,
+    # each 16-byte aligned for load8, and the staged row 16-byte aligned
+    assert O4.ZD == O4.ZA + 4 * 8 and O4.NZ >= O4.ZD + 7
+    assert O4.ZA % 4 == O4.ZD % 4 == O4.NZ % 4 == 0
+    # K17_D levels in flight in K17_D + 1 slots: the slot written at level
+    # k is the one plane k - 1 left, not the one read there
+    assert o4["K17_R"] == o4["K17_RR"] == o4["K17_D"] + 1
+    assert "km::wait_pending<K17_D - 1>();" in src
+    assert ("issue(k + K17_D, sl == 0 ? K17_R - 1 : sl - 1, lk + K17_D * "
+            "plane);" in flat)
+    assert ("__launch_bounds__( K17_NT, sizeof(T) == 4 ? (S == 1 ? 4 : (S "
+            "== 2 ? 3 : 2)) : (S <= 2 ? 2 : 1))" in flat)
+    for dtype in (torch.float32, torch.float64):
+        assert O4.max_scalars(dtype) == kmarch.K17_MAXS == 4
+        for S in range(1, 5):
+            assert kmarch.k17_smem(S, dtype) == (
+                ((S + 2) * 3 * 14 * 40 + 3 * 40) * torch.finfo(dtype).bits // 8)
+            assert kmarch.SMEM["o4_scalars"](S, dtype, True) == kmarch.k17_smem(
+                S, dtype)
+            # as many blocks as the launch bounds ask fit an SM's 228 KB
+            blocks = ({1: 4, 2: 3}.get(S, 2) if dtype == torch.float32
+                      else (2 if S <= 2 else 1))
+            assert blocks * (kmarch.k17_smem(S, dtype) + 1024) <= 233472
+
+
+def test_k17_plan_at_the_main_shapes():
+    """weakscaling 512x256x1024 float32 and moser180 256x192x128 float64,
+    one scalar, at four and two resident blocks an SM on 132 SMs: the 512
+    tiles of weakscaling fill the 528 slots in one chunk."""
+    p = kmarch.plan("o4_scalars", 512, 256, 1024, 1, torch.float32, 528)
+    assert (p.tiles_i, p.tiles_j, p.chunks, p.waves, p.smem) == (
+        16, 32, 1, 1, 20640)
+    p = kmarch.plan("o4_scalars", 256, 192, 128, 1, torch.float64, 264)
+    assert (p.tiles_i, p.tiles_j, p.chunks, p.waves, p.smem) == (
+        8, 24, 4, 3, 41280)
+    for ktot in (6, 16, 1024):
+        p = kmarch.plan("o4_scalars", 45, 40, ktot, 2, torch.float32, 396)
+        assert covers_once(kmarch.chunk_bounds(p.chunks, ktot), ktot)
+
+
+def test_k17_wrapper_plans_forces_and_splits(monkeypatch):
+    """Six scalars go as one launch of four and one of two, each with its
+    plan's chunk count (or the one forced), its pointers, viscosities and
+    the per-level rows."""
+    monkeypatch.setattr(O4, "on_cpu", lambda t: False)
+    m = o4_model(16, "4m")
+    o4, ctx = m.o4, m.ctx
+    o4.k_scal = Recorder("o4_scalars")
+    names = ["s%d" % n for n in range(6)]
+    monkeypatch.setattr(o4.diff, "viscs",
+                        {nm: 1e-3 * (n + 1) for n, nm in enumerate(names)})
+    shape = (ctx.kcells, ctx.jtot, ctx.itot)
+    x = [torch.zeros(shape, dtype=torch.float64) for _ in range(15)]
+    u, v, wc, f, t = x[0], x[1], x[2], x[3:9], x[9:]
+    o4.scalars(u, v, wc, names, f, t)
+    (d1, a1), (d2, a2) = o4.k_scal.calls
+    assert d1 == d2 == torch.float64
+    assert a1[6] == 4 and a2[6] == 2
+    assert a1[:3] == (u, v, wc) and a1[7] is a2[7] is o4.cz
+    assert list(a1[3]) == [y.data_ptr() for y in f[:4]]
+    assert list(a2[4]) == [y.data_ptr() for y in t[4:]]
+    assert list(a1[5]) == [1e-3, 2e-3, 3e-3, 4e-3]
+    assert list(a2[5]) == [5e-3, 6e-3]
+    assert a1[-1] == kmarch.plan("o4_scalars", 12, 10, 16, 4, torch.float64,
+                                 396).chunks
+    assert a2[-1] == kmarch.plan("o4_scalars", 12, 10, 16, 2, torch.float64,
+                                 396).chunks
+    assert a1[8:13] == (12, 10, 16, ctx.ks, O4.SCHEME_ID["4m"])
+    o4.k_scal.calls.clear()
+    o4.scalars(u, v, wc, names[:2], f[:2], t[:2], chunks=5)
+    ((_, a),) = o4.k_scal.calls
+    assert a[6] == 2 and a[-1] == 5
+    with pytest.raises(ValueError):
+        o4.scalars(u, v, wc, names[:2], f[:2], t[:2], chunks=17)
+
+
+def k17_march(u, v, wc, a, ta, sviscs, cz, ktot, ks, M, dxi, dyi, chunks,
+              broken=None):
+    """A torch emulation of csrc/o4.cu o4_scalars_kernel, every point of a
+    plane at once (the periodic halo makes a tile's points see what the
+    plane's do): each chunk warms its register columns up from the ghost
+    levels as they are (planes k0-3..k0+3 of the scalars, w at half levels
+    k0-1..k0+2), then marches its levels with plane k of the scalars, u
+    and v from K17_R ring slots filled two levels ahead and table row k
+    from K17_RR staged rows, and shifts the columns by the planes k+4 and
+    k+3 loaded one level ahead (the plane index clamped at ktot + 2).
+    broken names one rule to break: "local_rows" (the table row of the
+    chunk's own level), "interior_warmup" (the warm-up planes clamped to
+    the interior, K13's rule), "w_from_k0" (w's column one half level
+    high), "ring2" (two ring slots, so the copy two levels ahead lands in
+    the slot being read) or "no_clamp" (the planes past the top ghost
+    level)."""
+    R = 2 if broken == "ring2" else kmarch.K17_R
+    RR = 2 if broken == "ring2" else kmarch.K17_RR
+    g = (1. / 24., -27. / 24., 27. / 24., -1. / 24.)
+    ci = (-1. / 16., 9. / 16., 9. / 16., -1. / 16.)
+    cdg = (-1460. / 576., 783. / 576., -54. / 576., 1. / 576.)
+
+    def lev(p):
+        return ks + (p if broken == "no_clamp" else min(p, ktot + 2))
+
+    def line(P, d, dim):
+        return torch.roll(P, -d, dims=dim)
+
+    def hadv(vel, q):
+        if M:
+            h, q0 = 0.5, q[3]
+            fa = vel[0] * h * (q[0] + q0)
+            fb = vel[1] * h * (q[2] + q0)
+            fc = vel[2] * h * (q0 + q[4])
+            fd = vel[3] * h * (q0 + q[6])
+            return g[0] * (fd - fa) + g[1] * (fc - fb)
+        f = [vel[n] * sum(ci[m] * q[n + m] for m in range(4))
+             for n in range(4)]
+        return -sum(g[n] * f[n] for n in range(4))
+
+    S = len(a)
+    for k0, k1 in kmarch.chunk_bounds(chunks, ktot):
+        if broken == "interior_warmup":
+            warm = [ks + min(max(k0 - 3 + m, 0), ktot - 1) for m in range(7)]
+        else:
+            warm = [lev(k0 - 3 + m) for m in range(7)]
+        q = [[x[p] for p in warm] for x in a]
+        w0 = k0 if broken == "w_from_k0" else k0 - 1
+        wv = [wc[lev(w0 + e)] for e in range(4)]
+        ring = [[None] * R for _ in range(S + 2)]
+        rows = [None] * RR
+
+        def issue(p):
+            for n, x in enumerate(list(a) + [u, v]):
+                ring[n][p % R] = x[lev(p)]
+            rows[p % RR] = cz[min(p, ktot - 1) - (k0 if broken == "local_rows"
+                                                  else 0)]
+
+        issue(k0)
+        issue(k0 + 1)
+        for k in range(k0, k1):
+            issue(k + 2)
+            qn = [x[lev(k + 4)] for x in a]
+            wn = wc[lev(k + 3)]
+            zr = rows[k % RR]
+            cv = [sum(wv[e] * zr[O4.ZA + 8 * e + m] for e in range(4))
+                  for m in range(7)]
+            cd = [zr[O4.ZD + m] for m in range(7)]
+            U, V = ring[S][k % R], ring[S + 1][k % R]
+            ux = [line(U, d, -1) for d in (-1, 0, 1, 2)]
+            vy = [line(V, d, -2) for d in (-1, 0, 1, 2)]
+            for n in range(S):
+                P = ring[n][k % R]
+                x = [q[n][3] if d == 0 else line(P, d, -1)
+                     for d in range(-3, 4)]
+                y = [q[n][3] if d == 0 else line(P, d, -2)
+                     for d in range(-3, 4)]
+                va = sum(cv[m] * q[n][m] for m in range(7))
+                vd = sum(cd[m] * q[n][m] for m in range(7))
+                lap = ((cdg[3] * (x[0] + x[6]) + cdg[2] * (x[1] + x[5])
+                        + cdg[1] * (x[2] + x[4]) + cdg[0] * x[3]) * dxi * dxi
+                       + (cdg[3] * (y[0] + y[6]) + cdg[2] * (y[1] + y[5])
+                          + cdg[1] * (y[2] + y[4]) + cdg[0] * y[3]) * dyi * dyi)
+                t = (hadv(ux, x) * dxi + hadv(vy, y) * dyi + va
+                     + sviscs[n] * (lap + vd))
+                ta[n][ks + k] += t
+            for n in range(S):
+                q[n] = q[n][1:] + [qn[n]]
+            wv = wv[1:] + [wn]
+
+
+class K17Emulator(Recorder):
+    """K17's stand-in: called with the C entry's arguments (pointers
+    resolved to the tensors given), it checks what the entry checks and
+    runs k17_march."""
+
+    def __init__(self, tensors, broken=None):
+        super().__init__("o4_scalars")
+        self.by_ptr = {x.data_ptr(): x for x in tensors}
+        self.broken = broken
+
+    def __call__(self, dtype, u, v, wc, a, ta, sviscs, S, cz, itot, jtot,
+                 ktot, ks, scheme, dxi, dyi, chunks):
+        super().__call__(dtype, S, chunks)
+        assert 1 <= S <= kmarch.K17_MAXS and 1 <= chunks <= ktot
+        assert ks >= 3 and cz.shape == (ktot, O4.NZ)
+        assert u.shape == (ktot + 2 * ks, jtot, itot)
+        k17_march(u, v, wc, [self.by_ptr[p] for p in a],
+                  [self.by_ptr[p] for p in ta], list(sviscs), cz, ktot, ks,
+                  scheme == 1, dxi, dyi, chunks, self.broken)
+
+
+def k17_inputs(m, S, seed):
+    """Seeded u, v, w, S scalars and carries (ghost levels included) and S
+    distinct viscosities."""
+    rng = np.random.default_rng(seed)
+    ctx = m.ctx
+    shape = (ctx.kcells, ctx.jtot, ctx.itot)
+    f = [torch.tensor(rng.standard_normal(shape)) for _ in range(3 + 2 * S)]
+    viscs = {"s%d" % n: 10. ** rng.uniform(-3., -1.) for n in range(S)}
+    return f[0], f[1], 0.3 * f[2], list(viscs), f[3:3 + S], f[3 + S:], viscs
+
+
+def k17_rel_err(got, want):
+    return max(float((g - w).abs().max() / w.abs().max())
+               for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("S", [1, 2, 3, 5])
+@pytest.mark.parametrize("swadvec", ["4", "4m"])
+@pytest.mark.parametrize("ktot", [6, 16])
+def test_k17_chunked_march_is_the_plain_version(ktot, swadvec, S,
+                                                monkeypatch):
+    """The emulated march through the wrapper (five scalars: a launch of
+    four and one of one) equals scalars_plain to 1e-12 at every chunk count
+    on the stretched moser180 levels."""
+    monkeypatch.setattr(O4, "on_cpu", lambda t: False)
+    m = o4_model(ktot, swadvec)
+    o4 = m.o4
+    u, v, wc, names, f, t0, viscs = k17_inputs(m, S, 10 * ktot + S)
+    monkeypatch.setattr(o4.diff, "viscs", viscs)
+    want = [x.clone() for x in t0]
+    o4.scalars_plain(u, v, wc, names, f, want)
+    assert k17_rel_err(t0, want) > 1e-3
+    for chunks in range(1, ktot + 1):
+        got = [x.clone() for x in t0]
+        o4.k_scal = K17Emulator([u, v, wc] + f + got)
+        o4.scalars(u, v, wc, names, f, got, chunks=chunks)
+        assert [c[1][0] for c in o4.k_scal.calls] == (
+            [4, 1] if S == 5 else [S])
+        assert k17_rel_err(got, want) <= 1e-12, chunks
+        # the ghost levels of the carries stay as they were
+        for g, x in zip(got, t0):
+            assert torch.equal(g[:m.ctx.ks], x[:m.ctx.ks])
+            assert torch.equal(g[m.ctx.ke:], x[m.ctx.ke:])
+
+
+@pytest.mark.parametrize("broken", ["local_rows", "interior_warmup",
+                                    "w_from_k0", "ring2", "no_clamp"])
+def test_k17_march_needs_each_edge_rule(broken, monkeypatch):
+    """Each rule of the march, broken on its own, breaks the result (or
+    reads past the field) at some chunk count, in both schemes."""
+    monkeypatch.setattr(O4, "on_cpu", lambda t: False)
+    for swadvec in ("4", "4m"):
+        m = o4_model(6, swadvec)
+        o4 = m.o4
+        u, v, wc, names, f, t0, viscs = k17_inputs(m, 2, 3)
+        monkeypatch.setattr(o4.diff, "viscs", viscs)
+        want = [x.clone() for x in t0]
+        o4.scalars_plain(u, v, wc, names, f, want)
+        worst = 0.
+        for chunks in range(1, 7):
+            got = [x.clone() for x in t0]
+            o4.k_scal = K17Emulator([u, v, wc] + f + got, broken)
+            try:
+                o4.scalars(u, v, wc, names, f, got, chunks=chunks)
+            except IndexError:
+                assert broken == "no_clamp"
+                worst = float("inf")
+                continue
+            worst = max(worst, k17_rel_err(got, want))
+        assert worst > 1e-6, (broken, swadvec)
+
+
+@pytest.mark.parametrize("swadvec", ["4", "4m"])
+def test_k17_rows_are_the_plain_vertical_parts(swadvec):
+    """build_k17_rows: the seven weights of a level applied to the column
+    give the plain version's vertical advection per unit w at each half
+    level, and its vertical diffusion, at every level of 1..8-level
+    columns (where every row is a wall row); the 4m rows' wall fluxes sit
+    at the global levels 0 and ktot - 1 only."""
+    for ktot in (2, 3, 8):
+        m = o4_model(ktot, swadvec)
+        ctx, o4 = m.ctx, m.o4
+        ks, ke = ctx.ks, ctx.ke
+        cz = o4.cz.numpy()
+        rng = np.random.default_rng(ktot)
+        a = torch.tensor(rng.standard_normal((ctx.kcells, ctx.jtot,
+                                              ctx.itot)))
+        zero = torch.zeros_like(a)
+        # the plain vertical diffusion: diff_c less its horizontal part
+        # (the field constant in each plane)
+        flat = a[:, :1, :1].expand_as(a).contiguous()
+        dif = o4.diff.scalar(ctx, flat, "s") / o4.diff.viscs["s"]
+        for k in range(ktot):
+            col = flat[ks + k - 3:ks + k + 4, 0, 0].numpy()
+            assert np.allclose(cz[k, O4.ZD:O4.ZD + 7] @ col,
+                               dif[k, 0, 0].item(), rtol=1e-12, atol=0.)
+        for e in range(4):
+            # w one at half level k-1+e of each level k: the advection of
+            # a horizontally constant field is the vertical part alone
+            for k in range(ktot):
+                w = zero.clone()
+                w[ks + k - 1 + e] = 1.
+                adv = o4.advec.scalar(ctx, flat, zero, zero, w)[k, 0, 0]
+                col = flat[ks + k - 3:ks + k + 4, 0, 0].numpy()
+                got = cz[k, O4.ZA + 8 * e:O4.ZA + 8 * e + 7] @ col
+                assert np.isclose(got, adv.item(), rtol=1e-12,
+                                  atol=1e-12 * abs(adv.item())), (k, e)

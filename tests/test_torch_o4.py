@@ -352,9 +352,10 @@ def test_k16_k17_plain_match_tpu_kernels(tmp_path, ktot, swadvec):
 
 def test_o4_wrapper_contract(tmp_path):
     _, tm = ops_pair(str(tmp_path), 6, "4", False, fused=False)
-    assert O4.max_scalars(torch.float32) == 8
+    assert O4.max_scalars(torch.float32) == 4
     assert O4.max_scalars(torch.float64) == 4
     assert tm.o4.cc.shape == (9, O4.NC) and tm.o4.cc.dtype == torch.float64
+    assert tm.o4.cz.shape == (6, O4.NZ) and tm.o4.cz.dtype == torch.float64
     assert tm.o4.k_mom.launches == tm.o4.k_scal.launches == 0
     with pytest.raises(TypeError):
         O4.O4Fused(tm.advec, object(), tm.ctx)

@@ -17,7 +17,10 @@ reads from a build log and how it wires its timed calls, without a card.
   and on; K19 once a scalar and in one launch), the rows of the kernels
   that call ``s_tend`` (K2, K22, K20, K15), K22's on its other paths
   (``fold_rows``: both forms, with its occupancy, chunks, waves and
-  one-chunk time) and K11's (the cell's state and heavy rain).
+  one-chunk time), K11's (the cell's state and heavy rain) and K16's and
+  K17's at the weakscaling and moser180 shapes (``time_shape``: K17 with
+  its plan, occupancy, a forced one-chunk run and the SASS count of its
+  per-level loop).
 """
 
 import os
@@ -304,3 +307,82 @@ def test_fold_rows_run_on_the_cpu(label, case, shape, dtype, one_call,
         nf = 3 if case == "andren1994" else 4
         assert r["gbytes"] == pytest.approx(
             (4 * nf + 2) * 40 * 16 * 12 * torch.finfo(dtype).bits / 8 / 1e9)
+
+
+# K17's per-level loop around its barrier, after the warm-up's
+K17_SASS = """
+\t\tFunction : _ZN3mhh2o417o4_scalars_kernelIfLb0ELi1EEEvPKT_S4_S4_NS0_9O4ScalarsIS2_EES4_iiiiS2_S2_ii
+        /*0000*/                   S2R R0, SR_TID.X ;
+        /*0010*/                   LDG.E R2, desc[UR4][R4.64] ;
+        /*0020*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0030*/                   LDGSTS.E.BYPASS.128 [R3], desc[UR4][R4.64] ;
+        /*0040*/                   LDS R2, [R3] ;
+        /*0050*/                   FFMA R2, R3, R4, R5 ;
+        /*0060*/                   STG.E desc[UR4][R2.64], R5 ;
+        /*0070*/               @P3 BRA 0x20 ;
+        /*0080*/                   EXIT ;
+"""
+
+
+def test_k17_variant_keys():
+    """K17's ptxas and SASS key: the k-march's <T, M, S>, and the earlier
+    <T, M> of a tree whose K17 reports no occupancy."""
+    from microhh_torch import kernels
+    loops = R.sass_loops(K17_SASS, R.FUNCTIONS["o4_scalars"])
+    assert list(loops) == ["o4_scalars_kernel<float,false,1>"]
+    assert loops["o4_scalars_kernel<float,false,1>"] == [
+        {"total": 6, "fp64": 0, "mufu": 0, "bar": 1}]
+    assert (R.variant("o4_scalars", torch.float32, "4", 1)
+            == "float,false,1")
+    assert (R.variant("o4_scalars", torch.float64, "4m", 2)
+            == "double,true,2")
+    assert R.variant("o4_mom", torch.float64, "4m", 1) == "double,true"
+    info = tuple(k for k in kernels.INFO if k != "o4_scalars")
+    import unittest.mock
+    with unittest.mock.patch.object(kernels, "INFO", info):
+        assert (R.variant("o4_scalars", torch.float32, "4", 1)
+                == "float,false")
+
+
+@pytest.mark.parametrize("label,case,dtype", [
+    ("weakscaling", "weakscaling", torch.float32),
+    ("moser180", "moser180", torch.float64)])
+def test_o4_rows_run_on_the_cpu(label, case, dtype, one_call, monkeypatch):
+    """K16's and K17's rows at a tiny shape of their cells: K17 with the
+    plan's chunks, blocks and waves, its occupancy, a forced one-chunk run
+    (chunks=1 through the wrapper) and its SASS count a point."""
+    from microhh_torch import kernels
+    from microhh_torch.ops import kmarch
+    torch.manual_seed(3)
+    monkeypatch.setattr(kernels.Kernel, "info", lambda self, *a: INFO)
+    found = R.sass_loops(K17_SASS, R.FUNCTIONS["o4_scalars"])
+    t = "float" if dtype == torch.float32 else "double"
+    scheme = "false" if case == "weakscaling" else "true"
+    key = "o4_scalars_kernel<%s,%s,1>" % (t, scheme)
+    loops = {key: found["o4_scalars_kernel<float,false,1>"]}
+    seen = []
+    from microhh_torch.ops import o4_fused as O4
+    real = O4.O4Fused.scalars
+
+    def scalars(self, *a, chunks=None):
+        seen.append(chunks)
+        return real(self, *a, chunks=chunks)
+
+    monkeypatch.setattr(O4.O4Fused, "scalars", scalars)
+    shape = (40, 16, 12)
+    rows = R.time_shape(label, case, shape, dtype, 1, {}, "cpu", loops,
+                        1.98, device="cpu")
+    assert [r["kernel"] for r in rows] == ["o4_mom", "o4_scalars"]
+    k16, k17 = rows
+    assert k16["function"] == "o4_mom_kernel<%s,%s>" % (t, scheme)
+    assert k17["function"] == key and "instructions_a_point" not in k16
+    p = kmarch.plan("o4_scalars", 40, 16, 12, 1, dtype, 396)
+    assert (k17["chunks"], k17["waves"]) == (p.chunks, p.waves)
+    assert k17["blocks"] == 2 * 2 * p.chunks and k17["blocks_per_sm"] == 3
+    assert k17["ms_one_chunk"] == 1.0 and seen == [None, 1]
+    assert k17["instructions_a_point"] == 6
+    warps = 2 * 2 * kmarch.K17_TJ * 12
+    assert k17["issue_ms"] == pytest.approx(1e3 * warps * 6
+                                            / (132 * 4 * 1.98e9))
+    assert k17["gbytes"] == pytest.approx(
+        6 * 40 * 16 * 12 * torch.finfo(dtype).bits / 8 / 1e9)
