@@ -56,6 +56,10 @@ Phases (any failure exits non-zero and prints no result line):
      both walls), on partial tiles: K16 and K17 on
      the moser180 case at 45x40 and the weakscaling case at 48x20, K13 and
      the sweep on the rico case at 45x24 and 48x20, float64 and float32;
+     K12 (2i4, 2i5, 2i53, 2i62) on the same rico grids forced to those
+     counts and to its plan's, with its 16-byte copies where the grid
+     allows them (48x20) and with u, v and w shifted one value past a
+     16-byte boundary, their ghost levels NaN (never read);
      and K22 in every form of phase 3 (first x carry, the surface row given
      or not, the sponge and Coriolis folds each on and off, the evisc fold
      off) with its k-split forced to 1, 2 and 3 chunks, the plan's count and
@@ -91,6 +95,9 @@ Phases (any failure exits non-zero and prints no result line):
      its plain version, then both timed;
   9. and 10. the same two phases for rico as its ini is written
      (swadvec=2i5) at 384^3 float32: K12, K13 and K8-K10 without advection;
+     K12 also with its k-split forced to 1, 2, 3 chunks, its plan's count
+     and one level a chunk, aligned and shifted (check_mom_forced), as in
+     phase 18;
  11. and 12. the same for SBL_Smag (cases/SBL_Smag/SBL.ini, thermo buoy) at
      256^3 float32 with dt scaled with the grid: K14 and K15;
  13. and 14. the same for the weak-scaling unit (cases/weakscaling/
@@ -108,8 +115,8 @@ Phases (any failure exits non-zero and prints no result line):
  17. and 18. the same for jaenschwalde as its ini is written (thermo moist,
      swadvec=2i5 with the flux limiter on co2, nine sources, open edges)
      at 1024x256x256 float32, on the substep without the RK fold: K18, K19
-     and K21; also qt >= 0, co2 >= -1e-6 of its maximum, and the co2
-     inventory grown at the nine sources' rate;
+     and K21 (and K12 forced as in phase 10); also qt >= 0, co2 >= -1e-6
+     of its maximum, and the co2 inventory grown at the nine sources' rate;
  19. and 20. the same for sullivan2011 as its ini is written (thermo dry,
      geostrophic forcing) with stats off at 512^3 float32, on the RK path:
      K22 with the sponge and Coriolis folds;
@@ -125,7 +132,7 @@ hold, each once, over 3.35 TB/s, or its operations over 67 TFLOP/s (float32
 outside the tensor cores; half that for float64) where that is larger; and, where one PyTorch call
 computes the same function (the two DFTs), that call's time; beside K5
 and K6 also their form, C, F, shared memory and registers per CTA, GB/s
-and share of the bound; beside K13, K16 and K17 their registers, local
+and share of the bound; beside K12, K13, K16 and K17 their registers, local
 bytes a thread, shared memory a block, resident blocks an SM (as the card reports
 them), chunk count, blocks and waves at the path's shape, and the same
 beside the scalar sweep K10/K19 and K22.
@@ -1154,6 +1161,76 @@ def advec_scalar_cases(torch, m, seed, chunks):
     return cases
 
 
+def advec_mom_cases(torch, m, seed, chunk_counts):
+    """(name, kernel call, plain call, error kind) for K12 on a model with an
+    interpolated scheme at each forced chunk count (None: the plan's),
+    16-byte copies where the grid allows them and with u, v and w one value
+    past a 16-byte boundary (single-value copies only): seeded u, v, w
+    whose ghost levels, which K12 never reads (u, v clamped to [ks, ke-1],
+    w to [ks, ke]), are NaN, and random carries.  The kernel call fails on a
+    non-finite output."""
+    from microhh_torch.ops import advec_interp_fused as A
+    ctx, adv = m.ctx, m.advec_fused
+    ks, ke = ctx.ks, ctx.ke
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    shape = (ctx.kcells, ctx.jtot, ctx.itot)
+
+    def rnd(scale=1.):
+        return (scale * torch.randn(*shape, generator=gen,
+                                    dtype=torch.float32)).to(ctx.dtype).to(ctx.device)
+
+    def shifted(x):
+        # the same values one element past a 16-byte boundary
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+        y = buf[1:].view(x.shape)
+        y.copy_(x)
+        return y
+
+    u, v, w = rnd(), rnd(), rnd(0.3)
+    for x, top in ((u, ke), (v, ke), (w, ke + 1)):
+        x[:ks] = float("nan")
+        x[top:] = float("nan")
+    t0 = [rnd(1e-3) for _ in range(3)]
+    forms = {"aligned": (u, v, w), "shifted": tuple(shifted(x)
+                                                    for x in (u, v, w))}
+    cases = []
+    for chunks in chunk_counts:
+        for form, uvw in forms.items():
+            def mom(kernel, uvw=uvw, chunks=chunks):
+                t = [x.clone() for x in t0]
+                if kernel:
+                    adv.momentum(*uvw, *t, chunks=chunks)
+                    if not all(bool(torch.isfinite(x).all()) for x in t):
+                        raise AssertionError("K12 wrote a non-finite value")
+                else:
+                    A.momentum_plain(adv.scheme, *uvw, *t, adv.table(), ks,
+                                     ctx.dxi, ctx.dyi)
+                return t
+            cases.append(("advec_mom", lambda f=mom: f(True),
+                          lambda f=mom: f(False), "field"))
+    return cases
+
+
+def mom_chunks(m, dtype):
+    """The k-splits check_kmarch and the runs' phases force on K12: 1, 2
+    and 3 chunks, the plan's count and one level a chunk."""
+    k = m.ctx.ktot
+    return sorted({c for c in (1, 2, 3) if c <= k}
+                  | {m.advec_fused.mom_plan(dtype).chunks, k})
+
+
+def check_mom_forced(torch, m):
+    """K12 at a run's shapes with its k-split forced (mom_chunks), aligned
+    and shifted by one value; returns the largest absolute difference."""
+    worst = 0.
+    for name, kern, plain, kind in advec_mom_cases(
+            torch, m, m.ctx.itot + 1, mom_chunks(m, m.dtype)):
+        worst = max(worst, compare(torch, name, kern, plain, kind, m.dtype,
+                                   "%s forced" % shape_str(m)))
+        torch.cuda.empty_cache()
+    return worst
+
+
 def sweep_cases(torch, m, seed, chunks):
     """(name, kernel call, plain call, error kind) for the scalar sweep, K10
     (with the RK fold, the carry written) and K19 (without), its k-split
@@ -1230,14 +1307,16 @@ def fold_chunks(m, dtype):
 
 
 def check_kmarch(torch):
-    """K16 and K17 (both schemes), K13 (every scheme) and the scalar sweep
-    K10/K19 (sweep_cases) against their plain versions with the k-split
-    forced (forced_chunks; for K16 and K17 also K17's plan at one scalar)
-    at ktot 6 and 16, so that chunks of one to three levels touch both
-    walls, on partial tiles: K16 and K17 (1, 2, 3 and K17_MAXS + 1 scalars,
-    the last over two launches) on moser180 at 45x40 and weakscaling at
-    48x20, K13 on rico at 45x24 and 48x20 with 1, 2, 4 and
-    max_scalars + 2 scalars, the sweep on rico at 45x24 and 48x20; K22 in
+    """K16 and K17 (both schemes), K13 and K12 (every scheme) and the scalar
+    sweep K10/K19 (sweep_cases) against their plain versions with the
+    k-split forced (forced_chunks; for K16 and K17 also K17's plan at one
+    scalar, for K12 also its plan's count) at ktot 6 and 16, so that chunks
+    of one to three levels touch both walls, on partial tiles: K16 and K17
+    (1, 2, 3 and K17_MAXS + 1 scalars, the last over two launches) on
+    moser180 at 45x40 and weakscaling at 48x20, K13 on rico at 45x24 and
+    48x20 with 1, 2, 4 and max_scalars + 2 scalars, K12 on the same grids
+    with its 16-byte copies where the grid allows them and without
+    (advec_mom_cases), the sweep on rico at 45x24 and 48x20; K22 in
     every form of kernel_cases (fold_chunks) on drycblles at 512^2x32 and
     on the neutral Ekman LES at 45^2x8 (a partial tile, null th)."""
     for label, build, n, k in (("drycblles", build_model, 512, 32),
@@ -1273,12 +1352,18 @@ def check_kmarch(torch):
                 for dtype in (torch.float64, torch.float32):
                     m = build_rico(torch, n, k, dtype, "cuda", swadvec=scheme)
                     m.build_step()
+                    where = "rico %s %dx%dx%d" % (scheme, n[0], n[1], k)
                     for chunks in forced_chunks(k):
                         for name, kern, plain, kind in advec_scalar_cases(
                                 torch, m, n[0] + k, chunks):
                             compare(torch, name, kern, plain, kind, dtype,
-                                    "rico %s %dx%dx%d chunks=%d"
-                                    % (scheme, n[0], n[1], k, chunks))
+                                    "%s chunks=%d" % (where, chunks))
+                    counts = sorted(set(forced_chunks(k))
+                                    | set(mom_chunks(m, dtype)))
+                    for name, kern, plain, kind in advec_mom_cases(
+                            torch, m, n[0] + k, counts):
+                        compare(torch, name, kern, plain, kind, dtype,
+                                "%s chunks %s" % (where, counts))
     for n in ((45, 24), (48, 20)):
         for k in (16, 6):
             for dtype in (torch.float64, torch.float32):
@@ -1908,7 +1993,9 @@ def time_generic_kernels(torch, m, s):
             lambda: adv.momentum(*uvw, *tuvw),
             lambda: A.momentum_plain(adv.scheme, *uvw, *tuvw, adv.table(),
                                      ctx.ks, ctx.dxi, ctx.dyi),
-            9 * fb, FLOPS_PER_POINT["advec_mom"] * n)
+            9 * fb, FLOPS_PER_POINT["advec_mom"] * n,
+            info=kmarch_info(adv.k_mom, m.dtype, A.SCHEME_ID[adv.scheme], 0,
+                             adv.mom_plan(m.dtype)))
         S1 = min(S, A.max_scalars(m.dtype))
         pairs["advec_scalars"] = pair(
             lambda: adv.scalars(*uvw, a, ta),
@@ -2211,7 +2298,8 @@ def kernel_entry(k, launches, errs, times, where):
          "max_abs_err": errs[k.name], "shape": where}
     e.update({key: times[k.name][key] for key in
               ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
-    # K5 and K6: their form and its resources; K13 and K16: their k-march
+    # K5 and K6: their form and its resources; the k-marching kernels:
+    # their k-march
     e.update({key: times[k.name][key] for key in
               ("form", "C", "F", "smem_per_cta", "registers", "local_bytes",
                "smem_per_block", "blocks_per_sm", "chunks", "blocks", "waves")
@@ -2261,8 +2349,8 @@ def main():
     log("[3a] K5 and K6 in both forms against torch.fft")
     check_dft(torch)
     check_kernels(torch)
-    log("[3b] K16, K13, the scalar sweep K10/K19 and K22 with the k-split "
-        "forced")
+    log("[3b] K16, K17, K12, K13, the scalar sweep K10/K19 and K22 with "
+        "the k-split forced")
     check_kmarch(torch)
     log("[3c] K11 at ring depths 3, 4 and 8, columns shorter than, equal to "
         "and not a multiple of its window")
@@ -2346,6 +2434,9 @@ def main():
             log("[%d] kernels at %s %d^3 float32: against their plain "
                 "versions, then timed" % (phase + 1, label, n))
             errs = check_kernels_full(torch, m, generic_kernel_cases)
+            if m.advec_fused is not None:
+                errs["advec_mom"] = max(errs["advec_mom"],
+                                        check_mom_forced(torch, m))
             times = time_generic_kernels(torch, m, s)
             record(m, s, key, key + "_f32", label, res, errs, times,
                    "%s %d^3 float32" % (label, n))
@@ -2384,6 +2475,7 @@ def main():
         log("[%d] kernels at %s: against their plain versions, then timed"
             % (phase + 1, where))
         errs = check_kernels_full(torch, m, generic_kernel_cases)
+        errs["advec_mom"] = max(errs["advec_mom"], check_mom_forced(torch, m))
         times = time_generic_kernels(torch, m, s)
         record(m, s, key, key, label, res, errs, times, where)
         del m, s

@@ -24,25 +24,38 @@
 // Bound: device-memory bytes.  K12 reads u, v, w and reads and writes the
 // three carries: 9 x 4 B per point in f32 (2.05 GB at 384^3), ~400 flops
 // per point.  K13 with S scalars reads 3 + 2S fields and writes S: 15 x 4 B
-// for S = 4 (3.41 GB).  K12's design: a block of AI x AJ threads owns an
-// (AJ, AI) tile and marches through all of k; each field keeps a ring of
-// seven (AJ+6) x (AI+6) planes (tile + 3-cell periodic halo) in dynamic
-// shared memory, loaded synchronously, so a field is read from device
-// memory once plus the halo (1.63x, mostly served by L2).
-// K13's design (kmarch.cuh): a block of 32 x K13_TJ threads marches one
-// chunk of the levels of its tile, the chunk count chosen by the wrapper so
-// that the grid fills the card in whole waves.  Only plane k of a scalar is
-// read across the plane, so shared memory holds that plane and the two
-// behind it, copied by cp.async two levels ahead (one barrier a level);
-// each thread keeps its own column, planes k-3..k+3 of every scalar, in
-// registers and shifts it by one a level, the new value loaded one level
-// ahead, as are u, v and w at the point and its +1 neighbours.  The table
-// rows come into shared memory with the planes; the vertical part's seven
-// weights on the column are formed once a point and level for all the
-// scalars.  The scalar count is a
-// template parameter (at most MAXA a launch; the wrapper splits the rest
-// over launches).  The carries are updated in place, each point and level
-// by one block.
+// for S = 4 (3.41 GB).  Both march chunks of k on kmarch.cuh: a block of
+// 32 x TJ threads owns one tile of the plane and marches one chunk of its
+// levels, the chunk count chosen by the wrapper (ops/kmarch.py plan) so
+// that the grid fills the card in whole waves.  Only the planes read
+// across the plane sit in shared memory, copied by cp.async two levels
+// ahead with one barrier a level; each thread keeps its own column, planes
+// k-3..k+3 of each transported field, in registers and shifts it by one a
+// level, the new value loaded one level ahead; the table rows come into
+// shared memory with the planes.  The carries are updated in place, each
+// point and level by one block.
+// K13's design: shared memory holds plane k of each scalar in three slots
+// (k+1 and k+2 in flight); u, v at the point and its +1 neighbours and w at
+// the faces k and k+1 come as register values loaded one level ahead; the
+// vertical part's seven weights on the column are formed once a point and
+// level for all the scalars.  The scalar count is a template parameter (at
+// most MAXA a launch; the wrapper splits the rest over launches).
+// K12's design: group p of the march is plane p of u and v and plane p + 1
+// of w, side by side in one ring slot and sharing the loader's offsets; at
+// level k the block reads group k (u, v at k: the u and v families'
+// stencils; w at k + 1: the faces k + 1 of u and v) and group k - 1 (w at
+// k: the w family's stencils; u at k - 1, i + 1 and v at k - 1, j + 1: w's
+// advecting velocities), so the ring holds four slots (two read, one in
+// flight, one being filled).  Each chunk issues group k0 - 1 first, so
+// its first level needs no rule of its own.  (Three slots with w's k + 1
+// neighbours loaded one level ahead and u, v at k - 1 carried in
+// registers read 1.60 against 1.41 ms at rico 384^3 in float32.)  The columns of u, v and w are
+// clamped as the table expects ([ks, ke-1] for u and v, [ks, ke] for w),
+// at the warm-up and at the prefetch alike; face k's interpolated w of u
+// and of v is carried from the level below (at the chunk's first level
+// read from device memory).  The vertical parts are the six-tap ladders
+// of the staged rows k - 1, k and k + 1 (a ring of K12_RR, row k0 - 1 staged
+// with the chunk's first group) on the register columns.
 #include "kmarch.cuh"
 
 namespace mhh {
@@ -51,47 +64,9 @@ namespace mhh {
 enum { WXF = 0, WUF = 6, WXC = 12, WUC = 18, RCDZI = 24, RHDZHI = 25,
        WMASK = 26, NC = 27 };
 
-constexpr int AI = 32;
-constexpr int AJ = 16;
-constexpr int AH = 3;
-constexpr int WI = AI + 2 * AH;
-constexpr int WJ = AJ + 2 * AH;
-constexpr int NR = 7;
 constexpr int MAXA = 4;   // scalars a K13 launch
 
 extern __shared__ __align__(16) unsigned char adv_smem[];
-
-__device__ __forceinline__ int slot7(int p) { return (p + NR) % NR; }
-
-template <typename T>
-__device__ __forceinline__ void load_tile7(T (*sh)[WI], const T* __restrict__ a,
-                                           long long level, int j0, int i0,
-                                           int jtot, int itot) {
-    const long long base = level * (long long)jtot * itot;
-    for (int idx = threadIdx.y * AI + threadIdx.x; idx < WJ * WI;
-         idx += AI * AJ) {
-        const int r = idx / WI;
-        const int c = idx - r * WI;
-        const int jg = wrap(j0 + r - AH, jtot);
-        const int ig = wrap(i0 + c - AH, itot);
-        sh[r][c] = __ldg(a + base + (long long)jg * itot + ig);
-    }
-}
-
-// one field's seven-plane ring seen from the thread's point
-template <typename T>
-struct View7 {
-    const T (*ring)[WJ][WI];
-    int r, c;
-    __device__ __forceinline__ T operator()(int s, int dj, int di) const {
-        return ring[s][r + dj][c + di];
-    }
-};
-
-template <typename T>
-__device__ __forceinline__ View7<T> view7(const T (*ring)[WJ][WI]) {
-    return View7<T>{ring, (int)threadIdx.y + AH, (int)threadIdx.x + AH};
-}
 
 // Flux divergence along one axis (before the 1/dx factor): q(d) is the
 // transported quantity at offset d along the axis, vR and vL the advecting
@@ -120,108 +95,225 @@ __device__ __forceinline__ T hdiv(F q, T vR, T vL) {
     return out;
 }
 
-// sum over the six taps of row[base + j] * Q(plane p0 + j) at the point
-template <typename T>
-__device__ __forceinline__ T wsum(const T* __restrict__ row, int base,
-                                  const View7<T>& Q, int p0) {
-    T acc = row[base] * Q(slot7(p0), 0, 0);
+// K12's k-march (kmarch.cuh): 32 x K12_TJ tiles, K12_R ring slots of a
+// group (u's and v's plane p and w's plane p + 1 side by side), K12_RR
+// staged table rows (k - 1, k and k + 1 read, k + 2 and k + 3 in flight).
+constexpr int K12_TJ = 8;
+constexpr int K12_NT = km::TI * K12_TJ;
+constexpr int K12_R = 4;
+constexpr int K12_RR = 8;
+static_assert((K12_R & (K12_R - 1)) == 0 && (K12_RR & (K12_RR - 1)) == 0,
+              "slots are taken modulo a power of two");
+
+// the six-tap ladder of a staged row's columns C..C+5 on q[O..O+5]
+template <int C, int O, typename T>
+__device__ __forceinline__ T ladder(const T* row, const T (&q)[7]) {
+    T x[6];
+    km::load6(row + C, x);
+    T acc = x[0] * q[O];
 #pragma unroll
-    for (int j = 1; j < 6; ++j)
-        acc = acc + row[base + j] * Q(slot7(p0 + j), 0, 0);
+    for (int m = 1; m < 6; ++m) acc = acc + x[m] * q[O + m];
     return acc;
 }
 
-// Vertical flux divergence of a cell-centred quantity at level k: faces k
-// (advecting wf0, table row r0) and k+1 (wf1, row r1).
-template <bool UP, typename T>
-__device__ __forceinline__ T vterm(const T* __restrict__ r0,
-                                   const T* __restrict__ r1,
-                                   const View7<T>& Q, int k, T wf0, T wf1) {
-    T adv = -(wf1 * wsum(r1, WXF, Q, k - 2) - wf0 * wsum(r0, WXF, Q, k - 3));
+// The vertical flux divergence (before its factor) of a column q (planes
+// k-3..k+3) between its lower face (row r0 on planes k-3..k+2, advecting
+// velocity w0) and its upper face (row r1 on planes k-2..k+3, w1); X and
+// UC: the columns of the centred and the upwind ladder.
+template <int X, int UC, bool UP, typename T>
+__device__ __forceinline__ T vdiv(const T* r0, const T* r1, const T (&q)[7],
+                                  T w0, T w1) {
+    T out = w0 * ladder<X, 0>(r0, q) - w1 * ladder<X, 1>(r1, q);
     if (UP)
-        adv = adv + (fabs(wf1) * wsum(r1, WUF, Q, k - 2)
-                     - fabs(wf0) * wsum(r0, WUF, Q, k - 3));
-    return adv * r0[RCDZI];
+        out = out + (fabs(w1) * ladder<UC, 1>(r1, q)
+                     - fabs(w0) * ladder<UC, 0>(r0, q));
+    return out;
 }
 
+// three blocks an SM in float32 (at most 85 registers; four, at most 64
+// and a spill, read 1.77 against 1.67 ms at jaenschwalde on an H100 at
+// 700 W, PERF.md section 6), two in float64
 template <typename T, bool C4, bool UP>
-__global__ void __launch_bounds__(AI * AJ)
+__global__ void __launch_bounds__(K12_NT, sizeof(T) == 4 ? 3 : 2)
 advec_mom_kernel(const T* __restrict__ u, const T* __restrict__ v,
                  const T* __restrict__ w, T* tu, T* tv, T* tw,
                  const T* __restrict__ cc, int itot, int jtot, int ktot,
-                 int ks, T dxi, T dyi) {
-    // rings: u, v, w
-    T (*sh)[NR][WJ][WI] = reinterpret_cast<T (*)[NR][WJ][WI]>(adv_smem);
-    const int i0 = blockIdx.x * AI, j0 = blockIdx.y * AJ;
-    const int i = i0 + threadIdx.x, j = j0 + threadIdx.y;
+                 int ks, T dxi, T dyi, int chunks, int vec_ok) {
+    constexpr int SZ = km::Slot<K12_TJ>::SIZE, R = km::RS, PL = 3 * SZ;
+    // ring slots [K12_R] of (u, v, w) planes, then the staged rows
+    T* const ring = reinterpret_cast<T*>(adv_smem);
+    T* const rows = ring + K12_R * PL;
+    const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * km::TI + tx;
+    const int i0 = blockIdx.x * km::TI, j0 = blockIdx.y * K12_TJ;
+    const int i = i0 + tx, j = j0 + ty;
     const bool inside = i < itot && j < jtot;
+    int k0, k1;
+    km::chunk_bounds(blockIdx.z, chunks, ktot, k0, k1);
     const int ke = ks + ktot;
     const long long plane = (long long)itot * jtot;
-    const View7<T> U = view7<T>(sh[0]), V = view7<T>(sh[1]), W = view7<T>(sh[2]);
+    const km::PlaneLoader<T, K12_TJ, K12_NT> ld(
+        tid, i0, j0, itot, jtot, vec_ok && i0 + km::TI <= itot);
+    // the point (wrapped where the tile passes the plane's edge: only its
+    // stores are guarded), in the plane and in a slot
+    const int iw = wrap(i, itot), jw = wrap(j, jtot);
+    const long long o2 = (long long)jw * itot + iw;
+    const int me = (ty + km::H) * R + tx + km::C0;
+    const unsigned ring_s = (unsigned)__cvta_generic_to_shared(ring);
+    const unsigned rows_s = (unsigned)__cvta_generic_to_shared(rows + tid);
     const T half = T(0.5);
 
-    auto load = [&](int p) {
-        const int s = slot7(p);
-        load_tile7(sh[0][s], u, clampi(ks + p, ks, ke - 1), j0, i0, jtot, itot);
-        load_tile7(sh[1][s], v, clampi(ks + p, ks, ke - 1), j0, i0, jtot, itot);
-        load_tile7(sh[2][s], w, clampi(ks + p, ks, ke), j0, i0, jtot, itot);
+    // the planes of u and v (clamped to [ks, ke-1]) and of w ([ks, ke])
+    auto lev_uv = [&](int p) {
+        return (long long)clampi(ks + p, ks, ke - 1) * plane;
     };
-
-    for (int p = -3; p < 3; ++p) load(p);
-    for (int k = 0; k < ktot; ++k) {
-        load(k + 3);
-        __syncthreads();
-        if (inside) {
-            const int s0 = slot7(k), sm = slot7(k - 1), sp = slot7(k + 1);
-            const T* r0 = cc + (long long)k * NC;
-            const T* r1 = r0 + NC;
-            const T* rm = cc + (long long)(k > 0 ? k - 1 : 0) * NC;
-            const long long o = (long long)(ks + k) * plane + (long long)j * itot + i;
-
-            // ---- u ----
-            {
-                T t = hdiv<C4, UP, T>([&](int d) { return U(s0, 0, d); },
-                                      half * (U(s0, 0, 0) + U(s0, 0, 1)),
-                                      half * (U(s0, 0, -1) + U(s0, 0, 0))) * dxi;
-                t = t + hdiv<C4, UP, T>([&](int d) { return U(s0, d, 0); },
-                                        half * (V(s0, 1, -1) + V(s0, 1, 0)),
-                                        half * (V(s0, 0, -1) + V(s0, 0, 0))) * dyi;
-                const T wf0 = half * (W(s0, 0, -1) + W(s0, 0, 0));
-                const T wf1 = half * (W(sp, 0, -1) + W(sp, 0, 0));
-                tu[o] = tu[o] + t + vterm<UP, T>(r0, r1, U, k, wf0, wf1);
-            }
-            // ---- v ----
-            {
-                T t = hdiv<C4, UP, T>([&](int d) { return V(s0, 0, d); },
-                                      half * (U(s0, -1, 1) + U(s0, 0, 1)),
-                                      half * (U(s0, -1, 0) + U(s0, 0, 0))) * dxi;
-                t = t + hdiv<C4, UP, T>([&](int d) { return V(s0, d, 0); },
-                                        half * (V(s0, 0, 0) + V(s0, 1, 0)),
-                                        half * (V(s0, -1, 0) + V(s0, 0, 0))) * dyi;
-                const T wf0 = half * (W(s0, -1, 0) + W(s0, 0, 0));
-                const T wf1 = half * (W(sp, -1, 0) + W(sp, 0, 0));
-                tv[o] = tv[o] + t + vterm<UP, T>(r0, r1, V, k, wf0, wf1);
-            }
-            // ---- w at half level k; k = 0 is the wall ----
-            if (k > 0) {
-                T t = hdiv<C4, UP, T>([&](int d) { return W(s0, 0, d); },
-                                      half * (U(sm, 0, 1) + U(s0, 0, 1)),
-                                      half * (U(sm, 0, 0) + U(s0, 0, 0))) * dxi;
-                t = t + hdiv<C4, UP, T>([&](int d) { return W(s0, d, 0); },
-                                        half * (V(sm, 1, 0) + V(s0, 1, 0)),
-                                        half * (V(sm, 0, 0) + V(s0, 0, 0))) * dyi;
-                const T velw0 = half * (W(sm, 0, 0) + W(s0, 0, 0));   // centre k-1
-                const T velw1 = half * (W(s0, 0, 0) + W(sp, 0, 0));   // centre k
-                T adv = -(velw1 * wsum(r0, WXC, W, k - 2)
-                          - velw0 * wsum(rm, WXC, W, k - 3));
-                if (UP)
-                    adv = adv + (fabs(velw1) * wsum(r0, WUC, W, k - 2)
-                                 - fabs(velw0) * wsum(rm, WUC, W, k - 3));
-                tw[o] = tw[o] + t + adv * r0[RHDZHI];
+    auto lev_w = [&](int p) {
+        return (long long)clampi(ks + p, ks, ke) * plane;
+    };
+    // table row r (clamped to [0, ktot]) into staged slot r
+    auto row_in = [&](int r) {
+        if (tid < NC)
+            km::cp_async<sizeof(T)>(
+                rows_s + (unsigned)((r & (K12_RR - 1)) * km::NCP * sizeof(T)),
+                cc + (long long)clampi(r, 0, ktot) * NC + tid);
+    };
+    // group p into slot sl: plane p of u and v, plane p + 1 of w (their
+    // first values formed once a group, the loader's offsets shared by the
+    // three), and table row p + 1 (a copy for a level past the chunk's end
+    // is never read)
+    auto issue = [&](int p, int sl) {
+        const long long luv = lev_uv(p);
+        const T* const ug = u + luv;
+        const T* const vg = v + luv;
+        const T* const wg = w + lev_w(p + 1);
+        const unsigned s0 = ring_s + (unsigned)(sl * PL * sizeof(T));
+        constexpr unsigned F = SZ * sizeof(T);
+#pragma unroll
+        for (int n = 0; n < ld.NOP; ++n) {
+            if (ld.src[n] < 0) continue;
+            const unsigned d =
+                s0 + (unsigned)((ld.dst[n] & (km::VEC - 1)) * sizeof(T));
+            const int o = ld.src[n];
+            if (ld.dst[n] & km::VEC) {
+                km::cp_async<16>(d, ug + o);
+                km::cp_async<16>(d + F, vg + o);
+                km::cp_async<16>(d + 2 * F, wg + o);
+            } else {
+                km::cp_async<sizeof(T)>(d, ug + o);
+                km::cp_async<sizeof(T)>(d + F, vg + o);
+                km::cp_async<sizeof(T)>(d + 2 * F, wg + o);
             }
         }
-        __syncthreads();
+        row_in(p + 1);
+        km::commit();
+    };
+
+    // the register columns: planes k-3..k+3 of u, v and w (clamped)
+    T uq[7], vq[7], wq[7];
+#pragma unroll
+    for (int m = 0; m < 7; ++m) {
+        const long long luv = lev_uv(k0 - 3 + m) + o2;
+        uq[m] = __ldg(u + luv);
+        vq[m] = __ldg(v + luv);
+        wq[m] = __ldg(w + lev_w(k0 - 3 + m) + o2);
     }
+    // w interpolated to face k of u (i - 1/2) and of v (j - 1/2), carried
+    // from level to level
+    T wfu, wfv;
+    {
+        const T* wk = w + (long long)(ks + k0) * plane;
+        wfu = half * (__ldg(wk + (long long)jw * itot + wrap(i - 1, itot))
+                      + wq[3]);
+        wfv = half * (__ldg(wk + (long long)wrap(j - 1, jtot) * itot + iw)
+                      + wq[3]);
+    }
+
+    // group p lives in slot (p - k0 + 1) mod K12_R; row k0 - 1 is read at
+    // the chunk's first level (w's lower centre)
+    row_in(k0 - 1);
+    issue(k0 - 1, 0);
+    issue(k0, 1);
+    issue(k0 + 1, 2);
+    for (int k = k0; k < k1; ++k) {
+        km::wait_pending<1>();
+        __syncthreads();
+        const int z = k - k0;
+        // group k + 2 into the slot group k - 2 left
+        issue(k + 2, (z + 3) & (K12_R - 1));
+        // the column values of the next level, on their way during this one
+        const long long ln = lev_uv(k + 4) + o2;
+        const T un = __ldg(u + ln), vn = __ldg(v + ln),
+                wn = __ldg(w + lev_w(k + 4) + o2);
+
+        // group k: u, v at k, w at k + 1; group k - 1: u, v at k - 1, w at k
+        const T* const U = ring + ((z + 1) & (K12_R - 1)) * PL + me;
+        const T* const V = U + SZ;
+        const T* const W1 = U + 2 * SZ;
+        const T* const Um = ring + (z & (K12_R - 1)) * PL + me;
+        const T* const Vm = Um + SZ;
+        const T* const W = Um + 2 * SZ;
+        const T* const rm = rows + ((k - 1) & (K12_RR - 1)) * km::NCP;
+        const T* const r0 = rows + (k & (K12_RR - 1)) * km::NCP;
+        const T* const r1 = rows + ((k + 1) & (K12_RR - 1)) * km::NCP;
+        const long long o = (long long)(ks + k) * plane + o2;
+
+        // w at face k + 1 of u and of v: the next level's face k
+        const T wfu1 = half * (W1[-1] + wq[4]);
+        const T wfv1 = half * (W1[-R] + wq[4]);
+        const T fz = r0[RCDZI];
+        // ---- u ----
+        {
+            T t = hdiv<C4, UP, T>([&](int d) { return d ? U[d] : uq[3]; },
+                                  half * (uq[3] + U[1]),
+                                  half * (U[-1] + uq[3])) * dxi;
+            t = t + hdiv<C4, UP, T>([&](int d) { return d ? U[d * R] : uq[3]; },
+                                    half * (V[R - 1] + V[R]),
+                                    half * (V[-1] + vq[3])) * dyi;
+            t = t + vdiv<WXF, WUF, UP>(r0, r1, uq, wfu, wfu1) * fz;
+            if (inside) tu[o] = tu[o] + t;
+        }
+        // ---- v ----
+        {
+            T t = hdiv<C4, UP, T>([&](int d) { return d ? V[d] : vq[3]; },
+                                  half * (U[1 - R] + U[1]),
+                                  half * (U[-R] + uq[3])) * dxi;
+            t = t + hdiv<C4, UP, T>([&](int d) { return d ? V[d * R] : vq[3]; },
+                                    half * (vq[3] + V[R]),
+                                    half * (V[-R] + vq[3])) * dyi;
+            t = t + vdiv<WXF, WUF, UP>(r0, r1, vq, wfv, wfv1) * fz;
+            if (inside) tv[o] = tv[o] + t;
+        }
+        // ---- w at half level k; the global level 0 is the wall ----
+        if (k > 0) {
+            T t = hdiv<C4, UP, T>([&](int d) { return d ? W[d] : wq[3]; },
+                                  half * (Um[1] + U[1]),
+                                  half * (uq[2] + uq[3])) * dxi;
+            t = t + hdiv<C4, UP, T>([&](int d) { return d ? W[d * R] : wq[3]; },
+                                    half * (Vm[R] + V[R]),
+                                    half * (vq[2] + vq[3])) * dyi;
+            // the centres k - 1 (row k - 1) and k (row k)
+            t = t + vdiv<WXC, WUC, UP>(rm, r0, wq, half * (wq[2] + wq[3]),
+                                       half * (wq[3] + wq[4])) * r0[RHDZHI];
+            if (inside) tw[o] = tw[o] + t;
+        }
+
+#pragma unroll
+        for (int m = 0; m < 6; ++m) {
+            uq[m] = uq[m + 1];
+            vq[m] = vq[m + 1];
+            wq[m] = wq[m + 1];
+        }
+        uq[6] = un; vq[6] = vn; wq[6] = wn;
+        wfu = wfu1; wfv = wfv1;
+    }
+    // no copy may land after the block has left its shared memory
+    km::wait_all();
+}
+
+// dynamic shared memory of one K12 launch (ops/kmarch.py repeats it)
+template <typename T>
+constexpr size_t k12_smem() {
+    return ((size_t)K12_R * 3 * km::Slot<K12_TJ>::SIZE + K12_RR * km::NCP)
+           * sizeof(T);
 }
 
 // the scalars' and their carries' pointers, passed by value
@@ -391,13 +483,17 @@ static int raise_smem(K kernel, size_t smem) {
 template <typename T, bool C4, bool UP>
 int launch_mom(const T* u, const T* v, const T* w, T* tu, T* tv, T* tw,
                const T* cc, int itot, int jtot, int ktot, int ks, double dxi,
-               double dyi, cudaStream_t stream) {
-    const size_t smem = (size_t)3 * NR * WJ * WI * sizeof(T);
+               double dyi, int chunks, cudaStream_t stream) {
+    const size_t smem = k12_smem<T>();
     if (int rc = raise_smem(advec_mom_kernel<T, C4, UP>, smem)) return rc;
-    const dim3 block(AI, AJ);
-    const dim3 grid((itot + AI - 1) / AI, (jtot + AJ - 1) / AJ);
+    const bool vec = itot % (16 / (int)sizeof(T)) == 0 && km::aligned16(u)
+                     && km::aligned16(v) && km::aligned16(w);
+    const dim3 block(km::TI, K12_TJ);
+    const dim3 grid((itot + km::TI - 1) / km::TI, (jtot + K12_TJ - 1) / K12_TJ,
+                    chunks);
     advec_mom_kernel<T, C4, UP><<<grid, block, smem, stream>>>(
-        u, v, w, tu, tv, tw, cc, itot, jtot, ktot, ks, T(dxi), T(dyi));
+        u, v, w, tu, tv, tw, cc, itot, jtot, ktot, ks, T(dxi), T(dyi), chunks,
+        (int)vec);
     return (int)cudaGetLastError();
 }
 
@@ -464,18 +560,36 @@ int info_scalars(int S, int* out) {
 template <typename T>
 int advec_mom(const T* u, const T* v, const T* w, T* tu, T* tv, T* tw,
               const T* cc, int itot, int jtot, int ktot, int ks, int scheme,
-              double dxi, double dyi, cudaStream_t stream) {
+              double dxi, double dyi, int chunks, cudaStream_t stream) {
+    if (chunks < 1 || chunks > ktot) return (int)cudaErrorInvalidValue;
     switch (scheme) {
     case 0:
         return launch_mom<T, true, false>(u, v, w, tu, tv, tw, cc, itot, jtot,
-                                          ktot, ks, dxi, dyi, stream);
+                                          ktot, ks, dxi, dyi, chunks, stream);
     case 1:
     case 2:
         return launch_mom<T, false, true>(u, v, w, tu, tv, tw, cc, itot, jtot,
-                                          ktot, ks, dxi, dyi, stream);
+                                          ktot, ks, dxi, dyi, chunks, stream);
     case 3:
         return launch_mom<T, false, false>(u, v, w, tu, tv, tw, cc, itot, jtot,
-                                           ktot, ks, dxi, dyi, stream);
+                                           ktot, ks, dxi, dyi, chunks, stream);
+    }
+    return (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
+int advec_mom_info(int scheme, int* out) {
+    switch (scheme) {
+    case 0:
+        return km::kernel_info(advec_mom_kernel<T, true, false>, K12_NT,
+                               k12_smem<T>(), out);
+    case 1:
+    case 2:
+        return km::kernel_info(advec_mom_kernel<T, false, true>, K12_NT,
+                               k12_smem<T>(), out);
+    case 3:
+        return km::kernel_info(advec_mom_kernel<T, false, false>, K12_NT,
+                               k12_smem<T>(), out);
     }
     return (int)cudaErrorInvalidValue;
 }
@@ -524,11 +638,15 @@ int advec_scalars_info(int scheme, int S, int* out) {
     extern "C" int mhh_advec_mom_##SUF(                                       \
         const void* u, const void* v, const void* w, void* tu, void* tv,      \
         void* tw, const void* cc, int itot, int jtot, int ktot, int ks,       \
-        int scheme, double dxi, double dyi, void* stream) {                   \
+        int scheme, double dxi, double dyi, int chunks, void* stream) {       \
         return mhh::advec_mom<T>((const T*)u, (const T*)v, (const T*)w,       \
                                  (T*)tu, (T*)tv, (T*)tw, (const T*)cc, itot,  \
-                                 jtot, ktot, ks, scheme, dxi, dyi,            \
+                                 jtot, ktot, ks, scheme, dxi, dyi, chunks,    \
                                  (cudaStream_t)stream);                       \
+    }                                                                         \
+    extern "C" int mhh_advec_mom_info_##SUF(int scheme, int S, int* out) {    \
+        (void)S;                                                              \
+        return mhh::advec_mom_info<T>(scheme, out);                           \
     }                                                                         \
     extern "C" int mhh_advec_scalars_##SUF(                                   \
         const void* u, const void* v, const void* w, const void* const* a,    \

@@ -1,8 +1,9 @@
-// The k-march machinery of the redesigned ring kernels (K13 in
-// advec_interp.cu, K16 in o4.cu, the scalar sweep K10/K19 in
-// tend_generic.cu): a (TJ, 32) tile of the plane per block, a
-// chunk of the levels per block, planes copied asynchronously into rings in
-// shared memory, the thread's own vertical column held in registers.
+// The k-march machinery of the redesigned ring kernels (K12 and K13 in
+// advec_interp.cu, K16 and K17 in o4.cu, the scalar sweep K10/K19 in
+// tend_generic.cu, K22 in tend_rk_fold.cu): a (TJ, 32) tile of the plane
+// per block, a chunk of the levels per block, planes copied asynchronously
+// into rings in shared memory, the thread's own vertical column held in
+// registers.
 //
 // * Chunks.  Block z of the grid marches the levels [k0, k1) of
 //   chunk_bounds(z, chunks, ktot), so that the grid has tiles x chunks blocks

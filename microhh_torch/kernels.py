@@ -81,8 +81,9 @@ SIGNATURES = {
     "tend_scalar_rk": [_P] * 8 + [_I] * 4 + [_D] * 6 + [_I] * 3,
     # u, v, w, n2 (interior), out, ce; itot, jtot, ktot, ks; dxi, dyi, tPr
     "evisc_n2": [_P] * 6 + [_I] * 4 + [_D] * 3,
-    # u, v, w, tu, tv, tw, cc; itot, jtot, ktot, ks, scheme; dxi, dyi
-    "advec_mom": [_P] * 7 + [_I] * 5 + [_D] * 2,
+    # u, v, w, tu, tv, tw, cc; itot, jtot, ktot, ks, scheme; dxi, dyi;
+    # chunks (ops/kmarch.py)
+    "advec_mom": [_P] * 7 + [_I] * 5 + [_D] * 2 + [_I],
     # u, v, w; host arrays of the S scalars' and carries' pointers; S; cc;
     # itot, jtot, ktot, ks, scheme; dxi, dyi; chunks (ops/kmarch.py)
     "advec_scalars": [_P] * 3 + [_PP] * 2 + [_I, _P] + [_I] * 5 + [_D] * 2
@@ -118,11 +119,11 @@ SIGNATURES = {
 
 # Kernels with an entry mhh_<kernel>_info_<f32|f64>(scheme, S, int out[5])
 # (the scalar sweep's "scheme" is its advec flag, K22's its thermo flag; K11
-# reads neither): registers, local bytes a thread, dynamic shared memory a
-# block, resident blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
-# SMs.
-INFO = ("advec_scalars", "o4_mom", "o4_scalars", "tend_scalars",
-        "tend_scalar_acc", "micro2", "tend_rk_fold")
+# reads neither, K12 and K16 not S): registers, local bytes a thread,
+# dynamic shared memory a block, resident blocks an SM
+# (cudaOccupancyMaxActiveBlocksPerMultiprocessor), SMs.
+INFO = ("advec_mom", "advec_scalars", "o4_mom", "o4_scalars",
+        "tend_scalars", "tend_scalar_acc", "micro2", "tend_rk_fold")
 INFO_KEYS = ("registers", "local_bytes", "smem", "blocks_per_sm", "sms")
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}

@@ -327,8 +327,17 @@ class AdvecInterpFused:
             self._cc_version = ctx.basestate_version
         return self._cc
 
-    def momentum(self, u, v, w, tu, tv, tw):
-        """K12: tu, tv, tw += advection of u, v, w, in place."""
+    def mom_plan(self, dtype, chunks=None):
+        """The k-march of one K12 launch (ops/kmarch.py), the chunk count
+        chosen from the card's resident blocks unless given."""
+        ctx = self.ctx
+        info = self.k_mom.info(dtype, SCHEME_ID[self.scheme])
+        return kmarch.plan("advec_mom", ctx.itot, ctx.jtot, ctx.ktot, 0,
+                           dtype, info["blocks_per_sm"] * info["sms"], chunks)
+
+    def momentum(self, u, v, w, tu, tv, tw, chunks=None):
+        """K12: tu, tv, tw += advection of u, v, w, in place.  chunks: force
+        the k-split (checks and timings only)."""
         ctx = self.ctx
         cc = self.table()
         if on_cpu(u):
@@ -338,7 +347,8 @@ class AdvecInterpFused:
         check((u, v, w, tu, tv, tw, cc), u.dtype, u.device,
               [shape] * 6 + [(ctx.ktot + 1, NC)])
         self.k_mom(u.dtype, u, v, w, tu, tv, tw, cc, ctx.itot, ctx.jtot,
-                   ctx.ktot, ctx.ks, SCHEME_ID[self.scheme], ctx.dxi, ctx.dyi)
+                   ctx.ktot, ctx.ks, SCHEME_ID[self.scheme], ctx.dxi, ctx.dyi,
+                   self.mom_plan(u.dtype, chunks).chunks)
 
     def plan(self, S, dtype, chunks=None):
         """The k-march of one K13 launch of S scalars (ops/kmarch.py), the

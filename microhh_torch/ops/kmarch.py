@@ -1,7 +1,7 @@
-"""The k-march plan of the redesigned ring kernels K13 (``advec_scalars``),
-K16 (``o4_mom``), K17 (``o4_scalars``), the scalar sweep K10
-(``tend_scalars``) / K19 (``tend_scalar_acc``) and the folded dry sweep K22
-(``tend_rk_fold``): the host's copy of ``csrc/kmarch.cuh`` and of the
+"""The k-march plan of the redesigned ring kernels K12 (``advec_mom``), K13
+(``advec_scalars``), K16 (``o4_mom``), K17 (``o4_scalars``), the scalar
+sweep K10 (``tend_scalars``) / K19 (``tend_scalar_acc``) and the folded dry
+sweep K22 (``tend_rk_fold``): the host's copy of ``csrc/kmarch.cuh`` and of the
 kernels' shared-memory layouts.
 
 A launch is a grid of (tiles in i) x (tiles in j) x chunks blocks; block z
@@ -11,9 +11,9 @@ reports through ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``, times
 the SMs) so that the blocks fill the card in whole waves: the count that
 minimises waves x (levels a chunk + the planes a chunk reads again to warm
 its column up).  The shared-memory formulas repeat the kernels' own
-(``k13_smem``, ``K16<T>::smem``, ``k17_smem``, ``sweep_smem``,
-``fold_smem``), and a CPU test holds the constants here to those in the
-sources.
+(``k12_smem``, ``k13_smem``, ``K16<T>::smem``, ``k17_smem``,
+``sweep_smem``, ``fold_smem``), and a CPU test holds the constants here to
+those in the sources.
 """
 
 import collections
@@ -25,7 +25,8 @@ import torch
 TI, H, C0, RS, NCP = 32, 3, 4, 40, 28
 SMEM_MAX = 232448           # bytes of shared memory a block can have
 
-# csrc/advec_interp.cu: K13_TJ, K13_R, K13_RR, MAXA
+# csrc/advec_interp.cu: K12_TJ, K12_R, K12_RR; K13_TJ, K13_R, K13_RR, MAXA
+K12_TJ, K12_R, K12_RR = 8, 4, 8
 K13_TJ, K13_R, K13_RR, K13_MAXS = 8, 3, 4, 4
 # csrc/o4.cu: K16_TJ, NI (interpolant planes); K17_TJ, K17_R, K17_RR,
 # K17_MAXS, K17_NCP
@@ -47,6 +48,12 @@ def _bytes(dtype):
 def slot_size(tj, halo=H):
     """Values of one haloed plane of a (tj, TI) tile (kmarch.cuh Slot)."""
     return (tj + 2 * halo) * RS
+
+
+def k12_smem(dtype):
+    """Dynamic shared memory of a K12 launch: K12_R slots of u's, v's and
+    w's plane and K12_RR staged table rows."""
+    return (K12_R * 3 * slot_size(K12_TJ) + K12_RR * NCP) * _bytes(dtype)
 
 
 def k13_smem(S, dtype):
@@ -98,7 +105,8 @@ def fold_smem(dtype):
 
 
 # kernel -> shared memory of a launch (S, dtype, advec)
-SMEM = {"advec_scalars": lambda S, dtype, advec: k13_smem(S, dtype),
+SMEM = {"advec_mom": lambda S, dtype, advec: k12_smem(dtype),
+        "advec_scalars": lambda S, dtype, advec: k13_smem(S, dtype),
         "o4_mom": lambda S, dtype, advec: k16_smem(dtype),
         "o4_scalars": lambda S, dtype, advec: k17_smem(S, dtype),
         "tend_scalars": lambda S, dtype, advec: sweep_smem(S, dtype, True,
@@ -106,15 +114,15 @@ SMEM = {"advec_scalars": lambda S, dtype, advec: k13_smem(S, dtype),
         "tend_scalar_acc": lambda S, dtype, advec: sweep_smem(S, dtype, False,
                                                               advec),
         "tend_rk_fold": lambda S, dtype, advec: fold_smem(dtype)}
-TILE_J = {"advec_scalars": K13_TJ, "o4_mom": K16_TJ, "o4_scalars": K17_TJ,
-          "tend_scalars": SW_TJ, "tend_scalar_acc": SW_TJ,
-          "tend_rk_fold": K22_TJ}
-# planes a chunk reads again to warm its column up: K13's, K16's and K17's
-# seven-plane windows; the sweep's column k0-1..k0+1 and the plane past it;
-# K22's planes k0-2, k0-1 below the chunk (with e(k0-1)) and w's tendency
-# at k1 above it
-WARM = {"advec_scalars": 6, "o4_mom": 6, "o4_scalars": 6, "tend_scalars": 2,
-        "tend_scalar_acc": 2, "tend_rk_fold": 2}
+TILE_J = {"advec_mom": K12_TJ, "advec_scalars": K13_TJ, "o4_mom": K16_TJ,
+          "o4_scalars": K17_TJ, "tend_scalars": SW_TJ,
+          "tend_scalar_acc": SW_TJ, "tend_rk_fold": K22_TJ}
+# planes a chunk reads again to warm its column up: K12's, K13's, K16's and
+# K17's seven-plane windows; the sweep's column k0-1..k0+1 and the plane
+# past it; K22's planes k0-2, k0-1 below the chunk (with e(k0-1)) and w's
+# tendency at k1 above it
+WARM = {"advec_mom": 6, "advec_scalars": 6, "o4_mom": 6, "o4_scalars": 6,
+        "tend_scalars": 2, "tend_scalar_acc": 2, "tend_rk_fold": 2}
 
 
 def chunk_bounds(chunks, ktot):
@@ -137,10 +145,10 @@ def choose_chunks(tiles, ktot, slots, warm):
 
 def plan(kernel, itot, jtot, ktot, S, dtype, slots, chunks=None,
          advec=True):
-    """The launch of K13 ("advec_scalars", S scalars), K16 ("o4_mom"), K17
-    ("o4_scalars", S scalars), the scalar sweep ("tend_scalars" K10,
-    "tend_scalar_acc" K19; S scalars, advec its flag) or K22
-    ("tend_rk_fold"): tiles, chunk count (chosen from slots, the card's
+    """The launch of K12 ("advec_mom"), K13 ("advec_scalars", S scalars),
+    K16 ("o4_mom"), K17 ("o4_scalars", S scalars), the scalar sweep
+    ("tend_scalars" K10, "tend_scalar_acc" K19; S scalars, advec its flag)
+    or K22 ("tend_rk_fold"): tiles, chunk count (chosen from slots, the card's
     resident blocks, unless given), shared memory a block and the waves it
     makes."""
     tiles_i = -(-itot // TI)

@@ -1,6 +1,6 @@
-"""Time the ring kernels K16, K17, K13 and the scalar sweep K10/K19 (and,
-as a control, K12) on one card, the kernels that share the sweep's scalar
-point function (K2, K22, K20, K15), and K11, the warm-rain column sweep.
+"""Time the ring kernels K16, K17, K12, K13 and the scalar sweep K10/K19 on
+one card, the kernels that share the sweep's scalar point function (K2,
+K22, K20, K15), and K11, the warm-rain column sweep.
 
     python3 -m microhh_torch.ring_timing [--out FILE] [--label NAME]
                                          [--groups rings,s_tend,fold,micro2]
@@ -10,7 +10,8 @@ At the four shapes of their main paths: weakscaling 512x256x1024 float32
 in scheme 4m), rico 384^3 float32 with the four scalars of its 2i5 scheme
 (K13, K12 and K10 with advection off, as rico runs, and on), and
 jaenschwalde's 1024x256x256 float32 with its two (thl, qt) for K13 and K12
-and its three (thl, qt, co2) for K19 without advection, as jaenschwalde
+(and K12 alone at rico 384^3 in float64) and its three (thl, qt, co2) for
+K19 without advection, as jaenschwalde
 runs it: once a scalar (three launches) and every scalar in one launch
 (the kernels run on the rico case at that shape: they see only the shape,
 the scheme, the advec flag and the scalar count).  The kernels whose
@@ -24,8 +25,8 @@ float32 and drycblles 512^3 in float64; beside K22's time its registers,
 shared memory and blocks an SM from the card, the plan's chunks, blocks
 and waves, its time with one chunk and its issue time counted from the
 SASS of its per-level loop (``fold_issue``); the same SASS count beside
-K17.  K11 at rico 384^3 in float32 and float64 and at 16^2x24 in float64,
-in two states: the cell's own (its initial fields, cloud-free
+K12 and K17.  K11 at rico 384^3 in float32 and float64 and at 16^2x24 in
+float64, in two states: the cell's own (its initial fields, cloud-free
 and without rain, as the cell's timed steps are) and heavy rain
 (chip_smoke.py's: a saturated layer, rain shafts with qr x 50, drops
 crossing 2.5 cells in one dt).  Each time is the mean of 10 launches by
@@ -33,14 +34,16 @@ CUDA events after one warm-up launch; the stencil kernels run on seeded
 random fields.  Beside each time: the bound (each input and output once
 over 3.35 TB/s, or the operations over 67 TFLOP/s, 33.5 in float64, where
 larger), registers, spills and stack from the build log's ptxas lines and,
-where the tree's kernels report them (the k-marching K13, K16, K17 and
-scalar sweep, K11 and K22), shared memory a block and resident blocks an
-SM; for the k-marching kernels the chunk count, blocks in the grid and
+where the tree's kernels report them (the k-marching K12, K13, K16, K17
+and scalar sweep, K11 and K22), shared memory a block and resident blocks
+an SM; for the k-marching kernels the chunk count, blocks in the grid and
 waves, and
 their time with one chunk (no k-split); for K11 blocks and waves, and its
 issue time counted from the SASS of its phases (``micro2_issue``).  One JSON
 object per kernel and shape is printed and, with --out, all of them are
-written to FILE.  --groups names the groups to time (GROUPS; all by
+written to FILE, with a digest of the SASS of every kernel instance of the
+build (``sass_digests``), so that two trees' listings can be held
+together.  --groups names the groups to time (GROUPS; all by
 default).  Needs a CUDA device.
 
 The script runs on an earlier checkout too (copy it into that tree's
@@ -50,6 +53,7 @@ occupancy columns.
 """
 
 import argparse
+import hashlib
 import json
 import os
 import re
@@ -64,8 +68,8 @@ from . import cases, kernels
 from .config import Ini
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# the timed groups: K16, K17, K13, K10, K19 and K12 (a control); the
-# kernels that call s_tend; K22 on its paths; K11
+# the timed groups: K16, K17, K12, K13, K10 and K19; the kernels that call
+# s_tend; K22 on its paths; K11
 GROUPS = ("rings", "s_tend", "fold", "micro2")
 REPS = 10
 PEAK_BYTES_S = 3.35e12
@@ -91,6 +95,8 @@ SHAPES = [("weakscaling", "weakscaling", (512, 256, 1024), torch.float32, 1),
           ("moser180", "moser180", (256, 192, 128), torch.float64, 1),
           ("rico", "rico", (384, 384, 384), torch.float32, 4),
           ("jaenschwalde", "rico", (1024, 256, 256), torch.float32, 2)]
+# K12 alone in float64 at rico's shape (label, case, shape, dtype, S)
+MOM_F64 = ("rico", "rico", (384, 384, 384), torch.float64, 4)
 # the kernels that call s_tend: (label, case, shape, build_step options)
 S_TEND_SHAPES = [("drycblles", "drycblles", (512, 512, 512), {}),
                  ("sullivan2011 unfolded", "sullivan2011", (512, 512, 64),
@@ -287,10 +293,28 @@ def sass_loops(text, function):
     return out
 
 
+def sass_digests(text):
+    """{"function<template arguments>": sha1 of its instructions} of every
+    kernel instance in a cuobjdump -sass listing (addresses left out), so
+    that two builds' kernels can be shown to be the same code."""
+    bodies, cur = {}, None
+    for line in text.splitlines():
+        hit = re.search(r"Function : (\S+)", line)
+        if hit:
+            name, args = _demangle(hit.group(1))
+            cur = bodies.setdefault("%s<%s>" % (name, args), [])
+            continue
+        hit = re.match(r"\s*/\*[0-9a-f]+\*/\s+([^;]*;)", line)
+        if cur is not None and hit:
+            cur.append(hit.group(1))
+    return {key: hashlib.sha1("\n".join(body).encode()).hexdigest()
+            for key, body in bodies.items()}
+
+
 def fold_issue(loops, shape, tile_j, clock_ghz, sms):
-    """A k-march's (K22's, K17's) issue time from the SASS of its per-level
-    loop, or None unless the kernel has one such loop (sass_loops): every
-    warp of a (tile_j, 32) tile runs it once a level.  Every instruction of
+    """A k-march's (K22's, K17's, K12's) issue time from the SASS of its
+    per-level loop, or None unless the kernel has one such loop
+    (sass_loops): every warp of a (tile_j, 32) tile runs it once a level.  Every instruction of
     the loop counts as issued once a level, the branches that some warps or
     levels skip (the
     halo work of a few warps, the forms' flags, the first level's) too: an
@@ -556,10 +580,11 @@ def events_ms(fn, reps=REPS):
 
 
 def time_shape(label, case, shape, dtype, S, ptx, card, loops=None,
-               clock_ghz=None, device="cuda"):
+               clock_ghz=None, device="cuda", only=None):
     """K16 and K17 (a 4th-order case) or K13, K12 and the scalar sweep at
-    one shape on seeded random fields; K17's row also takes the issue time
-    of its per-level loop (loops: sass_loops of the build)."""
+    one shape on seeded random fields; K17's and K12's rows also take the
+    issue time of their per-level loops (loops: sass_loops of the build).
+    only: the names of the kernels to time (the scalar sweep then not)."""
     itot, jtot, ktot = shape
     rows = []
     with tempfile.TemporaryDirectory() as workdir:
@@ -596,9 +621,14 @@ def time_shape(label, case, shape, dtype, S, ptx, card, loops=None,
             calls["advec_scalars"] = (
                 lambda **kw: adv.scalars(u, v, wc, a, t[3:], **kw),
                 (3 + 3 * S) * fb, FLOPS["advec_scalars"] * S, adv, scheme)
-            calls["advec_mom"] = (lambda: adv.momentum(u, v, wc, *t[:3]),
-                                  9 * fb, FLOPS["advec_mom"], None, scheme)
+            # the k-march of K12 reports its occupancy and takes chunks=
+            k12 = adv if "advec_mom" in kernels.INFO else None
+            calls["advec_mom"] = (
+                lambda **kw: adv.momentum(u, v, wc, *t[:3], **kw), 9 * fb,
+                FLOPS["advec_mom"], k12, scheme)
         for name, (fn, nbytes, flops, owner, scheme) in calls.items():
+            if only is not None and name not in only:
+                continue
             by_bytes = 1e3 * nbytes / PEAK_BYTES_S
             by_ops = 1e3 * flops * n / PEAK_FLOPS[dtype]
             key = "%s<%s>" % (FUNCTIONS[name], variant(name, dtype, scheme, S))
@@ -614,6 +644,8 @@ def time_shape(label, case, shape, dtype, S, ptx, card, loops=None,
                 elif name == "o4_scalars":
                     pl, kern, info_s = (owner.scalar_plan(S, dtype),
                                         owner.k_scal, S)
+                elif name == "advec_mom":
+                    pl, kern, info_s = owner.mom_plan(dtype), owner.k_mom, 0
                 else:
                     pl, kern, info_s = owner.plan(S, dtype), owner.k_scal, S
                 sid = {"4": 0, "4m": 1, "2i4": 0, "2i5": 1, "2i53": 2,
@@ -622,16 +654,18 @@ def time_shape(label, case, shape, dtype, S, ptx, card, loops=None,
                 row.update(chunks=pl.chunks, blocks=pl.tiles_i * pl.tiles_j
                            * pl.chunks, waves=pl.waves,
                            ms_one_chunk=events_ms(lambda: fn(chunks=1)))
-            if name == "o4_scalars" and loops and key in loops:
+            if (name in ("o4_scalars", "advec_mom") and loops
+                    and key in loops):
                 from .ops import kmarch
-                row.update(fold_issue(loops[key], shape,
-                                      getattr(kmarch, "K17_TJ", 16),
-                                      clock_ghz, sms_of(device)) or {})
+                tile_j = getattr(kmarch, "K17_TJ" if name == "o4_scalars"
+                                 else "K12_TJ", 16)
+                row.update(fold_issue(loops[key], shape, tile_j, clock_ghz,
+                                      sms_of(device)) or {})
             row["bound_share"] = row["bound_ms"] / row["ms"]
             print(json.dumps(row), flush=True)
             rows.append(row)
         del u, v, wc, wd, t, a, calls
-        if m.o4 is None:
+        if m.o4 is None and only is None:
             torch.cuda.empty_cache()
             rows += sweep_rows(m, label, shape, dtype,
                                4 if label == "rico" else 3, ptx, card, rnd)
@@ -809,12 +843,16 @@ def main():
     sections = sass_sections(sass, MICRO2)
     loops = sass_loops(sass, S_TEND_FUNCTIONS["tend_rk_fold"])
     loops.update(sass_loops(sass, FUNCTIONS["o4_scalars"]))
+    loops.update(sass_loops(sass, FUNCTIONS["advec_mom"]))
     clock = max_sm_clock_ghz()
-    rows = []
+    rows = [{"kind": "sass_digests", "digests": sass_digests(sass)}]
     groups = set(args.groups.split(","))
     for label, case, shape, dtype, S in SHAPES if "rings" in groups else ():
         rows += time_shape(label, case, shape, dtype, S, ptx, card, loops,
                            clock)
+    if "rings" in groups:
+        rows += time_shape(*MOM_F64, ptx, card, loops, clock,
+                           only=("advec_mom",))
     for label, case, shape, step in S_TEND_SHAPES if "s_tend" in groups else ():
         rows += s_tend_rows(label, case, shape, step, ptx, card,
                             loops=loops, clock_ghz=clock)

@@ -1,6 +1,7 @@
-"""The k-march of the redesigned ring kernels K13 (``advec_scalars``),
-K16 (``o4_mom``), K17 (``o4_scalars``) and K22 (``tend_rk_fold``):
-``ops/kmarch.py`` and the wrappers around it, on the CPU.
+"""The k-march of the redesigned ring kernels K12 (``advec_mom``), K13
+(``advec_scalars``), K16 (``o4_mom``), K17 (``o4_scalars``) and K22
+(``tend_rk_fold``): ``ops/kmarch.py`` and the wrappers around it, on the
+CPU.
 
 * ``chunk_bounds`` and ``plan`` cover [0, ktot) exactly once, every chunk
   non-empty, for ktot 1-40, 128, 384 and 1024; ``plan`` fills the card in
@@ -26,7 +27,16 @@ K16 (``o4_mom``), K17 (``o4_scalars``) and K22 (``tend_rk_fold``):
   and ``k17_march``, a torch emulation of the kernel called with the C
   entry's arguments, against ``scalars_plain`` to 1e-12 at every chunk
   count with 1, 2, 3 and 5 scalars in both schemes; each of its edge rules
-  broken on its own (``broken=``) fails.
+  broken on its own (``broken=``) fails;
+* K12: its constants, shared memory and launch bounds read from
+  ``csrc/advec_interp.cu``, its plan at the rico 384^3 and jaenschwalde
+  shapes, its wrapper (the plan's chunk count or the one forced); the
+  plain version run on what each chunk's blocks read (the rest NaN) equals
+  the whole plain version bit for bit in every scheme at every chunk count;
+  ``k12_march``, a torch emulation of the kernel called with the C entry's
+  arguments, equals ``momentum_plain`` to 1e-12 at every chunk count with
+  NaN ghost levels, and each of its edge rules broken on its own
+  (``broken=``) fails; ``chip_smoke.py``'s K12 cases run on the CPU.
 """
 
 import os
@@ -699,3 +709,378 @@ def test_k17_rows_are_the_plain_vertical_parts(swadvec):
                 got = cz[k, O4.ZA + 8 * e:O4.ZA + 8 * e + 7] @ col
                 assert np.isclose(got, adv.item(), rtol=1e-12,
                                   atol=1e-12 * abs(adv.item())), (k, e)
+
+
+# --------------------------------------------------------------------------
+#  K12: its constants, plan, wrapper and chunked march
+# --------------------------------------------------------------------------
+
+def test_k12_constants_are_the_sources():
+    adv, src = constants("advec_interp.cu")
+    assert (adv["K12_TJ"], adv["K12_R"], adv["K12_RR"]) == (
+        kmarch.K12_TJ, kmarch.K12_R, kmarch.K12_RR)
+    assert "K12_NT = km::TI * K12_TJ;" in src
+    flat = re.sub(r"\s+", " ", src)
+    assert ("((size_t)K12_R * 3 * km::Slot<K12_TJ>::SIZE + K12_RR * km::NCP) "
+            "* sizeof(T)" in flat)
+    assert "__launch_bounds__(K12_NT, sizeof(T) == 4 ? 3 : 2)" in flat
+    # two groups read at a level, one in flight and one being filled; rows
+    # k-1..k+1 read, k+2 in flight, k+3 being filled; slots taken modulo a
+    # power of two
+    assert kmarch.K12_R == 4 and kmarch.K12_RR >= 5
+    assert kmarch.K12_RR & (kmarch.K12_RR - 1) == 0
+    assert "issue(k + 2, (z + 3) & (K12_R - 1));" in flat
+    assert "km::wait_pending<1>();" in src
+    for dtype in (torch.float32, torch.float64):
+        nb = torch.finfo(dtype).bits // 8
+        assert kmarch.k12_smem(dtype) == (4 * 3 * 14 * 40 + 8 * 28) * nb
+        assert kmarch.SMEM["advec_mom"](0, dtype, True) == kmarch.k12_smem(
+            dtype)
+        # as many blocks as the launch bounds ask fit an SM's 228 KB (1 KB
+        # of it reserved a block)
+        blocks = 3 if dtype == torch.float32 else 2
+        assert blocks * (kmarch.k12_smem(dtype) + 1024) <= 233472
+    # the rows' six-tap groups are 16-byte aligned for load6 in both types
+    assert A.WXF % 2 == A.WUF % 2 == A.WXC % 2 == A.WUC % 2 == 0
+    assert kmarch.NCP % 4 == 0
+
+
+def test_k12_plan_at_the_main_shapes():
+    """rico 384^3 and jaenschwalde 1024x256x256 at three and four resident
+    blocks an SM on 132 SMs, and rico 384^3 float64 at two."""
+    f32 = torch.float32
+    p = kmarch.plan("advec_mom", 384, 384, 384, 0, f32, 396)
+    assert (p.tiles_i, p.tiles_j, p.chunks, p.waves, p.smem) == (
+        12, 48, 2, 3, 27776)
+    p = kmarch.plan("advec_mom", 384, 384, 384, 0, f32, 528)
+    assert (p.chunks, p.waves) == (8, 9)
+    p = kmarch.plan("advec_mom", 1024, 256, 256, 0, f32, 396)
+    assert (p.tiles_i, p.tiles_j, p.chunks, p.waves) == (32, 32, 3, 8)
+    p = kmarch.plan("advec_mom", 1024, 256, 256, 0, f32, 528)
+    assert (p.chunks, p.waves) == (1, 2)
+    p = kmarch.plan("advec_mom", 384, 384, 384, 0, torch.float64, 264)
+    assert (p.chunks, p.waves, p.smem) == (5, 11, 55552)
+    for ktot in (6, 16, 384):
+        p = kmarch.plan("advec_mom", 45, 20, ktot, 0, f32, 396)
+        assert covers_once(kmarch.chunk_bounds(p.chunks, ktot), ktot)
+
+
+def rico_model(ktot, scheme, dtype=torch.float64, itot=40, jtot=24):
+    """A small rico with an interpolated scheme on the CPU."""
+    with open(os.path.join(ROOT, "cases", "rico", "rico.ini")) as f:
+        text = f.read()
+    for key, val in (("itot", itot), ("jtot", jtot), ("ktot", ktot),
+                     ("swadvec", scheme)):
+        text = re.sub(r"(?m)^%s=.*$" % key, "%s=%s" % (key, val), text)
+    m = Model(Ini(text), "run", "rico", workdir=".", dtype=dtype,
+              device="cpu", input_nc=cases.rico_input(ktot, 4000.))
+    m.finish_setup()
+    m.build_step()
+    return m
+
+
+def test_k12_wrapper_plans_and_forces(monkeypatch):
+    """K12's wrapper passes the plan's chunk count (from the card's resident
+    blocks) or the one forced, after the scheme and the grid."""
+    monkeypatch.setattr(A, "on_cpu", lambda t: False)
+    m = rico_model(16, "2i53", torch.float32)
+    adv, ctx = m.advec_fused, m.ctx
+    adv.k_mom = Recorder("advec_mom")
+    shape = (ctx.kcells, ctx.jtot, ctx.itot)
+    x = [torch.zeros(shape) for _ in range(6)]
+    adv.momentum(*x)
+    adv.momentum(*x, chunks=5)
+    (d1, a1), (_, a2) = adv.k_mom.calls
+    assert d1 == torch.float32
+    assert a1[-1] == kmarch.plan("advec_mom", 40, 24, 16, 0, torch.float32,
+                                 396).chunks
+    assert a2[-1] == 5
+    assert a1[:7] == tuple(x) + (adv.table(),)
+    assert a1[7:12] == (40, 24, 16, ctx.ks, A.SCHEME_ID["2i53"])
+    assert a1[12:14] == (ctx.dxi, ctx.dyi)
+    assert adv.mom_plan(torch.float32, 16).chunks == 16
+    with pytest.raises(ValueError):
+        adv.momentum(*x, chunks=17)
+
+
+def k12_inputs(ktot, seed, ks=3):
+    """Seeded u, v, w (w scaled by 0.3) and three carries on a 12 x 10 plane
+    with ks ghost levels; the ghost levels of u, v and w, which the kernel
+    never reads (u, v clamped to [ks, ke-1], w to [ks, ke]), NaN."""
+    rng = np.random.default_rng(seed)
+    shape = (ktot + 2 * ks, 10, 12)
+    u, v, w = (torch.tensor(rng.standard_normal(shape)) for _ in range(3))
+    w *= 0.3
+    t0 = [torch.tensor(1e-3 * rng.standard_normal(shape)) for _ in range(3)]
+    for x, top in ((u, ks + ktot), (v, ks + ktot), (w, ks + ktot + 1)):
+        x[:ks] = float("nan")
+        x[top:] = float("nan")
+    return u, v, w, t0
+
+
+@pytest.mark.parametrize("scheme", ["2i4", "2i5", "2i53", "2i62"])
+@pytest.mark.parametrize("ktot", [6, 16])
+def test_k12_chunked_march_is_the_plain_version(scheme, ktot):
+    """Each chunk runs momentum_plain on what its blocks read, everything
+    else NaN (u, v and w at planes ks+k0-3..ks+k1+2, clamped to [ks, ke-1]
+    for u and v and to [ks, ke] for w; table rows k0-1..k1); the chunks'
+    levels stitched together equal the whole plain version bit for bit, at
+    every chunk count."""
+    rng = np.random.default_rng(ktot + 7)
+    ks, cc = stretched_table(scheme, ktot, rng)
+    ke = ks + ktot
+    u, v, w, t0 = k12_inputs(ktot, ktot, ks)
+    cct = torch.tensor(cc)
+    want = [t.clone() for t in t0]
+    A.momentum_plain(scheme, u, v, w, *want, cct, ks, 0.7, 1.3)
+    assert all(bool(torch.isfinite(x).all()) for x in want)
+    for chunks in range(1, ktot + 1):
+        got = [t.clone() for t in t0]
+        for k0, k1 in kmarch.chunk_bounds(chunks, ktot):
+            seen = []
+            for x, top in ((u, ke - 1), (v, ke - 1), (w, ke)):
+                lo, hi = max(ks + k0 - 3, ks), min(ks + k1 + 2, top)
+                y = torch.full_like(x, float("nan"))
+                y[lo:hi + 1] = x[lo:hi + 1]
+                seen.append(y)
+            rows = torch.full_like(cct, float("nan"))
+            rows[max(k0 - 1, 0):k1 + 1] = cct[max(k0 - 1, 0):k1 + 1]
+            part = [t.clone() for t in t0]
+            A.momentum_plain(scheme, *seen, *part, rows, ks, 0.7, 1.3)
+            for g, p in zip(got, part):
+                g[ks + k0:ks + k1] = p[ks + k0:ks + k1]
+        for g, want_n in zip(got, want):
+            assert torch.equal(g, want_n), chunks
+
+
+def k12_march(scheme, u, v, w, tu, tv, tw, cc, ktot, ks, dxi, dyi, chunks,
+              broken=None):
+    """A torch emulation of csrc/advec_interp.cu advec_mom_kernel, every
+    point of a plane at once (the periodic halo makes a tile's points see
+    what the plane's do): each chunk warms its register columns up (planes
+    k0-3..k0+3, u and v clamped to [ks, ke-1], w to [ks, ke]) and reads w at
+    face k0 of u and of v from plane k0; it issues group k0-1 (u, v plane
+    k0-1, w plane k0), k0 and k0+1 into K12_R slots and table row k0-1 and
+    each group's row p+1 into K12_RR staged rows; level k reads groups k
+    and k-1 and rows k-1..k+1, issues group k+2 into the slot group k-2
+    left, shifts the columns by the planes k+4 loaded one level ahead and
+    carries face k+1's w; the w update is skipped at the global level 0.
+    Slots and rows start as NaN (shared memory holds no copy yet).  broken
+    names one rule to break: "rows_from_k0" (row k0-1 not staged),
+    "no_group_km1" (group k0-1 not issued), "w_clamp_ke1" (w clamped to
+    ke-1 as u and v), "uv_clamp_ke" (u and v clamped to ke as w), "ring3"
+    (three slots: group k+2 lands in the slot of group k-1) or
+    "local_wall" (w skipped at the chunk's first level)."""
+    C4, UP = scheme == "2i4", scheme in ("2i5", "2i53")
+    R = 3 if broken == "ring3" else kmarch.K12_R
+    RR = kmarch.K12_RR
+    top_uv = ktot if broken == "uv_clamp_ke" else ktot - 1
+    top_w = ktot - 1 if broken == "w_clamp_ke1" else ktot
+
+    def lev_uv(p):
+        return ks + min(max(p, 0), top_uv)
+
+    def lev_w(p):
+        return ks + min(max(p, 0), top_w)
+
+    def line(P, d, dim):
+        return torch.roll(P, -d, dims=dim)
+
+    def hdiv(q, vR, vL):
+        qm3, qm2, qm1, q0, qp1, qp2, qp3 = q
+        if C4:
+            cR = -qm1 / 16. + 9. / 16. * q0 + 9. / 16. * qp1 - qp2 / 16.
+            cL = -qm2 / 16. + 9. / 16. * qm1 + 9. / 16. * q0 - qp1 / 16.
+        else:
+            a, b, c = 37. / 60., 8. / 60., 1. / 60.
+            cR = a * (q0 + qp1) - b * (qm1 + qp2) + c * (qm2 + qp3)
+            cL = a * (qm1 + q0) - b * (qm2 + qp1) + c * (qm3 + qp2)
+        out = -(vR * cR - vL * cL)
+        if UP:
+            a, b, c = 10. / 60., 5. / 60., 1. / 60.
+            uR = a * (qp1 - q0) - b * (qp2 - qm1) + c * (qp3 - qm2)
+            uL = a * (q0 - qm1) - b * (qp1 - qm2) + c * (qp2 - qm3)
+            out = out + (vR.abs() * uR - vL.abs() * uL)
+        return out
+
+    def ladder(row, col, q, o):
+        return sum(row[col + m] * q[o + m] for m in range(6))
+
+    def vdiv(r0, r1, X, U, q, w0, w1):
+        out = w0 * ladder(r0, X, q, 0) - w1 * ladder(r1, X, q, 1)
+        if UP:
+            out = out + (w1.abs() * ladder(r1, U, q, 1)
+                         - w0.abs() * ladder(r0, U, q, 0))
+        return out
+
+    def lines(P, q0):
+        return ([q0 if d == 0 else line(P, d, -1) for d in range(-3, 4)],
+                [q0 if d == 0 else line(P, d, -2) for d in range(-3, 4)])
+
+    nan_plane = torch.full_like(u[0], float("nan"))
+    for k0, k1 in kmarch.chunk_bounds(chunks, ktot):
+        ring = [(nan_plane,) * 3] * R
+        rows = [torch.full_like(cc[0], float("nan"))] * RR
+
+        def row_in(r):
+            rows[r % RR] = cc[min(max(r, 0), ktot)]
+
+        def issue(p, sl):
+            ring[sl] = (u[lev_uv(p)], v[lev_uv(p)], w[lev_w(p + 1)])
+            row_in(p + 1)
+
+        uq = [u[lev_uv(k0 - 3 + m)] for m in range(7)]
+        vq = [v[lev_uv(k0 - 3 + m)] for m in range(7)]
+        wq = [w[lev_w(k0 - 3 + m)] for m in range(7)]
+        wfu = 0.5 * (line(w[ks + k0], -1, -1) + wq[3])
+        wfv = 0.5 * (line(w[ks + k0], -1, -2) + wq[3])
+        if broken != "rows_from_k0":
+            row_in(k0 - 1)
+        if broken != "no_group_km1":
+            issue(k0 - 1, 0)
+        issue(k0, 1)
+        issue(k0 + 1, 2)
+        for k in range(k0, k1):
+            z = k - k0
+            issue(k + 2, (z + 3) % R)
+            un, vn, wn = u[lev_uv(k + 4)], v[lev_uv(k + 4)], w[lev_w(k + 4)]
+            U, V, W1 = ring[(z + 1) % R]
+            Um, Vm, W = ring[z % R]
+            rm, r0, r1 = rows[(k - 1) % RR], rows[k % RR], rows[(k + 1) % RR]
+            wfu1 = 0.5 * (line(W1, -1, -1) + wq[4])
+            wfv1 = 0.5 * (line(W1, -1, -2) + wq[4])
+            fz = r0[A.RCDZI]
+            x, y = lines(U, uq[3])
+            t = hdiv(x, 0.5 * (uq[3] + line(U, 1, -1)),
+                     0.5 * (line(U, -1, -1) + uq[3])) * dxi
+            Vj = line(V, 1, -2)
+            t = t + hdiv(y, 0.5 * (line(Vj, -1, -1) + Vj),
+                         0.5 * (line(V, -1, -1) + vq[3])) * dyi
+            tu[ks + k] += t + vdiv(r0, r1, A.WXF, A.WUF, uq, wfu, wfu1) * fz
+            x, y = lines(V, vq[3])
+            Ui = line(U, 1, -1)
+            t = hdiv(x, 0.5 * (line(Ui, -1, -2) + Ui),
+                     0.5 * (line(U, -1, -2) + uq[3])) * dxi
+            t = t + hdiv(y, 0.5 * (vq[3] + line(V, 1, -2)),
+                         0.5 * (line(V, -1, -2) + vq[3])) * dyi
+            tv[ks + k] += t + vdiv(r0, r1, A.WXF, A.WUF, vq, wfv, wfv1) * fz
+            if k > (k0 if broken == "local_wall" else 0):
+                x, y = lines(W, wq[3])
+                t = hdiv(x, 0.5 * (line(Um, 1, -1) + Ui),
+                         0.5 * (uq[2] + uq[3])) * dxi
+                t = t + hdiv(y, 0.5 * (line(Vm, 1, -2) + Vj),
+                             0.5 * (vq[2] + vq[3])) * dyi
+                t = t + vdiv(rm, r0, A.WXC, A.WUC, wq, 0.5 * (wq[2] + wq[3]),
+                             0.5 * (wq[3] + wq[4])) * r0[A.RHDZHI]
+                tw[ks + k] += t
+            uq, vq, wq = uq[1:] + [un], vq[1:] + [vn], wq[1:] + [wn]
+            wfu, wfv = wfu1, wfv1
+
+
+class K12Emulator(Recorder):
+    """K12's stand-in: called with the C entry's arguments, it checks what
+    the entry checks and runs k12_march."""
+
+    def __init__(self, scheme, broken=None):
+        super().__init__("advec_mom")
+        self.scheme = scheme
+        self.broken = broken
+
+    def __call__(self, dtype, u, v, w, tu, tv, tw, cc, itot, jtot, ktot, ks,
+                 scheme, dxi, dyi, chunks):
+        super().__call__(dtype, chunks)
+        assert 1 <= chunks <= ktot and scheme == A.SCHEME_ID[self.scheme]
+        assert cc.shape == (ktot + 1, A.NC)
+        assert u.shape == (ktot + 2 * ks, jtot, itot)
+        k12_march(self.scheme, u, v, w, tu, tv, tw, cc, ktot, ks, dxi, dyi,
+                  chunks, self.broken)
+
+
+def k12_rel_err(got, want):
+    return max(float((g - w).abs().max() / w.abs().max())
+               if bool(torch.isfinite(g).all()) else float("inf")
+               for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("scheme", ["2i4", "2i5", "2i53", "2i62"])
+@pytest.mark.parametrize("ktot", [6, 16])
+def test_k12_march_is_the_plain_version(scheme, ktot, monkeypatch):
+    """The emulated march through the wrapper equals momentum_plain to
+    1e-12 at every chunk count on rico's stretched levels and density, the
+    ghost levels of u, v and w NaN (never read) and those of the carries
+    unchanged."""
+    monkeypatch.setattr(A, "on_cpu", lambda t: False)
+    m = rico_model(ktot, scheme, itot=12, jtot=10)
+    adv, ctx = m.advec_fused, m.ctx
+    ks = ctx.ks
+    u, v, w, t0 = k12_inputs(ktot, 3 * ktot + len(scheme), ks)
+    want = [x.clone() for x in t0]
+    A.momentum_plain(scheme, u, v, w, *want, adv.table(), ks, ctx.dxi,
+                     ctx.dyi)
+    assert k12_rel_err(t0, want) > 1e-3
+    for chunks in range(1, ktot + 1):
+        got = [x.clone() for x in t0]
+        adv.k_mom = K12Emulator(scheme)
+        adv.momentum(u, v, w, *got, chunks=chunks)
+        assert [c[1][0] for c in adv.k_mom.calls] == [chunks]
+        assert k12_rel_err(got, want) <= 1e-12, chunks
+        for g, x in zip(got, t0):
+            assert torch.equal(g[:ks], x[:ks])
+            assert torch.equal(g[ctx.ke:], x[ctx.ke:])
+
+
+@pytest.mark.parametrize("broken", ["rows_from_k0", "no_group_km1",
+                                    "w_clamp_ke1", "uv_clamp_ke", "ring3",
+                                    "local_wall"])
+def test_k12_march_needs_each_edge_rule(broken, monkeypatch):
+    """Each rule of the march, broken on its own, breaks the result at some
+    chunk count, in a scheme with and one without the upwind parts."""
+    monkeypatch.setattr(A, "on_cpu", lambda t: False)
+    for scheme in ("2i5", "2i62"):
+        m = rico_model(6, scheme, itot=12, jtot=10)
+        adv, ctx = m.advec_fused, m.ctx
+        ks = ctx.ks
+        u, v, w, t0 = k12_inputs(6, 5, ks)
+        want = [x.clone() for x in t0]
+        A.momentum_plain(scheme, u, v, w, *want, adv.table(), ks, ctx.dxi,
+                         ctx.dyi)
+        worst = 0.
+        for chunks in range(1, 7):
+            got = [x.clone() for x in t0]
+            adv.k_mom = K12Emulator(scheme, broken)
+            adv.momentum(u, v, w, *got, chunks=chunks)
+            worst = max(worst, k12_rel_err(got, want))
+        assert worst > 1e-6, (broken, scheme)
+
+
+def test_k12_chip_cases_on_the_cpu(monkeypatch):
+    """chip_smoke.py's K12 cases on a small rico in 2i5, on the CPU (both
+    calls take the plain version here): the forced counts and the plan's,
+    each aligned and shifted past a 16-byte boundary, with NaN ghost levels
+    that the plain version never reads."""
+    import chip_smoke
+    monkeypatch.setattr(A.AdvecInterpFused, "mom_plan",
+                        lambda self, dtype, chunks=None: kmarch.plan(
+                            "advec_mom", self.ctx.itot, self.ctx.jtot,
+                            self.ctx.ktot, 0, dtype, 396, chunks))
+    m = rico_model(6, "2i5", itot=20, jtot=12)
+    counts = chip_smoke.mom_chunks(m, torch.float64)
+    assert counts == sorted({1, 2, 3, 6, kmarch.plan(
+        "advec_mom", 20, 12, 6, 0, torch.float64, 396).chunks})
+    cases = chip_smoke.advec_mom_cases(torch, m, 5, counts)
+    assert len(cases) == 2 * len(counts)
+    seen = []
+    real = m.advec_fused.momentum
+
+    def momentum(*a, chunks=None):
+        seen.append((chunks, tuple(x.data_ptr() % 16 for x in a[:3])))
+        return real(*a, chunks=chunks)
+
+    m.advec_fused.momentum = momentum
+    for name, kern, plain, kind in cases:
+        assert name == "advec_mom" and kind == "field"
+        got, want = kern(), plain()
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        assert all(bool(torch.isfinite(g).all()) for g in got)
+    assert [c for c, _ in seen] == [c for c in counts for _ in range(2)]
+    assert [a for _, a in seen[:2]] == [(0, 0, 0), (8, 8, 8)]

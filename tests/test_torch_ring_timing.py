@@ -20,7 +20,10 @@ reads from a build log and how it wires its timed calls, without a card.
   one-chunk time), K11's (the cell's state and heavy rain) and K16's and
   K17's at the weakscaling and moser180 shapes (``time_shape``: K17 with
   its plan, occupancy, a forced one-chunk run and the SASS count of its
-  per-level loop).
+  per-level loop), K12's and K13's at rico's (K12 with the same columns;
+  ``only`` times K12 alone, as for its float64 row);
+* ``sass_digests`` gives each kernel instance of a listing one digest of
+  its instructions, the same for the same code at other addresses.
 """
 
 import os
@@ -386,3 +389,76 @@ def test_o4_rows_run_on_the_cpu(label, case, dtype, one_call, monkeypatch):
                                             / (132 * 4 * 1.98e9))
     assert k17["gbytes"] == pytest.approx(
         6 * 40 * 16 * 12 * torch.finfo(dtype).bits / 8 / 1e9)
+
+
+# K12's per-level loop around its barrier, after the warm-up's
+K12_SASS = """
+\t\tFunction : _ZN3mhh16advec_mom_kernelIfLb0ELb1EEEvPKT_S3_S3_PS1_S4_S4_S3_iiiiS1_S1_ii
+        /*0000*/                   S2R R0, SR_TID.X ;
+        /*0010*/                   LDGSTS.E.BYPASS.128 [R3], desc[UR4][R4.64] ;
+        /*0020*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0030*/                   LDS R2, [R3] ;
+        /*0040*/                   FFMA R2, R3, R4, R5 ;
+        /*0050*/                   FFMA R2, R3, R4, R5 ;
+        /*0060*/                   STG.E desc[UR4][R2.64], R5 ;
+        /*0070*/               @P3 BRA 0x20 ;
+        /*0080*/                   EXIT ;
+"""
+
+
+def test_sass_digests_follow_the_code_not_the_addresses():
+    got = R.sass_digests(K12_SASS + K17_SASS)
+    assert set(got) == {"advec_mom_kernel<float,false,true>",
+                        "o4_scalars_kernel<float,false,1>"}
+    moved = K12_SASS.replace("/*00", "/*01")
+    assert (R.sass_digests(moved)["advec_mom_kernel<float,false,true>"]
+            == got["advec_mom_kernel<float,false,true>"])
+    edited = K12_SASS.replace("LDS R2, [R3]", "LDS R2, [R3+0x4]")
+    assert (R.sass_digests(edited)["advec_mom_kernel<float,false,true>"]
+            != got["advec_mom_kernel<float,false,true>"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_rico_rows_run_on_the_cpu(dtype, one_call, monkeypatch):
+    """K13's and K12's rows at a tiny shape of the rico cell in 2i5: K12
+    with its plan's chunks, blocks and waves, its occupancy, a forced
+    one-chunk run and the SASS count of its per-level loop; with only, K12
+    alone and no scalar sweep."""
+    from microhh_torch import kernels
+    from microhh_torch.ops import advec_interp_fused as A
+    from microhh_torch.ops import kmarch
+    torch.manual_seed(3)
+    monkeypatch.setattr(kernels.Kernel, "info", lambda self, *a: INFO)
+    t = "float" if dtype == torch.float32 else "double"
+    key = "advec_mom_kernel<%s,false,true>" % t
+    loops = {key: R.sass_loops(K12_SASS, R.FUNCTIONS["advec_mom"])[
+        "advec_mom_kernel<float,false,true>"]}
+    seen = []
+    real = A.AdvecInterpFused.momentum
+
+    def momentum(self, *a, chunks=None):
+        seen.append(chunks)
+        return real(self, *a, chunks=chunks)
+
+    monkeypatch.setattr(A.AdvecInterpFused, "momentum", momentum)
+    shape = (40, 16, 12)
+    rows = R.time_shape("rico", "rico", shape, dtype, 4, {}, "cpu", loops,
+                        1.98, device="cpu", only=("advec_scalars",
+                                                  "advec_mom"))
+    assert [r["kernel"] for r in rows] == ["advec_scalars", "advec_mom"]
+    k13, k12 = rows
+    assert k12["function"] == key and "instructions_a_point" not in k13
+    assert k13["function"] == "advec_scalars_kernel<%s,false,true,4>" % t
+    p = kmarch.plan("advec_mom", 40, 16, 12, 0, dtype, 396)
+    assert (k12["chunks"], k12["waves"]) == (p.chunks, p.waves)
+    assert k12["blocks"] == 2 * 2 * p.chunks and k12["blocks_per_sm"] == 3
+    assert k12["ms_one_chunk"] == 1.0 and seen == [None, 1]
+    assert k12["instructions_a_point"] == 6
+    warps = 2 * 2 * kmarch.K12_TJ * 12
+    assert k12["issue_ms"] == pytest.approx(1e3 * warps * 6
+                                            / (132 * 4 * 1.98e9))
+    assert k12["gbytes"] == pytest.approx(
+        9 * 40 * 16 * 12 * torch.finfo(dtype).bits / 8 / 1e9)
+    rows = R.time_shape("rico", "rico", shape, dtype, 4, {}, "cpu", loops,
+                        1.98, device="cpu", only=("advec_mom",))
+    assert [r["kernel"] for r in rows] == ["advec_mom"]
