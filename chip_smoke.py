@@ -59,7 +59,11 @@ Phases (any failure exits non-zero and prints no result line):
      K12 (2i4, 2i5, 2i53, 2i62) on the same rico grids forced to those
      counts and to its plan's, with its 16-byte copies where the grid
      allows them (48x20) and with u, v and w shifted one value past a
-     16-byte boundary, their ghost levels NaN (never read);
+     16-byte boundary, their ghost levels NaN (never read); the momentum
+     sweep K8/K9 and K18 on the same rico grids forced to those counts and
+     to both plans' counts, aligned and shifted, with advection, the
+     Coriolis term and the carry each on and off, the fields' levels outside
+     ks-1..ke NaN (never read);
      and K22 in every form of phase 3 (first x carry, the surface row given
      or not, the sponge and Coriolis folds each on and off, the evisc fold
      off) with its k-split forced to 1, 2 and 3 chunks, the plan's count and
@@ -92,14 +96,17 @@ Phases (any failure exits non-zero and prints no result line):
      status DIV <= 1e-4, qt, qr, nr >= 0; then the step time and the peak
      memory as in phase 5;
   8. at the 384^3 float32 shapes of that run, each of its kernels against
-     its plain version, then both timed;
+     its plain version, then both timed; K8/K9 also with its k-split forced
+     to 1, 2, 3 chunks, its plan's count and one level a chunk, aligned and
+     shifted (check_uvw_forced), as in phases 10, 12 and 18 (K18 there);
   9. and 10. the same two phases for rico as its ini is written
      (swadvec=2i5) at 384^3 float32: K12, K13 and K8-K10 without advection;
      K12 also with its k-split forced to 1, 2, 3 chunks, its plan's count
      and one level a chunk, aligned and shifted (check_mom_forced), as in
      phase 18;
  11. and 12. the same for SBL_Smag (cases/SBL_Smag/SBL.ini, thermo buoy) at
-     256^3 float32 with dt scaled with the grid: K14 and K15;
+     256^3 float32 with dt scaled with the grid: K14, K15 and K8/K9 with
+     the Coriolis term;
  13. and 14. the same for the weak-scaling unit (cases/weakscaling/
      weakscaling.ini, advec 4, thermo buoy) assembled for npx = npy = 8 as
      python/scaling.py does, 512x256x1024 float32: K16 and K17; its DIV is
@@ -115,7 +122,7 @@ Phases (any failure exits non-zero and prints no result line):
  17. and 18. the same for jaenschwalde as its ini is written (thermo moist,
      swadvec=2i5 with the flux limiter on co2, nine sources, open edges)
      at 1024x256x256 float32, on the substep without the RK fold: K18, K19
-     and K21 (and K12 forced as in phase 10); also qt >= 0, co2 >= -1e-6
+     and K21 (and K12 and K18 forced as in phase 10); also qt >= 0, co2 >= -1e-6
      of its maximum, and the co2 inventory grown at the nine sources' rate;
  19. and 20. the same for sullivan2011 as its ini is written (thermo dry,
      geostrophic forcing) with stats off at 512^3 float32, on the RK path:
@@ -132,7 +139,7 @@ hold, each once, over 3.35 TB/s, or its operations over 67 TFLOP/s (float32
 outside the tensor cores; half that for float64) where that is larger; and, where one PyTorch call
 computes the same function (the two DFTs), that call's time; beside K5
 and K6 also their form, C, F, shared memory and registers per CTA, GB/s
-and share of the bound; beside K12, K13, K16 and K17 their registers, local
+and share of the bound; beside K8/K9, K12, K13, K16, K17 and K18 their registers, local
 bytes a thread, shared memory a block, resident blocks an SM (as the card reports
 them), chunk count, blocks and waves at the path's shape, and the same
 beside the scalar sweep K10/K19 and K22.
@@ -1161,6 +1168,14 @@ def advec_scalar_cases(torch, m, seed, chunks):
     return cases
 
 
+def shifted(torch, x):
+    """The values of x one element past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    y = buf[1:].view(x.shape)
+    y.copy_(x)
+    return y
+
+
 def advec_mom_cases(torch, m, seed, chunk_counts):
     """(name, kernel call, plain call, error kind) for K12 on a model with an
     interpolated scheme at each forced chunk count (None: the plan's),
@@ -1179,19 +1194,12 @@ def advec_mom_cases(torch, m, seed, chunk_counts):
         return (scale * torch.randn(*shape, generator=gen,
                                     dtype=torch.float32)).to(ctx.dtype).to(ctx.device)
 
-    def shifted(x):
-        # the same values one element past a 16-byte boundary
-        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
-        y = buf[1:].view(x.shape)
-        y.copy_(x)
-        return y
-
     u, v, w = rnd(), rnd(), rnd(0.3)
     for x, top in ((u, ke), (v, ke), (w, ke + 1)):
         x[:ks] = float("nan")
         x[top:] = float("nan")
     t0 = [rnd(1e-3) for _ in range(3)]
-    forms = {"aligned": (u, v, w), "shifted": tuple(shifted(x)
+    forms = {"aligned": (u, v, w), "shifted": tuple(shifted(torch, x)
                                                     for x in (u, v, w))}
     cases = []
     for chunks in chunk_counts:
@@ -1225,6 +1233,120 @@ def check_mom_forced(torch, m):
     worst = 0.
     for name, kern, plain, kind in advec_mom_cases(
             torch, m, m.ctx.itot + 1, mom_chunks(m, m.dtype)):
+        worst = max(worst, compare(torch, name, kern, plain, kind, m.dtype,
+                                   "%s forced" % shape_str(m)))
+        torch.cuda.empty_cache()
+    return worst
+
+
+# the forms (advection, Coriolis term, carry written) uvw_cases takes by
+# default: each flag on and off
+UVW_FORMS = ((True, True, False), (False, False, True))
+
+
+def uvw_cases(torch, m, seed, chunk_counts, acc=None, forms=UVW_FORMS):
+    """(name, kernel call, plain call, error kind) for the momentum sweep on
+    a generic model at each forced chunk count (None: the plan's): K8/K9
+    (acc False or None) and K18 (acc True or None), aligned and with u, v,
+    w and e one value past a 16-byte boundary (single-value copies only),
+    in each of forms (advection, the Coriolis term, the carry written; K18
+    reads the first two).  Seeded u, v, w, a positive eddy viscosity, random
+    carries and tables with noise in every column; the fields' levels
+    outside ks-1..ke, which the sweep never reads, are NaN.  The kernel
+    call fails on a non-finite output."""
+    from microhh_torch.ops import fused as F
+    ctx, fz = m.ctx, m.fused
+    ks, ke = ctx.ks, ctx.ke
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    shape = (ctx.kcells, ctx.jtot, ctx.itot)
+
+    def rnd(*sh, scale=1.):
+        return (scale * torch.randn(*(sh or shape), generator=gen,
+                                    dtype=torch.float64)).to(ctx.dtype).to(ctx.device)
+
+    s = {"u": rnd(), "v": rnd(), "w": rnd(scale=0.3)}
+    e = rnd().abs()
+    for x in list(s.values()) + [e]:
+        x[:ks - 1] = float("nan")
+        x[ke + 1:] = float("nan")
+    t0 = {n: rnd(scale=1e-3) for n in s}
+    ct = fz.base + rnd(ctx.ktot, F.NTG, scale=1e-3)
+    ct_acc = fz.ct_static + rnd(ctx.ktot, F.NTG, scale=1e-3)
+    layouts = {"aligned": (s, e),
+               "shifted": ({n: shifted(torch, x) for n, x in s.items()},
+                           shifted(torch, e))}
+    grid_args = (ks, ctx.dxi, ctx.dyi)
+
+    def finite(arrays, name):
+        if not all(bool(torch.isfinite(x).all()) for x in arrays):
+            raise AssertionError("%s wrote a non-finite value" % name)
+        return arrays
+
+    cases = []
+    for chunks in chunk_counts:
+        for sf, ef in layouts.values():
+            for advec, coriolis, carry in forms:
+                def rk(kernel, sf=sf, ef=ef, advec=advec, coriolis=coriolis,
+                       carry=carry, chunks=chunks):
+                    t = {n: t0[n].clone() for n in t0}
+                    can = -153. / 128. if carry else 0.
+                    with attrs(fz, advec=advec, coriolis=coriolis, fc=1e-2):
+                        if kernel:
+                            out = fz.tend_uvw(sf, t, ef, ct, 0.7, can, carry,
+                                              chunks=chunks)
+                        else:
+                            out = F.tend_uvw_plain(
+                                sf, ef, t, ct, *grid_args, fz.visc, fz.fc,
+                                ctx.utrans, ctx.vtrans, 0.7, can, coriolis,
+                                carry, advec)
+                    got = [out[n] for n in out] + [t[n] for n in t]
+                    return finite(got, "K8/K9") if kernel else got
+
+                def unf(kernel, sf=sf, ef=ef, advec=advec, coriolis=coriolis,
+                        chunks=chunks):
+                    t = {n: t0[n].clone() for n in t0}
+                    with attrs(fz, advec=advec, fold_force=coriolis, fc=1e-2,
+                               ct_static=ct_acc):
+                        if kernel:
+                            fz.tend_uvw_acc(sf, t, ef, chunks=chunks)
+                        else:
+                            F.tend_uvw_acc_plain(
+                                sf, ef, t, ct_acc, *grid_args, fz.visc,
+                                fz.fc, ctx.utrans, ctx.vtrans, coriolis,
+                                advec)
+                    got = [t[n] for n in t]
+                    return finite(got, "K18") if kernel else got
+
+                if acc is not True:
+                    cases.append(("tend_uvw", lambda f=rk: f(True),
+                                  lambda f=rk: f(False), "field"))
+                if acc is not False:
+                    cases.append(("tend_uvw_acc", lambda f=unf: f(True),
+                                  lambda f=unf: f(False), "field"))
+    return cases
+
+
+def uvw_chunks(m, dtype, acc=False):
+    """The k-splits the runs' phases force on K8/K9 (K18 when acc): 1, 2
+    and 3 chunks, the plan's count and one level a chunk."""
+    k = m.ctx.ktot
+    return sorted({c for c in (1, 2, 3) if c <= k}
+                  | {m.fused.uvw_plan(dtype, acc).chunks, k})
+
+
+def check_uvw_forced(torch, m):
+    """The momentum sweep of a run's path (K18 on the substep without the
+    RK fold, else K8/K9) at the run's shapes in the path's form (its
+    advection and Coriolis flags, the carry written) with its k-split
+    forced (uvw_chunks), aligned and shifted by one value; returns the
+    largest absolute difference."""
+    fz = m.fused
+    acc = bool(m.unfolded)
+    form = (fz.advec, fz.fold_force if acc else fz.coriolis, True)
+    worst = 0.
+    for name, kern, plain, kind in uvw_cases(
+            torch, m, m.ctx.itot + 2, uvw_chunks(m, m.dtype, acc), acc,
+            (form,)):
         worst = max(worst, compare(torch, name, kern, plain, kind, m.dtype,
                                    "%s forced" % shape_str(m)))
         torch.cuda.empty_cache()
@@ -1316,7 +1438,9 @@ def check_kmarch(torch):
     moser180 at 45x40 and weakscaling at 48x20, K13 on rico at 45x24 and
     48x20 with 1, 2, 4 and max_scalars + 2 scalars, K12 on the same grids
     with its 16-byte copies where the grid allows them and without
-    (advec_mom_cases), the sweep on rico at 45x24 and 48x20; K22 in
+    (advec_mom_cases), the sweep on rico at 45x24 and 48x20, and there
+    the momentum sweep K8/K9 and K18 (uvw_cases, also at both plans'
+    counts) aligned and shifted; K22 in
     every form of kernel_cases (fold_chunks) on drycblles at 512^2x32 and
     on the neutral Ekman LES at 45^2x8 (a partial tile, null th)."""
     for label, build, n, k in (("drycblles", build_model, 512, 32),
@@ -1375,6 +1499,13 @@ def check_kmarch(torch):
                         compare(torch, name, kern, plain, kind, dtype,
                                 "rico %dx%dx%d chunks=%d"
                                 % (n[0], n[1], k, chunks))
+                counts = sorted(set(forced_chunks(k)) | set(uvw_chunks(
+                    m, dtype)) | set(uvw_chunks(m, dtype, True)))
+                for name, kern, plain, kind in uvw_cases(
+                        torch, m, n[1] + k, counts):
+                    compare(torch, name, kern, plain, kind, dtype,
+                            "rico %dx%dx%d chunks %s"
+                            % (n[0], n[1], k, counts))
 
 
 def compare(torch, name, kern, plain, kind, dtype, where):
@@ -1382,9 +1513,13 @@ def compare(torch, name, kern, plain, kind, dtype, where):
     to the tolerance; returns the largest absolute difference."""
     a, b = kern(), plain()
     torch.cuda.synchronize()
-    err = max(ERR[kind](x, y) for x, y in zip(a, b))
-    abs_err = max(float((x.double() - y.double()).abs().max())
-                  for x, y in zip(a, b))
+    errs, abs_errs = [], []
+    for x, y in zip(a, b):
+        # each pair taken to float64 once, for both errors
+        x, y = x.double(), y.double()
+        errs.append(ERR[kind](x, y))
+        abs_errs.append(float((x - y).abs().max()))
+    err, abs_err = max(errs), max(abs_errs)
     tol = TOLS[str(dtype)[6:]][kind]
     ok = err <= tol
     log("  %-10s %-12s %-7s %s rel err %.3e (tol %.0e), abs %.3e %s"
@@ -1624,7 +1759,8 @@ def registers_of(build_log):
 
 
 def kmarch_info(kern, dtype, scheme, S, plan):
-    """What a k-marching kernel (K13, K16, K17, the scalar sweep, K22) reports
+    """What a k-marching kernel (K8/K9, K12, K13, K16, K17, K18, the scalar
+    sweep, K22) reports
     at a path's shape: its registers, local bytes a thread, shared memory a
     block and resident blocks an SM from the card, its chunk count, blocks
     and waves."""
@@ -2044,7 +2180,9 @@ def unfolded_sweep_pairs(m, s, e):
             lambda: F.tend_uvw_acc_plain(s, e, t, fz.ct_static, *grid_args,
                                          fz.visc, fz.fc, ctx.utrans,
                                          ctx.vtrans, fz.fold_force, fz.advec),
-            10 * fb, FLOPS_PER_POINT["tend_uvw_acc"] * n),
+            10 * fb, FLOPS_PER_POINT["tend_uvw_acc"] * n,
+            info=kmarch_info(fz.k_uvw_acc, m.dtype, 0, 0,
+                             fz.uvw_plan(m.dtype, True))),
         "tend_scalar_acc": pair(
             lambda: fz.tend_scalars_acc(s, t, e),
             lambda: F.tend_scalars_acc_plain(s, fz.names, e, t, fz.ct_static,
@@ -2072,7 +2210,8 @@ def rk_sweep_pairs(m, s, e, ct, cts, can):
         lambda: F.tend_uvw_plain(s, e, t, ct, ctx.ks, ctx.dxi, ctx.dyi,
                                  fz.visc, fz.fc, ctx.utrans, ctx.vtrans, 0.5,
                                  can, fz.coriolis, True, fz.advec),
-        13 * fb, FLOPS_PER_POINT["tend_uvw"] * n)
+        13 * fb, FLOPS_PER_POINT["tend_uvw"] * n,
+        info=kmarch_info(fz.k_uvw, m.dtype, 0, 0, fz.uvw_plan(m.dtype)))
     if S == 1:
         pairs["tend_scalar_rk"] = pair(
             lambda: fz.tend_scalar_rk(s, t, e, cts[0], 0.5, can, True),
@@ -2349,8 +2488,8 @@ def main():
     log("[3a] K5 and K6 in both forms against torch.fft")
     check_dft(torch)
     check_kernels(torch)
-    log("[3b] K16, K17, K12, K13, the scalar sweep K10/K19 and K22 with "
-        "the k-split forced")
+    log("[3b] K16, K17, K12, K13, the scalar sweep K10/K19, the momentum "
+        "sweep K8/K9/K18 and K22 with the k-split forced")
     check_kmarch(torch)
     log("[3c] K11 at ring depths 3, 4 and 8, columns shorter than, equal to "
         "and not a multiple of its window")
@@ -2437,6 +2576,8 @@ def main():
             if m.advec_fused is not None:
                 errs["advec_mom"] = max(errs["advec_mom"],
                                         check_mom_forced(torch, m))
+            errs["tend_uvw"] = max(errs["tend_uvw"],
+                                   check_uvw_forced(torch, m))
             times = time_generic_kernels(torch, m, s)
             record(m, s, key, key + "_f32", label, res, errs, times,
                    "%s %d^3 float32" % (label, n))
@@ -2476,6 +2617,8 @@ def main():
             % (phase + 1, where))
         errs = check_kernels_full(torch, m, generic_kernel_cases)
         errs["advec_mom"] = max(errs["advec_mom"], check_mom_forced(torch, m))
+        errs["tend_uvw_acc"] = max(errs["tend_uvw_acc"],
+                                   check_uvw_forced(torch, m))
         times = time_generic_kernels(torch, m, s)
         record(m, s, key, key, label, res, errs, times, where)
         del m, s

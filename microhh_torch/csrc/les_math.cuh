@@ -89,6 +89,19 @@ __device__ __forceinline__ View<T> view(const T (*ring)[HJ][HI]) {
     return View<T>{ring, (int)threadIdx.y + 1, (int)threadIdx.x + 1};
 }
 
+// a field seen from a point of a k-march's tile (K22, K8/K9/K18): P0, P1,
+// P2 point at it in the planes k-1, k, k+1 (rows W apart) and c0, c1, c2
+// are its own column
+template <typename T, int W>
+struct KV {
+    const T *P0, *P1, *P2;
+    T c0, c1, c2;
+    __device__ __forceinline__ T operator()(int s, int dj, int di) const {
+        if (dj == 0 && di == 0) return s == 0 ? c0 : (s == 1 ? c1 : c2);
+        return (s == 0 ? P0 : (s == 1 ? P1 : P2))[dj * W + di];
+    }
+};
+
 struct Slots {
     int km, kc, kp;
 };

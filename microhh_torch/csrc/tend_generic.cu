@@ -55,8 +55,27 @@
 //
 // Bound: device-memory bytes.  K8/K9 read u, v, w, evisc and the three
 // carries and write three s* and three carries: 13 x 4 B per point in f32
-// (~3.0 GB per call at 384^3), ~450 flops per point; their design is the
-// k-marching tile of K2 with a three-plane shared-memory ring per field.
+// (~3.0 GB per call at 384^3), ~450 flops per point; K18 reads the four
+// fields and the carries and writes the carries: 10 x 4 B (2.68 GB at
+// 1024x256x256).  Their design (tend_uvw_kernel, one body with RK a
+// template flag, on kmarch.cuh): a block of 32 x UVW_TJ threads marches one
+// chunk [k0, k1) of the levels of its tile (the chunk count chosen by the
+// wrapper, ops/kmarch.py plan).  Level k reads planes k-1, k and k+1 of
+// every field across the plane (u's and v's k-1 for w's stencils, w's and
+// e's k+1 for u's and v's top faces, e's k-1 for w's face viscosities), so
+// group p of the march is plane p of u, v, w and e side by side in one ring
+// slot, the four sharing the loader's offsets (16-byte cp.async where the
+// tile lies inside the plane), with table row p staged beside it: three
+// groups read, one landing, one being filled, UVW_R slots, one commit
+// group and one barrier a level.  Each chunk issues group k0-1 first and
+// group k1 last, the fields' ghost planes read as they are.  A thread
+// keeps its own column (u, v, w, e at k-1 and k, the three carries at k)
+// in registers, shifts it by one a level with plane k+1's value from the
+// ring, and loads the next carries a level ahead; the staged row's
+// quotients (dzi/rho, dzhi/rhoh: les_math.cuh QRow) are divided once a
+// level by two threads.  A partial tile computes its virtual points (i >=
+// itot or j >= jtot wrap around) like any other and only guards its
+// writes; w's tendency is zero at the global level 0 only.
 // The scalar sweep with S scalars reads evisc, (u, v, w,) the scalars and
 // their carries and writes the carries (and s*): K10 at S = 4 without
 // advection 17 fields x 4 B a point (3.85 GB at 384^3), K19 at S = 3
@@ -78,89 +97,6 @@
 #include <type_traits>
 
 namespace mhh {
-
-template <typename T, bool RK>
-__global__ void __launch_bounds__(TI * TJ)
-tend_uvw_kernel(const T* __restrict__ u, const T* __restrict__ v,
-                const T* __restrict__ w, const T* __restrict__ e,
-                T* __restrict__ us, T* __restrict__ vs, T* __restrict__ ws,
-                T* tu, T* tv, T* tw, const T* __restrict__ ct, int itot,
-                int jtot, int ktot, int ks, T dxi, T dyi, T visc, T fc,
-                T utrans, T vtrans, T cbdt, T can, int coriolis, int carry,
-                int advec) {
-    __shared__ T sh[4][3][HJ][HI];
-    const int i0 = blockIdx.x * TI, j0 = blockIdx.y * TJ;
-    const int i = i0 + threadIdx.x, j = j0 + threadIdx.y;
-    const bool inside = i < itot && j < jtot;
-    const long long plane = (long long)itot * jtot;
-    const View<T> U = view<T>(sh[0]), V = view<T>(sh[1]), W = view<T>(sh[2]);
-    const View<T> E = view<T>(sh[3]);
-
-    auto load = [&](int p) {
-        const int s = slot(p);
-        load_tile(sh[0][s], u, ks + p, j0, i0, jtot, itot);
-        load_tile(sh[1][s], v, ks + p, j0, i0, jtot, itot);
-        load_tile(sh[2][s], w, ks + p, j0, i0, jtot, itot);
-        load_tile(sh[3][s], e, ks + p, j0, i0, jtot, itot);
-    };
-
-    load(-1);
-    load(0);
-    for (int k = 0; k < ktot; ++k) {
-        load(k + 1);
-        __syncthreads();
-        if (inside) {
-            const Slots q = slots(k);
-            const T* cc = ct + (long long)k * NTG;
-            T ut, vt;
-            uv_tend(U, V, W, E, q, cc, dxi, dyi, visc, ut, vt, advec);
-            T wt = w_tend(U, V, W, E, q, cc, dxi, dyi, visc, advec);
-            const T u_ = U(q.kc, 0, 0), v_ = V(q.kc, 0, 0), w_ = W(q.kc, 0, 0);
-
-            // ---- column fold and Coriolis (pallas_fused.py _extra_uv) ----
-            if (RK) {
-                const T facz = cc[T_FACZ];
-                ut = ut + cc[T_ADDU] - facz * u_;
-                vt = vt + cc[T_ADDV] - facz * v_;
-                const T wdn = cc[T_WLSDN], wup = cc[T_WLSUP];
-                ut = ut + wdn * (u_ - U(q.km, 0, 0)) + wup * (U(q.kp, 0, 0) - u_);
-                vt = vt + wdn * (v_ - V(q.km, 0, 0)) + wup * (V(q.kp, 0, 0) - v_);
-                wt = wt - cc[T_FACZH] * w_;
-            }
-            if (coriolis) {
-                // the JAX package's stencil (ROADMAP Queue 3 on its offset)
-                const T v_at_u = T(0.25) * (v_ + V(q.kc, 0, 1) + V(q.kc, -1, 0)
-                                            + V(q.kc, -1, 1));
-                const T u_at_v = T(0.25) * (u_ + U(q.kc, 0, -1) + U(q.kc, 1, 0)
-                                            + U(q.kc, 1, -1));
-                ut = ut + fc * (v_at_u + vtrans - cc[T_VG]);
-                vt = vt - fc * (u_at_v + utrans - cc[T_UG]);
-            }
-            if (k == 0) wt = T(0);   // half level ks is the wall
-
-            // ---- RK fold, or the plain accumulation onto the carry ----
-            const long long o = (long long)(ks + k) * plane + (long long)j * itot + i;
-            ut = tu[o] + ut;
-            vt = tv[o] + vt;
-            wt = tw[o] + wt;
-            if (RK) {
-                us[o] = u_ + cbdt * ut;
-                vs[o] = v_ + cbdt * vt;
-                ws[o] = w_ + cbdt * wt;
-                if (carry) {
-                    tu[o] = can * ut;
-                    tv[o] = can * vt;
-                    tw[o] = can * wt;
-                }
-            } else {
-                tu[o] = ut;
-                tv[o] = vt;
-                tw[o] = wt;
-            }
-        }
-        __syncthreads();
-    }
-}
 
 // K15: one scalar's RK sweep (tend_scalar_rk) with static shared memory
 // for its five rings.  fold = 0 leaves the column terms of the table out.
@@ -473,6 +409,243 @@ int scalar_sweep_info(int advec, int S, int* out) {
     });
 }
 
+// ---- the momentum sweep, K8/K9 (RK) and K18 (no RK) ----
+
+constexpr int UVW_TJ = 8;                // tile rows (32 x UVW_TJ threads)
+constexpr int UVW_NT = km::TI * UVW_TJ;
+constexpr int UVW_HALO = 1;              // the 2nd-order stencil's reach
+constexpr int UVW_NF = 4;                // fields a group: u, v, w, e
+constexpr int UVW_R = 5;                 // group slots: k-1 .. k+3
+
+// everything a launch takes but its template argument
+template <typename T>
+struct UvwArgs {
+    const T *u, *v, *w, *e;
+    T *us, *vs, *ws;      // s*, null without RK
+    T *tu, *tv, *tw;      // the carries, in place
+    const T* ct;          // (ktot, NTG)
+    int itot, jtot, ktot, ks;
+    T dxi, dyi, visc, fc, utrans, vtrans, cbdt, can;
+    int coriolis, carry, advec, chunks, vec_ok;
+};
+
+// dynamic shared memory of one launch (ops/kmarch.py repeats it): UVW_R
+// groups of the four fields' planes and a staged table row a group
+template <typename T>
+constexpr size_t uvw_smem() {
+    return ((size_t)UVW_R * UVW_NF * km::Slot<UVW_TJ, UVW_HALO>::SIZE
+            + (size_t)UVW_R * NTGP) * sizeof(T);
+}
+
+extern __shared__ __align__(16) unsigned char uvw_smem_buf[];
+
+// three blocks an SM for K8/K9 in float32 (at most 80 registers), four
+// for K18 (at most 64: 1.098 against 1.179 ms at jaenschwalde, while K8/K9
+// read 1.285 against 1.273 at rico 384^3 on an H100 at 700 W), two in
+// float64
+template <typename T, bool RK>
+__global__ void __launch_bounds__(UVW_NT, sizeof(T) == 4 ? (RK ? 3 : 4) : 2)
+tend_uvw_kernel(const UvwArgs<T> a) {
+    using Sl = km::Slot<UVW_TJ, UVW_HALO>;
+    constexpr int SZ = Sl::SIZE, PL = UVW_NF * SZ;
+    T* const ring = reinterpret_cast<T*>(uvw_smem_buf);   // [R][NF][SZ]
+    T* const rows = ring + UVW_R * PL;                     // [R][NTGP]
+    const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * km::TI + tx;
+    const int i0 = blockIdx.x * km::TI, j0 = blockIdx.y * UVW_TJ;
+    const bool inside = i0 + tx < a.itot && j0 + ty < a.jtot;
+    int k0, k1;
+    km::chunk_bounds(blockIdx.z, a.chunks, a.ktot, k0, k1);
+    const long long plane = (long long)a.itot * a.jtot;
+    const km::PlaneLoader<T, UVW_TJ, UVW_NT, UVW_HALO> ld(
+        tid, i0, j0, a.itot, a.jtot, a.vec_ok && i0 + km::TI <= a.itot);
+    // the point, wrapped where the tile passes the plane's edge (only its
+    // stores are guarded), in the plane and in a slot
+    const long long o2 =
+        (long long)wrap(j0 + ty, a.jtot) * a.itot + wrap(i0 + tx, a.itot);
+    const int me = (ty + UVW_HALO) * km::RS + tx + km::C0;
+    auto level = [&](int k) { return (long long)(a.ks + k) * plane; };
+    auto next = [](int s) { return s == UVW_R - 1 ? 0 : s + 1; };
+
+    // group p into slot s: plane p of u, v, w and e (the loader's offsets
+    // shared by the four) and, for a level of the chunk, table row p; none
+    // past plane k1 (an empty group keeps the count)
+    auto issue = [&](int p, int s) {
+        if (p <= k1) {
+            const long long lev = level(p);
+            T* const sl = ring + s * PL;
+#pragma unroll
+            for (int n = 0; n < ld.NOP; ++n) {
+                if (ld.src[n] < 0) continue;
+                T* const d = sl + (ld.dst[n] & (km::VEC - 1));
+                const long long g = lev + ld.src[n];
+                if (ld.dst[n] & km::VEC) {
+                    km::cp_async<16>(d, a.u + g);
+                    km::cp_async<16>(d + SZ, a.v + g);
+                    km::cp_async<16>(d + 2 * SZ, a.w + g);
+                    km::cp_async<16>(d + 3 * SZ, a.e + g);
+                } else {
+                    km::cp_async<sizeof(T)>(d, a.u + g);
+                    km::cp_async<sizeof(T)>(d + SZ, a.v + g);
+                    km::cp_async<sizeof(T)>(d + 2 * SZ, a.w + g);
+                    km::cp_async<sizeof(T)>(d + 3 * SZ, a.e + g);
+                }
+            }
+            if (p >= k0 && p < k1 && tid < NTG)
+                km::cp_async<sizeof(T)>(rows + s * NTGP + tid,
+                                        a.ct + (long long)p * NTG + tid);
+        }
+        km::commit();
+    };
+    // the quotients of the staged row in slot s (QRow's columns), divided
+    // as the point functions would divide them, by two threads
+    auto derive = [&](int s) {
+        T* const r = rows + s * NTGP;
+        if (tid == 0) r[TQ_RDZI] = r[T_DZI] / r[T_RHO];
+        else if (tid == 1) r[TQ_RDZHI] = r[T_DZHI] / r[T_RHOH];
+    };
+
+    // group p lives in slot (p - k0 + 1) mod UVW_R
+    issue(k0 - 1, 0);
+    issue(k0, 1);
+    issue(k0 + 1, 2);
+    issue(k0 + 2, 3);
+    km::wait_pending<2>();      // groups k0-1 and k0 have landed
+    __syncthreads();
+    derive(1);
+    // the register columns at k0-1 and k0, the carries at k0
+    T u0 = ring[me], v0 = ring[me + SZ], w0 = ring[me + 2 * SZ];
+    T e0 = ring[me + 3 * SZ];
+    T u1 = ring[PL + me], v1 = ring[PL + me + SZ];
+    T w1 = ring[PL + me + 2 * SZ], e1 = ring[PL + me + 3 * SZ];
+    T cu = a.tu[level(k0) + o2], cv = a.tv[level(k0) + o2];
+    T cw = a.tw[level(k0) + o2];
+    const Slots q{0, 1, 2};
+    int sm = 0;                 // the slot of group k-1
+    for (int k = k0; k < k1; ++k) {
+        km::wait_pending<1>();  // group k+1 has landed
+        __syncthreads();
+        const int sc = next(sm), sp = next(sc);
+        // group k+3 goes where group k-2 lay, which nothing reads any more
+        issue(k + 3, sm == 0 ? UVW_R - 1 : sm - 1);
+        // the quotients of row k+1, which landed with its group
+        if (k + 1 < k1) derive(sp);
+        // the carries of the next level, on their way during this one
+        const long long ln = level(min(k + 1, k1 - 1)) + o2;
+        const T cun = a.tu[ln], cvn = a.tv[ln], cwn = a.tw[ln];
+
+        const T* const pm = ring + sm * PL + me;
+        const T* const pc = ring + sc * PL + me;
+        const T* const pp = ring + sp * PL + me;
+        const T u2 = pp[0], v2 = pp[SZ], w2 = pp[2 * SZ], e2 = pp[3 * SZ];
+        const KV<T, km::RS> U{pm, pc, pp, u0, u1, u2};
+        const KV<T, km::RS> V{pm + SZ, pc + SZ, pp + SZ, v0, v1, v2};
+        const KV<T, km::RS> W{pm + 2 * SZ, pc + 2 * SZ, pp + 2 * SZ,
+                              w0, w1, w2};
+        const KV<T, km::RS> E{pm + 3 * SZ, pc + 3 * SZ, pp + 3 * SZ,
+                              e0, e1, e2};
+        const QRow<T> cc{rows + sc * NTGP};
+        T ut = u_tend<QRow<T>>(U, V, W, E, q, cc, a.dxi, a.dyi, a.visc,
+                               a.advec);
+        T vt = v_tend<QRow<T>>(U, V, W, E, q, cc, a.dxi, a.dyi, a.visc,
+                               a.advec);
+        T wt = w_tend<QRow<T>>(U, V, W, E, q, cc, a.dxi, a.dyi, a.visc,
+                               a.advec);
+
+        // ---- column fold and Coriolis (pallas_fused.py _extra_uv) ----
+        if (RK) {
+            const T facz = cc[T_FACZ];
+            ut = ut + cc[T_ADDU] - facz * u1;
+            vt = vt + cc[T_ADDV] - facz * v1;
+            const T wdn = cc[T_WLSDN], wup = cc[T_WLSUP];
+            ut = ut + wdn * (u1 - u0) + wup * (u2 - u1);
+            vt = vt + wdn * (v1 - v0) + wup * (v2 - v1);
+            wt = wt - cc[T_FACZH] * w1;
+        }
+        if (a.coriolis) {
+            // the JAX package's stencil (ROADMAP "followed behaviour" 1)
+            const T v_at_u = T(0.25) * (v1 + V(1, 0, 1) + V(1, -1, 0)
+                                        + V(1, -1, 1));
+            const T u_at_v = T(0.25) * (u1 + U(1, 0, -1) + U(1, 1, 0)
+                                        + U(1, 1, -1));
+            ut = ut + a.fc * (v_at_u + a.vtrans - cc[T_VG]);
+            vt = vt - a.fc * (u_at_v + a.utrans - cc[T_UG]);
+        }
+        if (k == 0) wt = T(0);   // half level ks is the wall
+
+        // ---- RK fold, or the plain accumulation onto the carry ----
+        ut = cu + ut;
+        vt = cv + vt;
+        wt = cw + wt;
+        if (inside) {
+            const long long o = level(k) + o2;
+            if (RK) {
+                a.us[o] = u1 + a.cbdt * ut;
+                a.vs[o] = v1 + a.cbdt * vt;
+                a.ws[o] = w1 + a.cbdt * wt;
+                if (a.carry) {
+                    a.tu[o] = a.can * ut;
+                    a.tv[o] = a.can * vt;
+                    a.tw[o] = a.can * wt;
+                }
+            } else {
+                a.tu[o] = ut;
+                a.tv[o] = vt;
+                a.tw[o] = wt;
+            }
+        }
+        u0 = u1; u1 = u2;
+        v0 = v1; v1 = v2;
+        w0 = w1; w1 = w2;
+        e0 = e1; e1 = e2;
+        cu = cun; cv = cvn; cw = cwn;
+        sm = sc;
+    }
+    // no copy may land after the block has left its shared memory
+    km::wait_all();
+}
+
+template <typename T, bool RK>
+int launch_tend_uvw(const UvwArgs<T>& args, cudaStream_t stream) {
+    if (args.chunks < 1 || args.chunks > args.ktot)
+        return (int)cudaErrorInvalidValue;
+    const size_t smem = uvw_smem<T>();
+    int rc = (int)cudaFuncSetAttribute(
+        tend_uvw_kernel<T, RK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (rc) return rc;
+    const dim3 block(km::TI, UVW_TJ);
+    const dim3 grid((args.itot + km::TI - 1) / km::TI,
+                    (args.jtot + UVW_TJ - 1) / UVW_TJ, args.chunks);
+    tend_uvw_kernel<T, RK><<<grid, block, smem, stream>>>(args);
+    return (int)cudaGetLastError();
+}
+
+// the arguments of one launch; us, vs, ws null without RK
+template <typename T>
+UvwArgs<T> uvw_args(const void* u, const void* v, const void* w,
+                    const void* e, void* us, void* vs, void* ws, void* tu,
+                    void* tv, void* tw, const void* ct, int itot, int jtot,
+                    int ktot, int ks, double dxi, double dyi, double visc,
+                    double fc, double utrans, double vtrans, double cbdt,
+                    double can, int coriolis, int carry, int advec,
+                    int chunks) {
+    UvwArgs<T> a;
+    a.u = (const T*)u; a.v = (const T*)v; a.w = (const T*)w;
+    a.e = (const T*)e;
+    a.us = (T*)us; a.vs = (T*)vs; a.ws = (T*)ws;
+    a.tu = (T*)tu; a.tv = (T*)tv; a.tw = (T*)tw;
+    a.ct = (const T*)ct;
+    a.itot = itot; a.jtot = jtot; a.ktot = ktot; a.ks = ks;
+    a.dxi = T(dxi); a.dyi = T(dyi); a.visc = T(visc); a.fc = T(fc);
+    a.utrans = T(utrans); a.vtrans = T(vtrans);
+    a.cbdt = T(cbdt); a.can = T(can);
+    a.coriolis = coriolis; a.carry = carry; a.advec = advec;
+    a.chunks = chunks;
+    a.vec_ok = itot % (16 / (int)sizeof(T)) == 0 && km::aligned16(u)
+               && km::aligned16(v) && km::aligned16(w) && km::aligned16(e);
+    return a;
+}
+
 template <typename T>
 int launch_tend_scalar(const T* u, const T* v, const T* w, const T* e,
                        const T* a, T* as, T* ta, const T* ct, int itot,
@@ -487,22 +660,6 @@ int launch_tend_scalar(const T* u, const T* v, const T* w, const T* e,
     return (int)cudaGetLastError();
 }
 
-template <typename T, bool RK>
-int launch_tend_uvw(const T* u, const T* v, const T* w, const T* e, T* us,
-                    T* vs, T* ws, T* tu, T* tv, T* tw, const T* ct, int itot,
-                    int jtot, int ktot, int ks, double dxi, double dyi,
-                    double visc, double fc, double utrans, double vtrans,
-                    double cbdt, double can, int coriolis, int carry,
-                    int advec, cudaStream_t stream) {
-    const dim3 block(TI, TJ);
-    const dim3 grid((itot + TI - 1) / TI, (jtot + TJ - 1) / TJ);
-    tend_uvw_kernel<T, RK><<<grid, block, 0, stream>>>(
-        u, v, w, e, us, vs, ws, tu, tv, tw, ct, itot, jtot, ktot, ks, T(dxi),
-        T(dyi), T(visc), T(fc), T(utrans), T(vtrans), T(cbdt), T(can),
-        coriolis, carry, advec);
-    return (int)cudaGetLastError();
-}
-
 }  // namespace mhh
 
 #define MHH_TEND_GENERIC(SUF, T)                                              \
@@ -512,12 +669,17 @@ int launch_tend_uvw(const T* u, const T* v, const T* w, const T* e, T* us,
         const void* ct, int itot, int jtot, int ktot, int ks, double dxi,     \
         double dyi, double visc, double fc, double utrans, double vtrans,      \
         double cbdt, double can, int coriolis, int carry, int advec,          \
-        void* stream) {                                                       \
-        return mhh::launch_tend_uvw<T, true>(                                       \
-            (const T*)u, (const T*)v, (const T*)w, (const T*)e, (T*)us,       \
-            (T*)vs, (T*)ws, (T*)tu, (T*)tv, (T*)tw, (const T*)ct, itot, jtot, \
-            ktot, ks, dxi, dyi, visc, fc, utrans, vtrans, cbdt, can,          \
-            coriolis, carry, advec, (cudaStream_t)stream);                    \
+        int chunks, void* stream) {                                           \
+        return mhh::launch_tend_uvw<T, true>(                                 \
+            mhh::uvw_args<T>(u, v, w, e, us, vs, ws, tu, tv, tw, ct, itot,    \
+                             jtot, ktot, ks, dxi, dyi, visc, fc, utrans,      \
+                             vtrans, cbdt, can, coriolis, carry, advec,       \
+                             chunks),                                         \
+            (cudaStream_t)stream);                                            \
+    }                                                                         \
+    extern "C" int mhh_tend_uvw_info_##SUF(int scheme, int S, int* out) {     \
+        return mhh::km::kernel_info(mhh::tend_uvw_kernel<T, true>,            \
+                                    mhh::UVW_NT, mhh::uvw_smem<T>(), out);    \
     }                                                                         \
     extern "C" int mhh_tend_scalars_##SUF(                                    \
         const void* u, const void* v, const void* w, const void* e,           \
@@ -548,13 +710,19 @@ int launch_tend_uvw(const T* u, const T* v, const T* w, const T* e, T* us,
         const void* u, const void* v, const void* w, const void* e,           \
         void* tu, void* tv, void* tw, const void* ct, int itot, int jtot,     \
         int ktot, int ks, double dxi, double dyi, double visc, double fc,     \
-        double utrans, double vtrans, int coriolis, int advec,                \
+        double utrans, double vtrans, int coriolis, int advec, int chunks,    \
         void* stream) {                                                       \
         return mhh::launch_tend_uvw<T, false>(                                \
-            (const T*)u, (const T*)v, (const T*)w, (const T*)e, nullptr,      \
-            nullptr, nullptr, (T*)tu, (T*)tv, (T*)tw, (const T*)ct, itot,     \
-            jtot, ktot, ks, dxi, dyi, visc, fc, utrans, vtrans, 0., 0.,       \
-            coriolis, 0, advec, (cudaStream_t)stream);                        \
+            mhh::uvw_args<T>(u, v, w, e, nullptr, nullptr, nullptr, tu, tv,  \
+                             tw, ct, itot, jtot, ktot, ks, dxi, dyi, visc,    \
+                             fc, utrans, vtrans, 0., 0., coriolis, 0, advec,  \
+                             chunks),                                         \
+            (cudaStream_t)stream);                                            \
+    }                                                                         \
+    extern "C" int mhh_tend_uvw_acc_info_##SUF(int scheme, int S,             \
+                                               int* out) {                    \
+        return mhh::km::kernel_info(mhh::tend_uvw_kernel<T, false>,           \
+                                    mhh::UVW_NT, mhh::uvw_smem<T>(), out);    \
     }                                                                         \
     extern "C" int mhh_tend_scalar_acc_##SUF(                                 \
         const void* u, const void* v, const void* w, const void* e,           \

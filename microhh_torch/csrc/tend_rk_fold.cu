@@ -112,19 +112,7 @@ constexpr size_t fold_smem() {
             + K22_R * K22_NTC) * sizeof(T);
 }
 
-// a field seen from a point of the tile: P0, P1, P2 point at it in the
-// planes k-1, k, k+1 (rows W apart) and c0, c1, c2 are its own column
-template <typename T, int W>
-struct KV {
-    const T *P0, *P1, *P2;
-    T c0, c1, c2;
-    __device__ __forceinline__ T operator()(int s, int dj, int di) const {
-        if (dj == 0 && di == 0) return s == 0 ? c0 : (s == 1 ? c1 : c2);
-        return (s == 0 ? P0 : (s == 1 ? P1 : P2))[dj * W + di];
-    }
-};
-
-// the same with the column read from shared memory too
+// les_math.cuh's KV with the column read from shared memory too
 template <typename T, int W>
 struct PV {
     const T *P0, *P1, *P2;

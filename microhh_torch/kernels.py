@@ -68,8 +68,9 @@ SIGNATURES = {
     # stratified, ghosts
     "limits": [_P] * 7 + [_I] * 4 + [_D] * 3 + [_I] * 2,
     # u, v, w, e, us, vs, ws, tu, tv, tw, ct; itot, jtot, ktot, ks; dxi, dyi,
-    # visc, fc, utrans, vtrans, cbdt, can; coriolis, carry, advec
-    "tend_uvw": [_P] * 11 + [_I] * 4 + [_D] * 8 + [_I] * 3,
+    # visc, fc, utrans, vtrans, cbdt, can; coriolis, carry, advec, chunks
+    # (ops/kmarch.py)
+    "tend_uvw": [_P] * 11 + [_I] * 4 + [_D] * 8 + [_I] * 4,
     # u, v, w (null without advection), e; host arrays of the S scalars' a,
     # a*, carry pointers and viscosities; S; tables (S, ktot, NTG); itot,
     # jtot, ktot, ks; dxi, dyi, tPr, cbdt, can; carry, advec, chunks
@@ -98,8 +99,8 @@ SIGNATURES = {
     "o4_scalars": [_P] * 3 + [_PP] * 2 + [_PD, _I, _P] + [_I] * 5 + [_D] * 2
                   + [_I],
     # u, v, w, e, tu, tv, tw, ct; itot, jtot, ktot, ks; dxi, dyi, visc, fc,
-    # utrans, vtrans; coriolis, advec
-    "tend_uvw_acc": [_P] * 8 + [_I] * 4 + [_D] * 6 + [_I] * 2,
+    # utrans, vtrans; coriolis, advec, chunks (ops/kmarch.py)
+    "tend_uvw_acc": [_P] * 8 + [_I] * 4 + [_D] * 6 + [_I] * 3,
     # u, v, w (null without advection), e; host arrays of the S scalars'
     # a and carry pointers and viscosities; S; ct; itot, jtot, ktot, ks;
     # dxi, dyi, tPr; advec, chunks (ops/kmarch.py)
@@ -118,12 +119,13 @@ SIGNATURES = {
 }
 
 # Kernels with an entry mhh_<kernel>_info_<f32|f64>(scheme, S, int out[5])
-# (the scalar sweep's "scheme" is its advec flag, K22's its thermo flag; K11
-# reads neither, K12 and K16 not S): registers, local bytes a thread,
-# dynamic shared memory a block, resident blocks an SM
+# (the scalar sweep's "scheme" is its advec flag, K22's its thermo flag; K11,
+# K8/K9 and K18 read neither, K12 and K16 not S): registers, local bytes a
+# thread, dynamic shared memory a block, resident blocks an SM
 # (cudaOccupancyMaxActiveBlocksPerMultiprocessor), SMs.
 INFO = ("advec_mom", "advec_scalars", "o4_mom", "o4_scalars",
-        "tend_scalars", "tend_scalar_acc", "micro2", "tend_rk_fold")
+        "tend_scalars", "tend_scalar_acc", "micro2", "tend_rk_fold",
+        "tend_uvw", "tend_uvw_acc")
 INFO_KEYS = ("registers", "local_bytes", "smem", "blocks_per_sm", "sms")
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}

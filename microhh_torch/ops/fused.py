@@ -24,8 +24,9 @@ no fallback from the card to the plain version.
                             eddy viscosity, the adaptive-dt limits
                             (``csrc/evisc.cu``);
 * K8/K9 ``FusedGeneric.tend_uvw`` - the generic path's u, v, w advec_2 +
-                            smag2 + column fold + Coriolis + RK fold
-                            (``csrc/tend_generic.cu``);
+                            smag2 + column fold + Coriolis + RK fold in
+                            one k-march (``csrc/tend_generic.cu``, chunked
+                            by ``ops/kmarch.py``);
 * K10 ``FusedGeneric.tend_scalars`` - every scalar's advec_2 + smag2 +
                             column fold + RK fold in one k-march, four
                             scalars a launch (the scalar sweep of
@@ -884,9 +885,20 @@ class FusedGeneric(Fused):
                         ctx.jtot, ctx.ktot, *args)
         return out
 
-    def tend_uvw(self, s, t, e, ct, cbdt, can, carry):
+    def uvw_plan(self, dtype, acc=False, chunks=None):
+        """The k-march of one launch of the momentum sweep (K8/K9, or K18
+        when acc; ops/kmarch.py), the chunk count chosen from the card's
+        resident blocks unless given."""
+        ctx = self.ctx
+        kern = self.k_uvw_acc if acc else self.k_uvw
+        info = kern.info(dtype, 0)
+        return kmarch.plan(kern.name, ctx.itot, ctx.jtot, ctx.ktot, 0, dtype,
+                           info["blocks_per_sm"] * info["sms"], chunks)
+
+    def tend_uvw(self, s, t, e, ct, cbdt, can, carry, chunks=None):
         """K8/K9: s* of u, v, w (zero ghost planes); the carry t["u"],
-        t["v"], t["w"] is read and, when carry, overwritten in place."""
+        t["v"], t["w"] is read and, when carry, overwritten in place.
+        chunks: force the k-split (checks and timings only)."""
         ctx = self.ctx
         args = (ctx.ks, ctx.dxi, ctx.dyi, self.visc, self.fc, ctx.utrans,
                 ctx.vtrans, cbdt, can, self.coriolis, carry)
@@ -900,7 +912,8 @@ class FusedGeneric(Fused):
         s_star = {n: _empty_ghosts_zero(s[n], ctx) for n in ("u", "v", "w")}
         self.k_uvw(e.dtype, *fields, e, *s_star.values(), *carry_t, ct,
                    ctx.itot, ctx.jtot, ctx.ktot, *args[:-2],
-                   int(self.coriolis), int(carry), int(self.advec))
+                   int(self.coriolis), int(carry), int(self.advec),
+                   self.uvw_plan(e.dtype, False, chunks).chunks)
         return s_star
 
     def plan(self, kernel, S, dtype, chunks=None):
@@ -987,10 +1000,11 @@ class FusedGeneric(Fused):
                       int(self.advec))
         return {name: a_star}
 
-    def tend_uvw_acc(self, s, t, e):
+    def tend_uvw_acc(self, s, t, e, chunks=None):
         """K18: the tendencies of u, v, w added onto the carries t["u"],
         t["v"], t["w"] in place (no RK update, no column terms; the
-        Coriolis term when the forcing is a foldable geostrophic wind)."""
+        Coriolis term when the forcing is a foldable geostrophic wind).
+        chunks: force the k-split (checks and timings only)."""
         ctx = self.ctx
         ct = self.ct_static
         args = (ctx.ks, ctx.dxi, ctx.dyi, self.visc, self.fc, ctx.utrans,
@@ -1004,7 +1018,8 @@ class FusedGeneric(Fused):
               [shape] * 7 + [(ctx.ktot, NTG)])
         self.k_uvw_acc(e.dtype, *fields, *carry_t, ct, ctx.itot, ctx.jtot,
                        ctx.ktot, *args[:-1], int(self.fold_force),
-                       int(self.advec))
+                       int(self.advec),
+                       self.uvw_plan(e.dtype, True, chunks).chunks)
 
     def tend_scalars_acc(self, s, t, e, names=None, chunks=None):
         """K19: the tendencies of the scalars ``names`` (every scalar of the

@@ -1,6 +1,7 @@
 """The k-march plan of the redesigned ring kernels K12 (``advec_mom``), K13
 (``advec_scalars``), K16 (``o4_mom``), K17 (``o4_scalars``), the scalar
-sweep K10 (``tend_scalars``) / K19 (``tend_scalar_acc``) and the folded dry
+sweep K10 (``tend_scalars``) / K19 (``tend_scalar_acc``), the momentum
+sweep K8/K9 (``tend_uvw``) / K18 (``tend_uvw_acc``) and the folded dry
 sweep K22 (``tend_rk_fold``): the host's copy of ``csrc/kmarch.cuh`` and of the
 kernels' shared-memory layouts.
 
@@ -12,8 +13,8 @@ the SMs) so that the blocks fill the card in whole waves: the count that
 minimises waves x (levels a chunk + the planes a chunk reads again to warm
 its column up).  The shared-memory formulas repeat the kernels' own
 (``k12_smem``, ``k13_smem``, ``K16<T>::smem``, ``k17_smem``,
-``sweep_smem``, ``fold_smem``), and a CPU test holds the constants here to
-those in the sources.
+``sweep_smem``, ``uvw_smem``, ``fold_smem``), and a CPU test holds the
+constants here to those in the sources.
 """
 
 import collections
@@ -35,6 +36,8 @@ K17_TJ, K17_R, K17_RR, K17_MAXS, K17_NCP = 8, 3, 3, 4, 40
 # csrc/tend_generic.cu: SW_TJ, SW_HALO, SW_R, SW_MAXS, NTGP; NTG of
 # csrc/les_math.cuh (ops/fused.py NTG)
 SW_TJ, SW_HALO, SW_R, SW_MAXS, NTGP, NTG = 8, 1, 3, 4, 24, 21
+# csrc/tend_generic.cu: UVW_TJ, UVW_HALO, UVW_NF, UVW_R
+UVW_TJ, UVW_HALO, UVW_NF, UVW_R = 8, 1, 4, 5
 # csrc/tend_rk_fold.cu: K22_TJ, K22_HALO, K22_R, K22_ER, K22_EW, K22_NTC
 K22_TJ, K22_HALO, K22_R, K22_ER, K22_EW, K22_NTC = 8, 2, 6, 4, TI + 2, 32
 
@@ -93,6 +96,14 @@ def sweep_smem(S, dtype, rk, advec):
              + SW_R * (S if rk else 1) * NTGP) * _bytes(dtype))
 
 
+def uvw_smem(dtype):
+    """Dynamic shared memory of a K8/K9 or K18 launch (csrc/tend_generic.cu
+    uvw_smem): UVW_R slots of a group, the planes of u, v, w and e side by
+    side, and a staged table row a slot."""
+    return ((UVW_R * UVW_NF * slot_size(UVW_TJ, UVW_HALO) + UVW_R * NTGP)
+            * _bytes(dtype))
+
+
 def fold_smem(dtype):
     """Dynamic shared memory of a K22 launch (csrc/tend_rk_fold.cu
     fold_smem): K22_R slots of the four fields' planes, K22_ER of e's
@@ -113,16 +124,20 @@ SMEM = {"advec_mom": lambda S, dtype, advec: k12_smem(dtype),
                                                            advec),
         "tend_scalar_acc": lambda S, dtype, advec: sweep_smem(S, dtype, False,
                                                               advec),
+        "tend_uvw": lambda S, dtype, advec: uvw_smem(dtype),
+        "tend_uvw_acc": lambda S, dtype, advec: uvw_smem(dtype),
         "tend_rk_fold": lambda S, dtype, advec: fold_smem(dtype)}
 TILE_J = {"advec_mom": K12_TJ, "advec_scalars": K13_TJ, "o4_mom": K16_TJ,
           "o4_scalars": K17_TJ, "tend_scalars": SW_TJ,
-          "tend_scalar_acc": SW_TJ, "tend_rk_fold": K22_TJ}
+          "tend_scalar_acc": SW_TJ, "tend_uvw": UVW_TJ,
+          "tend_uvw_acc": UVW_TJ, "tend_rk_fold": K22_TJ}
 # planes a chunk reads again to warm its column up: K12's, K13's, K16's and
 # K17's seven-plane windows; the sweep's column k0-1..k0+1 and the plane
-# past it; K22's planes k0-2, k0-1 below the chunk (with e(k0-1)) and w's
-# tendency at k1 above it
+# past it; the momentum sweep's groups k0-1 and k1; K22's planes k0-2,
+# k0-1 below the chunk (with e(k0-1)) and w's tendency at k1 above it
 WARM = {"advec_mom": 6, "advec_scalars": 6, "o4_mom": 6, "o4_scalars": 6,
-        "tend_scalars": 2, "tend_scalar_acc": 2, "tend_rk_fold": 2}
+        "tend_scalars": 2, "tend_scalar_acc": 2, "tend_uvw": 2,
+        "tend_uvw_acc": 2, "tend_rk_fold": 2}
 
 
 def chunk_bounds(chunks, ktot):
@@ -147,8 +162,9 @@ def plan(kernel, itot, jtot, ktot, S, dtype, slots, chunks=None,
          advec=True):
     """The launch of K12 ("advec_mom"), K13 ("advec_scalars", S scalars),
     K16 ("o4_mom"), K17 ("o4_scalars", S scalars), the scalar sweep
-    ("tend_scalars" K10, "tend_scalar_acc" K19; S scalars, advec its flag)
-    or K22 ("tend_rk_fold"): tiles, chunk count (chosen from slots, the card's
+    ("tend_scalars" K10, "tend_scalar_acc" K19; S scalars, advec its flag),
+    the momentum sweep ("tend_uvw" K8/K9, "tend_uvw_acc" K18) or K22
+    ("tend_rk_fold"): tiles, chunk count (chosen from slots, the card's
     resident blocks, unless given), shared memory a block and the waves it
     makes."""
     tiles_i = -(-itot // TI)

@@ -1,6 +1,7 @@
-"""Time the ring kernels K16, K17, K12, K13 and the scalar sweep K10/K19 on
-one card, the kernels that share the sweep's scalar point function (K2,
-K22, K20, K15), and K11, the warm-rain column sweep.
+"""Time the ring kernels K16, K17, K12, K13, the scalar sweep K10/K19 and
+the momentum sweep K8/K9/K18 on one card, the kernels that share the
+sweep's scalar point function (K2, K22, K20, K15), and K11, the warm-rain
+column sweep.
 
     python3 -m microhh_torch.ring_timing [--out FILE] [--label NAME]
                                          [--groups rings,s_tend,fold,micro2]
@@ -14,7 +15,12 @@ jaenschwalde's 1024x256x256 float32 with its two (thl, qt) for K13 and K12
 K19 without advection, as jaenschwalde
 runs it: once a scalar (three launches) and every scalar in one launch
 (the kernels run on the rico case at that shape: they see only the shape,
-the scheme, the advec flag and the scalar count).  The kernels whose
+the scheme, the advec flag and the scalar count).  The momentum sweep
+(``uvw_rows``): K8/K9 at rico 384^3 in float32 and float64 with advection
+on (swadvec=2) and off (2i5), and at SBL_Smag 256^3 with its Coriolis
+term; K18 at jaenschwalde's 1024x256x256 without advection, as
+jaenschwalde runs it, each with its plan, occupancy, one-chunk time and
+the SASS count of its per-level loop.  The kernels whose
 scalar tendency is the one-call s_tend of csrc/les_math.cuh at the shapes
 of their main paths: K2 and K22 at drycblles 512^3 float32, K20 at
 sullivan2011 512x512x64 (the substep without the RK fold) and K15 at
@@ -34,8 +40,8 @@ CUDA events after one warm-up launch; the stencil kernels run on seeded
 random fields.  Beside each time: the bound (each input and output once
 over 3.35 TB/s, or the operations over 67 TFLOP/s, 33.5 in float64, where
 larger), registers, spills and stack from the build log's ptxas lines and,
-where the tree's kernels report them (the k-marching K12, K13, K16, K17
-and scalar sweep, K11 and K22), shared memory a block and resident blocks
+where the tree's kernels report them (the k-marching K8/K9/K18, K12, K13,
+K16, K17 and scalar sweep, K11 and K22), shared memory a block and resident blocks
 an SM; for the k-marching kernels the chunk count, blocks in the grid and
 waves, and
 their time with one chunk (no k-split); for K11 blocks and waves, and its
@@ -68,8 +74,8 @@ from . import cases, kernels
 from .config import Ini
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# the timed groups: K16, K17, K12, K13, K10 and K19; the kernels that call
-# s_tend; K22 on its paths; K11
+# the timed groups: K16, K17, K12, K13, K10, K19, K8/K9 and K18; the
+# kernels that call s_tend; K22 on its paths; K11
 GROUPS = ("rings", "s_tend", "fold", "micro2")
 REPS = 10
 PEAK_BYTES_S = 3.35e12
@@ -79,7 +85,8 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 33.5e12}
 FLOPS = {"o4_mom": {"4": 560, "4m": 510}, "o4_scalars": {"4": 185, "4m": 140},
          "advec_mom": 400, "advec_scalars": 130, "tend_scalars": 110,
          "tend_scalar_acc": 100, "tend_rk": 700, "tend_rk_fold": 900,
-         "tendencies": 700, "tend_scalar_rk": 110, "micro2": 300}
+         "tendencies": 700, "tend_scalar_rk": 110, "micro2": 300,
+         "tend_uvw": 450, "tend_uvw_acc": 430}
 # K11 moves 13 passes over a field: qr, nr, qt, thl and ql read, four
 # tendencies read and written
 MICRO2_PASSES = 13
@@ -117,6 +124,17 @@ FUNCTIONS = {"o4_mom": "o4_mom_kernel", "o4_scalars": "o4_scalars_kernel",
 SWEEP = "scalar_sweep_kernel"
 # K11's CUDA function
 MICRO2 = "micro2_kernel"
+# the momentum sweep's CUDA function, K8/K9 (RK) and K18 (no RK)
+UVW = "tend_uvw_kernel"
+# its shapes: (label, case, shape, dtype, kernel, advec flags timed)
+UVW_SHAPES = [("rico", "rico", (384, 384, 384), torch.float32, "tend_uvw",
+               (True, False)),
+              ("rico", "rico", (384, 384, 384), torch.float64, "tend_uvw",
+               (True, False)),
+              ("SBL_Smag", "SBL_Smag", (256, 256, 256), torch.float32,
+               "tend_uvw", (True,)),
+              ("jaenschwalde", "rico", (1024, 256, 256), torch.float32,
+               "tend_uvw_acc", (False,))]
 # K11's shapes: (label, (itot, jtot, ktot), dtype)
 MICRO2_SHAPES = [("rico", (384, 384, 384), torch.float32),
                  ("rico", (384, 384, 384), torch.float64),
@@ -312,7 +330,7 @@ def sass_digests(text):
 
 
 def fold_issue(loops, shape, tile_j, clock_ghz, sms):
-    """A k-march's (K22's, K17's, K12's) issue time from the SASS of its
+    """A k-march's (K22's, K17's, K12's, K8/K9's) issue time from the SASS of its
     per-level loop, or None unless the kernel has one such loop
     (sass_loops): every warp of a (tile_j, 32) tile runs it once a level.  Every instruction of
     the loop counts as issued once a level, the branches that some warps or
@@ -446,6 +464,84 @@ def sweep_rows(m, label, shape, dtype, S, ptx, card, rnd):
             rows.append(row)
     finally:
         fz.names, fz.sviscs, fz.advec = saved
+    return rows
+
+
+def uvw_rows(label, case, shape, dtype, kernel, advecs, ptx, card,
+             loops=None, clock_ghz=None, device="cuda"):
+    """K8/K9 ("tend_uvw": s* and the carry written) or K18 ("tend_uvw_acc":
+    the carry added onto) on the generic model of case at shape, on seeded
+    random fields, once for each advec flag, the model's own Coriolis flag.
+    Where the tree's kernel is the k-march (it reports its occupancy) the
+    row takes its plan's chunks, blocks and waves, its occupancy and its
+    time with one chunk; where the SASS holds its per-level loop (loops:
+    sass_loops of the build), the loop's count and issue time
+    (fold_issue)."""
+    from .ops import kmarch
+    itot, jtot, ktot = shape
+    n = itot * jtot * ktot
+    fb = n * torch.finfo(dtype).bits // 8
+    acc = kernel == "tend_uvw_acc"
+    nbytes = (10 if acc else 13) * fb
+    t_name = "float" if dtype == torch.float32 else "double"
+    key = "%s<%s,%s>" % (UVW, t_name, "false" if acc else "true")
+    rows = []
+    with tempfile.TemporaryDirectory() as workdir:
+        m = build(case, itot, jtot, ktot, dtype, workdir, device)
+        fz, ctx = m.fused, m.ctx
+        gen = torch.Generator(device=device).manual_seed(itot + ktot)
+        full = (ctx.kcells, jtot, itot)
+
+        def rnd(scale=1.):
+            return scale * torch.randn(full, dtype=dtype, device=device,
+                                       generator=gen)
+
+        s = {nm: rnd() for nm in ("u", "v", "w")}
+        e = rnd().abs()
+        t = {nm: rnd(1e-3) for nm in s}
+        ct = fz.base.clone()
+        if acc:
+            def fn(**kw):
+                fz.tend_uvw_acc(s, t, e, **kw)
+        else:
+            def fn(**kw):
+                fz.tend_uvw(s, t, e, ct, 0.5, -5. / 9., True, **kw)
+        saved = fz.advec
+        try:
+            for advec in advecs:
+                fz.advec = advec
+                by_bytes = 1e3 * nbytes / PEAK_BYTES_S
+                by_ops = 1e3 * FLOPS[kernel] * n / PEAK_FLOPS[dtype]
+                row = {"label": label, "kernel": kernel, "shape": list(shape),
+                       "dtype": str(dtype)[6:], "advec": advec,
+                       "coriolis": bool(fz.fold_force if acc
+                                        else fz.coriolis),
+                       "ms": events_ms(fn), "bound_ms": max(by_bytes, by_ops),
+                       "bound_by": ("bytes" if by_bytes >= by_ops
+                                    else "operations"),
+                       "ops_per_point": FLOPS[kernel], "gbytes": nbytes / 1e9,
+                       "ptxas": ptx.get(key), "function": key, "card": card}
+                if kernel in kernels.INFO:
+                    pl = fz.uvw_plan(dtype, acc)
+                    kern = fz.k_uvw_acc if acc else fz.k_uvw
+                    row.update(kern.info(dtype, 0))
+                    row.update(chunks=pl.chunks,
+                               blocks=pl.tiles_i * pl.tiles_j * pl.chunks,
+                               waves=pl.waves,
+                               ms_one_chunk=events_ms(lambda: fn(chunks=1)))
+                if loops and key in loops:
+                    # the parent's tile has common.cuh's eight rows too
+                    row.update(fold_issue(
+                        loops[key], shape, getattr(kmarch, "UVW_TJ", 8),
+                        clock_ghz, sms_of(device)) or {})
+                row["bound_share"] = row["bound_ms"] / row["ms"]
+                print(json.dumps(row), flush=True)
+                rows.append(row)
+        finally:
+            fz.advec = saved
+        del m, s, t, e
+    if device == "cuda":
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -844,6 +940,7 @@ def main():
     loops = sass_loops(sass, S_TEND_FUNCTIONS["tend_rk_fold"])
     loops.update(sass_loops(sass, FUNCTIONS["o4_scalars"]))
     loops.update(sass_loops(sass, FUNCTIONS["advec_mom"]))
+    loops.update(sass_loops(sass, UVW))
     clock = max_sm_clock_ghz()
     rows = [{"kind": "sass_digests", "digests": sass_digests(sass)}]
     groups = set(args.groups.split(","))
@@ -853,6 +950,10 @@ def main():
     if "rings" in groups:
         rows += time_shape(*MOM_F64, ptx, card, loops, clock,
                            only=("advec_mom",))
+    for label, case, shape, dtype, kernel, advecs in (
+            UVW_SHAPES if "rings" in groups else ()):
+        rows += uvw_rows(label, case, shape, dtype, kernel, advecs, ptx, card,
+                         loops, clock)
     for label, case, shape, step in S_TEND_SHAPES if "s_tend" in groups else ():
         rows += s_tend_rows(label, case, shape, step, ptx, card,
                             loops=loops, clock_ghz=clock)

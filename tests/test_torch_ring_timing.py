@@ -21,7 +21,10 @@ reads from a build log and how it wires its timed calls, without a card.
   K17's at the weakscaling and moser180 shapes (``time_shape``: K17 with
   its plan, occupancy, a forced one-chunk run and the SASS count of its
   per-level loop), K12's and K13's at rico's (K12 with the same columns;
-  ``only`` times K12 alone, as for its float64 row);
+  ``only`` times K12 alone, as for its float64 row), and the momentum
+  sweep's (``uvw_rows``: K8/K9 with advection on and off, K18) with the
+  same columns, and without them where the tree's kernel reports no
+  occupancy (an earlier tree's);
 * ``sass_digests`` gives each kernel instance of a listing one digest of
   its instructions, the same for the same code at other addresses.
 """
@@ -84,7 +87,7 @@ def test_ptxas_info_reads_template_arguments_and_registers():
 
 @pytest.mark.parametrize("name", sorted(set(R.FUNCTIONS.values())
                                         | set(R.S_TEND_FUNCTIONS.values())
-                                        | {R.SWEEP, R.MICRO2}))
+                                        | {R.SWEEP, R.MICRO2, R.UVW}))
 def test_timed_functions_are_kernels_of_the_sources(name):
     assert name in _globals()
 
@@ -462,3 +465,74 @@ def test_rico_rows_run_on_the_cpu(dtype, one_call, monkeypatch):
     rows = R.time_shape("rico", "rico", shape, dtype, 4, {}, "cpu", loops,
                         1.98, device="cpu", only=("advec_mom",))
     assert [r["kernel"] for r in rows] == ["advec_mom"]
+
+
+# the momentum sweep's per-level loop around its barrier
+UVW_SASS = """
+\t\tFunction : _ZN3mhh15tend_uvw_kernelIfLb1EEEvNS_7UvwArgsIT_EE
+        /*0000*/                   S2R R0, SR_TID.X ;
+        /*0010*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0020*/                   LDGSTS.E.BYPASS.128 [R3], desc[UR4][R4.64] ;
+        /*0030*/                   LDS R2, [R3] ;
+        /*0040*/                   FFMA R2, R3, R4, R5 ;
+        /*0050*/                   STG.E desc[UR4][R2.64], R5 ;
+        /*0060*/               @P3 BRA 0x10 ;
+        /*0070*/                   EXIT ;
+"""
+
+
+@pytest.mark.parametrize("label,case,shape,dtype,kernel,advecs",
+                         R.UVW_SHAPES,
+                         ids=["%s %s %s" % (s[0], str(s[3])[6:], s[4])
+                              for s in R.UVW_SHAPES])
+def test_uvw_rows_run_on_the_cpu(label, case, shape, dtype, kernel, advecs,
+                                 one_call, monkeypatch):
+    """The momentum sweep's rows at a tiny shape of each of its cases: one
+    a timed advec flag, with the plan's chunks, blocks and waves, the
+    occupancy, a forced one-chunk run and the SASS count of the per-level
+    loop; an earlier tree's kernel (no info entry) gets none of the
+    k-march's columns."""
+    from microhh_torch import kernels
+    from microhh_torch.ops import fused as F
+    from microhh_torch.ops import kmarch
+    torch.manual_seed(3)
+    monkeypatch.setattr(kernels.Kernel, "info", lambda self, *a: INFO)
+    assert R.UVW_SHAPES[0][2] == (384, 384, 384)
+    acc = kernel == "tend_uvw_acc"
+    t = "float" if dtype == torch.float32 else "double"
+    key = "tend_uvw_kernel<%s,%s>" % (t, "false" if acc else "true")
+    found = R.sass_loops(UVW_SASS, R.UVW)
+    assert list(found) == ["tend_uvw_kernel<float,true>"]
+    loops = {key: found["tend_uvw_kernel<float,true>"]}
+    seen = []
+    name = "tend_uvw_acc" if acc else "tend_uvw"
+    real = getattr(F.FusedGeneric, name)
+
+    def call(self, *a, chunks=None):
+        seen.append((chunks, self.advec))
+        return real(self, *a, chunks=chunks)
+
+    monkeypatch.setattr(F.FusedGeneric, name, call)
+    tiny = (40, 16, 12)
+    rows = R.uvw_rows(label, case, tiny, dtype, kernel, advecs, {}, "cpu",
+                      loops, 1.98, device="cpu")
+    assert [(r["kernel"], r["advec"]) for r in rows] == [
+        (kernel, a) for a in advecs]
+    p = kmarch.plan(kernel, 40, 16, 12, 0, dtype, 396)
+    for r in rows:
+        assert r["function"] == key and r["dtype"] == str(dtype)[6:]
+        assert (r["chunks"], r["waves"]) == (p.chunks, p.waves)
+        assert r["blocks"] == 2 * 2 * p.chunks and r["blocks_per_sm"] == 3
+        assert r["ms_one_chunk"] == 1.0
+        assert r["instructions_a_point"] == 6
+        assert r["gbytes"] == pytest.approx(
+            (10 if acc else 13) * 40 * 16 * 12
+            * torch.finfo(dtype).bits / 8 / 1e9)
+    assert seen == [(c, a) for a in advecs for c in (None, 1)]
+    # an earlier tree: no occupancy, no chunk count, no forced run
+    monkeypatch.setattr(kernels, "INFO", ())
+    del seen[:]
+    rows = R.uvw_rows(label, case, tiny, dtype, kernel, advecs[:1], {},
+                      "cpu", None, 1.98, device="cpu")
+    assert "chunks" not in rows[0] and "issue_ms" not in rows[0]
+    assert seen == [(None, advecs[0])]
