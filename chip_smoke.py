@@ -68,7 +68,16 @@ Phases (any failure exits non-zero and prints no result line):
      or not, the sponge and Coriolis folds each on and off, the evisc fold
      off) with its k-split forced to 1, 2 and 3 chunks, the plan's count and
      one level a chunk, on drycblles at 512^2x32 and on the neutral Ekman
-     LES at 45^2x8 (a partial tile, no th), float64 and float32;
+     LES at 45^2x8 (a partial tile, no th), float64 and float32; K1 and K14
+     (evisc_cases) forced to 1-5 chunks, the plan's count and one level a
+     chunk, aligned and with u, v and w shifted one value past a 16-byte
+     boundary, in the model's stratified mode (an unstable and a strongly
+     stable N2, EVISC_REGIMES) and unstratified, the levels never read NaN
+     and the output an interior view whose ghost levels stay NaN: ghost mode
+     on rico at 45^2x24 and 48^2x32 (the moist N2), K14 on SBL_Smag at the
+     same grids, the ghost mode of sullivan2011's substep without the RK
+     fold at 45^2x24 and 48^2x32 and the clamped mode on drycblles at
+     45^2x8 and 64^2x32, float64 and float32;
   3c. K11 against its plain version at ring depths nsed 3, 4 and 8 (the
      rain states of phase 3 and heavy rain mirrored into the top levels
      with drops crossing nsed - 1.5 cells), on rico grids of 12, 32, 45 and
@@ -89,7 +98,10 @@ Phases (any failure exits non-zero and prints no result line):
      its plain version (the float32 tolerances of phase 3), then both timed,
      and beside K22 the three kernels it stands in for (K1, K2, K4 rhs);
   5b. and 6b. the same with build_step(fold=False) at 256^3, so that K1, K2
-     and K4 rhs stay launched on a path and held;
+     and K4 rhs stay launched on a path and held; K1 also with its k-split
+     forced to 1, 2, 3 chunks, its plan's count and one level a chunk,
+     aligned and shifted (check_evisc_forced), as in phases 8, 12, 18 and
+     20b (K14 in 12);
   7. the rico LES at 384^3 float32 (cases/rico/rico.ini with bench.py's
      swadvec=2 override) through Model(..., input_nc=), save_initial_state
      and Model.run(max_iters=12): its kernels launched, finite fields,
@@ -98,15 +110,16 @@ Phases (any failure exits non-zero and prints no result line):
   8. at the 384^3 float32 shapes of that run, each of its kernels against
      its plain version, then both timed; K8/K9 also with its k-split forced
      to 1, 2, 3 chunks, its plan's count and one level a chunk, aligned and
-     shifted (check_uvw_forced), as in phases 10, 12 and 18 (K18 there);
+     shifted (check_uvw_forced), as in phases 10, 12 and 18 (K18 there),
+     and K1 so (check_evisc_forced);
   9. and 10. the same two phases for rico as its ini is written
      (swadvec=2i5) at 384^3 float32: K12, K13 and K8-K10 without advection;
      K12 also with its k-split forced to 1, 2, 3 chunks, its plan's count
      and one level a chunk, aligned and shifted (check_mom_forced), as in
      phase 18;
  11. and 12. the same for SBL_Smag (cases/SBL_Smag/SBL.ini, thermo buoy) at
-     256^3 float32 with dt scaled with the grid: K14, K15 and K8/K9 with
-     the Coriolis term;
+     256^3 float32 with dt scaled with the grid: K14 (also forced as in
+     phase 6b), K15 and K8/K9 with the Coriolis term;
  13. and 14. the same for the weak-scaling unit (cases/weakscaling/
      weakscaling.ini, advec 4, thermo buoy) assembled for npx = npy = 8 as
      python/scaling.py does, 512x256x1024 float32: K16 and K17; its DIV is
@@ -122,14 +135,16 @@ Phases (any failure exits non-zero and prints no result line):
  17. and 18. the same for jaenschwalde as its ini is written (thermo moist,
      swadvec=2i5 with the flux limiter on co2, nine sources, open edges)
      at 1024x256x256 float32, on the substep without the RK fold: K18, K19
-     and K21 (and K12 and K18 forced as in phase 10); also qt >= 0, co2 >= -1e-6
-     of its maximum, and the co2 inventory grown at the nine sources' rate;
+     and K21 (and K12 and K18 forced as in phase 10, K1 as in 6b); also
+     qt >= 0, co2 >= -1e-6 of its maximum, and the co2 inventory grown at
+     the nine sources' rate;
  19. and 20. the same for sullivan2011 as its ini is written (thermo dry,
      geostrophic forcing) with stats off at 512^3 float32, on the RK path:
      K22 with the sponge and Coriolis folds;
  19b. and 20b. the same with build_step(unfolded=True) at 512^2x64: K20, K21
-     and K1, K7 in their ghost mode; then two steps of both forms from one
-     state, every field within 1e-3 of its maximum (float32 roundoff);
+     and K1 (also forced as in phase 6b), K7 in their ghost mode; then two
+     steps of both forms from one state, every field within 1e-3 of its
+     maximum (float32 roundoff);
  21. and 22. the same for the neutral Ekman LES (cases/andren1994/
      andren1994.ini less its passive scalar: thermo 0, no scalar) at
      768x384x288 float32 on the ini's domain, 5.2 m isotropic: K22, K7 and
@@ -139,10 +154,10 @@ hold, each once, over 3.35 TB/s, or its operations over 67 TFLOP/s (float32
 outside the tensor cores; half that for float64) where that is larger; and, where one PyTorch call
 computes the same function (the two DFTs), that call's time; beside K5
 and K6 also their form, C, F, shared memory and registers per CTA, GB/s
-and share of the bound; beside K8/K9, K12, K13, K16, K17 and K18 their registers, local
-bytes a thread, shared memory a block, resident blocks an SM (as the card reports
-them), chunk count, blocks and waves at the path's shape, and the same
-beside the scalar sweep K10/K19 and K22.
+and share of the bound; beside K1/K14, K8/K9, K12, K13, K16, K17 and K18
+their registers, local bytes a thread, shared memory a block, resident
+blocks an SM (as the card reports them), chunk count, blocks and waves at
+the path's shape, and the same beside the scalar sweep K10/K19 and K22.
 With --profile FILE, a last phase traces two steps of each LES with
 torch.profiler and prints the device time per kernel, the step's device
 idle share (one minus the device time over the wall time of the same
@@ -1353,6 +1368,130 @@ def check_uvw_forced(torch, m):
     return worst
 
 
+# the stability regimes evisc_cases takes: N2 / tPr against each level's
+# mean strain rate squared, times 0.7 to 1.3 (a column's factor, or a
+# point's for an N2 field): unstable (-1, the N2 term a third to a half of
+# the viscosity's radicand) and strongly stable (+30, far past every
+# point's strain rate, so that the floor strain2 * dsmall is taken).  A
+# radicand near zero, where the two branches meet, would amplify the
+# rounding of the strain rate without bound in either version.
+EVISC_REGIMES = {"unstable": -1., "stable": 30.}
+
+
+def evisc_cases(torch, m, seed, chunk_counts, forms=None):
+    """(name, kernel call, plain call, error kind) for the eddy viscosity on
+    a model's wrappers at each forced chunk count (None: the plan's): K1
+    (Fused.evisc) in the model's mode (ghost-filled or clamped) and K14
+    (FusedGeneric.evisc_n2) where the model's N2 is a field, aligned and
+    with u, v and w one value past a 16-byte boundary (single-value copies
+    only), in each (stratified mode, regime) of forms (default: the
+    model's own mode in both EVISC_REGIMES, and 0).  Seeded u, v, w; th
+    around 300 K whose vertical steps give each regime's N2, or the N2
+    field itself; the fields' levels the kernel never reads (u, v and th
+    outside [lo, hic], w outside [ks, ke]) are NaN, and the output goes
+    into the interior of a kcells tensor of NaN whose ghost levels must
+    stay NaN.  The kernel call fails on a non-finite output."""
+    from microhh_torch.ops import fused as F
+    ctx, fz = m.ctx, m.fused
+    ks, ke = ctx.ks, ctx.ke
+    ghosts = bool(fz.ghosts)
+    lo, hic = (ks - 1, ke) if ghosts else (ks, ke - 1)
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    shape = (ctx.kcells, ctx.jtot, ctx.itot)
+    interior = (ctx.ktot, ctx.jtot, ctx.itot)
+    nan = float("nan")
+
+    def rnd(*sh, scale=1.):
+        return (scale * torch.randn(*(sh or shape), generator=gen,
+                                    dtype=torch.float64)).to(ctx.dtype).to(ctx.device)
+
+    def factor(*sh):
+        return 1. + 0.3 * (2. * torch.rand(*sh, generator=gen,
+                                           dtype=torch.float64) - 1.)
+
+    u, v, w = rnd(), rnd(), rnd(scale=0.3)
+    grid_args = (ks, ctx.dxi, ctx.dyi, fz.tPr)
+    # each level's mean strain rate squared, and the step of th a level
+    # that gives N2 / tPr as large (held for the ghost levels)
+    e0 = F.evisc_plain(u, v, w, None, fz.ce, *grid_args, False, ghosts)
+    ce = fz.ce.double().cpu()
+    s2 = ((e0.double().cpu() / ce[:, F.E_MLEN2][:, None, None]) ** 2).mean(
+        dim=(1, 2))
+    step = s2 * fz.tPr * ce[:, F.E_THREF].abs() / (9.81 * ce[:, F.E_DZI])
+    levels = (torch.arange(ctx.kcells) - ks).clamp(0, ctx.ktot - 1)
+    rise = torch.cumsum(step[levels], 0)[:, None, None] * factor(
+        1, ctx.jtot, ctx.itot)
+    col = factor(*interior) * (s2 * fz.tPr)[:, None, None]
+
+    def dev(x):
+        return x.to(ctx.dtype).to(ctx.device)
+
+    ths = {r: dev(300. + c * rise) for r, c in EVISC_REGIMES.items()}
+    n2s = {r: dev(c * col) for r, c in EVISC_REGIMES.items()}
+    for x, a, b in [(u, lo, hic), (v, lo, hic), (w, ks, ke)] + [
+            (th, lo, hic) for th in ths.values()]:
+        x[:a] = nan
+        x[b + 1:] = nan
+    layouts = {"aligned": (u, v, w),
+               "shifted": tuple(shifted(torch, x) for x in (u, v, w))}
+    own = fz.stratified
+
+    def run(kernel, uvw, st, regime, chunks):
+        th, n2 = ths.get(regime, u), n2s.get(regime)
+        if not kernel:
+            return [F.evisc_plain(*uvw, th, fz.ce, *grid_args, bool(st),
+                                  ghosts, n2 if st == 2 else None)]
+        buf = torch.full(shape, nan, dtype=ctx.dtype, device=ctx.device)
+        with attrs(fz, stratified=st):
+            if st == 2:
+                fz.evisc_n2(*uvw, n2, out=buf[ks:ke], chunks=chunks)
+            else:
+                fz.evisc(*uvw, th, out=buf[ks:ke], chunks=chunks)
+        name = "K14" if st == 2 else "K1"
+        if not (bool(torch.isnan(buf[:ks]).all())
+                and bool(torch.isnan(buf[ke:]).all())):
+            raise AssertionError("%s wrote outside its output" % name)
+        if not bool(torch.isfinite(buf[ks:ke]).all()):
+            raise AssertionError("%s wrote a non-finite value" % name)
+        return [buf[ks:ke]]
+
+    if forms is None:
+        forms = [(own, r) for r in EVISC_REGIMES if own] + [(0, None)]
+    cases = []
+    for chunks in chunk_counts:
+        for uvw in layouts.values():
+            for st, regime in forms:
+                args = (uvw, st, regime, chunks)
+                cases.append(("evisc_n2" if st == 2 else "evisc",
+                              lambda a=args: run(True, *a),
+                              lambda a=args: run(False, *a), "field"))
+    return cases
+
+
+def evisc_chunks(m, dtype):
+    """The k-splits the runs' phases force on K1/K14: 1, 2 and 3 chunks,
+    the plan's count and one level a chunk."""
+    fz, k = m.fused, m.ctx.ktot
+    return sorted({c for c in (1, 2, 3) if c <= k}
+                  | {fz.evisc_plan(dtype, fz.stratified).chunks, k})
+
+
+def check_evisc_forced(torch, m):
+    """K1 (K14 where the model's N2 is a field) at a run's shapes in the
+    path's own mode (in both EVISC_REGIMES where it is stratified) with its
+    k-split forced (evisc_chunks), aligned and shifted by one value;
+    returns the largest absolute difference."""
+    st = m.fused.stratified
+    worst = 0.
+    for name, kern, plain, kind in evisc_cases(
+            torch, m, m.ctx.itot + 3, evisc_chunks(m, m.dtype),
+            [(st, r) for r in EVISC_REGIMES] if st else [(0, None)]):
+        worst = max(worst, compare(torch, name, kern, plain, kind, m.dtype,
+                                   "%s forced" % shape_str(m)))
+        torch.cuda.empty_cache()
+    return worst
+
+
 def sweep_cases(torch, m, seed, chunks):
     """(name, kernel call, plain call, error kind) for the scalar sweep, K10
     (with the RK fold, the carry written) and K19 (without), its k-split
@@ -1442,7 +1581,8 @@ def check_kmarch(torch):
     the momentum sweep K8/K9 and K18 (uvw_cases, also at both plans'
     counts) aligned and shifted; K22 in
     every form of kernel_cases (fold_chunks) on drycblles at 512^2x32 and
-    on the neutral Ekman LES at 45^2x8 (a partial tile, null th)."""
+    on the neutral Ekman LES at 45^2x8 (a partial tile, null th); K1/K14
+    (check_evisc_kmarch)."""
     for label, build, n, k in (("drycblles", build_model, 512, 32),
                                ("andren1994", build_andren, (45, 45), 8)):
         for dtype in (torch.float64, torch.float32):
@@ -1506,6 +1646,33 @@ def check_kmarch(torch):
                     compare(torch, name, kern, plain, kind, dtype,
                             "rico %dx%dx%d chunks %s"
                             % (n[0], n[1], k, counts))
+    check_evisc_kmarch(torch)
+
+
+def check_evisc_kmarch(torch):
+    """K1/K14 (evisc_cases) against their plain versions with the k-split
+    forced (forced_chunks and the plan's count): ghost mode on rico (the
+    moist N2) and on SBL_Smag (K14), the ghost mode of sullivan2011's
+    substep without the RK fold (the dry N2) and the clamped mode on
+    drycblles, each also unstratified, on the grids of phase 3, float64 and
+    float32."""
+    for label, build, sizes, step_kw in (
+            ("rico", build_rico, ((45, 24), (48, 32)), {}),
+            ("SBL_Smag", build_sbl, ((45, 24), (48, 32)), {}),
+            ("sullivan2011", build_sullivan, (((45, 45), 24),
+                                              ((48, 48), 32)),
+             {"unfolded": True}),
+            ("drycblles", build_model, ((45, 8), (64, 32)), {})):
+        for n, k in sizes:
+            for dtype in (torch.float64, torch.float32):
+                m = build(torch, n, k, dtype, "cuda")
+                m.build_step(**step_kw)
+                counts = sorted(set(forced_chunks(k))
+                                | set(evisc_chunks(m, dtype)))
+                for name, kern, plain, kind in evisc_cases(
+                        torch, m, k + 5, counts):
+                    compare(torch, name, kern, plain, kind, dtype,
+                            "%s %s chunks %s" % (label, shape_str(m), counts))
 
 
 def compare(torch, name, kern, plain, kind, dtype, where):
@@ -1858,7 +2025,10 @@ def time_kernels(torch, m, s):
         "evisc": pair(lambda: fz.evisc(*uvwa),
                       lambda: F.evisc_plain(*uvwa, fz.ce, *grid_args, fz.tPr,
                                             fz.has_thermo),
-                      (nf + 1) * fb, FLOPS_PER_POINT["evisc"] * n),
+                      (nf + 1) * fb, FLOPS_PER_POINT["evisc"] * n,
+                      info=kmarch_info(fz.k_evisc, m.dtype, fz.stratified, 0,
+                                       fz.evisc_plan(m.dtype,
+                                                     fz.stratified))),
         "tend_rk": pair(lambda: fz.tend_rk(s, t, e, 0.5, -5. / 9., False, True),
                         lambda: F.tend_rk_plain(s, e, t, fz.ct, *grid_args,
                                                 *rk, False, True,
@@ -2103,7 +2273,9 @@ def time_generic_kernels(torch, m, s):
         pairs["evisc_n2"] = pair(
             lambda: fz.evisc_n2(*uvw, n2),
             lambda: F.evisc_plain(*uvw, None, fz.ce, *args, True, True, n2),
-            5 * fb, FLOPS_PER_POINT["evisc_n2"] * n)
+            5 * fb, FLOPS_PER_POINT["evisc_n2"] * n,
+            info=kmarch_info(fz.k_evisc, m.dtype, 2, 0,
+                             fz.evisc_plan(m.dtype, 2)))
         lim = uvw + [n2]
         lim_plain = uvw + [None, fz.ce, *args, True, True, n2]
     else:
@@ -2111,7 +2283,9 @@ def time_generic_kernels(torch, m, s):
         pairs["evisc"] = pair(
             lambda: fz.evisc(*uvwa),
             lambda: F.evisc_plain(*uvwa, fz.ce, *args, True, True),
-            5 * fb, FLOPS_PER_POINT["evisc"] * n)
+            5 * fb, FLOPS_PER_POINT["evisc"] * n,
+            info=kmarch_info(fz.k_evisc, m.dtype, 1, 0,
+                             fz.evisc_plan(m.dtype, 1)))
         lim = uvwa
         lim_plain = uvwa + [fz.ce, *args, True, True]
     if isinstance(mic, Microphys2momWarm):
@@ -2542,10 +2716,13 @@ def main():
                 "timed" % (phase[1], where))
             if m.unfolded:
                 errs = check_kernels_full(torch, m, generic_kernel_cases)
-                times = time_generic_kernels(torch, m, s)
             else:
                 errs = check_kernels_full(torch, m, kernel_cases)
-                times = time_kernels(torch, m, s)
+            if m.fused.k_evisc in m.kernels():
+                errs["evisc"] = max(errs["evisc"],
+                                    check_evisc_forced(torch, m))
+            times = (time_generic_kernels if m.unfolded else time_kernels)(
+                torch, m, s)
             if first:
                 res["kernel_build_s"] = build_s
             record(m, s, key, key, label, res, errs, times, where)
@@ -2578,6 +2755,9 @@ def main():
                                         check_mom_forced(torch, m))
             errs["tend_uvw"] = max(errs["tend_uvw"],
                                    check_uvw_forced(torch, m))
+            if key != "rico2i5_384":
+                ev = "evisc_n2" if m.fused.stratified == 2 else "evisc"
+                errs[ev] = max(errs[ev], check_evisc_forced(torch, m))
             times = time_generic_kernels(torch, m, s)
             record(m, s, key, key + "_f32", label, res, errs, times,
                    "%s %d^3 float32" % (label, n))
@@ -2619,6 +2799,7 @@ def main():
         errs["advec_mom"] = max(errs["advec_mom"], check_mom_forced(torch, m))
         errs["tend_uvw_acc"] = max(errs["tend_uvw_acc"],
                                    check_uvw_forced(torch, m))
+        errs["evisc"] = max(errs["evisc"], check_evisc_forced(torch, m))
         times = time_generic_kernels(torch, m, s)
         record(m, s, key, key, label, res, errs, times, where)
         del m, s

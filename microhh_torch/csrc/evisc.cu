@@ -17,9 +17,10 @@
 // interior (ktot, jtot, itot) field that the thermodynamics computed
 // (thermo buoy's background N2, thermo dry on the generic path) instead of
 // taken from a scalar's gradient: stratified = 2, the th argument is then
-// that field, read at the point with no ring.  Replaces FusedLES2.evisc_n2 /
+// that field, read at the point.  Replaces FusedLES2.evisc_n2 /
 // _evisc_n2_body (pallas_fused.py:1480, pallas_call :1496); it runs on
-// ghost-filled fields.  Its entry is mhh_evisc_n2.
+// ghost-filled fields.  Its entry is mhh_evisc_n2; K1 and K14 are one
+// body, evisc_kernel<T, ST> with ST the stratified mode.
 //
 // K7: the adaptive-dt limits pass, the per-level maxima of the CFL rate
 // (advec_2.cxx:50-78 pointwise expression) and of the same eddy viscosity,
@@ -30,15 +31,42 @@
 //
 // Bound: device-memory bytes.  Per output point K1 does ~100 flops on 4
 // field reads and 1 write (~20 B in f32), far below the H100's ~20 flop/B
-// balance.  Design: the k-marching tile with a shared-memory ring
-// (common.cuh) reads each field once (plus a 1/3 halo) and writes the
-// output once; the per-level coefficients come from a small table that
-// every thread of a block reads at the same address.  K7 reduces each
+// balance.
+//
+// K1/K14's design (the k-march of kmarch.cuh, as K8/K9's in
+// tend_generic.cu).  A block of EV_TJ warps owns an (EV_TJ, 32) tile and
+// marches one chunk [k0, k1) of the levels (chunk_bounds; ops/kmarch.py
+// picks the count from the resident blocks, so that the grid fills the
+// card in whole waves).
+// * Group p is plane p of u, v and w side by side in one ring slot
+//   (Slot<EV_TJ, 1>: the strain rate reaches one cell across the plane),
+//   copied by cp.async (16 bytes where the tile lies inside the plane) at
+//   PlaneLoader's offsets, shared by the three fields; in clamped mode w's
+//   plane index is clamped to [ks, ke] and u's and v's to [ks, ke-1].  The
+//   table row of level p is staged beside it and one thread divides its
+//   grav/thref quotient once a level (QRow, EQ_GTHREF).  Five slots: groups
+//   k-1, k, k+1 read, k+2 landing, k+3 being filled; one commit group and
+//   one barrier a level.  A chunk issues group k0-1 first and plane k1 last.
+// * A thread keeps its own column of u, v, w (k-1 .. k+1) in registers (KV
+//   views of the slots); th is never a ring plane: with ST 1 the thread
+//   loads th at its own point a level ahead and keeps th(k-1 .. k+1) in
+//   registers, with ST 2 it loads N2(k) at its point a level ahead, with ST
+//   0 it reads no th.
+// * The point function is les_math.cuh's evisc_math, as K22 and K7 call it.
+// * Everything is periodic, so a partial tile computes its virtual points
+//   (their offsets wrapped) like any other and only guards its stores; the
+//   output goes from registers to out, a warp's 32 values in a row, so out
+//   may be an interior view of a kcells tensor.
+// K7 keeps the ring of common.cuh: each field a ring of three haloed
+// planes loaded by load_tile, two barriers a level.  K7 reduces each
 // level's tile to one maximum per block (warp shuffles, then one slot per
 // warp) and writes it to a (2, ktot, blocks) partial array; a second small
 // kernel takes the maximum over the blocks, so the result does not depend
 // on the order in which blocks finish.
+#include "kmarch.cuh"
 #include "les_math.cuh"
+
+#include <type_traits>
 
 namespace mhh {
 
@@ -96,39 +124,6 @@ __device__ __forceinline__ T cfl_point(const Ring<T>& sh, int k,
 #undef U
 #undef V
 #undef W
-
-template <typename T>
-__global__ void __launch_bounds__(TI * TJ)
-evisc_kernel(const T* __restrict__ u, const T* __restrict__ v,
-             const T* __restrict__ w, const T* __restrict__ th,
-             T* __restrict__ out, const T* __restrict__ ce,
-             int itot, int jtot, int ktot, int ks,
-             T dxi, T dyi, T tPr, int stratified, int ghosts) {
-    __shared__ Ring<T> sh;
-    const int i0 = blockIdx.x * TI, j0 = blockIdx.y * TJ;
-    const int i = i0 + threadIdx.x, j = j0 + threadIdx.y;
-    const bool inside = i < itot && j < jtot;
-    const int ke = ks + ktot;
-    const int lo = ghosts ? ks - 1 : ks, hic = ghosts ? ke : ke - 1;
-    const long long plane = (long long)itot * jtot;
-
-    // stratified = 2: th is the interior N2 field, read at the point
-    const T* ring_th = stratified == 2 ? nullptr : th;
-
-    load_ring(sh, u, v, w, ring_th, -1, ks, ke, lo, hic, j0, i0, jtot, itot);
-    load_ring(sh, u, v, w, ring_th, 0, ks, ke, lo, hic, j0, i0, jtot, itot);
-    for (int k = 0; k < ktot; ++k) {
-        load_ring(sh, u, v, w, ring_th, k + 1, ks, ke, lo, hic, j0, i0, jtot,
-                  itot);
-        __syncthreads();
-        if (inside) {
-            const long long o = (long long)k * plane + (long long)j * itot + i;
-            const T n2 = stratified == 2 ? __ldg(th + o) : T(0);
-            out[o] = evisc_point(sh, k, ce, dxi, dyi, tPr, stratified, n2);
-        }
-        __syncthreads();
-    }
-}
 
 // max that keeps a NaN, as jnp.max does
 template <typename T>
@@ -216,17 +211,220 @@ limits_reduce(const T* __restrict__ part, T* __restrict__ out, long long nblk) {
     }
 }
 
+// ---- K1/K14: the k-march ----
+
+constexpr int EV_TJ = 8;                 // tile rows (32 x EV_TJ threads)
+constexpr int EV_NT = km::TI * EV_TJ;
+constexpr int EV_HALO = 1;               // the strain rate's reach
+constexpr int EV_NF = 3;                 // fields a group: u, v, w
+constexpr int EV_R = 5;                  // group slots: k-1 .. k+3
+constexpr int EV_NCP = 8;                // values a staged row
+static_assert(NEQ <= EV_NCP, "the staged row holds ce and its quotient");
+
+// everything a launch takes but its template argument
+template <typename T>
+struct EviscArgs {
+    const T *u, *v, *w;
+    const T* th;        // the scalar (ST 1), the interior N2 (ST 2), unread
+    T* out;             // (ktot, jtot, itot)
+    const T* ce;        // (ktot, NE)
+    int itot, jtot, ktot, ks;
+    T dxi, dyi, tPr;
+    int ghosts, chunks, vec_ok;
+};
+
+// dynamic shared memory of one launch (ops/kmarch.py repeats it): EV_R
+// groups of u's, v's and w's planes and a staged table row a group
+template <typename T>
+constexpr size_t evisc_smem() {
+    return ((size_t)EV_R * EV_NF * km::Slot<EV_TJ, EV_HALO>::SIZE
+            + (size_t)EV_R * EV_NCP) * sizeof(T);
+}
+
+extern __shared__ __align__(16) unsigned char evisc_smem_buf[];
+
+// five blocks an SM in float32 (at most 51 registers: 0.567 against 0.601
+// ms with four at rico 384^3, 1.305 against 1.412 clamped at drycblles
+// 512^3 on an H100 at 700 W; six, at 40 registers and 8 B of spill, ran
+// 5% slower than four), three in float64
+template <typename T, int ST>
+__global__ void __launch_bounds__(EV_NT, sizeof(T) == 4 ? 5 : 3)
+evisc_kernel(const EviscArgs<T> a) {
+    using Sl = km::Slot<EV_TJ, EV_HALO>;
+    constexpr int SZ = Sl::SIZE, PL = EV_NF * SZ;
+    T* const ring = reinterpret_cast<T*>(evisc_smem_buf);   // [R][NF][SZ]
+    T* const rows = ring + EV_R * PL;                        // [R][NCP]
+    const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * km::TI + tx;
+    const int i0 = blockIdx.x * km::TI, j0 = blockIdx.y * EV_TJ;
+    const bool inside = i0 + tx < a.itot && j0 + ty < a.jtot;
+    int k0, k1;
+    km::chunk_bounds(blockIdx.z, a.chunks, a.ktot, k0, k1);
+    const long long plane = (long long)a.itot * a.jtot;
+    const km::PlaneLoader<T, EV_TJ, EV_NT, EV_HALO> ld(
+        tid, i0, j0, a.itot, a.jtot, a.vec_ok && i0 + km::TI <= a.itot);
+    // the point, wrapped where the tile passes the plane's edge (only its
+    // store is guarded), in the plane and in a slot
+    const long long o2 =
+        (long long)wrap(j0 + ty, a.jtot) * a.itot + wrap(i0 + tx, a.itot);
+    const int me = (ty + EV_HALO) * km::RS + tx + km::C0;
+    // the level of plane p: u's, v's and th's clamped to [lo, hic], w's to
+    // [lo, ke] (lo = ks, hic = ke-1 in clamped mode; lo = ks-1, hic = ke,
+    // the ghost planes as they are, in ghost mode)
+    const int ke = a.ks + a.ktot;
+    const int lo = a.ghosts ? a.ks - 1 : a.ks, hic = a.ghosts ? ke : ke - 1;
+    auto level = [&](int p) {
+        return (long long)clampi(a.ks + p, lo, hic) * plane;
+    };
+    auto level_w = [&](int p) {
+        return (long long)clampi(a.ks + p, lo, ke) * plane;
+    };
+    auto next = [](int s) { return s == EV_R - 1 ? 0 : s + 1; };
+
+    // group p into slot s: plane p of u, v and w (the loader's offsets
+    // shared by the three) and, for a level of the chunk, table row p; none
+    // past plane k1 (an empty group keeps the count)
+    auto issue = [&](int p, int s) {
+        if (p <= k1) {
+            const long long lc = level(p), lw = level_w(p);
+            T* const sl = ring + s * PL;
+#pragma unroll
+            for (int n = 0; n < ld.NOP; ++n) {
+                if (ld.src[n] < 0) continue;
+                T* const d = sl + (ld.dst[n] & (km::VEC - 1));
+                const long long g = lc + ld.src[n], gw = lw + ld.src[n];
+                if (ld.dst[n] & km::VEC) {
+                    km::cp_async<16>(d, a.u + g);
+                    km::cp_async<16>(d + SZ, a.v + g);
+                    km::cp_async<16>(d + 2 * SZ, a.w + gw);
+                } else {
+                    km::cp_async<sizeof(T)>(d, a.u + g);
+                    km::cp_async<sizeof(T)>(d + SZ, a.v + g);
+                    km::cp_async<sizeof(T)>(d + 2 * SZ, a.w + gw);
+                }
+            }
+            if (p >= k0 && p < k1 && tid < NE)
+                km::cp_async<sizeof(T)>(rows + s * EV_NCP + tid,
+                                        a.ce + (long long)p * NE + tid);
+        }
+        km::commit();
+    };
+    // the quotient of the staged row in slot s (QRow's EQ_GTHREF), divided
+    // as evisc_math would divide it, by one thread
+    auto derive = [&](int s) {
+        if (ST == 1 && tid == 0) {
+            T* const r = rows + s * EV_NCP;
+            r[EQ_GTHREF] = T(9.81) / r[E_THREF];
+        }
+    };
+    // th at the thread's own point of plane p (ST 1), N2 at level k (ST 2)
+    auto th_at = [&](int p) { return __ldg(a.th + level(p) + o2); };
+    auto n2_at = [&](int k) {
+        return __ldg(a.th + (long long)k * plane + o2);
+    };
+
+    // group p lives in slot (p - k0 + 1) mod EV_R
+    issue(k0 - 1, 0);
+    issue(k0, 1);
+    issue(k0 + 1, 2);
+    issue(k0 + 2, 3);
+    T a0 = T(0), a1 = T(0), a2 = T(0), n2 = T(0);
+    if (ST == 1) {
+        a0 = th_at(k0 - 1);
+        a1 = th_at(k0);
+        a2 = th_at(k0 + 1);
+    }
+    if (ST == 2) n2 = n2_at(k0);
+    km::wait_pending<2>();      // groups k0-1 and k0 have landed
+    __syncthreads();
+    derive(1);
+    // the register columns at k0-1 and k0 (w's plane k-1 is never read)
+    T u0 = ring[me], v0 = ring[me + SZ];
+    T u1 = ring[PL + me], v1 = ring[PL + me + SZ], w1 = ring[PL + me + 2 * SZ];
+    const Slots q{0, 1, 2};
+    int sm = 0;                 // the slot of group k-1
+    for (int k = k0; k < k1; ++k) {
+        km::wait_pending<1>();  // group k+1 has landed
+        __syncthreads();
+        const int sc = next(sm), sp = next(sc);
+        // group k+3 goes where group k-2 lay, which nothing reads any more
+        issue(k + 3, sm == 0 ? EV_R - 1 : sm - 1);
+        // the quotient of row k+1, which landed with its group
+        if (k + 1 < k1) derive(sp);
+        // th and N2 of the next level, on their way during this one
+        T an = T(0), n2n = T(0);
+        if (ST == 1) an = th_at(min(k + 2, k1));
+        if (ST == 2) n2n = n2_at(min(k + 1, k1 - 1));
+
+        const T* const pm = ring + sm * PL + me;
+        const T* const pc = ring + sc * PL + me;
+        const T* const pp = ring + sp * PL + me;
+        const T u2 = pp[0], v2 = pp[SZ], w2 = pp[2 * SZ];
+        const KV<T, km::RS> U{pm, pc, pp, u0, u1, u2};
+        const KV<T, km::RS> V{pm + SZ, pc + SZ, pp + SZ, v0, v1, v2};
+        const KV<T, km::RS> W{pm + 2 * SZ, pc + 2 * SZ, pp + 2 * SZ, w1, w1,
+                              w2};
+        // th: its own column only
+        const KV<T, km::RS> A{nullptr, nullptr, nullptr, a0, a1, a2};
+        const T ev = evisc_math<QRow<T>>(U, V, W, A, q,
+                                         QRow<T>{rows + sc * EV_NCP}, a.dxi,
+                                         a.dyi, a.tPr, ST, n2);
+        if (inside) a.out[(long long)k * plane + o2] = ev;
+        u0 = u1; u1 = u2;
+        v0 = v1; v1 = v2;
+        w1 = w2;
+        a0 = a1; a1 = a2; a2 = an;
+        n2 = n2n;
+        sm = sc;
+    }
+    // no copy may land after the block has left its shared memory
+    km::wait_all();
+}
+
+// f(integral_constant ST) for the stratified mode ST
+template <typename F>
+int evisc_form(int stratified, F f) {
+    using std::integral_constant;
+    switch (stratified) {
+    case 0: return f(integral_constant<int, 0>());
+    case 1: return f(integral_constant<int, 1>());
+    case 2: return f(integral_constant<int, 2>());
+    }
+    return (int)cudaErrorInvalidValue;
+}
+
 template <typename T>
 int launch_evisc(const T* u, const T* v, const T* w, const T* th, T* out,
                  const T* ce, int itot, int jtot, int ktot, int ks, double dxi,
                  double dyi, double tPr, int stratified, int ghosts,
-                 cudaStream_t stream) {
-    const dim3 block(TI, TJ);
-    const dim3 grid((itot + TI - 1) / TI, (jtot + TJ - 1) / TJ);
-    evisc_kernel<T><<<grid, block, 0, stream>>>(
-        u, v, w, th, out, ce, itot, jtot, ktot, ks, T(dxi), T(dyi), T(tPr),
-        stratified, ghosts);
-    return (int)cudaGetLastError();
+                 int chunks, cudaStream_t stream) {
+    if (chunks < 1 || chunks > ktot) return (int)cudaErrorInvalidValue;
+    EviscArgs<T> a;
+    a.u = u; a.v = v; a.w = w; a.th = th; a.out = out; a.ce = ce;
+    a.itot = itot; a.jtot = jtot; a.ktot = ktot; a.ks = ks;
+    a.dxi = T(dxi); a.dyi = T(dyi); a.tPr = T(tPr);
+    a.ghosts = ghosts; a.chunks = chunks;
+    a.vec_ok = itot % (16 / (int)sizeof(T)) == 0 && km::aligned16(u)
+               && km::aligned16(v) && km::aligned16(w);
+    return evisc_form(stratified, [&](auto st) {
+        auto kernel = evisc_kernel<T, decltype(st)::value>;
+        const size_t smem = evisc_smem<T>();
+        int rc = (int)cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (rc) return rc;
+        const dim3 block(km::TI, EV_TJ);
+        const dim3 grid((itot + km::TI - 1) / km::TI,
+                        (jtot + EV_TJ - 1) / EV_TJ, chunks);
+        kernel<<<grid, block, smem, stream>>>(a);
+        return (int)cudaGetLastError();
+    });
+}
+
+template <typename T>
+int evisc_info(int stratified, int* out) {
+    return evisc_form(stratified, [&](auto st) {
+        return km::kernel_info(evisc_kernel<T, decltype(st)::value>, EV_NT,
+                               evisc_smem<T>(), out);
+    });
 }
 
 // part: (2, ktot, tiles) scratch, tiles = ceil(itot/TI) * ceil(jtot/TJ);
@@ -254,20 +452,24 @@ int launch_limits(const T* u, const T* v, const T* w, const T* th, T* part,
         const void* u, const void* v, const void* w, const void* th,          \
         void* out, const void* ce, int itot, int jtot, int ktot, int ks,      \
         double dxi, double dyi, double tPr, int stratified, int ghosts,       \
-        void* stream) {                                                       \
+        int chunks, void* stream) {                                           \
         return mhh::launch_evisc<T>((const T*)u, (const T*)v, (const T*)w,    \
                                     (const T*)th, (T*)out, (const T*)ce,      \
                                     itot, jtot, ktot, ks, dxi, dyi, tPr,      \
-                                    stratified, ghosts, (cudaStream_t)stream);\
+                                    stratified, ghosts, chunks,               \
+                                    (cudaStream_t)stream);                    \
     }                                                                         \
     extern "C" int mhh_evisc_n2_##SUF(                                        \
         const void* u, const void* v, const void* w, const void* n2,          \
         void* out, const void* ce, int itot, int jtot, int ktot, int ks,      \
-        double dxi, double dyi, double tPr, void* stream) {                   \
+        double dxi, double dyi, double tPr, int chunks, void* stream) {       \
         return mhh::launch_evisc<T>((const T*)u, (const T*)v, (const T*)w,    \
                                     (const T*)n2, (T*)out, (const T*)ce,      \
                                     itot, jtot, ktot, ks, dxi, dyi, tPr, 2,   \
-                                    1, (cudaStream_t)stream);                 \
+                                    1, chunks, (cudaStream_t)stream);         \
+    }                                                                         \
+    extern "C" int mhh_evisc_info_##SUF(int scheme, int S, int* out) {        \
+        return mhh::evisc_info<T>(scheme, out);                               \
     }                                                                         \
     extern "C" int mhh_limits_##SUF(                                          \
         const void* u, const void* v, const void* w, const void* th,          \

@@ -89,9 +89,9 @@ __device__ __forceinline__ View<T> view(const T (*ring)[HJ][HI]) {
     return View<T>{ring, (int)threadIdx.y + 1, (int)threadIdx.x + 1};
 }
 
-// a field seen from a point of a k-march's tile (K22, K8/K9/K18): P0, P1,
-// P2 point at it in the planes k-1, k, k+1 (rows W apart) and c0, c1, c2
-// are its own column
+// a field seen from a point of a k-march's tile (K22, K8/K9/K18, K1/K14):
+// P0, P1, P2 point at it in the planes k-1, k, k+1 (rows W apart) and c0,
+// c1, c2 are its own column
 template <typename T, int W>
 struct KV {
     const T *P0, *P1, *P2;

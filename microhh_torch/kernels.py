@@ -37,8 +37,8 @@ _PP, _PD = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_double)
 # C signatures without the trailing stream argument (csrc/*.cu).
 SIGNATURES = {
     # u, v, w, th, out, ce; itot, jtot, ktot, ks; dxi, dyi, tPr; stratified,
-    # ghosts
-    "evisc": [_P] * 6 + [_I] * 4 + [_D] * 3 + [_I] * 2,
+    # ghosts, chunks (ops/kmarch.py)
+    "evisc": [_P] * 6 + [_I] * 4 + [_D] * 3 + [_I] * 3,
     # u, v, w, th, e, us, vs, ws, ths, tu, tv, tw, tth, ct; itot, jtot, ktot,
     # ks; dxi, dyi, visc, svisc, tPr, cbdt, can, fc, utrans, vtrans; first,
     # carry, coriolis.  th, ths, tth null: no thermo
@@ -80,8 +80,9 @@ SIGNATURES = {
     # u, v, w, e, a, a*, carry, ct; itot, jtot, ktot, ks; dxi, dyi, svisc,
     # tPr, cbdt, can; carry, fold, advec
     "tend_scalar_rk": [_P] * 8 + [_I] * 4 + [_D] * 6 + [_I] * 3,
-    # u, v, w, n2 (interior), out, ce; itot, jtot, ktot, ks; dxi, dyi, tPr
-    "evisc_n2": [_P] * 6 + [_I] * 4 + [_D] * 3,
+    # u, v, w, n2 (interior), out, ce; itot, jtot, ktot, ks; dxi, dyi, tPr;
+    # chunks (ops/kmarch.py)
+    "evisc_n2": [_P] * 6 + [_I] * 4 + [_D] * 3 + [_I],
     # u, v, w, tu, tv, tw, cc; itot, jtot, ktot, ks, scheme; dxi, dyi;
     # chunks (ops/kmarch.py)
     "advec_mom": [_P] * 7 + [_I] * 5 + [_D] * 2 + [_I],
@@ -119,13 +120,14 @@ SIGNATURES = {
 }
 
 # Kernels with an entry mhh_<kernel>_info_<f32|f64>(scheme, S, int out[5])
-# (the scalar sweep's "scheme" is its advec flag, K22's its thermo flag; K11,
-# K8/K9 and K18 read neither, K12 and K16 not S): registers, local bytes a
-# thread, dynamic shared memory a block, resident blocks an SM
-# (cudaOccupancyMaxActiveBlocksPerMultiprocessor), SMs.
+# (the scalar sweep's "scheme" is its advec flag, K22's its thermo flag,
+# K1/K14's its stratified mode; K11, K8/K9 and K18 read neither, K12, K16 and
+# K1/K14 not S): registers, local bytes a thread, dynamic shared memory a
+# block, resident blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+# SMs.
 INFO = ("advec_mom", "advec_scalars", "o4_mom", "o4_scalars",
         "tend_scalars", "tend_scalar_acc", "micro2", "tend_rk_fold",
-        "tend_uvw", "tend_uvw_acc")
+        "tend_uvw", "tend_uvw_acc", "evisc")
 INFO_KEYS = ("registers", "local_bytes", "smem", "blocks_per_sm", "sms")
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}

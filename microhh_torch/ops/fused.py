@@ -9,7 +9,8 @@ this module, which is also what the card's kernel is held against.  There is
 no fallback from the card to the plain version.
 
 * K1 ``Fused.evisc``      - strain^2 + stability-corrected Smagorinsky eddy
-                            viscosity (``csrc/evisc.cu``);
+                            viscosity (``csrc/evisc.cu``, a k-march chunked
+                            by ``ops/kmarch.py``, one body with K14);
 * K2 ``Fused.tend_rk``    - advec_2 + smag2 diffusion + dry buoyancy +
                             folded sponge and Coriolis term + RK fold
                             (``csrc/tend_rk.cu``);
@@ -627,10 +628,20 @@ class Fused:
         null pointer to the kernels)."""
         return d["th"] if self.has_thermo else None
 
-    def evisc(self, u, v, w, th, out=None):
+    def evisc_plan(self, dtype, stratified, chunks=None):
+        """K1's or K14's k-march (ops/kmarch.py) in the stratified mode
+        (0, 1, or 2 for K14), the chunk count chosen from the card's
+        resident blocks unless given."""
+        ctx = self.ctx
+        info = self.k_evisc.info(dtype, stratified)
+        return kmarch.plan("evisc", ctx.itot, ctx.jtot, ctx.ktot, 0, dtype,
+                           info["blocks_per_sm"] * info["sms"], chunks)
+
+    def evisc(self, u, v, w, th, out=None, chunks=None):
         """K1: interior eddy viscosity (ktot, jtot, itot), into ``out`` when
         given (a contiguous interior view).  Unstratified, th is not read
-        (pass any field)."""
+        (pass any field).  chunks: force the k-split (checks and timings
+        only)."""
         ctx = self.ctx
         args = (ctx.ks, ctx.dxi, ctx.dyi, self.tPr)
         stratified = min(self.stratified, 1)
@@ -645,7 +656,8 @@ class Fused:
         check((u, v, w, th, self.ce, out), u.dtype, u.device,
               [shape] * 4 + [(ctx.ktot, NE), interior])
         self.k_evisc(u.dtype, u, v, w, th, out, self.ce, ctx.itot, ctx.jtot,
-                     ctx.ktot, *args, stratified, int(self.ghosts))
+                     ctx.ktot, *args, stratified, int(self.ghosts),
+                     self.evisc_plan(u.dtype, stratified, chunks).chunks)
         return out
 
     def limits(self, u, v, w, th):
@@ -867,9 +879,10 @@ class FusedGeneric(Fused):
                                    "microhh_torch/csrc/tend_generic.cu",
                                    "microhh_tpu/ops/pallas_fused.py:1607")
 
-    def evisc_n2(self, u, v, w, n2, out=None):
+    def evisc_n2(self, u, v, w, n2, out=None, chunks=None):
         """K14: interior eddy viscosity from ghost-filled u, v, w and an
-        interior N2 field (ktot, jtot, itot), into ``out`` when given."""
+        interior N2 field (ktot, jtot, itot), into ``out`` when given.
+        chunks: force the k-split (checks and timings only)."""
         ctx = self.ctx
         args = (ctx.ks, ctx.dxi, ctx.dyi, self.tPr)
         if on_cpu(u):
@@ -882,7 +895,8 @@ class FusedGeneric(Fused):
         check((u, v, w, n2, self.ce, out), u.dtype, u.device,
               [shape] * 3 + [interior, (ctx.ktot, NE), interior])
         self.k_evisc_n2(u.dtype, u, v, w, n2, out, self.ce, ctx.itot,
-                        ctx.jtot, ctx.ktot, *args)
+                        ctx.jtot, ctx.ktot, *args,
+                        self.evisc_plan(u.dtype, 2, chunks).chunks)
         return out
 
     def uvw_plan(self, dtype, acc=False, chunks=None):

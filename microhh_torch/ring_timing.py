@@ -1,10 +1,10 @@
 """Time the ring kernels K16, K17, K12, K13, the scalar sweep K10/K19 and
 the momentum sweep K8/K9/K18 on one card, the kernels that share the
-sweep's scalar point function (K2, K22, K20, K15), and K11, the warm-rain
-column sweep.
+sweep's scalar point function (K2, K22, K20, K15), K11, the warm-rain
+column sweep, and the eddy viscosity K1/K14.
 
     python3 -m microhh_torch.ring_timing [--out FILE] [--label NAME]
-                                         [--groups rings,s_tend,fold,micro2]
+                                  [--groups rings,s_tend,fold,micro2,evisc]
 
 At the four shapes of their main paths: weakscaling 512x256x1024 float32
 (K16 in scheme 4, K17 with one scalar), moser180 256x192x128 float64 (both
@@ -35,7 +35,14 @@ K12 and K17.  K11 at rico 384^3 in float32 and float64 and at 16^2x24 in
 float64, in two states: the cell's own (its initial fields, cloud-free
 and without rain, as the cell's timed steps are) and heavy rain
 (chip_smoke.py's: a saturated layer, rain shafts with qr x 50, drops
-crossing 2.5 cells in one dt).  Each time is the mean of 10 launches by
+crossing 2.5 cells in one dt).  K1/K14 (the ``evisc`` group,
+``evisc_rows``): K1 at rico 384^3 in float32 and float64 and at
+jaenschwalde's 1024x256x256 in ghost mode with the moist N2, at drycblles
+512^3 in clamped mode (``build_step(fold=False)``), at sullivan2011
+512x512x64 in ghost mode (the substep without the RK fold) and K14 at
+SBL_Smag 256^3, each with its plan, occupancy, one-chunk time, the SASS
+count of its per-level loop and K7's time at the same shape beside it.
+Each time is the mean of 10 launches by
 CUDA events after one warm-up launch; the stencil kernels run on seeded
 random fields.  Beside each time: the bound (each input and output once
 over 3.35 TB/s, or the operations over 67 TFLOP/s, 33.5 in float64, where
@@ -75,8 +82,8 @@ from .config import Ini
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the timed groups: K16, K17, K12, K13, K10, K19, K8/K9 and K18; the
-# kernels that call s_tend; K22 on its paths; K11
-GROUPS = ("rings", "s_tend", "fold", "micro2")
+# kernels that call s_tend; K22 on its paths; K11; K1/K14 (with K7)
+GROUPS = ("rings", "s_tend", "fold", "micro2", "evisc")
 REPS = 10
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 33.5e12}
@@ -86,7 +93,7 @@ FLOPS = {"o4_mom": {"4": 560, "4m": 510}, "o4_scalars": {"4": 185, "4m": 140},
          "advec_mom": 400, "advec_scalars": 130, "tend_scalars": 110,
          "tend_scalar_acc": 100, "tend_rk": 700, "tend_rk_fold": 900,
          "tendencies": 700, "tend_scalar_rk": 110, "micro2": 300,
-         "tend_uvw": 450, "tend_uvw_acc": 430}
+         "tend_uvw": 450, "tend_uvw_acc": 430, "evisc": 100, "evisc_n2": 100}
 # K11 moves 13 passes over a field: qr, nr, qt, thl and ql read, four
 # tendencies read and written
 MICRO2_PASSES = 13
@@ -139,6 +146,20 @@ UVW_SHAPES = [("rico", "rico", (384, 384, 384), torch.float32, "tend_uvw",
 MICRO2_SHAPES = [("rico", (384, 384, 384), torch.float32),
                  ("rico", (384, 384, 384), torch.float64),
                  ("rico 16^2x24", (16, 16, 24), torch.float64)]
+# K1/K14's CUDA function, evisc_kernel<T, ST> (an earlier tree's
+# evisc_kernel<T>), and its shapes: (label, case, shape, dtype, build_step
+# options); the kernel sees only the shape, its ghost mode and its
+# stratified mode (jaenschwalde's, moist in ghost mode, runs on the rico
+# case at its shape)
+EVISC = "evisc_kernel"
+EVISC_SHAPES = [("rico", "rico", (384, 384, 384), torch.float32, {}),
+                ("rico", "rico", (384, 384, 384), torch.float64, {}),
+                ("jaenschwalde", "rico", (1024, 256, 256), torch.float32, {}),
+                ("drycblles clamped", "drycblles", (512, 512, 512),
+                 torch.float32, {"fold": False}),
+                ("sullivan2011 unfolded", "sullivan2011", (512, 512, 64),
+                 torch.float32, {"unfolded": True}),
+                ("SBL_Smag", "SBL_Smag", (256, 256, 256), torch.float32, {})]
 # the CUDA functions of the kernels that call s_tend
 S_TEND_FUNCTIONS = {"tend_rk": "tend_rk_kernel",
                     "tend_rk_fold": "tend_rk_fold_kernel",
@@ -545,6 +566,78 @@ def uvw_rows(label, case, shape, dtype, kernel, advecs, ptx, card,
     return rows
 
 
+def evisc_function(dtype, stratified, known):
+    """The ptxas and SASS key of the K1/K14 instance a launch takes: the
+    k-march's evisc_kernel<T, ST>, or the ring's evisc_kernel<T> where
+    `known` (keys of a build) holds that."""
+    t = "float" if dtype == torch.float32 else "double"
+    old = "%s<%s>" % (EVISC, t)
+    return old if old in known else "%s<%s,%d>" % (EVISC, t, stratified)
+
+
+def evisc_rows(label, case, shape, dtype, step, ptx, card, loops=None,
+               clock_ghz=None, device="cuda"):
+    """K1 (Fused.evisc in the model's ghost or clamped mode, its N2 from a
+    scalar) or K14 (FusedGeneric.evisc_n2, SBL_Smag's N2 field) on the
+    model of case at shape on seeded random fields (th around 300 K), with
+    K7's time at the same shape beside it.  Where the tree's kernel is the
+    k-march (it reports its occupancy) the row takes its plan's chunks,
+    blocks and waves, its occupancy and its time with one chunk; where the
+    SASS holds its per-level loop (loops: sass_loops of the build), the
+    loop's count and issue time (fold_issue)."""
+    from .ops import kmarch
+    itot, jtot, ktot = shape
+    n = itot * jtot * ktot
+    fb = n * torch.finfo(dtype).bits // 8
+    with tempfile.TemporaryDirectory() as workdir:
+        m = build(case, itot, jtot, ktot, dtype, workdir, device, **step)
+        fz, ctx = m.fused, m.ctx
+        st = fz.stratified
+        kernel = "evisc_n2" if st == 2 else "evisc"
+        gen = torch.Generator(device=device).manual_seed(itot + ktot)
+
+        def rnd(scale=1., k=ctx.kcells):
+            return scale * torch.randn((k, jtot, itot), dtype=dtype,
+                                       device=device, generator=gen)
+        u, v, w = rnd(), rnd(), rnd(0.3)
+        a = rnd(1e-4, ktot) if st == 2 else 300. + rnd()
+        if st == 2:
+            def fn(**kw):
+                return fz.evisc_n2(u, v, w, a, **kw)
+        else:
+            def fn(**kw):
+                return fz.evisc(u, v, w, a, **kw)
+        nbytes = (4 + (st > 0)) * fb
+        by_bytes = 1e3 * nbytes / PEAK_BYTES_S
+        by_ops = 1e3 * FLOPS[kernel] * n / PEAK_FLOPS[dtype]
+        key = evisc_function(dtype, st, set(ptx) | set(loops or ()))
+        row = {"label": label, "kernel": kernel, "shape": list(shape),
+               "dtype": str(dtype)[6:], "ghosts": bool(fz.ghosts),
+               "stratified": st, "ms": events_ms(fn),
+               "bound_ms": max(by_bytes, by_ops),
+               "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+               "ops_per_point": FLOPS[kernel], "gbytes": nbytes / 1e9,
+               "ptxas": ptx.get(key), "function": key, "card": card,
+               "limits_ms": events_ms(lambda: fz.limits(u, v, w, a))}
+        if "evisc" in kernels.INFO:
+            pl = fz.evisc_plan(dtype, st)
+            row.update(fz.k_evisc.info(dtype, st), chunks=pl.chunks,
+                       blocks=pl.tiles_i * pl.tiles_j * pl.chunks,
+                       waves=pl.waves,
+                       ms_one_chunk=events_ms(lambda: fn(chunks=1)))
+        if loops and key in loops:
+            # the parent's tile has common.cuh's eight rows too
+            row.update(fold_issue(loops[key], shape,
+                                  getattr(kmarch, "EV_TJ", 8), clock_ghz,
+                                  sms_of(device)) or {})
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        print(json.dumps(row), flush=True)
+        del m, u, v, w, a
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return [row]
+
+
 def micro2_state(m, heavy, seed=5):
     """K11's inputs on the rico model m: (state, ql, dt).  The cell's own
     state is its initial fields (cloud-free, no rain); heavy rain adds
@@ -941,6 +1034,7 @@ def main():
     loops.update(sass_loops(sass, FUNCTIONS["o4_scalars"]))
     loops.update(sass_loops(sass, FUNCTIONS["advec_mom"]))
     loops.update(sass_loops(sass, UVW))
+    loops.update(sass_loops(sass, EVISC))
     clock = max_sm_clock_ghz()
     rows = [{"kind": "sass_digests", "digests": sass_digests(sass)}]
     groups = set(args.groups.split(","))
@@ -959,6 +1053,10 @@ def main():
                             loops=loops, clock_ghz=clock)
     for label, case, shape, dtype in FOLD_SHAPES if "fold" in groups else ():
         rows += fold_rows(label, case, shape, dtype, ptx, card, loops, clock)
+    for label, case, shape, dtype, step in (
+            EVISC_SHAPES if "evisc" in groups else ()):
+        rows += evisc_rows(label, case, shape, dtype, step, ptx, card, loops,
+                           clock)
     for label, shape, dtype in MICRO2_SHAPES if "micro2" in groups else ():
         with tempfile.TemporaryDirectory() as workdir:
             m = build("rico", *shape, dtype, workdir)

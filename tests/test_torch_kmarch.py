@@ -1,7 +1,8 @@
 """The k-march of the redesigned ring kernels K12 (``advec_mom``), K13
 (``advec_scalars``), K16 (``o4_mom``), K17 (``o4_scalars``) and K22
 (``tend_rk_fold``): ``ops/kmarch.py`` and the wrappers around it, on the
-CPU.
+CPU; and of K1/K14 (``evisc``) its constants, shared memory and plans at
+the main shapes (the rest in ``test_torch_evisc_march.py``).
 
 * ``chunk_bounds`` and ``plan`` cover [0, ktot) exactly once, every chunk
   non-empty, for ktot 1-40, 128, 384 and 1024; ``plan`` fills the card in
@@ -107,6 +108,20 @@ def test_plan_at_the_main_shapes():
     assert (p.chunks, p.waves) == (3, 8)
     p = kmarch.plan("o4_mom", 256, 192, 128, 0, torch.float64, 264)
     assert (p.tiles_i * p.tiles_j, p.chunks, p.waves) == (192, 4, 3)
+    # K1/K14 with five resident blocks an SM in float32 (three in float64):
+    # rico 384^3, jaenschwalde 1024x256x256, SBL_Smag 256^3 (K14), the
+    # clamped drycblles 512^3, sullivan2011 512x512x64
+    p = kmarch.plan("evisc", 384, 384, 384, 0, f32, 660)
+    assert (p.tiles_i, p.tiles_j, p.chunks, p.waves, p.smem) == (
+        12, 48, 8, 7, 24160)
+    for shape, chunks, waves in (((1024, 256, 256), 7, 11),
+                                 ((256, 256, 256), 5, 2),
+                                 ((512, 512, 512), 9, 14),
+                                 ((512, 512, 64), 3, 5)):
+        p = kmarch.plan("evisc", *shape, 0, f32, 660)
+        assert (p.chunks, p.waves) == (chunks, waves), shape
+    p = kmarch.plan("evisc", 384, 384, 384, 0, torch.float64, 396)
+    assert (p.chunks, p.waves, p.smem) == (2, 3, 48320)
     # a forced count is taken as it is, and must lie in [1, ktot]
     assert kmarch.plan("o4_mom", 48, 20, 6, 0, f32, 264, chunks=4).chunks == 4
     for bad in (0, 7):
@@ -135,6 +150,15 @@ def test_shared_memory_fits(dtype):
     assert kmarch.k16_smem(dtype) <= kmarch.SMEM_MAX
     # two K16 blocks fit an SM's 228 KB (1 KB of it reserved a block)
     assert 2 * (kmarch.k16_smem(dtype) + 1024) <= 233472
+    # K1/K14: five slots of u's, v's and w's planes (halo 1) and five
+    # staged rows; its launch bounds' five blocks (three in float64) fit
+    nb = torch.finfo(dtype).bits // 8
+    assert kmarch.evisc_smem(dtype) == (5 * 3 * 10 * 40 + 5 * 8) * nb
+    assert kmarch.SMEM["evisc"](0, dtype, True) == kmarch.evisc_smem(dtype)
+    assert kmarch.TILE_J["evisc"] == kmarch.EV_TJ
+    assert kmarch.WARM["evisc"] == 2
+    blocks = 5 if dtype == torch.float32 else 3
+    assert blocks * (kmarch.evisc_smem(dtype) + 1024) <= 233472
 
 
 def test_python_constants_are_the_sources():
@@ -189,6 +213,16 @@ def test_python_constants_are_the_sources():
     assert kmarch.fold_smem(torch.float32) == (
         6 * 4 * 12 * 40 + 4 * 10 * 34 + 2 * 8 * 33 + 2 * 9 * 32 + 6 * 32) * 4
     assert "__launch_bounds__(K22_NT, sizeof(T) == 4 ? 3 : 2)" in fold_src
+    # K1/K14: its tile, halo, fields a group, slots and staged row, and its
+    # shared-memory formula
+    ev, ev_src = constants("evisc.cu")
+    assert (ev["EV_TJ"], ev["EV_HALO"], ev["EV_NF"], ev["EV_R"],
+            ev["EV_NCP"]) == (kmarch.EV_TJ, kmarch.EV_HALO, kmarch.EV_NF,
+                              kmarch.EV_R, kmarch.EV_NCP)
+    assert "EV_NT = km::TI * EV_TJ;" in ev_src
+    flat = re.sub(r"\s+", " ", ev_src)
+    assert ("((size_t)EV_R * EV_NF * km::Slot<EV_TJ, EV_HALO>::SIZE + "
+            "(size_t)EV_R * EV_NCP) * sizeof(T)" in flat)
     # chunk_bounds: the same integer formula on both sides
     _, km_src = constants("kmarch.cuh")
     assert "k0 = (int)((long long)z * ktot / chunks);" in km_src

@@ -24,7 +24,9 @@ reads from a build log and how it wires its timed calls, without a card.
   ``only`` times K12 alone, as for its float64 row), and the momentum
   sweep's (``uvw_rows``: K8/K9 with advection on and off, K18) with the
   same columns, and without them where the tree's kernel reports no
-  occupancy (an earlier tree's);
+  occupancy (an earlier tree's); and K1's and K14's (``evisc_rows``: the
+  kernel and mode of each case, K7's time beside it) with the same
+  columns, or without them and under the ring's key on an earlier tree;
 * ``sass_digests`` gives each kernel instance of a listing one digest of
   its instructions, the same for the same code at other addresses.
 """
@@ -87,7 +89,8 @@ def test_ptxas_info_reads_template_arguments_and_registers():
 
 @pytest.mark.parametrize("name", sorted(set(R.FUNCTIONS.values())
                                         | set(R.S_TEND_FUNCTIONS.values())
-                                        | {R.SWEEP, R.MICRO2, R.UVW}))
+                                        | {R.SWEEP, R.MICRO2, R.UVW,
+                                           R.EVISC}))
 def test_timed_functions_are_kernels_of_the_sources(name):
     assert name in _globals()
 
@@ -536,3 +539,77 @@ def test_uvw_rows_run_on_the_cpu(label, case, shape, dtype, kernel, advecs,
                       "cpu", None, 1.98, device="cpu")
     assert "chunks" not in rows[0] and "issue_ms" not in rows[0]
     assert seen == [(None, advecs[0])]
+
+
+# K1/K14's per-level loop around its barrier
+EVISC_SASS = """
+\t\tFunction : _ZN3mhh12evisc_kernelIfLi1EEEvNS_9EviscArgsIT_EE
+        /*0000*/                   S2R R0, SR_TID.X ;
+        /*0010*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0020*/                   LDGSTS.E.BYPASS.128 [R3], desc[UR4][R4.64] ;
+        /*0030*/                   LDS R2, [R3] ;
+        /*0040*/                   MUFU.RSQ R2, R3 ;
+        /*0050*/                   STG.E desc[UR4][R2.64], R5 ;
+        /*0060*/               @P3 BRA 0x10 ;
+        /*0070*/                   EXIT ;
+"""
+
+
+@pytest.mark.parametrize("label,case,shape,dtype,step", R.EVISC_SHAPES,
+                         ids=["%s %s" % (s[0], str(s[3])[6:])
+                              for s in R.EVISC_SHAPES])
+def test_evisc_rows_run_on_the_cpu(label, case, shape, dtype, step, one_call,
+                                   monkeypatch):
+    """K1's and K14's rows at a tiny shape of each of their cases: the
+    kernel and mode the case takes (K14 on SBL_Smag, K1's clamped mode on
+    drycblles), K7's time beside it, the plan's chunks, blocks and waves,
+    the occupancy asked in the row's stratified mode, a forced one-chunk
+    run and the SASS count of the per-level loop; an earlier tree's kernel
+    (no info entry, evisc_kernel<T>) gets none of the k-march's columns."""
+    from microhh_torch import kernels
+    from microhh_torch.ops import fused as F
+    from microhh_torch.ops import kmarch
+    torch.manual_seed(3)
+    asked = []
+    monkeypatch.setattr(kernels.Kernel, "info",
+                        lambda self, *a: asked.append(a[1]) or INFO)
+    st = 2 if case == "SBL_Smag" else 1
+    t = "float" if dtype == torch.float32 else "double"
+    key = "evisc_kernel<%s,%d>" % (t, st)
+    found = R.sass_loops(EVISC_SASS, R.EVISC)
+    assert list(found) == ["evisc_kernel<float,1>"]
+    loops = {key: found["evisc_kernel<float,1>"]}
+    seen = []
+    name = "evisc_n2" if st == 2 else "evisc"
+    owner = F.FusedGeneric if name == "evisc_n2" else F.Fused
+    real = getattr(owner, name)
+
+    def call(self, *a, out=None, chunks=None):
+        seen.append((chunks, self.ghosts))
+        return real(self, *a, out=out, chunks=chunks)
+
+    monkeypatch.setattr(owner, name, call)
+    tiny = (40, 16, 12)
+    (r,) = R.evisc_rows(label, case, tiny, dtype, step, {}, "cpu", loops,
+                        1.98, device="cpu")
+    p = kmarch.plan("evisc", 40, 16, 12, 0, dtype, 396)
+    assert r["kernel"] == name and r["stratified"] == st
+    assert r["ghosts"] == (case != "drycblles")
+    assert r["function"] == key and r["dtype"] == str(dtype)[6:]
+    assert (r["chunks"], r["waves"]) == (p.chunks, p.waves)
+    assert r["blocks"] == 2 * 2 * p.chunks and r["blocks_per_sm"] == 3
+    assert r["ms_one_chunk"] == 1.0 and r["limits_ms"] == 1.0
+    assert r["instructions_a_point"] == 6
+    assert r["gbytes"] == pytest.approx(
+        5 * 40 * 16 * 12 * torch.finfo(dtype).bits / 8 / 1e9)
+    assert seen == [(None, case != "drycblles"), (1, case != "drycblles")]
+    assert set(asked) == {st}
+    # an earlier tree: no occupancy, no chunk count, no forced run, the
+    # ring's evisc_kernel<T>
+    monkeypatch.setattr(kernels, "INFO", ())
+    del seen[:]
+    old = "evisc_kernel<%s>" % t
+    (r,) = R.evisc_rows(label, case, tiny, dtype, step, {old: {}}, "cpu",
+                        None, 1.98, device="cpu")
+    assert "chunks" not in r and "issue_ms" not in r
+    assert r["function"] == old and seen == [(None, case != "drycblles")]
