@@ -76,8 +76,12 @@ Phases (any failure exits non-zero and prints no result line):
      and the output an interior view whose ghost levels stay NaN: ghost mode
      on rico at 45^2x24 and 48^2x32 (the moist N2), K14 on SBL_Smag at the
      same grids, the ghost mode of sullivan2011's substep without the RK
-     fold at 45^2x24 and 48^2x32 and the clamped mode on drycblles at
-     45^2x8 and 64^2x32, float64 and float32;
+     fold at 45^2x24 and 48^2x32, the clamped mode on drycblles at 45^2x8
+     and 64^2x32 and, without th, on the neutral Ekman LES at 45^2x8 and
+     48^2x32, float64 and float32; K7 (limits_cases) on the same models in
+     the same way (its plan's count), and at each count with one NaN
+     planted in u that must show in its level's CFL maximum alone (both
+     rates' NaN levels held to the plain version's);
   3c. K11 against its plain version at ring depths nsed 3, 4 and 8 (the
      rain states of phase 3 and heavy rain mirrored into the top levels
      with drops crossing nsed - 1.5 cells), on rico grids of 12, 32, 45 and
@@ -101,7 +105,8 @@ Phases (any failure exits non-zero and prints no result line):
      and K4 rhs stay launched on a path and held; K1 also with its k-split
      forced to 1, 2, 3 chunks, its plan's count and one level a chunk,
      aligned and shifted (check_evisc_forced), as in phases 8, 12, 18 and
-     20b (K14 in 12);
+     20b (K14 in 12); K7 so in every run's phase (check_limits_forced: its
+     own mode, and a planted NaN);
   7. the rico LES at 384^3 float32 (cases/rico/rico.ini with bench.py's
      swadvec=2 override) through Model(..., input_nc=), save_initial_state
      and Model.run(max_iters=12): its kernels launched, finite fields,
@@ -154,10 +159,11 @@ hold, each once, over 3.35 TB/s, or its operations over 67 TFLOP/s (float32
 outside the tensor cores; half that for float64) where that is larger; and, where one PyTorch call
 computes the same function (the two DFTs), that call's time; beside K5
 and K6 also their form, C, F, shared memory and registers per CTA, GB/s
-and share of the bound; beside K1/K14, K8/K9, K12, K13, K16, K17 and K18
-their registers, local bytes a thread, shared memory a block, resident
-blocks an SM (as the card reports them), chunk count, blocks and waves at
-the path's shape, and the same beside the scalar sweep K10/K19 and K22.
+and share of the bound; beside K1/K14, K7, K8/K9, K12, K13, K16, K17 and
+K18 their registers, local bytes a thread (spills and stack), shared
+memory a block, resident blocks an SM (as the card reports them), chunk
+count, blocks and waves at the path's shape, and the same beside the
+scalar sweep K10/K19 and K22.
 With --profile FILE, a last phase traces two steps of each LES with
 torch.profiler and prints the device time per kernel, the step's device
 idle share (one minus the device time over the wall time of the same
@@ -1378,19 +1384,13 @@ def check_uvw_forced(torch, m):
 EVISC_REGIMES = {"unstable": -1., "stable": 30.}
 
 
-def evisc_cases(torch, m, seed, chunk_counts, forms=None):
-    """(name, kernel call, plain call, error kind) for the eddy viscosity on
-    a model's wrappers at each forced chunk count (None: the plan's): K1
-    (Fused.evisc) in the model's mode (ghost-filled or clamped) and K14
-    (FusedGeneric.evisc_n2) where the model's N2 is a field, aligned and
-    with u, v and w one value past a 16-byte boundary (single-value copies
-    only), in each (stratified mode, regime) of forms (default: the
-    model's own mode in both EVISC_REGIMES, and 0).  Seeded u, v, w; th
-    around 300 K whose vertical steps give each regime's N2, or the N2
-    field itself; the fields' levels the kernel never reads (u, v and th
-    outside [lo, hic], w outside [ks, ke]) are NaN, and the output goes
-    into the interior of a kcells tensor of NaN whose ghost levels must
-    stay NaN.  The kernel call fails on a non-finite output."""
+def evisc_inputs(torch, m, seed):
+    """The seeded inputs of the eddy-viscosity cases (K1/K14 and K7) on a
+    model's grid: u, v, w; th around 300 K whose vertical steps give each of
+    EVISC_REGIMES its N2 (``ths``), and the N2 field itself (``n2s``); the
+    fields' levels that the kernels never read (u, v and th outside [lo,
+    hic], w outside [ks, ke]) are NaN; ``layouts``: u, v and w as they are
+    and one value past a 16-byte boundary (single-value copies only)."""
     from microhh_torch.ops import fused as F
     ctx, fz = m.ctx, m.fused
     ks, ke = ctx.ks, ctx.ke
@@ -1417,6 +1417,7 @@ def evisc_cases(torch, m, seed, chunk_counts, forms=None):
     ce = fz.ce.double().cpu()
     s2 = ((e0.double().cpu() / ce[:, F.E_MLEN2][:, None, None]) ** 2).mean(
         dim=(1, 2))
+    del e0
     step = s2 * fz.tPr * ce[:, F.E_THREF].abs() / (9.81 * ce[:, F.E_DZI])
     levels = (torch.arange(ctx.kcells) - ks).clamp(0, ctx.ktot - 1)
     rise = torch.cumsum(step[levels], 0)[:, None, None] * factor(
@@ -1434,7 +1435,34 @@ def evisc_cases(torch, m, seed, chunk_counts, forms=None):
         x[b + 1:] = nan
     layouts = {"aligned": (u, v, w),
                "shifted": tuple(shifted(torch, x) for x in (u, v, w))}
-    own = fz.stratified
+    return {"u": u, "ths": ths, "n2s": n2s, "layouts": layouts,
+            "grid_args": grid_args, "ghosts": ghosts}
+
+
+def evisc_forms(m):
+    """The (stratified mode, regime) pairs of a model's cases: its own mode
+    in both EVISC_REGIMES where it is stratified, and 0."""
+    own = m.fused.stratified
+    return [(own, r) for r in EVISC_REGIMES if own] + [(0, None)]
+
+
+def evisc_cases(torch, m, seed, chunk_counts, forms=None):
+    """(name, kernel call, plain call, error kind) for the eddy viscosity on
+    a model's wrappers at each forced chunk count (None: the plan's): K1
+    (Fused.evisc) in the model's mode (ghost-filled or clamped) and K14
+    (FusedGeneric.evisc_n2) where the model's N2 is a field, on the
+    evisc_inputs in both layouts, in each (stratified mode, regime) of forms
+    (default: evisc_forms).  The output goes into the interior of a kcells
+    tensor of NaN whose ghost levels must stay NaN.  The kernel call fails
+    on a non-finite output."""
+    from microhh_torch.ops import fused as F
+    ctx, fz = m.ctx, m.fused
+    ks, ke = ctx.ks, ctx.ke
+    shape = (ctx.kcells, ctx.jtot, ctx.itot)
+    nan = float("nan")
+    x = evisc_inputs(torch, m, seed)
+    u, ths, n2s = x["u"], x["ths"], x["n2s"]
+    grid_args, ghosts = x["grid_args"], x["ghosts"]
 
     def run(kernel, uvw, st, regime, chunks):
         th, n2 = ths.get(regime, u), n2s.get(regime)
@@ -1455,12 +1483,10 @@ def evisc_cases(torch, m, seed, chunk_counts, forms=None):
             raise AssertionError("%s wrote a non-finite value" % name)
         return [buf[ks:ke]]
 
-    if forms is None:
-        forms = [(own, r) for r in EVISC_REGIMES if own] + [(0, None)]
     cases = []
     for chunks in chunk_counts:
-        for uvw in layouts.values():
-            for st, regime in forms:
+        for uvw in x["layouts"].values():
+            for st, regime in forms or evisc_forms(m):
                 args = (uvw, st, regime, chunks)
                 cases.append(("evisc_n2" if st == 2 else "evisc",
                               lambda a=args: run(True, *a),
@@ -1476,20 +1502,105 @@ def evisc_chunks(m, dtype):
                   | {fz.evisc_plan(dtype, fz.stratified).chunks, k})
 
 
-def check_evisc_forced(torch, m):
-    """K1 (K14 where the model's N2 is a field) at a run's shapes in the
-    path's own mode (in both EVISC_REGIMES where it is stratified) with its
-    k-split forced (evisc_chunks), aligned and shifted by one value;
-    returns the largest absolute difference."""
+def forced_check(torch, m, cases, chunks):
+    """A march's cases (evisc_cases or limits_cases) at a run's shapes in the
+    path's own mode (in both EVISC_REGIMES where it is stratified) with the
+    k-split forced to chunks(m, dtype); returns the largest absolute
+    difference."""
     st = m.fused.stratified
     worst = 0.
-    for name, kern, plain, kind in evisc_cases(
-            torch, m, m.ctx.itot + 3, evisc_chunks(m, m.dtype),
+    for name, kern, plain, kind in cases(
+            torch, m, m.ctx.itot + 3, chunks(m, m.dtype),
             [(st, r) for r in EVISC_REGIMES] if st else [(0, None)]):
         worst = max(worst, compare(torch, name, kern, plain, kind, m.dtype,
                                    "%s forced" % shape_str(m)))
         torch.cuda.empty_cache()
     return worst
+
+
+def check_evisc_forced(torch, m):
+    """K1 (K14 where the model's N2 is a field) at a run's shapes, forced to
+    evisc_chunks, aligned and shifted by one value."""
+    return forced_check(torch, m, evisc_cases, evisc_chunks)
+
+
+def limits_cases(torch, m, seed, chunk_counts, forms=None):
+    """(name, kernel call, plain call, error kind) for K7 (Fused.limits) on
+    a model's wrappers in its ghost or clamped mode at each forced chunk
+    count (None: the plan's), on the evisc_inputs in both layouts, in each
+    (stratified mode, regime) of forms (default: evisc_forms; mode 2 takes
+    the N2 field, 0 reads no th), and, at each count, with one NaN planted
+    in u at the last point of level ktot // 2 (in the last, partial, tile
+    where the plane has one): the CFL rate's maximum must be NaN at that
+    level and no other, and both rates' NaN levels are compared with the
+    plain version's as 0/1 rows beside the finite values (NaN taken as -1).
+    Each call returns the two (ktot,) maxima; the kernel call fails on a
+    non-finite maximum where no NaN was planted."""
+    from microhh_torch.ops import fused as F
+    ctx, fz = m.ctx, m.fused
+    x = evisc_inputs(torch, m, seed)
+    u, ths, n2s = x["u"], x["ths"], x["n2s"]
+    grid_args, ghosts = x["grid_args"], x["ghosts"]
+    kp = ctx.ktot // 2
+    planted = u.clone()
+    planted[ctx.ks + kp, -1, -1] = float("nan")
+
+    def run(kernel, uvw, st, regime, chunks):
+        th, n2 = ths.get(regime, u), n2s.get(regime)
+        if not kernel:
+            return list(F.limits_plain(*uvw, th, fz.ce, *grid_args, bool(st),
+                                       ghosts, n2 if st == 2 else None))
+        with attrs(fz, stratified=st):
+            got = list(fz.limits(*uvw, n2 if st == 2 else th, chunks=chunks))
+        if not all(bool(torch.isfinite(r).all()) for r in got):
+            raise AssertionError("K7 gave a non-finite maximum")
+        return got
+
+    def masked(rates):
+        return ([torch.nan_to_num(r, nan=-1.) for r in rates]
+                + [torch.isnan(r).to(r.dtype) for r in rates])
+
+    def run_nan(kernel, uvw, st, regime, chunks):
+        th, n2 = ths.get(regime, u), n2s.get(regime)
+        if not kernel:
+            return masked(F.limits_plain(*uvw, th, fz.ce, *grid_args,
+                                         bool(st), ghosts,
+                                         n2 if st == 2 else None))
+        with attrs(fz, stratified=st):
+            got = fz.limits(*uvw, n2 if st == 2 else th, chunks=chunks)
+        want = torch.zeros(ctx.ktot, dtype=torch.bool, device=ctx.device)
+        want[kp] = True
+        if not torch.equal(torch.isnan(got[0]), want):
+            raise AssertionError("K7's planted NaN is not in the CFL rate's "
+                                 "maximum of its level alone")
+        return masked(got)
+
+    cases = []
+    for chunks in chunk_counts:
+        for uvw in x["layouts"].values():
+            for st, regime in forms or evisc_forms(m):
+                args = (uvw, st, regime, chunks)
+                cases.append(("limits", lambda a=args: run(True, *a),
+                              lambda a=args: run(False, *a), "field"))
+        st, regime = (forms or evisc_forms(m))[0]
+        args = ((planted,) + x["layouts"]["aligned"][1:], st, regime, chunks)
+        cases.append(("limits", lambda a=args: run_nan(True, *a),
+                      lambda a=args: run_nan(False, *a), "field"))
+    return cases
+
+
+def limits_chunks(m, dtype):
+    """The k-splits the runs' phases force on K7: 1, 2 and 3 chunks, the
+    plan's count and one level a chunk."""
+    fz, k = m.fused, m.ctx.ktot
+    return sorted({c for c in (1, 2, 3) if c <= k}
+                  | {fz.limits_plan(dtype, fz.stratified).chunks, k})
+
+
+def check_limits_forced(torch, m):
+    """K7 at a run's shapes, forced to limits_chunks, aligned and shifted by
+    one value, and with a planted NaN."""
+    return forced_check(torch, m, limits_cases, limits_chunks)
 
 
 def sweep_cases(torch, m, seed, chunks):
@@ -1582,7 +1693,7 @@ def check_kmarch(torch):
     counts) aligned and shifted; K22 in
     every form of kernel_cases (fold_chunks) on drycblles at 512^2x32 and
     on the neutral Ekman LES at 45^2x8 (a partial tile, null th); K1/K14
-    (check_evisc_kmarch)."""
+    and K7 (check_evisc_kmarch)."""
     for label, build, n, k in (("drycblles", build_model, 512, 32),
                                ("andren1994", build_andren, (45, 45), 8)):
         for dtype in (torch.float64, torch.float32):
@@ -1650,29 +1761,35 @@ def check_kmarch(torch):
 
 
 def check_evisc_kmarch(torch):
-    """K1/K14 (evisc_cases) against their plain versions with the k-split
-    forced (forced_chunks and the plan's count): ghost mode on rico (the
-    moist N2) and on SBL_Smag (K14), the ghost mode of sullivan2011's
-    substep without the RK fold (the dry N2) and the clamped mode on
-    drycblles, each also unstratified, on the grids of phase 3, float64 and
-    float32."""
+    """K1/K14 (evisc_cases) and K7 (limits_cases) against their plain
+    versions with the k-split forced (forced_chunks and each plan's count):
+    ghost mode on rico (the moist N2) and on SBL_Smag (K14, K7's N2 field),
+    the ghost mode of sullivan2011's substep without the RK fold (the dry
+    N2), the clamped mode on drycblles and, without th, on the neutral
+    Ekman LES, each also unstratified, on the grids of phase 3, float64
+    and float32."""
     for label, build, sizes, step_kw in (
             ("rico", build_rico, ((45, 24), (48, 32)), {}),
             ("SBL_Smag", build_sbl, ((45, 24), (48, 32)), {}),
             ("sullivan2011", build_sullivan, (((45, 45), 24),
                                               ((48, 48), 32)),
              {"unfolded": True}),
-            ("drycblles", build_model, ((45, 8), (64, 32)), {})):
+            ("drycblles", build_model, ((45, 8), (64, 32)), {}),
+            ("andren1994", build_andren, (((45, 45), 8), ((48, 48), 32)),
+             {})):
         for n, k in sizes:
             for dtype in (torch.float64, torch.float32):
                 m = build(torch, n, k, dtype, "cuda")
                 m.build_step(**step_kw)
-                counts = sorted(set(forced_chunks(k))
-                                | set(evisc_chunks(m, dtype)))
-                for name, kern, plain, kind in evisc_cases(
-                        torch, m, k + 5, counts):
-                    compare(torch, name, kern, plain, kind, dtype,
-                            "%s %s chunks %s" % (label, shape_str(m), counts))
+                for cases, chunks in ((evisc_cases, evisc_chunks),
+                                      (limits_cases, limits_chunks)):
+                    counts = sorted(set(forced_chunks(k))
+                                    | set(chunks(m, dtype)))
+                    for name, kern, plain, kind in cases(torch, m, k + 5,
+                                                         counts):
+                        compare(torch, name, kern, plain, kind, dtype,
+                                "%s %s chunks %s"
+                                % (label, shape_str(m), counts))
 
 
 def compare(torch, name, kern, plain, kind, dtype, where):
@@ -1926,11 +2043,10 @@ def registers_of(build_log):
 
 
 def kmarch_info(kern, dtype, scheme, S, plan):
-    """What a k-marching kernel (K8/K9, K12, K13, K16, K17, K18, the scalar
-    sweep, K22) reports
-    at a path's shape: its registers, local bytes a thread, shared memory a
-    block and resident blocks an SM from the card, its chunk count, blocks
-    and waves."""
+    """What a k-marching kernel (K1/K14, K7, K8/K9, K12, K13, K16, K17,
+    K18, the scalar sweep, K22) reports at a path's shape: its registers,
+    local bytes a thread, shared memory a block and resident blocks an SM
+    from the card, its chunk count, blocks and waves."""
     info = kern.info(dtype, scheme, S)
     return {"registers": info["registers"], "local_bytes": info["local_bytes"],
             "smem_per_block": info["smem"],
@@ -2055,7 +2171,10 @@ def time_kernels(torch, m, s):
         "limits": pair(lambda: fz.limits(*uvwa),
                        lambda: F.limits_plain(*uvwa, fz.ce, *grid_args, fz.tPr,
                                               fz.has_thermo),
-                       nf * fb, FLOPS_PER_POINT["limits"] * n),
+                       nf * fb, FLOPS_PER_POINT["limits"] * n,
+                       info=kmarch_info(fz.k_limits, m.dtype, fz.stratified,
+                                        0, fz.limits_plan(m.dtype,
+                                                          fz.stratified))),
     }
     pairs.update(pres_pairs(torch, m, s))
     out = time_pairs(torch, pairs)
@@ -2320,7 +2439,11 @@ def time_generic_kernels(torch, m, s):
         pairs.update(rk_sweep_pairs(m, s, e, ct, cts, can))
     pairs["limits"] = pair(lambda: fz.limits(*lim),
                            lambda: F.limits_plain(*lim_plain), 4 * fb,
-                           FLOPS_PER_POINT["limits"] * n)
+                           FLOPS_PER_POINT["limits"] * n,
+                           info=kmarch_info(fz.k_limits, m.dtype,
+                                            fz.stratified, 0,
+                                            fz.limits_plan(m.dtype,
+                                                           fz.stratified)))
     pairs.update(pres_pairs(torch, m, s))
     out = time_pairs(torch, pairs)
     if m.unfolded:
@@ -2663,7 +2786,7 @@ def main():
     check_dft(torch)
     check_kernels(torch)
     log("[3b] K16, K17, K12, K13, the scalar sweep K10/K19, the momentum "
-        "sweep K8/K9/K18 and K22 with the k-split forced")
+        "sweep K8/K9/K18, K22, K1/K14 and K7 with the k-split forced")
     check_kmarch(torch)
     log("[3c] K11 at ring depths 3, 4 and 8, columns shorter than, equal to "
         "and not a multiple of its window")
@@ -2721,6 +2844,7 @@ def main():
             if m.fused.k_evisc in m.kernels():
                 errs["evisc"] = max(errs["evisc"],
                                     check_evisc_forced(torch, m))
+            errs["limits"] = max(errs["limits"], check_limits_forced(torch, m))
             times = (time_generic_kernels if m.unfolded else time_kernels)(
                 torch, m, s)
             if first:
@@ -2758,6 +2882,7 @@ def main():
             if key != "rico2i5_384":
                 ev = "evisc_n2" if m.fused.stratified == 2 else "evisc"
                 errs[ev] = max(errs[ev], check_evisc_forced(torch, m))
+            errs["limits"] = max(errs["limits"], check_limits_forced(torch, m))
             times = time_generic_kernels(torch, m, s)
             record(m, s, key, key + "_f32", label, res, errs, times,
                    "%s %d^3 float32" % (label, n))
@@ -2800,6 +2925,7 @@ def main():
         errs["tend_uvw_acc"] = max(errs["tend_uvw_acc"],
                                    check_uvw_forced(torch, m))
         errs["evisc"] = max(errs["evisc"], check_evisc_forced(torch, m))
+        errs["limits"] = max(errs["limits"], check_limits_forced(torch, m))
         times = time_generic_kernels(torch, m, s)
         record(m, s, key, key, label, res, errs, times, where)
         del m, s

@@ -24,20 +24,23 @@
 //
 // K7: the adaptive-dt limits pass, the per-level maxima of the CFL rate
 // (advec_2.cxx:50-78 pointwise expression) and of the same eddy viscosity,
-// in one read of u, v, w, th and with no field-sized write.  Replaces
-// FusedLES2.limits_pass / _limits_body (pallas_fused.py:1502, pallas_call
-// :1524); the per-level dt factors and the MOST row are applied by the
-// caller on the (ktot,) maxima, as the JAX package does.
+// in one read of u, v, w (and th or N2 when stratified) and with no
+// field-sized write.  Replaces FusedLES2.limits_pass / _limits_body
+// (pallas_fused.py:1502, pallas_call :1524), in every mode of K1 and K14
+// (ghosts 0 and 1, stratified 0, 1 and 2); the per-level dt factors and the
+// MOST row are applied by the caller on the (ktot,) maxima, as the JAX
+// package does.
 //
 // Bound: device-memory bytes.  Per output point K1 does ~100 flops on 4
 // field reads and 1 write (~20 B in f32), far below the H100's ~20 flop/B
-// balance.
+// balance; K7 ~110 on the reads alone.
 //
-// K1/K14's design (the k-march of kmarch.cuh, as K8/K9's in
-// tend_generic.cu).  A block of EV_TJ warps owns an (EV_TJ, 32) tile and
-// marches one chunk [k0, k1) of the levels (chunk_bounds; ops/kmarch.py
-// picks the count from the resident blocks, so that the grid fills the
-// card in whole waves).
+// The design (the k-march of kmarch.cuh, as K8/K9's in tend_generic.cu),
+// one march for K1/K14 (evisc_kernel<T, ST>) and K7 (limits_kernel<T, ST>),
+// evisc_march<T, ST, LIM>, LIM the K7 epilogue.  A block of EV_TJ warps
+// owns an (EV_TJ, 32) tile and marches one chunk [k0, k1) of the levels
+// (chunk_bounds; ops/kmarch.py picks the count from the resident blocks,
+// so that the grid fills the card in whole waves).
 // * Group p is plane p of u, v and w side by side in one ring slot
 //   (Slot<EV_TJ, 1>: the strain rate reaches one cell across the plane),
 //   copied by cp.async (16 bytes where the tile lies inside the plane) at
@@ -52,17 +55,24 @@
 //   loads th at its own point a level ahead and keeps th(k-1 .. k+1) in
 //   registers, with ST 2 it loads N2(k) at its point a level ahead, with ST
 //   0 it reads no th.
-// * The point function is les_math.cuh's evisc_math, as K22 and K7 call it.
+// * The point function is les_math.cuh's evisc_math, as K22 calls it.
 // * Everything is periodic, so a partial tile computes its virtual points
-//   (their offsets wrapped) like any other and only guards its stores; the
+//   (their offsets wrapped) like any other.  K1 only guards its stores; the
 //   output goes from registers to out, a warp's 32 values in a row, so out
 //   may be an interior view of a kcells tensor.
-// K7 keeps the ring of common.cuh: each field a ring of three haloed
-// planes loaded by load_tile, two barriers a level.  K7 reduces each
-// level's tile to one maximum per block (warp shuffles, then one slot per
-// warp) and writes it to a (2, ktot, blocks) partial array; a second small
-// kernel takes the maximum over the blocks, so the result does not depend
-// on the order in which blocks finish.
+// * K7 adds the CFL rate, whose u(i+1), v(j+1) and w(k+1) are in the same
+//   group slots and column, and takes each level's two maxima instead of
+//   storing: every thread writes its two rates to a shared array
+//   double-buffered by level parity; after level k's barrier, which the
+//   march has anyway, warps 0 and 1 fold level k-1's rates (one rate each:
+//   a lane the rates of eight neighbouring threads, then the lanes by
+//   shuffles), and the chunk's last level after a barrier of its own, into
+//   the tile's slot of a (2, ktot, tiles) partial array (each (level, tile)
+//   belongs to one chunk).  Each warp reducing its own rates by shuffles
+//   instead took 439 against 394 SASS a warp and level and 1.461 against
+//   1.296 ms at drycblles 512^3 on an H100 at 700 W.  A second small kernel
+//   takes the maximum over the tiles, so the result does not depend on the
+//   order in which blocks finish.  The maxima keep a NaN, as jnp.max does.
 #include "kmarch.cuh"
 #include "les_math.cuh"
 
@@ -70,65 +80,30 @@
 
 namespace mhh {
 
-// the four fields' ring: u, v, w, th
-template <typename T>
-using Ring = T[4][3][HJ][HI];
-
-// plane ks+p of each field; cell-centred planes clamped to [lo, hic] and
-// w to [lo, ke] (lo = ks, hic = ke-1 clamp; lo = ks-1, hic = ke read the
-// ghost planes)
-template <typename T>
-__device__ __forceinline__ void load_ring(Ring<T>& sh, const T* __restrict__ u,
-                                          const T* __restrict__ v,
-                                          const T* __restrict__ w,
-                                          const T* __restrict__ th, int p,
-                                          int ks, int ke, int lo, int hic,
-                                          int j0, int i0, int jtot, int itot) {
-    const int s = slot(p);
-    load_tile(sh[0][s], u, clampi(ks + p, lo, hic), j0, i0, jtot, itot);
-    load_tile(sh[1][s], v, clampi(ks + p, lo, hic), j0, i0, jtot, itot);
-    load_tile(sh[2][s], w, clampi(ks + p, lo, ke), j0, i0, jtot, itot);
-    if (th)
-        load_tile(sh[3][s], th, clampi(ks + p, lo, hic), j0, i0, jtot, itot);
+// max that keeps a NaN, as jnp.max does (one max.NaN in float32)
+__device__ __forceinline__ float nanmax(float a, float b) {
+    float d;
+    asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+    return d;
 }
 
-// eddy viscosity at interior level k of the thread's tile point
-// (les_math.cuh evisc_math on the ring's views)
-template <typename T>
-__device__ __forceinline__ T evisc_point(const Ring<T>& sh, int k,
-                                         const T* __restrict__ ce, T dxi,
-                                         T dyi, T tPr, int stratified,
-                                         T n2ext) {
-    return evisc_math(view<T>(sh[0]), view<T>(sh[1]), view<T>(sh[2]),
-                      view<T>(sh[3]), slots(k), ce + (long long)k * NE, dxi,
-                      dyi, tPr, stratified, n2ext);
-}
-
-#define U(s, dj, di) sh[0][s][r + (dj)][c + (di)]
-#define V(s, dj, di) sh[1][s][r + (dj)][c + (di)]
-#define W(s, dj, di) sh[2][s][r + (dj)][c + (di)]
-
-// CFL rate at interior level k (advec_2 cfl_max pointwise expression)
-template <typename T>
-__device__ __forceinline__ T cfl_point(const Ring<T>& sh, int k,
-                                       const T* __restrict__ ce, T dxi,
-                                       T dyi) {
-    const int kc = slot(k), kp = slot(k + 1);
-    const int r = threadIdx.y + 1, c = threadIdx.x + 1;
-    const T half = T(0.5);
-    return fabs(half * (U(kc, 0, 0) + U(kc, 0, 1))) * dxi
-           + fabs(half * (V(kc, 0, 0) + V(kc, 1, 0))) * dyi
-           + fabs(half * (W(kc, 0, 0) + W(kp, 0, 0))) * ce[(long long)k * NE + E_DZI];
-}
-
-#undef U
-#undef V
-#undef W
-
-// max that keeps a NaN, as jnp.max does
-template <typename T>
-__device__ __forceinline__ T nanmax(T a, T b) {
+__device__ __forceinline__ double nanmax(double a, double b) {
     return (a != a || a > b) ? a : b;
+}
+
+// the maximum of eight values at x (16-byte aligned)
+__device__ __forceinline__ float max8(const float* x) {
+    const float4 a = reinterpret_cast<const float4*>(x)[0];
+    const float4 b = reinterpret_cast<const float4*>(x)[1];
+    return nanmax(nanmax(nanmax(a.x, a.y), nanmax(a.z, a.w)),
+                  nanmax(nanmax(b.x, b.y), nanmax(b.z, b.w)));
+}
+
+__device__ __forceinline__ double max8(const double* x) {
+    const double2* v = reinterpret_cast<const double2*>(x);
+    const double2 a = v[0], b = v[1], c = v[2], d = v[3];
+    return nanmax(nanmax(nanmax(a.x, a.y), nanmax(b.x, b.y)),
+                  nanmax(nanmax(c.x, c.y), nanmax(d.x, d.y)));
 }
 
 template <typename T>
@@ -136,61 +111,6 @@ __device__ __forceinline__ T warp_max(T x) {
     for (int off = 16; off > 0; off >>= 1)
         x = nanmax(x, __shfl_xor_sync(0xffffffffu, x, off));
     return x;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(TI * TJ)
-limits_kernel(const T* __restrict__ u, const T* __restrict__ v,
-              const T* __restrict__ w, const T* __restrict__ th,
-              T* __restrict__ part, const T* __restrict__ ce,
-              int itot, int jtot, int ktot, int ks,
-              T dxi, T dyi, T tPr, int stratified, int ghosts) {
-    constexpr int NW = TI * TJ / 32;
-    __shared__ Ring<T> sh;
-    __shared__ T red[2][NW];
-    const int i0 = blockIdx.x * TI, j0 = blockIdx.y * TJ;
-    const int i = i0 + threadIdx.x, j = j0 + threadIdx.y;
-    const bool inside = i < itot && j < jtot;
-    const int ke = ks + ktot;
-    const int lo = ghosts ? ks - 1 : ks, hic = ghosts ? ke : ke - 1;
-    const int tid = threadIdx.y * TI + threadIdx.x;
-    const long long plane = (long long)itot * jtot;
-    const T* ring_th = stratified == 2 ? nullptr : th;
-    const long long nblk = (long long)gridDim.x * gridDim.y;
-    const long long blk = (long long)blockIdx.y * gridDim.x + blockIdx.x;
-
-    load_ring(sh, u, v, w, ring_th, -1, ks, ke, lo, hic, j0, i0, jtot, itot);
-    load_ring(sh, u, v, w, ring_th, 0, ks, ke, lo, hic, j0, i0, jtot, itot);
-    for (int k = 0; k < ktot; ++k) {
-        load_ring(sh, u, v, w, ring_th, k + 1, ks, ke, lo, hic, j0, i0, jtot,
-                  itot);
-        __syncthreads();
-        // both rates are >= 0: a point outside the grid contributes 0
-        T cfl = T(0), ev = T(0);
-        if (inside) {
-            cfl = cfl_point(sh, k, ce, dxi, dyi);
-            const T n2 = stratified == 2
-                ? __ldg(th + (long long)k * plane + (long long)j * itot + i)
-                : T(0);
-            ev = evisc_point(sh, k, ce, dxi, dyi, tPr, stratified, n2);
-        }
-        cfl = warp_max(cfl);
-        ev = warp_max(ev);
-        if ((tid & 31) == 0) {
-            red[0][tid >> 5] = cfl;
-            red[1][tid >> 5] = ev;
-        }
-        __syncthreads();
-        if (tid == 0) {
-            for (int q = 1; q < NW; ++q) {
-                cfl = nanmax(cfl, red[0][q]);
-                ev = nanmax(ev, red[1][q]);
-            }
-            part[(long long)k * nblk + blk] = cfl;
-            part[((long long)ktot + k) * nblk + blk] = ev;
-        }
-        __syncthreads();
-    }
 }
 
 // out[row] = max over the nblk partial maxima of row (2*ktot rows)
@@ -211,7 +131,7 @@ limits_reduce(const T* __restrict__ part, T* __restrict__ out, long long nblk) {
     }
 }
 
-// ---- K1/K14: the k-march ----
+// ---- K1/K14 and K7: the k-march ----
 
 constexpr int EV_TJ = 8;                 // tile rows (32 x EV_TJ threads)
 constexpr int EV_NT = km::TI * EV_TJ;
@@ -220,13 +140,14 @@ constexpr int EV_NF = 3;                 // fields a group: u, v, w
 constexpr int EV_R = 5;                  // group slots: k-1 .. k+3
 constexpr int EV_NCP = 8;                // values a staged row
 static_assert(NEQ <= EV_NCP, "the staged row holds ce and its quotient");
+static_assert(EV_NT == 32 * 8, "a folding lane takes eight threads' rates");
 
-// everything a launch takes but its template argument
+// everything a launch takes but its template arguments
 template <typename T>
 struct EviscArgs {
     const T *u, *v, *w;
     const T* th;        // the scalar (ST 1), the interior N2 (ST 2), unread
-    T* out;             // (ktot, jtot, itot)
+    T* out;             // (ktot, jtot, itot); K7's (2, ktot, tiles) partials
     const T* ce;        // (ktot, NE)
     int itot, jtot, ktot, ks;
     T dxi, dyi, tPr;
@@ -241,15 +162,33 @@ constexpr size_t evisc_smem() {
             + (size_t)EV_R * EV_NCP) * sizeof(T);
 }
 
+// K7's: K1's and the two rates of each thread for two levels
+template <typename T>
+constexpr size_t limits_smem() {
+    return evisc_smem<T>() + (size_t)2 * 2 * EV_NT * sizeof(T);
+}
+
 extern __shared__ __align__(16) unsigned char evisc_smem_buf[];
 
-// five blocks an SM in float32 (at most 51 registers: 0.567 against 0.601
-// ms with four at rico 384^3, 1.305 against 1.412 clamped at drycblles
-// 512^3 on an H100 at 700 W; six, at 40 registers and 8 B of spill, ran
-// 5% slower than four), three in float64
-template <typename T, int ST>
-__global__ void __launch_bounds__(EV_NT, sizeof(T) == 4 ? 5 : 3)
-evisc_kernel(const EviscArgs<T> a) {
+// the CFL rate at the views' point of the plane in slot q.kc (advec_2
+// cfl_max's pointwise expression): u(i+1), v(j+1) and w(k+1) are in the
+// group slots and the column that evisc_math reads
+template <typename T, typename VF>
+__device__ __forceinline__ T cfl_rate(const VF& U, const VF& V, const VF& W,
+                                      Slots q, T dxi, T dyi, T dzi) {
+    const T half = T(0.5);
+    return fabs(half * (U(q.kc, 0, 0) + U(q.kc, 0, 1))) * dxi
+           + fabs(half * (V(q.kc, 0, 0) + V(q.kc, 1, 0))) * dyi
+           + fabs(half * (W(q.kc, 0, 0) + W(q.kp, 0, 0))) * dzi;
+}
+
+// The march of one chunk of one tile: K1/K14 (LIM false) store the eddy
+// viscosity at the tile's own points; K7 (LIM true) reduces it and the CFL
+// rate to the tile's per-level maxima.  The arguments come by value: taken
+// by reference to the kernel's parameter, they gave K1 other SASS (its
+// registers and the unrolling of its copies), though not other results.
+template <typename T, int ST, bool LIM>
+__device__ __forceinline__ void evisc_march(const EviscArgs<T> a) {
     using Sl = km::Slot<EV_TJ, EV_HALO>;
     constexpr int SZ = Sl::SIZE, PL = EV_NF * SZ;
     T* const ring = reinterpret_cast<T*>(evisc_smem_buf);   // [R][NF][SZ]
@@ -321,6 +260,22 @@ evisc_kernel(const EviscArgs<T> a) {
     auto n2_at = [&](int k) {
         return __ldg(a.th + (long long)k * plane + o2);
     };
+    // K7: the threads' rates of level k lie in red[k & 1] (the CFL rate's,
+    // then the eddy viscosity's, in thread order); warp r folds rate r,
+    // each lane the rates of eight neighbouring threads and the lanes by
+    // shuffles, into the tile's partial of level k
+    T* const red = rows + EV_R * EV_NCP;                     // [2][2][NT]
+    auto fold = [&](int k) {
+        if (ty < 2) {
+            const T m = warp_max(max8(red + ((k & 1) * 2 + ty) * EV_NT
+                                      + 8 * tx));
+            const long long tiles = (long long)gridDim.x * gridDim.y;
+            const long long tile =
+                (long long)blockIdx.y * gridDim.x + blockIdx.x;
+            if (tx == 0)
+                a.out[((long long)ty * a.ktot + k) * tiles + tile] = m;
+        }
+    };
 
     // group p lives in slot (p - k0 + 1) mod EV_R
     issue(k0 - 1, 0);
@@ -354,6 +309,8 @@ evisc_kernel(const EviscArgs<T> a) {
         T an = T(0), n2n = T(0);
         if (ST == 1) an = th_at(min(k + 2, k1));
         if (ST == 2) n2n = n2_at(min(k + 1, k1 - 1));
+        // K7: level k-1's rates, which its threads wrote before the barrier
+        if (LIM && k > k0) fold(k - 1);
 
         const T* const pm = ring + sm * PL + me;
         const T* const pc = ring + sc * PL + me;
@@ -368,7 +325,16 @@ evisc_kernel(const EviscArgs<T> a) {
         const T ev = evisc_math<QRow<T>>(U, V, W, A, q,
                                          QRow<T>{rows + sc * EV_NCP}, a.dxi,
                                          a.dyi, a.tPr, ST, n2);
-        if (inside) a.out[(long long)k * plane + o2] = ev;
+        if constexpr (LIM) {
+            // a partial tile's virtual points are real grid points (their
+            // offsets wrapped), so they may enter the maxima
+            const T cfl = cfl_rate(U, V, W, q, a.dxi, a.dyi,
+                                   rows[sc * EV_NCP + E_DZI]);
+            red[(k & 1) * 2 * EV_NT + tid] = cfl;
+            red[((k & 1) * 2 + 1) * EV_NT + tid] = ev;
+        } else {
+            if (inside) a.out[(long long)k * plane + o2] = ev;
+        }
         u0 = u1; u1 = u2;
         v0 = v1; v1 = v2;
         w1 = w2;
@@ -376,8 +342,30 @@ evisc_kernel(const EviscArgs<T> a) {
         n2 = n2n;
         sm = sc;
     }
+    if constexpr (LIM) {
+        // the chunk's last level, after a barrier of its own
+        __syncthreads();
+        fold(k1 - 1);
+    }
     // no copy may land after the block has left its shared memory
     km::wait_all();
+}
+
+// five blocks an SM in float32 (at most 51 registers: 0.567 against 0.601
+// ms with four at rico 384^3, 1.305 against 1.412 clamped at drycblles
+// 512^3 on an H100 at 700 W; six, at 40 registers and 8 B of spill, ran
+// 5% slower than four), three in float64
+template <typename T, int ST>
+__global__ void __launch_bounds__(EV_NT, sizeof(T) == 4 ? 5 : 3)
+evisc_kernel(const EviscArgs<T> a) {
+    evisc_march<T, ST, false>(a);
+}
+
+// K7: the march with its maxima, as many blocks an SM as K1
+template <typename T, int ST>
+__global__ void __launch_bounds__(EV_NT, sizeof(T) == 4 ? 5 : 3)
+limits_kernel(const EviscArgs<T> a) {
+    evisc_march<T, ST, true>(a);
 }
 
 // f(integral_constant ST) for the stratified mode ST
@@ -392,12 +380,12 @@ int evisc_form(int stratified, F f) {
     return (int)cudaErrorInvalidValue;
 }
 
+// the arguments of a K1/K14 or K7 launch (out: K7's partials)
 template <typename T>
-int launch_evisc(const T* u, const T* v, const T* w, const T* th, T* out,
-                 const T* ce, int itot, int jtot, int ktot, int ks, double dxi,
-                 double dyi, double tPr, int stratified, int ghosts,
-                 int chunks, cudaStream_t stream) {
-    if (chunks < 1 || chunks > ktot) return (int)cudaErrorInvalidValue;
+EviscArgs<T> evisc_args(const T* u, const T* v, const T* w, const T* th,
+                        T* out, const T* ce, int itot, int jtot, int ktot,
+                        int ks, double dxi, double dyi, double tPr,
+                        int ghosts, int chunks) {
     EviscArgs<T> a;
     a.u = u; a.v = v; a.w = w; a.th = th; a.out = out; a.ce = ce;
     a.itot = itot; a.jtot = jtot; a.ktot = ktot; a.ks = ks;
@@ -405,17 +393,34 @@ int launch_evisc(const T* u, const T* v, const T* w, const T* th, T* out,
     a.ghosts = ghosts; a.chunks = chunks;
     a.vec_ok = itot % (16 / (int)sizeof(T)) == 0 && km::aligned16(u)
                && km::aligned16(v) && km::aligned16(w);
+    return a;
+}
+
+// one launch of a march kernel: tiles x chunks blocks
+template <typename T, typename K>
+int launch_march(K kernel, const EviscArgs<T>& a, size_t smem,
+                 cudaStream_t stream) {
+    int rc = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (rc) return rc;
+    const dim3 block(km::TI, EV_TJ);
+    const dim3 grid((a.itot + km::TI - 1) / km::TI,
+                    (a.jtot + EV_TJ - 1) / EV_TJ, a.chunks);
+    kernel<<<grid, block, smem, stream>>>(a);
+    return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_evisc(const T* u, const T* v, const T* w, const T* th, T* out,
+                 const T* ce, int itot, int jtot, int ktot, int ks, double dxi,
+                 double dyi, double tPr, int stratified, int ghosts,
+                 int chunks, cudaStream_t stream) {
+    if (chunks < 1 || chunks > ktot) return (int)cudaErrorInvalidValue;
+    const EviscArgs<T> a = evisc_args(u, v, w, th, out, ce, itot, jtot, ktot,
+                                      ks, dxi, dyi, tPr, ghosts, chunks);
     return evisc_form(stratified, [&](auto st) {
-        auto kernel = evisc_kernel<T, decltype(st)::value>;
-        const size_t smem = evisc_smem<T>();
-        int rc = (int)cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (rc) return rc;
-        const dim3 block(km::TI, EV_TJ);
-        const dim3 grid((itot + km::TI - 1) / km::TI,
-                        (jtot + EV_TJ - 1) / EV_TJ, chunks);
-        kernel<<<grid, block, smem, stream>>>(a);
-        return (int)cudaGetLastError();
+        return launch_march(evisc_kernel<T, decltype(st)::value>, a,
+                            evisc_smem<T>(), stream);
     });
 }
 
@@ -427,22 +432,33 @@ int evisc_info(int stratified, int* out) {
     });
 }
 
-// part: (2, ktot, tiles) scratch, tiles = ceil(itot/TI) * ceil(jtot/TJ);
+// part: (2, ktot, tiles) scratch, tiles = ceil(itot/32) * ceil(jtot/EV_TJ);
 // out: (2, ktot) per-level maxima of the CFL rate and the eddy viscosity
 template <typename T>
 int launch_limits(const T* u, const T* v, const T* w, const T* th, T* part,
                   T* out, const T* ce, int itot, int jtot, int ktot, int ks,
                   double dxi, double dyi, double tPr, int stratified,
-                  int ghosts, cudaStream_t stream) {
-    const dim3 block(TI, TJ);
-    const dim3 grid((itot + TI - 1) / TI, (jtot + TJ - 1) / TJ);
-    limits_kernel<T><<<grid, block, 0, stream>>>(
-        u, v, w, th, part, ce, itot, jtot, ktot, ks, T(dxi), T(dyi), T(tPr),
-        stratified, ghosts);
-    if (int rc = (int)cudaGetLastError()) return rc;
-    limits_reduce<T><<<2 * ktot, 256, 0, stream>>>(
-        part, out, (long long)grid.x * grid.y);
+                  int ghosts, int chunks, cudaStream_t stream) {
+    if (chunks < 1 || chunks > ktot) return (int)cudaErrorInvalidValue;
+    const EviscArgs<T> a = evisc_args(u, v, w, th, part, ce, itot, jtot,
+                                      ktot, ks, dxi, dyi, tPr, ghosts, chunks);
+    const int rc = evisc_form(stratified, [&](auto st) {
+        return launch_march(limits_kernel<T, decltype(st)::value>, a,
+                            limits_smem<T>(), stream);
+    });
+    if (rc) return rc;
+    const long long tiles = (long long)((itot + km::TI - 1) / km::TI)
+                            * ((jtot + EV_TJ - 1) / EV_TJ);
+    limits_reduce<T><<<2 * ktot, 256, 0, stream>>>(part, out, tiles);
     return (int)cudaGetLastError();
+}
+
+template <typename T>
+int limits_info(int stratified, int* out) {
+    return evisc_form(stratified, [&](auto st) {
+        return km::kernel_info(limits_kernel<T, decltype(st)::value>, EV_NT,
+                               limits_smem<T>(), out);
+    });
 }
 
 }  // namespace mhh
@@ -475,12 +491,15 @@ int launch_limits(const T* u, const T* v, const T* w, const T* th, T* part,
         const void* u, const void* v, const void* w, const void* th,          \
         void* part, void* out, const void* ce, int itot, int jtot, int ktot,  \
         int ks, double dxi, double dyi, double tPr, int stratified,           \
-        int ghosts, void* stream) {                                           \
+        int ghosts, int chunks, void* stream) {                               \
         return mhh::launch_limits<T>((const T*)u, (const T*)v, (const T*)w,   \
                                      (const T*)th, (T*)part, (T*)out,         \
                                      (const T*)ce, itot, jtot, ktot, ks, dxi, \
-                                     dyi, tPr, stratified, ghosts,            \
+                                     dyi, tPr, stratified, ghosts, chunks,    \
                                      (cudaStream_t)stream);                   \
+    }                                                                         \
+    extern "C" int mhh_limits_info_##SUF(int scheme, int S, int* out) {       \
+        return mhh::limits_info<T>(scheme, out);                              \
     }
 
 MHH_EVISC(f32, float)

@@ -65,8 +65,8 @@ SIGNATURES = {
     # complex y (read only), complex scratch w, real x; kt, jtot, itot
     "dft_inv_split": [_P] * 3 + [_I] * 3,
     # u, v, w, th, part, out, ce; itot, jtot, ktot, ks; dxi, dyi, tPr;
-    # stratified, ghosts
-    "limits": [_P] * 7 + [_I] * 4 + [_D] * 3 + [_I] * 2,
+    # stratified, ghosts, chunks (ops/kmarch.py)
+    "limits": [_P] * 7 + [_I] * 4 + [_D] * 3 + [_I] * 3,
     # u, v, w, e, us, vs, ws, tu, tv, tw, ct; itot, jtot, ktot, ks; dxi, dyi,
     # visc, fc, utrans, vtrans, cbdt, can; coriolis, carry, advec, chunks
     # (ops/kmarch.py)
@@ -121,13 +121,13 @@ SIGNATURES = {
 
 # Kernels with an entry mhh_<kernel>_info_<f32|f64>(scheme, S, int out[5])
 # (the scalar sweep's "scheme" is its advec flag, K22's its thermo flag,
-# K1/K14's its stratified mode; K11, K8/K9 and K18 read neither, K12, K16 and
-# K1/K14 not S): registers, local bytes a thread, dynamic shared memory a
-# block, resident blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
-# SMs.
+# K1/K14's and K7's its stratified mode; K11, K8/K9 and K18 read neither,
+# K12, K16, K1/K14 and K7 not S): registers, local bytes a thread, dynamic
+# shared memory a block, resident blocks an SM
+# (cudaOccupancyMaxActiveBlocksPerMultiprocessor), SMs.
 INFO = ("advec_mom", "advec_scalars", "o4_mom", "o4_scalars",
         "tend_scalars", "tend_scalar_acc", "micro2", "tend_rk_fold",
-        "tend_uvw", "tend_uvw_acc", "evisc")
+        "tend_uvw", "tend_uvw_acc", "evisc", "limits")
 INFO_KEYS = ("registers", "local_bytes", "smem", "blocks_per_sm", "sms")
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}

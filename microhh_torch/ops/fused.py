@@ -23,7 +23,8 @@ no fallback from the card to the plain version.
                             (``csrc/pres_glue.cu``);
 * K7 ``Fused.limits``     - per-level maxima of the CFL rate and of K1's
                             eddy viscosity, the adaptive-dt limits
-                            (``csrc/evisc.cu``);
+                            (``csrc/evisc.cu``, K1's k-march with the
+                            maxima as its epilogue);
 * K8/K9 ``FusedGeneric.tend_uvw`` - the generic path's u, v, w advec_2 +
                             smag2 + column fold + Coriolis + RK fold in
                             one k-march (``csrc/tend_generic.cu``, chunked
@@ -85,9 +86,6 @@ from .stencil import im, ip, jm, jp, i2
 (P_RHO, P_RHOH, P_RHOH1, P_DZI, P_DZHI, NP) = range(6)
 
 PROGNOSTIC = ("u", "v", "w", "th")
-
-# (j, i) tile of a thread block of the stencil kernels (csrc/common.cuh TJ, TI)
-TILE_J, TILE_I = 8, 32
 
 
 def _planes(a, first, n, off, lo, hi):
@@ -660,11 +658,22 @@ class Fused:
                      self.evisc_plan(u.dtype, stratified, chunks).chunks)
         return out
 
-    def limits(self, u, v, w, th):
+    def limits_plan(self, dtype, stratified, chunks=None):
+        """K7's k-march (ops/kmarch.py) in the stratified mode (0, 1, or 2
+        with an N2 field), the chunk count chosen from the card's resident
+        blocks unless given."""
+        ctx = self.ctx
+        info = self.k_limits.info(dtype, stratified)
+        return kmarch.plan("limits", ctx.itot, ctx.jtot, ctx.ktot, 0, dtype,
+                           info["blocks_per_sm"] * info["sms"], chunks)
+
+    def limits(self, u, v, w, th, chunks=None):
         """K7: per-level maxima (ktot,) of the CFL rate and the eddy
         viscosity (before the MOST row patch).  th is the scalar whose
         gradient gives N2 or, when ``stratified`` is 2, the interior N2
-        field itself (K14's mode; K7 takes it as a mode of its one kernel)."""
+        field itself (K14's mode; K7 takes it as a mode of its one kernel);
+        unstratified, it is not read (pass any field).  chunks: force the
+        k-split (checks and timings only)."""
         ctx = self.ctx
         args = (ctx.ks, ctx.dxi, ctx.dyi, self.tPr)
         external = self.stratified == 2
@@ -676,12 +685,13 @@ class Fused:
         th_shape = (ctx.ktot, ctx.jtot, ctx.itot) if external else shape
         check((u, v, w, th, self.ce), u.dtype, u.device,
               [shape] * 3 + [th_shape, (ctx.ktot, NE)])
-        tiles = (-(-ctx.itot // TILE_I)) * (-(-ctx.jtot // TILE_J))
-        part = torch.empty((2, ctx.ktot, tiles), dtype=u.dtype, device=u.device)
+        plan = self.limits_plan(u.dtype, self.stratified, chunks)
+        part = torch.empty((2, ctx.ktot, plan.tiles_i * plan.tiles_j),
+                           dtype=u.dtype, device=u.device)
         out = torch.empty((2, ctx.ktot), dtype=u.dtype, device=u.device)
         self.k_limits(u.dtype, u, v, w, th, part, out, self.ce, ctx.itot,
                       ctx.jtot, ctx.ktot, *args, self.stratified,
-                      int(self.ghosts))
+                      int(self.ghosts), plan.chunks)
         return out[0], out[1]
 
     def _sweep_args(self):

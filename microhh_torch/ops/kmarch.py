@@ -2,8 +2,9 @@
 (``advec_scalars``), K16 (``o4_mom``), K17 (``o4_scalars``), the scalar
 sweep K10 (``tend_scalars``) / K19 (``tend_scalar_acc``), the momentum
 sweep K8/K9 (``tend_uvw``) / K18 (``tend_uvw_acc``), the folded dry
-sweep K22 (``tend_rk_fold``) and the eddy viscosity K1/K14 (``evisc``, one
-body for ``Fused.evisc`` and ``FusedGeneric.evisc_n2``): the host's copy of
+sweep K22 (``tend_rk_fold``), the eddy viscosity K1/K14 (``evisc``, one
+body for ``Fused.evisc`` and ``FusedGeneric.evisc_n2``) and the limits
+pass K7 (``limits``, K1's march with its maxima): the host's copy of
 ``csrc/kmarch.cuh`` and of the kernels' shared-memory layouts.
 
 A launch is a grid of (tiles in i) x (tiles in j) x chunks blocks; block z
@@ -14,8 +15,9 @@ the SMs) so that the blocks fill the card in whole waves: the count that
 minimises waves x (levels a chunk + the planes a chunk reads again to warm
 its column up).  The shared-memory formulas repeat the kernels' own
 (``k12_smem``, ``k13_smem``, ``K16<T>::smem``, ``k17_smem``,
-``sweep_smem``, ``uvw_smem``, ``fold_smem``, ``evisc_smem``), and a CPU
-test holds the constants here to those in the sources.
+``sweep_smem``, ``uvw_smem``, ``fold_smem``, ``evisc_smem``,
+``limits_smem``), and a CPU test holds the constants here to those in the
+sources.
 """
 
 import collections
@@ -126,6 +128,12 @@ def evisc_smem(dtype):
             * _bytes(dtype))
 
 
+def limits_smem(dtype):
+    """Dynamic shared memory of a K7 launch (csrc/evisc.cu limits_smem):
+    K1's and the two rates of each thread for two levels."""
+    return evisc_smem(dtype) + 2 * 2 * TI * EV_TJ * _bytes(dtype)
+
+
 # kernel -> shared memory of a launch (S, dtype, advec)
 SMEM = {"advec_mom": lambda S, dtype, advec: k12_smem(dtype),
         "advec_scalars": lambda S, dtype, advec: k13_smem(S, dtype),
@@ -138,19 +146,21 @@ SMEM = {"advec_mom": lambda S, dtype, advec: k12_smem(dtype),
         "tend_uvw": lambda S, dtype, advec: uvw_smem(dtype),
         "tend_uvw_acc": lambda S, dtype, advec: uvw_smem(dtype),
         "tend_rk_fold": lambda S, dtype, advec: fold_smem(dtype),
-        "evisc": lambda S, dtype, advec: evisc_smem(dtype)}
+        "evisc": lambda S, dtype, advec: evisc_smem(dtype),
+        "limits": lambda S, dtype, advec: limits_smem(dtype)}
 TILE_J = {"advec_mom": K12_TJ, "advec_scalars": K13_TJ, "o4_mom": K16_TJ,
           "o4_scalars": K17_TJ, "tend_scalars": SW_TJ,
           "tend_scalar_acc": SW_TJ, "tend_uvw": UVW_TJ,
-          "tend_uvw_acc": UVW_TJ, "tend_rk_fold": K22_TJ, "evisc": EV_TJ}
+          "tend_uvw_acc": UVW_TJ, "tend_rk_fold": K22_TJ, "evisc": EV_TJ,
+          "limits": EV_TJ}
 # planes a chunk reads again to warm its column up: K12's, K13's, K16's and
 # K17's seven-plane windows; the sweep's column k0-1..k0+1 and the plane
-# past it; the momentum sweep's and K1/K14's groups k0-1 and k1; K22's
+# past it; the momentum sweep's, K1/K14's and K7's groups k0-1 and k1; K22's
 # planes k0-2, k0-1 below the chunk (with e(k0-1)) and w's tendency at k1
 # above it
 WARM = {"advec_mom": 6, "advec_scalars": 6, "o4_mom": 6, "o4_scalars": 6,
         "tend_scalars": 2, "tend_scalar_acc": 2, "tend_uvw": 2,
-        "tend_uvw_acc": 2, "tend_rk_fold": 2, "evisc": 2}
+        "tend_uvw_acc": 2, "tend_rk_fold": 2, "evisc": 2, "limits": 2}
 
 
 def chunk_bounds(chunks, ktot):
@@ -177,9 +187,9 @@ def plan(kernel, itot, jtot, ktot, S, dtype, slots, chunks=None,
     K16 ("o4_mom"), K17 ("o4_scalars", S scalars), the scalar sweep
     ("tend_scalars" K10, "tend_scalar_acc" K19; S scalars, advec its flag),
     the momentum sweep ("tend_uvw" K8/K9, "tend_uvw_acc" K18), K22
-    ("tend_rk_fold") or K1/K14 ("evisc"): tiles, chunk count (chosen from slots, the card's
-    resident blocks, unless given), shared memory a block and the waves it
-    makes."""
+    ("tend_rk_fold"), K1/K14 ("evisc") or K7 ("limits"): tiles, chunk count
+    (chosen from slots, the card's resident blocks, unless given), shared
+    memory a block and the waves it makes."""
     tiles_i = -(-itot // TI)
     tiles_j = -(-jtot // TILE_J[kernel])
     if chunks is None:

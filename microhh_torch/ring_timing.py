@@ -1,10 +1,10 @@
 """Time the ring kernels K16, K17, K12, K13, the scalar sweep K10/K19 and
 the momentum sweep K8/K9/K18 on one card, the kernels that share the
 sweep's scalar point function (K2, K22, K20, K15), K11, the warm-rain
-column sweep, and the eddy viscosity K1/K14.
+column sweep, the eddy viscosity K1/K14 and the limits pass K7.
 
     python3 -m microhh_torch.ring_timing [--out FILE] [--label NAME]
-                                  [--groups rings,s_tend,fold,micro2,evisc]
+                           [--groups rings,s_tend,fold,micro2,evisc,limits]
 
 At the four shapes of their main paths: weakscaling 512x256x1024 float32
 (K16 in scheme 4, K17 with one scalar), moser180 256x192x128 float64 (both
@@ -42,6 +42,15 @@ jaenschwalde's 1024x256x256 in ghost mode with the moist N2, at drycblles
 512x512x64 in ghost mode (the substep without the RK fold) and K14 at
 SBL_Smag 256^3, each with its plan, occupancy, one-chunk time, the SASS
 count of its per-level loop and K7's time at the same shape beside it.
+K7 (the ``limits`` group, ``limits_rows``) in the mode of each of its
+paths: drycblles 512^3 clamped (the RK-folded path's own mode), rico 384^3
+in float32 and float64 and jaenschwalde's 1024x256x256 in ghost mode with
+the moist N2, SBL_Smag 256^3 with its N2 field and the neutral Ekman LES
+768x384x288 clamped and unstratified (no th read; the earlier kernel reads
+u in its place, as ``Model.limits`` passes it), each with its plan,
+occupancy, one-chunk time, the SASS count of its per-level loop
+(``limits_function``: the k-march's limits_kernel<T, ST> or an earlier
+tree's limits_kernel<T>) and K1's (K14's) time at the same shape beside it.
 Each time is the mean of 10 launches by
 CUDA events after one warm-up launch; the stencil kernels run on seeded
 random fields.  Beside each time: the bound (each input and output once
@@ -82,8 +91,9 @@ from .config import Ini
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the timed groups: K16, K17, K12, K13, K10, K19, K8/K9 and K18; the
-# kernels that call s_tend; K22 on its paths; K11; K1/K14 (with K7)
-GROUPS = ("rings", "s_tend", "fold", "micro2", "evisc")
+# kernels that call s_tend; K22 on its paths; K11; K1/K14 (with K7); K7
+# (with K1/K14)
+GROUPS = ("rings", "s_tend", "fold", "micro2", "evisc", "limits")
 REPS = 10
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 33.5e12}
@@ -93,7 +103,8 @@ FLOPS = {"o4_mom": {"4": 560, "4m": 510}, "o4_scalars": {"4": 185, "4m": 140},
          "advec_mom": 400, "advec_scalars": 130, "tend_scalars": 110,
          "tend_scalar_acc": 100, "tend_rk": 700, "tend_rk_fold": 900,
          "tendencies": 700, "tend_scalar_rk": 110, "micro2": 300,
-         "tend_uvw": 450, "tend_uvw_acc": 430, "evisc": 100, "evisc_n2": 100}
+         "tend_uvw": 450, "tend_uvw_acc": 430, "evisc": 100, "evisc_n2": 100,
+         "limits": 110}
 # K11 moves 13 passes over a field: qr, nr, qt, thl and ql read, four
 # tendencies read and written
 MICRO2_PASSES = 13
@@ -160,6 +171,21 @@ EVISC_SHAPES = [("rico", "rico", (384, 384, 384), torch.float32, {}),
                 ("sullivan2011 unfolded", "sullivan2011", (512, 512, 64),
                  torch.float32, {"unfolded": True}),
                 ("SBL_Smag", "SBL_Smag", (256, 256, 256), torch.float32, {})]
+# K7's CUDA function, limits_kernel<T, ST> (an earlier tree's
+# limits_kernel<T>), and its shapes in the mode of each path: (label, case,
+# shape, dtype, build_step options); jaenschwalde's, moist in ghost mode,
+# runs on the rico case at its shape
+LIMITS = "limits_kernel"
+LIMITS_SHAPES = [("drycblles", "drycblles", (512, 512, 512), torch.float32,
+                  {}),
+                 ("rico", "rico", (384, 384, 384), torch.float32, {}),
+                 ("rico", "rico", (384, 384, 384), torch.float64, {}),
+                 ("jaenschwalde", "rico", (1024, 256, 256), torch.float32,
+                  {}),
+                 ("SBL_Smag", "SBL_Smag", (256, 256, 256), torch.float32,
+                  {}),
+                 ("andren1994 less s", "andren1994", (768, 384, 288),
+                  torch.float32, {})]
 # the CUDA functions of the kernels that call s_tend
 S_TEND_FUNCTIONS = {"tend_rk": "tend_rk_kernel",
                     "tend_rk_fold": "tend_rk_fold_kernel",
@@ -638,6 +664,86 @@ def evisc_rows(label, case, shape, dtype, step, ptx, card, loops=None,
     return [row]
 
 
+def limits_function(dtype, stratified, known):
+    """The ptxas and SASS key of the K7 instance a launch takes: the
+    k-march's limits_kernel<T, ST>, or the ring's limits_kernel<T> where
+    `known` (keys of a build) holds that."""
+    t = "float" if dtype == torch.float32 else "double"
+    old = "%s<%s>" % (LIMITS, t)
+    return old if old in known else "%s<%s,%d>" % (LIMITS, t, stratified)
+
+
+def limits_rows(label, case, shape, dtype, step, ptx, card, loops=None,
+                clock_ghz=None, device="cuda"):
+    """K7 (Fused.limits) in the mode of the model of case at shape (ghost
+    or clamped; its N2 from a scalar, an N2 field, or none) on seeded
+    random fields (th around 300 K; u in th's place unstratified, as
+    Model.limits passes it), with K1's (K14's) time at the same shape
+    beside it.  Where the tree's K7 is the k-march (it reports its
+    occupancy) the row takes its plan's chunks, blocks and waves, its
+    occupancy and its time with one chunk; where the SASS holds its
+    per-level loop (loops: sass_loops of the build), the loop's count and
+    issue time (fold_issue)."""
+    from .ops import kmarch
+    itot, jtot, ktot = shape
+    n = itot * jtot * ktot
+    fb = n * torch.finfo(dtype).bits // 8
+    with tempfile.TemporaryDirectory() as workdir:
+        m = build(case, itot, jtot, ktot, dtype, workdir, device, **step)
+        fz, ctx = m.fused, m.ctx
+        st = fz.stratified
+        gen = torch.Generator(device=device).manual_seed(itot + ktot)
+
+        def rnd(scale=1., k=ctx.kcells):
+            return scale * torch.randn((k, jtot, itot), dtype=dtype,
+                                       device=device, generator=gen)
+        u, v, w = rnd(), rnd(), rnd(0.3)
+        if st == 0:
+            a = u
+        else:
+            a = rnd(1e-4, ktot) if st == 2 else 300. + rnd()
+
+        def fn(**kw):
+            return fz.limits(u, v, w, a, **kw)
+        if st == 2:
+            def ev():
+                return fz.evisc_n2(u, v, w, a)
+        else:
+            def ev():
+                return fz.evisc(u, v, w, a)
+        # u, v, w and th or N2 read once; the partials and maxima are small
+        nbytes = (3 + (st > 0)) * fb
+        by_bytes = 1e3 * nbytes / PEAK_BYTES_S
+        by_ops = 1e3 * FLOPS["limits"] * n / PEAK_FLOPS[dtype]
+        key = limits_function(dtype, st, set(ptx) | set(loops or ()))
+        row = {"label": label, "kernel": "limits", "shape": list(shape),
+               "dtype": str(dtype)[6:], "ghosts": bool(fz.ghosts),
+               "stratified": st, "ms": events_ms(fn),
+               "bound_ms": max(by_bytes, by_ops),
+               "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+               "ops_per_point": FLOPS["limits"], "gbytes": nbytes / 1e9,
+               "ptxas": ptx.get(key), "function": key, "card": card,
+               "evisc_kernel": "evisc_n2" if st == 2 else "evisc",
+               "evisc_ms": events_ms(ev)}
+        if "limits" in kernels.INFO:
+            pl = fz.limits_plan(dtype, st)
+            row.update(fz.k_limits.info(dtype, st), chunks=pl.chunks,
+                       blocks=pl.tiles_i * pl.tiles_j * pl.chunks,
+                       waves=pl.waves,
+                       ms_one_chunk=events_ms(lambda: fn(chunks=1)))
+        if loops and key in loops:
+            # the parent's tile has common.cuh's eight rows too
+            row.update(fold_issue(loops[key], shape,
+                                  getattr(kmarch, "EV_TJ", 8), clock_ghz,
+                                  sms_of(device)) or {})
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        print(json.dumps(row), flush=True)
+        del m, u, v, w, a
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return [row]
+
+
 def micro2_state(m, heavy, seed=5):
     """K11's inputs on the rico model m: (state, ql, dt).  The cell's own
     state is its initial fields (cloud-free, no rain); heavy rain adds
@@ -1035,6 +1141,7 @@ def main():
     loops.update(sass_loops(sass, FUNCTIONS["advec_mom"]))
     loops.update(sass_loops(sass, UVW))
     loops.update(sass_loops(sass, EVISC))
+    loops.update(sass_loops(sass, LIMITS))
     clock = max_sm_clock_ghz()
     rows = [{"kind": "sass_digests", "digests": sass_digests(sass)}]
     groups = set(args.groups.split(","))
@@ -1057,6 +1164,10 @@ def main():
             EVISC_SHAPES if "evisc" in groups else ()):
         rows += evisc_rows(label, case, shape, dtype, step, ptx, card, loops,
                            clock)
+    for label, case, shape, dtype, step in (
+            LIMITS_SHAPES if "limits" in groups else ()):
+        rows += limits_rows(label, case, shape, dtype, step, ptx, card,
+                            loops, clock)
     for label, shape, dtype in MICRO2_SHAPES if "micro2" in groups else ():
         with tempfile.TemporaryDirectory() as workdir:
             m = build("rico", *shape, dtype, workdir)

@@ -58,7 +58,7 @@ def flat_source():
 def test_kernel_structure_is_the_source():
     """One body for K1 and K14, templated on the stratified mode, launched
     with its dynamic shared memory; a group of three fields a slot, five
-    slots, one commit group and one barrier a level; K7's ring untouched."""
+    slots, one commit group and one barrier a level; K7 on the same march."""
     flat = flat_source()
     assert ("__launch_bounds__(EV_NT, sizeof(T) == 4 ? 5 : 3) "
             "evisc_kernel(const EviscArgs<T> a)" in flat)
@@ -75,10 +75,12 @@ def test_kernel_structure_is_the_source():
     # the per-field clamps
     assert "clampi(a.ks + p, lo, hic) * plane" in flat
     assert "clampi(a.ks + p, lo, ke) * plane" in flat
-    # three kernels: K1/K14, K7 and K7's reduction; K7 keeps its ring
+    # three kernels: K1/K14, K7 and K7's reduction; K7 is the same march
+    # with its maxima (test_torch_limits_march.py), no ring is left
     assert flat.count("__global__") == 3
-    assert "limits_kernel<T><<<grid, block, 0, stream>>>(" in flat
-    assert "__shared__ Ring<T> sh;" in flat
+    assert "evisc_march<T, ST, false>(a);" in flat
+    assert "evisc_march<T, ST, true>(a);" in flat
+    assert "Ring<T>" not in flat and "load_tile" not in flat
     # the entries take the chunk count last and report their occupancy
     for entry in ("int stratified, int ghosts, int chunks, void* stream",
                   "double tPr, int chunks, void* stream",

@@ -1,8 +1,9 @@
 """The k-march of the redesigned ring kernels K12 (``advec_mom``), K13
 (``advec_scalars``), K16 (``o4_mom``), K17 (``o4_scalars``) and K22
 (``tend_rk_fold``): ``ops/kmarch.py`` and the wrappers around it, on the
-CPU; and of K1/K14 (``evisc``) its constants, shared memory and plans at
-the main shapes (the rest in ``test_torch_evisc_march.py``).
+CPU; and of K1/K14 (``evisc``) and K7 (``limits``) their constants, shared
+memory and plans at the main shapes (the rest in
+``test_torch_evisc_march.py`` and ``test_torch_limits_march.py``).
 
 * ``chunk_bounds`` and ``plan`` cover [0, ktot) exactly once, every chunk
   non-empty, for ktot 1-40, 128, 384 and 1024; ``plan`` fills the card in
@@ -122,6 +123,21 @@ def test_plan_at_the_main_shapes():
         assert (p.chunks, p.waves) == (chunks, waves), shape
     p = kmarch.plan("evisc", 384, 384, 384, 0, torch.float64, 396)
     assert (p.chunks, p.waves, p.smem) == (2, 3, 48320)
+    # K7, K1's march with its maxima, as many blocks an SM: the same plans
+    # and the neutral LES 768x384x288; its shared memory holds two levels'
+    # rates of each thread more
+    for shape, chunks, waves in (((384, 384, 384), 8, 7),
+                                 ((1024, 256, 256), 7, 11),
+                                 ((256, 256, 256), 5, 2),
+                                 ((512, 512, 512), 9, 14),
+                                 ((512, 512, 64), 3, 5),
+                                 ((768, 384, 288), 4, 7)):
+        p = kmarch.plan("limits", *shape, 0, f32, 660)
+        assert (p.chunks, p.waves, p.smem) == (chunks, waves, 28256), shape
+    p = kmarch.plan("limits", 768, 384, 288, 0, f32, 660)
+    assert (p.tiles_i, p.tiles_j) == (24, 48)
+    p = kmarch.plan("limits", 384, 384, 384, 0, torch.float64, 396)
+    assert (p.chunks, p.waves, p.smem) == (2, 3, 56512)
     # a forced count is taken as it is, and must lie in [1, ktot]
     assert kmarch.plan("o4_mom", 48, 20, 6, 0, f32, 264, chunks=4).chunks == 4
     for bad in (0, 7):
@@ -159,6 +175,13 @@ def test_shared_memory_fits(dtype):
     assert kmarch.WARM["evisc"] == 2
     blocks = 5 if dtype == torch.float32 else 3
     assert blocks * (kmarch.evisc_smem(dtype) + 1024) <= 233472
+    # K7: K1's and two levels' rates of each of its 256 threads, at as many
+    # blocks an SM
+    assert kmarch.limits_smem(dtype) == kmarch.evisc_smem(dtype) + 2 * 2 * 256 * nb
+    assert kmarch.SMEM["limits"](0, dtype, True) == kmarch.limits_smem(dtype)
+    assert kmarch.TILE_J["limits"] == kmarch.EV_TJ
+    assert kmarch.WARM["limits"] == 2
+    assert blocks * (kmarch.limits_smem(dtype) + 1024) <= 233472
 
 
 def test_python_constants_are_the_sources():
@@ -223,6 +246,9 @@ def test_python_constants_are_the_sources():
     flat = re.sub(r"\s+", " ", ev_src)
     assert ("((size_t)EV_R * EV_NF * km::Slot<EV_TJ, EV_HALO>::SIZE + "
             "(size_t)EV_R * EV_NCP) * sizeof(T)" in flat)
+    # K7: its shared-memory formula
+    assert ("return evisc_smem<T>() + (size_t)2 * 2 * EV_NT * sizeof(T);"
+            in flat)
     # chunk_bounds: the same integer formula on both sides
     _, km_src = constants("kmarch.cuh")
     assert "k0 = (int)((long long)z * ktot / chunks);" in km_src

@@ -24,9 +24,11 @@ reads from a build log and how it wires its timed calls, without a card.
   ``only`` times K12 alone, as for its float64 row), and the momentum
   sweep's (``uvw_rows``: K8/K9 with advection on and off, K18) with the
   same columns, and without them where the tree's kernel reports no
-  occupancy (an earlier tree's); and K1's and K14's (``evisc_rows``: the
-  kernel and mode of each case, K7's time beside it) with the same
-  columns, or without them and under the ring's key on an earlier tree;
+  occupancy (an earlier tree's); K1's and K14's (``evisc_rows``: the
+  kernel and mode of each case, K7's time beside it) and K7's
+  (``limits_rows``: the mode of each of its paths, K1's or K14's time
+  beside it) with the same columns, or without them and under the ring's
+  key on an earlier tree;
 * ``sass_digests`` gives each kernel instance of a listing one digest of
   its instructions, the same for the same code at other addresses.
 """
@@ -90,7 +92,7 @@ def test_ptxas_info_reads_template_arguments_and_registers():
 @pytest.mark.parametrize("name", sorted(set(R.FUNCTIONS.values())
                                         | set(R.S_TEND_FUNCTIONS.values())
                                         | {R.SWEEP, R.MICRO2, R.UVW,
-                                           R.EVISC}))
+                                           R.EVISC, R.LIMITS}))
 def test_timed_functions_are_kernels_of_the_sources(name):
     assert name in _globals()
 
@@ -613,3 +615,69 @@ def test_evisc_rows_run_on_the_cpu(label, case, shape, dtype, step, one_call,
                         None, 1.98, device="cpu")
     assert "chunks" not in r and "issue_ms" not in r
     assert r["function"] == old and seen == [(None, case != "drycblles")]
+
+
+# K7's per-level loop around its barrier
+LIMITS_SASS = EVISC_SASS.replace("12evisc_kernelIfLi1EE", "13limits_kernelIfLi0EE")
+
+
+@pytest.mark.parametrize("label,case,shape,dtype,step", R.LIMITS_SHAPES,
+                         ids=["%s %s" % (s[0], str(s[3])[6:])
+                              for s in R.LIMITS_SHAPES])
+def test_limits_rows_run_on_the_cpu(label, case, shape, dtype, step, one_call,
+                                    monkeypatch):
+    """K7's rows at a tiny shape of each of its paths: the mode the case
+    takes (SBL_Smag's N2 field, drycblles' and the neutral LES's clamped
+    mode, the neutral LES unstratified), K1's or K14's time beside it, the
+    plan's chunks, blocks and waves, the occupancy asked in the row's
+    stratified mode, a forced one-chunk run and the SASS count of the
+    per-level loop; an earlier tree's kernel (no info entry,
+    limits_kernel<T>) gets none of the k-march's columns."""
+    from microhh_torch import kernels
+    from microhh_torch.ops import fused as F
+    from microhh_torch.ops import kmarch
+    torch.manual_seed(3)
+    asked = []
+    monkeypatch.setattr(kernels.Kernel, "info",
+                        lambda self, *a: asked.append(a[1]) or INFO)
+    st = {"SBL_Smag": 2, "andren1994": 0}.get(case, 1)
+    t = "float" if dtype == torch.float32 else "double"
+    key = "limits_kernel<%s,%d>" % (t, st)
+    found = R.sass_loops(LIMITS_SASS, R.LIMITS)
+    assert list(found) == ["limits_kernel<float,0>"]
+    loops = {key: found["limits_kernel<float,0>"]}
+    seen = []
+    real = F.Fused.limits
+
+    def call(self, u, v, w, th, chunks=None):
+        seen.append((chunks, self.ghosts, th is u))
+        return real(self, u, v, w, th, chunks=chunks)
+
+    monkeypatch.setattr(F.Fused, "limits", call)
+    tiny = (40, 16, 12)
+    (r,) = R.limits_rows(label, case, tiny, dtype, step, {}, "cpu", loops,
+                         1.98, device="cpu")
+    p = kmarch.plan("limits", 40, 16, 12, 0, dtype, 396)
+    ghosts = case in ("rico", "SBL_Smag")
+    assert r["kernel"] == "limits" and r["stratified"] == st
+    assert r["ghosts"] == ghosts
+    assert r["evisc_kernel"] == ("evisc_n2" if st == 2 else "evisc")
+    assert r["function"] == key and r["dtype"] == str(dtype)[6:]
+    assert (r["chunks"], r["waves"]) == (p.chunks, p.waves)
+    assert r["blocks"] == 2 * 2 * p.chunks and r["blocks_per_sm"] == 3
+    assert r["ms_one_chunk"] == 1.0 and r["evisc_ms"] == 1.0
+    assert r["instructions_a_point"] == 6
+    assert r["gbytes"] == pytest.approx(
+        (3 + (st > 0)) * 40 * 16 * 12 * torch.finfo(dtype).bits / 8 / 1e9)
+    assert seen == [(None, ghosts, st == 0), (1, ghosts, st == 0)]
+    assert set(asked) == {st}
+    # an earlier tree: no occupancy, no chunk count, no forced run, the
+    # ring's limits_kernel<T>
+    monkeypatch.setattr(kernels, "INFO", ())
+    del seen[:]
+    old = "limits_kernel<%s>" % t
+    (r,) = R.limits_rows(label, case, tiny, dtype, step, {old: {}}, "cpu",
+                         None, 1.98, device="cpu")
+    assert "chunks" not in r and "issue_ms" not in r
+    assert r["function"] == old and seen == [(None, ghosts, st == 0)]
+    assert R.limits_function(dtype, st, set()) == key
