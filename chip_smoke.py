@@ -13,7 +13,12 @@ Phases (any failure exits non-zero and prints no result line):
      prime and rectangular planes, jtot not divisible by C, itot/2 not
      divisible by C*F and kt = 1; a float64 512^2 x 4 stack through the
      wrappers, which takes the split form; irfft2(rfft2(x)) against x; K6's
-     input unchanged;
+     input unchanged; K3 against tdma_plain (each mode held to its own
+     maximum: float64 <= 1e-12, float32 <= 1e-4) in every form (check_tdma:
+     the plan's and, where that is the scan form, the sweep form) on
+     drycblles planes of 45^2, 17^2, 16^2 and 8^2 (partial mode tiles) at
+     kmax 6, 24, 100, 130, 500 and 1000 (32 chunks in one type) and, where
+     the plan takes the sweep form, 1040 and 520;
   3. each kernel against its plain-torch version on the card, in float64
      (max error <= 1e-12 of each output's maximum) and float32 (<= 1e-5,
      K11's running column sums and pow/exp/log chain included): the dry
@@ -26,7 +31,8 @@ Phases (any failure exits non-zero and prints no result line):
      sullivan2011 case and, without thermo (K1 and K7 unstratified, K2 and
      K22 with no th), on the neutral Ekman LES at 45^2x8 and 48^2x32; the
      Thomas solve's error is taken relative to each mode's
-     own maximum over k (<= 1e-12 and 1e-4: its k-march accumulates); the
+     own maximum over k (<= 1e-12 and 1e-4: its k-march accumulates), in
+     every form (as in every phase that holds K3); the
      generic path's kernels (K1 and K7 on ghost-filled fields, K8/K9, K10
      with and without the carry, K11 rainy, with strong sedimentation and
      cloud-free) at 45^2x24 and 48^2x32 of the rico case with swadvec=2;
@@ -50,7 +56,9 @@ Phases (any failure exits non-zero and prints no result line):
      and 4 scalars and max_scalars + 2, which the wrapper splits over two
      launches) and the scalar sweep K10/K19 (with and without the RK fold,
      advection on and off, 1, 2, 3, 4 and 6 scalars, the last over two
-     launches) against their plain versions with the k-split forced to 1,
+     launches), and K15 (the sweep at one scalar, its column fold and the
+     advection each on and off) against their plain versions with the
+     k-split forced to 1,
      2, 3, 4 and 5 chunks and to one level a chunk (K16 and K17 also to
      K17's plan), at ktot 16 and 6 (chunks of one to three levels that touch
      both walls), on partial tiles: K16 and K17 on
@@ -124,7 +132,9 @@ Phases (any failure exits non-zero and prints no result line):
      phase 18;
  11. and 12. the same for SBL_Smag (cases/SBL_Smag/SBL.ini, thermo buoy) at
      256^3 float32 with dt scaled with the grid: K14 (also forced as in
-     phase 6b), K15 and K8/K9 with the Coriolis term;
+     phase 6b), K15 (also forced to 1, 2, 3 chunks, its plan's count and
+     one level a chunk, the column fold on and off: check_scalar_rk_forced)
+     and K8/K9 with the Coriolis term;
  13. and 14. the same for the weak-scaling unit (cases/weakscaling/
      weakscaling.ini, advec 4, thermo buoy) assembled for npx = npy = 8 as
      python/scaling.py does, 512x256x1024 float32: K16 and K17; its DIV is
@@ -649,9 +659,9 @@ def kernel_cases(torch, m, seed, chunks=None, fold_only=False):
 
 
 def pres_cases(torch, m, s, t0, rnd):
-    """The projection's kernels (K3-K6) on a model's wrappers."""
+    """The projection's kernels (K3-K6) on a model's wrappers, K3 in every
+    form."""
     from microhh_torch.ops import fused as F
-    from microhh_torch.ops.pres_2 import tdma_plain
     ctx, gl, pr = m.ctx, m.glue, m.pres
     interior = (ctx.ktot, ctx.jtot, ctx.itot)
     cases = []
@@ -677,12 +687,28 @@ def pres_cases(torch, m, s, t0, rnd):
         cases.append(("pres_apply", lambda apply=apply: apply(True),
                       lambda apply=apply: apply(False), "field"))
     spec = torch.fft.rfft2(rnd(*interior), dim=(-2, -1))
-    cases.append(("tdma",
-                  lambda: [torch.view_as_real(pr.tdma(spec.clone()))],
-                  lambda: [torch.view_as_real(tdma_plain(spec.clone(), pr.winv,
-                                                         pr.tab))],
-                  "mode"))
-    return cases + dft_cases(torch, m, rnd)
+    return cases + tdma_cases(torch, pr, spec) + dft_cases(torch, m, rnd)
+
+
+def tdma_forms(kmax, dtype):
+    """The sweep flags check_tdma and pres_cases give K3 at kmax levels:
+    False (the plan's form) and, where the plan takes the scan form, True
+    (the sweep form)."""
+    from microhh_torch.ops.pres_2 import tdma_form
+    return [False] + ([True] if tdma_form(kmax, dtype).form == "scan"
+                      else [])
+
+
+def tdma_cases(torch, pr, spec):
+    """K3 on a Pres2's pivots in every form (tdma_forms) against
+    tdma_plain, each mode held to its own maximum."""
+    from microhh_torch.ops.pres_2 import tdma_plain
+    real = pr.winv.dtype
+    return [("tdma",
+             lambda sw=sw: [torch.view_as_real(pr.tdma(spec.clone(), sw))],
+             lambda: [torch.view_as_real(tdma_plain(spec.clone(), pr.winv,
+                                                    pr.tab))],
+             "mode") for sw in tdma_forms(spec.shape[0], real)]
 
 
 def dft_cases(torch, m, rnd):
@@ -704,6 +730,37 @@ def dft_cases(torch, m, rnd):
              "field"),
             (inv.name, lambda: inv_pair(True), lambda: inv_pair(False),
              "field")]
+
+
+# (n, kmax) of the K3 checks beyond the models' own shapes (drycblles on
+# n^2 planes): partial mode tiles (45^2 and 17^2 make 1035 and 153 modes),
+# kmax under one chunk, not a multiple of the chunk length, and, at 8^2,
+# TD_NCMAX chunks with the last one partial (1000 in float32, 500 in
+# float64) and the sweep form the plan takes where no TD_NCMAX chunks hold
+# the column (1040, and 520 in float64)
+TDMA_SHAPES = ((45, 6), (45, 24), (17, 100), (16, 130), (8, 1040),
+               (8, 1000), (8, 520), (8, 500))
+
+
+def check_tdma(torch):
+    """K3 in every form (tdma_forms) against tdma_plain at TDMA_SHAPES,
+    float64 (per mode <= 1e-12) and float32 (<= 1e-4), on the pivots of a
+    drycblles grid and the spectrum of a seeded random field."""
+    from microhh_torch.ops.pres_2 import tdma_form
+    for n, k in TDMA_SHAPES:
+        for dtype in (torch.float64, torch.float32):
+            m = build_model(torch, n, k, dtype, "cuda")
+            m.build_step()
+            gen = torch.Generator(device="cpu").manual_seed(n + k)
+            x = torch.randn(k, n, n, generator=gen, dtype=torch.float64)
+            spec = torch.fft.rfft2(x.to(dtype).cuda(), dim=(-2, -1))
+            for (name, kern, plain, kind), sw in zip(
+                    tdma_cases(torch, m.pres, spec), tdma_forms(k, dtype)):
+                form = tdma_form(k, dtype, sw)
+                compare(torch, name, kern, plain, kind, dtype,
+                        "%d^2x%d %s L=%d" % (n, k, form.form, form.L))
+            del m
+            torch.cuda.empty_cache()
 
 
 # (itot, jtot, kt) of the DFT checks beyond the models' own shapes: jtot not
@@ -1019,13 +1076,11 @@ def generic_kernel_cases(torch, m, seed, only=None):
             fz.advec = advec
             try:
                 if kernel:
-                    out = fz.tend_scalar_rk(s, t, e, cts[0], 0.7, can, carry,
-                                            fold)
+                    out = fz.tend_scalars(s, t, e, cts, 0.7, can, carry, fold)
                 else:
-                    name = fz.names[0]
-                    out = {name: F.tend_scalar_rk_plain(
-                        s, name, e, t, cts[0], fz.sviscs[0], ctx.ks, ctx.dxi,
-                        ctx.dyi, fz.tPr, 0.7, can, carry, fold, advec)}
+                    out = F.tend_scalars_plain(
+                        s, fz.names, e, t, cts, fz.sviscs, ctx.ks, ctx.dxi,
+                        ctx.dyi, fz.tPr, 0.7, can, carry, advec, fold)
             finally:
                 fz.advec = saved
             return [out[n] for n in out] + [t[n] for n in t]
@@ -1664,6 +1719,72 @@ def sweep_cases(torch, m, seed, chunks):
     return cases
 
 
+# K15's forms (fold, advection): each flag on and off
+K15_FORMS = ((True, True), (True, False), (False, True), (False, False))
+
+
+def scalar_rk_cases(torch, m, seed, chunk_counts, forms=K15_FORMS):
+    """(name, kernel call, plain call, error kind) for K15
+    (FusedGeneric.tend_scalars in a case of one scalar) on a
+    generic model's grid at each forced chunk count (None: the plan's) in
+    each form (fold, advec) of forms: seeded fields, a positive eddy
+    viscosity, a random carry and the base table with noise in every
+    column."""
+    from microhh_torch.ops import fused as F
+    ctx, fz = m.ctx, m.fused
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    shape = (ctx.kcells, ctx.jtot, ctx.itot)
+
+    def rnd(*sh, scale=1.):
+        return (scale * torch.randn(*(sh or shape), generator=gen,
+                                    dtype=torch.float64)).to(ctx.dtype).to(ctx.device)
+
+    s = {"u": rnd(), "v": rnd(), "w": rnd(scale=0.3), "a": rnd()}
+    e = rnd().abs()
+    t0 = rnd(scale=1e-3)
+    cts = (fz.base + rnd(ctx.ktot, F.NTG, scale=1e-3))[None]
+    args = (ctx.ks, ctx.dxi, ctx.dyi, fz.tPr, 0.7, -153. / 128., True)
+    cases = []
+    for chunks in chunk_counts:
+        for fold, advec in forms:
+            def run(kernel, chunks=chunks, fold=fold, advec=advec):
+                t = {"a": t0.clone()}
+                with attrs(fz, names=("a",), sviscs=[2e-5], advec=advec):
+                    if kernel:
+                        out = fz.tend_scalars(s, t, e, cts, *args[4:], fold,
+                                              chunks=chunks)
+                    else:
+                        out = F.tend_scalars_plain(s, ("a",), e, t, cts,
+                                                   [2e-5], *args, advec, fold)
+                return [out["a"], t["a"]]
+            cases.append(("tend_scalar_rk", lambda f=run: f(True),
+                          lambda f=run: f(False), "field"))
+    return cases
+
+
+def scalar_rk_chunks(m, dtype):
+    """The k-splits the runs' phases force on K15: 1, 2 and 3 chunks, the
+    plan's count (in the path's form) and one level a chunk."""
+    k = m.ctx.ktot
+    return sorted({c for c in (1, 2, 3) if c <= k}
+                  | {m.fused.plan("tend_scalars", 1, dtype).chunks, k})
+
+
+def check_scalar_rk_forced(torch, m):
+    """K15 at a run's shapes with its k-split forced (scalar_rk_chunks),
+    the column fold on (the path's) and off, the path's advection flag;
+    returns the largest absolute difference."""
+    adv = m.fused.advec
+    worst = 0.
+    for name, kern, plain, kind in scalar_rk_cases(
+            torch, m, m.ctx.itot + 4, scalar_rk_chunks(m, m.dtype),
+            ((True, adv), (False, adv))):
+        worst = max(worst, compare(torch, name, kern, plain, kind, m.dtype,
+                                   "%s forced" % shape_str(m)))
+        torch.cuda.empty_cache()
+    return worst
+
+
 def forced_chunks(ktot):
     """The k-splits check_kmarch forces: 1, 2 and 3 chunks, 4 and 5 (which
     do not divide 6 or 16), and one level a chunk."""
@@ -1688,7 +1809,8 @@ def check_kmarch(torch):
     moser180 at 45x40 and weakscaling at 48x20, K13 on rico at 45x24 and
     48x20 with 1, 2, 4 and max_scalars + 2 scalars, K12 on the same grids
     with its 16-byte copies where the grid allows them and without
-    (advec_mom_cases), the sweep on rico at 45x24 and 48x20, and there
+    (advec_mom_cases), the sweep on rico at 45x24 and 48x20 (K15 in its
+    four forms too, scalar_rk_cases), and there
     the momentum sweep K8/K9 and K18 (uvw_cases, also at both plans'
     counts) aligned and shifted; K22 in
     every form of kernel_cases (fold_chunks) on drycblles at 512^2x32 and
@@ -1746,7 +1868,8 @@ def check_kmarch(torch):
                 m.build_step()
                 for chunks in forced_chunks(k):
                     for name, kern, plain, kind in sweep_cases(
-                            torch, m, n[0] + k, chunks):
+                            torch, m, n[0] + k, chunks) + scalar_rk_cases(
+                                torch, m, n[1] + k, (chunks,)):
                         compare(torch, name, kern, plain, kind, dtype,
                                 "rico %dx%dx%d chunks=%d"
                                 % (n[0], n[1], k, chunks))
@@ -2064,6 +2187,22 @@ def points(m):
     return m.ctx.ktot * m.ctx.jtot * m.ctx.itot
 
 
+def tdma_info(pr, kmax, nmodes, dtype):
+    """K3's form at a path's shape (ops/pres_2.py tdma_form) and what the
+    card reports of it: registers, local bytes a thread, blocks an SM,
+    threads and blocks of the launch, waves."""
+    form = pr.tdma_form(kmax, dtype)
+    info = pr.k_tdma.info(dtype, int(form.form == "sweep"), form.chunks)
+    # a block of the scan form holds threads / chunks modes, of the sweep
+    # form one a thread
+    blocks = -(-nmodes // (form.threads // form.chunks))
+    return {"form": form.form, "L": form.L, "chunks": form.chunks,
+            "threads": form.threads, "registers": info["registers"],
+            "local_bytes": info["local_bytes"], "smem_per_block": form.smem,
+            "blocks_per_sm": info["blocks_per_sm"], "blocks": blocks,
+            "waves": -(-blocks // (info["blocks_per_sm"] * info["sms"]))}
+
+
 def pres_pairs(torch, m, s):
     """The projection's kernels (K3-K6) at the model's shapes."""
     from microhh_torch.ops import fused as F
@@ -2075,6 +2214,7 @@ def pres_pairs(torch, m, s):
     spec = torch.fft.rfft2(p, dim=(-2, -1))
     fb, n = field_bytes(m), points(m)
     sb = spec.numel() * spec.element_size()
+    modes = spec.shape[1] * spec.shape[2]
     # a real 2-D transform of N points: 2.5 N log2 N operations
     dft_flops = 2.5 * n * np.log2(ctx.jtot * ctx.itot)
 
@@ -2111,9 +2251,11 @@ def pres_pairs(torch, m, s):
                          lambda: F.pres_rhs_plain(s["u"], s["v"], s["w"], gl.pc,
                                                   ctx.ks, ctx.dxi, ctx.dyi, 1.),
                          4 * fb, FLOPS_PER_POINT["pres_rhs"] * n),
+        # the spectrum read and written once, the pivots read once
         "tdma": pair(lambda: pr.tdma(spec),
-                     lambda: tdma_plain(spec, pr.winv, pr.tab), 2 * sb,
-                     FLOPS_PER_POINT["tdma"] * n),
+                     lambda: tdma_plain(spec, pr.winv, pr.tab), 5 * sb // 2,
+                     FLOPS_PER_POINT["tdma"] * n,
+                     info=tdma_info(pr, ctx.ktot, modes, m.dtype)),
         "pres_apply": pair(lambda: gl.apply(p, s, t, 0.0, 0.0, True),
                            lambda: F.pres_apply_plain(p, s, t, gl.pc, ctx.ks,
                                                       ctx.dxi, ctx.dyi, 0.0,
@@ -2509,23 +2651,18 @@ def rk_sweep_pairs(m, s, e, ct, cts, can):
                                  can, fz.coriolis, True, fz.advec),
         13 * fb, FLOPS_PER_POINT["tend_uvw"] * n,
         info=kmarch_info(fz.k_uvw, m.dtype, 0, 0, fz.uvw_plan(m.dtype)))
-    if S == 1:
-        pairs["tend_scalar_rk"] = pair(
-            lambda: fz.tend_scalar_rk(s, t, e, cts[0], 0.5, can, True),
-            lambda: F.tend_scalar_rk_plain(
-                s, fz.names[0], e, t, cts[0], fz.sviscs[0], ctx.ks, ctx.dxi,
-                ctx.dyi, fz.tPr, 0.5, can, True, True, fz.advec),
-            8 * fb, FLOPS_PER_POINT["tend_scalar_rk"] * n)
-    else:
-        pairs["tend_scalars"] = pair(
-            lambda: fz.tend_scalars(s, t, e, cts, 0.5, can, True),
-            lambda: F.tend_scalars_plain(
-                s, fz.names, e, t, cts, fz.sviscs, ctx.ks, ctx.dxi, ctx.dyi,
-                fz.tPr, 0.5, can, True, fz.advec),
-            (1 + 4 * S + (3 if fz.advec else 0)) * fb,
-            FLOPS_PER_POINT["tend_scalars"] * S * n,
-            info=kmarch_info(fz.k_scalars, m.dtype, int(fz.advec), S1,
-                             fz.plan("tend_scalars", S1, m.dtype)))
+    # e, each scalar and its carry read, s* and the carry written (and u,
+    # v, w read with advection); K15 in a case of one scalar
+    kern = fz.k_scalar if S == 1 else fz.k_scalars
+    pairs[kern.name] = pair(
+        lambda: fz.tend_scalars(s, t, e, cts, 0.5, can, True),
+        lambda: F.tend_scalars_plain(
+            s, fz.names, e, t, cts, fz.sviscs, ctx.ks, ctx.dxi, ctx.dyi,
+            fz.tPr, 0.5, can, True, fz.advec),
+        (1 + 4 * S + (3 if fz.advec else 0)) * fb,
+        FLOPS_PER_POINT[kern.name] * S * n,
+        info=kmarch_info(kern, m.dtype, int(fz.advec), S1,
+                         fz.plan("tend_scalars", S1, m.dtype)))
     return pairs
 
 
@@ -2603,12 +2740,15 @@ def time_pres4_parts(torch, m, s):
 
 # kernel-name pattern -> part of the step; the first match counts (K18 is
 # the instance of K8/K9's kernel without the RK fold; K10 and K19 the scalar
-# sweep's instances with and without it)
+# sweep's instances with and without it, K15 its RK instances at one scalar,
+# which no main path launches as K10; K3 both its forms)
 PARTS = [("evisc_kernel", "K1/K14 evisc"), ("tend_rk_kernel", "K2 tend_rk"),
          ("tend_rk_fold_kernel", "K22 tend_rk_fold"),
          (r"tend_uvw_kernel<\w+, *(false|\(bool\)0)", "K18 tend_uvw_acc"),
          (r"scalar_sweep_kernel<\w+, *(false|\(bool\)0)",
           "K19 tend_scalar_acc"),
+         (r"scalar_sweep_kernel<\w+, *(true|\(bool\)1), *\w+, *1\b",
+          "K15 tend_scalar_rk"),
          (r"scalar_sweep_kernel<\w+, *(true|\(bool\)1)", "K10 tend_scalars"),
          ("tendencies_kernel", "K20 tendencies"),
          ("tdma_ri_kernel", "K21 tdma_ri"),
@@ -2620,13 +2760,13 @@ PARTS = [("evisc_kernel", "K1/K14 evisc"), ("tend_rk_kernel", "K2 tend_rk"),
          ("gemm", "pres_4 k-axis products (library)"),
          ("fft", "pres_4 transforms (library)"),
          ("tend_uvw_kernel", "K8/K9 tend_uvw"),
-         ("tend_scalar_kernel", "K15 tend_scalar_rk"),
          ("limits_", "K7 limits"),
          ("pres_rhs_kernel", "K4 pres_rhs"),
          ("dft_fwd_cluster", "K5 dft_fwd (cluster form)"),
          ("dft_inv_cluster", "K6 dft_inv (cluster form)"),
          ("dft_r2c_x", "K5 dft_fwd_split (i pass)"),
-         ("dft_c2c_y", "K5/K6 split (j passes)"), ("tdma_kernel", "K3 tdma"),
+         ("dft_c2c_y", "K5/K6 split (j passes)"),
+         (r"tdma_(scan_)?kernel", "K3 tdma"),
          ("dft_c2r_x", "K6 dft_inv_split (i pass)"),
          ("pres_apply_kernel", "K4 pres_apply")]
 
@@ -2734,11 +2874,12 @@ def kernel_entry(k, launches, errs, times, where):
          "max_abs_err": errs[k.name], "shape": where}
     e.update({key: times[k.name][key] for key in
               ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
-    # K5 and K6: their form and its resources; the k-marching kernels:
+    # K5, K6 and K3: their form and its resources; the k-marching kernels:
     # their k-march
     e.update({key: times[k.name][key] for key in
-              ("form", "C", "F", "smem_per_cta", "registers", "local_bytes",
-               "smem_per_block", "blocks_per_sm", "chunks", "blocks", "waves")
+              ("form", "C", "F", "L", "threads", "smem_per_cta", "registers",
+               "local_bytes", "smem_per_block", "blocks_per_sm", "chunks",
+               "blocks", "waves")
               if key in times[k.name]})
     return e
 
@@ -2782,8 +2923,9 @@ def main():
     log("    instances with local memory (spills, stack): %s" % spills)
 
     log("[3] kernels against their plain versions")
-    log("[3a] K5 and K6 in both forms against torch.fft")
+    log("[3a] K5 and K6 in both forms against torch.fft, K3 in every form")
     check_dft(torch)
+    check_tdma(torch)
     check_kernels(torch)
     log("[3b] K16, K17, K12, K13, the scalar sweep K10/K19, the momentum "
         "sweep K8/K9/K18, K22, K1/K14 and K7 with the k-split forced")
@@ -2879,6 +3021,9 @@ def main():
                                         check_mom_forced(torch, m))
             errs["tend_uvw"] = max(errs["tend_uvw"],
                                    check_uvw_forced(torch, m))
+            if len(m.fused.names) == 1:
+                errs["tend_scalar_rk"] = max(errs["tend_scalar_rk"],
+                                             check_scalar_rk_forced(torch, m))
             if key != "rico2i5_384":
                 ev = "evisc_n2" if m.fused.stratified == 2 else "evisc"
                 errs[ev] = max(errs[ev], check_evisc_forced(torch, m))

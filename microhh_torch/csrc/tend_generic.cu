@@ -22,10 +22,12 @@
 // the TPU launches once a scalar: here one launch serves up to SW_MAXS
 // scalars (the wrappers split the rest over launches).
 //
-// K15 tend_scalar_rk: one scalar's RK sweep, the form a case with a single
-// scalar (SBL_Smag's b) takes.  Replaces FusedLES2.tend_scalar_rk (:1674 /
-// :1694; _scalar_rk_body :417), with its carry, fold (column terms on or
-// off) and advec flags.
+// K15 tend_scalar_rk, one scalar's RK sweep (SBL_Smag's b), is K10's
+// launch at S = 1, counted under its own name (ops/fused.py); replaces
+// FusedLES2.tend_scalar_rk (:1674 / :1694; _scalar_rk_body :417), with its
+// carry, fold and advec flags.  The entry's fold flag is the sweep's FOLD
+// template flag (RK's value unless given): off, the column terms of the
+// table are left out, a form built at S = 1 only.
 //
 // advec = 0 leaves the advec_2 terms out: an interpolated scheme (K12/K13,
 // advec_interp.cu) has then added the advection into the carry before the
@@ -98,58 +100,7 @@
 
 namespace mhh {
 
-// K15: one scalar's RK sweep (tend_scalar_rk) with static shared memory
-// for its five rings.  fold = 0 leaves the column terms of the table out.
-template <typename T>
-__global__ void __launch_bounds__(TI * TJ)
-tend_scalar_kernel(const T* __restrict__ u, const T* __restrict__ v,
-                   const T* __restrict__ w, const T* __restrict__ e,
-                   const T* __restrict__ a, T* __restrict__ as, T* ta,
-                   const T* __restrict__ ct, int itot, int jtot, int ktot,
-                   int ks, T dxi, T dyi, T svisc, T tPr, T cbdt, T can,
-                   int carry, int fold, int advec) {
-    __shared__ T sh[5][3][HJ][HI];
-    const int i0 = blockIdx.x * TI, j0 = blockIdx.y * TJ;
-    const int i = i0 + threadIdx.x, j = j0 + threadIdx.y;
-    const bool inside = i < itot && j < jtot;
-    const long long plane = (long long)itot * jtot;
-    const T tPri = T(1) / tPr;
-    const View<T> U = view<T>(sh[0]), V = view<T>(sh[1]), W = view<T>(sh[2]);
-    const View<T> E = view<T>(sh[3]), A = view<T>(sh[4]);
-
-    auto load = [&](int p) {
-        const int s = slot(p);
-        load_tile(sh[0][s], u, ks + p, j0, i0, jtot, itot);
-        load_tile(sh[1][s], v, ks + p, j0, i0, jtot, itot);
-        load_tile(sh[2][s], w, ks + p, j0, i0, jtot, itot);
-        load_tile(sh[3][s], e, ks + p, j0, i0, jtot, itot);
-        load_tile(sh[4][s], a, ks + p, j0, i0, jtot, itot);
-    };
-
-    load(-1);
-    load(0);
-    for (int k = 0; k < ktot; ++k) {
-        load(k + 1);
-        __syncthreads();
-        if (inside) {
-            const Slots q = slots(k);
-            const long long o = (long long)(ks + k) * plane + (long long)j * itot + i;
-            const T* cc = ct + (long long)k * NTG;
-            const T a_ = A(q.kc, 0, 0);
-            T tt = ta[o] + s_tend(U, V, W, A, E, q, cc, dxi, dyi, svisc, tPri,
-                                  advec);
-            if (fold)
-                tt = tt + (cc[T_ADDS] - cc[T_FACZ] * a_
-                           + cc[T_WLSDN] * (a_ - A(q.km, 0, 0))
-                           + cc[T_WLSUP] * (A(q.kp, 0, 0) - a_));
-            as[o] = a_ + cbdt * tt;
-            if (carry) ta[o] = can * tt;
-        }
-        __syncthreads();
-    }
-}
-
-// ---- the scalar sweep, K10 (RK) and K19 (no RK) ----
+// ---- the scalar sweep, K10 and K15 (RK) and K19 (no RK) ----
 
 constexpr int SW_TJ = 8;                 // tile rows (32 x SW_TJ threads)
 constexpr int SW_NT = km::TI * SW_TJ;
@@ -203,8 +154,9 @@ constexpr size_t sweep_smem(int S) {
 }
 
 // four blocks an SM in float32 with one or two scalars (at most 64
-// registers), three with more; two in float64
-template <typename T, bool RK, bool ADV, int S>
+// registers), three with more; two in float64.  FOLD (RK unless given):
+// the column terms of the table; off only in K15's form
+template <typename T, bool RK, bool ADV, int S, bool FOLD = RK>
 __global__ void __launch_bounds__(SW_NT,
                                   sizeof(T) == 4 ? (S <= 2 ? 4 : 3) : 2)
 scalar_sweep_kernel(const SweepArgs<T> p) {
@@ -309,9 +261,10 @@ scalar_sweep_kernel(const SweepArgs<T> p) {
                                         p.sc.svisc[n]));
             if (RK) {
                 const T a_ = a1[n];
-                tt = tt + (cc[T_ADDS] - cc[T_FACZ] * a_
-                           + cc[T_WLSDN] * (a_ - a0[n])
-                           + cc[T_WLSUP] * (a2[n] - a_));
+                if (FOLD)
+                    tt = tt + (cc[T_ADDS] - cc[T_FACZ] * a_
+                               + cc[T_WLSDN] * (a_ - a0[n])
+                               + cc[T_WLSUP] * (a2[n] - a_));
                 if (inside) {
                     p.sc.as[n][o] = a_ + p.cbdt * tt;
                     if (p.carry) p.sc.ta[n][o] = p.can * tt;
@@ -334,21 +287,29 @@ scalar_sweep_kernel(const SweepArgs<T> p) {
     km::wait_all();
 }
 
-// f(integral_constant ADV, integral_constant S) for the form (advec, S)
-template <typename F>
-int sweep_form(int advec, int S, F f) {
+// f(integral_constant ADV, integral_constant S, integral_constant FOLD) for
+// the form (advec, S, fold): K10's and K19's forms fold as RK says; K15's
+// form without the fold (RK, fold 0) is built at S = 1 only
+template <bool RK, typename F>
+int sweep_form(int advec, int S, int fold, F f) {
     using std::integral_constant;
     using Y = integral_constant<bool, true>;
     using N = integral_constant<bool, false>;
+    using R = integral_constant<bool, RK>;
+    using One = integral_constant<int, 1>;
+    if (RK && !fold) {
+        if (S != 1) return (int)cudaErrorInvalidValue;
+        return advec ? f(Y(), One(), N()) : f(N(), One(), N());
+    }
     switch (S * 2 + (advec ? 1 : 0)) {
-    case 2: return f(N(), integral_constant<int, 1>());
-    case 3: return f(Y(), integral_constant<int, 1>());
-    case 4: return f(N(), integral_constant<int, 2>());
-    case 5: return f(Y(), integral_constant<int, 2>());
-    case 6: return f(N(), integral_constant<int, 3>());
-    case 7: return f(Y(), integral_constant<int, 3>());
-    case 8: return f(N(), integral_constant<int, 4>());
-    case 9: return f(Y(), integral_constant<int, 4>());
+    case 2: return f(N(), One(), R());
+    case 3: return f(Y(), One(), R());
+    case 4: return f(N(), integral_constant<int, 2>(), R());
+    case 5: return f(Y(), integral_constant<int, 2>(), R());
+    case 6: return f(N(), integral_constant<int, 3>(), R());
+    case 7: return f(Y(), integral_constant<int, 3>(), R());
+    case 8: return f(N(), integral_constant<int, 4>(), R());
+    case 9: return f(Y(), integral_constant<int, 4>(), R());
     }
     return (int)cudaErrorInvalidValue;
 }
@@ -358,8 +319,8 @@ int scalar_sweep(const T* u, const T* v, const T* w, const T* e,
                  const void* const* a, void* const* as, void* const* ta,
                  const double* svisc, int S, const T* ct, int itot, int jtot,
                  int ktot, int ks, double dxi, double dyi, double tPr,
-                 double cbdt, double can, int carry, int advec, int chunks,
-                 cudaStream_t stream) {
+                 double cbdt, double can, int carry, int fold, int advec,
+                 int chunks, cudaStream_t stream) {
     if (S < 1 || S > SW_MAXS || chunks < 1 || chunks > ktot)
         return (int)cudaErrorInvalidValue;
     if (advec && !(u && v && w)) return (int)cudaErrorInvalidValue;
@@ -383,10 +344,10 @@ int scalar_sweep(const T* u, const T* v, const T* w, const T* e,
     p.dxi = T(dxi); p.dyi = T(dyi); p.tPri = T(1) / T(tPr);
     p.cbdt = T(cbdt); p.can = T(can);
     p.carry = carry; p.chunks = chunks; p.vec_ok = (int)vec;
-    return sweep_form(advec, S, [&](auto adv, auto s) {
+    return sweep_form<RK>(advec, S, fold, [&](auto adv, auto s, auto fo) {
         constexpr bool ADV = decltype(adv)::value;
         constexpr int SS = decltype(s)::value;
-        auto kernel = scalar_sweep_kernel<T, RK, ADV, SS>;
+        auto kernel = scalar_sweep_kernel<T, RK, ADV, SS, decltype(fo)::value>;
         const size_t smem = sweep_smem<T, RK, ADV>(SS);
         int rc = (int)cudaFuncSetAttribute(
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -400,12 +361,13 @@ int scalar_sweep(const T* u, const T* v, const T* w, const T* e,
 }
 
 template <typename T, bool RK>
-int scalar_sweep_info(int advec, int S, int* out) {
-    return sweep_form(advec, S, [&](auto adv, auto s) {
+int scalar_sweep_info(int advec, int S, int fold, int* out) {
+    return sweep_form<RK>(advec, S, fold, [&](auto adv, auto s, auto fo) {
         constexpr bool ADV = decltype(adv)::value;
         constexpr int SS = decltype(s)::value;
-        return km::kernel_info(scalar_sweep_kernel<T, RK, ADV, SS>, SW_NT,
-                               sweep_smem<T, RK, ADV>(SS), out);
+        return km::kernel_info(
+            scalar_sweep_kernel<T, RK, ADV, SS, decltype(fo)::value>, SW_NT,
+            sweep_smem<T, RK, ADV>(SS), out);
     });
 }
 
@@ -646,20 +608,6 @@ UvwArgs<T> uvw_args(const void* u, const void* v, const void* w,
     return a;
 }
 
-template <typename T>
-int launch_tend_scalar(const T* u, const T* v, const T* w, const T* e,
-                       const T* a, T* as, T* ta, const T* ct, int itot,
-                       int jtot, int ktot, int ks, double dxi, double dyi,
-                       double svisc, double tPr, double cbdt, double can,
-                       int carry, int fold, int advec, cudaStream_t stream) {
-    const dim3 block(TI, TJ);
-    const dim3 grid((itot + TI - 1) / TI, (jtot + TJ - 1) / TJ);
-    tend_scalar_kernel<T><<<grid, block, 0, stream>>>(
-        u, v, w, e, a, as, ta, ct, itot, jtot, ktot, ks, T(dxi), T(dyi),
-        T(svisc), T(tPr), T(cbdt), T(can), carry, fold, advec);
-    return (int)cudaGetLastError();
-}
-
 }  // namespace mhh
 
 #define MHH_TEND_GENERIC(SUF, T)                                              \
@@ -686,25 +634,16 @@ int launch_tend_scalar(const T* u, const T* v, const T* w, const T* e,
         const void* const* a, void* const* as, void* const* ta,               \
         const double* svisc, int S, const void* cts, int itot, int jtot,      \
         int ktot, int ks, double dxi, double dyi, double tPr, double cbdt,    \
-        double can, int carry, int advec, int chunks, void* stream) {         \
+        double can, int carry, int fold, int advec, int chunks,               \
+        void* stream) {                                                       \
         return mhh::scalar_sweep<T, true>(                                    \
             (const T*)u, (const T*)v, (const T*)w, (const T*)e, a, as, ta,    \
             svisc, S, (const T*)cts, itot, jtot, ktot, ks, dxi, dyi, tPr,     \
-            cbdt, can, carry, advec, chunks, (cudaStream_t)stream);           \
+            cbdt, can, carry, fold, advec, chunks, (cudaStream_t)stream);     \
     }                                                                         \
-    extern "C" int mhh_tend_scalars_info_##SUF(int advec, int S, int* out) {  \
-        return mhh::scalar_sweep_info<T, true>(advec, S, out);                \
-    }                                                                         \
-    extern "C" int mhh_tend_scalar_rk_##SUF(                                  \
-        const void* u, const void* v, const void* w, const void* e,           \
-        const void* a, void* as, void* ta, const void* cc, int itot,          \
-        int jtot, int ktot, int ks, double dxi, double dyi, double svisc,     \
-        double tPr, double cbdt, double can, int carry, int fold, int advec,  \
-        void* stream) {                                                       \
-        return mhh::launch_tend_scalar<T>(                                    \
-            (const T*)u, (const T*)v, (const T*)w, (const T*)e, (const T*)a,  \
-            (T*)as, (T*)ta, (const T*)cc, itot, jtot, ktot, ks, dxi, dyi,     \
-            svisc, tPr, cbdt, can, carry, fold, advec, (cudaStream_t)stream); \
+    extern "C" int mhh_tend_scalars_info_##SUF(int scheme, int S, int* out) { \
+        return mhh::scalar_sweep_info<T, true>(scheme & 1, S, !(scheme & 2),  \
+                                               out);                          \
     }                                                                         \
     extern "C" int mhh_tend_uvw_acc_##SUF(                                    \
         const void* u, const void* v, const void* w, const void* e,           \
@@ -732,11 +671,11 @@ int launch_tend_scalar(const T* u, const T* v, const T* w, const T* e,
         return mhh::scalar_sweep<T, false>(                                   \
             (const T*)u, (const T*)v, (const T*)w, (const T*)e, a, nullptr,   \
             ta, svisc, S, (const T*)ct, itot, jtot, ktot, ks, dxi, dyi, tPr,  \
-            0., 0., 0, advec, chunks, (cudaStream_t)stream);                  \
+            0., 0., 0, 0, advec, chunks, (cudaStream_t)stream);               \
     }                                                                         \
     extern "C" int mhh_tend_scalar_acc_info_##SUF(int advec, int S,           \
                                                   int* out) {                 \
-        return mhh::scalar_sweep_info<T, false>(advec, S, out);               \
+        return mhh::scalar_sweep_info<T, false>(advec, S, 0, out);            \
     }
 
 MHH_TEND_GENERIC(f32, float)

@@ -48,8 +48,9 @@ SIGNATURES = {
     # dyi, visc, svisc, tPr, cbdt, can, dti, fc, utrans, vtrans; first,
     # carry, coriolis, chunks (ops/kmarch.py)
     "tend_rk_fold": [_P] * 21 + [_I] * 4 + [_D] * 11 + [_I] * 4,
-    # spectrum (complex, in place), winv, tab; kmax, nmodes
-    "tdma": [_P] * 3 + [_I, ctypes.c_longlong],
+    # spectrum (complex, in place), winv, tab; kmax, nmodes, sweep (the
+    # sweep form, else the scan form: ops/pres_2.py tdma_form)
+    "tdma": [_P] * 3 + [_I, ctypes.c_longlong, _I],
     # u, v, w, out, pc; itot, jtot, ktot, ks; dxi, dyi, dti
     "pres_rhs": [_P] * 5 + [_I] * 4 + [_D] * 3,
     # p, su, sv, sw, tu, tv, tw, pc; itot, jtot, ktot, ks; dxi, dyi, dt, can;
@@ -71,15 +72,13 @@ SIGNATURES = {
     # visc, fc, utrans, vtrans, cbdt, can; coriolis, carry, advec, chunks
     # (ops/kmarch.py)
     "tend_uvw": [_P] * 11 + [_I] * 4 + [_D] * 8 + [_I] * 4,
-    # u, v, w (null without advection), e; host arrays of the S scalars' a,
-    # a*, carry pointers and viscosities; S; tables (S, ktot, NTG); itot,
-    # jtot, ktot, ks; dxi, dyi, tPr, cbdt, can; carry, advec, chunks
+    # K10 and K15: u, v, w (null without advection), e; host arrays of the
+    # S scalars' a, a*, carry pointers and viscosities; S; tables (S, ktot,
+    # NTG); itot, jtot, ktot, ks; dxi, dyi, tPr, cbdt, can; carry, fold (the
+    # tables' column terms; off at S = 1 only), advec, chunks
     # (ops/kmarch.py)
     "tend_scalars": [_P] * 4 + [_PP] * 3 + [_PD, _I, _P] + [_I] * 4
-                    + [_D] * 5 + [_I] * 3,
-    # u, v, w, e, a, a*, carry, ct; itot, jtot, ktot, ks; dxi, dyi, svisc,
-    # tPr, cbdt, can; carry, fold, advec
-    "tend_scalar_rk": [_P] * 8 + [_I] * 4 + [_D] * 6 + [_I] * 3,
+                    + [_D] * 5 + [_I] * 4,
     # u, v, w, n2 (interior), out, ce; itot, jtot, ktot, ks; dxi, dyi, tPr;
     # chunks (ops/kmarch.py)
     "evisc_n2": [_P] * 6 + [_I] * 4 + [_D] * 3 + [_I],
@@ -120,14 +119,15 @@ SIGNATURES = {
 }
 
 # Kernels with an entry mhh_<kernel>_info_<f32|f64>(scheme, S, int out[5])
-# (the scalar sweep's "scheme" is its advec flag, K22's its thermo flag,
-# K1/K14's and K7's its stratified mode; K11, K8/K9 and K18 read neither,
-# K12, K16, K1/K14 and K7 not S): registers, local bytes a thread, dynamic
-# shared memory a block, resident blocks an SM
-# (cudaOccupancyMaxActiveBlocksPerMultiprocessor), SMs.
+# (the scalar sweep's "scheme" is its advec flag, plus 2 in K10/K15's
+# form without the fold; K22's its thermo flag, K1/K14's and K7's its
+# stratified mode, K3's its sweep flag with S its chunks a mode; K11,
+# K8/K9 and K18 read neither, K12, K16, K1/K14 and K7 not S): registers,
+# local bytes a thread, dynamic shared memory a block, resident blocks an
+# SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), SMs.
 INFO = ("advec_mom", "advec_scalars", "o4_mom", "o4_scalars",
         "tend_scalars", "tend_scalar_acc", "micro2", "tend_rk_fold",
-        "tend_uvw", "tend_uvw_acc", "evisc", "limits")
+        "tend_uvw", "tend_uvw_acc", "evisc", "limits", "tdma")
 INFO_KEYS = ("registers", "local_bytes", "smem", "blocks_per_sm", "sms")
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
@@ -216,12 +216,14 @@ def load():
 
 
 class Kernel:
-    """One hand-written CUDA kernel: its C entry, where its source lies,
-    which TPU kernel it replaces, and how often it was launched."""
+    """One hand-written CUDA kernel: its C entry (its name unless given),
+    where its source lies, which TPU kernel it replaces, and how often it
+    was launched."""
 
-    def __init__(self, name, source, replaces):
-        if name not in SIGNATURES:
-            raise KeyError(name)
+    def __init__(self, name, source, replaces, entry=None):
+        self.entry = entry or name
+        if self.entry not in SIGNATURES:
+            raise KeyError(self.entry)
         self.name = name
         self.source = source
         self.replaces = replaces
@@ -229,7 +231,7 @@ class Kernel:
         self._info = {}
 
     def __call__(self, dtype, *args):
-        fn = getattr(load(), "mhh_%s_%s" % (self.name, _SUFFIX[dtype]))
+        fn = getattr(load(), "mhh_%s_%s" % (self.entry, _SUFFIX[dtype]))
         # a tensor goes as its pointer, None as a null pointer
         ptrs = [a.data_ptr() if torch.is_tensor(a) else a for a in args]
         rc = fn(*ptrs, torch.cuda.current_stream().cuda_stream)
@@ -245,7 +247,7 @@ class Kernel:
         if key not in self._info:
             out = (ctypes.c_int * len(INFO_KEYS))()
             rc = getattr(load(), "mhh_%s_info_%s"
-                         % (self.name, _SUFFIX[dtype]))(scheme, S, out)
+                         % (self.entry, _SUFFIX[dtype]))(scheme, S, out)
             if rc != 0:
                 raise RuntimeError("CUDA kernel %s: no occupancy (cudaError "
                                    "%d)" % (self.name, rc))

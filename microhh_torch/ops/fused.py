@@ -35,8 +35,10 @@ no fallback from the card to the plain version.
                             ``csrc/tend_generic.cu``, ``ops/kmarch.py``);
 * K14 ``FusedGeneric.evisc_n2`` - K1's eddy viscosity with N2 read from a
                             field the thermo computed (``csrc/evisc.cu``);
-* K15 ``FusedGeneric.tend_scalar_rk`` - K10's sweep for a case with one
-                            scalar (``csrc/tend_generic.cu``).
+* K15 ``FusedGeneric.tend_scalars`` in a case of one scalar (SBL_Smag's
+                            b) - K10's launch at one scalar, counted under
+                            its own name, its column fold a flag
+                            (``csrc/tend_generic.cu``, ``ops/kmarch.py``).
 
 * K18 ``FusedGeneric.tend_uvw_acc`` and K19 ``FusedGeneric.tend_scalars_acc``
                           - K8/K9's sweep and the scalar sweep without the RK
@@ -438,14 +440,6 @@ def tend_scalars_plain(s, names, e, t, cts, sviscs, ks, dxi, dyi, tPr,
         if carry:
             t[n][ks:ke] = can * tt
     return s_star
-
-
-def tend_scalar_rk_plain(s, name, e, t, ct, svisc, ks, dxi, dyi, tPr, cbdt,
-                         can, carry, fold=True, advec=True):
-    """K15 in plain torch: one scalar's sweep with its (ktot, NTG) table;
-    returns its s*, updates its carry in place when carry."""
-    return tend_scalars_plain(s, (name,), e, t, ct[None], (svisc,), ks, dxi,
-                              dyi, tPr, cbdt, can, carry, advec, fold)[name]
 
 
 def _coriolis(uc, vc, c, fc, utrans, vtrans):
@@ -878,9 +872,12 @@ class FusedGeneric(Fused):
                                 "microhh_tpu/ops/pallas_fused.py:1733")
         self.k_evisc_n2 = Kernel("evisc_n2", "microhh_torch/csrc/evisc.cu",
                                  "microhh_tpu/ops/pallas_fused.py:1496")
+        # K15: K10's launch in a case of one scalar, counted as the
+        # counterpart of the TPU's kernel for that case
         self.k_scalar = Kernel("tend_scalar_rk",
                                "microhh_torch/csrc/tend_generic.cu",
-                               "microhh_tpu/ops/pallas_fused.py:1694")
+                               "microhh_tpu/ops/pallas_fused.py:1694",
+                               entry="tend_scalars")
         self.k_uvw_acc = Kernel("tend_uvw_acc",
                                 "microhh_torch/csrc/tend_generic.cu",
                                 "microhh_tpu/ops/pallas_fused.py:1560, "
@@ -940,23 +937,25 @@ class FusedGeneric(Fused):
                    self.uvw_plan(e.dtype, False, chunks).chunks)
         return s_star
 
-    def plan(self, kernel, S, dtype, chunks=None):
+    def plan(self, kernel, S, dtype, chunks=None, fold=True):
         """The k-march of one launch of the scalar sweep ("tend_scalars":
-        K10, "tend_scalar_acc": K19) of S scalars in this case's advec
-        form (ops/kmarch.py), the chunk count chosen from the card's
-        resident blocks unless given."""
+        K10 and K15, fold off in K15's form only; "tend_scalar_acc": K19)
+        of S scalars in this case's advec form (ops/kmarch.py), the chunk
+        count chosen from the card's resident blocks unless given."""
         ctx = self.ctx
-        kern = (self.k_scalars if kernel == "tend_scalars"
-                else self.k_scalar_acc)
-        info = kern.info(dtype, int(self.advec), S)
+        kern = {"tend_scalars": self.k_scalars,
+                "tend_scalar_acc": self.k_scalar_acc}[kernel]
+        info = kern.info(dtype, int(self.advec) + 2 * (not fold), S)
         return kmarch.plan(kernel, ctx.itot, ctx.jtot, ctx.ktot, S, dtype,
                            info["blocks_per_sm"] * info["sms"], chunks,
                            self.advec)
 
-    def _sweep(self, kern, s, t, e, names, table, tail, chunks, s_star=None):
-        """Launch the scalar sweep kern (K10 with s_star, K19 without) over
-        names, SW_MAXS scalars a launch; table(i0, S) is the table of the
-        launch of names[i0:i0 + S], tail the form's own arguments."""
+    def _sweep(self, kern, s, t, e, names, table, tail, chunks, s_star=None,
+               fold=True):
+        """Launch the scalar sweep kern (K10 and K15 with s_star, K19
+        without) over names, SW_MAXS scalars a launch; table(i0, S) is the
+        table of the launch of names[i0:i0 + S], tail the form's own
+        arguments, fold the RK form's flag."""
         ctx = self.ctx
         uvw = ([s[n] for n in ("u", "v", "w")] if self.advec
                else [None] * 3)
@@ -974,7 +973,7 @@ class FusedGeneric(Fused):
                  (ctypes.c_double * S)(*sviscs), S, table(i0, S), ctx.itot,
                  ctx.jtot, ctx.ktot, ctx.ks, ctx.dxi, ctx.dyi, self.tPr,
                  *tail, int(self.advec),
-                 self.plan(kern.name, S, e.dtype, chunks).chunks)
+                 self.plan(kern.entry, S, e.dtype, chunks, fold).chunks)
 
     def _check_sweep(self, s, t, e, names, table, table_shape):
         """Raise unless every array a sweep over names reads or writes has
@@ -986,43 +985,28 @@ class FusedGeneric(Fused):
         check(arrays + [table], e.dtype, e.device,
               [shape] * len(arrays) + [table_shape])
 
-    def tend_scalars(self, s, t, e, cts, cbdt, can, carry, chunks=None):
-        """K10: s* of every scalar, four scalars a launch; the carry as in
-        tend_uvw.  chunks: force the k-split (checks and timings only)."""
+    def tend_scalars(self, s, t, e, cts, cbdt, can, carry, fold=True,
+                     chunks=None):
+        """K10: s* of every scalar, four scalars a launch; in a case of one
+        scalar the launch is K15 (pallas_fused.py:3075-3092), counted under
+        its own name.  The carry as in tend_uvw.  fold False leaves the
+        tables' column terms out, K15's form only.  chunks: force the
+        k-split (checks and timings only)."""
         ctx = self.ctx
         names = self.names
+        if not fold and len(names) != 1:
+            raise ValueError("the column fold is off only in K15's form, "
+                             "one scalar; this case has %d" % len(names))
         args = (ctx.ks, ctx.dxi, ctx.dyi, self.tPr, cbdt, can, carry)
         if on_cpu(e):
             return tend_scalars_plain(s, names, e, t, cts, self.sviscs, *args,
-                                      self.advec)
+                                      self.advec, fold)
         self._check_sweep(s, t, e, names, cts, (len(names), ctx.ktot, NTG))
         s_star = {n: _empty_ghosts_zero(s[n], ctx) for n in names}
-        self._sweep(self.k_scalars, s, t, e, names,
-                    lambda i0, S: cts[i0:i0 + S], (cbdt, can, int(carry)),
-                    chunks, s_star)
+        kern = self.k_scalar if len(names) == 1 else self.k_scalars
+        self._sweep(kern, s, t, e, names, lambda i0, S: cts[i0:i0 + S],
+                    (cbdt, can, int(carry), int(fold)), chunks, s_star, fold)
         return s_star
-
-    def tend_scalar_rk(self, s, t, e, ct, cbdt, can, carry, fold=True):
-        """K15: s* of the case's single scalar with its (ktot, NTG) table;
-        the carry as in tend_uvw.  fold False leaves the table's column
-        terms out."""
-        ctx = self.ctx
-        (name,), (svisc,) = self.names, self.sviscs
-        args = (ctx.ks, ctx.dxi, ctx.dyi, self.tPr, cbdt, can, carry, fold,
-                self.advec)
-        if on_cpu(e):
-            return {name: tend_scalar_rk_plain(s, name, e, t, ct, svisc,
-                                               *args)}
-        shape = (ctx.kcells, ctx.jtot, ctx.itot)
-        fields = [s[n] for n in ("u", "v", "w")] + [e, s[name], t[name]]
-        check(fields + [ct], e.dtype, e.device,
-              [shape] * 6 + [(ctx.ktot, NTG)])
-        a_star = _empty_ghosts_zero(s[name], ctx)
-        self.k_scalar(e.dtype, *fields[:5], a_star, t[name], ct, ctx.itot,
-                      ctx.jtot, ctx.ktot, ctx.ks, ctx.dxi, ctx.dyi, svisc,
-                      self.tPr, cbdt, can, int(carry), int(fold),
-                      int(self.advec))
-        return {name: a_star}
 
     def tend_uvw_acc(self, s, t, e, chunks=None):
         """K18: the tendencies of u, v, w added onto the carries t["u"],
@@ -1480,10 +1464,7 @@ def generic_tendencies_rk(fz, ctx, s, t, aux, sfc, cbdt, can, cols):
     carry = can != 0.
     ct, cts = cols
     s_star = fz.tend_uvw(s, t, aux["evisc"], ct, cbdt, can, carry)
-    if len(fz.names) == 1:
-        s_star.update(fz.tend_scalar_rk(s, t, aux["evisc"], cts[0], cbdt, can,
-                                        carry))
-    elif fz.names:
+    if fz.names:
         s_star.update(fz.tend_scalars(s, t, aux["evisc"], cts, cbdt, can,
                                       carry))
     if fz.smag.surface:

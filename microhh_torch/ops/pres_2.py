@@ -15,7 +15,12 @@ tridiagonal system of every mode is solved by K3, the Thomas kernel
 (``csrc/tdma.cu``): the forward-elimination pivots are precomputed once per
 case (``set_values``, pres_2.cxx:124-153,306-324), including the mean-mode
 top BC p = 0, so the per-step solve is two first-order recurrences over k
-per mode.  On a CPU tensor each of them runs its plain-torch version.
+per mode.  K3 too has two forms, chosen by ``tdma_form`` from kmax and the
+dtype before any launch: the scan form (one read of the spectrum and the
+pivots, one write; a mode's column on chip in chunks of L levels that
+scan side by side) wherever TD_NCMAX chunks hold the column, and the sweep
+form (one thread a mode, two sweeps through device memory) above.  On a
+CPU tensor each of them runs its plain-torch version.
 
 ``solve`` serves the RK-folded paths, whose projection glue is K4
 (ops/fused.py pressure_rk).  ``exec`` is the projection of the substep
@@ -41,7 +46,13 @@ COMPLEX = {torch.float32: torch.complex64, torch.float64: torch.complex128}
 SMEM_MAX = 232448
 
 DftForm = collections.namedtuple("DftForm", "form C F smem")
+TdmaForm = collections.namedtuple("TdmaForm", "form L chunks threads smem")
 
+# csrc/tdma.cu: modes a block and chunks a mode at most of the scan form,
+# its levels a chunk (one length a dtype) and the threads a block of the
+# sweep form
+TD_MT, TD_NCMAX, TD_SWEEP_NT = 16, 32, 256
+TD_L = {torch.float32: 32, torch.float64: 16}
 
 def line_stride(n, real_bytes):
     """Entries of one padded line of n complex values in shared memory (one
@@ -76,6 +87,21 @@ def dft_form(jtot, itot, dtype):
                 if smem <= SMEM_MAX:
                     return DftForm("cluster", C, F, smem)
     return DftForm("split", 0, 0, 0)
+
+
+def tdma_form(kmax, dtype, sweep=False):
+    """K3's form for columns of kmax levels of dtype: the scan form, in
+    chunks of TD_L[dtype] levels, where TD_NCMAX chunks hold the column,
+    else the sweep form (L = 0).  sweep forces the sweep form (checks and
+    timings only)."""
+    real_bytes = torch.empty((), dtype=dtype).element_size()
+    L = TD_L[dtype]
+    chunks = -(-kmax // L)
+    if sweep or chunks > TD_NCMAX:
+        return TdmaForm("sweep", 0, 1, TD_SWEEP_NT, 0)
+    # the composites of TD_NCMAX x TD_MT threads and the staged table rows
+    return TdmaForm("scan", L, chunks, TD_MT * chunks,
+                    (6 * TD_MT + 3 * L) * TD_NCMAX * real_bytes)
 
 
 def tdma_plain(x, winv, tab):
@@ -185,8 +211,12 @@ class Pres2:
         self.afcf = ctx.tensor(tab[:, :2].copy())
         self.dz2 = ctx.tensor(dz ** 2)[:, None, None]
 
-    def tdma(self, x):
-        """K3: solve every mode of the spectrum x in place."""
+    tdma_form = staticmethod(tdma_form)
+
+    def tdma(self, x, sweep=False):
+        """K3: solve every mode of the spectrum x in place, in the form
+        tdma_form picks (sweep: force the sweep form; checks and timings
+        only)."""
         if on_cpu(x):
             return tdma_plain(x, self.winv, self.tab)
         real = self.winv.dtype
@@ -198,8 +228,10 @@ class Pres2:
             raise ValueError("spectrum %s on %s does not match pivots %s"
                              % (tuple(x.shape), x.device,
                                 tuple(self.winv.shape)))
-        self.k_tdma(real, x, self.winv, self.tab, x.shape[0],
-                    x.shape[1] * x.shape[2])
+        kmax = x.shape[0]
+        form = tdma_form(kmax, real, sweep)
+        self.k_tdma(real, x, self.winv, self.tab, kmax,
+                    x.shape[1] * x.shape[2], int(form.form == "sweep"))
         return x
 
     def tdma_ri(self, dr, di):

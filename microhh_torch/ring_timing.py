@@ -1,10 +1,12 @@
 """Time the ring kernels K16, K17, K12, K13, the scalar sweep K10/K19 and
 the momentum sweep K8/K9/K18 on one card, the kernels that share the
-sweep's scalar point function (K2, K22, K20, K15), K11, the warm-rain
-column sweep, the eddy viscosity K1/K14 and the limits pass K7.
+sweep's scalar point function (K2, K22, K20), K11, the warm-rain
+column sweep, the eddy viscosity K1/K14, the limits pass K7, K15 (the
+scalar sweep at one scalar) and the Thomas solve K3.
 
     python3 -m microhh_torch.ring_timing [--out FILE] [--label NAME]
-                           [--groups rings,s_tend,fold,micro2,evisc,limits]
+        [--groups rings,s_tend,fold,micro2,evisc,limits,scalar_rk,tdma]
+    python3 -m microhh_torch.ring_timing --compare PARENT_FILE FILE
 
 At the four shapes of their main paths: weakscaling 512x256x1024 float32
 (K16 in scheme 4, K17 with one scalar), moser180 256x192x128 float64 (both
@@ -22,9 +24,9 @@ term; K18 at jaenschwalde's 1024x256x256 without advection, as
 jaenschwalde runs it, each with its plan, occupancy, one-chunk time and
 the SASS count of its per-level loop.  The kernels whose
 scalar tendency is the one-call s_tend of csrc/les_math.cuh at the shapes
-of their main paths: K2 and K22 at drycblles 512^3 float32, K20 at
-sullivan2011 512x512x64 (the substep without the RK fold) and K15 at
-SBL_Smag 256^3.  K22 also on its paths in both its forms (the eddy
+of their main paths: K2 and K22 at drycblles 512^3 float32 and K20 at
+sullivan2011 512x512x64 (the substep without the RK fold).  K22 also on
+its paths in both its forms (the eddy
 viscosity computed, and read): drycblles 512^3, sullivan2011 512^3 with the
 sponge and Coriolis folds, the neutral Ekman LES 768x384x288 (no th) in
 float32 and drycblles 512^3 in float64; beside K22's time its registers,
@@ -51,6 +53,15 @@ u in its place, as ``Model.limits`` passes it), each with its plan,
 occupancy, one-chunk time, the SASS count of its per-level loop
 (``limits_function``: the k-march's limits_kernel<T, ST> or an earlier
 tree's limits_kernel<T>) and K1's (K14's) time at the same shape beside it.
+K15 (the ``scalar_rk`` group, ``scalar_rk_rows``) at SBL_Smag 256^3 with
+its advection, the column fold on (its path's form) and off, with the
+sweep's columns: its plan, occupancy and one-chunk time.  K3 (the ``tdma``
+group, ``tdma_rows``) at the shapes of the paths that solve with it:
+drycblles and sullivan2011 512^3, rico 384^3, the neutral Ekman LES
+768x384x288 and SBL_Smag 256^3 in float32 and drycblles 512^3 in float64,
+in the form its plan takes, with the form, chunk length, chunks, threads,
+occupancy and waves and, beside it, the time of the sweep form at the same
+shape.
 Each time is the mean of 10 launches by
 CUDA events after one warm-up launch; the stencil kernels run on seeded
 random fields.  Beside each time: the bound (each input and output once
@@ -65,13 +76,18 @@ issue time counted from the SASS of its phases (``micro2_issue``).  One JSON
 object per kernel and shape is printed and, with --out, all of them are
 written to FILE, with a digest of the SASS of every kernel instance of the
 build (``sass_digests``), so that two trees' listings can be held
-together.  --groups names the groups to time (GROUPS; all by
-default).  Needs a CUDA device.
+together; --compare holds two such files against each other
+(``compare_digests``) and prints which instances kept their code, with
+--keymap a JSON object of the second file's keys to the first's where an
+instance was renamed.
+--groups names the groups to time (GROUPS; all by default).  Needs a
+CUDA device.
 
 The script runs on an earlier checkout too (copy it into that tree's
 ``microhh_torch/``), so the same call can hold the trees in turns (parent,
 this, this, parent); a kernel without an info entry there gets no
-occupancy columns.
+occupancy columns.  The scalar_rk and tdma groups need this tree's
+wrappers.
 """
 
 import argparse
@@ -92,8 +108,9 @@ from .config import Ini
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the timed groups: K16, K17, K12, K13, K10, K19, K8/K9 and K18; the
 # kernels that call s_tend; K22 on its paths; K11; K1/K14 (with K7); K7
-# (with K1/K14)
-GROUPS = ("rings", "s_tend", "fold", "micro2", "evisc", "limits")
+# (with K1/K14); K15; K3
+GROUPS = ("rings", "s_tend", "fold", "micro2", "evisc", "limits",
+          "scalar_rk", "tdma")
 REPS = 10
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 33.5e12}
@@ -103,6 +120,7 @@ FLOPS = {"o4_mom": {"4": 560, "4m": 510}, "o4_scalars": {"4": 185, "4m": 140},
          "advec_mom": 400, "advec_scalars": 130, "tend_scalars": 110,
          "tend_scalar_acc": 100, "tend_rk": 700, "tend_rk_fold": 900,
          "tendencies": 700, "tend_scalar_rk": 110, "micro2": 300,
+         "tdma": 16,
          "tend_uvw": 450, "tend_uvw_acc": 430, "evisc": 100, "evisc_n2": 100,
          "limits": 110}
 # K11 moves 13 passes over a field: qr, nr, qt, thl and ql read, four
@@ -125,8 +143,19 @@ MOM_F64 = ("rico", "rico", (384, 384, 384), torch.float64, 4)
 # the kernels that call s_tend: (label, case, shape, build_step options)
 S_TEND_SHAPES = [("drycblles", "drycblles", (512, 512, 512), {}),
                  ("sullivan2011 unfolded", "sullivan2011", (512, 512, 64),
-                  {"unfolded": True}),
-                 ("SBL_Smag", "SBL_Smag", (256, 256, 256), {})]
+                  {"unfolded": True})]
+# K15's shape: (label, case, shape)
+SCALAR_RK_SHAPE = ("SBL_Smag", "SBL_Smag", (256, 256, 256))
+# K3's shapes: (label, case, shape, dtype); its two forms' CUDA functions
+TDMA_SHAPES = [("drycblles", "drycblles", (512, 512, 512), torch.float32),
+               ("sullivan2011", "sullivan2011", (512, 512, 512),
+                torch.float32),
+               ("rico", "rico", (384, 384, 384), torch.float32),
+               ("andren1994 less s", "andren1994", (768, 384, 288),
+                torch.float32),
+               ("SBL_Smag", "SBL_Smag", (256, 256, 256), torch.float32),
+               ("drycblles", "drycblles", (512, 512, 512), torch.float64)]
+TDMA = {"scan": "tdma_scan_kernel", "sweep": "tdma_kernel"}
 # K22 on its paths: (label, case, shape, dtype)
 FOLD_SHAPES = [("drycblles", "drycblles", (512, 512, 512), torch.float32),
                ("sullivan2011", "sullivan2011", (512, 512, 512), torch.float32),
@@ -189,8 +218,7 @@ LIMITS_SHAPES = [("drycblles", "drycblles", (512, 512, 512), torch.float32,
 # the CUDA functions of the kernels that call s_tend
 S_TEND_FUNCTIONS = {"tend_rk": "tend_rk_kernel",
                     "tend_rk_fold": "tend_rk_fold_kernel",
-                    "tendencies": "tendencies_kernel",
-                    "tend_scalar_rk": "tend_scalar_kernel"}
+                    "tendencies": "tendencies_kernel"}
 
 
 def max_sm_clock_ghz():
@@ -358,6 +386,25 @@ def sass_loops(text, function):
     return out
 
 
+def compare_digests(parent, change, keymap=None):
+    """Which kernel instances of two builds' sass_digests kept their code:
+    {"same", "changed", "gone", "new"}, each a sorted list of the change's
+    keys (gone: the parent's).  keymap: the change's key -> the parent's,
+    for an instance that was renamed."""
+    keymap = keymap or {}
+    out = {"same": [], "changed": [], "gone": [], "new": []}
+    matched = set()
+    for key, digest in change.items():
+        old = keymap.get(key, key)
+        if old in parent:
+            matched.add(old)
+            out["same" if parent[old] == digest else "changed"].append(key)
+        else:
+            out["new"].append(key)
+    out["gone"] = [key for key in parent if key not in matched]
+    return {k: sorted(v) for k, v in out.items()}
+
+
 def sass_digests(text):
     """{"function<template arguments>": sha1 of its instructions} of every
     kernel instance in a cuobjdump -sass listing (addresses left out), so
@@ -447,12 +494,15 @@ def variant(kernel, dtype, scheme, S):
     return "%s,%s,%s" % (t, c4, up)
 
 
-def sweep_function(name, dtype, advec, S):
+def sweep_function(name, dtype, advec, S, fold=True):
     """The ptxas key of the scalar sweep's instance a launch takes,
-    scalar_sweep_kernel<T, RK, ADV, S>."""
+    scalar_sweep_kernel<T, RK, ADV, S, FOLD> (K10 and K15: RK, FOLD its
+    fold flag; K19: neither)."""
     t = "float" if dtype == torch.float32 else "double"
-    rk = "true" if name == "tend_scalars" else "false"
-    return "%s<%s,%s,%s,%d>" % (SWEEP, t, rk, "true" if advec else "false", S)
+    rk = name != "tend_scalar_acc"
+    return "%s<%s,%s,%s,%d,%s>" % (SWEEP, t, str(rk).lower(),
+                                   str(advec).lower(), S,
+                                   str(rk and fold).lower())
 
 
 def sweep_rows(m, label, shape, dtype, S, ptx, card, rnd):
@@ -1057,9 +1107,9 @@ def fold_rows(label, case, shape, dtype, ptx, card, loops=None,
 
 def s_tend_rows(label, case, shape, step, ptx, card, device="cuda",
                 loops=None, clock_ghz=None):
-    """K2 and K22 (the dry RK-folded model), K20 (the substep without the RK
-    fold) or K15 (the generic model with one scalar) on seeded random
-    fields: the kernels whose scalar tendency is s_tend.  K22's row takes
+    """K2 and K22 (the dry RK-folded model) or K20 (the substep without the
+    RK fold) on seeded random fields: the kernels whose scalar tendency is
+    s_tend.  K22's row takes
     fold_extra's columns (loops: sass_loops of the build)."""
     dtype = torch.float32
     itot, jtot, ktot = shape
@@ -1079,11 +1129,7 @@ def s_tend_rows(label, case, shape, step, ptx, card, device="cuda",
         s = {nm: rnd() for nm in names}
         t = {nm: rnd(1e-3) for nm in names}
         nf = len(names)
-        if m.generic:
-            e = rnd().abs()
-            calls = [("tend_scalar_rk", lambda: fz.tend_scalar_rk(
-                s, t, e, fz.base, 0.5, -5. / 9., True), 8 * fb)]
-        elif m.unfolded:
+        if m.unfolded:
             e = rnd().abs()
             calls = [("tendencies", lambda: fz.tendencies(s, t, e),
                       13 * fb)]
@@ -1120,6 +1166,108 @@ def s_tend_rows(label, case, shape, step, ptx, card, device="cuda",
     return rows
 
 
+def scalar_rk_rows(label, case, shape, ptx, card, device="cuda"):
+    """K15 (FusedGeneric.tend_scalars in a case of one scalar) on seeded
+    random fields: the column fold on (the path's form) and off, the
+    case's advection flag, with its plan, occupancy and one-chunk time."""
+    dtype = torch.float32
+    itot, jtot, ktot = shape
+    n = itot * jtot * ktot
+    fb = n * torch.finfo(dtype).bits // 8
+    rows = []
+    with tempfile.TemporaryDirectory() as workdir:
+        m = build(case, itot, jtot, ktot, dtype, workdir, device)
+        fz, ctx = m.fused, m.ctx
+        gen = torch.Generator(device=device).manual_seed(itot + ktot)
+
+        def rnd(scale=1.):
+            return scale * torch.randn((ctx.kcells, jtot, itot), dtype=dtype,
+                                       device=device, generator=gen)
+
+        (name,) = fz.names
+        s = {nm: rnd() for nm in ("u", "v", "w", name)}
+        t = {name: rnd(1e-3)}
+        e = rnd().abs()
+        # e, the scalar and its carry read, s* and the carry written, and
+        # u, v, w read with advection
+        nbytes = (5 + 3 * fz.advec) * fb
+        by_bytes = 1e3 * nbytes / PEAK_BYTES_S
+        by_ops = 1e3 * FLOPS["tend_scalar_rk"] * n / PEAK_FLOPS[dtype]
+        for fold in (True, False):
+            def fn(fold=fold, **kw):
+                return fz.tend_scalars(s, t, e, fz.base[None], 0.5, -5. / 9.,
+                                       True, fold, **kw)
+            key = sweep_function("tend_scalars", dtype, fz.advec, 1, fold)
+            pl = fz.plan("tend_scalars", 1, dtype, fold=fold)
+            row = {"label": label, "kernel": "tend_scalar_rk", "fold": fold,
+                   "advec": fz.advec, "shape": list(shape),
+                   "dtype": "float32", "ms": events_ms(fn),
+                   "bound_ms": max(by_bytes, by_ops),
+                   "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+                   "ops_per_point": FLOPS["tend_scalar_rk"],
+                   "gbytes": nbytes / 1e9, "ptxas": ptx.get(key),
+                   "function": key, "card": card}
+            row.update(fz.k_scalar.info(dtype, int(fz.advec) + 2 * (not fold),
+                                        1))
+            row.update(chunks=pl.chunks, blocks=pl.tiles_i * pl.tiles_j
+                       * pl.chunks, waves=pl.waves,
+                       ms_one_chunk=events_ms(lambda: fn(chunks=1)))
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            print(json.dumps(row), flush=True)
+            rows.append(row)
+        del m, s, t, e
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return rows
+
+
+def tdma_rows(label, case, shape, dtype, ptx, card, device="cuda"):
+    """K3 on a model's pivots and the spectrum of a seeded random field, in
+    the form its plan takes and in the sweep form beside it: the spectrum
+    read and written once and the pivots read once (20 B a mode and level
+    in float32)."""
+    itot, jtot, ktot = shape
+    rows = []
+    with tempfile.TemporaryDirectory() as workdir:
+        m = build(case, itot, jtot, ktot, dtype, workdir, device)
+        pr = m.pres
+        gen = torch.Generator(device=device).manual_seed(itot + ktot)
+        x = torch.randn((ktot, jtot, itot), dtype=dtype, device=device,
+                        generator=gen)
+        spec = torch.fft.rfft2(x, dim=(-2, -1))
+        del x
+        modes = spec.shape[1] * spec.shape[2]
+        nbytes = 5 * spec.numel() * spec.element_size() // 2
+        by_bytes = 1e3 * nbytes / PEAK_BYTES_S
+        by_ops = 1e3 * FLOPS["tdma"] * itot * jtot * ktot / PEAK_FLOPS[dtype]
+        t = "float" if dtype == torch.float32 else "double"
+        for sweep in (False, True):
+            form = pr.tdma_form(ktot, dtype, sweep)
+            key = ("%s<%s,%d>" % (TDMA["scan"], t, form.L)
+                   if form.form == "scan" else "%s<%s>" % (TDMA["sweep"], t))
+            info = pr.k_tdma.info(dtype, int(form.form == "sweep"),
+                                  form.chunks)
+            blocks = -(-modes // (form.threads // form.chunks))
+            row = {"label": label, "kernel": "tdma", "form": form.form,
+                   "shape": list(shape), "dtype": str(dtype)[6:],
+                   "ms": events_ms(lambda: pr.tdma(spec, sweep)),
+                   "bound_ms": max(by_bytes, by_ops),
+                   "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+                   "ops_per_point": FLOPS["tdma"], "gbytes": nbytes / 1e9,
+                   "ptxas": ptx.get(key), "function": key, "card": card}
+            row.update(info, L=form.L, chunks=form.chunks,
+                       threads=form.threads, blocks=blocks,
+                       waves=-(-blocks // (info["blocks_per_sm"]
+                                           * info["sms"])))
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            print(json.dumps(row), flush=True)
+            rows.append(row)
+        del m, spec
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None)
@@ -1127,7 +1275,27 @@ def main():
     ap.add_argument("--groups", default=",".join(GROUPS),
                     help="comma list of the groups to time, of %s"
                     % ", ".join(GROUPS))
+    ap.add_argument("--compare", nargs=2, metavar=("PARENT", "FILE"),
+                    help="hold the sass_digests of two --out files")
+    ap.add_argument("--keymap", default=None,
+                    help="with --compare: a JSON file of FILE's instance "
+                    "names to PARENT's, for renamed instances")
     args = ap.parse_args()
+    if args.compare:
+        digests = []
+        for path in args.compare:
+            with open(path) as f:
+                digests.append(next(r["digests"] for r in json.load(f)
+                                    if r.get("kind") == "sass_digests"))
+        keymap = None
+        if args.keymap:
+            with open(args.keymap) as f:
+                keymap = json.load(f)
+        out = compare_digests(*digests, keymap)
+        print(json.dumps({k: len(v) for k, v in out.items()}))
+        print(json.dumps({k: v for k, v in out.items() if k != "same"},
+                         indent=1))
+        return
     if not torch.cuda.is_available():
         sys.exit("ring_timing: no CUDA device")
     card = card_line()
@@ -1168,6 +1336,10 @@ def main():
             LIMITS_SHAPES if "limits" in groups else ()):
         rows += limits_rows(label, case, shape, dtype, step, ptx, card,
                             loops, clock)
+    if "scalar_rk" in groups:
+        rows += scalar_rk_rows(*SCALAR_RK_SHAPE, ptx, card)
+    for label, case, shape, dtype in TDMA_SHAPES if "tdma" in groups else ():
+        rows += tdma_rows(label, case, shape, dtype, ptx, card)
     for label, shape, dtype in MICRO2_SHAPES if "micro2" in groups else ():
         with tempfile.TemporaryDirectory() as workdir:
             m = build("rico", *shape, dtype, workdir)

@@ -196,7 +196,7 @@ def test_k15_tend_scalar_rk_matches_tpu_kernel(sbl, carry, fold, advec):
                                   cc_in=cj_s["b"] if fold else None,
                                   fold_add=fold)
         tt = tx(t)
-        out = tfz.tend_scalar_rk(st, tt, et, cts[0], cbdt, can, carry, fold)
+        out = tfz.tend_scalars(st, tt, et, cts, cbdt, can, carry, fold)
     finally:
         jfz.no_advec, tfz.advec = saved
     ks, ke = tm.ctx.ks, tm.ctx.ke

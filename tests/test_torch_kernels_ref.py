@@ -291,13 +291,18 @@ def test_wrapper_contract():
         kernels.check([a], torch.float64, a.device, [(3, 2)])
     with pytest.raises(KeyError):
         kernels.Kernel("no_such_kernel", "", "")
+    # K15 is counted under its own name through K10's entry
+    with pytest.raises(KeyError):
+        kernels.Kernel("tend_scalar_rk", "", "")
+    k15 = kernels.Kernel("tend_scalar_rk", "", "", entry="tend_scalars")
+    assert (k15.name, k15.entry, k15.launches) == ("tend_scalar_rk",
+                                                   "tend_scalars", 0)
     assert set(kernels.SIGNATURES) == {"evisc", "tend_rk", "tdma",
                                        "pres_rhs", "pres_apply", "dft_fwd",
                                        "dft_inv", "limits", "tend_uvw",
                                        "tend_scalars", "micro2",
                                        "advec_mom", "advec_scalars",
-                                       "evisc_n2", "tend_scalar_rk",
-                                       "o4_mom", "o4_scalars",
+                                       "evisc_n2", "o4_mom", "o4_scalars",
                                        "tend_uvw_acc", "tend_scalar_acc",
                                        "tendencies", "tdma_ri",
                                        "tend_rk_fold", "dft_fwd_split",

@@ -15,7 +15,7 @@ reads from a build log and how it wires its timed calls, without a card.
   (the wrappers take their plain versions there), with CUDA-event timing
   replaced by one call: the scalar sweep's rows (K10 with advection off
   and on; K19 once a scalar and in one launch), the rows of the kernels
-  that call ``s_tend`` (K2, K22, K20, K15), K22's on its other paths
+  that call ``s_tend`` (K2, K22, K20), K22's on its other paths
   (``fold_rows``: both forms, with its occupancy, chunks, waves and
   one-chunk time), K11's (the cell's state and heavy rain) and K16's and
   K17's at the weakscaling and moser180 shapes (``time_shape``: K17 with
@@ -28,9 +28,14 @@ reads from a build log and how it wires its timed calls, without a card.
   kernel and mode of each case, K7's time beside it) and K7's
   (``limits_rows``: the mode of each of its paths, K1's or K14's time
   beside it) with the same columns, or without them and under the ring's
-  key on an earlier tree;
+  key on an earlier tree; K15's (``scalar_rk_rows``: its fold on and
+  off, the sweep's columns, the info asked in the fold's form) and K3's
+  (``tdma_rows``: the plan's form and the sweep form beside it, with
+  form, chunk length, occupancy and waves);
 * ``sass_digests`` gives each kernel instance of a listing one digest of
-  its instructions, the same for the same code at other addresses.
+  its instructions, the same for the same code at other addresses, and
+  ``compare_digests`` holds two builds' digests, through the caller's map
+  of renamed instances.
 """
 
 import os
@@ -91,6 +96,7 @@ def test_ptxas_info_reads_template_arguments_and_registers():
 
 @pytest.mark.parametrize("name", sorted(set(R.FUNCTIONS.values())
                                         | set(R.S_TEND_FUNCTIONS.values())
+                                        | set(R.TDMA.values())
                                         | {R.SWEEP, R.MICRO2, R.UVW,
                                            R.EVISC, R.LIMITS}))
 def test_timed_functions_are_kernels_of_the_sources(name):
@@ -100,9 +106,17 @@ def test_timed_functions_are_kernels_of_the_sources(name):
 def test_sweep_function_keys():
     f32 = torch.float32
     assert (R.sweep_function("tend_scalars", f32, True, 4)
-            == "scalar_sweep_kernel<float,true,true,4>")
+            == "scalar_sweep_kernel<float,true,true,4,true>")
     assert (R.sweep_function("tend_scalar_acc", torch.float64, False, 3)
-            == "scalar_sweep_kernel<double,false,false,3>")
+            == "scalar_sweep_kernel<double,false,false,3,false>")
+    # K15: the RK form at one scalar, its fold the last argument
+    assert (R.sweep_function("tend_scalars", f32, True, 1, False)
+            == "scalar_sweep_kernel<float,true,true,1,false>")
+    assert (R.sweep_function("tend_scalars", f32, False, 1)
+            == "scalar_sweep_kernel<float,true,false,1,true>")
+    # K19 has no fold, whatever the flag
+    assert (R.sweep_function("tend_scalar_acc", f32, True, 2, True)
+            == "scalar_sweep_kernel<float,false,true,2,false>")
 
 
 @pytest.mark.parametrize("label,shape", [("rico", (40, 24, 16)),
@@ -121,15 +135,15 @@ def test_sweep_rows_run_on_the_cpu(label, shape, one_call, tmp_path):
     if label == "rico":
         assert forms == [
             ("tend_scalars", "one launch", False,
-             "scalar_sweep_kernel<float,true,false,4>"),
+             "scalar_sweep_kernel<float,true,false,4,true>"),
             ("tend_scalars", "one launch", True,
-             "scalar_sweep_kernel<float,true,true,4>")]
+             "scalar_sweep_kernel<float,true,true,4,true>")]
     else:
         assert forms == [
             ("tend_scalar_acc", "one launch a scalar", False,
-             "scalar_sweep_kernel<float,false,false,1>"),
+             "scalar_sweep_kernel<float,false,false,1,false>"),
             ("tend_scalar_acc", "one launch", False,
-             "scalar_sweep_kernel<float,false,false,3>")]
+             "scalar_sweep_kernel<float,false,false,3,false>")]
     for r in rows:
         assert r["chunks"] >= 1 and r["blocks_per_sm"] == 3
         assert r["gbytes"] > 0 and r["bound_ms"] > 0
@@ -146,8 +160,7 @@ def test_s_tend_rows_run_on_the_cpu(label, case, shape, step, one_call,
     rows = R.s_tend_rows(label, case, (16, 8, 12), step, {}, "cpu",
                          device="cpu")
     want = {"drycblles": ["tend_rk", "tend_rk_fold"],
-            "sullivan2011": ["tendencies"],
-            "SBL_Smag": ["tend_scalar_rk"]}[case]
+            "sullivan2011": ["tendencies"]}[case]
     assert [r["kernel"] for r in rows] == want
     for r in rows:
         # K22 is templated on its thermo flag
@@ -681,3 +694,110 @@ def test_limits_rows_run_on_the_cpu(label, case, shape, dtype, step, one_call,
     assert "chunks" not in r and "issue_ms" not in r
     assert r["function"] == old and seen == [(None, ghosts, st == 0)]
     assert R.limits_function(dtype, st, set()) == key
+
+
+def test_scalar_rk_rows_run_on_the_cpu(one_call, monkeypatch):
+    """K15's rows at a tiny SBL_Smag: the fold on and off with the case's
+    advection, the sweep's key with its fold, the plan's chunks and waves,
+    the occupancy asked in the fold's form and a forced one-chunk run."""
+    from microhh_torch import kernels
+    from microhh_torch.ops import fused as F
+    from microhh_torch.ops import kmarch
+    torch.manual_seed(3)
+    asked = []
+    monkeypatch.setattr(kernels.Kernel, "info",
+                        lambda self, *a: asked.append(a[1:]) or INFO)
+    seen = []
+    real = F.FusedGeneric.tend_scalars
+
+    def call(self, *a, **kw):
+        seen.append((a[7], kw.get("chunks")))
+        return real(self, *a, **kw)
+
+    monkeypatch.setattr(F.FusedGeneric, "tend_scalars", call)
+    tiny = (40, 16, 12)
+    rows = R.scalar_rk_rows("SBL_Smag", "SBL_Smag", tiny, {}, "cpu",
+                            device="cpu")
+    p = kmarch.plan("tend_scalars", 40, 16, 12, 1, torch.float32, 396)
+    assert [(r["fold"], r["advec"]) for r in rows] == [(True, True),
+                                                       (False, True)]
+    for r in rows:
+        assert r["function"] == ("scalar_sweep_kernel<float,true,true,1,%s>"
+                                 % str(r["fold"]).lower())
+        assert (r["chunks"], r["waves"]) == (p.chunks, p.waves)
+        assert r["blocks"] == 2 * 2 * p.chunks and r["blocks_per_sm"] == 3
+        assert r["ms_one_chunk"] == 1.0
+        assert r["gbytes"] == pytest.approx(8 * 40 * 16 * 12 * 4 / 1e9)
+    assert seen == [(True, None), (True, 1), (False, None), (False, 1)]
+    assert set(asked) == {(1, 1), (3, 1)}
+
+
+@pytest.mark.parametrize("label,case,shape,dtype", R.TDMA_SHAPES,
+                         ids=["%s %s" % (s[0], str(s[3])[6:])
+                              for s in R.TDMA_SHAPES])
+def test_tdma_rows_run_on_the_cpu(label, case, shape, dtype, one_call,
+                                  monkeypatch):
+    """K3's rows at a tiny shape of each of its cases: the plan's form and
+    the sweep form beside it, the scan form's key with its chunk length,
+    its chunks, threads, blocks and waves, the occupancy asked for the
+    form launched, the bytes of one read of the spectrum and the pivots
+    and one write."""
+    from microhh_torch import kernels
+    from microhh_torch.ops import pres_2 as P
+    torch.manual_seed(3)
+    asked = []
+    monkeypatch.setattr(kernels.Kernel, "info",
+                        lambda self, *a: asked.append(a[1:]) or INFO)
+    seen = []
+    real = P.Pres2.tdma
+
+    def call(self, x, sweep=False):
+        seen.append(sweep)
+        return real(self, x, sweep)
+
+    monkeypatch.setattr(P.Pres2, "tdma", call)
+    tiny = (16, 8, 40)
+    rows = R.tdma_rows(label, case, tiny, dtype, {}, "cpu", device="cpu")
+    t = "float" if dtype == torch.float32 else "double"
+    L = P.TD_L[dtype]
+    chunks = -(-40 // L)
+    assert [r["form"] for r in rows] == ["scan", "sweep"]
+    assert rows[0]["function"] == "tdma_scan_kernel<%s,%d>" % (t, L)
+    assert rows[1]["function"] == "tdma_kernel<%s>" % t
+    assert (rows[0]["L"], rows[0]["chunks"], rows[0]["threads"]) == (
+        L, chunks, 16 * chunks)
+    assert rows[0]["blocks"] == -(-8 * 9 // 16)
+    assert rows[1]["blocks"] == 1 and rows[1]["waves"] == 1
+    for r in rows:
+        assert r["gbytes"] == pytest.approx(
+            2.5 * 40 * 8 * 9 * 2 * torch.finfo(dtype).bits / 8 / 1e9)
+        assert r["bound_by"] == "bytes" and r["blocks_per_sm"] == 3
+    assert seen == [False, True] and asked == [(0, chunks), (1, 1)]
+
+
+def test_compare_digests_holds_two_builds():
+    parent = {"scalar_sweep_kernel<float,true,false,4>": "a",
+              "scalar_sweep_kernel<float,false,false,3>": "b",
+              "tend_scalar_kernel<float>": "c", "tdma_kernel<float>": "d",
+              "evisc_kernel<float,1>": "e"}
+    change = {"scalar_sweep_kernel<float,true,false,4,true>": "a",
+              "scalar_sweep_kernel<float,false,false,3,false>": "b",
+              "scalar_sweep_kernel<float,true,false,1,false>": "f",
+              "tdma_kernel<float>": "d", "tdma_scan_kernel<float,32>": "g",
+              "evisc_kernel<float,1>": "x"}
+    keymap = {"scalar_sweep_kernel<float,true,false,4,true>":
+              "scalar_sweep_kernel<float,true,false,4>",
+              "scalar_sweep_kernel<float,false,false,3,false>":
+              "scalar_sweep_kernel<float,false,false,3>"}
+    got = R.compare_digests(parent, change, keymap)
+    assert got == {
+        "same": ["scalar_sweep_kernel<float,false,false,3,false>",
+                 "scalar_sweep_kernel<float,true,false,4,true>",
+                 "tdma_kernel<float>"],
+        "changed": ["evisc_kernel<float,1>"],
+        "gone": ["tend_scalar_kernel<float>"],
+        "new": ["scalar_sweep_kernel<float,true,false,1,false>",
+                "tdma_scan_kernel<float,32>"]}
+    # without the map a renamed instance is one gone and one new
+    got = R.compare_digests(parent, change)
+    assert (len(got["same"]), len(got["new"]), len(got["gone"])) == (1, 4, 3)

@@ -1,17 +1,21 @@
-"""The scalar sweep K10 (``FusedGeneric.tend_scalars``, with the RK fold) and
-K19 (``FusedGeneric.tend_scalars_acc``, without): one k-marching kernel,
-``scalar_sweep_kernel`` in ``csrc/tend_generic.cu``, on the CPU.
+"""The scalar sweep K10 (``FusedGeneric.tend_scalars``, with the RK fold),
+K15 (``FusedGeneric.tend_scalars`` in a case of one scalar, K10's launch
+counted under its own name, its column fold a flag) and K19 (``FusedGeneric.tend_scalars_acc``, without): one
+k-marching kernel, ``scalar_sweep_kernel`` in ``csrc/tend_generic.cu``, on
+the CPU.
 
 * the constants and the shared-memory formula of ``ops/kmarch.py`` for the
   sweep are the ones in ``csrc/tend_generic.cu``, ``csrc/kmarch.cuh`` and
   ``csrc/les_math.cuh``, read from the sources; every launch of up to
   SW_MAXS scalars fits a block, and as many blocks as its launch bounds
-  ask fit an SM, in float32 and float64, both forms, advection on and off;
+  ask fit an SM, in float32 and float64, every form (K15's at one scalar,
+  its fold on and off), advection on and off;
 * the plan at the main shapes (rico 384^3 with four scalars, jaenschwalde
   1024x256x256 with three);
 * a torch emulation of the chunked march equals the plain versions bit for
   bit in float64 at ktot 6 and 16, for every chunk count, both forms and
-  advection on and off: each chunk runs the plain version on the planes
+  advection on and off (K15 with its fold on and off too): each chunk
+  runs the plain version on the planes
   and table rows the chunk's blocks load (the scalars and evisc at
   ks+k0-1 .. ks+k1, u and v at the chunk's levels, w at its levels and
   one above, the carries at its levels), everything else NaN, and without
@@ -19,13 +23,18 @@ K19 (``FusedGeneric.tend_scalars_acc``, without): one k-marching kernel,
 * the wrappers, with recorders in place of the kernels: one launch for up
   to four scalars and two for six, each with its plan's chunk count and
   its share of the tables, null u, v, w pointers without advection, and
-  one scalar launch a substep in ``generic_tendencies``.
+  one scalar launch a substep in ``generic_tendencies``; K15 one launch
+  with its plan's chunk count (asked in its fold form) or the forced one,
+  its fold flag, null u, v, w without advection, and one launch a substep
+  in ``generic_tendencies_rk`` on a one-scalar case (SBL_Smag's class);
+* ``chip_smoke.py``'s K15 cases on the CPU.
 
 The all-scalars K19 call against the JAX package's ``tend_scalar`` in
 interpret mode is in tests/test_torch_unfolded.py (its jaenschwalde
 fixture).
 """
 
+import ctypes
 import os
 import re
 
@@ -33,13 +42,18 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import build_jaenschwalde, build_rico
+from chip_smoke import (K15_FORMS, build_jaenschwalde, build_rico,
+                        build_sbl, scalar_rk_cases)
+from microhh_torch import kernels
 from microhh_torch.ops import fused as F
 from microhh_torch.ops import kmarch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(ROOT, "microhh_torch", "csrc")
 KINDS = ("tend_scalars", "tend_scalar_acc")
+# K15: K10's entry at one scalar, counted under its own name
+K15 = "tend_scalar_rk"
+ENTRY = {K15: "tend_scalars"}
 
 
 def source(name):
@@ -78,6 +92,21 @@ def test_python_constants_are_the_sources():
     assert kmarch.slot_size(8) == kmarch.slot_size(8, kmarch.H)
     # the launch bounds the blocks an SM below assume
     assert "sizeof(T) == 4 ? (S <= 2 ? 4 : 3) : 2)\nscalar_sweep_kernel" in src
+    # K15: the fold a template flag, RK's value unless given; the no-fold
+    # form built at S = 1 only; K10's entry takes the flag (its info entry
+    # bit 1 of the scheme: the fold off) and K15 has no entry of its own
+    assert ("template <typename T, bool RK, bool ADV, int S, bool FOLD = RK>"
+            in src)
+    assert "if (RK && !fold) {\n        if (S != 1)" in src
+    assert "tend_scalar_kernel" not in src and "load_tile" not in src
+    assert "mhh_tend_scalar_rk" not in src
+    assert ("scalar_sweep_info<T, true>(scheme & 1, S, !(scheme & 2)," in src)
+    flat = re.sub(r"[\s\\]+", " ", src)
+    assert ("double can, int carry, int fold, int advec, int chunks, void* "
+            "stream) { return mhh::scalar_sweep<T, true>(" in flat)
+    sig = kernels.SIGNATURES
+    assert "tend_scalar_rk" not in sig and "tend_scalar_rk" not in kernels.INFO
+    assert sig["tend_scalars"][-4:] == [ctypes.c_int] * 4
 
 
 def blocks_asked(S, dtype):
@@ -89,11 +118,11 @@ def blocks_asked(S, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("advec", [False, True])
-@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("kind", KINDS + (K15,))
 def test_every_launch_fits(kind, advec, dtype):
-    for S in range(1, kmarch.SW_MAXS + 1):
-        smem = kmarch.SMEM[kind](S, dtype, advec)
-        assert smem == kmarch.sweep_smem(S, dtype, kind == "tend_scalars",
+    for S in (1,) if kind == K15 else range(1, kmarch.SW_MAXS + 1):
+        smem = kmarch.SMEM[ENTRY.get(kind, kind)](S, dtype, advec)
+        assert smem == kmarch.sweep_smem(S, dtype, kind != "tend_scalar_acc",
                                          advec)
         assert smem <= kmarch.SMEM_MAX
         # an SM's 228 KB, 1 KB of it reserved a block
@@ -147,13 +176,13 @@ def sweep_inputs(ktot, S, rng):
     return ks, names, s, e, t, torch.tensor(cts), sviscs
 
 
-def run_plain(kind, ks, names, s, e, t, cts, sviscs, advec):
+def run_plain(kind, ks, names, s, e, t, cts, sviscs, advec, fold=True):
     """The plain version of one form; returns its outputs (s* then the
-    carries for K10, the carries for K19)."""
+    carries for K10 and K15, the carries for K19)."""
     args = (ks, 0.7, 1.3, 0.33)
-    if kind == "tend_scalars":
+    if kind in ("tend_scalars", K15):
         out = F.tend_scalars_plain(s, names, e, t, cts, sviscs, *args, 0.6,
-                                   -0.8, True, advec)
+                                   -0.8, True, advec, fold)
         return [out[n] for n in names] + [t[n] for n in names]
     F.tend_scalars_acc_plain(s, names, e, t, cts[0], sviscs, *args, advec)
     return [t[n] for n in names]
@@ -170,12 +199,24 @@ def window(x, lo, hi):
 @pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("ktot", [6, 16])
 def test_chunked_march_is_the_plain_version(ktot, kind, advec):
+    chunked_march(ktot, kind, advec, 3)
+
+
+@pytest.mark.parametrize("fold", [True, False])
+@pytest.mark.parametrize("advec", [False, True])
+@pytest.mark.parametrize("ktot", [6, 16])
+def test_k15_chunked_march_is_the_plain_version(ktot, advec, fold):
+    chunked_march(ktot, K15, advec, 1, fold)
+
+
+def chunked_march(ktot, kind, advec, S, fold=True):
+    """Each chunk of every k-split run on what its blocks read, the rest
+    NaN, equals the whole march bit for bit."""
     rng = np.random.default_rng(ktot + 2 * advec)
-    S = 3
     ks, names, s, e, t0, cts, sviscs = sweep_inputs(ktot, S, rng)
     want = run_plain(kind, ks, names, s, e, {n: x.clone() for n, x in
                                               t0.items()}, cts, sviscs,
-                     advec)
+                     advec, fold)
     for chunks in range(1, ktot + 1):
         got = [torch.zeros_like(x) for x in want]
         for k0, k1 in kmarch.chunk_bounds(chunks, ktot):
@@ -191,7 +232,7 @@ def test_chunked_march_is_the_plain_version(ktot, kind, advec):
             rows[:, k0:k1] = cts[:, k0:k1]
             t = {n: window(t0[n], lo, hi) for n in names}
             part = run_plain(kind, ks, names, seen, window(e, lo - 1, hi + 1),
-                             t, rows, sviscs, advec)
+                             t, rows, sviscs, advec, fold)
             for g, p in zip(got, part):
                 g[lo:hi] = p[lo:hi]
         for g, w in zip(got, want):
@@ -206,8 +247,9 @@ class Recorder:
     """A kernel stand-in: records its launches; reports 3 blocks an SM on
     132 SMs."""
 
-    def __init__(self, name):
+    def __init__(self, name, entry=None):
         self.name = name
+        self.entry = entry or name
         self.calls = []
 
     def __call__(self, dtype, *args):
@@ -259,8 +301,11 @@ def test_k10_wrapper_launches(rico, monkeypatch, S, advec):
     monkeypatch.setattr(fz, "names", names)
     monkeypatch.setattr(fz, "sviscs", [0.1 * (n + 1) for n in range(S)])
     monkeypatch.setattr(fz, "advec", advec)
-    rec = Recorder("tend_scalars")
-    monkeypatch.setattr(fz, "k_scalars", rec)
+    # one scalar: the launch is K15's, counted under its name
+    k10, k15 = Recorder("tend_scalars"), Recorder(K15, "tend_scalars")
+    monkeypatch.setattr(fz, "k_scalars", k10)
+    monkeypatch.setattr(fz, "k_scalar", k15)
+    rec = k15 if S == 1 else k10
     s, e, t = fields(rico, names)
     cts = torch.zeros(S, ctx.ktot, F.NTG, dtype=ctx.dtype)
     out = fz.tend_scalars(s, t, e, cts, 0.5, -0.6, True)
@@ -281,10 +326,11 @@ def test_k10_wrapper_launches(rico, monkeypatch, S, advec):
         assert a[9].data_ptr() == cts[i0].data_ptr()
         assert a[9].shape == (n, ctx.ktot, F.NTG)
         assert a[10:14] == (ctx.itot, ctx.jtot, ctx.ktot, ctx.ks)
-        assert a[-5:-2] == (0.5, -0.6, 1) and a[-2] == int(advec)
+        assert a[-6:-2] == (0.5, -0.6, 1, 1) and a[-2] == int(advec)
         assert a[-1] == kmarch.plan("tend_scalars", ctx.itot, ctx.jtot,
                                     ctx.ktot, n, torch.float32, 396,
                                     advec=advec).chunks
+    assert not (k10 if S == 1 else k15).calls
     rec.calls.clear()
     fz.tend_scalars(s, t, e, cts, 0.5, -0.6, True, chunks=5)
     assert all(a[-1] == 5 for _, a in rec.calls)
@@ -347,3 +393,98 @@ def test_generic_tendencies_launches_one_scalar_sweep(monkeypatch):
     for _, a in acc.calls:
         assert same(a[:4], [None, None, None, e]) and a[7] == 3
         assert ptrs(a[4]) == [s[n].data_ptr() for n in fz.names]
+
+
+@pytest.mark.parametrize("fold", [True, False])
+@pytest.mark.parametrize("advec", [False, True])
+def test_k15_wrapper_launches(rico, monkeypatch, advec, fold):
+    fz, ctx = rico.fused, rico.ctx
+    k15 = fz.k_scalar
+    assert (k15.name, k15.entry, k15.replaces) == (
+        K15, "tend_scalars", "microhh_tpu/ops/pallas_fused.py:1694")
+    monkeypatch.setattr(F, "on_cpu", lambda x: False)
+    monkeypatch.setattr(fz, "names", ("b",))
+    monkeypatch.setattr(fz, "sviscs", [0.3])
+    monkeypatch.setattr(fz, "advec", advec)
+    asked = []
+
+    class Asked(Recorder):
+        def info(self, dtype, scheme, S=0):
+            asked.append((scheme, S))
+            return super().info(dtype, scheme, S)
+
+    rec = Asked(K15, "tend_scalars")
+    monkeypatch.setattr(fz, "k_scalar", rec)
+    monkeypatch.setattr(fz, "k_scalars", Asked("tend_scalars"))
+    s, e, t = fields(rico, ("b",))
+    cts = torch.zeros(1, ctx.ktot, F.NTG, dtype=ctx.dtype)
+    outs = [fz.tend_scalars(s, t, e, cts, 0.5, -0.6, True, fold),
+            fz.tend_scalars(s, t, e, cts, 0.5, -0.6, False, fold, chunks=7)]
+    assert all(list(out) == ["b"] for out in outs) and len(rec.calls) == 2
+    # the info of the form launched: advec, + 2 without the fold, one
+    # scalar
+    assert set(asked) == {(int(advec) + 2 * (not fold), 1)}
+    for (dtype, a), out, carry, chunks in zip(
+            rec.calls, outs, (1, 0), (kmarch.plan("tend_scalars", ctx.itot,
+                                            ctx.jtot, ctx.ktot, 1,
+                                            torch.float32, 396,
+                                            advec=advec).chunks, 7)):
+        assert dtype == torch.float32
+        assert same(a[:4], [s["u"], s["v"], s["w"], e] if advec
+                    else [None, None, None, e])
+        assert ptrs(a[4]) == [s["b"].data_ptr()]
+        assert ptrs(a[5]) == [out["b"].data_ptr()]
+        assert ptrs(a[6]) == [t["b"].data_ptr()]
+        assert list(a[7]) == [0.3] and a[8] == 1
+        assert a[9].data_ptr() == cts.data_ptr() and a[9].shape == cts.shape
+        assert a[10:14] == (ctx.itot, ctx.jtot, ctx.ktot, ctx.ks)
+        assert a[-6:] == (0.5, -0.6, carry, int(fold), int(advec), chunks)
+    with pytest.raises(ValueError):
+        fz.tend_scalars(s, t, e, cts[:, :-1], 0.5, -0.6, True, fold)
+    # the fold is off in K15's form only
+    monkeypatch.setattr(fz, "names", ("b", "c"))
+    monkeypatch.setattr(fz, "sviscs", [0.3, 0.3])
+    s, e, t = fields(rico, ("b", "c"))
+    with pytest.raises(ValueError):
+        fz.tend_scalars(s, t, e, cts.repeat(2, 1, 1), 0.5, -0.6, True, False)
+    assert len(rec.calls) == 2
+
+
+def test_generic_tendencies_rk_launches_k15_once_a_substep(monkeypatch):
+    """A one-scalar case (SBL_Smag, b): K8/K9 and K15 once a substep, the
+    column fold on, the path's advection."""
+    m = build_sbl(torch, 16, 12, torch.float32, "cpu")
+    m.build_step()
+    fz, ctx = m.fused, m.ctx
+    assert fz.names == ("b",) and fz.advec
+    monkeypatch.setattr(F, "on_cpu", lambda x: False)
+    monkeypatch.setattr(fz.smag, "surface", False)
+    uvw, k15 = Recorder("tend_uvw"), Recorder(K15, "tend_scalars")
+    monkeypatch.setattr(fz, "k_uvw", uvw)
+    monkeypatch.setattr(fz, "k_scalar", k15)
+    k10 = Recorder("tend_scalars")
+    monkeypatch.setattr(fz, "k_scalars", k10)
+    s, e, t = fields(m, fz.names)
+    t.update({n: torch.zeros_like(e) for n in ("u", "v", "w")})
+    cols = (torch.zeros(ctx.ktot, F.NTG), torch.zeros(1, ctx.ktot, F.NTG))
+    cans = (-5. / 9., -153. / 128., 0.)
+    for can in cans:
+        out = F.generic_tendencies_rk(fz, ctx, s, t, {"evisc": e}, None, 0.5,
+                                      can, cols)
+        assert set(out) == {"u", "v", "w", "b"}
+    assert len(uvw.calls) == 3 and len(k15.calls) == 3 and not k10.calls
+    chunks = kmarch.plan("tend_scalars", ctx.itot, ctx.jtot, ctx.ktot, 1,
+                         torch.float32, 396).chunks
+    for (_, a), can in zip(k15.calls, cans):
+        assert same(a[:4], [s["u"], s["v"], s["w"], e]) and a[8] == 1
+        assert a[9].data_ptr() == cols[1].data_ptr()
+        assert a[-6:] == (0.5, can, int(can != 0.), 1, 1, chunks)
+
+
+def test_chip_smoke_k15_cases_run_on_the_cpu(rico):
+    cases = scalar_rk_cases(torch, rico, 4, (1, 3, None))
+    assert len(cases) == 3 * len(K15_FORMS) == 12
+    for name, kern, plain, kind in cases:
+        assert name == K15 and kind == "field"
+        for a, b in zip(kern(), plain()):
+            assert torch.equal(a, b)
