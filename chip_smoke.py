@@ -45,7 +45,8 @@ Phases (any failure exits non-zero and prints no result line):
      at 48x20, both on their stretched levels, at ktot 16 and 6 (the short
      column makes every ladder row a wall row); K18 (advection and the
      Coriolis fold each on and off), K19 (advection on and off, one scalar
-     and every scalar in one launch) and K21 on
+     and every scalar in one launch) and K21 (K3's launch in place on a
+     random complex spectrum, in every form of K3) on
      the jaenschwalde case at 45x40x24 and 48x16x32, K20 (sponge and
      Coriolis folds each on and off), K1 and K7 on ghost-filled dry fields
      and K21 on the sullivan2011 case at 45^2x24 and 48^2x32 and, without
@@ -76,7 +77,12 @@ Phases (any failure exits non-zero and prints no result line):
      or not, the sponge and Coriolis folds each on and off, the evisc fold
      off) with its k-split forced to 1, 2 and 3 chunks, the plan's count and
      one level a chunk, on drycblles at 512^2x32 and on the neutral Ekman
-     LES at 45^2x8 (a partial tile, no th), float64 and float32; K1 and K14
+     LES at 45^2x8 (a partial tile, no th), float64 and float32; K20
+     (dry_cases) forced to 1-5 chunks, its plan's count and one level a
+     chunk at ktot 16 and 6 on 45^2 and 48x20 planes, aligned and shifted,
+     the sponge and Coriolis term each on and off, the levels never read
+     NaN, with th on sullivan2011 and without on the neutral Ekman LES, both
+     on the substep without the RK fold, float64 and float32; K1 and K14
      (evisc_cases) forced to 1-5 chunks, the plan's count and one level a
      chunk, aligned and with u, v and w shifted one value past a 16-byte
      boundary, in the model's stratified mode (an unstable and a strongly
@@ -156,8 +162,10 @@ Phases (any failure exits non-zero and prints no result line):
  19. and 20. the same for sullivan2011 as its ini is written (thermo dry,
      geostrophic forcing) with stats off at 512^3 float32, on the RK path:
      K22 with the sponge and Coriolis folds;
- 19b. and 20b. the same with build_step(unfolded=True) at 512^2x64: K20, K21
-     and K1 (also forced as in phase 6b), K7 in their ghost mode; then two
+ 19b. and 20b. the same with build_step(unfolded=True) at 512^2x64: K20
+     (also forced to 1, 2, 3 chunks, its plan's count and one level a chunk
+     in the path's form, aligned and shifted: check_dry_forced), K21 and
+     K1 (also forced as in phase 6b), K7 in their ghost mode; then two
      steps of both forms from one state, every field within 1e-3 of its
      maximum (float32 roundoff);
  21. and 22. the same for the neutral Ekman LES (cases/andren1994/
@@ -173,7 +181,7 @@ and share of the bound; beside K1/K14, K7, K8/K9, K12, K13, K16, K17 and
 K18 their registers, local bytes a thread (spills and stack), shared
 memory a block, resident blocks an SM (as the card reports them), chunk
 count, blocks and waves at the path's shape, and the same beside the
-scalar sweep K10/K19 and K22.
+scalar sweep K10/K19, K20 and K22; beside K3 and K21 their form.
 With --profile FILE, a last phase traces two steps of each LES with
 torch.profiler and prints the device time per kernel, the step's device
 idle share (one minus the device time over the wall time of the same
@@ -858,15 +866,17 @@ def check_dft(torch):
 
 
 def tdma_ri_cases(torch, m, rnd):
-    """K21 against its plain version on a random split spectrum; the error
-    is taken per mode, as K3's."""
-    from microhh_torch.ops.pres_2 import tdma_ri_plain
+    """K21 (K3's launch in place on K5's spectrum, counted under its own
+    name) against tdma_plain on a random complex spectrum, in every form
+    (tdma_forms); the error is taken per mode, as K3's."""
+    from microhh_torch.ops.pres_2 import tdma_plain
     pr = m.pres
-    dr, di = rnd(*pr.winv.shape), rnd(*pr.winv.shape)
+    spec = torch.complex(rnd(*pr.winv.shape), rnd(*pr.winv.shape))
     return [("tdma_ri",
-             lambda: [torch.stack(pr.tdma_ri(dr, di), dim=-1)],
-             lambda: [torch.stack(tdma_ri_plain(dr, di, pr.winv, pr.afcf),
-                                  dim=-1)], "mode")]
+             lambda sw=sw: [torch.view_as_real(pr.tdma_ri(spec.clone(), sw))],
+             lambda: [torch.view_as_real(tdma_plain(spec.clone(), pr.winv,
+                                                    pr.tab))], "mode")
+            for sw in tdma_forms(spec.shape[0], pr.winv.dtype)]
 
 
 class attrs:
@@ -1429,6 +1439,120 @@ def check_uvw_forced(torch, m):
     return worst
 
 
+# the forms (the sponge columns of the table, the Coriolis term) dry_cases
+# takes by default: each on and off
+DRY_FORMS = ((True, True), (False, False))
+
+
+def dry_cases(torch, m, seed, chunk_counts, forms=DRY_FORMS):
+    """(name, kernel call, plain call, error kind) for K20 on a dry model
+    on the substep without the RK fold at each forced chunk count (None:
+    the plan's), aligned and with u, v, w, th and e one value past a
+    16-byte boundary (single-value copies only), in each of forms (the
+    table's sponge columns, the Coriolis term).  Seeded u, v, w, th around
+    300 K (the model's thermo form), a positive eddy viscosity, random
+    carries, the table with noise in ug and vg; the fields' levels outside
+    ks-1..ke, which K20 never reads, are NaN.  The kernel call fails on a
+    non-finite output."""
+    from microhh_torch.ops import fused as F
+    ctx, fz = m.ctx, m.fused
+    ks, ke = ctx.ks, ctx.ke
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    shape = (ctx.kcells, ctx.jtot, ctx.itot)
+
+    def rnd(*sh, scale=1.):
+        return (scale * torch.randn(*(sh or shape), generator=gen,
+                                    dtype=torch.float64)).to(ctx.dtype).to(ctx.device)
+
+    s = {"u": rnd(), "v": rnd(), "w": rnd(scale=0.3)}
+    if fz.has_thermo:
+        s["th"] = 300. + rnd()
+    e = rnd().abs()
+    for x in list(s.values()) + [e]:
+        x[:ks - 1] = float("nan")
+        x[ke + 1:] = float("nan")
+    t0 = {n: rnd(scale=1e-3) for n in s}
+    ct = fz.ct.clone()
+    ct[:, F.T_UG] += rnd(ctx.ktot)
+    ct[:, F.T_VG] += rnd(ctx.ktot)
+    bare = ct.clone()
+    for col in (F.T_FACZ, F.T_FACZH):
+        bare[:, col] = 0.
+    layouts = {"aligned": (s, e),
+               "shifted": ({n: shifted(torch, x) for n, x in s.items()},
+                           shifted(torch, e))}
+    grid_args = (ks, ctx.dxi, ctx.dyi)
+    cases = []
+    for chunks in chunk_counts:
+        for sf, ef in layouts.values():
+            for sponge, coriolis in forms:
+                def dry(kernel, sf=sf, ef=ef, table=ct if sponge else bare,
+                        coriolis=coriolis, chunks=chunks):
+                    t = {n: t0[n].clone() for n in t0}
+                    with attrs(fz, ct=table, coriolis=coriolis, fc=1e-2):
+                        if kernel:
+                            fz.tendencies(sf, t, ef, chunks=chunks)
+                        else:
+                            F.tendencies_plain(
+                                sf, ef, t, table, *grid_args, fz.visc,
+                                fz.svisc, fz.tPr, fz.fc, ctx.utrans,
+                                ctx.vtrans, coriolis, fz.has_thermo)
+                    got = [t[n] for n in fz.prognostic]
+                    if kernel and not all(bool(torch.isfinite(x).all())
+                                          for x in got):
+                        raise AssertionError("K20 wrote a non-finite value")
+                    return got
+                cases.append(("tendencies", lambda f=dry: f(True),
+                              lambda f=dry: f(False), "field"))
+    return cases
+
+
+def dry_chunks(m, dtype):
+    """The k-splits the runs' phases force on K20: 1, 2 and 3 chunks, the
+    plan's count and one level a chunk."""
+    k = m.ctx.ktot
+    return sorted({c for c in (1, 2, 3) if c <= k}
+                  | {m.fused.tendencies_plan(dtype).chunks, k})
+
+
+def check_dry_forced(torch, m):
+    """K20 at a run's shapes in the path's form (its sponge and Coriolis
+    term) with its k-split forced (dry_chunks), aligned and shifted by one
+    value; returns the largest absolute difference."""
+    worst = 0.
+    for name, kern, plain, kind in dry_cases(
+            torch, m, m.ctx.itot + 3, dry_chunks(m, m.dtype),
+            ((True, m.fused.coriolis),)):
+        worst = max(worst, compare(torch, name, kern, plain, kind, m.dtype,
+                                   "%s forced" % shape_str(m)))
+        torch.cuda.empty_cache()
+    return worst
+
+
+def check_dry_kmarch(torch):
+    """K20 (dry_cases) against its plain version with the k-split forced
+    (forced_chunks and the plan's count) at ktot 16 and 6, on partial
+    tiles, aligned and shifted, the sponge and Coriolis term each on and
+    off: with th on sullivan2011 and without on the neutral Ekman LES, both
+    on the substep without the RK fold, float64 and float32."""
+    for label, build in (("sullivan2011", build_sullivan),
+                         ("andren1994", build_andren)):
+        for n in ((45, 45), (48, 20)):
+            for k in (16, 6):
+                for dtype in (torch.float64, torch.float32):
+                    m = build(torch, n, k, dtype, "cuda")
+                    m.build_step(unfolded=True)
+                    counts = sorted(set(forced_chunks(k))
+                                    | set(dry_chunks(m, dtype)))
+                    for name, kern, plain, kind in dry_cases(
+                            torch, m, n[1] + k, counts):
+                        compare(torch, name, kern, plain, kind, dtype,
+                                "%s unfolded %s chunks %s"
+                                % (label, shape_str(m), counts))
+                    del m
+                    torch.cuda.empty_cache()
+
+
 # the stability regimes evisc_cases takes: N2 / tPr against each level's
 # mean strain rate squared, times 0.7 to 1.3 (a column's factor, or a
 # point's for an N2 field): unstable (-1, the N2 term a third to a half of
@@ -1814,8 +1938,8 @@ def check_kmarch(torch):
     the momentum sweep K8/K9 and K18 (uvw_cases, also at both plans'
     counts) aligned and shifted; K22 in
     every form of kernel_cases (fold_chunks) on drycblles at 512^2x32 and
-    on the neutral Ekman LES at 45^2x8 (a partial tile, null th); K1/K14
-    and K7 (check_evisc_kmarch)."""
+    on the neutral Ekman LES at 45^2x8 (a partial tile, null th); K20
+    (check_dry_kmarch); K1/K14 and K7 (check_evisc_kmarch)."""
     for label, build, n, k in (("drycblles", build_model, 512, 32),
                                ("andren1994", build_andren, (45, 45), 8)):
         for dtype in (torch.float64, torch.float32):
@@ -1880,6 +2004,7 @@ def check_kmarch(torch):
                     compare(torch, name, kern, plain, kind, dtype,
                             "rico %dx%dx%d chunks %s"
                             % (n[0], n[1], k, counts))
+    check_dry_kmarch(torch)
     check_evisc_kmarch(torch)
 
 
@@ -2122,7 +2247,7 @@ FLOPS_PER_POINT = {"evisc": 100, "evisc_n2": 100, "limits": 110,
                    "tend_rk": 700, "tend_rk_fold": 900, "tend_uvw": 450, "tend_scalars": 110,
                    "tend_scalar_rk": 110, "micro2": 300, "advec_mom": 400,
                    "advec_scalars": 130, "pres_rhs": 10, "pres_apply": 15,
-                   "tdma": 16, "tdma_ri": 12, "tend_uvw_acc": 430,
+                   "tdma": 16, "tend_uvw_acc": 430,
                    "tend_scalar_acc": 100, "tendencies": 700,
                    # K16 and K17 by scheme (K17 per scalar, with one
                    # scalar's share of the vertical weights); K16 computes
@@ -2167,7 +2292,7 @@ def registers_of(build_log):
 
 def kmarch_info(kern, dtype, scheme, S, plan):
     """What a k-marching kernel (K1/K14, K7, K8/K9, K12, K13, K16, K17,
-    K18, the scalar sweep, K22) reports at a path's shape: its registers,
+    K18, the scalar sweep, K20, K22) reports at a path's shape: its registers,
     local bytes a thread, shared memory a block and resident blocks an SM
     from the card, its chunk count, blocks and waves."""
     info = kern.info(dtype, scheme, S)
@@ -2207,7 +2332,6 @@ def pres_pairs(torch, m, s):
     """The projection's kernels (K3-K6) at the model's shapes."""
     from microhh_torch.ops import fused as F
     from microhh_torch.ops.pres_2 import tdma_plain
-    from microhh_torch.ops.pres_2 import tdma_ri_plain
     ctx, gl, pr, t = m.ctx, m.glue, m.pres, m.t
     rhs = gl.rhs(s["u"], s["v"], s["w"], 1.)
     p = pr.solve(rhs)
@@ -2237,14 +2361,13 @@ def pres_pairs(torch, m, s):
                        dft_flops, lib_inv, info=dict(info, registers=(
                            REGISTERS.get(DFT_ENTRIES[inv.name], {}))))}
     if m.unfolded:
-        # K21 reads dr, di and the pivots and writes xr, xi: five arrays of
-        # half a spectrum each
-        d = spec * pr.dz2
-        dr, di = d.real.contiguous(), d.imag.contiguous()
+        # K21, K3's launch in place on K5's spectrum: the spectrum read and
+        # written once, the pivots read once
         dft["tdma_ri"] = pair(
-            lambda: pr.tdma_ri(dr, di),
-            lambda: tdma_ri_plain(dr, di, pr.winv, pr.afcf), 5 * sb // 2,
-            FLOPS_PER_POINT["tdma_ri"] * spec.numel())
+            lambda: pr.tdma_ri(spec),
+            lambda: tdma_plain(spec, pr.winv, pr.tab), 5 * sb // 2,
+            FLOPS_PER_POINT["tdma"] * n,
+            info=tdma_info(pr, ctx.ktot, modes, m.dtype))
         return dft
     return dict(dft, **{
         "pres_rhs": pair(lambda: gl.rhs(s["u"], s["v"], s["w"], 1.),
@@ -2605,12 +2728,17 @@ def unfolded_sweep_pairs(m, s, e):
     fb, n = field_bytes(m), points(m)
     grid_args = (ctx.ks, ctx.dxi, ctx.dyi)
     if not m.generic:
+        # u, v, w, (th,) e read, the carries read and written
         return {"tendencies": pair(
             lambda: fz.tendencies(s, t, e),
             lambda: F.tendencies_plain(s, e, t, fz.ct, *grid_args, fz.visc,
                                        fz.svisc, fz.tPr, fz.fc, ctx.utrans,
-                                       ctx.vtrans, fz.coriolis),
-            13 * fb, FLOPS_PER_POINT["tendencies"] * n)}
+                                       ctx.vtrans, fz.coriolis,
+                                       fz.has_thermo),
+            (3 * len(fz.prognostic) + 1) * fb,
+            FLOPS_PER_POINT["tendencies"] * n,
+            info=kmarch_info(fz.k_tendencies, m.dtype, 0, int(fz.has_thermo),
+                             fz.tendencies_plan(m.dtype)))}
     S = len(fz.names)
     S1 = min(S, kmarch.SW_MAXS)
     return {
@@ -2739,19 +2867,21 @@ def time_pres4_parts(torch, m, s):
 # --------------------------------------------------------------------------
 
 # kernel-name pattern -> part of the step; the first match counts (K18 is
-# the instance of K8/K9's kernel without the RK fold; K10 and K19 the scalar
+# the instance of K8/K9's kernel without the RK fold, K20 its instances
+# with the DRY flag; K10 and K19 the scalar
 # sweep's instances with and without it, K15 its RK instances at one scalar,
-# which no main path launches as K10; K3 both its forms)
+# which no main path launches as K10; K3 both its forms, and K21, K3's
+# launch on the substep without the RK fold, where K3 does not run)
 PARTS = [("evisc_kernel", "K1/K14 evisc"), ("tend_rk_kernel", "K2 tend_rk"),
          ("tend_rk_fold_kernel", "K22 tend_rk_fold"),
+         (r"tend_uvw_kernel<\w+, *(false|\(bool\)0), *(true|\(bool\)1)",
+          "K20 tendencies"),
          (r"tend_uvw_kernel<\w+, *(false|\(bool\)0)", "K18 tend_uvw_acc"),
          (r"scalar_sweep_kernel<\w+, *(false|\(bool\)0)",
           "K19 tend_scalar_acc"),
          (r"scalar_sweep_kernel<\w+, *(true|\(bool\)1), *\w+, *1\b",
           "K15 tend_scalar_rk"),
          (r"scalar_sweep_kernel<\w+, *(true|\(bool\)1)", "K10 tend_scalars"),
-         ("tendencies_kernel", "K20 tendencies"),
-         ("tdma_ri_kernel", "K21 tdma_ri"),
          ("micro2_kernel", "K11 micro2"),
          ("advec_mom_kernel", "K12 advec_mom"),
          ("advec_scalars_kernel", "K13 advec_scalars"),
@@ -2766,7 +2896,7 @@ PARTS = [("evisc_kernel", "K1/K14 evisc"), ("tend_rk_kernel", "K2 tend_rk"),
          ("dft_inv_cluster", "K6 dft_inv (cluster form)"),
          ("dft_r2c_x", "K5 dft_fwd_split (i pass)"),
          ("dft_c2c_y", "K5/K6 split (j passes)"),
-         (r"tdma_(scan_)?kernel", "K3 tdma"),
+         (r"tdma_(scan_)?kernel", "K3 tdma (K21 without the RK fold)"),
          ("dft_c2r_x", "K6 dft_inv_split (i pass)"),
          ("pres_apply_kernel", "K4 pres_apply")]
 
@@ -2928,7 +3058,7 @@ def main():
     check_tdma(torch)
     check_kernels(torch)
     log("[3b] K16, K17, K12, K13, the scalar sweep K10/K19, the momentum "
-        "sweep K8/K9/K18, K22, K1/K14 and K7 with the k-split forced")
+        "sweep K8/K9/K18, K22, K20, K1/K14 and K7 with the k-split forced")
     check_kmarch(torch)
     log("[3c] K11 at ring depths 3, 4 and 8, columns shorter than, equal to "
         "and not a multiple of its window")
@@ -2986,6 +3116,9 @@ def main():
             if m.fused.k_evisc in m.kernels():
                 errs["evisc"] = max(errs["evisc"],
                                     check_evisc_forced(torch, m))
+            if m.unfolded:
+                errs["tendencies"] = max(errs["tendencies"],
+                                         check_dry_forced(torch, m))
             errs["limits"] = max(errs["limits"], check_limits_forced(torch, m))
             times = (time_generic_kernels if m.unfolded else time_kernels)(
                 torch, m, s)

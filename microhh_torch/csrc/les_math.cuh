@@ -1,6 +1,6 @@
 // Pointwise math of the 2nd-order LES kernels, shared by the eddy-viscosity
-// kernels K1, K7, K14 (evisc.cu), the RK tendency sweeps K2, K20
-// (tend_rk.cu), K22 (tend_rk_fold.cu) and K8-K10, K15, K18, K19
+// kernels K1, K7, K14 (evisc.cu), the tendency sweeps K2 (tend_rk.cu),
+// K22 (tend_rk_fold.cu) and K8-K10, K15, K18, K19, K20
 // (tend_generic.cu): the
 // strain rate and the Smagorinsky viscosity (diff_smag2.cxx calc_strain2 +
 // calc_evisc), advec_2 (advec_2.cxx) + Smagorinsky diffusion
@@ -248,7 +248,7 @@ __device__ __forceinline__ void uv_tend(const VF& U, const VF& V, const VF& W,
     vt = v_tend(U, V, W, E, q, cc, dxi, dyi, visc, advec);
 }
 
-// The folds of the dry sweeps K2, K20 and K22 onto u's tendency: the static
+// The folds of the dry RK sweeps K2 and K22 onto u's tendency: the static
 // sponge of the table (buffer.cxx) and, when coriolis, the geostrophic term
 // fc (v - vg) of the JAX package's stencil (force.py:149, pallas_fused.py
 // _extra_uv: v is averaged around (i+1/2, j-1), ROADMAP "followed

@@ -1,7 +1,8 @@
 // K8/K9, K10, K15, K18 and K19: the tendency sweeps of the generic path
 // (any thermo, any scalar list; the moist bomex/rico class), with or without
 // the low-storage RK update folded in (s* = s + cB*dt*t_total and the carry
-// t = cA_next*t_total).
+// t = cA_next*t_total); and K20, the dry path's sweep without the RK fold,
+// on K18's march.
 //
 // K8/K9 tend_uvw: u, v and w advec_2 + Smagorinsky diffusion, the column
 // fold of the per-substep table (ADDU/V, FACZ, FACZH and the WLSDN/UP
@@ -44,6 +45,25 @@
 // afterwards) and the Coriolis term stays a flag.  Replaces
 // FusedLES2.tend_uv (:1540 / :1560; _tend_uv_body :505) and tend_w (:1568
 // / :1582; _w_body :373).  K19 is the scalar sweep's form for that substep.
+//
+// K20 tendencies (tend_uvw_kernel<T, false, true, TH>): the dry set of K2
+// (tend_rk.cu) WITHOUT the RK fold, for the dry path's substep in which a
+// forcing, a limiter, a source or a top boundary condition rules the RK
+// fold out: advec_2 and Smagorinsky diffusion of u, v, w and, when TH, th;
+// the static sponge from the (ktot, NTG) table (FACZ, FACZH, UREF, VREF,
+// SREF); the dry buoyancy on w (g / threfh, a quotient of the staged row);
+// the geostrophic Coriolis term as a flag; added onto the carries in
+// place, no s*, no ghost level of a carry touched, w's tendency zero at the
+// wall.  A null th is the has_thermo=False form (TH off).  Replaces
+// FusedLES2.tendencies (:1743; pallas_calls :1807, :1827, :1861; bodies
+// _tend_uv_body :505, _tend_wth_body :521, _all_tiled_body :1100) and the
+// k-streaming form of the same sweep (_stream_call :1383 / :1399): the
+// k-march fetches each plane once, which is that dataflow.  It is K18's
+// march with the DRY and TH template flags: th's plane is a fifth field of
+// the group, its column and carry ride in registers beside u's, v's, w's
+// and e's, one commit group and one barrier a level as in K18.  Bound: u,
+// v, w, th and e read, four carries read and written: 13 x 4 B a point in
+// f32 (6.98 GB at 512^3), 10 without th.
 //
 // The fields are ghost-filled and read at k-1 and k+1 as they are (no
 // clamping, fold_ghosts off as on the TPU's generic path); evisc is the
@@ -371,7 +391,7 @@ int scalar_sweep_info(int advec, int S, int fold, int* out) {
     });
 }
 
-// ---- the momentum sweep, K8/K9 (RK) and K18 (no RK) ----
+// ---- the momentum sweep, K8/K9 (RK) and K18 (no RK), and K20 ----
 
 constexpr int UVW_TJ = 8;                // tile rows (32 x UVW_TJ threads)
 constexpr int UVW_NT = km::TI * UVW_TJ;
@@ -379,7 +399,7 @@ constexpr int UVW_HALO = 1;              // the 2nd-order stencil's reach
 constexpr int UVW_NF = 4;                // fields a group: u, v, w, e
 constexpr int UVW_R = 5;                 // group slots: k-1 .. k+3
 
-// everything a launch takes but its template argument
+// everything a launch takes but its template arguments
 template <typename T>
 struct UvwArgs {
     const T *u, *v, *w, *e;
@@ -389,27 +409,53 @@ struct UvwArgs {
     int itot, jtot, ktot, ks;
     T dxi, dyi, visc, fc, utrans, vtrans, cbdt, can;
     int coriolis, carry, advec, chunks, vec_ok;
+    // K20's: th and its carry (null without thermo), th's viscosity and
+    // 1 / tPr
+    const T* th;
+    T* tth;
+    T svisc, tPri;
 };
 
 // dynamic shared memory of one launch (ops/kmarch.py repeats it): UVW_R
-// groups of the four fields' planes and a staged table row a group
-template <typename T>
+// groups of the four fields' planes (five with K20's th) and a staged table
+// row a group
+template <typename T, bool TH = false>
 constexpr size_t uvw_smem() {
-    return ((size_t)UVW_R * UVW_NF * km::Slot<UVW_TJ, UVW_HALO>::SIZE
+    return ((size_t)UVW_R * (UVW_NF + (TH ? 1 : 0))
+                * km::Slot<UVW_TJ, UVW_HALO>::SIZE
             + (size_t)UVW_R * NTGP) * sizeof(T);
 }
 
 extern __shared__ __align__(16) unsigned char uvw_smem_buf[];
 
-// three blocks an SM for K8/K9 in float32 (at most 80 registers), four
-// for K18 (at most 64: 1.098 against 1.179 ms at jaenschwalde, while K8/K9
-// read 1.285 against 1.273 at rico 384^3 on an H100 at 700 W), two in
-// float64
-template <typename T, bool RK>
-__global__ void __launch_bounds__(UVW_NT, sizeof(T) == 4 ? (RK ? 3 : 4) : 2)
+// th's column in K20's march: its values at k-1, k and k+1, its carry at
+// k and k+1 and its tendency at k; nothing without th
+template <typename T, bool TH>
+struct ThColumn {
+    T a0, a1, a2, c, cn, t;
+};
+
+template <typename T>
+struct ThColumn<T, false> {};
+
+// K8/K9 (RK), K18 (neither flag) and K20 (DRY: the static sponge of the
+// table's FACZ, FACZH, UREF, VREF; TH: th's plane fifth in a group, its
+// column and carry in registers, the dry buoyancy on w, th's tendency
+// with its sponge, the staged row's g/threfh quotient).  One body: the
+// flags' code is `if constexpr`, so K8/K9's and K18's instances compile
+// from the same code as before K20 joined them.  Three blocks an SM for
+// K8/K9 and K20 with th in float32 (at most 80 registers), four for K18
+// and K20 without th (at most 64: K18 1.098 against 1.179 ms at
+// jaenschwalde, while K8/K9 read 1.285 against 1.273 at rico 384^3 on an
+// H100 at 700 W; K20 at 512^3 read 2.92 at three blocks against 3.88 at
+// four), two in float64
+template <typename T, bool RK, bool DRY = false, bool TH = false>
+__global__ void __launch_bounds__(UVW_NT,
+                                  sizeof(T) == 4 ? (RK || TH ? 3 : 4) : 2)
 tend_uvw_kernel(const UvwArgs<T> a) {
     using Sl = km::Slot<UVW_TJ, UVW_HALO>;
-    constexpr int SZ = Sl::SIZE, PL = UVW_NF * SZ;
+    constexpr int NF = UVW_NF + (TH ? 1 : 0);
+    constexpr int SZ = Sl::SIZE, PL = NF * SZ;
     T* const ring = reinterpret_cast<T*>(uvw_smem_buf);   // [R][NF][SZ]
     T* const rows = ring + UVW_R * PL;                     // [R][NTGP]
     const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * km::TI + tx;
@@ -428,9 +474,9 @@ tend_uvw_kernel(const UvwArgs<T> a) {
     auto level = [&](int k) { return (long long)(a.ks + k) * plane; };
     auto next = [](int s) { return s == UVW_R - 1 ? 0 : s + 1; };
 
-    // group p into slot s: plane p of u, v, w and e (the loader's offsets
-    // shared by the four) and, for a level of the chunk, table row p; none
-    // past plane k1 (an empty group keeps the count)
+    // group p into slot s: plane p of u, v, w and e (and th) (the loader's
+    // offsets shared by the fields) and, for a level of the chunk, table
+    // row p; none past plane k1 (an empty group keeps the count)
     auto issue = [&](int p, int s) {
         if (p <= k1) {
             const long long lev = level(p);
@@ -445,11 +491,14 @@ tend_uvw_kernel(const UvwArgs<T> a) {
                     km::cp_async<16>(d + SZ, a.v + g);
                     km::cp_async<16>(d + 2 * SZ, a.w + g);
                     km::cp_async<16>(d + 3 * SZ, a.e + g);
+                    if constexpr (TH) km::cp_async<16>(d + 4 * SZ, a.th + g);
                 } else {
                     km::cp_async<sizeof(T)>(d, a.u + g);
                     km::cp_async<sizeof(T)>(d + SZ, a.v + g);
                     km::cp_async<sizeof(T)>(d + 2 * SZ, a.w + g);
                     km::cp_async<sizeof(T)>(d + 3 * SZ, a.e + g);
+                    if constexpr (TH)
+                        km::cp_async<sizeof(T)>(d + 4 * SZ, a.th + g);
                 }
             }
             if (p >= k0 && p < k1 && tid < NTG)
@@ -459,11 +508,15 @@ tend_uvw_kernel(const UvwArgs<T> a) {
         km::commit();
     };
     // the quotients of the staged row in slot s (QRow's columns), divided
-    // as the point functions would divide them, by two threads
+    // as the point functions would divide them, by two threads (three
+    // with th)
     auto derive = [&](int s) {
         T* const r = rows + s * NTGP;
         if (tid == 0) r[TQ_RDZI] = r[T_DZI] / r[T_RHO];
         else if (tid == 1) r[TQ_RDZHI] = r[T_DZHI] / r[T_RHOH];
+        if constexpr (TH) {
+            if (tid == 2) r[TQ_GTHREFH] = T(9.81) / r[T_THREFH];
+        }
     };
 
     // group p lives in slot (p - k0 + 1) mod UVW_R
@@ -481,6 +534,12 @@ tend_uvw_kernel(const UvwArgs<T> a) {
     T w1 = ring[PL + me + 2 * SZ], e1 = ring[PL + me + 3 * SZ];
     T cu = a.tu[level(k0) + o2], cv = a.tv[level(k0) + o2];
     T cw = a.tw[level(k0) + o2];
+    ThColumn<T, TH> h;
+    if constexpr (TH) {
+        h.a0 = ring[me + 4 * SZ];
+        h.a1 = ring[PL + me + 4 * SZ];
+        h.c = a.tth[level(k0) + o2];
+    }
     const Slots q{0, 1, 2};
     int sm = 0;                 // the slot of group k-1
     for (int k = k0; k < k1; ++k) {
@@ -494,6 +553,7 @@ tend_uvw_kernel(const UvwArgs<T> a) {
         // the carries of the next level, on their way during this one
         const long long ln = level(min(k + 1, k1 - 1)) + o2;
         const T cun = a.tu[ln], cvn = a.tv[ln], cwn = a.tw[ln];
+        if constexpr (TH) h.cn = a.tth[ln];
 
         const T* const pm = ring + sm * PL + me;
         const T* const pc = ring + sc * PL + me;
@@ -523,6 +583,13 @@ tend_uvw_kernel(const UvwArgs<T> a) {
             vt = vt + wdn * (v1 - v0) + wup * (v2 - v1);
             wt = wt - cc[T_FACZH] * w1;
         }
+        if constexpr (DRY) {
+            // the static sponge (buffer.cxx; _extra_uv, _extra_wth)
+            const T facz = cc[T_FACZ];
+            ut = ut - facz * (u1 - cc[T_UREF]);
+            vt = vt - facz * (v1 - cc[T_VREF]);
+            wt = wt - cc[T_FACZH] * w1;
+        }
         if (a.coriolis) {
             // the JAX package's stencil (ROADMAP "followed behaviour" 1)
             const T v_at_u = T(0.25) * (v1 + V(1, 0, 1) + V(1, -1, 0)
@@ -531,6 +598,16 @@ tend_uvw_kernel(const UvwArgs<T> a) {
                                         + U(1, 1, -1));
             ut = ut + a.fc * (v_at_u + a.vtrans - cc[T_VG]);
             vt = vt - a.fc * (u_at_v + a.utrans - cc[T_UG]);
+        }
+        if constexpr (TH) {
+            // the dry buoyancy (thermo_dry.cxx) and th's own tendency
+            h.a2 = pp[4 * SZ];
+            const KV<T, km::RS> A{pm + 4 * SZ, pc + 4 * SZ, pp + 4 * SZ,
+                                  h.a0, h.a1, h.a2};
+            wt = wt + cc[TQ_GTHREFH] * (i2(h.a0, h.a1) - cc[T_THREFH]);
+            h.t = h.c + (s_tend<QRow<T>>(U, V, W, A, E, q, cc, a.dxi, a.dyi,
+                                         a.svisc, a.tPri, a.advec)
+                         - cc[T_FACZ] * (h.a1 - cc[T_SREF]));
         }
         if (k == 0) wt = T(0);   // half level ks is the wall
 
@@ -553,6 +630,7 @@ tend_uvw_kernel(const UvwArgs<T> a) {
                 a.tu[o] = ut;
                 a.tv[o] = vt;
                 a.tw[o] = wt;
+                if constexpr (TH) a.tth[o] = h.t;
             }
         }
         u0 = u1; u1 = u2;
@@ -560,29 +638,49 @@ tend_uvw_kernel(const UvwArgs<T> a) {
         w0 = w1; w1 = w2;
         e0 = e1; e1 = e2;
         cu = cun; cv = cvn; cw = cwn;
+        if constexpr (TH) {
+            h.a0 = h.a1; h.a1 = h.a2;
+            h.c = h.cn;
+        }
         sm = sc;
     }
     // no copy may land after the block has left its shared memory
     km::wait_all();
 }
 
-template <typename T, bool RK>
+// K8/K9 (RK), K18 (neither flag) and K20 (DRY, TH where th is given)
+template <typename T, bool RK, bool DRY = false, bool TH = false>
 int launch_tend_uvw(const UvwArgs<T>& args, cudaStream_t stream) {
     if (args.chunks < 1 || args.chunks > args.ktot)
         return (int)cudaErrorInvalidValue;
-    const size_t smem = uvw_smem<T>();
+    auto kernel = tend_uvw_kernel<T, RK, DRY, TH>;
+    const size_t smem = uvw_smem<T, TH>();
     int rc = (int)cudaFuncSetAttribute(
-        tend_uvw_kernel<T, RK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (rc) return rc;
     const dim3 block(km::TI, UVW_TJ);
     const dim3 grid((args.itot + km::TI - 1) / km::TI,
                     (args.jtot + UVW_TJ - 1) / UVW_TJ, args.chunks);
-    tend_uvw_kernel<T, RK><<<grid, block, smem, stream>>>(args);
+    kernel<<<grid, block, smem, stream>>>(args);
     return (int)cudaGetLastError();
 }
 
-// the arguments of one launch; us, vs, ws null without RK
+template <typename T, bool RK, bool DRY = false, bool TH = false>
+int tend_uvw_info(int* out) {
+    return km::kernel_info(tend_uvw_kernel<T, RK, DRY, TH>, UVW_NT,
+                           uvw_smem<T, TH>(), out);
+}
+
+// K20: th and its carry both given (TH) or both null
+template <typename T>
+int launch_tendencies(const UvwArgs<T>& a, cudaStream_t stream) {
+    if (!a.th != !a.tth) return (int)cudaErrorInvalidValue;
+    return a.th ? launch_tend_uvw<T, false, true, true>(a, stream)
+                : launch_tend_uvw<T, false, true, false>(a, stream);
+}
+
+// the arguments of one launch; us, vs, ws null without RK, th and tth
+// null but in K20's with th
 template <typename T>
 UvwArgs<T> uvw_args(const void* u, const void* v, const void* w,
                     const void* e, void* us, void* vs, void* ws, void* tu,
@@ -605,6 +703,28 @@ UvwArgs<T> uvw_args(const void* u, const void* v, const void* w,
     a.chunks = chunks;
     a.vec_ok = itot % (16 / (int)sizeof(T)) == 0 && km::aligned16(u)
                && km::aligned16(v) && km::aligned16(w) && km::aligned16(e);
+    a.th = nullptr; a.tth = nullptr;
+    a.svisc = T(0); a.tPri = T(0);
+    return a;
+}
+
+// K20's: K18's with advection and th (null without thermo)
+template <typename T>
+UvwArgs<T> dry_args(const void* u, const void* v, const void* w,
+                    const void* th, const void* e, void* tu, void* tv,
+                    void* tw, void* tth, const void* ct, int itot, int jtot,
+                    int ktot, int ks, double dxi, double dyi, double visc,
+                    double svisc, double tPr, double fc, double utrans,
+                    double vtrans, int coriolis, int chunks) {
+    UvwArgs<T> a = uvw_args<T>(u, v, w, e, nullptr, nullptr, nullptr, tu, tv,
+                               tw, ct, itot, jtot, ktot, ks, dxi, dyi, visc,
+                               fc, utrans, vtrans, 0., 0., coriolis, 0, 1,
+                               chunks);
+    a.vec_ok = a.vec_ok && (!th || km::aligned16(th));
+    a.th = (const T*)th;
+    a.tth = (T*)tth;
+    a.svisc = T(svisc);
+    a.tPri = T(1) / T(tPr);
     return a;
 }
 
@@ -626,8 +746,7 @@ UvwArgs<T> uvw_args(const void* u, const void* v, const void* w,
             (cudaStream_t)stream);                                            \
     }                                                                         \
     extern "C" int mhh_tend_uvw_info_##SUF(int scheme, int S, int* out) {     \
-        return mhh::km::kernel_info(mhh::tend_uvw_kernel<T, true>,            \
-                                    mhh::UVW_NT, mhh::uvw_smem<T>(), out);    \
+        return mhh::tend_uvw_info<T, true>(out);                              \
     }                                                                         \
     extern "C" int mhh_tend_scalars_##SUF(                                    \
         const void* u, const void* v, const void* w, const void* e,           \
@@ -660,8 +779,24 @@ UvwArgs<T> uvw_args(const void* u, const void* v, const void* w,
     }                                                                         \
     extern "C" int mhh_tend_uvw_acc_info_##SUF(int scheme, int S,             \
                                                int* out) {                    \
-        return mhh::km::kernel_info(mhh::tend_uvw_kernel<T, false>,           \
-                                    mhh::UVW_NT, mhh::uvw_smem<T>(), out);    \
+        return mhh::tend_uvw_info<T, false>(out);                             \
+    }                                                                         \
+    extern "C" int mhh_tendencies_##SUF(                                      \
+        const void* u, const void* v, const void* w, const void* th,          \
+        const void* e, void* tu, void* tv, void* tw, void* tth,               \
+        const void* ct, int itot, int jtot, int ktot, int ks, double dxi,     \
+        double dyi, double visc, double svisc, double tPr, double fc,         \
+        double utrans, double vtrans, int coriolis, int chunks,               \
+        void* stream) {                                                       \
+        return mhh::launch_tendencies<T>(                                     \
+            mhh::dry_args<T>(u, v, w, th, e, tu, tv, tw, tth, ct, itot, jtot, \
+                             ktot, ks, dxi, dyi, visc, svisc, tPr, fc,        \
+                             utrans, vtrans, coriolis, chunks),               \
+            (cudaStream_t)stream);                                            \
+    }                                                                         \
+    extern "C" int mhh_tendencies_info_##SUF(int scheme, int S, int* out) {   \
+        return S ? mhh::tend_uvw_info<T, false, true, true>(out)              \
+                 : mhh::tend_uvw_info<T, false, true, false>(out);            \
     }                                                                         \
     extern "C" int mhh_tend_scalar_acc_##SUF(                                 \
         const void* u, const void* v, const void* w, const void* e,           \

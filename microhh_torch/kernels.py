@@ -107,12 +107,9 @@ SIGNATURES = {
     "tend_scalar_acc": [_P] * 4 + [_PP] * 2 + [_PD, _I, _P] + [_I] * 4
                        + [_D] * 3 + [_I] * 2,
     # u, v, w, th, e (kcells), tu, tv, tw, tth, ct (ktot, NTG); itot, jtot,
-    # ktot, ks; dxi, dyi, visc, svisc, tPr, fc, utrans, vtrans; coriolis.
-    # th, tth null: no thermo
-    "tendencies": [_P] * 10 + [_I] * 4 + [_D] * 8 + [_I],
-    # dr, di (spectrum times dz^2, split), winv, afcf (kmax, 2), xr, xi;
-    # kmax, nmodes
-    "tdma_ri": [_P] * 6 + [_I, ctypes.c_longlong],
+    # ktot, ks; dxi, dyi, visc, svisc, tPr, fc, utrans, vtrans; coriolis,
+    # chunks (ops/kmarch.py).  th, tth null: no thermo
+    "tendencies": [_P] * 10 + [_I] * 4 + [_D] * 8 + [_I] * 2,
     # qr, nr, qt, thl, tqr, tnr, tqt, tthl, ql, rr_bot, cc; itot, jtot, ktot,
     # ks, nsed; Nc0, dt
     "micro2": [_P] * 11 + [_I] * 5 + [_D] * 2,
@@ -121,13 +118,14 @@ SIGNATURES = {
 # Kernels with an entry mhh_<kernel>_info_<f32|f64>(scheme, S, int out[5])
 # (the scalar sweep's "scheme" is its advec flag, plus 2 in K10/K15's
 # form without the fold; K22's its thermo flag, K1/K14's and K7's its
-# stratified mode, K3's its sweep flag with S its chunks a mode; K11,
-# K8/K9 and K18 read neither, K12, K16, K1/K14 and K7 not S): registers,
-# local bytes a thread, dynamic shared memory a block, resident blocks an
-# SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), SMs.
+# stratified mode, K3's its sweep flag with S its chunks a mode; K20 reads
+# only S, its one scalar th counted (1 or 0); K11, K8/K9 and K18 read
+# neither, K12, K16, K1/K14 and K7 not S):
+# registers, local bytes a thread, dynamic shared memory a block, resident
+# blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), SMs.
 INFO = ("advec_mom", "advec_scalars", "o4_mom", "o4_scalars",
         "tend_scalars", "tend_scalar_acc", "micro2", "tend_rk_fold",
-        "tend_uvw", "tend_uvw_acc", "evisc", "limits", "tdma")
+        "tend_uvw", "tend_uvw_acc", "evisc", "limits", "tdma", "tendencies")
 INFO_KEYS = ("registers", "local_bytes", "smem", "blocks_per_sm", "sms")
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}

@@ -47,8 +47,10 @@ no fallback from the card to the plain version.
                             to four (``tend_scalar_acc``: one scalar)
                             (``csrc/tend_generic.cu``);
 * K20 ``Fused.tendencies`` - K2's dry set without the RK fold on ghost-filled
-                            fields, with the sponge and Coriolis folds
-                            (``csrc/tend_rk.cu``).
+                            fields, with the sponge and Coriolis folds: K18's
+                            k-march with the sponge and th
+                            (``csrc/tend_generic.cu``, chunked by
+                            ``ops/kmarch.py``).
 
 K8-K10, K15, K18 and K19 leave the advec_2 terms out when an interpolated
 scheme (K12/K13, ops/advec_interp_fused.py) has added the advection into the
@@ -610,7 +612,7 @@ class Fused:
         self.k_limits = Kernel("limits", "microhh_torch/csrc/evisc.cu",
                                "microhh_tpu/ops/pallas_fused.py:1524")
         self.k_tendencies = Kernel(
-            "tendencies", "microhh_torch/csrc/tend_rk.cu",
+            "tendencies", "microhh_torch/csrc/tend_generic.cu",
             "microhh_tpu/ops/pallas_fused.py:1807, "
             "microhh_tpu/ops/pallas_fused.py:1827, "
             "microhh_tpu/ops/pallas_fused.py:1399")
@@ -775,9 +777,19 @@ class Fused:
             self.fold_plan(u.dtype, chunks).chunks)
         return s_star, (e_out if e is None else e), rhs
 
-    def tendencies(self, s, t, e):
+    def tendencies_plan(self, dtype, chunks=None):
+        """K20's k-march (ops/kmarch.py) in this case's thermo form (S its
+        one scalar th, counted), the chunk count chosen from the card's
+        resident blocks unless given."""
+        ctx, S = self.ctx, int(self.has_thermo)
+        info = self.k_tendencies.info(dtype, 0, S)
+        return kmarch.plan("tendencies", ctx.itot, ctx.jtot, ctx.ktot, S,
+                           dtype, info["blocks_per_sm"] * info["sms"], chunks)
+
+    def tendencies(self, s, t, e, chunks=None):
         """K20: the dry tendencies of ghost-filled u, v, w, th with the
-        kcells eddy viscosity e, added onto the carries t in place."""
+        kcells eddy viscosity e, added onto the carries t in place.
+        chunks: force the k-split (checks and timings only)."""
         ctx = self.ctx
         if not self.ghosts:
             raise ValueError("K20 reads ghost planes: build Fused with "
@@ -795,7 +807,8 @@ class Fused:
         self.k_tendencies(e.dtype, s["u"], s["v"], s["w"], self._th(s), e,
                           t["u"], t["v"], t["w"], self._th(t), self.ct,
                           ctx.itot, ctx.jtot, ctx.ktot, *args,
-                          int(self.coriolis))
+                          int(self.coriolis),
+                          self.tendencies_plan(e.dtype, chunks).chunks)
 
 
 class FusedGeneric(Fused):

@@ -1,7 +1,8 @@
 """The k-march plan of the redesigned ring kernels K12 (``advec_mom``), K13
 (``advec_scalars``), K16 (``o4_mom``), K17 (``o4_scalars``), the scalar
 sweep K10 (``tend_scalars``) / K19 (``tend_scalar_acc``), the momentum
-sweep K8/K9 (``tend_uvw``) / K18 (``tend_uvw_acc``), the folded dry
+sweep K8/K9 (``tend_uvw``) / K18 (``tend_uvw_acc``) and its dry form K20
+(``tendencies``, th as its one scalar), the folded dry
 sweep K22 (``tend_rk_fold``), the eddy viscosity K1/K14 (``evisc``, one
 body for ``Fused.evisc`` and ``FusedGeneric.evisc_n2``) and the limits
 pass K7 (``limits``, K1's march with its maxima): the host's copy of
@@ -101,12 +102,13 @@ def sweep_smem(S, dtype, rk, advec):
              + SW_R * (S if rk else 1) * NTGP) * _bytes(dtype))
 
 
-def uvw_smem(dtype):
-    """Dynamic shared memory of a K8/K9 or K18 launch (csrc/tend_generic.cu
-    uvw_smem): UVW_R slots of a group, the planes of u, v, w and e side by
-    side, and a staged table row a slot."""
-    return ((UVW_R * UVW_NF * slot_size(UVW_TJ, UVW_HALO) + UVW_R * NTGP)
-            * _bytes(dtype))
+def uvw_smem(dtype, S=0):
+    """Dynamic shared memory of a K8/K9, K18 or K20 launch
+    (csrc/tend_generic.cu uvw_smem): UVW_R slots of a group, the planes of
+    u, v, w and e (and K20's th, S = 1) side by side, and a staged table
+    row a slot."""
+    return ((UVW_R * (UVW_NF + S) * slot_size(UVW_TJ, UVW_HALO)
+             + UVW_R * NTGP) * _bytes(dtype))
 
 
 def fold_smem(dtype):
@@ -145,22 +147,24 @@ SMEM = {"advec_mom": lambda S, dtype, advec: k12_smem(dtype),
                                                               advec),
         "tend_uvw": lambda S, dtype, advec: uvw_smem(dtype),
         "tend_uvw_acc": lambda S, dtype, advec: uvw_smem(dtype),
+        "tendencies": lambda S, dtype, advec: uvw_smem(dtype, S),
         "tend_rk_fold": lambda S, dtype, advec: fold_smem(dtype),
         "evisc": lambda S, dtype, advec: evisc_smem(dtype),
         "limits": lambda S, dtype, advec: limits_smem(dtype)}
 TILE_J = {"advec_mom": K12_TJ, "advec_scalars": K13_TJ, "o4_mom": K16_TJ,
           "o4_scalars": K17_TJ, "tend_scalars": SW_TJ,
           "tend_scalar_acc": SW_TJ, "tend_uvw": UVW_TJ,
-          "tend_uvw_acc": UVW_TJ, "tend_rk_fold": K22_TJ, "evisc": EV_TJ,
-          "limits": EV_TJ}
+          "tend_uvw_acc": UVW_TJ, "tendencies": UVW_TJ,
+          "tend_rk_fold": K22_TJ, "evisc": EV_TJ, "limits": EV_TJ}
 # planes a chunk reads again to warm its column up: K12's, K13's, K16's and
 # K17's seven-plane windows; the sweep's column k0-1..k0+1 and the plane
-# past it; the momentum sweep's, K1/K14's and K7's groups k0-1 and k1; K22's
-# planes k0-2, k0-1 below the chunk (with e(k0-1)) and w's tendency at k1
-# above it
+# past it; the momentum sweep's (K20's too), K1/K14's and K7's groups k0-1
+# and k1; K22's planes k0-2, k0-1 below the chunk (with e(k0-1)) and w's
+# tendency at k1 above it
 WARM = {"advec_mom": 6, "advec_scalars": 6, "o4_mom": 6, "o4_scalars": 6,
         "tend_scalars": 2, "tend_scalar_acc": 2, "tend_uvw": 2,
-        "tend_uvw_acc": 2, "tend_rk_fold": 2, "evisc": 2, "limits": 2}
+        "tend_uvw_acc": 2, "tendencies": 2, "tend_rk_fold": 2, "evisc": 2,
+        "limits": 2}
 
 
 def chunk_bounds(chunks, ktot):
@@ -186,7 +190,8 @@ def plan(kernel, itot, jtot, ktot, S, dtype, slots, chunks=None,
     """The launch of K12 ("advec_mom"), K13 ("advec_scalars", S scalars),
     K16 ("o4_mom"), K17 ("o4_scalars", S scalars), the scalar sweep
     ("tend_scalars" K10, "tend_scalar_acc" K19; S scalars, advec its flag),
-    the momentum sweep ("tend_uvw" K8/K9, "tend_uvw_acc" K18), K22
+    the momentum sweep ("tend_uvw" K8/K9, "tend_uvw_acc" K18, "tendencies"
+    K20; S 1 with th, 0 without), K22
     ("tend_rk_fold"), K1/K14 ("evisc") or K7 ("limits"): tiles, chunk count
     (chosen from slots, the card's resident blocks, unless given), shared
     memory a block and the waves it makes."""

@@ -26,9 +26,12 @@ CPU tensor each of them runs its plain-torch version.
 (ops/fused.py pressure_rk).  ``exec`` is the projection of the substep
 without the RK fold (``microhh_tpu/ops/pres_2.py:995``): ``input`` and
 ``output`` in plain torch, as the JAX package leaves them to XLA, and
-``solve_ri`` between them: K5, the spectrum times dz^2 split into its real
-and imaginary parts, K21 (the Thomas kernel of ``Pres2._tdma_ri``, every
-mode in one launch), K6.
+``solve_ri`` between them: K5, K21, K6.  K21 (the Thomas solve of
+``Pres2._tdma_ri`` with its ``_solve_spectral_pallas``, which scale the
+spectrum by dz^2 and split it into its real and imaginary parts) is K3's
+launch in place on K5's spectrum, counted under its own name: K3's table
+carries dz^2 and its pivots are the same array, and a complex value times
+a real one rounds as its two parts times that real do.
 """
 
 import collections
@@ -120,29 +123,6 @@ def tdma_plain(x, winv, tab):
     return x
 
 
-def tdma_ri_plain(dr, di, winv, afcf):
-    """K21 in plain torch: the Thomas solve of every mode on the split
-    spectrum dr, di (kmax, jtot, nf) that is already multiplied by dz^2;
-    afcf columns [-a, -c] (the JAX package's _tdma_body).  Returns new
-    (xr, xi)."""
-    kmax = dr.shape[0]
-    xr, xi = torch.empty_like(dr), torch.empty_like(di)
-    yr, yi = torch.zeros_like(dr[0]), torch.zeros_like(di[0])
-    for k in range(kmax):
-        w = winv[k]
-        af = afcf[k, 0] * w
-        yr = af * yr + dr[k] * w
-        yi = af * yi + di[k] * w
-        xr[k], xi[k] = yr, yi
-    r, i_ = torch.zeros_like(dr[0]), torch.zeros_like(di[0])
-    for k in range(kmax - 1, -1, -1):
-        cf = afcf[k, 1] * winv[k]
-        r = xr[k] + cf * r
-        i_ = xi[k] + cf * i_
-        xr[k], xi[k] = r, i_
-    return xr, xi
-
-
 class Pres2:
     def __init__(self, ini, grid, fields):
         self.grid = grid
@@ -164,7 +144,8 @@ class Pres2:
                                       "microhh_torch/csrc/dft.cu",
                                       "microhh_tpu/ops/pallas_dft.py:344")
         self.k_tdma_ri = Kernel("tdma_ri", "microhh_torch/csrc/tdma.cu",
-                                "microhh_tpu/ops/pres_2.py:898")
+                                "microhh_tpu/ops/pres_2.py:898",
+                                entry="tdma")
 
     def set_values(self, ctx):
         """Thomas pivots for the natural rfft2 mode order (reference
@@ -207,9 +188,6 @@ class Pres2:
         tab[:, 2] = dz ** 2
         self.winv = ctx.tensor(1. / w)
         self.tab = ctx.tensor(tab)
-        # K21's table and the rhs scale it does not fold in
-        self.afcf = ctx.tensor(tab[:, :2].copy())
-        self.dz2 = ctx.tensor(dz ** 2)[:, None, None]
 
     tdma_form = staticmethod(tdma_form)
 
@@ -217,6 +195,16 @@ class Pres2:
         """K3: solve every mode of the spectrum x in place, in the form
         tdma_form picks (sweep: force the sweep form; checks and timings
         only)."""
+        return self._tdma(self.k_tdma, x, sweep)
+
+    def tdma_ri(self, x, sweep=False):
+        """K21: K3's solve in place on K5's spectrum x for the projection
+        without the RK fold, counted under its own name."""
+        return self._tdma(self.k_tdma_ri, x, sweep)
+
+    def _tdma(self, kern, x, sweep):
+        """Launch kern (K3's entry) in place on x in the form tdma_form
+        picks, or tdma_plain on a CPU tensor."""
         if on_cpu(x):
             return tdma_plain(x, self.winv, self.tab)
         real = self.winv.dtype
@@ -230,22 +218,9 @@ class Pres2:
                                 tuple(self.winv.shape)))
         kmax = x.shape[0]
         form = tdma_form(kmax, real, sweep)
-        self.k_tdma(real, x, self.winv, self.tab, kmax,
-                    x.shape[1] * x.shape[2], int(form.form == "sweep"))
+        kern(real, x, self.winv, self.tab, kmax, x.shape[1] * x.shape[2],
+             int(form.form == "sweep"))
         return x
-
-    def tdma_ri(self, dr, di):
-        """K21: the Thomas solve of every mode on the split spectrum (times
-        dz^2); returns new (xr, xi)."""
-        if on_cpu(dr):
-            return tdma_ri_plain(dr, di, self.winv, self.afcf)
-        real = self.winv.dtype
-        check((dr, di, self.winv, self.afcf), real, self.winv.device,
-              [tuple(self.winv.shape)] * 3 + [(dr.shape[0], 2)])
-        xr, xi = torch.empty_like(dr), torch.empty_like(di)
-        self.k_tdma_ri(real, dr, di, self.winv, self.afcf, xr, xi,
-                       dr.shape[0], dr.shape[1] * dr.shape[2])
-        return xr, xi
 
     dft_form = staticmethod(dft_form)
 
@@ -300,12 +275,9 @@ class Pres2:
 
     def solve_ri(self, rhs):
         """Pressure on the interior from the rhs through K5, K21 and K6
-        (Pres2.solve with _solve_spectral_pallas in the JAX package); the
-        scaling by dz^2 and the split into real and imaginary parts are
-        plain torch, as they are XLA there."""
-        d = self.rfft2(rhs) * self.dz2
-        xr, xi = self.tdma_ri(d.real.contiguous(), d.imag.contiguous())
-        return self.irfft2(torch.complex(xr, xi), rhs.shape[-1])
+        (Pres2.solve with _solve_spectral_pallas in the JAX package): K21
+        solves K5's spectrum in place."""
+        return self.irfft2(self.tdma_ri(self.rfft2(rhs)), rhs.shape[-1])
 
     def input(self, ctx, s, t, dti):
         """rhs = div(rho (t + s/dt)) on the interior (pres_2.cxx:156-196)."""

@@ -2,10 +2,12 @@
 the momentum sweep K8/K9/K18 on one card, the kernels that share the
 sweep's scalar point function (K2, K22, K20), K11, the warm-rain
 column sweep, the eddy viscosity K1/K14, the limits pass K7, K15 (the
-scalar sweep at one scalar) and the Thomas solve K3.
+scalar sweep at one scalar), the Thomas solve K3 and K21, and the device
+time a step of the cells without the RK fold.
 
     python3 -m microhh_torch.ring_timing [--out FILE] [--label NAME]
-        [--groups rings,s_tend,fold,micro2,evisc,limits,scalar_rk,tdma]
+        [--groups rings,s_tend,fold,micro2,evisc,limits,scalar_rk,tdma,
+                  dry,steps]
     python3 -m microhh_torch.ring_timing --compare PARENT_FILE FILE
 
 At the four shapes of their main paths: weakscaling 512x256x1024 float32
@@ -61,7 +63,15 @@ drycblles and sullivan2011 512^3, rico 384^3, the neutral Ekman LES
 768x384x288 and SBL_Smag 256^3 in float32 and drycblles 512^3 in float64,
 in the form its plan takes, with the form, chunk length, chunks, threads,
 occupancy and waves and, beside it, the time of the sweep form at the same
-shape.
+shape; K21 (``tdma_ri_rows``) at jaenschwalde's 1024x256x256 and at
+sullivan2011 512^3, K3's launch in place on the spectrum.  K20 (the
+``dry`` group, ``dry_rows``) at sullivan2011 512^3 and 512x512x64 in
+float32, 512^3 in float64 and the neutral Ekman LES 768x384x288 without
+th, each on the substep without the RK fold, with its plan, occupancy,
+one-chunk time and the SASS count of its per-level loop.
+The ``steps`` group (``step_rows``) profiles two steps of jaenschwalde and
+of sullivan2011 512x512x64 without the RK fold (chip_smoke.py's builders
+of the same tree) and sums the device time by chip_smoke.py's PARTS.
 Each time is the mean of 10 launches by
 CUDA events after one warm-up launch; the stencil kernels run on seeded
 random fields.  Beside each time: the bound (each input and output once
@@ -99,6 +109,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import time
 
 import torch
 
@@ -108,9 +119,10 @@ from .config import Ini
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the timed groups: K16, K17, K12, K13, K10, K19, K8/K9 and K18; the
 # kernels that call s_tend; K22 on its paths; K11; K1/K14 (with K7); K7
-# (with K1/K14); K15; K3
+# (with K1/K14); K15; K3 and K21; K20; the device time a step of the
+# cells without the RK fold
 GROUPS = ("rings", "s_tend", "fold", "micro2", "evisc", "limits",
-          "scalar_rk", "tdma")
+          "scalar_rk", "tdma", "dry", "steps")
 REPS = 10
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 33.5e12}
@@ -215,10 +227,31 @@ LIMITS_SHAPES = [("drycblles", "drycblles", (512, 512, 512), torch.float32,
                   {}),
                  ("andren1994 less s", "andren1994", (768, 384, 288),
                   torch.float32, {})]
-# the CUDA functions of the kernels that call s_tend
+# the CUDA functions of the kernels that call s_tend (K20's the momentum
+# sweep's tend_uvw_kernel<T, false, true, TH>)
 S_TEND_FUNCTIONS = {"tend_rk": "tend_rk_kernel",
                     "tend_rk_fold": "tend_rk_fold_kernel",
-                    "tendencies": "tendencies_kernel"}
+                    "tendencies": "tend_uvw_kernel"}
+# K20's shapes (the ``dry`` group): (label, case, shape, dtype), each on
+# the substep without the RK fold
+DRY_SHAPES = [("sullivan2011 unfolded", "sullivan2011", (512, 512, 512),
+               torch.float32),
+              ("sullivan2011 unfolded", "sullivan2011", (512, 512, 64),
+               torch.float32),
+              ("sullivan2011 unfolded", "sullivan2011", (512, 512, 512),
+               torch.float64),
+              ("andren1994 less s unfolded", "andren1994", (768, 384, 288),
+               torch.float32)]
+# K21's shapes (in the ``tdma`` group): (label, case, shape, dtype);
+# jaenschwalde's runs on the rico case at its shape (K21 sees the shape)
+TDMA_RI_SHAPES = [("jaenschwalde", "rico", (1024, 256, 256), torch.float32),
+                  ("sullivan2011", "sullivan2011", (512, 512, 512),
+                   torch.float32)]
+# the cells whose device time a step the ``steps`` group profiles: (label,
+# chip_smoke.py builder, (itot, jtot), ktot, build_step options)
+STEP_CELLS = [("jaenschwalde", "build_jaenschwalde", (1024, 256), 256, {}),
+              ("sullivan2011 unfolded", "build_sullivan", (512, 512), 64,
+               {"unfolded": True})]
 
 
 def max_sm_clock_ghz():
@@ -580,8 +613,7 @@ def uvw_rows(label, case, shape, dtype, kernel, advecs, ptx, card,
     fb = n * torch.finfo(dtype).bits // 8
     acc = kernel == "tend_uvw_acc"
     nbytes = (10 if acc else 13) * fb
-    t_name = "float" if dtype == torch.float32 else "double"
-    key = "%s<%s,%s>" % (UVW, t_name, "false" if acc else "true")
+    key = uvw_function(dtype, acc)
     rows = []
     with tempfile.TemporaryDirectory() as workdir:
         m = build(case, itot, jtot, ktot, dtype, workdir, device)
@@ -1038,6 +1070,85 @@ def fold_function(dtype, thermo, known):
         name, t, "true" if thermo else "false")
 
 
+def dry_function(dtype, thermo):
+    """The ptxas and SASS key of the K20 instance a launch takes: the
+    momentum sweep's tend_uvw_kernel<T, false, true, TH>."""
+    t = "float" if dtype == torch.float32 else "double"
+    return "%s<%s,false,true,%s>" % (S_TEND_FUNCTIONS["tendencies"], t,
+                                     "true" if thermo else "false")
+
+
+def uvw_function(dtype, acc):
+    """The ptxas and SASS key of the K8/K9 (acc False) or K18 instance:
+    tend_uvw_kernel<T, RK, false, false>."""
+    t = "float" if dtype == torch.float32 else "double"
+    return "%s<%s,%s,false,false>" % (UVW, t, "false" if acc else "true")
+
+
+def dry_row(label, m, shape, dtype, ptx, card, loops=None, clock_ghz=None,
+            device="cuda"):
+    """K20 (Fused.tendencies) on a dry model on the substep without the RK
+    fold, on seeded random fields: u, v, w, (th,) e read, the carries read
+    and written; its plan's chunks, blocks and waves, its occupancy and its
+    time with one chunk and, where the SASS holds its per-level loop, the
+    loop's count and issue time (fold_issue)."""
+    from .ops import kmarch
+    itot, jtot, ktot = shape
+    n = itot * jtot * ktot
+    fb = n * torch.finfo(dtype).bits // 8
+    fz, ctx = m.fused, m.ctx
+    gen = torch.Generator(device=device).manual_seed(itot + ktot)
+
+    def rnd(scale=1.):
+        return scale * torch.randn((ctx.kcells, jtot, itot), dtype=dtype,
+                                   device=device, generator=gen)
+
+    names = list(m.fields.prognostic_names)
+    s = {nm: rnd() for nm in names}
+    t = {nm: rnd(1e-3) for nm in names}
+    e = rnd().abs()
+    nbytes = (3 * len(names) + 1) * fb
+    key = dry_function(dtype, fz.has_thermo)
+
+    def fn(**kw):
+        fz.tendencies(s, t, e, **kw)
+
+    by_bytes = 1e3 * nbytes / PEAK_BYTES_S
+    by_ops = 1e3 * FLOPS["tendencies"] * n / PEAK_FLOPS[dtype]
+    row = {"label": label, "kernel": "tendencies", "shape": list(shape),
+           "dtype": str(dtype)[6:], "thermo": fz.has_thermo,
+           "coriolis": fz.coriolis, "ms": events_ms(fn),
+           "bound_ms": max(by_bytes, by_ops),
+           "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+           "ops_per_point": FLOPS["tendencies"], "gbytes": nbytes / 1e9,
+           "ptxas": ptx.get(key), "function": key, "card": card}
+    pl = fz.tendencies_plan(dtype)
+    row.update(fz.k_tendencies.info(dtype, 0, int(fz.has_thermo)),
+               chunks=pl.chunks, blocks=pl.tiles_i * pl.tiles_j * pl.chunks,
+               waves=pl.waves, ms_one_chunk=events_ms(lambda: fn(chunks=1)))
+    if loops and key in loops:
+        row.update(fold_issue(loops[key], shape, kmarch.UVW_TJ, clock_ghz,
+                              sms_of(device)) or {})
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    return row
+
+
+def dry_rows(label, case, shape, dtype, ptx, card, loops=None,
+             clock_ghz=None, device="cuda"):
+    """K20 at one of DRY_SHAPES (dry_row)."""
+    itot, jtot, ktot = shape
+    with tempfile.TemporaryDirectory() as workdir:
+        m = build(case, itot, jtot, ktot, dtype, workdir, device,
+                  unfolded=True)
+        row = dry_row(label, m, shape, dtype, ptx, card, loops, clock_ghz,
+                      device)
+        print(json.dumps(row), flush=True)
+        del m
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return [row]
+
+
 def fold_extra(row, fz, dtype, shape, fn, loops, clock_ghz, device):
     """K22's row completed: where the tree's K22 is the k-march (it reports
     its occupancy), its registers, shared memory and blocks an SM from the
@@ -1109,9 +1220,12 @@ def s_tend_rows(label, case, shape, step, ptx, card, device="cuda",
                 loops=None, clock_ghz=None):
     """K2 and K22 (the dry RK-folded model) or K20 (the substep without the
     RK fold) on seeded random fields: the kernels whose scalar tendency is
-    s_tend.  K22's row takes
-    fold_extra's columns (loops: sass_loops of the build)."""
+    s_tend.  K22's row takes fold_extra's columns (loops: sass_loops of the
+    build), K20's dry_row's."""
     dtype = torch.float32
+    if step.get("unfolded"):
+        return dry_rows(label, case, shape, dtype, ptx, card, loops,
+                        clock_ghz, device)
     itot, jtot, ktot = shape
     n = itot * jtot * ktot
     fb = n * torch.finfo(dtype).bits // 8
@@ -1129,18 +1243,13 @@ def s_tend_rows(label, case, shape, step, ptx, card, device="cuda",
         s = {nm: rnd() for nm in names}
         t = {nm: rnd(1e-3) for nm in names}
         nf = len(names)
-        if m.unfolded:
-            e = rnd().abs()
-            calls = [("tendencies", lambda: fz.tendencies(s, t, e),
-                      13 * fb)]
-        else:
-            e = rnd(k=ktot).abs()
-            calls = [("tend_rk", lambda: fz.tend_rk(s, t, e, 0.5, -5. / 9.,
-                                                    False, True),
-                      (4 * nf + 1) * fb),
-                     ("tend_rk_fold", lambda **kw: fz.tend_rk_fold(
-                         s, t, None, 0.5, -5. / 9., 2., False, True, **kw),
-                      (4 * nf + 2) * fb)]
+        e = rnd(k=ktot).abs()
+        calls = [("tend_rk", lambda: fz.tend_rk(s, t, e, 0.5, -5. / 9.,
+                                                False, True),
+                  (4 * nf + 1) * fb),
+                 ("tend_rk_fold", lambda **kw: fz.tend_rk_fold(
+                     s, t, None, 0.5, -5. / 9., 2., False, True, **kw),
+                  (4 * nf + 2) * fb)]
         for name, fn, nbytes in calls:
             by_bytes = 1e3 * nbytes / PEAK_BYTES_S
             by_ops = 1e3 * FLOPS[name] * n / PEAK_FLOPS[dtype]
@@ -1268,6 +1377,112 @@ def tdma_rows(label, case, shape, dtype, ptx, card, device="cuda"):
     return rows
 
 
+def tdma_ri_rows(label, case, shape, dtype, ptx, card, device="cuda"):
+    """K21 on a model's pivots and the spectrum of a seeded random field as
+    Pres2.solve_ri gives it to K21: K3's launch in place on K5's spectrum,
+    in the form its plan takes.  The least the solve moves is one read of
+    the spectrum and the pivots and one write (20 B a mode and level in
+    float32)."""
+    itot, jtot, ktot = shape
+    rows = []
+    with tempfile.TemporaryDirectory() as workdir:
+        m = build(case, itot, jtot, ktot, dtype, workdir, device)
+        pr = m.pres
+        gen = torch.Generator(device=device).manual_seed(itot + ktot)
+        x = torch.randn((ktot, jtot, itot), dtype=dtype, device=device,
+                        generator=gen)
+        spec = torch.fft.rfft2(x, dim=(-2, -1))
+        del x
+        nbytes = 5 * spec.numel() * spec.element_size() // 2
+        by_bytes = 1e3 * nbytes / PEAK_BYTES_S
+        by_ops = 1e3 * FLOPS["tdma"] * itot * jtot * ktot / PEAK_FLOPS[dtype]
+        t = "float" if dtype == torch.float32 else "double"
+        form = pr.tdma_form(ktot, dtype)
+        key = ("%s<%s,%d>" % (TDMA["scan"], t, form.L)
+               if form.form == "scan" else "%s<%s>" % (TDMA["sweep"], t))
+        row = {"label": label, "kernel": "tdma_ri", "what": "kernel",
+               "shape": list(shape), "dtype": str(dtype)[6:],
+               "ms": events_ms(lambda: pr.tdma_ri(spec)),
+               "bound_ms": max(by_bytes, by_ops),
+               "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+               "ops_per_point": FLOPS["tdma"], "gbytes": nbytes / 1e9,
+               "ptxas": ptx.get(key), "function": key, "card": card}
+        row.update(pr.k_tdma_ri.info(dtype, int(form.form == "sweep"),
+                                     form.chunks),
+                   form=form.form, L=form.L, chunks=form.chunks)
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+        del m, spec
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return rows
+
+
+def step_rows(label, builder, n, ktot, step, card, nsteps=2, device="cuda"):
+    """The device time a step of a cell in float32 (torch.profiler over
+    nsteps steps after a two-iteration ``Model.run`` and one more step),
+    in all and by the parts of chip_smoke.py's PARTS, and the steps' wall
+    time.  The cell is built by chip_smoke.py's builder of the same tree."""
+    from torch.profiler import ProfilerActivity, profile
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    build_cell = getattr(chip_smoke, builder)
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    with tempfile.TemporaryDirectory() as workdir:
+        init = build_cell(torch, n, ktot, torch.float32, device, "init",
+                          workdir)
+        init.save_initial_state(None)
+        del init
+        m = build_cell(torch, n, ktot, torch.float32, device, "run", workdir)
+        m.build_step(**step)
+        state = {"s": m.run(max_iters=2), "sfc": m.final_sfc}
+
+        def steps(count):
+            for _ in range(count):
+                state["s"], state["sfc"], _ = m.step(state["s"],
+                                                     state["sfc"],
+                                                     m.timeloop.dt)
+
+        steps(1)
+        sync()
+        activities = [ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if device == "cuda" else [])
+        with profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            steps(nsteps)
+            sync()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        parts, other = {}, 0.
+        for evt in prof.key_averages():
+            us = chip_smoke.device_us(evt)
+            if us <= 0.:
+                continue
+            part = next((lb for frag, lb in chip_smoke.PARTS
+                         if re.search(frag, evt.key)), None)
+            if part is None:
+                other += us
+            else:
+                parts[part] = parts.get(part, 0.) + us
+        busy = (sum(parts.values()) + other) / 1e3 / nsteps
+        row = {"label": label, "kernel": "step", "shape": [n[0], n[1], ktot],
+               "dtype": "float32", "busy_ms_per_step": busy,
+               "wall_ms_per_step": wall_ms / nsteps,
+               "idle_share": 1. - busy * nsteps / wall_ms,
+               "parts_ms_per_step": {k: v / 1e3 / nsteps
+                                     for k, v in sorted(parts.items())},
+               "other_ms_per_step": other / 1e3 / nsteps, "card": card}
+        print(json.dumps(row), flush=True)
+        del m, state
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return [row]
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None)
@@ -1340,6 +1555,14 @@ def main():
         rows += scalar_rk_rows(*SCALAR_RK_SHAPE, ptx, card)
     for label, case, shape, dtype in TDMA_SHAPES if "tdma" in groups else ():
         rows += tdma_rows(label, case, shape, dtype, ptx, card)
+    for label, case, shape, dtype in (
+            TDMA_RI_SHAPES if "tdma" in groups else ()):
+        rows += tdma_ri_rows(label, case, shape, dtype, ptx, card)
+    for label, case, shape, dtype in DRY_SHAPES if "dry" in groups else ():
+        rows += dry_rows(label, case, shape, dtype, ptx, card, loops, clock)
+    for label, builder, n, ktot, step in (
+            STEP_CELLS if "steps" in groups else ()):
+        rows += step_rows(label, builder, n, ktot, step, card)
     for label, shape, dtype in MICRO2_SHAPES if "micro2" in groups else ():
         with tempfile.TemporaryDirectory() as workdir:
             m = build("rico", *shape, dtype, workdir)

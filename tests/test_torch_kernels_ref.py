@@ -297,6 +297,11 @@ def test_wrapper_contract():
     k15 = kernels.Kernel("tend_scalar_rk", "", "", entry="tend_scalars")
     assert (k15.name, k15.entry, k15.launches) == ("tend_scalar_rk",
                                                    "tend_scalars", 0)
+    # and K21 through K3's, in place on K5's spectrum
+    with pytest.raises(KeyError):
+        kernels.Kernel("tdma_ri", "", "")
+    k21 = kernels.Kernel("tdma_ri", "", "", entry="tdma")
+    assert (k21.name, k21.entry, k21.launches) == ("tdma_ri", "tdma", 0)
     assert set(kernels.SIGNATURES) == {"evisc", "tend_rk", "tdma",
                                        "pres_rhs", "pres_apply", "dft_fwd",
                                        "dft_inv", "limits", "tend_uvw",
@@ -304,7 +309,7 @@ def test_wrapper_contract():
                                        "advec_mom", "advec_scalars",
                                        "evisc_n2", "o4_mom", "o4_scalars",
                                        "tend_uvw_acc", "tend_scalar_acc",
-                                       "tendencies", "tdma_ri",
+                                       "tendencies",
                                        "tend_rk_fold", "dft_fwd_split",
                                        "dft_inv_split"}
     assert kernels.library_path().startswith(kernels.BUILD_DIR)

@@ -163,12 +163,14 @@ def test_s_tend_rows_run_on_the_cpu(label, case, shape, step, one_call,
             "sullivan2011": ["tendencies"]}[case]
     assert [r["kernel"] for r in rows] == want
     for r in rows:
-        # K22 is templated on its thermo flag
-        want = ("<float,true>" if r["kernel"] == "tend_rk_fold"
-                else "<float>")
+        # K22 is templated on its thermo flag, K20 is the momentum sweep's
+        # instance without RK with its DRY and TH flags
+        want = {"tend_rk_fold": "<float,true>",
+                "tendencies": "<float,false,true,true>"}.get(r["kernel"],
+                                                            "<float>")
         assert r["function"] == R.S_TEND_FUNCTIONS[r["kernel"]] + want
         assert r["bound_ms"] > 0 and r["shape"] == [16, 8, 12]
-        if r["kernel"] == "tend_rk_fold":
+        if r["kernel"] in ("tend_rk_fold", "tendencies"):
             assert r["blocks_per_sm"] == 3 and r["chunks"] >= 1
             assert r["ms_one_chunk"] == 1.0
 
@@ -518,7 +520,8 @@ def test_uvw_rows_run_on_the_cpu(label, case, shape, dtype, kernel, advecs,
     assert R.UVW_SHAPES[0][2] == (384, 384, 384)
     acc = kernel == "tend_uvw_acc"
     t = "float" if dtype == torch.float32 else "double"
-    key = "tend_uvw_kernel<%s,%s>" % (t, "false" if acc else "true")
+    key = "tend_uvw_kernel<%s,%s,false,false>" % (t, "false" if acc
+                                                   else "true")
     found = R.sass_loops(UVW_SASS, R.UVW)
     assert list(found) == ["tend_uvw_kernel<float,true>"]
     loops = {key: found["tend_uvw_kernel<float,true>"]}
@@ -773,6 +776,102 @@ def test_tdma_rows_run_on_the_cpu(label, case, shape, dtype, one_call,
             2.5 * 40 * 8 * 9 * 2 * torch.finfo(dtype).bits / 8 / 1e9)
         assert r["bound_by"] == "bytes" and r["blocks_per_sm"] == 3
     assert seen == [False, True] and asked == [(0, chunks), (1, 1)]
+
+
+@pytest.mark.parametrize("label,case,shape,dtype", R.TDMA_RI_SHAPES,
+                         ids=[s[0] for s in R.TDMA_RI_SHAPES])
+def test_tdma_ri_rows_run_on_the_cpu(label, case, shape, dtype, one_call,
+                                     monkeypatch):
+    """K21's row at a tiny shape of each of its cases: K3's launch in place
+    on the spectrum, counted as K21 (the K21 wrapper called, K3's not), the
+    plan's form, its key with its chunk length and the occupancy asked for
+    it, the bytes of one read of the spectrum and the pivots and one
+    write."""
+    from microhh_torch import kernels
+    from microhh_torch.ops import pres_2 as P
+    torch.manual_seed(3)
+    asked = []
+    monkeypatch.setattr(kernels.Kernel, "info",
+                        lambda self, *a: asked.append((self.name,) + a[1:])
+                        or INFO)
+    seen = []
+    real = P.Pres2.tdma_ri
+    monkeypatch.setattr(P.Pres2, "tdma", lambda *a, **k: seen.append("K3"))
+
+    def call(self, x, sweep=False):
+        seen.append(("K21", x.dtype, tuple(x.shape)))
+        return real(self, x, sweep)
+
+    monkeypatch.setattr(P.Pres2, "tdma_ri", call)
+    rows = R.tdma_ri_rows(label, case, (16, 8, 40), dtype, {}, "cpu",
+                          device="cpu")
+    L = P.TD_L[dtype]
+    chunks = -(-40 // L)
+    assert [(r["kernel"], r["what"], r["form"]) for r in rows] == [
+        ("tdma_ri", "kernel", "scan")]
+    t = "float" if dtype == torch.float32 else "double"
+    assert rows[0]["function"] == "tdma_scan_kernel<%s,%d>" % (t, L)
+    assert (rows[0]["L"], rows[0]["chunks"]) == (L, chunks)
+    assert rows[0]["gbytes"] == pytest.approx(
+        2.5 * 40 * 8 * 9 * 2 * torch.finfo(dtype).bits / 8 / 1e9)
+    assert seen == [("K21", P.COMPLEX[dtype], (40, 8, 9))]
+    assert asked == [("tdma_ri", 0, chunks)]
+
+
+@pytest.mark.parametrize("label,case,shape,dtype", R.DRY_SHAPES,
+                         ids=["%s %dx%dx%d %s" % (s[0], *s[2], str(s[3])[6:])
+                              for s in R.DRY_SHAPES])
+def test_dry_rows_run_on_the_cpu(label, case, shape, dtype, one_call,
+                                 monkeypatch):
+    """K20's row at a tiny shape of each of its cases, on the substep
+    without the RK fold: its thermo form (th on sullivan2011, none on the
+    neutral Ekman LES), the function of that form, the plan's chunks and
+    the occupancy asked in that form, the one-chunk time and the bytes:
+    u, v, w, (th,) e read, the carries read and written."""
+    from microhh_torch import kernels
+    torch.manual_seed(3)
+    asked = []
+    monkeypatch.setattr(kernels.Kernel, "info",
+                        lambda self, *a: asked.append((self.name,) + a[1:])
+                        or INFO)
+    rows = R.dry_rows(label, case, (16, 8, 12), dtype, {}, "cpu",
+                      device="cpu")
+    (r,) = rows
+    thermo = case == "sullivan2011"
+    t = "float" if dtype == torch.float32 else "double"
+    assert r["kernel"] == "tendencies" and r["thermo"] == thermo
+    assert r["function"] == "tend_uvw_kernel<%s,false,true,%s>" % (
+        t, "true" if thermo else "false")
+    assert r["blocks_per_sm"] == 3 and r["chunks"] >= 1
+    assert r["ms_one_chunk"] == 1.0 and r["dtype"] == str(dtype)[6:]
+    nf = 4 if thermo else 3
+    assert r["gbytes"] == pytest.approx(
+        (3 * nf + 1) * 16 * 8 * 12 * torch.finfo(dtype).bits / 8 / 1e9)
+    assert set(asked) == {("tendencies", 0, int(thermo))}
+
+
+def test_step_rows_run_on_the_cpu():
+    """The steps group's row on a tiny sullivan2011 without the RK fold on
+    the CPU: the profiler holds no device time there, so busy is zero and
+    every part is empty; the wall time is the steps'."""
+    rows = R.step_rows("sullivan2011 unfolded", "build_sullivan", (16, 8),
+                       8, {"unfolded": True}, "cpu", device="cpu")
+    (r,) = rows
+    assert r["kernel"] == "step" and r["shape"] == [16, 8, 8]
+    assert r["busy_ms_per_step"] == 0. and r["parts_ms_per_step"] == {}
+    assert r["wall_ms_per_step"] > 0. and r["idle_share"] == 1.
+
+
+def test_step_cells_are_chip_smoke_builders():
+    """The steps group builds its cells with chip_smoke.py's builders, on
+    the substep without the RK fold (jaenschwalde's own, sullivan2011
+    forced onto it)."""
+    import chip_smoke
+    for label, builder, n, ktot, step in R.STEP_CELLS:
+        assert callable(getattr(chip_smoke, builder))
+        assert len(n) == 2 and ktot > 0
+    assert [c[4] for c in R.STEP_CELLS] == [{}, {"unfolded": True}]
+    assert {"dry", "steps", "tdma"} <= set(R.GROUPS)
 
 
 def test_compare_digests_holds_two_builds():

@@ -9,8 +9,10 @@
   fold_ghosts off, sponge and Coriolis folds on and off, and vs the same call
   under MICROHH_STREAM=1 (the k-streaming ``_stream_call``, which returns
   interior increments) (<= 1e-12);
-* K21 plain (``tdma_ri``) vs Pres2._tdma_ri with ``_tdma_interpret``, the
-  Nyquist column included, per mode (<= 1e-12), and Pres2.exec (<= 1e-10);
+* K21 (``tdma_ri``, K3's solve in place on the spectrum) vs the JAX
+  package's form of it: Pres2._tdma_ri with ``_tdma_interpret`` on the same
+  spectrum times dz^2, split into its real and imaginary parts, the Nyquist
+  column included, per mode (<= 1e-12), and Pres2.exec (<= 1e-10);
 * Source and BoundaryOutflow.correct vs the JAX ops (<= 1e-12), the sources'
   exact emission rate, and the advec_2 flux the outflow correction takes out
   under any scheme (ROADMAP Queue 3);
@@ -42,7 +44,7 @@ from microhh_torch.config import Ini
 from microhh_torch.model import Model
 from microhh_torch.ops import fused as F
 from microhh_torch.ops.limiter import Limiter
-from microhh_torch.ops.pres_2 import tdma_ri_plain
+from microhh_torch.ops.pres_2 import tdma_plain
 
 TOL = 1e-12
 N, KT = (16, 8), 24
@@ -366,31 +368,38 @@ def test_dry_tendencies_with_wall_rows_match(sull):
 # --------------------------------------------------------------------------
 
 def test_k21_tdma_ri_matches_tpu_kernel(sull):
+    """A seeded complex spectrum through the port's K21 (in place, dz^2
+    from K3's table) against the same spectrum times dz^2, split, through
+    the JAX package's Pres2._tdma_ri."""
     jm, tm, _, _, _ = sull
     kmax, jtot, nf = KT, N[1], N[0] // 2 + 1
     rng = np.random.RandomState(4)
-    dr, di = rng.randn(kmax, jtot, nf), rng.randn(kmax, jtot, nf)
+    spec = rng.randn(kmax, jtot, nf) + 1j * rng.randn(kmax, jtot, nf)
+    d = spec * np.asarray(jm.pres.dz2)
     jm.pres._tdma_interpret = True
     try:
-        xr, xi = jm.pres._tdma_ri(jnp.array(dr), jnp.array(di),
+        xr, xi = jm.pres._tdma_ri(jnp.array(d.real), jnp.array(d.imag),
                                   jm.pres_params["winv"], kmax)
     finally:
         jm.pres._tdma_interpret = False
-    # the JAX package's own columns (pres_2.py:886-891)
+    # the JAX package's own columns (pres_2.py:886-891) and rhs scale
     afcf = np.zeros((kmax, 2))
     afcf[1:, 0] = -np.asarray(jm.pres.a_k)[1:, 0, 0]
     afcf[:-1, 1] = -np.asarray(jm.pres.c_k)[:-1, 0, 0]
-    assert rel(tm.pres.afcf, afcf) <= 1e-15
+    assert rel(tm.pres.tab[:, :2], afcf) <= 1e-15
+    assert rel(tm.pres.tab[:, 2], np.asarray(jm.pres.dz2)[:, 0, 0]) <= 1e-15
     assert rel(tm.pres.winv, jm.pres_params["winv"]) <= TOL
-    yr, yi = tm.pres.tdma_ri(T(dr), T(di))
-    pr, pi = tdma_ri_plain(T(dr), T(di), tm.pres.winv, tm.pres.afcf)
-    assert torch.equal(yr, pr) and torch.equal(yi, pi)
-    for mine, ref in ((yr, xr), (yi, xi)):
+    x = torch.tensor(spec)
+    y = tm.pres.tdma_ri(x)
+    assert y is x                             # in place on the spectrum
+    assert torch.equal(y, tdma_plain(torch.tensor(spec), tm.pres.winv,
+                                     tm.pres.tab))
+    for mine, ref in ((y.real, xr), (y.imag, xi)):
         ref = np.asarray(ref)
         num = np.abs(mine.numpy() - ref).max(axis=0)
         den = np.abs(ref).max(axis=0)
         assert (num / den).max() <= TOL       # every mode, Nyquist included
-    assert float(yr[:, :, -1].abs().max()) > 0.
+    assert float(y.real[:, :, -1].abs().max()) > 0.
 
 
 @pytest.mark.parametrize("case", ["jaen", "sull"])

@@ -66,10 +66,14 @@ def test_constants_are_the_source():
     assert (c["UVW_TJ"], c["UVW_HALO"], c["UVW_NF"], c["UVW_R"]) == (
         kmarch.UVW_TJ, kmarch.UVW_HALO, kmarch.UVW_NF, kmarch.UVW_R)
     assert "constexpr int UVW_NT = km::TI * UVW_TJ;" in flat
-    assert ("((size_t)UVW_R * UVW_NF * km::Slot<UVW_TJ, UVW_HALO>::SIZE "
-            "+ (size_t)UVW_R * NTGP) * sizeof(T)" in flat)
-    assert ("__launch_bounds__(UVW_NT, sizeof(T) == 4 ? (RK ? 3 : 4) : 2) "
-            "tend_uvw_kernel(const UvwArgs<T> a)" in flat)
+    assert ("((size_t)UVW_R * (UVW_NF + (TH ? 1 : 0)) * "
+            "km::Slot<UVW_TJ, UVW_HALO>::SIZE + (size_t)UVW_R * NTGP) * "
+            "sizeof(T)" in flat)
+    # (K20's forms, DRY and TH, share the body: three blocks an SM with th)
+    assert ("template <typename T, bool RK, bool DRY = false, bool TH = false> "
+            "__global__ void __launch_bounds__(UVW_NT, sizeof(T) == 4 ? "
+            "(RK || TH ? 3 : 4) : 2) tend_uvw_kernel(const UvwArgs<T> a)"
+            in flat)
     # three groups read at a level, one landing, one being filled: group
     # k+3 goes into the slot of group k-2, one commit group a level
     assert kmarch.UVW_R == 5
@@ -77,8 +81,9 @@ def test_constants_are_the_source():
     assert "km::wait_pending<1>(); // group k+1 has landed" in flat
     assert "km::wait_pending<2>(); // groups k0-1 and k0 have landed" in flat
     # one body for both (the scalar sweep, K15 among its forms, and this
-    # one in the file), launched with its dynamic shared memory
-    assert "tend_uvw_kernel<T, RK><<<grid, block, smem, stream>>>" in flat
+    # one in the file), launched with its dynamic shared memory (K20's too)
+    assert "auto kernel = tend_uvw_kernel<T, RK, DRY, TH>;" in flat
+    assert "kernel<<<grid, block, smem, stream>>>(args);" in flat
     assert flat.count("__global__") == 2
     assert flat.count("tend_uvw_kernel(") == 1
     for dtype, nb in ((torch.float32, 4), (torch.float64, 8)):
