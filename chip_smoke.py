@@ -1553,6 +1553,244 @@ def check_dry_kmarch(torch):
                     torch.cuda.empty_cache()
 
 
+# the forms rk_cases takes by default: (first, carry, the table's sponge
+# columns, the Coriolis term)
+RK_FORMS = ((True, True, True, True), (False, True, True, True),
+            (False, False, False, False), (True, False, False, False))
+
+
+def rk_cases(torch, m, seed, chunk_counts, forms=RK_FORMS):
+    """(name, kernel call, plain call, error kind) for K2 on a dry RK-folded
+    model at each forced chunk count (None: the plan's), aligned and with
+    u, v, w, th and e one value past a 16-byte boundary (single-value
+    copies only), in each of forms (first, carry, the table's sponge
+    columns, the Coriolis term).  Seeded u, v, w, th around 300 K (the
+    model's thermo form), the interior eddy viscosity, random carries, the
+    table with noise in ug and vg; the planes K2 never reads are NaN: u's,
+    v's and th's ghost planes (ks-1 and ke among them), w's below ks and
+    past ke, and every carry on the first substep.  s* is compared whole
+    (its ghost planes zero), the carries on the interior where they are
+    written.  The kernel call fails on a non-finite output."""
+    from microhh_torch.ops import fused as F
+    ctx, fz = m.ctx, m.fused
+    ks, ke = ctx.ks, ctx.ke
+    # drawn on the model's device: at a run's shapes on the CPU they took
+    # seconds an array
+    gen = torch.Generator(device=ctx.device).manual_seed(seed)
+    shape = (ctx.kcells, ctx.jtot, ctx.itot)
+    nan = float("nan")
+
+    def rnd(*sh, scale=1.):
+        return (scale * torch.randn(*(sh or shape), generator=gen,
+                                    dtype=torch.float64,
+                                    device=ctx.device)).to(ctx.dtype)
+
+    s = {"u": rnd(), "v": rnd(), "w": rnd(scale=0.3)}
+    if fz.has_thermo:
+        s["th"] = 300. + rnd()
+    for n, x in s.items():
+        x[:ks] = nan
+        x[ke + (1 if n == "w" else 0):] = nan
+    e = rnd(ctx.ktot, ctx.jtot, ctx.itot).abs()
+    t0 = {n: rnd(scale=1e-3) for n in s}
+    for x in t0.values():
+        x[:ks] = nan
+        x[ke:] = nan
+    ct = fz.ct.clone()
+    ct[:, F.T_UG] += rnd(ctx.ktot)
+    ct[:, F.T_VG] += rnd(ctx.ktot)
+    bare = ct.clone()
+    for col in (F.T_FACZ, F.T_FACZH):
+        bare[:, col] = 0.
+    layouts = {"aligned": (s, e),
+               "shifted": ({n: shifted(torch, x) for n, x in s.items()},
+                           shifted(torch, e))}
+    grid_args = (ks, ctx.dxi, ctx.dyi)
+    cases = []
+    for chunks in chunk_counts:
+        for sf, ef in layouts.values():
+            for first, carry, sponge, coriolis in forms:
+                def rk(kernel, sf=sf, ef=ef, first=first, carry=carry,
+                       table=ct if sponge else bare, coriolis=coriolis,
+                       chunks=chunks):
+                    t = {n: (torch.full_like(x, nan) if first else x.clone())
+                         for n, x in t0.items()}
+                    can = -153. / 128. if carry else 0.
+                    with attrs(fz, ct=table, coriolis=coriolis, fc=1e-2):
+                        if kernel:
+                            out = fz.tend_rk(sf, t, ef, 0.7, can, first,
+                                             carry, chunks=chunks)
+                        else:
+                            out = F.tend_rk_plain(
+                                sf, ef, t, table, *grid_args, fz.visc,
+                                fz.svisc, fz.tPr, 0.7, can, first, carry,
+                                *fz._sweep_args())
+                    got = [out[n] for n in fz.prognostic]
+                    if carry:
+                        got += [t[n][ks:ke] for n in fz.prognostic]
+                    if kernel and not all(bool(torch.isfinite(x).all())
+                                          for x in got):
+                        raise AssertionError("K2 wrote a non-finite value")
+                    return got
+                cases.append(("tend_rk", lambda f=rk: f(True),
+                              lambda f=rk: f(False), "field"))
+    return cases
+
+
+def rk_chunks(m, dtype):
+    """The k-splits the runs' phases force on K2: 1, 2 and 3 chunks, the
+    plan's count and one level a chunk."""
+    k = m.ctx.ktot
+    return sorted({c for c in (1, 2, 3) if c <= k}
+                  | {m.fused.tend_rk_plan(dtype).chunks, k})
+
+
+def check_rk_forced(torch, m):
+    """K2 at a run's shapes in the path's form (its sponge and Coriolis
+    term), on a middle and a first substep, with its k-split forced
+    (rk_chunks), aligned and shifted by one value; returns the largest
+    absolute difference."""
+    worst = 0.
+    cor = m.fused.coriolis
+    for name, kern, plain, kind in rk_cases(
+            torch, m, m.ctx.itot + 4, rk_chunks(m, m.dtype),
+            ((False, True, True, cor), (True, True, True, cor))):
+        worst = max(worst, compare(torch, name, kern, plain, kind, m.dtype,
+                                   "%s forced" % shape_str(m)))
+        torch.cuda.empty_cache()
+    return worst
+
+
+def check_rk_kmarch(torch):
+    """K2 (rk_cases) against its plain version with the k-split forced
+    (forced_chunks and the plan's count) at ktot 16 and 6, on partial
+    tiles, aligned and shifted, first x carry, the sponge and Coriolis term
+    on and off: with th on drycblles and sullivan2011 and without on the
+    neutral Ekman LES, float64 and float32."""
+    for label, build in (("drycblles", build_drycblles),
+                         ("sullivan2011", build_sullivan),
+                         ("andren1994", build_andren)):
+        for n in ((45, 45), (48, 20)):
+            if label == "drycblles" and n[0] != n[1]:
+                continue
+            for k in (16, 6):
+                for dtype in (torch.float64, torch.float32):
+                    m = build(torch, n, k, dtype, "cuda")
+                    m.build_step(fold=False)
+                    counts = sorted(set(forced_chunks(k))
+                                    | set(rk_chunks(m, dtype)))
+                    for name, kern, plain, kind in rk_cases(
+                            torch, m, n[1] + k, counts):
+                        compare(torch, name, kern, plain, kind, dtype,
+                                "%s %s chunks %s"
+                                % (label, shape_str(m), counts))
+                    del m
+                    torch.cuda.empty_cache()
+
+
+def apply_cases(torch, m, seed, chunk_counts, carries=(True, False)):
+    """(name, kernel call, plain call, error kind) for K4 apply on a model
+    with the projection of pres_2 at each forced chunk count (None: the
+    plan's), with the carry and without, aligned and with every array one
+    value past a 16-byte boundary (single values only).  Seeded p and
+    arrays; the ghost planes of s* and of the carries, which K4 apply never
+    reads, are NaN, and so are the carries without the carry (not read).
+    s* is compared on the interior, the carries there where written.  The
+    kernel call fails on a non-finite output."""
+    from microhh_torch.ops import fused as F
+    ctx, gl = m.ctx, m.glue
+    ks, ke = ctx.ks, ctx.ke
+    # drawn on the model's device: at a run's shapes on the CPU they took
+    # seconds an array
+    gen = torch.Generator(device=ctx.device).manual_seed(seed)
+    shape = (ctx.kcells, ctx.jtot, ctx.itot)
+    nan = float("nan")
+
+    def rnd(*sh, scale=1.):
+        return (scale * torch.randn(*(sh or shape), generator=gen,
+                                    dtype=torch.float64,
+                                    device=ctx.device)).to(ctx.dtype)
+
+    p = rnd(ctx.ktot, ctx.jtot, ctx.itot)
+    s0 = {n: rnd() for n in ("u", "v", "w")}
+    t0 = {n: rnd(scale=1e-3) for n in ("u", "v", "w")}
+    for x in list(s0.values()) + list(t0.values()):
+        x[:ks] = nan
+        x[ke:] = nan
+    # each layout with its copy (the arrays are updated in place)
+    layouts = {"aligned": (p, lambda x: x.clone()),
+               "shifted": (shifted(torch, p), lambda x: shifted(torch, x))}
+    cases = []
+    for chunks in chunk_counts:
+        for pf, copy in layouts.values():
+            for carry in carries:
+                def apply(kernel, pf=pf, copy=copy, carry=carry,
+                          chunks=chunks):
+                    st = {n: copy(x) for n, x in s0.items()}
+                    t = {n: copy(x if carry else torch.full_like(x, nan))
+                         for n, x in t0.items()}
+                    can = -5. / 9. if carry else 0.
+                    if kernel:
+                        gl.apply(pf, st, t, 0.4, can, carry, chunks=chunks)
+                    else:
+                        F.pres_apply_plain(pf, st, t, gl.pc, ks, ctx.dxi,
+                                           ctx.dyi, 0.4, can, carry)
+                    got = [st[n][ks:ke] for n in st]
+                    if carry:
+                        got += [t[n][ks:ke] for n in t]
+                    if kernel and not all(bool(torch.isfinite(x).all())
+                                          for x in got):
+                        raise AssertionError("K4 apply wrote a non-finite "
+                                             "value")
+                    return got
+                cases.append(("pres_apply", lambda f=apply: f(True),
+                              lambda f=apply: f(False), "field"))
+    return cases
+
+
+def apply_chunks(m, dtype):
+    """The k-splits the runs' phases force on K4 apply: 1, 2 and 3 chunks,
+    the plans' counts (with and without the carry) and one level a
+    chunk."""
+    k = m.ctx.ktot
+    return sorted({c for c in (1, 2, 3) if c <= k}
+                  | {m.glue.apply_plan(dtype, c).chunks for c in (True, False)}
+                  | {k})
+
+
+def check_apply_forced(torch, m):
+    """K4 apply at a run's shapes with and without the carry, its k-split
+    forced (apply_chunks), aligned and shifted by one value; returns the
+    largest absolute difference."""
+    worst = 0.
+    for name, kern, plain, kind in apply_cases(
+            torch, m, m.ctx.itot + 5, apply_chunks(m, m.dtype)):
+        worst = max(worst, compare(torch, name, kern, plain, kind, m.dtype,
+                                   "%s forced" % shape_str(m)))
+        torch.cuda.empty_cache()
+    return worst
+
+
+def check_apply_kmarch(torch):
+    """K4 apply (apply_cases) against its plain version with the k-split
+    forced (forced_chunks and the plans' counts) at ktot 16 and 6 on 45^2
+    and 48x20 planes (partial tiles), aligned and shifted, with the carry
+    and without, float64 and float32."""
+    for n in ((45, 45), (48, 20)):
+        for k in (16, 6):
+            for dtype in (torch.float64, torch.float32):
+                m = build_sullivan(torch, n, k, dtype, "cuda")
+                m.build_step()
+                counts = sorted(set(forced_chunks(k))
+                                | set(apply_chunks(m, dtype)))
+                for name, kern, plain, kind in apply_cases(
+                        torch, m, n[0] + k, counts):
+                    compare(torch, name, kern, plain, kind, dtype,
+                            "%s chunks %s" % (shape_str(m), counts))
+                del m
+                torch.cuda.empty_cache()
+
+
 # the stability regimes evisc_cases takes: N2 / tPr against each level's
 # mean strain rate squared, times 0.7 to 1.3 (a column's factor, or a
 # point's for an N2 field): unstable (-1, the N2 term a third to a half of
@@ -1939,7 +2177,8 @@ def check_kmarch(torch):
     counts) aligned and shifted; K22 in
     every form of kernel_cases (fold_chunks) on drycblles at 512^2x32 and
     on the neutral Ekman LES at 45^2x8 (a partial tile, null th); K20
-    (check_dry_kmarch); K1/K14 and K7 (check_evisc_kmarch)."""
+    (check_dry_kmarch); K1/K14 and K7 (check_evisc_kmarch); K2
+    (check_rk_kmarch); K4 apply (check_apply_kmarch)."""
     for label, build, n, k in (("drycblles", build_model, 512, 32),
                                ("andren1994", build_andren, (45, 45), 8)):
         for dtype in (torch.float64, torch.float32):
@@ -2006,6 +2245,8 @@ def check_kmarch(torch):
                             % (n[0], n[1], k, counts))
     check_dry_kmarch(torch)
     check_evisc_kmarch(torch)
+    check_rk_kmarch(torch)
+    check_apply_kmarch(torch)
 
 
 def check_evisc_kmarch(torch):
@@ -2291,10 +2532,11 @@ def registers_of(build_log):
 
 
 def kmarch_info(kern, dtype, scheme, S, plan):
-    """What a k-marching kernel (K1/K14, K7, K8/K9, K12, K13, K16, K17,
-    K18, the scalar sweep, K20, K22) reports at a path's shape: its registers,
-    local bytes a thread, shared memory a block and resident blocks an SM
-    from the card, its chunk count, blocks and waves."""
+    """What a k-marching kernel (K1/K14, K2, K4 apply, K7, K8/K9, K12, K13,
+    K16, K17, K18, the scalar sweep, K20, K22) reports at a path's shape:
+    its registers, local bytes a thread, shared memory a block and
+    resident blocks an SM from the card, its chunk count, blocks and
+    waves."""
     info = kern.info(dtype, scheme, S)
     return {"registers": info["registers"], "local_bytes": info["local_bytes"],
             "smem_per_block": info["smem"],
@@ -2383,7 +2625,9 @@ def pres_pairs(torch, m, s):
                            lambda: F.pres_apply_plain(p, s, t, gl.pc, ctx.ks,
                                                       ctx.dxi, ctx.dyi, 0.0,
                                                       0.0, True),
-                           13 * fb, FLOPS_PER_POINT["pres_apply"] * n),
+                           13 * fb, FLOPS_PER_POINT["pres_apply"] * n,
+                           info=kmarch_info(gl.k_apply, m.dtype, 1, 0,
+                                            gl.apply_plan(m.dtype, True))),
     })
 
 
@@ -2414,7 +2658,10 @@ def time_kernels(torch, m, s):
                         lambda: F.tend_rk_plain(s, e, t, fz.ct, *grid_args,
                                                 *rk, False, True,
                                                 *fz._sweep_args()),
-                        (4 * nf + 1) * fb, FLOPS_PER_POINT["tend_rk"] * n),
+                        (4 * nf + 1) * fb, FLOPS_PER_POINT["tend_rk"] * n,
+                        info=kmarch_info(fz.k_tend, m.dtype, 0,
+                                         int(fz.has_thermo),
+                                         fz.tend_rk_plan(m.dtype))),
         # fields and carries in, s*, carries, e and rhs out
         "tend_rk_fold": pair(
             lambda: fz.tend_rk_fold(s, t, se_row, 0.5, -5. / 9., 2., False,
@@ -2868,11 +3115,13 @@ def time_pres4_parts(torch, m, s):
 
 # kernel-name pattern -> part of the step; the first match counts (K18 is
 # the instance of K8/K9's kernel without the RK fold, K20 its instances
-# with the DRY flag; K10 and K19 the scalar
+# with the DRY flag, K2 those with both; K10 and K19 the scalar
 # sweep's instances with and without it, K15 its RK instances at one scalar,
 # which no main path launches as K10; K3 both its forms, and K21, K3's
 # launch on the substep without the RK fold, where K3 does not run)
-PARTS = [("evisc_kernel", "K1/K14 evisc"), ("tend_rk_kernel", "K2 tend_rk"),
+PARTS = [("evisc_kernel", "K1/K14 evisc"),
+         (r"tend_uvw_kernel<\w+, *(true|\(bool\)1), *(true|\(bool\)1)",
+          "K2 tend_rk"),
          ("tend_rk_fold_kernel", "K22 tend_rk_fold"),
          (r"tend_uvw_kernel<\w+, *(false|\(bool\)0), *(true|\(bool\)1)",
           "K20 tendencies"),
@@ -3058,7 +3307,8 @@ def main():
     check_tdma(torch)
     check_kernels(torch)
     log("[3b] K16, K17, K12, K13, the scalar sweep K10/K19, the momentum "
-        "sweep K8/K9/K18, K22, K20, K1/K14 and K7 with the k-split forced")
+        "sweep K8/K9/K18, K22, K20, K1/K14, K7, K2 and K4 apply with the "
+        "k-split forced")
     check_kmarch(torch)
     log("[3c] K11 at ring depths 3, 4 and 8, columns shorter than, equal to "
         "and not a multiple of its window")
@@ -3119,6 +3369,12 @@ def main():
             if m.unfolded:
                 errs["tendencies"] = max(errs["tendencies"],
                                          check_dry_forced(torch, m))
+            else:
+                errs["pres_apply"] = max(errs["pres_apply"],
+                                         check_apply_forced(torch, m))
+            if m.fused.k_tend in m.kernels():
+                errs["tend_rk"] = max(errs["tend_rk"],
+                                      check_rk_forced(torch, m))
             errs["limits"] = max(errs["limits"], check_limits_forced(torch, m))
             times = (time_generic_kernels if m.unfolded else time_kernels)(
                 torch, m, s)
@@ -3160,6 +3416,8 @@ def main():
             if key != "rico2i5_384":
                 ev = "evisc_n2" if m.fused.stratified == 2 else "evisc"
                 errs[ev] = max(errs[ev], check_evisc_forced(torch, m))
+                errs["pres_apply"] = max(errs["pres_apply"],
+                                         check_apply_forced(torch, m))
             errs["limits"] = max(errs["limits"], check_limits_forced(torch, m))
             times = time_generic_kernels(torch, m, s)
             record(m, s, key, key + "_f32", label, res, errs, times,

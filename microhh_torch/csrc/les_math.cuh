@@ -1,17 +1,15 @@
 // Pointwise math of the 2nd-order LES kernels, shared by the eddy-viscosity
-// kernels K1, K7, K14 (evisc.cu), the tendency sweeps K2 (tend_rk.cu),
-// K22 (tend_rk_fold.cu) and K8-K10, K15, K18, K19, K20
-// (tend_generic.cu): the
-// strain rate and the Smagorinsky viscosity (diff_smag2.cxx calc_strain2 +
+// kernels K1, K7, K14 (evisc.cu), the tendency sweeps K22 (tend_rk_fold.cu)
+// and K2, K8-K10, K15, K18, K19, K20 (tend_generic.cu): the strain rate and the Smagorinsky viscosity (diff_smag2.cxx calc_strain2 +
 // calc_evisc), advec_2 (advec_2.cxx) + Smagorinsky diffusion
 // (diff_smag2.cxx diff_u/v/w/c) of u, v, w and a scalar, and the folded
 // sponge and geostrophic Coriolis terms, at one point of a k-marching tile.
 //
-// Each field is seen through a view of its shared-memory ring: F(s, dj, di)
-// is the value in ring slot s at row and column offsets (dj, di) from the
-// view's point; km, kc, kp are the slots of the planes below, at and above
-// the level computed.  The functions take any view type, so a kernel may
-// keep rings of another depth or halo width (K22) than common.cuh's.
+// Each field is seen through a view of its planes: F(s, dj, di) is the value
+// in plane s at row and column offsets (dj, di) from the view's point; km,
+// kc, kp name the planes below, at and above the level computed (Slots).
+// The functions take any view type (KV below, K22's and the scalar sweep's
+// own), so a kernel keeps its planes as its march needs them.
 #pragma once
 
 #include "common.cuh"
@@ -70,25 +68,6 @@ __device__ __forceinline__ T quot(const QRow<T>& cc, T a, T b, int col) {
 template <typename T>
 __device__ __forceinline__ T i2(T a, T b) { return T(0.5) * (a + b); }
 
-// one field's ring of (NJ, NI) planes seen from the point (r, c)
-template <typename T, int NJ, int NI>
-struct ViewT {
-    const T (*ring)[NJ][NI];
-    int r, c;
-    __device__ __forceinline__ T operator()(int s, int dj, int di) const {
-        return ring[s][r + dj][c + di];
-    }
-};
-
-// common.cuh's ring: the tile with a one-cell halo
-template <typename T>
-using View = ViewT<T, HJ, HI>;
-
-template <typename T>
-__device__ __forceinline__ View<T> view(const T (*ring)[HJ][HI]) {
-    return View<T>{ring, (int)threadIdx.y + 1, (int)threadIdx.x + 1};
-}
-
 // a field seen from a point of a k-march's tile (K22, K8/K9/K18, K1/K14):
 // P0, P1, P2 point at it in the planes k-1, k, k+1 (rows W apart) and c0,
 // c1, c2 are its own column
@@ -105,10 +84,6 @@ struct KV {
 struct Slots {
     int km, kc, kp;
 };
-
-__device__ __forceinline__ Slots slots(int k) {
-    return Slots{slot(k - 1), slot(k), slot(k + 1)};
-}
 
 // strain rate squared and the stability-corrected Smagorinsky viscosity at
 // the views' point of the plane in slot q.kc; cc is that level's row of the
@@ -238,17 +213,7 @@ __device__ __forceinline__ T v_tend(const VF& U, const VF& V, const VF& W,
     return adv_v + dif_v;
 }
 
-// u and v tendencies (advection + diffusion) at full level k
-template <typename T, typename VF, typename VE>
-__device__ __forceinline__ void uv_tend(const VF& U, const VF& V, const VF& W,
-                                        const VE& E, Slots q,
-                                        const T* __restrict__ cc, T dxi, T dyi,
-                                        T visc, T& ut, T& vt, int advec = 1) {
-    ut = u_tend(U, V, W, E, q, cc, dxi, dyi, visc, advec);
-    vt = v_tend(U, V, W, E, q, cc, dxi, dyi, visc, advec);
-}
-
-// The folds of the dry RK sweeps K2 and K22 onto u's tendency: the static
+// The folds of the folded dry sweep K22 onto u's tendency: the static
 // sponge of the table (buffer.cxx) and, when coriolis, the geostrophic term
 // fc (v - vg) of the JAX package's stencil (force.py:149, pallas_fused.py
 // _extra_uv: v is averaged around (i+1/2, j-1), ROADMAP "followed

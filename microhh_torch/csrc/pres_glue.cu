@@ -8,13 +8,36 @@
 //    _pres_apply_uvw_body): s* -= dt grad p and, unless it is the last
 //    substep, t -= cA_next grad p, for u, v and w, updated IN PLACE.
 //
-// Bound: device-memory bytes (a few flops per value).  Design: one thread
-// per (j, i) column marching k.  pres_rhs carries w at the upper half
-// level to the next level in a register; pres_apply reads each p plane
-// once for all three gradient components and carries p[k-1] in a
-// register for the vertical gradient.  The i/j neighbours are read from
-// device memory by the adjacent threads of the same warp and hit in L1.
+// Bound: device-memory bytes (a few flops per value).
+//
+// pres_rhs: one thread per (j, i) column marching all of k, w at the upper
+// half level carried to the next level in a register; the i/j neighbours
+// are read from device memory by the adjacent threads of the same warp and
+// hit in L1.
+//
+// pres_apply (pres_apply_kernel<T, CARRY>): p (ktot, jtot, itot) read, the
+// six arrays su, sv, sw and, with the carry, tu, tv, tw read and written in
+// place: 13 x 4 B a point in f32 (6.98 GB at 512^3), 7 without the carry
+// (the last substep), a few operations a value.  Design: a k-split march
+// without shared memory.  A block of 32 x PA_TJ threads owns a tile of
+// PA_TJ rows of 32 x VW values (VW = 16 / sizeof(T): one 16-byte access a
+// thread and array where the row is aligned, else VW single values, those
+// past itot neither read nor written) and marches one chunk [k0, k1) of the
+// levels (the chunk count chosen by the wrapper, ops/kmarch.py plan, so
+// that the grid fills the card in whole waves).  A thread reads p's values
+// at its own points and at the row j-1 below them (periodic; the row of
+// the warp below, an L1 or L2 hit), gets p at i-1 from the lane to its left
+// (__shfl_up_sync; lane 0 reads it, periodic), and carries p of the level
+// below in registers for the vertical gradient: the chunk reads p at k0-1
+// first (none below k = 0, where the gradient is zero: the wall).  Every
+// value of a level (p's and the six arrays') is loaded one level ahead,
+// before the stores of the level in hand, so that a level's loads are in
+// flight while the one before computes and stores.  The six arrays are not
+// __restrict__: each value is read and written by its own thread, its
+// loads issued before any store to it.
 #include <cuda_runtime.h>
+
+#include "kmarch.cuh"
 
 namespace mhh {
 
@@ -46,36 +69,152 @@ __global__ void pres_rhs_kernel(const T* __restrict__ u,
     }
 }
 
+constexpr int PA_TJ = 8;                 // tile rows (32 x PA_TJ threads)
+constexpr int PA_NT = km::TI * PA_TJ;
+
+// 16 bytes of a row: VW values
 template <typename T>
-__global__ void pres_apply_kernel(const T* __restrict__ p, T* su, T* sv,
-                                  T* sw, T* tu, T* tv, T* tw,
-                                  const T* __restrict__ pc, int itot, int jtot,
-                                  int ktot, int ks, T dxi, T dyi, T dt, T can,
-                                  int carry) {
-    const long long plane = (long long)itot * jtot;
-    const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (n >= plane) return;
-    const int j = (int)(n / itot), i = (int)(n - (long long)j * itot);
-    const long long nim = (long long)j * itot + (i == 0 ? itot - 1 : i - 1);
-    const long long njm = (long long)(j == 0 ? jtot - 1 : j - 1) * itot + i;
-    T pprev = T(0);
-    for (int k = 0; k < ktot; ++k) {
-        const long long b = (long long)k * plane;
-        const T pk = p[b + n];
-        const T gu = (pk - p[b + nim]) * dxi;
-        const T gv = (pk - p[b + njm]) * dyi;
-        // k == 0 is the bottom wall w level, held at its value
-        const T gw = k == 0 ? T(0) : (pk - pprev) * pc[k * NP + P_DZHI];
-        const long long o = (long long)(ks + k) * plane + n;
-        su[o] = su[o] - dt * gu;
-        sv[o] = sv[o] - dt * gv;
-        sw[o] = sw[o] - dt * gw;
-        if (carry) {
-            tu[o] = tu[o] - can * gu;
-            tv[o] = tv[o] - can * gv;
-            tw[o] = tw[o] - can * gw;
+struct alignas(16) Vals {
+    static constexpr int VW = 16 / (int)sizeof(T);
+    T v[VW];
+};
+
+template <typename T> struct Vec16;
+template <> struct Vec16<float> { typedef float4 type; };
+template <> struct Vec16<double> { typedef double2 type; };
+
+// the values a of the row at q: n of them (the rest 0), or all VW at once
+// (vec); p read only (ro) goes through the read-only path
+template <typename T, bool RO>
+__device__ __forceinline__ void load_vals(Vals<T>& a, const T* q, bool vec,
+                                          int n) {
+    typedef typename Vec16<T>::type V;
+    if (vec) {
+        if (RO)
+            *reinterpret_cast<V*>(a.v) = __ldg(reinterpret_cast<const V*>(q));
+        else
+            *reinterpret_cast<V*>(a.v) = *reinterpret_cast<const V*>(q);
+        return;
+    }
+#pragma unroll
+    for (int e = 0; e < Vals<T>::VW; ++e)
+        a.v[e] = e < n ? (RO ? __ldg(q + e) : q[e]) : T(0);
+}
+
+template <typename T>
+__device__ __forceinline__ void store_vals(T* q, const Vals<T>& a, bool vec,
+                                           int n) {
+    typedef typename Vec16<T>::type V;
+    if (vec) {
+        *reinterpret_cast<V*>(q) = *reinterpret_cast<const V*>(a.v);
+        return;
+    }
+#pragma unroll
+    for (int e = 0; e < Vals<T>::VW; ++e)
+        if (e < n) q[e] = a.v[e];
+}
+
+// everything a launch takes but its template arguments
+template <typename T>
+struct ApplyArgs {
+    const T* p;
+    T *su, *sv, *sw;      // s*, in place
+    T *tu, *tv, *tw;      // the carries, in place (null without CARRY)
+    const T* pc;          // (ktot, NP)
+    int itot, jtot, ktot, ks;
+    T dxi, dyi, dt, can;
+    int chunks, vec_ok;
+};
+
+// what a thread reads of one level: p at its points, at the row below and
+// (lane 0) left of its first point, the six arrays and dzhi
+template <typename T, bool CARRY>
+struct ApplyLevel {
+    Vals<T> p, pj, s[3], t[CARRY ? 3 : 1];
+    T pl, dzhi;
+};
+
+// two blocks an SM (at most 128 registers): at three (80) the level read
+// ahead spilled 196 B and ran 3.57 against 2.52 ms at 512^3 f32 on an
+// H100 at 700 W; streaming cache hints on the six arrays changed nothing
+template <typename T, bool CARRY>
+__global__ void __launch_bounds__(PA_NT, 2)
+pres_apply_kernel(const ApplyArgs<T> a) {
+    constexpr int VW = Vals<T>::VW;
+    const int tx = threadIdx.x, j = blockIdx.y * PA_TJ + threadIdx.y;
+    // a warp is one row of the tile: a row past the plane has nothing to do
+    if (j >= a.jtot) return;
+    const int i = (blockIdx.x * km::TI + tx) * VW;
+    const int n = min(VW, a.itot - i);   // values inside the row; <= 0: none
+    const bool vec = a.vec_ok;
+    int k0, k1;
+    km::chunk_bounds(blockIdx.z, a.chunks, a.ktot, k0, k1);
+    const long long plane = (long long)a.itot * a.jtot;
+    const long long me = (long long)j * a.itot + i;
+    const long long below =
+        (long long)(j == 0 ? a.jtot - 1 : j - 1) * a.itot + i;
+    const long long left =
+        (long long)j * a.itot + (i == 0 ? a.itot - 1 : i - 1);
+    T* const s[3] = {a.su, a.sv, a.sw};
+    T* const t[3] = {a.tu, a.tv, a.tw};
+
+    auto fetch = [&](int k, ApplyLevel<T, CARRY>& L) {
+        const T* const pk = a.p + k * plane;
+        const long long o = (a.ks + k) * plane + me;
+        if (n > 0) {
+            load_vals<T, true>(L.p, pk + me, vec, n);
+            load_vals<T, true>(L.pj, pk + below, vec, n);
+#pragma unroll
+            for (int c = 0; c < 3; ++c) {
+                load_vals<T, false>(L.s[c], s[c] + o, vec, n);
+                if constexpr (CARRY)
+                    load_vals<T, false>(L.t[c], t[c] + o, vec, n);
+            }
         }
-        pprev = pk;
+        if (tx == 0) L.pl = __ldg(pk + left);
+        L.dzhi = __ldg(a.pc + k * NP + P_DZHI);
+    };
+
+    ApplyLevel<T, CARRY> cur, nxt;
+    fetch(k0, cur);
+    // p at the level below the chunk's first, for its vertical gradient
+    Vals<T> pdn;
+    if (k0 > 0 && n > 0) load_vals<T, true>(pdn, a.p + (k0 - 1) * plane + me,
+                                            vec, n);
+    for (int k = k0; k < k1; ++k) {
+        if (k + 1 < k1) fetch(k + 1, nxt);
+        // p at i-1 of the thread's first point: the last of the lane to the
+        // left, or (lane 0) its own read
+        const T up = __shfl_up_sync(0xffffffffu, cur.p.v[VW - 1], 1);
+        if (n > 0) {
+            const T pl = tx == 0 ? cur.pl : up;
+            const long long o = (a.ks + k) * plane + me;
+            Vals<T> g[3];
+#pragma unroll
+            for (int e = 0; e < VW; ++e) {
+                const T pc_ = cur.p.v[e];
+                g[0].v[e] = (pc_ - (e == 0 ? pl : cur.p.v[e - 1])) * a.dxi;
+                g[1].v[e] = (pc_ - cur.pj.v[e]) * a.dyi;
+                // k == 0 is the bottom wall w level, held at its value
+                g[2].v[e] = k == 0 ? T(0) : (pc_ - pdn.v[e]) * cur.dzhi;
+            }
+#pragma unroll
+            for (int c = 0; c < 3; ++c) {
+                Vals<T> r;
+#pragma unroll
+                for (int e = 0; e < VW; ++e)
+                    r.v[e] = cur.s[c].v[e] - a.dt * g[c].v[e];
+                store_vals(s[c] + o, r, vec, n);
+                if constexpr (CARRY) {
+#pragma unroll
+                    for (int e = 0; e < VW; ++e)
+                        r.v[e] = cur.t[c].v[e] - a.can * g[c].v[e];
+                    store_vals(t[c] + o, r, vec, n);
+                }
+            }
+        }
+        pdn = cur.p;
+        cur = nxt;
     }
 }
 
@@ -92,17 +231,46 @@ int launch_pres_rhs(const T* u, const T* v, const T* w, T* out, const T* pc,
 }
 
 template <typename T>
-int launch_pres_apply(const T* p, T* su, T* sv, T* sw, T* tu, T* tv, T* tw,
-                      const T* pc, int itot, int jtot, int ktot, int ks,
-                      double dxi, double dyi, double dt, double can, int carry,
-                      cudaStream_t stream) {
-    const long long plane = (long long)itot * jtot;
-    const int threads = 256;
-    pres_apply_kernel<T><<<(unsigned int)((plane + threads - 1) / threads),
-                           threads, 0, stream>>>(
-        p, su, sv, sw, tu, tv, tw, pc, itot, jtot, ktot, ks, T(dxi), T(dyi),
-        T(dt), T(can), carry);
+ApplyArgs<T> apply_args(const void* p, void* su, void* sv, void* sw, void* tu,
+                        void* tv, void* tw, const void* pc, int itot,
+                        int jtot, int ktot, int ks, double dxi, double dyi,
+                        double dt, double can, int chunks) {
+    ApplyArgs<T> a;
+    a.p = (const T*)p;
+    a.su = (T*)su; a.sv = (T*)sv; a.sw = (T*)sw;
+    a.tu = (T*)tu; a.tv = (T*)tv; a.tw = (T*)tw;
+    a.pc = (const T*)pc;
+    a.itot = itot; a.jtot = jtot; a.ktot = ktot; a.ks = ks;
+    a.dxi = T(dxi); a.dyi = T(dyi); a.dt = T(dt); a.can = T(can);
+    a.chunks = chunks;
+    a.vec_ok = itot % (16 / (int)sizeof(T)) == 0;
+    a.vec_ok = a.vec_ok && km::aligned16(p) && km::aligned16(su)
+               && km::aligned16(sv) && km::aligned16(sw) && km::aligned16(tu)
+               && km::aligned16(tv) && km::aligned16(tw);
+    return a;
+}
+
+// the carries all given (CARRY) or all null
+template <typename T>
+int launch_pres_apply(const ApplyArgs<T>& a, int carry, cudaStream_t stream) {
+    if (a.chunks < 1 || a.chunks > a.ktot) return (int)cudaErrorInvalidValue;
+    if (!carry != !a.tu || !carry != !a.tv || !carry != !a.tw)
+        return (int)cudaErrorInvalidValue;
+    constexpr int VW = Vals<T>::VW;
+    const dim3 block(km::TI, PA_TJ);
+    const dim3 grid((a.itot + km::TI * VW - 1) / (km::TI * VW),
+                    (a.jtot + PA_TJ - 1) / PA_TJ, a.chunks);
+    if (carry)
+        pres_apply_kernel<T, true><<<grid, block, 0, stream>>>(a);
+    else
+        pres_apply_kernel<T, false><<<grid, block, 0, stream>>>(a);
     return (int)cudaGetLastError();
+}
+
+template <typename T>
+int pres_apply_info(int carry, int* out) {
+    return carry ? km::kernel_info(pres_apply_kernel<T, true>, PA_NT, 0, out)
+                 : km::kernel_info(pres_apply_kernel<T, false>, PA_NT, 0, out);
 }
 
 }  // namespace mhh
@@ -120,12 +288,15 @@ int launch_pres_apply(const T* p, T* su, T* sv, T* sw, T* tu, T* tv, T* tw,
     extern "C" int mhh_pres_apply_##SUF(                                      \
         const void* p, void* su, void* sv, void* sw, void* tu, void* tv,      \
         void* tw, const void* pc, int itot, int jtot, int ktot, int ks,       \
-        double dxi, double dyi, double dt, double can, int carry,             \
+        double dxi, double dyi, double dt, double can, int carry, int chunks, \
         void* stream) {                                                       \
         return mhh::launch_pres_apply<T>(                                     \
-            (const T*)p, (T*)su, (T*)sv, (T*)sw, (T*)tu, (T*)tv, (T*)tw,      \
-            (const T*)pc, itot, jtot, ktot, ks, dxi, dyi, dt, can, carry,     \
-            (cudaStream_t)stream);                                            \
+            mhh::apply_args<T>(p, su, sv, sw, tu, tv, tw, pc, itot, jtot,     \
+                               ktot, ks, dxi, dyi, dt, can, chunks),          \
+            carry, (cudaStream_t)stream);                                     \
+    }                                                                         \
+    extern "C" int mhh_pres_apply_info_##SUF(int scheme, int S, int* out) {   \
+        return mhh::pres_apply_info<T>(scheme, out);                          \
     }
 
 MHH_PRES(f32, float)

@@ -1,8 +1,8 @@
 // K8/K9, K10, K15, K18 and K19: the tendency sweeps of the generic path
 // (any thermo, any scalar list; the moist bomex/rico class), with or without
 // the low-storage RK update folded in (s* = s + cB*dt*t_total and the carry
-// t = cA_next*t_total); and K20, the dry path's sweep without the RK fold,
-// on K18's march.
+// t = cA_next*t_total); and K20 and K2, the dry path's sweep without and
+// with the RK fold, on K18's march.
 //
 // K8/K9 tend_uvw: u, v and w advec_2 + Smagorinsky diffusion, the column
 // fold of the per-substep table (ADDU/V, FACZ, FACZH and the WLSDN/UP
@@ -47,7 +47,7 @@
 // / :1582; _w_body :373).  K19 is the scalar sweep's form for that substep.
 //
 // K20 tendencies (tend_uvw_kernel<T, false, true, TH>): the dry set of K2
-// (tend_rk.cu) WITHOUT the RK fold, for the dry path's substep in which a
+// (below) WITHOUT the RK fold, for the dry path's substep in which a
 // forcing, a limiter, a source or a top boundary condition rules the RK
 // fold out: advec_2 and Smagorinsky diffusion of u, v, w and, when TH, th;
 // the static sponge from the (ktot, NTG) table (FACZ, FACZH, UREF, VREF,
@@ -64,6 +64,25 @@
 // and e's, one commit group and one barrier a level as in K18.  Bound: u,
 // v, w, th and e read, four carries read and written: 13 x 4 B a point in
 // f32 (6.98 GB at 512^3), 10 without th.
+//
+// K2 tend_rk (tend_uvw_kernel<T, true, true, TH>): K20's dry set WITH the RK
+// fold, the dry path's sweep of Model.build_step(fold=False) (K1 -> K2 -> K4
+// rhs; the default folded form is K22, tend_rk_fold.cu).  Replaces
+// FusedLES2.tendencies_rk (pallas_fused.py:1875) in its untiled form
+// (pallas_calls :1930, :1951; bodies _tend_uv_rk_body :536 with _extra_uv
+// :432, _tend_wth_rk_body) with the fold_ghosts semantics: the fields are
+// read with CLAMPED k neighbours (u, v and th to [ks, ke-1], w to [ks, ke]),
+// evisc is the interior (ktot, jtot, itot) array read at clamp(p, 0,
+// ktot-1), so no ghost plane of u, v or th is ever read.  K2 is the RK and
+// DRY flags together; its clamp (CL inside the kernel) is their product, its
+// code `if constexpr`: group p takes three level bases (u, v, th; w; e) where
+// the other instances take one, and groups k0-1 and k1 repeat the edge
+// planes at the walls.  The generic column fold of the table is not applied
+// under DRY (the sponge is DRY's own).  s* = s + cbdt*t_total goes to fresh
+// tensors (th's too), the carry = can*t_total in place unless `carry` is 0,
+// and `first` (the carry zero) reads no carry at all: the read-ahead gives
+// 0.  Bound: u, v, w, th, e and four carries read, four s* and four carries
+// written: 17 x 4 B a point in f32 (9.13 GB at 512^3), 13 without th.
 //
 // The fields are ghost-filled and read at k-1 and k+1 as they are (no
 // clamping, fold_ghosts off as on the TPU's generic path); evisc is the
@@ -414,6 +433,10 @@ struct UvwArgs {
     const T* th;
     T* tth;
     T svisc, tPri;
+    // K2's: th's s* (null without thermo) and the first-substep flag (no
+    // carry read)
+    T* ths;
+    int first;
 };
 
 // dynamic shared memory of one launch (ops/kmarch.py repeats it): UVW_R
@@ -438,12 +461,14 @@ struct ThColumn {
 template <typename T>
 struct ThColumn<T, false> {};
 
-// K8/K9 (RK), K18 (neither flag) and K20 (DRY: the static sponge of the
+// K8/K9 (RK), K18 (neither flag), K20 (DRY: the static sponge of the
 // table's FACZ, FACZH, UREF, VREF; TH: th's plane fifth in a group, its
 // column and carry in registers, the dry buoyancy on w, th's tendency
-// with its sponge, the staged row's g/threfh quotient).  One body: the
-// flags' code is `if constexpr`, so K8/K9's and K18's instances compile
-// from the same code as before K20 joined them.  Three blocks an SM for
+// with its sponge, the staged row's g/threfh quotient) and K2 (RK and DRY:
+// K20's set with the RK fold, clamped reads and the `first` flag).  One
+// body: the flags' code is `if constexpr` (the column fold keeps its
+// `if (RK ...)`), so K8/K9's, K18's and K20's instances compile from the
+// same code as before K2 joined them.  Three blocks an SM for
 // K8/K9 and K20 with th in float32 (at most 80 registers), four for K18
 // and K20 without th (at most 64: K18 1.098 against 1.179 ms at
 // jaenschwalde, while K8/K9 read 1.285 against 1.273 at rico 384^3 on an
@@ -456,6 +481,8 @@ tend_uvw_kernel(const UvwArgs<T> a) {
     using Sl = km::Slot<UVW_TJ, UVW_HALO>;
     constexpr int NF = UVW_NF + (TH ? 1 : 0);
     constexpr int SZ = Sl::SIZE, PL = NF * SZ;
+    // K2's clamped reads (fold_ghosts) and its `first` flag
+    constexpr bool CL = RK && DRY;
     T* const ring = reinterpret_cast<T*>(uvw_smem_buf);   // [R][NF][SZ]
     T* const rows = ring + UVW_R * PL;                     // [R][NTGP]
     const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * km::TI + tx;
@@ -479,26 +506,59 @@ tend_uvw_kernel(const UvwArgs<T> a) {
     // row p; none past plane k1 (an empty group keeps the count)
     auto issue = [&](int p, int s) {
         if (p <= k1) {
-            const long long lev = level(p);
-            T* const sl = ring + s * PL;
+            if constexpr (CL) {
+                // K2: plane p clamped, u's, v's and th's to [0, ktot-1] and
+                // w's to [0, ktot] past ks, e's to [0, ktot-1] of the
+                // interior array
+                const int pc = clampi(p, 0, a.ktot - 1);
+                const long long la = level(pc), lw = level(max(p, 0));
+                const long long le = (long long)pc * plane;
+                T* const sl = ring + s * PL;
 #pragma unroll
-            for (int n = 0; n < ld.NOP; ++n) {
-                if (ld.src[n] < 0) continue;
-                T* const d = sl + (ld.dst[n] & (km::VEC - 1));
-                const long long g = lev + ld.src[n];
-                if (ld.dst[n] & km::VEC) {
-                    km::cp_async<16>(d, a.u + g);
-                    km::cp_async<16>(d + SZ, a.v + g);
-                    km::cp_async<16>(d + 2 * SZ, a.w + g);
-                    km::cp_async<16>(d + 3 * SZ, a.e + g);
-                    if constexpr (TH) km::cp_async<16>(d + 4 * SZ, a.th + g);
-                } else {
-                    km::cp_async<sizeof(T)>(d, a.u + g);
-                    km::cp_async<sizeof(T)>(d + SZ, a.v + g);
-                    km::cp_async<sizeof(T)>(d + 2 * SZ, a.w + g);
-                    km::cp_async<sizeof(T)>(d + 3 * SZ, a.e + g);
-                    if constexpr (TH)
-                        km::cp_async<sizeof(T)>(d + 4 * SZ, a.th + g);
+                for (int n = 0; n < ld.NOP; ++n) {
+                    if (ld.src[n] < 0) continue;
+                    T* const d = sl + (ld.dst[n] & (km::VEC - 1));
+                    const long long g = la + ld.src[n];
+                    const long long gw = lw + ld.src[n], ge = le + ld.src[n];
+                    if (ld.dst[n] & km::VEC) {
+                        km::cp_async<16>(d, a.u + g);
+                        km::cp_async<16>(d + SZ, a.v + g);
+                        km::cp_async<16>(d + 2 * SZ, a.w + gw);
+                        km::cp_async<16>(d + 3 * SZ, a.e + ge);
+                        if constexpr (TH)
+                            km::cp_async<16>(d + 4 * SZ, a.th + g);
+                    } else {
+                        km::cp_async<sizeof(T)>(d, a.u + g);
+                        km::cp_async<sizeof(T)>(d + SZ, a.v + g);
+                        km::cp_async<sizeof(T)>(d + 2 * SZ, a.w + gw);
+                        km::cp_async<sizeof(T)>(d + 3 * SZ, a.e + ge);
+                        if constexpr (TH)
+                            km::cp_async<sizeof(T)>(d + 4 * SZ, a.th + g);
+                    }
+                }
+            } else {
+                const long long lev = level(p);
+                T* const sl = ring + s * PL;
+#pragma unroll
+                for (int n = 0; n < ld.NOP; ++n) {
+                    if (ld.src[n] < 0) continue;
+                    T* const d = sl + (ld.dst[n] & (km::VEC - 1));
+                    const long long g = lev + ld.src[n];
+                    if (ld.dst[n] & km::VEC) {
+                        km::cp_async<16>(d, a.u + g);
+                        km::cp_async<16>(d + SZ, a.v + g);
+                        km::cp_async<16>(d + 2 * SZ, a.w + g);
+                        km::cp_async<16>(d + 3 * SZ, a.e + g);
+                        if constexpr (TH)
+                            km::cp_async<16>(d + 4 * SZ, a.th + g);
+                    } else {
+                        km::cp_async<sizeof(T)>(d, a.u + g);
+                        km::cp_async<sizeof(T)>(d + SZ, a.v + g);
+                        km::cp_async<sizeof(T)>(d + 2 * SZ, a.w + g);
+                        km::cp_async<sizeof(T)>(d + 3 * SZ, a.e + g);
+                        if constexpr (TH)
+                            km::cp_async<sizeof(T)>(d + 4 * SZ, a.th + g);
+                    }
                 }
             }
             if (p >= k0 && p < k1 && tid < NTG)
@@ -532,13 +592,26 @@ tend_uvw_kernel(const UvwArgs<T> a) {
     T e0 = ring[me + 3 * SZ];
     T u1 = ring[PL + me], v1 = ring[PL + me + SZ];
     T w1 = ring[PL + me + 2 * SZ], e1 = ring[PL + me + 3 * SZ];
-    T cu = a.tu[level(k0) + o2], cv = a.tv[level(k0) + o2];
-    T cw = a.tw[level(k0) + o2];
+    T cu, cv, cw;
     ThColumn<T, TH> h;
+    if constexpr (CL) {
+        // K2's first substep reads no carry
+        cu = cv = cw = T(0);
+        if constexpr (TH) h.c = T(0);
+        if (!a.first) {
+            cu = a.tu[level(k0) + o2];
+            cv = a.tv[level(k0) + o2];
+            cw = a.tw[level(k0) + o2];
+            if constexpr (TH) h.c = a.tth[level(k0) + o2];
+        }
+    } else {
+        cu = a.tu[level(k0) + o2], cv = a.tv[level(k0) + o2];
+        cw = a.tw[level(k0) + o2];
+    }
     if constexpr (TH) {
         h.a0 = ring[me + 4 * SZ];
         h.a1 = ring[PL + me + 4 * SZ];
-        h.c = a.tth[level(k0) + o2];
+        if constexpr (!CL) h.c = a.tth[level(k0) + o2];
     }
     const Slots q{0, 1, 2};
     int sm = 0;                 // the slot of group k-1
@@ -552,8 +625,20 @@ tend_uvw_kernel(const UvwArgs<T> a) {
         if (k + 1 < k1) derive(sp);
         // the carries of the next level, on their way during this one
         const long long ln = level(min(k + 1, k1 - 1)) + o2;
-        const T cun = a.tu[ln], cvn = a.tv[ln], cwn = a.tw[ln];
-        if constexpr (TH) h.cn = a.tth[ln];
+        T cun, cvn, cwn;
+        if constexpr (CL) {
+            cun = cvn = cwn = T(0);
+            if constexpr (TH) h.cn = T(0);
+            if (!a.first) {
+                cun = a.tu[ln];
+                cvn = a.tv[ln];
+                cwn = a.tw[ln];
+                if constexpr (TH) h.cn = a.tth[ln];
+            }
+        } else {
+            cun = a.tu[ln], cvn = a.tv[ln], cwn = a.tw[ln];
+            if constexpr (TH) h.cn = a.tth[ln];
+        }
 
         const T* const pm = ring + sm * PL + me;
         const T* const pc = ring + sc * PL + me;
@@ -573,8 +658,9 @@ tend_uvw_kernel(const UvwArgs<T> a) {
         T wt = w_tend<QRow<T>>(U, V, W, E, q, cc, a.dxi, a.dyi, a.visc,
                                a.advec);
 
-        // ---- column fold and Coriolis (pallas_fused.py _extra_uv) ----
-        if (RK) {
+        // ---- column fold and Coriolis (pallas_fused.py _extra_uv); under
+        // DRY the sponge below stands in for the fold ----
+        if (RK && !DRY) {
             const T facz = cc[T_FACZ];
             ut = ut + cc[T_ADDU] - facz * u1;
             vt = vt + cc[T_ADDV] - facz * v1;
@@ -621,10 +707,12 @@ tend_uvw_kernel(const UvwArgs<T> a) {
                 a.us[o] = u1 + a.cbdt * ut;
                 a.vs[o] = v1 + a.cbdt * vt;
                 a.ws[o] = w1 + a.cbdt * wt;
+                if constexpr (RK && TH) a.ths[o] = h.a1 + a.cbdt * h.t;
                 if (a.carry) {
                     a.tu[o] = a.can * ut;
                     a.tv[o] = a.can * vt;
                     a.tw[o] = a.can * wt;
+                    if constexpr (RK && TH) a.tth[o] = a.can * h.t;
                 }
             } else {
                 a.tu[o] = ut;
@@ -648,7 +736,8 @@ tend_uvw_kernel(const UvwArgs<T> a) {
     km::wait_all();
 }
 
-// K8/K9 (RK), K18 (neither flag) and K20 (DRY, TH where th is given)
+// K8/K9 (RK), K18 (neither flag), K20 (DRY, TH where th is given) and K2
+// (RK and DRY)
 template <typename T, bool RK, bool DRY = false, bool TH = false>
 int launch_tend_uvw(const UvwArgs<T>& args, cudaStream_t stream) {
     if (args.chunks < 1 || args.chunks > args.ktot)
@@ -679,6 +768,14 @@ int launch_tendencies(const UvwArgs<T>& a, cudaStream_t stream) {
                 : launch_tend_uvw<T, false, true, false>(a, stream);
 }
 
+// K2: th, its s* and its carry all given (TH) or all null
+template <typename T>
+int launch_tend_rk(const UvwArgs<T>& a, cudaStream_t stream) {
+    if (!a.th != !a.tth || !a.th != !a.ths) return (int)cudaErrorInvalidValue;
+    return a.th ? launch_tend_uvw<T, true, true, true>(a, stream)
+                : launch_tend_uvw<T, true, true, false>(a, stream);
+}
+
 // the arguments of one launch; us, vs, ws null without RK, th and tth
 // null but in K20's with th
 template <typename T>
@@ -705,6 +802,7 @@ UvwArgs<T> uvw_args(const void* u, const void* v, const void* w,
                && km::aligned16(v) && km::aligned16(w) && km::aligned16(e);
     a.th = nullptr; a.tth = nullptr;
     a.svisc = T(0); a.tPri = T(0);
+    a.ths = nullptr; a.first = 0;
     return a;
 }
 
@@ -725,6 +823,25 @@ UvwArgs<T> dry_args(const void* u, const void* v, const void* w,
     a.tth = (T*)tth;
     a.svisc = T(svisc);
     a.tPri = T(1) / T(tPr);
+    return a;
+}
+
+// K2's: K20's with s*, the RK numbers and flags; e the interior array
+template <typename T>
+UvwArgs<T> rk_args(const void* u, const void* v, const void* w,
+                   const void* th, const void* e, void* us, void* vs,
+                   void* ws, void* ths, void* tu, void* tv, void* tw,
+                   void* tth, const void* ct, int itot, int jtot, int ktot,
+                   int ks, double dxi, double dyi, double visc, double svisc,
+                   double tPr, double cbdt, double can, double fc,
+                   double utrans, double vtrans, int first, int carry,
+                   int coriolis, int chunks) {
+    UvwArgs<T> a = dry_args<T>(u, v, w, th, e, tu, tv, tw, tth, ct, itot,
+                               jtot, ktot, ks, dxi, dyi, visc, svisc, tPr, fc,
+                               utrans, vtrans, coriolis, chunks);
+    a.us = (T*)us; a.vs = (T*)vs; a.ws = (T*)ws; a.ths = (T*)ths;
+    a.cbdt = T(cbdt); a.can = T(can);
+    a.carry = carry; a.first = first;
     return a;
 }
 
@@ -797,6 +914,25 @@ UvwArgs<T> dry_args(const void* u, const void* v, const void* w,
     extern "C" int mhh_tendencies_info_##SUF(int scheme, int S, int* out) {   \
         return S ? mhh::tend_uvw_info<T, false, true, true>(out)              \
                  : mhh::tend_uvw_info<T, false, true, false>(out);            \
+    }                                                                         \
+    extern "C" int mhh_tend_rk_##SUF(                                         \
+        const void* u, const void* v, const void* w, const void* th,          \
+        const void* e, void* us, void* vs, void* ws, void* ths, void* tu,     \
+        void* tv, void* tw, void* tth, const void* ct, int itot, int jtot,    \
+        int ktot, int ks, double dxi, double dyi, double visc, double svisc,  \
+        double tPr, double cbdt, double can, double fc, double utrans,        \
+        double vtrans, int first, int carry, int coriolis, int chunks,        \
+        void* stream) {                                                       \
+        return mhh::launch_tend_rk<T>(                                        \
+            mhh::rk_args<T>(u, v, w, th, e, us, vs, ws, ths, tu, tv, tw, tth, \
+                            ct, itot, jtot, ktot, ks, dxi, dyi, visc, svisc,  \
+                            tPr, cbdt, can, fc, utrans, vtrans, first, carry, \
+                            coriolis, chunks),                                \
+            (cudaStream_t)stream);                                            \
+    }                                                                         \
+    extern "C" int mhh_tend_rk_info_##SUF(int scheme, int S, int* out) {      \
+        return S ? mhh::tend_uvw_info<T, true, true, true>(out)               \
+                 : mhh::tend_uvw_info<T, true, true, false>(out);             \
     }                                                                         \
     extern "C" int mhh_tend_scalar_acc_##SUF(                                 \
         const void* u, const void* v, const void* w, const void* e,           \

@@ -39,10 +39,12 @@ SIGNATURES = {
     # u, v, w, th, out, ce; itot, jtot, ktot, ks; dxi, dyi, tPr; stratified,
     # ghosts, chunks (ops/kmarch.py)
     "evisc": [_P] * 6 + [_I] * 4 + [_D] * 3 + [_I] * 3,
-    # u, v, w, th, e, us, vs, ws, ths, tu, tv, tw, tth, ct; itot, jtot, ktot,
-    # ks; dxi, dyi, visc, svisc, tPr, cbdt, can, fc, utrans, vtrans; first,
-    # carry, coriolis.  th, ths, tth null: no thermo
-    "tend_rk": [_P] * 14 + [_I] * 4 + [_D] * 10 + [_I] * 3,
+    # K2, the momentum sweep's dry RK form (csrc/tend_generic.cu): u, v, w,
+    # th, e (interior), us, vs, ws, ths, tu, tv, tw, tth, ct; itot, jtot,
+    # ktot, ks; dxi, dyi, visc, svisc, tPr, cbdt, can, fc, utrans, vtrans;
+    # first, carry, coriolis, chunks (ops/kmarch.py).  th, ths, tth null: no
+    # thermo
+    "tend_rk": [_P] * 14 + [_I] * 4 + [_D] * 10 + [_I] * 4,
     # u, v, w, th, e_in, se, us, vs, ws, ths, tu_in, tv_in, tw_in, tu_out,
     # tv_out, tw_out, tth, e_out, rhs, ct, ce; itot, jtot, ktot, ks; dxi,
     # dyi, visc, svisc, tPr, cbdt, can, dti, fc, utrans, vtrans; first,
@@ -53,9 +55,9 @@ SIGNATURES = {
     "tdma": [_P] * 3 + [_I, ctypes.c_longlong, _I],
     # u, v, w, out, pc; itot, jtot, ktot, ks; dxi, dyi, dti
     "pres_rhs": [_P] * 5 + [_I] * 4 + [_D] * 3,
-    # p, su, sv, sw, tu, tv, tw, pc; itot, jtot, ktot, ks; dxi, dyi, dt, can;
-    # carry
-    "pres_apply": [_P] * 8 + [_I] * 4 + [_D] * 4 + [_I],
+    # p, su, sv, sw, tu, tv, tw (null without the carry), pc; itot, jtot,
+    # ktot, ks; dxi, dyi, dt, can; carry, chunks (ops/kmarch.py)
+    "pres_apply": [_P] * 8 + [_I] * 4 + [_D] * 4 + [_I] * 2,
     # the cluster form: real x, complex y; kt, jtot, itot, C (CTAs a
     # cluster), F (modes a column chunk)
     "dft_fwd": [_P] * 2 + [_I] * 5,
@@ -118,14 +120,16 @@ SIGNATURES = {
 # Kernels with an entry mhh_<kernel>_info_<f32|f64>(scheme, S, int out[5])
 # (the scalar sweep's "scheme" is its advec flag, plus 2 in K10/K15's
 # form without the fold; K22's its thermo flag, K1/K14's and K7's its
-# stratified mode, K3's its sweep flag with S its chunks a mode; K20 reads
-# only S, its one scalar th counted (1 or 0); K11, K8/K9 and K18 read
-# neither, K12, K16, K1/K14 and K7 not S):
+# stratified mode, K3's its sweep flag with S its chunks a mode, K4
+# apply's its carry flag; K20 and K2 read only S, their one scalar th
+# counted (1 or 0); K11, K8/K9 and K18 read neither, K12, K16, K1/K14, K7
+# and K4 apply not S):
 # registers, local bytes a thread, dynamic shared memory a block, resident
 # blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), SMs.
 INFO = ("advec_mom", "advec_scalars", "o4_mom", "o4_scalars",
         "tend_scalars", "tend_scalar_acc", "micro2", "tend_rk_fold",
-        "tend_uvw", "tend_uvw_acc", "evisc", "limits", "tdma", "tendencies")
+        "tend_uvw", "tend_uvw_acc", "evisc", "limits", "tdma", "tendencies",
+        "tend_rk", "pres_apply")
 INFO_KEYS = ("registers", "local_bytes", "smem", "blocks_per_sm", "sms")
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}

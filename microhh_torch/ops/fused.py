@@ -13,14 +13,17 @@ no fallback from the card to the plain version.
                             by ``ops/kmarch.py``, one body with K14);
 * K2 ``Fused.tend_rk``    - advec_2 + smag2 diffusion + dry buoyancy +
                             folded sponge and Coriolis term + RK fold
-                            (``csrc/tend_rk.cu``);
+                            (``csrc/tend_generic.cu``: K20's k-march with
+                            its RK flag and clamped reads, chunked by
+                            ``ops/kmarch.py``);
 * K22 ``Fused.tend_rk_fold`` - K2's sweep with the eddy viscosity (K1) and
                             the Poisson right-hand side (K4 rhs) computed in
                             the same k-march (``csrc/tend_rk_fold.cu``,
                             chunked by ``ops/kmarch.py``): the dry step's
                             default form;
 * K4 ``PresGlue.rhs`` / ``PresGlue.apply`` - the projection glue
-                            (``csrc/pres_glue.cu``);
+                            (``csrc/pres_glue.cu``; apply a k-split march,
+                            chunked by ``ops/kmarch.py``);
 * K7 ``Fused.limits``     - per-level maxima of the CFL rate and of K1's
                             eddy viscosity, the adaptive-dt limits
                             (``csrc/evisc.cu``, K1's k-march with the
@@ -79,7 +82,7 @@ from ..kernels import Kernel, check, on_cpu
 from . import kmarch
 from .stencil import im, ip, jm, jp, i2
 
-# per-level table columns, shared with csrc/evisc.cu, tend_rk.cu, pres_glue.cu
+# per-level table columns, shared with csrc/les_math.cuh and pres_glue.cu
 (E_DZI, E_DZHI, E_DZHI1, E_MLEN2, E_THREF, E_TOPS, NE) = range(7)
 # every table is NTG wide; the dry kernels (K2, K20, K22) read the first NT
 # columns and ug, vg, the generic K8-K10 tables (built every substep by
@@ -602,7 +605,8 @@ class Fused:
         self.ct = ctx.tensor(ct)
         self.k_evisc = Kernel("evisc", "microhh_torch/csrc/evisc.cu",
                               "microhh_tpu/ops/pallas_fused.py:1441")
-        self.k_tend = Kernel("tend_rk", "microhh_torch/csrc/tend_rk.cu",
+        self.k_tend = Kernel("tend_rk",
+                             "microhh_torch/csrc/tend_generic.cu",
                              "microhh_tpu/ops/pallas_fused.py:1930, "
                              "microhh_tpu/ops/pallas_fused.py:1951")
         self.k_tend_fold = Kernel("tend_rk_fold",
@@ -697,9 +701,20 @@ class Fused:
         return (self.fc, ctx.utrans, ctx.vtrans, self.coriolis,
                 self.has_thermo)
 
-    def tend_rk(self, s, t, e, cbdt, can, first, carry):
+    def tend_rk_plan(self, dtype, chunks=None):
+        """K2's k-march (ops/kmarch.py) in this case's thermo form (S its
+        one scalar th, counted), the chunk count chosen from the card's
+        resident blocks unless given."""
+        ctx, S = self.ctx, int(self.has_thermo)
+        info = self.k_tend.info(dtype, 0, S)
+        return kmarch.plan("tend_rk", ctx.itot, ctx.jtot, ctx.ktot, S, dtype,
+                           info["blocks_per_sm"] * info["sms"], chunks)
+
+    def tend_rk(self, s, t, e, cbdt, can, first, carry, chunks=None):
         """K2: returns s* = s + cbdt*t_total (zero ghost planes) and, when
-        carry, overwrites the interior of t with can*t_total in place."""
+        carry, overwrites the interior of t with can*t_total in place; with
+        first the carry is not read.  e: the interior eddy viscosity.
+        chunks: force the k-split (checks and timings only)."""
         ctx = self.ctx
         args = (ctx.ks, ctx.dxi, ctx.dyi, self.visc, self.svisc, self.tPr,
                 cbdt, can)
@@ -717,7 +732,8 @@ class Fused:
                     s_star["u"], s_star["v"], s_star["w"], self._th(s_star),
                     t["u"], t["v"], t["w"], self._th(t), self.ct, ctx.itot,
                     ctx.jtot, ctx.ktot, *args, self.fc, ctx.utrans,
-                    ctx.vtrans, int(first), int(carry), int(self.coriolis))
+                    ctx.vtrans, int(first), int(carry), int(self.coriolis),
+                    self.tend_rk_plan(u.dtype, chunks).chunks)
         return s_star
 
     def fold_plan(self, dtype, chunks=None):
@@ -1097,9 +1113,19 @@ class PresGlue:
                    ctx.ktot, *args)
         return out
 
-    def apply(self, p, s, t, dt, can, carry):
+    def apply_plan(self, dtype, carry, chunks=None):
+        """K4 apply's k-march (ops/kmarch.py) in its carry form, the chunk
+        count chosen from the card's resident blocks unless given."""
+        ctx = self.ctx
+        info = self.k_apply.info(dtype, int(carry))
+        return kmarch.plan("pres_apply", ctx.itot, ctx.jtot, ctx.ktot, 0,
+                           dtype, info["blocks_per_sm"] * info["sms"], chunks)
+
+    def apply(self, p, s, t, dt, can, carry, chunks=None):
         """s -= dt grad p and, when carry, t -= can grad p for u, v, w, in
-        place on the interior planes."""
+        place on the interior planes.  The six arrays must be six tensors
+        (each value is read and written once, by one thread).  chunks:
+        force the k-split (checks and timings only)."""
         ctx = self.ctx
         args = (ctx.ks, ctx.dxi, ctx.dyi, dt, can, carry)
         if on_cpu(p):
@@ -1110,9 +1136,13 @@ class PresGlue:
         check([p, self.pc] + fields + carry_t, p.dtype, p.device,
               [(ctx.ktot, ctx.jtot, ctx.itot), (ctx.ktot, NP)]
               + [shape] * (3 + len(carry_t)))
+        arrays = fields + carry_t
+        if len({a.data_ptr() for a in arrays}) < len(arrays):
+            raise ValueError("K4 apply updates different arrays in place")
         tptr = carry_t if carry else [None] * 3
         self.k_apply(p.dtype, p, *fields, *tptr, self.pc, ctx.itot, ctx.jtot,
-                     ctx.ktot, *args[:-1], int(carry))
+                     ctx.ktot, *args[:-1], int(carry),
+                     self.apply_plan(p.dtype, carry, chunks).chunks)
 
 
 # ==========================================================================

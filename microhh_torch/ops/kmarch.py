@@ -1,12 +1,14 @@
 """The k-march plan of the redesigned ring kernels K12 (``advec_mom``), K13
 (``advec_scalars``), K16 (``o4_mom``), K17 (``o4_scalars``), the scalar
 sweep K10 (``tend_scalars``) / K19 (``tend_scalar_acc``), the momentum
-sweep K8/K9 (``tend_uvw``) / K18 (``tend_uvw_acc``) and its dry form K20
-(``tendencies``, th as its one scalar), the folded dry
-sweep K22 (``tend_rk_fold``), the eddy viscosity K1/K14 (``evisc``, one
-body for ``Fused.evisc`` and ``FusedGeneric.evisc_n2``) and the limits
-pass K7 (``limits``, K1's march with its maxima): the host's copy of
-``csrc/kmarch.cuh`` and of the kernels' shared-memory layouts.
+sweep K8/K9 (``tend_uvw``) / K18 (``tend_uvw_acc``) and its dry forms K20
+(``tendencies``) and K2 (``tend_rk``; th as their one scalar), the folded
+dry sweep K22 (``tend_rk_fold``), the eddy viscosity K1/K14 (``evisc``, one
+body for ``Fused.evisc`` and ``FusedGeneric.evisc_n2``), the limits pass K7
+(``limits``, K1's march with its maxima) and the projection's gradient
+update K4 apply (``pres_apply``, a march without shared memory whose tile
+is 32 16-byte pieces wide): the host's copy of ``csrc/kmarch.cuh`` and of
+the kernels' shared-memory layouts and tiles.
 
 A launch is a grid of (tiles in i) x (tiles in j) x chunks blocks; block z
 marches the levels ``chunk_bounds(chunks, ktot)[z]``.  ``plan`` picks the
@@ -17,8 +19,8 @@ minimises waves x (levels a chunk + the planes a chunk reads again to warm
 its column up).  The shared-memory formulas repeat the kernels' own
 (``k12_smem``, ``k13_smem``, ``K16<T>::smem``, ``k17_smem``,
 ``sweep_smem``, ``uvw_smem``, ``fold_smem``, ``evisc_smem``,
-``limits_smem``), and a CPU test holds the constants here to those in the
-sources.
+``limits_smem``; K4 apply has none), and a CPU test holds the constants
+here to those in the sources.
 """
 
 import collections
@@ -46,6 +48,8 @@ UVW_TJ, UVW_HALO, UVW_NF, UVW_R = 8, 1, 4, 5
 K22_TJ, K22_HALO, K22_R, K22_ER, K22_EW, K22_NTC = 8, 2, 6, 4, TI + 2, 32
 # csrc/evisc.cu: EV_TJ, EV_HALO, EV_NF, EV_R, EV_NCP
 EV_TJ, EV_HALO, EV_NF, EV_R, EV_NCP = 8, 1, 3, 5, 8
+# csrc/pres_glue.cu: PA_TJ (tile rows; a row is 32 pieces of 16 bytes)
+PA_TJ = 8
 
 Plan = collections.namedtuple("Plan", "tiles_i tiles_j chunks smem slots waves")
 
@@ -103,10 +107,10 @@ def sweep_smem(S, dtype, rk, advec):
 
 
 def uvw_smem(dtype, S=0):
-    """Dynamic shared memory of a K8/K9, K18 or K20 launch
+    """Dynamic shared memory of a K8/K9, K18, K20 or K2 launch
     (csrc/tend_generic.cu uvw_smem): UVW_R slots of a group, the planes of
-    u, v, w and e (and K20's th, S = 1) side by side, and a staged table
-    row a slot."""
+    u, v, w and e (and K20's and K2's th, S = 1) side by side, and a staged
+    table row a slot."""
     return ((UVW_R * (UVW_NF + S) * slot_size(UVW_TJ, UVW_HALO)
              + UVW_R * NTGP) * _bytes(dtype))
 
@@ -136,6 +140,12 @@ def limits_smem(dtype):
     return evisc_smem(dtype) + 2 * 2 * TI * EV_TJ * _bytes(dtype)
 
 
+def pres_apply_tile_i(dtype):
+    """Values a row of a K4 apply tile (csrc/pres_glue.cu): 32 threads of
+    16 bytes each."""
+    return TI * 16 // _bytes(dtype)
+
+
 # kernel -> shared memory of a launch (S, dtype, advec)
 SMEM = {"advec_mom": lambda S, dtype, advec: k12_smem(dtype),
         "advec_scalars": lambda S, dtype, advec: k13_smem(S, dtype),
@@ -148,23 +158,28 @@ SMEM = {"advec_mom": lambda S, dtype, advec: k12_smem(dtype),
         "tend_uvw": lambda S, dtype, advec: uvw_smem(dtype),
         "tend_uvw_acc": lambda S, dtype, advec: uvw_smem(dtype),
         "tendencies": lambda S, dtype, advec: uvw_smem(dtype, S),
+        "tend_rk": lambda S, dtype, advec: uvw_smem(dtype, S),
+        "pres_apply": lambda S, dtype, advec: 0,
         "tend_rk_fold": lambda S, dtype, advec: fold_smem(dtype),
         "evisc": lambda S, dtype, advec: evisc_smem(dtype),
         "limits": lambda S, dtype, advec: limits_smem(dtype)}
 TILE_J = {"advec_mom": K12_TJ, "advec_scalars": K13_TJ, "o4_mom": K16_TJ,
           "o4_scalars": K17_TJ, "tend_scalars": SW_TJ,
           "tend_scalar_acc": SW_TJ, "tend_uvw": UVW_TJ,
-          "tend_uvw_acc": UVW_TJ, "tendencies": UVW_TJ,
+          "tend_uvw_acc": UVW_TJ, "tendencies": UVW_TJ, "tend_rk": UVW_TJ,
+          "pres_apply": PA_TJ,
           "tend_rk_fold": K22_TJ, "evisc": EV_TJ, "limits": EV_TJ}
+# values a tile's row, where not TI (a function of the dtype)
+TILE_I = {"pres_apply": pres_apply_tile_i}
 # planes a chunk reads again to warm its column up: K12's, K13's, K16's and
 # K17's seven-plane windows; the sweep's column k0-1..k0+1 and the plane
-# past it; the momentum sweep's (K20's too), K1/K14's and K7's groups k0-1
-# and k1; K22's planes k0-2, k0-1 below the chunk (with e(k0-1)) and w's
-# tendency at k1 above it
+# past it; the momentum sweep's (K20's and K2's too), K1/K14's and K7's
+# groups k0-1 and k1; K22's planes k0-2, k0-1 below the chunk (with
+# e(k0-1)) and w's tendency at k1 above it; K4 apply's p at k0-1
 WARM = {"advec_mom": 6, "advec_scalars": 6, "o4_mom": 6, "o4_scalars": 6,
         "tend_scalars": 2, "tend_scalar_acc": 2, "tend_uvw": 2,
-        "tend_uvw_acc": 2, "tendencies": 2, "tend_rk_fold": 2, "evisc": 2,
-        "limits": 2}
+        "tend_uvw_acc": 2, "tendencies": 2, "tend_rk": 2, "tend_rk_fold": 2,
+        "evisc": 2, "limits": 2, "pres_apply": 1}
 
 
 def chunk_bounds(chunks, ktot):
@@ -191,11 +206,12 @@ def plan(kernel, itot, jtot, ktot, S, dtype, slots, chunks=None,
     K16 ("o4_mom"), K17 ("o4_scalars", S scalars), the scalar sweep
     ("tend_scalars" K10, "tend_scalar_acc" K19; S scalars, advec its flag),
     the momentum sweep ("tend_uvw" K8/K9, "tend_uvw_acc" K18, "tendencies"
-    K20; S 1 with th, 0 without), K22
-    ("tend_rk_fold"), K1/K14 ("evisc") or K7 ("limits"): tiles, chunk count
-    (chosen from slots, the card's resident blocks, unless given), shared
-    memory a block and the waves it makes."""
-    tiles_i = -(-itot // TI)
+    K20, "tend_rk" K2; S 1 with th, 0 without), K22 ("tend_rk_fold"),
+    K1/K14 ("evisc"), K7 ("limits") or K4 apply ("pres_apply"): tiles,
+    chunk count (chosen from slots, the card's resident blocks, unless
+    given), shared memory a block and the waves it makes."""
+    tile_i = TILE_I[kernel](dtype) if kernel in TILE_I else TI
+    tiles_i = -(-itot // tile_i)
     tiles_j = -(-jtot // TILE_J[kernel])
     if chunks is None:
         chunks = choose_chunks(tiles_i * tiles_j, ktot, slots, WARM[kernel])

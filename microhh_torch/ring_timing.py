@@ -2,12 +2,12 @@
 the momentum sweep K8/K9/K18 on one card, the kernels that share the
 sweep's scalar point function (K2, K22, K20), K11, the warm-rain
 column sweep, the eddy viscosity K1/K14, the limits pass K7, K15 (the
-scalar sweep at one scalar), the Thomas solve K3 and K21, and the device
-time a step of the cells without the RK fold.
+scalar sweep at one scalar), the Thomas solve K3 and K21, the device
+time a step of the cells without the RK fold, K2 and K4 apply.
 
     python3 -m microhh_torch.ring_timing [--out FILE] [--label NAME]
         [--groups rings,s_tend,fold,micro2,evisc,limits,scalar_rk,tdma,
-                  dry,steps]
+                  dry,steps,rk,apply]
     python3 -m microhh_torch.ring_timing --compare PARENT_FILE FILE
 
 At the four shapes of their main paths: weakscaling 512x256x1024 float32
@@ -68,10 +68,21 @@ sullivan2011 512^3, K3's launch in place on the spectrum.  K20 (the
 ``dry`` group, ``dry_rows``) at sullivan2011 512^3 and 512x512x64 in
 float32, 512^3 in float64 and the neutral Ekman LES 768x384x288 without
 th, each on the substep without the RK fold, with its plan, occupancy,
-one-chunk time and the SASS count of its per-level loop.
+one-chunk time and the SASS count of its per-level loop.  K2 (the ``rk``
+group, ``rk_rows``) at drycblles 512^3 and 256^3 in float32 and float64
+and the neutral Ekman LES 768x384x288 (no th), each on the dry path's RK
+form without the folds (``build_step(fold=False)``): a middle substep with
+its plan, occupancy, one-chunk time and the SASS count of its per-level
+loop, and the first (no carry read) and last (no carry written) substeps
+beside it.  K4 apply (the ``apply`` group, ``apply_rows``) at drycblles
+512^3 in float32 and float64, rico 384^3, the neutral Ekman LES
+768x384x288 and jaenschwalde's 1024x256x256, with the carry and without,
+with its plan, occupancy and one-chunk time.
 The ``steps`` group (``step_rows``) profiles two steps of jaenschwalde and
-of sullivan2011 512x512x64 without the RK fold (chip_smoke.py's builders
-of the same tree) and sums the device time by chip_smoke.py's PARTS.
+of sullivan2011 512x512x64 without the RK fold, of drycblles 512^3 on K22
+and of drycblles 256^3 with ``fold=False`` (K1 -> K2 -> K4 rhs)
+(chip_smoke.py's builders of the same tree) and sums the device time by
+chip_smoke.py's PARTS.
 Each time is the mean of 10 launches by
 CUDA events after one warm-up launch; the stencil kernels run on seeded
 random fields.  Beside each time: the bound (each input and output once
@@ -120,9 +131,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the timed groups: K16, K17, K12, K13, K10, K19, K8/K9 and K18; the
 # kernels that call s_tend; K22 on its paths; K11; K1/K14 (with K7); K7
 # (with K1/K14); K15; K3 and K21; K20; the device time a step of the
-# cells without the RK fold
+# cells without the RK fold; K2; K4 apply
 GROUPS = ("rings", "s_tend", "fold", "micro2", "evisc", "limits",
-          "scalar_rk", "tdma", "dry", "steps")
+          "scalar_rk", "tdma", "dry", "steps", "rk", "apply")
 REPS = 10
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 33.5e12}
@@ -228,8 +239,9 @@ LIMITS_SHAPES = [("drycblles", "drycblles", (512, 512, 512), torch.float32,
                  ("andren1994 less s", "andren1994", (768, 384, 288),
                   torch.float32, {})]
 # the CUDA functions of the kernels that call s_tend (K20's the momentum
-# sweep's tend_uvw_kernel<T, false, true, TH>)
-S_TEND_FUNCTIONS = {"tend_rk": "tend_rk_kernel",
+# sweep's tend_uvw_kernel<T, false, true, TH>, K2's its <T, true, true,
+# TH>)
+S_TEND_FUNCTIONS = {"tend_rk": "tend_uvw_kernel",
                     "tend_rk_fold": "tend_rk_fold_kernel",
                     "tendencies": "tend_uvw_kernel"}
 # K20's shapes (the ``dry`` group): (label, case, shape, dtype), each on
@@ -242,16 +254,38 @@ DRY_SHAPES = [("sullivan2011 unfolded", "sullivan2011", (512, 512, 512),
                torch.float64),
               ("andren1994 less s unfolded", "andren1994", (768, 384, 288),
                torch.float32)]
+# K2's shapes (the ``rk`` group): (label, case, shape, dtype), each on the
+# dry path's RK form without the folds (build_step(fold=False))
+RK_SHAPES = [("drycblles", "drycblles", (512, 512, 512), torch.float32),
+             ("drycblles", "drycblles", (256, 256, 256), torch.float32),
+             ("drycblles", "drycblles", (512, 512, 512), torch.float64),
+             ("drycblles", "drycblles", (256, 256, 256), torch.float64),
+             ("andren1994 less s", "andren1994", (768, 384, 288),
+              torch.float32)]
+# K4 apply's CUDA function (pres_apply_kernel<T, CARRY>) and its shapes
+# (the ``apply`` group): (label, case, shape, dtype); the kernel sees only
+# the shape (jaenschwalde's runs on the rico case at its shape)
+APPLY = "pres_apply_kernel"
+APPLY_SHAPES = [("drycblles", "drycblles", (512, 512, 512), torch.float32),
+                ("rico", "rico", (384, 384, 384), torch.float32),
+                ("andren1994 less s", "andren1994", (768, 384, 288),
+                 torch.float32),
+                ("jaenschwalde", "rico", (1024, 256, 256), torch.float32),
+                ("drycblles", "drycblles", (512, 512, 512), torch.float64)]
 # K21's shapes (in the ``tdma`` group): (label, case, shape, dtype);
 # jaenschwalde's runs on the rico case at its shape (K21 sees the shape)
 TDMA_RI_SHAPES = [("jaenschwalde", "rico", (1024, 256, 256), torch.float32),
                   ("sullivan2011", "sullivan2011", (512, 512, 512),
                    torch.float32)]
 # the cells whose device time a step the ``steps`` group profiles: (label,
-# chip_smoke.py builder, (itot, jtot), ktot, build_step options)
+# chip_smoke.py builder, (itot, jtot), ktot, build_step options); the
+# drycblles cells run K4 apply on K22's path and K2 with it at 256^3
 STEP_CELLS = [("jaenschwalde", "build_jaenschwalde", (1024, 256), 256, {}),
               ("sullivan2011 unfolded", "build_sullivan", (512, 512), 64,
-               {"unfolded": True})]
+               {"unfolded": True}),
+              ("drycblles", "build_drycblles", (512, 512), 512, {}),
+              ("drycblles fold=False", "build_drycblles", (256, 256), 256,
+               {"fold": False})]
 
 
 def max_sm_clock_ghz():
@@ -1078,6 +1112,136 @@ def dry_function(dtype, thermo):
                                      "true" if thermo else "false")
 
 
+def rk_function(dtype, thermo):
+    """The ptxas and SASS key of the K2 instance a launch takes: the
+    momentum sweep's tend_uvw_kernel<T, true, true, TH>."""
+    t = "float" if dtype == torch.float32 else "double"
+    return "%s<%s,true,true,%s>" % (S_TEND_FUNCTIONS["tend_rk"], t,
+                                    "true" if thermo else "false")
+
+
+def rk_extra(row, fz, dtype, shape, fn, loops, clock_ghz, device):
+    """K2's row completed: registers, shared memory and blocks an SM from
+    the card, the plan's chunks, blocks and waves, its time with one chunk
+    and, where the SASS holds its per-level loop, the loop's count and
+    issue time (fold_issue)."""
+    from .ops import kmarch
+    pl = fz.tend_rk_plan(dtype)
+    row.update(fz.k_tend.info(dtype, 0, int(fz.has_thermo)),
+               chunks=pl.chunks, blocks=pl.tiles_i * pl.tiles_j * pl.chunks,
+               waves=pl.waves, ms_one_chunk=events_ms(lambda: fn(chunks=1)))
+    if loops and row["function"] in loops:
+        row.update(fold_issue(loops[row["function"]], shape, kmarch.UVW_TJ,
+                              clock_ghz, sms_of(device)) or {})
+    return row
+
+
+def rk_rows(label, case, shape, dtype, ptx, card, loops=None,
+            clock_ghz=None, device="cuda"):
+    """K2 (Fused.tend_rk) on a dry model's RK form without the folds, on
+    seeded random fields: a middle substep (the carries read and written;
+    its row's bound and k-march columns, rk_extra), the first (no carry
+    read) and the last (no carry written) beside it."""
+    itot, jtot, ktot = shape
+    n = itot * jtot * ktot
+    fb = n * torch.finfo(dtype).bits // 8
+    with tempfile.TemporaryDirectory() as workdir:
+        m = build(case, itot, jtot, ktot, dtype, workdir, device, fold=False)
+        fz, ctx = m.fused, m.ctx
+        gen = torch.Generator(device=device).manual_seed(itot + ktot)
+
+        def rnd(scale=1., k=ctx.kcells):
+            return scale * torch.randn((k, jtot, itot), dtype=dtype,
+                                       device=device, generator=gen)
+
+        names = list(m.fields.prognostic_names)
+        nf = len(names)
+        s = {nm: rnd() for nm in names}
+        t = {nm: rnd(1e-3) for nm in names}
+        e = rnd(k=ktot).abs()
+
+        def fn(first=False, carry=True, **kw):
+            fz.tend_rk(s, t, e, 0.5, -5. / 9. if carry else 0., first, carry,
+                       **kw)
+
+        nbytes = (4 * nf + 1) * fb
+        by_bytes = 1e3 * nbytes / PEAK_BYTES_S
+        by_ops = 1e3 * FLOPS["tend_rk"] * n / PEAK_FLOPS[dtype]
+        key = rk_function(dtype, fz.has_thermo)
+        row = {"label": label, "kernel": "tend_rk", "shape": list(shape),
+               "dtype": str(dtype)[6:], "thermo": fz.has_thermo,
+               "coriolis": fz.coriolis, "ms": events_ms(fn),
+               "bound_ms": max(by_bytes, by_ops),
+               "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+               "ops_per_point": FLOPS["tend_rk"], "gbytes": nbytes / 1e9,
+               "ptxas": ptx.get(key), "function": key, "card": card,
+               # the first substep reads no carry, the last writes none
+               "ms_first": events_ms(lambda: fn(first=True)),
+               "ms_last": events_ms(lambda: fn(carry=False)),
+               "bound_ms_first_last": 1e3 * (3 * nf + 1) * fb / PEAK_BYTES_S}
+        rk_extra(row, fz, dtype, shape, fn, loops, clock_ghz, device)
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        print(json.dumps(row), flush=True)
+        del m, s, t, e
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return [row]
+
+
+def apply_function(dtype, carry):
+    """The ptxas key of the K4 apply instance a launch takes:
+    pres_apply_kernel<T, CARRY>."""
+    t = "float" if dtype == torch.float32 else "double"
+    return "%s<%s,%s>" % (APPLY, t, "true" if carry else "false")
+
+
+def apply_rows(label, case, shape, dtype, ptx, card, device="cuda"):
+    """K4 apply (PresGlue.apply) on seeded random fields, with the carry
+    (p and six arrays: 13 values a point) and without (the last substep:
+    7); beside each its registers and blocks an SM from the card, the
+    plan's chunks, blocks and waves and its time with one chunk."""
+    itot, jtot, ktot = shape
+    n = itot * jtot * ktot
+    fb = n * torch.finfo(dtype).bits // 8
+    rows = []
+    with tempfile.TemporaryDirectory() as workdir:
+        m = build(case, itot, jtot, ktot, dtype, workdir, device)
+        gl, ctx = m.glue, m.ctx
+        gen = torch.Generator(device=device).manual_seed(itot + ktot)
+
+        def rnd(scale=1., k=ctx.kcells):
+            return scale * torch.randn((k, jtot, itot), dtype=dtype,
+                                       device=device, generator=gen)
+
+        s = {nm: rnd() for nm in ("u", "v", "w")}
+        t = {nm: rnd(1e-3) for nm in ("u", "v", "w")}
+        p = rnd(k=ktot)
+        for carry in (True, False):
+            def fn(carry=carry, **kw):
+                gl.apply(p, s, t, 1e-3, -5e-4 if carry else 0., carry, **kw)
+
+            nbytes = (13 if carry else 7) * fb
+            key = apply_function(dtype, carry)
+            row = {"label": label, "kernel": "pres_apply",
+                   "shape": list(shape), "dtype": str(dtype)[6:],
+                   "carry": carry, "ms": events_ms(fn),
+                   "bound_ms": 1e3 * nbytes / PEAK_BYTES_S,
+                   "bound_by": "bytes", "gbytes": nbytes / 1e9,
+                   "ptxas": ptx.get(key), "function": key, "card": card}
+            pl = gl.apply_plan(dtype, carry)
+            row.update(gl.k_apply.info(dtype, int(carry)), chunks=pl.chunks,
+                       blocks=pl.tiles_i * pl.tiles_j * pl.chunks,
+                       waves=pl.waves,
+                       ms_one_chunk=events_ms(lambda: fn(chunks=1)))
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            print(json.dumps(row), flush=True)
+            rows.append(row)
+        del m, s, t, p
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return rows
+
+
 def uvw_function(dtype, acc):
     """The ptxas and SASS key of the K8/K9 (acc False) or K18 instance:
     tend_uvw_kernel<T, RK, false, false>."""
@@ -1244,8 +1408,8 @@ def s_tend_rows(label, case, shape, step, ptx, card, device="cuda",
         t = {nm: rnd(1e-3) for nm in names}
         nf = len(names)
         e = rnd(k=ktot).abs()
-        calls = [("tend_rk", lambda: fz.tend_rk(s, t, e, 0.5, -5. / 9.,
-                                                False, True),
+        calls = [("tend_rk", lambda **kw: fz.tend_rk(
+                     s, t, e, 0.5, -5. / 9., False, True, **kw),
                   (4 * nf + 1) * fb),
                  ("tend_rk_fold", lambda **kw: fz.tend_rk_fold(
                      s, t, None, 0.5, -5. / 9., 2., False, True, **kw),
@@ -1253,10 +1417,11 @@ def s_tend_rows(label, case, shape, step, ptx, card, device="cuda",
         for name, fn, nbytes in calls:
             by_bytes = 1e3 * nbytes / PEAK_BYTES_S
             by_ops = 1e3 * FLOPS[name] * n / PEAK_FLOPS[dtype]
-            key = "%s<float>" % S_TEND_FUNCTIONS[name]
             if name == "tend_rk_fold":
                 key = fold_function(dtype, fz.has_thermo,
                                     set(ptx) | set(loops or ()))
+            else:
+                key = rk_function(dtype, fz.has_thermo)
             row = {"label": label, "kernel": name, "shape": list(shape),
                    "dtype": "float32", "ms": events_ms(fn),
                    "bound_ms": max(by_bytes, by_ops),
@@ -1266,6 +1431,8 @@ def s_tend_rows(label, case, shape, step, ptx, card, device="cuda",
             if name == "tend_rk_fold":
                 fold_extra(row, fz, dtype, shape, fn, loops, clock_ghz,
                            device)
+            else:
+                rk_extra(row, fz, dtype, shape, fn, loops, clock_ghz, device)
             row["bound_share"] = row["bound_ms"] / row["ms"]
             print(json.dumps(row), flush=True)
             rows.append(row)
@@ -1563,6 +1730,11 @@ def main():
     for label, builder, n, ktot, step in (
             STEP_CELLS if "steps" in groups else ()):
         rows += step_rows(label, builder, n, ktot, step, card)
+    for label, case, shape, dtype in RK_SHAPES if "rk" in groups else ():
+        rows += rk_rows(label, case, shape, dtype, ptx, card, loops, clock)
+    for label, case, shape, dtype in (
+            APPLY_SHAPES if "apply" in groups else ()):
+        rows += apply_rows(label, case, shape, dtype, ptx, card)
     for label, shape, dtype in MICRO2_SHAPES if "micro2" in groups else ():
         with tempfile.TemporaryDirectory() as workdir:
             m = build("rico", *shape, dtype, workdir)

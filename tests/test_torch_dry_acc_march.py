@@ -106,10 +106,10 @@ def test_constants_are_the_source():
                   ": mhh::tend_uvw_info<T, false, true, false>(out);",
                   "double vtrans, int coriolis, int chunks,"):
         assert entry in flat
-    # the ring K20 was is gone from tend_rk.cu
-    with open(os.path.join(ROOT, "microhh_torch", "csrc", "tend_rk.cu")) as f:
-        rk = f.read()
-    assert "tendencies_kernel" not in rk and "mhh_tendencies" not in rk
+    # the ring K20 was is gone, and with K2 on this march tend_rk.cu too
+    assert not os.path.exists(os.path.join(ROOT, "microhh_torch", "csrc",
+                                           "tend_rk.cu"))
+    assert "tendencies_kernel" not in flat
 
 
 def test_plan_at_its_shapes():
@@ -190,9 +190,11 @@ def test_wrapper_plans_and_forces(thermo, monkeypatch):
 # --------------------------------------------------------------------------
 
 def dry_march(u, v, w, th, e, tu, tv, tw, tth, ct, ks, dxi, dyi, visc,
-              svisc, tPr, fc, utrans, vtrans, coriolis, chunks, broken=None):
+              svisc, tPr, fc, utrans, vtrans, coriolis, chunks, broken=None,
+              rk=None):
     """A torch emulation of csrc/tend_generic.cu tend_uvw_kernel<T, false,
-    true, TH> (TH where th is given): every chunk [k0, k1) of every
+    true, TH> (TH where th is given) or, with rk, of K2's <T, true, true,
+    TH> (below): every chunk [k0, k1) of every
     (UVW_TJ, 32) tile (its virtual points wrap around the plane) issues
     group k0-1 (planes k0-1 of u, v, w, e and th, gathered with a halo of
     one, wrapped) into slot 0 and groups k0 .. k0+2 into slots 1-3, a
@@ -206,13 +208,40 @@ def dry_march(u, v, w, th, e, tu, tv, tw, tth, ct, ks, dxi, dyi, visc,
     each chunk's k0), "row_next" (row k+1 read at level k), "halo_clamp"
     (the halo clamped to the plane, not wrapped), "unguarded" (a partial
     tile's wrapped points write too), "carry_next" (the carries of level
-    k+1 read at level k)."""
+    k+1 read at level k).
+
+    rk: K2's RK form, a dict of its s* (us, vs, ws, ths; th's None without
+    th), cbdt, can, first and carry.  e is then the interior eddy viscosity
+    and the reads are clamped: group p holds plane clamp(p, 0, ktot-1) past
+    ks of u, v and th, clamp(p, 0, ktot) past ks of w and clamp(p, 0,
+    ktot-1) of e; the table's column fold is left out (the sponge stands
+    in); s* = s + cbdt t_total is written, the carry can t_total when carry,
+    and with first no carry is read (0).  Its rules to break: "uv_bottom"
+    (u's, v's and th's planes not clamped at the bottom), "uv_top" (nor at
+    the top), "w_top" (w's clamped to ktot-1 like u's), "e_index" (e read
+    past ks), "first_read" (the carries read with first), "dry_fold" (the
+    column fold applied under DRY)."""
     kcells, jtot, itot = u.shape
     ktot = ct.shape[0]
     TI, TJ, R = kmarch.TI, kmarch.UVW_TJ, kmarch.UVW_R
     thermo = th is not None
     fields = (u, v, w, e) + ((th,) if thermo else ())
     carries = (tu, tv, tw) + ((tth,) if thermo else ())
+    if rk is not None:
+        stars = (rk["us"], rk["vs"], rk["ws"]) + ((rk["ths"],) if thermo
+                                                  else ())
+
+    def planes(p):
+        """The plane of each field that group p holds."""
+        if rk is None:
+            return [ks + p] * len(fields)
+        lo = -1 if broken == "uv_bottom" else 0
+        hi = ktot if broken == "uv_top" else ktot - 1
+        pa = ks + min(max(p, lo), hi)
+        pw = ks + min(max(p, 0), ktot - 1 if broken == "w_top" else ktot)
+        pe = (min(max(ks + p, 0), ktot - 1) if broken == "e_index"
+              else min(max(p, 0), ktot - 1))
+        return [pa, pa, pw, pe, pa][:len(fields)]
     for k0, k1 in kmarch.chunk_bounds(chunks, ktot):
         top = k1 - 1 if broken == "no_plane_k1" else k1
         for j0 in range(0, jtot, TJ):
@@ -237,12 +266,16 @@ def dry_march(u, v, w, th, e, tu, tv, tw, tth, ct, ks, dxi, dyi, visc,
 
                 def issue(p, sl):
                     if p <= top:
-                        ring[sl] = torch.stack([f[ks + p][rj][:, ci]
-                                                for f in fields])
+                        ring[sl] = torch.stack([f[q][rj][:, ci] for f, q
+                                                in zip(fields, planes(p))])
                         if k0 <= p < k1:
                             rows[sl] = ct[p]
 
                 def carry_at(k):
+                    if (rk is not None and rk["first"]
+                            and broken != "first_read"):
+                        return [torch.zeros(TJ, TI, dtype=u.dtype)
+                                for t in carries]
                     return [t[ks + k][rj[1:-1]][:, ci[1:-1]]
                             for t in carries]
 
@@ -271,6 +304,13 @@ def dry_march(u, v, w, th, e, tu, tv, tw, tth, ct, ks, dxi, dyi, visc,
                     wt = F._w_tend(c, dxi, dyi, visc, u_dn, uc, v_dn, vc,
                                    w_dn, wc, w_up, e_dn, ec)
                     facz = c(F.T_FACZ)
+                    if rk is not None and broken == "dry_fold":
+                        ut = ut + c(F.T_ADDU) - facz * uc
+                        vt = vt + c(F.T_ADDV) - facz * vc
+                        wdn, wup = c(F.T_WLSDN), c(F.T_WLSUP)
+                        ut = ut + wdn * (uc - u_dn) + wup * (u_up - uc)
+                        vt = vt + wdn * (vc - v_dn) + wup * (v_up - vc)
+                        wt = wt - c(F.T_FACZH) * wc
                     ut = ut - facz * (uc - c(F.T_UREF))
                     vt = vt - facz * (vc - c(F.T_VREF))
                     wt = wt - c(F.T_FACZH) * wc
@@ -278,6 +318,7 @@ def dry_march(u, v, w, th, e, tu, tv, tw, tth, ct, ks, dxi, dyi, visc,
                         cu, cv = F._coriolis(uc, vc, c, fc, utrans, vtrans)
                         ut, vt = ut + cu, vt + cv
                     tends = [ut, vt, wt]
+                    now = [uc, vc, wc]
                     if thermo:
                         a_dn, ac, a_up = (x[4][None] for x in (dn, cn, up))
                         threfh = c(F.T_THREFH)
@@ -286,11 +327,18 @@ def dry_march(u, v, w, th, e, tu, tv, tw, tth, ct, ks, dxi, dyi, visc,
                         tht = F._s_tend(c, dxi, dyi, svisc, tPr, uc, vc, wc,
                                         w_up, a_dn, ac, a_up, e_dn, ec, e_up)
                         tends.append(tht - facz * (ac - c(F.T_SREF)))
+                        now.append(ac)
                     if k == (k0 if broken == "local_wall" else 0):
                         wt.zero_()
                     for n, tend in enumerate(tends):
                         tt = (cur[n] + tend[0, 1:-1, 1:-1])[mask]
-                        carries[n][ks + k][jj, ii] = tt
+                        if rk is None:
+                            carries[n][ks + k][jj, ii] = tt
+                            continue
+                        a1 = now[n][0, 1:-1, 1:-1][mask]
+                        stars[n][ks + k][jj, ii] = a1 + rk["cbdt"] * tt
+                        if rk["carry"]:
+                            carries[n][ks + k][jj, ii] = rk["can"] * tt
                     cur = nxt
                     sm = sc
 

@@ -98,7 +98,7 @@ def test_ptxas_info_reads_template_arguments_and_registers():
                                         | set(R.S_TEND_FUNCTIONS.values())
                                         | set(R.TDMA.values())
                                         | {R.SWEEP, R.MICRO2, R.UVW,
-                                           R.EVISC, R.LIMITS}))
+                                           R.EVISC, R.LIMITS, R.APPLY}))
 def test_timed_functions_are_kernels_of_the_sources(name):
     assert name in _globals()
 
@@ -163,16 +163,15 @@ def test_s_tend_rows_run_on_the_cpu(label, case, shape, step, one_call,
             "sullivan2011": ["tendencies"]}[case]
     assert [r["kernel"] for r in rows] == want
     for r in rows:
-        # K22 is templated on its thermo flag, K20 is the momentum sweep's
-        # instance without RK with its DRY and TH flags
+        # K22 is templated on its thermo flag, K20 and K2 are the momentum
+        # sweep's instances with its DRY and TH flags, without RK and with
         want = {"tend_rk_fold": "<float,true>",
-                "tendencies": "<float,false,true,true>"}.get(r["kernel"],
-                                                            "<float>")
+                "tendencies": "<float,false,true,true>",
+                "tend_rk": "<float,true,true,true>"}[r["kernel"]]
         assert r["function"] == R.S_TEND_FUNCTIONS[r["kernel"]] + want
         assert r["bound_ms"] > 0 and r["shape"] == [16, 8, 12]
-        if r["kernel"] in ("tend_rk_fold", "tendencies"):
-            assert r["blocks_per_sm"] == 3 and r["chunks"] >= 1
-            assert r["ms_one_chunk"] == 1.0
+        assert r["blocks_per_sm"] == 3 and r["chunks"] >= 1
+        assert r["ms_one_chunk"] == 1.0
 
 
 # a cuobjdump -sass listing in the form the CUDA toolkit prints it: two
@@ -850,6 +849,69 @@ def test_dry_rows_run_on_the_cpu(label, case, shape, dtype, one_call,
     assert set(asked) == {("tendencies", 0, int(thermo))}
 
 
+@pytest.mark.parametrize("label,case,shape,dtype", R.RK_SHAPES,
+                         ids=["%s %dx%dx%d %s" % (s[0], *s[2], str(s[3])[6:])
+                              for s in R.RK_SHAPES])
+def test_rk_rows_run_on_the_cpu(label, case, shape, dtype, one_call,
+                                monkeypatch):
+    """K2's row at a tiny shape of each of its cases, on the dry path's RK
+    form without the folds: its thermo form (th on drycblles, none on the
+    neutral Ekman LES), the function of that form, the plan's chunks and
+    the occupancy asked in that form, the one-chunk time and the bytes of a
+    middle substep (u, v, w, (th,) e read, the carries read and written,
+    s* written) and of the first and last."""
+    from microhh_torch import kernels
+    torch.manual_seed(3)
+    asked = []
+    monkeypatch.setattr(kernels.Kernel, "info",
+                        lambda self, *a: asked.append((self.name,) + a[1:])
+                        or INFO)
+    (r,) = R.rk_rows(label, case, (16, 8, 12), dtype, {}, "cpu",
+                     device="cpu")
+    thermo = case == "drycblles"
+    t = "float" if dtype == torch.float32 else "double"
+    assert r["kernel"] == "tend_rk" and r["thermo"] == thermo
+    assert r["function"] == "tend_uvw_kernel<%s,true,true,%s>" % (
+        t, "true" if thermo else "false")
+    assert r["blocks_per_sm"] == 3 and r["chunks"] >= 1
+    assert r["ms_one_chunk"] == r["ms_first"] == r["ms_last"] == 1.0
+    nf = 4 if thermo else 3
+    fb = 16 * 8 * 12 * torch.finfo(dtype).bits / 8
+    assert r["gbytes"] == pytest.approx((4 * nf + 1) * fb / 1e9)
+    assert r["bound_ms_first_last"] == pytest.approx(
+        1e3 * (3 * nf + 1) * fb / R.PEAK_BYTES_S)
+    assert set(asked) == {("tend_rk", 0, int(thermo))}
+
+
+@pytest.mark.parametrize("label,case,shape,dtype", R.APPLY_SHAPES,
+                         ids=["%s %dx%dx%d %s" % (s[0], *s[2], str(s[3])[6:])
+                              for s in R.APPLY_SHAPES])
+def test_apply_rows_run_on_the_cpu(label, case, shape, dtype, one_call,
+                                   monkeypatch):
+    """K4 apply's rows at a tiny shape of each of its cases: with the carry
+    (13 values a point) and without (7), the function of each form, the
+    plan's chunks and the occupancy asked in each form."""
+    from microhh_torch import kernels
+    torch.manual_seed(3)
+    asked = []
+    monkeypatch.setattr(kernels.Kernel, "info",
+                        lambda self, *a: asked.append((self.name,) + a[1:])
+                        or INFO)
+    rows = R.apply_rows(label, case, (16, 8, 12), dtype, {}, "cpu",
+                        device="cpu")
+    t = "float" if dtype == torch.float32 else "double"
+    fb = 16 * 8 * 12 * torch.finfo(dtype).bits / 8
+    assert [r["carry"] for r in rows] == [True, False]
+    for r, carry, values in zip(rows, (True, False), (13, 7)):
+        assert r["kernel"] == "pres_apply" and r["bound_by"] == "bytes"
+        assert r["function"] == "pres_apply_kernel<%s,%s>" % (
+            t, "true" if carry else "false")
+        assert r["gbytes"] == pytest.approx(values * fb / 1e9)
+        assert r["blocks_per_sm"] == 3 and r["chunks"] >= 1
+        assert r["ms_one_chunk"] == 1.0
+    assert set(asked) == {("pres_apply", 1), ("pres_apply", 0)}
+
+
 def test_step_rows_run_on_the_cpu():
     """The steps group's row on a tiny sullivan2011 without the RK fold on
     the CPU: the profiler holds no device time there, so busy is zero and
@@ -863,15 +925,16 @@ def test_step_rows_run_on_the_cpu():
 
 
 def test_step_cells_are_chip_smoke_builders():
-    """The steps group builds its cells with chip_smoke.py's builders, on
+    """The steps group builds its cells with chip_smoke.py's builders: on
     the substep without the RK fold (jaenschwalde's own, sullivan2011
-    forced onto it)."""
+    forced onto it), and drycblles on K22 and with fold=False (K2)."""
     import chip_smoke
     for label, builder, n, ktot, step in R.STEP_CELLS:
         assert callable(getattr(chip_smoke, builder))
         assert len(n) == 2 and ktot > 0
-    assert [c[4] for c in R.STEP_CELLS] == [{}, {"unfolded": True}]
-    assert {"dry", "steps", "tdma"} <= set(R.GROUPS)
+    assert [c[4] for c in R.STEP_CELLS] == [{}, {"unfolded": True}, {},
+                                            {"fold": False}]
+    assert {"dry", "steps", "tdma", "rk", "apply"} <= set(R.GROUPS)
 
 
 def test_compare_digests_holds_two_builds():
