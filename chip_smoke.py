@@ -101,6 +101,12 @@ Phases (any failure exits non-zero and prints no result line):
      with drops crossing nsed - 1.5 cells), on rico grids of 12, 32, 45 and
      70 levels (shorter than K11's 16-level window, two windows, not a
      multiple of it) with ragged i edges, float64 and float32;
+  3d. K1 (clamped, th), K14 and K7 where N2/tPr is each level's mean
+     strain rate squared (times 0.7 to 1.3; EVISC_CRITICAL), on drycblles
+     and SBL_Smag at 48^2x16: the float32 kernel and the float32 plain
+     version each against the float64 plain version on the same inputs,
+     every point within CRIT_ROUNDINGS eps32 (1 + cond) of its value, cond
+     its strain2 / |strain2 - N2/tPr| (check_evisc_critical);
   4. two whole RK3 steps on the card against the same two steps on the CPU
      (plain versions), <= 1e-10, float64, eleven cases: a 32^3 drycblles on
      K22 and with build_step(fold=False), a 16^2x24 rico (swadvec=2), a
@@ -108,6 +114,16 @@ Phases (any failure exits non-zero and prints no result line):
      16^3 moser180, a 16x8x32 weakscaling, a 32x16x24 jaenschwalde, a 32^3
      sullivan2011 on K22 and with build_step(unfolded=True), and a 48x24x24
      neutral Ekman LES;
+  4b. statistics and budgets (check_stats): drycblles 32^3 as its ini is
+     written (endtime cut to 900 s: four samples) and moser180 at 16^3 with
+     its swbudget=4 (endtime 120 s: three samples) through run_case in
+     float64, on the card and on the CPU: the two statistics files hold the
+     same samples, variables, groups and dims and agree to 1e-10 of each
+     profile's scale (stats_agree, stats_scales); the writer the machine
+     has (netCDF-4 with h5py, else netCDF-3 through scipy) is printed;
+  4c. the ms of one Stats.maybe_exec (CUDA events, median of 5) for
+     drycblles 512^3 float32 and moser180 256x192x128 float64 with its
+     budget (time_stats); the timed phases below run with output off;
   5. the drycblles LES at 512^3 float32 through Model.run(max_iters=12), on
      the folded dry sweep K22: its kernels launched, finite fields, status
      DIV <= 1e-4; then the step time (median of 10 steps after 2 warm-up
@@ -522,6 +538,115 @@ def rel_err(a, b):
     """max |a - b| over the maximum of |b|."""
     a, b = a.double(), b.double()
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
+
+
+def read_stats(path):
+    """A statistics file as {"time", "iter", (group, name): array}, in
+    either of the port's formats (``microhh_torch.stats.open_stats``)."""
+    from microhh_torch.stats import open_stats
+    f = open_stats(path)
+    out = {"time": np.asarray(f.variables["time"][:]),
+           "iter": np.asarray(f.variables["iter"][:]),
+           "z": np.asarray(f.variables["z"][:])}
+    for gname, g in f.groups.items():
+        for name, v in g.variables.items():
+            out[gname, name] = (tuple(v.dimensions),
+                                np.asarray(v[:], dtype=np.float64))
+    f.close()
+    return out
+
+
+FILL = 9.969209968386869e+36
+
+
+def stats_scales(ref):
+    """Each profile's scale: the magnitude of the values its horizontal
+    mean sums, from the reference file itself.  A field f's scale F is
+    max(|<f>| + sqrt(<f'2>)) over levels and samples, its fluctuation's G =
+    max sqrt(<f'2>), at least 1e-5 F; a moment n scales as G^n, a resolved flux f_w as F_f
+    F_w, a gradient as F_f / min dz, a diffusive flux as that times the
+    largest eddy viscosity (or its own maximum), a total flux as the larger
+    of its two parts.  Anything else (budget terms by their group's largest
+    term, surface series, cloud diagnostics) by its own maximum.  Means of
+    raw fields (th ~ 300 K) and odd moments cancel in the sum, so the
+    scale of their summands, not of the result, measures rounding."""
+    items = {k: v[1] for k, v in ref.items() if isinstance(k, tuple)}
+    vals = {name: a for (_, name), a in items.items()}
+
+    def amax(a):
+        a = a[np.abs(a) < 1e30]
+        return float(np.abs(a).max()) if a.size else 0.
+
+    F, G = {}, {}
+    for name, a in vals.items():
+        if name + "_2" in vals:
+            var = np.clip(vals[name + "_2"], 0., None)
+            var = np.where(np.abs(var) < 1e30, var, 0.)
+            F[name] = amax(np.abs(a) + np.sqrt(var))
+            # a fluctuation under 1e-5 of its field is the field's rounding
+            G[name] = max(float(np.sqrt(var).max()), 1e-5 * F[name])
+    dzi = 1. / np.diff(ref["z"]).min() if len(ref["z"]) > 1 else 1.
+    evisc = amax(vals["evisc"]) if "evisc" in vals else None
+    budget = max([amax(a) for (g, n), a in items.items()
+                  if g == "budget" and n not in ("ke", "tke", "b_sort")]
+                 or [0.])
+    scales = {}
+    for key in items:
+        g, name = key
+        base, _, sfx = name.rpartition("_")
+        own = amax(vals[name])
+        if name in F:
+            sc = F[name]
+        elif base in G and sfx in ("2", "3", "4"):
+            sc = G[base] ** int(sfx)
+        elif base in F and sfx == "w":
+            sc = F[base] * F.get("w", 0.)
+        elif base in F and sfx == "grad":
+            sc = F[base] * dzi
+        elif base in F and sfx == "diff":
+            sc = F[base] * dzi * evisc if evisc else own
+        elif base in F and sfx == "flux":
+            sc = max(F[base] * F.get("w", 0.),
+                     F[base] * dzi * evisc if evisc else amax(vals[base + "_diff"]))
+        elif g == "budget" and name not in ("ke", "tke", "b_sort"):
+            sc = budget
+        else:
+            sc = own
+        scales[key] = max(sc, own, 1e-300)
+    return scales
+
+
+def stats_agree(a, b, what):
+    """Two statistics files (read_stats) of one run: the same iterations
+    and sample times (the time a sum of float dt, so to 1e-12 of the last),
+    the same variables, groups, dims and shapes, the same fill where
+    nothing was written, and each variable's largest difference over its
+    scale (stats_scales of b).  Returns {name: error}."""
+    ta, tb = a["time"], b["time"]
+    if not (np.array_equal(a["iter"], b["iter"]) and ta.shape == tb.shape
+            and np.abs(ta - tb).max() <= 1e-12 * max(np.abs(tb).max(), 1.)):
+        raise AssertionError("%s: sample times %r / %r, iterations %s / %s"
+                             % (what, list(ta), list(tb), a["iter"],
+                                b["iter"]))
+    keys_a = {k for k in a if isinstance(k, tuple)}
+    keys_b = {k for k in b if isinstance(k, tuple)}
+    if keys_a != keys_b:
+        raise AssertionError("%s: variables differ: %s" % (
+            what, sorted(keys_a ^ keys_b)))
+    scales = stats_scales(b)
+    errs = {}
+    for key in sorted(keys_b):
+        (da, x), (db, y) = a[key], b[key]
+        if da != db or x.shape != y.shape:
+            raise AssertionError("%s: %s has dims %s %s and %s %s"
+                                 % (what, key, da, x.shape, db, y.shape))
+        fx, fy = x == FILL, y == FILL
+        if not np.array_equal(fx, fy):
+            raise AssertionError("%s: %s filled in one file only"
+                                 % (what, key))
+        d = np.abs(np.where(fy, 0., x - y))
+        errs["%s/%s" % key] = float(d.max() / scales[key]) if d.size else 0.
+    return errs
 
 
 def mode_rel_err(a, b):
@@ -1801,10 +1926,11 @@ def check_apply_kmarch(torch):
 EVISC_REGIMES = {"unstable": -1., "stable": 30.}
 
 
-def evisc_inputs(torch, m, seed):
+def evisc_inputs(torch, m, seed, regimes=None):
     """The seeded inputs of the eddy-viscosity cases (K1/K14 and K7) on a
     model's grid: u, v, w; th around 300 K whose vertical steps give each of
-    EVISC_REGIMES its N2 (``ths``), and the N2 field itself (``n2s``); the
+    ``regimes`` (EVISC_REGIMES) its N2 (``ths``), and the N2 field itself
+    (``n2s``); the
     fields' levels that the kernels never read (u, v and th outside [lo,
     hic], w outside [ks, ke]) are NaN; ``layouts``: u, v and w as they are
     and one value past a 16-byte boundary (single-value copies only)."""
@@ -1844,8 +1970,9 @@ def evisc_inputs(torch, m, seed):
     def dev(x):
         return x.to(ctx.dtype).to(ctx.device)
 
-    ths = {r: dev(300. + c * rise) for r, c in EVISC_REGIMES.items()}
-    n2s = {r: dev(c * col) for r, c in EVISC_REGIMES.items()}
+    regimes = regimes or EVISC_REGIMES
+    ths = {r: dev(300. + c * rise) for r, c in regimes.items()}
+    n2s = {r: dev(c * col) for r, c in regimes.items()}
     for x, a, b in [(u, lo, hic), (v, lo, hic), (w, ks, ke)] + [
             (th, lo, hic) for th in ths.values()]:
         x[:a] = nan
@@ -1854,6 +1981,98 @@ def evisc_inputs(torch, m, seed):
                "shifted": tuple(shifted(torch, x) for x in (u, v, w))}
     return {"u": u, "ths": ths, "n2s": n2s, "layouts": layouts,
             "grid_args": grid_args, "ghosts": ghosts}
+
+
+# the near-critical regime: N2 / tPr equal to each level's mean strain
+# rate squared, times 0.7 to 1.3, so that the radicand strain2 - N2 / tPr
+# of many points is a small difference of two large numbers
+EVISC_CRITICAL = {"critical": 1.}
+# the roundings a point's radicand may collect, each up to eps: strain2 sums
+# some twenty rounded squares and differences, N2 three, their difference one
+CRIT_ROUNDINGS = 32.
+
+
+def check_evisc_critical(torch, seed=41, device="cuda"):
+    """K1 (clamped mode, th), K14 (the N2 field) and K7 in EVISC_CRITICAL
+    on drycblles and SBL_Smag at 48^2 x 16: the float32 kernel and the
+    float32 plain version each against the float64 plain version on the
+    same (float32-rounded) inputs.  Near strain2 = N2/tPr the square root
+    amplifies the rounding of its radicand, so each point is held to
+    CRIT_ROUNDINGS eps32 (1 + cond) |evisc|, cond = strain2 /
+    |strain2 - N2/tPr| the point's condition number;
+    K7's level maxima of the eddy viscosity to their level's largest point
+    bound, its CFL maxima to CRIT_ROUNDINGS eps32 of their value.  Returns
+    {case: (largest cond, largest error over its bound)}."""
+    from microhh_torch.ops import fused as F
+    eps = float(torch.finfo(torch.float32).eps)
+    out = {}
+    for label, build, n, st in (("drycblles", build_drycblles, (48, 48), 1),
+                                ("SBL_Smag", build_sbl, 48, 2)):
+        models = {}
+        for dt in (torch.float64, torch.float32):
+            models[dt] = build(torch, n, 16, dt, device)
+            models[dt].build_step()
+        m64, m32 = models[torch.float64], models[torch.float32]
+        x = evisc_inputs(torch, m64, seed, EVISC_CRITICAL)
+        u, v, w = x["layouts"]["aligned"]
+        th = x["ths"]["critical"] if st == 1 else None
+        n2 = x["n2s"]["critical"] if st == 2 else None
+        f32 = [None if a is None else a.float() for a in (u, v, w, th, n2)]
+        r64 = [None if a is None else a.double() for a in f32]
+        ks, ke = m64.ctx.ks, m64.ctx.ke
+        fz64, fz32 = m64.fused, m32.fused
+
+        def plain(fz, a, stratified, limits=False, sign=1.):
+            fn = F.limits_plain if limits else F.evisc_plain
+            ks_, dxi, dyi, tpr = x["grid_args"]
+            return fn(*a[:3], a[3] if a[3] is not None else a[0], fz.ce,
+                      ks_, dxi, dyi, sign * tpr, stratified, x["ghosts"],
+                      a[4] if stratified else None)
+
+        e64 = plain(fz64, r64, True)
+        mlen = fz64.ce[:, F.E_MLEN2][:, None, None]
+        s2 = (plain(fz64, r64, False) / mlen) ** 2
+        # the signed radicand strain2 - N2/tPr: with -tPr the plain version
+        # gives strain2 + N2/tPr (N2 > 0 here), never floored
+        rad = 2. * s2 - (plain(fz64, r64, True, sign=-1.) / mlen) ** 2
+        cond = s2 / rad.abs().clamp_min(1e-15 * float(s2.max()))
+        bound = CRIT_ROUNDINGS * eps * (1. + cond) * e64.abs()
+        buf = torch.full((m32.ctx.kcells, m32.ctx.jtot, m32.ctx.itot),
+                         float("nan"), dtype=torch.float32, device=device)
+        with attrs(fz32, stratified=st):
+            if st == 2:
+                fz32.evisc_n2(*f32[:3], f32[4], out=buf[ks:ke])
+                kname = "K14"
+            else:
+                fz32.evisc(*f32[:4], out=buf[ks:ke])
+                kname = "K1"
+            cfl_k, ev_k = fz32.limits(*f32[:3], f32[4] if st == 2 else f32[3])
+        cfl64, ev64 = plain(fz64, r64, True, limits=True)
+        cfl_p, ev_p = plain(fz32, f32, True, limits=True)
+        lbound = bound.amax(dim=(1, 2))
+        for name, got, want, bnd in (
+                (kname, buf[ks:ke], e64, bound),
+                (kname + " plain", plain(fz32, f32, True), e64, bound),
+                ("K7 evisc", ev_k, ev64, lbound),
+                ("K7 evisc plain", ev_p, ev64, lbound),
+                ("K7 cfl", cfl_k, cfl64, CRIT_ROUNDINGS * eps * cfl64.abs()),
+                ("K7 cfl plain", cfl_p, cfl64,
+                 CRIT_ROUNDINGS * eps * cfl64.abs())):
+            ratio = float(((got.double() - want).abs() / bnd).max())
+            out["%s %s" % (label, name)] = (float(cond.max()), ratio)
+            if not ratio <= 1.:
+                raise AssertionError(
+                    "%s %s near strain2 = N2/tPr: error %.3g of its bound"
+                    % (label, name, ratio))
+        log("  %s 48^2x16 near-critical N2: largest cond %.3e (median %.3e); "
+            "error over bound %s" % (label, float(cond.max()),
+                                     float(cond.median()),
+                                     {k: "%.3g" % r for k, (c, r) in
+                                      out.items() if k.startswith(label)}))
+        del models, m64, m32
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return out
 
 
 def evisc_forms(m):
@@ -2436,6 +2655,122 @@ def check_step(torch):
         if not worst <= 1e-10:
             raise AssertionError("whole %s step on the card disagrees with "
                                  "the CPU" % label)
+
+
+# --------------------------------------------------------------------------
+#  phase 4b/4c: statistics and budgets
+# --------------------------------------------------------------------------
+
+def stats_run(torch, workdir, case, name, device, **over):
+    """init + run of cases/<case>/<name>.ini (the given options replaced)
+    through run_case in float64 on device, its input computed in memory;
+    returns the path of its statistics file."""
+    from microhh_torch.cases import case_input
+    from microhh_torch.config import Ini
+    from microhh_torch.model import run_case
+    os.makedirs(workdir)
+    path = os.path.join(workdir, "%s.ini" % name)
+    with open(path, "w") as f:
+        f.write(case_ini(case, name, **over))
+    ini = Ini(path)
+    mem = case_input(name, ini.get_int("grid", "ktot"),
+                     ini.get_float("grid", "zsize"))
+    for mode in ("init", "run"):
+        run_case(workdir, name, mode, dtype=torch.float64, device=device,
+                 input_nc=mem)
+    return os.path.join(workdir, "%s.default.0000000.nc" % name)
+
+
+STATS_CASES = (("drycblles 32^3 as written (endtime 900)", "drycblles",
+                "drycblles", {"endtime": 900}),
+               ("moser180 16^3 with swbudget=4 (endtime 120)", "moser180",
+                "moser180", {"itot": 16, "jtot": 16, "ktot": 16,
+                             "endtime": 120}))
+
+
+def check_stats(torch):
+    """Each of STATS_CASES through run_case on the card and on the CPU,
+    float64: the two statistics files agree (stats_agree) to 1e-10 of each
+    profile's scale.  Returns {case: (writer, samples, worst error)}."""
+    from microhh_torch.stats import stats_writer
+    writer = stats_writer()[1]
+    out = {}
+    for label, case, name, over in STATS_CASES:
+        with tempfile.TemporaryDirectory() as workdir:
+            files = {d: read_stats(stats_run(torch, os.path.join(workdir, d),
+                                             case, name, d, **over))
+                     for d in ("cuda", "cpu")}
+        errs = stats_agree(files["cuda"], files["cpu"], label)
+        worst = max(errs, key=errs.get)
+        groups = sorted({g for g, _ in (k for k in files["cpu"]
+                                        if isinstance(k, tuple))})
+        log("  %s: %d samples at %s, %d variables in groups %s, written as "
+            "%s; card against CPU float64, worst %s %.3e of its scale"
+            % (label, len(files["cpu"]["time"]), list(files["cpu"]["time"]),
+               len(errs), groups, writer, worst, errs[worst]))
+        if not errs[worst] <= 1e-10:
+            raise AssertionError("%s statistics: card and CPU disagree"
+                                 % label)
+        out[label] = {"writer": writer, "samples": len(files["cpu"]["time"]),
+                      "variables": len(errs), "worst": worst,
+                      "worst_err": errs[worst]}
+    return out
+
+
+def time_stats(torch, reps=5):
+    """ms of one Stats.maybe_exec call (CUDA events around it, median of
+    reps after one warm-up; the host's netCDF write included) for
+    drycblles 512^3 float32 and for moser180 256x192x128 float64 with its
+    budget_4 and the pressure of one step."""
+    from microhh_torch.cases import moser180_input
+    from microhh_torch.config import Ini
+    from microhh_torch.model import Model
+    from microhh_torch.stats import Stats
+    out = {}
+    for label, make in (
+            ("drycblles 512^3 float32", lambda wd: (Model(
+                Ini(DRYCBL_INI % {"n": 512, "k": 512}
+                    + "\n[stats]\nswstats=1\nsampletime=300\n"),
+                "run", "drycblles", workdir=wd, dtype=torch.float32,
+                device="cuda"), lambda m: initial_state(m, seed=3))),
+            ("moser180 256x192x128 float64 with budget_4", lambda wd: (Model(
+                Ini(case_ini("moser180")), "run", "moser180", workdir=wd,
+                dtype=torch.float64, device="cuda",
+                input_nc=moser180_input(128, 2.)),
+                lambda m: o4_state(m, seed=3)))):
+        with tempfile.TemporaryDirectory() as workdir:
+            m, state_of = make(workdir)
+            m.finish_setup()
+            s, sfc = m.as_device_state(state_of(m))
+            if m.ctx.spatial_order == 4:
+                m.build_step()
+                s, sfc, aux = m.step(s, sfc, 0.1)
+                m._last_aux = {"p": aux["p"]}
+            st = Stats(m)
+            ms, walls = [], []
+            for it in range(reps + 1):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                e0.record()
+                st.maybe_exec(m, s, sfc)
+                e1.record()
+                e1.synchronize()
+                if it:
+                    ms.append(e0.elapsed_time(e1))
+                    walls.append(1e3 * (time.perf_counter() - t0))
+            nvars = len(st.vars)
+            st.close()
+            del m, s, sfc, st
+        torch.cuda.empty_cache()
+        out[label] = {"ms": statistics.median(ms), "ms_min": min(ms),
+                      "wall_ms": statistics.median(walls),
+                      "variables": nvars}
+        log("  Stats.maybe_exec %s: %.3f ms (min %.3f; wall %.3f) a sample "
+            "of %d variables" % (label, out[label]["ms"], min(ms),
+                                 out[label]["wall_ms"], nvars))
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -3314,10 +3649,19 @@ def main():
         "and not a multiple of its window")
     check_micro2(torch)
 
+    log("[3d] K1, K14 and K7 near strain2 = N2/tPr, float32 against the "
+        "float64 plain version, held to rounding times the condition number")
+    critical = check_evisc_critical(torch)
+
     log("[4] whole step, card against CPU")
     check_step(torch)
 
-    results = {}
+    log("[4b] statistics and budgets through run_case, card against CPU")
+    results = {"stats": check_stats(torch)}
+    log("[4c] the statistics' sample time")
+    results["stats_sample_ms"] = time_stats(torch)
+    results["evisc_critical"] = {k: {"cond_max": c, "err_over_bound": r}
+                                 for k, (c, r) in critical.items()}
     entries = {}
     by_path = {}
 

@@ -10,7 +10,9 @@ SBL_input.py``, ``moser180_input`` for ``cases/moser180/moser180_input.py``
 and ``weakscaling_input`` for ``cases/weakscaling/weakscaling_input.py``,
 ``jaenschwalde_input`` for ``cases/jaenschwalde/jaenschwalde_input.py``,
 ``sullivan2011_input`` for ``cases/sullivan2011/sullivan2011_input.py`` and
-``andren1994_input`` for ``cases/andren1994/andren1994_input.py``.
+``andren1994_input`` for ``cases/andren1994/andren1994_input.py``,
+``drycblles_input`` for ``cases/drycblles/drycblles_input.py`` and
+``bomex_input`` for ``cases/bomex/bomex_input.py``.
 """
 
 import numpy as np
@@ -164,3 +166,56 @@ def andren1994_input(ktot, zsize=1500.):
     andren1994_input.py."""
     z = uniform_z(ktot, zsize)
     return MemoryDataset({"z": z}, {"init": andren1994_profiles(z)})
+
+
+def drycblles_profiles(z):
+    """The init-group profiles of drycblles_input.nc at full levels z: a
+    linearly stratified dry layer at rest."""
+    kmax = len(z)
+    return {"u": np.zeros(kmax), "v": np.zeros(kmax), "th": 300. + 0.003 * z}
+
+
+def drycblles_input(ktot, zsize=1200.):
+    """The drycblles input dataset on the uniform grid of
+    drycblles_input.py."""
+    z = uniform_z(ktot, zsize)
+    return MemoryDataset({"z": z}, {"init": drycblles_profiles(z)})
+
+
+def bomex_profiles(z):
+    """The init-group profiles of bomex_input.nc at full levels z: the
+    piecewise-linear BOMEX soundings and forcings (Siebesma et al. 2003)."""
+    thl = np.interp(z, [0., 520., 1480., 2000., 3000.],
+                    [298.7, 298.7, 302.4, 308.2, 311.85])
+    qt = 1e-3 * np.interp(z, [0., 520., 1480., 2000., 3000.],
+                          [17.0, 16.3, 10.7, 4.2, 3.0])
+    u = np.interp(z, [0., 700., 3000.], [-8.75, -8.75, -4.61])
+    ugeo = -10. + 1.8e-3 * z
+    wls = np.interp(z, [0., 1500., 2100., 3000.], [0., -0.65, 0., 0.]) / 100.
+    thlls = np.interp(z, [0., 1500., 3000.], [-2., -2., 0.]) / 86400.
+    qtls = np.interp(z, [0., 300., 500., 3000.], [-1.2, -1.2, 0., 0.]) * 1.e-8
+    return {"thl": thl, "qt": qt, "u": u, "v": np.zeros_like(z),
+            "u_geo": ugeo, "v_geo": np.zeros_like(z), "w_ls": wls,
+            "thl_ls": thlls, "qt_ls": qtls}
+
+
+def bomex_input(ktot, zsize=3000.):
+    """The bomex input dataset on the uniform grid of bomex_input.py."""
+    z = uniform_z(ktot, zsize)
+    return MemoryDataset({"z": z}, {"init": bomex_profiles(z)})
+
+
+def case_input(casename, ktot, zsize):
+    """The input dataset of the shipped case ``casename`` (its ini's file
+    name) at ktot levels over zsize, computed in memory as its
+    ``<case>_input.py`` writes it (weakscaling, whose stretching sets zsize
+    itself, is ``weakscaling_input``)."""
+    make = {"drycblles": drycblles_input, "bomex": bomex_input,
+            "rico": rico_input, "SBL": sbl_input,
+            "moser180": moser180_input, "jaenschwalde": jaenschwalde_input,
+            "sullivan2011": sullivan2011_input,
+            "andren1994": andren1994_input}
+    if casename not in make:
+        raise ValueError("no input of case %r in microhh_torch.cases"
+                         % casename)
+    return make[casename](ktot, zsize)

@@ -55,7 +55,8 @@ The host loop takes the adaptive-dt limits from one pass (K7; the CFL rate
 of an interpolated or a 4th-order scheme from its own ``cfl_max``, the
 4th-order diffusion number a constant of the grid) and the sedimentation
 limit, and does the integer-time bookkeeping, the status
-table and the restarts, as the reference's main loop
+table, the statistics (``stats.py``, ``budget.py``), the dumps
+(``output.py``) and the restarts, as the reference's main loop
 (``src/model.cxx:303-557``) does.  An option outside these slices raises
 NotImplementedError naming its ROADMAP item.  The model runs on the device
 it is given, by default the first CUDA device; ``device="cpu"`` runs every
@@ -88,10 +89,12 @@ from .ops.fused import (Fused, FusedGeneric, PresGlue, exec_viscosity,
 from .ops.limiter import Limiter
 from .ops.microphys import Microphys2momWarm, make_microphys
 from .ops.o4_fused import O4Fused
+from .output import Dump
 from .ops.source import make_source
 from .ops.stencil import ip, jp, i2
 from .ops.thermo import ThermoDisabled
 from .ops.thermo_dry import ThermoDry
+from .stats import Stats
 
 NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
 
@@ -122,6 +125,7 @@ class Context:
             self.dzi4, self.dzhi4 = self.tensor(g.dzi4), self.tensor(g.dzhi4)
             self.np_dzi4 = np.asarray(g.dzi4, dtype=np.float64)
             self.np_dzhi4 = np.asarray(g.dzhi4, dtype=np.float64)
+            self.dzhi4bot, self.dzhi4top = float(g.dzhi4bot), float(g.dzhi4top)
         self.basestate_version = 0
         self.refresh_basestate(fields)
 
@@ -198,13 +202,16 @@ def check_slice(ini, grid, sim_mode):
          "[buffer] swupdate", 9),
     ]
     if sim_mode != "init":
+        stats = ini.get_int("stats", "swstats", default=0) != 0
         outside += [
-            (ini.get_int("stats", "swstats", default=0) != 0,
-             "[stats] swstats=1", 8),
+            (stats and ini.get_list(str, "stats", "masklist", default=[]),
+             "[stats] masklist", 8),
+            (stats and ini.get_list(str, "stats", "xymasklist", default=[]),
+             "[stats] xymasklist", 8),
+            (stats and ini.get_bool("stats", "swtendency", default=False),
+             "[stats] swtendency", 8),
             (switch("cross", "swcross"), "[cross] swcross", 15),
-            (switch("dump", "swdump"), "[dump] swdump", 15),
             (switch("column", "swcolumn"), "[column] swcolumn", 15),
-            (switch("budget", "swbudget"), "[budget] swbudget", 15),
         ]
     for active, what, item in outside:
         if active:
@@ -274,6 +281,11 @@ class Model:
         self._wall_start = _time.time()
         self._last_wallclock = _time.time()
         self._last_sfc = None
+        self._last_aux = None
+        # the run's statistics and dumps (when switched on), built by
+        # run_case
+        self.stats = None
+        self.dump = None
         self.fused = None
         self.advec_fused = None
         self.o4 = None
@@ -697,7 +709,9 @@ class Model:
 
     def run(self, max_iters=None):
         """The host time loop (model.py:1219-1343 of the JAX package):
-        adaptive dt, status table, restarts.  Returns the final state."""
+        adaptive dt landing on the statistics' and dumps' sampling times,
+        status table, statistics, dumps, restarts.  Returns the final
+        state."""
         tl = self.timeloop
         s, sfc = self.as_device_state(self.load_state())
         if self.fused is None and self.o4 is None:
@@ -712,6 +726,12 @@ class Model:
             while True:
                 # adaptive time step (model.cxx:730-751)
                 tl.reset_time_step_limit(self.at_wall_clock_limit())
+                # land on the sampling times (stats get_time_limit), before
+                # the CFL and diffusion limits, in the JAX package's order
+                for comp in (self.stats, self.dump):
+                    if comp is not None:
+                        tl.set_time_step_limit(
+                            comp.isampletime - tl.itime % comp.isampletime)
                 lim = self.limits(s, sfc)
                 # one read of the rates to the host
                 lim = dict(zip(lim, torch.stack(list(lim.values())).tolist()))
@@ -726,9 +746,18 @@ class Model:
                 tl.set_time_step()
                 if tl.do_check():
                     self.print_status(s, sfc, cfl, dn, status_file)
+                if tl.is_stats_step():
+                    if self.stats is not None:
+                        self.stats.maybe_exec(self, s, sfc)
+                    if self.dump is not None and self.dump.do_dump(tl.itime):
+                        self.dump.exec(s, self._last_aux, tl.iotime)
                 if tl.is_finished():
                     break
-                s, sfc, _ = self.step(s, sfc, tl.dt)
+                s, sfc, aux = self.step(s, sfc, tl.dt)
+                if self.stats is not None or self.dump is not None:
+                    # the pressure for the budgets and dumps; nothing else
+                    # of the step's aux outlives it
+                    self._last_aux = {"p": aux["p"]}
                 self._last_sfc = sfc
                 tl.step_time()
                 if tl.do_save(self.at_wall_clock_limit()):
@@ -740,13 +769,16 @@ class Model:
         return s
 
 
-def run_case(case_dir, casename, mode, dtype=torch.float32, device="cuda"):
-    """CLI entry: microhh {init,run} casename (reference main/microhh.cxx)."""
+def run_case(case_dir, casename, mode, dtype=torch.float32, device="cuda",
+             input_nc=None):
+    """CLI entry: microhh {init,run} casename (reference main/microhh.cxx).
+    ``input_nc``: the case's input profiles in memory (``cases.py``) in
+    place of ``<case_dir>/<casename>_input.nc``."""
     if mode == "post":
         raise not_ported("post mode", 15)
     ini = Ini(os.path.join(case_dir, "%s.ini" % casename))
     model = Model(ini, mode, casename, workdir=case_dir, dtype=dtype,
-                  device=device)
+                  device=device, input_nc=input_nc)
     model.finish_setup()
     if mode == "init":
         # the run-time output options are consumed in init mode too, like
@@ -757,7 +789,15 @@ def run_case(case_dir, casename, mode, dtype=torch.float32, device="cuda"):
                     ini.flag_as_used(section, item, sub)
         model.save_initial_state()
     elif mode == "run":
-        model.run()
+        if ini.get_int("stats", "swstats", default=0):
+            model.stats = Stats(model)
+        dump = Dump(model)
+        model.dump = dump if dump.sw else None
+        try:
+            model.run()
+        finally:
+            if model.stats is not None:
+                model.stats.close()
     else:
         raise ValueError("unknown mode %s" % mode)
     unused = model.ini.unused_items()

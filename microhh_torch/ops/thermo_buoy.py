@@ -70,6 +70,9 @@ class ThermoBuoy:
             t["b"][ks:ke] += -self.dbdy_ls * v_c
         return t
 
+    def get_buoyancy(self, ctx, s):
+        return s["b"]
+
     def get_n2(self, ctx, s):
         """N2 on the interior levels: db/dz plus the background N2."""
         ks, ke = ctx.ks, ctx.ke

@@ -115,6 +115,12 @@ class ThermoDry:
         t["w"] = add_rows(t["w"], ks + 1, ke, cst.grav / col * (th_h - col))
         return t
 
+    def get_buoyancy(self, ctx, s):
+        """b = g/thref*(th - thref), full column (thermo_dry.cxx
+        calc_buoyancy); the statistics' budgets read it."""
+        thref = self._prof(self.thref, ctx, s["th"])[:, None, None]
+        return cst.grav / thref * (s["th"] - thref)
+
     def get_n2(self, ctx, s):
         """N2 on interior levels (thermo_dry.cxx calc_N2)."""
         ks, ke = ctx.ks, ctx.ke

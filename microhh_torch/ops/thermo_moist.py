@@ -398,6 +398,21 @@ class ThermoMoist:
         t["w"][ks + 1:ke] += buoyancy(exnh, thlh, qth, ql, qi, thvrefh)
         return t
 
+    def get_buoyancy(self, ctx, s):
+        """Full-level buoyancy with condensation on the create() base state
+        (calc_buoyancy), zero on the ghost levels; the statistics' budgets
+        read it."""
+        ks, ke = ctx.ks, ctx.ke
+        thl, qt = s["thl"], s["qt"]
+        p = _col(ctx.tensor(self.pref), ks, ke)
+        exn = _col(ctx.tensor(self.exnref), ks, ke)
+        thvref = _col(ctx.tensor(self.thvref), ks, ke)
+        ql, qi, _, _ = sat_adjust(thl[ks:ke], qt[ks:ke], p, exn,
+                                  reads=self.reads)
+        b = torch.zeros_like(thl)
+        b[ks:ke] = buoyancy(exn, thl[ks:ke], qt[ks:ke], ql, qi, thvref)
+        return b
+
     def get_ql(self, ctx, s, aux=None):
         """Liquid water on the interior levels."""
         ks, ke = ctx.ks, ctx.ke

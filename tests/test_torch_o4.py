@@ -578,13 +578,17 @@ def test_cli_init_run_moser180(tmp_path):
             if line.split()[0].isdigit()]
     assert len(rows) >= 4 and all(np.isfinite(float(x)) for r in rows for x in r)
     assert max(float(r[6]) for r in rows[1:]) <= 1e-12   # DIV
-    # the verbatim ini needs its stats and its budget off
+    # the verbatim ini, with its stats and its budget on, builds too
+    from microhh_torch.stats import Stats
     for key in ("swstats", "swbudget"):
         verbatim = case_ini("moser180", "moser180", itot=16, jtot=16, ktot=16,
                             **{k: 0 for k in ("swstats", "swbudget") if k != key})
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Model(Ini(verbatim), "run", "moser180", dtype=torch.float64,
-                  device="cpu", input_nc=mem)
+        m = Model(Ini(verbatim), "run", "moser180", workdir=str(tmp_path),
+                  dtype=torch.float64, device="cpu", input_nc=mem)
+        if key == "swstats":
+            st = Stats(m)
+            assert "u_2" in st.vars and not st.budget.sw
+            st.close()
 
 
 @pytest.mark.parametrize("case", ["moser180", "weakscaling"])
@@ -617,7 +621,7 @@ def test_case_inputs_equal_the_case_scripts(tmp_path, monkeypatch, case):
     (("swthermo=buoy", "swthermo=dry"), 11),
     (("[fields]", "[force]\nswlspres=geo\nfc=1e-4\n\n[fields]"), 11),
     (("mbcbot=noslip", "swboundary=surface\nmbcbot=noslip"), 11),
-    (("[time]", "[budget]\nswbudget=4\n\n[time]"), 15),
+    (("[time]", "[cross]\nswcross=1\n\n[time]"), 15),
 ])
 def test_fourth_order_options_outside_the_slice_raise(change, item):
     text = OPS_INI % {"ktot": 8, "swadvec": "4", "zsize": 1., "thermo": ""}

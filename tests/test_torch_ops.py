@@ -381,7 +381,7 @@ def test_buffer(models):
     ("swboundary=surface", "swboundary=default"),
     ("[fields]", "[fields]\nslist=s1"),
     ("[time]", "[micro]\nswmicro=2mom_warm\n\n[time]"),
-    ("[time]", "[stats]\nswstats=1\n\n[time]"),
+    ("[time]", "[stats]\nswstats=1\nswtendency=1\n\n[time]"),
     ("swspatialorder=2", "swspatialorder=4"),
 ])
 def test_options_outside_the_slice_raise(change):
