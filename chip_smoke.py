@@ -117,13 +117,43 @@ Phases (any failure exits non-zero and prints no result line):
   4b. statistics and budgets (check_stats): drycblles 32^3 as its ini is
      written (endtime cut to 900 s: four samples) and moser180 at 16^3 with
      its swbudget=4 (endtime 120 s: three samples) through run_case in
-     float64, on the card and on the CPU: the two statistics files hold the
+     float64 (the chunked loop: drycblles captured on the card, moser180
+     eager), on the card and on the CPU: the two statistics files hold the
      same samples, variables, groups and dims and agree to 1e-10 of each
      profile's scale (stats_agree, stats_scales); the writer the machine
      has (netCDF-4 with h5py, else netCDF-3 through scipy) is printed;
   4c. the ms of one Stats.maybe_exec (CUDA events, median of 5) for
      drycblles 512^3 float32 and moser180 256x192x128 float64 with its
      budget (time_stats); the timed phases below run with output off;
+  4d. the chunked loop (Model.run() without max_iters), its dry RK step
+     captured as two CUDA graphs: drycblles 64^3 from one seeded state, 8
+     steps of the captured chunk body against the same body run eagerly on
+     the card, float32 and float64 (the same dt at every step, fields
+     within 1e-5 and 1e-12 of their maxima); drycblles 32^3 float64 with
+     random velocities to 25 s (at least 8 steps; a status line every 4,
+     so that chunks end at both) through Model.run on
+     the card (captured) and on the CPU (eager): the same status ITER and
+     TIME columns, restart fields within 1e-10 of their scale; the same
+     case to 300 s (at least 200 steps in chunks of 4) on the card,
+     captured and with the body run eagerly: every status column but CPUDT
+     the same and the restart fields bit for bit; and inside phases 5, 5b,
+     19 and 21, from the restart
+     of their run (drycblles from a state with random velocities, so that
+     the CFL limit sets dt from the first step), drycblles 512^3 to 15 s
+     (at least 24 steps; also the per-step loop, MICROHH_CHUNK=0, on the
+     same build), drycblles 256^3 with build_step(fold=False) to 15 s,
+     sullivan2011 512^3 to 20 s and the neutral Ekman LES to 24 s through
+     Model.run(), at least 8 steps each, the replays
+     under torch.cuda.set_sync_debug_mode("error"): every kernel of the
+     step launched in replays, finite fields, DIV <= 1e-4; s/step of the
+     loop (its capture and status lines included) and of its chunks alone,
+     the warm-up, capture and instantiation seconds, the peak memory and
+     the host-side idle share of the loop's steps and of the same body run
+     eagerly over 4 steps (one minus a replay's span between two CUDA
+     events, median of 4, over the wall a step: the span counts the gaps
+     between the graph's nodes as busy; torch.profiler stays out, its
+     tracing would slow every later launch, and ring_timing's chunked group
+     measures the device time);
   5. the drycblles LES at 512^3 float32 through Model.run(max_iters=12), on
      the folded dry sweep K22: its kernels launched, finite fields, status
      DIV <= 1e-4; then the step time (median of 10 steps after 2 warm-up
@@ -203,11 +233,17 @@ torch.profiler and prints the device time per kernel, the step's device
 idle share (one minus the device time over the wall time of the same
 profiled steps, with the unprofiled wall time beside it) and the limits and
 status-line times, and writes them with the profiler's tables to FILE.
+With --drift FILE it builds the kernels and runs only chunked_drift:
+drycblles 32^3 float64 to 900 s through Model.run with a restart every 60 s,
+on the card captured, on the card with the body run eagerly and on the
+CPU, and writes the error of each against the others at every restart to
+FILE.
 The last line is {"ok": true, "device": {...}}; the line before it holds the
 per-kernel results.  Without a CUDA device, or without the microhh_torch
 package beside this file, it exits non-zero.
 """
 
+import gc
 import json
 import os
 import re
@@ -278,7 +314,14 @@ starttime=0
 """
 
 
+_T0 = time.perf_counter()
+
+
 def log(*a):
+    """Print a line; a phase's header ("[n] ...") with the seconds since
+    the script began."""
+    if a and str(a[0]).startswith("["):
+        a = a + ("(at %.0f s)" % (time.perf_counter() - _T0),)
     print(*a, flush=True)
 
 
@@ -2774,6 +2817,433 @@ def time_stats(torch, reps=5):
 
 
 # --------------------------------------------------------------------------
+#  phase 4d: the chunked loop, captured
+# --------------------------------------------------------------------------
+
+def seeded_chunk_state(m, seed):
+    """initial_state with random velocities and the surface planes of the
+    case's init, as tensors on m's device."""
+    from microhh_torch.model import NP_DTYPE
+    st = initial_state(m, seed)
+    s = {n: m.ctx.tensor(st[n]) for n in m.fields.prognostic_names}
+    sfc = m.boundary.init_surface_state(dtype=NP_DTYPE[m.dtype])
+    return s, {k: m.ctx.tensor(v) for k, v in sfc.items()}
+
+
+def graph_against_eager(torch, n, dtype, nsteps=8):
+    """drycblles n^3 on K22 from one seeded state: nsteps of the chunk body
+    as its captured graphs against the same body run eagerly, both on the
+    card: the same dt at every step and the final fields within 1e-5
+    (float32) or 1e-12 (float64) of their maxima.  Returns the largest
+    error and the replays' launches."""
+    from microhh_torch.graph_step import ChunkLoop
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    m = build_model(torch, n, n, dtype, "cuda")
+    m.build_step()
+    s0, sfc0 = seeded_chunk_state(m, 11)
+    runs = {}
+    for capture in (False, True):
+        loop = ChunkLoop(m, capture=capture)
+        s = {k: v.clone() for k, v in s0.items()}
+        sfc = {k: v.clone() for k, v in sfc0.items()}
+        loop.start(m.timeloop.dt, 1e6)
+        dts = []
+        for i in range(nsteps):
+            s, sfc, _ = loop.run(s, sfc, i + 1)
+            dts.append(float(loop.dt))
+        runs[capture] = (dts, s, loop)
+    (dts_e, s_e, _), (dts_g, s_g, loop) = runs[False], runs[True]
+    ks, ke = m.ctx.ks, m.ctx.ke
+    errs = {k: rel_err(s_g[k][ks:ke], s_e[k][ks:ke]) for k in s_e}
+    graphs = loop.graphs
+    launches = {kern.name: sum(c[kern] * r for c, r in
+                               zip(graphs.counts, graphs.replays))
+                for kern in m.kernels()}
+    log("  drycblles %d^3 %s, %d steps: graphs against the eager body: dt "
+        "%s (eager %s), rel err %s, replays %s, launches in replays %s"
+        % (n, str(dtype)[6:], nsteps, dts_g, dts_e,
+           {k: "%.2e" % v for k, v in errs.items()}, graphs.replays, launches))
+    if dts_g != dts_e:
+        raise AssertionError("the graphs took another dt sequence")
+    if not max(errs.values()) <= tol or sum(graphs.replays) != nsteps:
+        raise AssertionError("the graphs disagree with the eager body")
+    if min(launches.values()) == 0:
+        raise AssertionError("a kernel of the step is not in the graphs")
+    return max(errs.values()), launches
+
+
+def chunked_case_dir(torch, workdir, n, device, endtime, outputiter,
+                     capture=True, savetime=None):
+    """A drycblles n^3 float64 case at workdir (initial_state with random
+    velocities) run through Model.run to endtime, a restart every savetime
+    seconds (default: one, at endtime), a status line every outputiter
+    steps; capture False runs the chunk body eagerly on the card.  Returns
+    the model."""
+    text = DRYCBL_INI % {"n": n, "k": n}
+    for key, val in (("endtime", endtime), ("savetime", savetime or endtime),
+                     ("outputiter", outputiter)):
+        text = re.sub(r"(?m)^%s=.*$" % key, "%s=%s" % (key, val), text)
+    from microhh_torch.config import Ini
+    from microhh_torch.model import Model
+    init = Model(Ini(text), "init", "drycblles", workdir=workdir,
+                 dtype=torch.float64, device=device)
+    init.finish_setup()
+    init.save_initial_state(initial_state(init, 13))
+    m = Model(Ini(text), "run", "drycblles", workdir=workdir,
+              dtype=torch.float64, device=device)
+    m.finish_setup()
+    m.build_chunk(capture=capture)
+    m.run()
+    return m
+
+
+def chunked_outputs(torch, n, device, endtime, outputiter, capture=True,
+                    savetime=None):
+    """chunked_case_dir's run in a temporary directory: (its status rows,
+    split; {time: {field: restart array}} and {time: iteration} at every
+    restart time; the model's ChunkLoop; the seconds of the run)."""
+    with tempfile.TemporaryDirectory() as workdir:
+        t0 = time.perf_counter()
+        m = chunked_case_dir(torch, workdir, n, device, endtime, outputiter,
+                             capture, savetime)
+        seconds = time.perf_counter() - t0
+        with open(os.path.join(workdir, "drycblles.out")) as f:
+            rows = [line.split() for line in f if line.split()[0].isdigit()]
+        step = savetime or endtime
+        fields = {t: {name: np.fromfile(os.path.join(
+            workdir, "%s.%07d" % (name, t)))
+            for name in m.fields.prognostic_names}
+            for t in range(step, endtime + 1, step)}
+        iters = {t: int(np.fromfile(os.path.join(workdir, "time.%07d" % t),
+                                    dtype=np.int32, count=1, offset=16)[0])
+                 for t in fields}
+    return rows, fields, iters, m._chunk, seconds
+
+
+def field_errs(f, ref):
+    """The largest difference of each field over the largest value of its
+    reference."""
+    return {k: float(np.abs(f[k] - ref[k]).max() / np.abs(ref[k]).max())
+            for k in ref}
+
+
+def chunked_card_against_cpu(torch, n=32, endtime=25, outputiter=4):
+    """The chunked run of chunked_case_dir on the card (captured) and on
+    the CPU (eager): restart fields within 1e-10 of their scale, the same
+    status ITER and TIME columns.  The run is short (9 steps): on this
+    turbulent flow the difference of the two machines' roundoff grows by
+    orders of magnitude over hundreds of steps, the same for the card's
+    captured run and its eager one (--drift); chunked_captured_against_eager
+    holds the graphs to the eager body bit for bit over hundreds of
+    steps."""
+    out = {}
+    for device in ("cuda", "cpu"):
+        rows, fields, _, loop, _ = chunked_outputs(torch, n, device,
+                                                   endtime, outputiter)
+        out[device] = ([r[:2] for r in rows], fields[endtime], loop)
+    (rows_g, f_g, loop), (rows_c, f_c, _) = out["cuda"], out["cpu"]
+    errs = field_errs(f_g, f_c)
+    log("  drycblles %d^3 float64 to %d s through Model.run: card %s "
+        "(captured %s, %d chunks) against CPU, status ITER/TIME %s, rel err "
+        "%s" % (n, endtime, rows_g[-1], loop.graphs is not None,
+                loop.counters["chunks"], rows_c[-1],
+                {k: "%.2e" % v for k, v in errs.items()}))
+    if loop.graphs is None or rows_g != rows_c or int(rows_g[-1][0]) < 8:
+        raise AssertionError("the chunked runs on the card and the CPU "
+                             "took other steps")
+    if not max(errs.values()) <= 1e-10:
+        raise AssertionError("the chunked run on the card disagrees with "
+                             "the CPU")
+    return max(errs.values())
+
+
+def chunked_captured_against_eager(torch, n=32, endtime=300, outputiter=4,
+                                   min_steps=200):
+    """The chunked run of chunked_case_dir on the card with its step
+    captured and with the chunk body run eagerly, over at least min_steps
+    steps and a chunk ended every outputiter steps: every status column but
+    CPUDT the same, row for row, and the restart fields bit for bit.
+    Returns (steps, chunks)."""
+    out = {}
+    for capture in (True, False):
+        out[capture] = chunked_outputs(torch, n, "cuda", endtime, outputiter,
+                                       capture)
+    (rows_g, f_g, _, loop_g, s_g), (rows_e, f_e, _, loop_e, s_e) = (
+        out[True], out[False])
+    rows_g, rows_e = ([r[:2] + r[3:] for r in rows] for rows in (rows_g,
+                                                                  rows_e))
+    same = {k: bool(np.array_equal(f_g[endtime][k], f_e[endtime][k]))
+            for k in f_e[endtime]}
+    steps, chunks = loop_g.counters["steps"], loop_g.counters["chunks"]
+    log("  drycblles %d^3 float64 to %d s through Model.run on the card: "
+        "captured (%d steps in %d chunks, %.1f s) against the eager body "
+        "(%d steps in %d chunks, %.1f s): status rows the same %s (last %s), "
+        "restart fields the same bit for bit %s"
+        % (n, endtime, steps, chunks, s_g, loop_e.counters["steps"],
+           loop_e.counters["chunks"], s_e, rows_g == rows_e, rows_g[-1][:2],
+           same))
+    if loop_g.graphs is None or loop_e.graphs is not None:
+        raise AssertionError("the captured run did not capture, or the "
+                             "eager one did")
+    if steps < min_steps:
+        raise AssertionError("the captured run took %d steps, fewer than %d"
+                             % (steps, min_steps))
+    if rows_g != rows_e or not all(same.values()):
+        raise AssertionError("the captured chunked loop disagrees with the "
+                             "eager body")
+    return steps, chunks
+
+
+def chunked_drift(torch, path, n=32, endtime=900, savetime=60,
+                  outputiter=4):
+    """--drift FILE: chunked_case_dir's run to endtime with a restart every
+    savetime seconds, on the card captured, on the card with the body run
+    eagerly, and on the CPU: at each restart time the iteration of each
+    run and the largest field error (field_errs) of the captured run
+    against the eager one, and of each card run against the CPU's.
+    Written to FILE as JSON and printed; returns the rows."""
+    runs = {}
+    for key, device, capture in (("captured", "cuda", True),
+                                 ("eager", "cuda", False),
+                                 ("cpu", "cpu", False)):
+        _, fields, iters, loop, seconds = chunked_outputs(
+            torch, n, device, endtime, outputiter, capture, savetime)
+        runs[key] = (iters, fields)
+        log("  drycblles %d^3 float64 %s to %d s: %d steps in %d chunks, "
+            "%.1f s" % (n, key, endtime, loop.counters["steps"],
+                        loop.counters["chunks"], seconds))
+    table = []
+    for t in sorted(runs["cpu"][1]):
+        it = {key: iters[t] for key, (iters, _) in runs.items()}
+        f = {key: fields[t] for key, (_, fields) in runs.items()}
+        row = {"time": t, "iteration": it,
+               "captured_vs_eager": max(field_errs(f["captured"],
+                                                   f["eager"]).values()),
+               "captured_vs_cpu": max(field_errs(f["captured"],
+                                                 f["cpu"]).values()),
+               "eager_vs_cpu": max(field_errs(f["eager"], f["cpu"]).values())}
+        table.append(row)
+        log("  " + json.dumps(row))
+    with open(path, "w") as f:
+        json.dump({"card": card_line(), "n": n, "endtime": endtime,
+                   "savetime": savetime, "outputiter": outputiter,
+                   "rows": table}, f, indent=1)
+    return table
+
+
+def strict_replays(torch):
+    """GraphChunk.run under torch.cuda.set_sync_debug_mode("error"): a
+    synchronising call among the replays raises.  Returns the original, to
+    be put back."""
+    from microhh_torch import graph_step
+    orig = graph_step.GraphChunk.run
+
+    def run(self, *args, **kw):
+        prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return orig(self, *args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+
+    graph_step.GraphChunk.run = run
+    return orig
+
+
+def host_idle_share(torch, m, s, sfc, nsteps=4):
+    """The host-side idle share of the chunked loop's steps and of the same
+    body run eagerly (the per-step dispatch), from (s, sfc): one minus a
+    graph replay's span between two CUDA events (the median of nsteps
+    replays) over the wall time of a step.  The span counts the graph's
+    gaps between its nodes as busy, so this is the time the card waits on
+    the host, not the device idle share; the kernels' busy time a step is
+    ring_timing's ``chunked`` group (torch.profiler, which stays out of this
+    script: its tracing stays armed after it and slows every later launch).
+    Returns {"span_ms_per_step", "graphs", "eager_body"}, each of the last
+    two with its wall a step and its ``host_idle_share``."""
+    from microhh_torch.graph_step import ChunkLoop
+    loop = m._chunk
+    graphs = loop.graphs
+    out = {}
+    loop.start(m.timeloop.dt, 1e6)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s, sfc, _ = loop.run(s, sfc, nsteps)
+    torch.cuda.synchronize()
+    out["graphs"] = {"wall_ms_per_step":
+                     1e3 * (time.perf_counter() - t0) / nsteps}
+    spans = []
+    for _ in range(nsteps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        graphs.graphs[graphs.cur].replay()
+        ev[1].record()
+        ev[1].synchronize()
+        graphs.cur = 1 - graphs.cur
+        spans.append(ev[0].elapsed_time(ev[1]))
+    span = out["span_ms_per_step"] = statistics.median(spans)
+    eager = ChunkLoop(m, capture=False)
+    eager.start(m.timeloop.dt, 1e6)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eager.run(s, sfc, nsteps)
+    torch.cuda.synchronize()
+    out["eager_body"] = {"wall_ms_per_step":
+                         1e3 * (time.perf_counter() - t0) / nsteps}
+    for key in ("graphs", "eager_body"):
+        out[key]["host_idle_share"] = (1. - span
+                                       / out[key]["wall_ms_per_step"])
+    return out
+
+
+def chunked_model(torch, m0, workdir, endtime, outputiter, step_kw=None,
+                  mode="run"):
+    """A model of m0's case on workdir with endtime and outputiter set and
+    no restart before the end (mode "init": to write its restart of time
+    0)."""
+    import copy
+    from microhh_torch.model import Model
+    ini = copy.deepcopy(m0.ini)
+    ini.used = set()
+    for key, val in (("endtime", endtime), ("outputiter", outputiter),
+                     ("savetime", 100 * endtime)):
+        ini.items["time"][key] = {"": str(val)}
+    m = Model(ini, mode, m0.casename, workdir=workdir, dtype=m0.dtype,
+              device="cuda", input_nc=m0.input_nc)
+    m.finish_setup()
+    if mode == "run":
+        m.build_step(**(step_kw or {}))
+    return m
+
+
+def chunked_run(torch, m0, label, endtime, outputiter, min_steps,
+                step_kw=None, per_step=False, state_of=None):
+    """[4d] the case of m0 (its workdir holds the restart of time 0, or,
+    with state_of, a new one holds state_of's) to endtime through
+    Model.run() without max_iters: the chunked loop with the step captured,
+    its replays under set_sync_debug_mode("error").
+    Fails unless the graphs were captured, every kernel of the step launched
+    in replays, at least min_steps steps ran, the fields are finite and DIV
+    <= 1e-4 after the first step.  Prints s/step of the loop (its capture
+    and the status lines between chunks included) and of its chunks alone,
+    the capture and instantiation seconds, the peak memory and the
+    host-side idle share (host_idle_share) of the replays and of the body
+    run eagerly; per_step: also s/step of the per-step loop
+    (MICROHH_CHUNK=0) on the same build and case, loop against loop."""
+    args = (label, endtime, outputiter, min_steps, step_kw, per_step)
+    if state_of is None:
+        return chunked_in(torch, m0, m0.workdir, *args)
+    with tempfile.TemporaryDirectory() as workdir:
+        init = chunked_model(torch, m0, workdir, endtime, outputiter,
+                             mode="init")
+        init.save_initial_state(state_of(init))
+        del init
+        return chunked_in(torch, m0, workdir, *args)
+
+
+def chunked_in(torch, m0, workdir, label, endtime, outputiter, min_steps,
+               step_kw, per_step):
+    """chunked_run on workdir."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    m = chunked_model(torch, m0, workdir, endtime, outputiter, step_kw)
+    where = "%s %s %s" % (label, shape_str(m), str(m.dtype)[6:])
+    for kern in m.kernels():
+        kern.launches = 0
+    status = os.path.join(m.workdir, "%s.out" % m.casename)
+    size0 = os.path.getsize(status) if os.path.exists(status) else 0
+    from microhh_torch import graph_step
+    orig = strict_replays(torch)
+    try:
+        t0 = time.perf_counter()
+        s = m.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    finally:
+        graph_step.GraphChunk.run = orig
+    peak = torch.cuda.max_memory_allocated()
+    loop = m._chunk
+    graphs = loop.graphs
+    if graphs is None:
+        raise AssertionError("%s: the chunked loop did not capture" % label)
+    replayed = {kern.name: sum(c[kern] * r for c, r in
+                               zip(graphs.counts, graphs.replays))
+                for kern in m.kernels()}
+    steps, loop_s = m.loop_wall
+    ks, ke = m.ctx.ks, m.ctx.ke
+    with open(status) as f:
+        f.seek(size0)
+        rows = [line.split() for line in f if line.split()[0].isdigit()]
+    final = {kk: float(v) for kk, v in m.diagnostics(s, m.final_sfc).items()}
+    divs = [float(r[6]) for r in rows if int(r[0]) > 0] + [final["div"]]
+    res = {"steps": steps, "chunks": loop.counters["chunks"],
+           "replays": list(graphs.replays), "launches_in_replays": replayed,
+           "loop_s_per_step": loop_s / steps,
+           "chunk_s_per_step": loop.counters["seconds"] / steps,
+           "warm_up_s": graphs.seconds["warm_up"],
+           "capture_instantiate_s": graphs.seconds["capture"],
+           "run_wall_s": run_s, "peak_mem_gb": peak / 1e9,
+           "div_max": max(divs), "dt_final": m.timeloop.dt}
+    log("  [4d] Model.run() at %s to %s s: %d steps in %d chunks (replays "
+        "%s), launches in replays %s, loop %.6f s/step (chunks alone %.6f), "
+        "warm-up %.3f s, capture and instantiation %s s, run %.3f s wall, "
+        "peak memory %.3f GB, max DIV %.3e, final dt %.4f s"
+        % (where, endtime, steps, res["chunks"], graphs.replays, replayed,
+           res["loop_s_per_step"], res["chunk_s_per_step"], res["warm_up_s"],
+           ["%.3f" % x for x in graphs.seconds["capture"]], run_s,
+           peak / 1e9, max(divs), m.timeloop.dt))
+    missing = [name for name, c in replayed.items() if c == 0]
+    if missing:
+        raise AssertionError("%s did not launch %s in replays"
+                             % (label, missing))
+    if steps < min_steps:
+        raise AssertionError("%s ran %d steps, fewer than %d"
+                             % (label, steps, min_steps))
+    for name in m.fields.prognostic_names:
+        if not bool(torch.isfinite(s[name][ks:ke]).all()):
+            raise AssertionError("non-finite %s after the chunked %s run"
+                                 % (name, label))
+    if not max(divs) <= 1e-4:
+        raise AssertionError("%s: DIV %.3e after the chunked run"
+                             % (label, max(divs)))
+    idle = res["host_idle"] = host_idle_share(torch, m, s, m.final_sfc)
+    log("  [4d] %s, 4 steps: a replay's span %.3f ms (median, its gaps "
+        "between nodes included); the graphs' steps %.3f ms of wall a step, "
+        "host-side idle share (1 - span / wall) %.3f; the body run eagerly "
+        "%.3f ms, 1 - span / wall %.3f"
+        % (where, idle["span_ms_per_step"],
+           idle["graphs"]["wall_ms_per_step"],
+           idle["graphs"]["host_idle_share"],
+           idle["eager_body"]["wall_ms_per_step"],
+           idle["eager_body"]["host_idle_share"]))
+    # the model and its loop refer to each other: collect them, so that
+    # their graphs' pool is freed before the next phase
+    del m, s, loop, graphs
+    gc.collect()
+    torch.cuda.empty_cache()
+    if per_step:
+        os.environ["MICROHH_CHUNK"] = "0"
+        try:
+            mp = chunked_model(torch, m0, workdir, endtime, outputiter,
+                               step_kw)
+            mp.run()
+            torch.cuda.synchronize()
+        finally:
+            os.environ.pop("MICROHH_CHUNK")
+        psteps, ps = mp.loop_wall
+        res["per_step_loop_s_per_step"] = ps / psteps
+        res["per_step_steps"] = psteps
+        log("  [4d] the per-step loop (MICROHH_CHUNK=0) at %s to %s s: %d "
+            "steps, %.6f s/step; the chunked loop %.6f s/step"
+            % (where, endtime, psteps, ps / psteps, res["loop_s_per_step"]))
+        del mp
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res, replayed
+
+
+# --------------------------------------------------------------------------
 #  phase 5: the drycblles LES at 512^3
 # --------------------------------------------------------------------------
 
@@ -2910,7 +3380,10 @@ def pres_pairs(torch, m, s):
     from microhh_torch.ops import fused as F
     from microhh_torch.ops.pres_2 import tdma_plain
     ctx, gl, pr, t = m.ctx, m.glue, m.pres, m.t
-    rhs = gl.rhs(s["u"], s["v"], s["w"], 1.)
+    # dt and 1/dt as the step gives them: device scalars
+    one, zero = (torch.full((), x, dtype=m.dtype, device=s["u"].device)
+                 for x in (1., 0.))
+    rhs = gl.rhs(s["u"], s["v"], s["w"], one)
     p = pr.solve(rhs)
     spec = torch.fft.rfft2(p, dim=(-2, -1))
     fb, n = field_bytes(m), points(m)
@@ -2947,7 +3420,7 @@ def pres_pairs(torch, m, s):
             info=tdma_info(pr, ctx.ktot, modes, m.dtype))
         return dft
     return dict(dft, **{
-        "pres_rhs": pair(lambda: gl.rhs(s["u"], s["v"], s["w"], 1.),
+        "pres_rhs": pair(lambda: gl.rhs(s["u"], s["v"], s["w"], one),
                          lambda: F.pres_rhs_plain(s["u"], s["v"], s["w"], gl.pc,
                                                   ctx.ks, ctx.dxi, ctx.dyi, 1.),
                          4 * fb, FLOPS_PER_POINT["pres_rhs"] * n),
@@ -2956,7 +3429,7 @@ def pres_pairs(torch, m, s):
                      lambda: tdma_plain(spec, pr.winv, pr.tab), 5 * sb // 2,
                      FLOPS_PER_POINT["tdma"] * n,
                      info=tdma_info(pr, ctx.ktot, modes, m.dtype)),
-        "pres_apply": pair(lambda: gl.apply(p, s, t, 0.0, 0.0, True),
+        "pres_apply": pair(lambda: gl.apply(p, s, t, zero, 0.0, True),
                            lambda: F.pres_apply_plain(p, s, t, gl.pc, ctx.ks,
                                                       ctx.dxi, ctx.dyi, 0.0,
                                                       0.0, True),
@@ -2980,6 +3453,9 @@ def time_kernels(torch, m, s):
     t = m.t
     grid_args = (ctx.ks, ctx.dxi, ctx.dyi)
     rk = (fz.visc, fz.svisc, fz.tPr, 0.5, -5. / 9.)
+    # cB*dt and 1/(cB*dt) as the step gives them: device scalars
+    cbdt, dti = (torch.full((), x, dtype=m.dtype, device=s["u"].device)
+                 for x in (0.5, 2.))
     fb, n = field_bytes(m), points(m)
     pairs = {
         "evisc": pair(lambda: fz.evisc(*uvwa),
@@ -2989,7 +3465,8 @@ def time_kernels(torch, m, s):
                       info=kmarch_info(fz.k_evisc, m.dtype, fz.stratified, 0,
                                        fz.evisc_plan(m.dtype,
                                                      fz.stratified))),
-        "tend_rk": pair(lambda: fz.tend_rk(s, t, e, 0.5, -5. / 9., False, True),
+        "tend_rk": pair(lambda: fz.tend_rk(s, t, e, cbdt, -5. / 9., False,
+                                           True),
                         lambda: F.tend_rk_plain(s, e, t, fz.ct, *grid_args,
                                                 *rk, False, True,
                                                 *fz._sweep_args()),
@@ -2999,7 +3476,7 @@ def time_kernels(torch, m, s):
                                          fz.tend_rk_plan(m.dtype))),
         # fields and carries in, s*, carries, e and rhs out
         "tend_rk_fold": pair(
-            lambda: fz.tend_rk_fold(s, t, se_row, 0.5, -5. / 9., 2., False,
+            lambda: fz.tend_rk_fold(s, t, se_row, cbdt, -5. / 9., dti, False,
                                     True),
             lambda: F.tend_rk_fold_plain(s, t, fz.ct, fz.ce, *grid_args, *rk,
                                          2., False, True, se_row, None,
@@ -3009,7 +3486,7 @@ def time_kernels(torch, m, s):
                              fz.fold_plan(m.dtype))),
         # the same sweep without the evisc fold: e read instead of written
         "tend_rk_fold_e": pair(
-            lambda: fz.tend_rk_fold(s, t, None, 0.5, -5. / 9., 2., False,
+            lambda: fz.tend_rk_fold(s, t, None, cbdt, -5. / 9., dti, False,
                                     True, e=e),
             lambda: F.tend_rk_fold_plain(s, t, fz.ct, fz.ce, *grid_args, *rk,
                                          2., False, True, None, e,
@@ -3609,11 +4086,14 @@ def main():
     except ImportError as e:
         sys.exit("chip_smoke: microhh_torch is not beside this script (%s)" % e)
     args = sys.argv[1:]
-    profile_path = None
+    profile_path = drift_path = None
     if args:
-        if len(args) != 2 or args[0] != "--profile":
-            sys.exit("usage: chip_smoke.py [--profile FILE]")
-        profile_path = args[1]
+        if len(args) != 2 or args[0] not in ("--profile", "--drift"):
+            sys.exit("usage: chip_smoke.py [--profile FILE | --drift FILE]")
+        if args[0] == "--profile":
+            profile_path = args[1]
+        else:
+            drift_path = args[1]
     reports = []
 
     log("[1] card: %s" % card_line())
@@ -3630,6 +4110,11 @@ def main():
         if ("Compiling entry" in line or "registers" in line or "spill" in line
                 or line.startswith("== ")):
             log("    " + line.strip())
+    if drift_path:
+        log("[drift] the chunked loop on the card, captured and eager, "
+            "against the CPU over a long run")
+        chunked_drift(torch, drift_path)
+        return
 
     regs, spills = registers_of(build_log)
     REGISTERS.update(regs)
@@ -3660,6 +4145,17 @@ def main():
     results = {"stats": check_stats(torch)}
     log("[4c] the statistics' sample time")
     results["stats_sample_ms"] = time_stats(torch)
+    log("[4d] the chunked loop, captured: its graphs against the eager body, "
+        "and the card against the CPU")
+    chunk_checks = {}
+    for dtype in (torch.float32, torch.float64):
+        err, _ = graph_against_eager(torch, 64, dtype)
+        chunk_checks["graph_vs_eager_64_%s" % str(dtype)[6:]] = err
+    chunk_checks["card_vs_cpu_32_f64"] = chunked_card_against_cpu(torch)
+    steps, chunks = chunked_captured_against_eager(torch)
+    chunk_checks["captured_vs_eager_32_f64"] = {"steps": steps,
+                                                "chunks": chunks}
+    results["chunked"] = {"checks": chunk_checks}
     results["evisc_critical"] = {k: {"cond_max": c, "err_over_bound": r}
                                  for k, (c, r) in critical.items()}
     entries = {}
@@ -3689,17 +4185,26 @@ def main():
             reports.append(profile_steps(torch, m, s, label))
 
     def dry_path(phase, key, label, build, n, k, state_of=None, step_kw=None,
-                 first=False):
+                 first=False, chunked=None):
         """A dry-path case through Model.run, then its kernels against
         their plain versions at its shapes and timed: the RK-folded forms
         through kernel_cases and time_kernels, the substep without the RK
-        fold through generic_kernel_cases and time_generic_kernels."""
+        fold through generic_kernel_cases and time_generic_kernels.
+        chunked: the arguments of chunked_run, which runs the case from the
+        same restart through the captured chunked loop first ([4d])."""
         log("[%s] %s %dx%dx%d float32 through Model.run%s"
             % (phase[0], label, n[0], n[1], k,
                " (build_step(%s))" % step_kw if step_kw else ""))
         with tempfile.TemporaryDirectory() as workdir:
             m, s, res = run_les(torch, workdir, label, build, n, k=k,
                                 state_of=state_of, step_kw=step_kw)
+            if chunked is not None:
+                log("[4d] %s %dx%dx%d float32 through Model.run(), the "
+                    "chunked loop captured" % (label, n[0], n[1], k))
+                res_c, replayed = chunked_run(torch, m, label,
+                                              step_kw=step_kw, **chunked)
+                results.setdefault("chunked", {})[key] = res_c
+                by_path[key + "_chunked"] = replayed
             where = "%s %s float32" % (label, shape_str(m))
             log("[%s] kernels at %s: against their plain versions, then "
                 "timed" % (phase[1], where))
@@ -3729,10 +4234,15 @@ def main():
 
     # A: the main path on K22, then its K1 -> K2 -> K4 rhs form at 256^3
     dry_path((5, 6), "drycblles_512_f32", "drycblles", build_drycblles,
-             (512, 512), 512, state_of=initial_state, first=True)
+             (512, 512), 512, state_of=initial_state, first=True,
+             chunked={"endtime": 15, "outputiter": 8, "min_steps": 24,
+                      "per_step": True,
+                      "state_of": lambda m: initial_state(m, 17)})
     dry_path(("5b", "6b"), "drycblles_256_unfused_f32", "drycblles",
              build_drycblles, (256, 256), 256, state_of=initial_state,
-             step_kw={"fold": False})
+             step_kw={"fold": False},
+             chunked={"endtime": 15, "outputiter": 8, "min_steps": 8,
+                      "state_of": lambda m: initial_state(m, 17)})
 
     def build_rico_2i5(*a):
         return build_rico(*a, swadvec="2i5")
@@ -3815,7 +4325,8 @@ def main():
     # folds), then its substep without the RK fold on a thinner grid (K20,
     # K21 and K1, K7 in their ghost mode), and the two forms held together
     dry_path((19, 20), "sullivan2011_512_f32", "sullivan2011", build_sullivan,
-             (512, 512), 512)
+             (512, 512), 512,
+             chunked={"endtime": 20, "outputiter": 8, "min_steps": 8})
     dry_path(("19b", "20b"), "sullivan2011_512x512x64_unfolded_f32",
              "sullivan2011", build_sullivan, (512, 512), 64,
              step_kw={"unfolded": True})
@@ -3825,7 +4336,8 @@ def main():
 
     # C: the neutral Ekman LES (thermo 0, no scalar) at 5.2 m isotropic
     dry_path((21, 22), "andren1994_768x384x288_f32", "andren1994 less s",
-             build_andren, (768, 384), 288)
+             build_andren, (768, 384), 288,
+             chunked={"endtime": 24, "outputiter": 8, "min_steps": 8})
 
     if profile_path:
         os.makedirs(os.path.dirname(os.path.abspath(profile_path)),

@@ -7,6 +7,8 @@
 //  * pres_apply <- PresGlue.apply (:2613, pallas_call :2634,
 //    _pres_apply_uvw_body): s* -= dt grad p and, unless it is the last
 //    substep, t -= cA_next grad p, for u, v and w, updated IN PLACE.
+// dti and dt are read from device scalars (the step's, taken on the card),
+// so that a launch captured in a CUDA graph reads each step's value.
 //
 // Bound: device-memory bytes (a few flops per value).
 //
@@ -49,10 +51,12 @@ __global__ void pres_rhs_kernel(const T* __restrict__ u,
                                 const T* __restrict__ v,
                                 const T* __restrict__ w, T* __restrict__ out,
                                 const T* __restrict__ pc, int itot, int jtot,
-                                int ktot, int ks, T dxi, T dyi, T dti) {
+                                int ktot, int ks, T dxi, T dyi,
+                                const T* __restrict__ dti_dev) {
     const long long plane = (long long)itot * jtot;
     const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (n >= plane) return;
+    const T dti = __ldg(dti_dev);
     const int j = (int)(n / itot), i = (int)(n - (long long)j * itot);
     const long long nip = (long long)j * itot + (i + 1 == itot ? 0 : i + 1);
     const long long njp = (long long)(j + 1 == jtot ? 0 : j + 1) * itot + i;
@@ -121,8 +125,9 @@ struct ApplyArgs {
     T *su, *sv, *sw;      // s*, in place
     T *tu, *tv, *tw;      // the carries, in place (null without CARRY)
     const T* pc;          // (ktot, NP)
+    const T* dt;          // the step's dt, a device scalar
     int itot, jtot, ktot, ks;
-    T dxi, dyi, dt, can;
+    T dxi, dyi, can;
     int chunks, vec_ok;
 };
 
@@ -157,6 +162,7 @@ pres_apply_kernel(const ApplyArgs<T> a) {
         (long long)j * a.itot + (i == 0 ? a.itot - 1 : i - 1);
     T* const s[3] = {a.su, a.sv, a.sw};
     T* const t[3] = {a.tu, a.tv, a.tw};
+    const T dt = __ldg(a.dt);
 
     auto fetch = [&](int k, ApplyLevel<T, CARRY>& L) {
         const T* const pk = a.p + k * plane;
@@ -203,7 +209,7 @@ pres_apply_kernel(const ApplyArgs<T> a) {
                 Vals<T> r;
 #pragma unroll
                 for (int e = 0; e < VW; ++e)
-                    r.v[e] = cur.s[c].v[e] - a.dt * g[c].v[e];
+                    r.v[e] = cur.s[c].v[e] - dt * g[c].v[e];
                 store_vals(s[c] + o, r, vec, n);
                 if constexpr (CARRY) {
 #pragma unroll
@@ -221,12 +227,12 @@ pres_apply_kernel(const ApplyArgs<T> a) {
 template <typename T>
 int launch_pres_rhs(const T* u, const T* v, const T* w, T* out, const T* pc,
                     int itot, int jtot, int ktot, int ks, double dxi,
-                    double dyi, double dti, cudaStream_t stream) {
+                    double dyi, const T* dti, cudaStream_t stream) {
     const long long plane = (long long)itot * jtot;
     const int threads = 256;
     pres_rhs_kernel<T><<<(unsigned int)((plane + threads - 1) / threads),
                          threads, 0, stream>>>(
-        u, v, w, out, pc, itot, jtot, ktot, ks, T(dxi), T(dyi), T(dti));
+        u, v, w, out, pc, itot, jtot, ktot, ks, T(dxi), T(dyi), dti);
     return (int)cudaGetLastError();
 }
 
@@ -234,14 +240,15 @@ template <typename T>
 ApplyArgs<T> apply_args(const void* p, void* su, void* sv, void* sw, void* tu,
                         void* tv, void* tw, const void* pc, int itot,
                         int jtot, int ktot, int ks, double dxi, double dyi,
-                        double dt, double can, int chunks) {
+                        const void* dt, double can, int chunks) {
     ApplyArgs<T> a;
     a.p = (const T*)p;
     a.su = (T*)su; a.sv = (T*)sv; a.sw = (T*)sw;
     a.tu = (T*)tu; a.tv = (T*)tv; a.tw = (T*)tw;
     a.pc = (const T*)pc;
     a.itot = itot; a.jtot = jtot; a.ktot = ktot; a.ks = ks;
-    a.dxi = T(dxi); a.dyi = T(dyi); a.dt = T(dt); a.can = T(can);
+    a.dt = (const T*)dt;
+    a.dxi = T(dxi); a.dyi = T(dyi); a.can = T(can);
     a.chunks = chunks;
     a.vec_ok = itot % (16 / (int)sizeof(T)) == 0;
     a.vec_ok = a.vec_ok && km::aligned16(p) && km::aligned16(su)
@@ -279,16 +286,17 @@ int pres_apply_info(int carry, int* out) {
     extern "C" int mhh_pres_rhs_##SUF(                                        \
         const void* u, const void* v, const void* w, void* out,               \
         const void* pc, int itot, int jtot, int ktot, int ks, double dxi,     \
-        double dyi, double dti, void* stream) {                               \
+        double dyi, const void* dti, void* stream) {                          \
         return mhh::launch_pres_rhs<T>((const T*)u, (const T*)v, (const T*)w, \
                                        (T*)out, (const T*)pc, itot, jtot,     \
-                                       ktot, ks, dxi, dyi, dti,               \
+                                       ktot, ks, dxi, dyi, (const T*)dti,     \
                                        (cudaStream_t)stream);                 \
     }                                                                         \
     extern "C" int mhh_pres_apply_##SUF(                                      \
         const void* p, void* su, void* sv, void* sw, void* tu, void* tv,      \
         void* tw, const void* pc, int itot, int jtot, int ktot, int ks,       \
-        double dxi, double dyi, double dt, double can, int carry, int chunks, \
+        double dxi, double dyi, const void* dt, double can, int carry,        \
+        int chunks,                                                           \
         void* stream) {                                                       \
         return mhh::launch_pres_apply<T>(                                     \
             mhh::apply_args<T>(p, su, sv, sw, tu, tv, tw, pc, itot, jtot,     \

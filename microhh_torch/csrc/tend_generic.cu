@@ -78,8 +78,10 @@
 // code `if constexpr`: group p takes three level bases (u, v, th; w; e) where
 // the other instances take one, and groups k0-1 and k1 repeat the edge
 // planes at the walls.  The generic column fold of the table is not applied
-// under DRY (the sponge is DRY's own).  s* = s + cbdt*t_total goes to fresh
-// tensors (th's too), the carry = can*t_total in place unless `carry` is 0,
+// under DRY (the sponge is DRY's own).  s* = s + cbdt*t_total goes to the
+// arrays given (th's too; cbdt read from a device scalar, the step's, so
+// that a launch captured in a CUDA graph reads each step's value; K8/K9
+// take it by value), the carry = can*t_total in place unless `carry` is 0,
 // and `first` (the carry zero) reads no carry at all: the read-ahead gives
 // 0.  Bound: u, v, w, th, e and four carries read, four s* and four carries
 // written: 17 x 4 B a point in f32 (9.13 GB at 512^3), 13 without th.
@@ -433,10 +435,11 @@ struct UvwArgs {
     const T* th;
     T* tth;
     T svisc, tPri;
-    // K2's: th's s* (null without thermo) and the first-substep flag (no
-    // carry read)
+    // K2's: th's s* (null without thermo), the first-substep flag (no
+    // carry read) and cB*dt as a device scalar (K8/K9 take cbdt by value)
     T* ths;
     int first;
+    const T* cbdt_dev;
 };
 
 // dynamic shared memory of one launch (ops/kmarch.py repeats it): UVW_R
@@ -483,6 +486,9 @@ tend_uvw_kernel(const UvwArgs<T> a) {
     constexpr int SZ = Sl::SIZE, PL = NF * SZ;
     // K2's clamped reads (fold_ghosts) and its `first` flag
     constexpr bool CL = RK && DRY;
+    T cbdt;
+    if constexpr (CL) cbdt = __ldg(a.cbdt_dev);
+    else cbdt = a.cbdt;
     T* const ring = reinterpret_cast<T*>(uvw_smem_buf);   // [R][NF][SZ]
     T* const rows = ring + UVW_R * PL;                     // [R][NTGP]
     const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * km::TI + tx;
@@ -704,10 +710,10 @@ tend_uvw_kernel(const UvwArgs<T> a) {
         if (inside) {
             const long long o = level(k) + o2;
             if (RK) {
-                a.us[o] = u1 + a.cbdt * ut;
-                a.vs[o] = v1 + a.cbdt * vt;
-                a.ws[o] = w1 + a.cbdt * wt;
-                if constexpr (RK && TH) a.ths[o] = h.a1 + a.cbdt * h.t;
+                a.us[o] = u1 + cbdt * ut;
+                a.vs[o] = v1 + cbdt * vt;
+                a.ws[o] = w1 + cbdt * wt;
+                if constexpr (RK && TH) a.ths[o] = h.a1 + cbdt * h.t;
                 if (a.carry) {
                     a.tu[o] = a.can * ut;
                     a.tv[o] = a.can * vt;
@@ -802,7 +808,7 @@ UvwArgs<T> uvw_args(const void* u, const void* v, const void* w,
                && km::aligned16(v) && km::aligned16(w) && km::aligned16(e);
     a.th = nullptr; a.tth = nullptr;
     a.svisc = T(0); a.tPri = T(0);
-    a.ths = nullptr; a.first = 0;
+    a.ths = nullptr; a.first = 0; a.cbdt_dev = nullptr;
     return a;
 }
 
@@ -833,14 +839,14 @@ UvwArgs<T> rk_args(const void* u, const void* v, const void* w,
                    void* ws, void* ths, void* tu, void* tv, void* tw,
                    void* tth, const void* ct, int itot, int jtot, int ktot,
                    int ks, double dxi, double dyi, double visc, double svisc,
-                   double tPr, double cbdt, double can, double fc,
+                   double tPr, const void* cbdt, double can, double fc,
                    double utrans, double vtrans, int first, int carry,
                    int coriolis, int chunks) {
     UvwArgs<T> a = dry_args<T>(u, v, w, th, e, tu, tv, tw, tth, ct, itot,
                                jtot, ktot, ks, dxi, dyi, visc, svisc, tPr, fc,
                                utrans, vtrans, coriolis, chunks);
     a.us = (T*)us; a.vs = (T*)vs; a.ws = (T*)ws; a.ths = (T*)ths;
-    a.cbdt = T(cbdt); a.can = T(can);
+    a.cbdt_dev = (const T*)cbdt; a.can = T(can);
     a.carry = carry; a.first = first;
     return a;
 }
@@ -920,7 +926,7 @@ UvwArgs<T> rk_args(const void* u, const void* v, const void* w,
         const void* e, void* us, void* vs, void* ws, void* ths, void* tu,     \
         void* tv, void* tw, void* tth, const void* ct, int itot, int jtot,    \
         int ktot, int ks, double dxi, double dyi, double visc, double svisc,  \
-        double tPr, double cbdt, double can, double fc, double utrans,        \
+        double tPr, const void* cbdt, double can, double fc, double utrans,   \
         double vtrans, int first, int carry, int coriolis, int chunks,        \
         void* stream) {                                                       \
         return mhh::launch_tend_rk<T>(                                        \

@@ -5,6 +5,8 @@
 // (s* = s + cB*dt*t_total, carry = cA_next*t_total), and the Poisson
 // right-hand side dti * div(rho s*).  The eddy viscosity e(k) is written out
 // as well: the MOST wall patches read it and the step keeps it in aux.
+// cB*dt and dti are read from device scalars (the step's, taken on the
+// card), so that a launch captured in a CUDA graph reads each step's value.
 //
 // Replaces the TPU kernel FusedLES2.tendencies_rk in its tiled fold_ghosts
 // form (microhh_tpu/ops/pallas_fused.py:1875, call :2073, body
@@ -96,8 +98,11 @@ struct FoldArgs {
     T *e_out;                       // (ktot, jtot, itot), null with e_in
     T *rhs;                         // (ktot, jtot, itot)
     const T *ct, *ce;               // (ktot, NTG) and (ktot, NE) tables
+    // cB*dt and 1/(cB*dt): device scalars, so that a captured launch
+    // reads each step's dt
+    const T *cbdt, *dti;
     int itot, jtot, ktot, ks;
-    T dxi, dyi, visc, svisc, tPr, cbdt, can, dti, fc, utrans, vtrans;
+    T dxi, dyi, visc, svisc, tPr, can, fc, utrans, vtrans;
     int first, carry, coriolis, chunks, vec_ok;
 };
 
@@ -142,7 +147,8 @@ tend_rk_fold_kernel(const FoldArgs<T> a) {
     const long long plane = (long long)itot * jtot;
     constexpr bool thermo = THERMO;
     const T grav = T(9.81);
-    const T dxi = a.dxi, dyi = a.dyi, visc = a.visc, cbdt = a.cbdt;
+    const T dxi = a.dxi, dyi = a.dyi, visc = a.visc;
+    const T cbdt = __ldg(a.cbdt), dti = __ldg(a.dti);
     const Slots q{0, 1, 2};
     int k0, k1;
     km::chunk_bounds(blockIdx.z, a.chunks, kt, k0, k1);
@@ -421,7 +427,7 @@ tend_rk_fold_kernel(const FoldArgs<T> a) {
             const T* s1p = sv + (bp * (K22_TJ + 1) + ty) * TI + tx;
             const T divh = (s0[1] - s0[0]) * dxi + (s1p[TI] - s1p[0]) * dyi;
             a.rhs[o - level(0) - plane] =
-                a.dti * (cc[T_RHO_M1] * divh + (wfl - wsp) * cc[T_DZI_M1]);
+                dti * (cc[T_RHO_M1] * divh + (wfl - wsp) * cc[T_DZI_M1]);
         }
         wsp = wfl;
         u0 = u1; u1 = u2; u2 = un;
@@ -461,7 +467,7 @@ tend_rk_fold_kernel(const FoldArgs<T> a) {
         const T* s1p = sv + (bp * (K22_TJ + 1) + ty) * TI + tx;
         const T divh = (s0[1] - s0[0]) * dxi + (s1p[TI] - s1p[0]) * dyi;
         a.rhs[(long long)k * plane + o2] =
-            a.dti * (cc[T_RHO] * divh
+            dti * (cc[T_RHO] * divh
                      + (cc[T_RHOH1] * wtop - wsp) * cc[T_DZI]);
     }
 }
@@ -491,7 +497,7 @@ int launch_tend_rk_fold(const FoldArgs<T>& args, cudaStream_t stream) {
         void* tu_out, void* tv_out, void* tw_out, void* tth, void* e_out,     \
         void* rhs, const void* ct, const void* ce, int itot, int jtot,        \
         int ktot, int ks, double dxi, double dyi, double visc, double svisc,  \
-        double tPr, double cbdt, double can, double dti, double fc,           \
+        double tPr, const void* cbdt, double can, const void* dti, double fc, \
         double utrans, double vtrans, int first, int carry, int coriolis,     \
         int chunks, void* stream) {                                           \
         mhh::FoldArgs<T> a;                                                   \
@@ -505,8 +511,9 @@ int launch_tend_rk_fold(const FoldArgs<T>& args, cudaStream_t stream) {
         a.rhs = (T*)rhs; a.ct = (const T*)ct; a.ce = (const T*)ce;            \
         a.itot = itot; a.jtot = jtot; a.ktot = ktot; a.ks = ks;               \
         a.dxi = T(dxi); a.dyi = T(dyi); a.visc = T(visc);                     \
-        a.svisc = T(svisc); a.tPr = T(tPr); a.cbdt = T(cbdt);                 \
-        a.can = T(can); a.dti = T(dti); a.fc = T(fc);                         \
+        a.svisc = T(svisc); a.tPr = T(tPr);                                   \
+        a.cbdt = (const T*)cbdt; a.dti = (const T*)dti;                       \
+        a.can = T(can); a.fc = T(fc);                                         \
         a.utrans = T(utrans); a.vtrans = T(vtrans);                           \
         a.first = first; a.carry = carry; a.coriolis = coriolis;              \
         a.chunks = chunks;                                                    \

@@ -11,7 +11,8 @@ Every C entry ``mhh_<kernel>_<f32|f64>`` launches on the stream it is given,
 allocates nothing and returns ``cudaGetLastError()``.  A ``Kernel`` object is
 the Python side of one such kernel: it passes the pointers, raises on a
 failed launch and counts its launches, so a run can show that its main path
-went through the kernel.
+went through the kernel.  A launch made while a CUDA graph is captured
+(``graph_step.py``) is recorded instead, and counted at every replay.
 """
 
 import ctypes
@@ -41,23 +42,26 @@ SIGNATURES = {
     "evisc": [_P] * 6 + [_I] * 4 + [_D] * 3 + [_I] * 3,
     # K2, the momentum sweep's dry RK form (csrc/tend_generic.cu): u, v, w,
     # th, e (interior), us, vs, ws, ths, tu, tv, tw, tth, ct; itot, jtot,
-    # ktot, ks; dxi, dyi, visc, svisc, tPr, cbdt, can, fc, utrans, vtrans;
-    # first, carry, coriolis, chunks (ops/kmarch.py).  th, ths, tth null: no
-    # thermo
-    "tend_rk": [_P] * 14 + [_I] * 4 + [_D] * 10 + [_I] * 4,
+    # ktot, ks; dxi, dyi, visc, svisc, tPr, cbdt (a device scalar), can, fc,
+    # utrans, vtrans; first, carry, coriolis, chunks (ops/kmarch.py).  th,
+    # ths, tth null: no thermo
+    "tend_rk": [_P] * 14 + [_I] * 4 + [_D] * 5 + [_P] + [_D] * 4 + [_I] * 4,
     # u, v, w, th, e_in, se, us, vs, ws, ths, tu_in, tv_in, tw_in, tu_out,
     # tv_out, tw_out, tth, e_out, rhs, ct, ce; itot, jtot, ktot, ks; dxi,
-    # dyi, visc, svisc, tPr, cbdt, can, dti, fc, utrans, vtrans; first,
-    # carry, coriolis, chunks (ops/kmarch.py)
-    "tend_rk_fold": [_P] * 21 + [_I] * 4 + [_D] * 11 + [_I] * 4,
+    # dyi, visc, svisc, tPr, cbdt, can, dti, fc, utrans, vtrans (cbdt and
+    # dti device scalars); first, carry, coriolis, chunks (ops/kmarch.py)
+    "tend_rk_fold": [_P] * 21 + [_I] * 4 + [_D] * 5 + [_P, _D, _P]
+                    + [_D] * 3 + [_I] * 4,
     # spectrum (complex, in place), winv, tab; kmax, nmodes, sweep (the
     # sweep form, else the scan form: ops/pres_2.py tdma_form)
     "tdma": [_P] * 3 + [_I, ctypes.c_longlong, _I],
-    # u, v, w, out, pc; itot, jtot, ktot, ks; dxi, dyi, dti
-    "pres_rhs": [_P] * 5 + [_I] * 4 + [_D] * 3,
+    # u, v, w, out, pc; itot, jtot, ktot, ks; dxi, dyi, dti (a device
+    # scalar)
+    "pres_rhs": [_P] * 5 + [_I] * 4 + [_D] * 2 + [_P],
     # p, su, sv, sw, tu, tv, tw (null without the carry), pc; itot, jtot,
-    # ktot, ks; dxi, dyi, dt, can; carry, chunks (ops/kmarch.py)
-    "pres_apply": [_P] * 8 + [_I] * 4 + [_D] * 4 + [_I] * 2,
+    # ktot, ks; dxi, dyi, dt (a device scalar), can; carry, chunks
+    # (ops/kmarch.py)
+    "pres_apply": [_P] * 8 + [_I] * 4 + [_D] * 2 + [_P, _D] + [_I] * 2,
     # the cluster form: real x, complex y; kt, jtot, itot, C (CTAs a
     # cluster), F (modes a column chunk)
     "dft_fwd": [_P] * 2 + [_I] * 5,
@@ -222,6 +226,10 @@ class Kernel:
     where its source lies, which TPU kernel it replaces, and how often it
     was launched."""
 
+    # a list while a CUDA graph is captured: a launch then appends its
+    # kernel there instead of counting itself (graph_step.py counts replays)
+    recording = None
+
     def __init__(self, name, source, replaces, entry=None):
         self.entry = entry or name
         if self.entry not in SIGNATURES:
@@ -240,7 +248,10 @@ class Kernel:
         if rc != 0:
             raise RuntimeError("CUDA kernel %s failed to launch (cudaError %d)"
                                % (self.name, rc))
-        self.launches += 1
+        if Kernel.recording is not None:
+            Kernel.recording.append(self)
+        else:
+            self.launches += 1
 
     def info(self, dtype, scheme, S=0):
         """What the card reports of the kernel's form for (dtype, scheme,
@@ -271,6 +282,20 @@ def check(tensors, dtype, device, shapes=None):
         if shapes is not None and tuple(a.shape) != tuple(shapes[n]):
             raise ValueError("tensor %d has shape %s, expected %s"
                              % (n, tuple(a.shape), tuple(shapes[n])))
+
+
+def device_scalar(x, like):
+    """x as the 0-dim tensor of like's dtype on like's device that a kernel
+    reads through its pointer: a tensor is checked and passed as it is (a
+    step's dt, so that a captured launch reads each step's value), a number
+    is put there."""
+    if not torch.is_tensor(x):
+        return torch.full((), x, dtype=like.dtype, device=like.device)
+    if x.dim() != 0:
+        raise ValueError("a device scalar has no dimensions, not %s"
+                         % (tuple(x.shape),))
+    check([x], like.dtype, like.device)
+    return x
 
 
 def on_cpu(t):

@@ -51,14 +51,18 @@ advection + diffusion producer at 4th order.
   the JAX package, which has no kernel there), and the low-storage RK
   update of s and the carry, in place.  There is no RK fold at 4th order.
 
-The host loop takes the adaptive-dt limits from one pass (K7; the CFL rate
+The time loop takes the adaptive-dt limits from one pass (K7; the CFL rate
 of an interpolated or a 4th-order scheme from its own ``cfl_max``, the
 4th-order diffusion number a constant of the grid) and the sedimentation
 limit, and does the integer-time bookkeeping, the status
 table, the statistics (``stats.py``, ``budget.py``), the dumps
 (``output.py``) and the restarts, as the reference's main loop
-(``src/model.cxx:303-557``) does.  An option outside these slices raises
-NotImplementedError naming its ROADMAP item.  The model runs on the device
+(``src/model.cxx:303-557``) does.  ``run()`` takes the JAX package's
+device-side chunked loop where it can (``_run_chunked``: dt computed on the
+device from step to step between two output events, the dry RK step
+captured as CUDA graphs on the card, ``graph_step.py``), else the per-step
+host loop; ``MICROHH_CHUNK=0`` asks for the latter.  An option outside
+these slices raises NotImplementedError naming its ROADMAP item.  The model runs on the device
 it is given, by default the first CUDA device; ``device="cpu"`` runs every
 kernel's plain-torch version instead.
 """
@@ -70,6 +74,7 @@ import numpy as np
 import torch
 
 from .config import Ini
+from .graph_step import ChunkLoop
 from .grid import Grid
 from .fields import Fields
 from .timeloop import Timeloop
@@ -290,6 +295,10 @@ class Model:
         self.advec_fused = None
         self.o4 = None
         self.unfolded = False
+        # the chunked loop (build_chunk), and (steps, seconds) of the last
+        # run's loop
+        self._chunk = None
+        self.loop_wall = None
 
     def at_wall_clock_limit(self):
         return (_time.time() - self._wall_start) > self.wallclocklimit * 3600. - 600.
@@ -429,10 +438,20 @@ class Model:
                                    else [fz.k_scalars])
         return evisc + micro + advec + sweeps + pres + [fz.k_limits]
 
-    def substep(self, s, sfc, aux, dt, sub):
+    def device_dt(self):
+        """True on the dry RK path, whose kernels (K22, or K2 and K4 rhs,
+        and K4 apply) read the step's dt from the device: its step makes no
+        host read, so the chunked loop captures it.  The other paths' step
+        reads dt to the host once."""
+        return self.o4 is None and not (self.generic or self.unfolded)
+
+    def substep(self, s, sfc, aux, dt, sub, out=None):
         """One low-storage RK substep on the RK-folded path (model.py:370-515
         of the JAX package): the carry self.t is updated in place (K22
-        replaces the tensors of u's and v's carry in the dict)."""
+        replaces the tensors of u's and v's carry in the dict).  dt: a
+        0-dim tensor on the dry path (subdt and its inverse are taken on
+        the device), a number on the others.  out: on the dry path, the
+        arrays that receive the new state (on the card)."""
         if self.o4 is not None:
             return self._substep_o4(s, sfc, aux, dt, sub)
         if self.unfolded:
@@ -453,12 +472,13 @@ class Model:
                       if fz.smag.surface else None)
             sfc = self.boundary.exec(ctx, s, sfc, aux)
             s_star, aux, rhs = tendencies_rk_fold(
-                fz, ctx, s, self.t, aux, sfc, subdt, can, first, se_row)
+                fz, ctx, s, self.t, aux, sfc, subdt, can, first, se_row,
+                out=out)
         else:
             aux = exec_viscosity(fz, ctx, s, sfc, aux)
             sfc = self.boundary.exec(ctx, s, sfc, aux)
             s_star = tendencies_rk(fz, ctx, s, self.t, aux, sfc, subdt, can,
-                                   first)
+                                   first, out=out)
             rhs = None
         aux["subdt"] = subdt
         s_new, aux = pressure_rk(self.glue, ctx, self.pres, s_star, self.t,
@@ -581,17 +601,34 @@ class Model:
         self._rk_update(s, sub, subdt)
         return s, sfc, aux
 
-    def step(self, s, sfc, dt):
-        """One RK step of size dt: returns (s, sfc, aux).  The 4th-order
-        path updates the tensors of s in place."""
+    def step(self, s, sfc, dt, out=None):
+        """One RK step of size dt: returns (s, sfc, aux).  dt: a number
+        or a 0-dim tensor of the model's dtype on its device; the dry RK
+        path takes it as a device scalar (a number is put there), the others
+        as a number (a tensor is read to the host).
+        out: the arrays of the new state, written by the last substep on the
+        dry RK path on the card (the chunked loop's graphs alternate between
+        two states); else the step returns new ones.  The 4th-order path
+        updates the tensors of s in place."""
+        if out is not None and not (self.device_dt()
+                                    and self.device.type == "cuda"):
+            raise ValueError("out= is the dry RK path's on the card: the "
+                             "other paths and the plain versions return new "
+                             "arrays")
+        if not self.device_dt():
+            dt = float(dt)
+        elif not torch.is_tensor(dt):
+            dt = torch.full((), dt, dtype=self.dtype, device=self.device)
         if self.generic and not self.unfolded:
             # the producers add into the carry from the first substep on
             # (the steps that update in place leave the carry zero)
             for a in self.t.values():
                 a.zero_()
         aux = {}
-        for sub in range(self.timeloop.n_substeps):
-            s, sfc, aux = self.substep(s, sfc, aux, dt, sub)
+        nsub = self.timeloop.n_substeps
+        for sub in range(nsub):
+            s, sfc, aux = self.substep(s, sfc, aux, dt, sub,
+                                       out if sub == nsub - 1 else None)
         return s, sfc, aux
 
     def limits(self, s, sfc):
@@ -707,11 +744,136 @@ class Model:
             raise RuntimeError("Simulation has non-finite numbers")
         return d
 
+    # ------------------------------------------------------------------
+    #  the device-side chunked time loop (microhh_tpu/model.py:974-1143):
+    #  between two output events the adaptive-dt loop runs on the device,
+    #  dt taken from step to step there; the host reads two flags a step
+    # ------------------------------------------------------------------
+    def _chunk_supported(self):
+        """The JAX package's gate (microhh_tpu/model.py:980-991): adaptive
+        dt, not post mode, and MICROHH_CHUNK not 0.  The time-dependent
+        boundaries and forcings that it also excludes raise in the port
+        (check_slice)."""
+        return (os.environ.get("MICROHH_CHUNK", "1") != "0"
+                and self.timeloop.adaptivestep
+                and self.sim_mode != "post")
+
+    def build_chunk(self, capture=True):
+        """The chunk's carried scalars and body (graph_step.ChunkLoop),
+        made once per model at its first call; on the card the dry RK
+        step's graphs are captured at its first chunk.  capture False keeps
+        the body eager on the card (the check of the graphs against it)."""
+        if self._chunk is None:
+            self._chunk = ChunkLoop(self, capture=capture)
+        return self._chunk
+
+    def _chunk_horizon(self, at_wall_limit):
+        """Integer time to the nearest restart, statistics, dump or end
+        event (microhh_tpu/model.py:1062-1077)."""
+        tl = self.timeloop
+        ih = tl.idtmax * max(tl.outputiter, 1) * 100  # fallback bound
+        if at_wall_limit:
+            ih = min(ih, tl.iiotimeprec - tl.itime % tl.iiotimeprec)
+        ih = min(ih, tl.isavetime - tl.itime % tl.isavetime)
+        if tl.itime < tl.iendtime:
+            ih = min(ih, tl.iendtime - tl.itime)
+        for comp in (self.stats, self.dump):
+            if comp is not None:
+                ih = min(ih, comp.isampletime - tl.itime % comp.isampletime)
+        return ih
+
+    def _host_limits(self, s, sfc):
+        """The rates of Model.limits, read to the host in one transfer."""
+        lim = self.limits(s, sfc)
+        return dict(zip(lim, torch.stack(list(lim.values())).tolist()))
+
+    def _advance_chunk(self, s, sfc, ih, nmax):
+        """One chunk from (s, sfc): at most nmax steps, the last clamped
+        onto the integer horizon ih; then the host bookkeeping of
+        microhh_tpu/model.py:1125-1141.  Returns (s, sfc, the limit rates
+        of the final state)."""
+        from .timeloop import IFACTOR
+        tl, loop = self.timeloop, self.build_chunk()
+        loop.start(tl.dt, ih / IFACTOR)
+        s, sfc, aux = loop.run(s, sfc, nmax)
+        lim = self.limits(s, sfc)
+        carried = [loop.tau, loop.dt] + [x.to(loop.tau.dtype)
+                                         for x in (loop.n, loop.done)]
+        vals = torch.stack(carried + list(lim.values())).tolist()
+        tau, dt_dev, n, done = vals[0], vals[1], int(vals[2]), bool(vals[3])
+        if n == 0:
+            raise RuntimeError("chunk made no progress (dt underflow?)")
+        if self.stats is not None or self.dump is not None:
+            # the graphs' pressure lives in their pool: keep a copy
+            self._last_aux = {"p": aux["p"].clone()}
+        self._last_sfc = sfc
+        tl.iteration += n
+        if done:
+            tl.itime += ih       # exact: the last dt was clamped
+        else:
+            tl.itime += int(round(tau * IFACTOR))
+        tl.time = tl.itime / IFACTOR
+        tl.idt = max(int(round(dt_dev * IFACTOR)), 1)
+        tl.dt = tl.idt / IFACTOR
+        tl.iotime = tl.itime // tl.iiotimeprec
+        if tl.itime >= tl.iendtime:
+            tl.loop = False
+        return s, sfc, dict(zip(lim, vals[4:]))
+
+    def _run_chunked(self, status_file):
+        """The event-driven outer loop around the chunks
+        (microhh_tpu/model.py:1079-1143): status, statistics, dump, then
+        the restart (not at the first pass) and the end, between chunks."""
+        tl = self.timeloop
+        s, sfc = self.as_device_state(self.load_state())
+        if self.fused is None and self.o4 is None:
+            self.build_step()
+        self.build_chunk()
+        t0, it0 = _time.perf_counter(), tl.iteration
+        lim = self._host_limits(s, sfc)
+        first = True
+        while True:
+            cfl = lim.get("cfl_rate", 0.) * tl.dt
+            dn = lim.get("dn_rate", 0.) * tl.dt
+            if tl.do_check():
+                self.print_status(s, sfc, cfl, dn, status_file)
+            if tl.is_stats_step():
+                if self.stats is not None:
+                    self.stats.maybe_exec(self, s, sfc)
+                if self.dump is not None and self.dump.do_dump(tl.itime):
+                    self.dump.exec(s, self._last_aux, tl.iotime)
+            if (not first and tl.do_save(self.at_wall_clock_limit())
+                    and tl.iteration != 0):
+                self._last_sfc = sfc
+                self.save_restart(s)
+            first = False
+            if tl.is_finished():
+                break
+            ih = self._chunk_horizon(self.at_wall_clock_limit())
+            nmax = 1 << 30
+            if tl.outputiter > 0:
+                nmax = tl.outputiter - tl.iteration % tl.outputiter
+            s, sfc, lim = self._advance_chunk(s, sfc, ih, nmax)
+        self.loop_wall = (tl.iteration - it0, _time.perf_counter() - t0)
+        self.final_sfc = sfc
+        return s
+
     def run(self, max_iters=None):
-        """The host time loop (model.py:1219-1343 of the JAX package):
-        adaptive dt landing on the statistics' and dumps' sampling times,
-        status table, statistics, dumps, restarts.  Returns the final
-        state."""
+        """The time loop: adaptive dt landing on the statistics' and dumps'
+        sampling times, status table, statistics, dumps, restarts.  Returns
+        the final state.  Without max_iters it is the chunked loop where
+        the JAX package takes it (microhh_tpu/model.py:1219-1229: adaptive
+        dt, MICROHH_CHUNK not 0, MICROHH_PROFILE unset), else the per-step
+        host loop (model.py:1231-1343 of the JAX package).  ``loop_wall``:
+        (steps, seconds) of the loop, its set-up left out."""
+        if (max_iters is None and self._chunk_supported()
+                and os.environ.get("MICROHH_PROFILE") is None):
+            with open(self._status_path(), "a") as status_file:
+                status_file.write(
+                    "%8s %11s %10s %11s %8s %8s %11s %16s %16s %16s\n"
+                    % ("ITER", "TIME", "CPUDT", "DT", "CFL", "DNUM",
+                       "DIV", "MOM", "TKE", "MASS"))
+                return self._run_chunked(status_file)
         tl = self.timeloop
         s, sfc = self.as_device_state(self.load_state())
         if self.fused is None and self.o4 is None:
@@ -719,6 +881,7 @@ class Model:
         cflmax, cflmin = self.advec.cflmax, self.advec.cflmin
         dnmax = self.diff.dnmax
         niter = 0
+        t0 = _time.perf_counter()
         with open(self._status_path(), "a") as status_file:
             status_file.write("%8s %11s %10s %11s %8s %8s %11s %16s %16s %16s\n"
                               % ("ITER", "TIME", "CPUDT", "DT", "CFL", "DNUM",
@@ -732,9 +895,8 @@ class Model:
                     if comp is not None:
                         tl.set_time_step_limit(
                             comp.isampletime - tl.itime % comp.isampletime)
-                lim = self.limits(s, sfc)
                 # one read of the rates to the host
-                lim = dict(zip(lim, torch.stack(list(lim.values())).tolist()))
+                lim = self._host_limits(s, sfc)
                 cfl = lim["cfl_rate"] * tl.dt
                 dn = lim["dn_rate"] * tl.dt
                 tl.set_time_step_limit(tl.idt * cflmax / max(cfl, cflmin))
@@ -765,6 +927,7 @@ class Model:
                 niter += 1
                 if max_iters is not None and niter >= max_iters:
                     break
+        self.loop_wall = (niter, _time.perf_counter() - t0)
         self.final_sfc = sfc
         return s
 

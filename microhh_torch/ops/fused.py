@@ -78,7 +78,7 @@ import numpy as np
 import torch
 
 from .. import constants as cst
-from ..kernels import Kernel, check, on_cpu
+from ..kernels import Kernel, check, device_scalar, on_cpu
 from . import kmarch
 from .stencil import im, ip, jm, jp, i2
 
@@ -520,10 +520,13 @@ def tendencies_plain(s, e, t, ct, ks, dxi, dyi, visc, svisc, tPr, fc, utrans,
         t[n][ks:ke] += tend
 
 
-def _empty_ghosts_zero(like, ctx):
+def _empty_ghosts_zero(like, ctx, out=None):
     """An uninitialised array like ``like`` whose ghost planes are zero
-    (the kernels write the interior planes only)."""
-    out = torch.empty_like(like)
+    (the kernels write the interior planes only): ``out`` when given (an
+    array of the next state, which the chunked loop's graphs alternate
+    between), else a new one."""
+    if out is None:
+        out = torch.empty_like(like)
     out[:ctx.ks].zero_()
     out[ctx.ke:].zero_()
     return out
@@ -710,15 +713,20 @@ class Fused:
         return kmarch.plan("tend_rk", ctx.itot, ctx.jtot, ctx.ktot, S, dtype,
                            info["blocks_per_sm"] * info["sms"], chunks)
 
-    def tend_rk(self, s, t, e, cbdt, can, first, carry, chunks=None):
+    def tend_rk(self, s, t, e, cbdt, can, first, carry, chunks=None,
+                out=None):
         """K2: returns s* = s + cbdt*t_total (zero ghost planes) and, when
         carry, overwrites the interior of t with can*t_total in place; with
-        first the carry is not read.  e: the interior eddy viscosity.
+        first the carry is not read.  e: the interior eddy viscosity;
+        cbdt: a 0-dim tensor (the kernel reads it on the card) or a number.
+        out: the arrays to write s* into (on the card), else new ones.
         chunks: force the k-split (checks and timings only)."""
         ctx = self.ctx
+        u = s["u"]
+        if not on_cpu(u):
+            cbdt = device_scalar(cbdt, u)
         args = (ctx.ks, ctx.dxi, ctx.dyi, self.visc, self.svisc, self.tPr,
                 cbdt, can)
-        u = s["u"]
         if on_cpu(u):
             return tend_rk_plain(s, e, t, self.ct, *args, first, carry,
                                  *self._sweep_args())
@@ -727,7 +735,8 @@ class Fused:
         check([s[n] for n in names] + [t[n] for n in names] + [e, self.ct],
               u.dtype, u.device, [shape] * (2 * len(names))
               + [(ctx.ktot, ctx.jtot, ctx.itot), (ctx.ktot, NTG)])
-        s_star = {n: _empty_ghosts_zero(s[n], ctx) for n in names}
+        s_star = {n: _empty_ghosts_zero(s[n], ctx, out[n] if out else None)
+                  for n in names}
         self.k_tend(u.dtype, s["u"], s["v"], s["w"], self._th(s), e,
                     s_star["u"], s_star["v"], s_star["w"], self._th(s_star),
                     t["u"], t["v"], t["w"], self._th(t), self.ct, ctx.itot,
@@ -745,7 +754,7 @@ class Fused:
                            dtype, info["blocks_per_sm"] * info["sms"], chunks)
 
     def tend_rk_fold(self, s, t, se_row, cbdt, can, dti, first, carry,
-                     e=None, chunks=None):
+                     e=None, chunks=None, out=None):
         """K22: returns (s*, e, rhs): s* as tend_rk, the interior eddy
         viscosity it computed (its bottom row se_row, the MOST surface row,
         when given) and the Poisson right-hand side dti * div(rho s*), both
@@ -754,12 +763,16 @@ class Fused:
         in place when carry; t["u"], t["v"] and t["w"] are then REPLACED in
         the dict by new tensors when they were also read (not first),
         because a block reads u's and v's one cell inside its neighbours'
-        tiles and w's one level above its chunk.  chunks: force the k-split
-        (checks and timings only)."""
+        tiles and w's one level above its chunk.  cbdt, dti: 0-dim tensors
+        (the kernel reads them on the card) or numbers.  out: the arrays to
+        write s* into (on the card), else new ones.  chunks: force the
+        k-split (checks and timings only)."""
         ctx = self.ctx
+        u = s["u"]
+        if not on_cpu(u):
+            cbdt, dti = device_scalar(cbdt, u), device_scalar(dti, u)
         args = (ctx.ks, ctx.dxi, ctx.dyi, self.visc, self.svisc, self.tPr,
                 cbdt, can, dti)
-        u = s["u"]
         old = {n: t[n] for n in ("u", "v", "w")}
         if carry and not first:
             for n in ("u", "v", "w"):
@@ -777,7 +790,8 @@ class Fused:
               [shape] * (2 * len(names) + 3) + [(ctx.ktot, NTG), (ctx.ktot, NE)]
               + ([(ctx.jtot, ctx.itot)] if se_row is not None else [])
               + ([interior] if e is not None else []))
-        s_star = {n: _empty_ghosts_zero(s[n], ctx) for n in names}
+        s_star = {n: _empty_ghosts_zero(s[n], ctx, out[n] if out else None)
+                  for n in names}
         e_out = None
         if e is None:
             e_out = torch.empty(interior, dtype=u.dtype, device=u.device)
@@ -1099,8 +1113,11 @@ class PresGlue:
                               "microhh_tpu/ops/pallas_fused.py:2634")
 
     def rhs(self, su, sv, sw, dti):
-        """dti * div(rho s*) on the interior (ktot, jtot, itot)."""
+        """dti * div(rho s*) on the interior (ktot, jtot, itot); dti a
+        0-dim tensor (the kernel reads it on the card) or a number."""
         ctx = self.ctx
+        if not on_cpu(su):
+            dti = device_scalar(dti, su)
         args = (ctx.ks, ctx.dxi, ctx.dyi, dti)
         if on_cpu(su):
             return pres_rhs_plain(su, sv, sw, self.pc, *args)
@@ -1124,9 +1141,12 @@ class PresGlue:
     def apply(self, p, s, t, dt, can, carry, chunks=None):
         """s -= dt grad p and, when carry, t -= can grad p for u, v, w, in
         place on the interior planes.  The six arrays must be six tensors
-        (each value is read and written once, by one thread).  chunks:
+        (each value is read and written once, by one thread).  dt: a 0-dim
+        tensor (the kernel reads it on the card) or a number.  chunks:
         force the k-split (checks and timings only)."""
         ctx = self.ctx
+        if not on_cpu(p):
+            dt = device_scalar(dt, p)
         args = (ctx.ks, ctx.dxi, ctx.dyi, dt, can, carry)
         if on_cpu(p):
             return pres_apply_plain(p, s, t, self.pc, *args)
@@ -1268,11 +1288,12 @@ def _patch_wall_rows(fused, ctx, s, t, evisc, sfc, s_star, cbdt, can):
     return deltas
 
 
-def tendencies_rk(fused, ctx, s, t, aux, sfc, cbdt, can, first):
+def tendencies_rk(fused, ctx, s, t, aux, sfc, cbdt, can, first, out=None):
     """K2 with the eddy viscosity aux['evisc_int'], then the MOST wall rows
-    patched into s* and the carry."""
+    patched into s* and the carry.  cbdt: a 0-dim tensor or a number; out:
+    the arrays of s* (Fused.tend_rk)."""
     s_star = fused.tend_rk(s, t, aux["evisc_int"], cbdt, can, first,
-                           can != 0.)
+                           can != 0., out=out)
     if fused.smag.surface:
         _patch_wall_rows(fused, ctx, s, t, aux["evisc_int"], sfc, s_star,
                          cbdt, can)
@@ -1280,7 +1301,7 @@ def tendencies_rk(fused, ctx, s, t, aux, sfc, cbdt, can, first):
 
 
 def tendencies_rk_fold(fused, ctx, s, t, aux, sfc, cbdt, can, first,
-                       se_row=None, evisc_fold=True):
+                       se_row=None, evisc_fold=True, out=None):
     """K22, then the MOST wall rows patched into s*, the carry and, as
     rho div_h of the u* and v* corrections, into the bottom and top rows of
     the Poisson right-hand side (fused_tendencies_rk with rhs_dti = 1/cbdt,
@@ -1289,14 +1310,16 @@ def tendencies_rk_fold(fused, ctx, s, t, aux, sfc, cbdt, can, first,
     substep's MO gradients, microhh_tpu/model.py:383-394); by default
     computed here from sfc, for a caller that has not run it since.
     evisc_fold False: K22 reads aux['evisc_int'] instead of computing it.
-    Returns (s*, aux with 'evisc_int', rhs)."""
+    cbdt: a 0-dim tensor (1/cbdt is taken on its device) or a number; out:
+    the arrays of s* (Fused.tend_rk_fold).  Returns (s*, aux with
+    'evisc_int', rhs)."""
     smag = fused.smag
     e_in = None if evisc_fold else aux["evisc_int"]
     if smag.surface and se_row is None and evisc_fold:
         se_row = surface_evisc_row(smag, ctx, s, sfc, fused.has_thermo)
     s_star, evisc, rhs = fused.tend_rk_fold(
         s, t, se_row if evisc_fold else None, cbdt, can, 1. / cbdt, first,
-        can != 0., e=e_in)
+        can != 0., e=e_in, out=out)
     aux = dict(aux)
     aux["evisc_int"] = evisc
     if smag.surface:
@@ -1313,8 +1336,9 @@ def tendencies_rk_fold(fused, ctx, s, t, aux, sfc, cbdt, can, first,
 def pressure_rk(glue, ctx, pres, s_star, t, aux, subdt, can, rhs=None):
     """The projection of the RK-folded step: K4 rhs (unless the sweep has
     emitted ``rhs`` already, fused_pressure_rk's rhs=) -> spectral solve (K3)
-    -> K4 apply, in place on s* and the carry.  aux['p'] is the interior
-    pressure (ktot, jtot, itot)."""
+    -> K4 apply, in place on s* and the carry.  subdt: a 0-dim tensor (1/subdt
+    is taken on its device) or a number.  aux['p'] is the interior pressure
+    (ktot, jtot, itot)."""
     if rhs is None:
         rhs = glue.rhs(s_star["u"], s_star["v"], s_star["w"], 1. / subdt)
     p = pres.solve(rhs)

@@ -82,7 +82,11 @@ The ``steps`` group (``step_rows``) profiles two steps of jaenschwalde and
 of sullivan2011 512x512x64 without the RK fold, of drycblles 512^3 on K22
 and of drycblles 256^3 with ``fold=False`` (K1 -> K2 -> K4 rhs)
 (chip_smoke.py's builders of the same tree) and sums the device time by
-chip_smoke.py's PARTS.
+chip_smoke.py's PARTS.  The ``chunked`` group (``chunk_rows``) times the
+chunked loop's step of drycblles 512^3, drycblles 256^3 with
+``fold=False``, sullivan2011 512^3 and the neutral Ekman LES 768x384x288,
+captured and run eagerly: the wall a step, a replay's span, and the device
+time of its kernels from torch.profiler, whence the device idle share.
 Each time is the mean of 10 launches by
 CUDA events after one warm-up launch; the stencil kernels run on seeded
 random fields.  Beside each time: the bound (each input and output once
@@ -107,16 +111,19 @@ CUDA device.
 The script runs on an earlier checkout too (copy it into that tree's
 ``microhh_torch/``), so the same call can hold the trees in turns (parent,
 this, this, parent); a kernel without an info entry there gets no
-occupancy columns.  The scalar_rk and tdma groups need this tree's
-wrappers.
+occupancy columns.  The scalar_rk, tdma and chunked groups, and the
+s_tend, fold, rk and apply groups (K22, K2 and K4 read cB*dt, its inverse
+and dt from the device here), need this tree's wrappers.
 """
 
 import argparse
+import gc
 import hashlib
 import json
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -131,9 +138,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the timed groups: K16, K17, K12, K13, K10, K19, K8/K9 and K18; the
 # kernels that call s_tend; K22 on its paths; K11; K1/K14 (with K7); K7
 # (with K1/K14); K15; K3 and K21; K20; the device time a step of the
-# cells without the RK fold; K2; K4 apply
+# cells without the RK fold; K2; K4 apply; the chunked loop's step
 GROUPS = ("rings", "s_tend", "fold", "micro2", "evisc", "limits",
-          "scalar_rk", "tdma", "dry", "steps", "rk", "apply")
+          "scalar_rk", "tdma", "dry", "steps", "rk", "apply", "chunked")
 REPS = 10
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 33.5e12}
@@ -286,6 +293,14 @@ STEP_CELLS = [("jaenschwalde", "build_jaenschwalde", (1024, 256), 256, {}),
               ("drycblles", "build_drycblles", (512, 512), 512, {}),
               ("drycblles fold=False", "build_drycblles", (256, 256), 256,
                {"fold": False})]
+
+# the dry RK cells of the chunked loop, chip_smoke.py's [4d]: (label,
+# chip_smoke.py builder, (itot, jtot), ktot, build_step options)
+CHUNK_CELLS = [("drycblles", "build_drycblles", (512, 512), 512, {}),
+               ("drycblles fold=False", "build_drycblles", (256, 256), 256,
+                {"fold": False}),
+               ("sullivan2011", "build_sullivan", (512, 512), 512, {}),
+               ("andren1994 less s", "build_andren", (768, 384), 288, {})]
 
 
 def max_sm_clock_ghz():
@@ -1160,8 +1175,10 @@ def rk_rows(label, case, shape, dtype, ptx, card, loops=None,
         t = {nm: rnd(1e-3) for nm in names}
         e = rnd(k=ktot).abs()
 
+        cbdt = kernels.device_scalar(0.5, e)
+
         def fn(first=False, carry=True, **kw):
-            fz.tend_rk(s, t, e, 0.5, -5. / 9. if carry else 0., first, carry,
+            fz.tend_rk(s, t, e, cbdt, -5. / 9. if carry else 0., first, carry,
                        **kw)
 
         nbytes = (4 * nf + 1) * fb
@@ -1216,9 +1233,10 @@ def apply_rows(label, case, shape, dtype, ptx, card, device="cuda"):
         s = {nm: rnd() for nm in ("u", "v", "w")}
         t = {nm: rnd(1e-3) for nm in ("u", "v", "w")}
         p = rnd(k=ktot)
+        dt = kernels.device_scalar(1e-3, p)
         for carry in (True, False):
             def fn(carry=carry, **kw):
-                gl.apply(p, s, t, 1e-3, -5e-4 if carry else 0., carry, **kw)
+                gl.apply(p, s, t, dt, -5e-4 if carry else 0., carry, **kw)
 
             nbytes = (13 if carry else 7) * fb
             key = apply_function(dtype, carry)
@@ -1359,9 +1377,10 @@ def fold_rows(label, case, shape, dtype, ptx, card, loops=None,
         by_bytes = 1e3 * nbytes / PEAK_BYTES_S
         by_ops = 1e3 * FLOPS["tend_rk_fold"] * n / PEAK_FLOPS[dtype]
         key = fold_function(dtype, fz.has_thermo, set(ptx) | set(loops or ()))
+        cbdt, dti = kernels.device_scalar(0.5, e), kernels.device_scalar(2., e)
         for form, e_in in (("evisc", None), ("e_in", e)):
             def fn(e_in=e_in, **kw):
-                return fz.tend_rk_fold(s, t, None, 0.5, -5. / 9., 2., False,
+                return fz.tend_rk_fold(s, t, None, cbdt, -5. / 9., dti, False,
                                        True, e=e_in, **kw)
             row = {"label": label, "kernel": "tend_rk_fold", "form": form,
                    "shape": list(shape), "dtype": str(dtype)[6:],
@@ -1408,11 +1427,12 @@ def s_tend_rows(label, case, shape, step, ptx, card, device="cuda",
         t = {nm: rnd(1e-3) for nm in names}
         nf = len(names)
         e = rnd(k=ktot).abs()
+        cbdt, dti = kernels.device_scalar(0.5, e), kernels.device_scalar(2., e)
         calls = [("tend_rk", lambda **kw: fz.tend_rk(
-                     s, t, e, 0.5, -5. / 9., False, True, **kw),
+                     s, t, e, cbdt, -5. / 9., False, True, **kw),
                   (4 * nf + 1) * fb),
                  ("tend_rk_fold", lambda **kw: fz.tend_rk_fold(
-                     s, t, None, 0.5, -5. / 9., 2., False, True, **kw),
+                     s, t, None, cbdt, -5. / 9., dti, False, True, **kw),
                   (4 * nf + 2) * fb)]
         for name, fn, nbytes in calls:
             by_bytes = 1e3 * nbytes / PEAK_BYTES_S
@@ -1650,6 +1670,103 @@ def step_rows(label, builder, n, ktot, step, card, nsteps=2, device="cuda"):
     return [row]
 
 
+def chunk_rows(label, builder, n, ktot, step, card, nsteps=8,
+               device="cuda"):
+    """The chunked loop's steps of a dry RK cell in float32, from the state
+    after a two-iteration ``Model.run``: the step captured (the model's
+    ChunkLoop, two steps to capture and warm) and the same body run eagerly
+    (ChunkLoop(capture=False)), nsteps steps of each timed three ways: the
+    wall a step of ``ChunkLoop.run`` (its one status read a step
+    included); on a card a replay's span between two CUDA events (median
+    of nsteps replays; the graph's gaps between its nodes count as busy
+    there); and, last, ``busy``, the device time a step of the kernels,
+    copies and fills that torch.profiler sees over nsteps more steps.
+    idle_share = 1 - busy / wall; gap_ms_per_step = span - busy.  busy is
+    None where the profiler saw no device time.  The cell is built by
+    chip_smoke.py's builder of the same tree."""
+    from torch.profiler import ProfilerActivity, profile
+    from .graph_step import ChunkLoop
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    build_cell = getattr(chip_smoke, builder)
+    on_card = device == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    with tempfile.TemporaryDirectory() as workdir:
+        init = build_cell(torch, n, ktot, torch.float32, device, "init",
+                          workdir)
+        init.save_initial_state(None)
+        del init
+        m = build_cell(torch, n, ktot, torch.float32, device, "run", workdir)
+        m.build_step(**step)
+        state = [m.run(max_iters=2), m.final_sfc]
+        loops = {"graphs": m.build_chunk(),
+                 "eager": ChunkLoop(m, capture=False)}
+        out = {}
+
+        def steps(loop, count):
+            """count steps in a chunk of their own (a chunk counts its
+            steps from its start)."""
+            loop.start(m.timeloop.dt, 1e6)
+            before = loop.counters["steps"]
+            state[0], state[1], _ = loop.run(state[0], state[1], count)
+            if loop.counters["steps"] - before != count:
+                raise RuntimeError("%s: the chunk ran %d steps, not %d"
+                                   % (label, loop.counters["steps"] - before,
+                                      count))
+
+        for key, loop in loops.items():
+            steps(loop, 2)
+            sync()
+            t0 = time.perf_counter()
+            steps(loop, nsteps)
+            sync()
+            out[key] = {"wall_ms_per_step":
+                        1e3 * (time.perf_counter() - t0) / nsteps}
+        graphs = loops["graphs"].graphs
+        out["graphs"]["captured"] = graphs is not None
+        if graphs is not None:
+            spans = []
+            for _ in range(nsteps):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                graphs.graphs[graphs.cur].replay()
+                ev[1].record()
+                ev[1].synchronize()
+                graphs.cur = 1 - graphs.cur
+                spans.append(ev[0].elapsed_time(ev[1]))
+            out["graphs"]["span_ms_per_step"] = statistics.median(spans)
+            state[:] = [graphs.states[graphs.cur], graphs.sfc]
+        activities = [ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if on_card else [])
+        for key, loop in loops.items():
+            with profile(activities=activities) as prof:
+                steps(loop, nsteps)
+                sync()
+            us = sum(chip_smoke.device_us(evt) for evt in prof.key_averages())
+            busy = us / 1e3 / nsteps if us > 0. else None
+            r = out[key]
+            r["busy_ms_per_step"] = busy
+            r["idle_share"] = (None if busy is None
+                               else 1. - busy / r["wall_ms_per_step"])
+            if busy is not None and "span_ms_per_step" in r:
+                r["gap_ms_per_step"] = r["span_ms_per_step"] - busy
+        row = {"label": label, "kernel": "chunked_step",
+               "shape": [n[0], n[1], ktot], "dtype": "float32",
+               "steps": nsteps, "card": card, **out}
+        print(json.dumps(row), flush=True)
+        # the model and its loop refer to each other: collect them, so that
+        # the graphs' pool is freed before the next cell
+        del m, loops, graphs, state
+        gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return [row]
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None)
@@ -1730,6 +1847,9 @@ def main():
     for label, builder, n, ktot, step in (
             STEP_CELLS if "steps" in groups else ()):
         rows += step_rows(label, builder, n, ktot, step, card)
+    for label, builder, n, ktot, step in (
+            CHUNK_CELLS if "chunked" in groups else ()):
+        rows += chunk_rows(label, builder, n, ktot, step, card)
     for label, case, shape, dtype in RK_SHAPES if "rk" in groups else ():
         rows += rk_rows(label, case, shape, dtype, ptx, card, loops, clock)
     for label, case, shape, dtype in (

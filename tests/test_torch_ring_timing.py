@@ -31,7 +31,9 @@ reads from a build log and how it wires its timed calls, without a card.
   key on an earlier tree; K15's (``scalar_rk_rows``: its fold on and
   off, the sweep's columns, the info asked in the fold's form) and K3's
   (``tdma_rows``: the plan's form and the sweep form beside it, with
-  form, chunk length, occupancy and waves);
+  form, chunk length, occupancy and waves) and the chunked loop's
+  (``chunk_rows``: the graphs' and the eager body's walls; no span or
+  device time on the CPU);
 * ``sass_digests`` gives each kernel instance of a listing one digest of
   its instructions, the same for the same code at other addresses, and
   ``compare_digests`` holds two builds' digests, through the caller's map
@@ -935,6 +937,34 @@ def test_step_cells_are_chip_smoke_builders():
     assert [c[4] for c in R.STEP_CELLS] == [{}, {"unfolded": True}, {},
                                             {"fold": False}]
     assert {"dry", "steps", "tdma", "rk", "apply"} <= set(R.GROUPS)
+
+
+@pytest.mark.parametrize("step", [{}, {"fold": False}])
+def test_chunk_rows_run_on_the_cpu(step):
+    """The chunked group's row on a tiny drycblles on the CPU: both loops
+    ran their steps eagerly (no capture, no replay span), the profiler
+    holds no device time there, so busy and the idle share are None."""
+    (r,) = R.chunk_rows("drycblles", "build_drycblles", (8, 8), 8, step,
+                        "cpu", nsteps=2, device="cpu")
+    assert r["kernel"] == "chunked_step" and r["shape"] == [8, 8, 8]
+    for key in ("graphs", "eager"):
+        assert r[key]["wall_ms_per_step"] > 0.
+        assert r[key]["busy_ms_per_step"] is None
+        assert r[key]["idle_share"] is None
+        assert "span_ms_per_step" not in r[key]
+    assert r["graphs"]["captured"] is False
+
+
+def test_chunk_cells_are_chip_smoke_builders():
+    """The chunked group's cells are chip_smoke.py's [4d] dry RK cells,
+    built by its builders: drycblles on K22 and with fold=False, and
+    sullivan2011 and the neutral Ekman LES on K22."""
+    import chip_smoke
+    for label, builder, n, ktot, step in R.CHUNK_CELLS:
+        assert callable(getattr(chip_smoke, builder))
+        assert len(n) == 2 and ktot > 0
+    assert [c[4] for c in R.CHUNK_CELLS] == [{}, {"fold": False}, {}, {}]
+    assert "chunked" in R.GROUPS
 
 
 def test_compare_digests_holds_two_builds():

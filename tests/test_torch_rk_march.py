@@ -62,7 +62,11 @@ def test_constants_are_the_source():
     # code `if constexpr`
     assert "constexpr bool CL = RK && DRY;" in body
     assert re.findall(r"\bif \((CL|TH|DRY)\b", body) == []
-    assert body.count("if constexpr (CL)") == 3
+    assert body.count("if constexpr (CL)") == 4
+    # K2 reads cB*dt from the device (the step's dt, so that a captured
+    # launch reads each step's), K8/K9 take it by value
+    assert ("T cbdt; if constexpr (CL) cbdt = __ldg(a.cbdt_dev); "
+            "else cbdt = a.cbdt;" in body)
     # three level bases a group: u, v and th; w; e of the interior array
     assert ("const int pc = clampi(p, 0, a.ktot - 1); const long long la = "
             "level(pc), lw = level(max(p, 0)); const long long le = "
@@ -73,7 +77,7 @@ def test_constants_are_the_source():
         assert "km::cp_async<sizeof(T)>" + copy in body, copy
     # the column fold not under DRY; th's s* and carry under TH
     assert "if (RK && !DRY) {" in body
-    assert "if constexpr (RK && TH) a.ths[o] = h.a1 + a.cbdt * h.t;" in body
+    assert "if constexpr (RK && TH) a.ths[o] = h.a1 + cbdt * h.t;" in body
     assert "if constexpr (RK && TH) a.tth[o] = a.can * h.t;" in body
     # first: no carry read, at the chunk's first level or a level ahead
     assert body.count("if (!a.first) {") == 2
@@ -92,6 +96,8 @@ def test_constants_are_the_source():
         assert entry in flat, entry
     # the entry: the old arguments, the chunk count last; an info entry
     assert len(kernels.SIGNATURES["tend_rk"]) == 32
+    assert kernels.SIGNATURES["tend_rk"][23] == kernels._P     # cbdt
+    assert "double tPr, const void* cbdt, double can, double fc," in flat
     assert kernels.SIGNATURES["tend_rk"][-4:] == [kernels._I] * 4
     assert "tend_rk" in kernels.INFO
     for dtype in (torch.float32, torch.float64):
