@@ -1,11 +1,17 @@
 """Physics-validation envelopes of the PyTorch port (``microhh_torch``), the
-drycblles and bomex legs of ``cases/run_validation.py`` with the same
-grids, lengths and checks:
+drycblles, bomex and sbl_dnn legs of ``cases/run_validation.py`` with the
+same grids, lengths and checks:
 
 * drycblles - CBL growth: zi(t) rises and tracks the encroachment
               prediction zi = sqrt(zi(1)^2 + 2*wth_s*(t - t(1))/gamma).
 * bomex     - GCSS shallow cumulus (Siebesma et al. 2003): cloud cover,
               cloud base and top from the mean ql profile.
+* sbl_dnn   - the stable Ekman layer of SBL_DNN with the DNN closure, its
+              weights a TorchScript export (``models/dnn.py``, the
+              reference's CNDNN layout, seeded random filters drawn as the
+              JAX leg draws them) read through the run's dnnpath: stable
+              stratification, Ekman turning, a near-wall u deficit and
+              bounded winds in the final state.
 
 Each leg runs the case's ini with the grid, endtime, savetime and
 sampletime replaced, init + run through ``microhh_torch.model.run_case``
@@ -16,7 +22,8 @@ cpu`` on the CPU; then it reads the statistics file (either format,
 fails the leg.  Exit status is nonzero on any failed check.
 
 Usage:
-  python cases/run_validation_torch.py [--cases drycblles,bomex] [--quick]
+  python cases/run_validation_torch.py [--cases drycblles,bomex,sbl_dnn]
+      [--quick]
       [--device cuda|cpu] [--precision single|double] [--workdir DIR]
 """
 
@@ -45,9 +52,9 @@ def check(name, val, lo, hi):
         FAILURES.append(name)
 
 
-def run_case(case, overrides, args):
-    """The case's ini with overrides, init + run on the port; returns the
-    statistics file, open."""
+def run_case(case, overrides, args, name=None):
+    """The case's ini (``cases/<case>/<name or case>.ini``) with overrides,
+    init + run on the port; returns the statistics file, open."""
     import torch
     from microhh_torch import model
     from microhh_torch.cases import case_input
@@ -56,22 +63,23 @@ def run_case(case, overrides, args):
     wd = os.path.join(args.workdir, case)
     shutil.rmtree(wd, ignore_errors=True)
     os.makedirs(wd)
-    with open(os.path.join(REPO, "cases", case, "%s.ini" % case)) as f:
+    name = name or case
+    with open(os.path.join(REPO, "cases", case, "%s.ini" % name)) as f:
         ini = f.read()
     for key, val in overrides.items():
         ini, n = re.subn(r"(?m)^%s=\S*" % key, "%s=%s" % (key, val), ini)
         if n == 0:
             raise RuntimeError("%s: override %s not found in ini" % (case, key))
-    path = os.path.join(wd, "%s.ini" % case)
+    path = os.path.join(wd, "%s.ini" % name)
     with open(path, "w") as f:
         f.write(ini)
     grid = Ini(path)
-    mem = case_input(case, grid.get_int("grid", "ktot"),
+    mem = case_input(name, grid.get_int("grid", "ktot"),
                      grid.get_float("grid", "zsize"))
     dtype = torch.float64 if args.precision == "double" else torch.float32
     for mode in ("init", "run"):
         t0 = time.perf_counter()
-        m = model.run_case(wd, case, mode, dtype=dtype, device=args.device,
+        m = model.run_case(wd, name, mode, dtype=dtype, device=args.device,
                            input_nc=mem)
         print("+ %s %s on %s, %s: %.1f s, %d iterations"
               % (mode, case, args.device, args.precision,
@@ -81,7 +89,7 @@ def run_case(case, overrides, args):
             FAILURES.append("%s/%s: unused ini options %s"
                             % (case, mode, unused))
             print("  FAIL (unused ini options): %s" % unused)
-    return open_stats(os.path.join(wd, "%s.default.0000000.nc" % case))
+    return open_stats(os.path.join(wd, "%s.default.0000000.nc" % name))
 
 
 def _prof(group, name, tavg=1):
@@ -141,12 +149,62 @@ def validate_bomex(args):
         check("cloud top [m]", float(top), 1200., 2200.)
 
 
-LEGS = {"drycblles": validate_drycblles, "bomex": validate_bomex}
+def validate_sbl_dnn(args):
+    """SBL_DNN with the DNN closure end to end (cases/run_validation.py
+    validate_sbl_dnn): a TorchScript export of seeded random filters at the
+    reference's scale goes through the run's dnnpath (swdnnrandom=0) and
+    drives the whole closure inside the run; the final state, read from
+    the restart files, must keep stable stratification, Ekman turning and
+    winds bounded by the geostrophic forcing."""
+    from microhh_torch.cases import case_input
+    from microhh_torch.config import Ini
+    from microhh_torch.model import Model
+    from microhh_torch.models.dnn import export_torchscript, random_filters
+    os.makedirs(args.workdir, exist_ok=True)
+    pt = os.path.join(args.workdir, "sbl_dnn_weights.pt")
+    export_torchscript(pt, random_filters(7))
+    itot = 16 if args.quick else 32
+    ktot = 32 if args.quick else 64
+    endtime = 100. if args.quick else 400.
+    run_case("SBL_DNN",
+             {"itot": itot, "jtot": itot, "ktot": ktot,
+              "endtime": "%g" % endtime, "savetime": "%g" % endtime,
+              "sampletime": "%g" % (endtime / 2),
+              "dnnpath": pt, "swdnnrandom": "0"}, args, name="SBL").close()
+
+    # the final state from the restart files (iotimeprec=-1: time * 10)
+    wd = os.path.join(args.workdir, "SBL_DNN")
+    ini = Ini(os.path.join(wd, "SBL.ini"))
+    m = Model(ini, "run", "SBL", workdir=wd, device="cpu",
+              input_nc=case_input("SBL", ktot, ini.get_float("grid", "zsize")))
+    st = m.fields.load(int(round(endtime * 10)), wd,
+                       dtype=np.float64 if args.precision == "double"
+                       else np.float32)
+    g = m.grid
+    ks, ke = g.kstart, g.kend
+    u = np.asarray(st["u"])[ks:ke].mean(axis=(1, 2))
+    v = np.asarray(st["v"])[ks:ke].mean(axis=(1, 2))
+    b = np.asarray(st["b"])[ks:ke].mean(axis=(1, 2))
+    for n in ("u", "v", "w", "b"):
+        if not np.isfinite(np.asarray(st[n])).all():
+            FAILURES.append("SBL_DNN: non-finite %s" % n)
+    ug = 0.05
+    print("SBL_DNN: u(sfc)=%.4f v(sfc)=%.5f ug=%.2f" % (u[0], v[0], ug))
+    check("stable stratification fraction",
+          float(np.mean(np.diff(b) > -1e-9)), 0.9, 1.)
+    check("Ekman cross-isobar v (near sfc) [m/s]",
+          float(v[:ktot // 8].mean()), 1e-6, 0.05)
+    check("near-wall u deficit [m/s]", float(ug - u[0]), 1e-5, 0.05)
+    check("max |u|/ug", float(np.abs(u).max() / ug), 0.2, 2.0)
+
+
+LEGS = {"drycblles": validate_drycblles, "bomex": validate_bomex,
+        "sbl_dnn": validate_sbl_dnn}
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--cases", default="drycblles,bomex")
+    ap.add_argument("--cases", default="drycblles,bomex,sbl_dnn")
     ap.add_argument("--quick", action="store_true")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--precision", choices=["single", "double"],

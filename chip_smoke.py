@@ -108,12 +108,14 @@ Phases (any failure exits non-zero and prints no result line):
      every point within CRIT_ROUNDINGS eps32 (1 + cond) of its value, cond
      its strain2 / |strain2 - N2/tPr| (check_evisc_critical);
   4. two whole RK3 steps on the card against the same two steps on the CPU
-     (plain versions), <= 1e-10, float64, eleven cases: a 32^3 drycblles on
-     K22 and with build_step(fold=False), a 16^2x24 rico (swadvec=2), a
+     (plain versions), <= 1e-10, float64, fourteen cases: a 32^3 drycblles
+     on K22 and with build_step(fold=False), a 16^2x24 rico (swadvec=2), a
      16^2x24 rico as its ini is written (swadvec=2i5), a 16^2x24 SBL_Smag, a
      16^3 moser180, a 16x8x32 weakscaling, a 32x16x24 jaenschwalde, a 32^3
-     sullivan2011 on K22 and with build_step(unfolded=True), and a 48x24x24
-     neutral Ekman LES;
+     sullivan2011 on K22 and with build_step(unfolded=True), a 48x24x24
+     neutral Ekman LES, and SBL_DNN, SBL_DNNglobalScales and
+     SBL_DNNstatsScales at 16^2x32 (the DNN closure's three variants on the
+     plain substep);
   4b. statistics and budgets (check_stats): drycblles 32^3 as its ini is
      written (endtime cut to 900 s: four samples) and moser180 at 16^3 with
      its swbudget=4 (endtime 120 s: three samples) through run_case in
@@ -218,6 +220,23 @@ Phases (any failure exits non-zero and prints no result line):
      andren1994.ini less its passive scalar: thermo 0, no scalar) at
      768x384x288 float32 on the ini's domain, 5.2 m isotropic: K22, K7 and
      the projection without th.
+ 23. SBL_DNN (cases/SBL_DNN/SBL.ini: the DNN closure dnn_local with the
+     ini's seeded random weights) at 256^3 float32, dt 1 -> 0.125, stats and
+     dumps off, on the plain substep, through Model.run(max_iters=12) as in
+     phase 7, with the calls of the plain versions of K14, K7, K5, K21 and
+     K6 (and of the Smagorinsky op path) counted and required to be 0; the
+     launches of one limits call and one step recorded in order
+     (Kernel.recording: K7, then K14, K5, K21, K6 a substep); the step's
+     device time by part: the network and the rest of the closure from
+     CUDA events, the device busy time and the kernels' from torch.profiler;
+ 24. at the 256^3 float32 shapes of that run, K14, K7, K5, K21 and K6
+     against their plain versions, then timed;
+ 25. dnn_global and dnn_stats (SBL_DNNglobalScales, SBL_DNNstatsScales) at
+     128^3 float32: two steps, finite, DIV <= 1e-4; SBL_DNN at 64^3 float32
+     with its dnnpath a TorchScript export in the reference's CNDNN layout
+     (models/dnn.py export_torchscript of random_filters(7)) and
+     swdnnrandom=0, one step equal bit for bit to the step with
+     TauDNN.from_arrays of the same filters.
 Beside each kernel's time stands its bound: the bytes its inputs and outputs
 hold, each once, over 3.35 TB/s, or its operations over 67 TFLOP/s (float32
 outside the tensor cores; half that for float64) where that is larger; and, where one PyTorch call
@@ -411,6 +430,30 @@ def build_sbl(torch, n, k, dtype, device, mode="run", workdir="."):
     from microhh_torch.model import Model
     m = Model(Ini(sbl_ini(n, k)), mode, "SBL", workdir=workdir, dtype=dtype,
               device=device, input_nc=sbl_input(k, SBL_ZSIZE))
+    m.finish_setup()
+    return m
+
+
+def sbl_dnn_ini(case, n, k, **over):
+    """cases/<case>/SBL.ini of a DNN case (SBL_DNN, SBL_DNNglobalScales,
+    SBL_DNNstatsScales) at n^2 x k with stats and dumps off and its dt
+    scaled as sbl_ini scales it."""
+    over = dict(dict(itot=n, jtot=n, ktot=k, swstats=0, swdump=0,
+                     dt=32. / max(n, 32)), **over)
+    return case_ini(case, "SBL", **over)
+
+
+def build_sbl_dnn(torch, n, k, dtype, device, mode="run", workdir=".",
+                  case="SBL_DNN", **over):
+    """A DNN case's Model (by default SBL_DNN: dnn_local, its ini's seeded
+    random weights) on the profiles of its SBL_input.py (SBL_Smag's),
+    computed in memory; over: further ini options."""
+    from microhh_torch.cases import sbl_input
+    from microhh_torch.config import Ini
+    from microhh_torch.model import Model
+    m = Model(Ini(sbl_dnn_ini(case, n, k, **over)), mode, "SBL",
+              workdir=workdir, dtype=dtype, device=device,
+              input_nc=sbl_input(k, SBL_ZSIZE))
     m.finish_setup()
     return m
 
@@ -2645,6 +2688,9 @@ def check_kernels(torch):
 #  phase 4: whole step on the card against the CPU
 # --------------------------------------------------------------------------
 
+DNN_CASES = ("SBL_DNN", "SBL_DNNglobalScales", "SBL_DNNstatsScales")
+
+
 def check_step(torch):
     f64 = torch.float64
     cases = (("drycblles 32^3", lambda d: build_model(torch, 32, 32, f64, d),
@@ -2676,7 +2722,10 @@ def check_step(torch):
               lambda m: unfolded_state(m, seed=7), {"unfolded": True}),
              ("andren1994 48x24x24", lambda d: build_andren(
                  torch, (48, 24), 24, f64, d),
-              lambda m: unfolded_state(m, seed=7), {}))
+              lambda m: unfolded_state(m, seed=7), {})) + tuple(
+        ("%s 16^2x32" % case, lambda d, case=case: build_sbl_dnn(
+            torch, 16, 32, f64, d, case=case),
+         lambda m: sbl_state(m, seed=7), {}) for case in DNN_CASES)
     for label, make, state, step_kw in cases:
         out = {}
         for device in ("cuda", "cpu"):
@@ -3757,10 +3806,10 @@ def time_generic_kernels(torch, m, s):
             (3 + 3 * S) * fb, FLOPS_PER_POINT["advec_scalars"] * S * n,
             info=kmarch_info(adv.k_scal, m.dtype, A.SCHEME_ID[adv.scheme], S1,
                              adv.plan(S1, m.dtype)))
-    if m.unfolded:
-        pairs.update(unfolded_sweep_pairs(m, s, e))
-    else:
+    if not m.unfolded:
         pairs.update(rk_sweep_pairs(m, s, e, ct, cts, can))
+    elif not m.plain:
+        pairs.update(unfolded_sweep_pairs(m, s, e))
     pairs["limits"] = pair(lambda: fz.limits(*lim),
                            lambda: F.limits_plain(*lim_plain), 4 * fb,
                            FLOPS_PER_POINT["limits"] * n,
@@ -4059,6 +4108,221 @@ def profile_steps(torch, m, s, label, nsteps=2):
     return lines, avgs.table(sort_by=sort, row_limit=40)
 
 
+# --------------------------------------------------------------------------
+#  phases 23 to 25: the DNN closure on the plain substep
+# --------------------------------------------------------------------------
+
+# the plain versions of the DNN path's kernels (K14 and K7: fused.py; K21:
+# pres_2.tdma_plain; K5 and K6: torch.fft), and the op path of the
+# Smagorinsky viscosity that K14 stands in for on this path
+PLAIN_OF_DNN_PATH = (("microhh_torch.ops.fused", "evisc_plain"),
+                     ("microhh_torch.ops.fused", "limits_plain"),
+                     ("microhh_torch.ops.pres_2", "tdma_plain"),
+                     ("torch.fft", "rfft2"), ("torch.fft", "irfft2"),
+                     ("microhh_torch.ops.diff_smag2", "DiffSmag2.exec_viscosity"))
+
+
+class counted:
+    """Count the calls of the functions named (module, attribute path) for
+    the length of a with block; the block gets the counts."""
+
+    def __init__(self, targets):
+        self.targets = targets
+
+    def __enter__(self):
+        import importlib
+        self.calls, self.saved = {}, []
+        for modname, path in self.targets:
+            obj = importlib.import_module(modname)
+            *owners, attr = path.split(".")
+            for owner in owners:
+                obj = getattr(obj, owner)
+            orig = getattr(obj, attr)
+            key = "%s.%s" % (modname, path)
+            self.calls[key] = 0
+
+            def wrapper(*a, _orig=orig, _key=key, **k):
+                self.calls[_key] += 1
+                return _orig(*a, **k)
+            setattr(obj, attr, wrapper)
+            self.saved.append((obj, attr, orig))
+        return self.calls
+
+    def __exit__(self, *exc):
+        for obj, attr, orig in reversed(self.saved):
+            setattr(obj, attr, orig)
+
+
+def dnn_launch_order(torch, m, s, sfc):
+    """The kernels one step and one limits call of the DNN path launch, in
+    order, through Kernel.recording (nothing is counted meanwhile): K14,
+    K5, K21 and K6 a substep and K7 once, and nothing else."""
+    from microhh_torch.kernels import Kernel
+    Kernel.recording = []
+    try:
+        m.limits(s, sfc)
+        s, sfc, _ = m.step(s, sfc, m.timeloop.dt)
+        torch.cuda.synchronize()
+        names = [k.name for k in Kernel.recording]
+    finally:
+        Kernel.recording = None
+    *sub, lim = [k.name for k in m.kernels()]
+    want = [lim] + sub * m.timeloop.n_substeps
+    log("  launches of one limits call and one step, in order: %s" % names)
+    if names != want:
+        raise AssertionError("the DNN path launched %s, not %s"
+                             % (names, want))
+    return names
+
+
+def dnn_breakdown(torch, m, s, nsteps=2):
+    """Device time a step of the DNN path by part.  Two steps with CUDA
+    events around the closure's exec_viscosity and exec, the network's
+    forward and the eddy viscosity (K14 with its MOST row) inside the
+    first give the network's span and the rest of the closure's (closure
+    less network less viscosity); two more steps under torch.profiler give
+    the device busy time, the time of the hand-written kernels (the K
+    entries of PARTS) and the wall time.  The spans are the stream's
+    elapsed time between two events, so they count any gap between the
+    launches inside them as busy; at 256^3 a launch there runs for far
+    longer than the host takes to issue the next one."""
+    from torch.profiler import profile, ProfilerActivity
+    from microhh_torch.ops import diff_dnn as D
+    diff, dt = m.diff, m.timeloop.dt
+    state = {"s": s, "sfc": m.final_sfc}
+    spans = {"closure": [], "network": [], "viscosity": []}
+
+    def steps():
+        for _ in range(nsteps):
+            state["s"], state["sfc"], _ = m.step(state["s"], state["sfc"], dt)
+
+    def timed(key, fn):
+        def run(*a, **k):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = fn(*a, **k)
+            ev[1].record()
+            spans[key].append(ev)
+            return out
+        return run
+
+    steps()
+    torch.cuda.synchronize()
+    with attrs(diff, exec_viscosity=timed("closure", diff.exec_viscosity),
+               exec=timed("closure", diff.exec)), \
+            attrs(diff.net, forward=timed("network", diff.net.forward)), \
+            attrs(D, generic_viscosity=timed("viscosity",
+                                             D.generic_viscosity)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps()
+        torch.cuda.synchronize()
+        span_wall = 1e3 * (time.perf_counter() - t0) / nsteps
+    # the forward and exec_viscosity were set on the instances: take them off
+    for obj, attr in ((diff.net, "forward"), (diff, "exec_viscosity"),
+                      (diff, "exec")):
+        obj.__dict__.pop(attr, None)
+    ms = {k: sum(a.elapsed_time(b) for a, b in v) / nsteps
+          for k, v in spans.items()}
+    kparts = [(frag, lb) for frag, lb in PARTS if lb.startswith("K")]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps()
+        torch.cuda.synchronize()
+        prof_wall = 1e3 * (time.perf_counter() - t0) / nsteps
+    busy = kern = 0.
+    by_kernel = {}
+    for evt in prof.key_averages():
+        us = device_us(evt)
+        if us <= 0.:
+            continue
+        busy += us
+        lb = next((lb for frag, lb in kparts if re.search(frag, evt.key)),
+                  None)
+        if lb is not None:
+            kern += us
+            by_kernel[lb] = by_kernel.get(lb, 0.) + us / 1e3 / nsteps
+    if busy <= 0.:
+        raise RuntimeError("the profiler recorded no device time")
+    busy_ms, kern_ms = busy / 1e3 / nsteps, kern / 1e3 / nsteps
+    rest = ms["closure"] - ms["network"] - ms["viscosity"]
+    out = {"device_busy_ms_per_step": busy_ms,
+           "network_ms_per_step": ms["network"],
+           "closure_rest_ms_per_step": rest,
+           "kernels_ms_per_step": kern_ms,
+           "kernels_by_part_ms": by_kernel,
+           "other_ms_per_step": busy_ms - ms["network"] - rest - kern_ms,
+           "viscosity_span_ms_per_step": ms["viscosity"],
+           "profiled_wall_ms_per_step": prof_wall,
+           "events_wall_ms_per_step": span_wall,
+           "device_idle_share": 1. - busy_ms / prof_wall}
+    log("  device time a step of %s %s (%s): busy %.3f ms (profiler; wall "
+        "%.3f ms profiled, idle share %.3f); network %.3f ms, the rest of "
+        "the closure %.3f ms (CUDA-event spans; wall %.3f ms), the kernels "
+        "%.3f ms %s, other %.3f ms"
+        % (shape_str(m), str(m.dtype)[6:], card_line(), busy_ms, prof_wall,
+           out["device_idle_share"], ms["network"], rest, span_wall, kern_ms,
+           {k: round(v, 3) for k, v in by_kernel.items()},
+           out["other_ms_per_step"]))
+    return out
+
+
+def check_dnn_variants(torch, n=128, k=128):
+    """Two steps of dnn_global and dnn_stats at n^3 float32 on the card:
+    finite fields and DIV <= 1e-4."""
+    out = {}
+    for case in DNN_CASES[1:]:
+        m = build_sbl_dnn(torch, n, k, torch.float32, "cuda", case=case)
+        m.build_step()
+        s, sfc = m.as_device_state(sbl_state(m, seed=5))
+        for _ in range(2):
+            s, sfc, _ = m.step(s, sfc, m.timeloop.dt)
+        ks, ke = m.ctx.ks, m.ctx.ke
+        finite = all(bool(torch.isfinite(s[nm][ks:ke]).all()) for nm in s)
+        div = float(m.diagnostics(s, sfc)["div"])
+        log("  %s %d^2x%d float32 (%s), 2 steps: finite %s, DIV %.3e"
+            % (case, n, k, m.diff.variant, finite, div))
+        if not (finite and div <= 1e-4):
+            raise AssertionError("%s: non-finite fields or DIV %.3e"
+                                 % (case, div))
+        out[case] = div
+        del m, s, sfc
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_torchscript_step(torch, workdir, n=64):
+    """A TorchScript export of random_filters(7) (models/dnn.py, the
+    layout of the reference's CNDNN exports) through SBL_DNN's dnnpath
+    with swdnnrandom=0, against TauDNN.from_arrays of the same filters:
+    one step from one state, equal bit for bit, float32 at n^3."""
+    from microhh_torch.models.dnn import (PINV, TauDNN, export_torchscript,
+                                          random_filters)
+    filters = random_filters(7)
+    pt = os.path.join(workdir, "sbl_dnn_weights.pt")
+    export_torchscript(pt, filters)
+    ends = []
+    for over in ({"dnnpath": pt, "swdnnrandom": 0}, {}):
+        m = build_sbl_dnn(torch, n, n, torch.float32, "cuda", **over)
+        if not over:
+            m.diff.net = TauDNN.from_arrays(
+                [f.reshape(f.shape[0], -1) for f in filters], PINV)
+        m.build_step()
+        s, sfc = m.as_device_state(sbl_state(m, seed=9))
+        s, sfc, _ = m.step(s, sfc, m.timeloop.dt)
+        ends.append(s)
+    same = all(torch.equal(ends[0][nm], ends[1][nm]) for nm in ends[0])
+    log("  SBL_DNN %d^3 float32, one step with the TorchScript weights and "
+        "with from_arrays: %s" % (n, "equal bit for bit" if same
+                                  else "DIFFERENT"))
+    if not same:
+        raise AssertionError("the TorchScript step differs from the "
+                             "from_arrays step")
+    return same
+
+
 def kernel_entry(k, launches, errs, times, where):
     e = {"name": k.name, "route": "cuda", "source": k.source,
          "replaces": k.replaces, "launches": launches[k.name],
@@ -4338,6 +4602,41 @@ def main():
     dry_path((21, 22), "andren1994_768x384x288_f32", "andren1994 less s",
              build_andren, (768, 384), 288,
              chunked={"endtime": 24, "outputiter": 8, "min_steps": 8})
+
+    # D: the DNN closure (SBL_DNN) on the plain substep: K14, K5, K21, K6
+    # and K7, the closure itself in plain torch
+    log("[23] SBL_DNN 256^3 float32 through Model.run (dnn_local, the ini's "
+        "seeded random weights), no plain version of its kernels")
+    with tempfile.TemporaryDirectory() as workdir:
+        with counted(PLAIN_OF_DNN_PATH) as plain_calls:
+            m, s, res = run_les(torch, workdir, "SBL_DNN", build_sbl_dnn, 256)
+            res["launch_order"] = dnn_launch_order(torch, m, s, m.final_sfc)
+        log("  calls of the plain versions and of the Smagorinsky op path "
+            "meanwhile: %s" % plain_calls)
+        if any(plain_calls.values()):
+            raise AssertionError("the DNN path ran plain versions: %s"
+                                 % plain_calls)
+        res["plain_calls"] = dict(plain_calls)
+        res["device_by_part"] = dnn_breakdown(torch, m, s)
+        where = "SBL_DNN %s float32" % shape_str(m)
+        log("[24] kernels at %s: against their plain versions, then timed"
+            % where)
+        names = {k.name for k in m.kernels()}
+        errs = check_kernels_full(torch, m, lambda torch, m, seed: [
+            c for c in generic_kernel_cases(torch, m, seed)
+            if c[0] in names])
+        times = time_generic_kernels(torch, m, s)
+        record(m, s, "sbl_dnn_256", "sbl_dnn_256_f32", "SBL_DNN", res, errs,
+               times, where)
+        del m, s
+    torch.cuda.empty_cache()
+    log("[25] dnn_global and dnn_stats at 128^3 float32; a TorchScript "
+        "dnnpath against from_arrays on the card")
+    results["sbl_dnn_variants_div"] = check_dnn_variants(torch)
+    with tempfile.TemporaryDirectory() as workdir:
+        results["sbl_dnn_torchscript_bit_for_bit"] = check_torchscript_step(
+            torch, workdir)
+    torch.cuda.empty_cache()
 
     if profile_path:
         os.makedirs(os.path.dirname(os.path.abspath(profile_path)),

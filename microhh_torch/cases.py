@@ -6,7 +6,8 @@ hold it equal, bit for bit, to the file that script writes.
 ``rico_input(ktot, zsize)`` wraps the profiles in the read side of a netCDF
 dataset (``utils/nc.MemoryDataset``), which ``Model(..., input_nc=)`` takes.
 ``sbl_profiles`` and ``sbl_input`` do the same for ``cases/SBL_Smag/
-SBL_input.py``, ``moser180_input`` for ``cases/moser180/moser180_input.py``
+SBL_input.py`` (byte for byte the SBL_input.py of SBL_DNN,
+SBL_DNNglobalScales and SBL_DNNstatsScales, whose ini is SBL.ini too), ``moser180_input`` for ``cases/moser180/moser180_input.py``
 and ``weakscaling_input`` for ``cases/weakscaling/weakscaling_input.py``,
 ``jaenschwalde_input`` for ``cases/jaenschwalde/jaenschwalde_input.py``,
 ``sullivan2011_input`` for ``cases/sullivan2011/sullivan2011_input.py`` and

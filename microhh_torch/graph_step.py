@@ -33,6 +33,7 @@ the capture), raises; nothing falls back to the eager body on the card.
 """
 
 import collections
+import gc
 import math
 import time
 
@@ -195,30 +196,47 @@ class GraphChunk:
         self.seconds = {"warm_up": time.perf_counter() - t0, "capture": []}
         pool = torch.cuda.graph_pool_handle()
         self.graphs, self.p, self.counts = [], [], []
-        for k in (0, 1):
-            t0 = time.perf_counter()
-            self.kept.append(dict(model.t))
-            graph = torch.cuda.CUDAGraph()
-            Kernel.recording = recorded = []
-            try:
-                with torch.cuda.graph(graph, pool=pool):
-                    s2, sfc2, aux = loop.body(self.states[k], self.sfc,
-                                              out=self.states[1 - k])
-                    for key, v in sfc2.items():
-                        if v is not self.sfc[key]:
-                            self.sfc[key].copy_(v)
-            finally:
-                Kernel.recording = None
-            if set(sfc2) != set(self.sfc) or any(
-                    s2[n] is not self.states[1 - k][n] for n in s2):
-                raise RuntimeError("the captured step did not write its "
-                                   "state into the other static state")
-            self.graphs.append(graph)
-            self.p.append(aux["p"])
-            self.counts.append(collections.Counter(recorded))
-            self.seconds["capture"].append(time.perf_counter() - t0)
+        # a CUDA graph that the cyclic collector destroys while another is
+        # captured (an earlier model's: a model and its loop refer to each
+        # other) invalidates that capture, so collect first and not during
+        # the captures
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            for k in (0, 1):
+                self._capture(k, pool)
+        finally:
+            if collecting:
+                gc.enable()
         self.kept.append(dict(model.t))
         self.replays = [0, 0]
+
+    def _capture(self, k, pool):
+        """Capture graph k: the chunk body from states[k] into
+        states[1 - k]."""
+        loop, model = self.loop, self.loop.model
+        t0 = time.perf_counter()
+        self.kept.append(dict(model.t))
+        graph = torch.cuda.CUDAGraph()
+        Kernel.recording = recorded = []
+        try:
+            with torch.cuda.graph(graph, pool=pool):
+                s2, sfc2, aux = loop.body(self.states[k], self.sfc,
+                                          out=self.states[1 - k])
+                for key, v in sfc2.items():
+                    if v is not self.sfc[key]:
+                        self.sfc[key].copy_(v)
+        finally:
+            Kernel.recording = None
+        if set(sfc2) != set(self.sfc) or any(
+                s2[n] is not self.states[1 - k][n] for n in s2):
+            raise RuntimeError("the captured step did not write its "
+                               "state into the other static state")
+        self.graphs.append(graph)
+        self.p.append(aux["p"])
+        self.counts.append(collections.Counter(recorded))
+        self.seconds["capture"].append(time.perf_counter() - t0)
 
     def adopt(self, s, sfc):
         """Make the current static state hold (s, sfc), copying only what

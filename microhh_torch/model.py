@@ -1,10 +1,11 @@
 """Model orchestration of the PyTorch port (``microhh_tpu/model.py``; reference
 ``src/model.cxx``).
 
-One RK step runs eagerly on the model's device, on one of four paths of
+One RK step runs eagerly on the model's device, on one of five paths of
 the JAX package's step: two of its RK-folded fused step at 2nd order, its
-2nd-order substep without the RK fold, and its plain substep with the fused
-advection + diffusion producer at 4th order.
+2nd-order substep without the RK fold, its plain 2nd-order substep with the
+op producers, and its plain substep with the fused advection + diffusion
+producer at 4th order.
 
 * The dry path (thermo dry, or no thermo and no scalar: the drycblles,
   sullivan2011 and neutral Ekman slices; the JAX package's tiled kernels
@@ -41,6 +42,14 @@ advection + diffusion producer at 4th order.
   folded into the kernel, the projection ``Pres2.exec`` (plain-torch input
   and output around K5, K21, K6), the limiter in its tendency form and the
   low-storage RK update in place.
+* The plain 2nd-order substep (``microhh_tpu/model.py:370-399, 535-587``
+  with ``fused`` None: its ``_maybe_build_fused`` builds nothing for another
+  diffusion than smag2), for the DNN closure (SBL_DNN and its two
+  variants): the substep above with ``diff.exec_viscosity`` (the eddy
+  viscosity through K14, then the closure's stresses) in place of the eddy
+  viscosity alone and ``advec.exec`` then ``diff.exec`` (plain torch, as the
+  JAX package runs them in XLA) in place of K18/K19; the projection is
+  again K5, K21, K6.
 * The 4th-order path (advec 4 or 4m, diff 4, pres 4, the default boundary,
   thermo buoy or none: the moser180 and weakscaling slice;
   ``microhh_tpu/model.py:535-587``): per substep the in-place ghost fill,
@@ -85,6 +94,7 @@ from .ops.advec_interp_fused import AdvecInterpFused
 from .ops.boundary import NEUMANN, FLUX, w_cons
 from .ops.boundary_outflow import BoundaryOutflow
 from .ops.buffer import make_buffer
+from .ops.diff_smag2 import DiffSmag2
 from .ops.force import NoForce, foldable_geo, make_force
 from .ops.fused import (Fused, FusedGeneric, PresGlue, exec_viscosity,
                         generic_col_tables, generic_tendencies,
@@ -119,7 +129,7 @@ class Context:
         self.dxi, self.dyi = float(g.dxi), float(g.dyi)
         self.zsize = g.zsize
         self.utrans, self.vtrans = float(g.utrans), float(g.vtrans)
-        for name in ("z", "dz", "dzh", "dzi", "dzhi"):
+        for name in ("z", "zh", "dz", "dzh", "dzi", "dzhi"):
             setattr(self, name, self.tensor(getattr(g, name)))
         self.scalar_names = tuple(fields.sp.keys())
         self.np_z = np.asarray(g.z, dtype=np.float64)
@@ -295,6 +305,7 @@ class Model:
         self.advec_fused = None
         self.o4 = None
         self.unfolded = False
+        self.plain = False
         # the chunked loop (build_chunk), and (steps, seconds) of the last
         # run's loop
         self._chunk = None
@@ -357,6 +368,14 @@ class Model:
         K20).  ``unfolded=True`` forces that substep (its own check against
         the RK-folded paths).
 
+        A 2nd-order diffusion other than smag2 (the DNN closure) takes the
+        plain substep: the substep without the RK fold with the closure's
+        ``exec_viscosity`` and the op producers ``advec.exec`` and
+        ``diff.exec`` in place of the tendency kernels, as the JAX package
+        does when it builds no fused kernels (microhh_tpu/model.py:696-711);
+        K14 (or K1) and K7 serve the closure's eddy viscosity and the
+        limits.
+
         The dry RK sweep is K22 by default: the eddy viscosity and the
         Poisson right-hand side come out of the same k-march, the form the
         JAX package runs at 512^2 planes (its size gate below that was a
@@ -373,6 +392,13 @@ class Model:
             self.o4 = O4Fused(self.advec, self.diff, ctx)
             return
         self.glue = PresGlue(ctx)
+        if not isinstance(self.diff, DiffSmag2):
+            self.plain = self.generic = self.unfolded = True
+            self.skip_force = self.skip_buffer = False
+            self.fused = FusedGeneric(ctx, self.diff.smag, self.thermo,
+                                      self.force)
+            self.diff.bind(self.fused)
+            return
         interp = isinstance(self.advec, AdvecInterp)
         neutral = (isinstance(self.thermo, ThermoDisabled)
                    and not ctx.scalar_names)
@@ -429,6 +455,8 @@ class Model:
         micro = ([self.micro.k_micro]
                  if isinstance(self.micro, Microphys2momWarm) else [])
         evisc = [fz.k_evisc_n2] if fz.stratified == 2 else [fz.k_evisc]
+        if self.plain:
+            return evisc + micro + pres + [fz.k_limits]
         advec = ([self.advec_fused.k_mom, self.advec_fused.k_scal]
                  if self.advec_fused else [])
         if self.unfolded:
@@ -526,13 +554,18 @@ class Model:
         update closes the substep.  The carry and the RK update are in
         place, the latter on the tensors the ghost fill made (and a copy of
         w, which has no ghost level to fill), so the caller's state stays
-        as it was."""
+        as it was.  On the plain path the closure's exec_viscosity and the
+        op producers advec.exec and diff.exec stand in for the eddy
+        viscosity and the tendency kernels (microhh_tpu/model.py:553-555)."""
         ctx, tl, fz, bnd, t = self.ctx, self.timeloop, self.fused, self.boundary, self.t
         s = bnd.set_ghost_cells(ctx, s, sfc)
         s["w"] = s["w"].clone()
         if getattr(self.thermo, "swupdatebasestate", False):
             aux = self.thermo.update_basestate(ctx, s, aux, sfc)
-        aux = generic_viscosity(fz, ctx, s, sfc, aux)
+        if self.plain:
+            aux = self.diff.exec_viscosity(ctx, s, sfc, aux)
+        else:
+            aux = generic_viscosity(fz, ctx, s, sfc, aux)
         if self.generic:
             # thermo dry returns new tensors, the others add in place; on
             # the dry path the buoyancy is K20's
@@ -540,7 +573,10 @@ class Model:
             _, aux = self.micro.exec(ctx, s, t, aux, dt)
         sfc = bnd.exec(ctx, s, sfc, aux)
         s = bnd.set_ghost_cells(ctx, s, sfc, names=bnd.flux_ghost_names())
-        if self.generic:
+        if self.plain:
+            t.update(self.advec.exec(ctx, s, t, aux))
+            t.update(self.diff.exec(ctx, s, t, aux, sfc))
+        elif self.generic:
             if self.advec_fused is not None:
                 self.advec_fused.exec(ctx, s, t, aux)
             generic_tendencies(fz, ctx, s, t, aux, sfc)
@@ -636,8 +672,10 @@ class Model:
         number from K7's per-level maxima (the JAX package's slim limits,
         model.py:596-630: max commutes with the positive per-level dt
         factors and the MOST bottom-row override applied here; on the
-        generic path they equal its cfl_max + evisc + get_dn, :631-657), and
-        the sedimentation rate of the microphysics.  K7's CFL is the advec_2
+        generic and the plain path they equal its cfl_max + evisc + get_dn,
+        :631-657, which on the plain path also evaluates the DNN closure's
+        network and discards it), and the sedimentation rate of the
+        microphysics.  K7's CFL is the advec_2
         expression; an interpolated scheme gives its own (cfl_max, in plain
         torch: 2 passes over u, v and w) and K7 serves the evisc maxima."""
         ctx, fz = self.ctx, self.fused
@@ -665,8 +703,8 @@ class Model:
         dzi2 = ctx.dzi[ctx.ks:ctx.ke] ** 2
         dn = torch.max(torch.abs(evk * tprfac_i
                                  * (ctx.dxi ** 2 + ctx.dyi ** 2 + dzi2)))
-        cfl = (self.advec.cfl_max(ctx, s) if self.advec_fused
-               else torch.max(cflk))
+        cfl = (self.advec.cfl_max(ctx, s)
+               if isinstance(self.advec, AdvecInterp) else torch.max(cflk))
         out = {"cfl_rate": cfl, "dn_rate": dn}
         mrate = self.micro.get_time_limit_rate(ctx, s)
         if mrate is not None:

@@ -1,8 +1,9 @@
 """Physics-operator factories (``microhh_tpu/ops/__init__.py``).
 
 The port carries the drycblles, the moist (bomex/rico) and the buoyancy
-(SBL_Smag) slices at 2nd order: ``advec 2`` and the interpolated ``2i4``,
-``2i5``, ``2i53``, ``2i62``, ``diff smag2``, ``thermo dry``, ``moist`` and
+(SBL_Smag, SBL_DNN) slices at 2nd order: ``advec 2`` and the interpolated
+``2i4``, ``2i5``, ``2i53``, ``2i62``, ``diff smag2`` and the DNN closure
+``dnn_local``, ``dnn_global``, ``dnn_stats``, ``thermo dry``, ``moist`` and
 ``buoy`` (or none, without scalars: the neutral Ekman LES), the MOST surface
 and ``pres 2``, with ``2mom_warm`` microphysics,
 ``force`` and ``limiter`` (ops/microphys.py, ops/force.py, ops/limiter.py),
@@ -22,8 +23,8 @@ def not_ported(what, item):
 
 
 _ROADMAP_ADVEC = {"0": 12}
-_ROADMAP_DIFF = {"2": 12, "dnn_local": 12, "dnn_global": 12,
-                 "dnn_stats": 12, "0": 12}
+_ROADMAP_DIFF = {"2": 12, "0": 12}
+DNN_VARIANTS = ("dnn_local", "dnn_global", "dnn_stats")
 _ROADMAP_THERMO = {"vapor": 9}
 _ROADMAP_BOUNDARY = {"surface_bulk": 14, "surface_lsm": 14}
 
@@ -55,6 +56,9 @@ def make_diff(ini, grid, fields, boundary):
     if sw == "4":
         from .diff_4 import Diff4
         return Diff4(ini, grid, fields)
+    if sw in DNN_VARIANTS:
+        from .diff_dnn import DiffDNN
+        return DiffDNN(ini, grid, fields, boundary, variant=sw)
     if sw in _ROADMAP_DIFF:
         raise not_ported("[diff] swdiff=%s" % sw, _ROADMAP_DIFF[sw])
     raise ValueError("%s is an illegal value for swdiff" % sw)

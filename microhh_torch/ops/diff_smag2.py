@@ -133,6 +133,20 @@ class DiffSmag2:
         return aux
 
     # ------------------------------------------------------------------
+    def _term_z(self, ctx, flux_z):
+        """The divergence of a vertical flux on the interior levels."""
+        ks, ke = ctx.ks, ctx.ke
+        return ((_col(ctx.rhorefh, slice(ks + 1, ke + 1)) * flux_z[ks + 1:ke + 1]
+                 - _col(ctx.rhorefh, slice(ks, ke)) * flux_z[ks:ke])
+                / _col(ctx.rhoref, slice(ks, ke)) * _col(ctx.dzi, slice(ks, ke)))
+
+    def _wall_fluxes(self, ctx, flux_z, name, sfc):
+        """The surface model's wall fluxes in place of the gradient form."""
+        if self.surface:
+            flux_z[ctx.ks] = -sfc[name + "_fluxbot"]
+            flux_z[ctx.ke] = -self.fluxtop(name)
+        return flux_z
+
     def exec(self, ctx, s, t, aux, sfc):
         ks, ke = ctx.ks, ctx.ke
         u, v, w = s["u"], s["v"], s["w"]
@@ -144,17 +158,6 @@ class DiffSmag2:
         dzi = ctx.dzi
         dzhi = ctx.dzhi
         t = dict(t)
-
-        def term_z_of(flux_z):
-            return ((_col(rhoh, slice(ks + 1, ke + 1)) * flux_z[ks + 1:ke + 1]
-                     - _col(rhoh, slice(ks, ke)) * flux_z[ks:ke])
-                    / _col(rho, slice(ks, ke)) * _col(dzi, slice(ks, ke)))
-
-        def wall_fluxes(flux_z, name):
-            if self.surface:
-                flux_z[ks] = -sfc[name + "_fluxbot"]
-                flux_z[ke] = -self.fluxtop(name)
-            return flux_z
 
         # ---- u ----
         ev_e = evisc + visc
@@ -170,8 +173,8 @@ class DiffSmag2:
         flux_z = _set_rows(u, ks, ke + 1,
                            ev_zu[ks:ke + 1] * ((u[ks:ke + 1] - u[ks - 1:ke]) * _col(dzhi, slice(ks, ke + 1))
                                                + (w - im(w))[ks:ke + 1] * dxi))
-        flux_z = wall_fluxes(flux_z, "u")
-        t["u"] = add_rows(t["u"], ks, ke, term_x + term_y + term_z_of(flux_z))
+        flux_z = self._wall_fluxes(ctx, flux_z, "u", sfc)
+        t["u"] = add_rows(t["u"], ks, ke, term_x + term_y + self._term_z(ctx, flux_z))
 
         # ---- v ----
         ev_e2 = 0.25 * (jm(evisc) + evisc + ip(jm(evisc)) + ip(evisc)) + visc
@@ -187,8 +190,8 @@ class DiffSmag2:
         flux_z = _set_rows(v, ks, ke + 1,
                            ev_zv[ks:ke + 1] * ((v[ks:ke + 1] - v[ks - 1:ke]) * _col(dzhi, slice(ks, ke + 1))
                                                + (w - jm(w))[ks:ke + 1] * dyi))
-        flux_z = wall_fluxes(flux_z, "v")
-        t["v"] = add_rows(t["v"], ks, ke, term_x + term_y + term_z_of(flux_z))
+        flux_z = self._wall_fluxes(ctx, flux_z, "v", sfc)
+        t["v"] = add_rows(t["v"], ks, ke, term_x + term_y + self._term_z(ctx, flux_z))
 
         # ---- w ---- (diff_w, interior half levels)
         lo, hi = ks + 1, ke
@@ -206,8 +209,16 @@ class DiffSmag2:
                - _col(rho, slice(lo - 1, hi - 1)) * ev_b * (w[lo:hi] - w[lo - 1:hi - 1]) * _col(dzi, slice(lo - 1, hi - 1)))
               / _col(rhoh, slice(lo, hi)) * 2. * dzhi_w)
         t["w"] = add_rows(t["w"], lo, hi, wx + wy + wz)
+        return self.exec_scalars(ctx, s, t, aux, sfc)
 
-        # ---- scalars (diff_c) ----
+    def exec_scalars(self, ctx, s, t, aux, sfc):
+        """t with every scalar's diffusion (diff_c) added (new tensors for
+        the scalars)."""
+        ks, ke = ctx.ks, ctx.ke
+        evisc = aux["evisc"]
+        dxi, dyi = ctx.dxi, ctx.dyi
+        dzhi = ctx.dzhi
+        t = dict(t)
         for name in ctx.scalar_names:
             a = s[name]
             svisc = self.viscs[name]
@@ -222,9 +233,9 @@ class DiffSmag2:
             ev_z = 0.5 * (evisc[ks:ke + 1] + evisc[ks - 1:ke]) / self.tPr + svisc
             flux_z = _set_rows(a, ks, ke + 1,
                                ev_z * (a[ks:ke + 1] - a[ks - 1:ke]) * _col(dzhi, slice(ks, ke + 1)))
-            flux_z = wall_fluxes(flux_z, name)
-            t[name] = add_rows(t[name], ks, ke, term_h + term_z_of(flux_z))
-
+            flux_z = self._wall_fluxes(ctx, flux_z, name, sfc)
+            t[name] = add_rows(t[name], ks, ke,
+                               term_h + self._term_z(ctx, flux_z))
         return t
 
     def fluxtop(self, name):

@@ -257,7 +257,7 @@ def test_case_inputs_match_their_generators(case, ktot, tmp_path, monkeypatch):
 
 AS_WRITTEN = [("drycblles", "drycblles"), ("bomex", "bomex"),
               ("SBL_Smag", "SBL"), ("sullivan2011", "sullivan2011"),
-              ("moser180", "moser180")]
+              ("moser180", "moser180"), ("SBL_DNN", "SBL")]
 
 
 @pytest.mark.parametrize("case,name", AS_WRITTEN)
