@@ -1,11 +1,15 @@
 """Physics-validation envelopes of the PyTorch port (``microhh_torch``), the
-drycblles, bomex and sbl_dnn legs of ``cases/run_validation.py`` with the
-same grids, lengths and checks:
+drycblles, bomex, gabls1 and sbl_dnn legs of ``cases/run_validation.py``
+with the same grids, lengths and checks:
 
 * drycblles - CBL growth: zi(t) rises and tracks the encroachment
               prediction zi = sqrt(zi(1)^2 + 2*wth_s*(t - t(1))/gamma).
 * bomex     - GCSS shallow cumulus (Siebesma et al. 2003): cloud cover,
               cloud base and top from the mean ql profile.
+* gabls1    - Beare et al. (2006) SBL under its surface cooling of 0.25
+              K/h (the th_sbot series, taken every step on the per-step
+              loop): cooled surface air and stable stratification at any
+              length, and from 7 h on the supergeostrophic low-level jet.
 * sbl_dnn   - the stable Ekman layer of SBL_DNN with the DNN closure, its
               weights a TorchScript export (``models/dnn.py``, the
               reference's CNDNN layout, seeded random filters drawn as the
@@ -22,7 +26,8 @@ cpu`` on the CPU; then it reads the statistics file (either format,
 fails the leg.  Exit status is nonzero on any failed check.
 
 Usage:
-  python cases/run_validation_torch.py [--cases drycblles,bomex,sbl_dnn]
+  python cases/run_validation_torch.py
+      [--cases drycblles,bomex,gabls1,sbl_dnn]
       [--quick]
       [--device cuda|cpu] [--precision single|double] [--workdir DIR]
 """
@@ -149,6 +154,37 @@ def validate_bomex(args):
         check("cloud top [m]", float(top), 1200., 2200.)
 
 
+def validate_gabls1(args):
+    itot = 32 if args.quick else 64
+    endtime = 3600. if args.quick else 32400.
+    f = run_case("gabls1",
+                 {"itot": itot, "jtot": itot, "ktot": itot,
+                  "endtime": "%g" % endtime, "savetime": "%g" % endtime,
+                  "sampletime": "600."}, args)
+    grp = f.groups["default"]
+    z = np.asarray(f.variables["z"][:])
+    u = _prof(grp, "u")
+    v = _prof(grp, "v")
+    th = _prof(grp, "th")
+    f.close()
+
+    ug = 8.0                       # GABLS1 geostrophic wind
+    wind = np.hypot(u, v)
+    jet = float(wind.max())
+    zjet = float(z[int(np.argmax(wind))])
+    print("gabls1: jet=%.2f m/s at %.0f m; th(sfc air)=%.2f K"
+          % (jet, zjet, th[0]))
+    # stability holds at any length: cooled surface air, positive lapse
+    check("surface-air cooling [K]", float(265. - th[0]), 0.05, 6.)
+    check("stable stratification", float(np.mean(np.diff(th[:len(th) // 2])
+                                                 > -1e-3)), 0.75, 1.)
+    if endtime >= 7 * 3600.:
+        # Beare et al. (2006): a supergeostrophic jet near the top of the
+        # boundary layer (130-180 m at 3.1 m resolution, lower when coarser)
+        check("LLJ supergeostrophic ratio", jet / ug, 1.02, 1.25)
+        check("LLJ height [m]", zjet, 60., 250.)
+
+
 def validate_sbl_dnn(args):
     """SBL_DNN with the DNN closure end to end (cases/run_validation.py
     validate_sbl_dnn): a TorchScript export of seeded random filters at the
@@ -199,12 +235,12 @@ def validate_sbl_dnn(args):
 
 
 LEGS = {"drycblles": validate_drycblles, "bomex": validate_bomex,
-        "sbl_dnn": validate_sbl_dnn}
+        "gabls1": validate_gabls1, "sbl_dnn": validate_sbl_dnn}
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--cases", default="drycblles,bomex,sbl_dnn")
+    ap.add_argument("--cases", default="drycblles,bomex,gabls1,sbl_dnn")
     ap.add_argument("--quick", action="store_true")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--precision", choices=["single", "double"],

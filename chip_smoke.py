@@ -108,14 +108,16 @@ Phases (any failure exits non-zero and prints no result line):
      every point within CRIT_ROUNDINGS eps32 (1 + cond) of its value, cond
      its strain2 / |strain2 - N2/tPr| (check_evisc_critical);
   4. two whole RK3 steps on the card against the same two steps on the CPU
-     (plain versions), <= 1e-10, float64, fourteen cases: a 32^3 drycblles
+     (plain versions), <= 1e-10, float64, seventeen cases: a 32^3 drycblles
      on K22 and with build_step(fold=False), a 16^2x24 rico (swadvec=2), a
      16^2x24 rico as its ini is written (swadvec=2i5), a 16^2x24 SBL_Smag, a
      16^3 moser180, a 16x8x32 weakscaling, a 32x16x24 jaenschwalde, a 32^3
      sullivan2011 on K22 and with build_step(unfolded=True), a 48x24x24
      neutral Ekman LES, and SBL_DNN, SBL_DNNglobalScales and
      SBL_DNNstatsScales at 16^2x32 (the DNN closure's three variants on the
-     plain substep);
+     plain substep), gabls1 at 16^3 and arm at 16^2x64 (their time-dependent
+     values taken at each step's start, Model.update_timedep) and drycbl
+     as written (128x4x128);
   4b. statistics and budgets (check_stats): drycblles 32^3 as its ini is
      written (endtime cut to 900 s: four samples) and moser180 at 16^3 with
      its swbudget=4 (endtime 120 s: three samples) through run_case in
@@ -237,6 +239,25 @@ Phases (any failure exits non-zero and prints no result line):
      (models/dnn.py export_torchscript of random_filters(7)) and
      swdnnrandom=0, one step equal bit for bit to the step with
      TauDNN.from_arrays of the same filters.
+ 26. gabls4s3 (cases/gabls4s3/gabls4s3.ini as written: swadvec=2i4, smag2,
+     thermo dry, the MOST surface under the diurnal th_sbot series of the
+     Dome C input its script writes without the GABLS4 driver file, here
+     computed in memory) at 256^2x288 float32 through Model.run(max_iters=12)
+     on the per-step loop, with the calls of the plain versions of its
+     eleven kernels (K14, K12, K13, K8/K9, K15, K4 rhs, K5, K3, K6, K4
+     apply, K7) counted and required to be 0, the launches of one limits
+     call and one step recorded in order (K7, then the other ten a
+     substep), and th_bot at the run's end equal to its series at the last
+     step's start;
+ 27. at that shape, the eleven kernels against their plain versions, then
+     timed; the device time of a step by part (torch.profiler, one step);
+ 28. gabls1 and arm at 64^3 float32 as written (th_bot, and arm's thl and
+     qt fluxes, following their series; the per-step loop) and the
+     4th-order DNS cases as written: drycbl, rayleighbenard and
+     rayleightaylor at 128x4x128, prandtlslope at 8x4x256 (float32, DIV
+     held to 16 times the floor of rounding p, as weakscaling's) and
+     moser600 at 256x192x128 float64 (DIV <= 1e-10), through
+     Model.run(max_iters=12), every kernel of each path launched.
 Beside each kernel's time stands its bound: the bytes its inputs and outputs
 hold, each once, over 3.35 TB/s, or its operations over 67 TFLOP/s (float32
 outside the tensor cores; half that for float64) where that is larger; and, where one PyTorch call
@@ -519,6 +540,30 @@ def build_sullivan(torch, n, k, dtype, device, mode="run", workdir="."):
               device=device, input_nc=sullivan2011_input(k))
     m.finish_setup()
     return m
+
+
+def build_case(torch, case, n, k, dtype, device, mode="run", workdir=".",
+               **over):
+    """cases/<case>/<case>.ini at n = (itot, jtot) (or n^2) and k levels,
+    every other option as written unless over replaces it, on the input of
+    its script computed in memory (cases.case_input)."""
+    from microhh_torch.cases import case_input
+    from microhh_torch.config import Ini
+    from microhh_torch.model import Model
+    itot, jtot = n if isinstance(n, tuple) else (n, n)
+    ini = Ini(case_ini(case, itot=itot, jtot=jtot, ktot=k, **over))
+    m = Model(ini, mode, case, workdir=workdir, dtype=dtype, device=device,
+              input_nc=case_input(case, k, ini.get_float("grid", "zsize")))
+    m.finish_setup()
+    return m
+
+
+def case_build(case, **over):
+    """build_case for one case, in the signature run_les takes."""
+    def build(torch, n, k, dtype, device, mode="run", workdir="."):
+        return build_case(torch, case, n, k, dtype, device, mode, workdir,
+                          **over)
+    return build
 
 
 def andren_ini(n, k):
@@ -1185,10 +1230,14 @@ def unfolded_sweep_cases(torch, m, s, e, t0, rnd):
 
 
 def generic_state(m, seed):
-    """The seeded test state of a generic-path or unfolded model's case."""
+    """The seeded test state of a generic-path or unfolded model's case:
+    SBL's with b, rico's with rain, else seeded velocities (gabls4s3's
+    th, arm's thl and qt)."""
     if m.unfolded:
         return dry_state(m, seed) if not m.generic else unfolded_state(m, seed)
-    return (sbl_state if "b" in m.fields.sp else rico_state)(m, seed)
+    if "b" in m.fields.sp:
+        return sbl_state(m, seed)
+    return (rico_state if "qr" in m.fields.sp else unfolded_state)(m, seed)
 
 
 def generic_kernel_cases(torch, m, seed, only=None):
@@ -2726,14 +2775,29 @@ def check_step(torch):
         ("%s 16^2x32" % case, lambda d, case=case: build_sbl_dnn(
             torch, 16, 32, f64, d, case=case),
          lambda m: sbl_state(m, seed=7), {}) for case in DNN_CASES)
+    cases += (
+        ("gabls1 16^3", lambda d: build_case(torch, "gabls1", 16, 16, f64, d),
+         lambda m: unfolded_state(m, seed=7), {}),
+        ("arm 16^2x64", lambda d: build_case(torch, "arm", 16, 64, f64, d,
+                                             xsize=1600., ysize=1600.),
+         lambda m: unfolded_state(m, seed=7), {}),
+        ("drycbl 128x4x128", lambda d: build_case(torch, "drycbl", (128, 4),
+                                                  128, f64, d),
+         lambda m: o4_state(m, seed=7), {}))
+    from microhh_torch.timeloop import IFACTOR
     for label, make, state, step_kw in cases:
         out = {}
         for device in ("cuda", "cpu"):
             m = make(device)
             m.build_step(**step_kw)
             s, sfc = m.as_device_state(state(m))
+            dt = min(2.0, m.timeloop.dt)
             for _ in range(2):
-                s, sfc, aux = m.step(s, sfc, min(2.0, m.timeloop.dt))
+                # the time-dependent values at the step's start, as the
+                # per-step loop takes them (a case without any: no change)
+                sfc = m.update_timedep(sfc)
+                s, sfc, aux = m.step(s, sfc, dt)
+                m.timeloop.itime += int(dt * IFACTOR + 0.5)
             out[device] = (m, s, aux)
         m, s_gpu, aux_gpu = out["cuda"]
         _, s_cpu, aux_cpu = out["cpu"]
@@ -4122,6 +4186,22 @@ PLAIN_OF_DNN_PATH = (("microhh_torch.ops.fused", "evisc_plain"),
                      ("microhh_torch.ops.diff_smag2", "DiffSmag2.exec_viscosity"))
 
 
+# the plain versions of the generic path's kernels with an interpolated
+# scheme and one scalar (gabls4s3: K14 and K7, K12 and K13, K8/K9 and K15,
+# K4 rhs and apply, K3, K5 and K6)
+PLAIN_OF_GENERIC_PATH = (
+    ("microhh_torch.ops.fused", "evisc_plain"),
+    ("microhh_torch.ops.fused", "limits_plain"),
+    ("microhh_torch.ops.advec_interp_fused", "momentum_plain"),
+    ("microhh_torch.ops.advec_interp_fused", "scalars_plain"),
+    ("microhh_torch.ops.fused", "tend_uvw_plain"),
+    ("microhh_torch.ops.fused", "tend_scalars_plain"),
+    ("microhh_torch.ops.fused", "pres_rhs_plain"),
+    ("microhh_torch.ops.fused", "pres_apply_plain"),
+    ("microhh_torch.ops.pres_2", "tdma_plain"),
+    ("torch.fft", "rfft2"), ("torch.fft", "irfft2"))
+
+
 class counted:
     """Count the calls of the functions named (module, attribute path) for
     the length of a with block; the block gets the counts."""
@@ -4153,10 +4233,36 @@ class counted:
             setattr(obj, attr, orig)
 
 
-def dnn_launch_order(torch, m, s, sfc):
-    """The kernels one step and one limits call of the DNN path launch, in
-    order, through Kernel.recording (nothing is counted meanwhile): K14,
-    K5, K21 and K6 a substep and K7 once, and nothing else."""
+def check_th_bot(m):
+    """After Model.run of a case with time-dependent bottom values: the
+    chunked loop's gate kept it on the per-step loop, and each plane holds
+    the value of its series at the start of the last step, rounded once to
+    the run's type."""
+    from microhh_torch.model import NP_DTYPE
+    from microhh_torch.timedep import bc_key
+    if m._chunk_supported() or m._chunk is not None:
+        raise AssertionError("a case with time-dependent bottom values took "
+                             "the chunked loop")
+    tl = m.timeloop
+    out = {}
+    for scalar, td in m.btimedep.items.items():
+        key = bc_key(m.boundary, scalar)
+        want = NP_DTYPE[m.dtype](td.interpolate(tl.itime - tl.idt))
+        got = m.final_sfc[key].cpu().numpy()
+        log("  %s at %.3f s (the last step's start): %r, the series %r"
+            % (key, (tl.itime - tl.idt) / 1e9, float(got.flat[0]),
+               float(want)))
+        if not np.all(got == want):
+            raise AssertionError("%s does not follow its series" % scalar)
+        out[scalar] = float(want)
+    return out
+
+
+def path_launch_order(torch, m, s, sfc):
+    """The kernels one limits call and one step of a path launch, in order,
+    through Kernel.recording (nothing is counted meanwhile): K7 once, then
+    every other kernel of m.kernels() in its order each substep, and
+    nothing else (the DNN path: K14, K5, K21 and K6 a substep)."""
     from microhh_torch.kernels import Kernel
     Kernel.recording = []
     try:
@@ -4170,7 +4276,7 @@ def dnn_launch_order(torch, m, s, sfc):
     want = [lim] + sub * m.timeloop.n_substeps
     log("  launches of one limits call and one step, in order: %s" % names)
     if names != want:
-        raise AssertionError("the DNN path launched %s, not %s"
+        raise AssertionError("the path launched %s, not %s"
                              % (names, want))
     return names
 
@@ -4321,6 +4427,84 @@ def check_torchscript_step(torch, workdir, n=64):
         raise AssertionError("the TorchScript step differs from the "
                              "from_arrays step")
     return same
+
+
+def path_forms(m):
+    """The kernel cases and the timer of a model's path: K16/K17 on the
+    4th-order path, K22 and the projection on the RK-folded dry path, the
+    generic path's kernels otherwise."""
+    if m.o4 is not None:
+        return o4_kernel_cases, (lambda torch, m, s:
+                                 time_o4_kernels(torch, m, s, plain_reps=3))
+    if m.fold:
+        return kernel_cases, time_kernels
+    return generic_kernel_cases, time_generic_kernels
+
+
+def timedep_phases(torch, results, by_path, record):
+    """Phases 26 to 28: gabls4s3 as written (2i4, smag2, thermo dry, the
+    MOST surface under its diurnal th_sbot series) on the generic path
+    with K14, K12, K13 and K15, its kernels against their plain versions
+    and timed, the device time a step by part; then gabls1 and arm at 64^3
+    and the 4th-order DNS cases as written through Model.run, each path's
+    kernels against their plain versions at its shapes and timed.  record:
+    main's, which keeps a path's results and kernel entries."""
+    log("[26] gabls4s3 256^2x288 float32 as written through Model.run, its "
+        "th_sbot updated every step, no plain version of its kernels")
+    with tempfile.TemporaryDirectory() as workdir:
+        with counted(PLAIN_OF_GENERIC_PATH) as plain_calls:
+            m, s, res = run_les(torch, workdir, "gabls4s3",
+                                case_build("gabls4s3"), (256, 256), k=288)
+            res["launch_order"] = path_launch_order(torch, m, s, m.final_sfc)
+        log("  calls of the plain versions meanwhile: %s" % plain_calls)
+        if any(plain_calls.values()):
+            raise AssertionError("the gabls4s3 path ran plain versions: %s"
+                                 % plain_calls)
+        res["plain_calls"] = dict(plain_calls)
+        res["th_bot"] = check_th_bot(m)
+        where = "gabls4s3 %s float32" % shape_str(m)
+        log("[27] kernels at %s: against their plain versions, then timed"
+            % where)
+        errs = check_kernels_full(torch, m, generic_kernel_cases)
+        times = time_generic_kernels(torch, m, s)
+        log("[27] device time a step of %s by part" % where)
+        res["device_by_part"] = profile_steps(torch, m, s, "gabls4s3",
+                                              nsteps=1)[0]
+        record(m, s, "gabls4s3_256x256x288", "gabls4s3_256x256x288_f32",
+               "gabls4s3", res, errs, times, where)
+        del m, s
+    torch.cuda.empty_cache()
+
+    log("[28] gabls1 64^3 and arm 64^3 float32 and the 4th-order DNS cases "
+        "as written through Model.run")
+    f32, f64 = torch.float32, torch.float64
+    for key, case, n, k, dtype, kw in (
+            ("gabls1_64_f32", "gabls1", 64, 64, f32, {}),
+            ("arm_64_f32", "arm", 64, 64, f32, {"nonneg": ("qt",)}),
+            ("drycbl_128x4x128_f32", "drycbl", (128, 4), 128, f32,
+             {"p_floor": True}),
+            ("prandtlslope_8x4x256_f32", "prandtlslope", (8, 4), 256, f32,
+             {"p_floor": True}),
+            ("rayleighbenard_128x4x128_f32", "rayleighbenard", (128, 4), 128,
+             f32, {"p_floor": True}),
+            ("rayleightaylor_128x4x128_f32", "rayleightaylor", (128, 4), 128,
+             f32, {"p_floor": True}),
+            ("moser600_256x192x128_f64", "moser600", (256, 192), 128, f64,
+             {"div_tol": 1e-10})):
+        with tempfile.TemporaryDirectory() as workdir:
+            m, s, res = run_les(torch, workdir, case, case_build(case), n,
+                                k=k, dtype=dtype, **kw)
+            if m.btimedep.items:
+                res["th_bot"] = check_th_bot(m)
+            where = "%s %s %s" % (case, shape_str(m), str(dtype)[6:])
+            log("[28] kernels at %s: against their plain versions, then "
+                "timed" % where)
+            cases, timer = path_forms(m)
+            errs = check_kernels_full(torch, m, cases)
+            times = timer(torch, m, s)
+            record(m, s, key, key, case, res, errs, times, where)
+            del m, s
+        torch.cuda.empty_cache()
 
 
 def kernel_entry(k, launches, errs, times, where):
@@ -4610,7 +4794,7 @@ def main():
     with tempfile.TemporaryDirectory() as workdir:
         with counted(PLAIN_OF_DNN_PATH) as plain_calls:
             m, s, res = run_les(torch, workdir, "SBL_DNN", build_sbl_dnn, 256)
-            res["launch_order"] = dnn_launch_order(torch, m, s, m.final_sfc)
+            res["launch_order"] = path_launch_order(torch, m, s, m.final_sfc)
         log("  calls of the plain versions and of the Smagorinsky op path "
             "meanwhile: %s" % plain_calls)
         if any(plain_calls.values()):
@@ -4637,6 +4821,10 @@ def main():
         results["sbl_dnn_torchscript_bit_for_bit"] = check_torchscript_step(
             torch, workdir)
     torch.cuda.empty_cache()
+
+    # E: gabls4s3 as written on the generic path; gabls1, arm and the
+    # 4th-order DNS cases as written
+    timedep_phases(torch, results, by_path, record)
 
     if profile_path:
         os.makedirs(os.path.dirname(os.path.abspath(profile_path)),

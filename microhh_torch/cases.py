@@ -13,7 +13,15 @@ and ``weakscaling_input`` for ``cases/weakscaling/weakscaling_input.py``,
 ``sullivan2011_input`` for ``cases/sullivan2011/sullivan2011_input.py`` and
 ``andren1994_input`` for ``cases/andren1994/andren1994_input.py``,
 ``drycblles_input`` for ``cases/drycblles/drycblles_input.py`` and
-``bomex_input`` for ``cases/bomex/bomex_input.py``.
+``bomex_input`` for ``cases/bomex/bomex_input.py``; the 4th-order DNS
+cases ``drycbl_input``, ``prandtlslope_input``, ``rayleighbenard_input``,
+``rayleightaylor_input`` and ``moser600_input``; and the cases with a
+``timedep`` group (series over ``time_surface`` and ``time_ls``, which
+``timedep.py`` reads): ``gabls1_input``, ``gabls4s3_input`` (the idealized
+Dome C stand-in that ``gabls4s3_input.py`` writes when the GABLS4 driver
+file ``SCM_LES_STAGE3.nc`` is absent) and ``arm_input``.  A case whose
+script fixes its levels takes that count as its default ``ktot`` and
+ignores ``zsize``: its ini's zsize is the height those levels give.
 """
 
 import numpy as np
@@ -206,6 +214,148 @@ def bomex_input(ktot, zsize=3000.):
     return MemoryDataset({"z": z}, {"init": bomex_profiles(z)})
 
 
+def drycbl_input(ktot=128, zsize=None):
+    """The input dataset of cases/drycbl/drycbl_input.py: its doubly tanh-
+    stretched levels (the stretching placed by level, so that another ktot
+    keeps its shape over ktot levels) and b = 3 z."""
+    kmax = ktot
+    dn = 1. / kmax
+    n = np.linspace(dn, 1. - dn, kmax)
+    nloc1, nbuf1 = 20. * dn, 4. * dn
+    nloc2, nbuf2 = 128. * dn, 18. * dn
+    dz1, dz2, dz3 = 0.004, 0.008, 0.064
+    dzdn1 = dz1 / dn
+    dzdn2 = dz2 / dn
+    dzdn3 = dz3 / dn
+    dzdn = (dzdn1 + 0.5 * (dzdn2 - dzdn1) * (1. + np.tanh((n - nloc1) / nbuf1))
+            + 0.5 * (dzdn3 - dzdn2) * (1. + np.tanh((n - nloc2) / nbuf2)))
+    dz = dzdn * dn
+    z = np.zeros(kmax)
+    z[0] = 0.5 * dz[0]
+    for k in range(1, kmax):
+        z[k] = z[k - 1] + 0.5 * (dz[k - 1] + dz[k])
+    return MemoryDataset({"z": z}, {"init": {"b": 3. * z}})
+
+
+def prandtlslope_input(ktot=256, zsize=None):
+    """The input dataset of cases/prandtlslope/prandtlslope_input.py: levels
+    stretched geometrically from dz = 0.002 over a height of 1, at rest."""
+    kmax = ktot
+    dz1 = 0.002
+    r = 1.01
+    for _ in range(50):
+        r = (1. - (1. / dz1) * (1. - r)) ** (1. / kmax)
+    dz = dz1 * r ** np.arange(kmax)
+    z = np.zeros(kmax)
+    z[0] = 0.5 * dz[0]
+    for k in range(1, kmax):
+        z[k] = z[k - 1] + 0.5 * (dz[k - 1] + dz[k])
+    return MemoryDataset({"z": z}, {"init": {"b": np.zeros(kmax)}})
+
+
+def rayleighbenard_input(ktot=128, zsize=0.5):
+    """The input dataset of cases/rayleighbenard/rayleighbenard_input.py:
+    no buoyancy between the plates at the start."""
+    z = uniform_z(ktot, zsize)
+    return MemoryDataset({"z": z}, {"init": {"b": np.zeros(ktot)}})
+
+
+def rayleightaylor_input(ktot=128, zsize=0.5):
+    """The input dataset of cases/rayleightaylor/rayleightaylor_input.py:
+    heavy fluid (b = -1) over light (b = 1)."""
+    z = uniform_z(ktot, zsize)
+    b = np.where(z > 0.5 * zsize, -1., 1.)
+    return MemoryDataset({"z": z}, {"init": {"b": b}})
+
+
+def moser600_input(ktot=128, zsize=2.):
+    """The input dataset of cases/moser600/moser600_input.py, whose formulas
+    are moser180_input.py's."""
+    return moser180_input(ktot, zsize)
+
+
+def gabls1_input(ktot=64, zsize=400.):
+    """The input dataset of cases/gabls1/gabls1_input.py: 265 K below 100 m
+    and 0.01 K/m above, a geostrophic wind of 8 m/s, and the surface cooling
+    of 0.25 K/h as the series th_sbot over time_surface."""
+    z = uniform_z(ktot, zsize)
+    th = np.where(z <= 100., 265., 265. + 0.01 * (z - 100.))
+    u = np.full(ktot, 8.)
+    zero = np.zeros(ktot)
+    return MemoryDataset({"z": z}, {
+        "init": {"th": th, "u": u, "v": zero, "u_geo": u, "v_geo": zero},
+        "timedep": {"time_surface": np.array([0., 32400.]),
+                    "th_sbot": np.array([265., 262.75])}})
+
+
+def gabls4s3_z(kmax):
+    """The two-zone tanh levels of cases/gabls4s3/gabls4s3_input.py (fine
+    near the surface, ~955 m at its 288 levels)."""
+    nloc1, nbuf1, dz1, dz2 = 250., 20., 2., 12.
+    dn = 1. / kmax
+    n = np.linspace(dn, 1. - dn, kmax)
+    dzdn = dz1 / dn + 0.5 * (dz2 - dz1) / dn * (
+        1. + np.tanh((n - nloc1 * dn) / (nbuf1 * dn)))
+    dz = dzdn * dn
+    z = np.empty(kmax)
+    z[0] = 0.5 * dz[0]
+    for k in range(1, kmax):
+        z[k] = z[k - 1] + 0.5 * (dz[k - 1] + dz[k])
+    return z
+
+
+def gabls4s3_input(ktot=288, zsize=None):
+    """The input dataset that cases/gabls4s3/gabls4s3_input.py writes
+    without the GABLS4 driver file: the idealized Dome C stand-in (th 270 K
+    at the surface rising 8 K over 100 m, 0.0078 K/m above; u = ug = 4.6
+    m/s) with the diurnal surface temperature 278 -> 270 -> 278 K as th_sbot
+    over time_surface, hourly for 24 h."""
+    z = gabls4s3_z(ktot)
+    th = 278. + np.maximum(z - 100., 0.) * 0.0078
+    th = np.where(z < 100., 270. + 8. * z / 100., th)
+    u = np.full(ktot, 4.6)
+    zero = np.zeros(ktot)
+    t_srf = np.linspace(0., 86400., 25)
+    ths = 274. - 4. * np.cos(2. * np.pi * t_srf / 86400.)
+    return MemoryDataset({"z": z}, {
+        "init": {"th": th, "u": u, "v": zero, "u_geo": np.full(ktot, 4.6),
+                 "v_geo": np.zeros(ktot)},
+        "timedep": {"time_surface": t_srf, "th_sbot": ths}})
+
+
+def arm_input(ktot=64, zsize=4400.):
+    """The input dataset of cases/arm/arm_input.py (Brown et al. 2002):
+    piecewise-linear soundings, the surface fluxes of heat and moisture as
+    series over time_surface, and the large-scale thl and qt tendencies as
+    profiles over time_ls."""
+    z = uniform_z(ktot, zsize)
+    zb = np.array([0., 50., 350., 650., 700., 1300., 2500., 5500.])
+    thlb = np.array([299.0, 301.5, 302.5, 303.53, 303.7, 307.13, 314.0, 343.2])
+    qtb = np.array([15.20, 15.17, 14.98, 14.80, 14.70, 13.50, 3.00, 3.00])
+    thl = np.interp(z, zb, thlb)
+    qt = np.interp(z, zb, qtb) * 1e-3
+    u = np.full(ktot, 10.)
+    time_sfc = np.array([0., 4., 6.5, 7.5, 10., 12.5, 14.5]) * 3600.
+    H = np.array([-30., 90., 140., 140., 100., -10., -10.])
+    LE = np.array([5., 250., 450., 500., 420., 180., 0.])
+    rho0 = 97000. / (287. * thl[0] * (1. + 0.61 * qt[0]))
+    time_ls = np.array([0., 3., 6., 9., 12., 14.5]) * 3600.
+    advthl = np.array([0., 0., 0., -0.08, -0.16, -0.16])
+    radthl = np.array([-0.125, 0., 0., 0., 0., -0.1])
+    advqt = np.array([0.08, 0.02, -0.04, -0.10, -0.16, -0.30])
+    ramp = np.where(z <= 1000., 1., 1. - (z - 1000.) / (5500. - 1000.))
+    return MemoryDataset({"z": z}, {
+        "init": {"thl": thl, "qt": qt, "u": u, "u_geo": u,
+                 "v": np.zeros(ktot), "v_geo": np.zeros(ktot)},
+        "timedep": {
+            "time_surface": time_sfc,
+            "thl_sbot": H / (rho0 * 1005.),
+            "qt_sbot": LE / (rho0 * 2.5e6),
+            "time_ls": time_ls,
+            "thl_ls": (advthl + radthl)[:, None] / 3600. * ramp[None, :],
+            "qt_ls": advqt[:, None] / 3600. * 1e-3 * ramp[None, :]}})
+
+
 def case_input(casename, ktot, zsize):
     """The input dataset of the shipped case ``casename`` (its ini's file
     name) at ktot levels over zsize, computed in memory as its
@@ -215,7 +365,12 @@ def case_input(casename, ktot, zsize):
             "rico": rico_input, "SBL": sbl_input,
             "moser180": moser180_input, "jaenschwalde": jaenschwalde_input,
             "sullivan2011": sullivan2011_input,
-            "andren1994": andren1994_input}
+            "andren1994": andren1994_input, "drycbl": drycbl_input,
+            "prandtlslope": prandtlslope_input,
+            "rayleighbenard": rayleighbenard_input,
+            "rayleightaylor": rayleightaylor_input,
+            "moser600": moser600_input, "gabls1": gabls1_input,
+            "gabls4s3": gabls4s3_input, "arm": arm_input}
     if casename not in make:
         raise ValueError("no input of case %r in microhh_torch.cases"
                          % casename)

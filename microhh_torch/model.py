@@ -70,7 +70,11 @@ table, the statistics (``stats.py``, ``budget.py``), the dumps
 device-side chunked loop where it can (``_run_chunked``: dt computed on the
 device from step to step between two output events, the dry RK step
 captured as CUDA graphs on the card, ``graph_step.py``), else the per-step
-host loop; ``MICROHH_CHUNK=0`` asks for the latter.  An option outside
+host loop; ``MICROHH_CHUNK=0`` asks for the latter.  The per-step loop
+takes the time-dependent bottom values, forcings, surface pressure, sources
+and 2-D bottom maps (``timedep.py``) at the top of every iteration; a case
+with any of those but a geostrophic wind, subsidence or surface pressure
+stays off the chunked loop, as in the JAX package.  An option outside
 these slices raises NotImplementedError naming its ROADMAP item.  The model runs on the device
 it is given, by default the first CUDA device; ``device="cpu"`` runs every
 kernel's plain-torch version instead.
@@ -110,6 +114,7 @@ from .ops.stencil import ip, jp, i2
 from .ops.thermo import ThermoDisabled
 from .ops.thermo_dry import ThermoDry
 from .stats import Stats
+from .timedep import BoundaryTimedep, Sbot2D
 
 NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
 
@@ -204,10 +209,6 @@ def check_slice(ini, grid, sim_mode):
         (switch("radiation", "swradiation"), "[radiation] swradiation", 13),
         (any(v not in ("0", "false") for v in decay.values()),
          "[decay] swdecay", 9),
-        (ini.get_bool("boundary", "swtimedep", default=False),
-         "[boundary] swtimedep", 14),
-        (ini.get_list(str, "boundary", "sbot_2d_list", default=[]),
-         "[boundary] sbot_2d_list", 14),
         (ini.get_str("IB", "sw_immersed_boundary",
                      default=ini.get_str("IB", "swib", default="0"))
          not in ("0", "false", "disabled"), "[IB] immersed boundary", 14),
@@ -290,6 +291,11 @@ class Model:
         if self.outflow.active and self.input_nc is not None:
             self.outflow.create(self.input_nc)
         self.timeloop = Timeloop(ini, sim_mode)
+        # time-dependent bottom values and 2-D bottom maps
+        # (microhh_tpu/model.py:140-153; [grid] swtimedep raises in
+        # check_slice)
+        self.btimedep = BoundaryTimedep(ini, self.fields, self.input_nc)
+        self.sbot2d = Sbot2D(ini, self.fields)
         # [master] wallclocklimit in hours (reference master.cxx:80-89)
         self.wallclocklimit = ini.get_float("master", "wallclocklimit",
                                             default=1.e8)
@@ -531,7 +537,7 @@ class Model:
         if self.advec_fused is not None:
             # additive and independent of the carry, so the fold stays exact
             self.advec_fused.exec(ctx, s, self.t, aux)
-        cols = generic_col_tables(fz, ctx, s, self.force, self.buffer)
+        cols = generic_col_tables(fz, ctx, s, self.force, self.buffer, sfc)
         if self.source is not None:
             # additive and independent of the carry, like the producers above
             # (microhh_tpu/model.py:438)
@@ -789,12 +795,36 @@ class Model:
     # ------------------------------------------------------------------
     def _chunk_supported(self):
         """The JAX package's gate (microhh_tpu/model.py:980-991): adaptive
-        dt, not post mode, and MICROHH_CHUNK not 0.  The time-dependent
-        boundaries and forcings that it also excludes raise in the port
-        (check_slice)."""
+        dt, not post mode, MICROHH_CHUNK not 0, and none of the time
+        dependences it names, since a chunk makes no host update between
+        its steps: time-dependent bottom values, large-scale sources or
+        emission sources, or 2-D bottom maps.  Like the JAX package's, the
+        chunked loop makes no update at all: a time-dependent geostrophic
+        wind, subsidence or surface pressure, which this gate lets through,
+        keeps its static profile there."""
         return (os.environ.get("MICROHH_CHUNK", "1") != "0"
                 and self.timeloop.adaptivestep
-                and self.sim_mode != "post")
+                and self.sim_mode != "post"
+                and not self.btimedep.items
+                and not getattr(self.force, "tdep_ls", None)
+                and not getattr(self.source, "tdep", None)
+                and not self.sbot2d.swtimedep)
+
+    def update_timedep(self, sfc):
+        """sfc with every time-dependent value at the current integer time
+        (model.cxx:339-343; microhh_tpu/model.py:1255-1271)."""
+        itime = self.timeloop.itime
+        if self.btimedep.items:
+            sfc = self.btimedep.update(self, sfc, itime)
+        if getattr(self.force, "has_timedep", False):
+            sfc = self.force.update_timedep(sfc, itime)
+        if getattr(self.thermo, "tdep_pbot", None) is not None:
+            sfc = self.thermo.update_timedep(sfc, itime)
+        if getattr(self.source, "tdep", None):
+            sfc = self.source.update_timedep(sfc, itime)
+        if self.sbot2d.swtimedep:
+            sfc = self.sbot2d.update(self, sfc, itime)
+        return sfc
 
     def build_chunk(self, capture=True):
         """The chunk's carried scalars and body (graph_step.ChunkLoop),
@@ -864,6 +894,7 @@ class Model:
         the restart (not at the first pass) and the end, between chunks."""
         tl = self.timeloop
         s, sfc = self.as_device_state(self.load_state())
+        sfc = self.sbot2d.apply_static(self, sfc)
         if self.fused is None and self.o4 is None:
             self.build_step()
         self.build_chunk()
@@ -914,6 +945,7 @@ class Model:
                 return self._run_chunked(status_file)
         tl = self.timeloop
         s, sfc = self.as_device_state(self.load_state())
+        sfc = self.sbot2d.apply_static(self, sfc)
         if self.fused is None and self.o4 is None:
             self.build_step()
         cflmax, cflmin = self.advec.cflmax, self.advec.cflmin
@@ -925,6 +957,7 @@ class Model:
                               % ("ITER", "TIME", "CPUDT", "DT", "CFL", "DNUM",
                                  "DIV", "MOM", "TKE", "MASS"))
             while True:
+                sfc = self.update_timedep(sfc)
                 # adaptive time step (model.cxx:730-751)
                 tl.reset_time_step_limit(self.at_wall_clock_limit())
                 # land on the sampling times (stats get_time_limit), before

@@ -3,18 +3,25 @@
 
 Ported: ``swlspres`` in {0, geo (with Coriolis, 2nd order), dpdx, uflux},
 large-scale source terms (``swls`` + ``lslist``) and subsidence (``swwls`` = mean | local),
-with static profiles from the input ``init`` group.  On the model's generic
-path these collapse into the per-level tables of the tendency kernels
-(ops/fused.py generic_col_tables), which do not carry uflux;
-``Force.__call__`` is their op path and what the 4th-order step runs.
-Nudging and the time-dependent profiles are not ported yet (ROADMAP Queue 1
-item 9), nor is the 4th-order Coriolis stencil (item 11).
+with profiles from the input ``init`` group.  ``swtimedep_geo``,
+``swtimedep_ls`` and ``swtimedep_wls`` make the geostrophic wind, the listed
+large-scale sources and the subsidence follow series of the ``timedep``
+group over ``time_ls`` (force.cxx:354-415, 744-756): ``update_timedep``
+interpolates them on the host every iteration into ``sfc`` (``__geo_u``,
+``__geo_v``, ``__ls_<name>``, ``__wls``; float64 on the model's device), and
+the consumers cast them to the run's dtype where they read them.  On the
+model's generic path these collapse into the per-level tables of the
+tendency kernels (ops/fused.py generic_col_tables), which do not carry
+uflux; ``Force.__call__`` is their op path and what the 4th-order step
+runs.  Nudging is not ported yet (ROADMAP Queue 1 item 9), nor is the
+4th-order Coriolis stencil (item 11).
 """
 
 import numpy as np
 import torch
 
 from . import not_ported
+from ..timedep import Timedep, sfc_device
 from .advec_2 import add_rows
 from .stencil import im, ip, jm, jp
 
@@ -35,10 +42,11 @@ class Force:
         self.swnudge = ini.get_str("force", "swnudge", default="0")
         if self.swnudge not in ("0", "false"):
             raise not_ported("[force] swnudge", 9)
-        for item in ("swtimedep_geo", "swtimedep_ls", "swtimedep_wls"):
-            if ini.get_bool("force", item, default=False):
-                raise not_ported("[force] %s (time-dependent forcing)" % item, 9)
-        self.tdep_geo = False
+        if ini.get_bool("force", "swtimedep_nudge", default=False):
+            raise not_ported("[force] swtimedep_nudge", 9)
+        self.tdep_geo = {}
+        self.tdep_ls = {}
+        self.tdep_wls = None
         kt = grid.ktot
 
         if self.swlspres == "uflux":
@@ -51,21 +59,76 @@ class Force:
             self.fc = ini.get_float("force", "fc")
             self.ug = _prof(input_nc, "u_geo", kt)[:, None, None]
             self.vg = _prof(input_nc, "v_geo", kt)[:, None, None]
+            if ini.get_bool("force", "swtimedep_geo", default=False):
+                self.tdep_geo = {"u": Timedep(input_nc, "u_geo", "time_ls"),
+                                 "v": Timedep(input_nc, "v_geo", "time_ls")}
         elif self.swlspres != "0":
             raise ValueError("%s is an illegal value for swlspres" % self.swlspres)
 
         self.lslist = []
         if self.swls == "1":
             self.lslist = ini.get_list(str, "force", "lslist", default=[])
-            self.ls_profs = {n: _prof(input_nc, n + "_ls", kt)[:, None, None]
+            if ini.get_bool("force", "swtimedep_ls", default=False):
+                for n in ini.get_list(str, "force", "timedeplist_ls",
+                                      default=[]):
+                    self.tdep_ls[n] = Timedep(input_nc, n + "_ls", "time_ls")
+            # a time-dependent entry has no init profile: zeros until its
+            # first update, as in the JAX package
+            self.ls_profs = {n: (np.zeros((kt, 1, 1)) if n in self.tdep_ls
+                                 else _prof(input_nc, n + "_ls", kt)[:, None, None])
                              for n in self.lslist}
         if self.swwls == "1":
             self.swwls = "mean"  # legacy alias
         if self.swwls in ("mean", "local"):
             self.swwls_mom = ini.get_bool("force", "swwls_mom", default=False)
             self.wls = _prof(input_nc, "w_ls", kt)
+            if ini.get_bool("force", "swtimedep_wls", default=False):
+                self.tdep_wls = Timedep(input_nc, "w_ls", "time_ls")
         elif self.swwls != "0":
             raise ValueError("%s is an illegal value for swwls" % self.swwls)
+
+    @property
+    def has_timedep(self):
+        return bool(self.tdep_ls or self.tdep_geo or self.tdep_wls is not None)
+
+    def update_timedep(self, sfc, itime):
+        """sfc with this iteration's profiles, interpolated on the host and
+        cut to ktot levels (an input may hold more levels than a run)."""
+        if not self.has_timedep:
+            return sfc
+        kt = self.grid.ktot
+        device = sfc_device(sfc)
+
+        def prof(td):
+            return torch.as_tensor(td.interpolate(itime)[:kt], device=device)
+
+        sfc = dict(sfc)
+        for n, td in self.tdep_ls.items():
+            sfc["__ls_" + n] = prof(td)
+        for n, td in self.tdep_geo.items():
+            sfc["__geo_" + n] = prof(td)
+        if self.tdep_wls is not None:
+            sfc["__wls"] = prof(self.tdep_wls)
+        return sfc
+
+    def profiles(self, ctx, sfc=None):
+        """This iteration's forcing columns, (ktot,) in the run's dtype on
+        its device: "ug" and "vg" (swlspres geo), "ls" by name of lslist
+        and "wls" (swwls); a time series' value where update_timedep put it
+        into sfc, else the static profile."""
+        def pick(key, static):
+            if sfc is not None and key in sfc:
+                return sfc[key].to(ctx.dtype)
+            return ctx.tensor(np.asarray(static).reshape(-1)[:ctx.ktot])
+
+        out = {"ls": {n: pick("__ls_" + n, self.ls_profs[n])
+                      for n in self.lslist}}
+        if self.swlspres == "geo":
+            out["ug"] = pick("__geo_u", self.ug)
+            out["vg"] = pick("__geo_v", self.vg)
+        if self.swwls in ("mean", "local"):
+            out["wls"] = pick("__wls", self.wls)
+        return out
 
     def __call__(self, ctx, s, t, aux, sfc=None):
         """t plus the forcing tendencies (a new dict of new tensors)."""
@@ -83,9 +146,10 @@ class Force:
             t["u"] = add_rows(t["u"], ks, ke, fbody)
         elif self.swlspres == "dpdx":
             t["u"] = add_rows(t["u"], ks, ke, -self.dpdx)
-        elif self.swlspres == "geo":
+        prof = self.profiles(ctx, sfc)
+        if self.swlspres == "geo":
             fc = self.fc
-            ug, vg = ctx.tensor(self.ug), ctx.tensor(self.vg)
+            ug, vg = prof["ug"][:, None, None], prof["vg"][:, None, None]
             u, v = s["u"], s["v"]
             # coriolis_2nd (force.cxx:78-140)
             v_at_u = 0.25 * (v + ip(v) + jm(v) + jm(ip(v)))[ks:ke]
@@ -94,10 +158,11 @@ class Force:
             t["v"] = add_rows(t["v"], ks, ke, -fc * (u_at_v + ctx.utrans - ug))
 
         for name in self.lslist:
-            t[name] = add_rows(t[name], ks, ke, ctx.tensor(self.ls_profs[name]))
+            t[name] = add_rows(t[name], ks, ke,
+                               prof["ls"][name][:, None, None])
 
         if self.swwls in ("mean", "local"):
-            wls = ctx.tensor(self.wls[:, None, None])
+            wls = prof["wls"][:, None, None]
             names = list(ctx.scalar_names)
             if self.swwls_mom:
                 names += ["u", "v"]
@@ -124,6 +189,25 @@ def foldable_geo(force):
 
 
 class NoForce:
+    def profiles(self, ctx, sfc=None):
+        """This iteration's forcing columns, (ktot,) in the run's dtype on
+        its device: "ug" and "vg" (swlspres geo), "ls" by name of lslist
+        and "wls" (swwls); a time series' value where update_timedep put it
+        into sfc, else the static profile."""
+        def pick(key, static):
+            if sfc is not None and key in sfc:
+                return sfc[key].to(ctx.dtype)
+            return ctx.tensor(np.asarray(static).reshape(-1)[:ctx.ktot])
+
+        out = {"ls": {n: pick("__ls_" + n, self.ls_profs[n])
+                      for n in self.lslist}}
+        if self.swlspres == "geo":
+            out["ug"] = pick("__geo_u", self.ug)
+            out["vg"] = pick("__geo_v", self.vg)
+        if self.swwls in ("mean", "local"):
+            out["wls"] = pick("__wls", self.wls)
+        return out
+
     def __call__(self, ctx, s, t, aux, sfc=None):
         return t
 

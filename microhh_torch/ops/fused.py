@@ -1426,7 +1426,7 @@ def generic_wall_deltas(fz, ctx, s, aux, sfc):
     return out
 
 
-def generic_col_tables(fz, ctx, s, force, buffer):
+def generic_col_tables(fz, ctx, s, force, buffer, sfc=None):
     """This substep's tables of K8/K9 (ktot, NTG) and K10 (S, ktot, NTG):
     the sponge, the dpdx and geostrophic forcing, the large-scale sources
     and the mean or local subsidence as per-level coefficients,
@@ -1435,7 +1435,9 @@ def generic_col_tables(fz, ctx, s, force, buffer):
 
     (generic_col_tables of the JAX package).  Mean subsidence reads this
     substep's plane means, so the tables are built on the device every
-    substep and passed to every launch."""
+    substep and passed to every launch.  The time-dependent profiles of
+    this iteration come from sfc where they are present
+    (Force.profiles), as in pallas_fused.py:2900-2922."""
     from .force import Force
     ks, ke, kt = ctx.ks, ctx.ke, ctx.ktot
     names = list(fz.names)
@@ -1468,12 +1470,13 @@ def generic_col_tables(fz, ctx, s, force, buffer):
             adds[n] = adds[n] + fzc * col(buffer.profs[n])
 
     if isinstance(force, Force):
+        fp = force.profiles(ctx, sfc)
         if force.swlspres == "geo":
-            ug, vg = col(force.ug), col(force.vg)
+            ug, vg = fp["ug"], fp["vg"]
         elif force.swlspres == "dpdx":
             add_u = add_u - force.dpdx
         for n in force.lslist:
-            prof = col(force.ls_profs[n])
+            prof = fp["ls"][n]
             if n == "u":
                 add_u = add_u + prof
             elif n == "v":
@@ -1481,7 +1484,7 @@ def generic_col_tables(fz, ctx, s, force, buffer):
             else:
                 adds[n] = adds[n] + prof
         if force.swwls in ("mean", "local"):
-            wls = col(force.wls)
+            wls = fp["wls"]
             wls_mom = force.swwls_mom
             dzhi = ctx.dzhi
             if force.swwls == "mean":

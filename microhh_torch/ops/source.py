@@ -13,22 +13,28 @@ package's expressions, after the base state exists (the norm reads the
 anelastic density); the blobs of one scalar are summed into one tensor of
 the run's type on its device, so a substep adds one field per sourced
 scalar.  ``sw_profile`` takes the z-shape from ``emission_profile_<i>`` of
-the init group.  Time-dependent locations and strengths raise (ROADMAP
-Queue 1 item 9: ``timedep.py``).
+the init group.  With ``swtimedep_location`` or ``swtimedep_strength``
+(source.cxx:215-236, 318-404) the series ``source_{x0,y0,z0,strength}_<n>``
+over ``time_source`` are interpolated on the host every iteration into
+``sfc["__src_<key>"]`` (float64 scalars on the model's device), and every
+substep builds each blob and its norm anew on the device in the run's
+dtype, as the JAX package's ``_exec_timedep`` does.
 """
 
 import numpy as np
+import torch
 
 from .. import constants as cst
-from . import not_ported
+from ..timedep import Timedep, sfc_device
 
 
 def axis_dist(c, c0, line):
-    """Distance of c from the point c0 or from the segment [c0, c0+line]."""
+    """Distance of c from the point c0 or from the segment [c0, c0+line]
+    (numpy arrays, or tensors with c0 a 0-dim tensor)."""
     if line == 0.:
         return c - c0
-    return np.where(c < c0, c - c0,
-                    np.where(c > c0 + line, c - c0 - line, 0.))
+    where = torch.where if torch.is_tensor(c) else np.where
+    return where(c < c0, c - c0, where(c > c0 + line, c - c0 - line, 0.))
 
 
 class Source:
@@ -62,9 +68,31 @@ class Source:
             self.profiles = [np.asarray(
                 init.variables["emission_profile_%d" % i][:grid.ktot],
                 dtype=np.float64) for i in idx]
-        for item in ("swtimedep_location", "swtimedep_strength"):
-            if ini.get_bool("source", item, default=False):
-                raise not_ported("[source] %s" % item, 9)
+        # the interpolated parameters by key, source_<c>_<n>
+        self.tdep = {}
+        timedep = {c: ini.get_bool("source", "swtimedep_" + c, default=False)
+                   for c in ("location", "strength")}
+        if self.sw_profile and any(timedep.values()):
+            raise ValueError("Emission profiles with time dependent location/"
+                             "strength are not supported (source.cxx:383)")
+        keys = ((["x0", "y0", "z0"] if timedep["location"] else [])
+                + (["strength"] if timedep["strength"] else []))
+        for i in range(n):
+            for c in keys:
+                key = "source_%s_%d" % (c, i)
+                self.tdep[key] = Timedep(input_nc, key, "time_source")
+
+    def update_timedep(self, sfc, itime):
+        """sfc with this iteration's locations and strengths."""
+        if not self.tdep:
+            return sfc
+        sfc = dict(sfc)
+        device = sfc_device(sfc)
+        for key, td in self.tdep.items():
+            sfc["__src_" + key] = torch.tensor(float(td.interpolate(itime)),
+                                               dtype=torch.float64,
+                                               device=device)
+        return sfc
 
     def blobs(self):
         """(scalar, normalised 3-D source field in float64) per source, on
@@ -91,6 +119,8 @@ class Source:
 
     def __call__(self, ctx, s, t, aux, sfc=None):
         """Add every source into its scalar's carry, in place."""
+        if self.tdep:
+            return self._exec_timedep(ctx, t, sfc)
         if self.total is None:
             self.total = {}
             for name, blob in self.blobs():
@@ -101,6 +131,38 @@ class Source:
                     self.total[name] = field
         for name, field in self.total.items():
             t[name][ctx.ks:ctx.ke] += field
+        return t
+
+
+    def _exec_timedep(self, ctx, t, sfc):
+        """The blobs and their norms from this iteration's parameters, on
+        the device in the run's dtype (source.cxx:362-404 recomputes them
+        on the host every step), each source added in turn."""
+        g = self.grid
+        ks, ke = ctx.ks, ctx.ke
+        X = ctx.tensor(g.x)[None, None, :]
+        Y = ctx.tensor(g.y)[None, :, None]
+        Z = ctx.tensor(g.z[ks:ke])[:, None, None]
+        dV = g.dx * g.dy * ctx.tensor(g.dz[ks:ke])[:, None, None]
+        rho = ctx.tensor(self.fields.rhoref[ks:ke])[:, None, None]
+
+        def param(c, n, default):
+            key = "__src_source_%s_%d" % (c, n)
+            if sfc is not None and key in sfc:
+                return sfc[key].to(ctx.dtype)
+            return torch.tensor(default, dtype=ctx.dtype, device=ctx.device)
+
+        for n, name in enumerate(self.sourcelist):
+            x0, y0, z0 = (param(c, n, getattr(self, c)[n])
+                          for c in ("x0", "y0", "z0"))
+            strength = param("strength", n, self.strength[n])
+            blob = torch.exp(
+                -(axis_dist(X, x0, self.line[0][n]) / self.sx[n]) ** 2
+                - (axis_dist(Y, y0, self.line[1][n]) / self.sy[n]) ** 2
+                - (axis_dist(Z, z0, self.line[2][n]) / self.sz[n]) ** 2)
+            scaling = rho / cst.xmair if self.swvmr[n] else 1.
+            norm = torch.sum(blob * scaling * dV)
+            t[name][ks:ke] += (strength / norm) * blob
         return t
 
 

@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from .. import constants as cst
+from ..timedep import Timedep
 from .advec_2 import add_rows
 from .stencil import i2
 
@@ -36,11 +37,19 @@ class ThermoDry:
         if ini.get_bool("thermo", "swbaroclinic", default=False):
             raise NotImplementedError(
                 "[thermo] swbaroclinic is not ported (ROADMAP Queue 1 item 9)")
-        if ini.get_bool("thermo", "swtimedep_pbot", default=False):
-            raise NotImplementedError(
-                "[thermo] swtimedep_pbot is not ported (ROADMAP Queue 1 item 9)")
         ini.flag_as_used("thermo", "thref0")
         ini.flag_as_used("thermo", "pbot")
+        # swtimedep_pbot (thermo_dry.cxx:364, 494-497): interpolated as the
+        # reference does, into pbot alone; the dry base state is static, so
+        # nothing reads it during a run
+        self.swtimedep_pbot = ini.get_bool("thermo", "swtimedep_pbot",
+                                           default=False)
+        self.tdep_pbot = None
+
+    def update_timedep(self, sfc, itime):
+        if self.tdep_pbot is not None:
+            self.pbot = float(self.tdep_pbot.interpolate(itime))
+        return sfc
 
     @property
     def scalars(self):
@@ -48,6 +57,8 @@ class ThermoDry:
 
     def create_basestate(self, input_nc):
         """Fill thref/threfh/pref/rhoref (reference create, :376-445)."""
+        if self.swtimedep_pbot:
+            self.tdep_pbot = Timedep(input_nc, "p_sbot", "time_surface")
         g = self.grid
         kc, ks, ke = g.kcells, g.kstart, g.kend
         thref = np.zeros(kc)

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from .. import constants as cst
+from ..timedep import Timedep
 from .stencil import i2
 
 NITER_SAT_ADJUST = 10
@@ -241,9 +242,12 @@ class ThermoMoist:
         # host reads of device values by reason (sat_adjust rounds, base
         # state), for the measurements
         self.reads = collections.Counter()
-        if ini.get_bool("thermo", "swtimedep_pbot", default=False):
-            from . import not_ported
-            raise not_ported("[thermo] swtimedep_pbot", 9)
+        # time-dependent surface pressure (thermo_moist.cxx:1041,
+        # 1407-1410): p_sbot over time_surface, interpolated on the host
+        # every iteration into pbot, which the base-state update reads
+        self.swtimedep_pbot = ini.get_bool("thermo", "swtimedep_pbot",
+                                           default=False)
+        self.tdep_pbot = None
         if sw == "boussinesq":
             self.thvref0 = ini.get_float("thermo", "thvref0")
         else:
@@ -255,9 +259,18 @@ class ThermoMoist:
     def scalars(self):
         return ("thl", "qt")
 
+    def update_timedep(self, sfc, itime):
+        """p_sbot at this integer time into pbot (thermo
+        update_time_dependent), on the host; sfc as it was."""
+        if self.tdep_pbot is not None:
+            self.pbot = float(self.tdep_pbot.interpolate(itime))
+        return sfc
+
     def create_basestate(self, input_nc):
         """Moist hydrostatic base state (thermo_moist_functions.h:293-350),
         in numpy float64."""
+        if self.swtimedep_pbot:
+            self.tdep_pbot = Timedep(input_nc, "p_sbot", "time_surface")
         g = self.grid
         kc, ks, ke = g.kcells, g.kstart, g.kend
         thvref = np.zeros(kc)

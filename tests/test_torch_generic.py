@@ -340,8 +340,8 @@ def test_rico_verbatim_ini_raises_item_10():
 @pytest.mark.parametrize("change,item", [
     (("swlspres=geo", "swlspres=uflux\nuflux=1."), 9),
     (("[force]", "[force]\nswnudge=1"), 9),
-    (("[force]", "[force]\nswtimedep_ls=true"), 9),
-    (("[thermo]", "[thermo]\nswtimedep_pbot=true"), 9),
+    (("[force]", "[force]\nswtimedep_nudge=true"), 9),
+    (("[grid]", "[grid]\nswtimedep=true"), 14),
     (("swthermo=moist", "swthermo=vapor"), 9),
     (("swmicro=2mom_warm", "swmicro=nsw6"), 14),
     (("[buffer]", "[buffer]\nswupdate=1"), 9),

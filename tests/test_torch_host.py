@@ -200,11 +200,19 @@ def test_port_sources_import_no_jax():
 
 @pytest.mark.parametrize("case,ktot", [("jaenschwalde", 64),
                                        ("sullivan2011", 64),
-                                       ("andren1994", 40)])
+                                       ("andren1994", 40),
+                                       ("drycbl", 128),
+                                       ("prandtlslope", 256),
+                                       ("rayleighbenard", 128),
+                                       ("rayleightaylor", 128),
+                                       ("moser600", 128),
+                                       ("gabls1", 64),
+                                       ("gabls4s3", 288),
+                                       ("arm", 64)])
 def test_case_inputs_match_their_generators(case, ktot, tmp_path, monkeypatch):
-    """cases.jaenschwalde_input, cases.sullivan2011_input and
-    cases.andren1994_input hold, bit for bit, what
-    cases/<case>/<case>_input.py writes."""
+    """cases.<case>_input holds, bit for bit, what cases/<case>/<case>_input.py
+    writes: z and every group (init, and the timedep series of gabls1,
+    gabls4s3's stand-in and arm)."""
     from microhh_tpu.utils import nc as jnc
     from microhh_torch import cases
     case_dir = os.path.join(ROOT, "cases", case)
@@ -221,6 +229,14 @@ def test_case_inputs_match_their_generators(case, ktot, tmp_path, monkeypatch):
         for name in written:
             assert np.array_equal(np.asarray(written[name][:]),
                                   np.asarray(mine[name][:])), name
+        assert set(f.groups) == set(mem.groups)
+        for group in f.groups:
+            written = f.groups[group].variables
+            mine = mem.groups[group].variables
+            assert set(written) == set(mine), group
+            for name in written:
+                assert np.array_equal(np.asarray(written[name][:]),
+                                      np.asarray(mine[name][:])), (group, name)
 
 
 def _jaenschwalde_pair(extra=""):

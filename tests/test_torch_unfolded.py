@@ -678,11 +678,11 @@ def test_limiter_two_forms_agree_on_qt(jaen):
 @pytest.mark.parametrize("case,change,item", [
     ("jaenschwalde", ("scalar_outflow=co2",
                       "scalar_outflow=co2\nswtimedep_outflow=true"), 14),
-    ("jaenschwalde", ("swsource=1", "swsource=1\nswtimedep_strength=true"), 9),
-    ("jaenschwalde", ("swsource=1", "swsource=1\nswtimedep_location=true"), 9),
+    ("jaenschwalde", ("[grid]", "[grid]\nswtimedep=true"), 14),
+    ("sullivan2011", ("[grid]", "[grid]\nswtimedep=true"), 14),
     ("sullivan2011", ("swlspres=geo", "swlspres=uflux\nuflux=1."), 9),
     ("sullivan2011", ("swls=0", "swls=0\nswnudge=1"), 9),
-    ("sullivan2011", ("swls=0", "swls=0\nswtimedep_geo=true"), 9),
+    ("sullivan2011", ("swls=0", "swls=0\nswtimedep_nudge=true"), 9),
     ("sullivan2011", ("[fields]", "[fields]\nslist=s1"), 9),
 ])
 def test_options_outside_the_slice_raise(case, change, item):
