@@ -1,6 +1,8 @@
 """Physics-validation envelopes of the PyTorch port (``microhh_torch``), the
 drycblles, bomex, gabls1 and sbl_dnn legs of ``cases/run_validation.py``
-with the same grids, lengths and checks:
+with the same grids, lengths and checks, and the taylorgreen and
+conservation checks of ``tests/test_taylorgreen.py`` and
+``tests/test_conservation.py``:
 
 * drycblles - CBL growth: zi(t) rises and tracks the encroachment
               prediction zi = sqrt(zi(1)^2 + 2*wth_s*(t - t(1))/gamma).
@@ -16,6 +18,16 @@ with the same grids, lengths and checks:
               JAX leg draws them) read through the run's dnnpath: stable
               stratification, Ekman turning, a near-wall u deficit and
               bounded winds in the final state.
+* taylorgreen - the ini as written (128x1x64) to t = 1: its TKE equals
+              0.25 exp(-16 pi^2 visc) within 1e-3; at 16x8, 32x16 and
+              64x32 the L1 errors of u and w against the analytic vortex
+              fall at order > 1.7, both < 5e-4 on the finest grid.
+* conservation - the ini as written (32^3, advec 2, no diffusion) with RK3
+              and RK4 at dt 2 and 1: the TKE drift shrinks more than 4x
+              when dt halves, RK4 drifts less than RK3, and the momentum
+              drift stays below 0.02 of the velocity scale.  Both of these
+              legs hold a discretisation's order: run them with
+              ``--precision double``.
 
 Each leg runs the case's ini with the grid, endtime, savetime and
 sampletime replaced, init + run through ``microhh_torch.model.run_case``
@@ -27,7 +39,7 @@ fails the leg.  Exit status is nonzero on any failed check.
 
 Usage:
   python cases/run_validation_torch.py
-      [--cases drycblles,bomex,gabls1,sbl_dnn]
+      [--cases drycblles,bomex,gabls1,sbl_dnn,taylorgreen,conservation]
       [--quick]
       [--device cuda|cpu] [--precision single|double] [--workdir DIR]
 """
@@ -57,15 +69,16 @@ def check(name, val, lo, hi):
         FAILURES.append(name)
 
 
-def run_case(case, overrides, args, name=None):
+def run_case(case, overrides, args, name=None, stats=True, label=None):
     """The case's ini (``cases/<case>/<name or case>.ini``) with overrides,
-    init + run on the port; returns the statistics file, open."""
+    init + run on the port in ``<workdir>/<label or case>``; returns the
+    statistics file, open (stats False: the run's directory)."""
     import torch
     from microhh_torch import model
     from microhh_torch.cases import case_input
     from microhh_torch.config import Ini
     from microhh_torch.stats import open_stats
-    wd = os.path.join(args.workdir, case)
+    wd = os.path.join(args.workdir, label or case)
     shutil.rmtree(wd, ignore_errors=True)
     os.makedirs(wd)
     name = name or case
@@ -94,7 +107,23 @@ def run_case(case, overrides, args, name=None):
             FAILURES.append("%s/%s: unused ini options %s"
                             % (case, mode, unused))
             print("  FAIL (unused ini options): %s" % unused)
+    if not stats:
+        return wd
     return open_stats(os.path.join(wd, "%s.default.0000000.nc" % name))
+
+
+def final_state(wd, name, iotime, args):
+    """(model on the CPU in float64, the restart state at iotime as
+    tensors) of a run's directory."""
+    import torch
+    from microhh_torch.config import Ini
+    from microhh_torch.model import Model
+    m = Model(Ini(os.path.join(wd, "%s.ini" % name)), "run", name,
+              workdir=wd, dtype=torch.float64, device="cpu")
+    m.finish_setup()
+    st = m.fields.load(iotime, wd, dtype=np.float64 if args.precision ==
+                       "double" else np.float32)
+    return m, {n: m.ctx.tensor(a) for n, a in st.items()}
 
 
 def _prof(group, name, tavg=1):
@@ -234,8 +263,89 @@ def validate_sbl_dnn(args):
     check("max |u|/ug", float(np.abs(u).max() / ug), 0.2, 2.0)
 
 
+def taylorgreen_errors(m, s, time=1.):
+    """The L1 errors of u and w against the analytic decaying vortex at
+    time (tests/test_taylorgreen.py error_uw), with the run's viscosity."""
+    g = m.grid
+    ks, ke = g.kstart, g.kend
+    decay = np.exp(-8. * np.pi ** 2 * m.fields.visc * time)
+    u_ref = (np.sin(2 * np.pi * g.xh)[None, :]
+             * np.cos(2 * np.pi * g.z[ks:ke])[:, None] * decay)
+    w_ref = (-np.cos(2 * np.pi * g.x)[None, :]
+             * np.sin(2 * np.pi * g.zh[ks:ke])[:, None] * decay)
+    u = s["u"].numpy()[ks:ke, 0, :]
+    w = s["w"].numpy()[ks:ke, 0, :]
+    cell = g.xsize / g.itot * g.zsize / g.ktot
+    return (float(np.sum(cell * np.abs(u - u_ref))),
+            float(np.sum(cell * np.abs(w - w_ref))))
+
+
+def validate_taylorgreen(args):
+    """taylorgreen as written to t = 1: TKE against its analytic decay;
+    then the 2nd-order convergence of u and w on three grids."""
+    wd = run_case("taylorgreen", {}, args, stats=False)
+    m, s = final_state(wd, "taylorgreen", 1, args)
+    tke = float(m.diagnostics(s, {})["tke"])
+    want = 0.25 * np.exp(-16. * np.pi ** 2 * m.fields.visc)
+    print("taylorgreen 128x1x64: TKE(t=1) %.7f, 0.25 exp(-16 pi^2 visc) "
+          "%.7f" % (tke, want))
+    check("TKE(t=1) relative to its decay", tke / want, 1. - 1e-3, 1. + 1e-3)
+    out = {"tke": tke, "tke_analytic": want, "errors": {}}
+    errs = {}
+    for itot, ktot in ((16, 8), (32, 16), (64, 32)):
+        wd = run_case("taylorgreen", {"itot": itot, "ktot": ktot}, args,
+                      stats=False, label="taylorgreen_%d" % itot)
+        errs[itot] = taylorgreen_errors(*final_state(wd, "taylorgreen", 1,
+                                                     args))
+        out["errors"]["%dx%d" % (itot, ktot)] = errs[itot]
+    order = [float(np.log(errs[16][i] / errs[64][i]) / np.log(4.))
+             for i in (0, 1)]
+    print("taylorgreen: L1 errors of (u, w) %s, orders %.3f, %.3f"
+          % (errs, order[0], order[1]))
+    check("u error at 64x32", errs[64][0], 0., 5e-4)
+    check("w error at 64x32", errs[64][1], 0., 5e-4)
+    check("convergence order of u", order[0], 1.7, 1e9)
+    check("convergence order of w", order[1], 1.7, 1e9)
+    out["orders"] = order
+    return out
+
+
+def validate_conservation(args):
+    """conservation as written with RK3 and RK4 at dt 2 and 1
+    (tests/test_conservation.py): the TKE drift over the run from the
+    status table."""
+    drift, outs = {}, {}
+    for rk in (3, 4):
+        for dt in (2.0, 1.0):
+            wd = run_case("conservation",
+                          {"rkorder": rk, "dt": dt, "dtmax": dt}, args,
+                          stats=False,
+                          label="conservation_rk%d_dt%g" % (rk, dt))
+            out = np.loadtxt(os.path.join(wd, "conservation.out"),
+                             skiprows=1)
+            outs[rk, dt] = out
+            tke = out[:, 8]
+            drift[rk, dt] = abs(tke[-1] - tke[1]) / tke[1]
+    print("conservation: TKE drift %s" % {"rk%d dt=%g" % k: "%.3e" % v
+                                          for k, v in drift.items()})
+    check("RK3 drift ratio dt 2 / dt 1", drift[3, 2.] / drift[3, 1.], 4.,
+          1e9)
+    check("RK4 drift ratio dt 2 / dt 1", drift[4, 2.] / drift[4, 1.], 4.,
+          1e9)
+    check("RK3 / RK4 drift at dt 2", drift[3, 2.] / drift[4, 2.], 1., 1e9)
+    mom = outs[3, 2.][:, 7]
+    scale = np.sqrt(2 * outs[3, 2.][1, 8])
+    check("momentum drift / velocity scale", abs(mom[-1] - mom[0]) / scale,
+          0., 0.02)
+    return {"drift": {"rk%d_dt%g" % k: float(v) for k, v in drift.items()},
+            "momentum_drift_over_scale": float(abs(mom[-1] - mom[0])
+                                               / scale)}
+
+
 LEGS = {"drycblles": validate_drycblles, "bomex": validate_bomex,
-        "gabls1": validate_gabls1, "sbl_dnn": validate_sbl_dnn}
+        "gabls1": validate_gabls1, "sbl_dnn": validate_sbl_dnn,
+        "taylorgreen": validate_taylorgreen,
+        "conservation": validate_conservation}
 
 
 def main():

@@ -11,7 +11,8 @@ Phases (any failure exits non-zero and prints no result line):
      (the form Pres2.dft_form picks) and with every (C, F) of DFT_FORCED on
      the cluster entries and the split entries called directly, at odd,
      prime and rectangular planes, jtot not divisible by C, itot/2 not
-     divisible by C*F and kt = 1; a float64 512^2 x 4 stack through the
+     divisible by C*F, kt = 1 and planes of one row (jtot = 1, the 2-D
+     taylorgreen's, at itot 128 and 17); a float64 512^2 x 4 stack through the
      wrappers, which takes the split form; irfft2(rfft2(x)) against x; K6's
      input unchanged; K3 against tdma_plain (each mode held to its own
      maximum: float64 <= 1e-12, float32 <= 1e-4) in every form (check_tdma:
@@ -158,6 +159,11 @@ Phases (any failure exits non-zero and prints no result line):
      between the graph's nodes as busy; torch.profiler stays out, its
      tracing would slow every later launch, and ring_timing's chunked group
      measures the device time);
+  4e. taylorgreen (128x1x64), conservation (32^3), andren1994 with its
+     passive scalar (40^3) and eady (120^2x32, RK4), each as its ini is
+     written, three steps in float64 on the card against the same three
+     steps on the CPU from a seeded state (generic_state), every prognostic
+     field, ghost levels included, <= 1e-12 of its maximum;
   5. the drycblles LES at 512^3 float32 through Model.run(max_iters=12), on
      the folded dry sweep K22: its kernels launched, finite fields, status
      DIV <= 1e-4; then the step time (median of 10 steps after 2 warm-up
@@ -171,18 +177,20 @@ Phases (any failure exits non-zero and prints no result line):
      aligned and shifted (check_evisc_forced), as in phases 8, 12, 18 and
      20b (K14 in 12); K7 so in every run's phase (check_limits_forced: its
      own mode, and a planted NaN);
-  7. the rico LES at 384^3 float32 (cases/rico/rico.ini with bench.py's
-     swadvec=2 override) through Model(..., input_nc=), save_initial_state
+  7. the rico LES at 384^2x128 float32 (cases/rico/rico.ini with bench.py's
+     swadvec=2 override; 128 levels, to hold the script's time) through
+     Model(..., input_nc=), save_initial_state
      and Model.run(max_iters=12): its kernels launched, finite fields,
      status DIV <= 1e-4, qt, qr, nr >= 0; then the step time and the peak
      memory as in phase 5;
-  8. at the 384^3 float32 shapes of that run, each of its kernels against
+  8. at the 384^2x128 float32 shapes of that run, each of its kernels against
      its plain version, then both timed; K8/K9 also with its k-split forced
      to 1, 2, 3 chunks, its plan's count and one level a chunk, aligned and
      shifted (check_uvw_forced), as in phases 10, 12 and 18 (K18 there),
      and K1 so (check_evisc_forced);
   9. and 10. the same two phases for rico as its ini is written
-     (swadvec=2i5) at 384^3 float32: K12, K13 and K8-K10 without advection;
+     (swadvec=2i5) at 384^2x128 float32: K12, K13 and K8-K10 without
+     advection;
      K12 also with its k-split forced to 1, 2, 3 chunks, its plan's count
      and one level a chunk, aligned and shifted (check_mom_forced), as in
      phase 18;
@@ -205,7 +213,8 @@ Phases (any failure exits non-zero and prints no result line):
      1e-10: K16 and K17 in their 4m scheme and float64 build;
  17. and 18. the same for jaenschwalde as its ini is written (thermo moist,
      swadvec=2i5 with the flux limiter on co2, nine sources, open edges)
-     at 1024x256x256 float32, on the substep without the RK fold: K18, K19
+     at 1024x256x128 float32 (128 levels, to hold the script's time), on
+     the substep without the RK fold: K18, K19
      and K21 (and K12 and K18 forced as in phase 10, K1 as in 6b); also
      qt >= 0, co2 >= -1e-6 of its maximum, and the co2 inventory grown at
      the nine sources' rate;
@@ -258,6 +267,30 @@ Phases (any failure exits non-zero and prints no result line):
      held to 16 times the floor of rounding p, as weakscaling's) and
      moser600 at 256x192x128 float64 (DIV <= 1e-10), through
      Model.run(max_iters=12), every kernel of each path launched.
+ 29. taylorgreen, conservation, andren1994 with its scalar and eady as
+     their inis are written (WRITTEN_CASES), float32, through
+     Model.run(max_iters=12) with the calls of the plain versions counted
+     and required to be 0, the launches of one limits call and one step
+     recorded in order, then s/step and the device idle share (torch.
+     profiler, 4 steps): taylorgreen, conservation and eady on the plain
+     substep (K5, K21, K6 a substep; eady K12 and K13 too, five substeps),
+     andren1994 on the generic kernels (K1 unstratified, K8/K9, K15, K4
+     rhs, K5, K3, K6, K4 apply; K7 in its limits);
+ 30. at each of those shapes, the path's kernels against their plain
+     versions (K5 and K6 at 128x1, 32^2, 40^2 and 120^2 planes; K1 and K7
+     on andren1994 also forced as in phase 6b), then timed;
+ 31. the four paths in float64: s/step and device idle share; and
+     conservation's ini at 256^3 float32 with dt 0.25 s, the plain path at
+     a size that fills the card: s/step and device idle share;
+ 32. taylorgreen's physics on the card in float64 (cases/
+     run_validation_torch.py's leg): as written to t = 1, TKE within 1e-3
+     of 0.25 exp(-16 pi^2 visc); at 16x8, 32x16 and 64x32 the L1 errors of
+     u and w against the analytic vortex below 5e-4 at 64x32 and falling
+     at order > 1.7;
+ 33. conservation's physics on the card in float64 (the same script): RK3
+     and RK4 at dt 2 and 1, the TKE drift over the run shrinking more than
+     4x as dt halves, RK4 below RK3, the momentum drift below 0.02 of the
+     velocity scale.
 Beside each kernel's time stands its bound: the bytes its inputs and outputs
 hold, each once, over 3.35 TB/s, or its operations over 67 TFLOP/s (float32
 outside the tensor cores; half that for float64) where that is larger; and, where one PyTorch call
@@ -1030,7 +1063,8 @@ def check_tdma(torch):
 # (itot, jtot, kt) of the DFT checks beyond the models' own shapes: jtot not
 # divisible by C, odd and prime sides, itot/2 not divisible by C*F, kt = 1
 DFT_SHAPES = ((48, 45, 3), (45, 48, 3), (30, 18, 2), (17, 13, 2), (13, 17, 1),
-              (100, 36, 1), (64, 7, 2), (14, 21, 2), (2, 9, 2), (96, 50, 5))
+              (100, 36, 1), (64, 7, 2), (14, 21, 2), (2, 9, 2), (96, 50, 5),
+              (128, 1, 4), (17, 1, 3))
 # (C, F) forced on the cluster entries at those shapes
 DFT_FORCED = ((2, 1), (2, 16), (4, 3), (8, 4), (8, 16))
 
@@ -1248,7 +1282,6 @@ def generic_kernel_cases(torch, m, seed, only=None):
     the warm-rain scheme, K12/K13 with an interpolated advection scheme (the
     sweeps K8-K10/K15 then run without advection).  only: a name prefix
     that restricts the cases."""
-    from microhh_torch.ops import advec_interp_fused as A
     from microhh_torch.ops import fused as F
     from microhh_torch.ops.microphys import Microphys2momWarm
     ctx, fz, mic, adv = m.ctx, m.fused, m.micro, m.advec_fused
@@ -1291,29 +1324,7 @@ def generic_kernel_cases(torch, m, seed, only=None):
              lambda: list(F.limits_plain(*uvwa, fz.ce, *args, strat, True)),
              "field")]
     if adv is not None:
-        def mom(kernel):
-            t = [t0[n].clone() for n in ("u", "v", "w")]
-            if kernel:
-                adv.momentum(*uvw, *t)
-            else:
-                A.momentum_plain(adv.scheme, *uvw, *t, adv.table(), ctx.ks,
-                                 ctx.dxi, ctx.dyi)
-            return t
-
-        def scal(kernel):
-            t = [t0[n].clone() for n in fz.names]
-            a = [s[n] for n in fz.names]
-            if kernel:
-                adv.scalars(*uvw, a, t)
-            else:
-                A.scalars_plain(adv.scheme, *uvw, a, t, adv.table(), ctx.ks,
-                                ctx.dxi, ctx.dyi)
-            return t
-
-        cases.append(("advec_mom", lambda: mom(True), lambda: mom(False),
-                      "field"))
-        cases.append(("advec_scalars", lambda: scal(True), lambda: scal(False),
-                      "field"))
+        cases += advec_cases(m, s, t0)
     if m.unfolded:
         cases += unfolded_sweep_cases(torch, m, s, e, t0, rnd)
     for can in (() if m.unfolded else (-153. / 128., 0.)):
@@ -1372,6 +1383,60 @@ def generic_kernel_cases(torch, m, seed, only=None):
     if only is not None:
         return [c for c in cases if c[0].startswith(only)]
     return cases + pres_cases(torch, m, s, t0, rnd)
+
+
+def advec_cases(m, s, t0):
+    """K12, and K13 where a scalar is not flux-limited, against their plain
+    versions on a model's ghost-filled state s and random carries t0."""
+    from microhh_torch.ops import advec_interp_fused as A
+    ctx, adv = m.ctx, m.advec_fused
+    uvw = [s[n] for n in ("u", "v", "w")]
+    names = [n for n in ctx.scalar_names
+             if n not in m.advec.fluxlimit_list]
+
+    def mom(kernel):
+        t = [t0[n].clone() for n in ("u", "v", "w")]
+        if kernel:
+            adv.momentum(*uvw, *t)
+        else:
+            A.momentum_plain(adv.scheme, *uvw, *t, adv.table(), ctx.ks,
+                             ctx.dxi, ctx.dyi)
+        return t
+
+    def scal(kernel):
+        t = [t0[n].clone() for n in names]
+        a = [s[n] for n in names]
+        if kernel:
+            adv.scalars(*uvw, a, t)
+        else:
+            A.scalars_plain(adv.scheme, *uvw, a, t, adv.table(), ctx.ks,
+                            ctx.dxi, ctx.dyi)
+        return t
+
+    cases = [("advec_mom", lambda: mom(True), lambda: mom(False), "field")]
+    if names:
+        cases.append(("advec_scalars", lambda: scal(True),
+                      lambda: scal(False), "field"))
+    return cases
+
+
+def plain_kernel_cases(torch, m, seed):
+    """(name, kernel call, plain call, error kind) of a plain substep
+    without an eddy viscosity (taylorgreen, conservation, eady): K12 and
+    K13 with an interpolated scheme, K5, K21 and K6, on a seeded state."""
+    ctx = m.ctx
+    s, sfc = m.as_device_state(generic_state(m, seed))
+    s = m.boundary.set_ghost_cells(ctx, s, sfc)
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+
+    def rnd(*shape, scale=1.):
+        return (scale * torch.randn(*shape, generator=gen,
+                                    dtype=torch.float64)).to(ctx.dtype).to(ctx.device)
+
+    shape = (ctx.kcells, ctx.jtot, ctx.itot)
+    t0 = {n: rnd(*shape, scale=1e-3) for n in m.fields.prognostic_names}
+    cases = advec_cases(m, s, t0) if m.advec_fused is not None else []
+    return cases + dft_cases(torch, m, rnd) + tdma_ri_cases(torch, m, rnd)
 
 
 def micro_cases(torch, m, s, deep=False):
@@ -3808,7 +3873,6 @@ def time_pairs(torch, pairs, plain_reps=3):
 
 def time_generic_kernels(torch, m, s):
     """A generic path's kernels and their plain versions at its shapes."""
-    from microhh_torch.ops import advec_interp_fused as A
     from microhh_torch.ops import fused as F
     from microhh_torch.ops.microphys import MICRO_FIELDS, Microphys2momWarm
     ctx, fz, mic, adv = m.ctx, m.fused, m.micro, m.advec_fused
@@ -3821,7 +3885,6 @@ def time_generic_kernels(torch, m, s):
     uvw = [s[n] for n in ("u", "v", "w")]
     args = (ctx.ks, ctx.dxi, ctx.dyi, fz.tPr)
     fb, n = field_bytes(m), points(m)
-    S = len(fz.names)
     can = -5. / 9.
     pairs = {}
     if fz.stratified == 2:
@@ -3835,15 +3898,17 @@ def time_generic_kernels(torch, m, s):
         lim = uvw + [n2]
         lim_plain = uvw + [None, fz.ce, *args, True, True, n2]
     else:
-        uvwa = uvw + [s[fz.n2_scalar]]
+        # the moist N2 of thl (ST 1), or none (ST 0: thermo 0), th unread
+        st = fz.stratified
+        uvwa = uvw + [s[fz.n2_scalar] if st else s["u"]]
         pairs["evisc"] = pair(
             lambda: fz.evisc(*uvwa),
-            lambda: F.evisc_plain(*uvwa, fz.ce, *args, True, True),
+            lambda: F.evisc_plain(*uvwa, fz.ce, *args, bool(st), True),
             5 * fb, FLOPS_PER_POINT["evisc"] * n,
-            info=kmarch_info(fz.k_evisc, m.dtype, 1, 0,
-                             fz.evisc_plan(m.dtype, 1)))
+            info=kmarch_info(fz.k_evisc, m.dtype, st, 0,
+                             fz.evisc_plan(m.dtype, st)))
         lim = uvwa
-        lim_plain = uvwa + [fz.ce, *args, True, True]
+        lim_plain = uvwa + [fz.ce, *args, bool(st), True]
     if isinstance(mic, Microphys2momWarm):
         pref, exnref, _, _ = m.thermo._p_profiles(ctx, {})
         ql = m.thermo.get_ql(ctx, s)
@@ -3853,23 +3918,7 @@ def time_generic_kernels(torch, m, s):
             lambda: mic.apply_plain(ctx, s, tm, ql, pref, exnref, 2.),
             13 * fb, FLOPS_PER_POINT["micro2"] * n)
     if adv is not None:
-        tuvw = [t[nm] for nm in ("u", "v", "w")]
-        a, ta = [s[nm] for nm in fz.names], [t[nm] for nm in fz.names]
-        pairs["advec_mom"] = pair(
-            lambda: adv.momentum(*uvw, *tuvw),
-            lambda: A.momentum_plain(adv.scheme, *uvw, *tuvw, adv.table(),
-                                     ctx.ks, ctx.dxi, ctx.dyi),
-            9 * fb, FLOPS_PER_POINT["advec_mom"] * n,
-            info=kmarch_info(adv.k_mom, m.dtype, A.SCHEME_ID[adv.scheme], 0,
-                             adv.mom_plan(m.dtype)))
-        S1 = min(S, A.max_scalars(m.dtype))
-        pairs["advec_scalars"] = pair(
-            lambda: adv.scalars(*uvw, a, ta),
-            lambda: A.scalars_plain(adv.scheme, *uvw, a, ta, adv.table(),
-                                    ctx.ks, ctx.dxi, ctx.dyi),
-            (3 + 3 * S) * fb, FLOPS_PER_POINT["advec_scalars"] * S * n,
-            info=kmarch_info(adv.k_scal, m.dtype, A.SCHEME_ID[adv.scheme], S1,
-                             adv.plan(S1, m.dtype)))
+        pairs.update(advec_pairs(m, s))
     if not m.unfolded:
         pairs.update(rk_sweep_pairs(m, s, e, ct, cts, can))
     elif not m.plain:
@@ -3887,6 +3936,50 @@ def time_generic_kernels(torch, m, s):
         # K18-K20 have added onto the carry, which a step expects at zero
         for a_t in t.values():
             a_t.zero_()
+    return out
+
+
+def advec_pairs(m, s):
+    """K12 and, where a scalar is not flux-limited, K13 (every such scalar
+    in one launch) at a model's shapes, on its carry."""
+    from microhh_torch.ops import advec_interp_fused as A
+    ctx, adv, t = m.ctx, m.advec_fused, m.t
+    fb, n = field_bytes(m), points(m)
+    uvw = [s[nm] for nm in ("u", "v", "w")]
+    tuvw = [t[nm] for nm in ("u", "v", "w")]
+    names = [nm for nm in ctx.scalar_names
+             if nm not in m.advec.fluxlimit_list]
+    a, ta = [s[nm] for nm in names], [t[nm] for nm in names]
+    S = len(names)
+    pairs = {"advec_mom": pair(
+        lambda: adv.momentum(*uvw, *tuvw),
+        lambda: A.momentum_plain(adv.scheme, *uvw, *tuvw, adv.table(),
+                                 ctx.ks, ctx.dxi, ctx.dyi),
+        9 * fb, FLOPS_PER_POINT["advec_mom"] * n,
+        info=kmarch_info(adv.k_mom, m.dtype, A.SCHEME_ID[adv.scheme], 0,
+                         adv.mom_plan(m.dtype)))}
+    if names:
+        S1 = min(S, A.max_scalars(m.dtype))
+        pairs["advec_scalars"] = pair(
+            lambda: adv.scalars(*uvw, a, ta),
+            lambda: A.scalars_plain(adv.scheme, *uvw, a, ta, adv.table(),
+                                    ctx.ks, ctx.dxi, ctx.dyi),
+            (3 + 3 * S) * fb, FLOPS_PER_POINT["advec_scalars"] * S * n,
+            info=kmarch_info(adv.k_scal, m.dtype, A.SCHEME_ID[adv.scheme], S1,
+                             adv.plan(S1, m.dtype)))
+    return pairs
+
+
+def time_plain_kernels(torch, m, s):
+    """A plain substep's kernels without an eddy viscosity (K12, K13, K5,
+    K21, K6) and their plain versions at its shapes; the carry, which K12
+    and K13 add onto, is zeroed after."""
+    s = m.boundary.set_ghost_cells(m.ctx, s, m.final_sfc)
+    pairs = advec_pairs(m, s) if m.advec_fused is not None else {}
+    pairs.update(pres_pairs(torch, m, s))
+    out = time_pairs(torch, pairs)
+    for a_t in m.t.values():
+        a_t.zero_()
     return out
 
 
@@ -4262,7 +4355,9 @@ def path_launch_order(torch, m, s, sfc):
     """The kernels one limits call and one step of a path launch, in order,
     through Kernel.recording (nothing is counted meanwhile): K7 once, then
     every other kernel of m.kernels() in its order each substep, and
-    nothing else (the DNN path: K14, K5, K21 and K6 a substep)."""
+    nothing else (the DNN path: K14, K5, K21 and K6 a substep); a path
+    without K7 (no eddy viscosity) launches its kernels each substep and
+    none in its limits."""
     from microhh_torch.kernels import Kernel
     Kernel.recording = []
     try:
@@ -4273,7 +4368,10 @@ def path_launch_order(torch, m, s, sfc):
     finally:
         Kernel.recording = None
     *sub, lim = [k.name for k in m.kernels()]
-    want = [lim] + sub * m.timeloop.n_substeps
+    if lim == "limits":
+        want = [lim] + sub * m.timeloop.n_substeps
+    else:
+        want = (sub + [lim]) * m.timeloop.n_substeps
     log("  launches of one limits call and one step, in order: %s" % names)
     if names != want:
         raise AssertionError("the path launched %s, not %s"
@@ -4438,6 +4536,8 @@ def path_forms(m):
                                  time_o4_kernels(torch, m, s, plain_reps=3))
     if m.fold:
         return kernel_cases, time_kernels
+    if m.fused is None:
+        return plain_kernel_cases, time_plain_kernels
     return generic_kernel_cases, time_generic_kernels
 
 
@@ -4505,6 +4605,159 @@ def timedep_phases(torch, results, by_path, record):
             record(m, s, key, key, case, res, errs, times, where)
             del m, s
         torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------------------
+#  phases 4e and 29 to 33: the plain substep's cases as written
+# --------------------------------------------------------------------------
+
+# the cases the plain substep brought in, at their inis' own sizes: the
+# 2-D taylorgreen (advec 2, diff 2, free-slip default boundary, thermo 0),
+# conservation (diff 0, a passive scalar), andren1994 with its scalar (thermo
+# 0 on the generic kernels, K1 unstratified) and eady (2i5, diff 0, thermo
+# dry with swbaroclinic, geostrophic forcing, utrans = 5, RK4)
+WRITTEN_CASES = (("taylorgreen", (128, 1), 64), ("conservation", (32, 32), 32),
+                 ("andren1994", (40, 40), 40), ("eady", (120, 120), 32))
+
+
+def check_written_steps(torch, nsteps=3):
+    """Each case of WRITTEN_CASES as written, float64, nsteps steps of its
+    ini's dt on the card and on the CPU from its initial fields with seeded
+    velocities (generic_state, as phase 4's cases: every field O(1), so
+    that none is held to a maximum that has barely grown from rest): every
+    prognostic field, ghost levels included, within 1e-12 of its
+    maximum."""
+    worst = {}
+    for case, n, k in WRITTEN_CASES:
+        out = {}
+        for device in ("cuda", "cpu"):
+            m = build_case(torch, case, n, k, torch.float64, device)
+            m.build_step()
+            s, sfc = m.as_device_state(generic_state(m, 7))
+            for _ in range(nsteps):
+                s, sfc, _ = m.step(s, sfc, m.timeloop.dt)
+            out[device] = s
+        errs = {nm: rel_err(out["cuda"][nm].cpu(), out["cpu"][nm])
+                for nm in m.fields.prognostic_names}
+        worst[case] = max(errs.values())
+        log("  %d steps of %s %s float64 (%s), card vs CPU: rel err %s"
+            % (nsteps, case, shape_str(m),
+               ", ".join(kk.name for kk in m.kernels()),
+               {nm: "%.2e" % v for nm, v in errs.items()}))
+        if not worst[case] <= 1e-12:
+            raise AssertionError("%s: the card's steps disagree with the "
+                                 "CPU's" % case)
+    return worst
+
+
+def device_idle(torch, m, s, sfc, nsteps=4):
+    """Wall and device busy time a step over nsteps steps under
+    torch.profiler (after one unprofiled step), and the device idle share,
+    1 - busy / wall of the same profiled steps."""
+    from torch.profiler import profile, ProfilerActivity
+    dt = m.timeloop.dt
+    s, sfc, _ = m.step(s, sfc, dt)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(nsteps):
+            s, sfc, _ = m.step(s, sfc, dt)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / nsteps
+    busy_ms = sum(max(device_us(evt), 0.)
+                  for evt in prof.key_averages()) / 1e3 / nsteps
+    if busy_ms <= 0.:
+        raise RuntimeError("the profiler recorded no device time")
+    return {"profiled_wall_ms_per_step": wall_ms,
+            "device_busy_ms_per_step": busy_ms,
+            "device_idle_share": 1. - busy_ms / wall_ms}
+
+
+def written_phases(torch, results, by_path, record):
+    """Phases 29 to 33: the four cases of WRITTEN_CASES as written through
+    Model.run in float32, each path's kernels against their plain versions
+    at its shapes and timed; their float64 s/step and every idle share;
+    then the physics of taylorgreen and conservation on the card
+    (cases/run_validation_torch.py's legs, float64)."""
+    for case, n, k in WRITTEN_CASES:
+        key = "%s_%dx%dx%d" % (case, n[0], n[1], k)
+        log("[29] %s %dx%dx%d float32 as written through Model.run, no plain "
+            "version of its kernels" % (case, n[0], n[1], k))
+        with tempfile.TemporaryDirectory() as workdir:
+            with counted(PLAIN_OF_GENERIC_PATH) as plain_calls:
+                m, s, res = run_les(torch, workdir, case, case_build(case), n,
+                                    k=k)
+                res["launch_order"] = path_launch_order(torch, m, s,
+                                                        m.final_sfc)
+            log("  calls of the plain versions meanwhile: %s" % plain_calls)
+            if any(plain_calls.values()):
+                raise AssertionError("the %s path ran plain versions: %s"
+                                     % (case, plain_calls))
+            res["plain_calls"] = dict(plain_calls)
+            res["device_idle_f32"] = device_idle(torch, m, s, m.final_sfc)
+            log("  %s float32: %s" % (case, res["device_idle_f32"]))
+            where = "%s %s float32" % (case, shape_str(m))
+            log("[30] kernels at %s: against their plain versions, then "
+                "timed" % where)
+            cases, timer = path_forms(m)
+            errs = check_kernels_full(torch, m, cases)
+            if m.fused is not None:
+                errs["evisc"] = max(errs["evisc"],
+                                    check_evisc_forced(torch, m))
+                errs["limits"] = max(errs["limits"],
+                                     check_limits_forced(torch, m))
+            times = timer(torch, m, s)
+            record(m, s, key, key + "_f32", case, res, errs, times, where)
+            del m, s
+        torch.cuda.empty_cache()
+    log("[31] the four paths in float64: s/step (median of 10 after 2 "
+        "warm-up steps) and device idle share")
+    for case, n, k in WRITTEN_CASES:
+        m = build_case(torch, case, n, k, torch.float64, "cuda")
+        m.build_step()
+        s, sfc = m.as_device_state(m.fields.create(m.input_nc,
+                                                   dtype=np.float64))
+        times, s, sfc = step_times(torch, m, s, sfc)
+        idle = device_idle(torch, m, s, sfc)
+        step_s = statistics.median(times)
+        log("  s/step %s %s float64: median %.6f (min %.6f, max %.6f) of 10; "
+            "%s" % (case, shape_str(m), step_s, min(times), max(times), idle))
+        key = "%s_%dx%dx%d_f64" % (case, n[0], n[1], k)
+        results[key] = dict(idle, step_s_median=step_s)
+        del m, s, sfc
+        torch.cuda.empty_cache()
+    log("[31] conservation's ini at 256^3 float32, dt scaled with the grid "
+        "(0.25 s): the plain path at a size that fills the card")
+    m = build_case(torch, "conservation", 256, 256, torch.float32, "cuda",
+                   dt=0.25, dtmax=0.25)
+    m.build_step()
+    s, sfc = m.as_device_state(m.fields.create(m.input_nc, dtype=np.float32))
+    times, s, sfc = step_times(torch, m, s, sfc)
+    idle = device_idle(torch, m, s, sfc)
+    ks, ke = m.ctx.ks, m.ctx.ke
+    if not all(bool(torch.isfinite(s[nm][ks:ke]).all()) for nm in s):
+        raise AssertionError("conservation 256^3: non-finite fields")
+    step_s = statistics.median(times)
+    log("  s/step conservation 256^3 float32: median %.6f (min %.6f, max "
+        "%.6f) of 10; %s" % (step_s, min(times), max(times), idle))
+    results["conservation_256_f32"] = dict(idle, step_s_median=step_s)
+    del m, s, sfc
+    torch.cuda.empty_cache()
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "cases"))
+    import argparse
+    import run_validation_torch as V
+    for phase, leg in ((32, "taylorgreen"), (33, "conservation")):
+        log("[%d] %s physics on the card, float64 "
+            "(cases/run_validation_torch.py)" % (phase, leg))
+        with tempfile.TemporaryDirectory() as workdir:
+            args = argparse.Namespace(device="cuda", precision="double",
+                                      workdir=workdir, quick=False)
+            del V.FAILURES[:]
+            results["%s_physics" % leg] = V.LEGS[leg](args)
+        if V.FAILURES:
+            raise AssertionError("%s physics: %s" % (leg, V.FAILURES))
 
 
 def kernel_entry(k, launches, errs, times, where):
@@ -4604,6 +4857,9 @@ def main():
     chunk_checks["captured_vs_eager_32_f64"] = {"steps": steps,
                                                 "chunks": chunks}
     results["chunked"] = {"checks": chunk_checks}
+    log("[4e] taylorgreen, conservation, andren1994 and eady as written, "
+        "three steps, card against CPU")
+    results["written_card_vs_cpu_f64"] = check_written_steps(torch)
     results["evisc_critical"] = {k: {"cond_max": c, "err_over_bound": r}
                                  for k, (c, r) in critical.items()}
     entries = {}
@@ -4695,17 +4951,22 @@ def main():
     def build_rico_2i5(*a):
         return build_rico(*a, swadvec="2i5")
 
+    # rico and rico 2i5 on 384^2 planes, their depth cut to 128 levels to
+    # hold the script's time
     phase = 7
-    for key, label, build, n, nonneg in (
-            ("rico_384", "rico", build_rico, 384, ("qt", "qr", "nr")),
-            ("rico2i5_384", "rico 2i5", build_rico_2i5, 384,
+    for key, label, build, n, k, nonneg in (
+            ("rico_384x384x128", "rico", build_rico, 384, 128,
              ("qt", "qr", "nr")),
-            ("sbl_256", "SBL_Smag", build_sbl, 256, ())):
-        log("[%d] %s %d^3 float32 through Model.run" % (phase, label, n))
+            ("rico2i5_384x384x128", "rico 2i5", build_rico_2i5, 384, 128,
+             ("qt", "qr", "nr")),
+            ("sbl_256", "SBL_Smag", build_sbl, 256, 256, ())):
+        log("[%d] %s %d^2x%d float32 through Model.run"
+            % (phase, label, n, k))
         with tempfile.TemporaryDirectory() as workdir:
-            m, s, res = run_les(torch, workdir, label, build, n, nonneg)
-            log("[%d] kernels at %s %d^3 float32: against their plain "
-                "versions, then timed" % (phase + 1, label, n))
+            m, s, res = run_les(torch, workdir, label, build, n, nonneg, k=k)
+            where = "%s %s float32" % (label, shape_str(m))
+            log("[%d] kernels at %s: against their plain versions, then "
+                "timed" % (phase + 1, where))
             errs = check_kernels_full(torch, m, generic_kernel_cases)
             if m.advec_fused is not None:
                 errs["advec_mom"] = max(errs["advec_mom"],
@@ -4715,15 +4976,14 @@ def main():
             if len(m.fused.names) == 1:
                 errs["tend_scalar_rk"] = max(errs["tend_scalar_rk"],
                                              check_scalar_rk_forced(torch, m))
-            if key != "rico2i5_384":
+            if key != "rico2i5_384x384x128":
                 ev = "evisc_n2" if m.fused.stratified == 2 else "evisc"
                 errs[ev] = max(errs[ev], check_evisc_forced(torch, m))
                 errs["pres_apply"] = max(errs["pres_apply"],
                                          check_apply_forced(torch, m))
             errs["limits"] = max(errs["limits"], check_limits_forced(torch, m))
             times = time_generic_kernels(torch, m, s)
-            record(m, s, key, key + "_f32", label, res, errs, times,
-                   "%s %d^3 float32" % (label, n))
+            record(m, s, key, key + "_f32", label, res, errs, times, where)
             del m, s
         torch.cuda.empty_cache()
         phase += 2
@@ -4749,11 +5009,12 @@ def main():
         torch.cuda.empty_cache()
         phase += 2
 
-    log("[%d] jaenschwalde 1024x256x256 float32 through Model.run" % phase)
+    # its depth cut to 128 levels to hold the script's time
+    log("[%d] jaenschwalde 1024x256x128 float32 through Model.run" % phase)
     with tempfile.TemporaryDirectory() as workdir:
-        key, label = "jaenschwalde_1024x256x256_f32", "jaenschwalde"
+        key, label = "jaenschwalde_1024x256x128_f32", "jaenschwalde"
         m, s, res = run_les(torch, workdir, label, build_jaenschwalde,
-                            (1024, 256), k=256, nonneg=("qt",),
+                            (1024, 256), k=128, nonneg=("qt",),
                             after_run=check_plume)
         where = "%s %s float32" % (label, shape_str(m))
         log("[%d] kernels at %s: against their plain versions, then timed"
@@ -4825,6 +5086,10 @@ def main():
     # E: gabls4s3 as written on the generic path; gabls1, arm and the
     # 4th-order DNS cases as written
     timedep_phases(torch, results, by_path, record)
+
+    # F: taylorgreen, conservation and eady on the plain substep, andren1994
+    # with its scalar on the generic kernels, as written
+    written_phases(torch, results, by_path, record)
 
     if profile_path:
         os.makedirs(os.path.dirname(os.path.abspath(profile_path)),

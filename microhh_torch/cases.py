@@ -19,7 +19,8 @@ cases ``drycbl_input``, ``prandtlslope_input``, ``rayleighbenard_input``,
 ``timedep`` group (series over ``time_surface`` and ``time_ls``, which
 ``timedep.py`` reads): ``gabls1_input``, ``gabls4s3_input`` (the idealized
 Dome C stand-in that ``gabls4s3_input.py`` writes when the GABLS4 driver
-file ``SCM_LES_STAGE3.nc`` is absent) and ``arm_input``.  A case whose
+file ``SCM_LES_STAGE3.nc`` is absent) and ``arm_input``; ``eady_input`` for
+``cases/eady/eady_input.py``.  A case whose
 script fixes its levels takes that count as its default ``ktot`` and
 ignores ``zsize``: its ini's zsize is the height those levels give.
 """
@@ -356,11 +357,26 @@ def arm_input(ktot=64, zsize=4400.):
             "qt_ls": advqt[:, None] / 3600. * 1e-3 * ramp[None, :]}})
 
 
+def eady_input(ktot=32, zsize=1000.):
+    """The eady input dataset of eady_input.py: a geostrophic wind in
+    thermal-wind balance with the meridional th gradient, u_geo = -g/(fc
+    th0) dth/dy z, and a weakly stratified th."""
+    z = uniform_z(ktot, zsize)
+    fc, th0, dthdy = 1e-2, 300., -1e-4
+    ug = -9.81 / (fc * th0) * dthdy * z
+    return MemoryDataset({"z": z}, {"init": {
+        "th": 300. + 0.01 * z, "u": ug, "v": np.zeros(ktot), "u_geo": ug,
+        "v_geo": np.zeros(ktot)}})
+
+
 def case_input(casename, ktot, zsize):
     """The input dataset of the shipped case ``casename`` (its ini's file
     name) at ktot levels over zsize, computed in memory as its
     ``<case>_input.py`` writes it (weakscaling, whose stretching sets zsize
-    itself, is ``weakscaling_input``)."""
+    itself, is ``weakscaling_input``); None for a case without an input
+    script, whose ini sets its fields (taylorgreen, conservation)."""
+    if casename in ("taylorgreen", "conservation"):
+        return None
     make = {"drycblles": drycblles_input, "bomex": bomex_input,
             "rico": rico_input, "SBL": sbl_input,
             "moser180": moser180_input, "jaenschwalde": jaenschwalde_input,
@@ -370,7 +386,8 @@ def case_input(casename, ktot, zsize):
             "rayleighbenard": rayleighbenard_input,
             "rayleightaylor": rayleightaylor_input,
             "moser600": moser600_input, "gabls1": gabls1_input,
-            "gabls4s3": gabls4s3_input, "arm": arm_input}
+            "gabls4s3": gabls4s3_input, "arm": arm_input,
+            "eady": eady_input}
     if casename not in make:
         raise ValueError("no input of case %r in microhh_torch.cases"
                          % casename)

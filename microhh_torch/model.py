@@ -44,12 +44,18 @@ producer at 4th order.
   low-storage RK update in place.
 * The plain 2nd-order substep (``microhh_tpu/model.py:370-399, 535-587``
   with ``fused`` None: its ``_maybe_build_fused`` builds nothing for another
-  diffusion than smag2), for the DNN closure (SBL_DNN and its two
-  variants): the substep above with ``diff.exec_viscosity`` (the eddy
-  viscosity through K14, then the closure's stresses) in place of the eddy
-  viscosity alone and ``advec.exec`` then ``diff.exec`` (plain torch, as the
+  diffusion than smag2, a boundary other than the MOST surface, or another
+  advection than advec 2 and the interpolated schemes), for the DNN closure
+  (SBL_DNN and its two variants), ``swdiff`` 2 or 0 and the ``default``
+  boundary (taylorgreen, conservation, eady): the substep above with
+  ``diff.exec_viscosity`` (the DNN closure's: the eddy viscosity through
+  K14, then its stresses; smag2's through K1 or K14; none for Diff2 and no
+  diffusion) in place of the eddy viscosity alone and ``advec.exec`` (K12/
+  K13 for an interpolated scheme) then ``diff.exec`` (plain torch, as the
   JAX package runs them in XLA) in place of K18/K19; the projection is
-  again K5, K21, K6.
+  again K5, K21, K6 (none for ``swpres=0``).  The default boundary fills
+  the ghost levels in place, so there the step updates the caller's
+  tensors.
 * The 4th-order path (advec 4 or 4m, diff 4, pres 4, the default boundary,
   thermo buoy or none: the moser180 and weakscaling slice;
   ``microhh_tpu/model.py:535-587``): per substep the in-place ghost fill,
@@ -92,7 +98,8 @@ from .grid import Grid
 from .fields import Fields
 from .timeloop import Timeloop
 from . import ops
-from .ops import not_ported
+from .ops import PresDisabled, not_ported
+from .ops.advec_2 import Advec2
 from .ops.advec_interp import AdvecInterp
 from .ops.advec_interp_fused import AdvecInterpFused
 from .ops.boundary import NEUMANN, FLUX, w_cons
@@ -188,22 +195,13 @@ def check_slice(ini, grid, sim_mode):
          "[boundary] swboundary=%s at swspatialorder=4" % boundary, 11),
         (order == "4" and grid.jtot == 1,
          "a 2-D run (jtot=1) at swspatialorder=4", 11),
-        (order == "2" and boundary == "default",
-         "[boundary] swboundary=default at swspatialorder=2", 14),
-        # thermo 0 runs on the dry kernels' neutral set (has_thermo=False),
-        # which takes no scalar, advec 2, smag2 and the MOST surface; with
-        # scalars the JAX package runs its op path (item 12a)
-        (order == "2" and ini.get_list(str, "fields", "slist", default=[])
-         and thermo in ("0", "dry", "buoy"),
-         "[fields] slist (passive scalars) with [thermo] swthermo=%s at "
-         "swspatialorder=2" % thermo, 9),
-        (order == "2" and thermo == "0"
-         and (ini.get_str("diff", "swdiff", default=order) != "smag2"
-              or ini.get_str("advec", "swadvec", default=order) != "2"),
-         "[thermo] swthermo=0 at swspatialorder=2 with another scheme than "
-         "[advec] swadvec=2 and [diff] swdiff=smag2", 12),
-        (order == "2" and ini.get_str("force", "swlspres", default="0") == "uflux",
-         "[force] swlspres=uflux at swspatialorder=2", 9),
+        # K1 has no Van Driest damping, which the Smagorinsky closure takes
+        # near resolved walls when neither the surface model nor a thermo
+        # scalar is there (diff_smag2.cxx:160-225)
+        (order == "2" and boundary != "surface" and thermo == "0"
+         and ini.get_str("diff", "swdiff", default=order) == "smag2",
+         "[diff] swdiff=smag2 with [boundary] swboundary=%s and [thermo] "
+         "swthermo=0 (the Van Driest wall damping)" % boundary, 14),
         (switch("micro", "swmicro") and not moist,
          "[micro] swmicro without [thermo] swthermo=moist", 9),
         (switch("radiation", "swradiation"), "[radiation] swradiation", 13),
@@ -307,6 +305,7 @@ class Model:
         # run_case
         self.stats = None
         self.dump = None
+        self.built = False
         self.fused = None
         self.advec_fused = None
         self.o4 = None
@@ -374,13 +373,24 @@ class Model:
         K20).  ``unfolded=True`` forces that substep (its own check against
         the RK-folded paths).
 
-        A 2nd-order diffusion other than smag2 (the DNN closure) takes the
-        plain substep: the substep without the RK fold with the closure's
-        ``exec_viscosity`` and the op producers ``advec.exec`` and
-        ``diff.exec`` in place of the tendency kernels, as the JAX package
-        does when it builds no fused kernels (microhh_tpu/model.py:696-711);
-        K14 (or K1) and K7 serve the closure's eddy viscosity and the
-        limits.
+        Where the JAX package builds no fused kernels it runs its op path
+        (microhh_tpu/model.py:696-711, 746-750, 919-926), and so does the
+        port, on the plain substep: for a diffusion other than smag2 (the
+        DNN closure, ``2`` or none), a boundary other than the MOST surface,
+        or an advection other than advec 2 or an interpolated scheme (its
+        gate on scalars under a thermo without ``get_n2`` never holds: every
+        thermo has one, thermo 0's giving none).  That is the
+        substep without the RK fold with the op producers ``advec.exec``
+        (K12/K13 for an interpolated scheme) and ``diff.exec`` in place of
+        the tendency kernels (and for ``swpres=0``, whose projection the
+        RK-folded kernels carry).  Where the diffusion has an eddy viscosity,
+        K1 (or K14 with the thermo's N2) computes it: through the closure's
+        ``exec_viscosity`` for the DNN, directly for smag2; K7 then serves
+        the limits.  Diff2 and no diffusion have none, and the limits are
+        the scheme's own ``cfl_max`` and the diffusion's ``get_dn``.
+        A thermo dry case with more scalars than th, or with
+        ``swbaroclinic`` (whose term the dry kernels do not carry), takes
+        the generic path.
 
         The dry RK sweep is K22 by default: the eddy viscosity and the
         Poisson right-hand side come out of the same k-march, the form the
@@ -393,28 +403,41 @@ class Model:
         self.t = {n: torch.zeros(shape, dtype=self.dtype, device=self.device)
                   for n in self.fields.prognostic_names}
         self.fold = False
+        self.built = True
         if ctx.spatial_order == 4:
             self.generic = False
             self.o4 = O4Fused(self.advec, self.diff, ctx)
             return
         self.glue = PresGlue(ctx)
-        if not isinstance(self.diff, DiffSmag2):
-            self.plain = self.generic = self.unfolded = True
-            self.skip_force = self.skip_buffer = False
-            self.fused = FusedGeneric(ctx, self.diff.smag, self.thermo,
-                                      self.force)
-            self.diff.bind(self.fused)
-            return
         interp = isinstance(self.advec, AdvecInterp)
+        smag = isinstance(self.diff, DiffSmag2)
+        self.advec_fused = AdvecInterpFused(self.advec, ctx) if interp else None
+        self.plain = not (
+            smag and getattr(self.boundary, "is_surface", False)
+            and (interp or isinstance(self.advec, Advec2))
+            and not isinstance(self.pres, PresDisabled))
+        if self.plain:
+            self.generic = self.unfolded = True
+            self.skip_force = self.skip_buffer = False
+            closure = self.diff if smag else getattr(self.diff, "smag", None)
+            self.fused = (None if closure is None else
+                          FusedGeneric(ctx, closure, self.thermo, self.force))
+            if hasattr(self.diff, "bind"):
+                self.diff.bind(self.fused)
+            return
         neutral = (isinstance(self.thermo, ThermoDisabled)
                    and not ctx.scalar_names)
-        self.generic = interp or not (isinstance(self.thermo, ThermoDry)
-                                      or neutral)
-        self.advec_fused = AdvecInterpFused(self.advec, ctx) if interp else None
+        dry = (isinstance(self.thermo, ThermoDry)
+               and ctx.scalar_names == ("th",)
+               and not self.thermo.swbaroclinic)
+        self.generic = interp or not (dry or neutral)
         if self.generic:
             self.fused = FusedGeneric(ctx, self.diff, self.thermo, self.force,
                                       advec=not interp)
-            self.unfolded = bool(unfolded) or self.outflow.active
+            # uflux reads the tendency, so it cannot ride the RK fold
+            # (microhh_tpu/model.py:319-333)
+            self.unfolded = (bool(unfolded) or self.outflow.active
+                             or getattr(self.force, "swlspres", "0") == "uflux")
             # K18 folds a static geostrophic wind; the sponge runs as its op
             self.skip_force = self.fused.fold_force
             self.skip_buffer = False
@@ -441,11 +464,30 @@ class Model:
                            has_thermo=not neutral)
 
     def kernels(self):
-        """The hand-written kernels of the step, in step order."""
+        """The hand-written kernels of the step, in step order, then K7,
+        which the limits launch, where the path has it."""
         if self.o4 is not None:
             return ([self.o4.k_mom, self.o4.k_scal] if self.ctx.scalar_names
                     else [self.o4.k_mom])
         fz = self.fused
+        micro = ([self.micro.k_micro]
+                 if isinstance(self.micro, Microphys2momWarm) else [])
+        advec = []
+        if self.advec_fused is not None:
+            # K13 takes the scalars that no flux limiter holds
+            advec = [self.advec_fused.k_mom] + (
+                [self.advec_fused.k_scal]
+                if set(self.ctx.scalar_names) - set(self.advec.fluxlimit_list)
+                else [])
+        if self.plain:
+            pres = []
+            if not isinstance(self.pres, PresDisabled):
+                fwd, inv = self.pres.dft_kernels(self.dtype)
+                pres = [fwd, self.pres.k_tdma_ri, inv]
+            if fz is None:
+                return micro + advec + pres
+            evisc = [fz.k_evisc_n2] if fz.stratified == 2 else [fz.k_evisc]
+            return evisc + micro + advec + pres + [fz.k_limits]
         # K5 and K6 in the form this shape and dtype take
         fwd, inv = self.pres.dft_kernels(self.dtype)
         solve = [fwd, self.pres.k_tdma, inv, self.glue.k_apply]
@@ -458,18 +500,12 @@ class Model:
         if not self.generic:
             tend = fz.k_tendencies if self.unfolded else fz.k_tend
             return [fz.k_evisc, tend] + pres + [fz.k_limits]
-        micro = ([self.micro.k_micro]
-                 if isinstance(self.micro, Microphys2momWarm) else [])
         evisc = [fz.k_evisc_n2] if fz.stratified == 2 else [fz.k_evisc]
-        if self.plain:
-            return evisc + micro + pres + [fz.k_limits]
-        advec = ([self.advec_fused.k_mom, self.advec_fused.k_scal]
-                 if self.advec_fused else [])
         if self.unfolded:
             sweeps = [fz.k_uvw_acc] + ([fz.k_scalar_acc] if fz.names else [])
         else:
             sweeps = [fz.k_uvw] + ([fz.k_scalar] if len(fz.names) == 1
-                                   else [fz.k_scalars])
+                                   else [fz.k_scalars] if fz.names else [])
         return evisc + micro + advec + sweeps + pres + [fz.k_limits]
 
     def device_dt(self):
@@ -560,15 +596,20 @@ class Model:
         update closes the substep.  The carry and the RK update are in
         place, the latter on the tensors the ghost fill made (and a copy of
         w, which has no ghost level to fill), so the caller's state stays
-        as it was.  On the plain path the closure's exec_viscosity and the
-        op producers advec.exec and diff.exec stand in for the eddy
-        viscosity and the tendency kernels (microhh_tpu/model.py:553-555)."""
+        as it was; under a boundary that fills the ghosts in place (the
+        default one) the whole update is in place, and the caller's tensors
+        are the new state.  On the plain path the diffusion's
+        exec_viscosity (smag2's through K1 or K14) and the op producers
+        advec.exec (K12/K13 for an interpolated scheme) and diff.exec stand
+        in for the eddy viscosity and the tendency kernels
+        (microhh_tpu/model.py:553-555)."""
         ctx, tl, fz, bnd, t = self.ctx, self.timeloop, self.fused, self.boundary, self.t
         s = bnd.set_ghost_cells(ctx, s, sfc)
-        s["w"] = s["w"].clone()
+        if not getattr(bnd, "in_place", False):
+            s["w"] = s["w"].clone()
         if getattr(self.thermo, "swupdatebasestate", False):
             aux = self.thermo.update_basestate(ctx, s, aux, sfc)
-        if self.plain:
+        if self.plain and not isinstance(self.diff, DiffSmag2):
             aux = self.diff.exec_viscosity(ctx, s, sfc, aux)
         else:
             aux = generic_viscosity(fz, ctx, s, sfc, aux)
@@ -578,9 +619,14 @@ class Model:
             t.update(self.thermo.exec(ctx, s, t, aux))
             _, aux = self.micro.exec(ctx, s, t, aux, dt)
         sfc = bnd.exec(ctx, s, sfc, aux)
-        s = bnd.set_ghost_cells(ctx, s, sfc, names=bnd.flux_ghost_names())
+        if getattr(bnd, "is_surface", False):
+            s = bnd.set_ghost_cells(ctx, s, sfc, names=bnd.flux_ghost_names())
         if self.plain:
-            t.update(self.advec.exec(ctx, s, t, aux))
+            if self.advec_fused is not None:
+                # additive and independent of the carry: the op's function
+                self.advec_fused.exec(ctx, s, t, aux)
+            else:
+                t.update(self.advec.exec(ctx, s, t, aux))
             t.update(self.diff.exec(ctx, s, t, aux, sfc))
         elif self.generic:
             if self.advec_fused is not None:
@@ -589,8 +635,9 @@ class Model:
         else:
             tendencies(fz, ctx, s, t, aux, sfc)
         if self.outflow.active:
-            self.outflow.correct(ctx, s, t, aux, tPr=self.diff.tPr,
-                                 sviscs=self.diff.viscs)
+            self.outflow.correct(ctx, s, t, aux,
+                                 tPr=getattr(self.diff, "tPr", 1.),
+                                 sviscs=getattr(self.diff, "viscs", None))
         subdt = tl.rk_cb[sub] * dt
         aux["subdt"] = subdt
         if self.buffer is not None and not self.skip_buffer:
@@ -651,7 +698,8 @@ class Model:
         out: the arrays of the new state, written by the last substep on the
         dry RK path on the card (the chunked loop's graphs alternate between
         two states); else the step returns new ones.  The 4th-order path
-        updates the tensors of s in place."""
+        updates the tensors of s in place, and so does the plain path under
+        the default boundary, which fills the ghosts in place."""
         if out is not None and not (self.device_dt()
                                     and self.device.type == "cuda"):
             raise ValueError("out= is the dry RK path's on the card: the "
@@ -683,14 +731,31 @@ class Model:
         network and discards it), and the sedimentation rate of the
         microphysics.  K7's CFL is the advec_2
         expression; an interpolated scheme gives its own (cfl_max, in plain
-        torch: 2 passes over u, v and w) and K7 serves the evisc maxima."""
+        torch: 2 passes over u, v and w) and K7 serves the evisc maxima.
+        Without an eddy viscosity (the 4th-order path, Diff2, no
+        diffusion) there is no K7: the scheme's own CFL and the diffusion's
+        get_dn, each left out where the scheme has none
+        (microhh_tpu/model.py:631-657)."""
         ctx, fz = self.ctx, self.fused
-        if self.o4 is not None:
-            # no eddy viscosity, so no K7: the scheme's own CFL in plain
-            # torch and the grid's constant diffusion number
-            # (microhh_tpu/model.py:631-653)
-            return {"cfl_rate": self.advec.cfl_max(ctx, s),
-                    "dn_rate": self.diff.get_dn(ctx, s, {})}
+        out = {}
+        if self.o4 is not None or fz is None:
+            cfl = self.advec.cfl_max(ctx, s)
+            dn = self.diff.get_dn(ctx, s, {})
+            if cfl is not None:
+                out["cfl_rate"] = cfl
+            if dn is not None:
+                out["dn_rate"] = dn
+        else:
+            out = self._evisc_limits(s, sfc)
+        mrate = self.micro.get_time_limit_rate(ctx, s)
+        if mrate is not None:
+            out["micro_rate"] = mrate
+        return out
+
+    def _evisc_limits(self, s, sfc):
+        """The CFL and diffusion-number rates of a path with an eddy
+        viscosity, from K7."""
+        ctx, fz = self.ctx, self.fused
         if self.generic:
             s = self.boundary.set_ghost_cells(ctx, s, sfc)
             if fz.stratified == 2:
@@ -709,12 +774,11 @@ class Model:
         dzi2 = ctx.dzi[ctx.ks:ctx.ke] ** 2
         dn = torch.max(torch.abs(evk * tprfac_i
                                  * (ctx.dxi ** 2 + ctx.dyi ** 2 + dzi2)))
-        cfl = (self.advec.cfl_max(ctx, s)
-               if isinstance(self.advec, AdvecInterp) else torch.max(cflk))
-        out = {"cfl_rate": cfl, "dn_rate": dn}
-        mrate = self.micro.get_time_limit_rate(ctx, s)
-        if mrate is not None:
-            out["micro_rate"] = mrate
+        cfl = (torch.max(cflk) if isinstance(self.advec, Advec2)
+               else self.advec.cfl_max(ctx, s))
+        out = {"dn_rate": dn}
+        if cfl is not None:
+            out["cfl_rate"] = cfl
         return out
 
     def diagnostics(self, s, sfc):
@@ -853,6 +917,8 @@ class Model:
     def _host_limits(self, s, sfc):
         """The rates of Model.limits, read to the host in one transfer."""
         lim = self.limits(s, sfc)
+        if not lim:
+            return {}
         return dict(zip(lim, torch.stack(list(lim.values())).tolist()))
 
     def _advance_chunk(self, s, sfc, ih, nmax):
@@ -871,7 +937,7 @@ class Model:
         tau, dt_dev, n, done = vals[0], vals[1], int(vals[2]), bool(vals[3])
         if n == 0:
             raise RuntimeError("chunk made no progress (dt underflow?)")
-        if self.stats is not None or self.dump is not None:
+        if (self.stats is not None or self.dump is not None) and "p" in aux:
             # the graphs' pressure lives in their pool: keep a copy
             self._last_aux = {"p": aux["p"].clone()}
         self._last_sfc = sfc
@@ -895,7 +961,7 @@ class Model:
         tl = self.timeloop
         s, sfc = self.as_device_state(self.load_state())
         sfc = self.sbot2d.apply_static(self, sfc)
-        if self.fused is None and self.o4 is None:
+        if not self.built:
             self.build_step()
         self.build_chunk()
         t0, it0 = _time.perf_counter(), tl.iteration
@@ -946,10 +1012,11 @@ class Model:
         tl = self.timeloop
         s, sfc = self.as_device_state(self.load_state())
         sfc = self.sbot2d.apply_static(self, sfc)
-        if self.fused is None and self.o4 is None:
+        if not self.built:
             self.build_step()
-        cflmax, cflmin = self.advec.cflmax, self.advec.cflmin
-        dnmax = self.diff.dnmax
+        cflmax = getattr(self.advec, "cflmax", 1.0)
+        cflmin = getattr(self.advec, "cflmin", 1.e-5)
+        dnmax = getattr(self.diff, "dnmax", None)
         niter = 0
         t0 = _time.perf_counter()
         with open(self._status_path(), "a") as status_file:
@@ -968,10 +1035,11 @@ class Model:
                             comp.isampletime - tl.itime % comp.isampletime)
                 # one read of the rates to the host
                 lim = self._host_limits(s, sfc)
-                cfl = lim["cfl_rate"] * tl.dt
-                dn = lim["dn_rate"] * tl.dt
-                tl.set_time_step_limit(tl.idt * cflmax / max(cfl, cflmin))
-                if dn > 0.:
+                cfl = lim.get("cfl_rate", 0.) * tl.dt
+                dn = lim.get("dn_rate", 0.) * tl.dt
+                if "cfl_rate" in lim:
+                    tl.set_time_step_limit(tl.idt * cflmax / max(cfl, cflmin))
+                if dnmax is not None and dn > 0.:
                     tl.set_time_step_limit(tl.idt * dnmax / dn)
                 if "micro_rate" in lim:
                     micro_cfl = max(lim["micro_rate"] * tl.dt, 1e-5)
@@ -990,7 +1058,7 @@ class Model:
                 if self.stats is not None or self.dump is not None:
                     # the pressure for the budgets and dumps; nothing else
                     # of the step's aux outlives it
-                    self._last_aux = {"p": aux["p"]}
+                    self._last_aux = {"p": aux.get("p")}
                 self._last_sfc = sfc
                 tl.step_time()
                 if tl.do_save(self.at_wall_clock_limit()):

@@ -4,12 +4,12 @@
 ``calc_ghost_cells_{bot,top}w[_cons]_4th``).
 
 Only the vertical ghost levels exist (horizontal periodicity is a roll, see
-stencil.py).  At 2nd order the bottom ghosts come from the surface model
-(boundary_surface.py) and this module fills the top.  At 4th order
-``DefaultBoundary`` (``swboundary=default``) fills two ghost levels on each
-side of every cell-centred field and w's under one of its two ghost types,
-in place.  The default boundary at 2nd order is not ported yet (ROADMAP
-Queue 1 item 14).
+stencil.py).  Under the surface model (boundary_surface.py) the bottom
+ghosts come from its fluxes and this module fills the top.
+``DefaultBoundary`` (``swboundary=default``) fills every cell-centred
+field's ghosts from its static BCs, in place: one level on each side at 2nd
+order (``calc_ghost_cells_{bot,top}_2nd``; w has none), two at 4th order,
+with w's under one of its two ghost types.
 """
 
 import torch
@@ -73,6 +73,17 @@ def grad_from(bctype, value, visc):
     return value
 
 
+def bot_ghost_2nd(ctx, a, bcbot, bot, visc, offset=0.):
+    """Bottom ghost plane (reference calc_ghost_cells_bot_2nd); None where
+    the BC type leaves it untouched."""
+    ks = ctx.ks
+    if bcbot == DIRICHLET:
+        return 2. * (bot - offset) - a[ks]
+    if bcbot in (NEUMANN, FLUX):
+        return -grad_from(bcbot, bot, visc) * ctx.dzh[ks] + a[ks]
+    return None
+
+
 def top_ghost_2nd(ctx, a, bctop, top, visc, offset=0.):
     """Top ghost plane (reference calc_ghost_cells_top_2nd)."""
     ke = ctx.ke
@@ -96,6 +107,18 @@ def assemble_ghosts(ctx, a, bot, top):
     plane = a.shape[1:]
     return torch.cat([bot.expand(plane)[None], a[ks:ke],
                       top.expand(plane)[None]], dim=0)
+
+
+def set_ghost_cells_field_2nd(ctx, a, bc, visc, offset=0.):
+    """Fill one vertical ghost level on each side of a cell-centred field,
+    in place; a BC type that gives no plane leaves its side untouched."""
+    bot = bot_ghost_2nd(ctx, a, bc.bcbot, bc.bot, visc, offset)
+    top = top_ghost_2nd(ctx, a, bc.bctop, bc.top, visc, offset)
+    if bot is not None:
+        a[ctx.ks - 1] = bot
+    if top is not None:
+        a[ctx.ke] = top
+    return a
 
 
 def set_ghost_cells_field_4th(ctx, a, bc, visc, offset=0.):
@@ -148,7 +171,11 @@ def w_cons(ctx, w):
 
 
 class DefaultBoundary:
-    """swboundary=default at 4th order: static BCs from the ini file."""
+    """swboundary=default: static BCs from the ini file, u and v relative to
+    the grid's translation (utrans, vtrans)."""
+
+    # set_ghost_cells writes into the tensors it is given
+    in_place = True
 
     def __init__(self, ini, fields, grid):
         self.bcs = make_bcs(ini, fields)
@@ -157,12 +184,17 @@ class DefaultBoundary:
             self.viscs[name] = f.visc
         self.offsets = {"u": grid.utrans, "v": grid.vtrans}
 
-    def set_ghost_cells(self, ctx, s, sfc=None):
-        """Fill every field's vertical ghost levels, in place; returns s."""
+    def set_ghost_cells(self, ctx, s, sfc=None, names=None):
+        """Fill the vertical ghost levels of every field (of ``names``
+        only, when given), in place; returns s."""
+        fill = (set_ghost_cells_field_2nd if ctx.spatial_order == 2
+                else set_ghost_cells_field_4th)
         for name, bc in self.bcs.items():
-            set_ghost_cells_field_4th(ctx, s[name], bc, self.viscs[name],
-                                      self.offsets.get(name, 0.))
-        set_ghost_cells_w_4th(ctx, s["w"], conservation=False)
+            if names is None or name in names:
+                fill(ctx, s[name], bc, self.viscs[name],
+                     self.offsets.get(name, 0.))
+        if ctx.spatial_order == 4 and (names is None or "w" in names):
+            set_ghost_cells_w_4th(ctx, s["w"], conservation=False)
         return s
 
     def exec(self, ctx, s, sfc, aux):

@@ -1,10 +1,10 @@
 """2nd-order constant-viscosity diffusion (``microhh_tpu/ops/diff_2.py``;
 reference ``src/diff_2.cxx``), as plain torch.
 
-``diff_c`` and ``diff_w`` are the molecular terms of the DNN closure
-(ops/diff_dnn.py).  ``Diff2`` is the module's counterpart; ``make_diff``
-does not build it yet: its shipped cases need the default boundary at 2nd
-order (ROADMAP Queue 1 item 14a).
+``diff_c`` and ``diff_w`` are also the molecular terms of the DNN closure
+(ops/diff_dnn.py).  ``Diff2`` (``swdiff=2``) runs on the model's plain
+substep, as the JAX package runs it in XLA: no eddy viscosity, and a
+diffusion number that is a constant of the grid (``dnmul``).
 """
 
 import torch

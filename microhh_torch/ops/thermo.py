@@ -1,7 +1,8 @@
 """The disabled thermodynamics (``microhh_tpu/ops/thermo.py``; reference
-``src/thermo_disabled.cxx``): no scalar, no buoyancy, no base state.  At 4th
-order any passive scalars ride along; at 2nd order a case without scalars
-runs on the dry kernels' neutral set (ops/fused.py ``has_thermo=False``)."""
+``src/thermo_disabled.cxx``): no scalar, no buoyancy, no base state, no N2.
+Passive scalars ride along.  At 2nd order a case without scalars runs on
+the dry kernels' neutral set (ops/fused.py ``has_thermo=False``), one with
+scalars on the generic kernels without a stability term."""
 
 
 class ThermoDisabled:
@@ -12,3 +13,6 @@ class ThermoDisabled:
 
     def exec(self, ctx, s, t, aux):
         return t
+
+    def get_n2(self, ctx, s):
+        return None

@@ -3,8 +3,11 @@
 
 Prognostic potential temperature ``th``; buoyancy tendency
 ``wt += g/thref_h * (interp(th) - thref_h)`` (thermo_dry.cxx:165-179); the
-Boussinesq or anelastic base state (calc_base_state, :243-288) in numpy.
-On the model's main path the buoyancy runs inside the RK tendency kernel.
+Boussinesq or anelastic base state (calc_base_state, :243-288) in numpy;
+with ``swbaroclinic`` the large-scale meridional gradient ``dthetady_ls``
+advected by v, ``tht -= dthetady_ls * interp(v)`` at either order.  On the
+model's main path the buoyancy runs inside the RK tendency kernel; a
+baroclinic case takes a path that calls ``exec`` (model.build_step).
 """
 
 import numpy as np
@@ -12,8 +15,9 @@ import torch
 
 from .. import constants as cst
 from ..timedep import Timedep
+from .. import fd
 from .advec_2 import add_rows
-from .stencil import i2
+from .stencil import i2, jm, jp
 
 
 def exner(p):
@@ -34,9 +38,10 @@ class ThermoDry:
         self.pbot = ini.get_float("thermo", "pbot")
         if sw == "boussinesq":
             self.thref0 = ini.get_float("thermo", "thref0")
-        if ini.get_bool("thermo", "swbaroclinic", default=False):
-            raise NotImplementedError(
-                "[thermo] swbaroclinic is not ported (ROADMAP Queue 1 item 9)")
+        self.swbaroclinic = ini.get_bool("thermo", "swbaroclinic",
+                                         default=False)
+        if self.swbaroclinic:
+            self.dthetady_ls = ini.get_float("thermo", "dthetady_ls")
         ini.flag_as_used("thermo", "thref0")
         ini.flag_as_used("thermo", "pbot")
         # swtimedep_pbot (thermo_dry.cxx:364, 494-497): interpolated as the
@@ -117,13 +122,27 @@ class ThermoDry:
         return torch.as_tensor(arr, dtype=ctx.dtype, device=like.device)
 
     def exec(self, ctx, s, t, aux):
-        """wt += g/threfh * (interp(th) - threfh) on half levels ks+1..ke-1."""
+        """wt += g/threfh * (interp(th) - threfh) on half levels ks+1..ke-1;
+        with swbaroclinic, tht -= dthetady_ls * (v at the cell centre) on
+        the interior levels (new tensors)."""
         ks, ke = ctx.ks, ctx.ke
         th = s["th"]
         col = self._prof(self.threfh, ctx, th)[ks + 1:ke][:, None, None]
-        th_h = i2(th[ks:ke - 1], th[ks + 1:ke])
+        if ctx.spatial_order == 2:
+            th_h = i2(th[ks:ke - 1], th[ks + 1:ke])
+        else:
+            th_h = (fd.ci0 * th[ks - 1:ke - 2] + fd.ci1 * th[ks:ke - 1]
+                    + fd.ci2 * th[ks + 1:ke] + fd.ci3 * th[ks + 2:ke + 1])
         t = dict(t)
         t["w"] = add_rows(t["w"], ks + 1, ke, cst.grav / col * (th_h - col))
+        if self.swbaroclinic:
+            v = s["v"]
+            if ctx.spatial_order == 2:
+                v_c = i2(v, jp(v))[ks:ke]
+            else:
+                v_c = (fd.ci0 * jm(v) + fd.ci1 * v + fd.ci2 * jp(v)
+                       + fd.ci3 * jp(v, 2))[ks:ke]
+            t["th"] = add_rows(t["th"], ks, ke, -self.dthetady_ls * v_c)
         return t
 
     def get_buoyancy(self, ctx, s):

@@ -12,8 +12,9 @@ the port's Model against the JAX Model in float64 on the CPU:
   package runs ``has_thermo=False`` through its kernels, so the op path is
   the first reference and the kernel path the second;
 * ``Model.kernels()`` names K22 on A, B and C and neither K1 nor K4 rhs;
-* ``check_slice``: andren1994 as written (with ``slist=s``) raises item 9,
-  thermo 0 with another ``swdiff`` item 12.
+* thermo 0 with a scalar (andren1994 as written), ``swdiff=2`` or
+  ``swadvec=2i5``: the path of the JAX package's gate, two steps against
+  its op path.
 """
 
 import os
@@ -32,6 +33,8 @@ from microhh_tpu.utils import nc as jnc
 from microhh_torch import cases
 from microhh_torch.config import Ini
 from microhh_torch.model import Model
+from test_torch_plain_o2 import initial_files
+from test_torch_timedep import jax_run, port_run
 
 N, KT = 16, 16
 
@@ -177,25 +180,41 @@ def test_neutral_les_matches_the_jax_op_path(tmp_path):
         hold_port_to(tm, state, dts, ref, diag)
 
 
-def test_check_slice_for_thermo_0():
-    def make(text):
-        m = Model(Ini(text), "run", "andren1994", dtype=torch.float64,
-                  device="cpu", input_nc=cases.andren1994_input(KT))
-        m.finish_setup()
-        m.build_step()
-        return m
-
-    written = case_ini("andren1994", itot=N, jtot=N, ktot=KT)
+def test_check_slice_for_thermo_0(tmp_path):
+    """Thermo 0 at order 2 with a scalar, another diffusion or another
+    advection: each builds, takes the path of the JAX package's gate and
+    matches its op path over two steps.  andren1994 as written (with
+    slist=s) takes the generic kernels (K1 unstratified, K8/K9, K15: the
+    JAX package's thermo 0 has a get_n2), swdiff=2 the plain substep,
+    swadvec=2i5 the generic kernels after K12/K13.  Without any of these
+    the neutral LES keeps K22."""
+    written = case_ini("andren1994", itot=8, jtot=8, ktot=8)
     assert "slist=s" in written
-    with pytest.raises(NotImplementedError, match="item 9"):
-        make(written)
-    neutral = andren_ini((N, N), KT)
+    neutral = andren_ini((8, 8), 8)
     assert "slist" not in neutral and "[s]" not in neutral
-    for change in (("swdiff=smag2", "swdiff=2"), ("swadvec=2", "swadvec=2i5")):
-        assert change[0] in neutral
-        with pytest.raises(NotImplementedError, match="item 12"):
-            make(neutral.replace(*change))
-    m = make(neutral)
+    for label, text, plain, names in (
+            ("as_written", written, False,
+             ["evisc", "tend_uvw", "tend_scalar_rk", "pres_rhs", "dft_fwd",
+              "tdma", "dft_inv", "pres_apply", "limits"]),
+            ("swdiff_2", neutral.replace("swdiff=smag2", "swdiff=2"), True,
+             ["dft_fwd", "tdma_ri", "dft_inv"]),
+            ("swadvec_2i5", neutral.replace("swadvec=2", "swadvec=2i5"),
+             False, ["evisc", "advec_mom", "tend_uvw", "pres_rhs", "dft_fwd",
+                     "tdma", "dft_inv", "pres_apply", "limits"])):
+        mem = cases.andren1994_input(8)
+        jdir, tdir = initial_files(tmp_path / label, "andren1994", text, mem)
+        jm, js = jax_run(jdir, "andren1994", text, 2)
+        tm, ts = port_run(tdir, "andren1994", text, mem, 2)
+        assert jm._fused is None
+        assert tm.plain == plain and tm.generic
+        assert [k.name for k in tm.kernels()] == names, label
+        ks, ke = tm.ctx.ks, tm.ctx.ke
+        for n in tm.fields.prognostic_names:
+            assert rel(ts[n][ks:ke], js[n][ks:ke]) <= 1e-10, (label, n)
+    m = Model(Ini(neutral), "run", "andren1994", dtype=torch.float64,
+              device="cpu", input_nc=cases.andren1994_input(8))
+    m.finish_setup()
+    m.build_step()
     assert m.fold and m.skip_force and not m.fused.has_thermo
     assert [k.name for k in m.kernels()] == [
         "tend_rk_fold", "dft_fwd", "tdma", "dft_inv", "pres_apply", "limits"]

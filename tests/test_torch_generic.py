@@ -337,8 +337,61 @@ def test_rico_verbatim_ini_raises_item_10():
               input_nc=rico_input(100, ZSIZE))
 
 
+def test_rico_with_uflux_runs_unfolded_and_matches_jax(tmp_path):
+    """swlspres=uflux at order 2 reads the tendency, so the JAX package
+    keeps its generic kernels without the RK fold; the port takes K18/K19
+    with the forcing as an op after them: two steps against the JAX
+    package's op path, limits and diagnostics."""
+    text = INI.replace("swlspres=geo", "swlspres=uflux\nuflux=1.")
+    write_rico_input(str(tmp_path))
+    models = []
+    for fused in (True, False):
+        jm = JModel(JIni(text), "run", "rico", workdir=str(tmp_path),
+                    dtype=np.float64)
+        jm.force_fused = fused
+        jm.finish_setup()
+        jm.build_step()
+        models.append(jm)
+    gate, jm = models
+    assert gate._fused.generic and not gate._use_rkfold_generic
+    assert jm._fused is None
+    tm = Model(Ini(text), "run", "rico", dtype=torch.float64, device="cpu",
+               input_nc=rico_input(KT, ZSIZE))
+    tm.finish_setup()
+    tm.build_step()
+    assert tm.generic and tm.unfolded and not tm.skip_force
+    assert [k.name for k in tm.kernels()] == [
+        "evisc", "micro2", "tend_uvw_acc", "tend_scalar_acc", "dft_fwd",
+        "tdma_ri", "dft_inv", "limits"]
+    ks, ke = tm.ctx.ks, tm.ctx.ke
+    state = rico_state(tm, seed=3)
+    js, _, jsfc = jm.as_device_state({k: v.copy() for k, v in state.items()})
+    ts, tsfc = tm.as_device_state(state)
+    for dt in (2.0, 3.0):
+        jlim = jm._limits_fn(js, jsfc)
+        tlim = tm.limits(ts, tsfc)
+        assert set(tlim) == set(jlim)
+        for k in jlim:
+            assert rel(float(tlim[k]), float(jlim[k])) <= 1e-10, k
+        js, jsfc, jaux = jm._step_fn(js, jsfc, jm.pres_params, jnp.float64(dt),
+                                     jnp.float64(0.))
+        ts, tsfc, taux = tm.step(ts, tsfc, dt)
+        for n in ts:
+            assert rel(ts[n][ks:ke], np.asarray(js[n])[ks:ke]) <= 1e-10, n
+        for k in tsfc:
+            assert rel(tsfc[k], jsfc[k]) <= 1e-10, k
+    # the forcing holds the domain mean of u + utrans at uflux
+    dz = tm.ctx.dz[ks:ke][:, None, None]
+    umean = float((ts["u"][ks:ke] * dz).sum()) / (
+        tm.ctx.itot * tm.ctx.jtot * tm.ctx.zsize)
+    assert abs(umean + tm.ctx.utrans - 1.) <= 1e-10
+    jd = jm._diag_fn(js, jsfc)
+    td = tm.diagnostics(ts, tsfc)
+    for k in ("mom", "tke", "mass"):
+        assert rel(float(td[k]), float(jd[k])) <= 1e-10, k
+
+
 @pytest.mark.parametrize("change,item", [
-    (("swlspres=geo", "swlspres=uflux\nuflux=1."), 9),
     (("[force]", "[force]\nswnudge=1"), 9),
     (("[force]", "[force]\nswtimedep_nudge=true"), 9),
     (("[grid]", "[grid]\nswtimedep=true"), 14),

@@ -376,10 +376,10 @@ def test_buffer(models):
 
 @pytest.mark.parametrize("change", [
     ("swadvec=2", "swadvec=4"),
-    ("swdiff=smag2", "swdiff=2"),
+    ("[time]", "[decay]\nswdecay[th]=exponential\n\n[time]"),
     ("swthermo=dry", "swthermo=vapor"),
-    ("swboundary=surface", "swboundary=default"),
-    ("[fields]", "[fields]\nslist=s1"),
+    ("swboundary=surface", "swboundary=surface_bulk"),
+    ("[time]", "[IB]\nsw_immersed_boundary=1\n\n[time]"),
     ("[time]", "[micro]\nswmicro=2mom_warm\n\n[time]"),
     ("[time]", "[stats]\nswstats=1\nswtendency=1\n\n[time]"),
     ("swspatialorder=2", "swspatialorder=4"),

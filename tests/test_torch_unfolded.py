@@ -22,6 +22,9 @@
   profile carried across as numpy arrays;
 * the port's own two paths: drycblles and rico on the unfolded substep vs
   their RK-folded steps (<= 1e-10), and the limiter's two forms on qt;
+* sullivan2011 with ``swlspres=uflux`` (K20, the forcing after it) and
+  with a passive scalar (the generic kernels): the path of the JAX
+  package's gate, two steps against its op path (<= 1e-10);
 * the options that stay outside the slice raise, naming their ROADMAP item.
 """
 
@@ -45,6 +48,8 @@ from microhh_torch.model import Model
 from microhh_torch.ops import fused as F
 from microhh_torch.ops.limiter import Limiter
 from microhh_torch.ops.pres_2 import tdma_plain
+from test_torch_plain_o2 import initial_files
+from test_torch_timedep import jax_run, port_run
 
 TOL = 1e-12
 N, KT = (16, 8), 24
@@ -680,10 +685,8 @@ def test_limiter_two_forms_agree_on_qt(jaen):
                       "scalar_outflow=co2\nswtimedep_outflow=true"), 14),
     ("jaenschwalde", ("[grid]", "[grid]\nswtimedep=true"), 14),
     ("sullivan2011", ("[grid]", "[grid]\nswtimedep=true"), 14),
-    ("sullivan2011", ("swlspres=geo", "swlspres=uflux\nuflux=1."), 9),
     ("sullivan2011", ("swls=0", "swls=0\nswnudge=1"), 9),
     ("sullivan2011", ("swls=0", "swls=0\nswtimedep_nudge=true"), 9),
-    ("sullivan2011", ("[fields]", "[fields]\nslist=s1"), 9),
 ])
 def test_options_outside_the_slice_raise(case, change, item):
     over = {"swstats": 0} if case == "sullivan2011" else {}
@@ -696,6 +699,51 @@ def test_options_outside_the_slice_raise(case, change, item):
                   dtype=torch.float64, device="cpu", input_nc=mem)
         m.finish_setup()
         m.build_step()
+
+
+# the path the JAX package's gate picks for each, and the port's kernels
+NOW_IN_SLICE = {
+    # uflux reads the tendency: the dry substep without the RK fold (K20)
+    "uflux": (("swlspres=geo", "swlspres=uflux\nuflux=1."), "unfolded",
+              ["evisc", "tendencies", "dft_fwd", "tdma_ri", "dft_inv",
+               "limits"]),
+    # a scalar besides th under thermo dry: the generic kernels (K14 with
+    # the dry N2, K8/K9, K10)
+    "slist_s1": (("[fields]", "[fields]\nslist=s1"), "generic",
+                 ["evisc_n2", "tend_uvw", "tend_scalars", "pres_rhs",
+                  "dft_fwd", "tdma", "dft_inv", "pres_apply", "limits"]),
+}
+
+
+@pytest.mark.parametrize("option", sorted(NOW_IN_SLICE))
+def test_sullivan2011_options_now_in_the_slice_match_jax(option, tmp_path):
+    """sullivan2011 with uflux or with a passive scalar, once refused: it
+    builds, takes the path of the JAX package's gate, and matches the JAX
+    package's op path over two steps."""
+    change, path, names = NOW_IN_SLICE[option]
+    text = case_ini("sullivan2011", itot=8, jtot=8, ktot=8,
+                    swstats=0).replace(*change)
+    mem = cases.sullivan2011_input(8)
+    write_input(str(tmp_path), "sullivan2011", mem)
+    gate = JModel(JIni(text), "run", "sullivan2011", workdir=str(tmp_path),
+                  dtype=np.float64)
+    gate.force_fused = True
+    gate.finish_setup()
+    gate.build_step()
+    jdir, tdir = initial_files(tmp_path / "run", "sullivan2011", text, mem)
+    jm, js = jax_run(jdir, "sullivan2011", text, 2)
+    tm, ts = port_run(tdir, "sullivan2011", text, mem, 2)
+    assert jm._fused is None
+    if path == "unfolded":
+        assert not (gate._fused.generic or gate._use_rkfold)
+        assert tm.unfolded and not tm.generic
+    else:
+        assert gate._fused.generic and gate._use_rkfold_generic
+        assert tm.generic and not tm.unfolded
+    assert [k.name for k in tm.kernels()] == names
+    ks, ke = tm.ctx.ks, tm.ctx.ke
+    for n in tm.fields.prognostic_names:
+        assert rel(ts[n][ks:ke], js[n][ks:ke]) <= 1e-10, n
 
 
 @pytest.mark.parametrize("case", ["jaenschwalde", "sullivan2011"])
