@@ -22,6 +22,13 @@ conservation checks of ``tests/test_taylorgreen.py`` and
               0.25 exp(-16 pi^2 visc) within 1e-3; at 16x8, 32x16 and
               64x32 the L1 errors of u and w against the analytic vortex
               fall at order > 1.7, both < 5e-4 on the finest grid.
+* ekman     - the laminar Ekman spiral as written (4x4x64, the 4th-order
+              Coriolis term) to t = 30 s, float64: the mean (u, v)
+              profiles' rms distance from the analytic spiral (delta =
+              sqrt(2 visc / fc)) beside the JAX package's own run's
+              (``cases/ekman_jax_reference.json``, written by
+              ``cases/ekman_jax_reference.py``), the port's profiles within
+              1e-6 of that run's.
 * conservation - the ini as written (32^3, advec 2, no diffusion) with RK3
               and RK4 at dt 2 and 1: the TKE drift shrinks more than 4x
               when dt halves, RK4 drifts less than RK3, and the momentum
@@ -39,12 +46,13 @@ fails the leg.  Exit status is nonzero on any failed check.
 
 Usage:
   python cases/run_validation_torch.py
-      [--cases drycblles,bomex,gabls1,sbl_dnn,taylorgreen,conservation]
+      [--cases drycblles,bomex,gabls1,sbl_dnn,taylorgreen,conservation,ekman]
       [--quick]
       [--device cuda|cpu] [--precision single|double] [--workdir DIR]
 """
 
 import argparse
+import json
 import os
 import re
 import shutil
@@ -69,10 +77,13 @@ def check(name, val, lo, hi):
         FAILURES.append(name)
 
 
-def run_case(case, overrides, args, name=None, stats=True, label=None):
+def run_case(case, overrides, args, name=None, stats=True, label=None,
+             unused_ok=()):
     """The case's ini (``cases/<case>/<name or case>.ini``) with overrides,
     init + run on the port in ``<workdir>/<label or case>``; returns the
-    statistics file, open (stats False: the run's directory)."""
+    statistics file, open (stats False: the run's directory).  unused_ok:
+    (section, item) pairs the case's ini sets and no run reads (the JAX
+    package leaves them unused too)."""
     import torch
     from microhh_torch import model
     from microhh_torch.cases import case_input
@@ -102,7 +113,8 @@ def run_case(case, overrides, args, name=None, stats=True, label=None):
         print("+ %s %s on %s, %s: %.1f s, %d iterations"
               % (mode, case, args.device, args.precision,
                  time.perf_counter() - t0, m.timeloop.iteration), flush=True)
-        unused = m.ini.unused_items()
+        unused = [u for u in m.ini.unused_items()
+                  if (u[0], u[1]) not in set(unused_ok)]
         if unused:
             FAILURES.append("%s/%s: unused ini options %s"
                             % (case, mode, unused))
@@ -116,10 +128,13 @@ def final_state(wd, name, iotime, args):
     """(model on the CPU in float64, the restart state at iotime as
     tensors) of a run's directory."""
     import torch
+    from microhh_torch.cases import case_input
     from microhh_torch.config import Ini
     from microhh_torch.model import Model
-    m = Model(Ini(os.path.join(wd, "%s.ini" % name)), "run", name,
-              workdir=wd, dtype=torch.float64, device="cpu")
+    ini = Ini(os.path.join(wd, "%s.ini" % name))
+    m = Model(ini, "run", name, workdir=wd, dtype=torch.float64, device="cpu",
+              input_nc=case_input(name, ini.get_int("grid", "ktot"),
+                                  ini.get_float("grid", "zsize")))
     m.finish_setup()
     st = m.fields.load(iotime, wd, dtype=np.float64 if args.precision ==
                        "double" else np.float32)
@@ -342,10 +357,67 @@ def validate_conservation(args):
                                                / scale)}
 
 
+# the JAX package's own run of ekman as written, float64 on the CPU
+# (cases/ekman_jax_reference.py writes it)
+EKMAN_JAX = os.path.join(REPO, "cases", "ekman_jax_reference.json")
+
+
+def ekman_spiral(z, fc, visc, ug=1.):
+    """The laminar Ekman spiral under a geostrophic wind (ug, 0) over a
+    no-slip wall: u = ug (1 - e^(-z/d) cos(z/d)), v = ug e^(-z/d) sin(z/d),
+    d = sqrt(2 visc / fc)."""
+    d = np.sqrt(2. * visc / fc)
+    return (ug * (1. - np.exp(-z / d) * np.cos(z / d)),
+            ug * np.exp(-z / d) * np.sin(z / d))
+
+
+def validate_ekman(args):
+    """ekman as written (4x4x64, advec 4, diff 4, swlspres=geo with the
+    4th-order Coriolis term, a translation (0.5, 0.15)) to its endtime of
+    30 s: the horizontal means of u and v, translation added back, against
+    the analytic spiral, beside the JAX package's own run
+    (EKMAN_JAX), to whose profiles the port's are held within 1e-6."""
+    from microhh_torch.config import Ini
+    # the scalar options of the ini go unused in both packages: the case
+    # has no scalar
+    wd = run_case("ekman", {}, args, stats=False,
+                  unused_ok={("boundary", "sbcbot"), ("boundary", "sbctop"),
+                             ("boundary", "sbot"), ("boundary", "stop"),
+                             ("fields", "svisc")})
+    ini = Ini(os.path.join(wd, "ekman.ini"))
+    fc = ini.get_float("force", "fc")
+    visc = ini.get_float("fields", "visc")
+    m, s = final_state(wd, "ekman", 3000, args)
+    m.timeloop.load(3000, wd)
+    g, ks, ke = m.grid, m.ctx.ks, m.ctx.ke
+    z = np.asarray(g.z[ks:ke])
+    u = s["u"][ks:ke].mean(dim=(1, 2)).numpy() + g.utrans
+    v = s["v"][ks:ke].mean(dim=(1, 2)).numpy() + g.vtrans
+    with open(EKMAN_JAX) as f:
+        ref = json.load(f)
+    ju, jv = np.asarray(ref["u"]), np.asarray(ref["v"])
+    ua, va = ekman_spiral(z, fc, visc)
+
+    def dist(a, b):
+        return float(np.sqrt(np.mean((a[0] - b[0]) ** 2 + (a[1] - b[1]) ** 2)))
+
+    d_port, d_jax = dist((u, v), (ua, va)), dist((ju, jv), (ua, va))
+    d_pj = float(max(np.abs(u - ju).max(), np.abs(v - jv).max()))
+    print("ekman 4x4x64 to t = %g s (delta = %.4f m): rms distance of the "
+          "mean (u, v) from the analytic spiral: port %.6e, JAX package "
+          "%.6e; port against JAX %.3e"
+          % (m.timeloop.time, np.sqrt(2. * visc / fc), d_port, d_jax, d_pj))
+    check("ekman time [s]", m.timeloop.time, ref["time"], ref["time"])
+    check("ekman port vs JAX profiles", d_pj, 0., 1e-6)
+    check("ekman rms distance from the spiral", d_port, 0., 0.05)
+    return {"rms_from_spiral_port": d_port, "rms_from_spiral_jax": d_jax,
+            "port_vs_jax_max": d_pj}
+
+
 LEGS = {"drycblles": validate_drycblles, "bomex": validate_bomex,
         "gabls1": validate_gabls1, "sbl_dnn": validate_sbl_dnn,
         "taylorgreen": validate_taylorgreen,
-        "conservation": validate_conservation}
+        "conservation": validate_conservation, "ekman": validate_ekman}
 
 
 def main():

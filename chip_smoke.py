@@ -66,6 +66,10 @@ Phases (any failure exits non-zero and prints no result line):
      both walls), on partial tiles: K16 and K17 on
      the moser180 case at 45x40 and the weakscaling case at 48x20, K13 and
      the sweep on the rico case at 45x24 and 48x20, float64 and float32;
+     K16 and K17 in their 2-D form (jtot = 1: schemes 4 on drycblslope's
+     ini and 4m on moser180's; K17 with 1, 2, 4 and K17_MAXS + 1 scalars)
+     at itot 45 and 512, and in their 3-D form at ekman's 4x4x64 (a grid
+     narrower than one tile), the same way (check_o4_2d_kmarch);
      K12 (2i4, 2i5, 2i53, 2i62) on the same rico grids forced to those
      counts and to its plan's, with its 16-byte copies where the grid
      allows them (48x20) and with u, v and w shifted one value past a
@@ -117,8 +121,10 @@ Phases (any failure exits non-zero and prints no result line):
      neutral Ekman LES, and SBL_DNN, SBL_DNNglobalScales and
      SBL_DNNstatsScales at 16^2x32 (the DNN closure's three variants on the
      plain substep), gabls1 at 16^3 and arm at 16^2x64 (their time-dependent
-     values taken at each step's start, Model.update_timedep) and drycbl
-     as written (128x4x128);
+     values taken at each step's start, Model.update_timedep), drycbl
+     as written (128x4x128), drycblslope at 32x1x32 and vanheerwaarden2016
+     at 64x1x48 (K16/K17 in their 2-D form, on their levels scaled to that
+     depth) and ekman as written (4x4x64, the 4th-order Coriolis term);
   4b. statistics and budgets (check_stats): drycblles 32^3 as its ini is
      written (endtime cut to 900 s: four samples) and moser180 at 16^3 with
      its swbudget=4 (endtime 120 s: three samples) through run_case in
@@ -127,6 +133,12 @@ Phases (any failure exits non-zero and prints no result line):
      same samples, variables, groups and dims and agree to 1e-10 of each
      profile's scale (stats_agree, stats_scales); the writer the machine
      has (netCDF-4 with h5py, else netCDF-3 through scipy) is printed;
+     drycblslope at 32x1x32 with its swbudget=4 (endtime 0.8 s) the same
+     way; vanheerwaarden2016 at 64x1x48 to 3 s through run_case init, run
+     and post (check_outputs): its cross sections (b, blngrad, w, u at the
+     ini's xy and xz), two columns and statistics, and post mode's cross
+     sections and statistics, card against CPU within 1e-10 of each
+     variable's scale;
   4c. the ms of one Stats.maybe_exec (CUDA events, median of 5) for
      drycblles 512^3 float32 and moser180 256x192x128 float64 with its
      budget (time_stats); the timed phases below run with output off;
@@ -163,7 +175,11 @@ Phases (any failure exits non-zero and prints no result line):
      passive scalar (40^3) and eady (120^2x32, RK4), each as its ini is
      written, three steps in float64 on the card against the same three
      steps on the CPU from a seeded state (generic_state), every prognostic
-     field, ghost levels included, <= 1e-12 of its maximum;
+     field, ghost levels included, <= 1e-12 of its maximum; and a reading
+     (eady_reading, it fails nothing): eady from its ini's own initial
+     fields, three float64 steps on the card, on the CPU and on the CPU
+     from the fields shifted periodically (other orders of the same sums),
+     each field's difference over the velocity scale;
   5. the drycblles LES at 512^3 float32 through Model.run(max_iters=12), on
      the folded dry sweep K22: its kernels launched, finite fields, status
      DIV <= 1e-4; then the step time (median of 10 steps after 2 warm-up
@@ -229,8 +245,9 @@ Phases (any failure exits non-zero and prints no result line):
      maximum (float32 roundoff);
  21. and 22. the same for the neutral Ekman LES (cases/andren1994/
      andren1994.ini less its passive scalar: thermo 0, no scalar) at
-     768x384x288 float32 on the ini's domain, 5.2 m isotropic: K22, K7 and
-     the projection without th.
+     768x384x144 float32 on the ini's horizontal domain, 5.2 m isotropic
+     (144 levels over 750 m, to hold the script's time): K22, K7 and the
+     projection without th.
  23. SBL_DNN (cases/SBL_DNN/SBL.ini: the DNN closure dnn_local with the
      ini's seeded random weights) at 256^3 float32, dt 1 -> 0.125, stats and
      dumps off, on the plain substep, through Model.run(max_iters=12) as in
@@ -291,6 +308,19 @@ Phases (any failure exits non-zero and prints no result line):
      and RK4 at dt 2 and 1, the TKE drift over the run shrinking more than
      4x as dt halves, RK4 below RK3, the momentum drift below 0.02 of the
      velocity scale.
+ 34. drycblslope (512x1x512) and vanheerwaarden2016 (1024x1x384) on K16/K17
+     in their 2-D form and ekman (4x4x64, K16 with the 4th-order Coriolis
+     term) as their inis are written, float32, through
+     Model.run(max_iters=12) with the calls of K16/K17's plain versions and
+     of the op-path producers counted and required to be 0, the launches
+     of one step recorded in order, DIV held as weakscaling's; s/step and
+     the device idle share;
+ 35. at each of those shapes, K16 and K17 against their plain versions,
+     then timed beside their bound;
+ 36. ekman's physics on the card in float64 (cases/run_validation_torch.py's
+     leg): as written to t = 30 s, the mean (u, v) within 1e-6 of the JAX
+     package's own run (cases/ekman_jax_reference.json) and within an rms
+     0.05 of the analytic spiral.
 Beside each kernel's time stands its bound: the bytes its inputs and outputs
 hold, each once, over 3.35 TB/s, or its operations over 67 TFLOP/s (float32
 outside the tensor cores; half that for float64) where that is larger; and, where one PyTorch call
@@ -591,6 +621,17 @@ def build_case(torch, case, n, k, dtype, device, mode="run", workdir=".",
     return m
 
 
+def build_2d_case(torch, case, itot, k, dtype, device, mode="run",
+                  workdir=".", **over):
+    """drycblslope or vanheerwaarden2016 at itot x 1 x k: their stretched
+    levels scaled to k levels (cases.drycblslope_z,
+    cases.vanheerwaarden2016_z) and the zsize those give."""
+    from microhh_torch import cases
+    zsize = getattr(cases, "%s_z" % case)(k)[1]
+    return build_case(torch, case, (itot, 1), k, dtype, device, mode,
+                      workdir, zsize="%.17g" % zsize, **over)
+
+
 def case_build(case, **over):
     """build_case for one case, in the signature run_les takes."""
     def build(torch, n, k, dtype, device, mode="run", workdir="."):
@@ -599,25 +640,37 @@ def case_build(case, **over):
     return build
 
 
-def andren_ini(n, k):
+def andren_ini(n, k, **over):
     """cases/andren1994/andren1994.ini without its passive scalar (the
     slist line and s's boundary values): the neutral Ekman LES, thermo 0,
     on which the dry kernels run their has_thermo=False form."""
-    text = case_ini("andren1994", itot=n[0], jtot=n[1], ktot=k)
+    text = case_ini("andren1994", itot=n[0], jtot=n[1], ktot=k, **over)
     return re.sub(r"(?m)^(slist=s|sbot\[s\]=.*|stop\[s\]=.*)\n", "", text)
 
 
-def build_andren(torch, n, k, dtype, device, mode="run", workdir="."):
+def build_andren(torch, n, k, dtype, device, mode="run", workdir=".",
+                 zsize=None):
     """The neutral Ekman LES of andren_ini at n = (itot, jtot) and k levels
-    with xsize, ysize and zsize kept, on the profiles of andren1994_input.py
-    computed in memory."""
+    with xsize, ysize and zsize kept (or zsize given), on the profiles of
+    andren1994_input.py computed in memory."""
     from microhh_torch.cases import andren1994_input
     from microhh_torch.config import Ini
     from microhh_torch.model import Model
-    m = Model(Ini(andren_ini(n, k)), mode, "andren1994", workdir=workdir,
-              dtype=dtype, device=device, input_nc=andren1994_input(k))
+    over = {} if zsize is None else {"zsize": "%.17g" % zsize}
+    m = Model(Ini(andren_ini(n, k, **over)), mode, "andren1994",
+              workdir=workdir, dtype=dtype, device=device,
+              input_nc=andren1994_input(k, *([] if zsize is None
+                                              else [zsize])))
     m.finish_setup()
     return m
+
+
+def build_andren_lower(torch, n, k, dtype, device, mode="run", workdir="."):
+    """build_andren with zsize cut with k from the ini's 1500 m at 288
+    levels, so that a shallower run keeps the 5.2 m spacing (and the dt
+    and step count of the chunked check)."""
+    return build_andren(torch, n, k, dtype, device, mode, workdir,
+                        zsize=1500. * k / 288.)
 
 
 def unfolded_state(m, seed):
@@ -1540,9 +1593,10 @@ def o4_kernel_cases(torch, m, seed, chunks=None, counts=None):
             o4.scalars_plain(u, v, wc, names, a[:S], t)
         return t
 
-    cases = [("o4_mom", lambda: mom(True), lambda: mom(False), "field")]
+    # the kernels' own names: o4_mom_2d and o4_scalars_2d in a 2-D run
+    cases = [(o4.k_mom.name, lambda: mom(True), lambda: mom(False), "field")]
     for names in groups:
-        cases.append(("o4_scalars", lambda g=names: scal(True, g),
+        cases.append((o4.k_scal.name, lambda g=names: scal(True, g),
                       lambda g=names: scal(False, g), "field"))
     return cases
 
@@ -2625,6 +2679,7 @@ def check_kmarch(torch):
                         compare(torch, name, kern, plain, kind, dtype,
                                 "%s %dx%dx%d chunks=%d"
                                 % (label, n[0], n[1], k, chunks))
+    check_o4_2d_kmarch(torch)
     for scheme in ("2i4", "2i5", "2i53", "2i62"):
         for n in ((45, 24), (48, 20)):
             for k in (16, 6):
@@ -2666,6 +2721,53 @@ def check_kmarch(torch):
     check_evisc_kmarch(torch)
     check_rk_kmarch(torch)
     check_apply_kmarch(torch)
+
+
+def build_2d(torch, scheme, n, k, dtype, device):
+    """A 2-D (jtot = 1) 4th-order model of either scheme: drycblslope's ini
+    (advec 4, thermo buoy with its slope) for scheme 4, moser180's (advec
+    4m, its scalar s) for 4m, at n = (itot, 1) and k levels."""
+    if scheme == "4":
+        return build_2d_case(torch, "drycblslope", n[0], k, dtype, device)
+    return build_moser(torch, n, k, dtype, device)
+
+
+def check_o4_2d_kmarch(torch):
+    """K16 (schemes 4 and 4m) and K17 (1, 2 and 4 scalars, and
+    K17_MAXS + 1 over two launches) in their 2-D form (jtot = 1) against
+    their plain versions at itot 45 and 512, ktot 6 and 16, with every
+    forced k-split and K17's plan at one scalar; then the 3-D forms at
+    ekman's 4x4x64, a grid narrower than one 32-wide tile."""
+    from microhh_torch.ops import kmarch
+    for scheme in ("4", "4m"):
+        for n in ((45, 1), (512, 1)):
+            for k in (16, 6):
+                for dtype in (torch.float64, torch.float32):
+                    m = build_2d(torch, scheme, n, k, dtype, "cuda")
+                    m.build_step()
+                    if m.o4.dim3:
+                        raise AssertionError("jtot = 1 took the 3-D form")
+                    for chunks in sorted(set(forced_chunks(k))
+                                         | {m.o4.scalar_plan(1, dtype).chunks}):
+                        for name, kern, plain, kind in o4_kernel_cases(
+                                torch, m, n[0] + k, chunks=chunks,
+                                counts=(1, 2, 4, kmarch.K17_MAXS + 1)):
+                            compare(torch, name, kern, plain, kind, dtype,
+                                    "%s 2-D %dx1x%d chunks=%d"
+                                    % (scheme, n[0], k, chunks))
+                    del m
+    for dtype in (torch.float64, torch.float32):
+        m = build_case(torch, "ekman", (4, 4), 64, dtype, "cuda")
+        m.build_step()
+        for chunks in sorted(set(forced_chunks(64))
+                             | {m.o4.plan(dtype).chunks}):
+            for name, kern, plain, kind in o4_kernel_cases(
+                    torch, m, 68, chunks=chunks,
+                    counts=(1, 2, 4, kmarch.K17_MAXS + 1)):
+                compare(torch, name, kern, plain, kind, dtype,
+                        "ekman 4x4x64 chunks=%d" % chunks)
+        del m
+    torch.cuda.empty_cache()
 
 
 def check_evisc_kmarch(torch):
@@ -2848,6 +2950,17 @@ def check_step(torch):
          lambda m: unfolded_state(m, seed=7), {}),
         ("drycbl 128x4x128", lambda d: build_case(torch, "drycbl", (128, 4),
                                                   128, f64, d),
+         lambda m: o4_state(m, seed=7), {}),
+        # the 2-D forms of K16/K17 (drycblslope, vanheerwaarden2016) and
+        # the 4th-order Coriolis term on a grid narrower than a tile (ekman)
+        ("drycblslope 32x1x32", lambda d: build_2d_case(
+            torch, "drycblslope", 32, 32, f64, d),
+         lambda m: o4_state(m, seed=7), {}),
+        ("vanheerwaarden2016 64x1x48", lambda d: build_2d_case(
+            torch, "vanheerwaarden2016", 64, 48, f64, d),
+         lambda m: o4_state(m, seed=7), {}),
+        ("ekman 4x4x64", lambda d: build_case(torch, "ekman", (4, 4), 64,
+                                              f64, d),
          lambda m: o4_state(m, seed=7), {}))
     from microhh_torch.timeloop import IFACTOR
     for label, make, state, step_kw in cases:
@@ -2906,7 +3019,12 @@ STATS_CASES = (("drycblles 32^3 as written (endtime 900)", "drycblles",
                 "drycblles", {"endtime": 900}),
                ("moser180 16^3 with swbudget=4 (endtime 120)", "moser180",
                 "moser180", {"itot": 16, "jtot": 16, "ktot": 16,
-                             "endtime": 120}))
+                             "endtime": 120}),
+               # zsize: the height of cases.drycblslope_z(32)'s levels
+               ("drycblslope 32x1x32 with swbudget=4 (endtime 0.8)",
+                "drycblslope", "drycblslope",
+                {"itot": 32, "jtot": 1, "ktot": 32, "endtime": 0.8,
+                 "zsize": "%.17g" % 1.2535451675056763}))
 
 
 def check_stats(torch):
@@ -2935,6 +3053,111 @@ def check_stats(torch):
         out[label] = {"writer": writer, "samples": len(files["cpu"]["time"]),
                       "variables": len(errs), "worst": worst,
                       "worst_err": errs[worst]}
+    return out
+
+
+def outputs_dir(workdir, n=64, k=48):
+    """A vanheerwaarden2016 case directory at n x 1 x k as written but for
+    the grid and the times: to 3 s, a sample of its statistics and cross
+    sections every 1 s and a restart every 1 s, two columns, and
+    postproctime 1 s for post mode.  Returns its input in memory."""
+    from microhh_torch import cases
+    os.makedirs(workdir)
+    text = case_ini("vanheerwaarden2016", itot=n, jtot=1, ktot=k,
+                    zsize="%.17g" % cases.vanheerwaarden2016_z(k)[1],
+                    endtime=3, savetime=1, sampletime=1)
+    text = text.replace("starttime=0", "starttime=0\npostproctime=1")
+    text += ("\n[column]\nswcolumn=1\nsampletime=1\n"
+             "coordinates[x]=0.3,1.1\ncoordinates[y]=0,0\n")
+    with open(os.path.join(workdir, "vanheerwaarden2016.ini"), "w") as f:
+        f.write(text)
+    return cases.vanheerwaarden2016_input(k)
+
+
+CROSS_NAME = re.compile(r"^(\w+)\.(xy|xz|yz)\.\d{5}\.\d{7}$")
+
+
+def cross_files(workdir):
+    """{file name: its values as float64} of the cross sections in
+    workdir."""
+    return {f: np.fromfile(os.path.join(workdir, f))
+            for f in sorted(os.listdir(workdir)) if CROSS_NAME.match(f)}
+
+
+def cross_agree(a, b, what):
+    """Two runs' cross sections (cross_files): the same files, and each
+    one's largest difference over the largest value of its variable in
+    b's files.  A log gradient (<s>lngrad) is held as the squared gradient
+    it is the log of: where that passes near zero its log magnifies
+    rounding without bound.  Returns the worst."""
+    if sorted(a) != sorted(b):
+        raise AssertionError("%s: cross files differ: %s" % (
+            what, sorted(set(a) ^ set(b))))
+    a, b = ({f: np.exp(x) if CROSS_NAME.match(f).group(1).endswith("lngrad")
+             else x for f, x in files.items()} for files in (a, b))
+    scale = {}
+    for f, y in b.items():
+        var = CROSS_NAME.match(f).group(1)
+        scale[var] = max(scale.get(var, 0.), float(np.abs(y).max()))
+    return max(float(np.abs(a[f] - b[f]).max())
+               / max(scale[CROSS_NAME.match(f).group(1)], 1e-300)
+               for f in b)
+
+
+def check_outputs(torch, devices=("cuda", "cpu")):
+    """vanheerwaarden2016 at 64x1x48 through run_case (init, run, then
+    post) on the card and on the CPU, float64: its cross sections (b,
+    blngrad, w, u; xy at 0.03 and 0.15, xz at 0), its columns and its
+    budget-4 statistics, card against CPU, each within 1e-10 of its
+    variable's scale; post mode's cross sections and statistics of the
+    saved states the same way."""
+    from microhh_torch.model import run_case
+    from microhh_torch.stats import open_stats
+    out = {}
+    with tempfile.TemporaryDirectory() as workdir:
+        files = []
+        for n, d in enumerate(devices):
+            wd = os.path.join(workdir, "%s%d" % (d, n))
+            mem = outputs_dir(wd)
+            for mode in ("init", "run"):
+                run_case(wd, "vanheerwaarden2016", mode, dtype=torch.float64,
+                         device=d, input_nc=mem)
+            stats = os.path.join(wd, "vanheerwaarden2016.default.0000000.nc")
+            col = os.path.join(wd, "vanheerwaarden2016.column.0000000.nc")
+            with open_stats(col) as f:
+                cols = {v: np.asarray(f.variables[v][:])
+                        for v in ("time", "u", "v", "w", "b")}
+            files.append({"cross": cross_files(wd),
+                          "stats": read_stats(stats), "column": cols})
+            for f in files[-1]["cross"]:
+                os.remove(os.path.join(wd, f))
+            os.remove(stats)
+            run_case(wd, "vanheerwaarden2016", "post", dtype=torch.float64,
+                     device=d, input_nc=mem)
+            files[-1]["post_cross"] = cross_files(wd)
+            files[-1]["post_stats"] = read_stats(stats)
+        a, b = files
+        out["cross_files"] = len(b["cross"])
+        out["cross"] = cross_agree(a["cross"], b["cross"], "cross")
+        out["post_cross"] = cross_agree(a["post_cross"], b["post_cross"],
+                                        "post cross")
+        if not np.array_equal(a["column"]["time"], b["column"]["time"]):
+            raise AssertionError("column sample times differ")
+        out["column"] = max(
+            float(np.abs(a["column"][v] - b["column"][v]).max())
+            / max(float(np.abs(b["column"][v]).max()), 1e-300)
+            for v in ("u", "w", "b"))
+        for key in ("stats", "post_stats"):
+            errs = stats_agree(a[key], b[key], key)
+            out[key] = max(errs.values())
+    log("  vanheerwaarden2016 64x1x48 float64, card against CPU: %d cross "
+        "files, worst %.3e; columns %.3e; stats %.3e; post mode's cross "
+        "%.3e and stats %.3e (each of its variable's scale)"
+        % (out["cross_files"], out["cross"], out["column"], out["stats"],
+           out["post_cross"], out["post_stats"]))
+    if not max(v for k, v in out.items() if k != "cross_files") <= 1e-10:
+        raise AssertionError("cross sections, columns or post mode: card "
+                             "and CPU disagree")
     return out
 
 
@@ -3477,7 +3700,12 @@ FLOPS_PER_POINT = {"evisc": 100, "evisc_n2": 100, "limits": 110,
                    # scalar's share of the vertical weights); K16 computes
                    # each face interpolant once per point
                    "o4_mom": {"4": 560, "4m": 510},
-                   "o4_scalars": {"4": 185, "4m": 140}}
+                   "o4_scalars": {"4": 185, "4m": 140},
+                   # their 2-D forms, estimated as the 3-D counts less
+                   # the y fluxes, the y Laplacians, the j interpolants
+                   # and v's diffusion
+                   "o4_mom_2d": {"4": 450, "4m": 410},
+                   "o4_scalars_2d": {"4": 160, "4m": 120}}
 
 
 def pair(kern, plain, nbytes, flops, lib=None, peak_flops=PEAK_FLOPS,
@@ -4072,22 +4300,24 @@ def time_o4_kernels(torch, m, s, plain_reps):
     tuvw = [t[nm] for nm in ("u", "v", "w")]
     fb, n, S = field_bytes(m), points(m), len(names)
     peak = PEAK_FLOPS if m.dtype == torch.float32 else PEAK_FLOPS_F64
-    from microhh_torch.ops.o4_fused import SCHEME_ID
-    pairs = {"o4_mom": pair(
+    km, ks_ = o4.k_mom.name, o4.k_scal.name
+    # K16 reads u, v and both w and updates three carries in either form;
+    # K17 reads u, v (not in 2-D) and w, and each scalar and its carry
+    pairs = {km: pair(
         lambda: o4.momentum(u, v, wc, wd, *tuvw),
         lambda: o4.momentum_plain(u, v, wc, wd, *tuvw), 10 * fb,
-        FLOPS_PER_POINT["o4_mom"][o4.scheme] * n, peak_flops=peak,
-        info=kmarch_info(o4.k_mom, m.dtype, SCHEME_ID[o4.scheme], 0,
+        FLOPS_PER_POINT[km][o4.scheme] * n, peak_flops=peak,
+        info=kmarch_info(o4.k_mom, m.dtype, o4.info_scheme(), 0,
                          o4.plan(m.dtype)))}
     if names:
         from microhh_torch.ops.o4_fused import max_scalars
         S1 = min(S, max_scalars(m.dtype))
-        pairs["o4_scalars"] = pair(
+        pairs[ks_] = pair(
             lambda: o4.scalars(u, v, wc, names, a, ta),
             lambda: o4.scalars_plain(u, v, wc, names, a, ta),
-            (3 + 3 * S) * fb, FLOPS_PER_POINT["o4_scalars"][o4.scheme] * S * n,
-            peak_flops=peak,
-            info=kmarch_info(o4.k_scal, m.dtype, SCHEME_ID[o4.scheme], S1,
+            ((3 if o4.dim3 else 2) + 3 * S) * fb,
+            FLOPS_PER_POINT[ks_][o4.scheme] * S * n, peak_flops=peak,
+            info=kmarch_info(o4.k_scal, m.dtype, o4.info_scheme(), S1,
                              o4.scalar_plan(S1, m.dtype)))
     out = time_pairs(torch, pairs, plain_reps)
     for a_t in t.values():
@@ -4760,6 +4990,128 @@ def written_phases(torch, results, by_path, record):
             raise AssertionError("%s physics: %s" % (leg, V.FAILURES))
 
 
+def eady_reading(torch, nsteps=3, shift=(5, 7), device="cuda"):
+    """eady 120^2x32 (RK4, 2i5, the plain substep) float64 from its ini's
+    own initial fields (Fields.create), nsteps steps of its dt: on the
+    card, on the CPU, and on the CPU from the same fields shifted
+    periodically by shift cells in (j, i) and shifted back after (the same
+    flow, whose sums in the transforms and the stencils then run in other
+    orders).  Each field's largest difference over the flow's velocity
+    scale (the largest |u + utrans|; th over its own largest value), card
+    against CPU beside CPU against the shifted CPU.  A reading: it fails
+    nothing."""
+    out, scale = {}, None
+    for label, dev, sh in (("card", device, (0, 0)), ("cpu", "cpu", (0, 0)),
+                           ("cpu_shifted", "cpu", shift)):
+        m = build_case(torch, "eady", (120, 120), 32, torch.float64, dev)
+        m.build_step()
+        st = m.fields.create(m.input_nc, dtype=np.float64)
+        st = {n: np.roll(a, sh, axis=(1, 2)) for n, a in st.items()}
+        s, sfc = m.as_device_state(st)
+        for _ in range(nsteps):
+            s, sfc, _ = m.step(s, sfc, m.timeloop.dt)
+        ks, ke = m.ctx.ks, m.ctx.ke
+        out[label] = {n: np.roll(s[n].cpu().numpy(), (-sh[0], -sh[1]),
+                                 axis=(1, 2))[ks:ke]
+                      for n in m.fields.prognostic_names}
+        if scale is None:
+            scale = float(np.abs(out[label]["u"] + m.grid.utrans).max())
+        del m, s, sfc
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    def measure(a, b):
+        return {n: float(np.abs(a[n] - b[n]).max())
+                / (float(np.abs(b[n]).max()) if n == "th" else scale)
+                for n in b}
+
+    res = {"velocity_scale": scale,
+           "card_vs_cpu": measure(out["card"], out["cpu"]),
+           "cpu_vs_cpu_shifted": measure(out["cpu_shifted"], out["cpu"])}
+    log("  eady 120^2x32 float64, %d steps from the ini's own fields "
+        "(velocity scale %.4f m/s): card vs CPU %s; CPU vs CPU shifted by "
+        "%s cells %s" % (nsteps, scale,
+                         {n: "%.2e" % v for n, v in res["card_vs_cpu"].items()},
+                         shift, {n: "%.2e" % v for n, v in
+                                 res["cpu_vs_cpu_shifted"].items()}))
+    return res
+
+
+# the plain versions of K16/K17 and the op-path producers they stand in
+# for; none may run on the 4th-order path
+PLAIN_OF_O4_PATH = (
+    ("microhh_torch.ops.o4_fused", "O4Fused.momentum_plain"),
+    ("microhh_torch.ops.o4_fused", "O4Fused.scalars_plain"),
+    ("microhh_torch.ops.advec_4", "Advec4.momentum"),
+    ("microhh_torch.ops.advec_4", "Advec4.scalar"),
+    ("microhh_torch.ops.advec_4m", "Advec4m.momentum"),
+    ("microhh_torch.ops.advec_4m", "Advec4m.scalar"),
+    ("microhh_torch.ops.diff_4", "Diff4.momentum"),
+    ("microhh_torch.ops.diff_4", "Diff4.scalar"))
+
+# the cases that K16/K17's 2-D form and the 4th-order Coriolis term bring
+# in, as written: (case, (itot, jtot), ktot)
+O4_2D_CASES = (("drycblslope", (512, 1), 512),
+               ("vanheerwaarden2016", (1024, 1), 384),
+               ("ekman", (4, 4), 64))
+
+
+def o4_2d_phases(torch, results, by_path, record):
+    """Phases 34 to 36: drycblslope and vanheerwaarden2016 (K16/K17 in
+    their 2-D form) and ekman (K16 with the 4th-order Coriolis term) as
+    written through Model.run in float32, no plain version of K16/K17 and
+    no op-path producer called, their s/step and device idle share; each
+    path's kernels against their plain versions at its shapes and timed;
+    then ekman's spiral (cases/run_validation_torch.py's leg, float64)."""
+    for case, n, k in O4_2D_CASES:
+        key = "%s_%dx%dx%d" % (case, n[0], n[1], k)
+        log("[34] %s %dx%dx%d float32 as written through Model.run, no "
+            "plain version of K16/K17" % (case, n[0], n[1], k))
+        with tempfile.TemporaryDirectory() as workdir:
+            with counted(PLAIN_OF_O4_PATH) as plain_calls:
+                m, s, res = run_les(torch, workdir, case, case_build(case), n,
+                                    k=k, p_floor=True)
+                res["launch_order"] = path_launch_order(torch, m, s,
+                                                        m.final_sfc)
+            log("  calls of the plain versions meanwhile: %s" % plain_calls)
+            if any(plain_calls.values()):
+                raise AssertionError("the %s path ran plain versions: %s"
+                                     % (case, plain_calls))
+            res["plain_calls"] = dict(plain_calls)
+            res["device_idle_f32"] = device_idle(torch, m, s, m.final_sfc)
+            log("  %s float32: %s" % (case, res["device_idle_f32"]))
+            where = "%s %s float32" % (case, shape_str(m))
+            log("[35] kernels at %s: against their plain versions, then "
+                "timed" % where)
+            errs = check_kernels_full(torch, m, o4_kernel_cases)
+            times = time_o4_kernels(torch, m, s, plain_reps=3)
+            for kern in m.kernels():
+                tk = times[kern.name]
+                log("  %s at %s: %.4f ms against a bound of %.4f ms (%s), "
+                    "plain %.4f ms; %s" % (
+                        kern.name, where, tk["ms"], tk["bound_ms"],
+                        tk["bound_by"], tk["plain_ms"],
+                        {x: tk[x] for x in ("registers", "blocks_per_sm",
+                                            "chunks", "blocks", "waves")
+                         if x in tk}))
+            record(m, s, key, key + "_f32", case, res, errs, times, where)
+            del m, s
+        torch.cuda.empty_cache()
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "cases"))
+    import argparse
+    import run_validation_torch as V
+    log("[36] ekman's spiral on the card, float64, to its endtime "
+        "(cases/run_validation_torch.py)")
+    with tempfile.TemporaryDirectory() as workdir:
+        args = argparse.Namespace(device="cuda", precision="double",
+                                  workdir=workdir, quick=False)
+        del V.FAILURES[:]
+        results["ekman_physics"] = V.LEGS["ekman"](args)
+    if V.FAILURES:
+        raise AssertionError("ekman physics: %s" % V.FAILURES)
+
+
 def kernel_entry(k, launches, errs, times, where):
     e = {"name": k.name, "route": "cuda", "source": k.source,
          "replaces": k.replaces, "launches": launches[k.name],
@@ -4844,6 +5196,9 @@ def main():
 
     log("[4b] statistics and budgets through run_case, card against CPU")
     results = {"stats": check_stats(torch)}
+    log("[4b] cross sections, columns and post mode through run_case, card "
+        "against CPU")
+    results["outputs"] = check_outputs(torch)
     log("[4c] the statistics' sample time")
     results["stats_sample_ms"] = time_stats(torch)
     log("[4d] the chunked loop, captured: its graphs against the eager body, "
@@ -4860,6 +5215,9 @@ def main():
     log("[4e] taylorgreen, conservation, andren1994 and eady as written, "
         "three steps, card against CPU")
     results["written_card_vs_cpu_f64"] = check_written_steps(torch)
+    log("[4e] eady from its ini's own initial fields, three steps: card "
+        "against CPU beside CPU against CPU in other orders")
+    results["eady_reading_f64"] = eady_reading(torch)
     results["evisc_critical"] = {k: {"cond_max": c, "err_over_bound": r}
                                  for k, (c, r) in critical.items()}
     entries = {}
@@ -5033,8 +5391,8 @@ def main():
     # B: sullivan2011 on the RK path (K22 with the sponge and Coriolis
     # folds), then its substep without the RK fold on a thinner grid (K20,
     # K21 and K1, K7 in their ghost mode), and the two forms held together
-    dry_path((19, 20), "sullivan2011_512_f32", "sullivan2011", build_sullivan,
-             (512, 512), 512,
+    dry_path((19, 20), "sullivan2011_512_f32", "sullivan2011",
+             build_sullivan, (512, 512), 512,
              chunked={"endtime": 20, "outputiter": 8, "min_steps": 8})
     dry_path(("19b", "20b"), "sullivan2011_512x512x64_unfolded_f32",
              "sullivan2011", build_sullivan, (512, 512), 64,
@@ -5044,8 +5402,10 @@ def main():
         ({}, {"unfolded": True}), lambda m: unfolded_state(m, 7), 1e-3)
 
     # C: the neutral Ekman LES (thermo 0, no scalar) at 5.2 m isotropic
-    dry_path((21, 22), "andren1994_768x384x288_f32", "andren1994 less s",
-             build_andren, (768, 384), 288,
+    # its depth cut to 144 levels and 750 m (the spacing kept) to hold
+    # the script's time
+    dry_path((21, 22), "andren1994_768x384x144_f32", "andren1994 less s",
+             build_andren_lower, (768, 384), 144,
              chunked={"endtime": 24, "outputiter": 8, "min_steps": 8})
 
     # D: the DNN closure (SBL_DNN) on the plain substep: K14, K5, K21, K6
@@ -5090,6 +5450,10 @@ def main():
     # F: taylorgreen, conservation and eady on the plain substep, andren1994
     # with its scalar on the generic kernels, as written
     written_phases(torch, results, by_path, record)
+
+    # G: the 2-D 4th-order cases on K16/K17's 2-D form and ekman's
+    # 4th-order Coriolis term, as written
+    o4_2d_phases(torch, results, by_path, record)
 
     if profile_path:
         os.makedirs(os.path.dirname(os.path.abspath(profile_path)),

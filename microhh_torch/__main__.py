@@ -1,4 +1,4 @@
-"""CLI: ``python -m microhh_torch {init,run} casename`` (reference
+"""CLI: ``python -m microhh_torch {init,run,post} casename`` (reference
 ``main/microhh.cxx``; mirrors ``microhh_tpu/__main__.py``).  The model runs
 on the first CUDA device; ``--device cpu`` runs the plain-torch versions of
 the kernels on the CPU.  ``--memory-input`` computes the case's input
@@ -12,7 +12,7 @@ import torch
 
 def main(argv=None):
     p = argparse.ArgumentParser(prog="microhh_torch")
-    p.add_argument("mode", choices=["init", "run"])
+    p.add_argument("mode", choices=["init", "run", "post"])
     p.add_argument("casename")
     p.add_argument("--precision", choices=["single", "double"], default="single")
     p.add_argument("--dir", default=".")

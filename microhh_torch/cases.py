@@ -20,7 +20,9 @@ cases ``drycbl_input``, ``prandtlslope_input``, ``rayleighbenard_input``,
 ``timedep.py`` reads): ``gabls1_input``, ``gabls4s3_input`` (the idealized
 Dome C stand-in that ``gabls4s3_input.py`` writes when the GABLS4 driver
 file ``SCM_LES_STAGE3.nc`` is absent) and ``arm_input``; ``eady_input`` for
-``cases/eady/eady_input.py``.  A case whose
+``cases/eady/eady_input.py``; the 2-D 4th-order DNS cases
+``drycblslope_input`` and ``vanheerwaarden2016_input`` and the laminar
+``ekman_input``.  A case whose
 script fixes its levels takes that count as its default ``ktot`` and
 ignores ``zsize``: its ini's zsize is the height those levels give.
 """
@@ -369,6 +371,70 @@ def eady_input(ktot=32, zsize=1000.):
         "v_geo": np.zeros(ktot)}})
 
 
+def drycblslope_z(ktot=512):
+    """The levels of cases/drycblslope/drycblslope_input.py (512 doubly
+    tanh-stretched levels) and the domain height they give; another ktot
+    scales the stretching to that many levels, as weakscaling_input does."""
+    f = ktot / 512.
+    return tanh_stretched_z(ktot, nloc1=80. * f, nbuf1=16. * f,
+                            nloc2=512. * f, nbuf2=72. * f, dz1=0.001 / f,
+                            dz2=0.002 / f, dz3=0.016 / f)
+
+
+def drycblslope_input(ktot=512, zsize=None):
+    """The input dataset of cases/drycblslope/drycblslope_input.py: its
+    stretched levels (drycblslope_z) and b = N2 z with N2 = 3.  The ini's
+    zsize is the height the levels give."""
+    z, _ = drycblslope_z(ktot)
+    return MemoryDataset({"z": z}, {"init": {"b": 3. * z}})
+
+
+def tanh_stretched_z_dn(kmax, dn, nloc1, nbuf1, nloc2, nbuf2, dz1, dz2, dz3):
+    """The tanh-stretched levels of cases/vanheerwaarden2016/
+    vanheerwaarden2016_input.py, whose resolution parameter dn is set apart
+    from the level count, and the domain height they give."""
+    n = np.linspace(dn, 1. - dn, kmax)
+    dzdn = (dz1 / dn
+            + 0.5 * (dz2 - dz1) / dn * (1. + np.tanh((n - nloc1 * dn) / (nbuf1 * dn)))
+            + 0.5 * (dz3 - dz2) / dn * (1. + np.tanh((n - nloc2 * dn) / (nbuf2 * dn))))
+    dz = dzdn * dn
+    z = np.empty(kmax)
+    z[0] = 0.5 * dz[0]
+    for k in range(1, kmax):
+        z[k] = z[k - 1] + 0.5 * (dz[k - 1] + dz[k])
+    return z, z[-1] + 0.5 * dz[-1]
+
+
+def vanheerwaarden2016_z(ktot=384):
+    """The levels of cases/vanheerwaarden2016/vanheerwaarden2016_input.py
+    (384 levels at dn = 1/512) and the domain height they give; another
+    ktot scales the spacings by 384 / ktot, which keeps the stretching's
+    shape over about the same height."""
+    dn = 1. / 512.
+    f = 384. / ktot
+    return tanh_stretched_z_dn(ktot, dn, nloc1=80., nbuf1=24., nloc2=512.,
+                               nbuf2=72., dz1=0.5 * dn * f, dz2=dn * f,
+                               dz3=5. * dn * f)
+
+
+def vanheerwaarden2016_input(ktot=384, zsize=None):
+    """The input dataset of cases/vanheerwaarden2016/
+    vanheerwaarden2016_input.py: its stretched levels
+    (vanheerwaarden2016_z) and b = N2 z with N2 = 3."""
+    z, _ = vanheerwaarden2016_z(ktot)
+    return MemoryDataset({"z": z}, {"init": {"b": 3. * z}})
+
+
+def ekman_input(ktot=64, zsize=5.):
+    """The input dataset of cases/ekman/ekman_input.py: the run starts from
+    the geostrophic wind, u = u_geo = 1 and v = v_geo = 0."""
+    z = uniform_z(ktot, zsize)
+    one, zero = np.ones(ktot), np.zeros(ktot)
+    return MemoryDataset({"z": z}, {"init": {"u": one, "v": zero,
+                                             "u_geo": one.copy(),
+                                             "v_geo": zero.copy()}})
+
+
 def case_input(casename, ktot, zsize):
     """The input dataset of the shipped case ``casename`` (its ini's file
     name) at ktot levels over zsize, computed in memory as its
@@ -387,7 +453,9 @@ def case_input(casename, ktot, zsize):
             "rayleightaylor": rayleightaylor_input,
             "moser600": moser600_input, "gabls1": gabls1_input,
             "gabls4s3": gabls4s3_input, "arm": arm_input,
-            "eady": eady_input}
+            "eady": eady_input, "drycblslope": drycblslope_input,
+            "vanheerwaarden2016": vanheerwaarden2016_input,
+            "ekman": ekman_input}
     if casename not in make:
         raise ValueError("no input of case %r in microhh_torch.cases"
                          % casename)

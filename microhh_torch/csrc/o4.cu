@@ -9,6 +9,9 @@
 // K17 o4_scalars: each of S scalars' carry += its advection + svisc * its
 // diffusion, with u, v and four w planes read once for all of them.
 // Replaces the scalar call (:435; body _o4_scalar_body :319).
+// A grid of jtot = 1 takes each kernel's 2-D form (o4_mom_2d_kernel,
+// o4_scalars_2d_kernel: the same march with D3 false), which computes what
+// the JAX package's op path computes there: no y terms, no diffusion of v.
 //
 // Horizontal: 4-tap interpolations (ci) and flux divergences (cg) chained
 // to a reach of i +- 3 and j +- 3, and the 7-point second derivative (cdg),
@@ -162,6 +165,16 @@ __device__ __forceinline__ T lap_p(const T* P, T q0, T dxidxi, T dyidyi) {
               + c1 * (P[-R] + P[R]) + c0 * q0) * dyidyi;
 }
 
+// its x part alone, the form of a 2-D run (jtot = 1), which has no y
+// derivative (diff_4.cxx diff_c<TF, dim3 = false>)
+template <typename T>
+__device__ __forceinline__ T lap_x(const T* P, T q0, T dxidxi) {
+    const T c0 = T(-1460. / 576.), c1 = T(783. / 576.), c2 = T(-54. / 576.),
+            c3 = T(1. / 576.);
+    return (c3 * (P[-3] + P[3]) + c2 * (P[-2] + P[2]) + c1 * (P[-1] + P[1])
+            + c0 * q0) * dxidxi;
+}
+
 // interpolation to i-1/2 (ixh) and j-1/2 (jyh) at a slot position P
 template <typename T>
 __device__ __forceinline__ T ixh_p(const T* P) {
@@ -172,6 +185,14 @@ template <typename T>
 __device__ __forceinline__ T jyh_p(const T* P) {
     constexpr int R = km::RS;
     return interp4(P[-2 * R], P[-R], P[0], P[R]);
+}
+
+// jyh in either form: in a 2-D run the four rows are the point's own, so
+// it is the point's value taken four times, and no halo row is read
+template <bool D3, typename T>
+__device__ __forceinline__ T jyh_d(const T* P) {
+    if constexpr (D3) return jyh_p(P);
+    else return interp4(P[0], P[0], P[0], P[0]);
 }
 
 // The vertical ladders on the register column q (planes k-3..k+3) with the
@@ -198,17 +219,20 @@ __device__ __forceinline__ T vd_rows(FR row, const T* q, const T* vel) {
     return grad4(x[0], x[1], x[2], x[3]);
 }
 
-// three blocks an SM in float32 (at most 85 registers: a few bytes spill,
-// and the k-split then fills 396 slots; 5.15 against 6.29 ms at
-// weakscaling with two blocks of 128 registers on an H100 at 700 W,
-// PERF.md section 6), two in float64 (three spill ~400 bytes and run at
-// half the speed)
-template <typename T, bool M>
-__global__ void __launch_bounds__(K16_NT, sizeof(T) == 4 ? 3 : 2)
-o4_mom_kernel(const T* __restrict__ u, const T* __restrict__ v,
-              const T* __restrict__ wc, const T* __restrict__ wd, T* tu, T* tv,
-              T* tw, const T* __restrict__ cc, int itot, int jtot, int ktot,
-              int ks, T dxi, T dyi, T visc, int chunks, int vec_ok) {
+// K16's march.  D3 false is the form of a 2-D run (jtot = 1), the JAX
+// op path's with dim3 false (advec_4.cxx, advec_4m.cxx, diff_4.cxx): no y
+// flux and no y part of the Laplacian, no diffusion of v at all, and v
+// still advected (its x flux and its vertical flux, with w interpolated in
+// j as the point's own value); the rows -1, TJ and TJ+1 of the
+// interpolant planes, the planes JYV, JYW and VZ and the j-neighbour loads
+// of w are not made.  Every 2-D difference is under if constexpr, so the
+// 3-D instances are the code they were.
+template <typename T, bool M, bool D3>
+__device__ __forceinline__ void o4_mom_march(
+    const T* __restrict__ u, const T* __restrict__ v,
+    const T* __restrict__ wc, const T* __restrict__ wd, T* tu, T* tv, T* tw,
+    const T* __restrict__ cc, int itot, int jtot, int ktot, int ks, T dxi,
+    T dyi, T visc, int chunks, int vec_ok) {
     using G = K16<T>;
     constexpr int D = G::D, RU = G::RU, RW = G::RW, RD = G::RD, RR = G::RR;
     constexpr int SZ = G::SIZE, IC = G::IC, IP = G::IR * G::IC;
@@ -280,8 +304,11 @@ o4_mom_kernel(const T* __restrict__ u, const T* __restrict__ v,
             const T* a = wc + lev(k0 - 1 + e);
             IXWw[e] = interp4(__ldg(a + oi[0]), __ldg(a + oi[1]),
                               __ldg(a + oi[2]), __ldg(a + oi[3]));
-            JYWw[e] = interp4(__ldg(a + oj[0]), __ldg(a + oj[1]),
-                              __ldg(a + oj[2]), __ldg(a + oj[3]));
+            if constexpr (D3)
+                JYWw[e] = interp4(__ldg(a + oj[0]), __ldg(a + oj[1]),
+                                  __ldg(a + oj[2]), __ldg(a + oj[3]));
+            else
+                JYWw[e] = interp4(Cw[2 + e], Cw[2 + e], Cw[2 + e], Cw[2 + e]);
         }
         IXWw[3] = JYWw[3] = T(0);
     }
@@ -313,18 +340,20 @@ o4_mom_kernel(const T* __restrict__ u, const T* __restrict__ v,
         {
             const T* C2 = sC + ((k + 2) % RW) * SZ + me;
             IXWw[3] = ixh_p(C2);
-            JYWw[3] = jyh_p(C2);
+            JYWw[3] = jyh_d<D3>(C2);
             T* I = sI + mi;
             I[IXU * IP] = ixh_p(Uk + me);
-            I[JYU * IP] = jyh_p(Uk + me);
+            I[JYU * IP] = jyh_d<D3>(Uk + me);
             I[IXV * IP] = ixh_p(Vk + me);
-            I[JYV * IP] = jyh_p(Vk + me);
+            if constexpr (D3) I[JYV * IP] = jyh_p(Vk + me);
             I[IXW * IP] = IXWw[1];
-            I[JYW * IP] = JYWw[1];
+            if constexpr (D3) I[JYW * IP] = JYWw[1];
             I[UZ * IP] = interp4(Uw[1], Uw[2], Uw[3], Uw[4]);
-            I[VZ * IP] = interp4(Vw[1], Vw[2], Vw[3], Vw[4]);
+            if constexpr (D3) I[VZ * IP] = interp4(Vw[1], Vw[2], Vw[3], Vw[4]);
         }
-        if (tid < 3 * km::TI + 3 * K16_TJ) {
+        // the flux halo: in 2-D only the columns -1, TI and TI+1
+        if (D3 ? tid < 3 * km::TI + 3 * K16_TJ
+               : tid >= 3 * km::TI && tid < 3 * km::TI + 3 * K16_TJ) {
             const T* Um2 = sU + slotU(k - 2) * SZ;
             const T* Um1 = sU + slotU(k - 1) * SZ;
             const T* Up1 = sU + slotU(k + 1) * SZ;
@@ -344,8 +373,8 @@ o4_mom_kernel(const T* __restrict__ u, const T* __restrict__ v,
             const int at = (r + km::H) * R + c + km::C0;
             T* I = sI + (r + 1) * IC + c + 1;
             I[IXV * IP] = ixh_p(Vk + at);
-            I[JYU * IP] = jyh_p(Uk + at);
-            if (jh) {
+            I[JYU * IP] = jyh_d<D3>(Uk + at);
+            if (D3 && jh) {
                 const T* Vm2 = sV + slotU(k - 2) * SZ;
                 const T* Vm1 = sV + slotU(k - 1) * SZ;
                 const T* Vp1 = sV + slotU(k + 1) * SZ;
@@ -373,21 +402,26 @@ o4_mom_kernel(const T* __restrict__ u, const T* __restrict__ v,
                            I[IXU * IP] * I[IXU * IP],
                            I[IXU * IP + 1] * I[IXU * IP + 1],
                            I[IXU * IP + 2] * I[IXU * IP + 2]) * dxi;
-                t = t - grad4(I[IXV * IP - IC] * I[JYU * IP - IC],
-                              I[IXV * IP] * I[JYU * IP],
-                              I[IXV * IP + IC] * I[JYU * IP + IC],
-                              I[IXV * IP + 2 * IC] * I[JYU * IP + 2 * IC]) * dyi;
+                if constexpr (D3)
+                    t = t - grad4(I[IXV * IP - IC] * I[JYU * IP - IC],
+                                  I[IXV * IP] * I[JYU * IP],
+                                  I[IXV * IP + IC] * I[JYU * IP + IC],
+                                  I[IXV * IP + 2 * IC] * I[JYU * IP + 2 * IC]) * dyi;
                 t = t - vd_rows<false, T>([&](int e) { return row(k + e) + TXA; },
                                           Uw, IXWw) * dzi4;
             } else {
                 const T* P = Uk + me;
                 t = flux4<T>([&](int d) { return I[IXU * IP + d]; },
                              [&](int d) { return d ? P[d] : Uw[3]; }) * dxi;
-                t = t + flux4<T>([&](int d) { return I[IXV * IP + d * IC]; },
-                                 [&](int d) { return d ? P[d * R] : Uw[3]; }) * dyi;
+                if constexpr (D3)
+                    t = t + flux4<T>([&](int d) { return I[IXV * IP + d * IC]; },
+                                     [&](int d) { return d ? P[d * R] : Uw[3]; }) * dyi;
                 t = t + vert4m_cell(k, ktot, Uw, IXWw) * dzi4;
             }
-            t = t + visc * (lap_p(Uk + me, Uw[3], dxidxi, dyidyi)
+            T lap;
+            if constexpr (D3) lap = lap_p(Uk + me, Uw[3], dxidxi, dyidyi);
+            else lap = lap_x(Uk + me, Uw[3], dxidxi);
+            t = t + visc * (lap
                             + vd_rows<false, T>([&](int e) { return row(k + e) + TG; },
                                                 Uw, nullptr) * dzi4);
             if (inside) tu[o] = tu[o] + t;
@@ -400,23 +434,27 @@ o4_mom_kernel(const T* __restrict__ u, const T* __restrict__ v,
                            I[JYU * IP] * I[IXV * IP],
                            I[JYU * IP + 1] * I[IXV * IP + 1],
                            I[JYU * IP + 2] * I[IXV * IP + 2]) * dxi;
-                t = t - grad4(I[JYV * IP - IC] * I[JYV * IP - IC],
-                              I[JYV * IP] * I[JYV * IP],
-                              I[JYV * IP + IC] * I[JYV * IP + IC],
-                              I[JYV * IP + 2 * IC] * I[JYV * IP + 2 * IC]) * dyi;
+                if constexpr (D3)
+                    t = t - grad4(I[JYV * IP - IC] * I[JYV * IP - IC],
+                                  I[JYV * IP] * I[JYV * IP],
+                                  I[JYV * IP + IC] * I[JYV * IP + IC],
+                                  I[JYV * IP + 2 * IC] * I[JYV * IP + 2 * IC]) * dyi;
                 t = t - vd_rows<false, T>([&](int e) { return row(k + e) + TXA; },
                                           Vw, JYWw) * dzi4;
             } else {
                 const T* P = Vk + me;
                 t = flux4<T>([&](int d) { return I[JYU * IP + d]; },
                              [&](int d) { return d ? P[d] : Vw[3]; }) * dxi;
-                t = t + flux4<T>([&](int d) { return I[JYV * IP + d * IC]; },
-                                 [&](int d) { return d ? P[d * R] : Vw[3]; }) * dyi;
+                if constexpr (D3)
+                    t = t + flux4<T>([&](int d) { return I[JYV * IP + d * IC]; },
+                                     [&](int d) { return d ? P[d * R] : Vw[3]; }) * dyi;
                 t = t + vert4m_cell(k, ktot, Vw, JYWw) * dzi4;
             }
-            t = t + visc * (lap_p(Vk + me, Vw[3], dxidxi, dyidyi)
-                            + vd_rows<false, T>([&](int e) { return row(k + e) + TG; },
-                                                Vw, nullptr) * dzi4);
+            // a 2-D run does not diffuse v (diff_4.cxx exec)
+            if constexpr (D3)
+                t = t + visc * (lap_p(Vk + me, Vw[3], dxidxi, dyidyi)
+                                + vd_rows<false, T>([&](int e) { return row(k + e) + TG; },
+                                                    Vw, nullptr) * dzi4);
             if (inside) tv[o] = tv[o] + t;
         }
         // w at half level k; k = 0 is the wall
@@ -427,21 +465,28 @@ o4_mom_kernel(const T* __restrict__ u, const T* __restrict__ v,
                            I[UZ * IP] * I[IXW * IP],
                            I[UZ * IP + 1] * I[IXW * IP + 1],
                            I[UZ * IP + 2] * I[IXW * IP + 2]) * dxi;
-                t = t - grad4(I[VZ * IP - IC] * I[JYW * IP - IC],
-                              I[VZ * IP] * I[JYW * IP],
-                              I[VZ * IP + IC] * I[JYW * IP + IC],
-                              I[VZ * IP + 2 * IC] * I[JYW * IP + 2 * IC]) * dyi;
+                if constexpr (D3)
+                    t = t - grad4(I[VZ * IP - IC] * I[JYW * IP - IC],
+                                  I[VZ * IP] * I[JYW * IP],
+                                  I[VZ * IP + IC] * I[JYW * IP + IC],
+                                  I[VZ * IP + 2 * IC] * I[JYW * IP + 2 * IC]) * dyi;
                 t = t - vd_rows<true, T>([&](int e) { return row(k - 1 + e) + TWC; },
                                          Cw, nullptr) * dzhi4;
             } else {
                 const T* P = Ck + me;
                 t = flux4<T>([&](int d) { return I[UZ * IP + d]; },
                              [&](int d) { return d ? P[d] : Cw[3]; }) * dxi;
-                t = t + flux4<T>([&](int d) { return I[VZ * IP + d * IC]; },
-                                 [&](int d) { return d ? P[d * R] : Cw[3]; }) * dyi;
+                if constexpr (D3)
+                    t = t + flux4<T>([&](int d) { return I[VZ * IP + d * IC]; },
+                                     [&](int d) { return d ? P[d * R] : Cw[3]; }) * dyi;
                 t = t + vert4m_w(Cw) * dzhi4;
             }
-            t = t + visc * (lap_p(sD + (k % RD) * SZ + me, Dw[3], dxidxi, dyidyi)
+            T lap;
+            if constexpr (D3)
+                lap = lap_p(sD + (k % RD) * SZ + me, Dw[3], dxidxi, dyidyi);
+            else
+                lap = lap_x(sD + (k % RD) * SZ + me, Dw[3], dxidxi);
+            t = t + visc * (lap
                             + vd_rows<false, T>([&](int e) { return row(k - 1 + e) + TGW; },
                                                 Dw, nullptr) * dzhi4);
             if (inside) tw[o] = tw[o] + t;
@@ -463,6 +508,33 @@ o4_mom_kernel(const T* __restrict__ u, const T* __restrict__ v,
     }
     // no copy may land after the block has left its shared memory
     km::wait_all();
+}
+
+// three blocks an SM in float32 (at most 85 registers: a few bytes spill,
+// and the k-split then fills 396 slots; 5.15 against 6.29 ms at
+// weakscaling with two blocks of 128 registers on an H100 at 700 W,
+// PERF.md section 6), two in float64 (three spill ~400 bytes and run at
+// half the speed)
+template <typename T, bool M>
+__global__ void __launch_bounds__(K16_NT, sizeof(T) == 4 ? 3 : 2)
+o4_mom_kernel(const T* __restrict__ u, const T* __restrict__ v,
+              const T* __restrict__ wc, const T* __restrict__ wd, T* tu, T* tv,
+              T* tw, const T* __restrict__ cc, int itot, int jtot, int ktot,
+              int ks, T dxi, T dyi, T visc, int chunks, int vec_ok) {
+    o4_mom_march<T, M, true>(u, v, wc, wd, tu, tv, tw, cc, itot, jtot, ktot,
+                             ks, dxi, dyi, visc, chunks, vec_ok);
+}
+
+// the 2-D form (jtot = 1), at the 3-D form's launch bounds
+template <typename T, bool M>
+__global__ void __launch_bounds__(K16_NT, sizeof(T) == 4 ? 3 : 2)
+o4_mom_2d_kernel(const T* __restrict__ u, const T* __restrict__ v,
+                 const T* __restrict__ wc, const T* __restrict__ wd, T* tu,
+                 T* tv, T* tw, const T* __restrict__ cc, int itot, int jtot,
+                 int ktot, int ks, T dxi, T dyi, T visc, int chunks,
+                 int vec_ok) {
+    o4_mom_march<T, M, false>(u, v, wc, wd, tu, tv, tw, cc, itot, jtot, ktot,
+                              ks, dxi, dyi, visc, chunks, vec_ok);
 }
 
 // K17's k-march (kmarch.cuh): 32 x K17_TJ tiles, K17_R ring slots of each
@@ -522,6 +594,15 @@ __device__ __forceinline__ T lap_xy(const T (&x)[7], const T (&y)[7],
               + c0 * y[3]) * dyidyi;
 }
 
+// its x part alone (a 2-D run)
+template <typename T>
+__device__ __forceinline__ T lap_1(const T (&x)[7], T dxidxi) {
+    const T c0 = T(-1460. / 576.), c1 = T(783. / 576.), c2 = T(-54. / 576.),
+            c3 = T(1. / 576.);
+    return (c3 * (x[0] + x[6]) + c2 * (x[1] + x[5]) + c1 * (x[2] + x[4])
+            + c0 * x[3]) * dxidxi;
+}
+
 // the advective flux divergence along one line (before the 1/dx factor):
 // vel[d] the velocity at face d - 3/2 of the point (d = 0..3), q the line
 template <bool M, typename T>
@@ -535,18 +616,16 @@ __device__ __forceinline__ T hadv(const T (&vel)[4], const T (&q)[7]) {
                   vel[3] * interp4(q[3], q[4], q[5], q[6]));
 }
 
-// four blocks an SM in float32 with one scalar (at most 64 registers, no
-// spill: 1.61 against 1.70 ms with three at weakscaling on an H100 at
-// 700 W, PERF.md section 6), three with two, two in float64; fewer with
-// more scalars, whose columns need the registers
-template <typename T, bool M, int S>
-__global__ void __launch_bounds__(
-    K17_NT, sizeof(T) == 4 ? (S == 1 ? 4 : (S == 2 ? 3 : 2))
-                           : (S <= 2 ? 2 : 1))
-o4_scalars_kernel(const T* __restrict__ u, const T* __restrict__ v,
-                  const T* __restrict__ wc, const O4Scalars<T> sc,
-                  const T* __restrict__ cz, int itot, int jtot, int ktot,
-                  int ks, T dxi, T dyi, int chunks, int vec_ok) {
+// K17's march.  D3 false is the form of a 2-D run (jtot = 1): no y flux
+// and no y part of the Laplacian; v's plane is not copied and no y line is
+// read.  The 2-D differences are under if constexpr, so the 3-D instances
+// are the code they were.
+template <typename T, bool M, int S, bool D3>
+__device__ __forceinline__ void o4_scalars_march(
+    const T* __restrict__ u, const T* __restrict__ v,
+    const T* __restrict__ wc, const O4Scalars<T> sc,
+    const T* __restrict__ cz, int itot, int jtot, int ktot, int ks, T dxi,
+    T dyi, int chunks, int vec_ok) {
     constexpr int SZ = km::Slot<K17_TJ>::SIZE, R = km::RS, PL = (S + 2) * SZ;
     // ring slots [K17_R][S + 2]: the S scalars', u's and v's planes of a
     // level side by side; then the staged rows
@@ -588,13 +667,14 @@ o4_scalars_kernel(const T* __restrict__ u, const T* __restrict__ v,
                 for (int f = 0; f < S; ++f)
                     km::cp_async<16>(d + f * F, sc.a[f] + g);
                 km::cp_async<16>(d + S * F, u + g);
-                km::cp_async<16>(d + (S + 1) * F, v + g);
+                if constexpr (D3) km::cp_async<16>(d + (S + 1) * F, v + g);
             } else {
 #pragma unroll
                 for (int f = 0; f < S; ++f)
                     km::cp_async<sizeof(T)>(d + f * F, sc.a[f] + g);
                 km::cp_async<sizeof(T)>(d + S * F, u + g);
-                km::cp_async<sizeof(T)>(d + (S + 1) * F, v + g);
+                if constexpr (D3)
+                    km::cp_async<sizeof(T)>(d + (S + 1) * F, v + g);
             }
         }
         if (tid < K17_NCP)
@@ -652,9 +732,12 @@ o4_scalars_kernel(const T* __restrict__ u, const T* __restrict__ v,
         // u at i-1..i+2 and v at j-1..j+2: the faces of the point's fluxes
         const T* Pk = ring + sl * PL + me;
         const T* U = Pk + S * SZ;
-        const T* V = Pk + (S + 1) * SZ;
         const T ux[4] = {U[-1], U[0], U[1], U[2]};
-        const T vy[4] = {V[-R], V[0], V[R], V[2 * R]};
+        T vy[4];
+        if constexpr (D3) {
+            const T* V = Pk + (S + 1) * SZ;
+            vy[0] = V[-R]; vy[1] = V[0]; vy[2] = V[R]; vy[3] = V[2 * R];
+        }
         const long long o = lk + o2;
 #pragma unroll
         for (int n = 0; n < S; ++n) {
@@ -663,7 +746,7 @@ o4_scalars_kernel(const T* __restrict__ u, const T* __restrict__ v,
 #pragma unroll
             for (int d = -3; d <= 3; ++d) {
                 x[d + 3] = d ? P[d] : q[n][3];
-                y[d + 3] = d ? P[d * R] : q[n][3];
+                if constexpr (D3) y[d + 3] = d ? P[d * R] : q[n][3];
             }
             T va = cv[0] * q[n][0], vd = cd[0] * q[n][0];
 #pragma unroll
@@ -671,8 +754,13 @@ o4_scalars_kernel(const T* __restrict__ u, const T* __restrict__ v,
                 va = va + cv[m] * q[n][m];
                 vd = vd + cd[m] * q[n][m];
             }
-            const T t = hadv<M>(ux, x) * dxi + hadv<M>(vy, y) * dyi + va
-                        + sc.svisc[n] * (lap_xy(x, y, dxidxi, dyidyi) + vd);
+            T t;
+            if constexpr (D3)
+                t = hadv<M>(ux, x) * dxi + hadv<M>(vy, y) * dyi + va
+                    + sc.svisc[n] * (lap_xy(x, y, dxidxi, dyidyi) + vd);
+            else
+                t = hadv<M>(ux, x) * dxi + va
+                    + sc.svisc[n] * (lap_1(x, dxidxi) + vd);
             if (inside) sc.ta[n][o] = sc.ta[n][o] + t;
         }
 
@@ -692,6 +780,35 @@ o4_scalars_kernel(const T* __restrict__ u, const T* __restrict__ v,
     km::wait_all();
 }
 
+// four blocks an SM in float32 with one scalar (at most 64 registers, no
+// spill: 1.61 against 1.70 ms with three at weakscaling on an H100 at
+// 700 W, PERF.md section 6), three with two, two in float64; fewer with
+// more scalars, whose columns need the registers
+template <typename T, bool M, int S>
+__global__ void __launch_bounds__(
+    K17_NT, sizeof(T) == 4 ? (S == 1 ? 4 : (S == 2 ? 3 : 2))
+                           : (S <= 2 ? 2 : 1))
+o4_scalars_kernel(const T* __restrict__ u, const T* __restrict__ v,
+                  const T* __restrict__ wc, const O4Scalars<T> sc,
+                  const T* __restrict__ cz, int itot, int jtot, int ktot,
+                  int ks, T dxi, T dyi, int chunks, int vec_ok) {
+    o4_scalars_march<T, M, S, true>(u, v, wc, sc, cz, itot, jtot, ktot, ks,
+                                    dxi, dyi, chunks, vec_ok);
+}
+
+// the 2-D form (jtot = 1), at the 3-D form's launch bounds
+template <typename T, bool M, int S>
+__global__ void __launch_bounds__(
+    K17_NT, sizeof(T) == 4 ? (S == 1 ? 4 : (S == 2 ? 3 : 2))
+                           : (S <= 2 ? 2 : 1))
+o4_scalars_2d_kernel(const T* __restrict__ u, const T* __restrict__ v,
+                     const T* __restrict__ wc, const O4Scalars<T> sc,
+                     const T* __restrict__ cz, int itot, int jtot, int ktot,
+                     int ks, T dxi, T dyi, int chunks, int vec_ok) {
+    o4_scalars_march<T, M, S, false>(u, v, wc, sc, cz, itot, jtot, ktot, ks,
+                                     dxi, dyi, chunks, vec_ok);
+}
+
 // dynamic shared memory of one K17 launch (ops/kmarch.py repeats it)
 template <typename T>
 constexpr size_t k17_smem(int S) {
@@ -705,20 +822,33 @@ static int raise_smem(K kernel, size_t smem) {
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+// the form a grid takes: the 2-D one at jtot = 1 (its info entries take
+// the scheme plus 2)
+template <typename T, bool M>
+constexpr auto mom_kernel(bool d3) {
+    return d3 ? o4_mom_kernel<T, M> : o4_mom_2d_kernel<T, M>;
+}
+
+template <typename T, bool M, int S>
+constexpr auto scalars_kernel(bool d3) {
+    return d3 ? o4_scalars_kernel<T, M, S> : o4_scalars_2d_kernel<T, M, S>;
+}
+
 template <typename T, bool M>
 int launch_mom(const T* u, const T* v, const T* wc, const T* wd, T* tu, T* tv,
                T* tw, const T* cc, int itot, int jtot, int ktot, int ks,
                double dxi, double dyi, double visc, int chunks,
                cudaStream_t stream) {
     const size_t smem = K16<T>::smem;
-    if (int rc = raise_smem(o4_mom_kernel<T, M>, smem)) return rc;
+    const auto kernel = mom_kernel<T, M>(jtot > 1);
+    if (int rc = raise_smem(kernel, smem)) return rc;
     const bool vec = itot % (16 / (int)sizeof(T)) == 0 && km::aligned16(u)
                      && km::aligned16(v) && km::aligned16(wc)
                      && km::aligned16(wd);
     const dim3 block(km::TI, K16_TJ);
     const dim3 grid((itot + km::TI - 1) / km::TI, (jtot + K16_TJ - 1) / K16_TJ,
                     chunks);
-    o4_mom_kernel<T, M><<<grid, block, smem, stream>>>(
+    kernel<<<grid, block, smem, stream>>>(
         u, v, wc, wd, tu, tv, tw, cc, itot, jtot, ktot, ks, T(dxi), T(dyi),
         T(visc), chunks, (int)vec);
     return (int)cudaGetLastError();
@@ -730,14 +860,15 @@ int launch_scalars_s(const T* u, const T* v, const T* wc,
                      int ktot, int ks, double dxi, double dyi, int chunks,
                      cudaStream_t stream) {
     const size_t smem = k17_smem<T>(S);
-    if (int rc = raise_smem(o4_scalars_kernel<T, M, S>, smem)) return rc;
+    const auto kernel = scalars_kernel<T, M, S>(jtot > 1);
+    if (int rc = raise_smem(kernel, smem)) return rc;
     bool vec = itot % (16 / (int)sizeof(T)) == 0 && km::aligned16(u)
                && km::aligned16(v);
     for (int n = 0; n < S; ++n) vec = vec && km::aligned16(sc.a[n]);
     const dim3 block(km::TI, K17_TJ);
     const dim3 grid((itot + km::TI - 1) / km::TI, (jtot + K17_TJ - 1) / K17_TJ,
                     chunks);
-    o4_scalars_kernel<T, M, S><<<grid, block, smem, stream>>>(
+    kernel<<<grid, block, smem, stream>>>(
         u, v, wc, sc, cz, itot, jtot, ktot, ks, T(dxi), T(dyi), chunks,
         (int)vec);
     return (int)cudaGetLastError();
@@ -766,26 +897,27 @@ int launch_scalars(const T* u, const T* v, const T* wc,
 }
 
 template <typename T, bool M>
-int info_scalars(int S, int* out) {
+int info_scalars(int S, bool d3, int* out) {
     switch (S) {
     case 1:
-        return km::kernel_info(o4_scalars_kernel<T, M, 1>, K17_NT,
+        return km::kernel_info(scalars_kernel<T, M, 1>(d3), K17_NT,
                                k17_smem<T>(1), out);
     case 2:
-        return km::kernel_info(o4_scalars_kernel<T, M, 2>, K17_NT,
+        return km::kernel_info(scalars_kernel<T, M, 2>(d3), K17_NT,
                                k17_smem<T>(2), out);
     case 3:
-        return km::kernel_info(o4_scalars_kernel<T, M, 3>, K17_NT,
+        return km::kernel_info(scalars_kernel<T, M, 3>(d3), K17_NT,
                                k17_smem<T>(3), out);
     case 4:
-        return km::kernel_info(o4_scalars_kernel<T, M, 4>, K17_NT,
+        return km::kernel_info(scalars_kernel<T, M, 4>(d3), K17_NT,
                                k17_smem<T>(4), out);
     }
     return (int)cudaErrorInvalidValue;
 }
 
 // scheme: 0 = advec 4, 1 = advec 4m (ops/o4_fused.py SCHEME_ID).  The
-// fields need three ghost levels (ks >= 3).
+// fields need three ghost levels (ks >= 3).  A grid of jtot = 1 takes the
+// 2-D form.
 template <typename T>
 int mom(const T* u, const T* v, const T* wc, const T* wd, T* tu, T* tv, T* tw,
         const T* cc, int itot, int jtot, int ktot, int ks, int scheme,
@@ -799,15 +931,15 @@ int mom(const T* u, const T* v, const T* wc, const T* wd, T* tu, T* tv, T* tw,
                                ks, dxi, dyi, visc, chunks, stream);
 }
 
+// scheme: 0 or 1 the 3-D form, 2 or 3 the 2-D form of scheme - 2
 template <typename T>
 int mom_info(int scheme, int* out) {
-    if (scheme == 0)
-        return km::kernel_info(o4_mom_kernel<T, false>, K16_NT, K16<T>::smem,
+    if (scheme < 0 || scheme > 3) return (int)cudaErrorInvalidValue;
+    const bool d3 = scheme < 2;
+    if (scheme % 2 == 0)
+        return km::kernel_info(mom_kernel<T, false>(d3), K16_NT, K16<T>::smem,
                                out);
-    if (scheme == 1)
-        return km::kernel_info(o4_mom_kernel<T, true>, K16_NT, K16<T>::smem,
-                               out);
-    return (int)cudaErrorInvalidValue;
+    return km::kernel_info(mom_kernel<T, true>(d3), K16_NT, K16<T>::smem, out);
 }
 
 template <typename T>
@@ -833,9 +965,9 @@ int scalars(const T* u, const T* v, const T* wc, const void* const* a,
 
 template <typename T>
 int scalars_info(int scheme, int S, int* out) {
-    if (scheme == 0) return info_scalars<T, false>(S, out);
-    if (scheme == 1) return info_scalars<T, true>(S, out);
-    return (int)cudaErrorInvalidValue;
+    if (scheme < 0 || scheme > 3) return (int)cudaErrorInvalidValue;
+    if (scheme % 2 == 0) return info_scalars<T, false>(S, scheme < 2, out);
+    return info_scalars<T, true>(S, scheme < 2, out);
 }
 
 }  // namespace o4

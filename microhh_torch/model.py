@@ -70,9 +70,10 @@ The time loop takes the adaptive-dt limits from one pass (K7; the CFL rate
 of an interpolated or a 4th-order scheme from its own ``cfl_max``, the
 4th-order diffusion number a constant of the grid) and the sedimentation
 limit, and does the integer-time bookkeeping, the status
-table, the statistics (``stats.py``, ``budget.py``), the dumps
-(``output.py``) and the restarts, as the reference's main loop
-(``src/model.cxx:303-557``) does.  ``run()`` takes the JAX package's
+table, the statistics (``stats.py``, ``budget.py``), the cross sections,
+dumps and columns (``output.py``) and the restarts, as the reference's main
+loop (``src/model.cxx:303-557``) does; ``post`` re-reads the saved states
+and writes the same outputs of each.  ``run()`` takes the JAX package's
 device-side chunked loop where it can (``_run_chunked``: dt computed on the
 device from step to step between two output events, the dry RK step
 captured as CUDA graphs on the card, ``graph_step.py``), else the per-step
@@ -102,7 +103,7 @@ from .ops import PresDisabled, not_ported
 from .ops.advec_2 import Advec2
 from .ops.advec_interp import AdvecInterp
 from .ops.advec_interp_fused import AdvecInterpFused
-from .ops.boundary import NEUMANN, FLUX, w_cons
+from .ops.boundary import NEUMANN, FLUX, ghost_filled, w_cons
 from .ops.boundary_outflow import BoundaryOutflow
 from .ops.buffer import make_buffer
 from .ops.diff_smag2 import DiffSmag2
@@ -115,7 +116,7 @@ from .ops.fused import (Fused, FusedGeneric, PresGlue, exec_viscosity,
 from .ops.limiter import Limiter
 from .ops.microphys import Microphys2momWarm, make_microphys
 from .ops.o4_fused import O4Fused
-from .output import Dump
+from .output import Column, Cross, Dump
 from .ops.source import make_source
 from .ops.stencil import ip, jp, i2
 from .ops.thermo import ThermoDisabled
@@ -193,8 +194,6 @@ def check_slice(ini, grid, sim_mode):
          "[thermo] swthermo=%s at swspatialorder=4" % thermo, 11),
         (order == "4" and boundary != "default",
          "[boundary] swboundary=%s at swspatialorder=4" % boundary, 11),
-        (order == "4" and grid.jtot == 1,
-         "a 2-D run (jtot=1) at swspatialorder=4", 11),
         # K1 has no Van Driest damping, which the Smagorinsky closure takes
         # near resolved walls when neither the surface model nor a thermo
         # scalar is there (diff_smag2.cxx:160-225)
@@ -224,8 +223,6 @@ def check_slice(ini, grid, sim_mode):
              "[stats] xymasklist", 8),
             (stats and ini.get_bool("stats", "swtendency", default=False),
              "[stats] swtendency", 8),
-            (switch("cross", "swcross"), "[cross] swcross", 15),
-            (switch("column", "swcolumn"), "[column] swcolumn", 15),
         ]
     for active, what, item in outside:
         if active:
@@ -301,10 +298,12 @@ class Model:
         self._last_wallclock = _time.time()
         self._last_sfc = None
         self._last_aux = None
-        # the run's statistics and dumps (when switched on), built by
-        # run_case
+        # the run's statistics, cross sections, dumps and columns (when
+        # switched on), built by run_case
         self.stats = None
+        self.cross = None
         self.dump = None
+        self.column = None
         self.built = False
         self.fused = None
         self.advec_fused = None
@@ -784,9 +783,11 @@ class Model:
     def diagnostics(self, s, sfc):
         """Status-line quantities after a ghost fill (model.py:664-688);
         at 4th order the divergence is taken under conservation-type w
-        ghosts, the type under which the projection is exact."""
+        ghosts, the type under which the projection is exact.  The caller's
+        state keeps its ghost levels, as the JAX package's does, so that
+        the outputs after the status line read the step's."""
         ctx = self.ctx
-        s = self.boundary.set_ghost_cells(ctx, s, sfc)
+        s = ghost_filled(self.boundary, ctx, s, sfc)
         if ctx.spatial_order == 4:
             s = dict(s, w=w_cons(ctx, s["w"]))
         ks, ke = ctx.ks, ctx.ke
@@ -909,10 +910,29 @@ class Model:
         ih = min(ih, tl.isavetime - tl.itime % tl.isavetime)
         if tl.itime < tl.iendtime:
             ih = min(ih, tl.iendtime - tl.itime)
-        for comp in (self.stats, self.dump):
-            if comp is not None:
-                ih = min(ih, comp.isampletime - tl.itime % comp.isampletime)
+        for comp in self.outputs():
+            ih = min(ih, comp.isampletime - tl.itime % comp.isampletime)
         return ih
+
+    def outputs(self):
+        """The switched-on components that sample at their own times:
+        statistics, cross sections, dumps and columns."""
+        return [c for c in (self.stats, self.cross, self.dump, self.column)
+                if c is not None and getattr(c, "sw", True)]
+
+    def write_outputs(self, s, sfc, aux, iotime):
+        """At a sampling step, in the JAX package's order: statistics,
+        cross sections, dump, columns (microhh_tpu/model.py:1285-1294).
+        aux: the last step's (its pressure), or post mode's."""
+        tl = self.timeloop
+        if self.stats is not None:
+            self.stats.maybe_exec(self, s, sfc)
+        if self.cross is not None and self.cross.do_cross(tl.itime):
+            self.cross.exec(s, aux, iotime, sfc)
+        if self.dump is not None and self.dump.do_dump(tl.itime):
+            self.dump.exec(s, aux, iotime)
+        if self.column is not None and self.column.do_column(tl.itime):
+            self.column.exec(s, tl.time, sfc)
 
     def _host_limits(self, s, sfc):
         """The rates of Model.limits, read to the host in one transfer."""
@@ -937,7 +957,7 @@ class Model:
         tau, dt_dev, n, done = vals[0], vals[1], int(vals[2]), bool(vals[3])
         if n == 0:
             raise RuntimeError("chunk made no progress (dt underflow?)")
-        if (self.stats is not None or self.dump is not None) and "p" in aux:
+        if self.outputs() and "p" in aux:
             # the graphs' pressure lives in their pool: keep a copy
             self._last_aux = {"p": aux["p"].clone()}
         self._last_sfc = sfc
@@ -973,10 +993,7 @@ class Model:
             if tl.do_check():
                 self.print_status(s, sfc, cfl, dn, status_file)
             if tl.is_stats_step():
-                if self.stats is not None:
-                    self.stats.maybe_exec(self, s, sfc)
-                if self.dump is not None and self.dump.do_dump(tl.itime):
-                    self.dump.exec(s, self._last_aux, tl.iotime)
+                self.write_outputs(s, sfc, self._last_aux, tl.iotime)
             if (not first and tl.do_save(self.at_wall_clock_limit())
                     and tl.iteration != 0):
                 self._last_sfc = sfc
@@ -1029,10 +1046,9 @@ class Model:
                 tl.reset_time_step_limit(self.at_wall_clock_limit())
                 # land on the sampling times (stats get_time_limit), before
                 # the CFL and diffusion limits, in the JAX package's order
-                for comp in (self.stats, self.dump):
-                    if comp is not None:
-                        tl.set_time_step_limit(
-                            comp.isampletime - tl.itime % comp.isampletime)
+                for comp in self.outputs():
+                    tl.set_time_step_limit(
+                        comp.isampletime - tl.itime % comp.isampletime)
                 # one read of the rates to the host
                 lim = self._host_limits(s, sfc)
                 cfl = lim.get("cfl_rate", 0.) * tl.dt
@@ -1048,16 +1064,13 @@ class Model:
                 if tl.do_check():
                     self.print_status(s, sfc, cfl, dn, status_file)
                 if tl.is_stats_step():
-                    if self.stats is not None:
-                        self.stats.maybe_exec(self, s, sfc)
-                    if self.dump is not None and self.dump.do_dump(tl.itime):
-                        self.dump.exec(s, self._last_aux, tl.iotime)
+                    self.write_outputs(s, sfc, self._last_aux, tl.iotime)
                 if tl.is_finished():
                     break
                 s, sfc, aux = self.step(s, sfc, tl.dt)
-                if self.stats is not None or self.dump is not None:
-                    # the pressure for the budgets and dumps; nothing else
-                    # of the step's aux outlives it
+                if self.outputs():
+                    # the pressure for the budgets and the outputs; nothing
+                    # else of the step's aux outlives it
                     self._last_aux = {"p": aux.get("p")}
                 self._last_sfc = sfc
                 tl.step_time()
@@ -1070,14 +1083,54 @@ class Model:
         self.final_sfc = sfc
         return s
 
+    # ------------------------------------------------------------------
+    #  post-processing mode (microhh_tpu/model.py:1349-1383; reference
+    #  model.cxx:523-543): re-read restart files and re-run the output
+    #  blocks, no time integration
+    # ------------------------------------------------------------------
+    def _rediagnose(self, s, sfc):
+        """(sfc, aux) of a state read back: the eddy viscosity as the
+        step's path computes it, and the surface where the boundary has a
+        surface model.  The caller's state keeps its ghost levels."""
+        ctx, fz = self.ctx, self.fused
+        s_g = ghost_filled(self.boundary, ctx, s, sfc)
+        if fz is None or (self.plain and not isinstance(self.diff, DiffSmag2)):
+            aux = self.diff.exec_viscosity(ctx, s_g, sfc, {})
+        elif self.generic or self.unfolded:
+            aux = generic_viscosity(fz, ctx, s_g, sfc, {})
+        else:
+            aux = exec_viscosity(fz, ctx, s_g, sfc, {})
+        if getattr(self.boundary, "is_surface", False):
+            sfc = self.boundary.exec(ctx, s_g, sfc, aux)
+        return sfc, aux
+
+    def post(self):
+        """Every saved time from the start to the end, postproctime apart:
+        its restart files read back, the surface and the eddy viscosity
+        re-diagnosed, then the statistics, cross sections, dump and
+        columns of that state."""
+        tl = self.timeloop
+        if not self.built:
+            self.build_step()
+        while True:
+            iotime = int(tl.iotime)
+            tl.load(iotime, self.workdir)
+            state = self.fields.load(iotime, self.workdir,
+                                     dtype=NP_DTYPE[self.dtype])
+            s, sfc = self.as_device_state(state)
+            sfc, aux = self._rediagnose(s, sfc)
+            self.write_outputs(s, sfc, aux, iotime)
+            tl.step_post_proc_time()
+            if tl.is_finished():
+                break
+
 
 def run_case(case_dir, casename, mode, dtype=torch.float32, device="cuda",
              input_nc=None):
-    """CLI entry: microhh {init,run} casename (reference main/microhh.cxx).
-    ``input_nc``: the case's input profiles in memory (``cases.py``) in
-    place of ``<case_dir>/<casename>_input.nc``."""
-    if mode == "post":
-        raise not_ported("post mode", 15)
+    """CLI entry: microhh {init,run,post} casename (reference
+    main/microhh.cxx; microhh_tpu/model.py:1386-1417).  ``input_nc``: the
+    case's input profiles in memory (``cases.py``) in place of
+    ``<case_dir>/<casename>_input.nc``."""
     ini = Ini(os.path.join(case_dir, "%s.ini" % casename))
     model = Model(ini, mode, casename, workdir=case_dir, dtype=dtype,
                   device=device, input_nc=input_nc)
@@ -1090,16 +1143,23 @@ def run_case(case_dir, casename, mode, dtype=torch.float32, device="cuda",
                 for sub in subs:
                     ini.flag_as_used(section, item, sub)
         model.save_initial_state()
-    elif mode == "run":
+    elif mode in ("run", "post"):
         if ini.get_int("stats", "swstats", default=0):
             model.stats = Stats(model)
-        dump = Dump(model)
-        model.dump = dump if dump.sw else None
+        for attr, kind in (("cross", Cross), ("dump", Dump),
+                           ("column", Column)):
+            comp = kind(model)
+            setattr(model, attr, comp if comp.sw else None)
         try:
-            model.run()
+            if mode == "run":
+                model.run()
+            else:
+                model.post()
         finally:
             if model.stats is not None:
                 model.stats.close()
+            if model.column is not None:
+                model.column.close()
     else:
         raise ValueError("unknown mode %s" % mode)
     unused = model.ini.unused_items()

@@ -170,6 +170,14 @@ def w_cons(ctx, w):
     return set_ghost_cells_w_4th(ctx, w.clone(), conservation=True)
 
 
+def ghost_filled(bnd, ctx, s, sfc=None):
+    """s with its ghost levels filled, the caller's tensors left as they
+    are: a boundary that fills in place (the default one) fills copies."""
+    if getattr(bnd, "in_place", False):
+        s = {n: a.clone() for n, a in s.items()}
+    return bnd.set_ghost_cells(ctx, s, sfc)
+
+
 class DefaultBoundary:
     """swboundary=default: static BCs from the ini file, u and v relative to
     the grid's translation (utrans, vtrans)."""

@@ -82,6 +82,11 @@ class Diff4:
     def scalar(self, ctx, a, name):
         return diff_c(ctx, a, self.viscs[name], self.jtot > 1)
 
+    def exec_viscosity(self, ctx, s, sfc, aux):
+        """No eddy viscosity (post mode's re-diagnosis asks every
+        diffusion)."""
+        return aux
+
     def exec(self, ctx, s, t, aux, sfc=None):
         """Add the diffusion tendencies into t, in place on the interior."""
         ks, ke = ctx.ks, ctx.ke

@@ -1,7 +1,8 @@
 """Large-scale forcings (``microhh_tpu/ops/force.py``; reference
 ``src/force.cxx``).
 
-Ported: ``swlspres`` in {0, geo (with Coriolis, 2nd order), dpdx, uflux},
+Ported: ``swlspres`` in {0, geo (with Coriolis at 2nd and 4th order), dpdx,
+uflux},
 large-scale source terms (``swls`` + ``lslist``) and subsidence (``swwls`` = mean | local),
 with profiles from the input ``init`` group.  ``swtimedep_geo``,
 ``swtimedep_ls`` and ``swtimedep_wls`` make the geostrophic wind, the listed
@@ -13,13 +14,15 @@ the consumers cast them to the run's dtype where they read them.  On the
 model's generic path these collapse into the per-level tables of the
 tendency kernels (ops/fused.py generic_col_tables), which do not carry
 uflux; ``Force.__call__`` is their op path and what the 4th-order step
-runs.  Nudging is not ported yet (ROADMAP Queue 1 item 9), nor is the
-4th-order Coriolis stencil (item 11).
+runs.  The 2nd-order Coriolis term keeps the reference's offset stencil,
+the 4th-order one is centred, as in the JAX package.  Nudging is not ported
+yet (ROADMAP Queue 1 item 9).
 """
 
 import numpy as np
 import torch
 
+from .. import fd
 from . import not_ported
 from ..timedep import Timedep, sfc_device
 from .advec_2 import add_rows
@@ -54,8 +57,6 @@ class Force:
         elif self.swlspres == "dpdx":
             self.dpdx = ini.get_float("force", "dpdx")
         elif self.swlspres == "geo":
-            if grid.spatial_order != 2:
-                raise not_ported("[force] swlspres=geo at swspatialorder=4", 11)
             self.fc = ini.get_float("force", "fc")
             self.ug = _prof(input_nc, "u_geo", kt)[:, None, None]
             self.vg = _prof(input_nc, "v_geo", kt)[:, None, None]
@@ -151,9 +152,25 @@ class Force:
             fc = self.fc
             ug, vg = prof["ug"][:, None, None], prof["vg"][:, None, None]
             u, v = s["u"], s["v"]
-            # coriolis_2nd (force.cxx:78-140)
-            v_at_u = 0.25 * (v + ip(v) + jm(v) + jm(ip(v)))[ks:ke]
-            u_at_v = 0.25 * (u + im(u) + jp(u) + im(jp(u)))[ks:ke]
+            if ctx.spatial_order == 2:
+                # coriolis_2nd (force.cxx:78-140)
+                v_at_u = 0.25 * (v + ip(v) + jm(v) + jm(ip(v)))[ks:ke]
+                u_at_v = 0.25 * (u + im(u) + jp(u) + im(jp(u)))[ks:ke]
+            else:
+                # coriolis_4th (microhh_tpu/ops/force.py:153-160): centred four-point
+                # interpolants in i, then in j
+                ci0, ci1, ci2, ci3 = fd.ci0, fd.ci1, fd.ci2, fd.ci3
+
+                def vi(a):
+                    return ci0 * im(a, 2) + ci1 * im(a, 1) + ci2 * a + ci3 * ip(a, 1)
+
+                def ui(a):
+                    return ci0 * jm(a, 2) + ci1 * jm(a, 1) + ci2 * a + ci3 * jp(a, 1)
+
+                v_at_u = (ci0 * vi(jm(v, 1)) + ci1 * vi(v) + ci2 * vi(jp(v, 1))
+                          + ci3 * vi(jp(v, 2)))[ks:ke]
+                u_at_v = (ci0 * ui(im(u, 1)) + ci1 * ui(u) + ci2 * ui(ip(u, 1))
+                          + ci3 * ui(ip(u, 2)))[ks:ke]
             t["u"] = add_rows(t["u"], ks, ke, fc * (v_at_u + ctx.vtrans - vg))
             t["v"] = add_rows(t["v"], ks, ke, -fc * (u_at_v + ctx.utrans - ug))
 

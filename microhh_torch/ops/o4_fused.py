@@ -20,8 +20,9 @@ seven weights on the column of planes k-3..k+3 per level
 (``build_k17_rows``): per unit w at each of the four half levels k-1..k+2
 for the advection (in 4m with the mirrored wall fluxes), and for the
 diffusion.  The fields are ghost-filled to three levels, so no plane index
-is clamped.  On a CPU tensor the wrappers run the plain versions: the two
-ops, one after the other.
+is clamped.  A 2-D run (jtot = 1) takes each kernel's 2-D form, an
+instance of its own (``O4Fused``).  On a CPU tensor the wrappers run the
+plain versions: the two ops, one after the other.
 """
 
 import ctypes
@@ -31,7 +32,7 @@ import torch
 
 from .. import fd
 from ..kernels import Kernel, check, on_cpu
-from . import kmarch, not_ported
+from . import kmarch
 from .advec_4 import Advec4
 from .advec_4m import Advec4m
 from .diff_4 import Diff4
@@ -173,25 +174,38 @@ class O4Fused:
 
     ``exec(ctx, s_cons, s, t, aux)`` adds the interior tendencies of
     ``advec.exec(s_cons)`` and ``diff.exec(s)`` into the carry t in place.
-    The kernels carry the 3-D form only: a 2-D run gates v's diffusion off
-    (Diff4.exec), which they do not."""
+    A 2-D run (jtot = 1) takes the kernels' 2-D form, the JAX op path's
+    with ``dim3`` false (the JAX package runs it there, its Pallas kernels
+    carrying the 3-D form only): no y flux and no y part of the Laplacian,
+    no diffusion of v at all (``Diff4.exec`` leaves v out), v still
+    advected.  That form is its own instance of each kernel, counted under
+    its own name (``o4_mom_2d``, ``o4_scalars_2d``, on the entries
+    ``o4_mom`` and ``o4_scalars``, which pick it from jtot); its info
+    entries take the scheme plus 2."""
 
     def __init__(self, advec, diff, ctx):
         if not (type(advec) in (Advec4, Advec4m) and type(diff) is Diff4):
             raise TypeError("O4Fused takes advec 4 or 4m with diff 4")
-        if ctx.jtot == 1:
-            raise not_ported("a 2-D run (jtot=1) at swspatialorder=4", 11)
         self.advec = advec
         self.diff = diff
         self.scheme = advec.scheme
         self.ctx = ctx
+        self.dim3 = ctx.jtot > 1
         cc = build_o4_tables(ctx.ks, ctx.ke, ctx.np_dzi4, ctx.np_dzhi4)
         self.cc = ctx.tensor(cc)
         self.cz = ctx.tensor(build_k17_rows(cc, self.scheme))
-        self.k_mom = Kernel("o4_mom", "microhh_torch/csrc/o4.cu",
-                            "microhh_tpu/ops/o4_pallas.py:408")
-        self.k_scal = Kernel("o4_scalars", "microhh_torch/csrc/o4.cu",
-                             "microhh_tpu/ops/o4_pallas.py:435")
+        form = "" if self.dim3 else "_2d"
+        self.k_mom = Kernel("o4_mom" + form, "microhh_torch/csrc/o4.cu",
+                            "microhh_tpu/ops/o4_pallas.py:408",
+                            entry="o4_mom")
+        self.k_scal = Kernel("o4_scalars" + form, "microhh_torch/csrc/o4.cu",
+                             "microhh_tpu/ops/o4_pallas.py:435",
+                             entry="o4_scalars")
+
+    def info_scheme(self):
+        """The scheme as the info entries take it: SCHEME_ID, plus 2 in
+        the 2-D form."""
+        return SCHEME_ID[self.scheme] + (0 if self.dim3 else 2)
 
     def momentum_plain(self, u, v, wc, wd, tu, tv, tw):
         """K16 in plain torch: the two ops' momentum parts, in place."""
@@ -202,7 +216,9 @@ class O4Fused:
                 self.advec.momentum(ctx, u, v, wc),
                 self.diff.momentum(ctx, u, v, wd)):
             carry[lo:ke] += adv
-            carry[lo:ke] += dif
+            # a 2-D run does not diffuse v (Diff4.momentum gives None)
+            if dif is not None:
+                carry[lo:ke] += dif
 
     def scalars_plain(self, u, v, wc, names, fields, carries):
         """K17 in plain torch, in place."""
@@ -215,7 +231,7 @@ class O4Fused:
         """The k-march of K16 (ops/kmarch.py), the chunk count chosen from
         the card's resident blocks unless given."""
         ctx = self.ctx
-        info = self.k_mom.info(dtype, SCHEME_ID[self.scheme])
+        info = self.k_mom.info(dtype, self.info_scheme())
         return kmarch.plan("o4_mom", ctx.itot, ctx.jtot, ctx.ktot, 0, dtype,
                            info["blocks_per_sm"] * info["sms"], chunks)
 
@@ -238,7 +254,7 @@ class O4Fused:
         """The k-march of one K17 launch of S scalars (ops/kmarch.py), the
         chunk count chosen from the card's resident blocks unless given."""
         ctx = self.ctx
-        info = self.k_scal.info(dtype, SCHEME_ID[self.scheme], S)
+        info = self.k_scal.info(dtype, self.info_scheme(), S)
         return kmarch.plan("o4_scalars", ctx.itot, ctx.jtot, ctx.ktot, S,
                            dtype, info["blocks_per_sm"] * info["sms"], chunks)
 

@@ -24,6 +24,7 @@ import re
 import numpy as np
 import torch
 
+from .ops.boundary import ghost_filled
 from .ops.stencil import i2, im, jm
 from .ops.thermo_moist import (ThermoMoist, sat_adjust,
                                virtual_temperature)
@@ -261,7 +262,7 @@ class Stats:
                                device=ctx.device)
 
         out = {}
-        s = bnd.set_ghost_cells(ctx, s, sfc)
+        s = ghost_filled(bnd, ctx, s, sfc)
         aux = model.diff.exec_viscosity(ctx, s, sfc, {}) if has_smag else {}
 
         scalars = [n for n in fields.prognostic_names if n != "w"]

@@ -309,12 +309,13 @@ def test_k13_chunked_march_is_the_plain_version(scheme, ktot):
             assert torch.equal(g, want_n), chunks
 
 
-def o4_model(ktot, swadvec):
+def o4_model(ktot, swadvec, jtot=10):
     """A small moser180 (advec 4m) or the same with advec 4, on the tanh
-    levels of moser180_input.py, on the CPU in float64."""
+    levels of moser180_input.py, on the CPU in float64 (jtot = 1: the
+    kernels' 2-D form)."""
     with open(os.path.join(ROOT, "cases", "moser180", "moser180.ini")) as f:
         text = f.read()
-    for key, val in (("itot", 12), ("jtot", 10), ("ktot", ktot),
+    for key, val in (("itot", 12), ("jtot", jtot), ("ktot", ktot),
                      ("swstats", 0), ("swbudget", 0), ("swadvec", swadvec)):
         text = re.sub(r"(?m)^%s=.*$" % key, "%s=%s" % (key, val), text)
     m = Model(Ini(text), "run", "moser180", workdir=".", dtype=torch.float64,
@@ -551,7 +552,7 @@ def test_k17_wrapper_plans_forces_and_splits(monkeypatch):
 
 
 def k17_march(u, v, wc, a, ta, sviscs, cz, ktot, ks, M, dxi, dyi, chunks,
-              broken=None):
+              broken=None, d3=True):
     """A torch emulation of csrc/o4.cu o4_scalars_kernel, every point of a
     plane at once (the periodic halo makes a tile's points see what the
     plane's do): each chunk warms its register columns up from the ghost
@@ -565,7 +566,8 @@ def k17_march(u, v, wc, a, ta, sviscs, cz, ktot, ks, M, dxi, dyi, chunks,
     the interior, K13's rule), "w_from_k0" (w's column one half level
     high), "ring2" (two ring slots, so the copy two levels ahead lands in
     the slot being read) or "no_clamp" (the planes past the top ghost
-    level)."""
+    level).  d3 False is the 2-D form (jtot = 1): v's plane is not copied
+    and no y line is read."""
     R = 2 if broken == "ring2" else kmarch.K17_R
     RR = 2 if broken == "ring2" else kmarch.K17_RR
     g = (1. / 24., -27. / 24., 27. / 24., -1. / 24.)
@@ -603,8 +605,8 @@ def k17_march(u, v, wc, a, ta, sviscs, cz, ktot, ks, M, dxi, dyi, chunks,
         rows = [None] * RR
 
         def issue(p):
-            for n, x in enumerate(list(a) + [u, v]):
-                ring[n][p % R] = x[lev(p)]
+            for n, x in enumerate(list(a) + [u, v if d3 else None]):
+                ring[n][p % R] = None if x is None else x[lev(p)]
             rows[p % RR] = cz[min(p, ktot - 1) - (k0 if broken == "local_rows"
                                                   else 0)]
 
@@ -620,21 +622,25 @@ def k17_march(u, v, wc, a, ta, sviscs, cz, ktot, ks, M, dxi, dyi, chunks,
             cd = [zr[O4.ZD + m] for m in range(7)]
             U, V = ring[S][k % R], ring[S + 1][k % R]
             ux = [line(U, d, -1) for d in (-1, 0, 1, 2)]
-            vy = [line(V, d, -2) for d in (-1, 0, 1, 2)]
+            if d3:
+                vy = [line(V, d, -2) for d in (-1, 0, 1, 2)]
             for n in range(S):
                 P = ring[n][k % R]
                 x = [q[n][3] if d == 0 else line(P, d, -1)
                      for d in range(-3, 4)]
-                y = [q[n][3] if d == 0 else line(P, d, -2)
-                     for d in range(-3, 4)]
                 va = sum(cv[m] * q[n][m] for m in range(7))
                 vd = sum(cd[m] * q[n][m] for m in range(7))
-                lap = ((cdg[3] * (x[0] + x[6]) + cdg[2] * (x[1] + x[5])
-                        + cdg[1] * (x[2] + x[4]) + cdg[0] * x[3]) * dxi * dxi
-                       + (cdg[3] * (y[0] + y[6]) + cdg[2] * (y[1] + y[5])
-                          + cdg[1] * (y[2] + y[4]) + cdg[0] * y[3]) * dyi * dyi)
-                t = (hadv(ux, x) * dxi + hadv(vy, y) * dyi + va
-                     + sviscs[n] * (lap + vd))
+                lap = (cdg[3] * (x[0] + x[6]) + cdg[2] * (x[1] + x[5])
+                       + cdg[1] * (x[2] + x[4]) + cdg[0] * x[3]) * dxi * dxi
+                t = hadv(ux, x) * dxi
+                if d3:
+                    y = [q[n][3] if d == 0 else line(P, d, -2)
+                         for d in range(-3, 4)]
+                    lap = lap + (cdg[3] * (y[0] + y[6]) + cdg[2] * (y[1] + y[5])
+                                 + cdg[1] * (y[2] + y[4])
+                                 + cdg[0] * y[3]) * dyi * dyi
+                    t = t + hadv(vy, y) * dyi
+                t = t + va + sviscs[n] * (lap + vd)
                 ta[n][ks + k] += t
             for n in range(S):
                 q[n] = q[n][1:] + [qn[n]]
@@ -659,7 +665,7 @@ class K17Emulator(Recorder):
         assert u.shape == (ktot + 2 * ks, jtot, itot)
         k17_march(u, v, wc, [self.by_ptr[p] for p in a],
                   [self.by_ptr[p] for p in ta], list(sviscs), cz, ktot, ks,
-                  scheme == 1, dxi, dyi, chunks, self.broken)
+                  scheme == 1, dxi, dyi, chunks, self.broken, d3=jtot > 1)
 
 
 def k17_inputs(m, S, seed):
@@ -705,6 +711,31 @@ def test_k17_chunked_march_is_the_plain_version(ktot, swadvec, S,
         for g, x in zip(got, t0):
             assert torch.equal(g[:m.ctx.ks], x[:m.ctx.ks])
             assert torch.equal(g[m.ctx.ke:], x[m.ctx.ke:])
+
+
+@pytest.mark.parametrize("S", [2, 5])
+@pytest.mark.parametrize("swadvec", ["4", "4m"])
+@pytest.mark.parametrize("ktot", [6, 16])
+def test_k17_2d_chunked_march_is_the_plain_version(ktot, swadvec, S,
+                                                   monkeypatch):
+    """K17's 2-D form (jtot = 1: no y line, v not read), emulated through
+    the wrapper at every chunk count, equals scalars_plain (the ops' 2-D
+    form) to 1e-12."""
+    monkeypatch.setattr(O4, "on_cpu", lambda t: False)
+    m = o4_model(ktot, swadvec, jtot=1)
+    o4 = m.o4
+    assert not o4.dim3 and o4.k_scal.name == "o4_scalars_2d"
+    u, v, wc, names, f, t0, viscs = k17_inputs(m, S, 7 * ktot + S)
+    monkeypatch.setattr(o4.diff, "viscs", viscs)
+    want = [x.clone() for x in t0]
+    o4.scalars_plain(u, v, wc, names, f, want)
+    for chunks in range(1, ktot + 1):
+        got = [x.clone() for x in t0]
+        o4.k_scal = K17Emulator([u, v, wc] + f + got)
+        o4.scalars(u, v, wc, names, f, got, chunks=chunks)
+        assert [c[1][0] for c in o4.k_scal.calls] == (
+            [4, 1] if S == 5 else [S])
+        assert k17_rel_err(got, want) <= 1e-12, chunks
 
 
 @pytest.mark.parametrize("broken", ["local_rows", "interior_warmup",

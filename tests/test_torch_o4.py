@@ -614,14 +614,14 @@ def test_case_inputs_equal_the_case_scripts(tmp_path, monkeypatch, case):
 
 
 @pytest.mark.parametrize("change,item", [
-    (("jtot=12", "jtot=1"), 11),                          # 2-D at 4th order
+    (("[time]", "[IB]\nsw_immersed_boundary=1\n\n[time]"), 14),
     (("[diff]\nswdiff=4", "[diff]\nswdiff=4\n\n[pres]\nswpres=0"), 11),
     (("swdiff=4", "swdiff=smag2"), 11),                   # mixed orders
     (("swadvec=4", "swadvec=2i5"), 11),
     (("swthermo=buoy", "swthermo=dry"), 11),
-    (("[fields]", "[force]\nswlspres=geo\nfc=1e-4\n\n[fields]"), 11),
+    (("[time]", "[radiation]\nswradiation=gcss\n\n[time]"), 13),
     (("mbcbot=noslip", "swboundary=surface\nmbcbot=noslip"), 11),
-    (("[time]", "[cross]\nswcross=1\n\n[time]"), 15),
+    (("[time]", "[buffer]\nswupdate=1\n\n[time]"), 9),
 ])
 def test_fourth_order_options_outside_the_slice_raise(change, item):
     text = OPS_INI % {"ktot": 8, "swadvec": "4", "zsize": 1., "thermo": ""}

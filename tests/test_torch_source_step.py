@@ -7,7 +7,8 @@ RK fold, and the ``post`` mode, in float64 on the CPU:
   and ``swsource=1`` against ``swsource=0``: the co2 fields differ;
 * the 4th-order step: a 16^3 moser180 with a source on its scalar ``s``, the
   same two checks;
-* ``run_case(..., "post")`` raises NotImplementedError naming ROADMAP item 15.
+* ``run_case(..., "post")`` (ROADMAP item 15) re-reads the saved states and
+  writes their statistics again.
 """
 
 import os
@@ -142,6 +143,30 @@ def test_source_is_applied_and_matches_jax(path, tmp_path):
 
 
 def test_post_mode_names_its_roadmap_item(tmp_path):
-    (tmp_path / "drycblles.ini").write_text("[grid]\nitot=8\n")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        run_case(str(tmp_path), "drycblles", "post", device="cpu")
+    """post mode (ROADMAP item 15, done) runs: drycblles 8^2 x 16 run to
+    600 s with a restart every 300 s, then post at postproctime 300 reads
+    each saved state back and writes its statistics, whose horizontal means
+    of u and th equal the run's samples of the same states."""
+    text = case_ini("drycblles", itot=8, jtot=8, ktot=16, endtime=600,
+                    savetime=300)
+    text = text.replace("starttime=0", "starttime=0\npostproctime=300")
+    (tmp_path / "drycblles.ini").write_text(text)
+    mem = cases.drycblles_input(16)
+    wd = str(tmp_path)
+    for mode in ("init", "run"):
+        run_case(wd, "drycblles", mode, dtype=torch.float64, device="cpu",
+                 input_nc=mem)
+    name = os.path.join(wd, "drycblles.default.0000000.nc")
+    os.rename(name, name + ".run")
+    m = run_case(wd, "drycblles", "post", dtype=torch.float64, device="cpu",
+                 input_nc=mem)
+    assert m.timeloop.itime > m.timeloop.iendtime
+    from microhh_torch.stats import open_stats
+    with open_stats(name + ".run") as f, open_stats(name) as g:
+        assert list(g.variables["time"][:]) == [0., 300., 600.]
+        assert list(f.variables["time"][:]) == [0., 300., 600.]
+        assert np.array_equal(f.variables["iter"][:], g.variables["iter"][:])
+        for var in ("u", "th"):
+            a = np.asarray(f.groups["default"].variables[var][:])
+            b = np.asarray(g.groups["default"].variables[var][:])
+            assert rel(b, a) <= 1e-12, var
